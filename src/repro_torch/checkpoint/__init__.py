@@ -1,0 +1,2 @@
+from repro_torch.checkpoint.manager import (  # noqa: F401
+    latest_step, read_checkpoint_meta, restore_checkpoint, save_checkpoint)

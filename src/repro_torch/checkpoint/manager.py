@@ -1,0 +1,117 @@
+"""Checkpoints in the JAX package's on-disk format.
+
+``<dir>/step_<k:012d>/`` holds ``arrays.npz`` (one array per leaf, keyed by
+its ``/``-joined tree path, e.g. ``params/pcores0/1/phases_u``),
+``meta.json`` and a ``COMMITTED`` marker; writes go to ``.tmp`` and are
+renamed into place, so a crash never leaves a half checkpoint behind.  No
+framework owns the format, so a solver trained by the JAX package loads
+into the port and the other way round.
+
+Port of the single-process part of ``repro.checkpoint.manager``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+from pathlib import Path
+
+import numpy as np
+import torch
+
+__all__ = ["save_checkpoint", "restore_checkpoint", "read_checkpoint_meta",
+           "latest_step"]
+
+
+def _flatten(tree, prefix: str = "") -> dict:
+    """``/``-joined path → leaf; dict keys sorted, as JAX flattens them."""
+    if isinstance(tree, dict):
+        items = ((str(k), tree[k]) for k in sorted(tree))
+    elif isinstance(tree, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        return {prefix: tree}
+    flat = {}
+    for k, v in items:
+        flat.update(_flatten(v, f"{prefix}/{k}" if prefix else k))
+    return flat
+
+
+def _step_dir(directory: Path, step: int | None) -> Path:
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no complete checkpoint in {directory}")
+    path = directory / f"step_{step:012d}"
+    if not (path / "COMMITTED").exists():
+        raise FileNotFoundError(f"incomplete checkpoint {path}")
+    return path
+
+
+def save_checkpoint(directory: str | os.PathLike, step: int, tree,
+                    extra_meta: dict | None = None) -> Path:
+    """Atomic checkpoint write of a tree of tensors. Returns the final path."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    final = directory / f"step_{step:012d}"
+    tmp = directory / f"step_{step:012d}.tmp"
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir(parents=True)
+    flat = {k: v.detach().cpu().numpy() for k, v in _flatten(tree).items()}
+    np.savez(tmp / "arrays.npz", **flat)
+    meta = {"step": step, "keys": sorted(flat),
+            "dtypes": {k: str(v.dtype) for k, v in flat.items()},
+            "shapes": {k: list(v.shape) for k, v in flat.items()}}
+    if extra_meta:
+        meta.update(extra_meta)
+    (tmp / "meta.json").write_text(json.dumps(meta, indent=2))
+    (tmp / "COMMITTED").write_text("ok")   # marker inside, then atomic rename
+    if final.exists():
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    return final
+
+
+def restore_checkpoint(directory: str | os.PathLike, tree_like,
+                       step: int | None = None) -> tuple:
+    """Restore the leaves of ``tree_like`` (a tree of tensors) from a
+    checkpoint, each with its template's dtype and device; arrays of the
+    checkpoint that the template lacks stay on disk.  Returns
+    ``(tree, meta)``."""
+    path = _step_dir(Path(directory), step)
+    meta = json.loads((path / "meta.json").read_text())
+    with np.load(path / "arrays.npz") as data:
+        def restore(node, prefix):
+            if isinstance(node, dict):
+                return {k: restore(v, f"{prefix}/{k}" if prefix else str(k))
+                        for k, v in node.items()}
+            if isinstance(node, (list, tuple)):
+                return [restore(v, f"{prefix}/{i}") for i, v in enumerate(node)]
+            if prefix not in data.files:
+                raise KeyError(f"checkpoint {path} has no array {prefix!r}")
+            arr = data[prefix]
+            if tuple(arr.shape) != tuple(node.shape):
+                raise ValueError(f"{prefix}: checkpoint shape {arr.shape} != "
+                                 f"expected {tuple(node.shape)}")
+            return torch.tensor(arr, dtype=node.dtype, device=node.device)
+
+        return restore(tree_like, ""), meta
+
+
+def read_checkpoint_meta(directory: str | os.PathLike,
+                         step: int | None = None) -> dict:
+    """``meta.json`` of a complete checkpoint without loading its arrays."""
+    return json.loads((_step_dir(Path(directory), step)
+                       / "meta.json").read_text())
+
+
+def latest_step(directory: str | os.PathLike) -> int | None:
+    directory = Path(directory)
+    if not directory.exists():
+        return None
+    steps = [int(p.name.split("_")[1]) for p in directory.iterdir()
+             if p.name.startswith("step_") and not p.name.endswith(".tmp")
+             and (p / "COMMITTED").exists()]
+    return max(steps) if steps else None

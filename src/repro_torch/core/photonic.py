@@ -1,0 +1,245 @@
+"""Photonic MZI-mesh simulator — the parts load-time densification needs.
+
+A weight matrix ``W = U Σ Vᵀ`` is realized by two meshes of 2×2 MZI
+rotators; hardware imperfections act on the phases,
+``Φ_eff = Ω (Γ ⊙ Φ) + Φ_b`` (``NoiseModel``).  Serving densifies every
+(small) core mesh of a ``tonn`` solver into its TT-core once, at load
+(``PhotonicMatrix.to_dense``), through the plain gather form of the mesh
+(``mesh_apply``): no kernel runs here, in the JAX package either.
+
+Port of ``repro.core.photonic``; the stacked forms, ``mesh_apply_scan``,
+``decompose_orthogonal`` and ``from_dense`` belong to the training slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+
+__all__ = ["MeshLayout", "schedule_ops", "rectangular_layout",
+           "mesh_gather_plan", "mesh_gather_tables", "mesh_apply",
+           "NoiseModel", "PhotonicMatrix"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshLayout:
+    """Leveled mesh: level ``c`` applies rotations on wire pairs
+    ``(idx_a[c,k], idx_b[c,k])`` for every unmasked slot ``k``.
+    Padded slots point at the scratch wire ``P``."""
+
+    ports: int
+    idx_a: np.ndarray  # (levels, slots) int32
+    idx_b: np.ndarray  # (levels, slots) int32
+    mask: np.ndarray   # (levels, slots) bool
+
+    @property
+    def levels(self) -> int:
+        return self.idx_a.shape[0]
+
+    @property
+    def slots(self) -> int:
+        return self.idx_a.shape[1]
+
+    @property
+    def num_mzis(self) -> int:
+        return int(self.mask.sum())
+
+    def phase_shape(self) -> tuple:
+        return (self.levels, self.slots)
+
+
+def schedule_ops(ports: int, ops: Sequence[tuple]) -> MeshLayout:
+    """Greedy level-schedule an ordered rotation list [(a, b), ...] into
+    columns of disjoint pairs, preserving relative order on shared wires."""
+    wire_level = np.full(ports, -1, dtype=np.int64)
+    levels: list = []
+    for (a, b) in ops:
+        lvl = int(max(wire_level[a], wire_level[b])) + 1
+        while len(levels) <= lvl:
+            levels.append([])
+        levels[lvl].append((a, b))
+        wire_level[a] = lvl
+        wire_level[b] = lvl
+    n_levels = max(1, len(levels))
+    slots = max(1, max((len(l) for l in levels), default=1))
+    idx_a = np.full((n_levels, slots), ports, dtype=np.int32)
+    idx_b = np.full((n_levels, slots), ports, dtype=np.int32)
+    mask = np.zeros((n_levels, slots), dtype=bool)
+    for c, lvl in enumerate(levels):
+        for k, (a, b) in enumerate(lvl):
+            idx_a[c, k] = a
+            idx_b[c, k] = b
+            mask[c, k] = True
+    return MeshLayout(ports=ports, idx_a=idx_a, idx_b=idx_b, mask=mask)
+
+
+def rectangular_layout(ports: int) -> MeshLayout:
+    """Clements-style rectangular arrangement: ``ports`` columns alternating
+    even/odd pair offsets; exactly P(P-1)/2 MZIs."""
+    ops = []
+    for c in range(ports):
+        for a in range(c % 2, ports - 1, 2):
+            ops.append((a, a + 1))
+    layout = schedule_ops(ports, ops)
+    if layout.num_mzis != ports * (ports - 1) // 2:
+        raise AssertionError(f"rectangular layout has {layout.num_mzis} MZIs")
+    return layout
+
+
+def mesh_gather_plan(layout: MeshLayout) -> tuple:
+    """Static per-level gather plan ``(perm, slot, sign)``, each
+    ``(levels, ports)``: the wire paired with ``w`` (``w`` itself when
+    unpaired), the slot of the MZI acting on ``w``, and −1 / +1 / 0 on the
+    first lane of a pair / the second / an unpaired wire.  Memoized on the
+    (frozen) layout."""
+    plan = getattr(layout, "_gather_plan", None)
+    if plan is not None:
+        return plan
+    P = layout.ports
+    L, S = layout.idx_a.shape
+    perm = np.tile(np.arange(P, dtype=np.int32), (L, 1))
+    slot = np.zeros((L, P), dtype=np.int32)
+    sign = np.zeros((L, P), dtype=np.float32)
+    for c in range(L):
+        for k in range(S):
+            if not layout.mask[c, k]:
+                continue
+            a, b = int(layout.idx_a[c, k]), int(layout.idx_b[c, k])
+            perm[c, a], perm[c, b] = b, a
+            slot[c, a] = slot[c, b] = k
+            sign[c, a], sign[c, b] = -1.0, 1.0
+    plan = (perm, slot, sign)
+    object.__setattr__(layout, "_gather_plan", plan)
+    return plan
+
+
+def mesh_gather_tables(layout: MeshLayout, phases: torch.Tensor,
+                       transpose: bool = False) -> tuple:
+    """Per-wire trig tables ``(C, S)``, each ``(levels, ports)``, for
+    phases ``(levels, slots)`` — in APPLICATION order (``transpose``
+    reverses the level axis and negates the sines)."""
+    _, slot, sign = mesh_gather_plan(layout)
+    idx = torch.as_tensor(slot, dtype=torch.int64, device=phases.device)
+    ph = torch.gather(phases, -1, idx)                          # (L, P)
+    sign_t = torch.as_tensor(sign, device=phases.device)
+    cos = torch.where(sign_t != 0.0, torch.cos(ph), torch.ones_like(ph))
+    sin = sign_t * torch.sin(ph)                                # sign 0 → 0
+    if transpose:
+        cos = torch.flip(cos, dims=(-2,))
+        sin = -torch.flip(sin, dims=(-2,))
+    return cos, sin
+
+
+def mesh_apply(layout: MeshLayout, phases: torch.Tensor, diag: torch.Tensor,
+               x: torch.Tensor, transpose: bool = False) -> torch.Tensor:
+    """Apply the mesh unitary ``U`` (or ``Uᵀ``) to ``x`` with trailing dim P.
+
+    Gather form: ``x ← D x``, then per level
+    ``y[w] = C[c, w] · x[w] + S[c, w] · x[perm[c, w]]``.  ``transpose=True``
+    runs the levels in reverse with negated angles and applies D last.
+    """
+    perm, _, _ = mesh_gather_plan(layout)
+    cos, sin = mesh_gather_tables(layout, phases, transpose)
+    perm_seq = torch.as_tensor(perm[::-1].copy() if transpose else perm,
+                               dtype=torch.int64, device=x.device)
+    if not transpose:
+        x = x * diag.to(x.dtype)
+    cos = cos.to(x.dtype)
+    sin = sin.to(x.dtype)
+    for c in range(layout.levels):
+        x = cos[c] * x + sin[c] * x.index_select(-1, perm_seq[c])
+    if transpose:
+        x = x * diag.to(x.dtype)
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class NoiseModel:
+    """Paper §4.1 hardware imperfections, applied in the phase domain."""
+
+    gamma_mean: float = 1.0     # γ nominal
+    gamma_std: float = 0.002    # σ_γ fabrication drift
+    crosstalk: float = 0.005    # κ: thermal coupling to adjacent MZIs
+    phase_bias_scale: float = 1.0  # β·U(0,2π)
+    enabled: bool = True
+
+    def sample(self, generator: torch.Generator, phase_shape: tuple) -> dict:
+        """One chip's fixed noise, drawn on the CPU from ``generator``."""
+        if not self.enabled:
+            return {"gamma": torch.ones(phase_shape),
+                    "bias": torch.zeros(phase_shape)}
+        gamma = self.gamma_mean + self.gamma_std * torch.randn(
+            phase_shape, generator=generator)
+        bias = self.phase_bias_scale * (2.0 * math.pi) * torch.rand(
+            phase_shape, generator=generator)
+        return {"gamma": gamma, "bias": bias}
+
+    def effective_phases(self, phases: torch.Tensor, noise: dict) -> torch.Tensor:
+        """Φ_eff = Ω (Γ ⊙ Φ) + Φ_b, Ω mixing adjacent slots of a level."""
+        if not self.enabled:
+            return phases
+        p = noise["gamma"] * phases
+        if self.crosstalk > 0.0 and p.shape[-1] > 1:
+            left = torch.nn.functional.pad(p[..., 1:], (0, 1))
+            right = torch.nn.functional.pad(p[..., :-1], (1, 0))
+            p = p + self.crosstalk * (left + right)
+        return p + noise["bias"]
+
+
+class PhotonicMatrix:
+    """An (out_dim × in_dim) matrix realized as U(Φ_U) Σ Vᵀ(Φ_V).
+
+    Layouts live on the object; the params dict holds the phases, sigma and
+    the fixed ±1 ``diag_u``/``diag_v`` buffers.
+    """
+
+    def __init__(self, out_dim: int, in_dim: int):
+        self.out_dim = out_dim
+        self.in_dim = in_dim
+        self.layout_u = rectangular_layout(out_dim)
+        self.layout_v = rectangular_layout(in_dim)
+        self.k = min(out_dim, in_dim)
+
+    def init(self, generator: torch.Generator, scale: float | None = None) -> dict:
+        """Random phases (a Haar-ish orthogonal pair) and a sigma setting
+        the scale, drawn on the CPU from ``generator``."""
+        std = scale if scale is not None else math.sqrt(
+            2.0 / (self.in_dim + self.out_dim))
+        return {
+            "phases_u": 0.1 * torch.randn(self.layout_u.phase_shape(),
+                                          generator=generator),
+            "phases_v": 0.1 * torch.randn(self.layout_v.phase_shape(),
+                                          generator=generator),
+            "sigma": std * math.sqrt(float(self.k)) * torch.abs(
+                1.0 + 0.1 * torch.randn((self.k,), generator=generator)),
+            "diag_u": torch.ones((self.out_dim,)),
+            "diag_v": torch.ones((self.in_dim,)),
+        }
+
+    def apply(self, params: dict, x: torch.Tensor,
+              noise_model: NoiseModel | None = None,
+              noise: dict | None = None) -> torch.Tensor:
+        """y = U Σ Vᵀ x for trailing-dim-``in_dim`` x."""
+        pu, pv = params["phases_u"], params["phases_v"]
+        if noise_model is not None and noise is not None:
+            pu = noise_model.effective_phases(pu, noise["u"])
+            pv = noise_model.effective_phases(pv, noise["v"])
+        z = mesh_apply(self.layout_v, pv, params["diag_v"], x, transpose=True)
+        z = z[..., :self.k] * params["sigma"].to(z.dtype)
+        if self.out_dim > self.k:
+            z = torch.nn.functional.pad(z, (0, self.out_dim - self.k))
+        return mesh_apply(self.layout_u, pu, params["diag_u"], z)
+
+    def sample_noise(self, generator: torch.Generator, model: NoiseModel) -> dict:
+        return {"u": model.sample(generator, self.layout_u.phase_shape()),
+                "v": model.sample(generator, self.layout_v.phase_shape())}
+
+    def to_dense(self, params: dict, noise_model: NoiseModel | None = None,
+                 noise: dict | None = None) -> torch.Tensor:
+        eye = torch.eye(self.in_dim, dtype=torch.float32,
+                        device=params["sigma"].device)
+        return self.apply(params, eye, noise_model, noise).T   # row j = W e_j

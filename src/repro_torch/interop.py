@@ -1,0 +1,66 @@
+"""The weight carrier: numpy pytrees from the JAX package → the port's tensors.
+
+The JAX package's params and hardware-noise pytrees are nested dicts and
+lists of arrays; converted leaf by leaf to numpy (``np.asarray``) they can
+be handed to ``params_from_numpy`` / ``noise_from_numpy``, and both
+packages then compute the same thing.  JAX's threefry bits and torch's
+generators differ, so agreement never rests on seeds — only on arrays.
+
+``tree_from_flat`` rebuilds a tree from ``/``-joined path keys, the format
+of a checkpoint's ``arrays.npz`` (``pcores0/1/u/gamma``): a noise tree
+saved that way is what ``launch.serve_pde --hw-noise`` reads.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["params_from_numpy", "noise_from_numpy", "tree_from_flat"]
+
+
+def _tensors(tree, device: torch.device):
+    if isinstance(tree, dict):
+        return {k: _tensors(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tensors(v, device) for v in tree]
+    arr = np.asarray(tree)
+    if arr.dtype != np.float32:
+        raise TypeError(f"expected float32 leaves, got {arr.dtype}")
+    return torch.tensor(arr, device=device)
+
+
+def params_from_numpy(tree, device: str | torch.device) -> dict:
+    """A JAX ``TensorPinn`` params tree (numpy leaves) as tensors on
+    ``device``, in the port's params layout (which is the same tree)."""
+    return _tensors(tree, torch.device(device))
+
+
+def noise_from_numpy(tree, device: str | torch.device) -> dict | None:
+    """A JAX hardware-noise tree (``TensorPinn.sample_noise``, numpy
+    leaves) as tensors on ``device``; None stays None."""
+    return None if tree is None else _tensors(tree, torch.device(device))
+
+
+def tree_from_flat(flat: dict) -> dict:
+    """``{"a/0/b": arr, ...}`` → ``{"a": [{"b": arr}]}``: path components
+    that are all digits index lists, the others key dicts."""
+    root: dict = {}
+    for key, leaf in flat.items():
+        node = root
+        parts = key.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = leaf
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            idx = sorted(node, key=int)
+            if [int(k) for k in idx] != list(range(len(idx))):
+                raise ValueError(f"list indices {idx} are not 0..n-1")
+            return [lists(node[k]) for k in idx]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(root)

@@ -1,0 +1,175 @@
+// Fused TT-chain contraction for Hopper (sm_90a): y = x @ W(cores)^T.
+//
+// Replaces the Pallas kernel repro/kernels/tt_contract.py::tt_contract
+// (pallas_call at line 115; chain body _chain at line 46).  Like the TPU
+// kernel it keeps the whole chain on chip for a tile of rows: device memory
+// sees each input row read once, each output row written once and the cores
+// read once per block — B*N + B*M + sum|G_k| floats, the least traffic the
+// function allows.
+//
+// What bounds it on an H100: at the paper's spec (1024x1024, ranks
+// [1,2,1,2,1]) each row costs 8 KB of traffic against 64 KFLOP of chain
+// arithmetic, about 8 FLOP/byte, far under the card's f32 ridge (67 TFLOP/s
+// over 3.35 TB/s = 20 FLOP/byte): memory-bound, ~5 us for the served pool
+// of 2048 rows.  The design's answer is that traffic: intermediates never
+// leave shared memory.  Each chain step contracts only r*n_k = 8 terms into
+// m_k*r' = 8 outputs, below any tensor-core tile, so the step is plain FMA
+// work by threads striding over output elements, accumulating in f32.
+//
+// Layout of one row's intermediate A_k (the invariant of _chain):
+//   (m_1..m_k, r_k, n_{k+1}..n_L), row-major.
+// Step k, with mp over M_<k and ns over N_>k:
+//   out[mp, mk, rn, ns] = sum_{r, nk} a[mp, r, nk, ns] * G_k[r, mk, nk, rn]
+//
+// Every row's arithmetic is the same whatever tile it lands in (fixed
+// summation order per element), so padding a batch cannot change the
+// values of the real rows.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMaxCores = 8;
+constexpr int kThreads = 256;
+
+struct TTChain {
+  int L;
+  int in_dim;
+  int out_dim;
+  int widest;                       // floats per row buffer
+  int out_modes[kMaxCores];
+  int in_modes[kMaxCores];
+  int ranks[kMaxCores + 1];
+  int core_off[kMaxCores + 1];      // offsets into the shared core buffer
+  const float* cores[kMaxCores];    // device pointers, (r, m, n, r') each
+};
+
+__global__ void __launch_bounds__(kThreads)
+tt_contract_kernel(const float* __restrict__ x, float* __restrict__ y,
+                   int batch, int rows_per_block, const TTChain chain) {
+  extern __shared__ float smem[];
+  const int core_floats = (chain.core_off[chain.L] + 3) & ~3;
+  float* g_all = smem;
+  float* buf_a = smem + core_floats;
+  float* buf_b = buf_a + rows_per_block * chain.widest;
+
+  const int row0 = blockIdx.x * rows_per_block;
+  const int nrows = min(rows_per_block, batch - row0);
+  const int tid = threadIdx.x;
+
+  // pack every core into one flat shared buffer (tiny: 256 floats at the
+  // paper's spec)
+  for (int k = 0; k < chain.L; ++k) {
+    const int size = chain.core_off[k + 1] - chain.core_off[k];
+    float* dst = g_all + chain.core_off[k];
+    const float* src = chain.cores[k];
+    for (int i = tid; i < size; i += blockDim.x) dst[i] = src[i];
+  }
+  // this tile's input rows, contiguous in device memory
+  const float* xs = x + (size_t)row0 * chain.in_dim;
+  for (int i = tid; i < nrows * chain.in_dim; i += blockDim.x) {
+    const int r = i / chain.in_dim;
+    buf_a[r * chain.widest + (i - r * chain.in_dim)] = xs[i];
+  }
+  __syncthreads();
+
+  float* a = buf_a;
+  float* o = buf_b;
+  int m_prefix = 1;
+  int n_suffix = chain.in_dim;
+  for (int k = 0; k < chain.L; ++k) {
+    const int r = chain.ranks[k];
+    const int mk = chain.out_modes[k];
+    const int nk = chain.in_modes[k];
+    const int rn = chain.ranks[k + 1];
+    n_suffix /= nk;
+    const float* g = g_all + chain.core_off[k];
+    const int per_row = m_prefix * mk * rn * n_suffix;
+    const int a_mp_stride = r * nk * n_suffix;
+    for (int e = tid; e < nrows * per_row; e += blockDim.x) {
+      const int row = e / per_row;
+      const int rem = e - row * per_row;
+      int t = rem / n_suffix;
+      const int ns = rem - t * n_suffix;
+      const int rni = t % rn;
+      t /= rn;
+      const int mki = t % mk;
+      const int mp = t / mk;
+      const float* ar = a + row * chain.widest + mp * a_mp_stride + ns;
+      const float* gr = g + mki * nk * rn + rni;   // G[ri, mki, nki, rni]
+      float acc = 0.0f;
+      for (int ri = 0; ri < r; ++ri) {
+        for (int nki = 0; nki < nk; ++nki) {
+          acc = fmaf(ar[(ri * nk + nki) * n_suffix],
+                     gr[(ri * mk * nk + nki) * rn], acc);
+        }
+      }
+      o[row * chain.widest + rem] = acc;
+    }
+    __syncthreads();
+    float* tmp = a;
+    a = o;
+    o = tmp;
+    m_prefix *= mk;
+  }
+
+  float* ys = y + (size_t)row0 * chain.out_dim;
+  for (int i = tid; i < nrows * chain.out_dim; i += blockDim.x) {
+    const int r = i / chain.out_dim;
+    ys[i] = a[r * chain.widest + (i - r * chain.out_dim)];
+  }
+}
+
+}  // namespace
+
+// Plain C entry point, bound with ctypes.
+//
+// desc (host memory, int64): [L, widest, out_modes[L], in_modes[L],
+//                             ranks[L+1], core pointers[L]]
+// Launches on `stream` without synchronizing; returns cudaGetLastError()
+// (or cudaErrorInvalidValue for a descriptor the kernel cannot take).
+extern "C" int tt_contract_launch(const void* x, void* y, const void* desc_ptr,
+                                  int batch, int rows_per_block,
+                                  void* stream) {
+  const int64_t* desc = static_cast<const int64_t*>(desc_ptr);
+  TTChain chain;
+  chain.L = static_cast<int>(desc[0]);
+  if (chain.L < 1 || chain.L > kMaxCores || batch < 1 || rows_per_block < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  chain.widest = static_cast<int>(desc[1]);
+  const int64_t* out_modes = desc + 2;
+  const int64_t* in_modes = out_modes + chain.L;
+  const int64_t* ranks = in_modes + chain.L;
+  const int64_t* ptrs = ranks + chain.L + 1;
+  chain.in_dim = 1;
+  chain.out_dim = 1;
+  chain.core_off[0] = 0;
+  for (int k = 0; k < chain.L; ++k) {
+    chain.out_modes[k] = static_cast<int>(out_modes[k]);
+    chain.in_modes[k] = static_cast<int>(in_modes[k]);
+    chain.out_dim *= chain.out_modes[k];
+    chain.in_dim *= chain.in_modes[k];
+    chain.cores[k] = reinterpret_cast<const float*>(ptrs[k]);
+  }
+  for (int k = 0; k <= chain.L; ++k) chain.ranks[k] = static_cast<int>(ranks[k]);
+  for (int k = 0; k < chain.L; ++k) {
+    chain.core_off[k + 1] = chain.core_off[k] + chain.ranks[k] *
+        chain.out_modes[k] * chain.in_modes[k] * chain.ranks[k + 1];
+  }
+  const size_t core_floats = (chain.core_off[chain.L] + 3) & ~3;
+  const size_t smem = (core_floats +
+      2 * static_cast<size_t>(rows_per_block) * chain.widest) * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        tt_contract_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = (batch + rows_per_block - 1) / rows_per_block;
+  tt_contract_kernel<<<blocks, kThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(y), batch,
+      rows_per_block, chain);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,125 @@
+"""Wrapper of the hand-written CUDA TT-chain kernel (``csrc/tt_contract.cu``).
+
+Replaces the Pallas kernel ``repro/kernels/tt_contract.py::tt_contract``
+(its ``pallas_call`` at line 115): ``y = x @ W(cores)^T`` with the whole
+chain kept on chip for one tile of rows.
+
+Bound on an H100 (3.35 TB/s, 67 TFLOP/s f32 without tensor cores): at the
+paper's 1024×1024 spec a row moves 8 KB and costs 64 KFLOP, so the kernel
+is memory-bound — about 5 µs for the served pool of 2048 rows.  The design
+keeps every intermediate in shared memory, so device memory sees only the
+input, the output and the tiny cores; see the source for the chain layout.
+
+The wrapper checks what the kernel takes and raises on anything else; it
+never falls back to the plain version.  It allocates the output, launches
+on the current stream without synchronizing, and counts its launches in
+``tt_contract.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import tt as tt_lib
+from repro_torch.kernels import _build
+
+__all__ = ["tt_contract", "chain_widest", "rows_per_block"]
+
+MAX_CORES = 8                      # kMaxCores in the source
+SMEM_DEFAULT_BYTES = 48 * 1024     # shared memory without an opt-in
+SMEM_MAX_BYTES = 232_448           # Hopper's per-block opt-in maximum
+MAX_ROWS_PER_BLOCK = 16
+
+
+def chain_widest(spec: tt_lib.TTSpec) -> int:
+    """Widest intermediate along the chain, in floats per row (at least the
+    input and output widths) — as ``default_batch_tile`` of the TPU kernel
+    reckons it."""
+    widest = max(spec.in_dim, spec.out_dim)
+    m_prefix, n_suffix = 1, spec.in_dim
+    for r, m_k, n_k, r_next in spec.core_shapes:
+        n_suffix //= n_k
+        widest = max(widest, m_prefix * m_k * r_next * n_suffix)
+        m_prefix *= m_k
+    return widest
+
+
+def _core_floats(spec: tt_lib.TTSpec) -> int:
+    return (spec.num_params + 3) // 4 * 4
+
+
+def rows_per_block(spec: tt_lib.TTSpec) -> int:
+    """Rows one thread block holds: as many as let both ping-pong row
+    buffers and the cores fit the default 48 KB of shared memory (capped
+    at 16); one row with an opt-in when a single row needs more."""
+    per_row = 2 * chain_widest(spec) * 4
+    cores = _core_floats(spec) * 4
+    rows = (SMEM_DEFAULT_BYTES - cores) // per_row
+    if rows >= 1:
+        return min(rows, MAX_ROWS_PER_BLOCK)
+    if cores + per_row > SMEM_MAX_BYTES:
+        raise ValueError(f"TT chain of {spec} needs {cores + per_row} B of "
+                         f"shared memory per row; the card has "
+                         f"{SMEM_MAX_BYTES} B per block")
+    return 1
+
+
+@functools.cache
+def _launcher():
+    fn = _build.load_library("tt_contract").tt_contract_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def tt_contract(x: torch.Tensor, cores: Sequence[torch.Tensor],
+                spec: tt_lib.TTSpec) -> torch.Tensor:
+    """``y = x @ W(cores)^T`` on the card.  x: (..., N) f32 → (..., M) f32;
+    extra batch axes are flattened for the launch and restored."""
+    if x.device.type != "cuda":
+        raise ValueError(f"tt_contract runs on CUDA tensors, got {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"tt_contract takes float32, got {x.dtype}")
+    if x.ndim < 1 or x.shape[-1] != spec.in_dim:
+        raise ValueError(f"x shape {tuple(x.shape)} does not end in "
+                         f"in_dim={spec.in_dim}")
+    if not x.is_contiguous():
+        raise ValueError("tt_contract needs a contiguous x")
+    if not 1 <= spec.L <= MAX_CORES or len(cores) != spec.L:
+        raise ValueError(f"need 1..{MAX_CORES} cores matching the spec, "
+                         f"got {len(cores)} for L={spec.L}")
+    for k, (c, shape) in enumerate(zip(cores, spec.core_shapes)):
+        if (c.device != x.device or c.dtype != torch.float32
+                or tuple(c.shape) != shape or not c.is_contiguous()):
+            raise ValueError(
+                f"core {k}: need a contiguous float32 {shape} tensor on "
+                f"{x.device}, got {c.dtype} {tuple(c.shape)} on {c.device}")
+    batch_shape = x.shape[:-1]
+    B = math.prod(batch_shape)
+    y = torch.empty((*batch_shape, spec.out_dim), dtype=torch.float32,
+                    device=x.device)
+    if B == 0:
+        return y
+    if B >= 2**31:
+        raise ValueError(f"batch of {B} rows exceeds the kernel's int32 range")
+    desc = np.asarray([spec.L, chain_widest(spec), *spec.out_modes,
+                       *spec.in_modes, *spec.ranks,
+                       *(c.data_ptr() for c in cores)], dtype=np.int64)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _launcher()(x.data_ptr(), y.data_ptr(), desc.ctypes.data, B,
+                          rows_per_block(spec), stream)
+    if err != 0:
+        raise RuntimeError(f"tt_contract launch failed: CUDA error {err}")
+    tt_contract.launches += 1
+    return y
+
+
+tt_contract.launches = 0

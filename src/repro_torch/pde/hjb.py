@@ -1,0 +1,52 @@
+"""The paper's Hamilton–Jacobi–Bellman benchmark (paper Eq. 7, §4).
+
+    ∂_t u + Δu − (1/D) ‖∇_x u‖₂² = −2,   u(x, 1) = ‖x‖₁,
+    x ∈ [0,1]^D, t ∈ [0,1];  exact solution u = ‖x‖₁ + 1 − t.
+
+The ansatz u = (1−t)·f + ‖x‖₁ satisfies the terminal condition exactly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.pde import base
+
+
+class HJBProblem(base.PDEProblem):
+    """Paper Eq. 7 in ``space_dim`` spatial dimensions (paper: 20)."""
+
+    time_dependent = True
+
+    def __init__(self, space_dim: int = 20, margin: float = 0.02):
+        self.space_dim = space_dim
+        self.name = f"hjb-{space_dim}d"
+        self.margin = margin
+
+    def sample_collocation(self, generator: torch.Generator, n: int) -> torch.Tensor:
+        """Uniform (x, t) ∈ [margin, 1−margin]^{D+1} (away from the |x| kink
+        at 0 and from the domain boundary)."""
+        return base.uniform_box(generator, n, self.in_dim, self.margin,
+                                1.0 - self.margin)
+
+    def ansatz(self, f: torch.Tensor, xt: torch.Tensor) -> torch.Tensor:
+        """u = (1−t)·f + ‖x‖₁."""
+        D = self.space_dim
+        x, t = xt[..., :D], xt[..., D]
+        return (1.0 - t) * f + torch.sum(torch.abs(x), dim=-1)
+
+    def exact_solution(self, xt: torch.Tensor) -> torch.Tensor:
+        """u(x,t) = ‖x‖₁ + 1 − t."""
+        D = self.space_dim
+        x, t = xt[..., :D], xt[..., D]
+        return torch.sum(torch.abs(x), dim=-1) + 1.0 - t
+
+
+@base.register("hjb-20d")
+def _hjb_20d() -> HJBProblem:
+    return HJBProblem(space_dim=20)
+
+
+@base.register("hjb-10d")
+def _hjb_10d() -> HJBProblem:
+    return HJBProblem(space_dim=10)

@@ -1,0 +1,166 @@
+"""Solver registry: named, inference-ready ``TensorPinn`` solvers on one device.
+
+A ``LoadedSolver`` is a checkpoint (or in-memory params) pushed through the
+one-time preparation the request path must never pay for: TONN
+mesh→TT-core densification with the chip's noise baked in
+(``TensorPinn.prepare_params``), and the move to the registry's device.
+
+Checkpoints written by the JAX package's ``launch/train.py`` load by name:
+their ``meta.json`` carries the ``PINNConfig`` under ``"pinn"``.  What the
+port cannot rebuild it refuses, never ignores:
+
+  * a noise-enabled checkpoint's chip noise was sampled from the training
+    seed with JAX's threefry generator, which torch does not reproduce —
+    pass the noise itself as ``hw_noise=`` (a numpy tree from the JAX side);
+  * conditioned solvers (``coeff_spec`` in meta) and quantized configs are
+    not ported yet and raise ``NotImplementedError``.
+
+Port of ``repro.serving.registry``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import torch
+
+from repro_torch import interop
+from repro_torch.checkpoint import read_checkpoint_meta, restore_checkpoint
+from repro_torch.core import pinn
+from repro_torch.device import resolve_device, to_device
+
+__all__ = ["LoadedSolver", "SolverRegistry"]
+
+
+@dataclasses.dataclass
+class LoadedSolver:
+    """One inference-ready solver: prepared params on the device and the
+    model/problem objects the engine builds its programs against."""
+
+    name: str
+    model: pinn.TensorPinn
+    params: dict                 # prepared: TONN cores densified at load
+    step: int | None = None      # checkpoint step, None for in-memory
+    meta: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def problem(self):
+        return self.model.problem
+
+    @property
+    def in_dim(self) -> int:
+        return self.model.in_dim
+
+    @property
+    def net_dim(self) -> int:
+        return self.model.problem.net_dim
+
+
+class SolverRegistry:
+    """Name-keyed ``LoadedSolver`` store; every solver lives on ``device``."""
+
+    def __init__(self, device: str | torch.device = "cuda"):
+        self.device = resolve_device(device)
+        self._solvers: dict[str, LoadedSolver] = {}
+
+    def _check_device(self, device) -> None:
+        dev = resolve_device(device)
+        if dev != self.device:
+            raise ValueError(f"this registry serves on {self.device}, "
+                             f"not {dev}")
+
+    # ---------------------------------------------------------------- access
+    def get(self, name: str) -> LoadedSolver:
+        if name not in self._solvers:
+            raise KeyError(f"unknown solver {name!r}; "
+                           f"loaded: {sorted(self._solvers)}")
+        return self._solvers[name]
+
+    def names(self) -> tuple:
+        return tuple(sorted(self._solvers))
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._solvers
+
+    def __len__(self) -> int:
+        return len(self._solvers)
+
+    # -------------------------------------------------------------- register
+    def register(self, name: str, model: pinn.TensorPinn, params: dict,
+                 hw_noise: dict | None = None, step: int | None = None,
+                 meta: dict | None = None) -> LoadedSolver:
+        """Register an in-memory solver: params (and ``hw_noise``) are moved
+        to the registry's device and prepared there, once."""
+        if model.uses_noise and hw_noise is None:
+            raise ValueError(f"solver {name!r} has the noise model on; "
+                             "pass the chip's hw_noise")
+        if not model.uses_noise and hw_noise is not None:
+            raise ValueError(f"solver {name!r} uses no hardware noise, "
+                             "but hw_noise was given")
+        params = to_device(params, self.device)
+        if hw_noise is not None:
+            hw_noise = to_device(hw_noise, self.device)
+        with torch.no_grad():
+            prepared, _ = model.prepare_params(params, hw_noise)
+        solver = LoadedSolver(name=name, model=model, params=prepared,
+                              step=step, meta=meta or {})
+        self._solvers[name] = solver
+        return solver
+
+    def load_checkpoint(self, name: str, directory: str | os.PathLike,
+                        cfg: pinn.PINNConfig | None = None,
+                        step: int | None = None,
+                        hw_noise: dict | None = None,
+                        device: str | torch.device = "cuda") -> LoadedSolver:
+        """Load a ``TensorPinn`` checkpoint written by the JAX package's
+        ``launch/train.py`` (or by ``checkpoint.save_checkpoint``) and
+        register it under ``name``.  Only the ``params`` subtree is read.
+
+        ``hw_noise`` is the chip's noise tree as numpy arrays (the JAX
+        ``TensorPinn.sample_noise`` output); a noise-enabled tonn
+        checkpoint needs it."""
+        self._check_device(device)
+        meta = read_checkpoint_meta(directory, step)
+        step = meta["step"]  # pin: meta and arrays must be one checkpoint
+        if cfg is None:
+            if "pinn" not in meta:
+                raise ValueError(
+                    f"checkpoint {directory} predates solver metadata "
+                    "(no 'pinn' key in meta.json); pass cfg= explicitly")
+            cfg = pinn.config_from_meta(meta["pinn"])
+        if "coeff_spec" in meta:
+            raise NotImplementedError(
+                f"checkpoint {directory} is a coefficient-conditioned solver; "
+                "conditioned serving is not ported yet")
+        if cfg.quant.enabled:
+            raise NotImplementedError(
+                f"checkpoint {directory} has a quantized config; quantized "
+                "serving is not ported yet")
+        # meta "term_weights" weigh training losses only; u does not read them
+        model = pinn.TensorPinn(cfg)
+        if model.uses_noise and hw_noise is None:
+            raise ValueError(
+                f"checkpoint {directory} has the noise model on: its chip "
+                "noise was drawn from the training seed with JAX's threefry "
+                "generator, which torch cannot reproduce; pass the noise "
+                "tree as hw_noise= (numpy arrays of the JAX "
+                "TensorPinn.sample_noise output)")
+        like = model.init(torch.Generator().manual_seed(0))
+        restored, meta = restore_checkpoint(directory, {"params": like}, step)
+        return self.register(
+            name, model, restored["params"],
+            hw_noise=interop.noise_from_numpy(hw_noise, self.device),
+            step=meta.get("step"), meta=meta)
+
+    def register_fresh(self, name: str, cfg: pinn.PINNConfig, seed: int = 0,
+                       device: str | torch.device = "cuda") -> LoadedSolver:
+        """Register a freshly initialized (UNTRAINED) solver whose weights
+        and chip noise come from ``seed`` — benchmark and smoke-test
+        convenience; inference cost is a trained solver's."""
+        self._check_device(device)
+        model = pinn.TensorPinn(cfg)
+        gen = torch.Generator().manual_seed(seed)
+        params = model.init(gen)
+        return self.register(name, model, params,
+                             hw_noise=model.sample_noise(gen))

@@ -1,0 +1,137 @@
+"""The port's MZI-mesh simulator against the JAX package's.
+
+Phases, diagonals, inputs and noise are made with numpy from a seed (or, for
+the noise case, sampled by JAX) and handed to both packages.  Tolerance for
+mesh outputs: ``rtol=1e-5, atol=1e-5`` — the same f32 rotations level by
+level, with sin/cos from two libraries.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import photonic as jph
+from repro_torch import interop
+from repro_torch.core import photonic as tph
+
+RTOL = ATOL = 1e-5
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.mark.parametrize("ports", [1, 2, 3, 4, 8, 16, 33])
+def test_rectangular_layout_and_gather_plan_equal(ports):
+    jl, tl = jph.rectangular_layout(ports), tph.rectangular_layout(ports)
+    assert tl.ports == jl.ports
+    for field in ("idx_a", "idx_b", "mask"):
+        np.testing.assert_array_equal(getattr(tl, field), getattr(jl, field))
+    assert tl.num_mzis == jl.num_mzis == ports * (ports - 1) // 2
+    for a, b in zip(tph.mesh_gather_plan(tl), jph.mesh_gather_plan(jl)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_schedule_ops_equal_on_an_irregular_rotation_list():
+    ops = [(0, 1), (2, 3), (1, 2), (0, 1), (3, 4), (2, 3), (1, 2)]
+    jl, tl = jph.schedule_ops(5, ops), tph.schedule_ops(5, ops)
+    for field in ("idx_a", "idx_b", "mask"):
+        np.testing.assert_array_equal(getattr(tl, field), getattr(jl, field))
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("ports", [4, 8, 16])
+def test_mesh_apply_matches_jax(ports, transpose):
+    rng = np.random.RandomState(ports + transpose)
+    layout_j = jph.rectangular_layout(ports)
+    layout_t = tph.rectangular_layout(ports)
+    phases = rng.uniform(-np.pi, np.pi, layout_j.phase_shape()).astype(
+        np.float32)
+    diag = rng.choice([-1.0, 1.0], ports).astype(np.float32)
+    x = rng.standard_normal((2, 5, ports)).astype(np.float32)
+    y_jax = np.asarray(jph.mesh_apply(layout_j, jnp.asarray(phases),
+                                      jnp.asarray(diag), jnp.asarray(x),
+                                      transpose=transpose))
+    y = tph.mesh_apply(layout_t, torch.tensor(phases), torch.tensor(diag),
+                       torch.tensor(x), transpose=transpose)
+    np.testing.assert_allclose(y.numpy(), y_jax, rtol=RTOL, atol=ATOL)
+    cos_j, sin_j = jph.mesh_gather_tables(layout_j, jnp.asarray(phases),
+                                          transpose)
+    cos_t, sin_t = tph.mesh_gather_tables(layout_t, torch.tensor(phases),
+                                          transpose)
+    np.testing.assert_allclose(cos_t.numpy(), np.asarray(cos_j),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(sin_t.numpy(), np.asarray(sin_j),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_effective_phases_match_jax():
+    rng = np.random.RandomState(0)
+    phases = rng.standard_normal((6, 4)).astype(np.float32)
+    noise = {"gamma": (1.0 + 0.01 * rng.standard_normal((6, 4))).astype(
+        np.float32),
+             "bias": rng.uniform(0, 2 * np.pi, (6, 4)).astype(np.float32)}
+    for kw in ({}, {"crosstalk": 0.0}, {"enabled": False}):
+        jm, tm = jph.NoiseModel(**kw), tph.NoiseModel(**kw)
+        got = tm.effective_phases(torch.tensor(phases),
+                                  interop.noise_from_numpy(noise, "cpu"))
+        want = jm.effective_phases(jnp.asarray(phases),
+                                   jax.tree.map(jnp.asarray, noise))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=RTOL, atol=ATOL)
+
+
+def test_noise_sample_shapes_and_ranges():
+    model = tph.NoiseModel(enabled=True)
+    a = model.sample(torch.Generator().manual_seed(1), (7, 3))
+    b = model.sample(torch.Generator().manual_seed(1), (7, 3))
+    assert set(a) == {"gamma", "bias"}
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert a["gamma"].dtype == a["bias"].dtype == torch.float32
+    assert 0.0 <= float(a["bias"].min()) and float(a["bias"].max()) < 2 * np.pi
+    off = tph.NoiseModel(enabled=False).sample(None, (2, 2))
+    assert torch.equal(off["gamma"], torch.ones(2, 2))
+    assert torch.equal(off["bias"], torch.zeros(2, 2))
+
+
+@pytest.mark.parametrize("noisy", [False, True])
+@pytest.mark.parametrize("out_dim,in_dim", [(8, 8), (4, 16), (16, 8)])
+def test_photonic_matrix_to_dense_matches_jax(out_dim, in_dim, noisy):
+    jm = jph.PhotonicMatrix(out_dim, in_dim)
+    tm = tph.PhotonicMatrix(out_dim, in_dim)
+    params = _np_tree(jm.init(jax.random.PRNGKey(out_dim * in_dim)))
+    model_j, model_t, noise = None, None, None
+    if noisy:
+        model_j, model_t = jph.NoiseModel(), tph.NoiseModel()
+        noise = _np_tree(jm.sample_noise(jax.random.PRNGKey(7), model_j))
+    w_jax = np.asarray(jm.to_dense(jax.tree.map(jnp.asarray, params),
+                                   model_j, noise and jax.tree.map(
+                                       jnp.asarray, noise)))
+    w = tm.to_dense(interop.params_from_numpy(params, "cpu"), model_t,
+                    interop.noise_from_numpy(noise, "cpu"))
+    assert tuple(w.shape) == (out_dim, in_dim)
+    np.testing.assert_allclose(w.numpy(), w_jax, rtol=RTOL, atol=ATOL)
+    # to_dense is apply on the identity: W x == apply(x)
+    x = np.random.RandomState(1).standard_normal((3, in_dim)).astype(
+        np.float32)
+    y = tm.apply(interop.params_from_numpy(params, "cpu"), torch.tensor(x),
+                 model_t, interop.noise_from_numpy(noise, "cpu"))
+    np.testing.assert_allclose(y.numpy(), x @ w_jax.T, rtol=RTOL, atol=ATOL)
+
+
+def test_photonic_matrix_init_tree_matches_jax():
+    """Same keys, shapes and dtypes as the JAX params tree, so a JAX tree
+    converts leaf for leaf and a checkpoint restores into it."""
+    jm, tm = jph.PhotonicMatrix(16, 8), tph.PhotonicMatrix(16, 8)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tp = tm.init(torch.Generator().manual_seed(0))
+    assert set(tp) == set(jp)
+    for k in jp:
+        assert tuple(tp[k].shape) == tuple(jp[k].shape), k
+        assert tp[k].dtype == torch.float32
+    jn = jm.sample_noise(jax.random.PRNGKey(1), jph.NoiseModel())
+    tn = tm.sample_noise(torch.Generator().manual_seed(1), tph.NoiseModel())
+    assert jax.tree.map(np.shape, jn) == jax.tree.map(
+        lambda t: tuple(t.shape), tn)

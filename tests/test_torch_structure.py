@@ -1,0 +1,136 @@
+"""Rules the port keeps whatever its numbers: it imports no JAX and nothing of
+the JAX package, its entry points run on the card unless the CPU is asked
+for, its kernels are picked by the tensor's device (no switch), and
+``chip_smoke.py`` refuses to report without a GPU."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import device as device_lib
+from repro_torch.core import pinn as tpinn
+from repro_torch.kernels import _build
+from repro_torch.launch import serve_pde
+from repro_torch.serving import PdeServingEngine, SolverRegistry
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+# files that run where no JAX is installed: the package, the chip script
+# and the tests that need the card
+JAX_FREE = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "tests" / "test_torch_gpu.py"]
+FORBIDDEN_ROOTS = {"jax", "jaxlib", "repro"}
+
+
+def _imported_roots(path: Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", JAX_FREE, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = _imported_roots(path) & FORBIDDEN_ROOTS
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, repro_torch.serving, repro_torch.launch.serve_pde; "
+            "bad = [m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
+            "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_no_env_switch_picks_a_kernel():
+    for path in PORT.rglob("*.py"):
+        assert "REPRO_KERNEL_MODE" not in path.read_text(), path
+    ops_src = (PORT / "kernels" / "ops.py").read_text()
+    assert "environ" not in ops_src and "except" not in ops_src
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_refuses_without_a_gpu(tmp_path, alone):
+    """No CUDA device (this machine), in the checkout and copied alone into
+    an empty directory: a non-zero exit and no result line."""
+    script = ROOT / "chip_smoke.py"
+    if alone:
+        script = Path(shutil.copy(script, tmp_path / "chip_smoke.py"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run([sys.executable, str(script)], cwd=script.parent,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+    assert '"kernels"' not in proc.stdout
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_is_the_card(no_gpu, tmp_path):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device_lib.resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SolverRegistry()
+    reg = SolverRegistry(device="cpu")
+    cfg = tpinn.PINNConfig(hidden=16, mode="tt", tt_L=3, pde="heat-10d")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        reg.register_fresh("heat", cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        reg.load_checkpoint("heat", tmp_path)
+    reg.register_fresh("heat", cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PdeServingEngine(reg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_pde.main(["--ckpt", f"heat={tmp_path}", "--synthetic", "1"])
+    eng = PdeServingEngine(reg, device="cpu")
+    assert eng.device == torch.device("cpu")
+
+
+def test_resolve_device_rules(no_gpu):
+    assert device_lib.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        device_lib.resolve_device("meta")
+    reg = SolverRegistry(device="cpu")
+    cfg = tpinn.PINNConfig(hidden=16, mode="tt", tt_L=3, pde="heat-10d")
+    tree = {"a": [torch.zeros(1)], "b": torch.ones(2)}
+    moved = device_lib.to_device(tree, torch.device("cpu"))
+    assert moved["a"][0].device.type == "cpu" and set(moved) == {"a", "b"}
+    reg.register_fresh("heat", cfg, device="cpu")
+    assert reg.names() == ("heat",) and "heat" in reg and len(reg) == 1
+    with pytest.raises(KeyError):
+        reg.get("hjb")
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    """No fallback: without nvcc the build raises, and builds only from the
+    checkout's sources into its ignored build directory."""
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "CUDA_ROOT", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build("tt_contract")
+    assert _build.CSRC_DIR == PORT / "kernels" / "csrc"
+    assert (_build.CSRC_DIR / "tt_contract.cu").is_file()
+    assert "build/" in (ROOT / ".gitignore").read_text().split()
+    assert np.all([f in _build.NVCC_FLAGS
+                   for f in ("arch=compute_90a,code=sm_90a", "-shared")])

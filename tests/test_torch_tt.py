@@ -1,0 +1,164 @@
+"""The port's TT algebra and its ``tt_linear`` dispatch against the JAX package.
+
+Every input is made with numpy from a seed and handed to both packages.
+Tolerance for outputs: ``rtol=1e-5, atol=1e-5`` — the two sides take the
+same f32 products but sum them in a different order over the chain steps.
+The JAX side runs ``ops.tt_linear`` both through its plain chain
+(``mode="ref"``) and through the Pallas kernel body in interpret mode, as
+``tests/test_kernels.py`` runs it.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import tt as jtt
+from repro.kernels import ops as jops
+from repro_torch.core import tt as ttt
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import tt_contract as tttc
+
+RTOL = ATOL = 1e-5
+
+# (out_dim, in_dim, L, max_rank)
+FACTOR_CASES = [(1024, 1024, 4, 2), (64, 64, 3, 2), (256, 512, 3, 4),
+                (128, 96, 3, 4), (48, 60, 3, 16), (1024, 24, 4, 2),
+                (7, 13, 2, 3)]
+
+# label -> (spec, batch shape); 3-4 auto_factorize specs besides the paper's
+CHAIN_CASES = {
+    "paper": (jtt.PAPER_TONN_SPEC, (33,)),
+    "reduced-64": (jtt.auto_factorize(64, 64, L=3, max_rank=2), (17,)),
+    "rank4-256x512": (jtt.auto_factorize(256, 512, L=3, max_rank=4), (9,)),
+    "nonsquare-96x128": (jtt.auto_factorize(96, 128, L=2, max_rank=8), (5,)),
+    "paper-batch-axes": (jtt.PAPER_TONN_SPEC, (3, 5)),
+    "reduced-batch-axes": (jtt.auto_factorize(64, 64, L=3, max_rank=2),
+                           (2, 3, 4)),
+}
+
+
+def _port_spec(spec: jtt.TTSpec) -> ttt.TTSpec:
+    return ttt.TTSpec(spec.out_modes, spec.in_modes, spec.ranks)
+
+
+def _inputs(spec, batch_shape, seed):
+    rng = np.random.RandomState(seed)
+    cores = [rng.standard_normal(s).astype(np.float32) * 0.5
+             for s in spec.core_shapes]
+    x = rng.standard_normal((*batch_shape, spec.in_dim)).astype(np.float32)
+    return cores, x
+
+
+@pytest.mark.parametrize("out_dim,in_dim,L,rank", FACTOR_CASES)
+def test_specs_equal_jax(out_dim, in_dim, L, rank):
+    for make in ("auto_factorize", "hjb_layer_spec"):
+        js = getattr(jtt, make)(out_dim, in_dim, L=L, max_rank=rank)
+        ps = getattr(ttt, make)(out_dim, in_dim, L=L, max_rank=rank)
+        assert (ps.out_modes, ps.in_modes, ps.ranks) == \
+            (js.out_modes, js.in_modes, js.ranks)
+        assert ps.core_shapes == js.core_shapes
+        assert ps.num_params == js.num_params
+        assert (ps.in_dim, ps.out_dim, ps.L) == (js.in_dim, js.out_dim, js.L)
+        for batch in (1, 2048):
+            assert ps.contraction_flops(batch) == js.contraction_flops(batch)
+
+
+def test_paper_spec_and_balanced_factorization():
+    assert ttt.PAPER_TONN_SPEC == _port_spec(jtt.PAPER_TONN_SPEC)
+    assert ttt.PAPER_TONN_SPEC.num_params == 256
+    for n in (1, 7, 24, 1000, 1024, 4096):
+        for parts in (1, 2, 3, 4):
+            assert ttt._balanced_factorization(n, parts) == \
+                jtt._balanced_factorization(n, parts)
+    with pytest.raises(ValueError):
+        ttt.TTSpec((2, 2), (2, 2), (1, 3, 2))
+
+
+@pytest.mark.parametrize("mode", ["ref", "interpret"])
+@pytest.mark.parametrize("label", sorted(CHAIN_CASES))
+def test_tt_linear_matches_jax(label, mode):
+    spec, batch_shape = CHAIN_CASES[label]
+    cores, x = _inputs(spec, batch_shape, seed=len(label))
+    y_jax = np.asarray(jops.tt_linear(jnp.asarray(x),
+                                      [jnp.asarray(c) for c in cores],
+                                      spec, mode=mode))
+    y = tops.tt_linear(torch.tensor(x), [torch.tensor(c) for c in cores],
+                       _port_spec(spec))
+    assert tuple(y.shape) == (*batch_shape, spec.out_dim)
+    np.testing.assert_allclose(y.numpy(), y_jax, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("label", ["paper", "reduced-64", "rank4-256x512"])
+def test_tt_to_full_matches_jax_and_chain(label):
+    spec, _ = CHAIN_CASES[label]
+    cores, x = _inputs(spec, (6,), seed=3)
+    w_jax = np.asarray(jtt.tt_to_full([jnp.asarray(c) for c in cores], spec))
+    tcores = [torch.tensor(c) for c in cores]
+    w = ttt.tt_to_full(tcores, _port_spec(spec))
+    np.testing.assert_allclose(w.numpy(), w_jax, rtol=RTOL, atol=ATOL)
+    # the chain equals the dense product it never forms
+    np.testing.assert_allclose(
+        ttt.tt_matvec(tcores, torch.tensor(x), _port_spec(spec)).numpy(),
+        (x.astype(np.float64) @ w_jax.T.astype(np.float64)),
+        rtol=RTOL, atol=ATOL)
+
+
+def test_tt_init_is_seeded_and_glorot_scaled():
+    spec = ttt.PAPER_TONN_SPEC
+    a = ttt.tt_init(torch.Generator().manual_seed(5), spec)
+    b = ttt.tt_init(torch.Generator().manual_seed(5), spec)
+    assert [tuple(c.shape) for c in a] == list(spec.core_shapes)
+    assert all(c.dtype == torch.float32 for c in a)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    # implied dense W has about the Glorot variance 2 / (in + out)
+    w = torch.cat([ttt.tt_to_full(ttt.tt_init(
+        torch.Generator().manual_seed(s), spec), spec).flatten()
+        for s in range(4)])
+    assert 0.5 < float(w.var()) * (spec.in_dim + spec.out_dim) / 2.0 < 2.0
+
+
+def test_plain_version_is_the_chain():
+    spec = _port_spec(CHAIN_CASES["rank4-256x512"][0])
+    cores, x = _inputs(spec, (4,), seed=9)
+    tcores = [torch.tensor(c) for c in cores]
+    assert torch.equal(tref.tt_contract_ref(torch.tensor(x), tcores, spec),
+                       ttt.tt_matvec(tcores, torch.tensor(x), spec))
+
+
+def test_cpu_dispatch_never_launches_the_kernel():
+    spec = ttt.PAPER_TONN_SPEC
+    cores, x = _inputs(spec, (4,), seed=1)
+    before = tttc.tt_contract.launches
+    tops.tt_linear(torch.tensor(x), [torch.tensor(c) for c in cores], spec)
+    assert tttc.tt_contract.launches == before
+
+
+def test_kernel_wrapper_refuses_what_it_cannot_take():
+    """The wrapper runs CUDA tensors only; everything else raises before
+    any build or launch — on the CPU and on a device without storage."""
+    spec = ttt.PAPER_TONN_SPEC
+    cores = [torch.zeros(s) for s in spec.core_shapes]
+    with pytest.raises(ValueError, match="CUDA"):
+        tttc.tt_contract(torch.zeros(2, 1024), cores, spec)
+    # the dispatcher sends any non-CPU tensor to the kernel, never to the
+    # plain version: a meta tensor reaches the wrapper and is refused
+    meta_cores = [c.to("meta") for c in cores]
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.tt_linear(torch.zeros(2, 1024, device="meta"), meta_cores, spec)
+
+
+@pytest.mark.parametrize("label", ["paper", "reduced-64", "rank4-256x512"])
+def test_kernel_tiling_fits_shared_memory(label):
+    """Rows per block and the widest intermediate as the kernel will use
+    them: both ping-pong buffers and the cores fit the default 48 KB."""
+    spec = _port_spec(CHAIN_CASES[label][0])
+    widest = tttc.chain_widest(spec)
+    assert widest >= max(spec.in_dim, spec.out_dim)
+    rows = tttc.rows_per_block(spec)
+    assert 1 <= rows <= tttc.MAX_ROWS_PER_BLOCK
+    smem = 4 * (tttc._core_floats(spec) + 2 * rows * widest)
+    assert smem <= tttc.SMEM_DEFAULT_BYTES
+    if label == "paper":
+        assert widest == 1024          # 4 KB per row at every chain step
