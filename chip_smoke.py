@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one GPU: build, check, serve, time.
+"""Smoke run of the PyTorch/CUDA port on one GPU: build, check, serve, train,
+time.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
   1. device   — the card's name, count, power limit; TF32 off everywhere.
-  2. build    — ``nvcc`` builds the ``tt_contract`` kernel from the sources
-                in this checkout; prints ptxas' register / shared-memory line.
-  3. kernel   — the kernel against its plain PyTorch version on the card at
+  2. build    — ``nvcc`` builds the ``tt_contract`` and ``mesh_apply``
+                sources of this checkout, both at once; prints ptxas'
+                register / shared-memory lines.
+  3. kernel   — ``tt_contract`` against its plain PyTorch version on the card at
                 the paper's spec (B = 2048, the served pool, and 65,536), the
                 reduced config's spec at a B that is not a multiple of the
                 tile, and a rank-4 non-square spec; bound
@@ -27,7 +29,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 algorithm per batch size), the same forward on the CPU (plain
                 path, rtol = atol = 1e-5), two programs built, and two kernel
                 launches per program run.
-  5. report   — one ``{"kernels": [...]}`` line, the card's name and power
+  5. batched  — ``tt_contract_batched`` at the three launches of a training
+                step on the paper's spec (P = 11: layer 0 on the 100 rows and
+                on the 21 identity columns, shared; the hidden layer on
+                4300 rows per entry) and a rank-4 non-square spec at P = 3,
+                B = 777, against ``tt_contract_batched_ref`` at the bound of
+                phase 3; every entry p bit for bit against
+                ``tt_contract(x[p], cores[p])``.  Times the hidden-layer
+                launch, its plain version and ``torch.bmm(x, Wᵀ)`` against
+                the densified per-entry weights.
+  6. mesh     — ``mesh_apply_stacked`` on the 16- and 4-port layouts of the
+                paper's core meshes, transposed and not, x shared and per
+                entry, and a 64-port layout, against
+                ``photonic.mesh_apply_stacked`` at the same bound.  Times the
+                16-port transposed identity feed of a densification, its
+                plain version and ``torch.matmul`` against the densified
+                per-entry unitaries.
+  7. train    — the port's trainer (``repro_torch.launch.train.main``) on
+                the card: the paper's TONN_ONCHIP_FUSED (hjb-20d, tonn,
+                hidden 1024, noise on), N = 10, batch 100, 50 steps and a
+                checkpoint.  Checks: finite losses and val MSE, the median
+                of the last 10 losses below the first, the ±1 buffers
+                bit-unchanged, exactly 3 ``tt_contract_batched`` and 16
+                ``mesh_apply_stacked`` launches per step; one step's stacked
+                stencil u-values and (P,) losses on the card against the
+                same params, ξ, batch and noise through the plain path on
+                the CPU (u within 1e-4 of max|u|, losses rtol 1e-1: the FD
+                residual amplifies f32 differences by 1/h² = 1e4); the
+                checkpoint loads into ``SolverRegistry`` and its served u
+                equals the trainer's final ``model.u`` (1e-6).  Times a ZO
+                step with CUDA events.
+  8. report   — one ``{"kernels": [...]}`` line, the card's name and power
                 limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device, or run outside a checkout of the repository, it exits
@@ -37,9 +69,12 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -89,18 +124,35 @@ def phase_device():
     return name, count, card
 
 
+KERNEL_SOURCES = ("tt_contract", "mesh_apply")
+
+
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    lib = _build.build("tt_contract")
-    _build.load_library("tt_contract")
-    ptxas = [line.strip() for line in
-             Path(f"{lib}.log").read_text().splitlines()
-             if "registers" in line or "smem" in line or "spill" in line]
-    print(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s "
-          f"(cached builds take no time)", flush=True)
-    for line in ptxas:
-        print(f"[build] ptxas: {line}", flush=True)
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:   # one nvcc each
+        libs = list(pool.map(_build.build, KERNEL_SOURCES))
+    print(f"[build] {', '.join(lib.name for lib in libs)} in "
+          f"{time.perf_counter() - t0:.1f} s (cached builds take no time)",
+          flush=True)
+    for name, lib in zip(KERNEL_SOURCES, libs):
+        _build.load_library(name)
+        for line in Path(f"{lib}.log").read_text().splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                print(f"[build] {name} ptxas: {line.strip()}", flush=True)
+
+
+def _check_close(name: str, label: str, got, plain) -> tuple:
+    """(max|got − plain|, max|plain|); raises past 1e-5·max|plain| + 1e-6."""
+    import torch
+    torch.cuda.synchronize()
+    err = (got - plain).abs().max().item()
+    scale = plain.abs().max().item()
+    if not (torch.isfinite(got).all().item() and err <= 1e-5 * scale + 1e-6):
+        raise AssertionError(f"{name} disagrees with its plain version at "
+                             f"{label}: max|diff| {err:.3e}, max|plain| "
+                             f"{scale:.3e}")
+    return err, scale
 
 
 def phase_kernel(device) -> dict:
@@ -262,6 +314,229 @@ def phase_serve(device) -> dict:
     return out
 
 
+def phase_batched(device) -> dict:
+    import torch
+    from repro_torch.core import tt
+    from repro_torch.kernels import ref, tt_contract as ttc
+
+    paper = tt.PAPER_TONN_SPEC
+    rank4 = tt.auto_factorize(256, 512, L=3, max_rank=4)
+    # label -> (spec, P, rows, shared x); "hidden-stencil" is the main one
+    cases = {"layer0-rows": (paper, 11, 100, True),
+             "layer0-columns": (paper, 11, 21, True),
+             "hidden-stencil": (paper, 11, 4300, False),
+             "rank4-777": (rank4, 3, 777, False)}
+    results = {}
+    for i, (label, (spec, P, B, shared)) in enumerate(cases.items()):
+        gen = torch.Generator().manual_seed(2000 + i)
+        per = [tt.tt_init(gen, spec) for _ in range(P)]
+        cores = [torch.stack([c[k] for c in per]).to(device)
+                 for k in range(spec.L)]
+        x = torch.randn((B, spec.in_dim) if shared
+                        else (P, B, spec.in_dim), generator=gen).to(device)
+        y = ttc.tt_contract_batched(x, cores, spec)
+        plain = ref.tt_contract_batched_ref(x, cores, spec)
+        err, scale = _check_close("tt_contract_batched", label, y, plain)
+        for p in range(P):              # entry p is tt_contract's chain
+            single = ttc.tt_contract(x if shared else x[p].contiguous(),
+                                     [c[p].contiguous() for c in cores], spec)
+            if not torch.equal(y[p], single):
+                raise AssertionError(f"tt_contract_batched entry {p} at "
+                                     f"{label} differs from tt_contract")
+        row = {"case": label, "P": P, "rows": B, "shared_x": shared,
+               "modes": [list(spec.out_modes), list(spec.in_modes)],
+               "ranks": list(spec.ranks), "max_abs_err": err,
+               "max_abs_plain": scale, "entries_bitwise_equal": True}
+        if label == "hidden-stencil":
+            w = torch.stack([tt.tt_to_full([c[p] for c in cores], spec)
+                             for p in range(P)])                # (P, M, N)
+            wt = w.transpose(1, 2)
+            row["ms"] = _time_ms(lambda: ttc.tt_contract_batched(
+                x, cores, spec), 50)
+            row["plain_ms"] = _time_ms(lambda: ref.tt_contract_batched_ref(
+                x, cores, spec), 10)
+            row["library_ms"] = _time_ms(lambda: torch.bmm(x, wt), 50)
+            x_elems = (1 if shared else P) * B * spec.in_dim
+            t_bytes = 4 * (x_elems + P * B * spec.out_dim
+                           + P * spec.num_params) / PEAK_BYTES_PER_S * 1e3
+            t_ops = P * spec.contraction_flops(B) / PEAK_F32_FLOPS * 1e3
+            row["bound_ms"], row["bound_by"] = (
+                (t_bytes, "bytes") if t_bytes >= t_ops
+                else (t_ops, "operations"))
+        results[label] = row
+        print(f"[batched] {json.dumps(row)}", flush=True)
+    return results
+
+
+def phase_mesh(device) -> dict:
+    import torch
+    from repro_torch.core import photonic
+    from repro_torch.kernels import mesh_apply as mesh
+
+    # label -> (ports, S, rows, shared x, transpose); the paper's core
+    # meshes have 16 and 4 ports; "v16-identity" (the V mesh of a 4x16
+    # core, transposed, on the identity feed) is the main one
+    cases = {"v16-identity": (16, 11, 16, True, True),
+             "v4-identity": (4, 11, 4, True, True),
+             "u4-per-entry": (4, 11, 16, False, False),
+             "u16-per-entry": (16, 11, 4, False, False),
+             "u16-shared": (16, 11, 16, True, False),
+             "p64-per-entry": (64, 3, 37, False, True)}
+    results = {}
+    for i, (label, (ports, S, B, shared, transpose)) in enumerate(
+            cases.items()):
+        layout = photonic.rectangular_layout(ports)
+        gen = torch.Generator().manual_seed(3000 + i)
+        phases = torch.randn((S, *layout.phase_shape()), generator=gen)
+        diag = torch.where(torch.rand((S, ports), generator=gen) < 0.5,
+                           -1.0, 1.0)
+        x = (torch.eye(ports) if label.endswith("identity") else
+             torch.randn((B, ports) if shared else (S, B, ports),
+                         generator=gen))
+        phases, diag, x = phases.to(device), diag.to(device), x.to(device)
+        y = mesh.mesh_apply_stacked(layout, phases, diag, x, transpose)
+        plain = photonic.mesh_apply_stacked(layout, phases, diag, x,
+                                            transpose)
+        err, scale = _check_close("mesh_apply_stacked", label, y, plain)
+        row = {"case": label, "ports": ports, "levels": layout.levels,
+               "S": S, "rows": B, "shared_x": shared, "transpose": transpose,
+               "rows_per_block": mesh.rows_per_block(layout),
+               "max_abs_err": err, "max_abs_plain": scale,
+               "bitwise_equal": bool(torch.equal(y, plain))}
+        if label == "v16-identity":
+            eye = torch.eye(ports, device=device)
+            m = photonic.mesh_apply_stacked(layout, phases, diag, eye,
+                                            transpose)   # y[s] = x @ m[s]
+            row["ms"] = _time_ms(lambda: mesh.mesh_apply_stacked(
+                layout, phases, diag, x, transpose), 200)
+            row["plain_ms"] = _time_ms(lambda: photonic.mesh_apply_stacked(
+                layout, phases, diag, x, transpose), 50)
+            row["library_ms"] = _time_ms(lambda: torch.matmul(x, m), 200)
+            L = layout.levels
+            x_elems = (1 if shared else S) * B * ports
+            # the kernel's inputs (x, cos/sin tables, perm, diag), read
+            # once, and its output, written once; 3 FLOPs per element per
+            # level plus the diag product
+            t_bytes = 4 * (x_elems + 2 * S * L * ports + L * ports
+                           + S * ports + S * B * ports) / PEAK_BYTES_PER_S
+            t_ops = S * B * ports * (3 * L + 1) / PEAK_F32_FLOPS
+            row["bound_ms"], row["bound_by"] = (
+                (t_bytes * 1e3, "bytes") if t_bytes >= t_ops
+                else (t_ops * 1e3, "operations"))
+        results[label] = row
+        print(f"[mesh] {json.dumps(row)}", flush=True)
+    return results
+
+
+def phase_train(device) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.core import pinn, zoo
+    from repro_torch.data import pde_collocation_iterator
+    from repro_torch.device import counter_generator, to_device
+    from repro_torch.kernels import mesh_apply as mesh
+    from repro_torch.kernels import tt_contract as ttc
+    from repro_torch.launch import train
+    from repro_torch.serving import (PdeServingEngine, PointRequest,
+                                     SolverRegistry)
+
+    steps, batch, n = 50, 100, 10
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    argv = ["--arch", "tensor-pinn", "--pde", "hjb-20d", "--pinn-noise",
+            "--steps", str(steps), "--batch", str(batch), "--zo-samples",
+            str(n), "--ckpt-dir", ckpt, "--ckpt-every", "25",
+            "--log-every", "10", "--seed", "0"]
+    ttc.tt_contract_batched.launches = 0                  # main path starts
+    mesh.mesh_apply_stacked.launches = 0
+    t0 = time.perf_counter()
+    res = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"tt_contract_batched": ttc.tt_contract_batched.launches,
+                "mesh_apply_stacked": mesh.mesh_apply_stacked.launches}
+    model, params, noise = res.model, res.params, res.hw_noise  # path ends
+    meshes = sum(len(pms) for pms in model.photonic_cores)
+    if launches != {"tt_contract_batched": 3 * steps,
+                    "mesh_apply_stacked": 2 * meshes * steps}:
+        raise AssertionError(f"{launches} over {steps} steps; expected 3 "
+                             f"and {2 * meshes} per step")
+    losses = np.asarray(res.losses)
+    if not (np.isfinite(losses).all() and np.isfinite(res.val_mse)):
+        raise AssertionError(f"non-finite losses or val MSE {res.val_mse}")
+    if not np.median(losses[-10:]) < losses[0]:
+        raise AssertionError(f"loss did not fall: first {losses[0]:.4e}, "
+                             f"median of the last 10 "
+                             f"{np.median(losses[-10:]):.4e}")
+    init, _ = train.init_solver(model, 0)
+    mask = model.trainable_mask(init)
+    for new, old, trainable in zip(zoo.tree_leaves(params),
+                                   zoo.tree_leaves(init),
+                                   zoo.tree_leaves(mask)):
+        if not trainable and not torch.equal(new.cpu(), old):
+            raise AssertionError("a ±1 diag buffer moved during training")
+
+    # one step's stacked stencil and losses, card against the CPU plain
+    # path, with the same params, ξ, batch and noise
+    scfg = zoo.SPSAConfig(num_samples=n)
+    xis = zoo.sample_perturbations(counter_generator(7, device=device),
+                                   params, n, mask)
+    stacked = zoo.perturbed_stack(params, xis, scfg)
+    xt = next(pde_collocation_iterator(batch, seed=0, start_step=steps,
+                                       problem=model.problem))
+
+    def one_step(dev):
+        sp, nz, x = to_device(stacked, dev), to_device(noise, dev), xt.to(dev)
+        prepared = model.prepare_params_stacked(sp, nz)
+        u = model.fd_u_stencil_stacked(prepared, x, model.fd_step)
+        return (u.cpu(),
+                pinn.residual_losses_stacked(model, sp, x, nz).cpu())
+
+    u_card, l_card = one_step(device)
+    u_cpu, l_cpu = one_step(torch.device("cpu"))
+    u_err = (u_card - u_cpu).abs().max().item()
+    u_scale = u_cpu.abs().max().item()
+    if not u_err <= 1e-4 * u_scale:
+        raise AssertionError(f"stencil u on the card vs the CPU: max|diff| "
+                             f"{u_err:.3e}, max|u| {u_scale:.3e}")
+    np.testing.assert_allclose(l_card.numpy(), l_cpu.numpy(), rtol=1e-1)
+
+    # ms per ZO step, back to back on CUDA events
+    xt_dev = xt.to(device)
+    state = zoo.ZOState(step=steps, seed=1)
+    step_ms = _time_ms(lambda: zoo.zo_signsgd_step(
+        params, state, 1e-3, scfg,
+        lambda sp: pinn.residual_losses_stacked(model, sp, xt_dev, noise),
+        trainable_mask=mask), 10, warmup=2)
+
+    # the checkpoint serves: registry + engine against the final model.u
+    reg = SolverRegistry(device=device)
+    reg.load_checkpoint("hjb", ckpt, device=device,
+                        hw_noise=zoo.tree_map(lambda t: t.cpu().numpy(),
+                                              noise))
+    engine = PdeServingEngine(reg, slots=4, slot_points=256, device=device)
+    pts = model.problem.sample_collocation(counter_generator(11), 700)
+    req = engine.submit(PointRequest("hjb", pts.numpy()))
+    engine.run()
+    with torch.no_grad():
+        direct = model.u(params, pts.to(device), noise).cpu().numpy()
+    np.testing.assert_allclose(req.out, direct, rtol=1e-6, atol=1e-6)
+
+    shutil.rmtree(ckpt)
+    out = {"steps": steps, "batch": batch, "zo_samples": n,
+           "launches": launches, "loss_first": float(losses[0]),
+           "loss_last": float(losses[-1]),
+           "loss_median_last10": float(np.median(losses[-10:])),
+           "losses": [float(v) for v in losses], "val_mse": res.val_mse,
+           "zo_step_ms": step_ms,
+           "host_step_ms_median": 1e3 * float(np.median(res.step_seconds)),
+           "train_wall_s": wall,
+           "stencil_u_max_abs_card_vs_cpu": u_err, "stencil_u_max": u_scale,
+           "losses_card": l_card.tolist(), "losses_cpu": l_cpu.tolist(),
+           "served_vs_direct_max_abs": float(np.abs(req.out - direct).max())}
+    print(f"[train] {json.dumps(out)}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -280,6 +555,9 @@ def main() -> int:
     device = repro_torch.resolve_device("cuda")
     kernel = phase_kernel(device)
     serve = phase_serve(device)
+    batched = phase_batched(device)
+    meshes = phase_mesh(device)
+    trained = phase_train(device)
 
     main_case = kernel["cases"][0]                       # paper spec, B=2048
     entry = {"name": "tt_contract", "route": "cuda",
@@ -293,10 +571,38 @@ def main() -> int:
              "library_ms": main_case["library_ms"],
              "shape": "x (2048, 1024) f32, PAPER_TONN_SPEC",
              "cases": kernel["cases"]}
+    main_b = batched["hidden-stencil"]
+    entry_b = {"name": "tt_contract_batched", "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/tt_contract.cu",
+               "replaces": "src/repro/kernels/tt_contract.py:162",
+               "launches": trained["launches"]["tt_contract_batched"],
+               "max_abs_err": max(r["max_abs_err"] for r in batched.values()),
+               "ms": main_b["ms"], "plain_ms": main_b["plain_ms"],
+               "bound_ms": main_b["bound_ms"], "bound_by": main_b["bound_by"],
+               "library_ms": main_b["library_ms"],
+               "shape": "x (11, 4300, 1024) f32 per entry, PAPER_TONN_SPEC "
+                        "cores (11, r, m, n, r')",
+               "cases": list(batched.values())}
+    main_m = meshes["v16-identity"]
+    entry_m = {"name": "mesh_apply_stacked", "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/mesh_apply.cu",
+               "replaces": "src/repro/kernels/mesh_apply.py:93",
+               "launches": trained["launches"]["mesh_apply_stacked"],
+               "max_abs_err": max(r["max_abs_err"] for r in meshes.values()),
+               "ms": main_m["ms"], "plain_ms": main_m["plain_ms"],
+               "bound_ms": main_m["bound_ms"], "bound_by": main_m["bound_by"],
+               "library_ms": main_m["library_ms"],
+               "shape": "16-port rectangular mesh (16 levels), S = 11, "
+                        "identity x (16, 16) shared, transposed",
+               "cases": list(meshes.values())}
     print(f"[serve] p50 {serve['p50_ms']:.3f} ms, p99 {serve['p99_ms']:.3f} "
           f"ms, {serve['points_per_s']:.0f} points/s over "
           f"{serve['requests']} requests on {card}", flush=True)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(f"[train] {trained['zo_step_ms']:.3f} ms per ZO step (CUDA "
+          f"events); loss {trained['loss_first']:.4e} -> "
+          f"{trained['loss_last']:.4e} over {trained['steps']} steps, val "
+          f"MSE {trained['val_mse']:.4e} on {card}", flush=True)
+    print(json.dumps({"kernels": [entry, entry_b, entry_m]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

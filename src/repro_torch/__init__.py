@@ -9,16 +9,22 @@ the CPU takes the kernel's plain PyTorch version.
 
 Layout mirrors ``repro`` module for module:
 
-  * ``core.tt``            — TT algebra (``TTSpec``, ``tt_matvec``, ...),
-  * ``core.photonic``      — MZI-mesh simulator for load-time densification,
-  * ``core.pinn``          — ``PINNConfig`` and ``TensorPinn`` (tt / tonn),
-  * ``pde``                — the serving surface of the PDE registry,
-  * ``kernels``            — the CUDA ``tt_contract`` kernel, its build,
-                             its plain version and the device dispatch,
+  * ``core.tt``            — TT algebra (``TTSpec``, ``tt_matvec[_stacked]``),
+  * ``core.photonic``      — MZI-mesh simulator, single and stacked,
+  * ``core.pinn``          — ``PINNConfig``, ``TensorPinn`` (tt / tonn) and
+                             the BP-free losses, single and stacked,
+  * ``core.stein``         — FD derivative estimates,
+  * ``core.zoo``           — SPSA gradients and ZO-signSGD,
+  * ``pde``                — the PDE registry (hjb trains, heat serves),
+  * ``kernels``            — the CUDA kernels (``tt_contract``,
+                             ``tt_contract_batched``, ``mesh_apply_stacked``),
+                             their build, plain versions and device dispatch,
+  * ``data``               — counter-based collocation streams,
   * ``checkpoint``         — the ``arrays.npz`` + ``meta.json`` format,
+  * ``configs.hjb_pinn``   — the paper's configurations,
   * ``interop``            — numpy pytrees from the JAX side → tensors,
   * ``serving``            — solver registry, slot-pooled engine, cache,
-  * ``launch.serve_pde``   — the serving CLI.
+  * ``launch.serve_pde``, ``launch.train`` — the serving and training CLIs.
 """
 
 from repro_torch.device import resolve_device  # noqa: F401

@@ -1,2 +1,3 @@
 from repro_torch.checkpoint.manager import (  # noqa: F401
-    latest_step, read_checkpoint_meta, restore_checkpoint, save_checkpoint)
+    CheckpointManager, latest_step, read_checkpoint_meta, restore_checkpoint,
+    save_checkpoint)

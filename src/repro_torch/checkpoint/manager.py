@@ -7,7 +7,8 @@ renamed into place, so a crash never leaves a half checkpoint behind.  No
 framework owns the format, so a solver trained by the JAX package loads
 into the port and the other way round.
 
-Port of the single-process part of ``repro.checkpoint.manager``.
+Port of the single-process part of ``repro.checkpoint.manager``, with a
+synchronous ``CheckpointManager`` (the async save is not ported yet).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "read_checkpoint_meta",
-           "latest_step"]
+           "latest_step", "CheckpointManager"]
 
 
 def _flatten(tree, prefix: str = "") -> dict:
@@ -107,11 +108,43 @@ def read_checkpoint_meta(directory: str | os.PathLike,
                        / "meta.json").read_text())
 
 
-def latest_step(directory: str | os.PathLike) -> int | None:
-    directory = Path(directory)
+def _complete_steps(directory: Path) -> list:
     if not directory.exists():
-        return None
-    steps = [int(p.name.split("_")[1]) for p in directory.iterdir()
-             if p.name.startswith("step_") and not p.name.endswith(".tmp")
-             and (p / "COMMITTED").exists()]
-    return max(steps) if steps else None
+        return []
+    return sorted(int(p.name.split("_")[1]) for p in directory.iterdir()
+                  if p.name.startswith("step_") and not p.name.endswith(".tmp")
+                  and (p / "COMMITTED").exists())
+
+
+def latest_step(directory: str | os.PathLike) -> int | None:
+    steps = _complete_steps(Path(directory))
+    return steps[-1] if steps else None
+
+
+class CheckpointManager:
+    """Keep-k checkpoint policy around ``save_checkpoint`` /
+    ``restore_checkpoint``; saves are synchronous."""
+
+    def __init__(self, directory: str | os.PathLike, keep: int = 3,
+                 save_every: int = 100):
+        self.directory = Path(directory)
+        self.keep = keep
+        self.save_every = save_every
+
+    def should_save(self, step: int) -> bool:
+        return step > 0 and step % self.save_every == 0
+
+    def save(self, step: int, tree, extra_meta: dict | None = None) -> Path:
+        """Write step ``step`` and drop all but the newest ``keep``."""
+        path = save_checkpoint(self.directory, step, tree, extra_meta)
+        if self.keep:
+            for s in _complete_steps(self.directory)[:-self.keep]:
+                shutil.rmtree(self.directory / f"step_{s:012d}",
+                              ignore_errors=True)
+        return path
+
+    def wait(self) -> None:
+        """Saves are synchronous: nothing is ever pending."""
+
+    def restore_latest(self, tree_like) -> tuple:
+        return restore_checkpoint(self.directory, tree_like)

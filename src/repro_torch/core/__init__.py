@@ -1,2 +1,2 @@
-"""TT algebra, the MZI-mesh simulator and the tensor PINN (port of
-``repro.core``, serving slice)."""
+"""TT algebra, the MZI-mesh simulator, the tensor PINN and its losses, FD
+derivative estimates and the ZO optimizer (port of ``repro.core``)."""

@@ -1,14 +1,17 @@
-"""Photonic MZI-mesh simulator — the parts load-time densification needs.
+"""Photonic MZI-mesh simulator.
 
 A weight matrix ``W = U Σ Vᵀ`` is realized by two meshes of 2×2 MZI
 rotators; hardware imperfections act on the phases,
 ``Φ_eff = Ω (Γ ⊙ Φ) + Φ_b`` (``NoiseModel``).  Serving densifies every
 (small) core mesh of a ``tonn`` solver into its TT-core once, at load
 (``PhotonicMatrix.to_dense``), through the plain gather form of the mesh
-(``mesh_apply``): no kernel runs here, in the JAX package either.
+(``mesh_apply``).  Training densifies all N+1 SPSA-perturbed phase sets of
+a core mesh at once (``PhotonicMatrix.to_dense_stacked``) through
+``kernels.ops.mesh_apply_stacked``: the CUDA kernel on the card,
+``mesh_apply_stacked`` here on the CPU.
 
-Port of ``repro.core.photonic``; the stacked forms, ``mesh_apply_scan``,
-``decompose_orthogonal`` and ``from_dense`` belong to the training slice.
+Port of ``repro.core.photonic``; ``mesh_apply_scan``, ``mesh_matrix``,
+``decompose_orthogonal`` and ``from_dense`` belong to the ``onn`` slice.
 """
 
 from __future__ import annotations
@@ -20,9 +23,15 @@ from typing import Sequence
 import numpy as np
 import torch
 
-__all__ = ["MeshLayout", "schedule_ops", "rectangular_layout",
-           "mesh_gather_plan", "mesh_gather_tables", "mesh_apply",
+__all__ = ["PHOTONIC_BUFFER_KEYS", "MeshLayout", "schedule_ops",
+           "rectangular_layout", "mesh_gather_plan", "mesh_plan_tensors",
+           "mesh_gather_tables", "mesh_apply", "mesh_apply_stacked",
            "NoiseModel", "PhotonicMatrix"]
+
+# fixed ±1 buffers of a PhotonicMatrix's params: they pin each mesh to its
+# orthogonal decomposition, and ZO training neither perturbs nor updates
+# them (``TensorPinn.trainable_mask``)
+PHOTONIC_BUFFER_KEYS = ("diag_u", "diag_v")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,17 +126,37 @@ def mesh_gather_plan(layout: MeshLayout) -> tuple:
     return plan
 
 
+def mesh_plan_tensors(layout: MeshLayout, device: torch.device) -> dict:
+    """The gather plan as tensors on ``device``: ``slot`` (int64) and
+    ``sign`` (float32) for the trig tables, ``perm`` and ``perm_t``
+    (int32, the wire each output wire reads per level, in application
+    order without and with ``transpose``).  Memoized on the (frozen)
+    layout, so a mesh call copies nothing from the host (a copy from
+    pageable host memory waits for the card)."""
+    memo = layout.__dict__.setdefault("_plan_tensors", {})
+    if device not in memo:
+        perm, slot, sign = mesh_gather_plan(layout)
+        memo[device] = {
+            "slot": torch.as_tensor(slot, dtype=torch.int64, device=device),
+            "sign": torch.as_tensor(sign, device=device),
+            "perm": torch.as_tensor(perm, dtype=torch.int32, device=device),
+            "perm_t": torch.as_tensor(np.ascontiguousarray(perm[::-1]),
+                                      dtype=torch.int32, device=device)}
+    return memo[device]
+
+
 def mesh_gather_tables(layout: MeshLayout, phases: torch.Tensor,
                        transpose: bool = False) -> tuple:
-    """Per-wire trig tables ``(C, S)``, each ``(levels, ports)``, for
-    phases ``(levels, slots)`` — in APPLICATION order (``transpose``
-    reverses the level axis and negates the sines)."""
-    _, slot, sign = mesh_gather_plan(layout)
-    idx = torch.as_tensor(slot, dtype=torch.int64, device=phases.device)
-    ph = torch.gather(phases, -1, idx)                          # (L, P)
-    sign_t = torch.as_tensor(sign, device=phases.device)
-    cos = torch.where(sign_t != 0.0, torch.cos(ph), torch.ones_like(ph))
-    sin = sign_t * torch.sin(ph)                                # sign 0 → 0
+    """Per-wire trig tables ``(C, S)``, each ``(..., levels, ports)``, for
+    phases ``(..., levels, slots)`` with any leading stack axes — in
+    APPLICATION order (``transpose`` reverses the level axis and negates
+    the sines)."""
+    plan = mesh_plan_tensors(layout, phases.device)
+    idx = plan["slot"].expand(*phases.shape[:-1], layout.ports)
+    ph = torch.gather(phases, -1, idx)                          # (..., L, P)
+    sign = plan["sign"]
+    cos = torch.where(sign != 0.0, torch.cos(ph), torch.ones_like(ph))
+    sin = sign * torch.sin(ph)                                  # sign 0 → 0
     if transpose:
         cos = torch.flip(cos, dims=(-2,))
         sin = -torch.flip(sin, dims=(-2,))
@@ -141,20 +170,42 @@ def mesh_apply(layout: MeshLayout, phases: torch.Tensor, diag: torch.Tensor,
     Gather form: ``x ← D x``, then per level
     ``y[w] = C[c, w] · x[w] + S[c, w] · x[perm[c, w]]``.  ``transpose=True``
     runs the levels in reverse with negated angles and applies D last.
+    ``phases (..., levels, slots)``, ``diag (..., P)`` and ``x (..., B, P)``
+    may carry leading stack axes that broadcast against each other.
     """
-    perm, _, _ = mesh_gather_plan(layout)
     cos, sin = mesh_gather_tables(layout, phases, transpose)
-    perm_seq = torch.as_tensor(perm[::-1].copy() if transpose else perm,
-                               dtype=torch.int64, device=x.device)
+    perm_seq = mesh_plan_tensors(layout, x.device)[
+        "perm_t" if transpose else "perm"]
+    diag = diag.to(x.dtype)[..., None, :]
     if not transpose:
-        x = x * diag.to(x.dtype)
-    cos = cos.to(x.dtype)
-    sin = sin.to(x.dtype)
+        x = x * diag
+    cos = cos.to(x.dtype)[..., None, :]                 # (..., L, 1, P)
+    sin = sin.to(x.dtype)[..., None, :]
     for c in range(layout.levels):
-        x = cos[c] * x + sin[c] * x.index_select(-1, perm_seq[c])
+        x = cos[..., c, :, :] * x + sin[..., c, :, :] * x.index_select(
+            -1, perm_seq[c])
     if transpose:
-        x = x * diag.to(x.dtype)
+        x = x * diag
     return x
+
+
+def mesh_apply_stacked(layout: MeshLayout, phases: torch.Tensor,
+                       diag: torch.Tensor, x: torch.Tensor,
+                       transpose: bool = False) -> torch.Tensor:
+    """``mesh_apply`` with a leading stack axis on the phases — the plain
+    version of ``kernels.mesh_apply.mesh_apply_stacked``.
+
+    phases ``(S, levels, slots)``, one set per SPSA perturbation; diag
+    ``(P,)`` shared or ``(S, P)``; x ``(B, P)`` shared across the stack
+    (the identity feed of a densification) or ``(S, B, P)``.  Returns
+    ``(S, B, P)``.
+    """
+    S = phases.shape[0]
+    if x.ndim == 2:
+        x = x.expand(S, *x.shape)
+    if diag.ndim == 1:
+        diag = diag.expand(S, diag.shape[0])
+    return mesh_apply(layout, phases, diag, x, transpose)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,19 +271,35 @@ class PhotonicMatrix:
             "diag_v": torch.ones((self.in_dim,)),
         }
 
+    def _apply(self, params: dict, x: torch.Tensor, noise_model, noise,
+               mesh) -> torch.Tensor:
+        pu, pv = params["phases_u"], params["phases_v"]
+        if noise_model is not None and noise is not None:
+            # one physical chip: the noise broadcasts over any stack axis
+            pu = noise_model.effective_phases(pu, noise["u"])
+            pv = noise_model.effective_phases(pv, noise["v"])
+        z = mesh(self.layout_v, pv, params["diag_v"], x, transpose=True)
+        z = z[..., :self.k] * params["sigma"].to(z.dtype)[..., None, :]
+        if self.out_dim > self.k:
+            z = torch.nn.functional.pad(z, (0, self.out_dim - self.k))
+        return mesh(self.layout_u, pu, params["diag_u"], z)
+
     def apply(self, params: dict, x: torch.Tensor,
               noise_model: NoiseModel | None = None,
               noise: dict | None = None) -> torch.Tensor:
-        """y = U Σ Vᵀ x for trailing-dim-``in_dim`` x."""
-        pu, pv = params["phases_u"], params["phases_v"]
-        if noise_model is not None and noise is not None:
-            pu = noise_model.effective_phases(pu, noise["u"])
-            pv = noise_model.effective_phases(pv, noise["v"])
-        z = mesh_apply(self.layout_v, pv, params["diag_v"], x, transpose=True)
-        z = z[..., :self.k] * params["sigma"].to(z.dtype)
-        if self.out_dim > self.k:
-            z = torch.nn.functional.pad(z, (0, self.out_dim - self.k))
-        return mesh_apply(self.layout_u, pu, params["diag_u"], z)
+        """y = U Σ Vᵀ x for x ``(..., B, in_dim)``."""
+        return self._apply(params, x, noise_model, noise, mesh_apply)
+
+    def apply_stacked(self, params: dict, x: torch.Tensor,
+                      noise_model: NoiseModel | None = None,
+                      noise: dict | None = None) -> torch.Tensor:
+        """``apply`` over a leading SPSA-perturbation axis S on the params
+        (phases and sigma stacked; diag buffers ``(P,)`` or ``(S, P)``): x
+        ``(B, in)`` shared or ``(S, B, in)`` → ``(S, B, out)``.  The meshes
+        run through ``kernels.ops.mesh_apply_stacked``."""
+        from repro_torch.kernels import ops   # ops imports this module
+        return self._apply(params, x, noise_model, noise,
+                           ops.mesh_apply_stacked)
 
     def sample_noise(self, generator: torch.Generator, model: NoiseModel) -> dict:
         return {"u": model.sample(generator, self.layout_u.phase_shape()),
@@ -243,3 +310,14 @@ class PhotonicMatrix:
         eye = torch.eye(self.in_dim, dtype=torch.float32,
                         device=params["sigma"].device)
         return self.apply(params, eye, noise_model, noise).T   # row j = W e_j
+
+    def to_dense_stacked(self, params: dict,
+                         noise_model: NoiseModel | None = None,
+                         noise: dict | None = None) -> torch.Tensor:
+        """Densify S stacked parameter sets in one batched pass that shares
+        the identity feed: ``(S, out, in)``, entry s the ``to_dense`` of
+        the s-th params."""
+        eye = torch.eye(self.in_dim, dtype=torch.float32,
+                        device=params["sigma"].device)
+        return self.apply_stacked(params, eye, noise_model,
+                                  noise).transpose(-1, -2)

@@ -1,17 +1,29 @@
-"""The paper's 3-layer sine MLP bound to a PDE problem — serving slice.
+"""The paper's 3-layer sine MLP bound to a PDE problem, and its BP-free losses.
 
 ``TensorPinn`` (in → n → n → 1, sine activations) in two of the paper's
 parametrizations:
 
   * ``tt``   — first two layers TT-compressed (digital TT baseline),
   * ``tonn`` — TT-cores whose unfoldings are MZI meshes, the paper's
-               proposed hardware; ``prepare_params`` densifies the meshes
-               into plain TT-cores once, with the chip's noise baked in.
+               proposed hardware; the meshes are densified into plain
+               TT-cores with the chip's noise baked in, once per loss
+               evaluation (training) or once at load (serving).
 
-Both TT layers go through ``kernels.ops.tt_linear``: the CUDA kernel on
-the card, its plain version on the CPU.  Forwards are plain functions of a
-params dict of tensors.  Port of ``repro.core.pinn``; the ``dense`` and
-``onn`` modes, the FD stencils and the losses belong to later slices.
+Serving runs the single forward, whose TT layers go through
+``kernels.ops.tt_linear``.  ZO training runs the stacked path: the N+1
+SPSA-perturbed parameter sets densify in one batched mesh pass per core
+mesh (``prepare_params_stacked`` → ``kernels.ops.mesh_apply_stacked``) and
+the FD stencil goes through every perturbed model at once
+(``fd_u_stencil_stacked`` → ``kernels.ops.tt_linear_batched``, three
+launches).  On the card those are the CUDA kernels; on the CPU their plain
+versions.  Forwards are plain functions of a params dict of tensors.
+
+Port of ``repro.core.pinn``.  The ``dense`` and ``onn`` modes and the
+Stein and spectral estimators are not ported yet.  Two paths of the JAX
+package are CPU-XLA workarounds with no counterpart here: the polynomial
+``fast_sin`` (the port takes ``torch.sin``) and the Kronecker head of
+``_f_head_stacked`` (the port takes the TT chain, as the JAX package does
+on a TPU).
 """
 
 from __future__ import annotations
@@ -22,11 +34,13 @@ import math
 import torch
 
 from repro_torch import pde as pde_lib
-from repro_torch.core import photonic, tt
+from repro_torch.core import photonic, stein, tt
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant as quant_lib
 
-__all__ = ["PINNConfig", "TensorPinn", "config_to_meta", "config_from_meta"]
+__all__ = ["PINNConfig", "TensorPinn", "config_to_meta", "config_from_meta",
+           "residual_loss", "residual_losses_stacked", "per_term_losses",
+           "validation_mse"]
 
 PORTED_MODES = ("tt", "tonn")
 
@@ -34,18 +48,18 @@ PORTED_MODES = ("tt", "tonn")
 @dataclasses.dataclass(frozen=True)
 class PINNConfig:
     """Every field of ``repro.core.pinn.PINNConfig``, so checkpoint meta
-    round-trips.  The serving slice reads ``hidden``, ``mode``,
-    ``tt_rank``, ``tt_L``, ``pde``, ``noise`` and ``quant``; the others
-    configure training.  ``use_fused_kernel`` picks nothing here: the TT
-    layers always go through ``kernels.ops.tt_linear``."""
+    round-trips.  The port reads ``hidden``, ``mode``, ``tt_rank``,
+    ``tt_L``, ``pde``, ``noise``, ``quant``, ``fd_step`` and ``deriv``.
+    ``use_fused_kernel`` picks nothing here: the TT layers always go
+    through ``kernels.ops``."""
 
     space_dim: int = 20
     hidden: int = 1024
     mode: str = "tonn"          # dense | onn | tt | tonn
     tt_rank: int = 2            # paper: ranks [1,2,1,2,1]
     tt_L: int = 4               # paper: 1024 = [4,8,4,8] · [8,4,8,4]
-    fd_step: float | None = None
-    deriv: str = "fd"
+    fd_step: float | None = None  # None → the problem's recommended step
+    deriv: str = "fd"           # fd | fd_fast | stein | spectral | auto
     stein_sigma: float = 5e-2
     stein_samples: int = 32
     spectral_points: int | None = None
@@ -83,14 +97,17 @@ class TensorPinn:
                  problem: pde_lib.PDEProblem | None = None):
         if cfg.mode not in PORTED_MODES:
             raise NotImplementedError(
-                f"mode {cfg.mode!r} is not ported yet; "
-                f"the port has {PORTED_MODES}")
+                f"mode {cfg.mode!r} is not ported yet (ROADMAP queue A, "
+                f"item 6); the port has {PORTED_MODES}")
         self.cfg = cfg
         self.problem = problem if problem is not None \
             else pde_lib.get_problem(cfg.pde)
         self.space_dim = self.problem.space_dim
         self.in_dim = self.problem.in_dim
         self.net_in = self.problem.net_dim
+        # an explicit config value wins; None takes the problem's step
+        self.fd_step = (cfg.fd_step if cfg.fd_step is not None
+                        else self.problem.fd_step)
         h = cfg.hidden
         # pad the input up to a TT-factorizable width (the paper folds
         # 21 → 1024 so layer 1 is a 1024×1024 TT matrix)
@@ -136,6 +153,22 @@ class TensorPinn:
         params["b2"] = torch.zeros((1,))
         return params
 
+    def trainable_mask(self, params: dict) -> dict:
+        """Boolean tree mirroring ``params``: False on the fixed ±1
+        ``diag_u``/``diag_v`` buffers of every ``PhotonicMatrix``
+        (``photonic.PHOTONIC_BUFFER_KEYS``), which ZO training must
+        neither perturb nor update, True on every other leaf."""
+        def mask(node, trainable):
+            if isinstance(node, dict):
+                return {k: mask(v, trainable
+                                and k not in photonic.PHOTONIC_BUFFER_KEYS)
+                        for k, v in node.items()}
+            if isinstance(node, (list, tuple)):
+                return [mask(v, trainable) for v in node]
+            return trainable
+
+        return mask(params, True)
+
     def sample_noise(self, generator: torch.Generator) -> dict | None:
         """One chip's fabrication noise (fixed for the chip's lifetime),
         drawn on the CPU, or None when the forward uses none."""
@@ -146,15 +179,20 @@ class TensorPinn:
                 for i, pms in enumerate(self.photonic_cores)}
 
     # --------------------------------------------------------------- forward
-    def _densify_cores(self, params: dict, noise: dict | None, i: int) -> list:
-        """TONN layer i: densify each (small) core mesh into its TT-core."""
+    def _densify_cores(self, params: dict, noise: dict | None, i: int,
+                       stacked: bool = False) -> list:
+        """TONN layer i: densify each (small) core mesh into its TT-core;
+        ``stacked`` densifies a leading SPSA-perturbation axis S of every
+        core in one batched mesh pass (``PhotonicMatrix.to_dense_stacked``)."""
         spec = self.specs[i]
         cores = []
         for k, pm in enumerate(self.photonic_cores[i]):
             nz = None if noise is None else noise[f"pcores{i}"][k]
-            w = pm.to_dense(params[f"pcores{i}"][k],
-                            self.cfg.noise if nz else None, nz)
-            cores.append(w.reshape(spec.core_shapes[k]).contiguous())
+            densify = pm.to_dense_stacked if stacked else pm.to_dense
+            w = densify(params[f"pcores{i}"][k],
+                        self.cfg.noise if nz else None, nz)
+            lead = w.shape[:1] if stacked else ()
+            cores.append(w.reshape(*lead, *spec.core_shapes[k]).contiguous())
         return cores
 
     def prepare_params(self, params: dict, noise: dict | None) -> tuple:
@@ -195,3 +233,236 @@ class TensorPinn:
           noise: dict | None = None) -> torch.Tensor:
         """Problem ansatz u = T(f, xt)."""
         return self.problem.ansatz(self.f(params, xt, noise), xt)
+
+    # ------------------------------------------------- incremental FD stencil
+    def _identity_columns(self, device: torch.device) -> torch.Tensor:
+        """The first ``in_dim`` unit vectors of the padded input,
+        (in_dim, in_pad)."""
+        return torch.eye(self.in_dim, self.in_pad, dtype=torch.float32,
+                         device=device)
+
+    def _layer1_columns(self, params: dict, noise: dict | None) -> torch.Tensor:
+        """Columns 0..in_dim of the first-layer matrix, (in_dim, hidden):
+        the FD stencil only shifts the input by ±h·e_i, and layer 1 is
+        linear, so one extraction replaces 2·in_dim layer-1 matvecs."""
+        return self._layer_matvec(params, noise, 0,
+                                  self._identity_columns(params["b0"].device))
+
+    @staticmethod
+    def _stencil_activations(z0: torch.Tensor, cols: torch.Tensor,
+                             h: float) -> torch.Tensor:
+        """Layer-1 activations over the FD stencil.  Layer 1 is linear, so
+        the pre-activation at x ± h·e_i is ``z0 ± h·cols[i]``: from
+        ``z0 (..., B, H)`` and ``cols (..., A, H)`` this gives
+        ``(..., 2A+1, B, H)`` in the order of ``fd_stencil_points``."""
+        z0 = z0[..., None, :, :]
+        hcols = (h * cols)[..., :, None, :]
+        return torch.sin(torch.cat([z0, z0 + hcols, z0 - hcols], dim=-3))
+
+    def fd_u_stencil(self, params: dict, xt: torch.Tensor, h: float,
+                     noise: dict | None = None) -> torch.Tensor:
+        """u at [x, x+h·e_1, ..., x−h·e_A]: (2·in_dim+1, B) values with
+        layer 1 computed once (incremental rank-1 FD forward)."""
+        params, noise = self.prepare_params(params, noise)
+        B, A = xt.shape[0], self.in_dim
+        z0 = self._layer_matvec(params, noise, 0, self._embed(xt)) \
+            + params["b0"]                                           # (B, H)
+        a = self._stencil_activations(
+            z0, self._layer1_columns(params, noise), h)
+        a = torch.sin(self._layer_matvec(params, noise, 1,
+                                         a.reshape(-1, self.cfg.hidden))
+                      + params["b1"])
+        f = (a @ params["w2"].T + params["b2"])[..., 0].reshape(2 * A + 1, B)
+        return self.problem.ansatz(f, pde_lib.fd_stencil_points(xt, h, A))
+
+    # --------------------------------------- stacked (multi-perturbation) ZO
+    def prepare_params_stacked(self, stacked: dict, noise: dict | None) -> dict:
+        """``prepare_params`` over a leading perturbation axis P on every
+        leaf: every TONN core mesh densifies all P phase sets in one
+        batched pass, with the chip's noise shared across the stack."""
+        if self.cfg.mode != "tonn" or "cores0" in stacked:
+            return stacked
+        eff = {k: v for k, v in stacked.items() if not k.startswith("pcores")}
+        for i in range(len(self.specs)):
+            eff[f"cores{i}"] = self._densify_cores(stacked, noise, i,
+                                                   stacked=True)
+        return eff
+
+    def _layer_matvec_stacked(self, stacked: dict, i: int,
+                              x: torch.Tensor) -> torch.Tensor:
+        """Layer-i matvec of P stacked (prepared) parameter sets: x
+        ``(B', n)`` shared or ``(P, B', n)`` per entry → ``(P, B', m)``."""
+        return ops.tt_linear_batched(x, stacked[f"cores{i}"], self.specs[i])
+
+    def _f_head_stacked(self, stacked: dict, a: torch.Tensor) -> torch.Tensor:
+        """``f = sin(W1·a + b1) @ w2ᵀ + b2`` for P stacked parameter sets:
+        (P, B', hidden) activations → (P, B') f-values."""
+        z = self._layer_matvec_stacked(stacked, 1, a) + stacked["b1"][:, None]
+        f = torch.einsum("pbh,poh->pbo", torch.sin(z), stacked["w2"])
+        return (f + stacked["b2"][:, None])[..., 0]
+
+    def fd_u_stencil_stacked(self, stacked: dict, xt: torch.Tensor,
+                             h: float) -> torch.Tensor:
+        """``fd_u_stencil`` for P stacked (prepared) parameter sets:
+        (P, 2·in_dim+1, B) u-values.  The collocation rows and the
+        identity columns are shared across the stack, so layer 1 reads
+        them once per (entry, row tile); the hidden layer reads each
+        entry's own (2A+1)·B activations, one contiguous block."""
+        B, A = xt.shape[0], self.in_dim
+        P = stacked["b0"].shape[0]
+        z0 = self._layer_matvec_stacked(stacked, 0, self._embed(xt)) \
+            + stacked["b0"][:, None]                               # (P, B, H)
+        cols = self._layer_matvec_stacked(
+            stacked, 0, self._identity_columns(xt.device))         # (P, A, H)
+        a = self._stencil_activations(z0, cols, h).reshape(
+            P, (2 * A + 1) * B, self.cfg.hidden)
+        f = self._f_head_stacked(stacked, a).reshape(P, 2 * A + 1, B)
+        return self.problem.ansatz(f, pde_lib.fd_stencil_points(xt, h, A))
+
+    def f_stacked(self, stacked: dict, xt: torch.Tensor) -> torch.Tensor:
+        """Base network of P stacked (prepared) parameter sets over a
+        shared batch: (B, net_in) → (P, B)."""
+        a = torch.sin(self._layer_matvec_stacked(stacked, 0, self._embed(xt))
+                      + stacked["b0"][:, None])
+        return self._f_head_stacked(stacked, a)
+
+    def u_stacked(self, stacked: dict, xt: torch.Tensor) -> torch.Tensor:
+        """Ansatz u of P stacked parameter sets: (B, net_in) → (P, B)."""
+        return self.problem.ansatz(self.f_stacked(stacked, xt), xt)
+
+
+# ---------------------------------------------------------------------- loss
+
+def _loss_from_u_stencil(problem: pde_lib.PDEProblem, vals: torch.Tensor,
+                         h: float, xt: torch.Tensor) -> torch.Tensor:
+    """Residual loss from u-values at the central-difference stencil:
+    vals (..., 2·Din+1, B) → mean-squared residual (...,)."""
+    est = problem.scale_estimate(pde_lib.estimate_from_u_stencil(vals, h))
+    r = problem.residual(est, xt)
+    return torch.mean(r * r, dim=-1)
+
+
+def _boundary_mse(u_b: torch.Tensor, ub_target: torch.Tensor) -> torch.Tensor:
+    """Mean-squared target mismatch over the trailing (batch) axis."""
+    return torch.mean((u_b - ub_target) ** 2, dim=-1)
+
+
+def _term_plan(problem: pde_lib.PDEProblem,
+               term_batches: dict | None) -> tuple:
+    """``(collocation_weight, [(LossTerm, (x, target)), ...])`` from
+    ``term_batches`` keyed by term name: missing or None entries are
+    skipped, unknown names raise.  (The JAX package's deprecated
+    ``bc=(xb, ub)`` convention is not ported.)"""
+    terms = problem.loss_terms()
+    coll_w = next((t.weight for t in terms if t.kind == "collocation"), 1.0)
+    if not term_batches:
+        return coll_w, []
+    known = {t.name: t for t in terms if t.kind != "collocation"}
+    unknown = sorted(set(term_batches) - set(known))
+    if unknown:
+        raise ValueError(
+            f"unknown loss term(s) {unknown} for PDE {problem.name!r}; "
+            f"known non-collocation terms: {sorted(known)}")
+    return coll_w, [(known[name], batch)
+                    for name, batch in term_batches.items()
+                    if batch is not None]
+
+
+def _resolve_deriv(cfg: PINNConfig, problem: pde_lib.PDEProblem) -> str:
+    """``cfg.deriv``, "auto" deferring to the problem's ``estimator``;
+    raises for an estimator the port does not have yet."""
+    deriv = problem.estimator if cfg.deriv == "auto" else cfg.deriv
+    if deriv in ("fd", "fd_fast"):
+        return deriv
+    item = {"stein": 8, "spectral": 9}.get(deriv)
+    if item is None:
+        raise ValueError(f"unknown derivative estimator {deriv!r}")
+    raise NotImplementedError(f"the {deriv} estimator is not ported yet "
+                              f"(ROADMAP queue A, item {item})")
+
+
+def _add_terms(loss: torch.Tensor, problem: pde_lib.PDEProblem,
+               term_batches, u_fn) -> torch.Tensor:
+    """The collocation loss weighted, plus ``weight · MSE`` of every
+    boundary/data term with a batch (``u_fn(x)`` evaluates u)."""
+    coll_w, plan = _term_plan(problem, term_batches)
+    if coll_w != 1.0:
+        loss = coll_w * loss
+    for t, (xb, ub) in plan:
+        loss = loss + t.weight * _boundary_mse(u_fn(xb), ub)
+    return loss
+
+
+def residual_loss(model: TensorPinn, params: dict, xt: torch.Tensor,
+                  noise: dict | None = None,
+                  term_batches: dict | None = None) -> torch.Tensor:
+    """BP-free composite PDE loss of one parameter set: the collocation
+    residual over ``xt`` from FD derivatives (``fd_fast``: layer 1 once)
+    plus ``weight · MSE(u(x), target)`` per supplied boundary/data term."""
+    problem = model.problem
+    deriv = _resolve_deriv(model.cfg, problem)
+    params, noise = model.prepare_params(params, noise)
+    h = model.fd_step
+    if deriv == "fd_fast":
+        vals = model.fd_u_stencil(params, xt, h, noise)
+        loss = _loss_from_u_stencil(problem, vals, h, xt)
+    else:
+        est = stein.fd_estimate(lambda pts: model.u(params, pts, noise), xt,
+                                h=h, n_active=model.in_dim)
+        r = problem.residual(problem.scale_estimate(est), xt)
+        loss = torch.mean(r * r)
+    return _add_terms(loss, problem, term_batches,
+                      lambda xb: model.u(params, xb, noise))
+
+
+def residual_losses_stacked(model: TensorPinn, stacked_params: dict,
+                            xt: torch.Tensor, noise: dict | None = None,
+                            term_batches: dict | None = None
+                            ) -> torch.Tensor:
+    """The ZO hot path: composite losses of P stacked parameter sets
+    (leading axis on every leaf) over one shared collocation batch → (P,).
+
+    TONN densifies all P mesh sets in one batched pass per core mesh (the
+    chip's noise baked in); then the FD stencil goes through every
+    perturbed model in one program — with ``fd_fast``, three
+    ``tt_linear_batched`` launches (layer 1 on the rows and on the
+    identity columns, the hidden layer on the stencil's activations)."""
+    problem = model.problem
+    deriv = _resolve_deriv(model.cfg, problem)
+    prepared = model.prepare_params_stacked(stacked_params, noise)
+    h = model.fd_step
+    if deriv == "fd_fast":
+        vals = model.fd_u_stencil_stacked(prepared, xt, h)
+    else:
+        (B, D), A = xt.shape, model.in_dim
+        pts = pde_lib.fd_stencil_points(xt, h, A)
+        vals = model.u_stacked(prepared, pts.reshape(-1, D))
+        vals = vals.reshape(vals.shape[0], 2 * A + 1, B)
+    losses = _loss_from_u_stencil(problem, vals, h, xt)
+    return _add_terms(losses, problem, term_batches,
+                      lambda xb: model.u_stacked(prepared, xb))
+
+
+def per_term_losses(model: TensorPinn, params: dict, xt: torch.Tensor,
+                    noise: dict | None = None,
+                    term_batches: dict | None = None) -> dict:
+    """Unweighted per-term losses keyed by term name (terms whose batch is
+    absent are omitted)."""
+    out = {}
+    for t in model.problem.loss_terms():
+        if t.kind == "collocation":
+            out[t.name] = residual_loss(model, params, xt, noise)
+        elif (term_batches or {}).get(t.name) is not None:
+            xb, ub = term_batches[t.name]
+            out[t.name] = _boundary_mse(model.u(params, xb, noise), ub)
+    return out
+
+
+def validation_mse(model: TensorPinn, params: dict, xt: torch.Tensor,
+                   noise: dict | None = None) -> torch.Tensor:
+    """MSE against the problem's closed-form solution (raises without one)."""
+    exact = model.problem.exact_solution(xt)
+    if exact is None:
+        raise ValueError(f"PDE {model.problem.name!r} has no exact solution; "
+                         "track the residual loss instead")
+    return torch.mean((model.u(params, xt, noise) - exact) ** 2)

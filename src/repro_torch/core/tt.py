@@ -4,8 +4,7 @@ A weight matrix ``W ∈ R^{M×N}`` with ``M = Π m_k``, ``N = Π n_k`` is held a
 TT-cores ``G_k ∈ R^{r_{k-1} × m_k × n_k × r_k}`` (``r_0 = r_L = 1``).  A TT
 "linear layer" computes ``y = x W^T`` with ``x: (..., N)`` → ``y: (..., M)``.
 
-Port of ``repro.core.tt`` (the single-chain part; the stacked chain and
-``tt_svd`` belong to the training slice).
+Port of ``repro.core.tt`` (``tt_svd`` is not ported yet).
 """
 
 from __future__ import annotations
@@ -18,7 +17,7 @@ import numpy as np
 import torch
 
 __all__ = ["TTSpec", "auto_factorize", "hjb_layer_spec", "PAPER_TONN_SPEC",
-           "tt_init", "tt_matvec", "tt_to_full"]
+           "tt_init", "tt_matvec", "tt_matvec_stacked", "tt_to_full"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,6 +164,35 @@ def tt_matvec(cores: Sequence[torch.Tensor], x: torch.Tensor,
         a = a.reshape(B * m_prefix, n_suffix, m_k, r_next).permute(0, 2, 3, 1)
         m_prefix *= m_k
     return a.reshape(*batch_shape, spec.out_dim)
+
+
+def tt_matvec_stacked(cores: Sequence[torch.Tensor], x: torch.Tensor,
+                      spec: TTSpec) -> torch.Tensor:
+    """``tt_matvec`` over a leading stack axis P on the cores (the plain
+    version of ``kernels.tt_contract.tt_contract_batched``).
+
+    cores: each ``(P, r, m, n, r')``.  x: ``(B, N)`` shared across the
+    stack or ``(P, B, N)`` per entry.  Returns ``(P, B, M)``.  Each entry
+    runs the chain of ``tt_matvec``, the shared x broadcast (never copied
+    P times) against the stacked cores.
+    """
+    P = cores[0].shape[0]
+    a = x.reshape(-1, x.shape[-2], spec.in_dim)        # (1 or P, B, N)
+    B = a.shape[1]
+    n_suffix = spec.in_dim
+    m_prefix = 1
+    for k in range(spec.L):
+        r, m_k, n_k, r_next = spec.core_shapes[k]
+        n_suffix //= n_k
+        a = a.reshape(a.shape[0], B * m_prefix, r * n_k,
+                      n_suffix).transpose(2, 3)
+        g = cores[k].permute(0, 1, 3, 2, 4).reshape(P, 1, r * n_k,
+                                                    m_k * r_next)
+        a = torch.matmul(a, g)                     # (P, B·M_<k, N_>k, m_k·r')
+        a = a.reshape(P, B * m_prefix, n_suffix, m_k,
+                      r_next).permute(0, 1, 3, 4, 2)
+        m_prefix *= m_k
+    return a.reshape(P, B, spec.out_dim)
 
 
 def tt_to_full(cores: Sequence[torch.Tensor], spec: TTSpec) -> torch.Tensor:

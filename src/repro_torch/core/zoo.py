@@ -1,0 +1,212 @@
+"""Zeroth-order (BP-free) optimization — the paper's §3.3.
+
+SPSA gradient estimator (paper Eq. 5):
+
+    ∇̂_Φ L(Φ) = Σ_{i=1..N} (1/(Nμ)) [ L(Φ + μ ξ_i) − L(Φ) ] ξ_i ,
+    ξ_i ~ N(0, I_d)
+
+and the ZO-signSGD update (paper Eq. 6):
+
+    Φ_t ← Φ_{t−1} − α · sign(∇̂_Φ L(Φ)).
+
+Parameters are trees of dicts and lists of tensors, walked in the JAX
+package's order (dict keys sorted, list order kept), so a ξ stack the JAX
+side made maps onto the same leaves here.  Only forward evaluations are
+taken: no autograd anywhere in this module.
+
+The N perturbations are drawn once as a stacked tree (``sample_
+perturbations``); the base evaluation rides along as perturbation 0, so
+one step evaluates all N+1 (2N+1 antithetic) models in one batched call of
+``batched_loss_fn: stacked_params -> (P,) losses`` (e.g.
+``pinn.residual_losses_stacked``), and the gradient reuses the same ξ
+stack as one tensordot per leaf.  Fixed buffers (``trainable_mask`` False,
+the photonic ±1 diags) carry zero ξ, so they are neither probed nor moved.
+
+Random draws come from an explicit ``torch.Generator`` on the params'
+device; ``zo_signsgd_step`` re-seeds it per step from ``(seed, step)``
+(``device.counter_generator``), so a resumed run redraws the same ξ.
+Torch's generators do not give JAX's threefry bits: the parity tests feed
+both packages the same ξ arrays.
+
+Port of ``repro.core.zoo``; the sequential one-model-at-a-time path
+(``spsa_losses``, ``vectorized=False``) and sharding are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.device import counter_generator
+
+__all__ = ["SPSAConfig", "tree_leaves", "tree_map", "sample_perturbation",
+           "sample_perturbations", "perturbed_stack",
+           "spsa_gradient_from_losses", "spsa_gradient", "ZOState",
+           "zo_signsgd_step", "apply_update"]
+
+PyTree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class SPSAConfig:
+    num_samples: int = 10     # N in Eq. (5) — the paper uses 10 per step
+    mu: float = 0.01          # sampling radius μ
+    antithetic: bool = False  # ±μ pairs (beyond the paper)
+
+
+def tree_leaves(tree) -> list:
+    """Leaves in the JAX package's flattening order: dict keys sorted,
+    list and tuple order kept."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and of same-structured ``rest``."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def _unflatten_like(tree, leaves: list):
+    """Rebuild ``tree``'s structure from leaves in ``tree_leaves`` order."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return [build(v) for v in node]
+        return next(it)
+
+    return build(tree)
+
+
+def _mask_flags(params: PyTree, mask: PyTree | None) -> list:
+    leaves = tree_leaves(params)
+    if mask is None:
+        return [True] * len(leaves)
+    flags = tree_leaves(mask)
+    if len(flags) != len(leaves):
+        raise ValueError(
+            f"trainable mask has {len(flags)} leaves, params have "
+            f"{len(leaves)} — the mask must mirror the params tree")
+    return [bool(f) for f in flags]
+
+
+def sample_perturbations(generator: torch.Generator, params: PyTree, n: int,
+                         mask: PyTree | None = None) -> PyTree:
+    """All N perturbations as one stacked tree (leading axis n): ξ ~ N(0, I)
+    drawn leaf by leaf in flattening order on the leaf's device, exactly
+    zero on buffer leaves (``mask`` False)."""
+    flags = _mask_flags(params, mask)
+    leaves = [torch.randn((n, *leaf.shape), generator=generator,
+                          dtype=leaf.dtype, device=leaf.device) if train
+              else torch.zeros((n, *leaf.shape), dtype=leaf.dtype,
+                               device=leaf.device)
+              for leaf, train in zip(tree_leaves(params), flags)]
+    return _unflatten_like(params, leaves)
+
+
+def sample_perturbation(generator: torch.Generator, params: PyTree,
+                        mask: PyTree | None = None) -> PyTree:
+    """One ξ ~ N(0, I) with the structure of ``params`` (zero on buffers)."""
+    return tree_map(lambda z: z[0],
+                    sample_perturbations(generator, params, 1, mask))
+
+
+def perturbed_stack(params: PyTree, xis: PyTree, cfg: SPSAConfig) -> PyTree:
+    """The parameter sets one batched step evaluates, stacked on a leading
+    axis: Φ (a zero perturbation) first, then Φ + μ ξ_i for each i, then
+    Φ − μ ξ_i when antithetic."""
+    def stack(p, z):
+        zero = torch.zeros_like(z[:1])
+        z = torch.cat([zero, z, -z] if cfg.antithetic else [zero, z])
+        return p + cfg.mu * z
+
+    return tree_map(stack, params, xis)
+
+
+def spsa_gradient_from_losses(perturbed_losses: torch.Tensor,
+                              base_loss: torch.Tensor, cfg: SPSAConfig,
+                              xis: PyTree) -> PyTree:
+    """Eq. (5) from the (N,) loss vector and the stacked ξ it was taken
+    at: one tensordot per leaf.  Antithetic losses are already
+    ``(L+ − L−)/2`` and the base cancels."""
+    deltas = perturbed_losses if cfg.antithetic \
+        else perturbed_losses - base_loss
+    coefs = deltas / (cfg.num_samples * cfg.mu)               # (N,)
+    return tree_map(lambda z: torch.tensordot(coefs.to(z.dtype), z, dims=1),
+                    xis)
+
+
+def spsa_gradient(params: PyTree, generator: torch.Generator,
+                  cfg: SPSAConfig,
+                  batched_loss_fn: Callable[[PyTree], torch.Tensor],
+                  trainable_mask: PyTree | None = None) -> tuple:
+    """Eq. (5) in one batched evaluation: returns ``(grad, base_loss)``.
+
+    The base model rides along as a zero perturbation, so
+    ``batched_loss_fn`` sees all N+1 (2N+1 antithetic) parameter sets at
+    once."""
+    if batched_loss_fn is None:
+        raise NotImplementedError(
+            "the sequential SPSA path is not ported yet (ROADMAP queue A, "
+            "item 6); pass batched_loss_fn")
+    n = cfg.num_samples
+    xis = sample_perturbations(generator, params, n, trainable_mask)
+    all_l = batched_loss_fn(perturbed_stack(params, xis, cfg))
+    base = all_l[0]
+    losses = (0.5 * (all_l[1:n + 1] - all_l[n + 1:]) if cfg.antithetic
+              else all_l[1:]).to(torch.float32)
+    return spsa_gradient_from_losses(losses, base, cfg, xis), base
+
+
+@dataclasses.dataclass
+class ZOState:
+    """The optimizer's state: the step count and the seed every step's
+    generator is derived from."""
+
+    step: int = 0
+    seed: int = 0
+
+    def as_tree(self) -> dict:
+        """Checkpoint form (int64 tensors)."""
+        return {"seed": torch.tensor(self.seed, dtype=torch.int64),
+                "step": torch.tensor(self.step, dtype=torch.int64)}
+
+    @classmethod
+    def from_tree(cls, tree: dict) -> "ZOState":
+        return cls(step=int(tree["step"]), seed=int(tree["seed"]))
+
+
+def zo_signsgd_step(params: PyTree, state: ZOState, lr: float,
+                    cfg: SPSAConfig,
+                    batched_loss_fn: Callable[[PyTree], torch.Tensor],
+                    trainable_mask: PyTree | None = None) -> tuple:
+    """One Eq. (6) update Φ ← Φ − α · sign(∇̂L), with ξ drawn on the params'
+    device from ``counter_generator(state.seed, state.step)``.  Buffer leaves
+    (mask False) have zero ξ, so zero gradient, and ``sign(0) = 0`` leaves
+    them bit-identical.  Returns ``(params, state, base_loss)``."""
+    device = tree_leaves(params)[0].device
+    gen = counter_generator(state.seed, state.step, device=device)
+    grad, base = spsa_gradient(params, gen, cfg, batched_loss_fn,
+                               trainable_mask)
+    return (apply_update(params, grad, lr),
+            ZOState(step=state.step + 1, seed=state.seed), base)
+
+
+def apply_update(params: PyTree, grad: PyTree, lr: float) -> PyTree:
+    """Eq. (6): Φ − α · sign(ĝ)."""
+    return tree_map(lambda p, g: p - lr * torch.sign(g).to(p.dtype), params,
+                    grad)

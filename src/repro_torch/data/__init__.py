@@ -1,0 +1,6 @@
+"""Counter-based PDE data streams (port of ``repro.data``, PINN part)."""
+
+from repro_torch.data.pipeline import (  # noqa: F401
+    pde_collocation_iterator, pde_term_batch_iterator)
+
+__all__ = ["pde_collocation_iterator", "pde_term_batch_iterator"]

@@ -1,0 +1,68 @@
+"""Deterministic, restart-safe PDE data streams for ZO training.
+
+Each step's batch is drawn from a generator keyed by ``(seed, step,
+shard)`` alone, so resuming from step k regenerates exactly the batches
+from k on, with no state to checkpoint.  The collocation stream owns shard
+0 and the boundary/data term stream shard 1 of the same key space.
+Batches are drawn on the CPU (the same batch for a seed on every device);
+the caller moves them.
+
+These are not the JAX package's streams: its keys are threefry
+(``jax.random.fold_in``), these are ``torch.Generator`` seeded through
+numpy's ``SeedSequence``, so the two packages draw different points from
+the same seed.  Parity tests hand both packages the same arrays.
+
+Port of the PINN part of ``repro.data.pipeline``; the LM token streams,
+grouped coefficient draws and the spectral line grids are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator
+
+import torch
+
+from repro_torch import pde as pde_lib
+from repro_torch.device import counter_generator
+
+__all__ = ["pde_collocation_iterator", "pde_term_batch_iterator"]
+
+
+def pde_collocation_iterator(n: int, seed: int = 0, start_step: int = 0,
+                             pde: str | None = None,
+                             problem: pde_lib.PDEProblem | None = None
+                             ) -> Iterator[torch.Tensor]:
+    """Collocation batches ``(n, net_dim)`` from the problem's own sampler
+    (``problem``, else the registered ``pde``), one per step from
+    ``start_step`` on."""
+    if problem is None:
+        problem = pde_lib.get_problem(pde)
+    step = start_step
+    while True:
+        yield problem.sample_collocation(counter_generator(seed, step, 0), n)
+        step += 1
+
+
+def pde_term_batch_iterator(n: int, seed: int = 0, start_step: int = 0,
+                            pde: str | None = None,
+                            problem: pde_lib.PDEProblem | None = None
+                            ) -> Iterator[dict]:
+    """One ``{term_name: (x, target)}`` dict per step for every boundary
+    and data term of ``problem.loss_terms()`` — the ``term_batches=`` form
+    ``core.pinn.residual_loss`` takes.  Term i of ``loss_terms()`` draws
+    from fold i of shard 1, ``n`` rows per term; terms whose sampler
+    returns None are skipped, and a problem with no such terms yields
+    empty dicts."""
+    if problem is None:
+        problem = pde_lib.get_problem(pde)
+    terms = [(i, t) for i, t in enumerate(problem.loss_terms())
+             if t.kind != "collocation" and t.sample is not None]
+    step = start_step
+    while True:
+        out = {}
+        for i, t in terms:
+            batch = t.sample(counter_generator(seed, step, 1, i), n)
+            if batch is not None:
+                out[t.name] = batch
+        yield out
+        step += 1

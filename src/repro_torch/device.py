@@ -7,9 +7,10 @@ Every entry point takes ``device="cuda"`` and passes it through
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device", "to_device"]
+__all__ = ["resolve_device", "to_device", "counter_generator"]
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -43,3 +44,13 @@ def to_device(tree, device: torch.device):
     if isinstance(tree, (list, tuple)):
         return [to_device(v, device) for v in tree]
     return tree.to(device)
+
+
+def counter_generator(*counters: int,
+                      device: str | torch.device = "cpu") -> torch.Generator:
+    """A generator on ``device`` seeded from the integers ``counters``
+    alone (e.g. ``(seed, step, shard)``), through numpy's ``SeedSequence``:
+    the same counters give the same draws on every run, so a resumed run
+    needs no generator state."""
+    key = np.random.SeedSequence(list(counters)).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(key[0]))

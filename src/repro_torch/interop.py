@@ -3,8 +3,11 @@
 The JAX package's params and hardware-noise pytrees are nested dicts and
 lists of arrays; converted leaf by leaf to numpy (``np.asarray``) they can
 be handed to ``params_from_numpy`` / ``noise_from_numpy``, and both
-packages then compute the same thing.  JAX's threefry bits and torch's
-generators differ, so agreement never rests on seeds — only on arrays.
+packages then compute the same thing.  The same goes for the trees of ZO
+training: stacked params (a leading perturbation axis P on every leaf) and
+ξ stacks (``zoo.sample_perturbations``) convert leaf by leaf through
+``params_from_numpy``.  JAX's threefry bits and torch's generators differ,
+so agreement never rests on seeds — only on arrays.
 
 ``tree_from_flat`` rebuilds a tree from ``/``-joined path keys, the format
 of a checkpoint's ``arrays.npz`` (``pcores0/1/u/gamma``): a noise tree
@@ -32,7 +35,8 @@ def _tensors(tree, device: torch.device):
 
 def params_from_numpy(tree, device: str | torch.device) -> dict:
     """A JAX ``TensorPinn`` params tree (numpy leaves) as tensors on
-    ``device``, in the port's params layout (which is the same tree)."""
+    ``device``, in the port's params layout (which is the same tree); a
+    stacked params tree or a ξ stack converts the same way."""
     return _tensors(tree, torch.device(device))
 
 

@@ -11,11 +11,13 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.core import photonic as _ph
 from repro_torch.core import tt as tt_lib
+from repro_torch.kernels import mesh_apply as _mesh
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import tt_contract as _ttc
 
-__all__ = ["tt_linear"]
+__all__ = ["tt_linear", "tt_linear_batched", "mesh_apply_stacked"]
 
 
 def tt_linear(x: torch.Tensor, cores: Sequence[torch.Tensor],
@@ -24,3 +26,27 @@ def tt_linear(x: torch.Tensor, cores: Sequence[torch.Tensor],
     if x.device.type == "cpu":
         return _ref.tt_contract_ref(x, cores, spec)
     return _ttc.tt_contract(x, cores, spec)
+
+
+def tt_linear_batched(x: torch.Tensor, cores: Sequence[torch.Tensor],
+                      spec: tt_lib.TTSpec,
+                      shared_x: bool | None = None) -> torch.Tensor:
+    """P stacked TT-linears in one program — the ZO multi-perturbation
+    path.  cores: each ``(P, r, m, n, r')``; x ``(..., N)`` shared or
+    ``(P, ..., N)`` per entry (``shared_x=None``: 2-D is shared) →
+    ``(P, *batch_axes, M)``."""
+    if x.device.type == "cpu":
+        return _ref.tt_contract_batched_ref(x, cores, spec, shared_x)
+    return _ttc.tt_contract_batched(x, cores, spec, shared_x)
+
+
+def mesh_apply_stacked(layout: _ph.MeshLayout, phases: torch.Tensor,
+                       diag: torch.Tensor, x: torch.Tensor,
+                       transpose: bool = False) -> torch.Tensor:
+    """S stacked MZI meshes of one layout in one program: phases
+    ``(S, levels, slots)``, diag ``(P,)`` or ``(S, P)``, x ``(B, P)``
+    shared or ``(S, B, P)`` → ``(S, B, P)``.  On the card a layout too
+    large for the kernel's shared memory raises."""
+    if x.device.type == "cpu":
+        return _ph.mesh_apply_stacked(layout, phases, diag, x, transpose)
+    return _mesh.mesh_apply_stacked(layout, phases, diag, x, transpose)

@@ -1,19 +1,22 @@
-"""Wrapper of the hand-written CUDA TT-chain kernel (``csrc/tt_contract.cu``).
+"""Wrappers of the hand-written CUDA TT-chain kernels (``csrc/tt_contract.cu``).
 
-Replaces the Pallas kernel ``repro/kernels/tt_contract.py::tt_contract``
-(its ``pallas_call`` at line 115): ``y = x @ W(cores)^T`` with the whole
-chain kept on chip for one tile of rows.
+Replace the Pallas kernels ``repro/kernels/tt_contract.py::tt_contract``
+(its ``pallas_call`` at line 115) and ``::tt_contract_batched`` (line 212):
+``y = x @ W(cores)^T`` with the whole chain kept on chip for one tile of
+rows, for one core set or for P stacked ones (the SPSA perturbations of a
+ZO step) in one launch over a (row tile, P) grid.
 
 Bound on an H100 (3.35 TB/s, 67 TFLOP/s f32 without tensor cores): at the
-paper's 1024×1024 spec a row moves 8 KB and costs 64 KFLOP, so the kernel
-is memory-bound — about 5 µs for the served pool of 2048 rows.  The design
-keeps every intermediate in shared memory, so device memory sees only the
-input, the output and the tiny cores; see the source for the chain layout.
+paper's 1024×1024 spec a row moves 8 KB and costs 64 KFLOP, so the kernels
+are memory-bound — about 5 µs for the served pool of 2048 rows and 116 µs
+for the 11 × 4300 rows of the training hidden layer.  The design keeps
+every intermediate in shared memory, so device memory sees only the input,
+the output and the tiny cores; see the source for the chain layout.
 
-The wrapper checks what the kernel takes and raises on anything else; it
-never falls back to the plain version.  It allocates the output, launches
-on the current stream without synchronizing, and counts its launches in
-``tt_contract.launches``.
+The wrappers check what the kernels take and raise on anything else; they
+never fall back to the plain versions.  They allocate the output, launch
+on the current stream without synchronizing, and count their launches in
+``tt_contract.launches`` and ``tt_contract_batched.launches``.
 """
 
 from __future__ import annotations
@@ -28,8 +31,10 @@ import torch
 
 from repro_torch.core import tt as tt_lib
 from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
 
-__all__ = ["tt_contract", "chain_widest", "rows_per_block"]
+__all__ = ["tt_contract", "tt_contract_batched", "chain_widest",
+           "rows_per_block"]
 
 MAX_CORES = 8                      # kMaxCores in the source
 SMEM_DEFAULT_BYTES = 48 * 1024     # shared memory without an opt-in
@@ -71,36 +76,60 @@ def rows_per_block(spec: tt_lib.TTSpec) -> int:
 
 
 @functools.cache
-def _launcher():
-    fn = _build.load_library("tt_contract").tt_contract_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _launchers():
+    lib = _build.load_library("tt_contract")
+    single = lib.tt_contract_launch
+    single.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    batched = lib.tt_contract_batched_launch
+    batched.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                        ctypes.c_int, ctypes.c_void_p]
+    for fn in (single, batched):
+        fn.restype = ctypes.c_int
+    return single, batched
+
+
+def _check_x(name: str, x: torch.Tensor, spec: tt_lib.TTSpec) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA tensors, got {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32, got {x.dtype}")
+    if x.ndim < 1 or x.shape[-1] != spec.in_dim:
+        raise ValueError(f"x shape {tuple(x.shape)} does not end in "
+                         f"in_dim={spec.in_dim}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} needs a contiguous x")
+
+
+def _check_cores(cores: Sequence[torch.Tensor], spec: tt_lib.TTSpec,
+                 device: torch.device, stack: tuple = ()) -> None:
+    """Each core a contiguous float32 ``(*stack, r, m, n, r')`` on
+    ``device``."""
+    if not 1 <= spec.L <= MAX_CORES or len(cores) != spec.L:
+        raise ValueError(f"need 1..{MAX_CORES} cores matching the spec, "
+                         f"got {len(cores)} for L={spec.L}")
+    for k, (c, shape) in enumerate(zip(cores, spec.core_shapes)):
+        shape = (*stack, *shape)
+        if (c.device != device or c.dtype != torch.float32
+                or tuple(c.shape) != shape or not c.is_contiguous()):
+            raise ValueError(
+                f"core {k}: need a contiguous float32 {shape} tensor on "
+                f"{device}, got {c.dtype} {tuple(c.shape)} on {c.device}")
+
+
+def _descriptor(cores: Sequence[torch.Tensor], spec: tt_lib.TTSpec):
+    return np.asarray([spec.L, chain_widest(spec), *spec.out_modes,
+                       *spec.in_modes, *spec.ranks,
+                       *(c.data_ptr() for c in cores)], dtype=np.int64)
 
 
 def tt_contract(x: torch.Tensor, cores: Sequence[torch.Tensor],
                 spec: tt_lib.TTSpec) -> torch.Tensor:
     """``y = x @ W(cores)^T`` on the card.  x: (..., N) f32 → (..., M) f32;
     extra batch axes are flattened for the launch and restored."""
-    if x.device.type != "cuda":
-        raise ValueError(f"tt_contract runs on CUDA tensors, got {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"tt_contract takes float32, got {x.dtype}")
-    if x.ndim < 1 or x.shape[-1] != spec.in_dim:
-        raise ValueError(f"x shape {tuple(x.shape)} does not end in "
-                         f"in_dim={spec.in_dim}")
-    if not x.is_contiguous():
-        raise ValueError("tt_contract needs a contiguous x")
-    if not 1 <= spec.L <= MAX_CORES or len(cores) != spec.L:
-        raise ValueError(f"need 1..{MAX_CORES} cores matching the spec, "
-                         f"got {len(cores)} for L={spec.L}")
-    for k, (c, shape) in enumerate(zip(cores, spec.core_shapes)):
-        if (c.device != x.device or c.dtype != torch.float32
-                or tuple(c.shape) != shape or not c.is_contiguous()):
-            raise ValueError(
-                f"core {k}: need a contiguous float32 {shape} tensor on "
-                f"{x.device}, got {c.dtype} {tuple(c.shape)} on {c.device}")
+    _check_x("tt_contract", x, spec)
+    _check_cores(cores, spec, x.device)
     batch_shape = x.shape[:-1]
     B = math.prod(batch_shape)
     y = torch.empty((*batch_shape, spec.out_dim), dtype=torch.float32,
@@ -109,13 +138,11 @@ def tt_contract(x: torch.Tensor, cores: Sequence[torch.Tensor],
         return y
     if B >= 2**31:
         raise ValueError(f"batch of {B} rows exceeds the kernel's int32 range")
-    desc = np.asarray([spec.L, chain_widest(spec), *spec.out_modes,
-                       *spec.in_modes, *spec.ranks,
-                       *(c.data_ptr() for c in cores)], dtype=np.int64)
+    desc = _descriptor(cores, spec)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _launcher()(x.data_ptr(), y.data_ptr(), desc.ctypes.data, B,
-                          rows_per_block(spec), stream)
+        err = _launchers()[0](x.data_ptr(), y.data_ptr(), desc.ctypes.data,
+                              B, rows_per_block(spec), stream)
     if err != 0:
         raise RuntimeError(f"tt_contract launch failed: CUDA error {err}")
     tt_contract.launches += 1
@@ -123,3 +150,45 @@ def tt_contract(x: torch.Tensor, cores: Sequence[torch.Tensor],
 
 
 tt_contract.launches = 0
+
+MAX_STACK = 65_535                 # the grid's y extent
+
+
+def tt_contract_batched(x: torch.Tensor, cores: Sequence[torch.Tensor],
+                        spec: tt_lib.TTSpec,
+                        shared_x: bool | None = None) -> torch.Tensor:
+    """``y[p] = x(shared or [p]) @ W(cores[p])^T`` for P stacked core sets
+    in one launch.  cores: each ``(P, r, m, n, r')``; x ``(..., N)`` shared
+    or ``(P, ..., N)`` per entry, resolved as ``kernels.ref.
+    split_batch_axes`` does (``shared_x=None``: 2-D is shared).  Returns
+    ``(P, *batch_axes, M)``."""
+    _check_x("tt_contract_batched", x, spec)
+    if not cores:
+        raise ValueError("need at least one core stack")
+    P = cores[0].shape[0]
+    _check_cores(cores, spec, x.device, stack=(P,))
+    if not 1 <= P <= MAX_STACK:
+        raise ValueError(f"core stack of {P} entries; the kernel takes "
+                         f"1..{MAX_STACK}")
+    xf, batch_shape, shared = _ref.split_batch_axes(x, P, spec, shared_x)
+    B = xf.shape[-2]
+    y = torch.empty((P, *batch_shape, spec.out_dim), dtype=torch.float32,
+                    device=x.device)
+    if B == 0:
+        return y
+    if P * B >= 2**31:
+        raise ValueError(f"{P} x {B} rows exceed the kernel's int32 range")
+    desc = _descriptor(cores, spec)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _launchers()[1](xf.data_ptr(), y.data_ptr(), desc.ctypes.data,
+                              B, P, 0 if shared else B * spec.in_dim,
+                              rows_per_block(spec), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"tt_contract_batched launch failed: CUDA error {err}")
+    tt_contract_batched.launches += 1
+    return y
+
+
+tt_contract_batched.launches = 0

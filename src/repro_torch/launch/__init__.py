@@ -1,1 +1,2 @@
-"""Entry points of the port (``python -m repro_torch.launch.serve_pde``)."""
+"""Entry points of the port (``python -m repro_torch.launch.serve_pde``,
+``python -m repro_torch.launch.train``)."""

@@ -1,5 +1,7 @@
-"""Tests that need the card: the CUDA ``tt_contract`` kernel against its plain
-PyTorch version, and served values against a direct forward, on the GPU.
+"""Tests that need the card: the CUDA kernels (``tt_contract``,
+``tt_contract_batched``, ``mesh_apply_stacked``) against their plain PyTorch
+versions, served values against a direct forward, and one ZO training step
+on the card against the same step through the plain path on the CPU.
 
 Run on a machine with an NVIDIA GPU (Hopper, ``sm_90a``) and ``nvcc``:
 
@@ -12,17 +14,21 @@ Tolerances: kernel against plain ``max|kernel − plain| ≤ 1e-5·max|plain| +
 1e-6`` (the same f32 products summed in another order); served against a
 direct forward ``rtol = atol = 1e-6`` (the head's matmul may pick another
 cuBLAS algorithm for another batch size); the card against the CPU's plain
-path ``rtol = atol = 1e-5``.
+path ``rtol = atol = 1e-5``; a ZO step's stencil u-values within 1e-4 of
+``max|u|`` (f32 chains summed in other orders, and sin/cos from two
+libraries) and its losses within ``rtol = 1e-1`` (the FD residual squares
+second differences, amplifying those rounding differences by 1/h²).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import pinn, tt
+from repro_torch.core import photonic, pinn, tt, zoo
 from repro_torch.core.photonic import NoiseModel
-from repro_torch.device import to_device
+from repro_torch.device import counter_generator, to_device
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import mesh_apply as mesh
 from repro_torch.kernels import tt_contract as ttc
 from repro_torch.serving import PdeServingEngine, PointRequest, SolverRegistry
 
@@ -35,6 +41,32 @@ KERNEL_CASES = {
     "paper-65536": (tt.PAPER_TONN_SPEC, 65536),
     "reduced-1000": (tt.auto_factorize(64, 64, L=3, max_rank=2), 1000),
     "rank4-777": (tt.auto_factorize(256, 512, L=3, max_rank=4), 777),
+}
+
+
+RANK4 = tt.auto_factorize(256, 512, L=3, max_rank=4)
+
+# label -> (spec, P, x shape without its leading P, shared): the three
+# launches of a training step at the paper's config (N = 10, batch 100),
+# a rank-4 non-square spec off the tile, and extra batch axes
+BATCHED_CASES = {
+    "layer0-rows": (tt.PAPER_TONN_SPEC, 11, (100,), True),
+    "layer0-columns": (tt.PAPER_TONN_SPEC, 11, (21,), True),
+    "hidden-stencil": (tt.PAPER_TONN_SPEC, 11, (4300,), False),
+    "rank4-777": (RANK4, 3, (777,), False),
+    "rank4-shared-axes": (RANK4, 3, (3, 5), True),
+}
+
+# label -> (ports, S, B, shared x, transpose): the TONN densification of
+# the paper's core meshes (V transposed on the identity, U on the
+# per-entry activations), and a 64-port mesh
+MESH_CASES = {
+    "v16-identity": (16, 11, 16, True, True),
+    "v4-identity": (4, 11, 4, True, True),
+    "u4-per-entry": (4, 11, 16, False, False),
+    "u16-per-entry": (16, 11, 4, False, False),
+    "u16-shared": (16, 11, 16, True, False),
+    "p64-per-entry": (64, 3, 37, False, True),
 }
 
 
@@ -105,10 +137,143 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(cuda):
     assert ttc.tt_contract(x[:0], cores, spec).shape == (0, spec.out_dim)
 
 
-def test_build_is_cached_by_source_hash(cuda):
-    lib = _build.build("tt_contract")
+@pytest.mark.parametrize("name", ["tt_contract", "mesh_apply"])
+def test_build_is_cached_by_source_hash(cuda, name):
+    lib = _build.build(name)
     assert lib.parent == _build.BUILD_DIR and lib.is_file()
-    assert _build.build("tt_contract") == lib
+    assert _build.build(name) == lib
+
+
+def _stacked_inputs(spec, P, x_shape, shared, seed, device):
+    gen = torch.Generator().manual_seed(seed)
+    per = [tt.tt_init(gen, spec) for _ in range(P)]
+    cores = [torch.stack([c[k] for c in per]).to(device)
+             for k in range(spec.L)]
+    lead = () if shared else (P,)
+    x = torch.randn((*lead, *x_shape, spec.in_dim), generator=gen).to(device)
+    return cores, x
+
+
+@pytest.mark.parametrize("label", sorted(BATCHED_CASES))
+def test_batched_kernel_matches_plain(cuda, label):
+    spec, P, x_shape, shared = BATCHED_CASES[label]
+    cores, x = _stacked_inputs(spec, P, x_shape, shared, len(label), cuda)
+    y = ttc.tt_contract_batched(x, cores, spec, shared_x=shared)
+    assert tuple(y.shape) == (P, *x_shape, spec.out_dim)
+    _assert_kernel_close(y, ref.tt_contract_batched_ref(x, cores, spec,
+                                                        shared_x=shared))
+
+
+@pytest.mark.parametrize("label", ["layer0-rows", "hidden-stencil",
+                                   "rank4-777"])
+def test_batched_entry_equals_tt_contract_bitwise(cuda, label):
+    """Entry p of the batched kernel runs tt_contract's chain: the same
+    bits as tt_contract(x[p], cores[p])."""
+    spec, P, x_shape, shared = BATCHED_CASES[label]
+    cores, x = _stacked_inputs(spec, P, x_shape, shared, 7, cuda)
+    y = ttc.tt_contract_batched(x, cores, spec, shared_x=shared)
+    for p in range(P):
+        single = ttc.tt_contract(x if shared else x[p].contiguous(),
+                                 [c[p].contiguous() for c in cores], spec)
+        assert torch.equal(y[p], single), p
+
+
+def test_batched_rows_do_not_depend_on_their_tile(cuda):
+    spec, P, _, _ = BATCHED_CASES["hidden-stencil"]
+    cores, x = _stacked_inputs(spec, P, (301,), False, 3, cuda)
+    y = ttc.tt_contract_batched(x, cores, spec)
+    for shift in (1, ttc.rows_per_block(spec) + 2):
+        assert torch.equal(ttc.tt_contract_batched(
+            x[:, shift:].contiguous(), cores, spec), y[:, shift:])
+
+
+def test_batched_dispatch_counts_its_launches(cuda):
+    spec, P, x_shape, shared = BATCHED_CASES["rank4-shared-axes"]
+    cores, x = _stacked_inputs(spec, P, x_shape, shared, 5, cuda)
+    before = ttc.tt_contract_batched.launches
+    y = ops.tt_linear_batched(x, cores, spec, shared_x=True)
+    assert ttc.tt_contract_batched.launches == before + 1
+    assert tuple(y.shape) == (P, *x_shape, spec.out_dim)
+    with pytest.raises(ValueError, match="contiguous"):
+        ttc.tt_contract_batched(x.transpose(0, 1), cores, spec)
+    with pytest.raises(ValueError, match="core 1"):
+        ttc.tt_contract_batched(x, [cores[0]] + [c[:1] for c in cores[1:]],
+                                spec)
+
+
+def _mesh_inputs(ports, S, B, shared, seed, device):
+    layout = photonic.rectangular_layout(ports)
+    gen = torch.Generator().manual_seed(seed)
+    phases = torch.randn((S, *layout.phase_shape()), generator=gen)
+    diag = torch.where(torch.rand((S, ports), generator=gen) < 0.5, -1.0, 1.0)
+    x = torch.randn((B, ports) if shared else (S, B, ports), generator=gen)
+    return layout, phases.to(device), diag.to(device), x.to(device)
+
+
+@pytest.mark.parametrize("label", sorted(MESH_CASES))
+def test_mesh_kernel_matches_plain(cuda, label):
+    ports, S, B, shared, transpose = MESH_CASES[label]
+    layout, phases, diag, x = _mesh_inputs(ports, S, B, shared, len(label),
+                                           cuda)
+    for d in (diag, diag[0].contiguous()):             # (S, P) and (P,)
+        before = mesh.mesh_apply_stacked.launches
+        y = ops.mesh_apply_stacked(layout, phases, d, x, transpose)
+        assert mesh.mesh_apply_stacked.launches == before + 1
+        assert tuple(y.shape) == (S, B, ports)
+        plain = photonic.mesh_apply_stacked(layout, phases, d, x, transpose)
+        _assert_kernel_close(y, plain)
+        # products and sums rounded one by one, in the plain order
+        assert torch.equal(y, plain)
+
+
+def test_mesh_kernel_refuses_a_layout_over_shared_memory(cuda):
+    """A layout the kernel cannot hold raises on the card; it never runs
+    the plain version there."""
+    for ports in (160, 1024):
+        layout, phases, diag, x = _mesh_inputs(ports, 1, 2, True, 0, cuda)
+        with pytest.raises(ValueError, match="shared memory"):
+            ops.mesh_apply_stacked(layout, phases, diag, x)
+    assert mesh.rows_per_block(photonic.rectangular_layout(138)) >= 1
+
+
+@pytest.mark.parametrize("hidden,tt_L", [(64, 3), (1024, 4)])
+def test_zo_step_on_the_card_matches_the_cpu(cuda, hidden, tt_L):
+    """One ZO step's stacked stencil u-values and (P,) losses on the card
+    against the same params, ξ, batch and noise through the plain path on
+    the CPU; the step launches 3 batched chains and 2 meshes per core
+    mesh."""
+    cfg = pinn.PINNConfig(hidden=hidden, mode="tonn", tt_L=tt_L,
+                          deriv="fd_fast", use_fused_kernel=True,
+                          noise=NoiseModel(enabled=True))
+    model = pinn.TensorPinn(cfg)
+    params = model.init(counter_generator(0))
+    noise = model.sample_noise(counter_generator(0, 99))
+    # 96 points average the FD noise of the losses (a 1-ulp difference in
+    # u moves a point's residual by ~0.1) under the rtol
+    xt = model.problem.sample_collocation(counter_generator(1), 96)
+    scfg = zoo.SPSAConfig(num_samples=3)
+    xis = zoo.sample_perturbations(counter_generator(2), params, 3,
+                                   model.trainable_mask(params))
+    stacked = zoo.perturbed_stack(params, xis, scfg)
+
+    def step(device):
+        sp, nz = to_device(stacked, device), to_device(noise, device)
+        x = xt.to(device)
+        prepared = model.prepare_params_stacked(sp, nz)
+        u = model.fd_u_stencil_stacked(prepared, x, model.fd_step)
+        return u.cpu(), pinn.residual_losses_stacked(model, sp, x, nz).cpu()
+
+    before = (ttc.tt_contract_batched.launches, mesh.mesh_apply_stacked.launches)
+    u_card, l_card = step(cuda)
+    torch.cuda.synchronize()
+    meshes = sum(len(pms) for pms in model.photonic_cores)
+    # two stencil passes above (u, then the losses): 2 × (3 chains, 2 per mesh)
+    assert ttc.tt_contract_batched.launches - before[0] == 2 * 3
+    assert mesh.mesh_apply_stacked.launches - before[1] == 2 * 2 * meshes
+    u_cpu, l_cpu = step(torch.device("cpu"))
+    assert torch.isfinite(u_card).all() and torch.isfinite(l_card).all()
+    assert (u_card - u_cpu).abs().max() <= 1e-4 * u_cpu.abs().max()
+    np.testing.assert_allclose(l_card.numpy(), l_cpu.numpy(), rtol=1e-1)
 
 
 def test_served_matches_direct_on_the_card(cuda):

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro.core import photonic as jph
+from repro.kernels import ops as jops
 from repro_torch import interop
 from repro_torch.core import photonic as tph
 
@@ -135,3 +136,132 @@ def test_photonic_matrix_init_tree_matches_jax():
     tn = tm.sample_noise(torch.Generator().manual_seed(1), tph.NoiseModel())
     assert jax.tree.map(np.shape, jn) == jax.tree.map(
         lambda t: tuple(t.shape), tn)
+
+
+# ---------------------------------------------- stacked meshes (ZO training)
+
+def _stack_inputs(ports, S, B, shared, stacked_diag, seed):
+    rng = np.random.RandomState(seed)
+    layout = jph.rectangular_layout(ports)
+    phases = rng.uniform(-np.pi, np.pi, (S, *layout.phase_shape())).astype(
+        np.float32)
+    diag = rng.choice([-1.0, 1.0], (S, ports) if stacked_diag else ports)
+    x = rng.standard_normal((B, ports) if shared else (S, B, ports))
+    return phases, diag.astype(np.float32), x.astype(np.float32)
+
+
+@pytest.mark.parametrize("stacked_diag", [False, True])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("ports", [4, 7, 16])
+def test_mesh_apply_stacked_matches_jax(ports, transpose, shared,
+                                        stacked_diag):
+    """The plain stacked mesh against JAX's plain version and its Pallas
+    kernel body in interpret mode (atol 1e-6: unit-norm rotations of O(1)
+    inputs, sin/cos from two libraries)."""
+    S, B = 3, 5
+    phases, diag, x = _stack_inputs(ports, S, B, shared, stacked_diag,
+                                    seed=ports + 2 * transpose + shared)
+    args = (jnp.asarray(phases), jnp.asarray(diag), jnp.asarray(x))
+    layout_j = jph.rectangular_layout(ports)
+    y = tph.mesh_apply_stacked(tph.rectangular_layout(ports),
+                               torch.tensor(phases), torch.tensor(diag),
+                               torch.tensor(x), transpose=transpose)
+    assert tuple(y.shape) == (S, B, ports)
+    for want in (jph.mesh_apply_stacked(layout_j, *args, transpose=transpose),
+                 jops.mesh_apply_stacked(layout_j, *args, transpose=transpose,
+                                         mode="interpret")):
+        np.testing.assert_allclose(y.numpy(), np.asarray(want), rtol=RTOL,
+                                   atol=1e-6)
+
+
+def test_stack_axes_reach_the_tables_and_the_gather_core():
+    """Rank-agnostic ``mesh_gather_tables`` and ``mesh_apply``: 3-D phases,
+    a (S, P) diag and (S, B, P) inputs give the JAX package's tables and
+    its stacked mesh, entry by entry."""
+    ports, S = 8, 4
+    phases, diag, x = _stack_inputs(ports, S, 6, False, True, seed=11)
+    layout_j, layout_t = jph.rectangular_layout(ports), tph.rectangular_layout(
+        ports)
+    for transpose in (False, True):
+        tables_j = jph.mesh_gather_tables(layout_j, jnp.asarray(phases),
+                                          transpose)
+        tables_t = tph.mesh_gather_tables(layout_t, torch.tensor(phases),
+                                          transpose)
+        for got, want in zip(tables_t, tables_j):
+            assert tuple(got.shape) == (S, layout_t.levels, ports)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=RTOL, atol=1e-6)
+        y = tph.mesh_apply(layout_t, torch.tensor(phases), torch.tensor(diag),
+                           torch.tensor(x), transpose=transpose)
+        for s in range(S):
+            want = jph.mesh_apply(layout_j, jnp.asarray(phases[s]),
+                                  jnp.asarray(diag[s]), jnp.asarray(x[s]),
+                                  transpose=transpose)
+            np.testing.assert_allclose(y[s].numpy(), np.asarray(want),
+                                       rtol=RTOL, atol=1e-6)
+
+
+@pytest.mark.parametrize("noisy", [False, True])
+@pytest.mark.parametrize("out_dim,in_dim", [(4, 16), (16, 4), (7, 5)])
+def test_to_dense_stacked_matches_jax(out_dim, in_dim, noisy):
+    """S stacked parameter sets densify in one pass, the chip's noise
+    shared across the stack, as JAX's ``to_dense_stacked`` does."""
+    S = 3
+    jm, tm = jph.PhotonicMatrix(out_dim, in_dim), tph.PhotonicMatrix(
+        out_dim, in_dim)
+    per = [jm.init(jax.random.PRNGKey(s)) for s in range(S)]
+    stacked = {k: np.stack([np.asarray(p[k]) for p in per]) for k in per[0]}
+    model_j, model_t, noise = None, None, None
+    if noisy:
+        model_j, model_t = jph.NoiseModel(), tph.NoiseModel()
+        noise = _np_tree(jm.sample_noise(jax.random.PRNGKey(7), model_j))
+    want = np.asarray(jm.to_dense_stacked(
+        jax.tree.map(jnp.asarray, stacked), model_j,
+        noise and jax.tree.map(jnp.asarray, noise)))
+    got = tm.to_dense_stacked(interop.params_from_numpy(stacked, "cpu"),
+                              model_t, interop.noise_from_numpy(noise, "cpu"))
+    assert tuple(got.shape) == (S, out_dim, in_dim)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=1e-6)
+    # entry s is the single densification of the s-th params
+    single = tm.to_dense(interop.params_from_numpy(
+        {k: v[1] for k, v in stacked.items()}, "cpu"), model_t,
+        interop.noise_from_numpy(noise, "cpu"))
+    np.testing.assert_allclose(got[1].numpy(), single.numpy(), rtol=RTOL,
+                               atol=1e-6)
+
+
+def test_buffer_keys_and_plan_tensors():
+    """The gather plan on a device, memoized on the layout: the kernel's
+    int32 perm tables in application order, transposed reversed."""
+    assert tph.PHOTONIC_BUFFER_KEYS == jph.PHOTONIC_BUFFER_KEYS
+    layout = tph.rectangular_layout(6)
+    perm, slot, sign = tph.mesh_gather_plan(layout)
+    plan = tph.mesh_plan_tensors(layout, torch.device("cpu"))
+    assert plan is tph.mesh_plan_tensors(layout, torch.device("cpu"))
+    np.testing.assert_array_equal(plan["perm"].numpy(), perm)
+    np.testing.assert_array_equal(plan["perm_t"].numpy(), perm[::-1])
+    np.testing.assert_array_equal(plan["slot"].numpy(), slot)
+    np.testing.assert_array_equal(plan["sign"].numpy(), sign)
+    assert plan["perm"].dtype == plan["perm_t"].dtype == torch.int32
+    assert plan["perm_t"].is_contiguous()
+
+
+def test_mesh_kernel_wrapper_refuses_what_it_cannot_take():
+    """On the CPU the dispatcher takes the plain version; the kernel
+    wrapper itself raises for a non-CUDA tensor, and its shared-memory
+    limit refuses the wide onn meshes before any launch."""
+    from repro_torch.kernels import mesh_apply as tmesh
+    from repro_torch.kernels import ops as tops
+    layout = tph.rectangular_layout(4)
+    phases = torch.zeros((2, *layout.phase_shape()))
+    before = tmesh.mesh_apply_stacked.launches
+    tops.mesh_apply_stacked(layout, phases, torch.ones(4), torch.ones(3, 4))
+    assert tmesh.mesh_apply_stacked.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        tmesh.mesh_apply_stacked(layout, phases, torch.ones(4),
+                                 torch.ones(3, 4))
+    assert tmesh.rows_per_block(tph.rectangular_layout(16)) == 64
+    assert tmesh.smem_bytes(138, 138, 1) <= tmesh.SMEM_MAX_BYTES
+    with pytest.raises(ValueError, match="shared memory"):
+        tmesh.rows_per_block(tph.rectangular_layout(139))

@@ -209,3 +209,4 @@ def test_prepared_cores_match_jax_densification():
     ttm = tpinn.TensorPinn(tpinn.PINNConfig(hidden=16, mode="tt", tt_L=3))
     p = ttm.init(torch.Generator().manual_seed(0))
     assert ttm.prepare_params(p, None) == (p, None)
+

@@ -17,7 +17,7 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.core import pinn as tpinn
 from repro_torch.kernels import _build
-from repro_torch.launch import serve_pde
+from repro_torch.launch import serve_pde, train
 from repro_torch.serving import PdeServingEngine, SolverRegistry
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -46,7 +46,8 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys, repro_torch.serving, repro_torch.launch.serve_pde; "
+    code = ("import sys, repro_torch.serving, repro_torch.launch.serve_pde, "
+            "repro_torch.launch.train; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
@@ -101,6 +102,9 @@ def test_default_device_is_the_card(no_gpu, tmp_path):
         PdeServingEngine(reg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_pde.main(["--ckpt", f"heat={tmp_path}", "--synthetic", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "tensor-pinn", "--pde", "hjb-20d", "--reduced",
+                    "--steps", "1"])
     eng = PdeServingEngine(reg, device="cpu")
     assert eng.device == torch.device("cpu")
 

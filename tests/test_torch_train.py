@@ -1,0 +1,137 @@
+"""The port's trainer CLI (``repro_torch.launch.train``), its data streams
+and its checkpoint manager, on the CPU.
+
+A checkpoint the port writes is served by the JAX package's registry too
+(noise off: with noise on the JAX registry would redraw the chip from the
+seed with threefry, which the port does not reproduce).  Tolerance for
+served u-values ``rtol = atol = 1e-5``: both packages reassociate the f32
+chain and take sin from two libraries.
+"""
+
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from repro.serving import SolverRegistry as JRegistry
+from repro_torch.checkpoint import CheckpointManager, read_checkpoint_meta
+from repro_torch.core import zoo
+from repro_torch.data import pde_collocation_iterator, pde_term_batch_iterator
+from repro_torch.launch import train
+from repro_torch.serving import SolverRegistry
+
+REDUCED = ["--arch", "tensor-pinn", "--pde", "hjb-20d", "--reduced",
+           "--device", "cpu", "--log-every", "100"]
+
+
+def _run(*extra):
+    return train.main(REDUCED + [str(a) for a in extra])
+
+
+def test_reduced_hjb_trains_to_a_falling_loss(capsys):
+    """The paper's on-chip config (tonn, noise on) at the reduced width
+    trains through the stacked path: finite losses falling, a finite val
+    MSE, and the photonic buffers untouched."""
+    res = _run("--steps", 24, "--batch", 16, "--zo-samples", 10,
+               "--pinn-noise", "--lr", 1e-2, "--log-every", 8)
+    assert len(res.losses) == 24 and np.isfinite(res.losses).all()
+    assert np.median(res.losses[-5:]) < res.losses[0]
+    assert res.val_mse is not None and np.isfinite(res.val_mse)
+    init, _ = train.init_solver(res.model, 0)
+    mask = res.model.trainable_mask(init)
+    for new, old, trainable in zip(zoo.tree_leaves(res.params),
+                                   zoo.tree_leaves(init),
+                                   zoo.tree_leaves(mask)):
+        assert torch.equal(new, old) != trainable
+    out = capsys.readouterr().out
+    assert "[pinn] pde=hjb-20d" in out and "mode=tonn" in out
+    assert "step 16 loss" in out and "val MSE" in out
+    assert "[train] done" in out
+
+
+def test_checkpoint_serves_in_both_packages(tmp_path):
+    res = _run("--steps", 4, "--batch", 8, "--zo-samples", 4,
+               "--ckpt-dir", tmp_path, "--ckpt-every", 2)
+    meta = read_checkpoint_meta(tmp_path)
+    assert meta["step"] == 4 and meta["pde"] == "hjb-20d"
+    assert meta["seed"] == 0 and meta["term_weights"] == {"residual": 1.0}
+    assert meta["pinn"]["mode"] == "tonn" and meta["pinn"]["hidden"] == 64
+    pts = np.random.RandomState(0).uniform(0.02, 0.98, (9, 21)).astype(
+        np.float32)
+    with torch.no_grad():
+        want = res.model.u(res.params, torch.tensor(pts)).numpy()
+    jax_solver = JRegistry().load_checkpoint("hjb", tmp_path)
+    np.testing.assert_allclose(
+        np.asarray(jax_solver.model.u(jax_solver.params, pts)), want,
+        rtol=1e-5, atol=1e-5)
+    reg = SolverRegistry(device="cpu")
+    s = reg.load_checkpoint("hjb", tmp_path, device="cpu")
+    with torch.no_grad():
+        np.testing.assert_array_equal(
+            s.model.u(s.params, torch.tensor(pts)).numpy(), want)
+
+
+def test_resume_redraws_the_same_perturbations(tmp_path):
+    """A run cut after step_3 and resumed runs steps 3..5 as the
+    uninterrupted run did: the same batches, the same ξ, the same params."""
+    args = ("--steps", 6, "--batch", 8, "--zo-samples", 4,
+            "--ckpt-dir", tmp_path, "--ckpt-every", 3)
+    full = _run(*args)
+    shutil.rmtree(tmp_path / "step_000000000006")      # the cut
+    resumed = _run(*args, "--resume")
+    assert resumed.losses == full.losses[3:]
+    for a, b in zip(zoo.tree_leaves(resumed.params),
+                    zoo.tree_leaves(full.params)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--sequential"], 6), (["--pinn-mode", "onn"], 6),
+    (["--pinn-mode", "dense"], 6), (["--optimizer", "adamw"], 6),
+    (["--optimizer", "sgd"], 6), (["--estimator", "stein"], 8),
+    (["--term-weight", "residual=2"], 8), (["--bc-weight", "2"], 8),
+    (["--estimator", "spectral"], 9), (["--spectral-points", "8"], 9),
+    (["--coeff-range", "lam=0.05:0.1"], 10), (["--coeff-dist", "uniform"], 10),
+    (["--coeffs-per-step", "2"], 10), (["--quant", "int8"], 11),
+    (["--quant-block", "16"], 11), (["--phase-bits", "8"], 11),
+    (["--shard", "perturbation"], 13), (["--mesh", "2x1"], 13),
+    (["--async-ckpt"], 13), (["--seq", "16"], 14),
+    (["--compress-grads"], 14), (["--zo-vectorized"], 14)])
+def test_unported_flags_exit_with_their_roadmap_item(flags, item):
+    with pytest.raises(SystemExit, match=f"item {item}"):
+        train.main(REDUCED + flags)
+
+
+def test_lm_archs_and_unported_pdes_are_refused():
+    with pytest.raises(SystemExit, match="item 14"):
+        train.main(["--arch", "qwen2.5-3b", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 8"):
+        _run("--pde", "heat-10d", "--steps", 1)
+
+
+def test_streams_are_counter_based():
+    """A stream started at step k gives the batches an uninterrupted one
+    gives from step k on; hjb has no boundary or data terms."""
+    it = pde_collocation_iterator(5, seed=3, pde="hjb-20d")
+    batches = [next(it) for _ in range(4)]
+    later = pde_collocation_iterator(5, seed=3, start_step=2, pde="hjb-20d")
+    assert torch.equal(next(later), batches[2])
+    assert not torch.equal(batches[0], batches[1])
+    assert tuple(batches[0].shape) == (5, 21)
+    assert 0.02 <= float(batches[0].min()) and float(batches[0].max()) <= 0.98
+    other = pde_collocation_iterator(5, seed=4, pde="hjb-20d")
+    assert not torch.equal(next(other), batches[0])
+    assert next(pde_term_batch_iterator(4, pde="hjb-20d")) == {}
+
+
+def test_checkpoint_manager_keeps_the_newest(tmp_path):
+    mgr = CheckpointManager(tmp_path, keep=2, save_every=5)
+    assert [s for s in range(12) if mgr.should_save(s)] == [5, 10]
+    for step in (1, 2, 3):
+        mgr.save(step, {"a": torch.full((2,), float(step))}, {"step": step})
+    mgr.wait()
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "step_000000000002", "step_000000000003"]
+    tree, meta = mgr.restore_latest({"a": torch.zeros(2)})
+    assert meta["step"] == 3 and torch.equal(tree["a"], torch.full((2,), 3.0))

@@ -162,3 +162,88 @@ def test_kernel_tiling_fits_shared_memory(label):
     assert smem <= tttc.SMEM_DEFAULT_BYTES
     if label == "paper":
         assert widest == 1024          # 4 KB per row at every chain step
+
+
+# --------------------------------------------------- stacked chain (ZO path)
+
+# label -> (spec, P, x shape without its leading P, shared_x); reduced
+# widths (hidden 64, L 3), a rank-4 spec and the paper's spec at P 3, B 4
+BATCHED_CASES = {
+    "reduced-shared": (jtt.auto_factorize(64, 64, L=3, max_rank=2), 4, (8,),
+                       True),
+    "reduced-per-entry": (jtt.auto_factorize(64, 64, L=3, max_rank=2), 4,
+                          (8,), False),
+    "rank4-per-entry": (jtt.auto_factorize(32, 48, L=3, max_rank=4), 2,
+                        (5,), False),
+    "reduced-shared-axes": (jtt.auto_factorize(64, 64, L=3, max_rank=2), 3,
+                            (2, 4), True),
+    "reduced-per-entry-axes": (jtt.auto_factorize(64, 64, L=3, max_rank=2),
+                               3, (2, 3), False),
+    "paper-shared": (jtt.PAPER_TONN_SPEC, 3, (4,), True),
+    "paper-per-entry": (jtt.PAPER_TONN_SPEC, 3, (4,), False),
+}
+
+
+def _stacked_inputs(spec, P, x_shape, shared, seed):
+    """Cores at ``tt_init``'s Glorot scale, so outputs are O(1) and an
+    absolute 1e-6 is about 10 f32 ulps of them."""
+    rng = np.random.RandomState(seed)
+    var = 2.0 / (spec.in_dim + spec.out_dim) / np.prod(spec.ranks[1:-1])
+    std = float(var ** (0.5 / spec.L))
+    cores = [rng.standard_normal((P, *s)).astype(np.float32) * std
+             for s in spec.core_shapes]
+    lead = () if shared else (P,)
+    x = rng.standard_normal((*lead, *x_shape, spec.in_dim)).astype(np.float32)
+    return cores, x
+
+
+@pytest.mark.parametrize("mode", ["ref", "interpret"])
+@pytest.mark.parametrize("label", sorted(BATCHED_CASES))
+def test_tt_linear_batched_matches_jax(label, mode):
+    """The plain stacked chain against JAX's plain version and against the
+    Pallas kernel body in interpret mode: shared x, per-entry x and extra
+    batch axes."""
+    spec, P, x_shape, shared = BATCHED_CASES[label]
+    cores, x = _stacked_inputs(spec, P, x_shape, shared, seed=len(label))
+    y_jax = np.asarray(jops.tt_linear_batched(
+        jnp.asarray(x), [jnp.asarray(c) for c in cores], spec, mode=mode,
+        shared_x=shared))
+    y = tops.tt_linear_batched(torch.tensor(x),
+                               [torch.tensor(c) for c in cores],
+                               _port_spec(spec), shared_x=shared)
+    assert tuple(y.shape) == (P, *x_shape, spec.out_dim)
+    np.testing.assert_allclose(y.numpy(), y_jax, rtol=RTOL, atol=1e-6)
+
+
+def test_tt_matvec_stacked_matches_jax_and_the_single_chain():
+    spec = CHAIN_CASES["rank4-256x512"][0]
+    cores, x = _stacked_inputs(spec, 3, (6,), False, seed=4)
+    want = np.asarray(jtt.tt_matvec_stacked([jnp.asarray(c) for c in cores],
+                                            jnp.asarray(x), spec))
+    tcores = [torch.tensor(c) for c in cores]
+    got = ttt.tt_matvec_stacked(tcores, torch.tensor(x), _port_spec(spec))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=1e-6)
+    for p in range(3):
+        np.testing.assert_allclose(
+            got[p].numpy(),
+            ttt.tt_matvec([c[p] for c in tcores], torch.tensor(x[p]),
+                          _port_spec(spec)).numpy(), rtol=RTOL, atol=1e-6)
+
+
+def test_batched_split_and_refusals():
+    spec = ttt.PAPER_TONN_SPEC
+    cores = [torch.zeros((3, *s)) for s in spec.core_shapes]
+    with pytest.raises(ValueError, match="core stack P=3"):
+        tref.tt_contract_batched_ref(torch.zeros(2, 4, 1024), cores, spec)
+    # an explicit flag disambiguates a 3-D shared input
+    y = tref.tt_contract_batched_ref(torch.zeros(2, 4, 1024), cores, spec,
+                                     shared_x=True)
+    assert tuple(y.shape) == (3, 2, 4, 1024)
+    before = tttc.tt_contract_batched.launches
+    tops.tt_linear_batched(torch.zeros(4, 1024), cores, spec)
+    assert tttc.tt_contract_batched.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        tttc.tt_contract_batched(torch.zeros(4, 1024), cores, spec)
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.tt_linear_batched(torch.zeros(4, 1024, device="meta"),
+                               [c.to("meta") for c in cores], spec)
