@@ -59,7 +59,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 checkpoint loads into ``SolverRegistry`` and its served u
                 equals the trainer's final ``model.u`` (1e-6).  Times a ZO
                 step with CUDA events.
-  8. report   — one ``{"kernels": [...]}`` line, the card's name and power
+  8. quant-kernel — ``tt_contract_batched_quant`` for int8 and fp8-e4m3 at
+                the three launches of a QAT step (the shapes of phase 5, block
+                32) and the rank-4 spec at P = 3, B = 777, blocks 32 and 16
+                (padded codes), with an all-zero block.  Checks: the wrapper's
+                codes and scales on the card bit-equal to the CPU's
+                ``quantize_blockwise_stacked``; every entry bit-equal to
+                ``tt_contract_batched`` on the fake-quantized cores; the bound
+                of phase 3 against ``tt_contract_batched_quant_ref``.  Times
+                the int8 hidden-layer launch, its plain version and
+                ``torch.bmm`` against the densified fake-quantized weights.
+  9. train-quant — phase 7 with ``--quant int8 --quant-block 32
+                --phase-bits 8`` added to its argv: the same checks with 3
+                ``tt_contract_batched_quant``, 0 ``tt_contract_batched`` and
+                16 ``mesh_apply_stacked`` launches per step, the checkpoint's
+                meta carrying the quant config, and the final val MSE at most
+                10× the f32 run's (``benchmarks/quantized.py``'s notch).  The
+                card-vs-CPU step counts weight codes that the two devices'
+                densified cores put on either side of a rounding edge; where
+                there are any, the CPU runs on the card's densified cores.
+                Then 5 steps of ``--quant fp8_e4m3``: launch counts, finite
+                losses.
+ 10. serve-quant — an engine over the ``hjb`` and ``heat`` solvers of phase 4
+                with f32, int8 and fp8 requests mixed in one burst.  Checks:
+                every value equals a direct ``u`` of the request's config
+                (1e-6; quantized ones differ from f32), one program per
+                (solver, config), two ``tt_contract`` launches per program
+                run, a resubmitted burst answered by the cache alone, an f32
+                repeat of an int8 request not answered from int8 entries.
+ 11. report   — one ``{"kernels": [...]}`` line, the card's name and power
                 limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device, or run outside a checkout of the repository, it exits
@@ -428,38 +456,170 @@ def phase_mesh(device) -> dict:
     return results
 
 
-def phase_train(device) -> dict:
+def phase_quant_kernel(device) -> dict:
+    import torch
+    from repro_torch.core import tt
+    from repro_torch.kernels import quant as quant_lib
+    from repro_torch.kernels import ref, tt_contract as ttc
+
+    paper = tt.PAPER_TONN_SPEC
+    rank4 = tt.auto_factorize(256, 512, L=3, max_rank=4)
+    # label -> (spec, P, rows, shared x, block): the three launches of a
+    # QAT step at the paper's config, whose core sizes (64) are block
+    # multiples, and a rank-4 spec whose core sizes are not (padded codes)
+    cases = {"layer0-rows": (paper, 11, 100, True, 32),
+             "layer0-columns": (paper, 11, 21, True, 32),
+             "hidden-stencil": (paper, 11, 4300, False, 32),
+             "rank4-777-b32": (rank4, 3, 777, False, 32),
+             "rank4-777-b16": (rank4, 3, 777, False, 16)}
+    results = {}
+    for dtype in ("int8", "fp8_e4m3"):
+        for i, (label, (spec, P, B, shared, block)) in enumerate(
+                cases.items()):
+            quant = quant_lib.QuantConfig(enabled=True, dtype=dtype,
+                                          block=block)
+            gen = torch.Generator().manual_seed(4000 + i)
+            per = [tt.tt_init(gen, spec) for _ in range(P)]
+            cores = [torch.stack([c[k] for c in per]).to(device)
+                     for k in range(spec.L)]
+            cores[0][0].view(-1)[:block].zero_()  # an all-zero block
+            x = torch.randn((B, spec.in_dim) if shared
+                            else (P, B, spec.in_dim), generator=gen).to(device)
+            # codes and scales made on the card equal the CPU's
+            for k, c in enumerate(cores):
+                q_d, s_d = quant_lib.quantize_blockwise_stacked(c, quant)
+                q_c, s_c = quant_lib.quantize_blockwise_stacked(c.cpu(),
+                                                                quant)
+                if not (torch.equal(_code_bytes(q_d).cpu(), _code_bytes(q_c))
+                        and torch.equal(s_d.cpu(), s_c)):
+                    raise AssertionError(f"{dtype} codes or scales of core "
+                                         f"{k} at {label}: the card's differ "
+                                         "from the CPU's")
+            y = ttc.tt_contract_batched_quant(x, cores, spec, quant)
+            # every entry is the f32 kernel's on the fake-quantized cores
+            fq = [quant_lib.fake_quant_stacked(c, quant) for c in cores]
+            y_f = ttc.tt_contract_batched(x, fq, spec)
+            for p in range(P):
+                if not torch.equal(y[p], y_f[p]):
+                    raise AssertionError(
+                        f"tt_contract_batched_quant entry {p} at {label} "
+                        f"({dtype}) differs from tt_contract_batched on the "
+                        "fake-quantized cores")
+            plain = ref.tt_contract_batched_quant_ref(x, cores, spec, quant)
+            err, scale = _check_close("tt_contract_batched_quant",
+                                      f"{label} {dtype}", y, plain)
+            row = {"case": label, "dtype": dtype, "block": block, "P": P,
+                   "rows": B, "shared_x": shared,
+                   "modes": [list(spec.out_modes), list(spec.in_modes)],
+                   "ranks": list(spec.ranks), "max_abs_err": err,
+                   "max_abs_plain": scale, "codes_card_equal_cpu": True,
+                   "entries_bitwise_equal_f32_on_fake_quant": True}
+            if label == "hidden-stencil" and dtype == "int8":
+                w = torch.stack([tt.tt_to_full([c[p] for c in fq], spec)
+                                 for p in range(P)])            # (P, M, N)
+                wt = w.transpose(1, 2)
+                row["ms"] = _time_ms(lambda: ttc.tt_contract_batched_quant(
+                    x, cores, spec, quant), 50)
+                row["plain_ms"] = _time_ms(
+                    lambda: ref.tt_contract_batched_quant_ref(
+                        x, cores, spec, quant), 10)
+                row["library_ms"] = _time_ms(lambda: torch.bmm(x, wt), 50)
+                # x and y in f32; each entry's codes (1 byte) and scales
+                # (4 bytes a block) read once
+                x_elems = (1 if shared else P) * B * spec.in_dim
+                code_bytes = P * sum(
+                    -(-(r * m * n * rn) // block) * block * (1 + 4 / block)
+                    for r, m, n, rn in spec.core_shapes)
+                t_bytes = (4 * (x_elems + P * B * spec.out_dim) + code_bytes
+                           ) / PEAK_BYTES_PER_S * 1e3
+                t_ops = (P * spec.contraction_flops(B) + P * spec.num_params
+                         ) / PEAK_F32_FLOPS * 1e3
+                row["bound_ms"], row["bound_by"] = (
+                    (t_bytes, "bytes") if t_bytes >= t_ops
+                    else (t_ops, "operations"))
+            results[f"{label}-{dtype}"] = row
+            print(f"[quant-kernel] {json.dumps(row)}", flush=True)
+    return results
+
+
+def _train_main(argv: list, steps: int, chain: str) -> tuple:
+    """``launch.train.main(argv)`` on the card with every kernel count set
+    to 0 just before and read just after.  Checks 3 launches of ``chain``
+    (the other chain kernel 0) and 2 mesh launches per core mesh per step.
+    Returns (result, launches, wall seconds)."""
+    import torch
+    from repro_torch.kernels import mesh_apply as mesh
+    from repro_torch.kernels import tt_contract as ttc
+    from repro_torch.launch import train
+
+    counted = {"tt_contract_batched": ttc.tt_contract_batched,
+               "tt_contract_batched_quant": ttc.tt_contract_batched_quant,
+               "mesh_apply_stacked": mesh.mesh_apply_stacked}
+    for fn in counted.values():                           # main path starts
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    meshes = sum(len(pms) for pms in res.model.photonic_cores)  # path ends
+    want = {"tt_contract_batched": 0, "tt_contract_batched_quant": 0,
+            "mesh_apply_stacked": 2 * meshes * steps}
+    want[chain] = 3 * steps
+    if launches != want:
+        raise AssertionError(f"{launches} over {steps} steps; expected "
+                             f"{want}")
+    return res, launches, wall
+
+
+def _code_flips(model, prepared_a: dict, prepared_b: dict) -> int:
+    """Weight codes that differ between two prepared core stacks under the
+    model's weight quantization (0 without it)."""
+    from repro_torch.kernels import quant as quant_lib
+    q = model.cfg.quant
+    if not q.weights:
+        return 0
+    flips = 0
+    for i in range(len(model.specs)):
+        for a, b in zip(prepared_a[f"cores{i}"], prepared_b[f"cores{i}"]):
+            qa, _ = quant_lib.quantize_blockwise_stacked(a.cpu(), q)
+            qb, _ = quant_lib.quantize_blockwise_stacked(b.cpu(), q)
+            flips += int((_code_bytes(qa) != _code_bytes(qb)).sum())
+    return flips
+
+
+def _code_bytes(codes):
+    """Narrow codes as comparable integers (fp8 by its bytes)."""
+    import torch
+    return (codes.view(torch.uint8) if codes.dtype == torch.float8_e4m3fn
+            else codes)
+
+
+def phase_train(device, quant: tuple = ()) -> dict:
+    """The trainer at the paper's config; ``quant`` holds the extra flags
+    of a quantization-aware run (empty: the f32 run)."""
     import numpy as np
     import torch
+    from repro_torch.checkpoint import read_checkpoint_meta
     from repro_torch.core import pinn, zoo
     from repro_torch.data import pde_collocation_iterator
     from repro_torch.device import counter_generator, to_device
-    from repro_torch.kernels import mesh_apply as mesh
-    from repro_torch.kernels import tt_contract as ttc
     from repro_torch.launch import train
     from repro_torch.serving import (PdeServingEngine, PointRequest,
                                      SolverRegistry)
 
+    tag = "train-quant" if quant else "train"
     steps, batch, n = 50, 100, 10
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     argv = ["--arch", "tensor-pinn", "--pde", "hjb-20d", "--pinn-noise",
             "--steps", str(steps), "--batch", str(batch), "--zo-samples",
             str(n), "--ckpt-dir", ckpt, "--ckpt-every", "25",
-            "--log-every", "10", "--seed", "0"]
-    ttc.tt_contract_batched.launches = 0                  # main path starts
-    mesh.mesh_apply_stacked.launches = 0
-    t0 = time.perf_counter()
-    res = train.main(argv)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"tt_contract_batched": ttc.tt_contract_batched.launches,
-                "mesh_apply_stacked": mesh.mesh_apply_stacked.launches}
-    model, params, noise = res.model, res.params, res.hw_noise  # path ends
-    meshes = sum(len(pms) for pms in model.photonic_cores)
-    if launches != {"tt_contract_batched": 3 * steps,
-                    "mesh_apply_stacked": 2 * meshes * steps}:
-        raise AssertionError(f"{launches} over {steps} steps; expected 3 "
-                             f"and {2 * meshes} per step")
+            "--log-every", "10", "--seed", "0", *quant]
+    res, launches, wall = _train_main(
+        argv, steps,
+        "tt_contract_batched_quant" if "--quant" in quant
+        else "tt_contract_batched")
+    model, params, noise = res.model, res.params, res.hw_noise
     losses = np.asarray(res.losses)
     if not (np.isfinite(losses).all() and np.isfinite(res.val_mse)):
         raise AssertionError(f"non-finite losses or val MSE {res.val_mse}")
@@ -484,15 +644,26 @@ def phase_train(device) -> dict:
     xt = next(pde_collocation_iterator(batch, seed=0, start_step=steps,
                                        problem=model.problem))
 
-    def one_step(dev):
+    def one_step(dev, prepared=None):
         sp, nz, x = to_device(stacked, dev), to_device(noise, dev), xt.to(dev)
-        prepared = model.prepare_params_stacked(sp, nz)
+        if prepared is None:
+            prepared = model.prepare_params_stacked(sp, nz)
         u = model.fd_u_stencil_stacked(prepared, x, model.fd_step)
         return (u.cpu(),
-                pinn.residual_losses_stacked(model, sp, x, nz).cpu())
+                pinn.residual_losses_stacked(model, prepared, x, nz).cpu(),
+                prepared)
 
-    u_card, l_card = one_step(device)
-    u_cpu, l_cpu = one_step(torch.device("cpu"))
+    cpu = torch.device("cpu")
+    u_card, l_card, prep_card = one_step(device)
+    u_cpu, l_cpu, prep_cpu = one_step(cpu)
+    # the densified cores differ from the CPU's by f32 rounding (sin/cos of
+    # two libraries); a weight code that this moves across a rounding edge
+    # shifts a core value by a whole quantization step.  Count such flips;
+    # where there are any, the CPU runs on the card's densified cores, so
+    # the check still holds the quantized chain to its plain version.
+    flips = _code_flips(model, prep_card, prep_cpu)
+    if flips:
+        u_cpu, l_cpu, _ = one_step(cpu, to_device(prep_card, cpu))
     u_err = (u_card - u_cpu).abs().max().item()
     u_scale = u_cpu.abs().max().item()
     if not u_err <= 1e-4 * u_scale:
@@ -508,7 +679,12 @@ def phase_train(device) -> dict:
         lambda sp: pinn.residual_losses_stacked(model, sp, xt_dev, noise),
         trainable_mask=mask), 10, warmup=2)
 
-    # the checkpoint serves: registry + engine against the final model.u
+    # the checkpoint carries the run's config, quant included, and serves:
+    # registry + engine against the final model.u
+    meta = read_checkpoint_meta(ckpt)
+    if pinn.config_from_meta(meta["pinn"]) != model.cfg:
+        raise AssertionError(f"checkpoint meta {meta['pinn']} is not the "
+                             f"run's config {model.cfg}")
     reg = SolverRegistry(device=device)
     reg.load_checkpoint("hjb", ckpt, device=device,
                         hw_noise=zoo.tree_map(lambda t: t.cpu().numpy(),
@@ -523,6 +699,7 @@ def phase_train(device) -> dict:
 
     shutil.rmtree(ckpt)
     out = {"steps": steps, "batch": batch, "zo_samples": n,
+           "quant": model.cfg.quant.tag(),
            "launches": launches, "loss_first": float(losses[0]),
            "loss_last": float(losses[-1]),
            "loss_median_last10": float(np.median(losses[-10:])),
@@ -531,9 +708,151 @@ def phase_train(device) -> dict:
            "host_step_ms_median": 1e3 * float(np.median(res.step_seconds)),
            "train_wall_s": wall,
            "stencil_u_max_abs_card_vs_cpu": u_err, "stencil_u_max": u_scale,
+           "weight_code_flips_card_vs_cpu": flips,
            "losses_card": l_card.tolist(), "losses_cpu": l_cpu.tolist(),
            "served_vs_direct_max_abs": float(np.abs(req.out - direct).max())}
-    print(f"[train] {json.dumps(out)}", flush=True)
+    print(f"[{tag}] {json.dumps(out)}", flush=True)
+    return out
+
+
+def phase_train_quant(device, f32_val_mse: float) -> dict:
+    """The QAT run of TONN_ONCHIP_FUSED (int8 block 32, 8-bit phases; the
+    f32 run's checks plus the accuracy notch), then 5 fp8 steps."""
+    import numpy as np
+    out = phase_train(device, quant=("--quant", "int8", "--quant-block",
+                                     "32", "--phase-bits", "8"))
+    # benchmarks/quantized.py's accuracy notch: QAT within one decade of f32
+    if not out["val_mse"] <= 10.0 * f32_val_mse:
+        raise AssertionError(f"QAT val MSE {out['val_mse']:.4e} is more than "
+                             f"10x the f32 run's {f32_val_mse:.4e}")
+    steps = 5
+    res, launches, _ = _train_main(
+        ["--arch", "tensor-pinn", "--pde", "hjb-20d", "--pinn-noise",
+         "--steps", str(steps), "--batch", "100", "--zo-samples", "10",
+         "--log-every", "10", "--seed", "0", "--quant", "fp8_e4m3"],
+        steps, "tt_contract_batched_quant")
+    if not (np.isfinite(res.losses).all() and np.isfinite(res.val_mse)):
+        raise AssertionError(f"fp8 QAT: non-finite losses {res.losses}")
+    out["fp8"] = {"steps": steps, "launches": launches,
+                  "losses": [float(v) for v in res.losses],
+                  "val_mse": res.val_mse}
+    out["f32_val_mse"] = f32_val_mse
+    print(f"[train-quant] fp8 {json.dumps(out['fp8'])}", flush=True)
+    return out
+
+
+def phase_serve_quant(device) -> dict:
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core import pinn
+    from repro_torch.core.photonic import NoiseModel
+    from repro_torch.kernels import quant as quant_lib
+    from repro_torch.kernels import tt_contract as ttc
+    from repro_torch.serving import (PdeServingEngine, PointRequest,
+                                     SolverRegistry)
+
+    cfgs = {
+        "hjb": pinn.PINNConfig(hidden=1024, mode="tonn", tt_rank=2, tt_L=4,
+                               deriv="fd_fast", use_fused_kernel=True,
+                               noise=NoiseModel(enabled=True),
+                               pde="hjb-20d"),
+        "heat": pinn.PINNConfig(hidden=1024, mode="tt", tt_rank=2, tt_L=4,
+                                use_fused_kernel=True, pde="heat-10d"),
+    }
+    reg = SolverRegistry(device=device)
+    for seed, (name, cfg) in enumerate(cfgs.items()):
+        reg.register_fresh(name, cfg, seed=seed, device=device)
+    engine = PdeServingEngine(reg, slots=8, slot_points=256, device=device)
+    quants = {"f32": None,
+              "int8": quant_lib.QuantConfig(enabled=True, dtype="int8"),
+              "fp8": quant_lib.QuantConfig(enabled=True, dtype="fp8_e4m3")}
+    rng = np.random.RandomState(1)
+    names = reg.names()
+    traffic = []
+    for i in range(30):
+        name = names[i % 2]
+        qname = list(quants)[(i // 2) % 3]
+        n = int(rng.randint(1, 257))
+        traffic.append((name, qname, rng.uniform(
+            0.02, 0.98, (n, reg.get(name).in_dim)).astype(np.float32)))
+
+    ttc.tt_contract.launches = 0                          # main path starts
+    t0 = time.perf_counter()
+    reqs = [engine.submit(PointRequest(name, pts, quant=quants[q]))
+            for name, q, pts in traffic]
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ttc.tt_contract.launches                   # main path ends
+    stats = dict(engine.stats)
+    if launches != 2 * stats["program_runs"]:
+        raise AssertionError(f"tt_contract launched {launches} times over "
+                             f"{stats['program_runs']} program runs")
+    if stats["compiles"] != len(names) * len(quants):
+        raise AssertionError(f"{stats['compiles']} programs built; expected "
+                             "one per (solver, quant config)")
+    worst = {q: 0.0 for q in quants}
+    gap = {q: 0.0 for q in quants}
+    for (name, q, pts), r in zip(traffic, reqs):
+        if not (r.done and np.isfinite(r.out).all()):
+            raise AssertionError(f"{q} request for {name} not served")
+        s = reg.get(name)
+        model = s.model
+        if quants[q] is not None:
+            model = pinn.TensorPinn(dataclasses.replace(
+                model.cfg, quant=quants[q]), problem=model.problem)
+        x = torch.tensor(pts, device=device)
+        with torch.no_grad():
+            direct = model.u(s.params, x).cpu().numpy()
+            f32 = s.model.u(s.params, x).cpu().numpy()
+        np.testing.assert_allclose(r.out, direct, rtol=1e-6, atol=1e-6)
+        worst[q] = max(worst[q], float(np.abs(r.out - direct).max()))
+        gap[q] = max(gap[q], float(np.abs(r.out - f32).max()))
+    for q in ("int8", "fp8"):
+        if not gap[q] > 1e-5:
+            raise AssertionError(f"{q} serving equals f32 serving "
+                                 f"(max gap {gap[q]:.3e})")
+    # a resubmitted burst is answered by the cache, with no new program
+    runs = stats["program_runs"]
+    again = [engine.submit(PointRequest(name, pts, quant=quants[q]))
+             for name, q, pts in traffic]
+    if not all(r.done for r in again) or \
+            engine.stats["program_runs"] != runs or \
+            engine.stats["compiles"] != stats["compiles"]:
+        raise AssertionError("the resubmitted burst was not served from the "
+                             "cache alone")
+    for r, r0 in zip(again, reqs):
+        np.testing.assert_array_equal(r.out, r0.out)
+    # an f32 repeat of a quantized request misses the quantized entries
+    name, _, pts = next(t for t in traffic if t[1] == "int8")
+    hits = engine.stats["cache_hits"]
+    f32_repeat = engine.submit(PointRequest(name, pts))
+    engine.run()
+    if f32_repeat.done is not True or engine.stats["cache_hits"] != hits:
+        raise AssertionError("an f32 query was answered from int8 entries")
+    s = reg.get(name)
+    with torch.no_grad():
+        f32 = s.model.u(s.params, torch.tensor(pts, device=device))
+    np.testing.assert_allclose(f32_repeat.out, f32.cpu().numpy(), rtol=1e-6,
+                               atol=1e-6)
+    # time per full-pool program call of each (solver, config)
+    program_ms = {}
+    for name in names:
+        pool = reg.get(name).problem.sample_collocation(
+            torch.Generator().manual_seed(1),
+            engine.slots * engine.slot_points).to(device)
+        for q, quant in quants.items():
+            program = engine._program(name, quant)
+            program_ms[f"{name}|{q}"] = _time_ms(lambda: program(pool), 50)
+    out = {"requests": len(reqs), "wall_ms": wall * 1e3,
+           "launches": launches,
+           "max_abs_served_vs_direct": worst, "max_abs_quant_vs_f32": gap,
+           "program_ms": program_ms,
+           "stats": {k: stats[k] for k in ("compiles", "program_runs",
+                                           "steps", "points_served")}}
+    print(f"[serve-quant] {json.dumps(out)}", flush=True)
     return out
 
 
@@ -558,6 +877,9 @@ def main() -> int:
     batched = phase_batched(device)
     meshes = phase_mesh(device)
     trained = phase_train(device)
+    quant_kernel = phase_quant_kernel(device)
+    trained_q = phase_train_quant(device, trained["val_mse"])
+    served_q = phase_serve_quant(device)
 
     main_case = kernel["cases"][0]                       # paper spec, B=2048
     entry = {"name": "tt_contract", "route": "cuda",
@@ -595,6 +917,20 @@ def main() -> int:
                "shape": "16-port rectangular mesh (16 levels), S = 11, "
                         "identity x (16, 16) shared, transposed",
                "cases": list(meshes.values())}
+    main_q = quant_kernel["hidden-stencil-int8"]
+    entry_q = {"name": "tt_contract_batched_quant", "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/tt_contract.cu",
+               "replaces": "src/repro/kernels/tt_contract.py:250",
+               "launches":
+                   trained_q["launches"]["tt_contract_batched_quant"],
+               "max_abs_err": max(r["max_abs_err"]
+                                  for r in quant_kernel.values()),
+               "ms": main_q["ms"], "plain_ms": main_q["plain_ms"],
+               "bound_ms": main_q["bound_ms"], "bound_by": main_q["bound_by"],
+               "library_ms": main_q["library_ms"],
+               "shape": "x (11, 4300, 1024) f32 per entry, PAPER_TONN_SPEC "
+                        "cores quantized int8, block 32",
+               "cases": list(quant_kernel.values())}
     print(f"[serve] p50 {serve['p50_ms']:.3f} ms, p99 {serve['p99_ms']:.3f} "
           f"ms, {serve['points_per_s']:.0f} points/s over "
           f"{serve['requests']} requests on {card}", flush=True)
@@ -602,7 +938,14 @@ def main() -> int:
           f"events); loss {trained['loss_first']:.4e} -> "
           f"{trained['loss_last']:.4e} over {trained['steps']} steps, val "
           f"MSE {trained['val_mse']:.4e} on {card}", flush=True)
-    print(json.dumps({"kernels": [entry, entry_b, entry_m]}), flush=True)
+    print(f"[train-quant] {trained_q['zo_step_ms']:.3f} ms per QAT ZO step "
+          f"(CUDA events, {trained_q['quant']}); loss "
+          f"{trained_q['loss_first']:.4e} -> {trained_q['loss_last']:.4e}, "
+          f"val MSE {trained_q['val_mse']:.4e} (f32 run "
+          f"{trained['val_mse']:.4e}); {served_q['stats']['compiles']} "
+          f"programs served f32/int8/fp8 on {card}", flush=True)
+    print(json.dumps({"kernels": [entry, entry_b, entry_m, entry_q]}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -17,8 +17,11 @@ Layout mirrors ``repro`` module for module:
   * ``core.zoo``           — SPSA gradients and ZO-signSGD,
   * ``pde``                — the PDE registry (hjb trains, heat serves),
   * ``kernels``            — the CUDA kernels (``tt_contract``,
-                             ``tt_contract_batched``, ``mesh_apply_stacked``),
-                             their build, plain versions and device dispatch,
+                             ``tt_contract_batched``,
+                             ``tt_contract_batched_quant``,
+                             ``mesh_apply_stacked``), their build, plain
+                             versions and device dispatch, and the
+                             block-scaled / DAC quantizers (``quant``),
   * ``data``               — counter-based collocation streams,
   * ``checkpoint``         — the ``arrays.npz`` + ``meta.json`` format,
   * ``configs.hjb_pinn``   — the paper's configurations,

@@ -8,7 +8,8 @@ rotators; hardware imperfections act on the phases,
 (``mesh_apply``).  Training densifies all N+1 SPSA-perturbed phase sets of
 a core mesh at once (``PhotonicMatrix.to_dense_stacked``) through
 ``kernels.ops.mesh_apply_stacked``: the CUDA kernel on the card,
-``mesh_apply_stacked`` here on the CPU.
+``mesh_apply_stacked`` here on the CPU.  A ``quant`` with ``phase_bits``
+snaps the commanded phases to the DAC grid before the noise model acts.
 
 Port of ``repro.core.photonic``; ``mesh_apply_scan``, ``mesh_matrix``,
 ``decompose_orthogonal`` and ``from_dense`` belong to the ``onn`` slice.
@@ -22,6 +23,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.kernels import quant as quant_lib
 
 __all__ = ["PHOTONIC_BUFFER_KEYS", "MeshLayout", "schedule_ops",
            "rectangular_layout", "mesh_gather_plan", "mesh_plan_tensors",
@@ -140,8 +143,10 @@ def mesh_plan_tensors(layout: MeshLayout, device: torch.device) -> dict:
             "slot": torch.as_tensor(slot, dtype=torch.int64, device=device),
             "sign": torch.as_tensor(sign, device=device),
             "perm": torch.as_tensor(perm, dtype=torch.int32, device=device),
-            "perm_t": torch.as_tensor(np.ascontiguousarray(perm[::-1]),
-                                      dtype=torch.int32, device=device)}
+            # a copy: a one-level flip keeps its negative stride through
+            # np.ascontiguousarray, and torch refuses negative strides
+            "perm_t": torch.as_tensor(perm[::-1].copy(), dtype=torch.int32,
+                                      device=device)}
     return memo[device]
 
 
@@ -271,9 +276,22 @@ class PhotonicMatrix:
             "diag_v": torch.ones((self.in_dim,)),
         }
 
+    @staticmethod
+    def _dac_phases(pu: torch.Tensor, pv: torch.Tensor, quant) -> tuple:
+        """Snap the COMMANDED phases to the DAC grid (``quant.phase_bits``)
+        before the noise model acts: the DAC drives the shifter, then the
+        chip's imperfections corrupt what it commanded,
+        Φ_eff = Ω(Γ ⊙ Q(Φ)) + Φ_b.  Passes them through when phase
+        quantization is off."""
+        if quant is None or not quant.phases:
+            return pu, pv
+        return (quant_lib.quantize_phases(pu, quant.phase_bits),
+                quant_lib.quantize_phases(pv, quant.phase_bits))
+
     def _apply(self, params: dict, x: torch.Tensor, noise_model, noise,
-               mesh) -> torch.Tensor:
-        pu, pv = params["phases_u"], params["phases_v"]
+               quant, mesh) -> torch.Tensor:
+        pu, pv = self._dac_phases(params["phases_u"], params["phases_v"],
+                                  quant)
         if noise_model is not None and noise is not None:
             # one physical chip: the noise broadcasts over any stack axis
             pu = noise_model.effective_phases(pu, noise["u"])
@@ -286,19 +304,20 @@ class PhotonicMatrix:
 
     def apply(self, params: dict, x: torch.Tensor,
               noise_model: NoiseModel | None = None,
-              noise: dict | None = None) -> torch.Tensor:
-        """y = U Σ Vᵀ x for x ``(..., B, in_dim)``."""
-        return self._apply(params, x, noise_model, noise, mesh_apply)
+              noise: dict | None = None, quant=None) -> torch.Tensor:
+        """y = U Σ Vᵀ x for x ``(..., B, in_dim)``; ``quant`` with
+        ``phase_bits`` snaps the commanded phases first."""
+        return self._apply(params, x, noise_model, noise, quant, mesh_apply)
 
     def apply_stacked(self, params: dict, x: torch.Tensor,
                       noise_model: NoiseModel | None = None,
-                      noise: dict | None = None) -> torch.Tensor:
+                      noise: dict | None = None, quant=None) -> torch.Tensor:
         """``apply`` over a leading SPSA-perturbation axis S on the params
         (phases and sigma stacked; diag buffers ``(P,)`` or ``(S, P)``): x
         ``(B, in)`` shared or ``(S, B, in)`` → ``(S, B, out)``.  The meshes
         run through ``kernels.ops.mesh_apply_stacked``."""
         from repro_torch.kernels import ops   # ops imports this module
-        return self._apply(params, x, noise_model, noise,
+        return self._apply(params, x, noise_model, noise, quant,
                            ops.mesh_apply_stacked)
 
     def sample_noise(self, generator: torch.Generator, model: NoiseModel) -> dict:
@@ -306,18 +325,20 @@ class PhotonicMatrix:
                 "v": model.sample(generator, self.layout_v.phase_shape())}
 
     def to_dense(self, params: dict, noise_model: NoiseModel | None = None,
-                 noise: dict | None = None) -> torch.Tensor:
+                 noise: dict | None = None, quant=None) -> torch.Tensor:
         eye = torch.eye(self.in_dim, dtype=torch.float32,
                         device=params["sigma"].device)
-        return self.apply(params, eye, noise_model, noise).T   # row j = W e_j
+        return self.apply(params, eye, noise_model, noise,
+                          quant).T                           # row j = W e_j
 
     def to_dense_stacked(self, params: dict,
                          noise_model: NoiseModel | None = None,
-                         noise: dict | None = None) -> torch.Tensor:
+                         noise: dict | None = None,
+                         quant=None) -> torch.Tensor:
         """Densify S stacked parameter sets in one batched pass that shares
         the identity feed: ``(S, out, in)``, entry s the ``to_dense`` of
         the s-th params."""
         eye = torch.eye(self.in_dim, dtype=torch.float32,
                         device=params["sigma"].device)
-        return self.apply_stacked(params, eye, noise_model,
-                                  noise).transpose(-1, -2)
+        return self.apply_stacked(params, eye, noise_model, noise,
+                                  quant).transpose(-1, -2)

@@ -18,12 +18,23 @@ the FD stencil goes through every perturbed model at once
 launches).  On the card those are the CUDA kernels; on the CPU their plain
 versions.  Forwards are plain functions of a params dict of tensors.
 
+Quantization-aware training and serving (``cfg.quant``): with weight
+quantization on, every TT layer sees block-scaled int8 / fp8 cores (the
+``quant=`` hooks of ``kernels.ops``; the stacked path runs the
+``tt_contract_batched_quant`` kernel on the card), and with ``phase_bits``
+set the mesh densification snaps the commanded phases to the DAC grid
+before the noise model.  ZO training is gradient-free, so fake-quant in the
+loss is the whole of QAT.  With ``cfg.quant`` disabled every path is the
+unquantized one, bit for bit.
+
 Port of ``repro.core.pinn``.  The ``dense`` and ``onn`` modes and the
 Stein and spectral estimators are not ported yet.  Two paths of the JAX
 package are CPU-XLA workarounds with no counterpart here: the polynomial
 ``fast_sin`` (the port takes ``torch.sin``) and the Kronecker head of
 ``_f_head_stacked`` (the port takes the TT chain, as the JAX package does
-on a TPU).
+on a TPU).  With them goes the unfused chain, and so ``_fq_cores``, its
+fake-quant: every TT layer of the port goes through ``kernels.ops``, which
+quantizes through its own ``quant=`` hook.
 """
 
 from __future__ import annotations
@@ -78,7 +89,9 @@ def config_to_meta(cfg: PINNConfig) -> dict:
 
 def config_from_meta(meta: dict) -> PINNConfig:
     """Inverse of ``config_to_meta``.  Unknown keys are ignored (configs
-    written by a newer version still load); missing keys take defaults."""
+    written by a newer version still load); missing keys take defaults.
+    The quant settings are validated (``QuantConfig`` raises on an unknown
+    dtype, a block below 1 or phase bits outside [1, 32])."""
     fields = {f.name for f in dataclasses.fields(PINNConfig)}
     kw = {k: v for k, v in meta.items() if k in fields}
     for key, cls in (("noise", photonic.NoiseModel),
@@ -108,6 +121,9 @@ class TensorPinn:
         # an explicit config value wins; None takes the problem's step
         self.fd_step = (cfg.fd_step if cfg.fd_step is not None
                         else self.problem.fd_step)
+        # the quant hooks take None when quantization is off, so every
+        # consumer keeps its unquantized path
+        self._quant = cfg.quant if cfg.quant.enabled else None
         h = cfg.hidden
         # pad the input up to a TT-factorizable width (the paper folds
         # 21 → 1024 so layer 1 is a 1024×1024 TT matrix)
@@ -183,14 +199,16 @@ class TensorPinn:
                        stacked: bool = False) -> list:
         """TONN layer i: densify each (small) core mesh into its TT-core;
         ``stacked`` densifies a leading SPSA-perturbation axis S of every
-        core in one batched mesh pass (``PhotonicMatrix.to_dense_stacked``)."""
+        core in one batched mesh pass (``PhotonicMatrix.to_dense_stacked``).
+        DAC phase quantization acts on the commanded phases, before the
+        noise model, inside the densification."""
         spec = self.specs[i]
         cores = []
         for k, pm in enumerate(self.photonic_cores[i]):
             nz = None if noise is None else noise[f"pcores{i}"][k]
             densify = pm.to_dense_stacked if stacked else pm.to_dense
             w = densify(params[f"pcores{i}"][k],
-                        self.cfg.noise if nz else None, nz)
+                        self.cfg.noise if nz else None, nz, quant=self._quant)
             lead = w.shape[:1] if stacked else ()
             cores.append(w.reshape(*lead, *spec.core_shapes[k]).contiguous())
         return cores
@@ -212,7 +230,7 @@ class TensorPinn:
         cores = params.get(f"cores{i}")
         if cores is None:  # unprepared tonn params: densify on the fly
             cores = self._densify_cores(params, noise, i)
-        return ops.tt_linear(x, cores, self.specs[i])
+        return ops.tt_linear(x, cores, self.specs[i], quant=self._quant)
 
     def _embed(self, xt: torch.Tensor) -> torch.Tensor:
         """Raw rows (..., net_in) → network inputs (..., in_pad), zero-padded."""
@@ -292,7 +310,8 @@ class TensorPinn:
                               x: torch.Tensor) -> torch.Tensor:
         """Layer-i matvec of P stacked (prepared) parameter sets: x
         ``(B', n)`` shared or ``(P, B', n)`` per entry → ``(P, B', m)``."""
-        return ops.tt_linear_batched(x, stacked[f"cores{i}"], self.specs[i])
+        return ops.tt_linear_batched(x, stacked[f"cores{i}"], self.specs[i],
+                                     quant=self._quant)
 
     def _f_head_stacked(self, stacked: dict, a: torch.Tensor) -> torch.Tensor:
         """``f = sin(W1·a + b1) @ w2ᵀ + b2`` for P stacked parameter sets:

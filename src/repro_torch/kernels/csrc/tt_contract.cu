@@ -1,9 +1,11 @@
 // Fused TT-chain contraction for Hopper (sm_90a): y = x @ W(cores)^T, for
-// one core set (tt_contract) or P stacked core sets (tt_contract_batched).
+// one core set (tt_contract), P stacked core sets (tt_contract_batched) or
+// P stacked block-quantized core sets (tt_contract_batched_quant).
 //
 // Replaces the Pallas kernels repro/kernels/tt_contract.py::tt_contract
-// (pallas_call at line 115) and ::tt_contract_batched (pallas_call at line
-// 212); both share the chain body _chain (line 46).  Like the TPU kernels
+// (pallas_call at line 115), ::tt_contract_batched (pallas_call at line
+// 212) and ::tt_contract_batched_quant (line 250, pallas_call at 300); all
+// three share the chain body _chain (line 46).  Like the TPU kernels
 // it keeps the whole chain on chip for a tile of rows: device memory sees
 // each input row read once, each output row written once and the cores read
 // once per block — B*N + B*M + sum|G_k| floats, the least traffic the
@@ -32,7 +34,20 @@
 // (one device function, a fixed summation order per element), so padding a
 // batch cannot change the values of the real rows, and entry p of the
 // batched kernel equals tt_contract(x[p], cores[p]) bit for bit.
+//
+// The quantized kernel reads entry p's cores as narrow codes (int8 or
+// fp8-e4m3, one byte each, (P, padded_k) per core, padded_k the core's size
+// rounded up to the block) and f32 scales ((P, padded_k / block)).  It
+// dequantizes them into the shared core buffer before the chain, one f32
+// multiply per element (code * scale of its block) with nothing added, so
+// the buffer holds exactly kernels/quant.py::fake_quant_stacked's values,
+// and entry p equals tt_contract_batched on the fake-quantized cores bit for
+// bit.  The multiply stays outside the chain's FMA loop, where nvcc could
+// contract it into an fmaf and round once instead of twice.  The codes and
+// scales add ~0.3 KB per entry at the paper's spec (256 codes, 8 scales at
+// block 32) against 8 KB of x and y per row: the bound is the f32 kernel's.
 
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -53,27 +68,62 @@ struct TTChain {
   const float* cores[kMaxCores];    // device pointers, (P, r, m, n, r') each
 };
 
-// The chain for `nrows` contiguous rows of stack entry p: xs -> ys.
+// Block-quantized cores of the quantized kernel (the chain's `cores`
+// pointers are unused there).
+struct QuantCores {
+  int block;
+  const uint8_t* codes[kMaxCores];  // (P, padded_k) narrow codes, 1 byte each
+  const float* scales[kMaxCores];   // (P, padded_k / block)
+};
+
+// Dynamic shared memory: the core buffer (the cores of one entry, packed
+// flat), then the two row buffers.
+__device__ __forceinline__ float* core_buffer() {
+  extern __shared__ float smem[];
+  return smem;
+}
+
+// Pack entry p's f32 cores into the shared core buffer (tiny: 256 floats at
+// the paper's spec).
+__device__ __forceinline__ void load_cores(const TTChain& chain, size_t p) {
+  for (int k = 0; k < chain.L; ++k) {
+    const int size = chain.core_off[k + 1] - chain.core_off[k];
+    float* dst = core_buffer() + chain.core_off[k];
+    const float* src = chain.cores[k] + p * size;
+    for (int i = threadIdx.x; i < size; i += blockDim.x) dst[i] = src[i];
+  }
+}
+
+// Dequantize entry p's codes into the shared core buffer: element i of core
+// k is float(code[i]) * scale[i / block]; the padding past |G_k| is dropped.
+template <typename Code>
+__device__ __forceinline__ void dequant_cores(const TTChain& chain,
+                                              const QuantCores& q, size_t p) {
+  for (int k = 0; k < chain.L; ++k) {
+    const int size = chain.core_off[k + 1] - chain.core_off[k];
+    const int padded = (size + q.block - 1) / q.block * q.block;
+    const Code* codes = reinterpret_cast<const Code*>(q.codes[k]) + p * padded;
+    const float* scales = q.scales[k] + p * (padded / q.block);
+    float* dst = core_buffer() + chain.core_off[k];
+    for (int i = threadIdx.x; i < size; i += blockDim.x)
+      dst[i] = __fmul_rn(static_cast<float>(codes[i]), scales[i / q.block]);
+  }
+}
+
+// The chain for `nrows` contiguous rows: xs -> ys, with the entry's cores
+// already written to the shared core buffer by this block.
 __device__ __forceinline__ void chain_rows(const float* __restrict__ xs,
                                            float* __restrict__ ys, int nrows,
                                            int rows_per_block,
-                                           const TTChain& chain, size_t p) {
-  extern __shared__ float smem[];
+                                           const TTChain& chain) {
   const int core_floats = (chain.core_off[chain.L] + 3) & ~3;
-  float* g_all = smem;
-  float* buf_a = smem + core_floats;
+  float* g_all = core_buffer();
+  float* buf_a = g_all + core_floats;
   float* buf_b = buf_a + rows_per_block * chain.widest;
   const int tid = threadIdx.x;
 
-  // pack entry p's cores into one flat shared buffer (tiny: 256 floats at
-  // the paper's spec)
-  for (int k = 0; k < chain.L; ++k) {
-    const int size = chain.core_off[k + 1] - chain.core_off[k];
-    float* dst = g_all + chain.core_off[k];
-    const float* src = chain.cores[k] + p * size;
-    for (int i = tid; i < size; i += blockDim.x) dst[i] = src[i];
-  }
-  // this tile's input rows, contiguous in device memory
+  // this tile's input rows, contiguous in device memory (the barrier below
+  // also publishes the core buffer)
   for (int i = tid; i < nrows * chain.in_dim; i += blockDim.x) {
     const int r = i / chain.in_dim;
     buf_a[r * chain.widest + (i - r * chain.in_dim)] = xs[i];
@@ -130,9 +180,10 @@ __global__ void __launch_bounds__(kThreads)
 tt_contract_kernel(const float* __restrict__ x, float* __restrict__ y,
                    int batch, int rows_per_block, const TTChain chain) {
   const int row0 = blockIdx.x * rows_per_block;
+  load_cores(chain, 0);
   chain_rows(x + (size_t)row0 * chain.in_dim,
              y + (size_t)row0 * chain.out_dim,
-             min(rows_per_block, batch - row0), rows_per_block, chain, 0);
+             min(rows_per_block, batch - row0), rows_per_block, chain);
 }
 
 // grid (row tiles, P): block (i, p) runs rows [i*rpb, (i+1)*rpb) of entry p
@@ -142,9 +193,26 @@ tt_contract_batched_kernel(const float* __restrict__ x, float* __restrict__ y,
                            const TTChain chain) {
   const size_t p = blockIdx.y;
   const int row0 = blockIdx.x * rows_per_block;
+  load_cores(chain, p);
   chain_rows(x + p * x_stride_p + (size_t)row0 * chain.in_dim,
              y + (p * batch + row0) * chain.out_dim,
-             min(rows_per_block, batch - row0), rows_per_block, chain, p);
+             min(rows_per_block, batch - row0), rows_per_block, chain);
+}
+
+// tt_contract_batched_kernel with entry p's cores dequantized from codes of
+// type Code (int8_t or __nv_fp8_e4m3, whose conversion to float is exact).
+template <typename Code>
+__global__ void __launch_bounds__(kThreads)
+tt_contract_batched_quant_kernel(const float* __restrict__ x,
+                                 float* __restrict__ y, int batch,
+                                 int rows_per_block, int64_t x_stride_p,
+                                 const TTChain chain, const QuantCores q) {
+  const size_t p = blockIdx.y;
+  const int row0 = blockIdx.x * rows_per_block;
+  dequant_cores<Code>(chain, q, p);
+  chain_rows(x + p * x_stride_p + (size_t)row0 * chain.in_dim,
+             y + (p * batch + row0) * chain.out_dim,
+             min(rows_per_block, batch - row0), rows_per_block, chain);
 }
 
 // Fill `chain` from the descriptor and return the dynamic shared memory
@@ -193,7 +261,9 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 //
 // desc (host memory, int64): [L, widest, out_modes[L], in_modes[L],
 //                             ranks[L+1], core pointers[L]]
-// Both launch on `stream` without synchronizing and return
+// (the quantized entry's desc carries code pointers in place of the core
+// pointers, then scale pointers[L]).
+// All launch on `stream` without synchronizing and return
 // cudaGetLastError() (or cudaErrorInvalidValue for arguments the kernel
 // cannot take).
 extern "C" int tt_contract_launch(const void* x, void* y, const void* desc_ptr,
@@ -231,5 +301,40 @@ extern "C" int tt_contract_batched_launch(const void* x, void* y,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(y), batch,
       rows_per_block, x_stride_p, chain);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The batched entry with block-quantized cores: code k (P, padded_k) of
+// code_type 0 (int8) or 1 (fp8-e4m3, passed as its bytes), scale k
+// (P, padded_k / block) f32; x and y as in tt_contract_batched_launch.
+extern "C" int tt_contract_batched_quant_launch(
+    const void* x, void* y, const void* desc_ptr, int batch, int stack,
+    int64_t x_stride_p, int rows_per_block, int block, int code_type,
+    void* stream) {
+  const int64_t* desc = static_cast<const int64_t*>(desc_ptr);
+  TTChain chain;
+  const size_t smem = parse_chain(desc, &chain, rows_per_block);
+  if (smem == 0 || batch < 1 || stack < 1 || stack > 65535 ||
+      x_stride_p < 0 || block < 1 || (code_type != 0 && code_type != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  QuantCores q;
+  q.block = block;
+  const int64_t* scales = desc + 2 + 3 * chain.L + 1 + chain.L;
+  for (int k = 0; k < chain.L; ++k) {
+    q.codes[k] = reinterpret_cast<const uint8_t*>(chain.cores[k]);
+    q.scales[k] = reinterpret_cast<const float*>(scales[k]);
+    chain.cores[k] = nullptr;
+  }
+  using QuantKernel = void (*)(const float*, float*, int, int, int64_t,
+                               TTChain, QuantCores);
+  const QuantKernel kernel =
+      code_type == 0 ? &tt_contract_batched_quant_kernel<int8_t>
+                     : &tt_contract_batched_quant_kernel<__nv_fp8_e4m3>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((batch + rows_per_block - 1) / rows_per_block, stack);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(y), batch,
+      rows_per_block, x_stride_p, chain, q);
   return static_cast<int>(cudaGetLastError());
 }

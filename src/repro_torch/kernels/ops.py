@@ -3,6 +3,12 @@
 A tensor on the CPU takes the kernel's plain PyTorch version; a CUDA tensor
 launches the hand-written kernel, which raises on anything it cannot take.
 There is no switch that sends CUDA tensors to the plain version.
+
+``quant`` (a ``kernels.quant.QuantConfig``, or None) follows the JAX
+package's ``repro.kernels.ops``: with weight quantization on, the TT layers
+see block-scaled cores; with ``phase_bits`` set, the stacked mesh sees
+DAC-snapped phases.  With ``quant`` None or off every path is the
+unquantized one, bit for bit.
 """
 
 from __future__ import annotations
@@ -14,27 +20,44 @@ import torch
 from repro_torch.core import photonic as _ph
 from repro_torch.core import tt as tt_lib
 from repro_torch.kernels import mesh_apply as _mesh
+from repro_torch.kernels import quant as _quant
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import tt_contract as _ttc
 
 __all__ = ["tt_linear", "tt_linear_batched", "mesh_apply_stacked"]
 
 
+def _weight_quant(quant) -> bool:
+    return quant is not None and quant.weights
+
+
 def tt_linear(x: torch.Tensor, cores: Sequence[torch.Tensor],
-              spec: tt_lib.TTSpec) -> torch.Tensor:
-    """``y = x @ W(cores)^T``: x (..., N) → (..., M)."""
+              spec: tt_lib.TTSpec, quant=None) -> torch.Tensor:
+    """``y = x @ W(cores)^T``: x (..., N) → (..., M).  With weight
+    quantization the card fake-quantizes the cores and runs the f32 kernel
+    (the single chain serves only; the JAX package does the same)."""
+    if _weight_quant(quant):
+        if x.device.type == "cpu":
+            return _ref.tt_contract_quant_ref(x, cores, spec, quant)
+        cores = [_quant.fake_quant(c, quant) for c in cores]
     if x.device.type == "cpu":
         return _ref.tt_contract_ref(x, cores, spec)
     return _ttc.tt_contract(x, cores, spec)
 
 
 def tt_linear_batched(x: torch.Tensor, cores: Sequence[torch.Tensor],
-                      spec: tt_lib.TTSpec,
+                      spec: tt_lib.TTSpec, quant=None,
                       shared_x: bool | None = None) -> torch.Tensor:
     """P stacked TT-linears in one program — the ZO multi-perturbation
     path.  cores: each ``(P, r, m, n, r')``; x ``(..., N)`` shared or
     ``(P, ..., N)`` per entry (``shared_x=None``: 2-D is shared) →
-    ``(P, *batch_axes, M)``."""
+    ``(P, *batch_axes, M)``.  With weight quantization the card runs the
+    block-quantized kernel."""
+    if _weight_quant(quant):
+        if x.device.type == "cpu":
+            return _ref.tt_contract_batched_quant_ref(x, cores, spec, quant,
+                                                      shared_x)
+        return _ttc.tt_contract_batched_quant(x, cores, spec, quant, shared_x)
     if x.device.type == "cpu":
         return _ref.tt_contract_batched_ref(x, cores, spec, shared_x)
     return _ttc.tt_contract_batched(x, cores, spec, shared_x)
@@ -42,11 +65,16 @@ def tt_linear_batched(x: torch.Tensor, cores: Sequence[torch.Tensor],
 
 def mesh_apply_stacked(layout: _ph.MeshLayout, phases: torch.Tensor,
                        diag: torch.Tensor, x: torch.Tensor,
-                       transpose: bool = False) -> torch.Tensor:
+                       transpose: bool = False, quant=None) -> torch.Tensor:
     """S stacked MZI meshes of one layout in one program: phases
     ``(S, levels, slots)``, diag ``(P,)`` or ``(S, P)``, x ``(B, P)``
     shared or ``(S, B, P)`` → ``(S, B, P)``.  On the card a layout too
-    large for the kernel's shared memory raises."""
+    large for the kernel's shared memory raises.  ``quant`` with
+    ``phase_bits`` snaps the phases to the DAC grid first, on either
+    device.  (``PhotonicMatrix`` snaps before the noise model instead and
+    passes no ``quant`` here.)"""
+    if quant is not None and quant.phases:
+        phases = _quant.quantize_phases(phases, quant.phase_bits)
     if x.device.type == "cpu":
         return _ph.mesh_apply_stacked(layout, phases, diag, x, transpose)
     return _mesh.mesh_apply_stacked(layout, phases, diag, x, transpose)

@@ -13,8 +13,10 @@ from typing import Sequence
 import torch
 
 from repro_torch.core import tt as tt_lib
+from repro_torch.kernels import quant as quant_lib
 
-__all__ = ["tt_contract_ref", "split_batch_axes", "tt_contract_batched_ref"]
+__all__ = ["tt_contract_ref", "split_batch_axes", "tt_contract_batched_ref",
+           "tt_contract_quant_ref", "tt_contract_batched_quant_ref"]
 
 
 def tt_contract_ref(x: torch.Tensor, cores: Sequence[torch.Tensor],
@@ -49,3 +51,26 @@ def tt_contract_batched_ref(x: torch.Tensor, cores: Sequence[torch.Tensor],
     xf, batch_shape, _ = split_batch_axes(x, P, spec, shared_x)
     y = tt_lib.tt_matvec_stacked(cores, xf, spec)
     return y.reshape(P, *batch_shape, spec.out_dim)
+
+
+def tt_contract_quant_ref(x: torch.Tensor, cores: Sequence[torch.Tensor],
+                          spec: tt_lib.TTSpec,
+                          quant: quant_lib.QuantConfig) -> torch.Tensor:
+    """The quantized chain: fake-quant each core (the block-scaled values
+    a quantized kernel dequantizes), then the f32 chain."""
+    return tt_lib.tt_matvec([quant_lib.fake_quant(c, quant) for c in cores],
+                            x, spec)
+
+
+def tt_contract_batched_quant_ref(x: torch.Tensor,
+                                  cores: Sequence[torch.Tensor],
+                                  spec: tt_lib.TTSpec,
+                                  quant: quant_lib.QuantConfig,
+                                  shared_x: bool | None = None
+                                  ) -> torch.Tensor:
+    """Plain version of ``tt_contract.tt_contract_batched_quant``: each of
+    the P core variants fake-quantized with its own block scales, then the
+    stacked f32 chain; x and the output as in
+    ``tt_contract_batched_ref``."""
+    fq = [quant_lib.fake_quant_stacked(c, quant) for c in cores]
+    return tt_contract_batched_ref(x, fq, spec, shared_x)

@@ -1,10 +1,12 @@
 """Wrappers of the hand-written CUDA TT-chain kernels (``csrc/tt_contract.cu``).
 
 Replace the Pallas kernels ``repro/kernels/tt_contract.py::tt_contract``
-(its ``pallas_call`` at line 115) and ``::tt_contract_batched`` (line 212):
-``y = x @ W(cores)^T`` with the whole chain kept on chip for one tile of
-rows, for one core set or for P stacked ones (the SPSA perturbations of a
-ZO step) in one launch over a (row tile, P) grid.
+(its ``pallas_call`` at line 115), ``::tt_contract_batched`` (line 212) and
+``::tt_contract_batched_quant`` (line 300): ``y = x @ W(cores)^T`` with the
+whole chain kept on chip for one tile of rows, for one core set or for P
+stacked ones (the SPSA perturbations of a ZO step) in one launch over a
+(row tile, P) grid; the quantized kernel reads each entry's cores as
+block-scaled int8 or fp8-e4m3 codes and dequantizes them on chip.
 
 Bound on an H100 (3.35 TB/s, 67 TFLOP/s f32 without tensor cores): at the
 paper's 1024×1024 spec a row moves 8 KB and costs 64 KFLOP, so the kernels
@@ -16,7 +18,8 @@ the output and the tiny cores; see the source for the chain layout.
 The wrappers check what the kernels take and raise on anything else; they
 never fall back to the plain versions.  They allocate the output, launch
 on the current stream without synchronizing, and count their launches in
-``tt_contract.launches`` and ``tt_contract_batched.launches``.
+``tt_contract.launches``, ``tt_contract_batched.launches`` and
+``tt_contract_batched_quant.launches``.
 """
 
 from __future__ import annotations
@@ -31,10 +34,11 @@ import torch
 
 from repro_torch.core import tt as tt_lib
 from repro_torch.kernels import _build
+from repro_torch.kernels import quant as quant_lib
 from repro_torch.kernels import ref as _ref
 
-__all__ = ["tt_contract", "tt_contract_batched", "chain_widest",
-           "rows_per_block"]
+__all__ = ["tt_contract", "tt_contract_batched", "tt_contract_batched_quant",
+           "chain_widest", "rows_per_block"]
 
 MAX_CORES = 8                      # kMaxCores in the source
 SMEM_DEFAULT_BYTES = 48 * 1024     # shared memory without an opt-in
@@ -85,9 +89,14 @@ def _launchers():
     batched.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                         ctypes.c_int, ctypes.c_int, ctypes.c_int64,
                         ctypes.c_int, ctypes.c_void_p]
-    for fn in (single, batched):
+    quant = lib.tt_contract_batched_quant_launch
+    quant.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p]
+    for fn in (single, batched, quant):
         fn.restype = ctypes.c_int
-    return single, batched
+    return single, batched, quant
 
 
 def _check_x(name: str, x: torch.Tensor, spec: tt_lib.TTSpec) -> None:
@@ -118,10 +127,12 @@ def _check_cores(cores: Sequence[torch.Tensor], spec: tt_lib.TTSpec,
                 f"{device}, got {c.dtype} {tuple(c.shape)} on {c.device}")
 
 
-def _descriptor(cores: Sequence[torch.Tensor], spec: tt_lib.TTSpec):
+def _descriptor(cores: Sequence[torch.Tensor], spec: tt_lib.TTSpec,
+                extra: Sequence[torch.Tensor] = ()):
     return np.asarray([spec.L, chain_widest(spec), *spec.out_modes,
                        *spec.in_modes, *spec.ranks,
-                       *(c.data_ptr() for c in cores)], dtype=np.int64)
+                       *(c.data_ptr() for c in (*cores, *extra))],
+                      dtype=np.int64)
 
 
 def tt_contract(x: torch.Tensor, cores: Sequence[torch.Tensor],
@@ -163,13 +174,7 @@ def tt_contract_batched(x: torch.Tensor, cores: Sequence[torch.Tensor],
     split_batch_axes`` does (``shared_x=None``: 2-D is shared).  Returns
     ``(P, *batch_axes, M)``."""
     _check_x("tt_contract_batched", x, spec)
-    if not cores:
-        raise ValueError("need at least one core stack")
-    P = cores[0].shape[0]
-    _check_cores(cores, spec, x.device, stack=(P,))
-    if not 1 <= P <= MAX_STACK:
-        raise ValueError(f"core stack of {P} entries; the kernel takes "
-                         f"1..{MAX_STACK}")
+    P = _check_stack(cores, spec, x.device)
     xf, batch_shape, shared = _ref.split_batch_axes(x, P, spec, shared_x)
     B = xf.shape[-2]
     y = torch.empty((P, *batch_shape, spec.out_dim), dtype=torch.float32,
@@ -192,3 +197,83 @@ def tt_contract_batched(x: torch.Tensor, cores: Sequence[torch.Tensor],
 
 
 tt_contract_batched.launches = 0
+
+CODE_TYPES = {torch.int8: 0, torch.float8_e4m3fn: 1}   # code_type in the source
+
+
+def _check_stack(cores: Sequence[torch.Tensor], spec: tt_lib.TTSpec,
+                 device: torch.device) -> int:
+    """Check P stacked f32 core sets on ``device``; return P."""
+    if not cores:
+        raise ValueError("need at least one core stack")
+    P = cores[0].shape[0]
+    _check_cores(cores, spec, device, stack=(P,))
+    if not 1 <= P <= MAX_STACK:
+        raise ValueError(f"core stack of {P} entries; the kernel takes "
+                         f"1..{MAX_STACK}")
+    return P
+
+
+def _check_codes(codes: Sequence[torch.Tensor], scales: Sequence[torch.Tensor],
+                 spec: tt_lib.TTSpec, quant: quant_lib.QuantConfig, P: int,
+                 device: torch.device) -> None:
+    """Code k a contiguous ``(P, padded_k)`` tensor of the quant dtype and
+    scale k a contiguous f32 ``(P, padded_k / block)`` one, on ``device``."""
+    qdtype = quant_lib.QUANT_DTYPES[quant.dtype][0]
+    for k, (q, s, shape) in enumerate(zip(codes, scales, spec.core_shapes)):
+        padded = -(-math.prod(shape) // quant.block) * quant.block
+        for t, dtype, want in ((q, qdtype, (P, padded)),
+                               (s, torch.float32, (P, padded // quant.block))):
+            if (t.device != device or t.dtype != dtype
+                    or tuple(t.shape) != want or not t.is_contiguous()):
+                raise ValueError(
+                    f"core {k}: need contiguous {dtype} {want} codes/scales "
+                    f"on {device}, got {t.dtype} {tuple(t.shape)} on "
+                    f"{t.device}")
+
+
+def tt_contract_batched_quant(x: torch.Tensor, cores: Sequence[torch.Tensor],
+                              spec: tt_lib.TTSpec,
+                              quant: quant_lib.QuantConfig,
+                              shared_x: bool | None = None) -> torch.Tensor:
+    """``tt_contract_batched`` with block-scaled int8 / fp8-e4m3 cores.
+
+    Each of the P f32 core variants is quantized on its own
+    (``quant.quantize_blockwise_stacked`` in plain PyTorch ops on the card,
+    as the TPU wrapper does outside its ``pallas_call``): codes
+    ``(P, padded_k)`` in the narrow type and f32 scales
+    ``(P, padded_k / block)``.  The kernel dequantizes them on chip and
+    runs the f32 chain, so entry p equals ``tt_contract_batched`` on the
+    fake-quantized cores bit for bit.  x and the output as in
+    ``tt_contract_batched``."""
+    if not quant.weights:
+        raise ValueError(f"weight quantization not enabled in {quant}")
+    _check_x("tt_contract_batched_quant", x, spec)
+    P = _check_stack(cores, spec, x.device)
+    xf, batch_shape, shared = _ref.split_batch_axes(x, P, spec, shared_x)
+    B = xf.shape[-2]
+    y = torch.empty((P, *batch_shape, spec.out_dim), dtype=torch.float32,
+                    device=x.device)
+    if B == 0:
+        return y
+    if P * B >= 2**31:
+        raise ValueError(f"{P} x {B} rows exceed the kernel's int32 range")
+    codes, scales = zip(*(quant_lib.quantize_blockwise_stacked(c, quant)
+                          for c in cores))
+    _check_codes(codes, scales, spec, quant, P, x.device)
+    # the kernel reads fp8 codes as their bytes
+    desc = _descriptor([q.view(torch.uint8) for q in codes], spec, scales)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _launchers()[2](xf.data_ptr(), y.data_ptr(), desc.ctypes.data,
+                              B, P, 0 if shared else B * spec.in_dim,
+                              rows_per_block(spec), quant.block,
+                              CODE_TYPES[codes[0].dtype], stream)
+    if err != 0:
+        raise RuntimeError(
+            f"tt_contract_batched_quant launch failed: CUDA error {err}")
+    tt_contract_batched_quant.launches += 1
+    return y
+
+
+tt_contract_batched_quant.launches = 0

@@ -13,8 +13,13 @@ stencil through every perturbed model at once (the
 
 runs the paper's ``TONN_ONCHIP_FUSED`` configuration on the card (the
 default device; ``--device cpu`` runs the plain versions on the CPU,
-``--reduced`` the hidden-64 CI size).  Checkpoints are the JAX package's
-format with the same meta (``pinn``, ``pde``, ``seed``, ``term_weights``),
+``--reduced`` the hidden-64 CI size).  ``--quant int8|fp8_e4m3`` (with
+``--quant-block``, default 32) and ``--phase-bits`` train it
+quantization-aware: block-scaled TT cores (the
+``tt_contract_batched_quant`` kernel in place of ``tt_contract_batched``)
+and DAC-snapped phases.  Checkpoints are the JAX package's format with the
+same meta (``pinn`` with the quant config, ``pde``, ``seed``,
+``term_weights``),
 so ``serving.SolverRegistry.load_checkpoint`` serves them; a checkpoint
 ``step_<k>`` holds the params after k updates, and ``--resume`` continues
 from it with the batches and perturbations of steps k, k+1, ... exactly as
@@ -38,6 +43,7 @@ from repro_torch.configs.hjb_pinn import pinn_config, pinn_reduced
 from repro_torch.core import pinn, zoo
 from repro_torch.data import pde_collocation_iterator, pde_term_batch_iterator
 from repro_torch.device import counter_generator, resolve_device, to_device
+from repro_torch.kernels.quant import QuantConfig
 
 __all__ = ["PINN_ARCHS", "TrainResult", "init_solver", "train_pinn", "main"]
 
@@ -81,9 +87,8 @@ def _unported(args) -> list:
         (args.coeff_range is not None, "--coeff-range", 10),
         (args.coeff_dist is not None, "--coeff-dist", 10),
         (args.coeffs_per_step is not None, "--coeffs-per-step", 10),
-        (args.quant is not None, "--quant", 11),
-        (args.quant_block is not None, "--quant-block", 11),
-        (args.phase_bits is not None, "--phase-bits", 11),
+        (args.pinn_mode == "onn" and (args.quant or args.phase_bits),
+         "quantization-aware training of --pinn-mode onn", 11),
         (args.shard is not None, "--shard", 13),
         (args.mesh is not None, "--mesh", 13),
         (args.async_ckpt, "--async-ckpt", 13),
@@ -100,6 +105,11 @@ def train_pinn(args) -> TrainResult:
     overrides = {"hidden": args.hidden} if args.hidden else {}
     if args.estimator:
         overrides["deriv"] = args.estimator
+    if args.quant or args.phase_bits:
+        # quantization-aware ZO training: fake-quant inside the loss
+        overrides["quant"] = QuantConfig(
+            enabled=True, dtype=args.quant, block=args.quant_block,
+            phase_bits=args.phase_bits)
     cfg = build(pde=args.pde, mode=args.pinn_mode, noise=args.pinn_noise,
                 **overrides)
     device = resolve_device(args.device)
@@ -107,7 +117,8 @@ def train_pinn(args) -> TrainResult:
     problem = model.problem
     print(f"[pinn] pde={problem.name} in_dim={problem.in_dim} "
           f"mode={cfg.mode} hidden={cfg.hidden} deriv={cfg.deriv} "
-          f"fused={cfg.use_fused_kernel} device={device}")
+          f"fused={cfg.use_fused_kernel} device={device}"
+          + (f" quant={cfg.quant.tag()}" if cfg.quant.enabled else ""))
 
     params, hw_noise = init_solver(model, args.seed)
     params = to_device(params, device)
@@ -218,6 +229,14 @@ def main(argv=None) -> TrainResult:
     ap.add_argument("--estimator", default=None,
                     choices=[None, "fd", "fd_fast", "stein", "spectral",
                              "auto"])
+    ap.add_argument("--quant", default=None, choices=[None, "int8", "fp8_e4m3"],
+                    help="quantization-aware training: block-scaled TT-core "
+                         "quantization")
+    ap.add_argument("--quant-block", type=int, default=32,
+                    help="absmax-scaling block size for --quant")
+    ap.add_argument("--phase-bits", type=int, default=None,
+                    help="DAC resolution of the trainable MZI phases "
+                         "(quantization-aware training)")
     # flags of repro.launch.train that exit here (see _unported)
     ap.add_argument("--optimizer", default=None,
                     choices=[None, "adamw", "adafactor", "sgd", "zo-signsgd"])
@@ -227,9 +246,6 @@ def main(argv=None) -> TrainResult:
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--async-ckpt", action="store_true")
     ap.add_argument("--spectral-points", type=int, default=None)
-    ap.add_argument("--quant", default=None, choices=[None, "int8", "fp8_e4m3"])
-    ap.add_argument("--quant-block", type=int, default=None)
-    ap.add_argument("--phase-bits", type=int, default=None)
     ap.add_argument("--coeff-range", default=None)
     ap.add_argument("--coeff-dist", default=None,
                     choices=[None, "uniform", "loguniform"])

@@ -5,13 +5,12 @@ neighbourhoods around the same centers, fixed sensor probes.  ``u(x, t)``
 of a frozen solver is a pure function, so repeats never need the program.
 
 ``StencilCache`` is a plain LRU keyed on the solver name, the compute
-dtype and the point's coordinates snapped to a ``quantum``-spaced grid
-(``round(x / quantum)`` per axis, int64).  At the default ``1e-9`` it is an
+dtype, the quant config's tag and the point's coordinates snapped to a
+``quantum``-spaced grid (``round(x / quantum)`` per axis, int64).  At the default ``1e-9`` it is an
 exact repeat-query cache for f32 coordinates; a coarser quantum makes it a
 deliberate down-resolution cache.
 
-The port's own copy of ``repro.serving.cache`` (which is pure numpy), less
-the quantized-serving key tag that the port does not serve yet.
+The port's own copy of ``repro.serving.cache`` (which is pure numpy).
 """
 
 from __future__ import annotations
@@ -42,12 +41,18 @@ class StencilCache:
         self.misses = 0
         self.evictions = 0
 
-    def keys_for(self, solver: str, dtype, points: np.ndarray) -> list:
+    def keys_for(self, solver: str, dtype, points: np.ndarray,
+                 quant_tag: str = "") -> list:
         """Quantized cache keys for a (n, in_dim) point batch (quantized in
-        f64, so the key grid does not depend on the query's dtype)."""
+        f64, so the key grid does not depend on the query's dtype).
+        ``quant_tag`` (``QuantConfig.tag()``, empty for f32 serving) keeps
+        the values of a quantized program from answering another config's
+        query; an empty tag leaves the key format as it was."""
         pts = np.asarray(points, np.float64)
         cells = np.round(pts / self.quantum).astype(np.int64)
         prefix = f"{solver}|{np.dtype(dtype).name}|".encode()
+        if quant_tag:
+            prefix += f"{quant_tag}|".encode()
         return [prefix + row.tobytes() for row in cells]
 
     def lookup(self, keys: list) -> tuple:

@@ -5,8 +5,8 @@ engine serves mixed traffic through a fixed pool of ``slots`` slots of
 ``slot_points`` points each.  The invariants:
 
   * **one program per key, shape-stable** — exactly one program per
-    ``(solver, dtype, slot-shape)``, built the first time the key sees
-    traffic and counted in ``stats["compiles"]``.  A program is a closure
+    ``(solver, dtype[, quant tag], slot-shape)``, built the first time the
+    key sees traffic and counted in ``stats["compiles"]``.  A program is a closure
     over the solver's prepared on-device params; its input is always the
     FULL pool ``(slots·slot_points, net_dim)`` and any other shape raises,
     as the JAX package's AOT executable does.
@@ -19,8 +19,11 @@ engine serves mixed traffic through a fixed pool of ``slots`` slots of
     the pool spans steps).  A slot lives for one step.
 
 Repeated queries short-circuit through the ``StencilCache`` at submit time:
-hits never occupy a slot.  Only float32 requests are served in this port so
-far; other dtypes, ``quant=`` and ``coeffs=`` raise at submit.
+hits never occupy a slot.  A request's ``quant`` (a ``QuantConfig``) selects
+a quantized program of its own, and its cache entries live under the
+config's tag, so quantized and f32 values never answer each other's
+queries.  Only float32 requests are served in this port so far; other
+dtypes and ``coeffs=`` raise at submit.
 
 Port of ``repro.serving.engine``.
 """
@@ -36,11 +39,19 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.core import pinn
 from repro_torch.device import resolve_device
+from repro_torch.kernels import quant as quant_lib
 from repro_torch.serving.cache import StencilCache
 from repro_torch.serving.registry import SolverRegistry
 
 __all__ = ["PointRequest", "PdeServingEngine"]
+
+
+def _quant_tag(quant) -> str:
+    """The quant config's tag for program and cache keys; empty when
+    quantization is off, so the f32 key formats stay as they were."""
+    return "" if quant is None else quant.tag()
 
 
 @dataclasses.dataclass
@@ -49,14 +60,15 @@ class PointRequest:
 
     ``out`` is filled in place (same order as ``points``); ``done`` flips
     when every point is served; ``latency_s`` covers submit → completion,
-    queue wait included.  ``dtype``, ``quant`` and ``coeffs`` mirror the
-    JAX request; anything but float32 / None / None raises at submit.
+    queue wait included.  ``quant`` (a ``QuantConfig``, None for f32)
+    requests quantized serving.  ``dtype`` and ``coeffs`` mirror the JAX
+    request; anything but float32 / None raises at submit.
     """
 
     solver: str
     points: np.ndarray                    # (n, in_dim) physical points
     dtype: Any = np.float32
-    quant: Any = None
+    quant: Any = None                     # QuantConfig | None (None = f32)
     coeffs: Any = None
     out: np.ndarray | None = None         # (n,) served u-values
     done: bool = False
@@ -103,7 +115,7 @@ class PdeServingEngine:
             StencilCache() if enable_cache else None)
         self.queue: collections.deque[PointRequest] = collections.deque()
         self.active: list[_Slot | None] = [None] * slots
-        self._programs: dict = {}      # (solver, dtype, S, C) -> program
+        self._programs: dict = {}  # (solver, dtype[, quant], S, C) -> program
         self._fill: dict = {}          # solver -> in-domain fill point
         self.stats = {"compiles": 0, "steps": 0, "program_runs": 0,
                       "points_served": 0, "points_padded": 0,
@@ -122,14 +134,35 @@ class PdeServingEngine:
     def _pool_shape(self, width: int) -> tuple:
         return (self.slots * self.slot_points, width)
 
-    def _program(self, solver_name: str) -> Callable:
-        """The full-pool float32 forward of ``solver_name``, built (and
-        counted) once per key."""
-        key = (solver_name, "float32", self.slots, self.slot_points)
+    def _program(self, solver_name: str, quant=None) -> Callable:
+        """The full-pool float32 forward of ``(solver_name, quant)``, built
+        (and counted) once per key.
+
+        The request's quant config (else the solver's own) acts on the
+        solver's prepared params.  A prepared tonn solver is already
+        densified, so request-level ``phase_bits`` does not bite it; only
+        solvers quantized at train or load time carry DAC-snapped phases.
+        Weight quantization is folded in at build, as the JAX package's
+        compile folds it: the frozen cores are fake-quantized once here and
+        the program runs the f32 chain over them.  ``fake_quant`` is
+        idempotent, so the values are the quantized model's, and a run pays
+        nothing for the quantization."""
+        tag = _quant_tag(quant)
+        key = (solver_name, "float32", *((tag,) if tag else ()), self.slots,
+               self.slot_points)
         program = self._programs.get(key)
         if program is None:
             solver = self.registry.get(solver_name)
             model, params = solver.model, solver.params
+            q = quant if tag else model.cfg.quant
+            if q.weights:
+                params = {k: ([quant_lib.fake_quant(c, q) for c in v]
+                              if k.startswith("cores") else v)
+                          for k, v in params.items()}
+                model = pinn.TensorPinn(
+                    dataclasses.replace(model.cfg,
+                                        quant=quant_lib.QuantConfig()),
+                    problem=model.problem)
             shape = self._pool_shape(solver.net_dim)
             device = self.device
 
@@ -147,14 +180,15 @@ class PdeServingEngine:
             self.stats["compiles"] += 1
         return program
 
-    def warmup(self, solver_name: str | None = None) -> None:
-        """Build AND run the program(s) once on a pure-fill pool, so the
-        first real request pays neither the build nor first-launch set-up
-        (kernel library load included).  ``None`` warms every solver."""
+    def warmup(self, solver_name: str | None = None, quant=None) -> None:
+        """Build AND run the ``(solver, quant)`` program(s) once on a
+        pure-fill pool, so the first real request pays neither the build
+        nor first-launch set-up (kernel library load included).  ``None``
+        warms every solver."""
         names = (self.registry.names() if solver_name is None
                  else (solver_name,))
         for name in names:
-            program = self._program(name)
+            program = self._program(name, quant)
             width = self.registry.get(name).net_dim
             buf = np.broadcast_to(self._fill_point(name),
                                   self._pool_shape(width))
@@ -183,8 +217,6 @@ class PdeServingEngine:
             raise NotImplementedError(
                 f"{np.dtype(req.dtype).name} serving is not ported yet; "
                 "the port serves float32")
-        if req.quant is not None:
-            raise NotImplementedError("quantized serving is not ported yet")
         pts = np.asarray(req.points, np.float64)
         if pts.ndim != 2 or pts.shape[0] == 0:
             raise ValueError(f"points must be (n>0, in_dim), "
@@ -201,7 +233,8 @@ class PdeServingEngine:
         req.t_submit = time.perf_counter()
         req.out = np.empty(pts.shape[0], np.float64)
         if self.cache is not None:
-            keys = self.cache.keys_for(req.solver, req.dtype, pts)
+            keys = self.cache.keys_for(req.solver, req.dtype, pts,
+                                       quant_tag=_quant_tag(req.quant))
             hit_idx, hit_vals, miss_idx = self.cache.lookup(keys)
             if len(hit_idx):
                 req.out[hit_idx] = hit_vals
@@ -235,14 +268,15 @@ class PdeServingEngine:
                 self.queue.popleft()
 
     def step(self) -> int:
-        """One engine step: admit, run every solver group's full-pool
-        program once, scatter results, retire slots.  Returns the number
-        of request points served this step."""
+        """One engine step: admit, run every (solver, quant) group's
+        full-pool program once, scatter results, retire slots.  Returns the
+        number of request points served this step."""
         self._admit()
         groups: dict = {}
         for s, slot in enumerate(self.active):
             if slot is not None:
-                groups.setdefault(slot.req.solver, []).append(s)
+                groups.setdefault((slot.req.solver,
+                                   _quant_tag(slot.req.quant)), []).append(s)
         if not groups:
             return 0
         self.stats["steps"] += 1
@@ -250,8 +284,9 @@ class PdeServingEngine:
             self.stats["peak_active_slots"],
             sum(len(v) for v in groups.values()))
         served = 0
-        for solver_name, slot_ids in groups.items():
-            program = self._program(solver_name)
+        for (solver_name, _tag), slot_ids in groups.items():
+            program = self._program(solver_name,
+                                    self.active[slot_ids[0]].req.quant)
             width = self.registry.get(solver_name).net_dim
             # full-pool input: fill point everywhere, then the group's
             # chunks in their slots (pad-to-slot)

@@ -3,7 +3,8 @@
 A ``LoadedSolver`` is a checkpoint (or in-memory params) pushed through the
 one-time preparation the request path must never pay for: TONN
 mesh→TT-core densification with the chip's noise baked in
-(``TensorPinn.prepare_params``), and the move to the registry's device.
+(``TensorPinn.prepare_params``; a quantized config's DAC phase snap goes
+with it), and the move to the registry's device.
 
 Checkpoints written by the JAX package's ``launch/train.py`` load by name:
 their ``meta.json`` carries the ``PINNConfig`` under ``"pinn"``.  What the
@@ -12,8 +13,12 @@ port cannot rebuild it refuses, never ignores:
   * a noise-enabled checkpoint's chip noise was sampled from the training
     seed with JAX's threefry generator, which torch does not reproduce —
     pass the noise itself as ``hw_noise=`` (a numpy tree from the JAX side);
-  * conditioned solvers (``coeff_spec`` in meta) and quantized configs are
-    not ported yet and raise ``NotImplementedError``.
+  * conditioned solvers (``coeff_spec`` in meta) are not ported yet and
+    raise ``NotImplementedError``.
+
+A quantized checkpoint (``quant.enabled`` in its config) loads with the
+model built from that config, so it serves the quantized solver it was
+trained as.
 
 Port of ``repro.serving.registry``.
 """
@@ -133,10 +138,6 @@ class SolverRegistry:
             raise NotImplementedError(
                 f"checkpoint {directory} is a coefficient-conditioned solver; "
                 "conditioned serving is not ported yet")
-        if cfg.quant.enabled:
-            raise NotImplementedError(
-                f"checkpoint {directory} has a quantized config; quantized "
-                "serving is not ported yet")
         # meta "term_weights" weigh training losses only; u does not read them
         model = pinn.TensorPinn(cfg)
         if model.uses_noise and hw_noise is None:

@@ -1,7 +1,10 @@
 """Tests that need the card: the CUDA kernels (``tt_contract``,
-``tt_contract_batched``, ``mesh_apply_stacked``) against their plain PyTorch
-versions, served values against a direct forward, and one ZO training step
-on the card against the same step through the plain path on the CPU.
+``tt_contract_batched``, ``tt_contract_batched_quant``,
+``mesh_apply_stacked``) against their plain PyTorch versions, served values
+(f32 and quantized) against a direct forward, quantization codes made on
+the card against the CPU's, and one ZO training step (f32 and
+quantization-aware) on the card against the same step through the plain
+path on the CPU.
 
 Run on a machine with an NVIDIA GPU (Hopper, ``sm_90a``) and ``nvcc``:
 
@@ -17,8 +20,13 @@ cuBLAS algorithm for another batch size); the card against the CPU's plain
 path ``rtol = atol = 1e-5``; a ZO step's stencil u-values within 1e-4 of
 ``max|u|`` (f32 chains summed in other orders, and sin/cos from two
 libraries) and its losses within ``rtol = 1e-1`` (the FD residual squares
-second differences, amplifying those rounding differences by 1/h²).
+second differences, amplifying those rounding differences by 1/h²).  The
+quantized kernel is held to ``tt_contract_batched`` on the fake-quantized
+cores bit for bit, and the quantizer's codes and scales on the card to the
+CPU's bit for bit.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -29,6 +37,7 @@ from repro_torch.core.photonic import NoiseModel
 from repro_torch.device import counter_generator, to_device
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import mesh_apply as mesh
+from repro_torch.kernels import quant as quant_lib
 from repro_torch.kernels import tt_contract as ttc
 from repro_torch.serving import PdeServingEngine, PointRequest, SolverRegistry
 
@@ -309,3 +318,154 @@ def test_served_matches_direct_on_the_card(cuda):
                               pts).numpy()
         np.testing.assert_allclose(r.out, direct, rtol=1e-6, atol=1e-6)
         np.testing.assert_allclose(r.out, plain, rtol=1e-5, atol=1e-5)
+
+
+# label -> (spec, P, x shape without P, shared, block): the three launches
+# of a QAT step at the paper's config (core sizes 64: no padding at block
+# 32), and the rank-4 spec, whose core sizes are not block multiples
+QUANT_CASES = {
+    "layer0-rows": (tt.PAPER_TONN_SPEC, 11, (100,), True, 32),
+    "layer0-columns": (tt.PAPER_TONN_SPEC, 11, (21,), True, 32),
+    "hidden-stencil": (tt.PAPER_TONN_SPEC, 11, (4300,), False, 32),
+    "rank4-777-b32": (RANK4, 3, (777,), False, 32),
+    "rank4-777-b16": (RANK4, 3, (777,), False, 16),
+    "rank4-shared-axes-b16": (RANK4, 3, (3, 5), True, 16),
+}
+
+
+def _codes(q):
+    return q.view(torch.uint8) if q.dtype == torch.float8_e4m3fn else q
+
+
+@pytest.mark.parametrize("dtype", ["int8", "fp8_e4m3"])
+@pytest.mark.parametrize("label", sorted(QUANT_CASES))
+def test_quant_kernel_matches_plain_and_the_f32_kernel(cuda, label, dtype):
+    """The quantized kernel against ``tt_contract_batched_quant_ref``, and
+    bit for bit against ``tt_contract_batched`` on the fake-quantized
+    cores; an all-zero block included."""
+    spec, P, x_shape, shared, block = QUANT_CASES[label]
+    quant = quant_lib.QuantConfig(enabled=True, dtype=dtype, block=block)
+    cores, x = _stacked_inputs(spec, P, x_shape, shared, len(label), cuda)
+    cores[1][0].view(-1)[:block].zero_()
+    before = ttc.tt_contract_batched_quant.launches
+    y = ops.tt_linear_batched(x, cores, spec, quant=quant, shared_x=shared)
+    assert ttc.tt_contract_batched_quant.launches == before + 1
+    assert tuple(y.shape) == (P, *x_shape, spec.out_dim)
+    _assert_kernel_close(y, ref.tt_contract_batched_quant_ref(
+        x, cores, spec, quant, shared_x=shared))
+    fq = [quant_lib.fake_quant_stacked(c, quant) for c in cores]
+    assert torch.equal(y, ttc.tt_contract_batched(x, fq, spec,
+                                                  shared_x=shared))
+
+
+@pytest.mark.parametrize("dtype", ["int8", "fp8_e4m3"])
+def test_codes_made_on_the_card_equal_the_cpus(cuda, dtype):
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((11, 3, 7, 5), generator=gen) * torch.exp(
+        torch.empty((11, 3, 7, 5)).uniform_(-8, 8, generator=gen))
+    x[4] = 0.0
+    for block in (7, 16, 32):
+        quant = quant_lib.QuantConfig(enabled=True, dtype=dtype, block=block)
+        q_d, s_d = quant_lib.quantize_blockwise_stacked(x.to(cuda), quant)
+        q_c, s_c = quant_lib.quantize_blockwise_stacked(x, quant)
+        assert torch.equal(_codes(q_d).cpu(), _codes(q_c))
+        assert torch.equal(s_d.cpu(), s_c)
+        assert torch.equal(quant_lib.fake_quant_stacked(x.to(cuda),
+                                                        quant).cpu(),
+                           quant_lib.fake_quant_stacked(x, quant))
+    for bits in (6, 8):
+        assert torch.equal(quant_lib.quantize_phases(x.to(cuda), bits).cpu(),
+                           quant_lib.quantize_phases(x, bits))
+
+
+def test_quant_wrapper_refuses_what_the_kernel_cannot_take(cuda):
+    spec, P, x_shape, shared, _ = QUANT_CASES["rank4-777-b32"]
+    cores, x = _stacked_inputs(spec, P, (9,), False, 2, cuda)
+    quant = quant_lib.QuantConfig(enabled=True)
+    with pytest.raises(ValueError, match="not enabled"):
+        ttc.tt_contract_batched_quant(x, cores, spec,
+                                      quant_lib.QuantConfig())
+    with pytest.raises(ValueError, match="contiguous"):
+        ttc.tt_contract_batched_quant(x.transpose(0, 1), cores, spec, quant)
+    with pytest.raises(ValueError, match="core 0"):
+        ttc.tt_contract_batched_quant(x, [cores[0].cpu(), *cores[1:]], spec,
+                                      quant)
+    assert ttc.tt_contract_batched_quant(x[:, :0], cores, spec,
+                                         quant).shape == (P, 0, spec.out_dim)
+
+
+@pytest.mark.parametrize("hidden,tt_L", [(64, 3), (1024, 4)])
+def test_qat_zo_step_on_the_card_matches_the_cpu(cuda, hidden, tt_L):
+    """One QAT ZO step (int8 block 32, 8-bit phases): the densified cores
+    on the card against the CPU's, then the stacked stencil u-values and
+    (P,) losses on the card against the CPU's plain path on the card's
+    densified cores (a weight code that the two devices' last-ulp
+    differences put across a rounding edge would move a core value by a
+    whole quantization step).  The step launches 3 quantized chains, no
+    f32 chain and 2 meshes per core mesh."""
+    cfg = pinn.PINNConfig(hidden=hidden, mode="tonn", tt_L=tt_L,
+                          deriv="fd_fast", use_fused_kernel=True,
+                          noise=NoiseModel(enabled=True),
+                          quant=quant_lib.QuantConfig(enabled=True,
+                                                      phase_bits=8))
+    model = pinn.TensorPinn(cfg)
+    params = model.init(counter_generator(0))
+    noise = model.sample_noise(counter_generator(0, 99))
+    xt = model.problem.sample_collocation(counter_generator(1), 96)
+    xis = zoo.sample_perturbations(counter_generator(2), params, 3,
+                                   model.trainable_mask(params))
+    stacked = zoo.perturbed_stack(params, xis, zoo.SPSAConfig(num_samples=3))
+    counters = (ttc.tt_contract_batched_quant, ttc.tt_contract_batched,
+                mesh.mesh_apply_stacked)
+    before = [fn.launches for fn in counters]
+    prep_card = model.prepare_params_stacked(to_device(stacked, cuda),
+                                             to_device(noise, cuda))
+    u_card = model.fd_u_stencil_stacked(prep_card, xt.to(cuda),
+                                        model.fd_step).cpu()
+    l_card = pinn.residual_losses_stacked(model, prep_card, xt.to(cuda)).cpu()
+    torch.cuda.synchronize()
+    meshes = sum(len(pms) for pms in model.photonic_cores)
+    assert [fn.launches - b for fn, b in zip(counters, before)] == \
+        [2 * 3, 0, 2 * meshes]
+    prep_cpu = model.prepare_params_stacked(stacked, noise)
+    for i in range(2):
+        for a, b in zip(prep_card[f"cores{i}"], prep_cpu[f"cores{i}"]):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-6)
+    shared = to_device(prep_card, torch.device("cpu"))
+    u_cpu = model.fd_u_stencil_stacked(shared, xt, model.fd_step)
+    l_cpu = pinn.residual_losses_stacked(model, shared, xt)
+    assert torch.isfinite(u_card).all() and torch.isfinite(l_card).all()
+    assert (u_card - u_cpu).abs().max() <= 1e-4 * u_cpu.abs().max()
+    np.testing.assert_allclose(l_card.numpy(), l_cpu.numpy(), rtol=1e-1)
+
+
+def test_quantized_serving_on_the_card(cuda):
+    """int8 and fp8 requests beside f32 ones: each served value equals a
+    direct forward of its config, one program per (solver, config), two
+    ``tt_contract`` launches per program run."""
+    reg = SolverRegistry(device=cuda)
+    reg.register_fresh("hjb", pinn.PINNConfig(
+        hidden=1024, mode="tonn", tt_rank=2, tt_L=4, pde="hjb-20d",
+        use_fused_kernel=True, noise=NoiseModel(enabled=True)),
+        seed=0, device=cuda)
+    eng = PdeServingEngine(reg, slots=4, slot_points=256, device=cuda)
+    quants = [None, quant_lib.QuantConfig(enabled=True),
+              quant_lib.QuantConfig(enabled=True, dtype="fp8_e4m3")]
+    rng = np.random.RandomState(1)
+    before = ttc.tt_contract.launches
+    traffic = [(quants[i % 3], rng.uniform(0.02, 0.98, (n, 21)).astype(
+        np.float32)) for i, n in enumerate([5, 300, 77, 1100, 256, 31])]
+    reqs = [eng.submit(PointRequest("hjb", pts, quant=q))
+            for q, pts in traffic]
+    eng.run()
+    torch.cuda.synchronize()
+    assert ttc.tt_contract.launches - before == 2 * eng.stats["program_runs"]
+    assert eng.stats["compiles"] == 3
+    s = reg.get("hjb")
+    for (q, pts), r in zip(traffic, reqs):
+        model = s.model if q is None else pinn.TensorPinn(
+            dataclasses.replace(s.model.cfg, quant=q), problem=s.problem)
+        with torch.no_grad():
+            direct = model.u(s.params, torch.tensor(pts, device=cuda))
+        np.testing.assert_allclose(r.out, direct.cpu().numpy(), rtol=1e-6,
+                                   atol=1e-6)

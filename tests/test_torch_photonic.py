@@ -68,6 +68,24 @@ def test_mesh_apply_matches_jax(ports, transpose):
                                rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("transpose", [False, True])
+def test_one_level_mesh_matches_jax(transpose):
+    """A 2-port mesh has a single level: its level-reversed perm table (a
+    negative-stride view) must still reach torch, as in a tonn core whose
+    unfolding is 2 wide."""
+    layout_j, layout_t = jph.rectangular_layout(2), tph.rectangular_layout(2)
+    assert layout_t.levels == 1
+    phases = np.asarray([[0.7]], np.float32)
+    x = np.random.RandomState(1).standard_normal((3, 2)).astype(np.float32)
+    diag = np.asarray([1.0, -1.0], np.float32)
+    y = tph.mesh_apply(layout_t, torch.tensor(phases), torch.tensor(diag),
+                       torch.tensor(x), transpose=transpose)
+    np.testing.assert_allclose(
+        y.numpy(), np.asarray(jph.mesh_apply(
+            layout_j, jnp.asarray(phases), jnp.asarray(diag), jnp.asarray(x),
+            transpose=transpose)), rtol=RTOL, atol=ATOL)
+
+
 def test_effective_phases_match_jax():
     rng = np.random.RandomState(0)
     phases = rng.standard_normal((6, 4)).astype(np.float32)

@@ -22,7 +22,6 @@ from repro.checkpoint import restore_checkpoint as jax_restore
 from repro.checkpoint import save_checkpoint as jax_save
 from repro.core import pinn as jpinn
 from repro.core.photonic import NoiseModel as JNoise
-from repro.kernels.quant import QuantConfig as JQuant
 from repro.serving import PdeServingEngine as JEngine
 from repro.serving import PointRequest as JRequest
 from repro.serving import SolverRegistry as JRegistry
@@ -153,8 +152,6 @@ def test_unported_requests_raise():
     pts = np.full((3, 11), 0.5, np.float32)
     with pytest.raises(NotImplementedError, match="bfloat16"):
         teng.submit(PointRequest("heat", pts, dtype=jnp.bfloat16))
-    with pytest.raises(NotImplementedError, match="quantized"):
-        teng.submit(PointRequest("heat", pts, quant=JQuant(enabled=True)))
     with pytest.raises(ValueError, match="coeff"):
         teng.submit(PointRequest("heat", pts, coeffs=[1.0]))
     with pytest.raises(KeyError):
@@ -212,12 +209,6 @@ def test_checkpoints_the_port_cannot_rebuild_raise(tmp_path):
                    extra={"coeff_spec": spec.to_meta()})
     with pytest.raises(NotImplementedError, match="conditioned"):
         reg.load_checkpoint("fam", tmp_path / "fam", device=CPU)
-    # quantized config
-    qcfg = jpinn.PINNConfig(hidden=16, mode="tt", tt_L=3, pde="heat-10d",
-                            quant=JQuant(enabled=True))
-    _save_jax_ckpt(tmp_path / "q", qcfg, 0)
-    with pytest.raises(NotImplementedError, match="quantized"):
-        reg.load_checkpoint("q", tmp_path / "q", device=CPU)
     # a pre-metadata checkpoint needs cfg=
     cfg = _cfg("hjb-10d", "tt", False)
     model = jpinn.TensorPinn(cfg)

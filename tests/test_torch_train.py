@@ -93,8 +93,11 @@ def test_resume_redraws_the_same_perturbations(tmp_path):
     (["--term-weight", "residual=2"], 8), (["--bc-weight", "2"], 8),
     (["--estimator", "spectral"], 9), (["--spectral-points", "8"], 9),
     (["--coeff-range", "lam=0.05:0.1"], 10), (["--coeff-dist", "uniform"], 10),
-    (["--coeffs-per-step", "2"], 10), (["--quant", "int8"], 11),
-    (["--quant-block", "16"], 11), (["--phase-bits", "8"], 11),
+    (["--coeffs-per-step", "2"], 10),
+    (["--quant", "int8", "--pinn-mode", "onn"], 11),
+    (["--quant", "fp8_e4m3", "--quant-block", "16", "--pinn-mode", "onn"],
+     11),
+    (["--phase-bits", "8", "--pinn-mode", "onn"], 11),
     (["--shard", "perturbation"], 13), (["--mesh", "2x1"], 13),
     (["--async-ckpt"], 13), (["--seq", "16"], 14),
     (["--compress-grads"], 14), (["--zo-vectorized"], 14)])
