@@ -76,54 +76,61 @@ struct QuantCores {
   const float* scales[kMaxCores];   // (P, padded_k / block)
 };
 
-// Dynamic shared memory: the core buffer (the cores of one entry, packed
-// flat), then the two row buffers.
-__device__ __forceinline__ float* core_buffer() {
-  extern __shared__ float smem[];
-  return smem;
-}
-
-// Pack entry p's f32 cores into the shared core buffer (tiny: 256 floats at
-// the paper's spec).
-__device__ __forceinline__ void load_cores(const TTChain& chain, size_t p) {
-  for (int k = 0; k < chain.L; ++k) {
-    const int size = chain.core_off[k + 1] - chain.core_off[k];
-    float* dst = core_buffer() + chain.core_off[k];
-    const float* src = chain.cores[k] + p * size;
-    for (int i = threadIdx.x; i < size; i += blockDim.x) dst[i] = src[i];
+// Packs entry p's f32 cores, as they are, into the shared core buffer
+// (tiny: 256 floats at the paper's spec).
+struct CopyCores {
+  size_t p;
+  __device__ __forceinline__ void operator()(const TTChain& chain,
+                                             float* g_all, int tid) const {
+    for (int k = 0; k < chain.L; ++k) {
+      const int size = chain.core_off[k + 1] - chain.core_off[k];
+      float* dst = g_all + chain.core_off[k];
+      const float* src = chain.cores[k] + p * size;
+      for (int i = tid; i < size; i += blockDim.x) dst[i] = src[i];
+    }
   }
-}
+};
 
-// Dequantize entry p's codes into the shared core buffer: element i of core
-// k is float(code[i]) * scale[i / block]; the padding past |G_k| is dropped.
+// Dequantizes entry p's codes of type Code into the shared core buffer:
+// element i of core k is float(code[i]) * scale[i / block]; the padding past
+// |G_k| is dropped.
 template <typename Code>
-__device__ __forceinline__ void dequant_cores(const TTChain& chain,
-                                              const QuantCores& q, size_t p) {
-  for (int k = 0; k < chain.L; ++k) {
-    const int size = chain.core_off[k + 1] - chain.core_off[k];
-    const int padded = (size + q.block - 1) / q.block * q.block;
-    const Code* codes = reinterpret_cast<const Code*>(q.codes[k]) + p * padded;
-    const float* scales = q.scales[k] + p * (padded / q.block);
-    float* dst = core_buffer() + chain.core_off[k];
-    for (int i = threadIdx.x; i < size; i += blockDim.x)
-      dst[i] = __fmul_rn(static_cast<float>(codes[i]), scales[i / q.block]);
+struct DequantCores {
+  const QuantCores& q;
+  size_t p;
+  __device__ __forceinline__ void operator()(const TTChain& chain,
+                                             float* g_all, int tid) const {
+    for (int k = 0; k < chain.L; ++k) {
+      const int size = chain.core_off[k + 1] - chain.core_off[k];
+      const int padded = (size + q.block - 1) / q.block * q.block;
+      const Code* codes =
+          reinterpret_cast<const Code*>(q.codes[k]) + p * padded;
+      const float* scales = q.scales[k] + p * (padded / q.block);
+      float* dst = g_all + chain.core_off[k];
+      for (int i = tid; i < size; i += blockDim.x)
+        dst[i] = __fmul_rn(static_cast<float>(codes[i]), scales[i / q.block]);
+    }
   }
-}
+};
 
-// The chain for `nrows` contiguous rows: xs -> ys, with the entry's cores
-// already written to the shared core buffer by this block.
+// The chain for `nrows` contiguous rows of one stack entry: xs -> ys, with
+// the entry's cores packed into shared memory by `load_cores` (CopyCores or
+// DequantCores).
+template <typename LoadCores>
 __device__ __forceinline__ void chain_rows(const float* __restrict__ xs,
                                            float* __restrict__ ys, int nrows,
                                            int rows_per_block,
-                                           const TTChain& chain) {
+                                           const TTChain& chain,
+                                           const LoadCores& load_cores) {
+  extern __shared__ float smem[];
   const int core_floats = (chain.core_off[chain.L] + 3) & ~3;
-  float* g_all = core_buffer();
-  float* buf_a = g_all + core_floats;
+  float* g_all = smem;
+  float* buf_a = smem + core_floats;
   float* buf_b = buf_a + rows_per_block * chain.widest;
   const int tid = threadIdx.x;
 
-  // this tile's input rows, contiguous in device memory (the barrier below
-  // also publishes the core buffer)
+  load_cores(chain, g_all, tid);
+  // this tile's input rows, contiguous in device memory
   for (int i = tid; i < nrows * chain.in_dim; i += blockDim.x) {
     const int r = i / chain.in_dim;
     buf_a[r * chain.widest + (i - r * chain.in_dim)] = xs[i];
@@ -180,10 +187,10 @@ __global__ void __launch_bounds__(kThreads)
 tt_contract_kernel(const float* __restrict__ x, float* __restrict__ y,
                    int batch, int rows_per_block, const TTChain chain) {
   const int row0 = blockIdx.x * rows_per_block;
-  load_cores(chain, 0);
   chain_rows(x + (size_t)row0 * chain.in_dim,
              y + (size_t)row0 * chain.out_dim,
-             min(rows_per_block, batch - row0), rows_per_block, chain);
+             min(rows_per_block, batch - row0), rows_per_block, chain,
+             CopyCores{0});
 }
 
 // grid (row tiles, P): block (i, p) runs rows [i*rpb, (i+1)*rpb) of entry p
@@ -193,10 +200,10 @@ tt_contract_batched_kernel(const float* __restrict__ x, float* __restrict__ y,
                            const TTChain chain) {
   const size_t p = blockIdx.y;
   const int row0 = blockIdx.x * rows_per_block;
-  load_cores(chain, p);
   chain_rows(x + p * x_stride_p + (size_t)row0 * chain.in_dim,
              y + (p * batch + row0) * chain.out_dim,
-             min(rows_per_block, batch - row0), rows_per_block, chain);
+             min(rows_per_block, batch - row0), rows_per_block, chain,
+             CopyCores{p});
 }
 
 // tt_contract_batched_kernel with entry p's cores dequantized from codes of
@@ -209,10 +216,10 @@ tt_contract_batched_quant_kernel(const float* __restrict__ x,
                                  const TTChain chain, const QuantCores q) {
   const size_t p = blockIdx.y;
   const int row0 = blockIdx.x * rows_per_block;
-  dequant_cores<Code>(chain, q, p);
   chain_rows(x + p * x_stride_p + (size_t)row0 * chain.in_dim,
              y + (p * batch + row0) * chain.out_dim,
-             min(rows_per_block, batch - row0), rows_per_block, chain);
+             min(rows_per_block, batch - row0), rows_per_block, chain,
+             DequantCores<Code>{q, p});
 }
 
 // Fill `chain` from the descriptor and return the dynamic shared memory

@@ -6,9 +6,9 @@ There is no switch that sends CUDA tensors to the plain version.
 
 ``quant`` (a ``kernels.quant.QuantConfig``, or None) follows the JAX
 package's ``repro.kernels.ops``: with weight quantization on, the TT layers
-see block-scaled cores; with ``phase_bits`` set, the stacked mesh sees
-DAC-snapped phases.  With ``quant`` None or off every path is the
-unquantized one, bit for bit.
+see block-scaled cores.  With ``quant`` None or without weight
+quantization every path is the unquantized one, bit for bit.  (DAC phase
+snapping belongs to ``PhotonicMatrix``, before the noise model.)
 """
 
 from __future__ import annotations
@@ -34,11 +34,9 @@ def _weight_quant(quant) -> bool:
 def tt_linear(x: torch.Tensor, cores: Sequence[torch.Tensor],
               spec: tt_lib.TTSpec, quant=None) -> torch.Tensor:
     """``y = x @ W(cores)^T``: x (..., N) → (..., M).  With weight
-    quantization the card fake-quantizes the cores and runs the f32 kernel
-    (the single chain serves only; the JAX package does the same)."""
+    quantization the cores are fake-quantized and the f32 chain runs over
+    them (the single chain serves only; the JAX package does the same)."""
     if _weight_quant(quant):
-        if x.device.type == "cpu":
-            return _ref.tt_contract_quant_ref(x, cores, spec, quant)
         cores = [_quant.fake_quant(c, quant) for c in cores]
     if x.device.type == "cpu":
         return _ref.tt_contract_ref(x, cores, spec)
@@ -65,16 +63,11 @@ def tt_linear_batched(x: torch.Tensor, cores: Sequence[torch.Tensor],
 
 def mesh_apply_stacked(layout: _ph.MeshLayout, phases: torch.Tensor,
                        diag: torch.Tensor, x: torch.Tensor,
-                       transpose: bool = False, quant=None) -> torch.Tensor:
+                       transpose: bool = False) -> torch.Tensor:
     """S stacked MZI meshes of one layout in one program: phases
     ``(S, levels, slots)``, diag ``(P,)`` or ``(S, P)``, x ``(B, P)``
     shared or ``(S, B, P)`` → ``(S, B, P)``.  On the card a layout too
-    large for the kernel's shared memory raises.  ``quant`` with
-    ``phase_bits`` snaps the phases to the DAC grid first, on either
-    device.  (``PhotonicMatrix`` snaps before the noise model instead and
-    passes no ``quant`` here.)"""
-    if quant is not None and quant.phases:
-        phases = _quant.quantize_phases(phases, quant.phase_bits)
+    large for the kernel's shared memory raises."""
     if x.device.type == "cpu":
         return _ph.mesh_apply_stacked(layout, phases, diag, x, transpose)
     return _mesh.mesh_apply_stacked(layout, phases, diag, x, transpose)

@@ -16,7 +16,7 @@ from repro_torch.core import tt as tt_lib
 from repro_torch.kernels import quant as quant_lib
 
 __all__ = ["tt_contract_ref", "split_batch_axes", "tt_contract_batched_ref",
-           "tt_contract_quant_ref", "tt_contract_batched_quant_ref"]
+           "tt_contract_batched_quant_ref"]
 
 
 def tt_contract_ref(x: torch.Tensor, cores: Sequence[torch.Tensor],
@@ -51,15 +51,6 @@ def tt_contract_batched_ref(x: torch.Tensor, cores: Sequence[torch.Tensor],
     xf, batch_shape, _ = split_batch_axes(x, P, spec, shared_x)
     y = tt_lib.tt_matvec_stacked(cores, xf, spec)
     return y.reshape(P, *batch_shape, spec.out_dim)
-
-
-def tt_contract_quant_ref(x: torch.Tensor, cores: Sequence[torch.Tensor],
-                          spec: tt_lib.TTSpec,
-                          quant: quant_lib.QuantConfig) -> torch.Tensor:
-    """The quantized chain: fake-quant each core (the block-scaled values
-    a quantized kernel dequantizes), then the f32 chain."""
-    return tt_lib.tt_matvec([quant_lib.fake_quant(c, quant) for c in cores],
-                            x, spec)
 
 
 def tt_contract_batched_quant_ref(x: torch.Tensor,

@@ -138,15 +138,17 @@ class PdeServingEngine:
         """The full-pool float32 forward of ``(solver_name, quant)``, built
         (and counted) once per key.
 
-        The request's quant config (else the solver's own) acts on the
-        solver's prepared params.  A prepared tonn solver is already
-        densified, so request-level ``phase_bits`` does not bite it; only
-        solvers quantized at train or load time carry DAC-snapped phases.
-        Weight quantization is folded in at build, as the JAX package's
-        compile folds it: the frozen cores are fake-quantized once here and
-        the program runs the f32 chain over them.  ``fake_quant`` is
-        idempotent, so the values are the quantized model's, and a run pays
-        nothing for the quantization."""
+        A quantized request rebinds the solver's model to the request's
+        config, as the JAX package does (a request without weight
+        quantization so serves unquantized cores, even from a quantized
+        solver); an f32 request serves the solver's own model.  A prepared
+        tonn solver is already densified, so request-level ``phase_bits``
+        does not bite it; only solvers quantized at train or load time
+        carry DAC-snapped phases.  Weight quantization is folded in at
+        build, as the JAX package's compile folds it: the frozen cores are
+        fake-quantized once here and the program runs the f32 chain over
+        them.  ``fake_quant`` is idempotent, so the values are the quantized
+        model's, and a run pays nothing for the quantization."""
         tag = _quant_tag(quant)
         key = (solver_name, "float32", *((tag,) if tag else ()), self.slots,
                self.slot_points)
@@ -154,7 +156,11 @@ class PdeServingEngine:
         if program is None:
             solver = self.registry.get(solver_name)
             model, params = solver.model, solver.params
-            q = quant if tag else model.cfg.quant
+            if tag:
+                model = pinn.TensorPinn(
+                    dataclasses.replace(model.cfg, quant=quant),
+                    problem=model.problem)
+            q = model.cfg.quant
             if q.weights:
                 params = {k: ([quant_lib.fake_quant(c, q) for c in v]
                               if k.startswith("cores") else v)

@@ -152,7 +152,7 @@ def test_phase_bits_alone_keep_the_unquantized_chain(monkeypatch):
         raise AssertionError("the quantized chain ran")
 
     monkeypatch.setattr(tref, "tt_contract_batched_quant_ref", refuse)
-    monkeypatch.setattr(tref, "tt_contract_quant_ref", refuse)
+    monkeypatch.setattr(tq, "fake_quant", refuse)
     tm = tpinn.TensorPinn(tpinn.PINNConfig(
         hidden=16, mode="tonn", tt_L=3, deriv="fd_fast",
         quant=tq.QuantConfig(enabled=True, dtype=None, phase_bits=4)))

@@ -291,8 +291,10 @@ def test_tt_linear_quant_matches_jax(mode, dtype):
     tcores = [torch.tensor(c) for c in cores]
     got = tops.tt_linear(torch.tensor(x), tcores, _port_spec(spec), quant=tc)
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
-    assert torch.equal(got, tref.tt_contract_quant_ref(
-        torch.tensor(x), tcores, _port_spec(spec), tc))
+    # it is the f32 plain chain on the fake-quantized cores
+    assert torch.equal(got, tref.tt_contract_ref(
+        torch.tensor(x), [tq.fake_quant(c, tc) for c in tcores],
+        _port_spec(spec)))
 
 
 def test_ops_with_quant_off_are_the_unquantized_paths():
@@ -326,30 +328,6 @@ def test_quant_wrapper_refuses_cpu_tensors_and_quant_off():
         tops.tt_linear_batched(torch.zeros(4, 1024, device="meta"),
                                [c.to("meta") for c in cores], spec, quant=tc)
     assert tttc.tt_contract_batched_quant.launches == before
-
-
-@pytest.mark.parametrize("transpose", [False, True])
-def test_mesh_apply_stacked_with_phase_bits_snaps_first(transpose):
-    layout_j, layout_t = jph.rectangular_layout(8), tph.rectangular_layout(8)
-    rng = np.random.RandomState(2)
-    phases = rng.standard_normal((3, *layout_t.phase_shape())).astype(
-        np.float32)
-    diag = np.where(rng.rand(3, 8) < 0.5, -1.0, 1.0).astype(np.float32)
-    x = rng.standard_normal((5, 8)).astype(np.float32)
-    jc, tc = _configs(None, phase_bits=6)
-    got = tops.mesh_apply_stacked(layout_t, torch.tensor(phases),
-                                  torch.tensor(diag), torch.tensor(x),
-                                  transpose, quant=tc)
-    snapped = tq.quantize_phases(torch.tensor(phases), 6)
-    assert torch.equal(got, tops.mesh_apply_stacked(
-        layout_t, snapped, torch.tensor(diag), torch.tensor(x), transpose))
-    assert not torch.equal(got, tops.mesh_apply_stacked(
-        layout_t, torch.tensor(phases), torch.tensor(diag), torch.tensor(x),
-        transpose))
-    want = np.asarray(jops.mesh_apply_stacked(
-        layout_j, jnp.asarray(phases), jnp.asarray(diag), jnp.asarray(x),
-        transpose=transpose, mode="ref", quant=jc))
-    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
 # --------------------------------------------------------------- serving
@@ -401,6 +379,38 @@ def test_jax_quantized_checkpoint_serves_jax_values(tmp_path, mode, qkw):
     f32 = np.asarray(jpinn.TensorPinn(dataclasses.replace(
         cfg, quant=jq.QuantConfig())).u(params, jnp.asarray(pts)))
     assert np.abs(req.out - f32).max() > 1e-4
+
+
+@pytest.mark.parametrize("request_quant", ["phase_bits_only", "f32"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_quantized_checkpoint_serves_requests_as_the_jax_engine(
+        tmp_path, dtype, request_quant):
+    """A weight-quantized tt checkpoint served to a request without weight
+    quantization: the request's config replaces the solver's (unquantized
+    cores), as in the JAX engine; an f32 request keeps the solver's own."""
+    cfg = jpinn.PINNConfig(hidden=64, mode="tt", tt_rank=2, tt_L=3,
+                           pde="hjb-20d", use_fused_kernel=True,
+                           quant=jq.QuantConfig(enabled=True, dtype=dtype))
+    model, params = _save_jax_ckpt(tmp_path, cfg, seed=5)
+    jreg, treg = JRegistry(), SolverRegistry(device=CPU)
+    jreg.load_checkpoint("q", tmp_path)
+    treg.load_checkpoint("q", tmp_path, device=CPU)
+    jeng = JEngine(jreg, slots=2, slot_points=16)
+    teng = PdeServingEngine(treg, slots=2, slot_points=16, device=CPU)
+    jc, tc = ((None, None) if request_quant == "f32"
+              else _configs(None, phase_bits=8))
+    pts = _points(29, 21, seed=6)
+    jr = jeng.submit(JRequest("q", pts, quant=jc))
+    tr = teng.submit(PointRequest("q", pts, quant=tc))
+    jeng.run()
+    teng.run()
+    np.testing.assert_allclose(tr.out, jr.out, rtol=RTOL, atol=ATOL)
+    assert teng.serving_stats()["programs"] == \
+        jeng.serving_stats()["programs"]
+    f32_cfg = dataclasses.replace(cfg, quant=jq.QuantConfig())
+    want_cfg = f32_cfg if request_quant == "phase_bits_only" else cfg
+    want = np.asarray(jpinn.TensorPinn(want_cfg).u(params, jnp.asarray(pts)))
+    np.testing.assert_allclose(tr.out, want, rtol=RTOL, atol=ATOL)
 
 
 def _both_engines():
