@@ -87,7 +87,45 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 (solver, config), two ``tt_contract`` launches per program
                 run, a resubmitted burst answered by the cache alone, an f32
                 repeat of an int8 request not answered from int8 entries.
- 11. report   — one ``{"kernels": [...]}`` line, the card's name and power
+ 11. flash-kernel — ``flash_attention`` against ``ref.attention_ref`` on the
+                card: (a) qwen2.5-3b's prefill layer (B 4, H 16, KH 2, S
+                2048, D 128, causal) in bf16 and f32, (b) h2o-danube-3-4b's
+                (B 1, H 32, KH 8, S 8192, D 120, window 4096), (c) chunked
+                prefill (Sq 256 < Sk 2304), (d) one query over 300 keys, (e)
+                bidirectional over whisper's 1500 frames (not a tile
+                multiple), (f) causal with Sq 64 > Sk 32, whose first 32
+                rows see no key and must be exact zeros, (g) the reduced
+                qwen shape (D 24, f32).  Bound, per element
+                (``ref.attention_bound``): f32 ``|Δ| ≤ 1e-5·max|plain| +
+                1e-6``; bf16 one bf16 ulp of the element's own |plain|
+                (2^(⌊log2|plain|⌋ − 7)) on top of that: the two round f32
+                values that differ in the last bits, and a pair that
+                straddles a rounding edge lands one bf16 ulp apart.  At (a)
+                times the kernel, the plain version and
+                ``F.scaled_dot_product_attention(is_causal=True,
+                enable_gqa=True)`` (the library yardstick; valid only at Sq
+                = Sk, where its top-left causal alignment equals the
+                kernel's bottom-right one).
+ 12. lm-serve — the LM slice's main path: ``transformer.init_params`` of the
+                full qwen2.5-3b (bf16, seed 0) on the card, ``prefill`` of 4
+                prompts of 2048 tokens (``max_len`` 2048 + 16), then 16
+                greedy ``decode_step``s.  Checks: logits finite; exactly 36
+                ``flash_attention`` launches in the prefill and 0 in the
+                decode; prefill's last-token logits against the same
+                prefill with ``ref.attention_ref`` in place of the kernel
+                (the check independent of the kernel), against ``forward``
+                at position S−1 (which runs the kernel too), and the first
+                decode's against ``forward`` on the S+1 tokens at position
+                S (within 2e-2·max|logit|, the bar of
+                ``tests/test_arch_smoke.py``).  Times a prefill and
+                a decode step.  Then the same config cut to 2 layers in f32:
+                ``prefill`` of B 2, S 256 on the card against the CPU's
+                plain path (last-token logits within 1e-4·max|logit|).
+                Then ``launch.serve.ServingEngine`` over the full bf16 model
+                (4 slots, ``max_len`` 256, 4 requests of 16-token prompts
+                and 16 new tokens): all finish with 16 tokens, and a second
+                engine on the same params gives the same tokens.
+ 13. report   — one ``{"kernels": [...]}`` line, the card's name and power
                 limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device, or run outside a checkout of the repository, it exits
@@ -107,10 +145,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and float32
-# outside the tensor cores — the rates the TT chain's f32 FMAs run at.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, float32
+# outside the tensor cores — the rates the TT chain's f32 FMAs run at — and
+# dense bf16 on the tensor cores, attention's products in bf16.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 
 def _time_ms(fn, iters: int, warmup: int = 5) -> float:
@@ -152,7 +192,7 @@ def phase_device():
     return name, count, card
 
 
-KERNEL_SOURCES = ("tt_contract", "mesh_apply")
+KERNEL_SOURCES = ("tt_contract", "mesh_apply", "flash_attention")
 
 
 def phase_build():
@@ -856,6 +896,291 @@ def phase_serve_quant(device) -> dict:
     return out
 
 
+# label -> (B, H, KH, Sq, Sk, D, causal, window, dtypes); "a" is the main one
+FLASH_CASES = {
+    "a-qwen-prefill": (4, 16, 2, 2048, 2048, 128, True, None,
+                       ("bfloat16", "float32")),
+    "b-danube-window": (1, 32, 8, 8192, 8192, 120, True, 4096,
+                        ("bfloat16", "float32")),
+    "c-chunked-prefill": (2, 16, 2, 256, 2304, 128, True, None,
+                          ("bfloat16", "float32")),
+    "d-single-query": (4, 16, 2, 1, 300, 128, True, None,
+                       ("bfloat16", "float32")),
+    "e-bidirectional": (2, 8, 8, 1500, 1500, 64, False, None,
+                        ("bfloat16", "float32")),
+    "f-masked-rows": (1, 4, 2, 64, 32, 32, True, None,
+                      ("bfloat16", "float32")),
+    "g-reduced": (2, 4, 2, 200, 200, 24, True, None, ("float32",)),
+}
+
+
+def _flash_bound(B, H, KH, Sq, Sk, D, causal, window, dtype) -> tuple:
+    """(bound_ms, bound_by, unmasked pairs): 4·D FLOPs per (q, k) pair that
+    this case's masks leave, at the dtype's peak, against q, k, v and the
+    output moved once."""
+    import numpy as np
+    q_abs = np.arange(Sq, dtype=np.int64) + (Sk - Sq)
+    hi = np.minimum(q_abs, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = (np.maximum(q_abs - window + 1, 0) if window is not None
+          else np.zeros(Sq, np.int64))
+    pairs = B * H * int(np.maximum(hi - lo + 1, 0).sum())
+    size = 2 if dtype == "bfloat16" else 4
+    t_ops = 4 * D * pairs / (PEAK_BF16_FLOPS if size == 2
+                             else PEAK_F32_FLOPS) * 1e3
+    t_bytes = size * 2 * (B * H * Sq * D + B * KH * Sk * D) / \
+        PEAK_BYTES_PER_S * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes), by, pairs
+
+
+def phase_flash_kernel(device) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    results = {}
+    for i, (label, (B, H, KH, Sq, Sk, D, causal, window, dtypes)) in \
+            enumerate(FLASH_CASES.items()):
+        gen = torch.Generator().manual_seed(5000 + i)
+        base = [torch.randn(shape, generator=gen) for shape in
+                ((B, H, Sq, D), (B, KH, Sk, D), (B, KH, Sk, D))]
+        for dtype in dtypes:
+            q, k, v = (t.to(device=device, dtype=getattr(torch, dtype))
+                       for t in base)
+            out = fa.flash_attention(q, k, v, causal, window)
+            plain = ref.attention_ref(q, k, v, causal, window)
+            torch.cuda.synchronize()
+            diff = (out.float() - plain.float()).abs()
+            err = diff.max().item()
+            # the worst element's share of its own bound (≤ 1 passes)
+            share = (diff / ref.attention_bound(plain)).max().item()
+            if not (torch.isfinite(out).all().item() and share <= 1.0):
+                raise AssertionError(
+                    f"flash_attention disagrees with its plain version at "
+                    f"{label} {dtype}: max|diff| {err:.3e}, {share:.3f} of "
+                    "the bound at the worst element")
+            row = {"case": label, "dtype": dtype, "B": B, "H": H, "KH": KH,
+                   "Sq": Sq, "Sk": Sk, "D": D, "causal": causal,
+                   "window": window, "max_abs_err": err,
+                   "max_abs_plain": plain.float().abs().max().item(),
+                   "max_err_over_bound": share}
+            if Sq > Sk and causal:         # rows with no key: exact zeros
+                dead = out[:, :, :Sq - Sk]
+                if not torch.equal(dead, torch.zeros_like(dead)):
+                    raise AssertionError(f"{label}: rows that see no key "
+                                         "are not zeros")
+                row["masked_rows_zero"] = True
+            bound, by, pairs = _flash_bound(B, H, KH, Sq, Sk, D, causal,
+                                            window, dtype)
+            row.update(bound_ms=bound, bound_by=by, unmasked_pairs=pairs)
+            if label.startswith("a-"):
+                row["ms"] = _time_ms(lambda: fa.flash_attention(
+                    q, k, v, causal, window), 20)
+                row["plain_ms"] = _time_ms(lambda: ref.attention_ref(
+                    q, k, v, causal, window), 10)
+                # the one-call library yardstick; its is_causal aligns
+                # queries top-left, equal to the kernel's alignment at Sq = Sk
+                row["library_ms"] = _time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, enable_gqa=True), 20)
+                lib = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                     enable_gqa=True)
+                row["library_max_abs_vs_plain"] = (
+                    lib.float() - plain.float()).abs().max().item()
+            if label.startswith("b-"):         # the longest window layer
+                row["ms"] = _time_ms(lambda: fa.flash_attention(
+                    q, k, v, causal, window), 5, warmup=1)
+            results[f"{label}-{dtype}"] = row
+            print(f"[flash-kernel] {json.dumps(row)}", flush=True)
+            del q, k, v, out, plain, diff
+    return results
+
+
+def _profile(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (CPU + CUDA): wall time
+    (host clock, ending in a synchronize), the summed time of the device
+    kernels (one stream: they do not overlap), the device's busy share of
+    the wall, and the five kernels that take most of it.  Without device
+    events in the trace the device numbers are None (not measured)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()                                                   # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    device_ms = sum(ms for ms, _ in by_name.values()) if by_name else None
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "busy_share": None if device_ms is None else device_ms / wall_ms,
+            "kernels": sum(n for _, n in by_name.values()),
+            "top": [[name[:80], ms, n] for name, (ms, n) in top]}
+
+
+def phase_lm_serve(device) -> dict:
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import zoo
+    from repro_torch.device import counter_generator, to_device
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.serve import Request, ServingEngine
+    from repro_torch.models import transformer
+
+    cfg = configs.get_config("qwen2.5-3b")
+    B, S, new = 4, 2048, 16
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, counter_generator(0, device=device),
+                                     device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in zoo.tree_leaves(params))
+    prompts = torch.randint(0, cfg.vocab_size, (B, S),
+                            generator=torch.Generator().manual_seed(6000))
+    prompts = prompts.to(device)
+
+    def bound(name, got, want, rel):
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        if not err <= rel * scale:
+            raise AssertionError(f"lm-serve {name}: max|diff| {err:.3e} > "
+                                 f"{rel} x max|logit| {scale:.3e}")
+        return err, scale
+
+    with torch.inference_mode():
+        fa.flash_attention.launches = 0                   # main path starts
+        start = torch.cuda.Event(enable_timing=True)
+        mid = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, cache = transformer.prefill(params, cfg, prompts,
+                                            max_len=S + new)
+        mid.record()
+        torch.cuda.synchronize()
+        prefill_launches = fa.flash_attention.launches
+        step_logits, tokens = [], [logits[:, -1].argmax(-1)]
+        t0 = time.perf_counter()
+        for _ in range(new):
+            lg, cache = transformer.decode_step(params, cfg, cache,
+                                                tokens[-1][:, None])
+            step_logits.append(lg)
+            tokens.append(lg[:, -1].argmax(-1))
+        end.record()
+        torch.cuda.synchronize()
+        decode_wall = time.perf_counter() - t0
+        decode_launches = fa.flash_attention.launches - prefill_launches
+        first_prefill_ms = start.elapsed_time(mid)        # main path ends
+        if prefill_launches != cfg.num_layers or decode_launches != 0:
+            raise AssertionError(
+                f"flash_attention launched {prefill_launches} times in the "
+                f"prefill (want {cfg.num_layers}) and {decode_launches} in "
+                "the decode (want 0)")
+        if not (torch.isfinite(logits).all().item() and all(
+                torch.isfinite(lg).all().item() for lg in step_logits)):
+            raise AssertionError("non-finite logits")
+        if cache["pos"] != S + new:
+            raise AssertionError(f"cache pos {cache['pos']} != {S + new}")
+        # the same prefill with the plain attention in place of the kernel
+        # (~1 GB of f32 scores a layer): the one full-width check whose
+        # reference runs no flash_attention
+        kernel_attention = ops.attention
+        ops.attention = ref.attention_ref
+        try:
+            plain_logits, _ = transformer.prefill(params, cfg, prompts)
+        finally:
+            ops.attention = kernel_attention
+        plain_err, plain_scale = bound("prefill vs plain attention",
+                                       logits[:, -1], plain_logits[:, -1],
+                                       2e-2)
+        del plain_logits
+        # the prompt plus the first greedy token through forward
+        full = torch.cat([prompts, tokens[0][:, None]], dim=1)
+        ref_logits = transformer.forward(params, cfg, full)
+        pre_err, pre_scale = bound("prefill vs forward", logits[:, -1],
+                                   ref_logits[:, S - 1], 2e-2)
+        dec_err, dec_scale = bound("decode vs forward", step_logits[0][:, -1],
+                                   ref_logits[:, S], 2e-2)
+        del ref_logits
+        # steady-state prefill time, and per decode step
+        prefill_ms = _time_ms(lambda: transformer.prefill(
+            params, cfg, prompts, max_len=S + new), 3, warmup=1)
+        dec_cache = transformer.prefill(params, cfg, prompts,
+                                        max_len=S + new)[1]
+        tok = tokens[0][:, None]
+        decode_ms = _time_ms(lambda: transformer.decode_step(
+            params, cfg, dec_cache, tok), 10, warmup=2)
+        # where the time goes: one prefill and one decode step traced
+        trace = {"prefill": _profile(lambda: transformer.prefill(
+                     params, cfg, prompts, max_len=S + new)),
+                 "decode_step": _profile(lambda: transformer.decode_step(
+                     params, cfg, dec_cache, tok))}
+
+        # 2 layers in f32: the card against the CPU's plain path
+        cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+        p2 = transformer.init_params(cfg2, counter_generator(1, device=device),
+                                     device)
+        toks2 = prompts[:2, :256]
+        card2, _ = transformer.prefill(p2, cfg2, toks2)
+        cpu2, _ = transformer.prefill(to_device(p2, torch.device("cpu")),
+                                      cfg2, toks2.cpu())
+        cpu_err, cpu_scale = bound("2-layer f32 card vs CPU", card2.cpu(),
+                                   cpu2, 1e-4)
+        del p2
+
+        # the serving engine over the full model, twice
+        req_gen = torch.Generator().manual_seed(6001)
+        reqs = [torch.randint(1, cfg.vocab_size, (16,),
+                              generator=req_gen).tolist() for _ in range(4)]
+        runs = []
+        for _ in range(2):
+            engine = ServingEngine(cfg, params, slots=4, max_len=256,
+                                   device=device)
+            for prompt in reqs:
+                engine.submit(Request(prompt, max_new_tokens=16))
+            t0 = time.perf_counter()
+            done = engine.run()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0, [r.out for r in done]))
+        if len(runs[0][1]) != 4 or any(len(o) != 16 for o in runs[0][1]):
+            raise AssertionError(f"engine finished {len(runs[0][1])} "
+                                 "requests, or not 16 tokens each")
+        if runs[0][1] != runs[1][1]:
+            raise AssertionError("a second engine on the same params gave "
+                                 "other tokens")
+
+    out = {"arch": cfg.name, "params": n_params, "dtype": cfg.dtype,
+           "init_s": init_s, "batch": B, "prompt_len": S, "new_tokens": new,
+           "prefill_launches": prefill_launches,
+           "decode_launches": decode_launches,
+           "first_prefill_ms": first_prefill_ms, "prefill_ms": prefill_ms,
+           "prefill_tokens_per_s": B * S / prefill_ms * 1e3,
+           "decode_ms_per_step": decode_ms,
+           "decode_wall_ms_per_step": decode_wall * 1e3 / new,
+           "prefill_vs_plain_attention_max_abs": plain_err,
+           "plain_attention_max_abs_logit": plain_scale,
+           "prefill_vs_forward_max_abs": pre_err, "max_abs_logit": pre_scale,
+           "decode_vs_forward_max_abs": dec_err,
+           "decode_max_abs_logit": dec_scale,
+           "card_vs_cpu_2layer_f32_max_abs": cpu_err,
+           "card_vs_cpu_max_abs_logit": cpu_scale,
+           "engine_wall_ms": [w * 1e3 for w, _ in runs],
+           "engine_tokens": runs[0][1], "trace": trace,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"[lm-serve] {json.dumps(out)}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -880,6 +1205,8 @@ def main() -> int:
     quant_kernel = phase_quant_kernel(device)
     trained_q = phase_train_quant(device, trained["val_mse"])
     served_q = phase_serve_quant(device)
+    flash = phase_flash_kernel(device)
+    lm = phase_lm_serve(device)
 
     main_case = kernel["cases"][0]                       # paper spec, B=2048
     entry = {"name": "tt_contract", "route": "cuda",
@@ -931,6 +1258,18 @@ def main() -> int:
                "shape": "x (11, 4300, 1024) f32 per entry, PAPER_TONN_SPEC "
                         "cores quantized int8, block 32",
                "cases": list(quant_kernel.values())}
+    main_f = flash["a-qwen-prefill-bfloat16"]
+    entry_f = {"name": "flash_attention", "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "replaces": "src/repro/kernels/flash_attention.py:85",
+               "launches": lm["prefill_launches"],
+               "max_abs_err": max(r["max_abs_err"] for r in flash.values()),
+               "ms": main_f["ms"], "plain_ms": main_f["plain_ms"],
+               "bound_ms": main_f["bound_ms"], "bound_by": main_f["bound_by"],
+               "library_ms": main_f["library_ms"],
+               "shape": "q (4, 16, 2048, 128), k/v (4, 2, 2048, 128) bf16, "
+                        "causal: one qwen2.5-3b prefill layer",
+               "cases": list(flash.values())}
     print(f"[serve] p50 {serve['p50_ms']:.3f} ms, p99 {serve['p99_ms']:.3f} "
           f"ms, {serve['points_per_s']:.0f} points/s over "
           f"{serve['requests']} requests on {card}", flush=True)
@@ -944,8 +1283,14 @@ def main() -> int:
           f"val MSE {trained_q['val_mse']:.4e} (f32 run "
           f"{trained['val_mse']:.4e}); {served_q['stats']['compiles']} "
           f"programs served f32/int8/fp8 on {card}", flush=True)
-    print(json.dumps({"kernels": [entry, entry_b, entry_m, entry_q]}),
-          flush=True)
+    print(f"[lm-serve] {lm['arch']} bf16: prefill of {lm['batch']} x "
+          f"{lm['prompt_len']} tokens {lm['prefill_ms']:.1f} ms "
+          f"({lm['prefill_tokens_per_s']:.0f} tokens/s), decode "
+          f"{lm['decode_ms_per_step']:.2f} ms per step; flash_attention "
+          f"{main_f['ms']:.3f} ms per layer (bound {main_f['bound_ms']:.4f} "
+          f"ms) on {card}", flush=True)
+    print(json.dumps({"kernels": [entry, entry_b, entry_m, entry_q,
+                                  entry_f]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -19,15 +19,21 @@ Layout mirrors ``repro`` module for module:
   * ``kernels``            — the CUDA kernels (``tt_contract``,
                              ``tt_contract_batched``,
                              ``tt_contract_batched_quant``,
-                             ``mesh_apply_stacked``), their build, plain
-                             versions and device dispatch, and the
-                             block-scaled / DAC quantizers (``quant``),
+                             ``mesh_apply_stacked``, ``flash_attention``),
+                             their build, plain versions and device
+                             dispatch, and the block-scaled / DAC
+                             quantizers (``quant``),
+  * ``models``             — the LM stack: ``ModelConfig``, layers, the
+                             dense decoder (forward, prefill, decode) and
+                             the family-dispatched ``api``,
   * ``data``               — counter-based collocation streams,
   * ``checkpoint``         — the ``arrays.npz`` + ``meta.json`` format,
-  * ``configs.hjb_pinn``   — the paper's configurations,
+  * ``configs``            — the paper's PINN configurations
+                             (``hjb_pinn``) and the ten LM architectures,
   * ``interop``            — numpy pytrees from the JAX side → tensors,
   * ``serving``            — solver registry, slot-pooled engine, cache,
-  * ``launch.serve_pde``, ``launch.train`` — the serving and training CLIs.
+  * ``launch.serve_pde``, ``launch.train``, ``launch.serve`` — the PDE
+                             serving, training and LM serving entry points.
 """
 
 from repro_torch.device import resolve_device  # noqa: F401

@@ -19,12 +19,14 @@ import torch
 
 from repro_torch.core import photonic as _ph
 from repro_torch.core import tt as tt_lib
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mesh_apply as _mesh
 from repro_torch.kernels import quant as _quant
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import tt_contract as _ttc
 
-__all__ = ["tt_linear", "tt_linear_batched", "mesh_apply_stacked"]
+__all__ = ["tt_linear", "tt_linear_batched", "mesh_apply_stacked",
+           "attention"]
 
 
 def _weight_quant(quant) -> bool:
@@ -71,3 +73,15 @@ def mesh_apply_stacked(layout: _ph.MeshLayout, phases: torch.Tensor,
     if x.device.type == "cpu":
         return _ph.mesh_apply_stacked(layout, phases, diag, x, transpose)
     return _mesh.mesh_apply_stacked(layout, phases, diag, x, transpose)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, window: int | None = None,
+              scale: float | None = None) -> torch.Tensor:
+    """Attention with GQA and causal / sliding-window masks: q
+    ``(B, H, Sq, D)``, k and v ``(B, KH, Sk, D)`` → ``(B, H, Sq, D)``.  On
+    the card the flash-attention kernel, which raises on what it cannot
+    take (a head dim over 128, a dtype other than f32 / bf16)."""
+    if q.device.type == "cpu":
+        return _ref.attention_ref(q, k, v, causal, window, scale)
+    return _fa.flash_attention(q, k, v, causal, window, scale)

@@ -2,12 +2,14 @@
 
 They run wherever PyTorch runs: the CPU path of ``kernels.ops`` takes them,
 and on the card they are the oracle the CUDA kernels are held against.
-(The plain version of the mesh kernel is ``core.photonic.mesh_apply_stacked``,
+``attention_bound`` states how closely the attention kernel is held.  (The
+plain version of the mesh kernel is ``core.photonic.mesh_apply_stacked``,
 as in the JAX package.)
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -16,7 +18,8 @@ from repro_torch.core import tt as tt_lib
 from repro_torch.kernels import quant as quant_lib
 
 __all__ = ["tt_contract_ref", "split_batch_axes", "tt_contract_batched_ref",
-           "tt_contract_batched_quant_ref"]
+           "tt_contract_batched_quant_ref", "attention_ref",
+           "attention_bound"]
 
 
 def tt_contract_ref(x: torch.Tensor, cores: Sequence[torch.Tensor],
@@ -65,3 +68,62 @@ def tt_contract_batched_quant_ref(x: torch.Tensor,
     ``tt_contract_batched_ref``."""
     fq = [quant_lib.fake_quant_stacked(c, quant) for c in cores]
     return tt_contract_batched_ref(x, fq, spec, shared_x)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, window: int | None = None,
+                  scale: float | None = None) -> torch.Tensor:
+    """Multi-head attention with GQA, causal and sliding-window masks: the
+    function of the flash-attention kernel, computed whole.
+
+    q: (B, H, Sq, D); k, v: (B, KH, Sk, D) with H % KH == 0 → (B, H, Sq, D)
+    in q's dtype, f32 arithmetic.  Queries take the last Sq slots of the
+    timeline: query i sits at ``i + Sk − Sq`` and sees key j where
+    ``j ≤ i_abs`` (``causal``) and ``j > i_abs − window`` (``window`` not
+    None).  A row that sees no key is zeros, as in the TPU kernel
+    (``repro/kernels/flash_attention.py``, ``l == 0``); the JAX package's
+    ``attention_ref`` gives NaN there.  Head h reads KV head
+    ``h // (H // KH)``; no repeated K/V is materialized.
+    """
+    B, H, Sq, D = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
+    if H % KH:
+        raise ValueError(f"{H} query heads are not a multiple of {KH} KV "
+                         "heads")
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    # (B, KH, G·Sq, D): the G query heads of a KV head stacked as rows
+    qg = q.float().reshape(B, KH, (H // KH) * Sq, D)
+    s = torch.matmul(qg, k.float().transpose(-1, -2)).mul_(scale)
+    q_abs = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    k_idx = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_idx <= q_abs
+    if window is not None:
+        mask &= k_idx > q_abs - window
+    s = s.view(B, KH, H // KH, Sq, Sk).masked_fill_(~mask, -math.inf)
+    p = torch.softmax(s, dim=-1).masked_fill_(~mask.any(-1, keepdim=True),
+                                              0.0)
+    out = torch.matmul(p.view(B, KH, (H // KH) * Sq, Sk), v.float())
+    return out.view(B, H, Sq, D).to(q.dtype)
+
+
+def attention_bound(plain: torch.Tensor) -> torch.Tensor:
+    """Per element, how far the flash-attention kernel's output may sit from
+    ``plain``, the output of ``attention_ref`` on the same inputs.
+
+    f32: ``1e-5·max|plain| + 1e-6``, the same products and exponentials
+    summed in another order.  bf16: that plus one bf16 ulp of the element's
+    own |plain|, ``2^(⌊log2|plain|⌋ − 7)``: both sides round f32 values that
+    may differ in their last bits, and a pair that straddles a rounding edge
+    lands one ulp apart.  The ulp is the element's, not that of max|plain|,
+    so small outputs (the late rows of a long causal row, ~0.02) are held
+    as tightly as large ones.
+    """
+    a = plain.float().abs()
+    bound = torch.full_like(a, 1e-5 * a.max().item() + 1e-6 if a.numel()
+                            else 0.0)
+    if plain.dtype == torch.bfloat16:
+        bound += torch.exp2(torch.floor(torch.log2(a)) - 7)
+    return bound

@@ -1,10 +1,11 @@
 """Tests that need the card: the CUDA kernels (``tt_contract``,
 ``tt_contract_batched``, ``tt_contract_batched_quant``,
-``mesh_apply_stacked``) against their plain PyTorch versions, served values
-(f32 and quantized) against a direct forward, quantization codes made on
-the card against the CPU's, and one ZO training step (f32 and
-quantization-aware) on the card against the same step through the plain
-path on the CPU.
+``mesh_apply_stacked``, ``flash_attention``) against their plain PyTorch
+versions, served values (f32 and quantized) against a direct forward,
+quantization codes made on the card against the CPU's, one ZO training
+step (f32 and quantization-aware) on the card against the same step
+through the plain path on the CPU, and a reduced LM's prefill and decode
+on the card against the CPU.
 
 Run on a machine with an NVIDIA GPU (Hopper, ``sm_90a``) and ``nvcc``:
 
@@ -23,7 +24,11 @@ libraries) and its losses within ``rtol = 1e-1`` (the FD residual squares
 second differences, amplifying those rounding differences by 1/h²).  The
 quantized kernel is held to ``tt_contract_batched`` on the fake-quantized
 cores bit for bit, and the quantizer's codes and scales on the card to the
-CPU's bit for bit.
+CPU's bit for bit.  ``flash_attention`` is held to ``attention_ref`` within
+``ref.attention_bound`` elementwise: the same f32 bound, and in bf16 one
+bf16 ulp of the element's own |plain| more (the two round f32 results that
+differ in the last bits); a row that sees no key must be exact zeros.  A reduced f32 LM on the card against the CPU:
+logits and caches within 1e-5 of their max magnitude.
 """
 
 import dataclasses
@@ -32,13 +37,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs
 from repro_torch.core import photonic, pinn, tt, zoo
 from repro_torch.core.photonic import NoiseModel
 from repro_torch.device import counter_generator, to_device
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mesh_apply as mesh
 from repro_torch.kernels import quant as quant_lib
 from repro_torch.kernels import tt_contract as ttc
+from repro_torch.models import transformer
 from repro_torch.serving import PdeServingEngine, PointRequest, SolverRegistry
 
 pytestmark = pytest.mark.gpu
@@ -146,7 +154,8 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(cuda):
     assert ttc.tt_contract(x[:0], cores, spec).shape == (0, spec.out_dim)
 
 
-@pytest.mark.parametrize("name", ["tt_contract", "mesh_apply"])
+@pytest.mark.parametrize("name", ["tt_contract", "mesh_apply",
+                                  "flash_attention"])
 def test_build_is_cached_by_source_hash(cuda, name):
     lib = _build.build(name)
     assert lib.parent == _build.BUILD_DIR and lib.is_file()
@@ -469,3 +478,92 @@ def test_quantized_serving_on_the_card(cuda):
             direct = model.u(s.params, torch.tensor(pts, device=cuda))
         np.testing.assert_allclose(r.out, direct.cpu().numpy(), rtol=1e-6,
                                    atol=1e-6)
+
+
+# label -> (B, H, KH, Sq, Sk, D, causal, window): chunked prefill, one
+# query, causal rows that see no key, the reduced qwen shape (D 24), and a
+# window off the 64-wide tiles
+FLASH_CASES = {
+    "chunked-prefill": (2, 16, 2, 256, 2304, 128, True, None),
+    "single-query": (4, 16, 2, 1, 300, 128, True, None),
+    "masked-rows": (1, 4, 2, 64, 32, 32, True, None),
+    "reduced-qwen": (2, 4, 2, 200, 200, 24, True, None),
+    "window-120": (1, 8, 2, 333, 333, 120, True, 70),
+}
+
+
+def _attention_inputs(case, dtype, seed, device):
+    B, H, KH, Sq, Sk, D = case[:6]
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=gen).to(device=device, dtype=dtype)
+            for shape in ((B, H, Sq, D), (B, KH, Sk, D), (B, KH, Sk, D))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("label", sorted(FLASH_CASES))
+def test_flash_kernel_matches_plain(cuda, label, dtype):
+    case = FLASH_CASES[label]
+    causal, window = case[6:]
+    q, k, v = _attention_inputs(case, getattr(torch, dtype), len(label),
+                                cuda)
+    out = fa.flash_attention(q, k, v, causal, window)
+    plain = ref.attention_ref(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert out.dtype == q.dtype and torch.isfinite(out).all()
+    diff = (out.float() - plain.float()).abs()
+    assert (diff <= ref.attention_bound(plain)).all(), diff.max().item()
+    Sq, Sk = case[3], case[4]
+    if Sq > Sk:
+        assert torch.equal(out[:, :, :Sq - Sk],
+                           torch.zeros_like(out[:, :, :Sq - Sk]))
+
+
+def test_flash_dispatch_counts_and_takes_strided_views(cuda):
+    q, k, v = _attention_inputs(FLASH_CASES["reduced-qwen"], torch.float32,
+                                1, cuda)
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+    before = fa.flash_attention.launches
+    out = ops.attention(qt, k, v)
+    assert fa.flash_attention.launches == before + 1
+    assert torch.equal(out, fa.flash_attention(q, k, v))
+
+
+def test_flash_wrapper_refuses_what_the_kernel_cannot_take(cuda):
+    q, k, v = _attention_inputs((1, 4, 2, 8, 8, 136), torch.float32, 2, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, k, v)
+    q, k, v = _attention_inputs((1, 4, 2, 8, 8, 16), torch.float16, 3, cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention(q, k, v)
+    q, k, v = _attention_inputs((1, 4, 3, 8, 8, 16), torch.float32, 4, cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        fa.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="need"):
+        fa.flash_attention(q, k.cpu(), v)
+
+
+def test_reduced_lm_on_the_card_matches_the_cpu(cuda):
+    """A 2-layer reduced qwen (f32) from one params tree: prefill (one
+    kernel launch per layer) and a decode step on the card against the
+    plain path on the CPU."""
+    cfg = configs.get_reduced("qwen2.5-3b")
+    params = transformer.init_params(cfg, counter_generator(0), "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 65),
+                           generator=torch.Generator().manual_seed(5))
+    card = to_device(params, cuda)
+    before = fa.flash_attention.launches
+    logits, cache = transformer.prefill(card, cfg, tokens[:, :64].to(cuda),
+                                        max_len=65)
+    assert fa.flash_attention.launches - before == cfg.num_layers
+    dec, cache = transformer.decode_step(card, cfg, cache,
+                                         tokens[:, 64:].to(cuda))
+    assert fa.flash_attention.launches - before == cfg.num_layers
+    c_logits, c_cache = transformer.prefill(params, cfg, tokens[:, :64],
+                                            max_len=65)
+    c_dec, c_cache = transformer.decode_step(params, cfg, c_cache,
+                                             tokens[:, 64:])
+    for got, want in ((logits, c_logits), (dec, c_dec),
+                      (cache["k_0"], c_cache["k_0"]),
+                      (cache["v_0"], c_cache["v_0"])):
+        err = (got.cpu() - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item(), err

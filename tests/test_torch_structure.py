@@ -14,10 +14,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs
 from repro_torch import device as device_lib
 from repro_torch.core import pinn as tpinn
 from repro_torch.kernels import _build
+from repro_torch.launch import serve as lm_serve
 from repro_torch.launch import serve_pde, train
+from repro_torch.models import api as lm_api
 from repro_torch.serving import PdeServingEngine, SolverRegistry
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -47,7 +50,10 @@ def test_no_jax_or_reference_imports(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serving, repro_torch.launch.serve_pde, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.launch.serve, "
+            "repro_torch.models.api, repro_torch.configs; "
+            "[repro_torch.configs.get_config(a) "
+            "for a in repro_torch.configs.ARCH_NAMES]; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
@@ -107,6 +113,22 @@ def test_default_device_is_the_card(no_gpu, tmp_path):
                     "--steps", "1"])
     eng = PdeServingEngine(reg, device="cpu")
     assert eng.device == torch.device("cpu")
+
+
+def test_lm_entry_points_default_to_the_card(no_gpu):
+    cfg = configs.get_reduced("qwen2.5-3b")
+    gen = device_lib.counter_generator(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm_api.init_params(cfg, gen)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm_api.init_cache(cfg, 1, 8)
+    params = lm_api.init_params(cfg, gen, "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm_serve.ServingEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm_serve.main(["--arch", "qwen2.5-3b", "--reduced"])
+    eng = lm_serve.ServingEngine(cfg, params, device="cpu")
+    assert eng.cache["k_0"].device == torch.device("cpu")
 
 
 def test_resolve_device_rules(no_gpu):
