@@ -7,9 +7,9 @@ time.
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
   1. device   — the card's name, count, power limit; TF32 off everywhere.
-  2. build    — ``nvcc`` builds the ``tt_contract`` and ``mesh_apply``
-                sources of this checkout, both at once; prints ptxas'
-                register / shared-memory lines.
+  2. build    — ``nvcc`` builds the ``tt_contract``, ``mesh_apply`` and
+                ``flash_attention`` sources of this checkout, all at once;
+                prints ptxas' register / spill lines.
   3. kernel   — ``tt_contract`` against its plain PyTorch version on the card at
                 the paper's spec (B = 2048, the served pool, and 65,536), the
                 reduced config's spec at a B that is not a multiple of the
@@ -88,43 +88,47 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 run, a resubmitted burst answered by the cache alone, an f32
                 repeat of an int8 request not answered from int8 entries.
  11. flash-kernel — ``flash_attention`` against ``ref.attention_ref`` on the
-                card: (a) qwen2.5-3b's prefill layer (B 4, H 16, KH 2, S
-                2048, D 128, causal) in bf16 and f32, (b) h2o-danube-3-4b's
-                (B 1, H 32, KH 8, S 8192, D 120, window 4096), (c) chunked
-                prefill (Sq 256 < Sk 2304), (d) one query over 300 keys, (e)
-                bidirectional over whisper's 1500 frames (not a tile
-                multiple), (f) causal with Sq 64 > Sk 32, whose first 32
-                rows see no key and must be exact zeros, (g) the reduced
-                qwen shape (D 24, f32).  Bound, per element
+                card, bf16 through the ``wgmma`` design (TMA-fed tensor cores,
+                P split into two bf16 halves) and f32 through the ``simple``
+                one (each row names its design and the worst element's share
+                of the bound): (a) qwen2.5-3b's prefill layer (B 4, H 16, KH
+                2, S 2048, D 128, causal) in bf16 and f32, (b)
+                h2o-danube-3-4b's (B 1, H 32, KH 8, S 8192, D 120, window
+                4096), (c) chunked prefill (Sq 256 < Sk 2304), (d) one query
+                over 300 keys, (e) bidirectional over whisper's 1500 frames
+                (not a tile multiple), (f) causal with Sq 64 > Sk 32, whose
+                first 32 rows see no key and must be exact zeros, (g) the
+                reduced qwen shape (D 24, f32).  Bound, per element
                 (``ref.attention_bound``): f32 ``|Δ| ≤ 1e-5·max|plain| +
                 1e-6``; bf16 one bf16 ulp of the element's own |plain|
                 (2^(⌊log2|plain|⌋ − 7)) on top of that: the two round f32
-                values that differ in the last bits, and a pair that
-                straddles a rounding edge lands one bf16 ulp apart.  At (a)
-                times the kernel, the plain version and
+                values that differ in the last bits, and a pair that straddles
+                a rounding edge lands one bf16 ulp apart.  At (a) times the
+                kernel, the plain version and
                 ``F.scaled_dot_product_attention(is_causal=True,
-                enable_gqa=True)`` (the library yardstick; valid only at Sq
-                = Sk, where its top-left causal alignment equals the
-                kernel's bottom-right one).
+                enable_gqa=True)`` (the library yardstick; valid only at Sq =
+                Sk, where its top-left causal alignment equals the kernel's
+                bottom-right one), and records SDPA's own share of the bound
+                (a finding, not a check); times (b) too.
  12. lm-serve — the LM slice's main path: ``transformer.init_params`` of the
                 full qwen2.5-3b (bf16, seed 0) on the card, ``prefill`` of 4
-                prompts of 2048 tokens (``max_len`` 2048 + 16), then 16
-                greedy ``decode_step``s.  Checks: logits finite; exactly 36
-                ``flash_attention`` launches in the prefill and 0 in the
-                decode; prefill's last-token logits against the same
-                prefill with ``ref.attention_ref`` in place of the kernel
-                (the check independent of the kernel), against ``forward``
-                at position S−1 (which runs the kernel too), and the first
-                decode's against ``forward`` on the S+1 tokens at position
-                S (within 2e-2·max|logit|, the bar of
-                ``tests/test_arch_smoke.py``).  Times a prefill and
-                a decode step.  Then the same config cut to 2 layers in f32:
-                ``prefill`` of B 2, S 256 on the card against the CPU's
-                plain path (last-token logits within 1e-4·max|logit|).
-                Then ``launch.serve.ServingEngine`` over the full bf16 model
-                (4 slots, ``max_len`` 256, 4 requests of 16-token prompts
-                and 16 new tokens): all finish with 16 tokens, and a second
-                engine on the same params gives the same tokens.
+                prompts of 2048 tokens (``max_len`` 2048 + 16), then 16 greedy
+                ``decode_step``s.  Checks: logits finite; exactly 36
+                ``flash_attention`` launches in the prefill, all of the
+                ``wgmma`` design, and 0 in the decode; prefill's last-token
+                logits against the same prefill with ``ref.attention_ref`` in
+                place of the kernel (the check independent of the kernel),
+                against ``forward`` at position S−1 (which runs the kernel
+                too), and the first decode's against ``forward`` on the S+1
+                tokens at position S (within 2e-2·max|logit|, the bar of
+                ``tests/test_arch_smoke.py``).  Times a prefill and a decode
+                step.  Then the same config cut to 2 layers in f32:
+                ``prefill`` of B 2, S 256 on the card against the CPU's plain
+                path (last-token logits within 1e-4·max|logit|). Then
+                ``launch.serve.ServingEngine`` over the full bf16 model (4
+                slots, ``max_len`` 256, 4 requests of 16-token prompts and 16
+                new tokens): all finish with 16 tokens, and a second engine on
+                the same params gives the same tokens.
  13. report   — one ``{"kernels": [...]}`` line, the card's name and power
                 limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -960,7 +964,8 @@ def phase_flash_kernel(device) -> dict:
                     f"flash_attention disagrees with its plain version at "
                     f"{label} {dtype}: max|diff| {err:.3e}, {share:.3f} of "
                     "the bound at the worst element")
-            row = {"case": label, "dtype": dtype, "B": B, "H": H, "KH": KH,
+            row = {"case": label, "dtype": dtype,
+                   "design": fa.DESIGNS[q.dtype], "B": B, "H": H, "KH": KH,
                    "Sq": Sq, "Sk": Sk, "D": D, "causal": causal,
                    "window": window, "max_abs_err": err,
                    "max_abs_plain": plain.float().abs().max().item(),
@@ -986,8 +991,10 @@ def phase_flash_kernel(device) -> dict:
                         q, k, v, is_causal=True, enable_gqa=True), 20)
                 lib = F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                      enable_gqa=True)
-                row["library_max_abs_vs_plain"] = (
-                    lib.float() - plain.float()).abs().max().item()
+                lib_diff = (lib.float() - plain.float()).abs()
+                row["library_max_abs_vs_plain"] = lib_diff.max().item()
+                row["library_max_err_over_bound"] = (
+                    lib_diff / ref.attention_bound(plain)).max().item()
             if label.startswith("b-"):         # the longest window layer
                 row["ms"] = _time_ms(lambda: fa.flash_attention(
                     q, k, v, causal, window), 5, warmup=1)
@@ -1060,6 +1067,8 @@ def phase_lm_serve(device) -> dict:
 
     with torch.inference_mode():
         fa.flash_attention.launches = 0                   # main path starts
+        fa.flash_attention.design_launches = dict.fromkeys(
+            fa.flash_attention.design_launches, 0)
         start = torch.cuda.Event(enable_timing=True)
         mid = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -1069,6 +1078,7 @@ def phase_lm_serve(device) -> dict:
         mid.record()
         torch.cuda.synchronize()
         prefill_launches = fa.flash_attention.launches
+        prefill_designs = dict(fa.flash_attention.design_launches)
         step_logits, tokens = [], [logits[:, -1].argmax(-1)]
         t0 = time.perf_counter()
         for _ in range(new):
@@ -1081,11 +1091,13 @@ def phase_lm_serve(device) -> dict:
         decode_wall = time.perf_counter() - t0
         decode_launches = fa.flash_attention.launches - prefill_launches
         first_prefill_ms = start.elapsed_time(mid)        # main path ends
-        if prefill_launches != cfg.num_layers or decode_launches != 0:
+        if (prefill_launches != cfg.num_layers or decode_launches != 0
+                or prefill_designs["wgmma"] != cfg.num_layers):
             raise AssertionError(
                 f"flash_attention launched {prefill_launches} times in the "
-                f"prefill (want {cfg.num_layers}) and {decode_launches} in "
-                "the decode (want 0)")
+                f"prefill (want {cfg.num_layers}, by design "
+                f"{prefill_designs}, want all wgmma) and {decode_launches} "
+                "in the decode (want 0)")
         if not (torch.isfinite(logits).all().item() and all(
                 torch.isfinite(lg).all().item() for lg in step_logits)):
             raise AssertionError("non-finite logits")
@@ -1162,6 +1174,7 @@ def phase_lm_serve(device) -> dict:
     out = {"arch": cfg.name, "params": n_params, "dtype": cfg.dtype,
            "init_s": init_s, "batch": B, "prompt_len": S, "new_tokens": new,
            "prefill_launches": prefill_launches,
+           "prefill_design_launches": prefill_designs,
            "decode_launches": decode_launches,
            "first_prefill_ms": first_prefill_ms, "prefill_ms": prefill_ms,
            "prefill_tokens_per_s": B * S / prefill_ms * 1e3,
@@ -1262,7 +1275,8 @@ def main() -> int:
     entry_f = {"name": "flash_attention", "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                "replaces": "src/repro/kernels/flash_attention.py:85",
-               "launches": lm["prefill_launches"],
+               "design": main_f["design"],
+               "launches": lm["prefill_design_launches"][main_f["design"]],
                "max_abs_err": max(r["max_abs_err"] for r in flash.values()),
                "ms": main_f["ms"], "plain_ms": main_f["plain_ms"],
                "bound_ms": main_f["bound_ms"], "bound_by": main_f["bound_by"],
@@ -1287,8 +1301,9 @@ def main() -> int:
           f"{lm['prompt_len']} tokens {lm['prefill_ms']:.1f} ms "
           f"({lm['prefill_tokens_per_s']:.0f} tokens/s), decode "
           f"{lm['decode_ms_per_step']:.2f} ms per step; flash_attention "
-          f"{main_f['ms']:.3f} ms per layer (bound {main_f['bound_ms']:.4f} "
-          f"ms) on {card}", flush=True)
+          f"({main_f['design']}) {main_f['ms']:.3f} ms per layer (bound "
+          f"{main_f['bound_ms']:.4f} ms, SDPA {main_f['library_ms']:.4f} ms) "
+          f"on {card}", flush=True)
     print(json.dumps({"kernels": [entry, entry_b, entry_m, entry_q,
                                   entry_f]}), flush=True)
     print(card, flush=True)

@@ -80,8 +80,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float | None = None) -> torch.Tensor:
     """Attention with GQA and causal / sliding-window masks: q
     ``(B, H, Sq, D)``, k and v ``(B, KH, Sk, D)`` → ``(B, H, Sq, D)``.  On
-    the card the flash-attention kernel, which raises on what it cannot
-    take (a head dim over 128, a dtype other than f32 / bf16)."""
+    the card the flash-attention kernel (the dtype picks its design), which
+    raises on what it cannot take (a head dim over 128, a bf16 head dim
+    that is not a multiple of 8, a dtype other than f32 / bf16)."""
     if q.device.type == "cpu":
         return _ref.attention_ref(q, k, v, causal, window, scale)
     return _fa.flash_attention(q, k, v, causal, window, scale)

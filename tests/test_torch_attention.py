@@ -184,3 +184,121 @@ def test_bf16_bound_is_each_elements_ulp():
     assert (err > bound[:, :, -1:]).float().mean() > 0.9
     global_ulp = 2.0 ** (math.floor(math.log2(plain.abs().max().item())) - 7)
     assert (err > global_ulp).float().mean() < 0.05
+
+
+# ------------------------------------------- the bf16 kernel's numeric design
+
+# (B, H, KH, S, D, causal, window): a causal prefill, a window off the tiles
+# at h2o-danube's head dim, bidirectional frames
+SPLIT_CASES = {
+    "causal": (1, 2, 1, 512, 128, True, None),
+    "window": (1, 2, 1, 333, 120, True, 70),
+    "bidirectional": (1, 2, 1, 300, 64, False, None),
+}
+
+
+def _emulate_kernel(q, k, v, causal, window, split=True):
+    """The bf16 kernel's arithmetic in plain torch: 64-key tiles, scores in
+    f32 scaled into log2 units, running max and sum (``l`` from the f32
+    p), P·V as ``bf16(p) + bf16(p − bf16(p))`` against V (two exact
+    products summed in f32; ``split=False`` keeps only ``bf16(p)``, the
+    usual tensor-core design), each tile's product added to O in f32, and
+    the output rounded to bf16."""
+    B, H, Sq, D = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, KH, (H // KH) * Sq, D)
+    kf, vf = k.float(), v.float()
+    c = (1.0 / math.sqrt(D)) * math.log2(math.e)
+    q_abs = (torch.arange(Sq) + Sk - Sq).repeat(H // KH)[:, None]
+    m = torch.full((B, KH, qf.shape[2], 1), -1e30)
+    l = torch.zeros_like(m)
+    o = torch.zeros_like(qf)
+    for k0 in range(0, Sk, 64):
+        keys = torch.arange(k0, min(k0 + 64, Sk))[None, :]
+        seen = torch.ones(q_abs.shape[0], keys.shape[1], dtype=torch.bool)
+        if causal:
+            seen &= keys <= q_abs
+        if window is not None:
+            seen &= keys > q_abs - window
+        s = torch.matmul(qf, kf[:, :, k0:k0 + 64].transpose(-1, -2)) * c
+        s = s.masked_fill(~seen, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new).masked_fill(~seen, 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.to(torch.bfloat16).float()
+        t = torch.matmul(hi, vf[:, :, k0:k0 + 64])
+        if split:
+            lo = (p - hi).to(torch.bfloat16).float()
+            t = t + torch.matmul(lo, vf[:, :, k0:k0 + 64])
+        o = o * alpha + t
+        m = m_new
+    out = torch.where(l == 0, 0.0, o / torch.where(l == 0, 1.0, l))
+    return out.reshape(B, H, Sq, D).to(torch.bfloat16)
+
+
+def _split_share(label, seed, split):
+    B, H, KH, S, D, causal, window = SPLIT_CASES[label]
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _inputs(B, H, KH, S, S, D, seed=seed))
+    plain = ref.attention_ref(q, k, v, causal, window)
+    got = _emulate_kernel(q, k, v, causal, window, split)
+    err = (got.float() - plain.float()).abs()
+    return (err / ref.attention_bound(plain)).max().item()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("label", sorted(SPLIT_CASES))
+def test_split_p_design_stays_within_attention_bound(label, seed):
+    """P split into two bf16 halves keeps the bf16 kernel's output within
+    ``ref.attention_bound`` of the plain version at every element."""
+    assert _split_share(label, seed, split=True) <= 1.0
+
+
+@pytest.mark.parametrize("label", sorted(SPLIT_CASES))
+def test_bf16_p_alone_exceeds_attention_bound(label):
+    """Why P is split: rounded to bf16 alone, as fast tensor-core
+    attention kernels round it, P·V leaves the bound many times over."""
+    assert _split_share(label, 0, split=False) > 5.0
+
+
+def _bf16(shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+def test_tensor_map_of_a_contiguous_tensor():
+    assert tfa.tensor_map(_bf16((2, 8, 300, 128))) == (
+        128, 300, 8, 2, 256, 256 * 300, 256 * 300 * 8, 1, 2, 3)
+
+
+def test_tensor_map_takes_attention_fwds_transposed_views():
+    """(B, S, H, D) transposed to (B, H, S, D): the map orders the axes by
+    stride (heads, then rows, then batch) and reads the view in place."""
+    v = _bf16((2, 300, 8, 128)).transpose(1, 2)
+    assert not v.is_contiguous()
+    assert tfa.tensor_map(v) == (128, 8, 300, 2, 256, 2048, 2048 * 300,
+                                 2, 1, 3)
+
+
+def test_tensor_map_takes_a_sliced_head_dim_and_puts_unit_axes_last():
+    t = _bf16((1, 4, 1, 136))[..., :128]
+    assert tfa.tensor_map(t) == (128, 4, 1, 1, 272, 1088, 1088, 2, 1, 3)
+
+
+@pytest.mark.parametrize("view", [
+    "stride-not-16-bytes", "last-dim-strided", "misaligned-base",
+    "expanded-axis"])
+def test_tensor_map_refuses_views_that_need_a_copy(view):
+    t = {"stride-not-16-bytes": lambda: _bf16((1, 2, 8, 12))[..., :8],
+         "last-dim-strided": lambda: _bf16((1, 2, 8, 16))[..., ::2],
+         "misaligned-base": lambda: _bf16((145,))[1:].view(1, 2, 9, 8),
+         "expanded-axis": lambda: _bf16((1, 1, 8, 16)).expand(2, 3, 8, 16),
+         }[view]()
+    assert tfa.tensor_map(t) is None
+    # the wrapper's copy: contiguous, in fresh memory
+    assert tfa.tensor_map(t.clone(memory_format=torch.contiguous_format))
+
+
+def test_tensor_map_raises_on_a_head_dim_off_16_bytes():
+    with pytest.raises(ValueError, match="16 bytes"):
+        tfa.tensor_map(_bf16((1, 2, 8, 20)))

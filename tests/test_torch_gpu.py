@@ -481,14 +481,17 @@ def test_quantized_serving_on_the_card(cuda):
 
 
 # label -> (B, H, KH, Sq, Sk, D, causal, window): chunked prefill, one
-# query, causal rows that see no key, the reduced qwen shape (D 24), and a
-# window off the 64-wide tiles
+# query, causal rows that see no key, the reduced qwen shape (D 24), a
+# window off the 64-wide tiles, and lengths off the tiles at D 64, 120, 128
 FLASH_CASES = {
     "chunked-prefill": (2, 16, 2, 256, 2304, 128, True, None),
     "single-query": (4, 16, 2, 1, 300, 128, True, None),
     "masked-rows": (1, 4, 2, 64, 32, 32, True, None),
     "reduced-qwen": (2, 4, 2, 200, 200, 24, True, None),
     "window-120": (1, 8, 2, 333, 333, 120, True, 70),
+    "d64-ragged-chunk": (2, 8, 2, 190, 250, 64, True, None),
+    "d120-bidirectional": (1, 4, 4, 129, 200, 120, False, None),
+    "d128-ragged": (1, 8, 2, 300, 300, 128, True, None),
 }
 
 
@@ -528,6 +531,41 @@ def test_flash_dispatch_counts_and_takes_strided_views(cuda):
     assert torch.equal(out, fa.flash_attention(q, k, v))
 
 
+def test_flash_designs_count_their_launches(cuda):
+    """bf16 goes to the wgmma design and f32 to the simple one; each
+    launch counts once in the total and once for its design."""
+    case = FLASH_CASES["d128-ragged"]
+    before = dict(fa.flash_attention.design_launches)
+    total = fa.flash_attention.launches
+    for dtype in (torch.bfloat16, torch.float32, torch.bfloat16):
+        ops.attention(*_attention_inputs(case, dtype, 5, cuda))
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == total + 3
+    assert fa.flash_attention.design_launches == {
+        "wgmma": before["wgmma"] + 2, "simple": before["simple"] + 1}
+
+
+def test_flash_bf16_reads_strided_views_in_place(cuda):
+    """``attention_fwd``'s transposed q, k, v ((B, S, H, D) memory): the
+    bf16 design reads them through their own tensor maps, bit-equal to the
+    contiguous call, and allocates nothing but the output (H == KH, so a
+    copy of any input would be another allocation of the output's size)."""
+    B, S, H, D = 2, 300, 8, 128
+    gen = torch.Generator().manual_seed(6)
+    views = [torch.randn((B, S, H, D), generator=gen).to(
+        device=cuda, dtype=torch.bfloat16).transpose(1, 2) for _ in range(3)]
+    assert not any(t.is_contiguous() for t in views)
+    want = fa.flash_attention(*(t.contiguous() for t in views))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    got = fa.flash_attention(*views)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated(cuda) - base
+    assert torch.equal(got, want)
+    assert grown < 2 * got.numel() * got.element_size(), grown
+
+
 def test_flash_wrapper_refuses_what_the_kernel_cannot_take(cuda):
     q, k, v = _attention_inputs((1, 4, 2, 8, 8, 136), torch.float32, 2, cuda)
     with pytest.raises(ValueError, match="head dim"):
@@ -540,6 +578,9 @@ def test_flash_wrapper_refuses_what_the_kernel_cannot_take(cuda):
         fa.flash_attention(q, k, v)
     with pytest.raises(ValueError, match="need"):
         fa.flash_attention(q, k.cpu(), v)
+    q, k, v = _attention_inputs((1, 4, 2, 8, 8, 20), torch.bfloat16, 5, cuda)
+    with pytest.raises(ValueError, match="16 bytes"):
+        fa.flash_attention(q, k, v)
 
 
 def test_reduced_lm_on_the_card_matches_the_cpu(cuda):
