@@ -41,24 +41,39 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   6. mesh     — ``mesh_apply_stacked`` on the 16- and 4-port layouts of the
                 paper's core meshes, transposed and not, x shared and per
                 entry, and a 64-port layout, against
-                ``photonic.mesh_apply_stacked`` at the same bound.  Times the
-                16-port transposed identity feed of a densification, its
-                plain version and ``torch.matmul`` against the densified
-                per-entry unitaries.
+                ``photonic.mesh_apply_stacked`` at the same bound and bit for
+                bit.  Times the 16-port transposed identity feed of a
+                densification, its plain version and ``torch.matmul``
+                against the densified per-entry unitaries.  Then
+                ``mesh_densify_stacked`` over all core matrices of the
+                paper's config (G = 8, S = 11) and of the reduced one (G =
+                6, S = 3), noise on and off, 8-bit DAC phases on and off,
+                against the plain twin ``photonic.mesh_densify_stacked`` on
+                the card bit for bit and on the CPU at the same bound.  Times
+                the grouped call (a ZO step's densification) against the
+                loop of 8 ``to_dense_stacked`` through the standalone entry
+                and the plain twin; for scale only (no one call computes
+                phases → cores), the 16 ``torch.matmul`` calls of the same
+                meshes made dense: each mesh's feed against its per-entry
+                unitary.
   7. train    — the port's trainer (``repro_torch.launch.train.main``) on
                 the card: the paper's TONN_ONCHIP_FUSED (hjb-20d, tonn,
                 hidden 1024, noise on), N = 10, batch 100, 50 steps and a
                 checkpoint.  Checks: finite losses and val MSE, the median
                 of the last 10 losses below the first, the ±1 buffers
-                bit-unchanged, exactly 3 ``tt_contract_batched`` and 16
-                ``mesh_apply_stacked`` launches per step; one step's stacked
+                bit-unchanged, exactly 3 ``tt_contract_batched`` and 1
+                ``mesh_densify_stacked`` launches per step and no
+                ``mesh_apply_stacked``; one step's stacked
                 stencil u-values and (P,) losses on the card against the
                 same params, ξ, batch and noise through the plain path on
                 the CPU (u within 1e-4 of max|u|, losses rtol 1e-1: the FD
                 residual amplifies f32 differences by 1/h² = 1e4); the
                 checkpoint loads into ``SolverRegistry`` and its served u
                 equals the trainer's final ``model.u`` (1e-6).  Times a ZO
-                step with CUDA events.
+                step with CUDA events, traces a steady window of 5
+                (``torch.profiler``: kernels per step, the device's busy
+                share of the window, the top 5) and counts the aten ops of
+                one ``prepare_params_stacked``.
   8. quant-kernel — ``tt_contract_batched_quant`` for int8 and fp8-e4m3 at
                 the three launches of a QAT step (the shapes of phase 5, block
                 32) and the rank-4 spec at P = 3, B = 777, blocks 32 and 16
@@ -72,7 +87,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   9. train-quant — phase 7 with ``--quant int8 --quant-block 32
                 --phase-bits 8`` added to its argv: the same checks with 3
                 ``tt_contract_batched_quant``, 0 ``tt_contract_batched`` and
-                16 ``mesh_apply_stacked`` launches per step, the checkpoint's
+                1 ``mesh_densify_stacked`` launches per step, the checkpoint's
                 meta carrying the quant config, and the final val MSE at most
                 10× the f32 run's (``benchmarks/quantized.py``'s notch).  The
                 card-vs-CPU step counts weight codes that the two devices'
@@ -133,7 +148,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device, or run outside a checkout of the repository, it exits
-non-zero before printing any result.
+non-zero before printing any result.  ``tools/zo_step.py`` measures the ZO
+step of any checkout's port with this script's ``measure_zo_step``.
 """
 
 from __future__ import annotations
@@ -481,6 +497,9 @@ def phase_mesh(device) -> dict:
                                             transpose)   # y[s] = x @ m[s]
             row["ms"] = _time_ms(lambda: mesh.mesh_apply_stacked(
                 layout, phases, diag, x, transpose), 200)
+            row["kernel_device_ms"] = _profile(
+                lambda: mesh.mesh_apply_stacked(layout, phases, diag, x,
+                                                transpose))["device_ms"]
             row["plain_ms"] = _time_ms(lambda: photonic.mesh_apply_stacked(
                 layout, phases, diag, x, transpose), 50)
             row["library_ms"] = _time_ms(lambda: torch.matmul(x, m), 200)
@@ -496,6 +515,188 @@ def phase_mesh(device) -> dict:
                 (t_bytes * 1e3, "bytes") if t_bytes >= t_ops
                 else (t_ops * 1e3, "operations"))
         results[label] = row
+        print(f"[mesh] {json.dumps(row)}", flush=True)
+    results.update(_densify_cases(device))
+    return results
+
+
+def densify_inputs(hidden: int, tt_L: int, S: int, noisy: bool, bits,
+                   device, seed: int, mixed_diag: bool = False) -> tuple:
+    """Every core matrix of a tonn model with S stacked parameter sets
+    (Φ + 0.01·N(0, 1) on the trainable leaves, drawn from ``seed``), its
+    chip noise, noise model and quant config: the arguments of
+    ``mesh_densify_stacked``.  The ±1 diag buffers are ``(S, P)``, or
+    with ``mixed_diag`` ``(P,)`` on every odd matrix."""
+    import torch
+    from repro_torch.core import photonic, pinn
+    from repro_torch.device import counter_generator, to_device
+    from repro_torch.kernels import quant as quant_lib
+
+    model = pinn.TensorPinn(pinn.PINNConfig(
+        hidden=hidden, mode="tonn", tt_L=tt_L,
+        noise=photonic.NoiseModel(enabled=noisy)))
+    params = model.init(counter_generator(S))
+    noise = model.sample_noise(counter_generator(S, 99))
+    gen = torch.Generator().manual_seed(seed)
+    pms, ps, nzs = [], [], []
+    for i, layer in enumerate(model.photonic_cores):
+        for k, pm in enumerate(layer):
+            p = params[f"pcores{i}"][k]
+            stacked = {key: v + 0.01 * torch.randn((S, *v.shape),
+                                                   generator=gen)
+                       for key, v in p.items()
+                       if key not in photonic.PHOTONIC_BUFFER_KEYS}
+            for key in photonic.PHOTONIC_BUFFER_KEYS:
+                stacked[key] = (p[key] if mixed_diag and len(pms) % 2
+                                else p[key].expand(S, -1).contiguous())
+            pms.append(pm)
+            ps.append(to_device(stacked, device))
+            nzs.append(None if noise is None
+                       else to_device(noise[f"pcores{i}"][k], device))
+    quant = (quant_lib.QuantConfig(enabled=True, dtype=None,
+                                   phase_bits=bits) if bits else None)
+    return pms, ps, nzs, model.cfg.noise, quant
+
+
+def aten_ops(fn) -> list:
+    """The aten ops (``OpOverload``s) that one call of ``fn`` dispatches,
+    in order."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.append(func)
+            return func(*args, **(kwargs or {}))
+
+    with Ops() as ops:
+        fn()
+    return ops.seen
+
+
+def op_counts(seen: list) -> dict:
+    """All ops, and those that are not views (each of those is an
+    allocation or a kernel on the card)."""
+    return {"ops": len(seen),
+            "non_view_ops": sum(not f.is_view for f in seen)}
+
+
+def _dense_meshes(pms, ps, device) -> list:
+    """(feed, unitary) of the 16 meshes of a densification made dense: per
+    matrix the V mesh's identity feed against its per-entry transposed
+    unitary (S, in, in), and an (S, in, out) feed against the U mesh's
+    (S, out, out)."""
+    import torch
+    from repro_torch.core import photonic
+    gen = torch.Generator().manual_seed(3200)
+    pairs = []
+    for pm, p in zip(pms, ps):
+        S = p["sigma"].shape[0]
+        eye_v = torch.eye(pm.in_dim, device=device)
+        pairs.append((eye_v, photonic.mesh_apply_stacked(
+            pm.layout_v, p["phases_v"], p["diag_v"], eye_v, transpose=True)))
+        feed_u = torch.randn((S, pm.in_dim, pm.out_dim),
+                             generator=gen).to(device)
+        pairs.append((feed_u, photonic.mesh_apply_stacked(
+            pm.layout_u, p["phases_u"], p["diag_u"],
+            torch.eye(pm.out_dim, device=device))))
+    return pairs
+
+
+def _densify_bound(pms, ps, nzs, dac: bool) -> tuple:
+    """(bound_ms, bound_by) of one grouped call: its inputs (phases,
+    sigma, diag buffers, chip noise, the plan's slot / sign / perm) read
+    once and its cores written once, against its f32 operations (DAC snap
+    3 and noise model 5 per phase; sin, cos and the sign product per wire
+    and level, each counted as one; 3 per element per level; the diag and
+    sigma scaling)."""
+    words = ops = 0
+    for pm, p, nz in zip(pms, ps, nzs):
+        S = p["sigma"].shape[0]
+        words += sum(t.numel() for t in p.values()) + S * pm.out_dim * pm.in_dim
+        for lay, rows in ((pm.layout_u, pm.in_dim), (pm.layout_v, pm.in_dim)):
+            phases = lay.levels * lay.slots
+            words += 3 * lay.levels * lay.ports + (2 * phases if nz else 0)
+            ops += S * (phases * ((3 if dac else 0) + (5 if nz else 0))
+                        + 3 * lay.levels * lay.ports
+                        + 3 * rows * lay.ports * lay.levels)
+        ops += 3 * S * pm.in_dim * pm.out_dim
+    t_bytes = 4 * words / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# label -> (hidden, tt_L, S, noise, phase bits); "paper-noise" is the main
+# one: the densification of a TONN_ONCHIP_FUSED ZO step (N = 10)
+DENSIFY_CASES = {
+    "paper-noise": (1024, 4, 11, True, None),
+    "paper-noise-pb8": (1024, 4, 11, True, 8),
+    "paper": (1024, 4, 11, False, None),
+    "paper-pb8": (1024, 4, 11, False, 8),
+    "reduced-noise-pb8": (64, 3, 3, True, 8),
+    "reduced": (64, 3, 3, False, None),
+}
+
+
+def _densify_cases(device) -> dict:
+    import torch
+    from repro_torch.core import photonic
+    from repro_torch.device import to_device
+    from repro_torch.kernels import mesh_apply as mesh
+
+    cpu = torch.device("cpu")
+    results = {}
+    for label, (hidden, tt_L, S, noisy, bits) in DENSIFY_CASES.items():
+        pms, ps, nzs, model, quant = densify_inputs(hidden, tt_L, S, noisy,
+                                                    bits, device, 3100 + S)
+        got = mesh.mesh_densify_stacked(pms, ps, nzs, model, quant)
+        plain = photonic.mesh_densify_stacked(pms, ps, nzs, model, quant)
+        errs = [_check_close("mesh_densify_stacked", label, w, want)
+                for w, want in zip(got, plain)]
+        on_cpu = photonic.mesh_densify_stacked(
+            pms, [to_device(p, cpu) for p in ps],
+            [None if nz is None else to_device(nz, cpu) for nz in nzs],
+            model, quant)
+        cpu_errs = [_check_close("mesh_densify_stacked", f"{label} vs the "
+                                 "CPU", w.cpu(), want)[0]
+                    for w, want in zip(got, on_cpu)]
+        # rounded op by op in the plain order: bit-equal on the card
+        differ = sum(int((w != want).sum()) for w, want in zip(got, plain))
+        if differ:
+            raise AssertionError(f"mesh_densify_stacked at {label}: {differ} "
+                                 "elements differ from the plain twin on "
+                                 "the card")
+        row = {"case": label, "matrices": len(pms), "S": S, "noise": noisy,
+               "phase_bits": bits,
+               "shapes": sorted({(pm.out_dim, pm.in_dim) for pm in pms}),
+               "max_abs_err": max(e for e, _ in errs),
+               "max_abs_plain": max(m for _, m in errs),
+               "bitwise_equal": differ == 0, "elements_differing": differ,
+               "max_abs_card_vs_cpu": max(cpu_errs)}
+        if label == "paper-noise":
+            row["ms"] = _time_ms(lambda: mesh.mesh_densify_stacked(
+                pms, ps, nzs, model, quant), 200)
+            # back-to-back calls are bound by the host; the kernel alone
+            row["kernel_device_ms"] = _profile(
+                lambda: mesh.mesh_densify_stacked(pms, ps, nzs, model,
+                                                  quant))["device_ms"]
+            row["standalone_loop_ms"] = _time_ms(lambda: [
+                pm.to_dense_stacked(p, model, nz, quant)
+                for pm, p, nz in zip(pms, ps, nzs)], 50)
+            row["plain_ms"] = _time_ms(lambda: photonic.mesh_densify_stacked(
+                pms, ps, nzs, model, quant), 20)
+            # for scale only (no one call maps phases to cores): the same
+            # 16 meshes as dense matmuls
+            dense = _dense_meshes(pms, ps, device)
+            row["matmul_16_meshes_ms"] = _time_ms(lambda: [
+                torch.matmul(feed, u) for feed, u in dense], 200)
+            row["library_ms"] = None
+            row["bound_ms"], row["bound_by"] = _densify_bound(
+                pms, ps, nzs, quant is not None)
+        results[f"densify-{label}"] = row
         print(f"[mesh] {json.dumps(row)}", flush=True)
     return results
 
@@ -589,8 +790,8 @@ def phase_quant_kernel(device) -> dict:
 def _train_main(argv: list, steps: int, chain: str) -> tuple:
     """``launch.train.main(argv)`` on the card with every kernel count set
     to 0 just before and read just after.  Checks 3 launches of ``chain``
-    (the other chain kernel 0) and 2 mesh launches per core mesh per step.
-    Returns (result, launches, wall seconds)."""
+    (the other chain kernel 0), 1 grouped densification and no standalone
+    mesh per step.  Returns (result, launches, wall seconds)."""
     import torch
     from repro_torch.kernels import mesh_apply as mesh
     from repro_torch.kernels import tt_contract as ttc
@@ -598,6 +799,7 @@ def _train_main(argv: list, steps: int, chain: str) -> tuple:
 
     counted = {"tt_contract_batched": ttc.tt_contract_batched,
                "tt_contract_batched_quant": ttc.tt_contract_batched_quant,
+               "mesh_densify_stacked": mesh.mesh_densify_stacked,
                "mesh_apply_stacked": mesh.mesh_apply_stacked}
     for fn in counted.values():                           # main path starts
         fn.launches = 0
@@ -605,10 +807,9 @@ def _train_main(argv: list, steps: int, chain: str) -> tuple:
     res = train.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counted.items()}
-    meshes = sum(len(pms) for pms in res.model.photonic_cores)  # path ends
+    launches = {name: fn.launches for name, fn in counted.items()}  # ends
     want = {"tt_contract_batched": 0, "tt_contract_batched_quant": 0,
-            "mesh_apply_stacked": 2 * meshes * steps}
+            "mesh_densify_stacked": steps, "mesh_apply_stacked": 0}
     want[chain] = 3 * steps
     if launches != want:
         raise AssertionError(f"{launches} over {steps} steps; expected "
@@ -637,6 +838,31 @@ def _code_bytes(codes):
     import torch
     return (codes.view(torch.uint8) if codes.dtype == torch.float8_e4m3fn
             else codes)
+
+
+ZO_TRACE_STEPS = 5
+
+
+def measure_zo_step(model, params, noise, mask, xt, state, n: int,
+                    runs: int = 1, iters: int = 10) -> dict:
+    """ms per ZO step (``zoo.zo_signsgd_step`` over
+    ``pinn.residual_losses_stacked``, N = ``n``) back to back on CUDA
+    events, ``runs`` times over ``iters`` steps, then a steady window of
+    ``ZO_TRACE_STEPS`` steps under ``torch.profiler``.  It calls only entry
+    points that every version of the port has, so ``tools/zo_step.py``
+    measures any checkout's ``repro_torch`` with it."""
+    from repro_torch.core import pinn, zoo
+    scfg = zoo.SPSAConfig(num_samples=n)
+
+    def zo_step():
+        return zoo.zo_signsgd_step(
+            params, state, 1e-3, scfg,
+            lambda sp: pinn.residual_losses_stacked(model, sp, xt, noise),
+            trainable_mask=mask)
+
+    return {"zo_step_ms": [_time_ms(zo_step, iters, warmup=2)
+                           for _ in range(runs)],
+            "trace": _profile(zo_step, ZO_TRACE_STEPS)}
 
 
 def phase_train(device, quant: tuple = ()) -> dict:
@@ -715,13 +941,13 @@ def phase_train(device, quant: tuple = ()) -> dict:
                              f"{u_err:.3e}, max|u| {u_scale:.3e}")
     np.testing.assert_allclose(l_card.numpy(), l_cpu.numpy(), rtol=1e-1)
 
-    # ms per ZO step, back to back on CUDA events
-    xt_dev = xt.to(device)
-    state = zoo.ZOState(step=steps, seed=1)
-    step_ms = _time_ms(lambda: zoo.zo_signsgd_step(
-        params, state, 1e-3, scfg,
-        lambda sp: pinn.residual_losses_stacked(model, sp, xt_dev, noise),
-        trainable_mask=mask), 10, warmup=2)
+    # ms per ZO step, back to back on CUDA events, and a traced window;
+    # the aten ops of one densification of the stack
+    timed = measure_zo_step(model, params, noise, mask, xt.to(device),
+                            zoo.ZOState(step=steps, seed=1), n)
+    stacked_dev = to_device(stacked, device)
+    prepare_ops = op_counts(aten_ops(
+        lambda: model.prepare_params_stacked(stacked_dev, noise)))
 
     # the checkpoint carries the run's config, quant included, and serves:
     # registry + engine against the final model.u
@@ -748,7 +974,9 @@ def phase_train(device, quant: tuple = ()) -> dict:
            "loss_last": float(losses[-1]),
            "loss_median_last10": float(np.median(losses[-10:])),
            "losses": [float(v) for v in losses], "val_mse": res.val_mse,
-           "zo_step_ms": step_ms,
+           "zo_step_ms": timed["zo_step_ms"][0],
+           "zo_step_trace": timed["trace"],
+           "prepare_params_stacked_ops": prepare_ops,
            "host_step_ms_median": 1e3 * float(np.median(res.step_seconds)),
            "train_wall_s": wall,
            "stencil_u_max_abs_card_vs_cpu": u_err, "stencil_u_max": u_scale,
@@ -1004,12 +1232,14 @@ def phase_flash_kernel(device) -> dict:
     return results
 
 
-def _profile(fn) -> dict:
-    """One call of ``fn`` under ``torch.profiler`` (CPU + CUDA): wall time
-    (host clock, ending in a synchronize), the summed time of the device
-    kernels (one stream: they do not overlap), the device's busy share of
-    the wall, and the five kernels that take most of it.  Without device
-    events in the trace the device numbers are None (not measured)."""
+def _profile(fn, calls: int = 1) -> dict:
+    """``calls`` back-to-back calls of ``fn``, a steady window after one
+    warm call, under ``torch.profiler`` (CPU + CUDA): the window's wall
+    time (host clock, ending in a synchronize), the summed time of the
+    device kernels (one stream: they do not overlap), the device's busy
+    share of the wall, the kernels in all and per call, and the five
+    kernels that take most of the time.  Without device events in the
+    trace the device numbers are None (not measured)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()                                                   # warm
@@ -1017,7 +1247,8 @@ def _profile(fn) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict = {}
@@ -1026,10 +1257,11 @@ def _profile(fn) -> dict:
             ms, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     device_ms = sum(ms for ms, _ in by_name.values()) if by_name else None
+    kernels = sum(n for _, n in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
-    return {"wall_ms": wall_ms, "device_ms": device_ms,
+    return {"calls": calls, "wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": None if device_ms is None else device_ms / wall_ms,
-            "kernels": sum(n for _, n in by_name.values()),
+            "kernels": kernels, "kernels_per_call": kernels / calls,
             "top": [[name[:80], ms, n] for name, (ms, n) in top]}
 
 
@@ -1245,17 +1477,38 @@ def main() -> int:
                "shape": "x (11, 4300, 1024) f32 per entry, PAPER_TONN_SPEC "
                         "cores (11, r, m, n, r')",
                "cases": list(batched.values())}
-    main_m = meshes["v16-identity"]
-    entry_m = {"name": "mesh_apply_stacked", "route": "cuda",
+    # B3 has two entries in one source: the grouped densification, which
+    # the training path runs, and the standalone mesh, which it no longer
+    # runs (0 launches there; held to its plain version in phase 6)
+    main_m = meshes["densify-paper-noise"]
+    alone = meshes["v16-identity"]
+    entry_m = {"name": "mesh_densify_stacked", "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/mesh_apply.cu",
                "replaces": "src/repro/kernels/mesh_apply.py:93",
-               "launches": trained["launches"]["mesh_apply_stacked"],
+               "launches": trained["launches"]["mesh_densify_stacked"],
+               "entry_launches": {
+                   name: trained["launches"][name]
+                   for name in ("mesh_densify_stacked",
+                                "mesh_apply_stacked")},
                "max_abs_err": max(r["max_abs_err"] for r in meshes.values()),
                "ms": main_m["ms"], "plain_ms": main_m["plain_ms"],
                "bound_ms": main_m["bound_ms"], "bound_by": main_m["bound_by"],
                "library_ms": main_m["library_ms"],
-               "shape": "16-port rectangular mesh (16 levels), S = 11, "
-                        "identity x (16, 16) shared, transposed",
+               "kernel_device_ms": main_m["kernel_device_ms"],
+               "standalone_loop_ms": main_m["standalone_loop_ms"],
+               "matmul_16_meshes_ms": main_m["matmul_16_meshes_ms"],
+               "shape": "the 8 core matrices of TONN_ONCHIP_FUSED (4 x 16 "
+                        "and 16 x 4), S = 11, noise on: one ZO step's "
+                        "densification",
+               "standalone": {
+                   "name": "mesh_apply_stacked", "ms": alone["ms"],
+                   "kernel_device_ms": alone["kernel_device_ms"],
+                   "plain_ms": alone["plain_ms"],
+                   "bound_ms": alone["bound_ms"],
+                   "bound_by": alone["bound_by"],
+                   "library_ms": alone["library_ms"],
+                   "shape": "16-port rectangular mesh (16 levels), S = 11, "
+                            "identity x (16, 16) shared, transposed"},
                "cases": list(meshes.values())}
     main_q = quant_kernel["hidden-stencil-int8"]
     entry_q = {"name": "tt_contract_batched_quant", "route": "cuda",
@@ -1287,8 +1540,11 @@ def main() -> int:
     print(f"[serve] p50 {serve['p50_ms']:.3f} ms, p99 {serve['p99_ms']:.3f} "
           f"ms, {serve['points_per_s']:.0f} points/s over "
           f"{serve['requests']} requests on {card}", flush=True)
+    zo_trace = trained["zo_step_trace"]
     print(f"[train] {trained['zo_step_ms']:.3f} ms per ZO step (CUDA "
-          f"events); loss {trained['loss_first']:.4e} -> "
+          f"events; traced: {zo_trace['kernels_per_call']:.0f} kernels a "
+          f"step, busy share {zo_trace['busy_share']}); "
+          f"loss {trained['loss_first']:.4e} -> "
           f"{trained['loss_last']:.4e} over {trained['steps']} steps, val "
           f"MSE {trained['val_mse']:.4e} on {card}", flush=True)
     print(f"[train-quant] {trained_q['zo_step_ms']:.3f} ms per QAT ZO step "

@@ -19,7 +19,8 @@ Layout mirrors ``repro`` module for module:
   * ``kernels``            — the CUDA kernels (``tt_contract``,
                              ``tt_contract_batched``,
                              ``tt_contract_batched_quant``,
-                             ``mesh_apply_stacked``, ``flash_attention``),
+                             ``mesh_apply_stacked``,
+                             ``mesh_densify_stacked``, ``flash_attention``),
                              their build, plain versions and device
                              dispatch, and the block-scaled / DAC
                              quantizers (``quant``),

@@ -6,10 +6,13 @@ rotators; hardware imperfections act on the phases,
 (small) core mesh of a ``tonn`` solver into its TT-core once, at load
 (``PhotonicMatrix.to_dense``), through the plain gather form of the mesh
 (``mesh_apply``).  Training densifies all N+1 SPSA-perturbed phase sets of
-a core mesh at once (``PhotonicMatrix.to_dense_stacked``) through
-``kernels.ops.mesh_apply_stacked``: the CUDA kernel on the card,
-``mesh_apply_stacked`` here on the CPU.  A ``quant`` with ``phase_bits``
-snaps the commanded phases to the DAC grid before the noise model acts.
+every core mesh of a model at once (``mesh_densify_stacked``, through
+``kernels.ops.mesh_densify_stacked``: one launch of the grouped CUDA
+kernel on the card, this module's plain loop on the CPU).
+``PhotonicMatrix.apply_stacked`` runs a stacked mesh through
+``kernels.ops.mesh_apply_stacked`` the same way.  A ``quant`` with
+``phase_bits`` snaps the commanded phases to the DAC grid before the noise
+model acts.
 
 Port of ``repro.core.photonic``; ``mesh_apply_scan``, ``mesh_matrix``,
 ``decompose_orthogonal`` and ``from_dense`` belong to the ``onn`` slice.
@@ -29,7 +32,7 @@ from repro_torch.kernels import quant as quant_lib
 __all__ = ["PHOTONIC_BUFFER_KEYS", "MeshLayout", "schedule_ops",
            "rectangular_layout", "mesh_gather_plan", "mesh_plan_tensors",
            "mesh_gather_tables", "mesh_apply", "mesh_apply_stacked",
-           "NoiseModel", "PhotonicMatrix"]
+           "NoiseModel", "PhotonicMatrix", "mesh_densify_stacked"]
 
 # fixed ±1 buffers of a PhotonicMatrix's params: they pin each mesh to its
 # orthogonal decomposition, and ZO training neither perturbs nor updates
@@ -131,16 +134,19 @@ def mesh_gather_plan(layout: MeshLayout) -> tuple:
 
 def mesh_plan_tensors(layout: MeshLayout, device: torch.device) -> dict:
     """The gather plan as tensors on ``device``: ``slot`` (int64) and
-    ``sign`` (float32) for the trig tables, ``perm`` and ``perm_t``
-    (int32, the wire each output wire reads per level, in application
-    order without and with ``transpose``).  Memoized on the (frozen)
-    layout, so a mesh call copies nothing from the host (a copy from
-    pageable host memory waits for the card)."""
+    ``sign`` (float32) for the trig tables, ``slot_i32`` (the kernels'
+    int32 copy of ``slot``), ``perm`` and ``perm_t`` (int32, the wire each
+    output wire reads per level, in application order without and with
+    ``transpose``).  Memoized on the (frozen) layout, so a mesh call
+    copies nothing from the host (a copy from pageable host memory waits
+    for the card)."""
     memo = layout.__dict__.setdefault("_plan_tensors", {})
     if device not in memo:
         perm, slot, sign = mesh_gather_plan(layout)
         memo[device] = {
             "slot": torch.as_tensor(slot, dtype=torch.int64, device=device),
+            "slot_i32": torch.as_tensor(slot, dtype=torch.int32,
+                                        device=device),
             "sign": torch.as_tensor(sign, device=device),
             "perm": torch.as_tensor(perm, dtype=torch.int32, device=device),
             # a copy: a one-level flip keeps its negative stride through
@@ -342,3 +348,27 @@ class PhotonicMatrix:
                         device=params["sigma"].device)
         return self.apply_stacked(params, eye, noise_model, noise,
                                   quant).transpose(-1, -2)
+
+
+def mesh_densify_stacked(matrices: Sequence[PhotonicMatrix],
+                         params: Sequence[dict], noises: Sequence,
+                         noise_model: NoiseModel | None = None,
+                         quant=None) -> list:
+    """``to_dense_stacked`` of G photonic matrices — the plain version of
+    ``kernels.mesh_apply.mesh_densify_stacked``.
+
+    ``params[g]`` is matrix g's stacked params (phases and sigma with a
+    leading axis S, diag buffers ``(P,)`` or ``(S, P)``), ``noises[g]``
+    its chip noise or None (the noise model acts where there is one);
+    ``quant`` with ``phase_bits`` snaps the commanded phases first.
+    Returns ``(S, out_dim, in_dim)`` per matrix, contiguous: the memory of
+    its TT core ``(S, r, m, n, r')``.  The meshes run through this
+    module's ``mesh_apply_stacked``, so on any device this is plain
+    PyTorch."""
+    cores = []
+    for pm, p, nz in zip(matrices, params, noises, strict=True):
+        eye = torch.eye(pm.in_dim, dtype=torch.float32,
+                        device=p["sigma"].device)
+        y = pm._apply(p, eye, noise_model, nz, quant, mesh_apply_stacked)
+        cores.append(y.transpose(-1, -2).contiguous())
+    return cores

@@ -11,9 +11,9 @@ parametrizations:
 
 Serving runs the single forward, whose TT layers go through
 ``kernels.ops.tt_linear``.  ZO training runs the stacked path: the N+1
-SPSA-perturbed parameter sets densify in one batched mesh pass per core
-mesh (``prepare_params_stacked`` → ``kernels.ops.mesh_apply_stacked``) and
-the FD stencil goes through every perturbed model at once
+SPSA-perturbed parameter sets of every core mesh densify in one program
+(``prepare_params_stacked`` → ``kernels.ops.mesh_densify_stacked``, one
+launch) and the FD stencil goes through every perturbed model at once
 (``fd_u_stencil_stacked`` → ``kernels.ops.tt_linear_batched``, three
 launches).  On the card those are the CUDA kernels; on the CPU their plain
 versions.  Forwards are plain functions of a params dict of tensors.
@@ -195,22 +195,19 @@ class TensorPinn:
                 for i, pms in enumerate(self.photonic_cores)}
 
     # --------------------------------------------------------------- forward
-    def _densify_cores(self, params: dict, noise: dict | None, i: int,
-                       stacked: bool = False) -> list:
-        """TONN layer i: densify each (small) core mesh into its TT-core;
-        ``stacked`` densifies a leading SPSA-perturbation axis S of every
-        core in one batched mesh pass (``PhotonicMatrix.to_dense_stacked``).
+    def _densify_cores(self, params: dict, noise: dict | None,
+                       i: int) -> list:
+        """TONN layer i: densify each (small) core mesh into its TT-core.
         DAC phase quantization acts on the commanded phases, before the
         noise model, inside the densification."""
         spec = self.specs[i]
         cores = []
         for k, pm in enumerate(self.photonic_cores[i]):
             nz = None if noise is None else noise[f"pcores{i}"][k]
-            densify = pm.to_dense_stacked if stacked else pm.to_dense
-            w = densify(params[f"pcores{i}"][k],
-                        self.cfg.noise if nz else None, nz, quant=self._quant)
-            lead = w.shape[:1] if stacked else ()
-            cores.append(w.reshape(*lead, *spec.core_shapes[k]).contiguous())
+            w = pm.to_dense(params[f"pcores{i}"][k],
+                            self.cfg.noise if nz else None, nz,
+                            quant=self._quant)
+            cores.append(w.reshape(spec.core_shapes[k]).contiguous())
         return cores
 
     def prepare_params(self, params: dict, noise: dict | None) -> tuple:
@@ -296,14 +293,22 @@ class TensorPinn:
     # --------------------------------------- stacked (multi-perturbation) ZO
     def prepare_params_stacked(self, stacked: dict, noise: dict | None) -> dict:
         """``prepare_params`` over a leading perturbation axis P on every
-        leaf: every TONN core mesh densifies all P phase sets in one
-        batched pass, with the chip's noise shared across the stack."""
+        leaf: all P phase sets of every TONN core mesh of both layers
+        densify in one program (``kernels.ops.mesh_densify_stacked``), with
+        the chip's noise shared across the stack."""
         if self.cfg.mode != "tonn" or "cores0" in stacked:
             return stacked
+        layers = range(len(self.specs))
+        pms = [pm for i in layers for pm in self.photonic_cores[i]]
+        nzs = ([None] * len(pms) if noise is None
+               else [nz for i in layers for nz in noise[f"pcores{i}"]])
+        dense = iter(ops.mesh_densify_stacked(
+            pms, [p for i in layers for p in stacked[f"pcores{i}"]], nzs,
+            self.cfg.noise, self._quant))
         eff = {k: v for k, v in stacked.items() if not k.startswith("pcores")}
-        for i in range(len(self.specs)):
-            eff[f"cores{i}"] = self._densify_cores(stacked, noise, i,
-                                                   stacked=True)
+        for i in layers:
+            eff[f"cores{i}"] = [next(dense).view(-1, *shape)
+                                for shape in self.specs[i].core_shapes]
         return eff
 
     def _layer_matvec_stacked(self, stacked: dict, i: int,
@@ -441,7 +446,7 @@ def residual_losses_stacked(model: TensorPinn, stacked_params: dict,
     """The ZO hot path: composite losses of P stacked parameter sets
     (leading axis on every leaf) over one shared collocation batch → (P,).
 
-    TONN densifies all P mesh sets in one batched pass per core mesh (the
+    TONN densifies all P mesh sets of every core mesh in one program (the
     chip's noise baked in); then the FD stencil goes through every
     perturbed model in one program — with ``fd_fast``, three
     ``tt_linear_batched`` launches (layer 1 on the rows and on the

@@ -1,31 +1,39 @@
-"""Wrapper of the hand-written CUDA mesh kernel (``csrc/mesh_apply.cu``).
+"""Wrappers of the hand-written CUDA mesh kernels (``csrc/mesh_apply.cu``).
 
-Replaces the Pallas kernel ``repro/kernels/mesh_apply.py::
-mesh_apply_stacked_pallas`` (its ``pallas_call`` at line 136): S stacked
-MZI meshes that share one layout, applied to x shared across the stack or
-per entry.  It is the TONN hot path's densification engine: every step of
-ZO training densifies all N+1 perturbed phase sets of each core mesh at
-once (``PhotonicMatrix.to_dense_stacked``).
+Replace the Pallas kernel ``repro/kernels/mesh_apply.py::
+mesh_apply_stacked_pallas`` (its ``pallas_call`` at line 136), which ran
+S stacked MZI meshes of one layout on x shared across the stack or per
+entry, with trig tables built outside the kernel.  Here every block builds
+its own trig from the phases and the layout's plan
+(``core.photonic.mesh_plan_tensors``), so a call is one allocation and one
+launch.  Two entries:
 
-The trig tables come from ``core.photonic.mesh_gather_tables`` outside the
-kernel, as in the JAX package.  The TPU's one-hot permutation matmul
-(``mesh_perm_onehot``) has no counterpart: the kernel reads
-``x[perm[c, w]]`` from shared memory with an int32 table.  The TPU's size
-limits (``MESH_KERNEL_MAX_LEVELS``, ``MESH_KERNEL_MAX_ONEHOT_BYTES``)
-assumed VMEM; here a block stages the tables, the diag row and two row
-buffers in at most Hopper's 232,448 bytes of shared memory
-(``smem_bytes``), and a layout that does not fit raises — there is no
+  * ``mesh_apply_stacked`` — the standalone mesh, kernel-backed
+    ``core.photonic.mesh_apply_stacked`` (``PhotonicMatrix.apply_stacked``).
+  * ``mesh_densify_stacked`` — ``PhotonicMatrix.to_dense_stacked`` of G
+    matrices in one launch, DAC snap and noise model included, each
+    written as its TT core: the ZO step's whole densification
+    (``TensorPinn.prepare_params_stacked``).  Its G descriptors go to the
+    kernel by value (``MeshGroup``, a ctypes mirror of the C struct), so
+    the launch copies nothing from the host.
+
+The TPU's one-hot permutation matmul (``mesh_perm_onehot``) has no
+counterpart: the kernel reads ``x[perm[c, w]]`` from shared memory.  The
+TPU's size limits assumed VMEM; here a block holds its tables and buffers
+in at most Hopper's 232,448 bytes of shared memory (``smem_bytes``,
+``densify_smem_bytes``), and a mesh that does not fit raises — there is no
 plain fallback on the card.
 
-The wrapper checks what the kernel takes and raises on anything else,
+Each wrapper checks what its kernel takes and raises on anything else,
 allocates the output, launches on the current stream without
-synchronizing, and counts its launches in ``mesh_apply_stacked.launches``.
+synchronizing, and counts its launches (``<wrapper>.launches``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -33,14 +41,17 @@ from repro_torch.core import photonic as ph_lib
 from repro_torch.kernels import _build
 from repro_torch.kernels.tt_contract import SMEM_MAX_BYTES
 
-__all__ = ["mesh_apply_stacked", "smem_bytes", "rows_per_block"]
+__all__ = ["mesh_apply_stacked", "mesh_densify_stacked", "smem_bytes",
+           "rows_per_block", "densify_smem_bytes", "MeshGroup",
+           "pack_group", "MAX_GROUP"]
 
 MAX_ROW_ELEMENTS = 1024            # rows per block × ports, at most
-MAX_STACK = 65_535                 # the grid's y extent
+MAX_STACK = 65_535                 # the standalone grid's y extent
+MAX_GROUP = 20                     # kMaxGroup: matrices per grouped launch
 
 
 def smem_bytes(ports: int, levels: int, rows: int) -> int:
-    """Shared memory of one block: cos, sin and perm tables
+    """Shared memory of one standalone block: cos, sin and perm tables
     ``(levels, ports)``, the diag row and two row buffers."""
     return 4 * (3 * levels * ports + ports + 2 * rows * ports)
 
@@ -58,13 +69,143 @@ def rows_per_block(layout: ph_lib.MeshLayout) -> int:
     return max(1, min(MAX_ROW_ELEMENTS // P, fit))
 
 
+def densify_smem_bytes(pm: ph_lib.PhotonicMatrix) -> int:
+    """Shared memory of one grouped block for matrix ``pm``: two row
+    buffers ``(in_dim, max(in_dim, out_dim))``, and for the larger of its
+    meshes two phase tables ``(levels, slots)`` and the cos and sin tables
+    ``(levels, ports)``."""
+    lu, lv = pm.layout_u, pm.layout_v
+    phases = max(lu.levels * lu.slots, lv.levels * lv.slots)
+    table = max(lu.levels * lu.ports, lv.levels * lv.ports)
+    return 4 * (2 * pm.in_dim * max(pm.in_dim, pm.out_dim) + 2 * phases
+                + 2 * table)
+
+
+# ctypes mirrors of the C structs in csrc/mesh_apply.cu (same field order
+# and types, so the native alignment rules give the same layout; the
+# launcher checks the size against the library's)
+
+class _MeshSide(ctypes.Structure):
+    _fields_ = [("phases", ctypes.c_void_p), ("gamma", ctypes.c_void_p),
+                ("bias", ctypes.c_void_p), ("diag", ctypes.c_void_p),
+                ("slot", ctypes.c_void_p), ("sign", ctypes.c_void_p),
+                ("perm", ctypes.c_void_p), ("diag_stride_s", ctypes.c_int64),
+                ("ports", ctypes.c_int), ("levels", ctypes.c_int),
+                ("slots", ctypes.c_int), ("crosstalk", ctypes.c_int)]
+
+
+class _MatrixDesc(ctypes.Structure):
+    _fields_ = [("u", _MeshSide), ("v", _MeshSide),
+                ("sigma", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("k", ctypes.c_int), ("pad", ctypes.c_int)]
+
+
+class MeshGroup(ctypes.Structure):
+    """The grouped kernel's parameter: G matrix descriptors and the
+    settings they share (stack size, DAC step, crosstalk κ)."""
+    _fields_ = [("m", _MatrixDesc * MAX_GROUP), ("count", ctypes.c_int),
+                ("stack", ctypes.c_int), ("dac_step", ctypes.c_float),
+                ("dac", ctypes.c_int), ("kappa", ctypes.c_float),
+                ("pad", ctypes.c_int)]
+
+
+def _need(name: str, t: torch.Tensor, shape: tuple, device: torch.device):
+    if (t.device != device or t.dtype != torch.float32
+            or tuple(t.shape) != shape or not t.is_contiguous()):
+        raise ValueError(f"{name}: need a contiguous float32 {shape} on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+
+
+def _pack_side(side: _MeshSide, name: str, layout: ph_lib.MeshLayout,
+               phases: torch.Tensor, diag: torch.Tensor, noise: dict | None,
+               crosstalk: bool, S: int, device: torch.device) -> None:
+    L, K, P = layout.levels, layout.slots, layout.ports
+    _need(f"{name} phases", phases, (S, L, K), device)
+    if diag.ndim == 2:
+        _need(f"{name} diag", diag, (S, P), device)
+    else:
+        _need(f"{name} diag", diag, (P,), device)
+    plan = ph_lib.mesh_plan_tensors(layout, device)
+    side.phases, side.diag = phases.data_ptr(), diag.data_ptr()
+    side.slot = plan["slot_i32"].data_ptr()
+    side.sign = plan["sign"].data_ptr()
+    side.perm = plan["perm"].data_ptr()
+    side.diag_stride_s = P if diag.ndim == 2 else 0
+    side.ports, side.levels, side.slots = P, L, K
+    if noise is not None:
+        _need(f"{name} gamma", noise["gamma"], (L, K), device)
+        _need(f"{name} bias", noise["bias"], (L, K), device)
+        side.gamma = noise["gamma"].data_ptr()
+        side.bias = noise["bias"].data_ptr()
+    side.crosstalk = int(noise is not None and crosstalk and K > 1)
+
+
+def pack_group(matrices, params, noises, noise_model, quant,
+               out: list) -> MeshGroup:
+    """The grouped kernel's descriptors for ``mesh_densify_stacked``'s
+    arguments, with ``out[g]`` the ``(S, out_dim, in_dim)`` core that
+    matrix g is written to.  Checks every tensor (contiguous float32 on
+    the first sigma's device, shapes of the matrix's layouts, one stack
+    size S) and each block's shared memory; raises on anything the kernel
+    cannot take.  Pure Python, so it runs on CPU tensors too; the wrapper
+    alone requires the card."""
+    G = len(matrices)
+    if not 1 <= G <= MAX_GROUP or not len(params) == len(noises) == \
+            len(out) == G:
+        raise ValueError(f"{G} matrices with {len(params)} params, "
+                         f"{len(noises)} noises and {len(out)} outputs; "
+                         f"the kernel takes 1..{MAX_GROUP} of each")
+    device = params[0]["sigma"].device
+    S = params[0]["sigma"].shape[0] if params[0]["sigma"].ndim == 2 else 0
+    if not 1 <= S < 2**31:
+        raise ValueError(f"sigma shape {tuple(params[0]['sigma'].shape)}: "
+                         "need a stack (S, k) of at least one entry")
+    noisy = noise_model is not None and noise_model.enabled
+    crosstalk = noisy and noise_model.crosstalk > 0.0
+    grp = MeshGroup(count=G, stack=S)
+    if quant is not None and quant.phases:
+        grp.dac = 1
+        grp.dac_step = 2.0 * math.pi / (1 << quant.phase_bits)
+    if crosstalk:
+        grp.kappa = noise_model.crosstalk
+    for g, (pm, p, nz, w) in enumerate(zip(matrices, params, noises, out)):
+        need = densify_smem_bytes(pm)
+        if need > SMEM_MAX_BYTES:
+            raise ValueError(
+                f"a {pm.out_dim} x {pm.in_dim} photonic matrix needs {need} "
+                f"B of shared memory per block; the card has "
+                f"{SMEM_MAX_BYTES} B")
+        d = grp.m[g]
+        nz = nz if noisy else None
+        _pack_side(d.u, f"matrix {g} u", pm.layout_u, p["phases_u"],
+                   p["diag_u"], None if nz is None else nz["u"], crosstalk,
+                   S, device)
+        _pack_side(d.v, f"matrix {g} v", pm.layout_v, p["phases_v"],
+                   p["diag_v"], None if nz is None else nz["v"], crosstalk,
+                   S, device)
+        _need(f"matrix {g} sigma", p["sigma"], (S, pm.k), device)
+        _need(f"matrix {g} out", w, (S, pm.out_dim, pm.in_dim), device)
+        d.sigma, d.out, d.k = p["sigma"].data_ptr(), w.data_ptr(), pm.k
+    return grp
+
+
 @functools.cache
-def _launcher():
-    fn = _build.load_library("mesh_apply").mesh_apply_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _library():
+    lib = _build.load_library("mesh_apply")
+    lib.mesh_apply_launch.argtypes = [ctypes.c_void_p] * 7 + [
+        ctypes.c_int] * 6 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                             ctypes.c_void_p]
+    lib.mesh_apply_launch.restype = ctypes.c_int
+    lib.mesh_densify_group_bytes.restype = ctypes.c_int
+    if lib.mesh_densify_group_bytes() != ctypes.sizeof(MeshGroup):
+        raise RuntimeError(
+            f"MeshGroup is {ctypes.sizeof(MeshGroup)} B here and "
+            f"{lib.mesh_densify_group_bytes()} B in csrc/mesh_apply.cu")
+    lib.mesh_densify_launch.argtypes = [ctypes.POINTER(MeshGroup),
+                                        ctypes.c_void_p]
+    lib.mesh_densify_launch.restype = ctypes.c_int
+    return lib
 
 
 def mesh_apply_stacked(layout: ph_lib.MeshLayout, phases: torch.Tensor,
@@ -95,8 +236,10 @@ def mesh_apply_stacked(layout: ph_lib.MeshLayout, phases: torch.Tensor,
             x.ndim == 3 and x.shape[0] != S):
         raise ValueError(f"x shape {tuple(x.shape)} is neither (B, {P}) "
                          f"nor ({S}, B, {P})")
-    if not (x.is_contiguous() and diag.is_contiguous()):
-        raise ValueError("mesh_apply_stacked needs a contiguous x and diag")
+    if not (x.is_contiguous() and diag.is_contiguous()
+            and phases.is_contiguous()):
+        raise ValueError("mesh_apply_stacked needs a contiguous x, diag "
+                         "and phases")
     rows = rows_per_block(layout)
     B = x.shape[-2]
     y = torch.empty((S, B, P), dtype=torch.float32, device=x.device)
@@ -105,16 +248,15 @@ def mesh_apply_stacked(layout: ph_lib.MeshLayout, phases: torch.Tensor,
     if S * B * P >= 2**31:
         raise ValueError(f"{S} x {B} x {P} elements exceed the kernel's "
                          "int32 range")
-    cos, sin = ph_lib.mesh_gather_tables(layout, phases, transpose)
-    cos, sin = cos.contiguous(), sin.contiguous()
-    perm = ph_lib.mesh_plan_tensors(layout, x.device)[
-        "perm_t" if transpose else "perm"]
+    plan = ph_lib.mesh_plan_tensors(layout, x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _launcher()(x.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-                          perm.data_ptr(), diag.data_ptr(), y.data_ptr(),
-                          B, P, L, S, rows, B * P if x.ndim == 3 else 0,
-                          P if diag.ndim == 2 else 0, int(transpose), stream)
+        err = _library().mesh_apply_launch(
+            x.data_ptr(), phases.data_ptr(), plan["slot_i32"].data_ptr(),
+            plan["sign"].data_ptr(), plan["perm"].data_ptr(),
+            diag.data_ptr(), y.data_ptr(), B, P, L, layout.slots, S, rows,
+            B * P if x.ndim == 3 else 0, P if diag.ndim == 2 else 0,
+            int(transpose), stream)
     if err != 0:
         raise RuntimeError(f"mesh_apply_stacked launch failed: CUDA error "
                            f"{err}")
@@ -123,3 +265,38 @@ def mesh_apply_stacked(layout: ph_lib.MeshLayout, phases: torch.Tensor,
 
 
 mesh_apply_stacked.launches = 0
+
+
+def mesh_densify_stacked(matrices, params, noises, noise_model=None,
+                         quant=None) -> list:
+    """Kernel-backed ``core.photonic.mesh_densify_stacked``: G photonic
+    matrices densified in one launch.  ``params[g]`` holds matrix g's
+    stacked phases ``(S, levels, slots)`` and sigma ``(S, k)`` and its
+    diag buffers ``(P,)`` or ``(S, P)``; ``noises[g]`` its chip noise
+    (or None), shared across the stack, applied when ``noise_model`` is
+    enabled; ``quant`` with ``phase_bits`` snaps the commanded phases to
+    the DAC grid first.  Returns ``(S, out_dim, in_dim)`` per matrix, each
+    contiguous, views of one allocation."""
+    if not matrices:
+        raise ValueError("mesh_densify_stacked: no matrices")
+    device = params[0]["sigma"].device
+    if device.type != "cuda":
+        raise ValueError(f"mesh_densify_stacked runs on CUDA tensors, got "
+                         f"{device}")
+    S = params[0]["sigma"].shape[0]
+    sizes = [S * pm.out_dim * pm.in_dim for pm in matrices]
+    flat = torch.empty(sum(sizes), dtype=torch.float32, device=device)
+    out = [w.view(S, pm.out_dim, pm.in_dim)
+           for w, pm in zip(flat.split(sizes), matrices)]
+    grp = pack_group(matrices, params, noises, noise_model, quant, out)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _library().mesh_densify_launch(ctypes.byref(grp), stream)
+    if err != 0:
+        raise RuntimeError(f"mesh_densify_stacked launch failed: CUDA error "
+                           f"{err}")
+    mesh_densify_stacked.launches += 1
+    return out
+
+
+mesh_densify_stacked.launches = 0

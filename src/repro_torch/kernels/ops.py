@@ -7,8 +7,10 @@ There is no switch that sends CUDA tensors to the plain version.
 ``quant`` (a ``kernels.quant.QuantConfig``, or None) follows the JAX
 package's ``repro.kernels.ops``: with weight quantization on, the TT layers
 see block-scaled cores.  With ``quant`` None or without weight
-quantization every path is the unquantized one, bit for bit.  (DAC phase
-snapping belongs to ``PhotonicMatrix``, before the noise model.)
+quantization every path is the unquantized one, bit for bit.  With
+``phase_bits`` the photonic densification snaps the commanded phases to the
+DAC grid before the noise model (``mesh_densify_stacked``, and
+``PhotonicMatrix`` around ``mesh_apply_stacked``).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import tt_contract as _ttc
 
 __all__ = ["tt_linear", "tt_linear_batched", "mesh_apply_stacked",
-           "attention"]
+           "mesh_densify_stacked", "attention"]
 
 
 def _weight_quant(quant) -> bool:
@@ -73,6 +75,22 @@ def mesh_apply_stacked(layout: _ph.MeshLayout, phases: torch.Tensor,
     if x.device.type == "cpu":
         return _ph.mesh_apply_stacked(layout, phases, diag, x, transpose)
     return _mesh.mesh_apply_stacked(layout, phases, diag, x, transpose)
+
+
+def mesh_densify_stacked(matrices: Sequence[_ph.PhotonicMatrix],
+                         params: Sequence[dict], noises: Sequence,
+                         noise_model: _ph.NoiseModel | None = None,
+                         quant=None) -> list:
+    """``to_dense_stacked`` of G photonic matrices in one program — a ZO
+    step's whole densification: ``(S, out_dim, in_dim)`` per matrix,
+    contiguous (its TT core's memory).  On the card one launch of the
+    grouped kernel, which raises for a matrix whose meshes do not fit a
+    block."""
+    if params[0]["sigma"].device.type == "cpu":
+        return _ph.mesh_densify_stacked(matrices, params, noises,
+                                        noise_model, quant)
+    return _mesh.mesh_densify_stacked(matrices, params, noises, noise_model,
+                                      quant)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -3,8 +3,9 @@
 They run wherever PyTorch runs: the CPU path of ``kernels.ops`` takes them,
 and on the card they are the oracle the CUDA kernels are held against.
 ``attention_bound`` states how closely the attention kernel is held.  (The
-plain version of the mesh kernel is ``core.photonic.mesh_apply_stacked``,
-as in the JAX package.)
+plain versions of the mesh kernels are ``core.photonic.mesh_apply_stacked``
+and ``core.photonic.mesh_densify_stacked``, beside the mesh simulator, as
+in the JAX package.)
 """
 
 from __future__ import annotations

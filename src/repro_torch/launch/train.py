@@ -3,8 +3,8 @@
 Trains the paper's TT-compressed sine PINN (``--arch hjb-pinn`` /
 ``tensor-pinn``) on a registered PDE with ZO-signSGD — forward evaluations
 only — through the fused multi-perturbation step: each step draws N SPSA
-perturbations, densifies all N+1 perturbed TONN meshes in one batched
-pass per core mesh (the ``mesh_apply_stacked`` kernel), and runs the FD
+perturbations, densifies all N+1 perturbed sets of every TONN core mesh
+in one launch (the ``mesh_densify_stacked`` kernel), and runs the FD
 stencil through every perturbed model at once (the
 ``tt_contract_batched`` kernel).
 

@@ -1,7 +1,7 @@
 """Tests that need the card: the CUDA kernels (``tt_contract``,
 ``tt_contract_batched``, ``tt_contract_batched_quant``,
-``mesh_apply_stacked``, ``flash_attention``) against their plain PyTorch
-versions, served values (f32 and quantized) against a direct forward,
+``mesh_apply_stacked``, ``mesh_densify_stacked``, ``flash_attention``)
+against their plain PyTorch versions, served values (f32 and quantized) against a direct forward,
 quantization codes made on the card against the CPU's, one ZO training
 step (f32 and quantization-aware) on the card against the same step
 through the plain path on the CPU, and a reduced LM's prefill and decode
@@ -24,7 +24,9 @@ libraries) and its losses within ``rtol = 1e-1`` (the FD residual squares
 second differences, amplifying those rounding differences by 1/h²).  The
 quantized kernel is held to ``tt_contract_batched`` on the fake-quantized
 cores bit for bit, and the quantizer's codes and scales on the card to the
-CPU's bit for bit.  ``flash_attention`` is held to ``attention_ref`` within
+CPU's bit for bit.  Both mesh kernels round every operation on its own in
+the plain version's order and take sin/cos from the functions torch runs on
+the card, so they are held to their plain versions on the card bit for bit.  ``flash_attention`` is held to ``attention_ref`` within
 ``ref.attention_bound`` elementwise: the same f32 bound, and in bf16 one
 bf16 ulp of the element's own |plain| more (the two round f32 results that
 differ in the last bits); a row that sees no key must be exact zeros.  A reduced f32 LM on the card against the CPU:
@@ -37,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from repro_torch import configs
 from repro_torch.core import photonic, pinn, tt, zoo
 from repro_torch.core.photonic import NoiseModel
@@ -244,6 +247,81 @@ def test_mesh_kernel_matches_plain(cuda, label):
         assert torch.equal(y, plain)
 
 
+def test_mesh_kernel_is_one_launch_and_one_allocation(cuda):
+    """The standalone entry builds no tables on the host: one call is one
+    allocation (its output) and one kernel on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ports, S, B, shared, transpose = MESH_CASES["v16-identity"]
+    layout, phases, diag, x = _mesh_inputs(ports, S, B, shared, 1, cuda)
+    mesh.mesh_apply_stacked(layout, phases, diag, x, transpose)   # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        seen = chip_smoke.aten_ops(lambda: mesh.mesh_apply_stacked(
+            layout, phases, diag, x, transpose))
+        torch.cuda.synchronize()
+    assert [f.__name__.split(".")[0] for f in seen] == ["empty"]
+    kernels = [e.name for e in p.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "mesh_apply_kernel" in kernels[0], kernels
+
+
+# label -> (hidden, tt_L, S): the 8 core matrices of the paper's config at
+# N = 10 and at one entry, the 6 of the reduced config at S = 3
+DENSIFY_CASES = {"paper-11": (1024, 4, 11), "paper-1": (1024, 4, 1),
+                 "reduced-3": (64, 3, 3)}
+
+
+@pytest.mark.parametrize("bits", [None, 8])
+@pytest.mark.parametrize("noisy", [False, True])
+@pytest.mark.parametrize("label", sorted(DENSIFY_CASES))
+def test_densify_kernel_matches_plain(cuda, label, noisy, bits):
+    """The grouped kernel over all of a model's core matrices (G = 8 or 6)
+    and over each one alone (G = 1) is bit-equal to the plain twin on the
+    card, in one launch per call, and close to the CPU's."""
+    hidden, tt_L, S = DENSIFY_CASES[label]
+    pms, ps, nzs, model, quant = chip_smoke.densify_inputs(
+        hidden, tt_L, S, noisy, bits, cuda, seed=S, mixed_diag=True)
+    plain = photonic.mesh_densify_stacked(pms, ps, nzs, model, quant)
+    before = (mesh.mesh_densify_stacked.launches,
+              mesh.mesh_apply_stacked.launches)
+    got = ops.mesh_densify_stacked(pms, ps, nzs, model, quant)
+    assert (mesh.mesh_densify_stacked.launches,
+            mesh.mesh_apply_stacked.launches) == (before[0] + 1, before[1])
+    torch.cuda.synchronize()
+    for w, want in zip(got, plain, strict=True):
+        assert w.is_contiguous() and torch.equal(w, want)
+    for g in range(len(pms)):
+        one = mesh.mesh_densify_stacked(pms[g:g + 1], ps[g:g + 1],
+                                        nzs[g:g + 1], model, quant)
+        assert torch.equal(one[0], plain[g])
+    cpu = torch.device("cpu")
+    on_cpu = photonic.mesh_densify_stacked(
+        pms, [to_device(p, cpu) for p in ps],
+        [None if nz is None else to_device(nz, cpu) for nz in nzs], model,
+        quant)
+    for w, want in zip(got, on_cpu):
+        _assert_kernel_close(w.cpu(), want)
+
+
+def test_densify_kernel_refuses_what_it_cannot_take(cuda):
+    """A matrix whose meshes do not fit a block raises on the card (there
+    is no plain fallback there), and so do CPU tensors and a group larger
+    than one launch takes."""
+    pms, ps, nzs, model, quant = chip_smoke.densify_inputs(
+        64, 3, 3, True, 8, cuda, seed=3, mixed_diag=True)
+    wide = photonic.PhotonicMatrix(110, 110)
+    p = {k: v.expand(3, *v.shape).contiguous().to(cuda)
+         for k, v in wide.init(torch.Generator().manual_seed(0)).items()}
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.mesh_densify_stacked([wide], [p], [None], None, None)
+    with pytest.raises(ValueError, match="1..20"):
+        ops.mesh_densify_stacked(pms * 4, ps * 4, nzs * 4, model, quant)
+    with pytest.raises(ValueError, match="matrix 1 u gamma"):
+        ops.mesh_densify_stacked(pms, ps, [nzs[0], to_device(
+            nzs[1], torch.device("cpu")), *nzs[2:]], model, quant)
+
+
 def test_mesh_kernel_refuses_a_layout_over_shared_memory(cuda):
     """A layout the kernel cannot hold raises on the card; it never runs
     the plain version there."""
@@ -258,8 +336,8 @@ def test_mesh_kernel_refuses_a_layout_over_shared_memory(cuda):
 def test_zo_step_on_the_card_matches_the_cpu(cuda, hidden, tt_L):
     """One ZO step's stacked stencil u-values and (P,) losses on the card
     against the same params, ξ, batch and noise through the plain path on
-    the CPU; the step launches 3 batched chains and 2 meshes per core
-    mesh."""
+    the CPU; each stencil pass launches 3 batched chains and densifies
+    every core mesh in one grouped launch, with no standalone mesh."""
     cfg = pinn.PINNConfig(hidden=hidden, mode="tonn", tt_L=tt_L,
                           deriv="fd_fast", use_fused_kernel=True,
                           noise=NoiseModel(enabled=True))
@@ -281,13 +359,15 @@ def test_zo_step_on_the_card_matches_the_cpu(cuda, hidden, tt_L):
         u = model.fd_u_stencil_stacked(prepared, x, model.fd_step)
         return u.cpu(), pinn.residual_losses_stacked(model, sp, x, nz).cpu()
 
-    before = (ttc.tt_contract_batched.launches, mesh.mesh_apply_stacked.launches)
+    counters = (ttc.tt_contract_batched, mesh.mesh_densify_stacked,
+                mesh.mesh_apply_stacked)
+    before = [fn.launches for fn in counters]
     u_card, l_card = step(cuda)
     torch.cuda.synchronize()
-    meshes = sum(len(pms) for pms in model.photonic_cores)
-    # two stencil passes above (u, then the losses): 2 × (3 chains, 2 per mesh)
-    assert ttc.tt_contract_batched.launches - before[0] == 2 * 3
-    assert mesh.mesh_apply_stacked.launches - before[1] == 2 * 2 * meshes
+    # two stencil passes above (u, then the losses), each on freshly
+    # densified cores: 2 × (3 chains, 1 grouped densification)
+    assert [fn.launches - b for fn, b in zip(counters, before)] == \
+        [2 * 3, 2, 0]
     u_cpu, l_cpu = step(torch.device("cpu"))
     assert torch.isfinite(u_card).all() and torch.isfinite(l_card).all()
     assert (u_card - u_cpu).abs().max() <= 1e-4 * u_cpu.abs().max()
@@ -410,8 +490,9 @@ def test_qat_zo_step_on_the_card_matches_the_cpu(cuda, hidden, tt_L):
     (P,) losses on the card against the CPU's plain path on the card's
     densified cores (a weight code that the two devices' last-ulp
     differences put across a rounding edge would move a core value by a
-    whole quantization step).  The step launches 3 quantized chains, no
-    f32 chain and 2 meshes per core mesh."""
+    whole quantization step).  The two stencil passes on the densified
+    cores launch 3 quantized chains each and no f32 chain; the
+    densification is one grouped launch, with no standalone mesh."""
     cfg = pinn.PINNConfig(hidden=hidden, mode="tonn", tt_L=tt_L,
                           deriv="fd_fast", use_fused_kernel=True,
                           noise=NoiseModel(enabled=True),
@@ -425,7 +506,7 @@ def test_qat_zo_step_on_the_card_matches_the_cpu(cuda, hidden, tt_L):
                                    model.trainable_mask(params))
     stacked = zoo.perturbed_stack(params, xis, zoo.SPSAConfig(num_samples=3))
     counters = (ttc.tt_contract_batched_quant, ttc.tt_contract_batched,
-                mesh.mesh_apply_stacked)
+                mesh.mesh_densify_stacked, mesh.mesh_apply_stacked)
     before = [fn.launches for fn in counters]
     prep_card = model.prepare_params_stacked(to_device(stacked, cuda),
                                              to_device(noise, cuda))
@@ -433,9 +514,8 @@ def test_qat_zo_step_on_the_card_matches_the_cpu(cuda, hidden, tt_L):
                                         model.fd_step).cpu()
     l_card = pinn.residual_losses_stacked(model, prep_card, xt.to(cuda)).cpu()
     torch.cuda.synchronize()
-    meshes = sum(len(pms) for pms in model.photonic_cores)
     assert [fn.launches - b for fn, b in zip(counters, before)] == \
-        [2 * 3, 0, 2 * meshes]
+        [2 * 3, 0, 1, 0]
     prep_cpu = model.prepare_params_stacked(stacked, noise)
     for i in range(2):
         for a, b in zip(prep_card[f"cores{i}"], prep_cpu[f"cores{i}"]):

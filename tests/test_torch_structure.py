@@ -25,9 +25,10 @@ from repro_torch.serving import PdeServingEngine, SolverRegistry
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-# files that run where no JAX is installed: the package, the chip script
+# files that run where no JAX is installed: the package, the chip scripts
 # and the tests that need the card
 JAX_FREE = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "tools" / "zo_step.py",
                                           ROOT / "tests" / "test_torch_gpu.py"]
 FORBIDDEN_ROOTS = {"jax", "jaxlib", "repro"}
 
@@ -85,6 +86,18 @@ def test_chip_smoke_refuses_without_a_gpu(tmp_path, alone):
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
     assert '"kernels"' not in proc.stdout
+
+
+def test_zo_step_script_refuses_without_a_gpu():
+    """The ZO-step measuring script needs the card too: no number from the
+    CPU under a device metric's name."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run([sys.executable, str(ROOT / "tools" / "zo_step.py"),
+                           str(ROOT / "src")], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "[zo-step]" not in proc.stdout and "ms" not in proc.stdout
 
 
 @pytest.fixture
