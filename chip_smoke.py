@@ -10,14 +10,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   2. build    — ``nvcc`` builds the ``tt_contract``, ``mesh_apply`` and
                 ``flash_attention`` sources of this checkout, all at once;
                 prints ptxas' register / spill lines.
-  3. kernel   — ``tt_contract`` against its plain PyTorch version on the card at
-                the paper's spec (B = 2048, the served pool, and 65,536), the
-                reduced config's spec at a B that is not a multiple of the
-                tile, and a rank-4 non-square spec; bound
-                ``max|kernel − plain| ≤ 1e-5·max|plain| + 1e-6`` (f32 sums in
-                another order).  At the paper's spec it times the kernel, the
-                plain version and ``x @ tt_to_full(cores).T`` (the one-call
-                library yardstick) with CUDA events.
+  3. kernel   — ``tt_contract`` (the fiber body) against its plain PyTorch
+                version on the card at the paper's spec (B = 2048, the served
+                pool, and 65,536), the reduced config's spec at a B that is
+                not a multiple of the tile, and a rank-4 non-square spec;
+                bound ``max|kernel − plain| ≤ 1e-5·max|plain| + 1e-6`` (f32
+                sums in another order); and bit for bit against
+                ``tt_contract_batched`` (the element body) at P = 1.  Each row
+                names its design and tile (``fiber_tile``).  At the paper's
+                spec it times the kernel, the plain version and ``x @
+                tt_to_full(cores).T`` (the one-call library yardstick) with
+                CUDA events, and the kernel alone in a ``torch.profiler``
+                trace (``kernel_device_ms``).
   4. serve    — the port's main path through the entry points a user calls:
                 ``SolverRegistry.register_fresh`` of the paper's solver
                 (hjb-20d, tonn, hidden 1024, ranks [1,2,1,2,1], noise on) and
@@ -34,10 +38,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 on the 21 identity columns, shared; the hidden layer on
                 4300 rows per entry) and a rank-4 non-square spec at P = 3,
                 B = 777, against ``tt_contract_batched_ref`` at the bound of
-                phase 3; every entry p bit for bit against
-                ``tt_contract(x[p], cores[p])``.  Times the hidden-layer
-                launch, its plain version and ``torch.bmm(x, Wᵀ)`` against
-                the densified per-entry weights.
+                phase 3; every entry p (element body) bit for bit against
+                ``tt_contract(x[p], cores[p])`` (fiber body).  Times the
+                hidden-layer launch, its plain version and ``torch.bmm(x,
+                Wᵀ)`` against the densified per-entry weights.
   6. mesh     — ``mesh_apply_stacked`` on the 16- and 4-port layouts of the
                 paper's core meshes, transposed and not, x shared and per
                 entry, and a 64-port layout, against
@@ -81,9 +85,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 codes and scales on the card bit-equal to the CPU's
                 ``quantize_blockwise_stacked``; every entry bit-equal to
                 ``tt_contract_batched`` on the fake-quantized cores; the bound
-                of phase 3 against ``tt_contract_batched_quant_ref``.  Times
-                the int8 hidden-layer launch, its plain version and
-                ``torch.bmm`` against the densified fake-quantized weights.
+                of phase 3 against ``tt_contract_batched_quant_ref`` (the
+                quantized kernel runs the fiber body, the f32 one the
+                element body).  Times the int8 hidden-layer call (quantizer
+                and launch), its plain version and ``torch.bmm`` against the
+                densified fake-quantized weights; the kernel alone in a
+                ``torch.profiler`` trace (``kernel_device_ms``) and the
+                quantizer alone (``quantizer_ms``).
   9. train-quant — phase 7 with ``--quant int8 --quant-block 32
                 --phase-bits 8`` added to its argv: the same checks with 3
                 ``tt_contract_batched_quant``, 0 ``tt_contract_batched`` and
@@ -154,6 +162,7 @@ step of any checkout's port with this script's ``measure_zo_step``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -269,15 +278,26 @@ def phase_kernel(device) -> dict:
             raise AssertionError(
                 f"tt_contract disagrees with its plain version at {label} "
                 f"B={batch}: max|diff| {err:.3e} > {tol:.3e}")
+        # the fiber body against the element body of tt_contract_batched
+        y_b = ttc.tt_contract_batched(x, [c[None] for c in cores], spec)[0]
+        if not torch.equal(y_k, y_b):
+            raise AssertionError(
+                f"tt_contract differs from tt_contract_batched at P = 1 at "
+                f"{label} B={batch}: {int((y_k != y_b).sum())} elements")
         row = {"spec": label, "modes": [list(spec.out_modes),
                                         list(spec.in_modes)],
-               "ranks": list(spec.ranks), "batch": batch,
-               "rows_per_block": ttc.rows_per_block(spec),
-               "max_abs_err": err, "max_abs_plain": scale}
+               "ranks": list(spec.ranks), "batch": batch, "design": "fibers",
+               "tile": dataclasses.asdict(ttc.fiber_tile(spec, batch)),
+               "max_abs_err": err, "max_abs_plain": scale,
+               "bitwise_equal_batched_p1": True}
         if timed:
             w = tt.tt_to_full(cores, spec)
             iters = 200 if batch <= 4096 else 20
             row["ms"] = _time_ms(lambda: ttc.tt_contract(x, cores, spec), iters)
+            # back-to-back calls can be bound by the host; the kernel alone
+            row["kernel_device_ms"] = _profile(
+                lambda: ttc.tt_contract(x, cores, spec),
+                match="tt_contract_kernel")["match_ms"]
             row["plain_ms"] = _time_ms(
                 lambda: ref.tt_contract_ref(x, cores, spec), iters)
             row["library_ms"] = _time_ms(lambda: torch.matmul(x, w.T), iters)
@@ -763,8 +783,19 @@ def phase_quant_kernel(device) -> dict:
                 w = torch.stack([tt.tt_to_full([c[p] for c in fq], spec)
                                  for p in range(P)])            # (P, M, N)
                 wt = w.transpose(1, 2)
+                row["design"] = "fibers"
+                row["tile"] = dataclasses.asdict(ttc.fiber_tile(spec, P * B))
                 row["ms"] = _time_ms(lambda: ttc.tt_contract_batched_quant(
                     x, cores, spec, quant), 50)
+                # the call is the quantizer's small ops and one launch: the
+                # kernel alone from a trace, and the quantizer alone
+                row["kernel_device_ms"] = _profile(
+                    lambda: ttc.tt_contract_batched_quant(x, cores, spec,
+                                                          quant),
+                    match="tt_contract_batched_quant_kernel")["match_ms"]
+                row["quantizer_ms"] = _time_ms(lambda: [
+                    quant_lib.quantize_blockwise_stacked(c, quant)
+                    for c in cores], 50)
                 row["plain_ms"] = _time_ms(
                     lambda: ref.tt_contract_batched_quant_ref(
                         x, cores, spec, quant), 10)
@@ -848,7 +879,8 @@ def measure_zo_step(model, params, noise, mask, xt, state, n: int,
     """ms per ZO step (``zoo.zo_signsgd_step`` over
     ``pinn.residual_losses_stacked``, N = ``n``) back to back on CUDA
     events, ``runs`` times over ``iters`` steps, then a steady window of
-    ``ZO_TRACE_STEPS`` steps under ``torch.profiler``.  It calls only entry
+    ``ZO_TRACE_STEPS`` steps under ``torch.profiler`` (with the device
+    time of the TT-chain kernels, ``match_ms``).  It calls only entry
     points that every version of the port has, so ``tools/zo_step.py``
     measures any checkout's ``repro_torch`` with it."""
     from repro_torch.core import pinn, zoo
@@ -862,7 +894,7 @@ def measure_zo_step(model, params, noise, mask, xt, state, n: int,
 
     return {"zo_step_ms": [_time_ms(zo_step, iters, warmup=2)
                            for _ in range(runs)],
-            "trace": _profile(zo_step, ZO_TRACE_STEPS)}
+            "trace": _profile(zo_step, ZO_TRACE_STEPS, match="tt_contract")}
 
 
 def phase_train(device, quant: tuple = ()) -> dict:
@@ -1232,14 +1264,17 @@ def phase_flash_kernel(device) -> dict:
     return results
 
 
-def _profile(fn, calls: int = 1) -> dict:
+def _profile(fn, calls: int = 1, match: str | None = None) -> dict:
     """``calls`` back-to-back calls of ``fn``, a steady window after one
     warm call, under ``torch.profiler`` (CPU + CUDA): the window's wall
     time (host clock, ending in a synchronize), the summed time of the
     device kernels (one stream: they do not overlap), the device's busy
     share of the wall, the kernels in all and per call, and the five
-    kernels that take most of the time.  Without device events in the
-    trace the device numbers are None (not measured)."""
+    kernels that take most of the time; with ``match``, also the device
+    time and count of the kernels whose name contains it and the longest
+    one of them (``match_ms``, ``match_kernels``, ``match_max_ms``).
+    Without device events in the trace the device numbers are None (not
+    measured)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()                                                   # warm
@@ -1252,17 +1287,26 @@ def _profile(fn, calls: int = 1) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict = {}
+    longest = None
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             ms, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+            if match is not None and match in e.name:
+                longest = max(longest or 0.0, e.time_range.elapsed_us() / 1e3)
     device_ms = sum(ms for ms, _ in by_name.values()) if by_name else None
     kernels = sum(n for _, n in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
-    return {"calls": calls, "wall_ms": wall_ms, "device_ms": device_ms,
-            "busy_share": None if device_ms is None else device_ms / wall_ms,
-            "kernels": kernels, "kernels_per_call": kernels / calls,
-            "top": [[name[:80], ms, n] for name, (ms, n) in top]}
+    out = {"calls": calls, "wall_ms": wall_ms, "device_ms": device_ms,
+           "busy_share": None if device_ms is None else device_ms / wall_ms,
+           "kernels": kernels, "kernels_per_call": kernels / calls,
+           "top": [[name[:80], ms, n] for name, (ms, n) in top]}
+    if match is not None:
+        hits = [(ms, n) for name, (ms, n) in by_name.items() if match in name]
+        out["match_ms"] = sum(ms for ms, _ in hits) if hits else None
+        out["match_kernels"] = sum(n for _, n in hits)
+        out["match_max_ms"] = longest
+    return out
 
 
 def phase_lm_serve(device) -> dict:
@@ -1463,6 +1507,8 @@ def main() -> int:
              "bound_ms": main_case["bound_ms"],
              "bound_by": main_case["bound_by"],
              "library_ms": main_case["library_ms"],
+             "design": main_case["design"],
+             "kernel_device_ms": main_case["kernel_device_ms"],
              "shape": "x (2048, 1024) f32, PAPER_TONN_SPEC",
              "cases": kernel["cases"]}
     main_b = batched["hidden-stencil"]
@@ -1473,7 +1519,7 @@ def main() -> int:
                "max_abs_err": max(r["max_abs_err"] for r in batched.values()),
                "ms": main_b["ms"], "plain_ms": main_b["plain_ms"],
                "bound_ms": main_b["bound_ms"], "bound_by": main_b["bound_by"],
-               "library_ms": main_b["library_ms"],
+               "library_ms": main_b["library_ms"], "design": "elements",
                "shape": "x (11, 4300, 1024) f32 per entry, PAPER_TONN_SPEC "
                         "cores (11, r, m, n, r')",
                "cases": list(batched.values())}
@@ -1521,6 +1567,9 @@ def main() -> int:
                "ms": main_q["ms"], "plain_ms": main_q["plain_ms"],
                "bound_ms": main_q["bound_ms"], "bound_by": main_q["bound_by"],
                "library_ms": main_q["library_ms"],
+               "design": main_q["design"],
+               "kernel_device_ms": main_q["kernel_device_ms"],
+               "quantizer_ms": main_q["quantizer_ms"],
                "shape": "x (11, 4300, 1024) f32 per entry, PAPER_TONN_SPEC "
                         "cores quantized int8, block 32",
                "cases": list(quant_kernel.values())}

@@ -14,6 +14,11 @@ are memory-bound — about 5 µs for the served pool of 2048 rows and 116 µs
 for the 11 × 4300 rows of the training hidden layer.  The design keeps
 every intermediate in shared memory, so device memory sees only the input,
 the output and the tiny cores; see the source for the chain layout.
+``tt_contract`` and ``tt_contract_batched_quant`` run the fiber body (a
+thread per fiber, the step's core in registers, tiles of ``fiber_tile``);
+``tt_contract_batched`` runs the element body in tiles of
+``rows_per_block``.  Both give every output element the same sum in the same
+order, so the three kernels agree bit for bit.
 
 The wrappers check what the kernels take and raise on anything else; they
 never fall back to the plain versions.  They allocate the output, launch
@@ -25,6 +30,7 @@ on the current stream without synchronizing, and count their launches in
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 from typing import Sequence
@@ -38,7 +44,7 @@ from repro_torch.kernels import quant as quant_lib
 from repro_torch.kernels import ref as _ref
 
 __all__ = ["tt_contract", "tt_contract_batched", "tt_contract_batched_quant",
-           "chain_widest", "rows_per_block"]
+           "chain_widest", "rows_per_block", "fiber_tile", "FiberTile"]
 
 MAX_CORES = 8                      # kMaxCores in the source
 SMEM_DEFAULT_BYTES = 48 * 1024     # shared memory without an opt-in
@@ -64,9 +70,10 @@ def _core_floats(spec: tt_lib.TTSpec) -> int:
 
 
 def rows_per_block(spec: tt_lib.TTSpec) -> int:
-    """Rows one thread block holds: as many as let both ping-pong row
-    buffers and the cores fit the default 48 KB of shared memory (capped
-    at 16); one row with an opt-in when a single row needs more."""
+    """Rows one thread block of the element body (``tt_contract_batched``)
+    holds: as many as let both ping-pong row buffers and the cores fit the
+    default 48 KB of shared memory (capped at 16); one row with an opt-in
+    when a single row needs more."""
     per_row = 2 * chain_widest(spec) * 4
     cores = _core_floats(spec) * 4
     rows = (SMEM_DEFAULT_BYTES - cores) // per_row
@@ -77,6 +84,62 @@ def rows_per_block(spec: tt_lib.TTSpec) -> int:
                          f"shared memory per row; the card has "
                          f"{SMEM_MAX_BYTES} B per block")
     return 1
+
+
+# the fiber body (tt_contract, tt_contract_batched_quant)
+FIBER_THREADS = 128                # kFiberThreads in the source
+MAX_FIBER = 32                     # kMaxFiber: widest r·n_k or m_k·r'
+MAX_FIBER_ROWS = 32
+# three blocks share one SM (164 registers a thread, __launch_bounds__(128,
+# 3)): 228 KB of shared memory a Hopper SM, 1 KB of it reserved per block
+BLOCKS_PER_SM = 3
+SMEM_BLOCK_BUDGET = 228 * 1024 // BLOCKS_PER_SM - 1024
+H100_SMS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class FiberTile:
+    """A launch of the fiber body: ``rows`` per block, row buffers of
+    ``stride`` floats (one buffer when every step writes in place, two
+    otherwise), the template width of each step and the dynamic shared
+    memory, as ``parse_fibers`` in the source lays them out."""
+    rows: int
+    stride: int
+    buffers: int
+    caps: tuple
+    smem_bytes: int
+
+
+def fiber_tile(spec: tt_lib.TTSpec,
+               rows_total: int | None = None) -> FiberTile:
+    """Tiling of the fiber body for ``spec``: as many rows per block as let
+    three blocks share an SM (at most 32, a multiple of 8 from 8 up), and
+    no more than give ``rows_total`` rows (the launch's P·B) three blocks on
+    each of the H100's SMs.  Raises for a fiber wider than ``MAX_FIBER`` and
+    for a row that does not fit a block: there is no other body to fall
+    back to."""
+    widths = [(r * n, m * rn) for r, m, n, rn in spec.core_shapes]
+    if max(max(w) for w in widths) > MAX_FIBER:
+        raise ValueError(f"TT chain of {spec} has fibers of (r·n_k, m_k·r') "
+                         f"= {widths}; the kernel takes at most {MAX_FIBER}")
+    caps = tuple(max(4, 1 << (max(w) - 1).bit_length()) for w in widths)
+    stride = -(-chain_widest(spec) // 32) * 32
+    buffers = 1 if all(f_in == f_out for f_in, f_out in widths) else 2
+    fixed = 4 * (_core_floats(spec) + sum(c * c for c in caps))
+    per_row = 4 * buffers * stride
+    rows = min(MAX_FIBER_ROWS, (SMEM_BLOCK_BUDGET - fixed) // per_row)
+    if rows >= 8:
+        rows -= rows % 8
+    elif rows < 1:
+        if fixed + per_row > SMEM_MAX_BYTES:
+            raise ValueError(f"TT chain of {spec} needs {fixed + per_row} B "
+                             f"of shared memory per row; the card has "
+                             f"{SMEM_MAX_BYTES} B per block")
+        rows = 1
+    if rows_total is not None:
+        fill = -(-rows_total // (BLOCKS_PER_SM * H100_SMS))
+        rows = max(1, min(rows, fill))
+    return FiberTile(rows, stride, buffers, caps, fixed + rows * per_row)
 
 
 @functools.cache
@@ -149,11 +212,12 @@ def tt_contract(x: torch.Tensor, cores: Sequence[torch.Tensor],
         return y
     if B >= 2**31:
         raise ValueError(f"batch of {B} rows exceeds the kernel's int32 range")
+    tile = fiber_tile(spec, B)
     desc = _descriptor(cores, spec)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _launchers()[0](x.data_ptr(), y.data_ptr(), desc.ctypes.data,
-                              B, rows_per_block(spec), stream)
+                              B, tile.rows, stream)
     if err != 0:
         raise RuntimeError(f"tt_contract launch failed: CUDA error {err}")
     tt_contract.launches += 1
@@ -258,6 +322,7 @@ def tt_contract_batched_quant(x: torch.Tensor, cores: Sequence[torch.Tensor],
         return y
     if P * B >= 2**31:
         raise ValueError(f"{P} x {B} rows exceed the kernel's int32 range")
+    tile = fiber_tile(spec, P * B)
     codes, scales = zip(*(quant_lib.quantize_blockwise_stacked(c, quant)
                           for c in cores))
     _check_codes(codes, scales, spec, quant, P, x.device)
@@ -267,7 +332,7 @@ def tt_contract_batched_quant(x: torch.Tensor, cores: Sequence[torch.Tensor],
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _launchers()[2](xf.data_ptr(), y.data_ptr(), desc.ctypes.data,
                               B, P, 0 if shared else B * spec.in_dim,
-                              rows_per_block(spec), quant.block,
+                              tile.rows, quant.block,
                               CODE_TYPES[codes[0].dtype], stream)
     if err != 0:
         raise RuntimeError(

@@ -22,11 +22,13 @@ path ``rtol = atol = 1e-5``; a ZO step's stencil u-values within 1e-4 of
 ``max|u|`` (f32 chains summed in other orders, and sin/cos from two
 libraries) and its losses within ``rtol = 1e-1`` (the FD residual squares
 second differences, amplifying those rounding differences by 1/h²).  The
-quantized kernel is held to ``tt_contract_batched`` on the fake-quantized
-cores bit for bit, and the quantizer's codes and scales on the card to the
-CPU's bit for bit.  Both mesh kernels round every operation on its own in
-the plain version's order and take sin/cos from the functions torch runs on
-the card, so they are held to their plain versions on the card bit for bit.  ``flash_attention`` is held to ``attention_ref`` within
+TT kernels' two bodies sum each element in one order, so ``tt_contract``
+(fiber body) is held to ``tt_contract_batched`` (element body) at P = 1 bit
+for bit, each batched entry to ``tt_contract``, and the quantized kernel
+(fiber body) to ``tt_contract_batched`` on the fake-quantized cores; the
+quantizer's codes and scales on the card to the CPU's bit for bit.  Both
+mesh kernels round every operation on its own in the plain version's order
+and take sin/cos from the functions torch runs on the card, so they are held to their plain versions on the card bit for bit.  ``flash_attention`` is held to ``attention_ref`` within
 ``ref.attention_bound`` elementwise: the same f32 bound, and in bf16 one
 bf16 ulp of the element's own |plain| more (the two round f32 results that
 differ in the last bits); a row that sees no key must be exact zeros.  A reduced f32 LM on the card against the CPU:
@@ -134,13 +136,54 @@ def test_dispatch_launches_the_kernel_with_batch_axes(cuda):
 
 def test_rows_do_not_depend_on_their_tile(cuda):
     """A row's value is the same bits wherever it lands in the grid, so
-    the engine's padding cannot change a served value."""
+    the engine's padding cannot change a served value.  The batch is large
+    enough for the fiber body's full tile, and not a multiple of it."""
     spec = tt.PAPER_TONN_SPEC
-    cores, x = _chain_inputs(spec, 301, seed=2, device=cuda)
+    cores, x = _chain_inputs(spec, 6637, seed=2, device=cuda)
+    tile = ttc.fiber_tile(spec, len(x)).rows
+    assert tile == ttc.fiber_tile(spec).rows and len(x) % tile
     y = ttc.tt_contract(x, cores, spec)
-    for shift in (1, 3, ttc.rows_per_block(spec) + 1):
+    for shift in (1, 3, tile + 1):
         assert torch.equal(ttc.tt_contract(x[shift:].contiguous(), cores,
                                            spec), y[shift:])
+
+
+@pytest.mark.parametrize("label", sorted(KERNEL_CASES) + ["paper-6637"])
+def test_tt_contract_equals_the_batched_kernel_bitwise(cuda, label):
+    """``tt_contract`` (the fiber body) gives the bits of
+    ``tt_contract_batched`` (the element body) at P = 1: both sum every
+    output element in the same order."""
+    spec, batch = KERNEL_CASES.get(label, (tt.PAPER_TONN_SPEC, 6637))
+    cores, x = _chain_inputs(spec, batch, seed=len(label), device=cuda)
+    y = ttc.tt_contract(x, cores, spec)
+    y_b = ttc.tt_contract_batched(x, [c[None] for c in cores], spec)
+    assert torch.equal(y, y_b[0])
+
+
+def test_fiber_body_takes_odd_widths_and_unaligned_x(cuda):
+    """The x and y tiles move as float4 only where the widths and pointers
+    allow: an x that starts 4 bytes off a 16-byte boundary, and a spec of
+    widths 13 → 7, take the scalar accesses and give the same bits."""
+    spec = tt.PAPER_TONN_SPEC
+    cores, x = _chain_inputs(spec, 301, seed=4, device=cuda)
+    buf = torch.empty(x.numel() + 1, device=cuda)
+    off = buf[1:].view_as(x)
+    off.copy_(x)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 4
+    y = ttc.tt_contract(x, cores, spec)
+    assert torch.equal(ttc.tt_contract(off, cores, spec), y)
+    quant = quant_lib.QuantConfig(enabled=True)
+    stacked = [torch.stack([c, 0.5 * c]) for c in cores]
+    assert torch.equal(
+        ttc.tt_contract_batched_quant(off, stacked, spec, quant),
+        ttc.tt_contract_batched_quant(x, stacked, spec, quant))
+    odd = tt.auto_factorize(7, 13, L=2, max_rank=3)
+    assert odd.in_dim % 4 and odd.out_dim % 4
+    cores, x = _chain_inputs(odd, 37, seed=5, device=cuda)
+    y = ttc.tt_contract(x, cores, odd)
+    _assert_kernel_close(y, ref.tt_contract_ref(x, cores, odd))
+    assert torch.equal(y, ttc.tt_contract_batched(
+        x, [c[None] for c in cores], odd)[0])
 
 
 def test_wrapper_refuses_what_the_kernel_cannot_take(cuda):
@@ -155,6 +198,13 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(cuda):
     with pytest.raises(ValueError, match="core 0"):
         ttc.tt_contract(x, [c.cpu() for c in cores], spec)
     assert ttc.tt_contract(x[:0], cores, spec).shape == (0, spec.out_dim)
+    # a fiber past the cap: (r·n_k, m_k·r') = (16, 96) at the first step
+    wide = tt.auto_factorize(96, 128, L=2, max_rank=8)
+    cores, x = _chain_inputs(wide, 8, seed=3, device=cuda)
+    before = ttc.tt_contract.launches
+    with pytest.raises(ValueError, match="at most 32"):
+        ttc.tt_contract(x, cores, wide)
+    assert ttc.tt_contract.launches == before
 
 
 @pytest.mark.parametrize("name", ["tt_contract", "mesh_apply",
@@ -481,6 +531,10 @@ def test_quant_wrapper_refuses_what_the_kernel_cannot_take(cuda):
                                       quant)
     assert ttc.tt_contract_batched_quant(x[:, :0], cores, spec,
                                          quant).shape == (P, 0, spec.out_dim)
+    wide = tt.auto_factorize(96, 128, L=2, max_rank=8)
+    cores, x = _stacked_inputs(wide, 2, (9,), True, 2, cuda)
+    with pytest.raises(ValueError, match="at most 32"):
+        ttc.tt_contract_batched_quant(x, cores, wide, quant)
 
 
 @pytest.mark.parametrize("hidden,tt_L", [(64, 3), (1024, 4)])

@@ -29,6 +29,7 @@ PORT = ROOT / "src" / "repro_torch"
 # and the tests that need the card
 JAX_FREE = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                           ROOT / "tools" / "zo_step.py",
+                                          ROOT / "tools" / "tt_fiber_rows.py",
                                           ROOT / "tests" / "test_torch_gpu.py"]
 FORBIDDEN_ROOTS = {"jax", "jaxlib", "repro"}
 
@@ -98,6 +99,18 @@ def test_zo_step_script_refuses_without_a_gpu():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert "[zo-step]" not in proc.stdout and "ms" not in proc.stdout
+
+
+def test_fiber_rows_script_refuses_without_a_gpu():
+    """So does the sweep of the TT fiber body's rows per block."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run([sys.executable,
+                           str(ROOT / "tools" / "tt_fiber_rows.py")],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert "[fiber-rows]" not in proc.stdout and "ms" not in proc.stdout
 
 
 @pytest.fixture

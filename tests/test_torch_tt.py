@@ -247,3 +247,92 @@ def test_batched_split_and_refusals():
     with pytest.raises(ValueError, match="CUDA"):
         tops.tt_linear_batched(torch.zeros(4, 1024, device="meta"),
                                [c.to("meta") for c in cores], spec)
+
+
+# ------------------------------------------------------- fiber body tiling
+
+def _config_specs():
+    """Every TTSpec the port's PINN configs build: the paper's table rows,
+    ``pinn_config`` (hidden 1024) and ``pinn_reduced`` (hidden 64, L 3) of
+    each registered PDE."""
+    from repro_torch import pde
+    from repro_torch.configs import hjb_pinn
+    from repro_torch.core import pinn
+    cfgs = [hjb_pinn.TONN_OFFCHIP, hjb_pinn.TONN_ONCHIP,
+            hjb_pinn.TONN_ONCHIP_FUSED, hjb_pinn.REDUCED]
+    for name in pde.available():
+        cfgs += [hjb_pinn.pinn_config(name, "tt"),
+                 hjb_pinn.pinn_reduced(name, "tt")]
+    return {(s.out_modes, s.in_modes, s.ranks): s
+            for cfg in cfgs for s in pinn.TensorPinn(cfg).specs}
+
+
+@pytest.mark.parametrize("rows_total", [None, 1, 231, 2048, 47_300, 65_536])
+def test_fiber_tile_fits_every_spec_the_configs_build(rows_total):
+    """The fiber body's tiling of every spec the configs build: within the
+    fiber cap, the block's threads and shared memory, three blocks to an SM
+    when more than one row fits, and no more rows per block than the launch
+    needs to put three blocks on every SM."""
+    specs = _config_specs()
+    assert ttt.PAPER_TONN_SPEC in specs.values()
+    assert tttc.FIBER_THREADS <= 1024
+    for spec in specs.values():
+        tile = tttc.fiber_tile(spec, rows_total)
+        widths = [(r * n, m * rn) for r, m, n, rn in spec.core_shapes]
+        assert len(tile.caps) == spec.L
+        for (f_in, f_out), cap in zip(widths, tile.caps):
+            assert max(f_in, f_out) <= cap <= tttc.MAX_FIBER
+            assert cap in (4, 8, 16, 32)
+        assert tile.stride % 32 == 0
+        assert tile.stride >= tttc.chain_widest(spec)
+        assert tile.buffers == (1 if all(a == b for a, b in widths) else 2)
+        assert 1 <= tile.rows <= tttc.MAX_FIBER_ROWS
+        assert tile.smem_bytes == 4 * (
+            tttc._core_floats(spec) + sum(c * c for c in tile.caps)
+            + tile.buffers * tile.rows * tile.stride)
+        assert tile.smem_bytes <= tttc.SMEM_MAX_BYTES
+        if tile.rows > 1:
+            assert tile.smem_bytes <= tttc.SMEM_BLOCK_BUDGET
+        if rows_total is not None:
+            assert tile.rows <= max(1, -(-rows_total // (
+                tttc.BLOCKS_PER_SM * tttc.H100_SMS)))
+
+
+def test_fiber_tile_at_the_papers_spec():
+    """One buffer in place (every step 8 → 8), 16 rows of 4 KB: three
+    blocks of 66 KB share an SM; the served pool of 2048 rows takes 6 rows a
+    block, 342 blocks, and the hidden layer's 11 × 4300 rows the full
+    tile."""
+    spec = ttt.PAPER_TONN_SPEC
+    tile = tttc.fiber_tile(spec)
+    assert (tile.rows, tile.stride, tile.buffers, tile.caps) == \
+        (16, 1024, 1, (8, 8, 8, 8))
+    assert tile.smem_bytes == 4 * (256 + 4 * 64 + 16 * 1024)
+    assert tttc.fiber_tile(spec, 2048).rows == 6
+    assert tttc.fiber_tile(spec, 11 * 4300) == tile
+    assert tttc.fiber_tile(spec, 11 * 21).rows == 1
+    # the element body keeps its own tiling
+    assert tttc.rows_per_block(spec) == 5
+
+
+@pytest.mark.parametrize("out_dim,in_dim,L,rank", [(96, 128, 2, 8),
+                                                   (48, 60, 3, 16),
+                                                   (256, 512, 3, 8)])
+def test_fiber_tile_refuses_a_fiber_past_the_cap(out_dim, in_dim, L, rank):
+    """A spec with a fiber wider than 32 raises; nothing falls back."""
+    spec = ttt.auto_factorize(out_dim, in_dim, L=L, max_rank=rank)
+    widths = [(r * n, m * rn) for r, m, n, rn in spec.core_shapes]
+    assert max(max(w) for w in widths) > tttc.MAX_FIBER
+    with pytest.raises(ValueError, match="at most 32"):
+        tttc.fiber_tile(spec)
+    with pytest.raises(ValueError, match="at most 32"):
+        tttc.fiber_tile(spec, 100)
+
+
+def test_fiber_tile_refuses_a_row_past_shared_memory():
+    """A row wider than a block's shared memory raises too (fibers of
+    4 → 4, 4^8 = 65,536 floats a row)."""
+    spec = ttt.TTSpec((4,) * 8, (4,) * 8, (1,) * 9)
+    assert 4 * tttc.chain_widest(spec) > tttc.SMEM_MAX_BYTES
+    with pytest.raises(ValueError, match="shared memory"):
+        tttc.fiber_tile(spec)
