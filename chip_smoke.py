@@ -16,8 +16,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 not a multiple of the tile, and a rank-4 non-square spec;
                 bound ``max|kernel − plain| ≤ 1e-5·max|plain| + 1e-6`` (f32
                 sums in another order); and bit for bit against
-                ``tt_contract_batched`` (the element body) at P = 1.  Each row
-                names its design and tile (``fiber_tile``).  At the paper's
+                ``tt_contract_batched`` at P = 1 (two launches of the one
+                fiber body, on tiles of their own).  Each row names its
+                design and tile (``fiber_tile``).  At the paper's
                 spec it times the kernel, the plain version and ``x @
                 tt_to_full(cores).T`` (the one-call library yardstick) with
                 CUDA events, and the kernel alone in a ``torch.profiler``
@@ -38,10 +39,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 on the 21 identity columns, shared; the hidden layer on
                 4300 rows per entry) and a rank-4 non-square spec at P = 3,
                 B = 777, against ``tt_contract_batched_ref`` at the bound of
-                phase 3; every entry p (element body) bit for bit against
-                ``tt_contract(x[p], cores[p])`` (fiber body).  Times the
-                hidden-layer launch, its plain version and ``torch.bmm(x,
-                Wᵀ)`` against the densified per-entry weights.
+                phase 3; every entry p bit for bit against
+                ``tt_contract(x[p], cores[p])``.  Each row names its design
+                (the fiber body) and tile and the launch's device time alone
+                in a ``torch.profiler`` trace (``kernel_device_ms``).  Times
+                the hidden-layer launch, its plain version and
+                ``torch.bmm(x, Wᵀ)`` against the densified per-entry
+                weights.
   6. mesh     — ``mesh_apply_stacked`` on the 16- and 4-port layouts of the
                 paper's core meshes, transposed and not, x shared and per
                 entry, and a 64-port layout, against
@@ -72,26 +76,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 same params, ξ, batch and noise through the plain path on
                 the CPU (u within 1e-4 of max|u|, losses rtol 1e-1: the FD
                 residual amplifies f32 differences by 1/h² = 1e4); the
-                checkpoint loads into ``SolverRegistry`` and its served u
+                checkpoint, which carries the chip's noise, loads into
+                ``SolverRegistry`` without ``hw_noise=`` and its served u
                 equals the trainer's final ``model.u`` (1e-6).  Times a ZO
                 step with CUDA events, traces a steady window of 5
                 (``torch.profiler``: kernels per step, the device's busy
                 share of the window, the top 5) and counts the aten ops of
                 one ``prepare_params_stacked``.
-  8. quant-kernel — ``tt_contract_batched_quant`` for int8 and fp8-e4m3 at
-                the three launches of a QAT step (the shapes of phase 5, block
-                32) and the rank-4 spec at P = 3, B = 777, blocks 32 and 16
-                (padded codes), with an all-zero block.  Checks: the wrapper's
-                codes and scales on the card bit-equal to the CPU's
-                ``quantize_blockwise_stacked``; every entry bit-equal to
-                ``tt_contract_batched`` on the fake-quantized cores; the bound
-                of phase 3 against ``tt_contract_batched_quant_ref`` (the
-                quantized kernel runs the fiber body, the f32 one the
-                element body).  Times the int8 hidden-layer call (quantizer
-                and launch), its plain version and ``torch.bmm`` against the
-                densified fake-quantized weights; the kernel alone in a
-                ``torch.profiler`` trace (``kernel_device_ms``) and the
-                quantizer alone (``quantizer_ms``).
+  8. quant-kernel — ``tt_contract_batched_quant``, which quantizes the f32
+                cores in its launch, for int8 and fp8-e4m3 at the three
+                launches of a QAT step (the shapes of phase 5, block 32) and
+                the rank-4 spec at P = 3, B = 777, blocks 32 and 24 (every
+                core's last run padded), with an all-zero block.  Checks:
+                every entry bit-equal to ``tt_contract_batched`` on the
+                ``fake_quant_stacked`` cores; the bound of phase 3 against
+                ``tt_contract_batched_quant_ref``.  Times the int8
+                hidden-layer call, its plain version and ``torch.bmm``
+                against the densified fake-quantized weights, and traces
+                one call: one kernel and nothing else (the output's
+                allocation launches none), whose device time is
+                ``kernel_device_ms``.
   9. train-quant — phase 7 with ``--quant int8 --quant-block 32
                 --phase-bits 8`` added to its argv: the same checks with 3
                 ``tt_contract_batched_quant``, 0 ``tt_contract_batched`` and
@@ -207,6 +211,20 @@ def _bound(spec, batch: int) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _batched_bound(spec, P: int, B: int, shared: bool,
+                   ops_per_param: int = 0) -> tuple:
+    """(bound_ms, bound_by) of a batched launch: x (read once, shared or
+    per entry), y and each entry's f32 cores at the card's memory rate,
+    against the chains' FLOPs (and ``ops_per_param`` per core element) at
+    the f32 peak."""
+    x_elems = (1 if shared else P) * B * spec.in_dim
+    t_bytes = 4 * (x_elems + P * B * spec.out_dim
+                   + P * spec.num_params) / PEAK_BYTES_PER_S * 1e3
+    t_ops = P * (spec.contraction_flops(B) + ops_per_param * spec.num_params
+                 ) / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def phase_device():
     import torch
     name = torch.cuda.get_device_name(0)
@@ -278,7 +296,7 @@ def phase_kernel(device) -> dict:
             raise AssertionError(
                 f"tt_contract disagrees with its plain version at {label} "
                 f"B={batch}: max|diff| {err:.3e} > {tol:.3e}")
-        # the fiber body against the element body of tt_contract_batched
+        # two launches of the one body: tt_contract_batched at P = 1
         y_b = ttc.tt_contract_batched(x, [c[None] for c in cores], spec)[0]
         if not torch.equal(y_k, y_b):
             raise AssertionError(
@@ -453,8 +471,13 @@ def phase_batched(device) -> dict:
                                      f"{label} differs from tt_contract")
         row = {"case": label, "P": P, "rows": B, "shared_x": shared,
                "modes": [list(spec.out_modes), list(spec.in_modes)],
-               "ranks": list(spec.ranks), "max_abs_err": err,
-               "max_abs_plain": scale, "entries_bitwise_equal": True}
+               "ranks": list(spec.ranks), "design": "fibers",
+               "tile": dataclasses.asdict(ttc.fiber_tile(spec, P * B)),
+               "max_abs_err": err, "max_abs_plain": scale,
+               "entries_bitwise_equal": True,
+               "kernel_device_ms": _profile(
+                   lambda: ttc.tt_contract_batched(x, cores, spec),
+                   match="tt_contract_batched_kernel")["match_ms"]}
         if label == "hidden-stencil":
             w = torch.stack([tt.tt_to_full([c[p] for c in cores], spec)
                              for p in range(P)])                # (P, M, N)
@@ -464,13 +487,8 @@ def phase_batched(device) -> dict:
             row["plain_ms"] = _time_ms(lambda: ref.tt_contract_batched_ref(
                 x, cores, spec), 10)
             row["library_ms"] = _time_ms(lambda: torch.bmm(x, wt), 50)
-            x_elems = (1 if shared else P) * B * spec.in_dim
-            t_bytes = 4 * (x_elems + P * B * spec.out_dim
-                           + P * spec.num_params) / PEAK_BYTES_PER_S * 1e3
-            t_ops = P * spec.contraction_flops(B) / PEAK_F32_FLOPS * 1e3
-            row["bound_ms"], row["bound_by"] = (
-                (t_bytes, "bytes") if t_bytes >= t_ops
-                else (t_ops, "operations"))
+            row["bound_ms"], row["bound_by"] = _batched_bound(spec, P, B,
+                                                              shared)
         results[label] = row
         print(f"[batched] {json.dumps(row)}", flush=True)
     return results
@@ -731,12 +749,13 @@ def phase_quant_kernel(device) -> dict:
     rank4 = tt.auto_factorize(256, 512, L=3, max_rank=4)
     # label -> (spec, P, rows, shared x, block): the three launches of a
     # QAT step at the paper's config, whose core sizes (64) are block
-    # multiples, and a rank-4 spec whose core sizes are not (padded codes)
+    # multiples, and a rank-4 spec (core sizes 256, 1024, 128) at a block
+    # that divides them and at one that pads every core's last run
     cases = {"layer0-rows": (paper, 11, 100, True, 32),
              "layer0-columns": (paper, 11, 21, True, 32),
              "hidden-stencil": (paper, 11, 4300, False, 32),
              "rank4-777-b32": (rank4, 3, 777, False, 32),
-             "rank4-777-b16": (rank4, 3, 777, False, 16)}
+             "rank4-777-b24": (rank4, 3, 777, False, 24)}
     results = {}
     for dtype in ("int8", "fp8_e4m3"):
         for i, (label, (spec, P, B, shared, block)) in enumerate(
@@ -750,18 +769,9 @@ def phase_quant_kernel(device) -> dict:
             cores[0][0].view(-1)[:block].zero_()  # an all-zero block
             x = torch.randn((B, spec.in_dim) if shared
                             else (P, B, spec.in_dim), generator=gen).to(device)
-            # codes and scales made on the card equal the CPU's
-            for k, c in enumerate(cores):
-                q_d, s_d = quant_lib.quantize_blockwise_stacked(c, quant)
-                q_c, s_c = quant_lib.quantize_blockwise_stacked(c.cpu(),
-                                                                quant)
-                if not (torch.equal(_code_bytes(q_d).cpu(), _code_bytes(q_c))
-                        and torch.equal(s_d.cpu(), s_c)):
-                    raise AssertionError(f"{dtype} codes or scales of core "
-                                         f"{k} at {label}: the card's differ "
-                                         "from the CPU's")
             y = ttc.tt_contract_batched_quant(x, cores, spec, quant)
-            # every entry is the f32 kernel's on the fake-quantized cores
+            # the cores the kernel quantizes in its launch are
+            # fake_quant_stacked's: every entry is the f32 kernel's on them
             fq = [quant_lib.fake_quant_stacked(c, quant) for c in cores]
             y_f = ttc.tt_contract_batched(x, fq, spec)
             for p in range(P):
@@ -777,7 +787,7 @@ def phase_quant_kernel(device) -> dict:
                    "rows": B, "shared_x": shared,
                    "modes": [list(spec.out_modes), list(spec.in_modes)],
                    "ranks": list(spec.ranks), "max_abs_err": err,
-                   "max_abs_plain": scale, "codes_card_equal_cpu": True,
+                   "max_abs_plain": scale,
                    "entries_bitwise_equal_f32_on_fake_quant": True}
             if label == "hidden-stencil" and dtype == "int8":
                 w = torch.stack([tt.tt_to_full([c[p] for c in fq], spec)
@@ -787,32 +797,27 @@ def phase_quant_kernel(device) -> dict:
                 row["tile"] = dataclasses.asdict(ttc.fiber_tile(spec, P * B))
                 row["ms"] = _time_ms(lambda: ttc.tt_contract_batched_quant(
                     x, cores, spec, quant), 50)
-                # the call is the quantizer's small ops and one launch: the
-                # kernel alone from a trace, and the quantizer alone
-                row["kernel_device_ms"] = _profile(
+                # the call is one launch and no other kernel: the output's
+                # torch.empty launches none, the quantizer runs in the launch
+                traced = _profile(
                     lambda: ttc.tt_contract_batched_quant(x, cores, spec,
                                                           quant),
-                    match="tt_contract_batched_quant_kernel")["match_ms"]
-                row["quantizer_ms"] = _time_ms(lambda: [
-                    quant_lib.quantize_blockwise_stacked(c, quant)
-                    for c in cores], 50)
+                    match="tt_contract_batched_quant_kernel")
+                if traced["kernels"] != 1 or traced["match_kernels"] != 1:
+                    raise AssertionError(
+                        f"a tt_contract_batched_quant call ran "
+                        f"{traced['kernels']} kernels ({traced['top']}); "
+                        "expected its own launch alone")
+                row["kernels_per_call"] = traced["kernels_per_call"]
+                row["kernel_device_ms"] = traced["match_ms"]
                 row["plain_ms"] = _time_ms(
                     lambda: ref.tt_contract_batched_quant_ref(
                         x, cores, spec, quant), 10)
                 row["library_ms"] = _time_ms(lambda: torch.bmm(x, wt), 50)
-                # x and y in f32; each entry's codes (1 byte) and scales
-                # (4 bytes a block) read once
-                x_elems = (1 if shared else P) * B * spec.in_dim
-                code_bytes = P * sum(
-                    -(-(r * m * n * rn) // block) * block * (1 + 4 / block)
-                    for r, m, n, rn in spec.core_shapes)
-                t_bytes = (4 * (x_elems + P * B * spec.out_dim) + code_bytes
-                           ) / PEAK_BYTES_PER_S * 1e3
-                t_ops = (P * spec.contraction_flops(B) + P * spec.num_params
-                         ) / PEAK_F32_FLOPS * 1e3
-                row["bound_ms"], row["bound_by"] = (
-                    (t_bytes, "bytes") if t_bytes >= t_ops
-                    else (t_ops, "operations"))
+                # x and y, and each entry's f32 cores read once; the
+                # quantization's ~4 operations per core element
+                row["bound_ms"], row["bound_by"] = _batched_bound(
+                    spec, P, B, shared, ops_per_param=4)
             results[f"{label}-{dtype}"] = row
             print(f"[quant-kernel] {json.dumps(row)}", flush=True)
     return results
@@ -987,10 +992,9 @@ def phase_train(device, quant: tuple = ()) -> dict:
     if pinn.config_from_meta(meta["pinn"]) != model.cfg:
         raise AssertionError(f"checkpoint meta {meta['pinn']} is not the "
                              f"run's config {model.cfg}")
+    # the checkpoint carries the chip's noise: it loads without hw_noise=
     reg = SolverRegistry(device=device)
-    reg.load_checkpoint("hjb", ckpt, device=device,
-                        hw_noise=zoo.tree_map(lambda t: t.cpu().numpy(),
-                                              noise))
+    reg.load_checkpoint("hjb", ckpt, device=device)
     engine = PdeServingEngine(reg, slots=4, slot_points=256, device=device)
     pts = model.problem.sample_collocation(counter_generator(11), 700)
     req = engine.submit(PointRequest("hjb", pts.numpy()))
@@ -1271,8 +1275,9 @@ def _profile(fn, calls: int = 1, match: str | None = None) -> dict:
     device kernels (one stream: they do not overlap), the device's busy
     share of the wall, the kernels in all and per call, and the five
     kernels that take most of the time; with ``match``, also the device
-    time and count of the kernels whose name contains it and the longest
-    one of them (``match_ms``, ``match_kernels``, ``match_max_ms``).
+    time and count of the kernels whose name contains it, the longest one
+    of them, and each one's time in launch order over one call's share
+    (``match_ms``, ``match_kernels``, ``match_max_ms``, ``match_each_ms``).
     Without device events in the trace the device numbers are None (not
     measured)."""
     import torch
@@ -1287,13 +1292,14 @@ def _profile(fn, calls: int = 1, match: str | None = None) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict = {}
-    longest = None
+    matched = []                                      # (start, ms)
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             ms, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
             if match is not None and match in e.name:
-                longest = max(longest or 0.0, e.time_range.elapsed_us() / 1e3)
+                matched.append((e.time_range.start,
+                                e.time_range.elapsed_us() / 1e3))
     device_ms = sum(ms for ms, _ in by_name.values()) if by_name else None
     kernels = sum(n for _, n in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
@@ -1305,7 +1311,9 @@ def _profile(fn, calls: int = 1, match: str | None = None) -> dict:
         hits = [(ms, n) for name, (ms, n) in by_name.items() if match in name]
         out["match_ms"] = sum(ms for ms, _ in hits) if hits else None
         out["match_kernels"] = sum(n for _, n in hits)
-        out["match_max_ms"] = longest
+        out["match_max_ms"] = max((ms for _, ms in matched), default=None)
+        out["match_each_ms"] = [ms for _, ms in
+                                sorted(matched)[:len(matched) // calls]]
     return out
 
 
@@ -1519,7 +1527,9 @@ def main() -> int:
                "max_abs_err": max(r["max_abs_err"] for r in batched.values()),
                "ms": main_b["ms"], "plain_ms": main_b["plain_ms"],
                "bound_ms": main_b["bound_ms"], "bound_by": main_b["bound_by"],
-               "library_ms": main_b["library_ms"], "design": "elements",
+               "library_ms": main_b["library_ms"],
+               "design": main_b["design"], "tile": main_b["tile"],
+               "kernel_device_ms": main_b["kernel_device_ms"],
                "shape": "x (11, 4300, 1024) f32 per entry, PAPER_TONN_SPEC "
                         "cores (11, r, m, n, r')",
                "cases": list(batched.values())}
@@ -1567,11 +1577,12 @@ def main() -> int:
                "ms": main_q["ms"], "plain_ms": main_q["plain_ms"],
                "bound_ms": main_q["bound_ms"], "bound_by": main_q["bound_by"],
                "library_ms": main_q["library_ms"],
-               "design": main_q["design"],
+               "design": main_q["design"], "tile": main_q["tile"],
                "kernel_device_ms": main_q["kernel_device_ms"],
-               "quantizer_ms": main_q["quantizer_ms"],
+               "kernels_per_call": main_q["kernels_per_call"],
                "shape": "x (11, 4300, 1024) f32 per entry, PAPER_TONN_SPEC "
-                        "cores quantized int8, block 32",
+                        "cores (11, r, m, n, r') f32, quantized int8 in "
+                        "the launch, block 32",
                "cases": list(quant_kernel.values())}
     main_f = flash["a-qwen-prefill-bfloat16"]
     entry_f = {"name": "flash_attention", "route": "cuda",

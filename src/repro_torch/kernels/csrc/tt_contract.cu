@@ -1,6 +1,6 @@
 // Fused TT-chain contraction for Hopper (sm_90a): y = x @ W(cores)^T, for
 // one core set (tt_contract), P stacked core sets (tt_contract_batched) or
-// P stacked block-quantized core sets (tt_contract_batched_quant).
+// P stacked core sets block-quantized on chip (tt_contract_batched_quant).
 //
 // Replaces the Pallas kernels repro/kernels/tt_contract.py::tt_contract
 // (pallas_call at line 115), ::tt_contract_batched (pallas_call at line
@@ -30,15 +30,13 @@
 // Step k, with mp over M_<k and ns over N_>k:
 //   out[mp, mk, rn, ns] = sum_{r, nk} a[mp, r, nk, ns] * G_k[r, mk, nk, rn]
 //
-// Two bodies run that step.  chain_rows (tt_contract_batched) gives each
-// thread one output element per turn: three runtime divisions and 16 shared
-// loads buy 8 FMAs, in blocks of 5 rows.  chain_fibers (tt_contract and
-// tt_contract_batched_quant) gives each thread a fiber: one (row, mp, ns),
-// whose r*n_k inputs a[row, mp, :, :, ns] it loads into registers once and
-// turns into all m_k*r' outputs out[row, mp, :, :, ns], against the step's
-// core held in registers (or read as warp-wide broadcasts when it is larger
-// than 64 floats).  The fiber widths are template arguments (4, 8, 16 or 32,
-// the cap; narrower fibers pad their inputs with +0 and the core's rows with
+// One body runs that step, chain_fibers, in all three kernels.  It gives
+// each thread a fiber: one (row, mp, ns), whose r*n_k inputs
+// a[row, mp, :, :, ns] it loads into registers once and turns into all
+// m_k*r' outputs out[row, mp, :, :, ns], against the step's core held in
+// registers (or read as warp-wide broadcasts when it is larger than 64
+// floats).  The fiber widths are template arguments (4, 8, 16 or 32, the
+// cap; narrower fibers pad their inputs with +0 and the core's rows with
 // -0, which leaves every sum exactly as it was); the threads walk fibers and
 // rows with nested loops, the starting split by host-built reciprocals, so
 // no integer division runs per fiber or element.  When r*n_k == m_k*r' a
@@ -51,34 +49,31 @@
 // blocks to an SM: ptxas gives the body 164 registers and no spills, where
 // 256 threads capped at 128 registers spilled.
 //
-// Both bodies give each output element the same sum in the same order:
-// acc = 0, then acc = fmaf(a[r, nk], G[r, mk, nk, rn], acc) over r, then
-// n_k.  So every row's arithmetic is the same whatever tile, body or kernel
-// it lands in: padding a batch cannot change the values of the real rows,
-// entry p of the batched kernel equals tt_contract(x[p], cores[p]) bit for
-// bit, and so does the quantized kernel on the fake-quantized cores.
+// Every output element is one sum in one order: acc = 0, then acc =
+// fmaf(a[r, nk], G[r, mk, nk, rn], acc) over r, then n_k.  So every row's
+// arithmetic is the same whatever tile or kernel it lands in: padding a
+// batch cannot change the values of the real rows, entry p of the batched
+// kernel equals tt_contract(x[p], cores[p]) bit for bit, and so does the
+// quantized kernel on the fake-quantized cores.
 //
-// The quantized kernel reads entry p's cores as narrow codes (int8 or
-// fp8-e4m3, one byte each, (P, padded_k) per core, padded_k the core's size
-// rounded up to the block) and f32 scales ((P, padded_k / block)).  It
-// dequantizes them into the shared core buffer before the chain, one f32
-// multiply per element (code * scale of its block) with nothing added, so
-// the buffer holds exactly kernels/quant.py::fake_quant_stacked's values
-// (the fiber body then only permutes them), and entry p equals
-// tt_contract_batched on the fake-quantized cores bit for
-// bit.  The multiply stays outside the chain's FMA loop, where nvcc could
-// contract it into an fmaf and round once instead of twice.  The codes and
-// scales add ~0.3 KB per entry at the paper's spec (256 codes, 8 scales at
-// block 32) against 8 KB of x and y per row: the bound is the f32 kernel's.
+// The three kernels differ only in the functor that fills the shared core
+// buffer before the chain: CopyCores copies entry p's f32 cores, and
+// QuantizeCores quantizes them on the way, block by block, to the values
+// kernels/quant.py::fake_quant_stacked gives (int8 or fp8-e4m3 codes of
+// absmax / qmax scales, multiplied back).  Each step is one IEEE operation
+// in PyTorch's order — the two divisions are divisions by a float, never
+// multiplications by a reciprocal, and the final multiply stays out of any
+// FMA — so the buffer holds the bits PyTorch computes.  The quantizer reads
+// the same 256 floats at the paper's spec as the copy and adds two divisions
+// and one block's absmax per element, against 8 KB of x and y per row: the
+// bound is the f32 kernel's.
 
-#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kMaxCores = 8;
-constexpr int kThreads = 256;
 
 struct TTChain {
   int L;
@@ -90,14 +85,6 @@ struct TTChain {
   int ranks[kMaxCores + 1];
   int core_off[kMaxCores + 1];      // offsets into the shared core buffer
   const float* cores[kMaxCores];    // device pointers, (P, r, m, n, r') each
-};
-
-// Block-quantized cores of the quantized kernel (the chain's `cores`
-// pointers are unused there).
-struct QuantCores {
-  int block;
-  const uint8_t* codes[kMaxCores];  // (P, padded_k) narrow codes, 1 byte each
-  const float* scales[kMaxCores];   // (P, padded_k / block)
 };
 
 // Packs entry p's f32 cores, as they are, into the shared core buffer
@@ -115,97 +102,79 @@ struct CopyCores {
   }
 };
 
-// Dequantizes entry p's codes of type Code into the shared core buffer:
-// element i of core k is float(code[i]) * scale[i / block]; the padding past
-// |G_k| is dropped.
-template <typename Code>
-struct DequantCores {
-  const QuantCores& q;
+// The value of torch.float8_e4m3fn's conversion of v: the code byte of
+// c10's fp8e4m3fn_from_fp32_value, decoded exactly.  It rounds to nearest
+// even and saturates to 448 where the rounding reaches the NaN code 0x7f
+// (from 464 up), as the hardware's satfinite conversion does; NaN stays
+// NaN.  (Older releases gave NaN from 464 up.  The quantizer
+// never gets there: |x / scale| is at most 448 and an ulp.)
+__device__ __forceinline__ float e4m3_round(float v) {
+  constexpr uint32_t kOverflow = 1087u << 20;    // 480.0f
+  constexpr uint32_t kDenormMagic = 141u << 23;  // (127 - 7) + (23 - 3) + 1
+  uint32_t bits = __float_as_uint(v);
+  const uint32_t sign = bits & 0x80000000u;
+  bits ^= sign;
+  uint32_t code;
+  if (bits >= kOverflow) {
+    code = bits > 0x7f800000u ? 0x7f : 0x7e;
+  } else if (bits < (121u << 23)) {              // below 2^-6: subnormal
+    code = __float_as_uint(__fadd_rn(__uint_as_float(bits),
+                                     __uint_as_float(kDenormMagic))) -
+           kDenormMagic;
+  } else {
+    const uint32_t mant_odd = (bits >> 20) & 1;
+    code = ((bits + ((uint32_t)(7 - 127) << 23) + 0x7ffff + mant_odd) >> 20) &
+           0xff;
+    if (code == 0x7f) code = 0x7e;
+  }
+  const int exp = code >> 3;
+  const int mant = code & 7;
+  float mag;
+  if (code == 0x7f) mag = __uint_as_float(0x7fc00000u);           // NaN
+  else if (exp == 0) mag = __fmul_rn(static_cast<float>(mant), 0x1p-9f);
+  else mag = __fmul_rn(static_cast<float>(8 + mant),
+                       __uint_as_float(static_cast<uint32_t>(exp + 117) << 23));
+  return sign ? -mag : mag;
+}
+
+// Quantizes entry p's f32 cores into the shared core buffer to the values
+// of kernels/quant.py::fake_quant_stacked, for kCode 0 (int8, qmax 127) or
+// 1 (fp8-e4m3, qmax 448).  Each core is cut into runs of `block` elements
+// (the last one short: the zeros the plain quantizer pads it with change
+// no absmax).  Element i of a run with absmax m becomes
+//   scale = m > 0 ? m / qmax : 1,   code = q(x_i / scale),   code * scale,
+// q the int8 rint clamped to +-127 or the e4m3 conversion, each operation
+// rounded on its own.  Each thread takes whole elements, flattened over the
+// cores, and reads its run from device memory (L1 keeps the entry's cores).
+template <int kCode>
+struct QuantizeCores {
   size_t p;
+  int block;
   __device__ __forceinline__ void operator()(const TTChain& chain,
                                              float* g_all, int tid) const {
-    for (int k = 0; k < chain.L; ++k) {
+    const float qmax = kCode == 0 ? 127.0f : 448.0f;
+    int k = 0;
+    for (int i = tid; i < chain.core_off[chain.L]; i += blockDim.x) {
+      while (i >= chain.core_off[k + 1]) ++k;
       const int size = chain.core_off[k + 1] - chain.core_off[k];
-      const int padded = (size + q.block - 1) / q.block * q.block;
-      const Code* codes =
-          reinterpret_cast<const Code*>(q.codes[k]) + p * padded;
-      const float* scales = q.scales[k] + p * (padded / q.block);
-      float* dst = g_all + chain.core_off[k];
-      for (int i = tid; i < size; i += blockDim.x)
-        dst[i] = __fmul_rn(static_cast<float>(codes[i]), scales[i / q.block]);
+      const float* src = chain.cores[k] + p * size;
+      const int e = i - chain.core_off[k];
+      const int run0 = e / block * block;
+      const int run1 = min(run0 + block, size);
+      float absmax = 0.0f;
+      for (int j = run0; j < run1; ++j) absmax = fmaxf(absmax, fabsf(src[j]));
+      const float scale = absmax > 0.0f ? __fdiv_rn(absmax, qmax) : 1.0f;
+      const float v = __fdiv_rn(src[e], scale);
+      float code;
+      if constexpr (kCode == 0)
+        code = static_cast<float>(
+            static_cast<int>(fminf(fmaxf(rintf(v), -qmax), qmax)));
+      else
+        code = e4m3_round(v);
+      g_all[i] = __fmul_rn(code, scale);
     }
   }
 };
-
-// The chain for `nrows` contiguous rows of one stack entry: xs -> ys, with
-// the entry's cores packed into shared memory by `load_cores` (CopyCores or
-// DequantCores).
-template <typename LoadCores>
-__device__ __forceinline__ void chain_rows(const float* __restrict__ xs,
-                                           float* __restrict__ ys, int nrows,
-                                           int rows_per_block,
-                                           const TTChain& chain,
-                                           const LoadCores& load_cores) {
-  extern __shared__ float smem[];
-  const int core_floats = (chain.core_off[chain.L] + 3) & ~3;
-  float* g_all = smem;
-  float* buf_a = smem + core_floats;
-  float* buf_b = buf_a + rows_per_block * chain.widest;
-  const int tid = threadIdx.x;
-
-  load_cores(chain, g_all, tid);
-  // this tile's input rows, contiguous in device memory
-  for (int i = tid; i < nrows * chain.in_dim; i += blockDim.x) {
-    const int r = i / chain.in_dim;
-    buf_a[r * chain.widest + (i - r * chain.in_dim)] = xs[i];
-  }
-  __syncthreads();
-
-  float* a = buf_a;
-  float* o = buf_b;
-  int m_prefix = 1;
-  int n_suffix = chain.in_dim;
-  for (int k = 0; k < chain.L; ++k) {
-    const int r = chain.ranks[k];
-    const int mk = chain.out_modes[k];
-    const int nk = chain.in_modes[k];
-    const int rn = chain.ranks[k + 1];
-    n_suffix /= nk;
-    const float* g = g_all + chain.core_off[k];
-    const int per_row = m_prefix * mk * rn * n_suffix;
-    const int a_mp_stride = r * nk * n_suffix;
-    for (int e = tid; e < nrows * per_row; e += blockDim.x) {
-      const int row = e / per_row;
-      const int rem = e - row * per_row;
-      int t = rem / n_suffix;
-      const int ns = rem - t * n_suffix;
-      const int rni = t % rn;
-      t /= rn;
-      const int mki = t % mk;
-      const int mp = t / mk;
-      const float* ar = a + row * chain.widest + mp * a_mp_stride + ns;
-      const float* gr = g + mki * nk * rn + rni;   // G[ri, mki, nki, rni]
-      float acc = 0.0f;
-      for (int ri = 0; ri < r; ++ri) {
-        for (int nki = 0; nki < nk; ++nki) {
-          acc = fmaf(ar[(ri * nk + nki) * n_suffix],
-                     gr[(ri * mk * nk + nki) * rn], acc);
-        }
-      }
-      o[row * chain.widest + rem] = acc;
-    }
-    __syncthreads();
-    float* tmp = a;
-    a = o;
-    o = tmp;
-    m_prefix *= mk;
-  }
-
-  for (int i = tid; i < nrows * chain.out_dim; i += blockDim.x) {
-    const int r = i / chain.out_dim;
-    ys[i] = a[r * chain.widest + (i - r * chain.out_dim)];
-  }
-}
 
 // ----------------------------------------------------------- fiber body
 
@@ -526,9 +495,10 @@ __device__ __forceinline__ void fiber_step(float* a, float* o,
 }
 
 // The chain for `nrows` contiguous rows of one stack entry (xs -> ys) by
-// fibers; `load_cores` as for chain_rows.  Shared memory: the cores as
-// loaded, the repacked cores, then one row buffer (every step in place) or
-// two (ping-pong), each fc.rows * fc.stride floats.
+// fibers, with the entry's cores packed into shared memory by `load_cores`
+// (CopyCores or QuantizeCores).  Shared memory: the cores as loaded, the
+// repacked cores, then one row buffer (every step in place) or two
+// (ping-pong), each fc.rows * fc.stride floats.
 template <typename LoadCores>
 __device__ __forceinline__ void chain_fibers(const float* __restrict__ xs,
                                              float* __restrict__ ys,
@@ -579,43 +549,43 @@ tt_contract_kernel(const float* __restrict__ x, float* __restrict__ y,
                chain, fc, CopyCores{0});
 }
 
-// grid (row tiles, P): block (i, p) runs rows [i*rpb, (i+1)*rpb) of entry p
-__global__ void __launch_bounds__(kThreads)
+// grid (row tiles, P): block (i, p) runs rows [i*fc.rows, (i+1)*fc.rows)
+// of entry p, on entry p's f32 cores
+__global__ void __launch_bounds__(kFiberThreads, 3)
 tt_contract_batched_kernel(const float* __restrict__ x, float* __restrict__ y,
-                           int batch, int rows_per_block, int64_t x_stride_p,
-                           const TTChain chain) {
+                           int batch, int64_t x_stride_p,
+                           const __grid_constant__ TTChain chain,
+                           const __grid_constant__ FiberChain fc) {
   const size_t p = blockIdx.y;
-  const int row0 = blockIdx.x * rows_per_block;
-  chain_rows(x + p * x_stride_p + (size_t)row0 * chain.in_dim,
-             y + (p * batch + row0) * chain.out_dim,
-             min(rows_per_block, batch - row0), rows_per_block, chain,
-             CopyCores{p});
+  const int row0 = blockIdx.x * fc.rows;
+  chain_fibers(x + p * x_stride_p + (size_t)row0 * chain.in_dim,
+               y + (p * batch + row0) * chain.out_dim,
+               min(fc.rows, batch - row0), chain, fc, CopyCores{p});
 }
 
-// The batched grid on the fiber body, with entry p's cores dequantized from
-// codes of type Code (int8_t or __nv_fp8_e4m3, whose conversion to float is
-// exact).
-template <typename Code>
+// The batched grid on entry p's cores quantized in the block (kCode 0:
+// int8, 1: fp8-e4m3) in runs of `block`.
+template <int kCode>
 __global__ void __launch_bounds__(kFiberThreads, 3)
 tt_contract_batched_quant_kernel(const float* __restrict__ x,
                                  float* __restrict__ y, int batch,
                                  int64_t x_stride_p,
                                  const __grid_constant__ TTChain chain,
                                  const __grid_constant__ FiberChain fc,
-                                 const __grid_constant__ QuantCores q) {
+                                 int block) {
   const size_t p = blockIdx.y;
   const int row0 = blockIdx.x * fc.rows;
   chain_fibers(x + p * x_stride_p + (size_t)row0 * chain.in_dim,
                y + (p * batch + row0) * chain.out_dim,
                min(fc.rows, batch - row0), chain, fc,
-               DequantCores<Code>{q, p});
+               QuantizeCores<kCode>{p, block});
 }
 
-// Fill `chain` from the descriptor and return the dynamic shared memory
-// the kernel needs (0 for a descriptor it cannot take).
-size_t parse_chain(const int64_t* desc, TTChain* chain, int rows_per_block) {
+// Fill `chain` from the descriptor; false for a descriptor the kernels
+// cannot take.
+bool parse_chain(const int64_t* desc, TTChain* chain) {
   chain->L = static_cast<int>(desc[0]);
-  if (chain->L < 1 || chain->L > kMaxCores || rows_per_block < 1) return 0;
+  if (chain->L < 1 || chain->L > kMaxCores) return false;
   chain->widest = static_cast<int>(desc[1]);
   const int64_t* out_modes = desc + 2;
   const int64_t* in_modes = out_modes + chain->L;
@@ -637,18 +607,7 @@ size_t parse_chain(const int64_t* desc, TTChain* chain, int rows_per_block) {
     chain->core_off[k + 1] = chain->core_off[k] + chain->ranks[k] *
         chain->out_modes[k] * chain->in_modes[k] * chain->ranks[k + 1];
   }
-  const size_t core_floats = (chain->core_off[chain->L] + 3) & ~3;
-  return (core_floats +
-          2 * static_cast<size_t>(rows_per_block) * chain->widest) *
-         sizeof(float);
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+  return true;
 }
 
 unsigned long long reciprocal(int d) {      // ceil(2^32 / d), for fast_div
@@ -712,11 +671,26 @@ size_t parse_fibers(const TTChain& chain, FiberChain* fc, int rows,
 // tiling plans three blocks of up to 74 KB on one SM).
 template <typename Kernel>
 cudaError_t allow_fiber_smem(Kernel kernel, size_t smem) {
-  cudaError_t err = allow_smem(kernel, smem);
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
+}
+
+// The chain and tiling of a batched launch; the dynamic shared memory it
+// needs, or 0 for arguments the kernels cannot take.
+size_t parse_batched(const void* desc, const void* x, const void* y,
+                     int batch, int stack, int64_t x_stride_p, int rows,
+                     TTChain* chain, FiberChain* fc) {
+  if (!parse_chain(static_cast<const int64_t*>(desc), chain) || batch < 1 ||
+      stack < 1 || stack > 65535 || x_stride_p < 0)
+    return 0;
+  return parse_fibers(*chain, fc, rows, x, y);
 }
 
 }  // namespace
@@ -724,9 +698,7 @@ cudaError_t allow_fiber_smem(Kernel kernel, size_t smem) {
 // Plain C entry points, bound with ctypes.
 //
 // desc (host memory, int64): [L, widest, out_modes[L], in_modes[L],
-//                             ranks[L+1], core pointers[L]]
-// (the quantized entry's desc carries code pointers in place of the core
-// pointers, then scale pointers[L]).
+//                             ranks[L+1], f32 core pointers[L]]
 // All launch on `stream` without synchronizing and return
 // cudaGetLastError() (or cudaErrorInvalidValue for arguments the kernel
 // cannot take).
@@ -734,7 +706,7 @@ extern "C" int tt_contract_launch(const void* x, void* y, const void* desc_ptr,
                                   int batch, int rows, void* stream) {
   TTChain chain;
   FiberChain fc;
-  if (parse_chain(static_cast<const int64_t*>(desc_ptr), &chain, 1) == 0 ||
+  if (!parse_chain(static_cast<const int64_t*>(desc_ptr), &chain) ||
       batch < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = parse_fibers(chain, &fc, rows, x, y);
@@ -753,55 +725,44 @@ extern "C" int tt_contract_launch(const void* x, void* y, const void* desc_ptr,
 extern "C" int tt_contract_batched_launch(const void* x, void* y,
                                           const void* desc_ptr, int batch,
                                           int stack, int64_t x_stride_p,
-                                          int rows_per_block, void* stream) {
+                                          int rows, void* stream) {
   TTChain chain;
-  const size_t smem = parse_chain(static_cast<const int64_t*>(desc_ptr),
-                                  &chain, rows_per_block);
-  if (smem == 0 || batch < 1 || stack < 1 || stack > 65535 || x_stride_p < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(tt_contract_batched_kernel, smem);
+  FiberChain fc;
+  const size_t smem = parse_batched(desc_ptr, x, y, batch, stack, x_stride_p,
+                                    rows, &chain, &fc);
+  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_fiber_smem(tt_contract_batched_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((batch + rows_per_block - 1) / rows_per_block, stack);
-  tt_contract_batched_kernel<<<grid, kThreads, smem,
+  const dim3 grid((batch + rows - 1) / rows, stack);
+  tt_contract_batched_kernel<<<grid, kFiberThreads, smem,
                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(y), batch,
-      rows_per_block, x_stride_p, chain);
+      static_cast<const float*>(x), static_cast<float*>(y), batch, x_stride_p,
+      chain, fc);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The batched entry with block-quantized cores: code k (P, padded_k) of
-// code_type 0 (int8) or 1 (fp8-e4m3, passed as its bytes), scale k
-// (P, padded_k / block) f32; x and y as in tt_contract_batched_launch.
+// The batched entry on the f32 cores quantized in the kernel, in runs of
+// `block`, to code_type 0 (int8) or 1 (fp8-e4m3); arguments as in
+// tt_contract_batched_launch.
 extern "C" int tt_contract_batched_quant_launch(
     const void* x, void* y, const void* desc_ptr, int batch, int stack,
     int64_t x_stride_p, int rows, int block, int code_type, void* stream) {
-  const int64_t* desc = static_cast<const int64_t*>(desc_ptr);
   TTChain chain;
   FiberChain fc;
-  if (parse_chain(desc, &chain, 1) == 0 || batch < 1 || stack < 1 ||
-      stack > 65535 || x_stride_p < 0 || block < 1 ||
-      (code_type != 0 && code_type != 1))
+  const size_t smem = parse_batched(desc_ptr, x, y, batch, stack, x_stride_p,
+                                    rows, &chain, &fc);
+  if (smem == 0 || block < 1 || (code_type != 0 && code_type != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = parse_fibers(chain, &fc, rows, x, y);
-  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
-  QuantCores q;
-  q.block = block;
-  const int64_t* scales = desc + 2 + 3 * chain.L + 1 + chain.L;
-  for (int k = 0; k < chain.L; ++k) {
-    q.codes[k] = reinterpret_cast<const uint8_t*>(chain.cores[k]);
-    q.scales[k] = reinterpret_cast<const float*>(scales[k]);
-    chain.cores[k] = nullptr;
-  }
   using QuantKernel = void (*)(const float*, float*, int, int64_t, TTChain,
-                               FiberChain, QuantCores);
-  const QuantKernel kernel =
-      code_type == 0 ? &tt_contract_batched_quant_kernel<int8_t>
-                     : &tt_contract_batched_quant_kernel<__nv_fp8_e4m3>;
+                               FiberChain, int);
+  const QuantKernel kernel = code_type == 0
+                                 ? &tt_contract_batched_quant_kernel<0>
+                                 : &tt_contract_batched_quant_kernel<1>;
   cudaError_t err = allow_fiber_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((batch + rows - 1) / rows, stack);
   kernel<<<grid, kFiberThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(y), batch, x_stride_p,
-      chain, fc, q);
+      chain, fc, block);
   return static_cast<int>(cudaGetLastError());
 }

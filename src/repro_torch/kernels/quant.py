@@ -11,12 +11,14 @@ Two domains, as in the JAX package (``repro.kernels.quant``):
     ``2π / 2**phase_bits`` grid before the hardware noise model acts.
 
 ``fake_quant`` (quantize, then dequantize) is the plain version of what the
-quantized CUDA kernel sees: the kernel dequantizes the codes and scales of
-``quantize_blockwise_stacked`` on chip with one f32 multiply per element, so
-it reads the same core values bit for bit.  Both schemes are idempotent.
+quantized CUDA kernel sees: the kernel quantizes the f32 cores on chip, run
+by run, with the operations of ``quantize_blockwise_stacked`` and
+``dequantize_blockwise_stacked`` in their order, each rounded on its own,
+so it reads the same core values bit for bit.  Both schemes are idempotent.
 Every division here divides by a tensor, never by a Python number: on a
 CUDA tensor PyTorch turns ``t / number`` into ``t * (1 / number)``, which
-rounds differently, and the codes made on the card must equal the CPU's.
+rounds differently, and the codes made on the card must equal the CPU's
+and the kernel's.
 
 Port of ``repro.kernels.quant``; the stacked forms replace its ``vmap``.
 With ``QuantConfig.enabled`` False every hook takes the unquantized path.
@@ -133,11 +135,13 @@ def quantize_blockwise(x: torch.Tensor, cfg: QuantConfig) -> tuple:
 def dequantize_blockwise_stacked(q: torch.Tensor, scales: torch.Tensor,
                                  shape: tuple,
                                  cfg: QuantConfig) -> torch.Tensor:
-    """Inverse of ``quantize_blockwise_stacked``: f32 ``(P, *shape)``."""
+    """Inverse of ``quantize_blockwise_stacked``: f32 ``(P, *shape)``,
+    contiguous (the kernels take only contiguous cores)."""
     _check_weights(cfg)
     P = q.shape[0]
     deq = q.reshape(P, -1, cfg.block).to(torch.float32) * scales[..., None]
-    return deq.reshape(P, -1)[:, :math.prod(shape)].reshape(P, *shape)
+    return deq.reshape(P, -1)[:, :math.prod(shape)].contiguous().reshape(
+        P, *shape)
 
 
 def dequantize_blockwise(q: torch.Tensor, scales: torch.Tensor, shape: tuple,
@@ -149,7 +153,7 @@ def dequantize_blockwise(q: torch.Tensor, scales: torch.Tensor, shape: tuple,
 
 def fake_quant_stacked(x: torch.Tensor, cfg: QuantConfig | None) -> torch.Tensor:
     """``fake_quant`` of each of the P rows of ``x (P, ...)`` with its own
-    block scales — the values the quantized kernel dequantizes."""
+    block scales — the values the quantized kernel gives its cores."""
     if not (cfg and cfg.weights):
         return x
     q, scales = quantize_blockwise_stacked(x, cfg)

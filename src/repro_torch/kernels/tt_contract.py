@@ -5,20 +5,18 @@ Replace the Pallas kernels ``repro/kernels/tt_contract.py::tt_contract``
 ``::tt_contract_batched_quant`` (line 300): ``y = x @ W(cores)^T`` with the
 whole chain kept on chip for one tile of rows, for one core set or for P
 stacked ones (the SPSA perturbations of a ZO step) in one launch over a
-(row tile, P) grid; the quantized kernel reads each entry's cores as
-block-scaled int8 or fp8-e4m3 codes and dequantizes them on chip.
+(row tile, P) grid; the quantized kernel reads each entry's f32 cores and
+block-quantizes them to int8 or fp8-e4m3 on chip.
 
 Bound on an H100 (3.35 TB/s, 67 TFLOP/s f32 without tensor cores): at the
 paper's 1024×1024 spec a row moves 8 KB and costs 64 KFLOP, so the kernels
 are memory-bound — about 5 µs for the served pool of 2048 rows and 116 µs
 for the 11 × 4300 rows of the training hidden layer.  The design keeps
 every intermediate in shared memory, so device memory sees only the input,
-the output and the tiny cores; see the source for the chain layout.
-``tt_contract`` and ``tt_contract_batched_quant`` run the fiber body (a
-thread per fiber, the step's core in registers, tiles of ``fiber_tile``);
-``tt_contract_batched`` runs the element body in tiles of
-``rows_per_block``.  Both give every output element the same sum in the same
-order, so the three kernels agree bit for bit.
+the output and the tiny cores; see the source for the chain layout.  All
+three kernels run one body (a thread per fiber, the step's core in
+registers, tiles of ``fiber_tile``), which gives every output element the
+same sum in the same order, so they agree bit for bit.
 
 The wrappers check what the kernels take and raise on anything else; they
 never fall back to the plain versions.  They allocate the output, launch
@@ -44,12 +42,10 @@ from repro_torch.kernels import quant as quant_lib
 from repro_torch.kernels import ref as _ref
 
 __all__ = ["tt_contract", "tt_contract_batched", "tt_contract_batched_quant",
-           "chain_widest", "rows_per_block", "fiber_tile", "FiberTile"]
+           "chain_widest", "fiber_tile", "FiberTile"]
 
 MAX_CORES = 8                      # kMaxCores in the source
-SMEM_DEFAULT_BYTES = 48 * 1024     # shared memory without an opt-in
 SMEM_MAX_BYTES = 232_448           # Hopper's per-block opt-in maximum
-MAX_ROWS_PER_BLOCK = 16
 
 
 def chain_widest(spec: tt_lib.TTSpec) -> int:
@@ -69,24 +65,7 @@ def _core_floats(spec: tt_lib.TTSpec) -> int:
     return (spec.num_params + 3) // 4 * 4
 
 
-def rows_per_block(spec: tt_lib.TTSpec) -> int:
-    """Rows one thread block of the element body (``tt_contract_batched``)
-    holds: as many as let both ping-pong row buffers and the cores fit the
-    default 48 KB of shared memory (capped at 16); one row with an opt-in
-    when a single row needs more."""
-    per_row = 2 * chain_widest(spec) * 4
-    cores = _core_floats(spec) * 4
-    rows = (SMEM_DEFAULT_BYTES - cores) // per_row
-    if rows >= 1:
-        return min(rows, MAX_ROWS_PER_BLOCK)
-    if cores + per_row > SMEM_MAX_BYTES:
-        raise ValueError(f"TT chain of {spec} needs {cores + per_row} B of "
-                         f"shared memory per row; the card has "
-                         f"{SMEM_MAX_BYTES} B per block")
-    return 1
-
-
-# the fiber body (tt_contract, tt_contract_batched_quant)
+# the fiber body
 FIBER_THREADS = 128                # kFiberThreads in the source
 MAX_FIBER = 32                     # kMaxFiber: widest r·n_k or m_k·r'
 MAX_FIBER_ROWS = 32
@@ -190,12 +169,10 @@ def _check_cores(cores: Sequence[torch.Tensor], spec: tt_lib.TTSpec,
                 f"{device}, got {c.dtype} {tuple(c.shape)} on {c.device}")
 
 
-def _descriptor(cores: Sequence[torch.Tensor], spec: tt_lib.TTSpec,
-                extra: Sequence[torch.Tensor] = ()):
+def _descriptor(cores: Sequence[torch.Tensor], spec: tt_lib.TTSpec):
     return np.asarray([spec.L, chain_widest(spec), *spec.out_modes,
                        *spec.in_modes, *spec.ranks,
-                       *(c.data_ptr() for c in (*cores, *extra))],
-                      dtype=np.int64)
+                       *(c.data_ptr() for c in cores)], dtype=np.int64)
 
 
 def tt_contract(x: torch.Tensor, cores: Sequence[torch.Tensor],
@@ -227,42 +204,7 @@ def tt_contract(x: torch.Tensor, cores: Sequence[torch.Tensor],
 tt_contract.launches = 0
 
 MAX_STACK = 65_535                 # the grid's y extent
-
-
-def tt_contract_batched(x: torch.Tensor, cores: Sequence[torch.Tensor],
-                        spec: tt_lib.TTSpec,
-                        shared_x: bool | None = None) -> torch.Tensor:
-    """``y[p] = x(shared or [p]) @ W(cores[p])^T`` for P stacked core sets
-    in one launch.  cores: each ``(P, r, m, n, r')``; x ``(..., N)`` shared
-    or ``(P, ..., N)`` per entry, resolved as ``kernels.ref.
-    split_batch_axes`` does (``shared_x=None``: 2-D is shared).  Returns
-    ``(P, *batch_axes, M)``."""
-    _check_x("tt_contract_batched", x, spec)
-    P = _check_stack(cores, spec, x.device)
-    xf, batch_shape, shared = _ref.split_batch_axes(x, P, spec, shared_x)
-    B = xf.shape[-2]
-    y = torch.empty((P, *batch_shape, spec.out_dim), dtype=torch.float32,
-                    device=x.device)
-    if B == 0:
-        return y
-    if P * B >= 2**31:
-        raise ValueError(f"{P} x {B} rows exceed the kernel's int32 range")
-    desc = _descriptor(cores, spec)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _launchers()[1](xf.data_ptr(), y.data_ptr(), desc.ctypes.data,
-                              B, P, 0 if shared else B * spec.in_dim,
-                              rows_per_block(spec), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"tt_contract_batched launch failed: CUDA error {err}")
-    tt_contract_batched.launches += 1
-    return y
-
-
-tt_contract_batched.launches = 0
-
-CODE_TYPES = {torch.int8: 0, torch.float8_e4m3fn: 1}   # code_type in the source
+CODE_TYPES = {"int8": 0, "fp8_e4m3": 1}  # code_type in the source
 
 
 def _check_stack(cores: Sequence[torch.Tensor], spec: tt_lib.TTSpec,
@@ -278,41 +220,14 @@ def _check_stack(cores: Sequence[torch.Tensor], spec: tt_lib.TTSpec,
     return P
 
 
-def _check_codes(codes: Sequence[torch.Tensor], scales: Sequence[torch.Tensor],
-                 spec: tt_lib.TTSpec, quant: quant_lib.QuantConfig, P: int,
-                 device: torch.device) -> None:
-    """Code k a contiguous ``(P, padded_k)`` tensor of the quant dtype and
-    scale k a contiguous f32 ``(P, padded_k / block)`` one, on ``device``."""
-    qdtype = quant_lib.QUANT_DTYPES[quant.dtype][0]
-    for k, (q, s, shape) in enumerate(zip(codes, scales, spec.core_shapes)):
-        padded = -(-math.prod(shape) // quant.block) * quant.block
-        for t, dtype, want in ((q, qdtype, (P, padded)),
-                               (s, torch.float32, (P, padded // quant.block))):
-            if (t.device != device or t.dtype != dtype
-                    or tuple(t.shape) != want or not t.is_contiguous()):
-                raise ValueError(
-                    f"core {k}: need contiguous {dtype} {want} codes/scales "
-                    f"on {device}, got {t.dtype} {tuple(t.shape)} on "
-                    f"{t.device}")
-
-
-def tt_contract_batched_quant(x: torch.Tensor, cores: Sequence[torch.Tensor],
-                              spec: tt_lib.TTSpec,
-                              quant: quant_lib.QuantConfig,
-                              shared_x: bool | None = None) -> torch.Tensor:
-    """``tt_contract_batched`` with block-scaled int8 / fp8-e4m3 cores.
-
-    Each of the P f32 core variants is quantized on its own
-    (``quant.quantize_blockwise_stacked`` in plain PyTorch ops on the card,
-    as the TPU wrapper does outside its ``pallas_call``): codes
-    ``(P, padded_k)`` in the narrow type and f32 scales
-    ``(P, padded_k / block)``.  The kernel dequantizes them on chip and
-    runs the f32 chain, so entry p equals ``tt_contract_batched`` on the
-    fake-quantized cores bit for bit.  x and the output as in
-    ``tt_contract_batched``."""
-    if not quant.weights:
-        raise ValueError(f"weight quantization not enabled in {quant}")
-    _check_x("tt_contract_batched_quant", x, spec)
+def _launch_batched(entry, launcher: int, x: torch.Tensor,
+                    cores: Sequence[torch.Tensor], spec: tt_lib.TTSpec,
+                    shared_x: bool | None, *args) -> torch.Tensor:
+    """Check, tile and launch the batched C entry ``launcher`` for the
+    wrapper ``entry`` (whose launches it counts); ``args`` go between the
+    rows per block and the stream."""
+    name = entry.__name__
+    _check_x(name, x, spec)
     P = _check_stack(cores, spec, x.device)
     xf, batch_shape, shared = _ref.split_batch_axes(x, P, spec, shared_x)
     B = xf.shape[-2]
@@ -323,22 +238,48 @@ def tt_contract_batched_quant(x: torch.Tensor, cores: Sequence[torch.Tensor],
     if P * B >= 2**31:
         raise ValueError(f"{P} x {B} rows exceed the kernel's int32 range")
     tile = fiber_tile(spec, P * B)
-    codes, scales = zip(*(quant_lib.quantize_blockwise_stacked(c, quant)
-                          for c in cores))
-    _check_codes(codes, scales, spec, quant, P, x.device)
-    # the kernel reads fp8 codes as their bytes
-    desc = _descriptor([q.view(torch.uint8) for q in codes], spec, scales)
+    desc = _descriptor(cores, spec)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _launchers()[2](xf.data_ptr(), y.data_ptr(), desc.ctypes.data,
-                              B, P, 0 if shared else B * spec.in_dim,
-                              tile.rows, quant.block,
-                              CODE_TYPES[codes[0].dtype], stream)
+        err = _launchers()[launcher](
+            xf.data_ptr(), y.data_ptr(), desc.ctypes.data, B, P,
+            0 if shared else B * spec.in_dim, tile.rows, *args, stream)
     if err != 0:
-        raise RuntimeError(
-            f"tt_contract_batched_quant launch failed: CUDA error {err}")
-    tt_contract_batched_quant.launches += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    entry.launches += 1
     return y
+
+
+def tt_contract_batched(x: torch.Tensor, cores: Sequence[torch.Tensor],
+                        spec: tt_lib.TTSpec,
+                        shared_x: bool | None = None) -> torch.Tensor:
+    """``y[p] = x(shared or [p]) @ W(cores[p])^T`` for P stacked core sets
+    in one launch.  cores: each ``(P, r, m, n, r')``; x ``(..., N)`` shared
+    or ``(P, ..., N)`` per entry, resolved as ``kernels.ref.
+    split_batch_axes`` does (``shared_x=None``: 2-D is shared).  Returns
+    ``(P, *batch_axes, M)``."""
+    return _launch_batched(tt_contract_batched, 1, x, cores, spec, shared_x)
+
+
+tt_contract_batched.launches = 0
+
+
+def tt_contract_batched_quant(x: torch.Tensor, cores: Sequence[torch.Tensor],
+                              spec: tt_lib.TTSpec,
+                              quant: quant_lib.QuantConfig,
+                              shared_x: bool | None = None) -> torch.Tensor:
+    """``tt_contract_batched`` with block-scaled int8 / fp8-e4m3 cores.
+
+    The kernel reads each of the P f32 core variants and quantizes it on
+    chip, in the block, before the chain: runs of ``quant.block`` elements,
+    each with its absmax scale, to the values ``quant.fake_quant_stacked``
+    gives, bit for bit.  So entry p equals ``tt_contract_batched`` on the
+    fake-quantized cores bit for bit, and the call is one launch.  x and
+    the output as in ``tt_contract_batched``."""
+    if not quant.weights:
+        raise ValueError(f"weight quantization not enabled in {quant}")
+    return _launch_batched(tt_contract_batched_quant, 2, x, cores, spec,
+                           shared_x, quant.block, CODE_TYPES[quant.dtype])
 
 
 tt_contract_batched_quant.launches = 0

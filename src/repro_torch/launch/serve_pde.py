@@ -1,12 +1,14 @@
 """PDE serving launcher: load trained solver checkpoints by name and drive
 the slot-batched inference runtime (``repro_torch.serving``) on the GPU.
 
-Each ``--ckpt NAME=DIR`` loads a self-describing checkpoint (the JAX
-package's ``launch/train.py`` writes them).  A solver trained with the
-noise model on also needs ``--hw-noise NAME=FILE.npz``: its chip noise as
-``/``-joined path keys (``pcores0/1/u/gamma``, the ``arrays.npz`` format),
-because torch cannot regenerate JAX's threefry draws from the seed.
-``--synthetic N`` then serves N mixed variable-size requests.
+Each ``--ckpt NAME=DIR`` loads a self-describing checkpoint (the port's
+and the JAX package's ``launch/train.py`` write them).  The port's trainer
+saves a noise-enabled solver's chip noise in the checkpoint; one trained
+by the JAX package with the noise model on also needs ``--hw-noise
+NAME=FILE.npz``: its chip noise as ``/``-joined path keys
+(``pcores0/1/u/gamma``, the ``arrays.npz`` format), because torch cannot
+regenerate JAX's threefry draws from the seed.  ``--synthetic N`` then
+serves N mixed variable-size requests.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_pde \\
         --ckpt heat=ckpts/heat-10d --ckpt hjb=ckpts/hjb-20d \\
@@ -41,7 +43,8 @@ def main(argv=None):
                     help="load checkpoint DIR as solver NAME (repeatable)")
     ap.add_argument("--hw-noise", action="append", default=[],
                     metavar="NAME=FILE",
-                    help="chip-noise .npz of a noise-enabled solver")
+                    help="chip-noise .npz of a noise-enabled solver "
+                         "whose checkpoint carries none (JAX-trained)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--slot-points", type=int, default=256)

@@ -24,8 +24,10 @@ so ``serving.SolverRegistry.load_checkpoint`` serves them; a checkpoint
 ``step_<k>`` holds the params after k updates, and ``--resume`` continues
 from it with the batches and perturbations of steps k, k+1, ... exactly as
 an uninterrupted run draws them.  The chip's fabrication noise is drawn
-from the seed (``init_solver``); a noise-enabled checkpoint is served with
-that tree passed as ``hw_noise=``.
+from the seed (``init_solver``) and saved beside the params as the
+``hw_noise`` subtree, so a noise-enabled checkpoint serves on its own (the
+JAX package reads only the subtrees it asks for, and still restores the
+params).
 
 Port of the ``train_pinn`` branch of ``repro.launch.train``.  Every flag
 of that launcher this port does not have yet exits with the ROADMAP item
@@ -68,6 +70,16 @@ def init_solver(model: pinn.TensorPinn, seed: int) -> tuple:
     weights and the same chip for a seed on every device."""
     return (model.init(counter_generator(seed)),
             model.sample_noise(counter_generator(seed, 99)))
+
+
+def _checkpoint_tree(params: dict, state: zoo.ZOState,
+                     hw_noise: dict | None) -> dict:
+    """What a checkpoint holds: the params, the ZO state and, with the
+    noise model on, the chip's noise."""
+    tree = {"params": params, "zo": state.as_tree()}
+    if hw_noise is not None:
+        tree["hw_noise"] = hw_noise
+    return tree
 
 
 def _unported(args) -> list:
@@ -182,11 +194,11 @@ def train_pinn(args) -> TrainResult:
                 msg += f" val MSE {float(mse):.4e}"
             print(msg, flush=True)
         if mgr and mgr.should_save(step + 1):
-            mgr.save(step + 1, {"params": params, "zo": state.as_tree()},
+            mgr.save(step + 1, _checkpoint_tree(params, state, hw_noise),
                      {"step": step + 1, **ckpt_meta})
 
     if mgr:
-        mgr.save(args.steps, {"params": params, "zo": state.as_tree()},
+        mgr.save(args.steps, _checkpoint_tree(params, state, hw_noise),
                  {"step": args.steps, **ckpt_meta})
     val_mse = None
     if val is not None:

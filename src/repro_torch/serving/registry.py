@@ -10,9 +10,11 @@ Checkpoints written by the JAX package's ``launch/train.py`` load by name:
 their ``meta.json`` carries the ``PINNConfig`` under ``"pinn"``.  What the
 port cannot rebuild it refuses, never ignores:
 
-  * a noise-enabled checkpoint's chip noise was sampled from the training
-    seed with JAX's threefry generator, which torch does not reproduce —
-    pass the noise itself as ``hw_noise=`` (a numpy tree from the JAX side);
+  * a noise-enabled checkpoint of the JAX package carries no chip noise:
+    its noise was sampled from the training seed with JAX's threefry
+    generator, which torch does not reproduce — pass the noise itself as
+    ``hw_noise=`` (a numpy tree from the JAX side).  The port's trainer
+    saves the noise beside the params, so its checkpoints need nothing;
   * conditioned solvers (``coeff_spec`` in meta) are not ported yet and
     raise ``NotImplementedError``.
 
@@ -119,12 +121,15 @@ class SolverRegistry:
                         hw_noise: dict | None = None,
                         device: str | torch.device = "cuda") -> LoadedSolver:
         """Load a ``TensorPinn`` checkpoint written by the JAX package's
-        ``launch/train.py`` (or by ``checkpoint.save_checkpoint``) and
-        register it under ``name``.  Only the ``params`` subtree is read.
+        ``launch/train.py``, the port's, or ``checkpoint.save_checkpoint``,
+        and register it under ``name``.  The ``params`` subtree is read,
+        and the ``hw_noise`` subtree where the checkpoint has one (the
+        port's trainer saves the chip noise there).
 
         ``hw_noise`` is the chip's noise tree as numpy arrays (the JAX
         ``TensorPinn.sample_noise`` output); a noise-enabled tonn
-        checkpoint needs it."""
+        checkpoint without the subtree needs it, and when given it takes
+        the place of the subtree."""
         self._check_device(device)
         meta = read_checkpoint_meta(directory, step)
         step = meta["step"]  # pin: meta and arrays must be one checkpoint
@@ -140,19 +145,26 @@ class SolverRegistry:
                 "conditioned serving is not ported yet")
         # meta "term_weights" weigh training losses only; u does not read them
         model = pinn.TensorPinn(cfg)
+        gen = torch.Generator().manual_seed(0)
+        like = {"params": model.init(gen)}
         if model.uses_noise and hw_noise is None:
-            raise ValueError(
-                f"checkpoint {directory} has the noise model on: its chip "
-                "noise was drawn from the training seed with JAX's threefry "
-                "generator, which torch cannot reproduce; pass the noise "
-                "tree as hw_noise= (numpy arrays of the JAX "
-                "TensorPinn.sample_noise output)")
-        like = model.init(torch.Generator().manual_seed(0))
-        restored, meta = restore_checkpoint(directory, {"params": like}, step)
-        return self.register(
-            name, model, restored["params"],
-            hw_noise=interop.noise_from_numpy(hw_noise, self.device),
-            step=meta.get("step"), meta=meta)
+            if not any(k.startswith("hw_noise/")
+                       for k in meta.get("keys", ())):
+                raise ValueError(
+                    f"checkpoint {directory} has the noise model on and "
+                    "carries no chip noise: a JAX-written checkpoint's noise "
+                    "was drawn from the training seed with JAX's threefry "
+                    "generator, which torch cannot reproduce; pass the "
+                    "noise tree as hw_noise= (numpy arrays of the JAX "
+                    "TensorPinn.sample_noise output)")
+            like["hw_noise"] = model.sample_noise(gen)   # the tree's shape
+        restored, meta = restore_checkpoint(directory, like, step)
+        if hw_noise is not None:
+            restored["hw_noise"] = interop.noise_from_numpy(hw_noise,
+                                                            self.device)
+        return self.register(name, model, restored["params"],
+                             hw_noise=restored.get("hw_noise"),
+                             step=meta.get("step"), meta=meta)
 
     def register_fresh(self, name: str, cfg: pinn.PINNConfig, seed: int = 0,
                        device: str | torch.device = "cuda") -> LoadedSolver:

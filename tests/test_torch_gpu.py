@@ -22,11 +22,13 @@ path ``rtol = atol = 1e-5``; a ZO step's stencil u-values within 1e-4 of
 ``max|u|`` (f32 chains summed in other orders, and sin/cos from two
 libraries) and its losses within ``rtol = 1e-1`` (the FD residual squares
 second differences, amplifying those rounding differences by 1/h²).  The
-TT kernels' two bodies sum each element in one order, so ``tt_contract``
-(fiber body) is held to ``tt_contract_batched`` (element body) at P = 1 bit
-for bit, each batched entry to ``tt_contract``, and the quantized kernel
-(fiber body) to ``tt_contract_batched`` on the fake-quantized cores; the
-quantizer's codes and scales on the card to the CPU's bit for bit.  Both
+three TT kernels run one body, which sums each element in one order, so
+``tt_contract`` is held to ``tt_contract_batched`` at P = 1 bit for bit,
+each batched entry to ``tt_contract``, and the quantized kernel, which
+quantizes the f32 cores in its launch, to ``tt_contract_batched`` on the
+fake-quantized cores; the plain quantizer's codes and scales on the card
+to the CPU's bit for bit, and the kernel's quantized cores, read back
+through an identity input, to ``fake_quant_stacked`` bit for bit.  Both
 mesh kernels round every operation on its own in the plain version's order
 and take sin/cos from the functions torch runs on the card, so they are held to their plain versions on the card bit for bit.  ``flash_attention`` is held to ``attention_ref`` within
 ``ref.attention_bound`` elementwise: the same f32 bound, and in bf16 one
@@ -150,9 +152,9 @@ def test_rows_do_not_depend_on_their_tile(cuda):
 
 @pytest.mark.parametrize("label", sorted(KERNEL_CASES) + ["paper-6637"])
 def test_tt_contract_equals_the_batched_kernel_bitwise(cuda, label):
-    """``tt_contract`` (the fiber body) gives the bits of
-    ``tt_contract_batched`` (the element body) at P = 1: both sum every
-    output element in the same order."""
+    """``tt_contract`` gives the bits of ``tt_contract_batched`` at P = 1:
+    two launches of one body, which sums every output element in one
+    order, on tiles of their own rows."""
     spec, batch = KERNEL_CASES.get(label, (tt.PAPER_TONN_SPEC, 6637))
     cores, x = _chain_inputs(spec, batch, seed=len(label), device=cuda)
     y = ttc.tt_contract(x, cores, spec)
@@ -235,11 +237,12 @@ def test_batched_kernel_matches_plain(cuda, label):
                                                         shared_x=shared))
 
 
-@pytest.mark.parametrize("label", ["layer0-rows", "hidden-stencil",
-                                   "rank4-777"])
+@pytest.mark.parametrize("label", ["layer0-rows", "layer0-columns",
+                                   "hidden-stencil", "rank4-777"])
 def test_batched_entry_equals_tt_contract_bitwise(cuda, label):
     """Entry p of the batched kernel runs tt_contract's chain: the same
-    bits as tt_contract(x[p], cores[p])."""
+    bits as tt_contract(x[p], cores[p]), with x shared and per entry, at
+    tiles of 1 (layer 0's columns) to 16 rows."""
     spec, P, x_shape, shared = BATCHED_CASES[label]
     cores, x = _stacked_inputs(spec, P, x_shape, shared, 7, cuda)
     y = ttc.tt_contract_batched(x, cores, spec, shared_x=shared)
@@ -250,10 +253,14 @@ def test_batched_entry_equals_tt_contract_bitwise(cuda, label):
 
 
 def test_batched_rows_do_not_depend_on_their_tile(cuda):
-    spec, P, _, _ = BATCHED_CASES["hidden-stencil"]
-    cores, x = _stacked_inputs(spec, P, (301,), False, 3, cuda)
+    """The hidden layer's rows at the full fiber tile, shifted across its
+    blocks, give the same bits."""
+    spec, P, x_shape, _ = BATCHED_CASES["hidden-stencil"]
+    cores, x = _stacked_inputs(spec, P, x_shape, False, 3, cuda)
+    tile = ttc.fiber_tile(spec, P * x_shape[0]).rows
+    assert tile == ttc.fiber_tile(spec).rows and x_shape[0] % tile
     y = ttc.tt_contract_batched(x, cores, spec)
-    for shift in (1, ttc.rows_per_block(spec) + 2):
+    for shift in (1, 3, tile + 2):
         assert torch.equal(ttc.tt_contract_batched(
             x[:, shift:].contiguous(), cores, spec), y[:, shift:])
 
@@ -461,13 +468,16 @@ def test_served_matches_direct_on_the_card(cuda):
 
 # label -> (spec, P, x shape without P, shared, block): the three launches
 # of a QAT step at the paper's config (core sizes 64: no padding at block
-# 32), and the rank-4 spec, whose core sizes are not block multiples
+# 32), and the rank-4 spec (core sizes 256, 1024 and 128) at blocks that
+# divide them and at block 24, which pads every core's last run
 QUANT_CASES = {
     "layer0-rows": (tt.PAPER_TONN_SPEC, 11, (100,), True, 32),
     "layer0-columns": (tt.PAPER_TONN_SPEC, 11, (21,), True, 32),
     "hidden-stencil": (tt.PAPER_TONN_SPEC, 11, (4300,), False, 32),
+    "paper-b24": (tt.PAPER_TONN_SPEC, 3, (50,), False, 24),
     "rank4-777-b32": (RANK4, 3, (777,), False, 32),
     "rank4-777-b16": (RANK4, 3, (777,), False, 16),
+    "rank4-777-b24": (RANK4, 3, (777,), False, 24),
     "rank4-shared-axes-b16": (RANK4, 3, (3, 5), True, 16),
 }
 
@@ -479,9 +489,10 @@ def _codes(q):
 @pytest.mark.parametrize("dtype", ["int8", "fp8_e4m3"])
 @pytest.mark.parametrize("label", sorted(QUANT_CASES))
 def test_quant_kernel_matches_plain_and_the_f32_kernel(cuda, label, dtype):
-    """The quantized kernel against ``tt_contract_batched_quant_ref``, and
-    bit for bit against ``tt_contract_batched`` on the fake-quantized
-    cores; an all-zero block included."""
+    """The quantized kernel, which quantizes the f32 cores in its launch,
+    against ``tt_contract_batched_quant_ref``, and bit for bit against
+    ``tt_contract_batched`` on the fake-quantized cores; an all-zero block
+    and padded last runs included."""
     spec, P, x_shape, shared, block = QUANT_CASES[label]
     quant = quant_lib.QuantConfig(enabled=True, dtype=dtype, block=block)
     cores, x = _stacked_inputs(spec, P, x_shape, shared, len(label), cuda)
@@ -495,6 +506,68 @@ def test_quant_kernel_matches_plain_and_the_f32_kernel(cuda, label, dtype):
     fq = [quant_lib.fake_quant_stacked(c, quant) for c in cores]
     assert torch.equal(y, ttc.tt_contract_batched(x, fq, spec,
                                                   shared_x=shared))
+
+
+def _near_rounding_edges(absmax: float, qmax: float) -> torch.Tensor:
+    """Values x of a run with this absmax whose ``x / scale`` and
+    ``x * (1 / scale)`` give different codes (int8 for qmax 127, e4m3 for
+    448): they tell an IEEE division from a multiply by the reciprocal."""
+    grid = (torch.arange(128.0) if qmax == 127.0 else torch.arange(
+        127, dtype=torch.uint8).view(torch.float8_e4m3fn).float())
+    scale = torch.tensor(absmax) / torch.tensor(qmax)
+    x = (grid[1:] + grid[:-1]) / 2 * scale
+    x = torch.cat([x, torch.nextafter(x, torch.zeros(())),
+                   torch.nextafter(x, torch.full((), 2 * absmax))])
+
+    def code(v):
+        return (torch.round(v) if qmax == 127.0
+                else v.to(torch.float8_e4m3fn).float())
+
+    return x[(x.abs() < absmax)
+             & (code(x / scale) != code(x * torch.reciprocal(scale)))]
+
+
+def _hard_cores(P: int, n: int, block: int) -> torch.Tensor:
+    """(P, n) values for the quantizer: magnitudes over 2^±29, a run of
+    zeros, rows whose runs have absmax 127 or 448 (scale 1) and values on
+    the int8 and the e4m3 rounding ties, e4m3 subnormals among them, rows
+    of values a reciprocal would round to other codes, and rows of one
+    sign."""
+    gen = torch.Generator().manual_seed(block)
+    c = torch.randn((P, n), generator=gen) * torch.exp(
+        torch.empty((P, n)).uniform_(-20, 20, generator=gen))
+    c[0, :block] = 0.0
+    c[1] = torch.tensor([127.0, 0.5, 1.5, 2.5, -3.5, 126.5, -0.5,
+                         64.5]).repeat(n // 8)
+    c[2] = torch.tensor([448.0, 1.0625, 17.0, 3 * 2.0**-10, 2.0**-10,
+                         -5 * 2.0**-10, 208.0, -232.0]).repeat(n // 8)
+    c[3] = c[3].abs()
+    c[4] = -c[4].abs()
+    for row, (absmax, qmax) in ((5, (100.0, 127.0)), (6, (12345.0, 448.0))):
+        edges = _near_rounding_edges(absmax, qmax)
+        assert len(edges) > 0
+        c[row] = edges.repeat(-(-n // len(edges)))[:n]
+        c[row, ::7] = absmax           # in every run of 7 or more
+    return c
+
+
+@pytest.mark.parametrize("dtype", ["int8", "fp8_e4m3"])
+def test_kernel_quantizes_cores_to_fake_quant_bits(cuda, dtype):
+    """The kernel's quantized cores, read back through an identity input
+    (one core, 32 × 8: y[p] = W_pᵀ, each element one fmaf by 1.0), equal
+    ``fake_quant_stacked``'s on the card and on the CPU, bit for bit, at
+    blocks that divide the core and blocks that pad it."""
+    spec = tt.TTSpec((32,), (8,), (1, 1))
+    eye = torch.eye(8, device=cuda)
+    for block in (32, 24, 7, 1):
+        quant = quant_lib.QuantConfig(enabled=True, dtype=dtype, block=block)
+        c = _hard_cores(64, 256, block)
+        cores = [c.reshape(64, 1, 32, 8, 1).to(cuda)]
+        y = ttc.tt_contract_batched_quant(eye, cores, spec, quant)
+        got = y.transpose(1, 2).reshape(64, 256)
+        want = quant_lib.fake_quant_stacked(cores[0], quant).reshape(64, 256)
+        assert torch.equal(got, want), (block, int((got != want).sum()))
+        assert torch.equal(got.cpu(), quant_lib.fake_quant_stacked(c, quant))
 
 
 @pytest.mark.parametrize("dtype", ["int8", "fp8_e4m3"])

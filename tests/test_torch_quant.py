@@ -124,6 +124,10 @@ def test_stacked_quantizer_is_jax_vmap(dtype):
         np.testing.assert_array_equal(
             _tbits(fq), _bits(jax.vmap(lambda c: jq.fake_quant(c, jc))(
                 jnp.asarray(stack))))
+        # padded rows (120 of 128) come back contiguous: the TT kernels
+        # take only contiguous cores
+        assert fq.is_contiguous()
+        assert tq.fake_quant(torch.tensor(stack[1]), tc).is_contiguous()
 
 
 def test_fp8_cast_matches_jax_at_the_edges():

@@ -65,6 +65,20 @@ def test_importing_the_port_loads_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_the_tt_chain_has_one_body():
+    """All three TT entries run the fiber body: the element body and its
+    tiling are gone, and the quantized entry quantizes in its launch, not
+    through the PyTorch quantizer."""
+    for path in (PORT / "kernels" / "tt_contract.py",
+                 PORT / "kernels" / "csrc" / "tt_contract.cu"):
+        src = path.read_text()
+        for name in ("chain_rows", "rows_per_block",
+                     "quantize_blockwise_stacked"):
+            assert name not in src, f"{name} in {path.relative_to(ROOT)}"
+    cu = (PORT / "kernels" / "csrc" / "tt_contract.cu").read_text()
+    assert cu.count("chain_fibers(") == 4      # its definition, 3 kernels
+
+
 def test_no_env_switch_picks_a_kernel():
     for path in PORT.rglob("*.py"):
         assert "REPRO_KERNEL_MODE" not in path.read_text(), path

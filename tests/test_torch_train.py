@@ -5,21 +5,28 @@ A checkpoint the port writes is served by the JAX package's registry too
 (noise off: with noise on the JAX registry would redraw the chip from the
 seed with threefry, which the port does not reproduce).  Tolerance for
 served u-values ``rtol = atol = 1e-5``: both packages reassociate the f32
-chain and take sin from two libraries.
+chain and take sin from two libraries.  With noise on, the port's
+checkpoint carries the chip's noise, serves in the port without it being
+passed (``rtol = atol = 1e-6`` against the trainer's own ``u``: the same
+arithmetic on another batch size), and the JAX package restores its
+params bit for bit.
 """
 
 import shutil
 
+import jax
 import numpy as np
 import pytest
 import torch
 
+from repro.checkpoint import restore_checkpoint as jax_restore
+from repro.core import pinn as jpinn
 from repro.serving import SolverRegistry as JRegistry
 from repro_torch.checkpoint import CheckpointManager, read_checkpoint_meta
 from repro_torch.core import zoo
 from repro_torch.data import pde_collocation_iterator, pde_term_batch_iterator
 from repro_torch.launch import train
-from repro_torch.serving import SolverRegistry
+from repro_torch.serving import PdeServingEngine, PointRequest, SolverRegistry
 
 REDUCED = ["--arch", "tensor-pinn", "--pde", "hjb-20d", "--reduced",
            "--device", "cpu", "--log-every", "100"]
@@ -70,6 +77,45 @@ def test_checkpoint_serves_in_both_packages(tmp_path):
     with torch.no_grad():
         np.testing.assert_array_equal(
             s.model.u(s.params, torch.tensor(pts)).numpy(), want)
+
+
+def _assert_trees_equal(jax_tree, torch_tree):
+    if isinstance(torch_tree, dict):
+        assert sorted(jax_tree) == sorted(torch_tree)
+        for k in torch_tree:
+            _assert_trees_equal(jax_tree[k], torch_tree[k])
+    elif isinstance(torch_tree, (list, tuple)):
+        assert len(jax_tree) == len(torch_tree)
+        for a, b in zip(jax_tree, torch_tree):
+            _assert_trees_equal(a, b)
+    else:
+        np.testing.assert_array_equal(np.asarray(jax_tree), torch_tree.numpy())
+
+
+def test_noise_on_checkpoint_serves_without_hw_noise(tmp_path):
+    """The trainer saves the chip's noise beside the params: the noise-on
+    checkpoint serves with no ``hw_noise=`` and gives the trainer's final
+    ``model.u``; the JAX package still restores its params from it."""
+    res = _run("--steps", 3, "--batch", 8, "--zo-samples", 4,
+               "--pinn-noise", "--ckpt-dir", tmp_path)
+    meta = read_checkpoint_meta(tmp_path)
+    assert meta["step"] == 3 and meta["pinn"]["noise"]["enabled"]
+    assert any(k.startswith("hw_noise/pcores0/") for k in meta["keys"])
+    reg = SolverRegistry(device="cpu")
+    reg.load_checkpoint("hjb", tmp_path, device="cpu")
+    engine = PdeServingEngine(reg, slots=2, slot_points=16, device="cpu")
+    pts = np.random.RandomState(3).uniform(0.02, 0.98, (37, 21)).astype(
+        np.float32)
+    req = engine.submit(PointRequest("hjb", pts))
+    engine.run()
+    with torch.no_grad():
+        want = res.model.u(res.params, torch.tensor(pts),
+                           res.hw_noise).numpy()
+    np.testing.assert_allclose(req.out, want, rtol=1e-6, atol=1e-6)
+    jmodel = jpinn.TensorPinn(jpinn.config_from_meta(meta["pinn"]))
+    restored, _ = jax_restore(tmp_path, {
+        "params": jmodel.init(jax.random.PRNGKey(0))})
+    _assert_trees_equal(restored["params"], res.params)
 
 
 def test_resume_redraws_the_same_perturbations(tmp_path):

@@ -149,19 +149,34 @@ def test_kernel_wrapper_refuses_what_it_cannot_take():
         tops.tt_linear(torch.zeros(2, 1024, device="meta"), meta_cores, spec)
 
 
-@pytest.mark.parametrize("label", ["paper", "reduced-64", "rank4-256x512"])
+# label -> (P, B): the three launches of a ZO step at the paper's config
+# (N = 10, batch 100): layer 0 on the 100 rows and on the 21 identity
+# columns, shared x, and the hidden layer's 4300 stencil rows per entry
+ZO_STEP_LAUNCHES = {"layer0-rows": (11, 100), "layer0-columns": (11, 21),
+                    "hidden-stencil": (11, 4300)}
+
+
+@pytest.mark.parametrize("label", sorted(ZO_STEP_LAUNCHES))
 def test_kernel_tiling_fits_shared_memory(label):
-    """Rows per block and the widest intermediate as the kernel will use
-    them: both ping-pong buffers and the cores fit the default 48 KB."""
-    spec = _port_spec(CHAIN_CASES[label][0])
+    """The fiber tile ``tt_contract_batched`` launches a ZO step's chains
+    with at the paper's spec: one in-place row buffer as wide as the widest
+    intermediate, three blocks to an SM, and no more rows a block than put
+    three blocks on each SM; the grid's P axis within its extent."""
+    spec = ttt.PAPER_TONN_SPEC
+    P, B = ZO_STEP_LAUNCHES[label]
     widest = tttc.chain_widest(spec)
-    assert widest >= max(spec.in_dim, spec.out_dim)
-    rows = tttc.rows_per_block(spec)
-    assert 1 <= rows <= tttc.MAX_ROWS_PER_BLOCK
-    smem = 4 * (tttc._core_floats(spec) + 2 * rows * widest)
-    assert smem <= tttc.SMEM_DEFAULT_BYTES
-    if label == "paper":
-        assert widest == 1024          # 4 KB per row at every chain step
+    assert widest == 1024              # 4 KB per row at every chain step
+    tile = tttc.fiber_tile(spec, P * B)
+    assert tile.buffers == 1 and tile.stride == widest
+    assert tile.smem_bytes == 4 * (tttc._core_floats(spec)
+                                   + sum(c * c for c in tile.caps)
+                                   + tile.rows * tile.stride)
+    assert tile.smem_bytes <= tttc.SMEM_BLOCK_BUDGET
+    fill = -(-P * B // (tttc.BLOCKS_PER_SM * tttc.H100_SMS))
+    assert tile.rows == min(fill, tttc.fiber_tile(spec).rows)
+    assert {"layer0-rows": 3, "layer0-columns": 1,
+            "hidden-stencil": 16}[label] == tile.rows
+    assert P <= tttc.MAX_STACK
 
 
 # --------------------------------------------------- stacked chain (ZO path)
@@ -311,8 +326,6 @@ def test_fiber_tile_at_the_papers_spec():
     assert tttc.fiber_tile(spec, 2048).rows == 6
     assert tttc.fiber_tile(spec, 11 * 4300) == tile
     assert tttc.fiber_tile(spec, 11 * 21).rows == 1
-    # the element body keeps its own tiling
-    assert tttc.rows_per_block(spec) == 5
 
 
 @pytest.mark.parametrize("out_dim,in_dim,L,rank", [(96, 128, 2, 8),

@@ -3,11 +3,13 @@
 
     python3 tools/tt_fiber_rows.py
 
-Launches ``tt_contract`` (B = 2048, the served pool, and 65,536) and
-``tt_contract_batched_quant`` (int8 block 32, the hidden layer of a QAT
-step: P = 11, 4300 rows per entry) at the paper's spec through their C
-entries with each rows-per-block in ``ROWS``, beside the tile that
-``fiber_tile`` picks.  Every tile must give the wrapper's bits (a row's
+Launches the three TT entries at the paper's spec through their C entries
+with each rows-per-block of a sweep, beside the tile that ``fiber_tile``
+picks: ``tt_contract`` (B = 2048, the served pool, and 65,536),
+``tt_contract_batched`` at the three launches of a ZO step (P = 11: layer 0
+on the 21 identity columns and on the 100 rows, x shared, and the hidden
+layer's 4300 rows per entry) and ``tt_contract_batched_quant`` (int8 block
+32) at the hidden layer.  Every tile must give the wrapper's bits (a row's
 value does not depend on its tile); each is timed on CUDA events over
 back-to-back launches.  Prints one ``[fiber-rows]`` JSON line and the
 card's name and power limit.  Exits non-zero without a CUDA device.
@@ -21,6 +23,30 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 ROWS = (4, 8, 12, 16, 24, 32)
+SMALL_ROWS = (1, 2, 3, 4, 8)           # layer 0: a few rows per entry
+
+
+def _sweep(chip_smoke, name: str, launch, want, rows_set, tile: int,
+           iters: int) -> dict:
+    """Time ``launch(rows, y)`` at each rows-per-block, after checking
+    that it gives ``want``'s bits."""
+    import torch
+    row = {"tile": tile}
+    for rows in rows_set:
+        y = torch.empty_like(want)
+
+        def run():
+            err = launch(rows, y)
+            if err:
+                raise RuntimeError(f"{name} at {rows} rows: CUDA error {err}")
+
+        run()
+        torch.cuda.synchronize()
+        if not torch.equal(y, want):
+            raise AssertionError(f"{name} at {rows} rows differs from the "
+                                 "wrapper's tile")
+        row[rows] = chip_smoke._time_ms(run, iters)
+    return row
 
 
 def sweep(device, chip_smoke) -> dict:
@@ -30,61 +56,49 @@ def sweep(device, chip_smoke) -> dict:
     from repro_torch.kernels import tt_contract as ttc
 
     spec = tt.PAPER_TONN_SPEC
-    single, _, quant_launch = ttc._launchers()
+    single, batched, quant_launch = ttc._launchers()
     stream = torch.cuda.current_stream(device).cuda_stream
     out = {}
     gen = torch.Generator().manual_seed(7)
     for batch in (2048, 65536):
         cores = [c.to(device) for c in tt.tt_init(gen, spec)]
         x = torch.randn((batch, spec.in_dim), generator=gen).to(device)
-        want = ttc.tt_contract(x, cores, spec)
         desc = ttc._descriptor(cores, spec)
-        row = {"tile": ttc.fiber_tile(spec, batch).rows}
-        for rows in ROWS:
-            y = torch.empty_like(want)
-
-            def launch():
-                err = single(x.data_ptr(), y.data_ptr(), desc.ctypes.data,
-                             batch, rows, stream)
-                if err:
-                    raise RuntimeError(f"rows {rows}: CUDA error {err}")
-
-            launch()
-            torch.cuda.synchronize()
-            if not torch.equal(y, want):
-                raise AssertionError(f"tt_contract B={batch} at {rows} rows "
-                                     "differs from the wrapper's tile")
-            row[rows] = chip_smoke._time_ms(launch, 200 if batch < 4096
-                                            else 50)
-        out[f"tt_contract-B{batch}"] = row
-    P, B = 11, 4300
+        out[f"tt_contract-B{batch}"] = _sweep(
+            chip_smoke, "tt_contract",
+            lambda rows, y: single(x.data_ptr(), y.data_ptr(),
+                                   desc.ctypes.data, batch, rows, stream),
+            ttc.tt_contract(x, cores, spec), ROWS,
+            ttc.fiber_tile(spec, batch).rows, 200 if batch < 4096 else 50)
+    P = 11
     quant = quant_lib.QuantConfig(enabled=True, dtype="int8", block=32)
-    per = [tt.tt_init(gen, spec) for _ in range(P)]
-    cores = [torch.stack([c[k] for c in per]).to(device)
-             for k in range(spec.L)]
-    x = torch.randn((P, B, spec.in_dim), generator=gen).to(device)
-    want = ttc.tt_contract_batched_quant(x, cores, spec, quant)
-    codes, scales = zip(*(quant_lib.quantize_blockwise_stacked(c, quant)
-                          for c in cores))
-    desc = ttc._descriptor(codes, spec, scales)
-    row = {"tile": ttc.fiber_tile(spec, P * B).rows}
-    for rows in ROWS:
-        y = torch.empty_like(want)
-
-        def launch():
-            err = quant_launch(x.data_ptr(), y.data_ptr(), desc.ctypes.data,
-                               B, P, B * spec.in_dim, rows, quant.block, 0,
-                               stream)
-            if err:
-                raise RuntimeError(f"rows {rows}: CUDA error {err}")
-
-        launch()
-        torch.cuda.synchronize()
-        if not torch.equal(y, want):
-            raise AssertionError(f"tt_contract_batched_quant at {rows} rows "
-                                 "differs from the wrapper's tile")
-        row[rows] = chip_smoke._time_ms(launch, 50)
-    out["tt_contract_batched_quant-hidden"] = row
+    for label, B, shared, rows_set in (
+            ("layer0-columns", 21, True, SMALL_ROWS),
+            ("layer0-rows", 100, True, SMALL_ROWS + (16,)),
+            ("hidden", 4300, False, ROWS)):
+        per = [tt.tt_init(gen, spec) for _ in range(P)]
+        cores = [torch.stack([c[k] for c in per]).to(device)
+                 for k in range(spec.L)]
+        x = torch.randn((B, spec.in_dim) if shared
+                        else (P, B, spec.in_dim), generator=gen).to(device)
+        desc = ttc._descriptor(cores, spec)
+        stride = 0 if shared else B * spec.in_dim
+        tile = ttc.fiber_tile(spec, P * B).rows
+        out[f"tt_contract_batched-{label}"] = _sweep(
+            chip_smoke, "tt_contract_batched",
+            lambda rows, y: batched(x.data_ptr(), y.data_ptr(),
+                                    desc.ctypes.data, B, P, stride, rows,
+                                    stream),
+            ttc.tt_contract_batched(x, cores, spec), rows_set, tile, 50)
+        if label == "hidden":
+            out["tt_contract_batched_quant-hidden"] = _sweep(
+                chip_smoke, "tt_contract_batched_quant",
+                lambda rows, y: quant_launch(
+                    x.data_ptr(), y.data_ptr(), desc.ctypes.data, B, P,
+                    stride, rows, quant.block, ttc.CODE_TYPES[quant.dtype],
+                    stream),
+                ttc.tt_contract_batched_quant(x, cores, spec, quant),
+                rows_set, tile, 50)
     return out
 
 
