@@ -156,7 +156,49 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 slots, ``max_len`` 256, 4 requests of 16-token prompts and 16
                 new tokens): all finish with 16 tokens, and a second engine on
                 the same params gives the same tokens.
- 13. report   — one ``{"kernels": [...]}`` line, the card's name and power
+ 13. bp-kernel — ``tt_contract_grad``, the hand-written backward of
+                ``tt_contract`` (the off-chip BP baselines' kernel; the TPU
+                kernel has none), against ``ref.tt_contract_grad_ref`` at the
+                three BP launches of the paper's config at batch 100 (layer 0
+                on the 100 rows and on the 21 identity columns, no dx; the
+                hidden layer on 4300 rows, with dx), the reduced spec at B
+                1000 and the rank-4 spec at B 777.  dx at phase 3's bound;
+                each dG_k within ``tt_contract.grad_bound`` of the plain
+                chain in float64 (the kernel's summation depth, which grows
+                with the reduction length over B·M_<k·N_>k, times the
+                magnitudes it adds), with the worst element's share of it;
+                two calls bit for bit.  Two traced windows of 5 calls, call k
+                on dy·2^k, each output 2^k times the first call's bits (a
+                skipped block pass would leave the sum stale partials); one
+                window starts on the block pass, one on a PyTorch fill
+                (``trace_launches``: what each trace recorded).  Times the
+                hidden-layer call (CUDA events and alone in the second
+                window), its plain version and ``torch.autograd.grad`` of
+                ``x @ tt_to_full(cores).T``.
+ 14. train-bp — ``launch.train.main`` with the BP optimizers at hidden
+                1024, batch 100: tt + AdamW for 50 steps with a checkpoint,
+                tonn (noise on) + AdamW and dense + SGD for 10.  Checks:
+                finite losses and val MSE, the tt loss falling (median of the
+                last 10 below the first), 3 ``tt_contract`` and 3
+                ``tt_contract_grad`` launches a step (plus 2 ``tt_contract``
+                per validation forward; none in dense) and no other kernel;
+                one step's gradients card vs CPU (``Σ u·w`` and
+                ``Σ w·fd_u_stencil`` — the BP step's 3 + 3 TT launches,
+                counted, without the residual's 1/h² — within
+                1e-4·max|grad| per leaf, nonzero; the loss's at the FD floor,
+                and in tt and dense each f32 loss gradient's distance to the
+                CPU's float64 one, recorded); the checkpoint's ``params`` and
+                ``opt`` round-trip, ``--resume`` continues the run bit for
+                bit, and a second 5-step run gives the same losses bit for
+                bit.  Times a BP step (CUDA events, a
+                traced window of 5).
+ 15. train-seq — ``--pinn-mode tonn --pinn-noise --sequential`` at hidden
+                1024 for 5 steps (N = 10, batch 100): 2 ``tt_contract``
+                launches per loss evaluation, 22 a step, and no batched chain
+                or mesh kernel; one step's (N,) losses and base loss card vs
+                CPU (rtol 1e-1) and a perturbed model's stencil u (1e-4 of
+                max|u|).  Times a sequential step.
+ 16. report   — one ``{"kernels": [...]}`` line, the card's name and power
                 limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device, or run outside a checkout of the repository, it exits
@@ -1268,7 +1310,8 @@ def phase_flash_kernel(device) -> dict:
     return results
 
 
-def _profile(fn, calls: int = 1, match: str | None = None) -> dict:
+def _profile(fn, calls: int = 1, match: str | None = None,
+             lead=None) -> dict:
     """``calls`` back-to-back calls of ``fn``, a steady window after one
     warm call, under ``torch.profiler`` (CPU + CUDA): the window's wall
     time (host clock, ending in a synchronize), the summed time of the
@@ -1279,13 +1322,17 @@ def _profile(fn, calls: int = 1, match: str | None = None) -> dict:
     of them, and each one's time in launch order over one call's share
     (``match_ms``, ``match_kernels``, ``match_max_ms``, ``match_each_ms``).
     Without device events in the trace the device numbers are None (not
-    measured)."""
+    measured).  ``lead``, if given, runs inside the window before the
+    calls and before the clock starts (its kernels are counted)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()                                                   # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        if lead is not None:
+            lead()
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
@@ -1315,6 +1362,486 @@ def _profile(fn, calls: int = 1, match: str | None = None) -> dict:
         out["match_each_ms"] = [ms for _, ms in
                                 sorted(matched)[:len(matched) // calls]]
     return out
+
+
+def _grad_bound_ms(spec, batch: int, need_dx: bool) -> tuple:
+    """(bound_ms, bound_by) of one ``tt_contract_grad``: x and dy read,
+    dx written (need_dx), the cores read and their gradients written at
+    the card's memory rate, against the FMAs the backward needs at the f32
+    peak — the forward states A_0..A_{L-1} (steps 0..L-2), every dG_k and
+    every dA_k (without dA_0 when dx is not needed)."""
+    bytes_moved = 4 * (batch * spec.in_dim * (2 if need_dx else 1)
+                       + batch * spec.out_dim + 2 * spec.num_params)
+    step = []
+    m_prefix, n_suffix = 1, spec.in_dim
+    for r, m, n, rn in spec.core_shapes:
+        n_suffix //= n
+        step.append(2 * batch * m_prefix * n_suffix * r * n * m * rn)
+        m_prefix *= m
+    flops = sum(step[:-1]) + sum(step) + sum(step[0 if need_dx else 1:])
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_bp_kernel(device) -> dict:
+    """``tt_contract_grad`` against ``ref.tt_contract_grad_ref`` at the
+    three BP launches of the paper's config (batch 100), the reduced spec
+    off the tile and the rank-4 spec: dx at phase 3's bound, each dG_k
+    within ``tt_contract.grad_bound`` of the plain chain in float64, two
+    calls bit for bit; times the hidden-layer call."""
+    import torch
+    from repro_torch.core import tt
+    from repro_torch.kernels import ref, tt_contract as ttc
+
+    paper = tt.PAPER_TONN_SPEC
+    # label -> (spec, rows, need_dx); "hidden-stencil" is the main one
+    cases = {"layer0-rows": (paper, 100, False),
+             "layer0-columns": (paper, 21, False),
+             "hidden-stencil": (paper, 4300, True),
+             "reduced-1000": (tt.auto_factorize(64, 64, L=3, max_rank=2),
+                              1000, True),
+             "rank4-777": (tt.auto_factorize(256, 512, L=3, max_rank=4), 777,
+                           True)}
+    results = {}
+    for i, (label, (spec, B, need_dx)) in enumerate(cases.items()):
+        gen = torch.Generator().manual_seed(4000 + i)
+        cores = [c.to(device) for c in tt.tt_init(gen, spec)]
+        x = torch.randn((B, spec.in_dim), generator=gen).to(device)
+        dy = torch.randn((B, spec.out_dim), generator=gen).to(device)
+        dx, grads = ttc.tt_contract_grad(x, cores, spec, dy, need_dx)
+        pdx, pgrads = ref.tt_contract_grad_ref(x, cores, spec, dy, need_dx)
+        _, exact = ref.tt_contract_grad_ref(
+            x.double(), [c.double() for c in cores], spec, dy.double(),
+            False)
+        bounds = ttc.grad_bound(x, cores, spec, dy)
+        torch.cuda.synchronize()
+        row = {"case": label, "rows": B, "need_dx": need_dx,
+               "modes": [list(spec.out_modes), list(spec.in_modes)],
+               "ranks": list(spec.ranks),
+               "tile": dataclasses.asdict(ttc.grad_tile(spec, B))}
+        if need_dx:
+            row["dx_max_abs_err"], row["dx_max_abs_plain"] = _check_close(
+                "tt_contract_grad dx", label, dx, pdx)
+        share, err32 = 0.0, 0.0
+        for k, (g, e, b, p) in enumerate(zip(grads, exact, bounds, pgrads)):
+            over = ((g.double() - e).abs() / b).max().item()
+            if not (torch.isfinite(g).all().item() and over <= 1.0):
+                raise AssertionError(
+                    f"tt_contract_grad dG_{k} at {label}: worst element at "
+                    f"{over:.3e} of its bound")
+            share = max(share, over)
+            err32 = max(err32, (g - p).abs().max().item())
+        row["dG_max_err_over_bound"] = share
+        row["dG_max_abs_err_vs_plain_f32"] = err32
+        row["dG_max_abs_err_vs_plain_f64"] = max(
+            (g.double() - e).abs().max().item()
+            for g, e in zip(grads, exact))
+        row["dG_max_abs"] = max(e.abs().max().item() for e in exact)
+        again = ttc.tt_contract_grad(x, cores, spec, dy, need_dx)
+        if not (all(torch.equal(a, b) for a, b in zip(grads, again[1]))
+                and (not need_dx or torch.equal(dx, again[0]))):
+            raise AssertionError(f"tt_contract_grad at {label}: two calls "
+                                 "differ")
+        row["repeat_bitwise_equal"] = True
+        row["max_abs_err"] = max(row.get("dx_max_abs_err", 0.0),
+                                 row["dG_max_abs_err_vs_plain_f64"])
+        # Traced windows of 5 calls, call k on dy·2^k (the warm call k =
+        # 0): scaling by a power of two is exact through every product and
+        # sum, so each call must give the first call's bits times 2^k.  A
+        # block pass that did not run would leave the sum the previous
+        # call's partials (2^(k-1)) or stale memory.  The first window
+        # starts on the block pass; the second starts on one PyTorch
+        # kernel (``lead``), to see whether the trace drops the window's
+        # first kernel, whatever it is (here a fill).
+        dys = [dy * 2.0 ** k for k in range(6)]
+        windows = {}
+        for name, lead in (("bare", None),
+                           ("lead", lambda: torch.zeros(1, device=device))):
+            outs = []
+
+            def scaled():
+                outs.append(ttc.tt_contract_grad(x, cores, spec,
+                                                 dys[len(outs)], need_dx))
+
+            trace = _profile(scaled, 5, match="tt_contract_grad", lead=lead)
+            for k, (sdx, sgrads) in enumerate(outs):
+                if not (all(torch.equal(a, b * 2.0 ** k)
+                            for a, b in zip(sgrads, grads))
+                        and (not need_dx or torch.equal(sdx, dx * 2.0 ** k))):
+                    raise AssertionError(
+                        f"tt_contract_grad at {label}, traced call {k}: not "
+                        f"2^{k} times the first call's bits")
+            by = {("sum" if "sum_kernel" in kname else "block"): (ms, n)
+                  for kname, ms, n in trace["top"]
+                  if "tt_contract_grad" in kname}
+            windows[name] = {"trace": trace, "by": by,
+                             "launches_in_trace": {k: n for k, (_, n)
+                                                   in by.items()}}
+        row["scaled_calls_bitwise_exact"] = True
+        row["trace_launches"] = {k: w["launches_in_trace"]
+                                 for k, w in windows.items()}
+        by = windows["lead"]["by"]
+        alone = {k: ms / n for k, (ms, n) in by.items()}
+        row["kernel_device_ms"] = (sum(alone.values()) if len(alone) == 2
+                                   else None)
+        row["kernel_device_ms_each"] = alone
+        row["kernels_per_call"] = sum(n for _, n in by.values()) / 5
+        trace = windows["lead"]["trace"]
+        if label == "hidden-stencil":
+            row["trace"] = trace
+            leaf_cores = [c.clone().requires_grad_() for c in cores]
+            leaf_x = x.clone().requires_grad_(need_dx)
+
+            def library():
+                w = tt.tt_to_full(leaf_cores, spec)
+                return torch.autograd.grad(
+                    leaf_x @ w.T, ([leaf_x] if need_dx else []) + leaf_cores,
+                    dy)
+
+            row["ms"] = _time_ms(lambda: ttc.tt_contract_grad(
+                x, cores, spec, dy, need_dx), 50)
+            row["plain_ms"] = _time_ms(lambda: ref.tt_contract_grad_ref(
+                x, cores, spec, dy, need_dx), 10)
+            row["library_ms"] = _time_ms(library, 20)
+            row["forward_ms"] = _time_ms(
+                lambda: ttc.tt_contract(x, cores, spec), 50)
+            row["bound_ms"], row["bound_by"] = _grad_bound_ms(spec, B,
+                                                              need_dx)
+        results[label] = row
+        print(f"[bp-kernel] {json.dumps(row)}", flush=True)
+    return results
+
+
+BP_COUNTED = ("tt_contract", "tt_contract_grad", "tt_contract_batched",
+              "tt_contract_batched_quant", "mesh_densify_stacked",
+              "mesh_apply_stacked")
+
+
+def _counted():
+    from repro_torch.kernels import mesh_apply as mesh
+    from repro_torch.kernels import tt_contract as ttc
+    return {name: getattr(ttc if name.startswith("tt") else mesh, name)
+            for name in BP_COUNTED}
+
+
+def _run_counted(argv: list) -> tuple:
+    """``launch.train.main(argv)`` on the card with every kernel count set
+    to 0 just before and read just after.  Returns (result, launches, wall
+    seconds)."""
+    import torch
+    from repro_torch.launch import train
+    counted = _counted()
+    for fn in counted.values():                           # main path starts
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, {name: fn.launches for name, fn in counted.items()}, wall
+
+
+def _val_evals(steps: int, log_every: int) -> int:
+    """Validation forwards a run makes: one per logged step, one at the end
+    (each two ``tt_contract`` launches, outside autograd)."""
+    return len(range(0, steps, log_every)) + 1
+
+
+def _card_vs_cpu_grads(model, params, init_params, noise, xt,
+                       device) -> dict:
+    """One BP step's gradients on the card against the CPU's plain path on
+    the same batch and noise.  Strict, within 1e-4·max|grad| per leaf: of
+    ``Σ u·w`` (w fixed, random) at the run's final params, and of
+    ``Σ w_s·fd_u_stencil`` (w_s fixed, random over the stencil's (2A+1)×B
+    values) at the initial and the final params: the fd_fast stencil runs
+    the BP step's 3 forward and 3 backward TT launches (counted here), but
+    without the residual's 1/h².  Of the residual loss at the run's initial
+    params (loss ~1) at the FD noise floor, relative L2 within 2.5e-1 and
+    the loss within rtol 2.5e-1 (the residual's second differences amplify
+    f32 rounding by 1/h² = 1e4: the port's f32 sits 6–7% from float64
+    there, measured on the CPU at hidden 1024), all nonzero.  At the final
+    params, where the loss is small and the gradient mostly FD noise, the
+    loss gradients' relative L2 is recorded and not checked; beside it, in
+    tt and dense (which the port also runs in float64), each f32
+    gradient's relative L2 to the CPU's float64 one, at both points."""
+    import numpy as np
+    import torch
+    from repro_torch.core import pinn, zoo
+    from repro_torch.device import to_device
+    mask = model.trainable_mask(params)
+    w = torch.randn(xt.shape[0], generator=torch.Generator().manual_seed(3))
+    ws = torch.randn(2 * model.in_dim + 1, xt.shape[0],
+                     generator=torch.Generator().manual_seed(4))
+
+    def grads(dev, fn, at, dtype=None):
+        p = zoo.tree_map(lambda t, m: t.detach().to(dev, dtype or t.dtype)
+                         .requires_grad_(m), at, mask)
+        nz = None if noise is None else to_device(noise, dev)
+        out = fn(p, xt.to(dev, dtype or xt.dtype), nz)
+        return out.item(), [g.cpu() for g in torch.autograd.grad(
+            out, [t for t in zoo.tree_leaves(p) if t.requires_grad])]
+
+    def u_fn(p, x, nz):
+        return torch.sum(model.u(p, x, nz) * w.to(x.device))
+
+    def stencil_fn(p, x, nz):
+        return torch.sum(model.fd_u_stencil(p, x, model.fd_step, nz)
+                         * ws.to(x.device))
+
+    def loss_fn(p, x, nz):
+        return pinn.residual_loss(model, p, x, nz)
+
+    def rel_l2(a, b):
+        a = torch.cat([g.flatten() for g in a]).double()
+        b = torch.cat([g.flatten() for g in b]).double()
+        return ((a - b).norm() / b.norm()).item()
+
+    cpu = torch.device("cpu")
+
+    def strict(name, fn, at, launches=None):
+        counted = _counted()
+        before = {k: f.launches for k, f in counted.items()}
+        _, card = grads(device, fn, at)
+        if launches is not None:
+            launches.update({k: f.launches - before[k]
+                             for k, f in counted.items()})
+        _, plain = grads(cpu, fn, at)
+        share = 0.0
+        for a, b in zip(card, plain):
+            err = (a - b).abs().max().item()
+            tol = 1e-4 * b.abs().max().item() + 1e-12
+            if not (torch.isfinite(a).all().item() and err <= tol
+                    and a.abs().max().item() > 0):
+                raise AssertionError(f"BP gradient of {name} card vs CPU: "
+                                     f"{err:.3e} > {tol:.3e}, or all zeros")
+            share = max(share, err / tol)
+        return share
+
+    out = {"u_grad_max_err_over_tol": strict("Σu·w", u_fn, params),
+           "stencil_grad_max_err_over_tol_init":
+               strict("Σw·fd_u_stencil", stencil_fn, init_params)}
+    launches = {}
+    out["stencil_grad_max_err_over_tol_final"] = strict(
+        "Σw·fd_u_stencil", stencil_fn, params, launches)
+    chains = 0 if model.cfg.mode == "dense" else 3
+    want = dict.fromkeys(BP_COUNTED, 0)
+    want["tt_contract"] = want["tt_contract_grad"] = chains
+    if launches != want:
+        raise AssertionError(f"the stencil's gradient on the card launched "
+                             f"{launches}, expected {want}")
+    out["stencil_launches"] = launches
+    l_card, gl_card = grads(device, loss_fn, init_params)
+    l_cpu, gl_cpu = grads(cpu, loss_fn, init_params)
+    rel = rel_l2(gl_card, gl_cpu)
+    if not (all(torch.isfinite(g).all().item() for g in gl_card)
+            and rel <= 2.5e-1):
+        raise AssertionError(f"BP loss gradient card vs CPU: relative L2 "
+                             f"{rel:.3e}")
+    np.testing.assert_allclose(l_card, l_cpu, rtol=2.5e-1)
+    if not all(g.abs().max().item() > 0 for g in gl_card):
+        raise AssertionError("a BP gradient on the card is all zeros")
+    lt_card, glt_card = grads(device, loss_fn, params)
+    lt_cpu, glt_cpu = grads(cpu, loss_fn, params)
+    out.update({"loss_grad_rel_l2_card_vs_cpu_init": rel,
+                "loss_card_init": l_card, "loss_cpu_init": l_cpu,
+                "loss_grad_rel_l2_card_vs_cpu_final":
+                    rel_l2(glt_card, glt_cpu),
+                "loss_card_final": lt_card, "loss_cpu_final": lt_cpu})
+    if model.cfg.mode != "tonn":      # tonn's densification runs in f32
+        for when, at, card, plain in (("init", init_params, gl_card, gl_cpu),
+                                      ("final", params, glt_card, glt_cpu)):
+            l64, g64 = grads(cpu, loss_fn, at, torch.float64)
+            out[f"loss_f64_{when}"] = l64
+            out[f"loss_grad_rel_l2_card_vs_f64_{when}"] = rel_l2(card, g64)
+            out[f"loss_grad_rel_l2_cpu_vs_f64_{when}"] = rel_l2(plain, g64)
+    return out
+
+
+def measure_bp_step(model, opt, params, noise, xt, iters: int = 20) -> dict:
+    """ms per BP step (``launch.train._bp_step_fn``) back to back on CUDA
+    events, and one traced window of 5 steps."""
+    from repro_torch.launch import train
+    step = train._bp_step_fn(model, opt, model.trainable_mask(params), noise)
+    state = opt.init(params)
+
+    def one():
+        return step(params, state, xt, {})
+
+    return {"bp_step_ms": _time_ms(one, iters, warmup=3),
+            "trace": _profile(one, ZO_TRACE_STEPS, match="tt_contract")}
+
+
+def phase_train_bp(device) -> dict:
+    """The off-chip BP baselines through ``launch.train.main`` at the
+    paper's width (hidden 1024, ``PAPER_TONN_SPEC``, batch 100): tt with
+    AdamW for 50 steps and a checkpoint, tonn (noise on) with AdamW and
+    dense with SGD for 10 steps each."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import read_checkpoint_meta, \
+        restore_checkpoint
+    from repro_torch.core import zoo
+    from repro_torch.data import pde_collocation_iterator
+    from repro_torch.device import to_device
+    from repro_torch.launch import train
+    from repro_torch.optim import get_optimizer
+
+    batch, log_every = 100, 25
+    base = ["--arch", "tensor-pinn", "--pde", "hjb-20d", "--batch",
+            str(batch), "--log-every", str(log_every), "--seed", "0"]
+    out = {}
+    for label, flags, steps in (
+            ("tt-adamw", ["--pinn-mode", "tt", "--optimizer", "adamw"], 50),
+            ("tonn-noise-adamw", ["--pinn-mode", "tonn", "--pinn-noise",
+                                  "--optimizer", "adamw"], 10),
+            ("dense-sgd", ["--pinn-mode", "dense", "--optimizer", "sgd"],
+             10)):
+        ckpt = tempfile.mkdtemp(prefix="chip_smoke_bp_")
+        argv = base + flags + ["--steps", str(steps), "--ckpt-dir", ckpt,
+                               "--ckpt-every", str(steps // 2)]
+        res, launches, wall = _run_counted(argv)
+        chains = 0 if "dense" in label else 3 * steps
+        want = dict.fromkeys(BP_COUNTED, 0)
+        want["tt_contract_grad"] = chains
+        want["tt_contract"] = chains + (
+            0 if "dense" in label else 2 * _val_evals(steps, log_every))
+        if launches != want:
+            raise AssertionError(f"{label}: {launches} over {steps} steps; "
+                                 f"expected {want}")
+        losses = np.asarray(res.losses)
+        if not (np.isfinite(losses).all() and np.isfinite(res.val_mse)):
+            raise AssertionError(f"{label}: non-finite losses or val MSE")
+        row = {"steps": steps, "batch": batch, "launches": launches,
+               "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+               "losses": losses.tolist(), "val_mse": res.val_mse,
+               "host_step_ms_median":
+                   1e3 * float(np.median(res.step_seconds)),
+               "train_wall_s": wall}
+        model, params, noise = res.model, res.params, res.hw_noise
+        xt = next(pde_collocation_iterator(batch, seed=0, start_step=steps,
+                                           problem=model.problem))
+        init, _ = train.init_solver(model, 0)
+        row["card_vs_cpu"] = _card_vs_cpu_grads(
+            model, params, to_device(init, device), noise, xt, device)
+        opt = get_optimizer(flags[-1])
+        if label == "tt-adamw":
+            if not np.median(losses[-10:]) < losses[0]:
+                raise AssertionError(
+                    f"tt BP loss did not fall: first {losses[0]:.4e}, "
+                    f"median of the last 10 {np.median(losses[-10:]):.4e}")
+            row["loss_median_last10"] = float(np.median(losses[-10:]))
+            # the checkpoint's opt subtree round-trips
+            meta = read_checkpoint_meta(ckpt)
+            restored, _ = restore_checkpoint(
+                ckpt, {"params": params, "opt": opt.init(params)})
+            for a, b in zip(zoo.tree_leaves(restored),
+                            zoo.tree_leaves({"params": params,
+                                             "opt": res.opt_state})):
+                if not torch.equal(a, b):
+                    raise AssertionError("the BP checkpoint does not hold "
+                                         "the run's params and opt state")
+            # --resume from step_25 continues the run
+            shutil.rmtree(f"{ckpt}/step_{steps:012d}")
+            resumed, _, _ = _run_counted(argv + ["--resume"])
+            if resumed.losses != res.losses[steps // 2:]:
+                raise AssertionError("--resume did not continue the run bit "
+                                     f"for bit: {resumed.losses[:3]} vs "
+                                     f"{res.losses[steps // 2:][:3]}")
+            row["resume_losses_bitwise_equal"] = True
+            # a second run of 5 steps gives the same bits
+            first5, _, _ = _run_counted(base + flags + ["--steps", "5"])
+            again5, _, _ = _run_counted(base + flags + ["--steps", "5"])
+            if first5.losses != again5.losses:
+                raise AssertionError(f"two BP runs differ: {first5.losses} "
+                                     f"vs {again5.losses}")
+            row["repeat_losses_bitwise_equal"] = True
+            row["checkpoint_keys"] = len(meta["keys"])
+            timed = measure_bp_step(model, opt, params, noise,
+                                    xt.to(device))
+            row["bp_step_ms"] = timed["bp_step_ms"]
+            row["bp_step_trace"] = timed["trace"]
+        shutil.rmtree(ckpt)
+        out[label] = row
+        print(f"[train-bp] {label} {json.dumps(row)}", flush=True)
+    return out
+
+
+def phase_train_seq(device) -> dict:
+    """``--pinn-mode tonn --pinn-noise --sequential`` at the paper's width
+    (N = 10, batch 100) for 5 steps: 2 ``tt_contract`` launches per loss
+    evaluation, no batched chain and no mesh kernel; one step's losses
+    card vs CPU on the same params, ξ and batch."""
+    import numpy as np
+    import torch
+    from repro_torch import pde as pde_lib
+    from repro_torch.core import pinn, zoo
+    from repro_torch.data import pde_collocation_iterator
+    from repro_torch.device import counter_generator, to_device
+
+    steps, batch, n, log_every = 5, 100, 10, 10
+    res, launches, wall = _run_counted(
+        ["--arch", "tensor-pinn", "--pde", "hjb-20d", "--pinn-mode", "tonn",
+         "--pinn-noise", "--sequential", "--steps", str(steps), "--batch",
+         str(batch), "--zo-samples", str(n), "--log-every", str(log_every),
+         "--seed", "0"])
+    want = dict.fromkeys(BP_COUNTED, 0)
+    want["tt_contract"] = (2 * (n + 1) * steps
+                           + 2 * _val_evals(steps, log_every))
+    if launches != want:
+        raise AssertionError(f"sequential: {launches} over {steps} steps; "
+                             f"expected {want}")
+    if not (np.isfinite(res.losses).all() and np.isfinite(res.val_mse)):
+        raise AssertionError(f"sequential: non-finite losses {res.losses}")
+    model, params, noise = res.model, res.params, res.hw_noise
+    mask = model.trainable_mask(params)
+    scfg = zoo.SPSAConfig(num_samples=n)
+    xis = zoo.sample_perturbations(counter_generator(7, device=device),
+                                   params, n, mask)
+    xt = next(pde_collocation_iterator(batch, seed=0, start_step=steps,
+                                       problem=model.problem))
+
+    def one_step(dev):
+        p, z, nz = (to_device(params, dev), to_device(xis, dev),
+                    to_device(noise, dev))
+        x = xt.to(dev)
+        with torch.no_grad():
+            def loss_fn(q):
+                return pinn.residual_loss(model, q, x, nz)
+            losses = zoo.spsa_losses(loss_fn, p, None, scfg, xis=z)
+            pts = pde_lib.fd_stencil_points(x, model.fd_step,
+                                            model.in_dim)
+            u = model.u(zoo.tree_map(lambda a, b: a + 0.01 * b[0], p, z),
+                        pts.reshape(-1, x.shape[1]), nz)
+            return losses.cpu(), loss_fn(p).cpu(), u.cpu()
+
+    l_card, b_card, u_card = one_step(device)
+    l_cpu, b_cpu, u_cpu = one_step(torch.device("cpu"))
+    u_err = (u_card - u_cpu).abs().max().item()
+    u_scale = u_cpu.abs().max().item()
+    if not u_err <= 1e-4 * u_scale:
+        raise AssertionError(f"sequential u card vs CPU: {u_err:.3e}, "
+                             f"max|u| {u_scale:.3e}")
+    np.testing.assert_allclose(l_card.numpy(), l_cpu.numpy(), rtol=1e-1)
+    np.testing.assert_allclose(b_card.numpy(), b_cpu.numpy(), rtol=1e-1)
+    p_dev, x_dev = params, xt.to(device)
+
+    def seq_step():
+        return zoo.zo_signsgd_step(
+            p_dev, zoo.ZOState(steps, 1), 1e-3, scfg, trainable_mask=mask,
+            loss_fn=lambda q: pinn.residual_loss(model, q, x_dev, noise))
+
+    out = {"steps": steps, "batch": batch, "zo_samples": n,
+           "launches": launches, "losses": [float(v) for v in res.losses],
+           "val_mse": res.val_mse,
+           "host_step_ms_median": 1e3 * float(np.median(res.step_seconds)),
+           "train_wall_s": wall, "seq_step_ms": _time_ms(seq_step, 5, 2),
+           "seq_step_trace": _profile(seq_step, 1, match="tt_contract"),
+           "stencil_u_max_abs_card_vs_cpu": u_err, "stencil_u_max": u_scale,
+           "losses_card": l_card.tolist(), "losses_cpu": l_cpu.tolist(),
+           "base_card": float(b_card), "base_cpu": float(b_cpu)}
+    print(f"[train-seq] {json.dumps(out)}", flush=True)
+    return out
+
 
 
 def phase_lm_serve(device) -> dict:
@@ -1504,6 +2031,9 @@ def main() -> int:
     served_q = phase_serve_quant(device)
     flash = phase_flash_kernel(device)
     lm = phase_lm_serve(device)
+    bp_kernel = phase_bp_kernel(device)
+    trained_bp = phase_train_bp(device)
+    trained_seq = phase_train_seq(device)
 
     main_case = kernel["cases"][0]                       # paper spec, B=2048
     entry = {"name": "tt_contract", "route": "cuda",
@@ -1597,6 +2127,30 @@ def main() -> int:
                "shape": "q (4, 16, 2048, 128), k/v (4, 2, 2048, 128) bf16, "
                         "causal: one qwen2.5-3b prefill layer",
                "cases": list(flash.values())}
+    main_g = bp_kernel["hidden-stencil"]
+    entry_g = {"name": "tt_contract_grad", "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/tt_contract.cu",
+               "replaces": "src/repro/kernels/tt_contract.py:95 (the "
+                           "backward of B2; the TPU kernel has none, JAX "
+                           "differentiates its plain chain)",
+               "launches": trained_bp["tt-adamw"]["launches"][
+                   "tt_contract_grad"],
+               "max_abs_err": max(r["max_abs_err"]
+                                  for r in bp_kernel.values()),
+               "ms": main_g["ms"], "plain_ms": main_g["plain_ms"],
+               "bound_ms": main_g["bound_ms"], "bound_by": main_g["bound_by"],
+               "library_ms": main_g["library_ms"],
+               "kernel_device_ms": main_g["kernel_device_ms"],
+               "kernels_per_call": main_g["kernels_per_call"],
+               "trace_launches": main_g["trace_launches"],
+               "tile": main_g["tile"],
+               "dG_max_err_over_bound": max(
+                   r["dG_max_err_over_bound"] for r in bp_kernel.values()),
+               "shape": "x, dy (4300, 1024) f32, PAPER_TONN_SPEC, dx and "
+                        "the 4 cores' gradients: the hidden layer of a BP "
+                        "step at batch 100 (library: torch.autograd.grad "
+                        "of x @ tt_to_full(cores).T, dx and the cores)",
+               "cases": list(bp_kernel.values())}
     print(f"[serve] p50 {serve['p50_ms']:.3f} ms, p99 {serve['p99_ms']:.3f} "
           f"ms, {serve['points_per_s']:.0f} points/s over "
           f"{serve['requests']} requests on {card}", flush=True)
@@ -1620,8 +2174,20 @@ def main() -> int:
           f"({main_f['design']}) {main_f['ms']:.3f} ms per layer (bound "
           f"{main_f['bound_ms']:.4f} ms, SDPA {main_f['library_ms']:.4f} ms) "
           f"on {card}", flush=True)
+    bp = trained_bp["tt-adamw"]
+    print(f"[train-bp] tt AdamW: {bp['bp_step_ms']:.3f} ms per BP step "
+          f"(CUDA events; host median {bp['host_step_ms_median']:.3f} ms); "
+          f"loss {bp['loss_first']:.4e} -> {bp['loss_last']:.4e} over "
+          f"{bp['steps']} steps, val MSE {bp['val_mse']:.4e}; "
+          f"tt_contract_grad {main_g['ms']:.4f} ms per call (bound "
+          f"{main_g['bound_ms']:.4f} ms, autograd of the dense product "
+          f"{main_g['library_ms']:.4f} ms) on {card}", flush=True)
+    print(f"[train-seq] {trained_seq['seq_step_ms']:.3f} ms per sequential "
+          f"ZO step (CUDA events; host median "
+          f"{trained_seq['host_step_ms_median']:.3f} ms), val MSE "
+          f"{trained_seq['val_mse']:.4e} on {card}", flush=True)
     print(json.dumps({"kernels": [entry, entry_b, entry_m, entry_q,
-                                  entry_f]}), flush=True)
+                                  entry_f, entry_g]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

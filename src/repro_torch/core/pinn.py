@@ -1,8 +1,9 @@
 """The paper's 3-layer sine MLP bound to a PDE problem, and its BP-free losses.
 
-``TensorPinn`` (in → n → n → 1, sine activations) in two of the paper's
+``TensorPinn`` (in → n → n → 1, sine activations) in three of the paper's
 parametrizations:
 
+  * ``dense`` — plain weight matrices (the uncompressed off-chip baseline),
   * ``tt``   — first two layers TT-compressed (digital TT baseline),
   * ``tonn`` — TT-cores whose unfoldings are MZI meshes, the paper's
                proposed hardware; the meshes are densified into plain
@@ -10,13 +11,18 @@ parametrizations:
                evaluation (training) or once at load (serving).
 
 Serving runs the single forward, whose TT layers go through
-``kernels.ops.tt_linear``.  ZO training runs the stacked path: the N+1
-SPSA-perturbed parameter sets of every core mesh densify in one program
-(``prepare_params_stacked`` → ``kernels.ops.mesh_densify_stacked``, one
-launch) and the FD stencil goes through every perturbed model at once
-(``fd_u_stencil_stacked`` → ``kernels.ops.tt_linear_batched``, three
-launches).  On the card those are the CUDA kernels; on the CPU their plain
-versions.  Forwards are plain functions of a params dict of tensors.
+``kernels.ops.tt_linear``, and so does sequential ZO training, one model
+at a time; the off-chip BP baselines differentiate that forward with
+autograd (on the card, ``tt_linear`` runs the TT kernel and its
+hand-written backward).  ``dense`` layers are ``torch.matmul`` /
+``einsum``, as the JAX package leaves them to XLA.  Fused ZO training runs
+the stacked path: the N+1 SPSA-perturbed parameter sets of every core
+mesh densify in one program (``prepare_params_stacked`` →
+``kernels.ops.mesh_densify_stacked``, one launch) and the FD stencil goes
+through every perturbed model at once (``fd_u_stencil_stacked`` →
+``kernels.ops.tt_linear_batched``, three launches).  On the card those
+are the CUDA kernels; on the CPU their plain versions.  Forwards are
+plain functions of a params dict of tensors.
 
 Quantization-aware training and serving (``cfg.quant``): with weight
 quantization on, every TT layer sees block-scaled int8 / fp8 cores (the
@@ -27,8 +33,8 @@ before the noise model.  ZO training is gradient-free, so fake-quant in the
 loss is the whole of QAT.  With ``cfg.quant`` disabled every path is the
 unquantized one, bit for bit.
 
-Port of ``repro.core.pinn``.  The ``dense`` and ``onn`` modes and the
-Stein and spectral estimators are not ported yet.  Two paths of the JAX
+Port of ``repro.core.pinn``.  The ``onn`` mode and the Stein and
+spectral estimators are not ported yet.  Two paths of the JAX
 package are CPU-XLA workarounds with no counterpart here: the polynomial
 ``fast_sin`` (the port takes ``torch.sin``) and the Kronecker head of
 ``_f_head_stacked`` (the port takes the TT chain, as the JAX package does
@@ -53,7 +59,7 @@ __all__ = ["PINNConfig", "TensorPinn", "config_to_meta", "config_from_meta",
            "residual_loss", "residual_losses_stacked", "per_term_losses",
            "validation_mse"]
 
-PORTED_MODES = ("tt", "tonn")
+PORTED_MODES = ("dense", "tt", "tonn")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,7 +117,7 @@ class TensorPinn:
         if cfg.mode not in PORTED_MODES:
             raise NotImplementedError(
                 f"mode {cfg.mode!r} is not ported yet (ROADMAP queue A, "
-                f"item 6); the port has {PORTED_MODES}")
+                f"item 6b); the port has {PORTED_MODES}")
         self.cfg = cfg
         self.problem = problem if problem is not None \
             else pde_lib.get_problem(cfg.pde)
@@ -125,14 +131,17 @@ class TensorPinn:
         # consumer keeps its unquantized path
         self._quant = cfg.quant if cfg.quant.enabled else None
         h = cfg.hidden
-        # pad the input up to a TT-factorizable width (the paper folds
-        # 21 → 1024 so layer 1 is a 1024×1024 TT matrix)
-        self.in_pad = h if h >= self.net_in else -(-self.net_in // 8) * 8
+        self.in_pad, self.specs = self.net_in, []
+        if cfg.mode != "dense":
+            # pad the input up to a TT-factorizable width (the paper folds
+            # 21 → 1024 so layer 1 is a 1024×1024 TT matrix)
+            self.in_pad = h if h >= self.net_in else -(-self.net_in // 8) * 8
+            self.specs = [
+                tt.hjb_layer_spec(h, self.in_pad, L=cfg.tt_L,
+                                  max_rank=cfg.tt_rank),
+                tt.hjb_layer_spec(h, h, L=cfg.tt_L, max_rank=cfg.tt_rank),
+            ]
         self.dims = [(h, self.in_pad), (h, h), (1, h)]
-        self.specs = [
-            tt.hjb_layer_spec(h, self.in_pad, L=cfg.tt_L, max_rank=cfg.tt_rank),
-            tt.hjb_layer_spec(h, h, L=cfg.tt_L, max_rank=cfg.tt_rank),
-        ]
         if cfg.mode == "tonn":
             # each TT-core's (r·m × n·r') unfolding is an MZI-mesh matrix
             self.photonic_cores = [
@@ -152,6 +161,12 @@ class TensorPinn:
         weights for a seed on every device); the caller moves them."""
         cfg = self.cfg
         params: dict = {}
+        if cfg.mode == "dense":
+            for i, (m, n) in enumerate(self.dims):
+                params[f"w{i}"] = (math.sqrt(2.0 / (m + n))
+                                   * torch.randn((m, n), generator=generator))
+                params[f"b{i}"] = torch.zeros((m,))
+            return params
         for i, spec in enumerate(self.specs):
             if cfg.mode == "tt":
                 params[f"cores{i}"] = tt.tt_init(generator, spec)
@@ -224,6 +239,8 @@ class TensorPinn:
 
     def _layer_matvec(self, params: dict, noise: dict | None, i: int,
                       x: torch.Tensor) -> torch.Tensor:
+        if self.cfg.mode == "dense":
+            return x @ params[f"w{i}"].T
         cores = params.get(f"cores{i}")
         if cores is None:  # unprepared tonn params: densify on the fly
             cores = self._densify_cores(params, noise, i)
@@ -250,18 +267,18 @@ class TensorPinn:
         return self.problem.ansatz(self.f(params, xt, noise), xt)
 
     # ------------------------------------------------- incremental FD stencil
-    def _identity_columns(self, device: torch.device) -> torch.Tensor:
+    def _identity_columns(self, like: torch.Tensor) -> torch.Tensor:
         """The first ``in_dim`` unit vectors of the padded input,
-        (in_dim, in_pad)."""
-        return torch.eye(self.in_dim, self.in_pad, dtype=torch.float32,
-                         device=device)
+        (in_dim, in_pad), in ``like``'s dtype and on its device."""
+        return torch.eye(self.in_dim, self.in_pad, dtype=like.dtype,
+                         device=like.device)
 
     def _layer1_columns(self, params: dict, noise: dict | None) -> torch.Tensor:
         """Columns 0..in_dim of the first-layer matrix, (in_dim, hidden):
         the FD stencil only shifts the input by ±h·e_i, and layer 1 is
         linear, so one extraction replaces 2·in_dim layer-1 matvecs."""
         return self._layer_matvec(params, noise, 0,
-                                  self._identity_columns(params["b0"].device))
+                                  self._identity_columns(params["b0"]))
 
     @staticmethod
     def _stencil_activations(z0: torch.Tensor, cols: torch.Tensor,
@@ -315,6 +332,9 @@ class TensorPinn:
                               x: torch.Tensor) -> torch.Tensor:
         """Layer-i matvec of P stacked (prepared) parameter sets: x
         ``(B', n)`` shared or ``(P, B', n)`` per entry → ``(P, B', m)``."""
+        if self.cfg.mode == "dense":
+            sub = "bn,pmn->pbm" if x.ndim == 2 else "pbn,pmn->pbm"
+            return torch.einsum(sub, x, stacked[f"w{i}"])
         return ops.tt_linear_batched(x, stacked[f"cores{i}"], self.specs[i],
                                      quant=self._quant)
 
@@ -337,7 +357,7 @@ class TensorPinn:
         z0 = self._layer_matvec_stacked(stacked, 0, self._embed(xt)) \
             + stacked["b0"][:, None]                               # (P, B, H)
         cols = self._layer_matvec_stacked(
-            stacked, 0, self._identity_columns(xt.device))         # (P, A, H)
+            stacked, 0, self._identity_columns(xt))                # (P, A, H)
         a = self._stencil_activations(z0, cols, h).reshape(
             P, (2 * A + 1) * B, self.cfg.hidden)
         f = self._f_head_stacked(stacked, a).reshape(P, 2 * A + 1, B)

@@ -22,14 +22,21 @@ one step evaluates all N+1 (2N+1 antithetic) models in one batched call of
 stack as one tensordot per leaf.  Fixed buffers (``trainable_mask`` False,
 the photonic ±1 diags) carry zero ξ, so they are neither probed nor moved.
 
+The sequential path (``loss_fn`` and no ``batched_loss_fn``) evaluates
+the models one at a time, the order a photonic chip with one physical mesh
+runs them in: the base loss first, then N separate ``loss_fn`` calls
+(``spsa_losses``).  It draws the same stacked ξ from the same generator as
+the fused path, so the two paths of one seed probe the same directions.
+
 Random draws come from an explicit ``torch.Generator`` on the params'
 device; ``zo_signsgd_step`` re-seeds it per step from ``(seed, step)``
 (``device.counter_generator``), so a resumed run redraws the same ξ.
 Torch's generators do not give JAX's threefry bits: the parity tests feed
-both packages the same ξ arrays.
+both packages the same ξ arrays (``xis=``).
 
-Port of ``repro.core.zoo``; the sequential one-model-at-a-time path
-(``spsa_losses``, ``vectorized=False``) and sharding are not ported yet.
+Port of ``repro.core.zoo``; the vmapped generic evaluator
+(``vectorized``), the plain ĝ step (``sign_update=False``) and the
+index-shard and axis-name hooks of distributed ZO are not ported yet.
 """
 
 from __future__ import annotations
@@ -42,7 +49,7 @@ import torch
 from repro_torch.device import counter_generator
 
 __all__ = ["SPSAConfig", "tree_leaves", "tree_map", "sample_perturbation",
-           "sample_perturbations", "perturbed_stack",
+           "sample_perturbations", "perturbed_stack", "spsa_losses",
            "spsa_gradient_from_losses", "spsa_gradient", "ZOState",
            "zo_signsgd_step", "apply_update"]
 
@@ -150,25 +157,56 @@ def spsa_gradient_from_losses(perturbed_losses: torch.Tensor,
                     xis)
 
 
+def spsa_losses(loss_fn: Callable[[PyTree], torch.Tensor], params: PyTree,
+                generator: torch.Generator, cfg: SPSAConfig,
+                xis: PyTree | None = None,
+                trainable_mask: PyTree | None = None) -> torch.Tensor:
+    """The N perturbed losses L(Φ + μ ξ_i), one ``loss_fn`` call each, in
+    order — ``(L(Φ + μ ξ_i) − L(Φ − μ ξ_i)) / 2`` when antithetic.  ``xis``
+    is the stacked ξ (``sample_perturbations``); without it the stack is
+    drawn from ``generator``.  Returns the (N,) f32 losses."""
+    n = cfg.num_samples
+    if xis is None:
+        xis = sample_perturbations(generator, params, n, trainable_mask)
+    losses = []
+    for i in range(n):
+        xi = tree_map(lambda z: z[i], xis)
+        lp = loss_fn(tree_map(lambda p, z: p + cfg.mu * z, params, xi))
+        if cfg.antithetic:
+            lm = loss_fn(tree_map(lambda p, z: p + (-cfg.mu) * z, params, xi))
+            lp = 0.5 * (lp - lm)
+        losses.append(lp.to(torch.float32))
+    return torch.stack(losses)
+
+
 def spsa_gradient(params: PyTree, generator: torch.Generator,
                   cfg: SPSAConfig,
-                  batched_loss_fn: Callable[[PyTree], torch.Tensor],
-                  trainable_mask: PyTree | None = None) -> tuple:
-    """Eq. (5) in one batched evaluation: returns ``(grad, base_loss)``.
+                  batched_loss_fn: Callable[[PyTree], torch.Tensor] | None
+                  = None,
+                  trainable_mask: PyTree | None = None,
+                  loss_fn: Callable[[PyTree], torch.Tensor] | None = None,
+                  xis: PyTree | None = None) -> tuple:
+    """Eq. (5): returns ``(grad, base_loss)``.
 
-    The base model rides along as a zero perturbation, so
-    ``batched_loss_fn`` sees all N+1 (2N+1 antithetic) parameter sets at
-    once."""
-    if batched_loss_fn is None:
-        raise NotImplementedError(
-            "the sequential SPSA path is not ported yet (ROADMAP queue A, "
-            "item 6); pass batched_loss_fn")
+    With ``batched_loss_fn`` the base model rides along as a zero
+    perturbation, so it sees all N+1 (2N+1 antithetic) parameter sets at
+    once.  Without it the path is sequential: ``loss_fn`` of the base
+    params, then ``spsa_losses``.  Both draw the stacked ξ from
+    ``generator`` first, unless ``xis`` hands it over."""
     n = cfg.num_samples
-    xis = sample_perturbations(generator, params, n, trainable_mask)
-    all_l = batched_loss_fn(perturbed_stack(params, xis, cfg))
-    base = all_l[0]
-    losses = (0.5 * (all_l[1:n + 1] - all_l[n + 1:]) if cfg.antithetic
-              else all_l[1:]).to(torch.float32)
+    if batched_loss_fn is None and loss_fn is None:
+        raise ValueError("spsa_gradient needs loss_fn (sequential) or "
+                         "batched_loss_fn (fused)")
+    if xis is None:
+        xis = sample_perturbations(generator, params, n, trainable_mask)
+    if batched_loss_fn is None:
+        base = loss_fn(params)
+        losses = spsa_losses(loss_fn, params, generator, cfg, xis=xis)
+    else:
+        all_l = batched_loss_fn(perturbed_stack(params, xis, cfg))
+        base = all_l[0]
+        losses = (0.5 * (all_l[1:n + 1] - all_l[n + 1:]) if cfg.antithetic
+                  else all_l[1:]).to(torch.float32)
     return spsa_gradient_from_losses(losses, base, cfg, xis), base
 
 
@@ -192,16 +230,21 @@ class ZOState:
 
 def zo_signsgd_step(params: PyTree, state: ZOState, lr: float,
                     cfg: SPSAConfig,
-                    batched_loss_fn: Callable[[PyTree], torch.Tensor],
-                    trainable_mask: PyTree | None = None) -> tuple:
-    """One Eq. (6) update Φ ← Φ − α · sign(∇̂L), with ξ drawn on the params'
-    device from ``counter_generator(state.seed, state.step)``.  Buffer leaves
-    (mask False) have zero ξ, so zero gradient, and ``sign(0) = 0`` leaves
-    them bit-identical.  Returns ``(params, state, base_loss)``."""
+                    batched_loss_fn: Callable[[PyTree], torch.Tensor] | None
+                    = None,
+                    trainable_mask: PyTree | None = None,
+                    loss_fn: Callable[[PyTree], torch.Tensor] | None = None
+                    ) -> tuple:
+    """One Eq. (6) update Φ ← Φ − α · sign(∇̂L), with ξ drawn on the
+    params' device from ``counter_generator(state.seed, state.step)``:
+    fused through ``batched_loss_fn``, or sequential through ``loss_fn``
+    when that is None.  Buffer leaves (mask False) have zero ξ, so zero gradient, and
+    leave the update bit-identical.  Returns ``(params, state,
+    base_loss)``."""
     device = tree_leaves(params)[0].device
     gen = counter_generator(state.seed, state.step, device=device)
     grad, base = spsa_gradient(params, gen, cfg, batched_loss_fn,
-                               trainable_mask)
+                               trainable_mask, loss_fn=loss_fn)
     return (apply_update(params, grad, lr),
             ZOState(step=state.step + 1, seed=state.seed), base)
 

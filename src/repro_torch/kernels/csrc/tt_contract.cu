@@ -494,6 +494,19 @@ __device__ __forceinline__ void fiber_step(float* a, float* o,
   fiber_step_padded<C>(a, o, gp, st, nrows, stride, tid);
 }
 
+// One step of the fiber body at the template width of st.cap.
+__device__ __forceinline__ void run_fiber_step(float* a, float* o,
+                                               const float* gp,
+                                               const FiberStep& st, int nrows,
+                                               int stride, int tid) {
+  switch (st.cap) {
+    case 4: fiber_step<4>(a, o, gp, st, nrows, stride, tid); break;
+    case 8: fiber_step<8>(a, o, gp, st, nrows, stride, tid); break;
+    case 16: fiber_step<16>(a, o, gp, st, nrows, stride, tid); break;
+    default: fiber_step<32>(a, o, gp, st, nrows, stride, tid); break;
+  }
+}
+
 // The chain for `nrows` contiguous rows of one stack entry (xs -> ys) by
 // fibers, with the entry's cores packed into shared memory by `load_cores`
 // (CopyCores or QuantizeCores).  Shared memory: the cores as loaded, the
@@ -523,13 +536,7 @@ __device__ __forceinline__ void chain_fibers(const float* __restrict__ xs,
   for (int k = 0; k < chain.L; ++k) {
     const FiberStep& st = fc.step[k];
     float* out = st.in_place ? a : o;
-    const float* gp = gp_all + st.gp_off;
-    switch (st.cap) {
-      case 4: fiber_step<4>(a, out, gp, st, nrows, fc.stride, tid); break;
-      case 8: fiber_step<8>(a, out, gp, st, nrows, fc.stride, tid); break;
-      case 16: fiber_step<16>(a, out, gp, st, nrows, fc.stride, tid); break;
-      default: fiber_step<32>(a, out, gp, st, nrows, fc.stride, tid); break;
-    }
+    run_fiber_step(a, out, gp_all + st.gp_off, st, nrows, fc.stride, tid);
     __syncthreads();
     if (!st.in_place) {
       o = a;
@@ -579,6 +586,244 @@ tt_contract_batched_quant_kernel(const float* __restrict__ x,
                y + (p * batch + row0) * chain.out_dim,
                min(fc.rows, batch - row0), chain, fc,
                QuantizeCores<kCode>{p, block});
+}
+
+// ------------------------------------------------------------- backward
+//
+// tt_contract_grad: the gradients of y = x @ W(cores)^T against dy, for the
+// off-chip back-propagation baselines (no TPU counterpart: the JAX package
+// differentiates only its plain chain).  With fibers as in the forward, step
+// k maps each fiber's inputs a_f = A_k[row, mp, :, :, ns] (r*n_k of them) to
+// its outputs A_{k+1}[row, mp, :, :, ns] (m_k*r') through the cap x cap core
+// gp, so its reverse is
+//   dA_k fiber   = gp . dA_{k+1} fiber    (a fiber step on gp^T, widths
+//                                          swapped: the forward body again)
+//   dG_k[j][o]  += a_f[j] * dA_{k+1} fiber[o]   over every fiber.
+// A block takes a tile of rows.  It keeps dA in shared memory and walks k
+// from L-1 down to 0; for each k it recomputes A_k from its x rows with the
+// forward steps 0..k-1 (recompute, not a saving forward: the forward stays
+// the launch serving and ZO run, and the states A_1..A_{L-1} of the paper's
+// hidden layer would be 53 MB of extra traffic), reduces dG_k over its
+// fibers (reduce_core_grad) into its own slot of `partials`, and steps dA
+// back.  A second kernel sums the blocks' partials in block order.  No
+// float atomics anywhere: two calls on the same inputs give the same bits.
+//
+// What bounds it: x and dy read, dx written (12 KB a row at the paper's
+// spec, against the forward's 8), and L(L-1)/2 recomputed forward steps, L
+// backward steps and L reductions of ~r*n_k*m_k*r' FMAs per fiber: about
+// 3.5x the forward's arithmetic, still under the f32 ridge.
+
+constexpr int kRedSlots = 16;      // groups of lanes whose 8x8 tiles meet
+constexpr int kGradSumThreads = 128;
+
+// The backward's tiling: the forward steps (rows, stride, the x tile),
+// the backward steps (step k with f_in and f_out swapped, so dA_{k+1} ->
+// dA_k runs the forward body on the transposed core), the dy and dx tiles
+// and the shared buffers of each direction.
+struct GradChain {
+  FiberChain fwd;
+  FiberStep back[kMaxCores];
+  TileIO dy, dx;
+  int fwd_buffers;          // 1: every step in place, else 2
+  int back_buffers;
+  int need_dx;
+  int partial_floats;       // sum |G_k|: one block's slot of partials
+};
+
+// gpT = gp^T for every step: the backward step's cap x cap core.  Padding
+// rows and columns of gp are -0, so gpT's padding is too.
+__device__ __forceinline__ void transpose_cores(const TTChain& chain,
+                                                const FiberChain& fc,
+                                                const float* gp_all,
+                                                float* gpT_all, int tid) {
+  for (int k = 0; k < chain.L; ++k) {
+    const int cap = fc.step[k].cap;
+    const float* src = gp_all + fc.step[k].gp_off;
+    float* dst = gpT_all + fc.step[k].gp_off;
+    for (int i = tid; i < cap * cap; i += kFiberThreads) {
+      const int j = i / cap;
+      const int o = i - j * cap;
+      dst[o * cap + j] = src[i];
+    }
+  }
+}
+
+// One block's dG_k: the sum over its fibers (row, mp, ns) of a_f[j] *
+// d_f[o], a = A_k (fiber inputs, f_in) and d = dA_{k+1} (fiber outputs,
+// f_out), written to out[G_k index of (j, o)].  dG is cut into 8 x 8 tiles;
+// each tile takes G = kFiberThreads / T' threads (T' the tile count rounded
+// up to a power of 2), and thread g of a tile the fibers g, g + G, ... in
+// that order, accumulating its tile in registers.  Then a fixed shuffle tree
+// over each group of W = min(G, 32) lanes, the groups' sums through shared
+// memory (red), and a tile's G / W groups added in group order.
+__device__ __forceinline__ void reduce_core_grad(const TTChain& chain, int k,
+                                                 const FiberStep& st,
+                                                 const float* a,
+                                                 const float* d, float* red,
+                                                 float* out, int nrows,
+                                                 int stride, int tid) {
+  const int f_in = st.f_in;
+  const int f_out = st.f_out;
+  const int n_s = st.n_s;
+  const int fpr = st.fpr;
+  const int to_n = (f_out + 7) / 8;
+  const int tiles = ((f_in + 7) / 8) * to_n;
+  int tiles_p2 = 1;
+  while (tiles_p2 < tiles) tiles_p2 *= 2;
+  const int G = kFiberThreads / tiles_p2;
+  const int W = G < 32 ? G : 32;
+  const int t = tid / G;
+  float acc[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
+  if (t < tiles) {
+    const int j0 = (t / to_n) * 8;
+    const int o0 = (t - (t / to_n) * to_n) * 8;
+    const int nf = nrows * fpr;
+#pragma unroll 1
+    for (int i = tid - t * G; i < nf; i += G) {
+      const int row = i / fpr;
+      const int q = i - row * fpr;
+      const int mp = q / n_s;
+      const int ns = q - mp * n_s;
+      const float* ar = a + row * stride;
+      const float* dr = d + row * stride;
+      const int a0 = mp * f_in * n_s + ns;
+      const int d0 = mp * f_out * n_s + ns;
+      float av[8], dv[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        av[c] = j0 + c < f_in ? ar[swz(a0 + (j0 + c) * n_s)] : 0.0f;
+        dv[c] = o0 + c < f_out ? dr[swz(d0 + (o0 + c) * n_s)] : 0.0f;
+      }
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+        for (int oo = 0; oo < 8; ++oo)
+          acc[jj * 8 + oo] = fmaf(av[jj], dv[oo], acc[jj * 8 + oo]);
+      }
+    }
+  }
+  for (int off = W / 2; off > 0; off /= 2) {
+#pragma unroll
+    for (int e = 0; e < 64; ++e)
+      acc[e] += __shfl_down_sync(0xffffffffu, acc[e], off, W);
+  }
+  if (tid % W == 0) {
+    float* slot = red + (tid / W) * 64;
+#pragma unroll
+    for (int e = 0; e < 64; ++e) slot[e] = acc[e];
+  }
+  __syncthreads();
+  const int groups = G / W;
+  const int nk = chain.in_modes[k];
+  const int mk = chain.out_modes[k];
+  const int rn = chain.ranks[k + 1];
+  for (int idx = tid; idx < tiles * 64; idx += kFiberThreads) {
+    const int tt = idx >> 6;
+    const int e = idx & 63;
+    const int j = (tt / to_n) * 8 + (e >> 3);
+    const int o = (tt - (tt / to_n) * to_n) * 8 + (e & 7);
+    if (j >= f_in || o >= f_out) continue;
+    const float* slot = red + (tt * G / W) * 64 + e;
+    float sum = slot[0];
+    for (int h = 1; h < groups; ++h) sum += slot[h * 64];
+    // j = r * n_k + nki, o = mki * r' + rni  ->  G[r, mki, nki, rni]
+    const int r = j / nk;
+    const int nki = j - r * nk;
+    const int mki = o / rn;
+    const int rni = o - mki * rn;
+    out[((r * mk + mki) * nk + nki) * rn + rni] = sum;
+  }
+  __syncthreads();
+}
+
+// grid (row tiles): block i takes rows [i*rows, (i+1)*rows) of x and dy,
+// writes their dx (need_dx) and its dG partials to partials + i *
+// partial_floats.  Shared memory: the cores as loaded, gp, gpT, red, the
+// forward buffers, the backward buffers.
+__global__ void __launch_bounds__(kFiberThreads, 3)
+tt_contract_grad_kernel(const float* __restrict__ x,
+                        const float* __restrict__ dy, float* __restrict__ dx,
+                        float* __restrict__ partials, int batch,
+                        const __grid_constant__ TTChain chain,
+                        const __grid_constant__ GradChain gc) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const FiberChain& fc = gc.fwd;
+  const int core_floats = (chain.core_off[chain.L] + 3) & ~3;
+  const int buf = fc.rows * fc.stride;
+  float* g_all = smem;
+  float* gp_all = g_all + core_floats;
+  float* gpT_all = gp_all + fc.gp_floats;
+  float* red = gpT_all + fc.gp_floats;
+  float* f0 = red + kRedSlots * 64;
+  float* f1 = f0 + (gc.fwd_buffers - 1) * buf;
+  float* d = f1 + buf;
+  float* d_other = d + (gc.back_buffers - 1) * buf;
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * fc.rows;
+  const int nrows = min(fc.rows, batch - row0);
+  const float* xs = x + (size_t)row0 * chain.in_dim;
+  float* out = partials + (size_t)blockIdx.x * gc.partial_floats;
+
+  CopyCores{0}(chain, g_all, tid);
+  move_tile<true>(dy + (size_t)row0 * chain.out_dim, d, nrows,
+                  chain.out_dim, gc.dy, fc.stride, tid);
+  __syncthreads();
+  repack_cores(chain, fc, g_all, gp_all, tid);
+  __syncthreads();
+  transpose_cores(chain, fc, gp_all, gpT_all, tid);
+
+  for (int k = chain.L - 1; k >= 0; --k) {
+    move_tile<true>(xs, f0, nrows, chain.in_dim, fc.x, fc.stride, tid);
+    __syncthreads();
+    float* a = f0;
+    float* o = f1;
+    for (int s = 0; s < k; ++s) {               // A_k from x
+      const FiberStep& st = fc.step[s];
+      float* next = st.in_place ? a : o;
+      run_fiber_step(a, next, gp_all + st.gp_off, st, nrows, fc.stride, tid);
+      __syncthreads();
+      if (!st.in_place) {
+        o = a;
+        a = next;
+      }
+    }
+    reduce_core_grad(chain, k, fc.step[k], a, d, red,
+                     out + chain.core_off[k], nrows, fc.stride, tid);
+    if (k > 0 || gc.need_dx) {                  // dA_{k+1} -> dA_k
+      const FiberStep& st = gc.back[k];
+      float* next = st.in_place ? d : d_other;
+      run_fiber_step(d, next, gpT_all + st.gp_off, st, nrows, fc.stride,
+                     tid);
+      __syncthreads();
+      if (!st.in_place) {
+        d_other = d;
+        d = next;
+      }
+    }
+  }
+  if (gc.need_dx)
+    move_tile<false>(d, dx + (size_t)row0 * chain.in_dim, nrows,
+                     chain.in_dim, gc.dx, fc.stride, tid);
+}
+
+// dG[e] = the sum of the blocks' partials[b][e] over b, one warp an
+// element: lane l adds blocks l, l + 32, ... in order, then a fixed
+// shuffle tree over the lanes.
+__global__ void __launch_bounds__(kGradSumThreads)
+tt_contract_grad_sum_kernel(const float* __restrict__ partials, int blocks,
+                            int floats, float* __restrict__ grad) {
+  const int e = blockIdx.x * (kGradSumThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  float sum = 0.0f;
+  if (e < floats)
+    for (int b = lane; b < blocks; b += 32)
+      sum += partials[(size_t)b * floats + e];
+  for (int off = 16; off > 0; off /= 2)
+    sum += __shfl_down_sync(0xffffffffu, sum, off);
+  if (e < floats && lane == 0) grad[e] = sum;
 }
 
 // Fill `chain` from the descriptor; false for a descriptor the kernels
@@ -693,6 +938,35 @@ size_t parse_batched(const void* desc, const void* x, const void* y,
   return parse_fibers(*chain, fc, rows, x, y);
 }
 
+// The backward's tiling at `rows` rows per block (kernels/tt_contract.py::
+// grad_tile computes the same layout); the dynamic shared memory it needs,
+// or 0 for a chain it cannot take.
+size_t parse_grad(const TTChain& chain, GradChain* gc, int rows,
+                  const void* x, const void* dy, const void* dx,
+                  int need_dx) {
+  if (parse_fibers(chain, &gc->fwd, rows, x, nullptr) == 0) return 0;
+  gc->fwd_buffers = 1;
+  for (int k = 0; k < chain.L; ++k) {
+    FiberStep& st = gc->back[k];
+    st = gc->fwd.step[k];
+    st.f_in = gc->fwd.step[k].f_out;
+    st.f_out = gc->fwd.step[k].f_in;
+    if (!st.in_place) gc->fwd_buffers = 2;
+  }
+  gc->back_buffers = gc->fwd_buffers;
+  gc->dy = tile_io(chain.out_dim, dy);
+  gc->dx = tile_io(chain.in_dim, dx);
+  gc->need_dx = need_dx;
+  gc->partial_floats = chain.core_off[chain.L];
+  const size_t core_floats = (chain.core_off[chain.L] + 3) & ~3;
+  const size_t smem =
+      (core_floats + 2 * static_cast<size_t>(gc->fwd.gp_floats) +
+       kRedSlots * 64 +
+       static_cast<size_t>(gc->fwd_buffers + gc->back_buffers) * rows *
+           gc->fwd.stride) * sizeof(float);
+  return smem > kMaxSmem ? 0 : smem;
+}
+
 }  // namespace
 
 // Plain C entry points, bound with ctypes.
@@ -764,5 +1038,40 @@ extern "C" int tt_contract_batched_quant_launch(
   kernel<<<grid, kFiberThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(y), batch, x_stride_p,
       chain, fc, block);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The gradients of y = x @ W(cores)^T against dy: x (B, N), dy (B, M), dx
+// (B, N) when need_dx (else unused), partials (ceil(B / rows), sum |G_k|)
+// scratch, grad (sum |G_k|): the cores' gradients one after another, each
+// laid out as its core.  Two kernels on `stream`: the blocks' pass and the
+// fixed-order sum of their partials.
+extern "C" int tt_contract_grad_launch(const void* x, const void* dy,
+                                       void* dx, void* partials, void* grad,
+                                       const void* desc_ptr, int batch,
+                                       int rows, int need_dx, void* stream) {
+  TTChain chain;
+  GradChain gc;
+  if (!parse_chain(static_cast<const int64_t*>(desc_ptr), &chain) ||
+      batch < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = parse_grad(chain, &gc, rows, x, dy, dx, need_dx);
+  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_fiber_smem(tt_contract_grad_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (batch + rows - 1) / rows;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  tt_contract_grad_kernel<<<blocks, kFiberThreads, smem, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dy),
+      static_cast<float*>(dx), static_cast<float*>(partials), batch, chain,
+      gc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int floats = gc.partial_floats;
+  const int per_block = kGradSumThreads / 32;
+  tt_contract_grad_sum_kernel<<<(floats + per_block - 1) / per_block,
+                                kGradSumThreads, 0, s>>>(
+      static_cast<const float*>(partials), blocks, floats,
+      static_cast<float*>(grad));
   return static_cast<int>(cudaGetLastError());
 }

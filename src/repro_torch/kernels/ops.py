@@ -4,6 +4,11 @@ A tensor on the CPU takes the kernel's plain PyTorch version; a CUDA tensor
 launches the hand-written kernel, which raises on anything it cannot take.
 There is no switch that sends CUDA tensors to the plain version.
 
+Autograd: on the card ``tt_contract`` itself carries its hand-written
+backward (``tt_contract_grad``) whenever an input requires grad; the plain
+versions on the CPU are differentiated by autograd natively.  The batched
+and mesh kernels have no backward: no path differentiates through them.
+
 ``quant`` (a ``kernels.quant.QuantConfig``, or None) follows the JAX
 package's ``repro.kernels.ops``: with weight quantization on, the TT layers
 see block-scaled cores.  With ``quant`` None or without weight
@@ -39,7 +44,8 @@ def tt_linear(x: torch.Tensor, cores: Sequence[torch.Tensor],
               spec: tt_lib.TTSpec, quant=None) -> torch.Tensor:
     """``y = x @ W(cores)^T``: x (..., N) → (..., M).  With weight
     quantization the cores are fake-quantized and the f32 chain runs over
-    them (the single chain serves only; the JAX package does the same)."""
+    them (the single chain serves only; the JAX package does the same).
+    Differentiable on both devices."""
     if _weight_quant(quant):
         cores = [_quant.fake_quant(c, quant) for c in cores]
     if x.device.type == "cpu":

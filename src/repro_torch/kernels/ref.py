@@ -18,7 +18,8 @@ import torch
 from repro_torch.core import tt as tt_lib
 from repro_torch.kernels import quant as quant_lib
 
-__all__ = ["tt_contract_ref", "split_batch_axes", "tt_contract_batched_ref",
+__all__ = ["tt_contract_ref", "tt_contract_grad_ref", "split_batch_axes",
+           "tt_contract_batched_ref",
            "tt_contract_batched_quant_ref", "attention_ref",
            "attention_bound"]
 
@@ -27,6 +28,55 @@ def tt_contract_ref(x: torch.Tensor, cores: Sequence[torch.Tensor],
                     spec: tt_lib.TTSpec) -> torch.Tensor:
     """y = x @ W(cores)^T via the chain contraction (never densifies W)."""
     return tt_lib.tt_matvec(cores, x, spec)
+
+
+def fiber_shapes(spec: tt_lib.TTSpec, k: int) -> tuple:
+    """``(M_<k, N_>k)``: the fibers of step k run over the output modes
+    before it and the input modes after it."""
+    return (math.prod(spec.out_modes[:k]), math.prod(spec.in_modes[k + 1:]))
+
+
+def _core_matrix(core: torch.Tensor) -> torch.Tensor:
+    """G[r, m, n, r'] as the step's (r·n, m·r') matrix."""
+    r, m, n, rn = core.shape
+    return core.permute(0, 2, 1, 3).reshape(r * n, m * rn)
+
+
+def tt_contract_grad_ref(x: torch.Tensor, cores: Sequence[torch.Tensor],
+                         spec: tt_lib.TTSpec, dy: torch.Tensor,
+                         need_dx: bool = True) -> tuple:
+    """Plain version of ``tt_contract.tt_contract_grad``: the gradients of
+    ``y = tt_contract_ref(x, cores, spec)`` against an upstream ``dy``
+    (shaped like y), as the explicit reverse chain.
+
+    Forward states ``A_k`` as ``(B·M_<k, N_>k, r·n_k)`` fibers (the rows of
+    ``tt.tt_matvec``'s step k); then for k = L..1 ``dG_k = A_{k-1}ᵀ·dA_k``,
+    reduced over the B·M_<k·N_>k fibers, and ``dA_{k-1} = dA_k·G_kᵀ``, with
+    ``dA_L = dy`` and ``dx = dA_0``.  Returns ``(dx or None, [dG_k])``, each
+    ``dG_k`` shaped like its core; the last step's ``dA_0`` is skipped
+    without ``need_dx``."""
+    B = math.prod(x.shape[:-1])
+    states = []
+    a = x.reshape(B, spec.in_dim)
+    for k, (r, m, n, rn) in enumerate(spec.core_shapes):
+        mp, ns = fiber_shapes(spec, k)
+        a = a.reshape(B * mp, r * n, ns).transpose(1, 2)
+        states.append(a)
+        a = torch.matmul(a, _core_matrix(cores[k]))
+        a = a.reshape(B * mp, ns, m, rn).permute(0, 2, 3, 1)
+    d = dy.reshape(B, spec.out_dim)
+    grads = [None] * spec.L
+    for k in reversed(range(spec.L)):
+        r, m, n, rn = spec.core_shapes[k]
+        mp, ns = fiber_shapes(spec, k)
+        dfib = d.reshape(B * mp, m, rn, ns).permute(0, 3, 1, 2).reshape(
+            B * mp, ns, m * rn)
+        dg = states[k].reshape(-1, r * n).T @ dfib.reshape(-1, m * rn)
+        grads[k] = dg.reshape(r, n, m, rn).permute(0, 2, 1, 3).contiguous()
+        if k or need_dx:
+            da = torch.matmul(dfib, _core_matrix(cores[k]).T)  # (.., ns, r·n)
+            d = da.transpose(1, 2).reshape(B * mp, r * n * ns)
+    return (d.reshape(x.shape) if need_dx else None), grads
 
 
 def split_batch_axes(x: torch.Tensor, P: int, spec: tt_lib.TTSpec,

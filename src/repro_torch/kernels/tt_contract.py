@@ -18,11 +18,23 @@ three kernels run one body (a thread per fiber, the step's core in
 registers, tiles of ``fiber_tile``), which gives every output element the
 same sum in the same order, so they agree bit for bit.
 
+``tt_contract_grad`` is the backward of ``tt_contract`` for the off-chip
+BP baselines (the JAX package has no backward kernel: it differentiates
+its plain chain).  It recomputes each block's forward states from x on
+chip, steps dA back through the same fiber body on the transposed cores,
+and reduces each core's gradient per block, then sums the blocks' partials
+in a second, fixed-order pass: no float atomics, so two calls on the same
+inputs give the same bits.  ``TTContractFn`` is the autograd Function
+around the forward launch and this backward; ``tt_contract`` runs its
+launch inside it whenever an input requires grad, so a gradient can never
+silently stop at the kernel.
+
 The wrappers check what the kernels take and raise on anything else; they
-never fall back to the plain versions.  They allocate the output, launch
-on the current stream without synchronizing, and count their launches in
-``tt_contract.launches``, ``tt_contract_batched.launches`` and
-``tt_contract_batched_quant.launches``.
+never fall back to the plain versions.  They allocate the output (and the
+backward's scratch), launch on the current stream without synchronizing,
+and count their launches in ``tt_contract.launches``,
+``tt_contract_batched.launches``, ``tt_contract_batched_quant.launches``
+and ``tt_contract_grad.launches``.
 """
 
 from __future__ import annotations
@@ -42,7 +54,8 @@ from repro_torch.kernels import quant as quant_lib
 from repro_torch.kernels import ref as _ref
 
 __all__ = ["tt_contract", "tt_contract_batched", "tt_contract_batched_quant",
-           "chain_widest", "fiber_tile", "FiberTile"]
+           "tt_contract_grad", "TTContractFn", "chain_widest", "fiber_tile",
+           "grad_tile", "grad_bound", "FiberTile"]
 
 MAX_CORES = 8                      # kMaxCores in the source
 SMEM_MAX_BYTES = 232_448           # Hopper's per-block opt-in maximum
@@ -121,6 +134,73 @@ def fiber_tile(spec: tt_lib.TTSpec,
     return FiberTile(rows, stride, buffers, caps, fixed + rows * per_row)
 
 
+RED_FLOATS = 16 * 64               # kRedSlots 8x8 tiles in the source
+
+
+def grad_tile(spec: tt_lib.TTSpec, rows_total: int | None = None) -> FiberTile:
+    """Tiling of ``tt_contract_grad``'s block pass, as ``parse_grad`` in the
+    source lays it out: the forward's fibers and steps, shared memory for
+    the cores, their repacked and transposed forms, the reduction's slots
+    and the forward and backward row buffers (one each when every step is
+    in place, else two), and rows a block chosen by ``fiber_tile``'s rule.
+    Raises where ``fiber_tile`` does."""
+    fwd = fiber_tile(spec)
+    stride, buffers = fwd.stride, 2 * fwd.buffers
+    fixed = 4 * (_core_floats(spec) + 2 * sum(c * c for c in fwd.caps)
+                 + RED_FLOATS)
+    per_row = 4 * buffers * stride
+    rows = min(MAX_FIBER_ROWS, (SMEM_BLOCK_BUDGET - fixed) // per_row)
+    if rows >= 8:
+        rows -= rows % 8
+    elif rows < 1:
+        if fixed + per_row > SMEM_MAX_BYTES:
+            raise ValueError(f"the backward of {spec} needs {fixed + per_row}"
+                             f" B of shared memory per row; the card has "
+                             f"{SMEM_MAX_BYTES} B per block")
+        rows = 1
+    if rows_total is not None:
+        fill = -(-rows_total // (BLOCKS_PER_SM * H100_SMS))
+        rows = max(1, min(rows, fill))
+    return FiberTile(rows, stride, buffers, fwd.caps, fixed + rows * per_row)
+
+
+def _grad_depth(spec: tt_lib.TTSpec, k: int, rows: int, blocks: int) -> int:
+    """The most additions a product of dG_k passes through in
+    ``tt_contract_grad``: the fibers a thread takes in turn (a tile of
+    ``8 x 8`` entries on G threads, ``reduce_core_grad``), its lane tree,
+    the G / W lane groups in turn, then a lane's blocks in turn and the
+    32-lane tree of the sum kernel."""
+    r, m, n, rn = spec.core_shapes[k]
+    tiles = -(-r * n // 8) * -(-m * rn // 8)
+    G = FIBER_THREADS // (1 << (tiles - 1).bit_length())
+    W = min(G, 32)
+    mp, ns = _ref.fiber_shapes(spec, k)
+    return (-(-rows * mp * ns // G) + W.bit_length() - 1 + G // W
+            + -(-blocks // 32) + 5)
+
+
+def grad_bound(x: torch.Tensor, cores: Sequence[torch.Tensor],
+               spec: tt_lib.TTSpec, dy: torch.Tensor) -> list:
+    """Per element of each dG_k, how far ``tt_contract_grad`` may sit from
+    the exact gradient (``ref.tt_contract_grad_ref`` in float64):
+    ``1.01·(h_k + c)·2^-24·S_k``.  ``S_k`` is the same reduction over |x|,
+    |G| and |dy| in float64 (the magnitudes of every product it adds, and
+    of the chain products behind them); ``h_k`` the kernel's summation
+    depth at this launch's tiling (``_grad_depth``: it grows with the
+    reduction length B·M_<k·N_>k over the rows a block and the blocks);
+    ``c = 2·Σ_k max(r·n_k, m_k·r')`` covers the rounding of the states A_k
+    and dA_{k+1} it multiplies.  The 1.01 covers the second-order terms."""
+    B = math.prod(x.shape[:-1])
+    rows = grad_tile(spec, B).rows
+    blocks = -(-B // rows)
+    _, sums = _ref.tt_contract_grad_ref(
+        x.double().abs(), [c.double().abs() for c in cores], spec,
+        dy.double().abs(), need_dx=False)
+    c = 2 * sum(max(r * n, m * rn) for r, m, n, rn in spec.core_shapes)
+    return [1.01 * (_grad_depth(spec, k, rows, blocks) + c) * 2.0 ** -24 * s
+            for k, s in enumerate(sums)]
+
+
 @functools.cache
 def _launchers():
     lib = _build.load_library("tt_contract")
@@ -136,9 +216,12 @@ def _launchers():
                       ctypes.c_int, ctypes.c_int, ctypes.c_int64,
                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p]
-    for fn in (single, batched, quant):
+    grad = lib.tt_contract_grad_launch
+    grad.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
+                                             ctypes.c_int, ctypes.c_void_p]
+    for fn in (single, batched, quant, grad):
         fn.restype = ctypes.c_int
-    return single, batched, quant
+    return single, batched, quant, grad
 
 
 def _check_x(name: str, x: torch.Tensor, spec: tt_lib.TTSpec) -> None:
@@ -178,7 +261,18 @@ def _descriptor(cores: Sequence[torch.Tensor], spec: tt_lib.TTSpec):
 def tt_contract(x: torch.Tensor, cores: Sequence[torch.Tensor],
                 spec: tt_lib.TTSpec) -> torch.Tensor:
     """``y = x @ W(cores)^T`` on the card.  x: (..., N) f32 → (..., M) f32;
-    extra batch axes are flattened for the launch and restored."""
+    extra batch axes are flattened for the launch and restored.  With grad
+    enabled and an input that requires grad, the launch runs inside
+    ``TTContractFn``, so the output carries the backward kernel."""
+    if torch.is_grad_enabled() and (x.requires_grad
+                                    or any(c.requires_grad for c in cores)):
+        return TTContractFn.apply(x, spec, *cores)
+    return _launch(x, cores, spec)
+
+
+def _launch(x: torch.Tensor, cores: Sequence[torch.Tensor],
+            spec: tt_lib.TTSpec) -> torch.Tensor:
+    """The forward launch itself (outside autograd)."""
     _check_x("tt_contract", x, spec)
     _check_cores(cores, spec, x.device)
     batch_shape = x.shape[:-1]
@@ -202,6 +296,82 @@ def tt_contract(x: torch.Tensor, cores: Sequence[torch.Tensor],
 
 
 tt_contract.launches = 0
+
+
+def tt_contract_grad(x: torch.Tensor, cores: Sequence[torch.Tensor],
+                     spec: tt_lib.TTSpec, dy: torch.Tensor,
+                     need_dx: bool = True) -> tuple:
+    """The gradients of ``y = tt_contract(x, cores, spec)`` against ``dy``
+    (shaped like y) on the card: ``(dx or None, [dG_k])``, each dG_k shaped
+    like its core (views into one buffer).  Without ``need_dx`` the last
+    backward step is skipped.  One call launches the block pass and the
+    fixed-order sum of its partials."""
+    _check_x("tt_contract_grad", x, spec)
+    _check_cores(cores, spec, x.device)
+    batch_shape = x.shape[:-1]
+    if (dy.device != x.device or dy.dtype != torch.float32
+            or tuple(dy.shape) != (*batch_shape, spec.out_dim)
+            or not dy.is_contiguous()):
+        raise ValueError(f"dy: need a contiguous float32 "
+                         f"{(*batch_shape, spec.out_dim)} tensor on "
+                         f"{x.device}, got {dy.dtype} {tuple(dy.shape)} on "
+                         f"{dy.device}")
+    B = math.prod(batch_shape)
+    grad = torch.empty(spec.num_params, dtype=torch.float32, device=x.device)
+    grads = [g.view(shape) for g, shape in zip(
+        grad.split([math.prod(s) for s in spec.core_shapes]),
+        spec.core_shapes)]
+    dx = torch.empty_like(x) if need_dx else None
+    if B == 0:
+        grad.zero_()
+        return dx, grads
+    if B >= 2**31:
+        raise ValueError(f"batch of {B} rows exceeds the kernel's int32 range")
+    tile = grad_tile(spec, B)
+    blocks = -(-B // tile.rows)
+    partials = torch.empty(blocks * spec.num_params, dtype=torch.float32,
+                           device=x.device)
+    desc = _descriptor(cores, spec)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _launchers()[3](x.data_ptr(), dy.data_ptr(),
+                              dx.data_ptr() if need_dx else None,
+                              partials.data_ptr(), grad.data_ptr(),
+                              desc.ctypes.data, B, tile.rows, int(need_dx),
+                              stream)
+    if err != 0:
+        raise RuntimeError(f"tt_contract_grad launch failed: CUDA error {err}")
+    tt_contract_grad.launches += 1
+    return dx, grads
+
+
+tt_contract_grad.launches = 0
+
+
+class TTContractFn(torch.autograd.Function):
+    """``tt_contract`` under autograd: the forward is the launch serving and
+    ZO run, the backward ``tt_contract_grad`` (``dx`` only where x needs a
+    gradient).  x and the cores are made contiguous here, as the kernels
+    take them."""
+
+    @staticmethod
+    def forward(ctx, x, spec, *cores):
+        x = x.contiguous()
+        cores = [c.contiguous() for c in cores]
+        ctx.spec = spec
+        ctx.save_for_backward(x, *cores)
+        return _launch(x, cores, spec)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, *cores = ctx.saved_tensors
+        need_dx = ctx.needs_input_grad[0]
+        if not (need_dx or any(ctx.needs_input_grad[2:])):
+            return (None,) * (2 + len(cores))
+        dx, grads = tt_contract_grad(x, cores, ctx.spec, dy.contiguous(),
+                                     need_dx)
+        return (dx, None, *grads)
+
 
 MAX_STACK = 65_535                 # the grid's y extent
 CODE_TYPES = {"int8": 0, "fp8_e4m3": 1}  # code_type in the source

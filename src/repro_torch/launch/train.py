@@ -1,4 +1,4 @@
-"""BP-free training launcher for the tensor PINN on the GPU.
+"""Training launcher for the tensor PINN on the GPU.
 
 Trains the paper's TT-compressed sine PINN (``--arch hjb-pinn`` /
 ``tensor-pinn``) on a registered PDE with ZO-signSGD — forward evaluations
@@ -6,7 +6,14 @@ only — through the fused multi-perturbation step: each step draws N SPSA
 perturbations, densifies all N+1 perturbed sets of every TONN core mesh
 in one launch (the ``mesh_densify_stacked`` kernel), and runs the FD
 stencil through every perturbed model at once (the
-``tt_contract_batched`` kernel).
+``tt_contract_batched`` kernel).  ``--sequential`` evaluates the N+1
+models one at a time instead, the order a chip with one physical mesh
+runs (plain FD stencil, each TT layer one ``tt_contract`` launch).
+``--optimizer adamw|adafactor|sgd`` trains the paper's off-chip BP
+baselines (``--pinn-mode dense``, ``tt``, or ``tonn`` mapped onto the
+noisy hardware) with autograd through ``residual_loss``: on the card each
+TT layer runs the ``tt_contract`` kernel forward and ``tt_contract_grad``
+backward.
 
     python -m repro_torch.launch.train --arch tensor-pinn --pde hjb-20d \\
         --pinn-noise --steps 50 --batch 100 --ckpt-dir ckpts/hjb-20d
@@ -19,19 +26,22 @@ quantization-aware: block-scaled TT cores (the
 ``tt_contract_batched_quant`` kernel in place of ``tt_contract_batched``)
 and DAC-snapped phases.  Checkpoints are the JAX package's format with the
 same meta (``pinn`` with the quant config, ``pde``, ``seed``,
-``term_weights``),
-so ``serving.SolverRegistry.load_checkpoint`` serves them; a checkpoint
-``step_<k>`` holds the params after k updates, and ``--resume`` continues
-from it with the batches and perturbations of steps k, k+1, ... exactly as
-an uninterrupted run draws them.  The chip's fabrication noise is drawn
-from the seed (``init_solver``) and saved beside the params as the
-``hw_noise`` subtree, so a noise-enabled checkpoint serves on its own (the
-JAX package reads only the subtrees it asks for, and still restores the
-params).
+``term_weights``) and the same subtrees (``params``, and ``zo`` or the BP
+optimizer's ``opt``), so ``serving.SolverRegistry.load_checkpoint`` serves
+them; a checkpoint ``step_<k>`` holds the params after k updates, and
+``--resume`` continues from it with the batches and perturbations of steps
+k, k+1, ... exactly as an uninterrupted run draws them.  The chip's
+fabrication noise is drawn from the seed (``init_solver``) and saved beside
+the params as the ``hw_noise`` subtree, so a noise-enabled checkpoint
+serves on its own.  Such a checkpoint records the seed as ``train_seed``,
+not ``seed``: the JAX package's registry would redraw the chip from a
+``seed`` with its own generator and serve another chip, and without one it
+asks for the noise instead.
 
 Port of the ``train_pinn`` branch of ``repro.launch.train``.  Every flag
 of that launcher this port does not have yet exits with the ROADMAP item
-that ports it.
+that ports it; so does ``--quant`` / ``--phase-bits`` with a BP optimizer
+(the backward is f32 only).
 """
 
 from __future__ import annotations
@@ -40,12 +50,15 @@ import argparse
 import dataclasses
 import time
 
+import torch
+
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.hjb_pinn import pinn_config, pinn_reduced
 from repro_torch.core import pinn, zoo
 from repro_torch.data import pde_collocation_iterator, pde_term_batch_iterator
 from repro_torch.device import counter_generator, resolve_device, to_device
 from repro_torch.kernels.quant import QuantConfig
+from repro_torch.optim import get_optimizer
 
 __all__ = ["PINN_ARCHS", "TrainResult", "init_solver", "train_pinn", "main"]
 
@@ -63,6 +76,7 @@ class TrainResult:
     losses: list            # base loss of every step run
     step_seconds: list      # host wall time of every step run
     val_mse: float | None   # after the last step (None: no exact solution)
+    opt_state: dict | None = None  # the optimizer's final state, as saved
 
 
 def init_solver(model: pinn.TensorPinn, seed: int) -> tuple:
@@ -72,25 +86,54 @@ def init_solver(model: pinn.TensorPinn, seed: int) -> tuple:
             model.sample_noise(counter_generator(seed, 99)))
 
 
-def _checkpoint_tree(params: dict, state: zoo.ZOState,
+def _checkpoint_tree(params: dict, aux_name: str, aux: dict,
                      hw_noise: dict | None) -> dict:
-    """What a checkpoint holds: the params, the ZO state and, with the
-    noise model on, the chip's noise."""
-    tree = {"params": params, "zo": state.as_tree()}
+    """What a checkpoint holds: the params, the optimizer's state under
+    ``aux_name`` (``zo`` or ``opt``, as the JAX package names them) and,
+    with the noise model on, the chip's noise."""
+    tree = {"params": params, aux_name: aux}
     if hw_noise is not None:
         tree["hw_noise"] = hw_noise
     return tree
 
 
+def _checkpoint_meta(cfg, problem, seed: int, noise_saved: bool) -> dict:
+    """Self-describing meta: the serving registry rebuilds the solver from
+    it alone.  With the chip's noise saved the seed goes under
+    ``train_seed``: the JAX registry redraws a noise-on chip from a
+    ``seed`` key (another chip than the port's), and raises without one."""
+    return {"pinn": pinn.config_to_meta(cfg), "pde": problem.name,
+            "train_seed" if noise_saved else "seed": seed,
+            "term_weights": problem.term_weights()}
+
+
+def _bp_step_fn(model, opt, mask: dict, hw_noise: dict | None):
+    """The off-chip BP step: ``loss, grads`` by autograd of
+    ``pinn.residual_loss``, zero gradients on the fixed buffers (mask
+    False: they are not asked for), then ``opt.update``.  Returns
+    ``step(params, opt_state, xt, tb) -> (params, opt_state, loss)``."""
+    def step(params, opt_state, xt, tb):
+        p = zoo.tree_map(lambda t, train: t.detach().requires_grad_(train),
+                         params, mask)
+        loss = pinn.residual_loss(model, p, xt, hw_noise, term_batches=tb)
+        wanted = [t for t in zoo.tree_leaves(p) if t.requires_grad]
+        found = dict(zip(map(id, wanted), torch.autograd.grad(
+            loss, wanted, materialize_grads=True)))
+        grads = zoo.tree_map(
+            lambda t: found[id(t)] if t.requires_grad else torch.zeros_like(t),
+            p)
+        new_params, new_state = opt.update(grads, opt_state, params)
+        return new_params, new_state, loss.detach()
+
+    return step
+
+
 def _unported(args) -> list:
     """(flag, ROADMAP queue A item) of every flag set that this port does
     not have yet."""
+    bp = args.optimizer not in (None, "zo-signsgd")
     checks = [
-        (args.pinn_mode in ("dense", "onn"), f"--pinn-mode {args.pinn_mode}",
-         6),
-        (args.sequential, "--sequential", 6),
-        (args.optimizer not in (None, "zo-signsgd"),
-         f"--optimizer {args.optimizer}", 6),
+        (args.pinn_mode == "onn", "--pinn-mode onn", "6b"),
         (args.estimator == "stein", "--estimator stein", 8),
         (args.term_weight, "--term-weight", 8),
         (args.bc_weight is not None, "--bc-weight", 8),
@@ -101,6 +144,9 @@ def _unported(args) -> list:
         (args.coeffs_per_step is not None, "--coeffs-per-step", 10),
         (args.pinn_mode == "onn" and (args.quant or args.phase_bits),
          "quantization-aware training of --pinn-mode onn", 11),
+        (bp and (args.quant or args.phase_bits),
+         f"quantization-aware BP training (--optimizer {args.optimizer})",
+         11),
         (args.shard is not None, "--shard", 13),
         (args.mesh is not None, "--mesh", 13),
         (args.async_ckpt, "--async-ckpt", 13),
@@ -112,7 +158,8 @@ def _unported(args) -> list:
 
 
 def train_pinn(args) -> TrainResult:
-    """BP-free ZO-signSGD training of ``args.pde`` on ``args.device``."""
+    """Training of ``args.pde`` on ``args.device``: ZO-signSGD (fused, or
+    ``--sequential``) by default, the BP baselines with ``--optimizer``."""
     build = pinn_reduced if args.reduced else pinn_config
     overrides = {"hidden": args.hidden} if args.hidden else {}
     if args.estimator:
@@ -122,8 +169,8 @@ def train_pinn(args) -> TrainResult:
         overrides["quant"] = QuantConfig(
             enabled=True, dtype=args.quant, block=args.quant_block,
             phase_bits=args.phase_bits)
-    cfg = build(pde=args.pde, mode=args.pinn_mode, noise=args.pinn_noise,
-                **overrides)
+    cfg = build(pde=args.pde, mode=args.pinn_mode, fused=not args.sequential,
+                noise=args.pinn_noise, **overrides)
     device = resolve_device(args.device)
     model = pinn.TensorPinn(cfg)
     problem = model.problem
@@ -136,7 +183,8 @@ def train_pinn(args) -> TrainResult:
     params = to_device(params, device)
     if hw_noise is not None:
         hw_noise = to_device(hw_noise, device)
-    # ZO must neither perturb nor sign-update the fixed photonic ±1 diags
+    # neither ZO nor BP may move the fixed photonic ±1 diags by their
+    # gradient (AdamW's weight decay still shrinks them, as in JAX)
     mask = model.trainable_mask(params)
     sizes = [(leaf.numel(), t) for leaf, t in
              zip(zoo.tree_leaves(params), zoo.tree_leaves(mask))]
@@ -146,28 +194,55 @@ def train_pinn(args) -> TrainResult:
                                       1000).to(device)
            if problem.has_exact_solution else None)
 
-    # self-describing checkpoints: the serving registry rebuilds the
-    # solver from the meta alone
-    ckpt_meta = {"pinn": pinn.config_to_meta(cfg), "pde": problem.name,
-                 "seed": args.seed, "term_weights": problem.term_weights()}
+    ckpt_meta = _checkpoint_meta(cfg, problem, args.seed,
+                                 noise_saved=hw_noise is not None)
     mgr = (CheckpointManager(args.ckpt_dir, keep=3, save_every=args.ckpt_every)
            if args.ckpt_dir else None)
 
-    scfg = zoo.SPSAConfig(num_samples=args.zo_samples, mu=0.01)
-    state = zoo.ZOState(step=0, seed=args.seed + 1)
-    lr0 = args.lr or 2e-3
-    half_life = max(args.steps // 3, 1)
+    opt_name = args.optimizer or "zo-signsgd"
+    if opt_name == "zo-signsgd":
+        scfg = zoo.SPSAConfig(num_samples=args.zo_samples, mu=0.01)
+        aux_name, aux = "zo", zoo.ZOState(step=0, seed=args.seed + 1)
+        lr0 = args.lr or 2e-3
+        half_life = max(args.steps // 3, 1)
+
+        def step_fn(params, state, xt, tb, step):
+            def loss_fn(p):
+                return pinn.residual_loss(model, p, xt, hw_noise,
+                                          term_batches=tb)
+
+            def batched_loss_fn(sp):
+                return pinn.residual_losses_stacked(model, sp, xt, hw_noise,
+                                                    term_batches=tb)
+
+            return zoo.zo_signsgd_step(
+                params, state, lr0 * 0.5 ** (step / half_life), scfg,
+                batched_loss_fn=None if args.sequential else batched_loss_fn,
+                trainable_mask=mask, loss_fn=loss_fn)
+    else:
+        # the off-chip BP baseline on the ideal (or noisy) model; the
+        # optimizer carries its own learning rate
+        opt = get_optimizer(opt_name, lr=args.lr)
+        aux_name, aux = "opt", opt.init(params)
+        bp_step = _bp_step_fn(model, opt, mask, hw_noise)
+
+        def step_fn(params, opt_state, xt, tb, step):
+            return bp_step(params, opt_state, xt, tb)
+
+    def aux_tree(aux):
+        return aux.as_tree() if aux_name == "zo" else aux
 
     start_step = 0
     if mgr and args.resume:
         try:
             restored, meta = mgr.restore_latest(
-                {"params": params, "zo": state.as_tree()})
+                {"params": params, aux_name: aux_tree(aux)})
         except FileNotFoundError:
             pass
         else:
             params = restored["params"]
-            state = zoo.ZOState.from_tree(restored["zo"])
+            aux = (zoo.ZOState.from_tree(restored["zo"]) if aux_name == "zo"
+                   else restored["opt"])
             start_step = meta["step"]
             print(f"[resume] step {start_step}")
 
@@ -180,32 +255,33 @@ def train_pinn(args) -> TrainResult:
         xt = next(colloc).to(device)
         tb = to_device(next(terms), device)
         t0 = time.perf_counter()
-        params, state, loss = zoo.zo_signsgd_step(
-            params, state, lr0 * 0.5 ** (step / half_life), scfg,
-            batched_loss_fn=lambda sp: pinn.residual_losses_stacked(
-                model, sp, xt, hw_noise, term_batches=tb),
-            trainable_mask=mask)
+        params, aux, loss = step_fn(params, aux, xt, tb, step)
         losses.append(float(loss))                  # waits for the step
         seconds.append(time.perf_counter() - t0)
         if step % args.log_every == 0:
             msg = f"step {step} loss {losses[-1]:.4e} ({seconds[-1]:.2f}s)"
             if val is not None:
-                mse = pinn.validation_mse(model, params, val, hw_noise)
+                with torch.no_grad():
+                    mse = pinn.validation_mse(model, params, val, hw_noise)
                 msg += f" val MSE {float(mse):.4e}"
             print(msg, flush=True)
         if mgr and mgr.should_save(step + 1):
-            mgr.save(step + 1, _checkpoint_tree(params, state, hw_noise),
+            mgr.save(step + 1, _checkpoint_tree(params, aux_name,
+                                                aux_tree(aux), hw_noise),
                      {"step": step + 1, **ckpt_meta})
 
     if mgr:
-        mgr.save(args.steps, _checkpoint_tree(params, state, hw_noise),
+        mgr.save(args.steps, _checkpoint_tree(params, aux_name, aux_tree(aux),
+                                              hw_noise),
                  {"step": args.steps, **ckpt_meta})
     val_mse = None
     if val is not None:
-        val_mse = float(pinn.validation_mse(model, params, val, hw_noise))
+        with torch.no_grad():
+            val_mse = float(pinn.validation_mse(model, params, val, hw_noise))
         print(f"[pinn] final val MSE {val_mse:.4e}")
     print("[train] done")
-    return TrainResult(model, params, hw_noise, losses, seconds, val_mse)
+    return TrainResult(model, params, hw_noise, losses, seconds, val_mse,
+                       aux_tree(aux))
 
 
 def main(argv=None) -> TrainResult:
@@ -249,10 +325,14 @@ def main(argv=None) -> TrainResult:
     ap.add_argument("--phase-bits", type=int, default=None,
                     help="DAC resolution of the trainable MZI phases "
                          "(quantization-aware training)")
-    # flags of repro.launch.train that exit here (see _unported)
     ap.add_argument("--optimizer", default=None,
-                    choices=[None, "adamw", "adafactor", "sgd", "zo-signsgd"])
-    ap.add_argument("--sequential", action="store_true")
+                    choices=[None, "adamw", "adafactor", "sgd", "zo-signsgd"],
+                    help="zo-signsgd (default: the paper's BP-free on-chip "
+                         "training) or an off-chip BP baseline")
+    ap.add_argument("--sequential", action="store_true",
+                    help="photonic-realism order: one perturbed model at a "
+                         "time instead of the fused stacked program")
+    # flags of repro.launch.train that exit here (see _unported)
     ap.add_argument("--shard", default=None,
                     choices=["perturbation", "batch", "both"])
     ap.add_argument("--mesh", default=None)

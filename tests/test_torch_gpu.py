@@ -1,10 +1,12 @@
-"""Tests that need the card: the CUDA kernels (``tt_contract``,
-``tt_contract_batched``, ``tt_contract_batched_quant``,
+"""Tests that need the card: the CUDA kernels (``tt_contract`` and its
+backward ``tt_contract_grad``, ``tt_contract_batched``,
+``tt_contract_batched_quant``,
 ``mesh_apply_stacked``, ``mesh_densify_stacked``, ``flash_attention``)
 against their plain PyTorch versions, served values (f32 and quantized) against a direct forward,
 quantization codes made on the card against the CPU's, one ZO training
 step (f32 and quantization-aware) on the card against the same step
 through the plain path on the CPU, and a reduced LM's prefill and decode
+on the card against the CPU, and the BP and sequential ZO training steps
 on the card against the CPU.
 
 Run on a machine with an NVIDIA GPU (Hopper, ``sm_90a``) and ``nvcc``:
@@ -34,7 +36,12 @@ and take sin/cos from the functions torch runs on the card, so they are held to 
 ``ref.attention_bound`` elementwise: the same f32 bound, and in bf16 one
 bf16 ulp of the element's own |plain| more (the two round f32 results that
 differ in the last bits); a row that sees no key must be exact zeros.  A reduced f32 LM on the card against the CPU:
-logits and caches within 1e-5 of their max magnitude.
+logits and caches within 1e-5 of their max magnitude.  ``tt_contract_grad``:
+dx at the forward's bound against the plain reverse chain, each dG_k within
+``tt_contract.grad_bound`` of the plain chain in float64 (its summation
+depth times the magnitudes it adds), and two calls bit for bit.  A BP
+step's gradients of a u-level functional card vs CPU within
+``1e-4·max|grad|`` per leaf.
 """
 
 import dataclasses
@@ -815,3 +822,151 @@ def test_reduced_lm_on_the_card_matches_the_cpu(cuda):
                       (cache["v_0"], c_cache["v_0"])):
         err = (got.cpu() - want).abs().max().item()
         assert err <= 1e-5 * want.abs().max().item(), err
+
+
+# label -> (spec, rows, need_dx): the three BP launches of the paper's
+# config at batch 100 (layer 0 on the rows and on the 21 identity columns,
+# the hidden layer on the stencil's 4300 rows), the reduced spec off the
+# tile, the rank-4 non-square spec
+GRAD_CASES = {
+    "layer0-rows": (tt.PAPER_TONN_SPEC, 100, False),
+    "layer0-columns": (tt.PAPER_TONN_SPEC, 21, False),
+    "hidden-stencil": (tt.PAPER_TONN_SPEC, 4300, True),
+    "reduced-1000": (tt.auto_factorize(64, 64, L=3, max_rank=2), 1000, True),
+    "rank4-777": (RANK4, 777, True),
+}
+
+
+def _grad_inputs(label, device):
+    spec, batch, need_dx = GRAD_CASES[label]
+    cores, x = _chain_inputs(spec, batch, seed=3000 + len(label),
+                             device=device)
+    gen = torch.Generator().manual_seed(len(label))
+    dy = torch.randn((batch, spec.out_dim), generator=gen).to(device)
+    return spec, cores, x, dy, need_dx
+
+
+@pytest.mark.parametrize("label", sorted(GRAD_CASES))
+def test_grad_kernel_matches_plain(cuda, label):
+    spec, cores, x, dy, need_dx = _grad_inputs(label, cuda)
+    before = ttc.tt_contract_grad.launches
+    dx, grads = ttc.tt_contract_grad(x, cores, spec, dy, need_dx)
+    assert ttc.tt_contract_grad.launches == before + 1
+    pdx, _ = ref.tt_contract_grad_ref(x, cores, spec, dy, need_dx)
+    _, exact = ref.tt_contract_grad_ref(
+        x.double(), [c.double() for c in cores], spec, dy.double(), False)
+    torch.cuda.synchronize()
+    if need_dx:
+        _assert_kernel_close(dx, pdx)
+    else:
+        assert dx is None and pdx is None
+    for g, e, b, shape in zip(grads, exact,
+                              ttc.grad_bound(x, cores, spec, dy),
+                              spec.core_shapes):
+        assert tuple(g.shape) == shape and torch.isfinite(g).all()
+        assert ((g.double() - e).abs() <= b).all()
+
+
+@pytest.mark.parametrize("label", ["hidden-stencil", "layer0-columns"])
+def test_grad_kernel_repeats_bit_for_bit(cuda, label):
+    """No float atomics: two calls give the same bits."""
+    spec, cores, x, dy, need_dx = _grad_inputs(label, cuda)
+    a = ttc.tt_contract_grad(x, cores, spec, dy, need_dx)
+    b = ttc.tt_contract_grad(x, cores, spec, dy, need_dx)
+    assert all(torch.equal(p, q) for p, q in zip(a[1], b[1]))
+    assert (a[0] is None) == (b[0] is None)
+    if need_dx:
+        assert torch.equal(a[0], b[0])
+
+
+def test_tt_linear_under_autograd_runs_the_backward_kernel(cuda):
+    """On the card ``ops.tt_linear`` differentiates through the kernels:
+    the output has a grad_fn, the cores get nonzero gradients from
+    ``tt_contract_grad``, and ``tt_contract`` called directly carries the
+    same backward."""
+    spec, cores, x, dy, _ = _grad_inputs("reduced-1000", cuda)
+    cores = [c.requires_grad_() for c in cores]
+    before = (ttc.tt_contract.launches, ttc.tt_contract_grad.launches)
+    y = ops.tt_linear(x, cores, spec)
+    assert y.grad_fn is not None
+    y.backward(dy)
+    assert (ttc.tt_contract.launches - before[0],
+            ttc.tt_contract_grad.launches - before[1]) == (1, 1)
+    _, want = ref.tt_contract_grad_ref(x, [c.detach() for c in cores], spec,
+                                       dy, need_dx=False)
+    for c, w in zip(cores, want):
+        assert c.grad.abs().max() > 0
+        _assert_kernel_close(c.grad, w)
+    direct = ttc.tt_contract(x, cores, spec)
+    assert direct.grad_fn is not None and torch.equal(direct, y)
+
+
+@pytest.mark.parametrize("mode", ["tt", "tonn", "dense"])
+def test_bp_step_on_the_card_matches_the_cpu(cuda, mode):
+    """One BP step of the trainer's config (fd_fast) at hidden 1024: 3
+    forward and 3 backward TT launches (none in dense), nonzero core
+    gradients, and the gradients of a u-level functional card vs CPU."""
+    from repro_torch.launch import train
+    from repro_torch.optim import get_optimizer
+    cfg = pinn.PINNConfig(hidden=1024, mode=mode, tt_L=4, deriv="fd_fast",
+                          use_fused_kernel=True,
+                          noise=NoiseModel(enabled=mode == "tonn"))
+    model = pinn.TensorPinn(cfg)
+    params = model.init(counter_generator(0))
+    noise = model.sample_noise(counter_generator(0, 99))
+    xt = model.problem.sample_collocation(counter_generator(1), 100)
+    w = torch.randn(100, generator=torch.Generator().manual_seed(2))
+    opt = get_optimizer("adamw")
+
+    def grads(device, fn):
+        p = zoo.tree_map(lambda t, m: t.to(device).requires_grad_(m),
+                         params, model.trainable_mask(params))
+        nz = None if noise is None else to_device(noise, device)
+        out = fn(p, xt.to(device), nz)
+        return [g.cpu() for g in torch.autograd.grad(
+            out, [t for t in zoo.tree_leaves(p) if t.requires_grad])]
+
+    before = (ttc.tt_contract.launches, ttc.tt_contract_grad.launches)
+    step = train._bp_step_fn(model, opt, model.trainable_mask(params),
+                             None if noise is None
+                             else to_device(noise, cuda))
+    p_card = to_device(params, cuda)
+    new, _, loss = step(p_card, opt.init(p_card), xt.to(cuda), {})
+    torch.cuda.synchronize()
+    tt_launches = 0 if mode == "dense" else 3
+    assert (ttc.tt_contract.launches - before[0],
+            ttc.tt_contract_grad.launches - before[1]) == \
+        (tt_launches, tt_launches)
+    assert torch.isfinite(loss)
+
+    def u_fn(p, x, nz):
+        return torch.sum(model.u(p, x, nz) * w.to(x.device))
+
+    card, cpu = grads(cuda, u_fn), grads(torch.device("cpu"), u_fn)
+    for a, b in zip(card, cpu):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max() + 1e-12
+    assert all(g.abs().max() > 0 for g in card)     # the cores' included
+
+
+def test_sequential_zo_step_launches_one_chain_per_layer(cuda):
+    """``--sequential``: each of the N+1 loss evaluations runs the plain FD
+    stencil through two ``tt_contract`` launches; no batched chain and no
+    mesh kernel (the non-stacked densification stays plain)."""
+    cfg = pinn.PINNConfig(hidden=64, mode="tonn", tt_L=3, deriv="fd",
+                          noise=NoiseModel(enabled=True))
+    model = pinn.TensorPinn(cfg)
+    params = to_device(model.init(counter_generator(0)), cuda)
+    noise = to_device(model.sample_noise(counter_generator(0, 99)), cuda)
+    xt = model.problem.sample_collocation(counter_generator(1), 16).to(cuda)
+    counters = (ttc.tt_contract, ttc.tt_contract_batched,
+                mesh.mesh_densify_stacked, mesh.mesh_apply_stacked)
+    before = [fn.launches for fn in counters]
+    _, _, loss = zoo.zo_signsgd_step(
+        params, zoo.ZOState(0, 1), 1e-3, zoo.SPSAConfig(num_samples=3),
+        trainable_mask=model.trainable_mask(params),
+        loss_fn=lambda p: pinn.residual_loss(model, p, xt, noise))
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(counters, before)] == \
+        [2 * 4, 0, 0, 0]
+    assert torch.isfinite(loss)

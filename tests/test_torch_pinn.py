@@ -1,5 +1,5 @@
-"""The port's ``TensorPinn`` (tt and tonn modes) and PDE surface against the
-JAX package's.
+"""The port's ``TensorPinn`` (tt and tonn modes; dense in ``test_torch_bp``)
+and PDE surface against the JAX package's.
 
 Params and hardware noise come from the JAX side as numpy trees and reach
 the port through ``repro_torch.interop``; query points are made with numpy
@@ -160,8 +160,8 @@ def test_init_and_noise_trees_match_jax(mode):
 
 
 def test_unported_modes_raise():
-    for mode in ("dense", "onn"):
-        with pytest.raises(NotImplementedError, match=mode):
+    for mode in ("onn",):
+        with pytest.raises(NotImplementedError, match=f"{mode}.*item 6b"):
             tpinn.TensorPinn(tpinn.PINNConfig(hidden=16, mode=mode))
 
 

@@ -2,14 +2,15 @@
 and its checkpoint manager, on the CPU.
 
 A checkpoint the port writes is served by the JAX package's registry too
-(noise off: with noise on the JAX registry would redraw the chip from the
-seed with threefry, which the port does not reproduce).  Tolerance for
-served u-values ``rtol = atol = 1e-5``: both packages reassociate the f32
-chain and take sin from two libraries.  With noise on, the port's
-checkpoint carries the chip's noise, serves in the port without it being
-passed (``rtol = atol = 1e-6`` against the trainer's own ``u``: the same
-arithmetic on another batch size), and the JAX package restores its
-params bit for bit.
+(noise off).  Tolerance for served u-values ``rtol = atol = 1e-5``: both
+packages reassociate the f32 chain and take sin from two libraries.  With
+noise on, the port's checkpoint carries the chip's noise, serves in the
+port without it being passed (``rtol = atol = 1e-6`` against the
+trainer's own ``u``: the same arithmetic on another batch size), and the
+JAX package restores its params bit for bit.  Its meta records the seed as
+``train_seed``: the JAX registry would redraw a noise-on chip from a
+``seed`` with threefry and serve another chip, so it must refuse the
+checkpoint instead.
 """
 
 import shutil
@@ -118,6 +119,28 @@ def test_noise_on_checkpoint_serves_without_hw_noise(tmp_path):
     _assert_trees_equal(restored["params"], res.params)
 
 
+def test_jax_registry_refuses_a_port_noise_checkpoint(tmp_path):
+    """The JAX registry cannot rebuild the port's chip from a seed: a
+    noise-on checkpoint written by the port records ``train_seed``, not
+    ``seed``, so the JAX registry raises instead of serving a chip redrawn
+    with threefry; the port's registry serves it from the saved noise."""
+    res = _run("--steps", 2, "--batch", 8, "--zo-samples", 3,
+               "--pinn-noise", "--ckpt-dir", tmp_path, "--seed", 4)
+    meta = read_checkpoint_meta(tmp_path)
+    assert "seed" not in meta and meta["train_seed"] == 4
+    with pytest.raises(ValueError, match="training seed"):
+        JRegistry().load_checkpoint("hjb", tmp_path)
+    s = SolverRegistry(device="cpu").load_checkpoint("hjb", tmp_path,
+                                                     device="cpu")
+    pts = torch.tensor(np.random.RandomState(5).uniform(
+        0.02, 0.98, (11, 21)).astype(np.float32))
+    with torch.no_grad():
+        np.testing.assert_allclose(
+            s.model.u(s.params, pts).numpy(),
+            res.model.u(res.params, pts, res.hw_noise).numpy(),
+            rtol=1e-6, atol=1e-6)
+
+
 def test_resume_redraws_the_same_perturbations(tmp_path):
     """A run cut after step_3 and resumed runs steps 3..5 as the
     uninterrupted run did: the same batches, the same ξ, the same params."""
@@ -133,9 +156,7 @@ def test_resume_redraws_the_same_perturbations(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--sequential"], 6), (["--pinn-mode", "onn"], 6),
-    (["--pinn-mode", "dense"], 6), (["--optimizer", "adamw"], 6),
-    (["--optimizer", "sgd"], 6), (["--estimator", "stein"], 8),
+    (["--pinn-mode", "onn"], "6b"), (["--estimator", "stein"], 8),
     (["--term-weight", "residual=2"], 8), (["--bc-weight", "2"], 8),
     (["--estimator", "spectral"], 9), (["--spectral-points", "8"], 9),
     (["--coeff-range", "lam=0.05:0.1"], 10), (["--coeff-dist", "uniform"], 10),
@@ -144,6 +165,8 @@ def test_resume_redraws_the_same_perturbations(tmp_path):
     (["--quant", "fp8_e4m3", "--quant-block", "16", "--pinn-mode", "onn"],
      11),
     (["--phase-bits", "8", "--pinn-mode", "onn"], 11),
+    (["--quant", "int8", "--optimizer", "adamw"], 11),
+    (["--phase-bits", "8", "--pinn-noise", "--optimizer", "sgd"], 11),
     (["--shard", "perturbation"], 13), (["--mesh", "2x1"], 13),
     (["--async-ckpt"], 13), (["--seq", "16"], 14),
     (["--compress-grads"], 14), (["--zo-vectorized"], 14)])
