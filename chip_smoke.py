@@ -9,7 +9,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   1. device   — the card's name, count, power limit; TF32 off everywhere.
   2. build    — ``nvcc`` builds the ``tt_contract``, ``mesh_apply`` and
                 ``flash_attention`` sources of this checkout, all at once;
-                prints ptxas' register / spill lines.
+                prints ptxas' entry, register and spill lines.
   3. kernel   — ``tt_contract`` (the fiber body) against its plain PyTorch
                 version on the card at the paper's spec (B = 2048, the served
                 pool, and 65,536), the reduced config's spec at a B that is
@@ -64,13 +64,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 phases → cores), the 16 ``torch.matmul`` calls of the same
                 meshes made dense: each mesh's feed against its per-entry
                 unitary.
+  6b. mesh-wide — ``mesh_apply_stacked``'s streamed design (the layouts
+                whose tables pass shared memory: onn's 1024-port meshes)
+                against ``photonic.mesh_apply_stacked`` on the card bit for
+                bit: 1024 ports transposed and not, x shared (100 and 21
+                rows) and per entry (S = 11, 4300 rows: the hidden layer's
+                two launches), a ``decompose_orthogonal`` layout of 256
+                ports (509 levels) and 160 ports at S = 3, B = 777; the
+                streamed launch function on 16- and 64-port layouts bit
+                for bit against the resident one.  At the hidden layer's U
+                mesh it times the call (CUDA events), the kernel alone
+                (``kernel_device_ms``), the plain version and ``torch.bmm``
+                against the 11 unitaries made dense (TF32 off).
   7. train    — the port's trainer (``repro_torch.launch.train.main``) on
                 the card: the paper's TONN_ONCHIP_FUSED (hjb-20d, tonn,
                 hidden 1024, noise on), N = 10, batch 100, 50 steps and a
                 checkpoint.  Checks: finite losses and val MSE, the median
                 of the last 10 losses below the first, the ±1 buffers
                 bit-unchanged, exactly 3 ``tt_contract_batched`` and 1
-                ``mesh_densify_stacked`` launches per step and no
+                ``mesh_densify_stacked`` launches per step (and 1 grouped
+                densification per validation forward) and no
                 ``mesh_apply_stacked``; one step's stacked
                 stencil u-values and (P,) losses on the card against the
                 same params, ξ, batch and noise through the plain path on
@@ -93,9 +106,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 ``tt_contract_batched_quant_ref``.  Times the int8
                 hidden-layer call, its plain version and ``torch.bmm``
                 against the densified fake-quantized weights, and traces
-                one call: one kernel and nothing else (the output's
-                allocation launches none), whose device time is
-                ``kernel_device_ms``.
+                one call in a window that starts on a fill (the profiler
+                may drop a window's first kernel): one kernel and nothing
+                else (the output's allocation launches none), whose device
+                time is ``kernel_device_ms``.
   9. train-quant — phase 7 with ``--quant int8 --quant-block 32
                 --phase-bits 8`` added to its argv: the same checks with 3
                 ``tt_contract_batched_quant``, 0 ``tt_contract_batched`` and
@@ -193,12 +207,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 bit.  Times a BP step (CUDA events, a
                 traced window of 5).
  15. train-seq — ``--pinn-mode tonn --pinn-noise --sequential`` at hidden
-                1024 for 5 steps (N = 10, batch 100): 2 ``tt_contract``
-                launches per loss evaluation, 22 a step, and no batched chain
-                or mesh kernel; one step's (N,) losses and base loss card vs
-                CPU (rtol 1e-1) and a perturbed model's stencil u (1e-4 of
-                max|u|).  Times a sequential step.
- 16. report   — one ``{"kernels": [...]}`` line, the card's name and power
+                1024 for 5 steps (N = 10, batch 100): 1 grouped
+                densification and 2 ``tt_contract`` launches per loss
+                evaluation, 11 and 22 a step, and no batched chain or
+                standalone mesh; one step's (N,) losses and base loss card
+                vs CPU (rtol 1e-1) and a perturbed model's stencil u (1e-4
+                of max|u|).  Times a sequential step.
+ 16. train-onn — the paper's ONN baseline (``ONN_ONCHIP``: hjb-20d, onn,
+                hidden 1024, noise on) through the trainer, fused ZO with
+                N = 10, batch 100, 10 steps and a checkpoint.  Checks: finite
+                losses and val MSE, the ±1 buffers bit-unchanged, exactly 2
+                resident and 4 streamed ``mesh_apply_stacked`` launches a
+                step (1 and 3 per validation forward), no TT chain and no
+                grouped densification; one step's stacked stencil u and
+                losses card vs CPU on the first 3 entries of the stack (u
+                within 1e-4 of max|u|, losses rtol 1e-1); the checkpoint
+                serves without ``hw_noise=``, equal to ``model.u`` (1e-6).
+                Times a ZO step (CUDA events, a traced window of 5).  Then 2
+                ``--sequential`` steps: 44 meshes a step (11 resident, 33
+                streamed), finite losses; times a sequential step.
+ 17. serve-onn — an engine over a fresh onn solver (hjb-20d, hidden 1024,
+                noise on): served u against a direct ``model.u`` (rtol =
+                atol = 1e-6) and the CPU (1e-5), 1 resident and 3 streamed
+                meshes a program run; times a full-pool program.
+ 18. report   — one ``{"kernels": [...]}`` line, the card's name and power
                 limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device, or run outside a checkout of the repository, it exits
@@ -295,7 +327,8 @@ def phase_build():
     for name, lib in zip(KERNEL_SOURCES, libs):
         _build.load_library(name)
         for line in Path(f"{lib}.log").read_text().splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
+            if any(k in line for k in ("entry function", "registers",
+                                       "smem", "spill")):
                 print(f"[build] {name} ptxas: {line.strip()}", flush=True)
 
 
@@ -600,6 +633,117 @@ def phase_mesh(device) -> dict:
     return results
 
 
+def _mesh_bound(layout, S: int, B: int, shared: bool) -> tuple:
+    """(bound_ms, bound_by) of one standalone mesh call: x (read once,
+    shared or per entry), y written once, and the phases, diag and plan
+    tables (slot, sign, perm, owner) read once, against 3 f32 operations
+    per element and level (two products and a sum, unfused) plus the diag
+    product."""
+    from repro_torch.core import photonic
+    P, L = layout.ports, layout.levels
+    items = photonic.mesh_owner_plan(layout).shape[1]
+    words = ((1 if shared else S) * B * P + S * B * P + S * L * layout.slots
+             + S * P + 3 * L * P + L * items)
+    t_bytes = 4 * words / PEAK_BYTES_PER_S * 1e3
+    t_ops = S * B * P * (3 * L + 1) / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# label -> (layout, ports, S, rows, shared x, transpose, entry): onn's
+# 1024-port meshes at a ZO step's launches (layer 0's U mesh on the 100
+# rows, the columns' transposed feed, the hidden layer's V transposed and U
+# on 11 x 4300 rows per entry: "hidden-u" is the main one), a
+# decompose_orthogonal layout, 160 ports off every tile, and the streamed
+# launch function on layouts the resident design holds too
+MESH_WIDE_CASES = {
+    "hidden-u": ("rect", 1024, 11, 4300, False, False, "dispatch"),
+    "hidden-v-tr": ("rect", 1024, 11, 4300, False, True, "dispatch"),
+    "u1024-shared-100": ("rect", 1024, 11, 100, True, False, "dispatch"),
+    "u1024-shared-21-tr": ("rect", 1024, 11, 21, True, True, "dispatch"),
+    "reck256-per-entry": ("reck", 256, 3, 300, False, False, "dispatch"),
+    "p160-777": ("rect", 160, 3, 777, False, False, "dispatch"),
+    "p16-streamed-vs-resident": ("rect", 16, 11, 100, True, True, "both"),
+    "p64-streamed-vs-resident": ("rect", 64, 3, 37, False, False, "both"),
+}
+
+
+def phase_mesh_wide(device) -> dict:
+    """The streamed design of ``mesh_apply_stacked`` against the plain
+    version on the card, bit for bit, and against the resident design
+    where both hold the layout."""
+    import numpy as np
+    import torch
+    from repro_torch.core import photonic
+    from repro_torch.kernels import mesh_apply as mesh
+
+    results = {}
+    for i, (label, (kind, ports, S, B, shared, transpose, entry)) in \
+            enumerate(MESH_WIDE_CASES.items()):
+        if kind == "rect":
+            layout = photonic.rectangular_layout(ports)
+        else:
+            q, _ = np.linalg.qr(np.random.RandomState(ports)
+                                .standard_normal((ports, ports)))
+            layout = photonic.decompose_orthogonal(q)[0]
+        gen = torch.Generator().manual_seed(3300 + i)
+        phases = (0.1 * torch.randn((S, *layout.phase_shape()),
+                                    generator=gen)).to(device)
+        diag = torch.where(torch.rand((S, ports), generator=gen) < 0.5,
+                           -1.0, 1.0).to(device)
+        x = torch.randn((B, ports) if shared else (S, B, ports),
+                        generator=gen).to(device)
+        row = {"case": label, "ports": ports, "levels": layout.levels,
+               "slots": layout.slots, "S": S, "rows": B, "shared_x": shared,
+               "transpose": transpose,
+               "design": mesh.mesh_design(layout)}
+        if entry == "dispatch":
+            if row["design"] != "streamed":
+                raise AssertionError(f"{label}: the {ports}-port layout "
+                                     f"took the {row['design']} design")
+            y = mesh.mesh_apply_stacked(layout, phases, diag, x, transpose)
+            want = photonic.mesh_apply_stacked(layout, phases, diag, x,
+                                               transpose)
+            against = "plain"
+        else:
+            y = mesh.launch_streamed(layout, phases, diag, x, transpose)
+            want = mesh.launch_resident(layout, phases, diag, x, transpose)
+            against = "resident"
+            plain = photonic.mesh_apply_stacked(layout, phases, diag, x,
+                                                transpose)
+            _check_close("mesh_apply_stacked (streamed)", label, y, plain)
+        err, scale = _check_close("mesh_apply_stacked (streamed)", label, y,
+                                  want)
+        differ = int((y != want).sum())
+        if differ:
+            raise AssertionError(f"the streamed mesh at {label}: {differ} "
+                                 f"elements differ from the {against} "
+                                 "version on the card")
+        row.update({"against": against, "max_abs_err": err,
+                    "max_abs_plain": scale, "bitwise_equal": True,
+                    "rows_per_block": mesh.stream_rows(
+                        layout, S, B, torch.cuda.get_device_properties(
+                            device).multi_processor_count)})
+        if label == "hidden-u":
+            call = (lambda: mesh.mesh_apply_stacked(layout, phases, diag, x,
+                                                    transpose))
+            row["ms"] = _time_ms(call, 10, warmup=2)
+            row["kernel_device_ms"] = _profile(call)["device_ms"]
+            row["plain_ms"] = _time_ms(lambda: photonic.mesh_apply_stacked(
+                layout, phases, diag, x, transpose), 2, warmup=1)
+            # the library yardstick: one bmm against the 11 unitaries made
+            # dense (y[s] = x[s] @ m[s]), TF32 off
+            eye = torch.eye(ports, device=device)
+            m = photonic.mesh_apply_stacked(layout, phases, diag, eye,
+                                            transpose)
+            row["library_ms"] = _time_ms(lambda: torch.bmm(x, m), 10,
+                                         warmup=2)
+            row["bound_ms"], row["bound_by"] = _mesh_bound(layout, S, B,
+                                                           shared)
+        results[label] = row
+        print(f"[mesh-wide] {json.dumps(row)}", flush=True)
+    return results
+
+
 def densify_inputs(hidden: int, tt_L: int, S: int, noisy: bool, bits,
                    device, seed: int, mixed_diag: bool = False) -> tuple:
     """Every core matrix of a tonn model with S stacked parameter sets
@@ -840,17 +984,26 @@ def phase_quant_kernel(device) -> dict:
                 row["ms"] = _time_ms(lambda: ttc.tt_contract_batched_quant(
                     x, cores, spec, quant), 50)
                 # the call is one launch and no other kernel: the output's
-                # torch.empty launches none, the quantizer runs in the launch
+                # torch.empty launches none, the quantizer runs in the launch.
+                # The window starts on a fill, which torch.profiler may drop
+                # as a window's first kernel (it dropped the call's launch
+                # itself in a window that started on it); the fill is the
+                # only other kernel the window may hold
+                scratch = torch.empty(1, device=x.device)
                 traced = _profile(
                     lambda: ttc.tt_contract_batched_quant(x, cores, spec,
                                                           quant),
-                    match="tt_contract_batched_quant_kernel")
-                if traced["kernels"] != 1 or traced["match_kernels"] != 1:
+                    match="tt_contract_batched_quant_kernel",
+                    lead=lambda: scratch.fill_(0.0))
+                others = [t for t in traced["top"]
+                          if "tt_contract_batched_quant_kernel" not in t[0]
+                          and "Fill" not in t[0]]
+                if traced["match_kernels"] != 1 or others:
                     raise AssertionError(
                         f"a tt_contract_batched_quant call ran "
                         f"{traced['kernels']} kernels ({traced['top']}); "
                         "expected its own launch alone")
-                row["kernels_per_call"] = traced["kernels_per_call"]
+                row["kernels_per_call"] = traced["match_kernels"]
                 row["kernel_device_ms"] = traced["match_ms"]
                 row["plain_ms"] = _time_ms(
                     lambda: ref.tt_contract_batched_quant_ref(
@@ -865,11 +1018,13 @@ def phase_quant_kernel(device) -> dict:
     return results
 
 
-def _train_main(argv: list, steps: int, chain: str) -> tuple:
+def _train_main(argv: list, steps: int, chain: str,
+                log_every: int) -> tuple:
     """``launch.train.main(argv)`` on the card with every kernel count set
     to 0 just before and read just after.  Checks 3 launches of ``chain``
     (the other chain kernel 0), 1 grouped densification and no standalone
-    mesh per step.  Returns (result, launches, wall seconds)."""
+    mesh per step, and 1 grouped densification per validation forward.
+    Returns (result, launches, wall seconds)."""
     import torch
     from repro_torch.kernels import mesh_apply as mesh
     from repro_torch.kernels import tt_contract as ttc
@@ -887,7 +1042,8 @@ def _train_main(argv: list, steps: int, chain: str) -> tuple:
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counted.items()}  # ends
     want = {"tt_contract_batched": 0, "tt_contract_batched_quant": 0,
-            "mesh_densify_stacked": steps, "mesh_apply_stacked": 0}
+            "mesh_densify_stacked": steps + _val_evals(steps, log_every),
+            "mesh_apply_stacked": 0}
     want[chain] = 3 * steps
     if launches != want:
         raise AssertionError(f"{launches} over {steps} steps; expected "
@@ -922,14 +1078,16 @@ ZO_TRACE_STEPS = 5
 
 
 def measure_zo_step(model, params, noise, mask, xt, state, n: int,
-                    runs: int = 1, iters: int = 10) -> dict:
+                    runs: int = 1, iters: int = 10,
+                    match: str = "tt_contract") -> dict:
     """ms per ZO step (``zoo.zo_signsgd_step`` over
     ``pinn.residual_losses_stacked``, N = ``n``) back to back on CUDA
     events, ``runs`` times over ``iters`` steps, then a steady window of
     ``ZO_TRACE_STEPS`` steps under ``torch.profiler`` (with the device
-    time of the TT-chain kernels, ``match_ms``).  It calls only entry
-    points that every version of the port has, so ``tools/zo_step.py``
-    measures any checkout's ``repro_torch`` with it."""
+    time of the kernels whose name holds ``match``, ``match_ms``: the TT
+    chains by default).  It calls only entry points that every version of
+    the port has, so ``tools/zo_step.py`` measures any checkout's
+    ``repro_torch`` with it."""
     from repro_torch.core import pinn, zoo
     scfg = zoo.SPSAConfig(num_samples=n)
 
@@ -941,7 +1099,7 @@ def measure_zo_step(model, params, noise, mask, xt, state, n: int,
 
     return {"zo_step_ms": [_time_ms(zo_step, iters, warmup=2)
                            for _ in range(runs)],
-            "trace": _profile(zo_step, ZO_TRACE_STEPS, match="tt_contract")}
+            "trace": _profile(zo_step, ZO_TRACE_STEPS, match=match)}
 
 
 def phase_train(device, quant: tuple = ()) -> dict:
@@ -967,7 +1125,7 @@ def phase_train(device, quant: tuple = ()) -> dict:
     res, launches, wall = _train_main(
         argv, steps,
         "tt_contract_batched_quant" if "--quant" in quant
-        else "tt_contract_batched")
+        else "tt_contract_batched", 10)
     model, params, noise = res.model, res.params, res.hw_noise
     losses = np.asarray(res.losses)
     if not (np.isfinite(losses).all() and np.isfinite(res.val_mse)):
@@ -1080,7 +1238,7 @@ def phase_train_quant(device, f32_val_mse: float) -> dict:
         ["--arch", "tensor-pinn", "--pde", "hjb-20d", "--pinn-noise",
          "--steps", str(steps), "--batch", "100", "--zo-samples", "10",
          "--log-every", "10", "--seed", "0", "--quant", "fp8_e4m3"],
-        steps, "tt_contract_batched_quant")
+        steps, "tt_contract_batched_quant", 10)
     if not (np.isfinite(res.losses).all() and np.isfinite(res.val_mse)):
         raise AssertionError(f"fp8 QAT: non-finite losses {res.losses}")
     out["fp8"] = {"steps": steps, "launches": launches,
@@ -1577,7 +1735,9 @@ def _card_vs_cpu_grads(model, params, init_params, noise, xt,
         p = zoo.tree_map(lambda t, m: t.detach().to(dev, dtype or t.dtype)
                          .requires_grad_(m), at, mask)
         nz = None if noise is None else to_device(noise, dev)
-        out = fn(p, xt.to(dev, dtype or xt.dtype), nz)
+        # tonn: the densification BP differentiates, as the BP step's
+        prepared, nz = model.prepare_params_plain(p, nz)
+        out = fn(prepared, xt.to(dev, dtype or xt.dtype), nz)
         return out.item(), [g.cpu() for g in torch.autograd.grad(
             out, [t for t in zoo.tree_leaves(p) if t.requires_grad])]
 
@@ -1705,6 +1865,8 @@ def phase_train_bp(device) -> dict:
         want["tt_contract_grad"] = chains
         want["tt_contract"] = chains + (
             0 if "dense" in label else 2 * _val_evals(steps, log_every))
+        if "tonn" in label:   # the validation forwards, outside autograd
+            want["mesh_densify_stacked"] = _val_evals(steps, log_every)
         if launches != want:
             raise AssertionError(f"{label}: {launches} over {steps} steps; "
                                  f"expected {want}")
@@ -1768,8 +1930,9 @@ def phase_train_bp(device) -> dict:
 
 def phase_train_seq(device) -> dict:
     """``--pinn-mode tonn --pinn-noise --sequential`` at the paper's width
-    (N = 10, batch 100) for 5 steps: 2 ``tt_contract`` launches per loss
-    evaluation, no batched chain and no mesh kernel; one step's losses
+    (N = 10, batch 100) for 5 steps: 1 grouped densification and 2
+    ``tt_contract`` launches per loss evaluation (and per validation
+    forward), no batched chain and no standalone mesh; one step's losses
     card vs CPU on the same params, ξ and batch."""
     import numpy as np
     import torch
@@ -1785,8 +1948,9 @@ def phase_train_seq(device) -> dict:
          str(batch), "--zo-samples", str(n), "--log-every", str(log_every),
          "--seed", "0"])
     want = dict.fromkeys(BP_COUNTED, 0)
-    want["tt_contract"] = (2 * (n + 1) * steps
-                           + 2 * _val_evals(steps, log_every))
+    evals = (n + 1) * steps + _val_evals(steps, log_every)
+    want["tt_contract"] = 2 * evals
+    want["mesh_densify_stacked"] = evals
     if launches != want:
         raise AssertionError(f"sequential: {launches} over {steps} steps; "
                              f"expected {want}")
@@ -1842,6 +2006,244 @@ def phase_train_seq(device) -> dict:
     print(f"[train-seq] {json.dumps(out)}", flush=True)
     return out
 
+
+
+ONN_COUNTED = ("tt_contract", "tt_contract_batched", "mesh_densify_stacked",
+               "mesh_apply_stacked")
+
+
+def _run_onn(argv: list) -> tuple:
+    """``launch.train.main(argv)`` with every kernel count (and the mesh's
+    per-design counts) set to 0 just before and read just after.  Returns
+    (result, launches, wall seconds)."""
+    import torch
+    from repro_torch.kernels import mesh_apply as mesh
+    from repro_torch.launch import train
+    counted = _counted()
+    for fn in counted.values():                           # main path starts
+        fn.launches = 0
+    mesh.mesh_apply_stacked.design_launches = dict.fromkeys(mesh.DESIGNS, 0)
+    t0 = time.perf_counter()
+    res = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: counted[name].launches for name in ONN_COUNTED}
+    launches.update(mesh.mesh_apply_stacked.design_launches)   # ends
+    return res, launches, wall
+
+
+def _onn_want(stacked_evals: int, single_evals: int) -> dict:
+    """Launches of onn runs: a stacked stencil pass is 2 resident (layer
+    0's 21-port V mesh on the rows and on the identity columns) and 4
+    streamed meshes; a single forward 1 resident and 3 streamed."""
+    want = dict.fromkeys(ONN_COUNTED, 0)
+    want["resident"] = 2 * stacked_evals + single_evals
+    want["streamed"] = 4 * stacked_evals + 3 * single_evals
+    want["mesh_apply_stacked"] = want["resident"] + want["streamed"]
+    return want
+
+
+def phase_train_onn(device) -> dict:
+    """The paper's ONN baseline (``ONN_ONCHIP``: hjb-20d, hidden 1024,
+    noise on) through the trainer, fused ZO with N = 10 and batch 100,
+    then 2 ``--sequential`` steps."""
+    import numpy as np
+    import torch
+    from repro_torch.core import pinn, zoo
+    from repro_torch.data import pde_collocation_iterator
+    from repro_torch.device import counter_generator, to_device
+    from repro_torch.launch import train
+    from repro_torch.serving import (PdeServingEngine, PointRequest,
+                                     SolverRegistry)
+
+    steps, batch, n, log_every = 10, 100, 10, 5
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_onn_")
+    base = ["--arch", "tensor-pinn", "--pde", "hjb-20d", "--pinn-mode", "onn",
+            "--pinn-noise", "--batch", str(batch), "--zo-samples", str(n),
+            "--seed", "0"]
+    res, launches, wall = _run_onn(base + [
+        "--steps", str(steps), "--log-every", str(log_every), "--ckpt-dir",
+        ckpt, "--ckpt-every", str(steps)])
+    want = _onn_want(steps, _val_evals(steps, log_every))
+    if launches != want:
+        raise AssertionError(f"onn: {launches} over {steps} steps; expected "
+                             f"{want}")
+    model, params, noise = res.model, res.params, res.hw_noise
+    losses = np.asarray(res.losses)
+    if not (np.isfinite(losses).all() and np.isfinite(res.val_mse)):
+        raise AssertionError(f"onn: non-finite losses {losses} or val MSE "
+                             f"{res.val_mse}")
+    init, _ = train.init_solver(model, 0)
+    mask = model.trainable_mask(init)
+    for new, old, trainable in zip(zoo.tree_leaves(params),
+                                   zoo.tree_leaves(init),
+                                   zoo.tree_leaves(mask)):
+        if not trainable and not torch.equal(new.cpu(), old):
+            raise AssertionError("onn: a ±1 diag buffer moved in training")
+
+    # one step's stacked stencil and losses, card against the CPU's plain
+    # path on the same params, ξ, batch and noise; the stack is cut to its
+    # first 3 entries (the CPU's plain 1024-level meshes take ~15 ms a
+    # level on 3 x 4300 rows)
+    scfg = zoo.SPSAConfig(num_samples=n)
+    xis = zoo.sample_perturbations(counter_generator(7, device=device),
+                                   params, n, mask)
+    stacked = zoo.tree_map(lambda t: t[:3].contiguous(),
+                           zoo.perturbed_stack(params, xis, scfg))
+    xt = next(pde_collocation_iterator(batch, seed=0, start_step=steps,
+                                       problem=model.problem))
+
+    def one_step(dev):
+        # the losses from the same u, as residual_losses_stacked forms them
+        # (one stencil pass: the CPU's pass takes minutes)
+        sp, nz, x = to_device(stacked, dev), to_device(noise, dev), xt.to(dev)
+        with torch.no_grad():
+            u = model.fd_u_stencil_stacked(sp, x, model.fd_step, nz)
+            return u.cpu(), pinn._loss_from_u_stencil(
+                model.problem, u, model.fd_step, x).cpu()
+
+    u_card, l_card = one_step(device)
+    t_cpu = time.perf_counter()
+    u_cpu, l_cpu = one_step(torch.device("cpu"))
+    t_cpu = time.perf_counter() - t_cpu
+    u_err = (u_card - u_cpu).abs().max().item()
+    u_scale = u_cpu.abs().max().item()
+    if not u_err <= 1e-4 * u_scale:
+        raise AssertionError(f"onn stencil u card vs CPU: {u_err:.3e}, "
+                             f"max|u| {u_scale:.3e}")
+    np.testing.assert_allclose(l_card.numpy(), l_cpu.numpy(), rtol=1e-1)
+
+    # ms per ZO step on CUDA events and a traced window
+    timed = measure_zo_step(model, params, noise, mask, xt.to(device),
+                            zoo.ZOState(step=steps, seed=1), n, iters=5,
+                            match="mesh_")
+
+    # the checkpoint carries the chip's noise and serves without hw_noise=
+    reg = SolverRegistry(device=device)
+    reg.load_checkpoint("onn", ckpt, device=device)
+    engine = PdeServingEngine(reg, slots=4, slot_points=256, device=device)
+    pts = model.problem.sample_collocation(counter_generator(11), 700)
+    req = engine.submit(PointRequest("onn", pts.numpy()))
+    engine.run()
+    with torch.no_grad():
+        direct = model.u(params, pts.to(device), noise).cpu().numpy()
+    np.testing.assert_allclose(req.out, direct, rtol=1e-6, atol=1e-6)
+    shutil.rmtree(ckpt)
+
+    # --sequential: 11 loss evaluations a step, one plain FD stencil each
+    # (a single forward over the 43 x 100 stencil points: 4 meshes)
+    seq_steps, seq_log = 2, 10
+    seq, seq_launches, seq_wall = _run_onn(base + [
+        "--steps", str(seq_steps), "--log-every", str(seq_log),
+        "--sequential"])
+    seq_want = _onn_want(0, (n + 1) * seq_steps
+                         + _val_evals(seq_steps, seq_log))
+    if seq_launches != seq_want:
+        raise AssertionError(f"onn sequential: {seq_launches} over "
+                             f"{seq_steps} steps; expected {seq_want}")
+    if not (np.isfinite(seq.losses).all() and np.isfinite(seq.val_mse)):
+        raise AssertionError(f"onn sequential: non-finite {seq.losses}")
+    x_dev = xt.to(device)
+
+    def seq_step():
+        return zoo.zo_signsgd_step(
+            seq.params, zoo.ZOState(seq_steps, 1), 1e-3, scfg,
+            trainable_mask=mask,
+            loss_fn=lambda q: pinn.residual_loss(seq.model, q, x_dev,
+                                                 seq.hw_noise))
+
+    out = {"steps": steps, "batch": batch, "zo_samples": n,
+           "launches": launches, "launches_per_step": {
+               "resident": 2, "streamed": 4, "validation_forwards":
+                   _val_evals(steps, log_every)},
+           "losses": [float(v) for v in losses], "val_mse": res.val_mse,
+           "zo_step_ms": timed["zo_step_ms"][0],
+           "zo_step_trace": timed["trace"],
+           "host_step_ms_median": 1e3 * float(np.median(res.step_seconds)),
+           "train_wall_s": wall,
+           "stencil_u_max_abs_card_vs_cpu": u_err, "stencil_u_max": u_scale,
+           "card_vs_cpu_stack": 3, "cpu_step_s": t_cpu,
+           "losses_card": l_card.tolist(), "losses_cpu": l_cpu.tolist(),
+           "served_vs_direct_max_abs": float(np.abs(req.out - direct).max()),
+           "sequential": {
+               "steps": seq_steps, "launches": seq_launches,
+               "launches_per_step": {"resident": n + 1,
+                                     "streamed": 3 * (n + 1)},
+               "losses": [float(v) for v in seq.losses],
+               "val_mse": seq.val_mse,
+               "seq_step_ms": _time_ms(seq_step, 2, warmup=1),
+               "host_step_ms_median":
+                   1e3 * float(np.median(seq.step_seconds)),
+               "train_wall_s": seq_wall}}
+    print(f"[train-onn] {json.dumps(out)}", flush=True)
+    return out
+
+
+ONN_HIDDEN = 1024       # the served onn solver's width (ONN_ONCHIP)
+
+
+def phase_serve_onn(device) -> dict:
+    """An engine over a fresh onn solver (hjb-20d, hidden 1024, noise on):
+    served u against a direct ``model.u`` and the CPU, 4 meshes a program
+    run (1 resident, 3 streamed)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import pinn
+    from repro_torch.core.photonic import NoiseModel
+    from repro_torch.device import to_device
+    from repro_torch.kernels import mesh_apply as mesh
+    from repro_torch.serving import (PdeServingEngine, PointRequest,
+                                     SolverRegistry)
+
+    cfg = pinn.PINNConfig(hidden=ONN_HIDDEN, mode="onn", pde="hjb-20d",
+                          noise=NoiseModel(enabled=True))
+    reg = SolverRegistry(device=device)
+    solver = reg.register_fresh("onn", cfg, seed=2, device=device)
+    engine = PdeServingEngine(reg, slots=8, slot_points=256, device=device)
+    rng = np.random.RandomState(2)
+    traffic = [rng.uniform(0.02, 0.98, (n, 21)).astype(np.float32)
+               for n in (1, 256, 97, 700, 40)]
+    mesh.mesh_apply_stacked.design_launches = dict.fromkeys(mesh.DESIGNS, 0)
+    t0 = time.perf_counter()                              # main path starts
+    reqs = [engine.submit(PointRequest("onn", pts)) for pts in traffic]
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(mesh.mesh_apply_stacked.design_launches)   # ends
+    runs = engine.stats["program_runs"]
+    if launches != {"resident": runs, "streamed": 3 * runs}:
+        raise AssertionError(f"onn serving: {launches} over {runs} program "
+                             "runs; expected 1 resident and 3 streamed each")
+    worst = cpu_err = 0.0
+    cpu_params = to_device(solver.params, torch.device("cpu"))
+    cpu_noise = to_device(solver.noise, torch.device("cpu"))
+    for k, r in enumerate(reqs):
+        if not (r.done and np.isfinite(r.out).all()):
+            raise AssertionError("an onn request was not served")
+        pts = torch.tensor(r.points, dtype=torch.float32)
+        with torch.no_grad():
+            direct = solver.model.u(solver.params, pts.to(device),
+                                    solver.noise).cpu().numpy()
+        np.testing.assert_allclose(r.out, direct, rtol=1e-6, atol=1e-6)
+        worst = max(worst, float(np.abs(r.out - direct).max()))
+        if k < 3:
+            with torch.no_grad():
+                plain = solver.model.u(cpu_params, pts, cpu_noise).numpy()
+            np.testing.assert_allclose(r.out, plain, rtol=1e-5, atol=1e-5)
+            cpu_err = max(cpu_err, float(np.abs(r.out - plain).max()))
+    pool = solver.problem.sample_collocation(
+        torch.Generator().manual_seed(1),
+        engine.slots * engine.slot_points).to(device)
+    with torch.no_grad():
+        program_ms = _time_ms(lambda: solver.model.u(solver.params, pool,
+                                                     solver.noise), 5, 1)
+    out = {"requests": len(reqs), "points": sum(len(t) for t in traffic),
+           "wall_ms": wall * 1e3, "program_runs": runs,
+           "launches": launches, "program_ms": program_ms,
+           "max_abs_served_vs_direct": worst,
+           "max_abs_served_vs_cpu": cpu_err}
+    print(f"[serve-onn] {json.dumps(out)}", flush=True)
+    return out
 
 
 def phase_lm_serve(device) -> dict:
@@ -2025,6 +2427,7 @@ def main() -> int:
     serve = phase_serve(device)
     batched = phase_batched(device)
     meshes = phase_mesh(device)
+    wide = phase_mesh_wide(device)
     trained = phase_train(device)
     quant_kernel = phase_quant_kernel(device)
     trained_q = phase_train_quant(device, trained["val_mse"])
@@ -2034,6 +2437,8 @@ def main() -> int:
     bp_kernel = phase_bp_kernel(device)
     trained_bp = phase_train_bp(device)
     trained_seq = phase_train_seq(device)
+    trained_onn = phase_train_onn(device)
+    served_onn = phase_serve_onn(device)
 
     main_case = kernel["cases"][0]                       # paper spec, B=2048
     entry = {"name": "tt_contract", "route": "cuda",
@@ -2186,8 +2591,38 @@ def main() -> int:
           f"ZO step (CUDA events; host median "
           f"{trained_seq['host_step_ms_median']:.3f} ms), val MSE "
           f"{trained_seq['val_mse']:.4e} on {card}", flush=True)
+    main_w = wide["hidden-u"]
+    entry_w = {"name": "mesh_apply_stacked (streamed)", "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/mesh_apply.cu",
+               "replaces": "src/repro/kernels/mesh_apply.py:93 (and the "
+                           "jnp gather scan of src/repro/kernels/ops.py:139 "
+                           "that the wide meshes took)",
+               "design": "streamed",
+               "launches": trained_onn["launches"]["streamed"],
+               "max_abs_err": max(r["max_abs_err"] for r in wide.values()),
+               "ms": main_w["ms"], "plain_ms": main_w["plain_ms"],
+               "bound_ms": main_w["bound_ms"], "bound_by": main_w["bound_by"],
+               "library_ms": main_w["library_ms"],
+               "kernel_device_ms": main_w["kernel_device_ms"],
+               "rows_per_block": main_w["rows_per_block"],
+               "shape": "1024-port rectangular mesh (1024 levels, 512 "
+                        "slots), S = 11, x (11, 4300, 1024) per entry: the "
+                        "hidden layer's U mesh of an onn ZO step (library: "
+                        "torch.bmm against the 11 unitaries made dense)",
+               "cases": list(wide.values())}
+    entry_m["standalone"]["launches_onn"] = trained_onn["launches"][
+        "resident"]
+    print(f"[train-onn] {trained_onn['zo_step_ms']:.3f} ms per onn ZO step "
+          f"(CUDA events; traced: "
+          f"{trained_onn['zo_step_trace']['kernels_per_call']:.0f} kernels "
+          f"a step, busy share {trained_onn['zo_step_trace']['busy_share']})"
+          f", val MSE {trained_onn['val_mse']:.4e}; streamed mesh "
+          f"{main_w['ms']:.3f} ms per hidden-layer call (bound "
+          f"{main_w['bound_ms']:.4f} ms, torch.bmm "
+          f"{main_w['library_ms']:.4f} ms); served program "
+          f"{served_onn['program_ms']:.3f} ms on {card}", flush=True)
     print(json.dumps({"kernels": [entry, entry_b, entry_m, entry_q,
-                                  entry_f, entry_g]}), flush=True)
+                                  entry_f, entry_g, entry_w]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

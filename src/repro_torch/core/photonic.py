@@ -2,25 +2,32 @@
 
 A weight matrix ``W = U Σ Vᵀ`` is realized by two meshes of 2×2 MZI
 rotators; hardware imperfections act on the phases,
-``Φ_eff = Ω (Γ ⊙ Φ) + Φ_b`` (``NoiseModel``).  Serving densifies every
-(small) core mesh of a ``tonn`` solver into its TT-core once, at load
-(``PhotonicMatrix.to_dense``), through the plain gather form of the mesh
-(``mesh_apply``).  Training densifies all N+1 SPSA-perturbed phase sets of
-every core mesh of a model at once (``mesh_densify_stacked``, through
-``kernels.ops.mesh_densify_stacked``: one launch of the grouped CUDA
-kernel on the card, this module's plain loop on the CPU).
-``PhotonicMatrix.apply_stacked`` runs a stacked mesh through
-``kernels.ops.mesh_apply_stacked`` the same way.  A ``quant`` with
-``phase_bits`` snaps the commanded phases to the DAC grid before the noise
-model acts.
+``Φ_eff = Ω (Γ ⊙ Φ) + Φ_b`` (``NoiseModel``).  The densification of a
+``tonn`` model's (small) core meshes into TT-cores — all N+1
+SPSA-perturbed phase sets at once in training, a stack of one at serving
+load — goes through ``kernels.ops.mesh_densify_stacked`` (one launch of the
+grouped CUDA kernel on the card, ``mesh_densify_stacked``'s plain loop
+here on the CPU).  ``PhotonicMatrix.apply`` and ``apply_stacked`` — the
+``onn`` mode's layers, whose meshes are as wide as the hidden layer — run
+through ``kernels.ops.mesh_apply`` and ``mesh_apply_stacked`` the same
+way.  ``to_dense`` is the plain, differentiable densification (autograd
+through ``mesh_apply``), which the BP baselines call by name.  A ``quant``
+with ``phase_bits`` snaps the commanded phases to the DAC grid before the
+noise model acts.
 
-Port of ``repro.core.photonic``; ``mesh_apply_scan``, ``mesh_matrix``,
-``decompose_orthogonal`` and ``from_dense`` belong to the ``onn`` slice.
+``decompose_orthogonal`` maps an orthogonal matrix onto a (Reck-ordered)
+mesh, ``PhotonicMatrix.from_dense`` a trained dense matrix onto a pair of
+them; ``mesh_apply_scan`` is the scatter-per-level formulation, kept as
+the sequential photonic-realism oracle of the gather form.  The
+decomposition runs in numpy float64, as the JAX package's does.
+
+Port of ``repro.core.photonic``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Sequence
 
@@ -30,9 +37,11 @@ import torch
 from repro_torch.kernels import quant as quant_lib
 
 __all__ = ["PHOTONIC_BUFFER_KEYS", "MeshLayout", "schedule_ops",
-           "rectangular_layout", "mesh_gather_plan", "mesh_plan_tensors",
-           "mesh_gather_tables", "mesh_apply", "mesh_apply_stacked",
-           "NoiseModel", "PhotonicMatrix", "mesh_densify_stacked"]
+           "rectangular_layout", "decompose_orthogonal", "mesh_gather_plan",
+           "mesh_owner_plan", "mesh_plan_tensors", "mesh_gather_tables",
+           "mesh_apply", "mesh_apply_scan", "mesh_apply_stacked",
+           "mesh_matrix", "mesh_matrix_stacked", "NoiseModel",
+           "PhotonicMatrix", "mesh_densify_stacked", "mzi_count_matrix"]
 
 # fixed ±1 buffers of a PhotonicMatrix's params: they pin each mesh to its
 # orthogonal decomposition, and ZO training neither perturbs nor updates
@@ -92,9 +101,12 @@ def schedule_ops(ports: int, ops: Sequence[tuple]) -> MeshLayout:
     return MeshLayout(ports=ports, idx_a=idx_a, idx_b=idx_b, mask=mask)
 
 
+@functools.cache
 def rectangular_layout(ports: int) -> MeshLayout:
     """Clements-style rectangular arrangement: ``ports`` columns alternating
-    even/odd pair offsets; exactly P(P-1)/2 MZIs."""
+    even/odd pair offsets; exactly P(P-1)/2 MZIs.  One object per width,
+    so every matrix of that width shares the plan memoized on it (a
+    1024-port plan takes about a second to build)."""
     ops = []
     for c in range(ports):
         for a in range(c % 2, ports - 1, 2):
@@ -103,6 +115,51 @@ def rectangular_layout(ports: int) -> MeshLayout:
     if layout.num_mzis != ports * (ports - 1) // 2:
         raise AssertionError(f"rectangular layout has {layout.num_mzis} MZIs")
     return layout
+
+
+def decompose_orthogonal(u: np.ndarray) -> tuple:
+    """Givens-QR (Reck-ordered) decomposition of a real orthogonal matrix,
+    in float64: ``(layout, phases, diag)`` with ``mesh_matrix(layout,
+    phases, diag) == u`` up to float error (phases and diag float32
+    tensors).  Nulling ``G_K … G_1 U = D`` (D diagonal ±1) gives
+    ``U = G_1ᵀ … G_Kᵀ D``: D is applied first, then the ``Gᵀ`` in reverse
+    nulling order."""
+    u = np.asarray(u, dtype=np.float64)
+    P = u.shape[0]
+    if u.shape != (P, P):
+        raise ValueError(f"need a square matrix, got {u.shape}")
+    r = u.copy()
+    nulling: list = []                     # (a, b, theta) in nulling order
+    for c in range(P - 1):
+        for row in range(P - 1, c, -1):
+            a, b = row - 1, row
+            theta = (0.0 if abs(r[b, c]) < 1e-300
+                     else math.atan2(r[b, c], r[a, c]))
+            ca, sa = math.cos(theta), math.sin(theta)
+            # G = [[ca, sa], [-sa, ca]] on rows (a, b) zeroes r[b, c]
+            ra, rb = r[a].copy(), r[b].copy()
+            r[a] = ca * ra + sa * rb
+            r[b] = -sa * ra + ca * rb
+            nulling.append((a, b, theta))
+    diag = np.sign(np.diag(r))
+    diag[diag == 0] = 1.0
+    # application order: reversed nulling, each Gᵀ the mesh rotation
+    # R(theta) = [[cos, -sin], [sin, cos]]
+    ops = [(a, b) for (a, b, _) in reversed(nulling)]
+    layout = schedule_ops(P, ops)
+    phases = np.zeros(layout.phase_shape(), dtype=np.float64)
+    # refill the phases in the traversal order of schedule_ops
+    wire_level = np.full(P, -1, dtype=np.int64)
+    counters = np.zeros(layout.levels, dtype=np.int64)
+    for (a, b, theta) in reversed(nulling):
+        lvl = int(max(wire_level[a], wire_level[b])) + 1
+        k = counters[lvl]
+        counters[lvl] += 1
+        phases[lvl, k] = theta
+        wire_level[a] = lvl
+        wire_level[b] = lvl
+    return (layout, torch.tensor(phases.astype(np.float32)),
+            torch.tensor(diag.astype(np.float32)))
 
 
 def mesh_gather_plan(layout: MeshLayout) -> tuple:
@@ -132,12 +189,37 @@ def mesh_gather_plan(layout: MeshLayout) -> tuple:
     return plan
 
 
+def mesh_owner_plan(layout: MeshLayout) -> np.ndarray:
+    """The wires that own an update at each level, ``(levels, items)``
+    int32: the first lane of every MZI in slot order, then every unpaired
+    wire in ascending order, padded with −1.  Level c's owner ``a``
+    updates ``a`` and its partner ``perm[c, a]`` (itself when unpaired), so
+    the owners of a level touch disjoint wires and cover every wire once:
+    the streamed mesh kernel's work list.  Memoized on the layout."""
+    owner = getattr(layout, "_owner_plan", None)
+    if owner is not None:
+        return owner
+    P, L = layout.ports, layout.levels
+    rows = []
+    for c in range(L):
+        m = layout.mask[c]
+        paired = np.zeros(P, dtype=bool)
+        paired[layout.idx_a[c, m]] = paired[layout.idx_b[c, m]] = True
+        rows.append(np.concatenate([layout.idx_a[c, m],
+                                    np.flatnonzero(~paired)]))
+    owner = np.full((L, max(len(r) for r in rows)), -1, dtype=np.int32)
+    for c, r in enumerate(rows):
+        owner[c, :len(r)] = r
+    object.__setattr__(layout, "_owner_plan", owner)
+    return owner
+
+
 def mesh_plan_tensors(layout: MeshLayout, device: torch.device) -> dict:
     """The gather plan as tensors on ``device``: ``slot`` (int64) and
     ``sign`` (float32) for the trig tables, ``slot_i32`` (the kernels'
     int32 copy of ``slot``), ``perm`` and ``perm_t`` (int32, the wire each
     output wire reads per level, in application order without and with
-    ``transpose``).  Memoized on the (frozen) layout, so a mesh call
+    ``transpose``) and ``owner`` (``mesh_owner_plan``).  Memoized on the (frozen) layout, so a mesh call
     copies nothing from the host (a copy from pageable host memory waits
     for the card)."""
     memo = layout.__dict__.setdefault("_plan_tensors", {})
@@ -152,7 +234,9 @@ def mesh_plan_tensors(layout: MeshLayout, device: torch.device) -> dict:
             # a copy: a one-level flip keeps its negative stride through
             # np.ascontiguousarray, and torch refuses negative strides
             "perm_t": torch.as_tensor(perm[::-1].copy(), dtype=torch.int32,
-                                      device=device)}
+                                      device=device),
+            "owner": torch.as_tensor(mesh_owner_plan(layout),
+                                     device=device)}
     return memo[device]
 
 
@@ -193,8 +277,9 @@ def mesh_apply(layout: MeshLayout, phases: torch.Tensor, diag: torch.Tensor,
     cos = cos.to(x.dtype)[..., None, :]                 # (..., L, 1, P)
     sin = sin.to(x.dtype)[..., None, :]
     for c in range(layout.levels):
-        x = cos[..., c, :, :] * x + sin[..., c, :, :] * x.index_select(
-            -1, perm_seq[c])
+        # a gather by advanced indexing (exact, as index_select, and ~20x
+        # faster on the CPU along the last axis)
+        x = cos[..., c, :, :] * x + sin[..., c, :, :] * x[..., perm_seq[c]]
     if transpose:
         x = x * diag
     return x
@@ -217,6 +302,58 @@ def mesh_apply_stacked(layout: MeshLayout, phases: torch.Tensor,
     if diag.ndim == 1:
         diag = diag.expand(S, diag.shape[0])
     return mesh_apply(layout, phases, diag, x, transpose)
+
+
+def mesh_apply_scan(layout: MeshLayout, phases: torch.Tensor,
+                    diag: torch.Tensor, x: torch.Tensor,
+                    transpose: bool = False) -> torch.Tensor:
+    """The scatter-per-level formulation: one rotation column at a time,
+    as light crosses the physical mesh — the sequential photonic-realism
+    oracle of the gather form (``mesh_apply``), which applies the same
+    rotations and agrees to f32 rounding.  phases ``(levels, slots)``,
+    diag ``(P,)``, x ``(..., P)``."""
+    P = layout.ports
+    batch_shape = x.shape[:-1]
+    # a scratch wire at index P absorbs the padded slots
+    xf = x.reshape(-1, P)
+    xf = torch.cat([xf, xf.new_zeros((xf.shape[0], 1))], dim=-1)
+    d = torch.cat([diag.to(x.dtype), diag.new_ones(1).to(x.dtype)])
+    idx_a = torch.as_tensor(layout.idx_a, dtype=torch.int64, device=x.device)
+    idx_b = torch.as_tensor(layout.idx_b, dtype=torch.int64, device=x.device)
+    mask = torch.as_tensor(layout.mask, device=x.device)
+    if not transpose:
+        xf = xf * d
+    order = range(layout.levels - 1, -1, -1) if transpose \
+        else range(layout.levels)
+    for c in order:
+        ph = -phases[c] if transpose else phases[c]
+        ia, ib, m = idx_a[c], idx_b[c], mask[c]
+        a, b = xf[:, ia], xf[:, ib]
+        cs, sn = torch.cos(ph).to(x.dtype), torch.sin(ph).to(x.dtype)
+        na = torch.where(m, cs * a - sn * b, a)
+        nb = torch.where(m, sn * a + cs * b, b)
+        xf = xf.clone()      # repeated indices only name the scratch wire
+        xf[:, ia] = na
+        xf[:, ib] = nb
+    if transpose:
+        xf = xf * d
+    return xf[:, :P].reshape(*batch_shape, P)
+
+
+def mesh_matrix(layout: MeshLayout, phases: torch.Tensor,
+                diag: torch.Tensor) -> torch.Tensor:
+    """The mesh unitary made dense: ``U[:, j] = mesh_apply(e_j)``."""
+    eye = torch.eye(layout.ports, dtype=torch.float32, device=phases.device)
+    return mesh_apply(layout, phases, diag, eye).T
+
+
+def mesh_matrix_stacked(layout: MeshLayout, phases: torch.Tensor,
+                        diag: torch.Tensor) -> torch.Tensor:
+    """S stacked mesh unitaries made dense in one pass that shares the
+    identity feed: phases ``(S, levels, slots)`` → ``(S, P, P)``, entry s
+    ``mesh_matrix(layout, phases[s], diag[s])``."""
+    eye = torch.eye(layout.ports, dtype=torch.float32, device=phases.device)
+    return mesh_apply_stacked(layout, phases, diag, eye).transpose(-1, -2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -282,6 +419,26 @@ class PhotonicMatrix:
             "diag_v": torch.ones((self.in_dim,)),
         }
 
+    def from_dense(self, w: np.ndarray) -> dict:
+        """Map a trained dense W onto hardware phases (the off-chip path):
+        an SVD in float64, each orthogonal factor decomposed onto a mesh
+        (``decompose_orthogonal``), whose layouts replace this matrix's."""
+        w = np.asarray(w, dtype=np.float64)
+        if w.shape != (self.out_dim, self.in_dim):
+            raise ValueError(f"need a ({self.out_dim}, {self.in_dim}) "
+                             f"matrix, got {w.shape}")
+        u, s, vt = np.linalg.svd(w, full_matrices=True)
+        lu, pu, du = decompose_orthogonal(u)
+        lv, pv, dv = decompose_orthogonal(vt.T)
+        self.layout_u, self.layout_v = lu, lv
+        return {"phases_u": pu, "phases_v": pv,
+                "sigma": torch.tensor(s[:self.k].astype(np.float32)),
+                "diag_u": du, "diag_v": dv}
+
+    @property
+    def num_mzis(self) -> int:
+        return self.layout_u.num_mzis + self.layout_v.num_mzis
+
     @staticmethod
     def _dac_phases(pu: torch.Tensor, pv: torch.Tensor, quant) -> tuple:
         """Snap the COMMANDED phases to the DAC grid (``quant.phase_bits``)
@@ -311,9 +468,12 @@ class PhotonicMatrix:
     def apply(self, params: dict, x: torch.Tensor,
               noise_model: NoiseModel | None = None,
               noise: dict | None = None, quant=None) -> torch.Tensor:
-        """y = U Σ Vᵀ x for x ``(..., B, in_dim)``; ``quant`` with
-        ``phase_bits`` snaps the commanded phases first."""
-        return self._apply(params, x, noise_model, noise, quant, mesh_apply)
+        """y = U Σ Vᵀ x for x ``(B, in_dim)``; ``quant`` with
+        ``phase_bits`` snaps the commanded phases first.  The meshes run
+        through ``kernels.ops.mesh_apply``."""
+        from repro_torch.kernels import ops   # ops imports this module
+        return self._apply(params, x, noise_model, noise, quant,
+                           ops.mesh_apply)
 
     def apply_stacked(self, params: dict, x: torch.Tensor,
                       noise_model: NoiseModel | None = None,
@@ -332,10 +492,14 @@ class PhotonicMatrix:
 
     def to_dense(self, params: dict, noise_model: NoiseModel | None = None,
                  noise: dict | None = None, quant=None) -> torch.Tensor:
+        """W ``(out, in)`` through the plain gather form (``mesh_apply``)
+        on any device: the densification autograd differentiates, which
+        the BP baselines call by name (the mesh kernels have no
+        backward)."""
         eye = torch.eye(self.in_dim, dtype=torch.float32,
                         device=params["sigma"].device)
-        return self.apply(params, eye, noise_model, noise,
-                          quant).T                           # row j = W e_j
+        return self._apply(params, eye, noise_model, noise, quant,
+                           mesh_apply).T                     # row j = W e_j
 
     def to_dense_stacked(self, params: dict,
                          noise_model: NoiseModel | None = None,
@@ -372,3 +536,8 @@ def mesh_densify_stacked(matrices: Sequence[PhotonicMatrix],
         y = pm._apply(p, eye, noise_model, nz, quant, mesh_apply_stacked)
         cores.append(y.transpose(-1, -2).contiguous())
     return cores
+
+
+def mzi_count_matrix(out_dim: int, in_dim: int) -> int:
+    """MZIs of an SVD-implemented (out × in) matrix: two square meshes."""
+    return out_dim * (out_dim - 1) // 2 + in_dim * (in_dim - 1) // 2

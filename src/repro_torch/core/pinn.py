@@ -1,14 +1,23 @@
 """The paper's 3-layer sine MLP bound to a PDE problem, and its BP-free losses.
 
-``TensorPinn`` (in → n → n → 1, sine activations) in three of the paper's
+``TensorPinn`` (in → n → n → 1, sine activations) in the paper's four
 parametrizations:
 
   * ``dense`` — plain weight matrices (the uncompressed off-chip baseline),
+  * ``onn``  — every weight of the first two layers an SVD pair of full
+               MZI meshes (the paper's ONN baseline, ``ONN_ONCHIP``): the
+               meshes run on the activations, with the chip's noise, in
+               every forward (``PhotonicMatrix.apply`` / ``apply_stacked``
+               → ``kernels.ops.mesh_apply[_stacked]``; on the card the
+               streamed mesh kernel takes the hidden-width meshes),
   * ``tt``   — first two layers TT-compressed (digital TT baseline),
   * ``tonn`` — TT-cores whose unfoldings are MZI meshes, the paper's
                proposed hardware; the meshes are densified into plain
                TT-cores with the chip's noise baked in, once per loss
-               evaluation (training) or once at load (serving).
+               evaluation (training) or once at load (serving), in one
+               grouped launch (``kernels.ops.mesh_densify_stacked``);
+               ``prepare_params_plain`` is the differentiable plain
+               densification the BP baselines call.
 
 Serving runs the single forward, whose TT layers go through
 ``kernels.ops.tt_linear``, and so does sequential ZO training, one model
@@ -33,8 +42,8 @@ before the noise model.  ZO training is gradient-free, so fake-quant in the
 loss is the whole of QAT.  With ``cfg.quant`` disabled every path is the
 unquantized one, bit for bit.
 
-Port of ``repro.core.pinn``.  The ``onn`` mode and the Stein and
-spectral estimators are not ported yet.  Two paths of the JAX
+Port of ``repro.core.pinn``.  The Stein and spectral estimators are not
+ported yet.  Two paths of the JAX
 package are CPU-XLA workarounds with no counterpart here: the polynomial
 ``fast_sin`` (the port takes ``torch.sin``) and the Kronecker head of
 ``_f_head_stacked`` (the port takes the TT chain, as the JAX package does
@@ -59,7 +68,7 @@ __all__ = ["PINNConfig", "TensorPinn", "config_to_meta", "config_from_meta",
            "residual_loss", "residual_losses_stacked", "per_term_losses",
            "validation_mse"]
 
-PORTED_MODES = ("dense", "tt", "tonn")
+PORTED_MODES = ("dense", "onn", "tt", "tonn")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,9 +124,8 @@ class TensorPinn:
     def __init__(self, cfg: PINNConfig,
                  problem: pde_lib.PDEProblem | None = None):
         if cfg.mode not in PORTED_MODES:
-            raise NotImplementedError(
-                f"mode {cfg.mode!r} is not ported yet (ROADMAP queue A, "
-                f"item 6b); the port has {PORTED_MODES}")
+            raise ValueError(f"unknown mode {cfg.mode!r}; the port has "
+                             f"{PORTED_MODES}")
         self.cfg = cfg
         self.problem = problem if problem is not None \
             else pde_lib.get_problem(cfg.pde)
@@ -132,7 +140,7 @@ class TensorPinn:
         self._quant = cfg.quant if cfg.quant.enabled else None
         h = cfg.hidden
         self.in_pad, self.specs = self.net_in, []
-        if cfg.mode != "dense":
+        if cfg.mode in ("tt", "tonn"):
             # pad the input up to a TT-factorizable width (the paper folds
             # 21 → 1024 so layer 1 is a 1024×1024 TT matrix)
             self.in_pad = h if h >= self.net_in else -(-self.net_in // 8) * 8
@@ -142,6 +150,11 @@ class TensorPinn:
                 tt.hjb_layer_spec(h, h, L=cfg.tt_L, max_rank=cfg.tt_rank),
             ]
         self.dims = [(h, self.in_pad), (h, h), (1, h)]
+        if cfg.mode == "onn":
+            # the input is not padded: layer 0 is a (hidden × net_in) SVD
+            # pair of meshes
+            self.photonic = [photonic.PhotonicMatrix(m, n)
+                             for (m, n) in self.dims[:2]]
         if cfg.mode == "tonn":
             # each TT-core's (r·m × n·r') unfolding is an MZI-mesh matrix
             self.photonic_cores = [
@@ -153,7 +166,7 @@ class TensorPinn:
     @property
     def uses_noise(self) -> bool:
         """True when the forward consumes per-chip hardware noise."""
-        return self.cfg.noise.enabled and self.cfg.mode == "tonn"
+        return self.cfg.noise.enabled and self.cfg.mode in ("onn", "tonn")
 
     # ------------------------------------------------------------------ init
     def init(self, generator: torch.Generator) -> dict:
@@ -167,6 +180,10 @@ class TensorPinn:
                                    * torch.randn((m, n), generator=generator))
                 params[f"b{i}"] = torch.zeros((m,))
             return params
+        if cfg.mode == "onn":
+            for i, pm in enumerate(self.photonic):
+                params[f"p{i}"] = pm.init(generator)
+                params[f"b{i}"] = torch.zeros((self.dims[i][0],))
         for i, spec in enumerate(self.specs):
             if cfg.mode == "tt":
                 params[f"cores{i}"] = tt.tt_init(generator, spec)
@@ -205,46 +222,80 @@ class TensorPinn:
         drawn on the CPU, or None when the forward uses none."""
         if not self.uses_noise:
             return None
+        if self.cfg.mode == "onn":
+            return {f"p{i}": pm.sample_noise(generator, self.cfg.noise)
+                    for i, pm in enumerate(self.photonic)}
         return {f"pcores{i}": [pm.sample_noise(generator, self.cfg.noise)
                                for pm in pms]
                 for i, pms in enumerate(self.photonic_cores)}
 
     # --------------------------------------------------------------- forward
-    def _densify_cores(self, params: dict, noise: dict | None,
-                       i: int) -> list:
-        """TONN layer i: densify each (small) core mesh into its TT-core.
-        DAC phase quantization acts on the commanded phases, before the
-        noise model, inside the densification."""
-        spec = self.specs[i]
-        cores = []
-        for k, pm in enumerate(self.photonic_cores[i]):
-            nz = None if noise is None else noise[f"pcores{i}"][k]
-            w = pm.to_dense(params[f"pcores{i}"][k],
-                            self.cfg.noise if nz else None, nz,
-                            quant=self._quant)
-            cores.append(w.reshape(spec.core_shapes[k]).contiguous())
-        return cores
+    def _pcore_args(self, pcores: dict, noise: dict | None) -> tuple:
+        """The arguments of ``mesh_densify_stacked`` for every core matrix
+        of both layers: matrices, their stacked params, their noise."""
+        layers = range(len(self.specs))
+        pms = [pm for i in layers for pm in self.photonic_cores[i]]
+        nzs = ([None] * len(pms) if noise is None
+               else [nz for i in layers for nz in noise[f"pcores{i}"]])
+        return pms, [p for i in layers for p in pcores[f"pcores{i}"]], nzs
+
+    def _cores_of(self, dense) -> dict:
+        """``cores{i}`` from the densified matrices, in order."""
+        dense = iter(dense)
+        return {f"cores{i}": [next(dense).view(-1, *shape)
+                              for shape in self.specs[i].core_shapes]
+                for i in range(len(self.specs))}
 
     def prepare_params(self, params: dict, noise: dict | None) -> tuple:
-        """Densify TONN meshes into plain TT-cores once, noise baked in.
+        """Densify TONN meshes into plain TT-cores once, noise baked in:
+        ``prepare_params_stacked`` over a stack of one, one grouped call
+        (on the card one ``mesh_densify_stacked`` launch, which has no
+        backward: the BP baselines call ``prepare_params_plain``).
 
-        Returns ``(effective_params, effective_noise)``; a no-op for ``tt``
-        and for already-prepared dicts."""
+        Returns ``(effective_params, effective_noise)``; a no-op for the
+        other modes and for already-prepared dicts."""
+        if self.cfg.mode != "tonn" or "cores0" in params:
+            return params, noise
+        one = {k: [{n: t[None] for n, t in p.items()} for p in v]
+               for k, v in params.items() if k.startswith("pcores")}
+        eff = {k: v for k, v in params.items() if not k.startswith("pcores")}
+        dense = ops.mesh_densify_stacked(*self._pcore_args(one, noise),
+                                         self.cfg.noise, self._quant)
+        for name, cores in self._cores_of(dense).items():
+            eff[name] = [c[0] for c in cores]
+        return eff, None
+
+    def prepare_params_plain(self, params: dict, noise: dict | None) -> tuple:
+        """``prepare_params`` through the plain gather form on any device
+        (``PhotonicMatrix.to_dense`` per core matrix), which autograd
+        differentiates: the densification of the off-chip BP baselines.
+        DAC phase quantization acts on the commanded phases, before the
+        noise model."""
         if self.cfg.mode != "tonn" or "cores0" in params:
             return params, noise
         eff = {k: v for k, v in params.items() if not k.startswith("pcores")}
-        for i in range(len(self.specs)):
-            eff[f"cores{i}"] = self._densify_cores(params, noise, i)
+        for i, spec in enumerate(self.specs):
+            eff[f"cores{i}"] = []
+            for k, pm in enumerate(self.photonic_cores[i]):
+                nz = None if noise is None else noise[f"pcores{i}"][k]
+                w = pm.to_dense(params[f"pcores{i}"][k],
+                                self.cfg.noise if nz else None, nz,
+                                quant=self._quant)
+                eff[f"cores{i}"].append(
+                    w.reshape(spec.core_shapes[k]).contiguous())
         return eff, None
 
     def _layer_matvec(self, params: dict, noise: dict | None, i: int,
                       x: torch.Tensor) -> torch.Tensor:
         if self.cfg.mode == "dense":
             return x @ params[f"w{i}"].T
-        cores = params.get(f"cores{i}")
-        if cores is None:  # unprepared tonn params: densify on the fly
-            cores = self._densify_cores(params, noise, i)
-        return ops.tt_linear(x, cores, self.specs[i], quant=self._quant)
+        if self.cfg.mode == "onn":
+            nz = None if noise is None else noise[f"p{i}"]
+            return self.photonic[i].apply(params[f"p{i}"], x,
+                                          self.cfg.noise if nz else None,
+                                          nz, quant=self._quant)
+        return ops.tt_linear(x, params[f"cores{i}"], self.specs[i],
+                             quant=self._quant)
 
     def _embed(self, xt: torch.Tensor) -> torch.Tensor:
         """Raw rows (..., net_in) → network inputs (..., in_pad), zero-padded."""
@@ -315,64 +366,70 @@ class TensorPinn:
         the chip's noise shared across the stack."""
         if self.cfg.mode != "tonn" or "cores0" in stacked:
             return stacked
-        layers = range(len(self.specs))
-        pms = [pm for i in layers for pm in self.photonic_cores[i]]
-        nzs = ([None] * len(pms) if noise is None
-               else [nz for i in layers for nz in noise[f"pcores{i}"]])
-        dense = iter(ops.mesh_densify_stacked(
-            pms, [p for i in layers for p in stacked[f"pcores{i}"]], nzs,
-            self.cfg.noise, self._quant))
+        dense = ops.mesh_densify_stacked(*self._pcore_args(stacked, noise),
+                                         self.cfg.noise, self._quant)
         eff = {k: v for k, v in stacked.items() if not k.startswith("pcores")}
-        for i in layers:
-            eff[f"cores{i}"] = [next(dense).view(-1, *shape)
-                                for shape in self.specs[i].core_shapes]
+        eff.update(self._cores_of(dense))
         return eff
 
-    def _layer_matvec_stacked(self, stacked: dict, i: int,
-                              x: torch.Tensor) -> torch.Tensor:
+    def _layer_matvec_stacked(self, stacked: dict, i: int, x: torch.Tensor,
+                              noise: dict | None = None) -> torch.Tensor:
         """Layer-i matvec of P stacked (prepared) parameter sets: x
-        ``(B', n)`` shared or ``(P, B', n)`` per entry → ``(P, B', m)``."""
+        ``(B', n)`` shared or ``(P, B', n)`` per entry → ``(P, B', m)``.
+        ``noise`` (one chip's, shared across the stack) is read in ``onn``
+        mode only: ``tonn`` bakes it into the densified cores."""
         if self.cfg.mode == "dense":
             sub = "bn,pmn->pbm" if x.ndim == 2 else "pbn,pmn->pbm"
             return torch.einsum(sub, x, stacked[f"w{i}"])
+        if self.cfg.mode == "onn":
+            nz = None if noise is None else noise[f"p{i}"]
+            return self.photonic[i].apply_stacked(
+                stacked[f"p{i}"], x, self.cfg.noise if nz else None, nz,
+                quant=self._quant)
         return ops.tt_linear_batched(x, stacked[f"cores{i}"], self.specs[i],
                                      quant=self._quant)
 
-    def _f_head_stacked(self, stacked: dict, a: torch.Tensor) -> torch.Tensor:
+    def _f_head_stacked(self, stacked: dict, a: torch.Tensor,
+                        noise: dict | None = None) -> torch.Tensor:
         """``f = sin(W1·a + b1) @ w2ᵀ + b2`` for P stacked parameter sets:
         (P, B', hidden) activations → (P, B') f-values."""
-        z = self._layer_matvec_stacked(stacked, 1, a) + stacked["b1"][:, None]
+        z = self._layer_matvec_stacked(stacked, 1, a, noise) \
+            + stacked["b1"][:, None]
         f = torch.einsum("pbh,poh->pbo", torch.sin(z), stacked["w2"])
         return (f + stacked["b2"][:, None])[..., 0]
 
-    def fd_u_stencil_stacked(self, stacked: dict, xt: torch.Tensor,
-                             h: float) -> torch.Tensor:
+    def fd_u_stencil_stacked(self, stacked: dict, xt: torch.Tensor, h: float,
+                             noise: dict | None = None) -> torch.Tensor:
         """``fd_u_stencil`` for P stacked (prepared) parameter sets:
         (P, 2·in_dim+1, B) u-values.  The collocation rows and the
         identity columns are shared across the stack, so layer 1 reads
         them once per (entry, row tile); the hidden layer reads each
-        entry's own (2A+1)·B activations, one contiguous block."""
+        entry's own (2A+1)·B activations, one contiguous block.  ``noise``
+        as in ``_layer_matvec_stacked``."""
         B, A = xt.shape[0], self.in_dim
         P = stacked["b0"].shape[0]
-        z0 = self._layer_matvec_stacked(stacked, 0, self._embed(xt)) \
+        z0 = self._layer_matvec_stacked(stacked, 0, self._embed(xt), noise) \
             + stacked["b0"][:, None]                               # (P, B, H)
         cols = self._layer_matvec_stacked(
-            stacked, 0, self._identity_columns(xt))                # (P, A, H)
+            stacked, 0, self._identity_columns(xt), noise)         # (P, A, H)
         a = self._stencil_activations(z0, cols, h).reshape(
             P, (2 * A + 1) * B, self.cfg.hidden)
-        f = self._f_head_stacked(stacked, a).reshape(P, 2 * A + 1, B)
+        f = self._f_head_stacked(stacked, a, noise).reshape(P, 2 * A + 1, B)
         return self.problem.ansatz(f, pde_lib.fd_stencil_points(xt, h, A))
 
-    def f_stacked(self, stacked: dict, xt: torch.Tensor) -> torch.Tensor:
+    def f_stacked(self, stacked: dict, xt: torch.Tensor,
+                  noise: dict | None = None) -> torch.Tensor:
         """Base network of P stacked (prepared) parameter sets over a
         shared batch: (B, net_in) → (P, B)."""
-        a = torch.sin(self._layer_matvec_stacked(stacked, 0, self._embed(xt))
+        a = torch.sin(self._layer_matvec_stacked(stacked, 0, self._embed(xt),
+                                                 noise)
                       + stacked["b0"][:, None])
-        return self._f_head_stacked(stacked, a)
+        return self._f_head_stacked(stacked, a, noise)
 
-    def u_stacked(self, stacked: dict, xt: torch.Tensor) -> torch.Tensor:
+    def u_stacked(self, stacked: dict, xt: torch.Tensor,
+                  noise: dict | None = None) -> torch.Tensor:
         """Ansatz u of P stacked parameter sets: (B, net_in) → (P, B)."""
-        return self.problem.ansatz(self.f_stacked(stacked, xt), xt)
+        return self.problem.ansatz(self.f_stacked(stacked, xt, noise), xt)
 
 
 # ---------------------------------------------------------------------- loss
@@ -470,21 +527,23 @@ def residual_losses_stacked(model: TensorPinn, stacked_params: dict,
     chip's noise baked in); then the FD stencil goes through every
     perturbed model in one program — with ``fd_fast``, three
     ``tt_linear_batched`` launches (layer 1 on the rows and on the
-    identity columns, the hidden layer on the stencil's activations)."""
+    identity columns, the hidden layer on the stencil's activations), or
+    in ``onn`` mode six stacked meshes, which apply the chip's noise."""
     problem = model.problem
     deriv = _resolve_deriv(model.cfg, problem)
     prepared = model.prepare_params_stacked(stacked_params, noise)
+    eff_noise = noise if model.cfg.mode == "onn" else None
     h = model.fd_step
     if deriv == "fd_fast":
-        vals = model.fd_u_stencil_stacked(prepared, xt, h)
+        vals = model.fd_u_stencil_stacked(prepared, xt, h, eff_noise)
     else:
         (B, D), A = xt.shape, model.in_dim
         pts = pde_lib.fd_stencil_points(xt, h, A)
-        vals = model.u_stacked(prepared, pts.reshape(-1, D))
+        vals = model.u_stacked(prepared, pts.reshape(-1, D), eff_noise)
         vals = vals.reshape(vals.shape[0], 2 * A + 1, B)
     losses = _loss_from_u_stencil(problem, vals, h, xt)
     return _add_terms(losses, problem, term_batches,
-                      lambda xb: model.u_stacked(prepared, xb))
+                      lambda xb: model.u_stacked(prepared, xb, eff_noise))
 
 
 def per_term_losses(model: TensorPinn, params: dict, xt: torch.Tensor,

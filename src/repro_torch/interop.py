@@ -1,9 +1,10 @@
 """The weight carrier: numpy pytrees from the JAX package → the port's tensors.
 
 The JAX package's params and hardware-noise pytrees are nested dicts and
-lists of arrays; converted leaf by leaf to numpy (``np.asarray``) they can
-be handed to ``params_from_numpy`` / ``noise_from_numpy``, and both
-packages then compute the same thing.  The same goes for the trees of ZO
+lists of arrays (tonn's ``pcores0/1/phases_u``, onn's ``p0/phases_u`` and
+``p0/u/gamma``: nothing here is keyed to a mode); converted leaf by leaf
+to numpy (``np.asarray``) they can be handed to ``params_from_numpy`` /
+``noise_from_numpy``, and both packages then compute the same thing.  The same goes for the trees of ZO
 training: stacked params (a leading perturbation axis P on every leaf) and
 ξ stacks (``zoo.sample_perturbations``) convert leaf by leaf through
 ``params_from_numpy``.  JAX's threefry bits and torch's generators differ,

@@ -17,10 +17,14 @@
 // precise functions (no __sinf, no --use_fast_math): the ones torch.sin /
 // torch.cos run on the card, so the tables equal the plain version's.
 //
-// Two entries:
+// Three entries:
 //   mesh_apply_launch    S stacked meshes of one layout on rows x, shared
-//                        or per entry: grid (row tiles, S).
+//                        or per entry: grid (row tiles, S), the layout's
+//                        trig and perm tables resident in shared memory
+//                        (the "resident" design).
 //                        core.photonic.mesh_apply_stacked.
+//   mesh_stream_launch   the same function for layouts whose tables do
+//                        not fit a block (the "streamed" design; below).
 //   mesh_densify_launch  PhotonicMatrix.to_dense_stacked of G matrices at
 //                        once, each written as its TT core: grid (S, G),
 //                        one block per (stack entry, matrix).  A block
@@ -44,6 +48,32 @@
 // (a square rectangular mesh of up to ~138 ports), the grouped one
 // 8*in*max(in, out) + 8*levels*(slots + ports) bytes of its larger mesh;
 // the wrappers raise past Hopper's 227 KB per block.
+//
+// The streamed entry also replaces the JAX package's jnp gather scan
+// (repro/kernels/ops.py:139-140), to which the Pallas kernel left the wide
+// meshes: onn's 1024-port meshes have 1024 levels and 512 slots, whose
+// cos, sin and perm tables take 12 MB.  No (levels, ports) table lives in
+// shared memory here: a block holds only its rows, one buffer of
+// rows * ports floats, and walks the levels in order, reading each
+// level's phases and plan (the owner list of core.photonic.mesh_owner_plan,
+// perm, slot, sign) from device memory, where a whole stack's phases
+// (11 x 1024 x 512 f32, 23 MB) and plan tables (4 MB each) stay in the
+// 50 MB L2.  A level is a set of disjoint pairs, so the thread that owns
+// MZI (a, perm[a]) updates both wires in place and one buffer suffices;
+// an unpaired wire owns itself (y = 1*x + (+-0)*x, kept for the plain
+// version's bits).  The trig of level c + 1 (one sinf and one cosf per
+// owner: 513 at 1024 ports) goes into a double-buffered list while the
+// rows take level c, so a level costs one barrier and its trig is paid
+// once per block, shared by the block's rows.
+//
+// What bounds the streamed entry: per element and level two shared loads,
+// four products and two sums (3 FLOPs a wire, unfused); at the hidden
+// layer of an onn ZO step (11 x 4300 rows, 1024 levels) 1.49e11 FLOPs,
+// 2.2 ms at the f32 peak, while its bytes (x and y, 387 MB) take 0.12 ms.
+// It is bound by shared-memory traffic and instruction issue, not by
+// device memory.  Rows per block (up to ~49 at 1024 ports) amortize each
+// level's plan reads and trig; the wrapper spreads a small batch over more
+// blocks so every SM gets one (kernels/mesh_apply.py::stream_rows).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -264,6 +294,126 @@ mesh_densify_kernel(const __grid_constant__ MeshGroup grp) {
     dst[i] = r[(i % in) * out + i / in];
 }
 
+// ---------------------------------------------------------------- streamed
+
+constexpr int kStreamThreads = 1024;
+
+// One owner of a level: y[a] = ca*x[a] + sa*x[b] and, when b != a,
+// y[b] = cb*x[b] + sb*x[a] (a < 0: a padded entry of the owner list).
+struct __align__(8) Rot {
+  int a, b;
+  float ca, sa, cb, sb;
+};
+
+// Stored level cl's owners and their trig, in the arithmetic of build_trig
+// (both lanes of an MZI share its slot, core.photonic.mesh_gather_plan; a
+// transposed mesh negates the sines).
+__device__ void stage_level(int cl, const float* __restrict__ ph,
+                            const int* __restrict__ slot,
+                            const float* __restrict__ sign,
+                            const int* __restrict__ perm,
+                            const int* __restrict__ owner, int ports,
+                            int slots, int items, bool transpose, Rot* out) {
+  const size_t base = static_cast<size_t>(cl) * ports;
+  for (int j = threadIdx.x; j < items; j += blockDim.x) {
+    Rot r;
+    r.a = owner[static_cast<size_t>(cl) * items + j];
+    r.b = r.a;
+    r.ca = r.cb = 1.0f;
+    r.sa = r.sb = 0.0f;
+    if (r.a >= 0) {
+      r.b = perm[base + r.a];
+      const float v = ph[static_cast<size_t>(cl) * slots + slot[base + r.a]];
+      const float sga = sign[base + r.a], sgb = sign[base + r.b];
+      r.ca = sga != 0.0f ? cosf(v) : 1.0f;
+      r.cb = sgb != 0.0f ? cosf(v) : 1.0f;
+      const float sv = sinf(v);
+      r.sa = __fmul_rn(sga, sv);
+      r.sb = __fmul_rn(sgb, sv);
+      if (transpose) {
+        r.sa = -r.sa;
+        r.sb = -r.sb;
+      }
+    }
+    out[j] = r;
+  }
+}
+
+__global__ void __launch_bounds__(kStreamThreads)
+mesh_stream_kernel(const float* __restrict__ x,
+                   const float* __restrict__ phases,
+                   const int* __restrict__ slot,
+                   const float* __restrict__ sign,
+                   const int* __restrict__ perm,
+                   const int* __restrict__ owner,
+                   const float* __restrict__ diag, float* __restrict__ y,
+                   int batch, int ports, int levels, int slots, int items,
+                   int rows_per_block, int64_t x_stride_s,
+                   int64_t diag_stride_s, int transpose) {
+  extern __shared__ float smem[];
+  Rot* rot = reinterpret_cast<Rot*>(smem);         // 2 x items, 8-aligned
+  float* buf = reinterpret_cast<float*>(rot + 2 * items);
+  float* dg = buf + static_cast<size_t>(rows_per_block) * ports;
+
+  const size_t s = blockIdx.y;
+  const int row0 = blockIdx.x * rows_per_block;
+  const int rows = min(rows_per_block, batch - row0);
+  const int n = rows * ports;
+  const int tid = threadIdx.x;
+  const bool tr = transpose != 0;
+  const float* ph = phases + s * levels * slots;
+
+  stage_level(tr ? levels - 1 : 0, ph, slot, sign, perm, owner, ports, slots,
+              items, tr, rot);
+  const float* dg_g = diag + s * diag_stride_s;
+  for (int i = tid; i < ports; i += blockDim.x) dg[i] = dg_g[i];
+  __syncthreads();
+  const float* xs = x + s * x_stride_s + static_cast<size_t>(row0) * ports;
+  for (int i = tid; i < n; i += blockDim.x) {
+    const float v = xs[i];
+    buf[i] = tr ? v : __fmul_rn(v, dg[i % ports]);
+  }
+  __syncthreads();
+
+  // work item i = r * items + j (row r, owner j), i = tid + k * blockDim
+  const int work = rows * items;
+  const int step_r = blockDim.x / items, step_j = blockDim.x % items;
+  for (int c = 0; c < levels; ++c) {
+    const Rot* cur = rot + (c & 1) * items;
+    if (c + 1 < levels)
+      stage_level(tr ? levels - 2 - c : c + 1, ph, slot, sign, perm, owner,
+                  ports, slots, items, tr, rot + ((c + 1) & 1) * items);
+    int r = tid / items, j = tid % items;
+    for (int i = tid; i < work; i += blockDim.x) {
+      const Rot q = cur[j];
+      if (q.a >= 0) {
+        float* row = buf + r * ports;
+        const float xa = row[q.a];
+        const float xb = row[q.b];
+        row[q.a] = __fadd_rn(__fmul_rn(q.ca, xa), __fmul_rn(q.sa, xb));
+        if (q.b != q.a)
+          row[q.b] = __fadd_rn(__fmul_rn(q.cb, xb), __fmul_rn(q.sb, xa));
+      }
+      r += step_r;
+      j += step_j;
+      if (j >= items) {
+        j -= items;
+        ++r;
+      }
+    }
+    __syncthreads();
+  }
+
+  float* ys = y + (s * batch + row0) * ports;
+  for (int i = tid; i < n; i += blockDim.x)
+    ys[i] = tr ? __fmul_rn(buf[i], dg[i % ports]) : buf[i];
+}
+
+size_t stream_smem(int ports, int items, int rows_per_block) {
+  return 2 * static_cast<size_t>(items) * sizeof(Rot) +
+         (static_cast<size_t>(rows_per_block) + 1) * ports * sizeof(float);
+}
+
 size_t densify_smem(const MatrixDesc& d) {
   const size_t in = d.v.ports, out = d.u.ports;
   const size_t phase_n = std::max(d.u.levels * d.u.slots,
@@ -312,6 +462,40 @@ extern "C" int mesh_apply_launch(const void* x, const void* phases,
       static_cast<const int*>(perm), static_cast<const float*>(diag),
       static_cast<float*>(y), batch, ports, levels, slots, rows_per_block,
       x_stride_s, diag_stride_s, transpose);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The streamed design: the arguments of mesh_apply_launch plus owner
+// (levels, items) int32 (core.photonic.mesh_owner_plan).  Shared memory:
+// 48 * items + 4 * (rows_per_block + 1) * ports bytes.
+extern "C" int mesh_stream_launch(const void* x, const void* phases,
+                                  const void* slot, const void* sign,
+                                  const void* perm, const void* owner,
+                                  const void* diag, void* y, int batch,
+                                  int ports, int levels, int slots, int items,
+                                  int stack, int rows_per_block,
+                                  int64_t x_stride_s, int64_t diag_stride_s,
+                                  int transpose, void* stream) {
+  if (batch < 1 || ports < 1 || levels < 1 || slots < 1 || items < 1 ||
+      stack < 1 || stack > 65535 || rows_per_block < 1 || x_stride_s < 0 ||
+      diag_stride_s < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = stream_smem(ports, items, rows_per_block);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        mesh_stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((batch + rows_per_block - 1) / rows_per_block, stack);
+  mesh_stream_kernel<<<grid, kStreamThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(phases),
+      static_cast<const int*>(slot), static_cast<const float*>(sign),
+      static_cast<const int*>(perm), static_cast<const int*>(owner),
+      static_cast<const float*>(diag), static_cast<float*>(y), batch, ports,
+      levels, slots, items, rows_per_block, x_stride_s, diag_stride_s,
+      transpose);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,13 +3,22 @@
 Replace the Pallas kernel ``repro/kernels/mesh_apply.py::
 mesh_apply_stacked_pallas`` (its ``pallas_call`` at line 136), which ran
 S stacked MZI meshes of one layout on x shared across the stack or per
-entry, with trig tables built outside the kernel.  Here every block builds
-its own trig from the phases and the layout's plan
-(``core.photonic.mesh_plan_tensors``), so a call is one allocation and one
-launch.  Two entries:
+entry, with trig tables built outside the kernel, and the JAX package's
+jnp gather scan that took the meshes too wide for it
+(``repro/kernels/ops.py:139-140``).  Here every block builds its own trig
+from the phases and the layout's plan (``core.photonic.mesh_plan_tensors``),
+so a call is one allocation and one launch.  Two entries:
 
   * ``mesh_apply_stacked`` — the standalone mesh, kernel-backed
-    ``core.photonic.mesh_apply_stacked`` (``PhotonicMatrix.apply_stacked``).
+    ``core.photonic.mesh_apply_stacked`` (``PhotonicMatrix.apply`` and
+    ``apply_stacked``) in two designs, which ``mesh_design`` picks from the
+    layout alone: ``resident`` (``launch_resident``) holds the layout's
+    trig and perm tables in shared memory, up to ~138 ports of a
+    rectangular mesh; ``streamed`` (``launch_streamed``) holds only its
+    rows and reads each level's phases and plan from device memory, for
+    any wider layout (onn's 1024-port meshes).  Both round every operation
+    as the plain version does, so they agree with it, and with each other,
+    bit for bit.
   * ``mesh_densify_stacked`` — ``PhotonicMatrix.to_dense_stacked`` of G
     matrices in one launch, DAC snap and noise model included, each
     written as its TT core: the ZO step's whole densification
@@ -18,15 +27,16 @@ launch.  Two entries:
     the launch copies nothing from the host.
 
 The TPU's one-hot permutation matmul (``mesh_perm_onehot``) has no
-counterpart: the kernel reads ``x[perm[c, w]]`` from shared memory.  The
+counterpart: the kernels read ``x[perm[c, w]]`` from shared memory.  The
 TPU's size limits assumed VMEM; here a block holds its tables and buffers
 in at most Hopper's 232,448 bytes of shared memory (``smem_bytes``,
-``densify_smem_bytes``), and a mesh that does not fit raises — there is no
-plain fallback on the card.
+``stream_smem_bytes``, ``densify_smem_bytes``), and what no design holds
+raises — there is no plain fallback on the card.
 
 Each wrapper checks what its kernel takes and raises on anything else,
 allocates the output, launches on the current stream without
-synchronizing, and counts its launches (``<wrapper>.launches``).
+synchronizing, and counts its launches (``<wrapper>.launches``; per design
+``mesh_apply_stacked.design_launches``).
 """
 
 from __future__ import annotations
@@ -41,13 +51,16 @@ from repro_torch.core import photonic as ph_lib
 from repro_torch.kernels import _build
 from repro_torch.kernels.tt_contract import SMEM_MAX_BYTES
 
-__all__ = ["mesh_apply_stacked", "mesh_densify_stacked", "smem_bytes",
-           "rows_per_block", "densify_smem_bytes", "MeshGroup",
-           "pack_group", "MAX_GROUP"]
+__all__ = ["mesh_apply_stacked", "launch_resident", "launch_streamed",
+           "mesh_design", "DESIGNS", "mesh_densify_stacked", "smem_bytes",
+           "rows_per_block", "stream_smem_bytes", "stream_rows",
+           "densify_smem_bytes", "MeshGroup", "pack_group", "MAX_GROUP"]
 
 MAX_ROW_ELEMENTS = 1024            # rows per block × ports, at most
 MAX_STACK = 65_535                 # the standalone grid's y extent
 MAX_GROUP = 20                     # kMaxGroup: matrices per grouped launch
+DESIGNS = ("resident", "streamed")
+ROT_BYTES = 24                     # sizeof(Rot): a streamed owner's entry
 
 
 def smem_bytes(ports: int, levels: int, rows: int) -> int:
@@ -67,6 +80,45 @@ def rows_per_block(layout: ph_lib.MeshLayout) -> int:
             f"shared memory per block; the card has {SMEM_MAX_BYTES} B")
     fit = (SMEM_MAX_BYTES - smem_bytes(P, L, 0)) // (8 * P)
     return max(1, min(MAX_ROW_ELEMENTS // P, fit))
+
+
+def mesh_design(layout: ph_lib.MeshLayout) -> str:
+    """``"resident"`` where the layout's tables and one row fit a block
+    (``rows_per_block``), else ``"streamed"``."""
+    fits = smem_bytes(layout.ports, layout.levels, 1) <= SMEM_MAX_BYTES
+    return "resident" if fits else "streamed"
+
+
+def stream_smem_bytes(ports: int, items: int, rows: int) -> int:
+    """Shared memory of one streamed block: two owner lists of ``items``
+    entries (the level being applied and the next) and ``rows`` rows plus
+    the diag row."""
+    return 2 * ROT_BYTES * items + 4 * (rows + 1) * ports
+
+
+def stream_rows(layout: ph_lib.MeshLayout, stack: int, batch: int,
+                sms: int) -> int:
+    """Rows of x one streamed block holds: as many as shared memory takes,
+    or fewer so that the grid's waves over ``sms`` multiprocessors come
+    out whole (a small batch then spreads over every SM instead of a few
+    full blocks).  Raises for a layout one row of which does not fit."""
+    P = layout.ports
+    items = ph_lib.mesh_owner_plan(layout).shape[1]
+    fit = (SMEM_MAX_BYTES - stream_smem_bytes(P, items, 0)) // (4 * P)
+    if fit < 1:
+        raise ValueError(
+            f"a {P}-port mesh needs {stream_smem_bytes(P, items, 1)} B of "
+            f"shared memory per streamed block; the card has "
+            f"{SMEM_MAX_BYTES} B")
+    tiles = -(-batch // fit)
+    waves = -(-stack * tiles // sms)
+    tiles = min(batch, waves * sms // stack)
+    return -(-batch // tiles)
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def densify_smem_bytes(pm: ph_lib.PhotonicMatrix) -> int:
@@ -197,6 +249,10 @@ def _library():
         ctypes.c_int] * 6 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
                              ctypes.c_void_p]
     lib.mesh_apply_launch.restype = ctypes.c_int
+    lib.mesh_stream_launch.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_int] * 7 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                             ctypes.c_void_p]
+    lib.mesh_stream_launch.restype = ctypes.c_int
     lib.mesh_densify_group_bytes.restype = ctypes.c_int
     if lib.mesh_densify_group_bytes() != ctypes.sizeof(MeshGroup):
         raise RuntimeError(
@@ -208,12 +264,9 @@ def _library():
     return lib
 
 
-def mesh_apply_stacked(layout: ph_lib.MeshLayout, phases: torch.Tensor,
-                       diag: torch.Tensor, x: torch.Tensor,
-                       transpose: bool = False) -> torch.Tensor:
-    """Kernel-backed ``core.photonic.mesh_apply_stacked``: phases
-    ``(S, levels, slots)``, diag ``(P,)`` or ``(S, P)``, x ``(B, P)``
-    shared or ``(S, B, P)`` → ``(S, B, P)``, all float32 on one card."""
+def _check_stacked(layout: ph_lib.MeshLayout, phases: torch.Tensor,
+                   diag: torch.Tensor, x: torch.Tensor) -> tuple:
+    """(S, B) of a standalone call; raises on what neither design takes."""
     P, L = layout.ports, layout.levels
     if x.device.type != "cuda":
         raise ValueError(f"mesh_apply_stacked runs on CUDA tensors, "
@@ -240,31 +293,80 @@ def mesh_apply_stacked(layout: ph_lib.MeshLayout, phases: torch.Tensor,
             and phases.is_contiguous()):
         raise ValueError("mesh_apply_stacked needs a contiguous x, diag "
                          "and phases")
-    rows = rows_per_block(layout)
     B = x.shape[-2]
-    y = torch.empty((S, B, P), dtype=torch.float32, device=x.device)
-    if B == 0:
-        return y
     if S * B * P >= 2**31:
         raise ValueError(f"{S} x {B} x {P} elements exceed the kernel's "
                          "int32 range")
+    return S, B
+
+
+def _launch(design: str, layout: ph_lib.MeshLayout, phases: torch.Tensor,
+            diag: torch.Tensor, x: torch.Tensor,
+            transpose: bool) -> torch.Tensor:
+    S, B = _check_stacked(layout, phases, diag, x)
+    P = layout.ports
+    # the launch configuration raises before any allocation
+    rows = (rows_per_block(layout) if design == "resident"
+            else stream_rows(layout, S, max(B, 1), _sm_count(x.device)))
+    y = torch.empty((S, B, P), dtype=torch.float32, device=x.device)
+    if B == 0:
+        return y
     plan = ph_lib.mesh_plan_tensors(layout, x.device)
+    x_stride = B * P if x.ndim == 3 else 0
+    diag_stride = P if diag.ndim == 2 else 0
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _library().mesh_apply_launch(
-            x.data_ptr(), phases.data_ptr(), plan["slot_i32"].data_ptr(),
-            plan["sign"].data_ptr(), plan["perm"].data_ptr(),
-            diag.data_ptr(), y.data_ptr(), B, P, L, layout.slots, S, rows,
-            B * P if x.ndim == 3 else 0, P if diag.ndim == 2 else 0,
-            int(transpose), stream)
+        if design == "resident":
+            err = _library().mesh_apply_launch(
+                x.data_ptr(), phases.data_ptr(), plan["slot_i32"].data_ptr(),
+                plan["sign"].data_ptr(), plan["perm"].data_ptr(),
+                diag.data_ptr(), y.data_ptr(), B, P, layout.levels,
+                layout.slots, S, rows, x_stride, diag_stride, int(transpose),
+                stream)
+        else:
+            owner = plan["owner"]
+            err = _library().mesh_stream_launch(
+                x.data_ptr(), phases.data_ptr(), plan["slot_i32"].data_ptr(),
+                plan["sign"].data_ptr(), plan["perm"].data_ptr(),
+                owner.data_ptr(), diag.data_ptr(), y.data_ptr(), B, P,
+                layout.levels, layout.slots, owner.shape[1], S, rows,
+                x_stride, diag_stride, int(transpose), stream)
     if err != 0:
-        raise RuntimeError(f"mesh_apply_stacked launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"mesh_apply_stacked ({design}) launch failed: "
+                           f"CUDA error {err}")
     mesh_apply_stacked.launches += 1
+    mesh_apply_stacked.design_launches[design] += 1
     return y
 
 
+def launch_resident(layout: ph_lib.MeshLayout, phases: torch.Tensor,
+                    diag: torch.Tensor, x: torch.Tensor,
+                    transpose: bool = False) -> torch.Tensor:
+    """``mesh_apply_stacked`` through the resident design; raises for a
+    layout whose tables and one row do not fit a block."""
+    return _launch("resident", layout, phases, diag, x, transpose)
+
+
+def launch_streamed(layout: ph_lib.MeshLayout, phases: torch.Tensor,
+                    diag: torch.Tensor, x: torch.Tensor,
+                    transpose: bool = False) -> torch.Tensor:
+    """``mesh_apply_stacked`` through the streamed design (any layout one
+    row of which fits a block)."""
+    return _launch("streamed", layout, phases, diag, x, transpose)
+
+
+def mesh_apply_stacked(layout: ph_lib.MeshLayout, phases: torch.Tensor,
+                       diag: torch.Tensor, x: torch.Tensor,
+                       transpose: bool = False) -> torch.Tensor:
+    """Kernel-backed ``core.photonic.mesh_apply_stacked``: phases
+    ``(S, levels, slots)``, diag ``(P,)`` or ``(S, P)``, x ``(B, P)``
+    shared or ``(S, B, P)`` → ``(S, B, P)``, all float32 on one card,
+    through the design ``mesh_design`` picks for the layout."""
+    return _launch(mesh_design(layout), layout, phases, diag, x, transpose)
+
+
 mesh_apply_stacked.launches = 0
+mesh_apply_stacked.design_launches = dict.fromkeys(DESIGNS, 0)
 
 
 def mesh_densify_stacked(matrices, params, noises, noise_model=None,

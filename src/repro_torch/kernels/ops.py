@@ -7,7 +7,11 @@ There is no switch that sends CUDA tensors to the plain version.
 Autograd: on the card ``tt_contract`` itself carries its hand-written
 backward (``tt_contract_grad``) whenever an input requires grad; the plain
 versions on the CPU are differentiated by autograd natively.  The batched
-and mesh kernels have no backward: no path differentiates through them.
+TT kernels and the mesh kernels have no backward.  The mesh entries raise
+on a CUDA input that requires grad while grad is enabled; the BP baselines
+densify tonn's meshes through the plain path by name
+(``TensorPinn.prepare_params_plain``), and BP of ``onn`` waits for a mesh
+backward kernel (ROADMAP).
 
 ``quant`` (a ``kernels.quant.QuantConfig``, or None) follows the JAX
 package's ``repro.kernels.ops``: with weight quantization on, the TT layers
@@ -32,12 +36,22 @@ from repro_torch.kernels import quant as _quant
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import tt_contract as _ttc
 
-__all__ = ["tt_linear", "tt_linear_batched", "mesh_apply_stacked",
-           "mesh_densify_stacked", "attention"]
+__all__ = ["tt_linear", "tt_linear_batched", "mesh_apply",
+           "mesh_apply_stacked", "mesh_densify_stacked", "attention"]
 
 
 def _weight_quant(quant) -> bool:
     return quant is not None and quant.weights
+
+
+def _no_backward(name: str, tensors) -> None:
+    """Raise if autograd would need a backward through a mesh kernel."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{name} on the card has no backward, and an input requires "
+            "grad: the BP baselines densify through the plain path "
+            "(TensorPinn.prepare_params_plain); a mesh backward kernel is "
+            "ROADMAP queue A, item 6c")
 
 
 def tt_linear(x: torch.Tensor, cores: Sequence[torch.Tensor],
@@ -71,15 +85,32 @@ def tt_linear_batched(x: torch.Tensor, cores: Sequence[torch.Tensor],
     return _ttc.tt_contract_batched(x, cores, spec, shared_x)
 
 
+def mesh_apply(layout: _ph.MeshLayout, phases: torch.Tensor,
+               diag: torch.Tensor, x: torch.Tensor,
+               transpose: bool = False) -> torch.Tensor:
+    """One MZI mesh: phases ``(levels, slots)``, diag ``(P,)``, x
+    ``(..., P)`` → ``(..., P)``.  On the card the S = 1 view of
+    ``mesh_apply_stacked``, one launch."""
+    if x.device.type == "cpu":
+        return _ph.mesh_apply(layout, phases, diag, x, transpose)
+    _no_backward("mesh_apply", (phases, diag, x))
+    rows = x.reshape(-1, layout.ports).contiguous()
+    y = _mesh.mesh_apply_stacked(layout, phases[None], diag, rows,
+                                 transpose)
+    return y.reshape(x.shape)
+
+
 def mesh_apply_stacked(layout: _ph.MeshLayout, phases: torch.Tensor,
                        diag: torch.Tensor, x: torch.Tensor,
                        transpose: bool = False) -> torch.Tensor:
     """S stacked MZI meshes of one layout in one program: phases
     ``(S, levels, slots)``, diag ``(P,)`` or ``(S, P)``, x ``(B, P)``
-    shared or ``(S, B, P)`` → ``(S, B, P)``.  On the card a layout too
-    large for the kernel's shared memory raises."""
+    shared or ``(S, B, P)`` → ``(S, B, P)``.  On the card the layout picks
+    the kernel's design (``mesh_apply.mesh_design``); a layout no design
+    holds raises."""
     if x.device.type == "cpu":
         return _ph.mesh_apply_stacked(layout, phases, diag, x, transpose)
+    _no_backward("mesh_apply_stacked", (phases, diag, x))
     return _mesh.mesh_apply_stacked(layout, phases, diag, x, transpose)
 
 
@@ -95,6 +126,8 @@ def mesh_densify_stacked(matrices: Sequence[_ph.PhotonicMatrix],
     if params[0]["sigma"].device.type == "cpu":
         return _ph.mesh_densify_stacked(matrices, params, noises,
                                         noise_model, quant)
+    _no_backward("mesh_densify_stacked",
+                 [t for p in params for t in p.values()])
     return _mesh.mesh_densify_stacked(matrices, params, noises, noise_model,
                                       quant)
 

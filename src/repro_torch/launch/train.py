@@ -9,11 +9,17 @@ stencil through every perturbed model at once (the
 ``tt_contract_batched`` kernel).  ``--sequential`` evaluates the N+1
 models one at a time instead, the order a chip with one physical mesh
 runs (plain FD stencil, each TT layer one ``tt_contract`` launch).
-``--optimizer adamw|adafactor|sgd`` trains the paper's off-chip BP
-baselines (``--pinn-mode dense``, ``tt``, or ``tonn`` mapped onto the
-noisy hardware) with autograd through ``residual_loss``: on the card each
-TT layer runs the ``tt_contract`` kernel forward and ``tt_contract_grad``
-backward.
+``--pinn-mode onn`` trains the paper's ONN baseline (``ONN_ONCHIP``:
+every weight an SVD pair of full MZI meshes, run on the activations with
+the chip's noise) the same two ways: the fused step puts the stencil
+through six stacked meshes (``mesh_apply_stacked``; the hidden-width
+meshes take its streamed design), ``--sequential`` four meshes per loss
+evaluation.  ``--optimizer adamw|adafactor|sgd`` trains the paper's
+off-chip BP baselines (``--pinn-mode dense``, ``tt``, or ``tonn`` mapped
+onto the noisy hardware) with autograd through ``residual_loss``: on the
+card each TT layer runs the ``tt_contract`` kernel forward and
+``tt_contract_grad`` backward, and tonn's meshes densify through the plain
+path (``TensorPinn.prepare_params_plain``).
 
     python -m repro_torch.launch.train --arch tensor-pinn --pde hjb-20d \\
         --pinn-noise --steps 50 --batch 100 --ckpt-dir ckpts/hjb-20d
@@ -40,8 +46,9 @@ asks for the noise instead.
 
 Port of the ``train_pinn`` branch of ``repro.launch.train``.  Every flag
 of that launcher this port does not have yet exits with the ROADMAP item
-that ports it; so does ``--quant`` / ``--phase-bits`` with a BP optimizer
-(the backward is f32 only).
+that ports it; so do ``--quant`` / ``--phase-bits`` with a BP optimizer
+(the backward is f32 only) or with ``onn``, and a BP optimizer with
+``onn`` (the mesh kernels have no backward).
 """
 
 from __future__ import annotations
@@ -115,7 +122,10 @@ def _bp_step_fn(model, opt, mask: dict, hw_noise: dict | None):
     def step(params, opt_state, xt, tb):
         p = zoo.tree_map(lambda t, train: t.detach().requires_grad_(train),
                          params, mask)
-        loss = pinn.residual_loss(model, p, xt, hw_noise, term_batches=tb)
+        # tonn: the plain densification, which autograd differentiates
+        prepared, noise = model.prepare_params_plain(p, hw_noise)
+        loss = pinn.residual_loss(model, prepared, xt, noise,
+                                  term_batches=tb)
         wanted = [t for t in zoo.tree_leaves(p) if t.requires_grad]
         found = dict(zip(map(id, wanted), torch.autograd.grad(
             loss, wanted, materialize_grads=True)))
@@ -133,7 +143,9 @@ def _unported(args) -> list:
     not have yet."""
     bp = args.optimizer not in (None, "zo-signsgd")
     checks = [
-        (args.pinn_mode == "onn", "--pinn-mode onn", "6b"),
+        (args.pinn_mode == "onn" and bp,
+         f"BP training of --pinn-mode onn (--optimizer {args.optimizer}; "
+         "it needs a mesh backward kernel)", "6c"),
         (args.estimator == "stein", "--estimator stein", 8),
         (args.term_weight, "--term-weight", 8),
         (args.bc_weight is not None, "--bc-weight", 8),

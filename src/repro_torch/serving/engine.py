@@ -144,7 +144,9 @@ class PdeServingEngine:
         solver); an f32 request serves the solver's own model.  A prepared
         tonn solver is already densified, so request-level ``phase_bits``
         does not bite it; only solvers quantized at train or load time
-        carry DAC-snapped phases.  Weight quantization is folded in at
+        carry DAC-snapped phases.  An onn solver's meshes run in every
+        program, with the chip's noise, so a request's ``phase_bits`` snaps
+        them there.  Weight quantization is folded in at
         build, as the JAX package's compile folds it: the frozen cores are
         fake-quantized once here and the program runs the f32 chain over
         them.  ``fake_quant`` is idempotent, so the values are the quantized
@@ -155,7 +157,7 @@ class PdeServingEngine:
         program = self._programs.get(key)
         if program is None:
             solver = self.registry.get(solver_name)
-            model, params = solver.model, solver.params
+            model, params, noise = solver.model, solver.params, solver.noise
             if tag:
                 model = pinn.TensorPinn(
                     dataclasses.replace(model.cfg, quant=quant),
@@ -165,9 +167,11 @@ class PdeServingEngine:
                 params = {k: ([quant_lib.fake_quant(c, q) for c in v]
                               if k.startswith("cores") else v)
                           for k, v in params.items()}
+                # the DAC snap stays: onn's meshes run in the forward
                 model = pinn.TensorPinn(
                     dataclasses.replace(model.cfg,
-                                        quant=quant_lib.QuantConfig()),
+                                        quant=dataclasses.replace(
+                                            q, dtype=None)),
                     problem=model.problem)
             shape = self._pool_shape(solver.net_dim)
             device = self.device
@@ -180,7 +184,7 @@ class PdeServingEngine:
                         f"{device}, got {pts.dtype} {tuple(pts.shape)} on "
                         f"{pts.device}")
                 with torch.no_grad():
-                    return model.u(params, pts)
+                    return model.u(params, pts, noise)
 
             self._programs[key] = program
             self.stats["compiles"] += 1

@@ -3,8 +3,10 @@
 A ``LoadedSolver`` is a checkpoint (or in-memory params) pushed through the
 one-time preparation the request path must never pay for: TONN
 mesh→TT-core densification with the chip's noise baked in
-(``TensorPinn.prepare_params``; a quantized config's DAC phase snap goes
-with it), and the move to the registry's device.
+(``TensorPinn.prepare_params``, one grouped launch on the card; a
+quantized config's DAC phase snap goes with it), and the move to the
+registry's device.  An ``onn`` solver has nothing to bake: its meshes run
+on every request, so it keeps the chip's noise (``LoadedSolver.noise``).
 
 Checkpoints written by the JAX package's ``launch/train.py`` load by name:
 their ``meta.json`` carries the ``PINNConfig`` under ``"pinn"``.  What the
@@ -48,6 +50,7 @@ class LoadedSolver:
     name: str
     model: pinn.TensorPinn
     params: dict                 # prepared: TONN cores densified at load
+    noise: dict | None = None    # the chip noise the forward still reads
     step: int | None = None      # checkpoint step, None for in-memory
     meta: dict = dataclasses.field(default_factory=dict)
 
@@ -109,9 +112,9 @@ class SolverRegistry:
         if hw_noise is not None:
             hw_noise = to_device(hw_noise, self.device)
         with torch.no_grad():
-            prepared, _ = model.prepare_params(params, hw_noise)
+            prepared, noise = model.prepare_params(params, hw_noise)
         solver = LoadedSolver(name=name, model=model, params=prepared,
-                              step=step, meta=meta or {})
+                              noise=noise, step=step, meta=meta or {})
         self._solvers[name] = solver
         return solver
 
@@ -127,7 +130,7 @@ class SolverRegistry:
         port's trainer saves the chip noise there).
 
         ``hw_noise`` is the chip's noise tree as numpy arrays (the JAX
-        ``TensorPinn.sample_noise`` output); a noise-enabled tonn
+        ``TensorPinn.sample_noise`` output); a noise-enabled tonn or onn
         checkpoint without the subtree needs it, and when given it takes
         the place of the subtree."""
         self._check_device(device)

@@ -1,8 +1,9 @@
 """Tests that need the card: the CUDA kernels (``tt_contract`` and its
 backward ``tt_contract_grad``, ``tt_contract_batched``,
 ``tt_contract_batched_quant``,
-``mesh_apply_stacked``, ``mesh_densify_stacked``, ``flash_attention``)
-against their plain PyTorch versions, served values (f32 and quantized) against a direct forward,
+``mesh_apply_stacked`` in its resident and streamed designs,
+``mesh_densify_stacked``, ``flash_attention``)
+against their plain PyTorch versions, onn's ZO step, served values (f32 and quantized) against a direct forward,
 quantization codes made on the card against the CPU's, one ZO training
 step (f32 and quantization-aware) on the card against the same step
 through the plain path on the CPU, and a reduced LM's prefill and decode
@@ -387,13 +388,159 @@ def test_densify_kernel_refuses_what_it_cannot_take(cuda):
 
 
 def test_mesh_kernel_refuses_a_layout_over_shared_memory(cuda):
-    """A layout the kernel cannot hold raises on the card; it never runs
-    the plain version there."""
+    """A layout whose tables pass the resident design's shared memory
+    takes the streamed design on the card (it never runs the plain version
+    there), and the resident launch function still refuses it."""
     for ports in (160, 1024):
         layout, phases, diag, x = _mesh_inputs(ports, 1, 2, True, 0, cuda)
+        before = dict(mesh.mesh_apply_stacked.design_launches)
+        y = ops.mesh_apply_stacked(layout, phases, diag, x)
+        assert mesh.mesh_apply_stacked.design_launches == {
+            "resident": before["resident"],
+            "streamed": before["streamed"] + 1}
+        assert torch.equal(y, photonic.mesh_apply_stacked(layout, phases,
+                                                          diag, x))
         with pytest.raises(ValueError, match="shared memory"):
-            ops.mesh_apply_stacked(layout, phases, diag, x)
+            mesh.launch_resident(layout, phases, diag, x)
     assert mesh.rows_per_block(photonic.rectangular_layout(138)) >= 1
+
+
+# label -> (layout kind, ports, S, B, shared x, transpose): onn's 1024-port
+# meshes (the columns feed of layer 0 and a per-entry transposed feed), a
+# 160-port mesh at a batch off every tile, and a Reck-ordered layout of
+# decompose_orthogonal (509 levels)
+WIDE_CASES = {
+    "rect1024-shared": ("rect", 1024, 3, 21, True, False),
+    "rect1024-per-entry-tr": ("rect", 1024, 3, 37, False, True),
+    "rect160-777": ("rect", 160, 3, 777, False, False),
+    "reck256-per-entry-tr": ("reck", 256, 2, 19, False, True),
+}
+
+
+def _wide_inputs(label, device):
+    kind, ports, S, B, shared, transpose = WIDE_CASES[label]
+    if kind == "rect":
+        layout = photonic.rectangular_layout(ports)
+    else:
+        q, _ = np.linalg.qr(np.random.RandomState(ports).standard_normal(
+            (ports, ports)))
+        layout = photonic.decompose_orthogonal(q)[0]
+    gen = torch.Generator().manual_seed(len(label))
+    phases = torch.randn((S, *layout.phase_shape()), generator=gen)
+    diag = torch.where(torch.rand((S, ports), generator=gen) < 0.5, -1.0, 1.0)
+    x = torch.randn((B, ports) if shared else (S, B, ports), generator=gen)
+    return (layout, phases.to(device), diag.to(device), x.to(device),
+            transpose)
+
+
+@pytest.mark.parametrize("label", sorted(WIDE_CASES))
+def test_streamed_kernel_matches_plain_bitwise(cuda, label):
+    """The streamed design against the plain version on the card, bit for
+    bit (every product and sum rounded on its own in the plain order),
+    diag ``(S, P)`` and ``(P,)``, one streamed launch a call."""
+    layout, phases, diag, x, transpose = _wide_inputs(label, cuda)
+    assert mesh.mesh_design(layout) == "streamed"
+    for d in (diag, diag[0].contiguous()):
+        before = dict(mesh.mesh_apply_stacked.design_launches)
+        y = ops.mesh_apply_stacked(layout, phases, d, x, transpose)
+        assert mesh.mesh_apply_stacked.design_launches == {
+            "resident": before["resident"],
+            "streamed": before["streamed"] + 1}
+        plain = photonic.mesh_apply_stacked(layout, phases, d, x, transpose)
+        _assert_kernel_close(y, plain)
+        assert torch.equal(y, plain)
+
+
+@pytest.mark.parametrize("label", sorted(MESH_CASES))
+def test_streamed_entry_equals_the_resident_bitwise(cuda, label):
+    """Where both designs hold the layout, their launch functions give the
+    same bits, and each counts its own launches."""
+    ports, S, B, shared, transpose = MESH_CASES[label]
+    layout, phases, diag, x = _mesh_inputs(ports, S, B, shared, len(label),
+                                           cuda)
+    before = dict(mesh.mesh_apply_stacked.design_launches)
+    y_s = mesh.launch_streamed(layout, phases, diag, x, transpose)
+    y_r = mesh.launch_resident(layout, phases, diag, x, transpose)
+    assert mesh.mesh_apply_stacked.design_launches == {
+        k: v + 1 for k, v in before.items()}
+    torch.cuda.synchronize()
+    assert torch.equal(y_s, y_r)
+
+
+def test_mesh_entries_refuse_grad_on_the_card(cuda):
+    """The mesh kernels have no backward: a CUDA input that requires grad
+    raises while grad is enabled, and passes under ``no_grad``."""
+    layout, phases, diag, x = _mesh_inputs(1024, 1, 2, True, 0, cuda)
+    phases.requires_grad_()
+    with pytest.raises(ValueError, match="no backward"):
+        ops.mesh_apply(layout, phases[0], diag[0], x)
+    with torch.no_grad():
+        y = ops.mesh_apply(layout, phases[0], diag[0], x)
+    assert torch.equal(y, photonic.mesh_apply(layout, phases[0].detach(),
+                                              diag[0], x))
+
+
+def test_prepare_params_is_one_grouped_launch_as_plain(cuda):
+    """tonn's ``prepare_params`` (serving's load, the sequential ZO path)
+    is one ``mesh_densify_stacked`` launch on the card, bit-equal to the
+    plain per-matrix densification it replaced
+    (``prepare_params_plain``), noise and 8-bit phases on."""
+    cfg = pinn.PINNConfig(hidden=1024, mode="tonn", tt_L=4,
+                          noise=NoiseModel(enabled=True),
+                          quant=quant_lib.QuantConfig(enabled=True,
+                                                      dtype=None,
+                                                      phase_bits=8))
+    model = pinn.TensorPinn(cfg)
+    params = to_device(model.init(counter_generator(0)), cuda)
+    noise = to_device(model.sample_noise(counter_generator(0, 99)), cuda)
+    before = mesh.mesh_densify_stacked.launches
+    with torch.no_grad():
+        prepared, eff = model.prepare_params(params, noise)
+    assert mesh.mesh_densify_stacked.launches == before + 1 and eff is None
+    plain, _ = model.prepare_params_plain(params, noise)
+    torch.cuda.synchronize()
+    for i in (0, 1):
+        for a, b in zip(prepared[f"cores{i}"], plain[f"cores{i}"]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("hidden", [64, 1024])
+def test_onn_zo_step_on_the_card_matches_the_cpu(cuda, hidden):
+    """onn's stacked FD stencil and (P,) losses on the card against the
+    same params, ξ, batch and noise through the plain path on the CPU.
+    Each stencil pass runs six stacked meshes: at hidden 1024 two resident
+    (layer 0's 21-port V mesh, on the rows and on the identity columns)
+    and four streamed; at hidden 64 all six resident."""
+    cfg = pinn.PINNConfig(hidden=hidden, mode="onn", deriv="fd_fast",
+                          use_fused_kernel=True,
+                          noise=NoiseModel(enabled=True))
+    model = pinn.TensorPinn(cfg)
+    params = model.init(counter_generator(0))
+    noise = model.sample_noise(counter_generator(0, 99))
+    xt = model.problem.sample_collocation(counter_generator(1), 96)
+    n = 3 if hidden == 64 else 1        # the CPU's plain 1024-level meshes
+    scfg = zoo.SPSAConfig(num_samples=n)
+    xis = zoo.sample_perturbations(counter_generator(2), params, n,
+                                   model.trainable_mask(params))
+    stacked = zoo.perturbed_stack(params, xis, scfg)
+
+    def step(device):
+        sp, nz = to_device(stacked, device), to_device(noise, device)
+        x = xt.to(device)
+        u = model.fd_u_stencil_stacked(sp, x, model.fd_step, nz)
+        return u.cpu(), pinn.residual_losses_stacked(model, sp, x, nz).cpu()
+
+    before = dict(mesh.mesh_apply_stacked.design_launches)
+    u_card, l_card = step(cuda)
+    torch.cuda.synchronize()
+    after = mesh.mesh_apply_stacked.design_launches
+    streamed = 4 if hidden == 1024 else 0
+    assert {k: after[k] - before[k] for k in after} == {
+        "resident": 2 * (6 - streamed), "streamed": 2 * streamed}
+    u_cpu, l_cpu = step(torch.device("cpu"))
+    assert torch.isfinite(u_card).all() and torch.isfinite(l_card).all()
+    assert (u_card - u_cpu).abs().max() <= 1e-4 * u_cpu.abs().max()
+    np.testing.assert_allclose(l_card.numpy(), l_cpu.numpy(), rtol=1e-1)
 
 
 @pytest.mark.parametrize("hidden,tt_L", [(64, 3), (1024, 4)])
@@ -922,7 +1069,9 @@ def test_bp_step_on_the_card_matches_the_cpu(cuda, mode):
         p = zoo.tree_map(lambda t, m: t.to(device).requires_grad_(m),
                          params, model.trainable_mask(params))
         nz = None if noise is None else to_device(noise, device)
-        out = fn(p, xt.to(device), nz)
+        # tonn: the densification BP differentiates, as the BP step's
+        prepared, nz = model.prepare_params_plain(p, nz)
+        out = fn(prepared, xt.to(device), nz)
         return [g.cpu() for g in torch.autograd.grad(
             out, [t for t in zoo.tree_leaves(p) if t.requires_grad])]
 
@@ -950,9 +1099,10 @@ def test_bp_step_on_the_card_matches_the_cpu(cuda, mode):
 
 
 def test_sequential_zo_step_launches_one_chain_per_layer(cuda):
-    """``--sequential``: each of the N+1 loss evaluations runs the plain FD
-    stencil through two ``tt_contract`` launches; no batched chain and no
-    mesh kernel (the non-stacked densification stays plain)."""
+    """``--sequential``: each of the N+1 loss evaluations densifies the
+    core meshes in one grouped launch and runs the plain FD stencil
+    through two ``tt_contract`` launches; no batched chain and no
+    standalone mesh."""
     cfg = pinn.PINNConfig(hidden=64, mode="tonn", tt_L=3, deriv="fd",
                           noise=NoiseModel(enabled=True))
     model = pinn.TensorPinn(cfg)
@@ -968,5 +1118,5 @@ def test_sequential_zo_step_launches_one_chain_per_layer(cuda):
         loss_fn=lambda p: pinn.residual_loss(model, p, xt, noise))
     torch.cuda.synchronize()
     assert [fn.launches - b for fn, b in zip(counters, before)] == \
-        [2 * 4, 0, 0, 0]
+        [2 * 4, 0, 4, 0]
     assert torch.isfinite(loss)

@@ -160,9 +160,11 @@ def test_init_and_noise_trees_match_jax(mode):
 
 
 def test_unported_modes_raise():
-    for mode in ("onn",):
-        with pytest.raises(NotImplementedError, match=f"{mode}.*item 6b"):
-            tpinn.TensorPinn(tpinn.PINNConfig(hidden=16, mode=mode))
+    """Every mode of the JAX package is ported (``onn`` since item 6b); a
+    mode neither package has raises and names the four."""
+    assert tpinn.PORTED_MODES == ("dense", "onn", "tt", "tonn")
+    with pytest.raises(ValueError, match="unknown mode 'xnn'.*onn"):
+        tpinn.TensorPinn(tpinn.PINNConfig(hidden=16, mode="xnn"))
 
 
 # ------------------------------------------------------------------- forward

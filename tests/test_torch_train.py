@@ -156,7 +156,8 @@ def test_resume_redraws_the_same_perturbations(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--pinn-mode", "onn"], "6b"), (["--estimator", "stein"], 8),
+    (["--pinn-mode", "onn", "--optimizer", "adamw"], "6c"),
+    (["--estimator", "stein"], 8),
     (["--term-weight", "residual=2"], 8), (["--bc-weight", "2"], 8),
     (["--estimator", "spectral"], 9), (["--spectral-points", "8"], 9),
     (["--coeff-range", "lam=0.05:0.1"], 10), (["--coeff-dist", "uniform"], 10),
