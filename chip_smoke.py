@@ -64,18 +64,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 phases → cores), the 16 ``torch.matmul`` calls of the same
                 meshes made dense: each mesh's feed against its per-entry
                 unitary.
-  6b. mesh-wide — ``mesh_apply_stacked``'s streamed design (the layouts
-                whose tables pass shared memory: onn's 1024-port meshes)
-                against ``photonic.mesh_apply_stacked`` on the card bit for
-                bit: 1024 ports transposed and not, x shared (100 and 21
-                rows) and per entry (S = 11, 4300 rows: the hidden layer's
-                two launches), a ``decompose_orthogonal`` layout of 256
-                ports (509 levels) and 160 ports at S = 3, B = 777; the
-                streamed launch function on 16- and 64-port layouts bit
-                for bit against the resident one.  At the hidden layer's U
-                mesh it times the call (CUDA events), the kernel alone
-                (``kernel_device_ms``), the plain version and ``torch.bmm``
-                against the 11 unitaries made dense (TF32 off).
+  6b. mesh-wide — ``mesh_apply_stacked`` on the layouts whose tables pass
+                shared memory (onn's 1024-port meshes), through the route
+                ``mesh_apply.wide_route`` picks and each route forced: route
+                A (``warp_rows``) and the owner walk bit for bit against
+                ``photonic.mesh_apply_stacked`` on the card, route B
+                (``dense``, a 3xTF32 product) within ``1e-5·max|plain| +
+                1e-6``: 1024 ports transposed and not, x shared (100 and 21
+                rows, layer 0's launches) and per entry (S = 11, 4300 rows:
+                the hidden layer's two launches), a ``decompose_orthogonal``
+                layout of 256 ports (509 levels), 160 ports at S = 3, B =
+                777, a 160-port layout whose pairs are not adjacent (the
+                owner walk by dispatch); route A and the owner walk on 16-
+                and 64-port layouts bit for bit against the resident
+                design.  At the hidden layer's U mesh it times the dispatch
+                (route B), route A and the owner walk forced (CUDA events,
+                and each one's kernels alone in a trace that starts on a
+                fill: ``kernel_device_ms``), the plain version and
+                ``torch.bmm`` against the 11 unitaries made dense (TF32
+                off); layer 0's route A launches alone.
   7. train    — the port's trainer (``repro_torch.launch.train.main``) on
                 the card: the paper's TONN_ONCHIP_FUSED (hjb-20d, tonn,
                 hidden 1024, noise on), N = 10, batch 100, 50 steps and a
@@ -216,20 +223,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
  16. train-onn — the paper's ONN baseline (``ONN_ONCHIP``: hjb-20d, onn,
                 hidden 1024, noise on) through the trainer, fused ZO with
                 N = 10, batch 100, 10 steps and a checkpoint.  Checks: finite
-                losses and val MSE, the ±1 buffers bit-unchanged, exactly 2
-                resident and 4 streamed ``mesh_apply_stacked`` launches a
-                step (1 and 3 per validation forward), no TT chain and no
-                grouped densification; one step's stacked stencil u and
-                losses card vs CPU on the first 3 entries of the stack (u
-                within 1e-4 of max|u|, losses rtol 1e-1); the checkpoint
-                serves without ``hw_noise=``, equal to ``model.u`` (1e-6).
-                Times a ZO step (CUDA events, a traced window of 5).  Then 2
-                ``--sequential`` steps: 44 meshes a step (11 resident, 33
-                streamed), finite losses; times a sequential step.
+                losses and val MSE, the ±1 buffers bit-unchanged, the
+                ``mesh_apply_stacked`` launches of each design and route a
+                step (2 resident; layer 0's 1024-port U mesh on the 100
+                rows and 21 columns by route A; the hidden layer's V and U
+                on 4300 rows by route B) and per validation forward (1000
+                rows), no TT chain and no grouped densification; one step's
+                stacked stencil u and losses card vs CPU on the first 3
+                entries of the stack (u within 1e-4 of max|u|, losses rtol
+                1e-1); the checkpoint serves without ``hw_noise=``, equal to
+                ``model.u`` (1e-6).  Times a ZO step (CUDA events, a traced
+                window of 5).  Then 2 ``--sequential`` steps: 44 meshes a
+                step (11 resident, 33 wide on 4300 rows), finite losses;
+                times a sequential step.
  17. serve-onn — an engine over a fresh onn solver (hjb-20d, hidden 1024,
                 noise on): served u against a direct ``model.u`` (rtol =
-                atol = 1e-6) and the CPU (1e-5), 1 resident and 3 streamed
-                meshes a program run; times a full-pool program.
+                atol = 1e-6) and the CPU (1e-5), 1 resident and 3 wide
+                meshes (the routes of a 2048-row pool) a program run; times
+                a full-pool program.
  18. report   — one ``{"kernels": [...]}`` line, the card's name and power
                 limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -258,6 +269,10 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
+# 67 TFLOP/s counts an FMA as two operations; a product or a sum rounded on
+# its own (the mesh kernels' bit-equal Givens form) takes one issue slot
+PEAK_F32_ISSUE = PEAK_F32_FLOPS / 2
 
 
 def _time_ms(fn, iters: int, warmup: int = 5) -> float:
@@ -623,7 +638,7 @@ def phase_mesh(device) -> dict:
             # level plus the diag product
             t_bytes = 4 * (x_elems + 2 * S * L * ports + L * ports
                            + S * ports + S * B * ports) / PEAK_BYTES_PER_S
-            t_ops = S * B * ports * (3 * L + 1) / PEAK_F32_FLOPS
+            t_ops = S * B * ports * (3 * L + 1) / PEAK_F32_ISSUE
             row["bound_ms"], row["bound_by"] = (
                 (t_bytes * 1e3, "bytes") if t_bytes >= t_ops
                 else (t_ops * 1e3, "operations"))
@@ -634,10 +649,11 @@ def phase_mesh(device) -> dict:
 
 
 def _mesh_bound(layout, S: int, B: int, shared: bool) -> tuple:
-    """(bound_ms, bound_by) of one standalone mesh call: x (read once,
-    shared or per entry), y written once, and the phases, diag and plan
-    tables (slot, sign, perm, owner) read once, against 3 f32 operations
-    per element and level (two products and a sum, unfused) plus the diag
+    """(bound_ms, bound_by) of one standalone mesh call in the Givens form
+    (route A, the owner walk): x (read once, shared or per entry), y
+    written once, and the phases, diag and plan tables (slot, sign, perm,
+    owner) read once, against 3 f32 operations per element and level (two
+    products and a sum, unfused, each an issue slot) plus the diag
     product."""
     from repro_torch.core import photonic
     P, L = layout.ports, layout.levels
@@ -645,42 +661,88 @@ def _mesh_bound(layout, S: int, B: int, shared: bool) -> tuple:
     words = ((1 if shared else S) * B * P + S * B * P + S * L * layout.slots
              + S * P + 3 * L * P + L * items)
     t_bytes = 4 * words / PEAK_BYTES_PER_S * 1e3
-    t_ops = S * B * P * (3 * L + 1) / PEAK_F32_FLOPS * 1e3
+    t_ops = S * B * P * (3 * L + 1) / PEAK_F32_ISSUE * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _dense_bound(layout, S: int, B: int, shared: bool) -> tuple:
+    """(bound_ms, bound_by) of one route B call: the densification (P
+    identity rows per entry in the Givens form, unfused operations at the
+    issue rate) plus three TF32 products of 2·S·B·P² FLOPs at the tensor
+    cores' rate, against x and y, the phases, diag and plan tables and the
+    (S, P, P) scratch written and read once."""
+    P, L = layout.ports, layout.levels
+    words = ((1 if shared else S) * B * P + S * B * P + 2 * S * P * P
+             + S * L * layout.slots + S * P + 3 * L * P)
+    t_bytes = 4 * words / PEAK_BYTES_PER_S * 1e3
+    t_ops = (S * P * P * (3 * L + 1) / PEAK_F32_ISSUE
+             + 3 * 2 * S * B * P * P / PEAK_TF32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # label -> (layout, ports, S, rows, shared x, transpose, entry): onn's
-# 1024-port meshes at a ZO step's launches (layer 0's U mesh on the 100
-# rows, the columns' transposed feed, the hidden layer's V transposed and U
-# on 11 x 4300 rows per entry: "hidden-u" is the main one), a
-# decompose_orthogonal layout, 160 ports off every tile, and the streamed
-# launch function on layouts the resident design holds too
+# 1024-port meshes at a ZO step's launches (the hidden layer's U and V
+# transposed on 11 x 4300 rows per entry; layer 0's U mesh on the 100 rows
+# and the columns' transposed feed), a decompose_orthogonal layout, 160
+# ports off every tile, a layout whose pairs are not adjacent, and route A
+# and the owner walk on layouts the resident design holds too.  entry:
+# "dispatch" (the route wide_route picks, given beside it), a route forced,
+# or "resident" (route A and the owner walk against the resident design).
+# "hidden-u" is the main case: route B's row; "hidden-u-warp-rows" route
+# A's.
 MESH_WIDE_CASES = {
-    "hidden-u": ("rect", 1024, 11, 4300, False, False, "dispatch"),
-    "hidden-v-tr": ("rect", 1024, 11, 4300, False, True, "dispatch"),
-    "u1024-shared-100": ("rect", 1024, 11, 100, True, False, "dispatch"),
-    "u1024-shared-21-tr": ("rect", 1024, 11, 21, True, True, "dispatch"),
-    "reck256-per-entry": ("reck", 256, 3, 300, False, False, "dispatch"),
-    "p160-777": ("rect", 160, 3, 777, False, False, "dispatch"),
-    "p16-streamed-vs-resident": ("rect", 16, 11, 100, True, True, "both"),
-    "p64-streamed-vs-resident": ("rect", 64, 3, 37, False, False, "both"),
+    "hidden-u": ("rect", 1024, 11, 4300, False, False, "dispatch:dense"),
+    "hidden-u-warp-rows": ("rect", 1024, 11, 4300, False, False,
+                           "warp_rows"),
+    "hidden-u-owner-walk": ("rect", 1024, 11, 4300, False, False,
+                            "owner_walk"),
+    "hidden-v-tr": ("rect", 1024, 11, 4300, False, True, "dispatch:dense"),
+    "u1024-shared-100": ("rect", 1024, 11, 100, True, False,
+                         "dispatch:warp_rows"),
+    "u1024-shared-21-tr": ("rect", 1024, 11, 21, True, True,
+                           "dispatch:warp_rows"),
+    "reck256-per-entry": ("reck", 256, 3, 300, False, False, "warp_rows"),
+    "reck256-dense-tr": ("reck", 256, 3, 400, False, True, "dispatch:dense"),
+    "p160-777": ("rect", 160, 3, 777, False, False, "dispatch:dense"),
+    "p160-777-warp-rows": ("rect", 160, 3, 777, False, False, "warp_rows"),
+    "p160-not-adjacent": ("skew", 160, 3, 200, False, True,
+                          "dispatch:owner_walk"),
+    "p16-vs-resident": ("rect", 16, 11, 100, True, True, "resident"),
+    "p64-vs-resident": ("rect", 64, 3, 37, False, False, "resident"),
 }
+# the timed cases: (ms calls, kernel_device_ms traced)
+MESH_WIDE_TIMED = ("hidden-u", "hidden-u-warp-rows", "hidden-u-owner-walk",
+                   "u1024-shared-100", "u1024-shared-21-tr")
+
+
+def skew_layout(ports: int):
+    """A layout of ``ports`` levels whose pairs are (a, a+2): too deep for
+    the resident design at 160 ports, and no route A's."""
+    from repro_torch.core import photonic
+    ops = [(a, a + 2) for c in range(2 * ports)
+           for a in range(c % 4, ports - 2, 4)]
+    return photonic.schedule_ops(ports, ops)
 
 
 def phase_mesh_wide(device) -> dict:
-    """The streamed design of ``mesh_apply_stacked`` against the plain
-    version on the card, bit for bit, and against the resident design
-    where both hold the layout."""
+    """The wide layouts of ``mesh_apply_stacked`` against the plain version
+    on the card: route A and the owner walk bit for bit, route B within
+    the f32 bound; route A and the owner walk against the resident design
+    where it holds the layout."""
     import numpy as np
     import torch
     from repro_torch.core import photonic
     from repro_torch.kernels import mesh_apply as mesh
 
-    results = {}
+    launch = {"warp_rows": mesh.launch_warp_rows, "dense": mesh.launch_dense,
+              "owner_walk": mesh.launch_owner_walk}
+    results, hidden = {}, {}
     for i, (label, (kind, ports, S, B, shared, transpose, entry)) in \
             enumerate(MESH_WIDE_CASES.items()):
         if kind == "rect":
             layout = photonic.rectangular_layout(ports)
+        elif kind == "skew":
+            layout = skew_layout(ports)
         else:
             q, _ = np.linalg.qr(np.random.RandomState(ports)
                                 .standard_normal((ports, ports)))
@@ -694,51 +756,78 @@ def phase_mesh_wide(device) -> dict:
                         generator=gen).to(device)
         row = {"case": label, "ports": ports, "levels": layout.levels,
                "slots": layout.slots, "S": S, "rows": B, "shared_x": shared,
-               "transpose": transpose,
-               "design": mesh.mesh_design(layout)}
-        if entry == "dispatch":
-            if row["design"] != "streamed":
-                raise AssertionError(f"{label}: the {ports}-port layout "
-                                     f"took the {row['design']} design")
-            y = mesh.mesh_apply_stacked(layout, phases, diag, x, transpose)
-            want = photonic.mesh_apply_stacked(layout, phases, diag, x,
-                                               transpose)
-            against = "plain"
-        else:
-            y = mesh.launch_streamed(layout, phases, diag, x, transpose)
-            want = mesh.launch_resident(layout, phases, diag, x, transpose)
-            against = "resident"
-            plain = photonic.mesh_apply_stacked(layout, phases, diag, x,
-                                                transpose)
-            _check_close("mesh_apply_stacked (streamed)", label, y, plain)
-        err, scale = _check_close("mesh_apply_stacked (streamed)", label, y,
-                                  want)
-        differ = int((y != want).sum())
-        if differ:
-            raise AssertionError(f"the streamed mesh at {label}: {differ} "
-                                 f"elements differ from the {against} "
-                                 "version on the card")
-        row.update({"against": against, "max_abs_err": err,
-                    "max_abs_plain": scale, "bitwise_equal": True,
-                    "rows_per_block": mesh.stream_rows(
-                        layout, S, B, torch.cuda.get_device_properties(
-                            device).multi_processor_count)})
-        if label == "hidden-u":
-            call = (lambda: mesh.mesh_apply_stacked(layout, phases, diag, x,
-                                                    transpose))
-            row["ms"] = _time_ms(call, 10, warmup=2)
-            row["kernel_device_ms"] = _profile(call)["device_ms"]
-            row["plain_ms"] = _time_ms(lambda: photonic.mesh_apply_stacked(
-                layout, phases, diag, x, transpose), 2, warmup=1)
-            # the library yardstick: one bmm against the 11 unitaries made
-            # dense (y[s] = x[s] @ m[s]), TF32 off
-            eye = torch.eye(ports, device=device)
-            m = photonic.mesh_apply_stacked(layout, phases, diag, eye,
+               "transpose": transpose, "design": mesh.mesh_design(layout),
+               "wide_route": mesh.wide_route(layout, S, B)}
+        plain = photonic.mesh_apply_stacked(layout, phases, diag, x,
                                             transpose)
-            row["library_ms"] = _time_ms(lambda: torch.bmm(x, m), 10,
-                                         warmup=2)
-            row["bound_ms"], row["bound_by"] = _mesh_bound(layout, S, B,
-                                                           shared)
+        if entry == "resident":
+            want = mesh.launch_resident(layout, phases, diag, x, transpose)
+            _check_close("mesh_apply_stacked (resident)", label, want, plain)
+            routes = ("warp_rows", "owner_walk")
+        else:
+            want = plain
+            route = entry.split(":")[-1]
+            if entry.startswith("dispatch") and row["wide_route"] != route:
+                raise AssertionError(f"{label}: the {ports}-port layout at "
+                                     f"S {S}, {B} rows took "
+                                     f"{row['wide_route']}, not {route}")
+            routes = (route,)
+        for route in routes:
+            before = dict(mesh.mesh_apply_stacked.design_launches)
+            y = (mesh.mesh_apply_stacked(layout, phases, diag, x, transpose)
+                 if entry.startswith("dispatch")
+                 else launch[route](layout, phases, diag, x, transpose))
+            after = mesh.mesh_apply_stacked.design_launches
+            if {k: after[k] - before[k] for k in after} != {
+                    k: int(k == route) for k in after}:
+                raise AssertionError(f"{label}: one {route} call counted "
+                                     f"{after} after {before}")
+            err, scale = _check_close(f"mesh_apply_stacked ({route})", label,
+                                      y, want)
+            differ = int((y != want).sum())
+            if differ and route != "dense":
+                raise AssertionError(f"the {route} mesh at {label}: {differ} "
+                                     "elements differ from the "
+                                     f"{'plain' if want is plain else 'resident'}"
+                                     " version on the card")
+            row[route] = {"max_abs_err": err, "max_abs_plain": scale,
+                          "bitwise_equal": not differ}
+        row["against"] = "resident" if entry == "resident" else "plain"
+        row["max_abs_err"] = max(row[r]["max_abs_err"] for r in routes)
+        if label in MESH_WIDE_TIMED:
+            route = routes[0]
+            call = (lambda: launch[route](layout, phases, diag, x, transpose))
+            fill = torch.empty(1 << 20, device=device)
+            slow = route == "owner_walk"
+            row["ms"] = _time_ms(call, 3 if slow else 10, warmup=1 if slow
+                                 else 2)
+            # the profiler may drop a window's first kernel: a fill leads
+            traced = _profile(call, match="mesh_",
+                              lead=lambda: fill.fill_(0.0))
+            row["kernel_device_ms"] = traced["match_ms"]
+            row["kernel_each_ms"] = traced["match_each_ms"]
+            row["rows_config"] = (
+                list(mesh.rows_config(layout, S, ports if route == "dense"
+                                      else B, mesh._sm_count(device)))
+                if route != "owner_walk" else mesh.stream_rows(
+                    layout, S, B, mesh._sm_count(device)))
+            row["bound_ms"], row["bound_by"] = (
+                _dense_bound if route == "dense" else _mesh_bound)(
+                    layout, S, B, shared)
+            if label.startswith("hidden-u"):
+                if not hidden:
+                    hidden["plain_ms"] = _time_ms(
+                        lambda: photonic.mesh_apply_stacked(
+                            layout, phases, diag, x, transpose), 2, warmup=1)
+                    # the library yardstick: one bmm against the 11
+                    # unitaries made dense (y[s] = x[s] @ m[s]), TF32 off
+                    eye = torch.eye(ports, device=device)
+                    m = photonic.mesh_apply_stacked(layout, phases, diag,
+                                                    eye, transpose)
+                    hidden["library_ms"] = _time_ms(lambda: torch.bmm(x, m),
+                                                    10, warmup=2)
+                    del m
+                row.update(hidden)
         results[label] = row
         print(f"[mesh-wide] {json.dumps(row)}", flush=True)
     return results
@@ -833,10 +922,11 @@ def _dense_meshes(pms, ps, device) -> list:
 def _densify_bound(pms, ps, nzs, dac: bool) -> tuple:
     """(bound_ms, bound_by) of one grouped call: its inputs (phases,
     sigma, diag buffers, chip noise, the plan's slot / sign / perm) read
-    once and its cores written once, against its f32 operations (DAC snap
-    3 and noise model 5 per phase; sin, cos and the sign product per wire
-    and level, each counted as one; 3 per element per level; the diag and
-    sigma scaling)."""
+    once and its cores written once, against its f32 operations, each
+    rounded on its own and so one issue slot (DAC snap 3 and noise model 5
+    per phase; sin, cos and the sign product per wire and level, each
+    counted as one; 3 per element per level; the diag and sigma
+    scaling)."""
     words = ops = 0
     for pm, p, nz in zip(pms, ps, nzs):
         S = p["sigma"].shape[0]
@@ -849,7 +939,7 @@ def _densify_bound(pms, ps, nzs, dac: bool) -> tuple:
                         + 3 * rows * lay.ports * lay.levels)
         ops += 3 * S * pm.in_dim * pm.out_dim
     t_bytes = 4 * words / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    t_ops = ops / PEAK_F32_ISSUE * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2032,14 +2122,28 @@ def _run_onn(argv: list) -> tuple:
     return res, launches, wall
 
 
-def _onn_want(stacked_evals: int, single_evals: int) -> dict:
-    """Launches of onn runs: a stacked stencil pass is 2 resident (layer
-    0's 21-port V mesh on the rows and on the identity columns) and 4
-    streamed meshes; a single forward 1 resident and 3 streamed."""
+ONN_VAL_POINTS = 1000   # launch/train.py's validation set
+
+
+def _onn_want(stacked_evals: int, forwards: dict) -> dict:
+    """Launches of onn runs at hidden 1024 with batch 100: a stacked
+    stencil pass (S = 11) is 2 resident meshes (layer 0's 21-port V mesh
+    on the rows and on the identity columns) and 4 wide ones (layer 0's
+    1024-port U mesh on the 100 rows and on the 21 columns, the hidden
+    layer's V and U on 43 x 100 rows); a single forward over n points
+    (``forwards``: n -> how many) 1 resident and 3 wide meshes on n rows.
+    Each wide mesh counts under the route ``wide_route`` picks."""
+    from repro_torch.core import photonic
+    from repro_torch.kernels import mesh_apply as mesh
+    wide = photonic.rectangular_layout(1024)
     want = dict.fromkeys(ONN_COUNTED, 0)
-    want["resident"] = 2 * stacked_evals + single_evals
-    want["streamed"] = 4 * stacked_evals + 3 * single_evals
-    want["mesh_apply_stacked"] = want["resident"] + want["streamed"]
+    want.update(dict.fromkeys(mesh.DESIGNS, 0))
+    want["resident"] = 2 * stacked_evals + sum(forwards.values())
+    for S, rows, count in ([(11, 100, stacked_evals), (11, 21, stacked_evals),
+                            (11, 4300, 2 * stacked_evals)]
+                           + [(1, n, 3 * k) for n, k in forwards.items()]):
+        want[mesh.wide_route(wide, S, rows)] += count
+    want["mesh_apply_stacked"] = sum(want[d] for d in mesh.DESIGNS)
     return want
 
 
@@ -2064,7 +2168,7 @@ def phase_train_onn(device) -> dict:
     res, launches, wall = _run_onn(base + [
         "--steps", str(steps), "--log-every", str(log_every), "--ckpt-dir",
         ckpt, "--ckpt-every", str(steps)])
-    want = _onn_want(steps, _val_evals(steps, log_every))
+    want = _onn_want(steps, {ONN_VAL_POINTS: _val_evals(steps, log_every)})
     if launches != want:
         raise AssertionError(f"onn: {launches} over {steps} steps; expected "
                              f"{want}")
@@ -2136,8 +2240,8 @@ def phase_train_onn(device) -> dict:
     seq, seq_launches, seq_wall = _run_onn(base + [
         "--steps", str(seq_steps), "--log-every", str(seq_log),
         "--sequential"])
-    seq_want = _onn_want(0, (n + 1) * seq_steps
-                         + _val_evals(seq_steps, seq_log))
+    seq_want = _onn_want(0, {43 * batch: (n + 1) * seq_steps,
+                             ONN_VAL_POINTS: _val_evals(seq_steps, seq_log)})
     if seq_launches != seq_want:
         raise AssertionError(f"onn sequential: {seq_launches} over "
                              f"{seq_steps} steps; expected {seq_want}")
@@ -2153,9 +2257,9 @@ def phase_train_onn(device) -> dict:
                                                  seq.hw_noise))
 
     out = {"steps": steps, "batch": batch, "zo_samples": n,
-           "launches": launches, "launches_per_step": {
-               "resident": 2, "streamed": 4, "validation_forwards":
-                   _val_evals(steps, log_every)},
+           "launches": launches,
+           "launches_per_step": _onn_want(1, {}),
+           "validation_forwards": _val_evals(steps, log_every),
            "losses": [float(v) for v in losses], "val_mse": res.val_mse,
            "zo_step_ms": timed["zo_step_ms"][0],
            "zo_step_trace": timed["trace"],
@@ -2167,8 +2271,7 @@ def phase_train_onn(device) -> dict:
            "served_vs_direct_max_abs": float(np.abs(req.out - direct).max()),
            "sequential": {
                "steps": seq_steps, "launches": seq_launches,
-               "launches_per_step": {"resident": n + 1,
-                                     "streamed": 3 * (n + 1)},
+               "launches_per_step": _onn_want(0, {43 * batch: n + 1}),
                "losses": [float(v) for v in seq.losses],
                "val_mse": seq.val_mse,
                "seq_step_ms": _time_ms(seq_step, 2, warmup=1),
@@ -2185,7 +2288,7 @@ ONN_HIDDEN = 1024       # the served onn solver's width (ONN_ONCHIP)
 def phase_serve_onn(device) -> dict:
     """An engine over a fresh onn solver (hjb-20d, hidden 1024, noise on):
     served u against a direct ``model.u`` and the CPU, 4 meshes a program
-    run (1 resident, 3 streamed)."""
+    run (1 resident, 3 wide on the pool's rows)."""
     import numpy as np
     import torch
     from repro_torch.core import pinn
@@ -2211,9 +2314,12 @@ def phase_serve_onn(device) -> dict:
     wall = time.perf_counter() - t0
     launches = dict(mesh.mesh_apply_stacked.design_launches)   # ends
     runs = engine.stats["program_runs"]
-    if launches != {"resident": runs, "streamed": 3 * runs}:
+    pool = engine.slots * engine.slot_points
+    want = {d: n * runs for d, n in _onn_want(0, {pool: 1}).items()
+            if d in mesh.DESIGNS}
+    if launches != want:
         raise AssertionError(f"onn serving: {launches} over {runs} program "
-                             "runs; expected 1 resident and 3 streamed each")
+                             f"runs; expected {want}")
     worst = cpu_err = 0.0
     cpu_params = to_device(solver.params, torch.device("cpu"))
     cpu_noise = to_device(solver.noise, torch.device("cpu"))
@@ -2232,8 +2338,7 @@ def phase_serve_onn(device) -> dict:
             np.testing.assert_allclose(r.out, plain, rtol=1e-5, atol=1e-5)
             cpu_err = max(cpu_err, float(np.abs(r.out - plain).max()))
     pool = solver.problem.sample_collocation(
-        torch.Generator().manual_seed(1),
-        engine.slots * engine.slot_points).to(device)
+        torch.Generator().manual_seed(1), pool).to(device)
     with torch.no_grad():
         program_ms = _time_ms(lambda: solver.model.u(solver.params, pool,
                                                      solver.noise), 5, 1)
@@ -2591,38 +2696,62 @@ def main() -> int:
           f"ZO step (CUDA events; host median "
           f"{trained_seq['host_step_ms_median']:.3f} ms), val MSE "
           f"{trained_seq['val_mse']:.4e} on {card}", flush=True)
-    main_w = wide["hidden-u"]
-    entry_w = {"name": "mesh_apply_stacked (streamed)", "route": "cuda",
+    # row 7's two routes: route A (warp rows; on the main path layer 0's
+    # 1024-port U mesh) and route B (dense; the hidden layer's meshes),
+    # each against the plain version at the hidden layer's U mesh; the
+    # owner walk, off the main path now, beside route A
+    main_a, main_d = wide["hidden-u-warp-rows"], wide["hidden-u"]
+    walk = wide["hidden-u-owner-walk"]
+    shape_w = ("1024-port rectangular mesh (1024 levels, 512 slots), S = "
+               "11, x (11, 4300, 1024) per entry: the hidden layer's U mesh "
+               "of an onn ZO step (library: torch.bmm against the 11 "
+               "unitaries made dense)")
+    wide_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "kernel_device_ms", "kernel_each_ms", "rows_config")
+    entry_a = {"name": "mesh_apply_stacked (warp rows, route A)",
+               "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/mesh_apply.cu",
                "replaces": "src/repro/kernels/mesh_apply.py:93 (and the "
                            "jnp gather scan of src/repro/kernels/ops.py:139 "
                            "that the wide meshes took)",
-               "design": "streamed",
-               "launches": trained_onn["launches"]["streamed"],
-               "max_abs_err": max(r["max_abs_err"] for r in wide.values()),
-               "ms": main_w["ms"], "plain_ms": main_w["plain_ms"],
-               "bound_ms": main_w["bound_ms"], "bound_by": main_w["bound_by"],
-               "library_ms": main_w["library_ms"],
-               "kernel_device_ms": main_w["kernel_device_ms"],
-               "rows_per_block": main_w["rows_per_block"],
-               "shape": "1024-port rectangular mesh (1024 levels, 512 "
-                        "slots), S = 11, x (11, 4300, 1024) per entry: the "
-                        "hidden layer's U mesh of an onn ZO step (library: "
-                        "torch.bmm against the 11 unitaries made dense)",
-               "cases": list(wide.values())}
+               "design": "warp_rows",
+               "launches": trained_onn["launches"]["warp_rows"],
+               "max_abs_err": max(r["warp_rows"]["max_abs_err"]
+                                  for r in wide.values() if "warp_rows" in r),
+               **{k: main_a[k] for k in wide_keys},
+               "layer0_kernel_device_ms": {
+                   k: wide[k]["kernel_device_ms"]
+                   for k in ("u1024-shared-100", "u1024-shared-21-tr")},
+               "owner_walk": {"launches": trained_onn["launches"][
+                   "owner_walk"], **{k: walk[k] for k in wide_keys}},
+               "shape": shape_w}
+    entry_d = {"name": "mesh_apply_stacked (dense, route B)",
+               "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/mesh_apply.cu",
+               "replaces": "src/repro/kernels/mesh_apply.py:93 (and the "
+                           "jnp gather scan of src/repro/kernels/ops.py:139 "
+                           "that the wide meshes took)",
+               "design": "dense",
+               "launches": trained_onn["launches"]["dense"],
+               "max_abs_err": max(r["dense"]["max_abs_err"]
+                                  for r in wide.values() if "dense" in r),
+               **{k: main_d[k] for k in wide_keys},
+               "shape": shape_w, "cases": list(wide.values())}
     entry_m["standalone"]["launches_onn"] = trained_onn["launches"][
         "resident"]
     print(f"[train-onn] {trained_onn['zo_step_ms']:.3f} ms per onn ZO step "
           f"(CUDA events; traced: "
           f"{trained_onn['zo_step_trace']['kernels_per_call']:.0f} kernels "
           f"a step, busy share {trained_onn['zo_step_trace']['busy_share']})"
-          f", val MSE {trained_onn['val_mse']:.4e}; streamed mesh "
-          f"{main_w['ms']:.3f} ms per hidden-layer call (bound "
-          f"{main_w['bound_ms']:.4f} ms, torch.bmm "
-          f"{main_w['library_ms']:.4f} ms); served program "
+          f", val MSE {trained_onn['val_mse']:.4e}; wide mesh "
+          f"{main_d['ms']:.3f} ms per hidden-layer call by route B (bound "
+          f"{main_d['bound_ms']:.4f} ms), {main_a['ms']:.3f} ms by route A "
+          f"(bound {main_a['bound_ms']:.4f} ms), torch.bmm "
+          f"{main_d['library_ms']:.4f} ms; served program "
           f"{served_onn['program_ms']:.3f} ms on {card}", flush=True)
     print(json.dumps({"kernels": [entry, entry_b, entry_m, entry_q,
-                                  entry_f, entry_g, entry_w]}), flush=True)
+                                  entry_f, entry_g, entry_a, entry_d]}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -195,7 +195,8 @@ def mesh_owner_plan(layout: MeshLayout) -> np.ndarray:
     wire in ascending order, padded with −1.  Level c's owner ``a``
     updates ``a`` and its partner ``perm[c, a]`` (itself when unpaired), so
     the owners of a level touch disjoint wires and cover every wire once:
-    the streamed mesh kernel's work list.  Memoized on the layout."""
+    the owner walk's work list (the wide mesh route for layouts whose
+    pairs are not adjacent).  Memoized on the layout."""
     owner = getattr(layout, "_owner_plan", None)
     if owner is not None:
         return owner

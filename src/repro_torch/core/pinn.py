@@ -9,7 +9,9 @@ parametrizations:
                meshes run on the activations, with the chip's noise, in
                every forward (``PhotonicMatrix.apply`` / ``apply_stacked``
                → ``kernels.ops.mesh_apply[_stacked]``; on the card the
-               streamed mesh kernel takes the hidden-width meshes),
+               wide routes of the mesh kernel take the hidden-width
+               meshes: warp rows at small batches, a dense tensor-core
+               product at large ones),
   * ``tt``   — first two layers TT-compressed (digital TT baseline),
   * ``tonn`` — TT-cores whose unfoldings are MZI meshes, the paper's
                proposed hardware; the meshes are densified into plain

@@ -17,14 +17,15 @@
 // precise functions (no __sinf, no --use_fast_math): the ones torch.sin /
 // torch.cos run on the card, so the tables equal the plain version's.
 //
-// Three entries:
+// Entries:
 //   mesh_apply_launch    S stacked meshes of one layout on rows x, shared
 //                        or per entry: grid (row tiles, S), the layout's
 //                        trig and perm tables resident in shared memory
 //                        (the "resident" design).
 //                        core.photonic.mesh_apply_stacked.
-//   mesh_stream_launch   the same function for layouts whose tables do
-//                        not fit a block (the "streamed" design; below).
+//   mesh_rows_launch,    the same function for layouts whose tables do
+//   mesh_product_launch, not fit a block (the wide routes; below).
+//   mesh_stream_launch
 //   mesh_densify_launch  PhotonicMatrix.to_dense_stacked of G matrices at
 //                        once, each written as its TT core: grid (S, G),
 //                        one block per (stack entry, matrix).  A block
@@ -49,31 +50,63 @@
 // 8*in*max(in, out) + 8*levels*(slots + ports) bytes of its larger mesh;
 // the wrappers raise past Hopper's 227 KB per block.
 //
-// The streamed entry also replaces the JAX package's jnp gather scan
-// (repro/kernels/ops.py:139-140), to which the Pallas kernel left the wide
-// meshes: onn's 1024-port meshes have 1024 levels and 512 slots, whose
-// cos, sin and perm tables take 12 MB.  No (levels, ports) table lives in
-// shared memory here: a block holds only its rows, one buffer of
-// rows * ports floats, and walks the levels in order, reading each
-// level's phases and plan (the owner list of core.photonic.mesh_owner_plan,
-// perm, slot, sign) from device memory, where a whole stack's phases
-// (11 x 1024 x 512 f32, 23 MB) and plan tables (4 MB each) stay in the
-// 50 MB L2.  A level is a set of disjoint pairs, so the thread that owns
-// MZI (a, perm[a]) updates both wires in place and one buffer suffices;
-// an unpaired wire owns itself (y = 1*x + (+-0)*x, kept for the plain
-// version's bits).  The trig of level c + 1 (one sinf and one cosf per
-// owner: 513 at 1024 ports) goes into a double-buffered list while the
-// rows take level c, so a level costs one barrier and its trig is paid
-// once per block, shared by the block's rows.
+// The wide meshes (onn's 1024-port layouts, whose cos, sin and perm tables
+// take 12 MB) also replace the JAX package's jnp gather scan
+// (repro/kernels/ops.py:139-140), to which the Pallas kernel left them.
+// kernels/mesh_apply.py::wide_route picks one of three routes from the
+// layout, the stack size and the rows per entry:
 //
-// What bounds the streamed entry: per element and level two shared loads,
-// four products and two sums (3 FLOPs a wire, unfused); at the hidden
-// layer of an onn ZO step (11 x 4300 rows, 1024 levels) 1.49e11 FLOPs,
-// 2.2 ms at the f32 peak, while its bytes (x and y, 387 MB) take 0.12 ms.
-// It is bound by shared-memory traffic and instruction issue, not by
-// device memory.  Rows per block (up to ~49 at 1024 ports) amortize each
-// level's plan reads and trig; the wrapper spreads a small batch over more
-// blocks so every SM gets one (kernels/mesh_apply.py::stream_rows).
+//   warp rows (route A; mesh_rows_launch) — every layout whose levels each
+//     pair adjacent wires (a, a+1) of one parity a % 2 ("brick" levels:
+//     the rectangular and the Reck layouts the repo builds).  A warp holds
+//     R whole rows in registers, lane t wires [t*W, (t+1)*W) (W = 8, 16 or
+//     32, the narrowest with 32*W >= ports).  A level's pairs inside a lane
+//     are register arithmetic in the gather form, y[w] = C*x[w] +
+//     S*x[partner]; the pairs that cross lanes (odd parity only) take one
+//     __shfl_sync each way; nothing is written back and no barrier orders
+//     the levels.  The trig is stored per MZI, not per wire: one brick
+//     entry (cos, s_lo) per pair a lane touches (W/2 + 1 a level), s_lo
+//     the lower wire's signed sine (the upper wire's is -s_lo, exactly),
+//     and a bit per entry for a pair the level leaves out (its wires keep
+//     the plain version's unpaired y = 1*x + (+-0)*x).  The layout's
+//     static half (each entry's slot and sign, the absent bits, each
+//     level's parity) is a plan built once on the host
+//     (kernels/mesh_apply.py::rows_plan); a prologue launch
+//     (mesh_trig_kernel) turns it and the call's phases into every
+//     entry's record once a call.  A block streams the records K levels a
+//     chunk through a ring of 4 chunks in shared memory, one TMA bulk copy
+//     a chunk issued by one thread, one barrier a chunk, and the R rows of
+//     a warp share each entry.  (Building the trig inside each block
+//     instead measured 4-12x slower; per-thread cp.async copies cost 40% of
+//     a small batch's time.)  Bound: 3 unfused f32 operations per wire and
+//     level at the issue rate (an unfused product or sum takes an issue
+//     slot, as an FMA does): 4.44 ms at the hidden layer of an onn ZO
+//     step.
+//   dense (route B; mesh_rows_launch on an identity feed, then
+//     mesh_product_launch) — from 1.5x the ports rows per entry
+//     (kernels/mesh_apply.py::DENSE_MIN_ROWS_PER_PORT):
+//     route A densifies each entry's mesh (row i of M_s = mesh(e_i), diag
+//     and transpose as the call has them) into an (S, P, P) scratch, and a
+//     tensor-core kernel forms y_s = x_s * M_s in 3xTF32 (a = hi + lo, each
+//     a TF32 value; hi*hi + hi*lo + lo*hi summed in f32 by mma.sync
+//     m16n8k8), fed by cp.async, double-buffered.  Not bit-equal to the
+//     plain version: within PERF.md's f32 bound.  Bound: the
+//     densification's operations at the issue rate plus three TF32
+//     products at 495 TFLOP/s, against x, y and the scratch moved once.
+//   owner walk (mesh_stream_launch) — any other layout one row of which
+//     fits a block.  A block holds only its rows, one buffer of
+//     rows * ports floats, and walks the levels in order, reading each
+//     level's phases and plan (the owner list of
+//     core.photonic.mesh_owner_plan, perm, slot, sign) from device memory.
+//     A level is a set of disjoint pairs, so the thread that owns MZI
+//     (a, perm[a]) updates both wires in place and one buffer suffices; an
+//     unpaired wire owns itself.  The trig of level c + 1 goes into a
+//     double-buffered list while the rows take level c: one barrier a
+//     level.  Bound by shared-memory traffic (a 24-byte owner entry, two
+//     loads and two stores per element and level).
+//
+// Routes A and the owner walk round as the plain version does, so they
+// agree with it, and with the resident design, bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -294,7 +327,7 @@ mesh_densify_kernel(const __grid_constant__ MeshGroup grp) {
     dst[i] = r[(i % in) * out + i / in];
 }
 
-// ---------------------------------------------------------------- streamed
+// ------------------------------------------------------------- owner walk
 
 constexpr int kStreamThreads = 1024;
 
@@ -409,6 +442,506 @@ mesh_stream_kernel(const float* __restrict__ x,
     ys[i] = tr ? __fmul_rn(buf[i], dg[i % ports]) : buf[i];
 }
 
+// ------------------------------------------------------------- warp rows
+
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kRowsMaxThreads = 256;
+
+// One level's record for a warp of lane width W: brick entries (cos, s_lo)
+// as float2 [W/2 + 1][32 lanes], one word of absent bits per lane, then
+// the level's mode (and 3 words of padding to 16 bytes).
+// Lane t's entry i joins wires lo = t*W + 2i - p and lo + 1 at a level of
+// parity p: at p = 0 its pairs (2i, 2i+1), i < W/2; at p = 1 entry 0 is
+// the pair across its left edge, entries 1..W/2-1 its pairs (2i-1, 2i) and
+// entry W/2 the pair across its right edge (both lanes of a crossing pair
+// hold the entry).  A block streams the records kStage levels a chunk
+// through a ring of kRing chunks in shared memory, one bulk copy a chunk
+// completing on the chunk slot's mbarrier (after the ring).
+template <int W>
+struct RowsShape {
+  static constexpr int kEntries = W / 2 + 1;
+  static constexpr int kMode = kEntries * 64 + 32;       // the mode word
+  static constexpr int kRecord = kMode + 4;              // floats a level
+  static constexpr int kStage = 128 / W;                 // levels a chunk
+  static constexpr int kRing = 4;                        // chunks in flight
+  static constexpr int kRingFloats = kRing * kStage * kRecord;
+  static constexpr size_t kSmem =
+      kRingFloats * sizeof(float) + kRing * sizeof(uint64_t);
+};
+
+// 16 bytes, or 16 zero bytes where !full (src is not read then)
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool full) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = full ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+
+// Wait until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// `bytes` (a multiple of 16, both ends 16-byte aligned) from global into
+// shared memory by the TMA unit, completing on `bar`
+__device__ __forceinline__ void bulk_copy(unsigned dst, const void* src,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The layout's record plan (kernels/mesh_apply.py::rows_plan), per stored
+// level kPlan int32: a code per brick entry [W/2 + 1][32] — the slot of
+// its phase (bits 0-23), its wire's sign (bits 24-25: 0, +1, -1) and bit
+// 26 set where the entry holds a wire at all — then the absent word of
+// each lane and the level's mode.
+template <int W>
+struct PlanShape {
+  static constexpr int kCodes = RowsShape<W>::kEntries * 32;
+  static constexpr int kPlan = kCodes + 33;
+};
+
+// The prologue: every record of every stack entry, stored level order;
+// grid (levels / 8, S), a warp a level, a lane its entries, in the
+// arithmetic of build_trig: an entry with a wire gets sign != 0 ? cos(ph)
+// : 1 and sign*sin(ph) (negated when transposed) — a pair's lower wire's,
+// or the unpaired wires' 1 and +-0 — and entries past the wires (1, 0);
+// the absent word and the mode are copied from the plan.
+template <int W>
+__global__ void __launch_bounds__(256)
+mesh_trig_kernel(const float* __restrict__ phases,
+                 const int* __restrict__ plan, float* __restrict__ table,
+                 int levels, int slots, int transpose) {
+  using Plan = PlanShape<W>;
+  const int cl = blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  const size_t s = blockIdx.y;
+  if (cl >= levels) return;
+  const float* ph = phases + (s * levels + cl) * slots;
+  const int* code = plan + static_cast<size_t>(cl) * Plan::kPlan;
+  float* rec = table + (s * levels + cl) * RowsShape<W>::kRecord;
+  float2* ent = reinterpret_cast<float2*>(rec);
+#pragma unroll 1
+  for (int i = 0; i < RowsShape<W>::kEntries; ++i) {
+    const int q = code[i * 32 + lane];
+    float c = 1.0f, sn = 0.0f;
+    if (q & (1 << 26)) {
+      const int sc = (q >> 24) & 3;
+      const float sg = sc == 0 ? 0.0f : (sc == 1 ? 1.0f : -1.0f);
+      const float v = ph[q & 0xffffff];
+      c = sg != 0.0f ? cosf(v) : 1.0f;
+      sn = __fmul_rn(sg, sinf(v));
+      if (transpose) sn = -sn;
+    }
+    ent[i * 32 + lane] = make_float2(c, sn);
+  }
+  reinterpret_cast<int*>(rec)[RowsShape<W>::kEntries * 64 + lane] =
+      code[Plan::kCodes + lane];
+  if (lane < 4)
+    reinterpret_cast<int*>(rec + RowsShape<W>::kMode)[lane] =
+        lane == 0 ? code[Plan::kCodes + 32] : 0;
+}
+
+// y = c*x + s*partner for the lower wire of a pair, c*x - s*partner for
+// the upper: the plain version's c*x + (sign*sin)*x[perm], whose upper
+// sine is exactly -s_lo.  An absent entry's wires are unpaired: partner is
+// the wire itself and both take +s.
+__device__ __forceinline__ float rot_lo(float c, float s, float x, float q) {
+  return __fadd_rn(__fmul_rn(c, x), __fmul_rn(s, q));
+}
+
+__device__ __forceinline__ float rot_hi(float c, float s, float x, float q) {
+  return __fsub_rn(__fmul_rn(c, x), __fmul_rn(s, q));
+}
+
+// A pair of a lane's own wires on R rows; with kPartial an absent entry
+// leaves both wires unpaired.
+template <int W, int R, bool kPartial>
+__device__ __forceinline__ void rows_pair(float (&v)[R][W], int j, float2 e,
+                                          bool ab) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float lo = v[r][j], hi = v[r][j + 1];
+    if (kPartial && ab) {
+      v[r][j] = rot_lo(e.x, e.y, lo, lo);
+      v[r][j + 1] = rot_lo(e.x, e.y, hi, hi);
+    } else {
+      v[r][j] = rot_lo(e.x, e.y, lo, hi);
+      v[r][j + 1] = rot_hi(e.x, e.y, hi, lo);
+    }
+  }
+}
+
+// A level of parity 0: pairs (2i, 2i+1), none across lanes.
+template <int W, int R, bool kPartial>
+__device__ __forceinline__ void rows_even(float (&v)[R][W],
+                                          const float2* __restrict__ ent,
+                                          unsigned absent, int lane) {
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i)
+    rows_pair<W, R, kPartial>(v, 2 * i, ent[i * 32 + lane],
+                              (absent >> i) & 1u);
+}
+
+// A level of parity 1: pairs (2i-1, 2i) inside the lane, and its wires 0
+// and W-1 paired across its edges, one shuffle each way.  Full levels take
+// no select: their only unpaired wires are wire 0, whose left partner lane
+// 0 replaces by -x[0] (so rot_hi gives x + s*x), and wire P-1 where it
+// ends a lane (`last`), whose right partner becomes x[W-1].
+template <int W, int R, bool kPartial>
+__device__ __forceinline__ void rows_odd(float (&v)[R][W],
+                                         const float2* __restrict__ ent,
+                                         unsigned absent, int lane,
+                                         bool first, bool last) {
+  constexpr int H = W / 2;
+  float left[R], right[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    left[r] = __shfl_up_sync(kFullMask, v[r][W - 1], 1);
+    right[r] = __shfl_down_sync(kFullMask, v[r][0], 1);
+  }
+  const float2 e0 = ent[lane];
+  const bool ab0 = absent & 1u;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float x0 = v[r][0];
+    if (!kPartial)
+      v[r][0] = rot_hi(e0.x, e0.y, x0, first ? -x0 : left[r]);
+    else
+      v[r][0] = ab0 ? rot_lo(e0.x, e0.y, x0, x0)
+                    : rot_hi(e0.x, e0.y, x0, left[r]);
+  }
+#pragma unroll
+  for (int i = 1; i < H; ++i)
+    rows_pair<W, R, kPartial>(v, 2 * i - 1, ent[i * 32 + lane],
+                              (absent >> i) & 1u);
+  const float2 eh = ent[H * 32 + lane];
+  const bool self = kPartial ? ((absent >> H) & 1u) != 0 : last;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float xl = v[r][W - 1];
+    v[r][W - 1] = rot_lo(eh.x, eh.y, xl, self ? xl : right[r]);
+  }
+}
+
+// One level on the R rows of a warp.  mode: bit 0 the level's parity, bit
+// 1 "partial": some entry is absent where the lane-edge substitution of
+// rows_odd cannot stand in for it, so each pair selects.
+template <int W, int R>
+__device__ __forceinline__ void rows_level(float (&v)[R][W],
+                                           const float2* __restrict__ ent,
+                                           unsigned absent, int mode,
+                                           int lane, bool first, bool last) {
+  switch (mode & 3) {
+    case 0: rows_even<W, R, false>(v, ent, absent, lane); break;
+    case 2: rows_even<W, R, true>(v, ent, absent, lane); break;
+    case 1: rows_odd<W, R, false>(v, ent, absent, lane, first, last); break;
+    default: rows_odd<W, R, true>(v, ent, absent, lane, first, last);
+  }
+}
+
+// Route A: grid (row tiles of warps*R rows, S), blockDim = 32*warps.  x:
+// rows of entry s at x + s*x_stride_s, or with `identity` the rows e_r of
+// the P x P identity (batch = P).  table: the prologue's records (S,
+// levels, kRecord).  The blocks of one stack entry are adjacent in the
+// grid, so they run together and read its records from L2.  Thread 0
+// stages every chunk with one bulk copy (a chunk's records are adjacent
+// in the table; a transposed mesh reads them in reverse); the others only
+// wait on the chunk's barrier.
+template <int W, int R>
+__global__ void __launch_bounds__(kRowsMaxThreads)
+mesh_rows_kernel(const float* __restrict__ x, const float* __restrict__ table,
+                 const float* __restrict__ diag, float* __restrict__ y,
+                 int batch, int ports, int levels, int64_t x_stride_s,
+                 int64_t diag_stride_s, int transpose, int identity) {
+  using Shape = RowsShape<W>;
+  extern __shared__ float4 rows_smem[];       // the ring, then its barriers
+  float* smem = reinterpret_cast<float*>(rows_smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Shape::kRingFloats);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const size_t s = blockIdx.y;
+  const bool tr = transpose != 0;
+  const int row0 = (blockIdx.x * warps + warp) * R;
+  const float* dg = diag + s * diag_stride_s;
+  const float* tab = table + s * levels * Shape::kRecord;
+  const int chunks = (levels + Shape::kStage - 1) / Shape::kStage;
+
+  // chunk k: application levels [k*kStage, k*kStage + n), stored levels
+  // [cl0, cl0 + n) into ring slot k % kRing (thread 0)
+  auto stage = [&](int k) {
+    if (k >= chunks) return;
+    const int first = k * Shape::kStage;
+    const int n = min(Shape::kStage, levels - first);
+    const int cl0 = tr ? levels - first - n : first;
+    const unsigned bar = smem_u32(full + k % Shape::kRing);
+    const unsigned bytes = n * Shape::kRecord * sizeof(float);
+    mbar_expect_tx(bar, bytes);
+    bulk_copy(smem_u32(smem + (k % Shape::kRing) * Shape::kStage *
+                                  Shape::kRecord),
+              tab + static_cast<size_t>(cl0) * Shape::kRecord, bytes, bar);
+  };
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < Shape::kRing; ++j) mbar_init(smem_u32(full + j), 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int k = 0; k < Shape::kRing - 1; ++k) stage(k);
+
+  float v[R][W];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + r;
+    const float* xr = x + s * x_stride_s + static_cast<size_t>(row) * ports;
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      const int w = lane * W + j;
+      float val = 0.0f;
+      if (row < batch && w < ports) {
+        val = identity ? (w == row ? 1.0f : 0.0f) : xr[w];
+        if (!tr) val = __fmul_rn(val, dg[w]);
+      }
+      v[r][j] = val;
+    }
+  }
+
+  const bool first = lane == 0;
+  const bool last = ports % W == 0 && lane == ports / W - 1;
+#pragma unroll 1
+  for (int k = 0; k < chunks; ++k) {
+    // every warp is done with chunk k - 1, so its slot takes chunk
+    // k + kRing - 1; then chunk k has landed
+    __syncthreads();
+    if (threadIdx.x == 0) stage(k + Shape::kRing - 1);
+    mbar_wait(smem_u32(full + k % Shape::kRing), (k / Shape::kRing) & 1);
+    const float* cur =
+        smem + (k % Shape::kRing) * Shape::kStage * Shape::kRecord;
+    const int n = min(Shape::kStage, levels - k * Shape::kStage);
+#pragma unroll 1
+    for (int lv = 0; lv < n; ++lv) {
+      const float* rec = cur + (tr ? n - 1 - lv : lv) * Shape::kRecord;
+      rows_level<W, R>(
+          v, reinterpret_cast<const float2*>(rec),
+          reinterpret_cast<const unsigned*>(rec + Shape::kEntries * 64)[lane],
+          reinterpret_cast<const int*>(rec + Shape::kMode)[0], lane, first,
+          last);
+    }
+  }
+
+  float* ys = y + s * batch * ports;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + r;
+    if (row >= batch) continue;
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      const int w = lane * W + j;
+      if (w < ports)
+        ys[static_cast<size_t>(row) * ports + w] =
+            tr ? __fmul_rn(v[r][j], dg[w]) : v[r][j];
+    }
+  }
+}
+
+template <int W, int R>
+int rows_launch(const float* x, const float* phases, const int* plan,
+                const float* diag, float* y, float* table, int batch,
+                int ports, int levels, int slots, int stack, int warps,
+                int64_t x_stride_s, int64_t diag_stride_s, int transpose,
+                int identity, cudaStream_t stream) {
+  mesh_trig_kernel<W><<<dim3((levels + 7) / 8, stack), 256, 0, stream>>>(
+      phases, plan, table, levels, slots, transpose);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(mesh_rows_kernel<W, R>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(RowsShape<W>::kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((batch + warps * R - 1) / (warps * R), stack);
+  mesh_rows_kernel<W, R><<<grid, 32 * warps, RowsShape<W>::kSmem, stream>>>(
+      x, table, diag, y, batch, ports, levels, x_stride_s, diag_stride_s,
+      transpose, identity);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------------------ dense
+
+// y_s = x_s * M_s: block tile 128 x 128 of y, k tiles of 32, 8 warps of
+// 64 x 32 each (4 x 4 mma tiles of 16 x 8), two cp.async stages.  Row
+// strides padded (36 and 136 floats) so the fragment loads of a warp hit
+// 32 distinct banks.
+constexpr int kDenseBM = 128, kDenseBN = 128, kDenseBK = 32;
+constexpr int kDenseThreads = 256;
+constexpr int kDenseAStride = kDenseBK + 4;
+constexpr int kDenseBStride = kDenseBN + 8;
+constexpr int kDenseStage = kDenseBM * kDenseAStride + kDenseBK * kDenseBStride;
+constexpr size_t kDenseSmem = 2 * kDenseStage * sizeof(float);
+
+__device__ __forceinline__ unsigned to_tf32(float f) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(f));
+  return r;
+}
+
+// a = hi + lo to 2^-22 of |a|, hi and lo TF32 values
+__device__ __forceinline__ void split_tf32(float a, unsigned& hi,
+                                           unsigned& lo) {
+  hi = to_tf32(a);
+  lo = to_tf32(__fsub_rn(a, __uint_as_float(hi)));
+}
+
+// d += a * b, m16n8k8, TF32 inputs, f32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// grid (column tiles, row tiles, S).  x: (batch, ports) rows of entry s at
+// x + s*x_stride_s; m: (S, ports, ports); y: (S, batch, ports).  ports % 4
+// == 0, so a 16-byte copy is wholly inside a row or wholly past it.
+__global__ void __launch_bounds__(kDenseThreads)
+mesh_product_kernel(const float* __restrict__ x, const float* __restrict__ m,
+                     float* __restrict__ y, int batch, int ports,
+                     int64_t x_stride_s) {
+  extern __shared__ float4 dense_smem[];          // 2 stages of A and B
+  float* smem = reinterpret_cast<float*>(dense_smem);
+  const size_t s = blockIdx.z;
+  const int row0 = blockIdx.y * kDenseBM, col0 = blockIdx.x * kDenseBN;
+  const float* xs = x + s * x_stride_s;
+  const float* ms = m + s * ports * ports;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+
+  auto load = [&](int kt, float* buf) {
+    float* as = buf;
+    float* bs = buf + kDenseBM * kDenseAStride;
+    const int k0 = kt * kDenseBK;
+    for (int q = tid; q < kDenseBM * kDenseBK / 4; q += kDenseThreads) {
+      const int r = q / (kDenseBK / 4), c = 4 * (q % (kDenseBK / 4));
+      const int row = row0 + r, k = k0 + c;
+      const bool ok = row < batch && k < ports;
+      cp_async16_zfill(as + r * kDenseAStride + c,
+                       ok ? xs + static_cast<size_t>(row) * ports + k : xs,
+                       ok);
+    }
+    for (int q = tid; q < kDenseBK * kDenseBN / 4; q += kDenseThreads) {
+      const int r = q / (kDenseBN / 4), c = 4 * (q % (kDenseBN / 4));
+      const int k = k0 + r, col = col0 + c;
+      const bool ok = k < ports && col < ports;
+      cp_async16_zfill(bs + r * kDenseBStride + c,
+                       ok ? ms + static_cast<size_t>(k) * ports + col : ms,
+                       ok);
+    }
+    cp_async_commit();
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  const int ktiles = (ports + kDenseBK - 1) / kDenseBK;
+  load(0, smem);
+#pragma unroll 1
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait_all();
+    __syncthreads();                 // tile kt in; tile kt - 1 consumed
+    if (kt + 1 < ktiles) load(kt + 1, smem + ((kt + 1) & 1) * kDenseStage);
+    const float* as = smem + (kt & 1) * kDenseStage;
+    const float* bs = as + kDenseBM * kDenseAStride;
+#pragma unroll
+    for (int k8 = 0; k8 < kDenseBK; k8 += 8) {
+      unsigned bh[4][2], bl[4][2];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const float* b = bs + (k8 + t) * kDenseBStride + wn * 32 + nt * 8 + g;
+        split_tf32(b[0], bh[nt][0], bl[nt][0]);                 // (t, g)
+        split_tf32(b[4 * kDenseBStride], bh[nt][1], bl[nt][1]); // (t+4, g)
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        const float* a = as + (wm * 64 + mt * 16 + g) * kDenseAStride + k8 + t;
+        unsigned ah[4], al[4];
+        split_tf32(a[0], ah[0], al[0]);                          // (g, t)
+        split_tf32(a[8 * kDenseAStride], ah[1], al[1]);          // (g+8, t)
+        split_tf32(a[4], ah[2], al[2]);                          // (g, t+4)
+        split_tf32(a[8 * kDenseAStride + 4], ah[3], al[3]);      // (g+8, t+4)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          mma_tf32(acc[mt][nt], al, bh[nt]);
+          mma_tf32(acc[mt][nt], ah, bl[nt]);
+          mma_tf32(acc[mt][nt], ah, bh[nt]);
+        }
+      }
+    }
+  }
+
+  float* ys = y + s * batch * ports;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+    const int row = row0 + wm * 64 + mt * 16 + g;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int col = col0 + wn * 32 + nt * 8 + 2 * t;
+      if (col >= ports) continue;
+      if (row < batch)
+        *reinterpret_cast<float2*>(ys + static_cast<size_t>(row) * ports +
+                                   col) =
+            make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      if (row + 8 < batch)
+        *reinterpret_cast<float2*>(ys + static_cast<size_t>(row + 8) * ports +
+                                   col) =
+            make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+  }
+}
+
 size_t stream_smem(int ports, int items, int rows_per_block) {
   return 2 * static_cast<size_t>(items) * sizeof(Rot) +
          (static_cast<size_t>(rows_per_block) + 1) * ports * sizeof(float);
@@ -465,7 +998,7 @@ extern "C" int mesh_apply_launch(const void* x, const void* phases,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The streamed design: the arguments of mesh_apply_launch plus owner
+// The owner walk: the arguments of mesh_apply_launch plus owner
 // (levels, items) int32 (core.photonic.mesh_owner_plan).  Shared memory:
 // 48 * items + 4 * (rows_per_block + 1) * ports bytes.
 extern "C" int mesh_stream_launch(const void* x, const void* phases,
@@ -496,6 +1029,66 @@ extern "C" int mesh_stream_launch(const void* x, const void* phases,
       static_cast<const float*>(diag), static_cast<float*>(y), batch, ports,
       levels, slots, items, rows_per_block, x_stride_s, diag_stride_s,
       transpose);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Route A (warp rows): x, phases, diag, y, strides and transpose as for
+// mesh_apply_launch; plan: the layout's record plan (levels, kPlan) int32
+// (kernels/mesh_apply.py::rows_plan); table: (S, levels, kRecord) f32
+// scratch for the prologue's trig records; the lane width W (8, 16, 32),
+// rows per warp R (1, 2, 4) and warps per block; identity: x is ignored
+// and row r of each entry is e_r (batch = ports): the densification of
+// route B.
+extern "C" int mesh_rows_launch(const void* x, const void* phases,
+                                const void* plan, const void* diag, void* y,
+                                void* table, int batch, int ports, int levels,
+                                int slots, int stack, int lane_width,
+                                int rows_per_warp, int warps,
+                                int64_t x_stride_s, int64_t diag_stride_s,
+                                int transpose, int identity, void* stream) {
+  if (batch < 1 || ports < 2 || ports > 32 * lane_width || levels < 1 ||
+      slots < 1 || stack < 1 || stack > 65535 || warps < 1 ||
+      32 * warps > kRowsMaxThreads || x_stride_s < 0 || diag_stride_s < 0 ||
+      table == nullptr || (identity && batch != ports))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* xf = static_cast<const float*>(x);
+  const float* pf = static_cast<const float*>(phases);
+  const int* pl = static_cast<const int*>(plan);
+  const float* dg = static_cast<const float*>(diag);
+  float* yf = static_cast<float*>(y);
+  float* tb = static_cast<float*>(table);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MESH_ROWS_CASE(W, R)                                                \
+  if (lane_width == W && rows_per_warp == R)                               \
+    return rows_launch<W, R>(xf, pf, pl, dg, yf, tb, batch, ports, levels,  \
+                             slots, stack, warps, x_stride_s, diag_stride_s, \
+                             transpose, identity, st);
+  MESH_ROWS_CASE(8, 1) MESH_ROWS_CASE(8, 2) MESH_ROWS_CASE(8, 4)
+  MESH_ROWS_CASE(16, 1) MESH_ROWS_CASE(16, 2) MESH_ROWS_CASE(16, 4)
+  MESH_ROWS_CASE(32, 1) MESH_ROWS_CASE(32, 2) MESH_ROWS_CASE(32, 4)
+#undef MESH_ROWS_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Route B's product: y (S, batch, ports) = x * m per entry, x (batch,
+// ports) shared (x_stride_s = 0) or (S, batch, ports), m (S, ports, ports);
+// ports % 4 == 0 and 16-byte aligned rows.
+extern "C" int mesh_product_launch(const void* x, const void* m, void* y,
+                                   int batch, int ports, int stack,
+                                   int64_t x_stride_s, void* stream) {
+  if (batch < 1 || ports < 4 || ports % 4 != 0 || stack < 1 ||
+      stack > 65535 || x_stride_s < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      mesh_product_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kDenseSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((ports + kDenseBN - 1) / kDenseBN,
+                  (batch + kDenseBM - 1) / kDenseBM, stack);
+  mesh_product_kernel<<<grid, kDenseThreads, kDenseSmem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(m),
+      static_cast<float*>(y), batch, ports, x_stride_s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,20 +5,30 @@ mesh_apply_stacked_pallas`` (its ``pallas_call`` at line 136), which ran
 S stacked MZI meshes of one layout on x shared across the stack or per
 entry, with trig tables built outside the kernel, and the JAX package's
 jnp gather scan that took the meshes too wide for it
-(``repro/kernels/ops.py:139-140``).  Here every block builds its own trig
-from the phases and the layout's plan (``core.photonic.mesh_plan_tensors``),
-so a call is one allocation and one launch.  Two entries:
+(``repro/kernels/ops.py:139-140``).  Here the kernels build their own trig
+from the phases and the layout's plan (``core.photonic.mesh_plan_tensors``;
+route A's ``rows_plan``).  Two entries:
 
   * ``mesh_apply_stacked`` — the standalone mesh, kernel-backed
     ``core.photonic.mesh_apply_stacked`` (``PhotonicMatrix.apply`` and
-    ``apply_stacked``) in two designs, which ``mesh_design`` picks from the
-    layout alone: ``resident`` (``launch_resident``) holds the layout's
-    trig and perm tables in shared memory, up to ~138 ports of a
-    rectangular mesh; ``streamed`` (``launch_streamed``) holds only its
-    rows and reads each level's phases and plan from device memory, for
-    any wider layout (onn's 1024-port meshes).  Both round every operation
-    as the plain version does, so they agree with it, and with each other,
-    bit for bit.
+    ``apply_stacked``).  ``mesh_design`` picks ``resident`` from the layout
+    alone where its trig and perm tables fit shared memory
+    (``launch_resident``, up to ~138 ports of a rectangular mesh); every
+    wider layout takes one of three routes, which ``wide_route`` picks
+    from (layout, stack size, rows per entry):
+      - ``warp_rows`` (route A, ``launch_warp_rows``): layouts whose
+        levels pair adjacent wires of one parity (``adjacent_pairs``;
+        every layout the repo builds); a warp holds whole rows in
+        registers, a trig prologue writes the per-MZI records once a call;
+      - ``dense`` (route B, ``launch_dense``): the same layouts at rows
+        per entry of at least ``DENSE_MIN_ROWS_PER_PORT`` times the ports:
+        route A densifies each entry's mesh on an identity feed and a
+        3xTF32 tensor-core kernel multiplies;
+      - ``owner_walk`` (``launch_owner_walk``): any other layout one row of
+        which fits a block, one MZI per thread and item.
+    The resident design, route A and the owner walk round every operation
+    as the plain version does, so they agree with it bit for bit; route B
+    agrees within the f32 bound ``1e-5·max|plain| + 1e-6``.
   * ``mesh_densify_stacked`` — ``PhotonicMatrix.to_dense_stacked`` of G
     matrices in one launch, DAC snap and noise model included, each
     written as its TT core: the ZO step's whole densification
@@ -27,16 +37,17 @@ so a call is one allocation and one launch.  Two entries:
     the launch copies nothing from the host.
 
 The TPU's one-hot permutation matmul (``mesh_perm_onehot``) has no
-counterpart: the kernels read ``x[perm[c, w]]`` from shared memory.  The
-TPU's size limits assumed VMEM; here a block holds its tables and buffers
-in at most Hopper's 232,448 bytes of shared memory (``smem_bytes``,
-``stream_smem_bytes``, ``densify_smem_bytes``), and what no design holds
-raises — there is no plain fallback on the card.
+counterpart: the kernels read a wire's partner from shared memory or a
+neighbouring lane.  The TPU's size limits assumed VMEM; here a block holds
+its tables and buffers in at most Hopper's 232,448 bytes of shared memory
+(``smem_bytes``, ``stream_smem_bytes``, ``densify_smem_bytes``), and what
+no design holds raises — there is no plain fallback on the card.
 
 Each wrapper checks what its kernel takes and raises on anything else,
-allocates the output, launches on the current stream without
-synchronizing, and counts its launches (``<wrapper>.launches``; per design
-``mesh_apply_stacked.design_launches``).
+allocates the output and its scratch, launches on the current stream
+without synchronizing, and counts its launches (``<wrapper>.launches``;
+per design and route ``mesh_apply_stacked.design_launches``, one count a
+call).
 """
 
 from __future__ import annotations
@@ -45,22 +56,35 @@ import ctypes
 import functools
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.core import photonic as ph_lib
 from repro_torch.kernels import _build
 from repro_torch.kernels.tt_contract import SMEM_MAX_BYTES
 
-__all__ = ["mesh_apply_stacked", "launch_resident", "launch_streamed",
-           "mesh_design", "DESIGNS", "mesh_densify_stacked", "smem_bytes",
+__all__ = ["mesh_apply_stacked", "launch_resident", "launch_warp_rows",
+           "launch_dense", "launch_owner_walk", "mesh_design", "wide_route",
+           "DESIGNS", "WIDE_ROUTES", "adjacent_pairs", "lane_width",
+           "level_modes", "rows_plan", "rows_config", "trig_records",
+           "DENSE_MIN_ROWS_PER_PORT", "mesh_densify_stacked", "smem_bytes",
            "rows_per_block", "stream_smem_bytes", "stream_rows",
            "densify_smem_bytes", "MeshGroup", "pack_group", "MAX_GROUP"]
 
 MAX_ROW_ELEMENTS = 1024            # rows per block × ports, at most
 MAX_STACK = 65_535                 # the standalone grid's y extent
 MAX_GROUP = 20                     # kMaxGroup: matrices per grouped launch
-DESIGNS = ("resident", "streamed")
-ROT_BYTES = 24                     # sizeof(Rot): a streamed owner's entry
+DESIGNS = ("resident", "warp_rows", "dense", "owner_walk")
+WIDE_ROUTES = DESIGNS[1:]
+ROT_BYTES = 24                     # sizeof(Rot): an owner walk's entry
+LANE_WIDTHS = (8, 16, 32)          # route A's wires a lane (W), compiled
+ROWS_PER_WARP = (4, 2, 1)          # route A's rows a warp (R), compiled
+ROWS_BLOCK_WARPS = 4               # warps a block (the C entry takes 8)
+ROWS_FILL_WARPS = 8                # warps a multiprocessor route A aims at
+# route B from this many rows per entry per port (ports % 4 == 0): at 1024
+# ports the routes cross at ~1.34 x ports rows per entry, at S = 11 and at
+# S = 1 alike (tools/mesh_wide.py; PERF.md §6 row 7)
+DENSE_MIN_ROWS_PER_PORT = 1.5
 
 
 def smem_bytes(ports: int, levels: int, rows: int) -> int:
@@ -84,13 +108,189 @@ def rows_per_block(layout: ph_lib.MeshLayout) -> int:
 
 def mesh_design(layout: ph_lib.MeshLayout) -> str:
     """``"resident"`` where the layout's tables and one row fit a block
-    (``rows_per_block``), else ``"streamed"``."""
+    (``rows_per_block``), else ``"wide"`` (``wide_route`` picks the
+    route)."""
     fits = smem_bytes(layout.ports, layout.levels, 1) <= SMEM_MAX_BYTES
-    return "resident" if fits else "streamed"
+    return "resident" if fits else "wide"
+
+
+def _level_parities(layout: ph_lib.MeshLayout) -> np.ndarray | None:
+    """Each level's pair parity (the lower wire of every pair mod 2; 0 for
+    a level without pairs), or None if some pair joins wires that are not
+    adjacent, or one level holds pairs of both parities."""
+    memo = layout.__dict__.get("_level_parities", False)
+    if memo is not False:
+        return memo
+    lo = np.minimum(layout.idx_a, layout.idx_b)
+    hi = np.maximum(layout.idx_a, layout.idx_b)
+    par = np.where(layout.mask, lo % 2, -1)
+    out = None
+    if ((hi - lo)[layout.mask] == 1).all():
+        first = par.max(axis=1)                        # -1: no pairs
+        if (np.where(layout.mask, par == first[:, None], True)).all():
+            out = np.maximum(first, 0).astype(np.int32)
+    object.__setattr__(layout, "_level_parities", out)
+    return out
+
+
+def adjacent_pairs(layout: ph_lib.MeshLayout) -> bool:
+    """Route A's predicate: every pair joins adjacent wires (a, a+1), and
+    the pairs of a level share the parity of a (a "brick" level).  The
+    rectangular and the Reck layouts the repo builds hold; a layout
+    ``schedule_ops`` makes of any other pairs may not."""
+    return _level_parities(layout) is not None
+
+
+def lane_width(ports: int) -> int | None:
+    """Route A's wires a lane: the narrowest compiled W with 32·W ≥ ports
+    (None past 1024 ports)."""
+    return next((w for w in LANE_WIDTHS if 32 * w >= ports), None)
+
+
+def level_modes(layout: ph_lib.MeshLayout) -> np.ndarray:
+    """Route A's per-level mode, ``(levels,)`` int32: bit 0 the level's
+    parity p, bit 1 "partial" — a brick pair (a, a+1), a ≡ p, inside the
+    ports that the level leaves out, or wire P-1 unpaired (P-1 ≡ p) where
+    it does not end a lane (P not a multiple of W).  A full level's only
+    unpaired wires are then 0 and P-1 at a lane's edge, which the kernel
+    takes without a select.  Raises for a layout ``adjacent_pairs``
+    refuses."""
+    par = _level_parities(layout)
+    if par is None:
+        raise ValueError("route A takes layouts whose levels pair adjacent "
+                         "wires of one parity")
+    P, W = layout.ports, lane_width(layout.ports)
+    perm = ph_lib.mesh_gather_plan(layout)[0]
+    modes = par.copy()
+    for c, p in enumerate(par):
+        lo = np.arange(p, P - 1, 2)
+        partial = (perm[c, lo] != lo + 1).any() or (
+            (P - 1) % 2 == p and (W is None or P % W != 0))
+        modes[c] |= 2 * int(partial)
+    return modes
+
+
+def record_floats(W: int) -> int:
+    """Floats of one level's trig record at lane width W: (W/2 + 1) × 32
+    brick entries (cos, s_lo), 32 words of absent bits, the level's mode
+    and 3 words of padding."""
+    return (W // 2 + 1) * 64 + 36
+
+
+SLOT_BITS, SIGN_SHIFT, WIRE_BIT = 24, 24, 1 << 26
+
+
+def rows_plan(layout: ph_lib.MeshLayout) -> np.ndarray:
+    """Route A's record plan, host-built once per layout: per stored level
+    ``(W/2 + 1)·32 + 33`` int32 — a code per brick entry (lane t's entry i
+    at a level of parity p joins wires lo = t·W + 2i − p and lo + 1): the
+    slot of its phase (bits 0–23), its wire's sign (bits 24–25: 0, +1 as
+    1, −1 as 2) and ``WIRE_BIT`` where the entry holds a wire (a pair's
+    lower wire, else its one unpaired wire in range); then the absent word
+    of each lane (bit i: entry i is no pair) and the level's mode
+    (``level_modes``).  The trig prologue reads it beside the phases.
+    Memoized on the layout."""
+    memo = layout.__dict__.get("_rows_plan")
+    if memo is not None:
+        return memo
+    P, L = layout.ports, layout.levels
+    W = lane_width(P)
+    E = W // 2 + 1
+    perm, slot, sign = ph_lib.mesh_gather_plan(layout)
+    modes = level_modes(layout)
+    i, lane = np.meshgrid(np.arange(E), np.arange(32), indexing="ij")
+    lo = lane * W + 2 * i - (modes & 1)[:, None, None]       # (L, E, 32)
+    cl = np.arange(L)[:, None, None]
+    pair = (lo >= 0) & (lo + 1 < P)
+    pair &= perm[cl, np.clip(lo, 0, P - 1)] == lo + 1
+    w = np.where((lo >= 0) & (lo < P), lo, np.where(lo + 1 < P, lo + 1, -1))
+    wc = np.clip(w, 0, P - 1)
+    sg = sign[cl, wc]
+    code = (slot[cl, wc].astype(np.int64)
+            | np.where(sg > 0, 1, np.where(sg < 0, 2, 0)) << SIGN_SHIFT
+            | np.where(w >= 0, WIRE_BIT, 0))
+    absent = ((~pair).astype(np.int64) << np.arange(E)[None, :, None]
+              ).sum(axis=1)                                    # (L, 32)
+    plan = np.concatenate([code.reshape(L, E * 32), absent, modes[:, None]],
+                          axis=1).astype(np.uint32).view(np.int32)
+    object.__setattr__(layout, "_rows_plan", plan)
+    return plan
+
+
+def _plan_tensor(layout: ph_lib.MeshLayout,
+                 device: torch.device) -> torch.Tensor:
+    memo = layout.__dict__.setdefault("_rows_plan_tensors", {})
+    if device not in memo:
+        memo[device] = torch.as_tensor(rows_plan(layout), device=device)
+    return memo[device]
+
+
+def trig_records(layout: ph_lib.MeshLayout, phases: torch.Tensor,
+                 transpose: bool = False) -> torch.Tensor:
+    """The plain version of route A's trig prologue
+    (``csrc/mesh_apply.cu::mesh_trig_kernel``): phases ``(S, levels,
+    slots)`` → ``(S, levels, record_floats(W))`` float32 in stored level
+    order.  From ``rows_plan``: an entry with a wire gets ``(cos φ if sign
+    else 1, sign·sin φ)`` (the sine negated when transposed) — a pair's
+    lower wire's, or an unpaired wire's ``(1, ±0)`` — an entry past the
+    wires ``(1, 0)``; then the plan's absent words and mode as their int32
+    bits, and 3 zero words."""
+    P, L = layout.ports, layout.levels
+    W = lane_width(P)
+    E = W // 2 + 1
+    plan = torch.as_tensor(rows_plan(layout).astype(np.int64),
+                           device=phases.device)
+    code = plan[:, :E * 32]
+    has = (code & WIRE_BIT) != 0
+    sc = (code >> SIGN_SHIFT) & 3
+    sg = torch.where(sc == 1, 1.0, torch.where(sc == 2, -1.0, 0.0))
+    S = phases.shape[0]
+    v = torch.gather(phases, 2, (code & ((1 << SLOT_BITS) - 1))[None]
+                     .expand(S, -1, -1))                     # (S, L, E*32)
+    c = torch.where(has & (sg != 0.0), torch.cos(v), torch.ones_like(v))
+    s = torch.where(has, sg * torch.sin(v), torch.zeros_like(v))
+    if transpose:
+        s = torch.where(has, -s, s)
+    ent = torch.stack([c, s], dim=-1).reshape(S, L, E * 64)
+    tail = torch.cat([plan[:, E * 32:], torch.zeros((L, 3), dtype=torch.int64,
+                                                    device=phases.device)],
+                     dim=1).to(torch.int32).view(torch.float32)
+    return torch.cat([ent, tail.expand(S, L, 36)], dim=-1).contiguous()
+
+
+def rows_config(layout: ph_lib.MeshLayout, S: int, rows: int,
+                sms: int) -> tuple:
+    """Route A's launch: (W, rows per warp R, warps per block).  R is the
+    largest of ``ROWS_PER_WARP`` that still gives ``ROWS_FILL_WARPS``
+    warps per multiprocessor (a warp walks the levels in sequence, so a
+    small batch runs fastest one row a warp); blocks of 4 warps, which
+    measured faster than 2, 8 or 16 at onn's launches (tools/mesh_wide.py):
+    more blocks share the multiprocessors evenly, and the trig each block
+    streams costs one bulk copy a chunk."""
+    W = lane_width(layout.ports)
+    R = next((r for r in ROWS_PER_WARP
+              if S * -(-rows // r) >= ROWS_FILL_WARPS * sms), 1)
+    return W, R, min(ROWS_BLOCK_WARPS, -(-rows // R))
+
+
+def wide_route(layout: ph_lib.MeshLayout, S: int, rows: int) -> str:
+    """The route of a wide layout (``mesh_design`` ``"wide"``) for S
+    stacked meshes on ``rows`` rows per entry: ``"owner_walk"`` unless
+    route A takes the layout (``adjacent_pairs``, at most 1024 ports);
+    then ``"dense"`` from ``DENSE_MIN_ROWS_PER_PORT`` × ports rows per
+    entry (ports % 4 == 0, the product's 16-byte copies), else
+    ``"warp_rows"``.  The crossover measured the same at S = 1 and 11, so
+    S does not move it."""
+    P = layout.ports
+    if lane_width(P) is None or not adjacent_pairs(layout):
+        return "owner_walk"
+    if P % 4 == 0 and rows >= DENSE_MIN_ROWS_PER_PORT * P:
+        return "dense"
+    return "warp_rows"
 
 
 def stream_smem_bytes(ports: int, items: int, rows: int) -> int:
-    """Shared memory of one streamed block: two owner lists of ``items``
+    """Shared memory of one owner-walk block: two owner lists of ``items``
     entries (the level being applied and the next) and ``rows`` rows plus
     the diag row."""
     return 2 * ROT_BYTES * items + 4 * (rows + 1) * ports
@@ -98,7 +298,7 @@ def stream_smem_bytes(ports: int, items: int, rows: int) -> int:
 
 def stream_rows(layout: ph_lib.MeshLayout, stack: int, batch: int,
                 sms: int) -> int:
-    """Rows of x one streamed block holds: as many as shared memory takes,
+    """Rows of x one owner-walk block holds: as many as shared memory takes,
     or fewer so that the grid's waves over ``sms`` multiprocessors come
     out whole (a small batch then spreads over every SM instead of a few
     full blocks).  Raises for a layout one row of which does not fit."""
@@ -108,7 +308,7 @@ def stream_rows(layout: ph_lib.MeshLayout, stack: int, batch: int,
     if fit < 1:
         raise ValueError(
             f"a {P}-port mesh needs {stream_smem_bytes(P, items, 1)} B of "
-            f"shared memory per streamed block; the card has "
+            f"shared memory per owner-walk block; the card has "
             f"{SMEM_MAX_BYTES} B")
     tiles = -(-batch // fit)
     waves = -(-stack * tiles // sms)
@@ -253,6 +453,13 @@ def _library():
         ctypes.c_int] * 7 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
                              ctypes.c_void_p]
     lib.mesh_stream_launch.restype = ctypes.c_int
+    lib.mesh_rows_launch.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_int] * 8 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_void_p]
+    lib.mesh_rows_launch.restype = ctypes.c_int
+    lib.mesh_product_launch.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int] * 3 + [ctypes.c_int64, ctypes.c_void_p]
+    lib.mesh_product_launch.restype = ctypes.c_int
     lib.mesh_densify_group_bytes.restype = ctypes.c_int
     if lib.mesh_densify_group_bytes() != ctypes.sizeof(MeshGroup):
         raise RuntimeError(
@@ -300,14 +507,61 @@ def _check_stacked(layout: ph_lib.MeshLayout, phases: torch.Tensor,
     return S, B
 
 
+def _stream(x: torch.Tensor):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"mesh_apply_stacked ({what}) launch failed: "
+                           f"CUDA error {err}")
+
+
+def _count(design: str) -> None:
+    mesh_apply_stacked.launches += 1
+    mesh_apply_stacked.design_launches[design] += 1
+
+
+def _rows(layout, phases, diag, x, y, S, B, transpose, identity) -> None:
+    """Route A's prologue and kernel into y (S, B, P); x None with
+    ``identity`` (B = P: row r is e_r)."""
+    P, L = layout.ports, layout.levels
+    W, R, nw = rows_config(layout, S, B, _sm_count(y.device))
+    table = torch.empty((S, L, record_floats(W)), dtype=torch.float32,
+                        device=y.device)
+    x_ptr = 0 if x is None else x.data_ptr()
+    x_stride = B * P if x is not None and x.ndim == 3 else 0
+    err = _library().mesh_rows_launch(
+        x_ptr, phases.data_ptr(), _plan_tensor(layout, y.device).data_ptr(),
+        diag.data_ptr(), y.data_ptr(), table.data_ptr(), B, P, L,
+        layout.slots, S, W, R, nw, x_stride, P if diag.ndim == 2 else 0,
+        int(transpose), int(identity), _stream(y))
+    _raise_on(err, "warp_rows")
+
+
+def _route_checks(layout: ph_lib.MeshLayout, route: str) -> None:
+    if route not in ("warp_rows", "dense"):
+        return
+    if lane_width(layout.ports) is None or not adjacent_pairs(layout):
+        raise ValueError(f"the {route} route takes layouts of at most 1024 "
+                         "ports whose levels pair adjacent wires of one "
+                         "parity")
+    if route == "dense" and layout.ports % 4:
+        raise ValueError(f"the dense route needs ports % 4 == 0, got "
+                         f"{layout.ports}")
+
+
 def _launch(design: str, layout: ph_lib.MeshLayout, phases: torch.Tensor,
             diag: torch.Tensor, x: torch.Tensor,
             transpose: bool) -> torch.Tensor:
     S, B = _check_stacked(layout, phases, diag, x)
     P = layout.ports
+    _route_checks(layout, design)
     # the launch configuration raises before any allocation
-    rows = (rows_per_block(layout) if design == "resident"
-            else stream_rows(layout, S, max(B, 1), _sm_count(x.device)))
+    if design == "resident":
+        rows = rows_per_block(layout)
+    elif design == "owner_walk":
+        rows = stream_rows(layout, S, max(B, 1), _sm_count(x.device))
     y = torch.empty((S, B, P), dtype=torch.float32, device=x.device)
     if B == 0:
         return y
@@ -315,27 +569,35 @@ def _launch(design: str, layout: ph_lib.MeshLayout, phases: torch.Tensor,
     x_stride = B * P if x.ndim == 3 else 0
     diag_stride = P if diag.ndim == 2 else 0
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         if design == "resident":
             err = _library().mesh_apply_launch(
                 x.data_ptr(), phases.data_ptr(), plan["slot_i32"].data_ptr(),
                 plan["sign"].data_ptr(), plan["perm"].data_ptr(),
                 diag.data_ptr(), y.data_ptr(), B, P, layout.levels,
                 layout.slots, S, rows, x_stride, diag_stride, int(transpose),
-                stream)
-        else:
+                _stream(x))
+        elif design == "owner_walk":
             owner = plan["owner"]
             err = _library().mesh_stream_launch(
                 x.data_ptr(), phases.data_ptr(), plan["slot_i32"].data_ptr(),
                 plan["sign"].data_ptr(), plan["perm"].data_ptr(),
                 owner.data_ptr(), diag.data_ptr(), y.data_ptr(), B, P,
                 layout.levels, layout.slots, owner.shape[1], S, rows,
-                x_stride, diag_stride, int(transpose), stream)
-    if err != 0:
-        raise RuntimeError(f"mesh_apply_stacked ({design}) launch failed: "
-                           f"CUDA error {err}")
-    mesh_apply_stacked.launches += 1
-    mesh_apply_stacked.design_launches[design] += 1
+                x_stride, diag_stride, int(transpose), _stream(x))
+        elif design == "warp_rows":
+            _rows(layout, phases, diag, x, y, S, B, transpose, False)
+            err = 0
+        else:
+            # route B: each entry's mesh made dense by route A on the
+            # identity feed (row i = mesh(e_i)), then y_s = x_s · M_s
+            dense = torch.empty((S, P, P), dtype=torch.float32,
+                                device=x.device)
+            _rows(layout, phases, diag, None, dense, S, P, transpose, True)
+            err = _library().mesh_product_launch(
+                x.data_ptr(), dense.data_ptr(), y.data_ptr(), B, P, S,
+                x_stride, _stream(x))
+    _raise_on(err, design)
+    _count(design)
     return y
 
 
@@ -347,12 +609,31 @@ def launch_resident(layout: ph_lib.MeshLayout, phases: torch.Tensor,
     return _launch("resident", layout, phases, diag, x, transpose)
 
 
-def launch_streamed(layout: ph_lib.MeshLayout, phases: torch.Tensor,
-                    diag: torch.Tensor, x: torch.Tensor,
-                    transpose: bool = False) -> torch.Tensor:
-    """``mesh_apply_stacked`` through the streamed design (any layout one
-    row of which fits a block)."""
-    return _launch("streamed", layout, phases, diag, x, transpose)
+def launch_warp_rows(layout: ph_lib.MeshLayout, phases: torch.Tensor,
+                     diag: torch.Tensor, x: torch.Tensor,
+                     transpose: bool = False) -> torch.Tensor:
+    """``mesh_apply_stacked`` through route A, bit-equal to the plain
+    version; raises for a layout ``adjacent_pairs`` refuses or past 1024
+    ports."""
+    return _launch("warp_rows", layout, phases, diag, x, transpose)
+
+
+def launch_dense(layout: ph_lib.MeshLayout, phases: torch.Tensor,
+                 diag: torch.Tensor, x: torch.Tensor,
+                 transpose: bool = False) -> torch.Tensor:
+    """``mesh_apply_stacked`` through route B: route A densifies each
+    entry's mesh into an ``(S, P, P)`` scratch, a 3xTF32 tensor-core
+    kernel multiplies (within the f32 bound of the plain version); raises
+    where route A does or for ports not a multiple of 4."""
+    return _launch("dense", layout, phases, diag, x, transpose)
+
+
+def launch_owner_walk(layout: ph_lib.MeshLayout, phases: torch.Tensor,
+                      diag: torch.Tensor, x: torch.Tensor,
+                      transpose: bool = False) -> torch.Tensor:
+    """``mesh_apply_stacked`` through the owner walk (any layout one row of
+    which fits a block)."""
+    return _launch("owner_walk", layout, phases, diag, x, transpose)
 
 
 def mesh_apply_stacked(layout: ph_lib.MeshLayout, phases: torch.Tensor,
@@ -361,8 +642,12 @@ def mesh_apply_stacked(layout: ph_lib.MeshLayout, phases: torch.Tensor,
     """Kernel-backed ``core.photonic.mesh_apply_stacked``: phases
     ``(S, levels, slots)``, diag ``(P,)`` or ``(S, P)``, x ``(B, P)``
     shared or ``(S, B, P)`` → ``(S, B, P)``, all float32 on one card,
-    through the design ``mesh_design`` picks for the layout."""
-    return _launch(mesh_design(layout), layout, phases, diag, x, transpose)
+    through the design ``mesh_design`` picks for the layout and, for a
+    wide one, the route ``wide_route`` picks for (layout, S, B)."""
+    design = mesh_design(layout)
+    if design == "wide":
+        design = wide_route(layout, phases.shape[0], x.shape[-2])
+    return _launch(design, layout, phases, diag, x, transpose)
 
 
 mesh_apply_stacked.launches = 0

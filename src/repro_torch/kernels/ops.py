@@ -106,8 +106,9 @@ def mesh_apply_stacked(layout: _ph.MeshLayout, phases: torch.Tensor,
     """S stacked MZI meshes of one layout in one program: phases
     ``(S, levels, slots)``, diag ``(P,)`` or ``(S, P)``, x ``(B, P)``
     shared or ``(S, B, P)`` → ``(S, B, P)``.  On the card the layout picks
-    the kernel's design (``mesh_apply.mesh_design``); a layout no design
-    holds raises."""
+    the kernel's design (``mesh_apply.mesh_design``) and, for a wide one,
+    the layout, S and B its route (``mesh_apply.wide_route``); a layout
+    none holds raises."""
     if x.device.type == "cpu":
         return _ph.mesh_apply_stacked(layout, phases, diag, x, transpose)
     _no_backward("mesh_apply_stacked", (phases, diag, x))

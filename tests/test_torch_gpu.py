@@ -1,7 +1,7 @@
 """Tests that need the card: the CUDA kernels (``tt_contract`` and its
 backward ``tt_contract_grad``, ``tt_contract_batched``,
 ``tt_contract_batched_quant``,
-``mesh_apply_stacked`` in its resident and streamed designs,
+``mesh_apply_stacked`` in its resident design and its three wide routes,
 ``mesh_densify_stacked``, ``flash_attention``)
 against their plain PyTorch versions, onn's ZO step, served values (f32 and quantized) against a direct forward,
 quantization codes made on the card against the CPU's, one ZO training
@@ -31,9 +31,12 @@ each batched entry to ``tt_contract``, and the quantized kernel, which
 quantizes the f32 cores in its launch, to ``tt_contract_batched`` on the
 fake-quantized cores; the plain quantizer's codes and scales on the card
 to the CPU's bit for bit, and the kernel's quantized cores, read back
-through an identity input, to ``fake_quant_stacked`` bit for bit.  Both
+through an identity input, to ``fake_quant_stacked`` bit for bit.  The
 mesh kernels round every operation on its own in the plain version's order
-and take sin/cos from the functions torch runs on the card, so they are held to their plain versions on the card bit for bit.  ``flash_attention`` is held to ``attention_ref`` within
+and take sin/cos from the functions torch runs on the card, so they are
+held to their plain versions on the card bit for bit; the wide meshes'
+route B (``dense``: route A densifies, a 3xTF32 tensor-core product
+multiplies) is held to the f32 bound.  ``flash_attention`` is held to ``attention_ref`` within
 ``ref.attention_bound`` elementwise: the same f32 bound, and in bf16 one
 bf16 ulp of the element's own |plain| more (the two round f32 results that
 differ in the last bits); a row that sees no key must be exact zeros.  A reduced f32 LM on the card against the CPU:
@@ -387,17 +390,27 @@ def test_densify_kernel_refuses_what_it_cannot_take(cuda):
             nzs[1], torch.device("cpu")), *nzs[2:]], model, quant)
 
 
+def _routes_counted(launch, route):
+    """``launch()``'s result; asserts it added one launch to ``route`` and
+    none to any other design."""
+    before = dict(mesh.mesh_apply_stacked.design_launches)
+    y = launch()
+    after = mesh.mesh_apply_stacked.design_launches
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == route) for k in after}
+    return y
+
+
 def test_mesh_kernel_refuses_a_layout_over_shared_memory(cuda):
     """A layout whose tables pass the resident design's shared memory
-    takes the streamed design on the card (it never runs the plain version
+    takes a wide route on the card (it never runs the plain version
     there), and the resident launch function still refuses it."""
     for ports in (160, 1024):
         layout, phases, diag, x = _mesh_inputs(ports, 1, 2, True, 0, cuda)
-        before = dict(mesh.mesh_apply_stacked.design_launches)
-        y = ops.mesh_apply_stacked(layout, phases, diag, x)
-        assert mesh.mesh_apply_stacked.design_launches == {
-            "resident": before["resident"],
-            "streamed": before["streamed"] + 1}
+        assert mesh.wide_route(layout, 1, 2) == "warp_rows"
+        y = _routes_counted(
+            lambda: ops.mesh_apply_stacked(layout, phases, diag, x),
+            "warp_rows")
         assert torch.equal(y, photonic.mesh_apply_stacked(layout, phases,
                                                           diag, x))
         with pytest.raises(ValueError, match="shared memory"):
@@ -406,21 +419,24 @@ def test_mesh_kernel_refuses_a_layout_over_shared_memory(cuda):
 
 
 # label -> (layout kind, ports, S, B, shared x, transpose): onn's 1024-port
-# meshes (the columns feed of layer 0 and a per-entry transposed feed), a
-# 160-port mesh at a batch off every tile, and a Reck-ordered layout of
-# decompose_orthogonal (509 levels)
+# meshes (the columns feed of layer 0, a per-entry transposed feed, 11 x
+# 300 rows), a 160-port mesh at a batch off every tile, and a Reck-ordered
+# layout of decompose_orthogonal (509 levels)
 WIDE_CASES = {
     "rect1024-shared": ("rect", 1024, 3, 21, True, False),
     "rect1024-per-entry-tr": ("rect", 1024, 3, 37, False, True),
+    "rect1024-11x300": ("rect", 1024, 11, 300, False, False),
     "rect160-777": ("rect", 160, 3, 777, False, False),
     "reck256-per-entry-tr": ("reck", 256, 2, 19, False, True),
 }
 
 
-def _wide_inputs(label, device):
-    kind, ports, S, B, shared, transpose = WIDE_CASES[label]
+def _wide_inputs(label, device, cases=None):
+    kind, ports, S, B, shared, transpose = (cases or WIDE_CASES)[label]
     if kind == "rect":
         layout = photonic.rectangular_layout(ports)
+    elif kind == "skew":
+        layout = chip_smoke.skew_layout(ports)
     else:
         q, _ = np.linalg.qr(np.random.RandomState(ports).standard_normal(
             (ports, ports)))
@@ -435,36 +451,89 @@ def _wide_inputs(label, device):
 
 @pytest.mark.parametrize("label", sorted(WIDE_CASES))
 def test_streamed_kernel_matches_plain_bitwise(cuda, label):
-    """The streamed design against the plain version on the card, bit for
+    """Route A (warp rows) against the plain version on the card, bit for
     bit (every product and sum rounded on its own in the plain order),
-    diag ``(S, P)`` and ``(P,)``, one streamed launch a call."""
+    diag ``(S, P)`` and ``(P,)``, one route A launch a call; where the
+    dispatch picks route A it takes it too."""
     layout, phases, diag, x, transpose = _wide_inputs(label, cuda)
-    assert mesh.mesh_design(layout) == "streamed"
+    assert mesh.mesh_design(layout) == "wide" and mesh.adjacent_pairs(layout)
+    S, B = phases.shape[0], x.shape[-2]
     for d in (diag, diag[0].contiguous()):
-        before = dict(mesh.mesh_apply_stacked.design_launches)
-        y = ops.mesh_apply_stacked(layout, phases, d, x, transpose)
-        assert mesh.mesh_apply_stacked.design_launches == {
-            "resident": before["resident"],
-            "streamed": before["streamed"] + 1}
+        y = _routes_counted(lambda: mesh.launch_warp_rows(
+            layout, phases, d, x, transpose), "warp_rows")
         plain = photonic.mesh_apply_stacked(layout, phases, d, x, transpose)
         _assert_kernel_close(y, plain)
         assert torch.equal(y, plain)
+        if mesh.wide_route(layout, S, B) == "warp_rows":
+            assert torch.equal(_routes_counted(
+                lambda: ops.mesh_apply_stacked(layout, phases, d, x,
+                                               transpose), "warp_rows"), y)
+
+
+# label -> (layout kind, ports, S, B, shared x, transpose): route B's cases
+DENSE_CASES = {
+    "rect1024-1100": ("rect", 1024, 3, 1100, False, False),
+    "rect1024-1100-shared-tr": ("rect", 1024, 3, 1100, True, True),
+    "rect160-777": ("rect", 160, 3, 777, False, False),
+    "rect160-777-shared-tr": ("rect", 160, 3, 777, True, True),
+    "reck256-600-tr": ("reck", 256, 2, 600, False, True),
+}
+
+
+@pytest.mark.parametrize("label", sorted(DENSE_CASES))
+def test_dense_route_within_the_f32_bound(cuda, label):
+    """Route B (route A densifies each entry's mesh, a 3xTF32 tensor-core
+    kernel multiplies) within ``1e-5·max|plain| + 1e-6`` of the plain
+    version, x shared and per entry, transposed and not, ports off every
+    tile; one route B launch a call, and the dispatch takes it where the
+    rows per entry reach the threshold."""
+    layout, phases, diag, x, transpose = _wide_inputs(label, cuda,
+                                                      DENSE_CASES)
+    S, B = phases.shape[0], x.shape[-2]
+    y = _routes_counted(lambda: mesh.launch_dense(
+        layout, phases, diag, x, transpose), "dense")
+    plain = photonic.mesh_apply_stacked(layout, phases, diag, x, transpose)
+    assert tuple(y.shape) == tuple(plain.shape)
+    _assert_kernel_close(y, plain)
+    assert (mesh.wide_route(layout, S, B) == "dense") == (
+        B >= mesh.DENSE_MIN_ROWS_PER_PORT * layout.ports)
+    if mesh.wide_route(layout, S, B) == "dense":
+        _routes_counted(lambda: ops.mesh_apply_stacked(
+            layout, phases, diag, x, transpose), "dense")
+
+
+def test_owner_walk_on_a_layout_whose_pairs_are_not_adjacent(cuda):
+    """A 160-port layout of pairs (a, a+2) takes the owner walk by
+    dispatch, bit for bit against the plain version; route A and route B
+    refuse it."""
+    cases = {"skew160": ("skew", 160, 3, 200, False, True)}
+    layout, phases, diag, x, transpose = _wide_inputs("skew160", cuda, cases)
+    assert mesh.mesh_design(layout) == "wide"
+    assert mesh.wide_route(layout, 3, 200) == "owner_walk"
+    y = _routes_counted(lambda: ops.mesh_apply_stacked(
+        layout, phases, diag, x, transpose), "owner_walk")
+    assert torch.equal(y, photonic.mesh_apply_stacked(layout, phases, diag,
+                                                      x, transpose))
+    for launch in (mesh.launch_warp_rows, mesh.launch_dense):
+        with pytest.raises(ValueError, match="adjacent"):
+            launch(layout, phases, diag, x, transpose)
 
 
 @pytest.mark.parametrize("label", sorted(MESH_CASES))
 def test_streamed_entry_equals_the_resident_bitwise(cuda, label):
-    """Where both designs hold the layout, their launch functions give the
-    same bits, and each counts its own launches."""
+    """Where the resident design holds the layout, route A and the owner
+    walk give its bits, and each counts its own launches."""
     ports, S, B, shared, transpose = MESH_CASES[label]
     layout, phases, diag, x = _mesh_inputs(ports, S, B, shared, len(label),
                                            cuda)
-    before = dict(mesh.mesh_apply_stacked.design_launches)
-    y_s = mesh.launch_streamed(layout, phases, diag, x, transpose)
-    y_r = mesh.launch_resident(layout, phases, diag, x, transpose)
-    assert mesh.mesh_apply_stacked.design_launches == {
-        k: v + 1 for k, v in before.items()}
+    y_r = _routes_counted(lambda: mesh.launch_resident(
+        layout, phases, diag, x, transpose), "resident")
+    y_w = _routes_counted(lambda: mesh.launch_owner_walk(
+        layout, phases, diag, x, transpose), "owner_walk")
+    y_a = _routes_counted(lambda: mesh.launch_warp_rows(
+        layout, phases, diag, x, transpose), "warp_rows")
     torch.cuda.synchronize()
-    assert torch.equal(y_s, y_r)
+    assert torch.equal(y_w, y_r) and torch.equal(y_a, y_r)
 
 
 def test_mesh_entries_refuse_grad_on_the_card(cuda):
@@ -510,7 +579,9 @@ def test_onn_zo_step_on_the_card_matches_the_cpu(cuda, hidden):
     same params, ξ, batch and noise through the plain path on the CPU.
     Each stencil pass runs six stacked meshes: at hidden 1024 two resident
     (layer 0's 21-port V mesh, on the rows and on the identity columns)
-    and four streamed; at hidden 64 all six resident."""
+    and four wide ones (layer 0's U mesh on the 96 rows and 21 columns by
+    route A, the hidden layer's V and U on 43 x 96 rows by route B); at
+    hidden 64 all six resident."""
     cfg = pinn.PINNConfig(hidden=hidden, mode="onn", deriv="fd_fast",
                           use_fused_kernel=True,
                           noise=NoiseModel(enabled=True))
@@ -534,9 +605,10 @@ def test_onn_zo_step_on_the_card_matches_the_cpu(cuda, hidden):
     u_card, l_card = step(cuda)
     torch.cuda.synchronize()
     after = mesh.mesh_apply_stacked.design_launches
-    streamed = 4 if hidden == 1024 else 0
+    wide = 2 if hidden == 1024 else 0
     assert {k: after[k] - before[k] for k in after} == {
-        "resident": 2 * (6 - streamed), "streamed": 2 * streamed}
+        "resident": 2 * (6 - 2 * wide), "warp_rows": 2 * wide,
+        "dense": 2 * wide, "owner_walk": 0}
     u_cpu, l_cpu = step(torch.device("cpu"))
     assert torch.isfinite(u_card).all() and torch.isfinite(l_card).all()
     assert (u_card - u_cpu).abs().max() <= 1e-4 * u_cpu.abs().max()

@@ -149,18 +149,19 @@ def test_wide_mesh_matches_jax_gather_scan():
 
 
 def test_mesh_design_and_stream_rows():
-    """The resident design up to 138 ports of a rectangular mesh, the
-    streamed one above; rows per streamed block at the shapes of an onn
-    step (132 SMs of an H100)."""
+    """The resident design up to 138 ports of a rectangular mesh, the wide
+    routes above; rows per owner-walk block at the shapes of an onn step
+    (132 SMs of an H100)."""
     assert tmesh.mesh_design(tph.rectangular_layout(16)) == "resident"
     assert tmesh.mesh_design(tph.rectangular_layout(138)) == "resident"
     for ports in (139, 160, 1024):
-        assert tmesh.mesh_design(tph.rectangular_layout(ports)) == "streamed"
+        assert tmesh.mesh_design(tph.rectangular_layout(ports)) == "wide"
     # Reck-ordered layouts have 2P - 3 levels: 40 ports fit, 100 do not
     reck, _, _ = tph.decompose_orthogonal(_orthogonal(40, 0))
     assert tmesh.mesh_design(reck) == "resident"
     reck, _, _ = tph.decompose_orthogonal(_orthogonal(100, 0))
-    assert reck.levels == 197 and tmesh.mesh_design(reck) == "streamed"
+    assert reck.levels == 197 and tmesh.mesh_design(reck) == "wide"
+    assert tmesh.DESIGNS == ("resident", "warp_rows", "dense", "owner_walk")
     wide = tph.rectangular_layout(1024)
     assert tph.mesh_owner_plan(wide).shape == (1024, 513)
     # hidden layer 11 x 4300: 96 tiles of 45 rows, 8 whole waves
@@ -197,7 +198,8 @@ def test_mesh_entries_dispatch_on_the_device():
     y = tops.mesh_apply(layout, phases, torch.ones(200), x)
     assert torch.equal(y, tph.mesh_apply(layout, phases, torch.ones(200), x))
     assert tmesh.mesh_apply_stacked.design_launches == before
-    for launch in (tmesh.launch_resident, tmesh.launch_streamed):
+    for launch in (tmesh.launch_resident, tmesh.launch_warp_rows,
+                   tmesh.launch_dense, tmesh.launch_owner_walk):
         with pytest.raises(ValueError, match="CUDA"):
             launch(layout, phases[None], torch.ones(200), x)
 
