@@ -183,19 +183,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 three BP launches of the paper's config at batch 100 (layer 0
                 on the 100 rows and on the 21 identity columns, no dx; the
                 hidden layer on 4300 rows, with dx), the reduced spec at B
-                1000 and the rank-4 spec at B 777.  dx at phase 3's bound;
+                1000, the rank-4 spec at B 777 and a 4096-wide spec at B 777
+                (rows too wide to save every forward state), each with its
+                layout (saved states, rows and blocks).  dx at phase 3's bound;
                 each dG_k within ``tt_contract.grad_bound`` of the plain
                 chain in float64 (the kernel's summation depth, which grows
                 with the reduction length over B·M_<k·N_>k, times the
                 magnitudes it adds), with the worst element's share of it;
                 two calls bit for bit.  Two traced windows of 5 calls, call k
                 on dy·2^k, each output 2^k times the first call's bits (a
-                skipped block pass would leave the sum stale partials); one
-                window starts on the block pass, one on a PyTorch fill
-                (``trace_launches``: what each trace recorded).  Times the
-                hidden-layer call (CUDA events and alone in the second
-                window), its plain version and ``torch.autograd.grad`` of
-                ``x @ tt_to_full(cores).T``.
+                sum that missed a block's partials would leave stale ones),
+                one kernel a call; one window starts on the kernel, one on
+                four PyTorch fills (``trace_launches``: what each trace
+                recorded).
+                Times the hidden-layer call (CUDA events and alone in the
+                second window), its plain version and ``torch.autograd.grad``
+                of ``x @ tt_to_full(cores).T``.
  14. train-bp — ``launch.train.main`` with the BP optimizers at hidden
                 1024, batch 100: tt + AdamW for 50 steps with a checkpoint,
                 tonn (noise on) + AdamW and dense + SGD for 10.  Checks:
@@ -1650,7 +1653,10 @@ def phase_bp_kernel(device) -> dict:
              "reduced-1000": (tt.auto_factorize(64, 64, L=3, max_rank=2),
                               1000, True),
              "rank4-777": (tt.auto_factorize(256, 512, L=3, max_rank=4), 777,
-                           True)}
+                           True),
+             # rows of 8192 floats, steps not in place: fewer states saved
+             "wide-777": (tt.auto_factorize(4096, 4096, L=4, max_rank=2),
+                          777, True)}
     results = {}
     for i, (label, (spec, B, need_dx)) in enumerate(cases.items()):
         gen = torch.Generator().manual_seed(4000 + i)
@@ -1664,10 +1670,13 @@ def phase_bp_kernel(device) -> dict:
             False)
         bounds = ttc.grad_bound(x, cores, spec, dy)
         torch.cuda.synchronize()
+        tile = ttc.grad_tile(spec, B)
+        tiles, blocks = ttc.grad_grid(tile, B)
         row = {"case": label, "rows": B, "need_dx": need_dx,
                "modes": [list(spec.out_modes), list(spec.in_modes)],
-               "ranks": list(spec.ranks),
-               "tile": dataclasses.asdict(ttc.grad_tile(spec, B))}
+               "ranks": list(spec.ranks), "tile": dataclasses.asdict(tile),
+               "row_tiles": tiles, "blocks": blocks,
+               "sum_groups": ttc.grad_groups(blocks)}
         if need_dx:
             row["dx_max_abs_err"], row["dx_max_abs_plain"] = _check_close(
                 "tt_contract_grad dx", label, dx, pdx)
@@ -1697,15 +1706,16 @@ def phase_bp_kernel(device) -> dict:
         # Traced windows of 5 calls, call k on dy·2^k (the warm call k =
         # 0): scaling by a power of two is exact through every product and
         # sum, so each call must give the first call's bits times 2^k.  A
-        # block pass that did not run would leave the sum the previous
-        # call's partials (2^(k-1)) or stale memory.  The first window
-        # starts on the block pass; the second starts on one PyTorch
-        # kernel (``lead``), to see whether the trace drops the window's
-        # first kernel, whatever it is (here a fill).
+        # block whose partials the sum missed, or a sum that ran before
+        # them, would leave the previous call's values (2^(k-1)) or stale
+        # memory.  The first window starts on the kernel; the second
+        # starts on four PyTorch fills (``lead``), which take the place of
+        # the kernels the trace may drop at a window's start.
         dys = [dy * 2.0 ** k for k in range(6)]
         windows = {}
         for name, lead in (("bare", None),
-                           ("lead", lambda: torch.zeros(1, device=device))):
+                           ("lead", lambda: [torch.zeros(1, device=device)
+                                             for _ in range(4)])):
             outs = []
 
             def scaled():
@@ -1720,20 +1730,21 @@ def phase_bp_kernel(device) -> dict:
                     raise AssertionError(
                         f"tt_contract_grad at {label}, traced call {k}: not "
                         f"2^{k} times the first call's bits")
-            by = {("sum" if "sum_kernel" in kname else "block"): (ms, n)
-                  for kname, ms, n in trace["top"]
+            by = {kname: (ms, n) for kname, ms, n in trace["top"]
                   if "tt_contract_grad" in kname}
+            if len(by) > 1:
+                raise AssertionError(f"tt_contract_grad at {label}: more "
+                                     f"than one kernel a call: {list(by)}")
             windows[name] = {"trace": trace, "by": by,
-                             "launches_in_trace": {k: n for k, (_, n)
-                                                   in by.items()}}
+                             "launches_in_trace": sum(
+                                 n for _, n in by.values())}
         row["scaled_calls_bitwise_exact"] = True
         row["trace_launches"] = {k: w["launches_in_trace"]
                                  for k, w in windows.items()}
         by = windows["lead"]["by"]
-        alone = {k: ms / n for k, (ms, n) in by.items()}
-        row["kernel_device_ms"] = (sum(alone.values()) if len(alone) == 2
-                                   else None)
-        row["kernel_device_ms_each"] = alone
+        row["kernel_device_ms"] = (None if not by else
+                                   sum(ms for ms, _ in by.values())
+                                   / sum(n for _, n in by.values()))
         row["kernels_per_call"] = sum(n for _, n in by.values()) / 5
         trace = windows["lead"]["trace"]
         if label == "hidden-stencil":

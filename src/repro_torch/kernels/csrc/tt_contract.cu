@@ -324,10 +324,11 @@ __device__ __forceinline__ void core_to_registers(const float* gp,
 
 // One chain step over the block's rows when f_in == f_out == C <= 8 (every
 // step of the paper's spec): the core and the fiber's offsets in registers,
-// outputs in place.  Thread tid takes the fibers q = tid % fpr, +
+// outputs at the inputs' places in o (o == a: in place).  Thread tid takes the fibers q = tid % fpr, +
 // kFiberThreads, ... and, for each, the rows tid / fpr, + groups, ...
 template <int C>
-__device__ __forceinline__ void fiber_step_exact(float* a, const float* gp,
+__device__ __forceinline__ void fiber_step_exact(const float* a, float* o,
+                                                 const float* gp,
                                                  const FiberStep& st,
                                                  int nrows, int stride,
                                                  int tid) {
@@ -348,7 +349,8 @@ __device__ __forceinline__ void fiber_step_exact(float* a, const float* gp,
       for (int c = 0; c < C / 4; ++c) off[c] = swz(in0 + 4 * c);
 #pragma unroll 1
       for (int row = rg; row < nrows; row += st.groups) {
-        float* ar = a + row * stride;
+        const float* ar = a + row * stride;
+        float* orow = o + row * stride;
         float xv[C];
 #pragma unroll
         for (int c = 0; c < C / 4; ++c) {
@@ -369,7 +371,7 @@ __device__ __forceinline__ void fiber_step_exact(float* a, const float* gp,
         }
 #pragma unroll
         for (int c = 0; c < C / 4; ++c)
-          *reinterpret_cast<float4*>(ar + off[c]) =
+          *reinterpret_cast<float4*>(orow + off[c]) =
               make_float4(acc[4 * c], acc[4 * c + 1], acc[4 * c + 2],
                           acc[4 * c + 3]);
       }
@@ -379,7 +381,8 @@ __device__ __forceinline__ void fiber_step_exact(float* a, const float* gp,
       for (int j = 0; j < C; ++j) off[j] = swz(in0 + j * n_s);
 #pragma unroll 1
       for (int row = rg; row < nrows; row += st.groups) {
-        float* ar = a + row * stride;
+        const float* ar = a + row * stride;
+        float* orow = o + row * stride;
         float xv[C];
 #pragma unroll
         for (int j = 0; j < C; ++j) xv[j] = ar[off[j]];
@@ -393,7 +396,7 @@ __device__ __forceinline__ void fiber_step_exact(float* a, const float* gp,
             acc[oi] = fmaf(xv[j], g[j * C + oi], acc[oi]);
         }
 #pragma unroll
-        for (int oi = 0; oi < C; ++oi) ar[off[oi]] = acc[oi];
+        for (int oi = 0; oi < C; ++oi) orow[off[oi]] = acc[oi];
       }
     }
     ns += st.step_ns;                       // q += kFiberThreads
@@ -481,13 +484,13 @@ __device__ __forceinline__ void fiber_step_padded(const float* a, float* o,
 }
 
 template <int C>
-__device__ __forceinline__ void fiber_step(float* a, float* o,
+__device__ __forceinline__ void fiber_step(const float* a, float* o,
                                            const float* gp,
                                            const FiberStep& st, int nrows,
                                            int stride, int tid) {
   if constexpr (C <= 8) {
     if (st.f_in == C && st.f_out == C) {
-      fiber_step_exact<C>(a, gp, st, nrows, stride, tid);
+      fiber_step_exact<C>(a, o, gp, st, nrows, stride, tid);
       return;
     }
   }
@@ -495,7 +498,7 @@ __device__ __forceinline__ void fiber_step(float* a, float* o,
 }
 
 // One step of the fiber body at the template width of st.cap.
-__device__ __forceinline__ void run_fiber_step(float* a, float* o,
+__device__ __forceinline__ void run_fiber_step(const float* a, float* o,
                                                const float* gp,
                                                const FiberStep& st, int nrows,
                                                int stride, int tid) {
@@ -596,38 +599,88 @@ tt_contract_batched_quant_kernel(const float* __restrict__ x,
 // k maps each fiber's inputs a_f = A_k[row, mp, :, :, ns] (r*n_k of them) to
 // its outputs A_{k+1}[row, mp, :, :, ns] (m_k*r') through the cap x cap core
 // gp, so its reverse is
-//   dA_k fiber   = gp . dA_{k+1} fiber    (a fiber step on gp^T, widths
-//                                          swapped: the forward body again)
-//   dG_k[j][o]  += a_f[j] * dA_{k+1} fiber[o]   over every fiber.
-// A block takes a tile of rows.  It keeps dA in shared memory and walks k
-// from L-1 down to 0; for each k it recomputes A_k from its x rows with the
-// forward steps 0..k-1 (recompute, not a saving forward: the forward stays
-// the launch serving and ZO run, and the states A_1..A_{L-1} of the paper's
-// hidden layer would be 53 MB of extra traffic), reduces dG_k over its
-// fibers (reduce_core_grad) into its own slot of `partials`, and steps dA
-// back.  A second kernel sums the blocks' partials in block order.  No
-// float atomics anywhere: two calls on the same inputs give the same bits.
+//   dA_k fiber   = gp . dA_{k+1} fiber    (the forward body's sum on gp^T)
+//   dG_k[j][o]  += a_f[j] * dA_{k+1} fiber[o]   over every fiber,
+// and dA_k has A_k's layout: a thread can write its fiber's dA_k over the
+// a_f it has just read.
 //
 // What bounds it: x and dy read, dx written (12 KB a row at the paper's
-// spec, against the forward's 8), and L(L-1)/2 recomputed forward steps, L
-// backward steps and L reductions of ~r*n_k*m_k*r' FMAs per fiber: about
-// 3.5x the forward's arithmetic, still under the f32 ridge.
+// spec, 52.8 MB at the hidden layer's 4300 rows: 15.8 us at 3.35 TB/s),
+// against ~90 KFMA a row (the forward steps, every dG_k and dA_k: 11.6 us
+// at 67 TFLOP/s) and ~60 KB a row of shared-memory traffic.  The design:
+//
+// * One forward sweep, states kept on chip.  A block holds `saved` forward
+//   states plus dA for a tile of `rows` rows (saved + 1 row buffers).  The
+//   host (parse_grad) compiles a schedule of ops: the chain cut into
+//   segments of `saved` states from its end; a segment's states are made
+//   once (x loaded and stepped to its first state, the segment's steps run
+//   out of place so each state keeps its buffer), then the segment's
+//   reverse steps run on them.  With saved = L x is read once and each
+//   forward step runs once; L - 1 runs the same steps and reads x again
+//   for the last reverse step (the paper's hidden layer: a row more a
+//   tile); a wider row saves fewer states and recomputes more, in the
+//   same kernel.
+// * Reverse step k over the tile: each thread adds a_f (x) d_f into its
+//   register tile of dG_k over its fibers of step k (fibers up to 8 wide:
+//   the whole C x C tile; 16 or 32: 8 x 8 tiles, a warp a tile), then the
+//   forward body steps dA_{k+1} back over A_k on the transposed core.  Up
+//   to 8 wide both walk the same fibers on the same threads, so no barrier
+//   parts them, and the dG tile (64 registers) and the core (64) are never
+//   live together: fused into one loop they spilled.
+// * The combine costs a fixed amount per tile and k: a butterfly
+//   reduce-scatter over each warp's 32 lanes (62 shuffles for 64 values,
+//   where a tree costs 320), the warps' sums added in warp order through
+//   shared memory and into the block's partial of sum |G_k| floats.
+// * Persistent blocks: at most one wave of them (parse_grad's `blocks`),
+//   block i taking the row tiles i, i + blocks, ... and adding each tile's
+//   sums to its partial in tile order, so the cores' setup and the ticket
+//   below are paid once a block, and the tiles spread evenly.
+// * One launch a call: after its partial every block takes a ticket of
+//   its group (ceil(sqrt(blocks)) blocks a group, at least 32: one level
+//   up to 32 blocks); the group's last block sums the group's partials in
+//   block order, and the last group's the group sums in group order, into
+//   grad, resetting the tickets to 0.  No
+//   float atomics and no order that depends on arrival: two calls on the
+//   same inputs give the same bits.  The tickets belong to one call at a
+//   time: calls on one device must not overlap on two streams.
+// * The kernel is instantiated for the widest step (kCap 8, 16 or 32), so
+//   the paper's instantiation carries no code of wider fibers.
 
-constexpr int kRedSlots = 16;      // groups of lanes whose 8x8 tiles meet
-constexpr int kGradSumThreads = 128;
+constexpr int kGradWarps = kFiberThreads / 32;
+constexpr int kRedFloats = 16 * 64;   // the combine's staging: 16 8x8 tiles
+constexpr int kMaxGradOps = 96;       // >= 2L + L*L + 2 for L <= kMaxCores
+constexpr int kSumChunk = 16;         // partials summed pairwise 16 at a time
+constexpr int kSumGroup = 32;         // the fewest blocks a group of the sum
 
-// The backward's tiling: the forward steps (rows, stride, the x tile),
-// the backward steps (step k with f_in and f_out swapped, so dA_{k+1} ->
-// dA_k runs the forward body on the transposed core), the dy and dx tiles
-// and the shared buffers of each direction.
+enum GradOpCode : int { kOpLoadX, kOpLoadDy, kOpForward, kOpReverse,
+                        kOpStoreDx };
+
+// One op of a block's schedule.  kOpForward: A_{k+1} = step_k(buffer a)
+// into buffer b.  kOpReverse: dG_k from A_k (buffer a) and dA_{k+1}
+// (buffer b); dA_k over buffer a unless k == 0 and dx is not needed.  The
+// loads and the store move x, dy or dx through buffer a.
+struct GradOp {
+  int code;
+  int k;
+  int a;
+  int b;
+  int sync;                 // __syncthreads() after the op
+};
+
 struct GradChain {
-  FiberChain fwd;
-  FiberStep back[kMaxCores];
+  FiberChain fwd;           // the forward steps, rows, stride, the x tile
+  FiberStep back[kMaxCores];  // step k, widths swapped: dA_{k+1} -> dA_k
+  unsigned long long magic_nk[kMaxCores];  // ceil(2^32 / n_k)
+  unsigned long long magic_rn[kMaxCores];  // ceil(2^32 / r_{k+1})
   TileIO dy, dx;
-  int fwd_buffers;          // 1: every step in place, else 2
-  int back_buffers;
-  int need_dx;
-  int partial_floats;       // sum |G_k|: one block's slot of partials
+  int saved;                // forward states kept; saved + 1 row buffers
+  int ops;
+  GradOp op[kMaxGradOps];
+  int partial_floats;       // sum |G_k|: one block's partial
+  int tiles;                // row tiles: ceil(batch / rows)
+  int blocks;               // the grid, at most tiles
+  int group;                // blocks a group (the first level of the sum)
+  int groups;
 };
 
 // gpT = gp^T for every step: the backward step's cap x cap core.  Padding
@@ -648,182 +701,504 @@ __device__ __forceinline__ void transpose_cores(const TTChain& chain,
   }
 }
 
-// One block's dG_k: the sum over its fibers (row, mp, ns) of a_f[j] *
-// d_f[o], a = A_k (fiber inputs, f_in) and d = dA_{k+1} (fiber outputs,
-// f_out), written to out[G_k index of (j, o)].  dG is cut into 8 x 8 tiles;
-// each tile takes G = kFiberThreads / T' threads (T' the tile count rounded
-// up to a power of 2), and thread g of a tile the fibers g, g + G, ... in
-// that order, accumulating its tile in registers.  Then a fixed shuffle tree
-// over each group of W = min(G, 32) lanes, the groups' sums through shared
-// memory (red), and a tile's G / W groups added in group order.
-__device__ __forceinline__ void reduce_core_grad(const TTChain& chain, int k,
-                                                 const FiberStep& st,
-                                                 const float* a,
-                                                 const float* d, float* red,
-                                                 float* out, int nrows,
-                                                 int stride, int tid) {
-  const int f_in = st.f_in;
-  const int f_out = st.f_out;
-  const int n_s = st.n_s;
-  const int fpr = st.fpr;
-  const int to_n = (f_out + 7) / 8;
-  const int tiles = ((f_in + 7) / 8) * to_n;
-  int tiles_p2 = 1;
-  while (tiles_p2 < tiles) tiles_p2 *= 2;
-  const int G = kFiberThreads / tiles_p2;
-  const int W = G < 32 ? G : 32;
-  const int t = tid / G;
-  float acc[64];
+// Round S of butterfly<NV> on a lane holding N values (N, S compile-time, so
+// every index is static and the values stay in registers).
+template <int NV, int N, int S>
+__device__ __forceinline__ void butterfly_round(float (&v)[NV], int lane) {
+  if constexpr (N >= 2) {
+    const bool upper = (lane & S) != 0;
 #pragma unroll
-  for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
-  if (t < tiles) {
-    const int j0 = (t / to_n) * 8;
-    const int o0 = (t - (t / to_n) * to_n) * 8;
-    const int nf = nrows * fpr;
-#pragma unroll 1
-    for (int i = tid - t * G; i < nf; i += G) {
-      const int row = i / fpr;
-      const int q = i - row * fpr;
-      const int mp = q / n_s;
-      const int ns = q - mp * n_s;
-      const float* ar = a + row * stride;
-      const float* dr = d + row * stride;
-      const int a0 = mp * f_in * n_s + ns;
-      const int d0 = mp * f_out * n_s + ns;
-      float av[8], dv[8];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        av[c] = j0 + c < f_in ? ar[swz(a0 + (j0 + c) * n_s)] : 0.0f;
-        dv[c] = o0 + c < f_out ? dr[swz(d0 + (o0 + c) * n_s)] : 0.0f;
-      }
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-#pragma unroll
-        for (int oo = 0; oo < 8; ++oo)
-          acc[jj * 8 + oo] = fmaf(av[jj], dv[oo], acc[jj * 8 + oo]);
-      }
+    for (int i = 0; i < N / 2; ++i) {
+      const float send = upper ? v[i] : v[i + N / 2];
+      const float keep = upper ? v[i + N / 2] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, S);
     }
+  } else {
+    v[0] += __shfl_xor_sync(0xffffffffu, v[0], S);
   }
-  for (int off = W / 2; off > 0; off /= 2) {
-#pragma unroll
-    for (int e = 0; e < 64; ++e)
-      acc[e] += __shfl_down_sync(0xffffffffu, acc[e], off, W);
-  }
-  if (tid % W == 0) {
-    float* slot = red + (tid / W) * 64;
-#pragma unroll
-    for (int e = 0; e < 64; ++e) slot[e] = acc[e];
-  }
-  __syncthreads();
-  const int groups = G / W;
-  const int nk = chain.in_modes[k];
-  const int mk = chain.out_modes[k];
-  const int rn = chain.ranks[k + 1];
-  for (int idx = tid; idx < tiles * 64; idx += kFiberThreads) {
-    const int tt = idx >> 6;
-    const int e = idx & 63;
-    const int j = (tt / to_n) * 8 + (e >> 3);
-    const int o = (tt - (tt / to_n) * to_n) * 8 + (e & 7);
-    if (j >= f_in || o >= f_out) continue;
-    const float* slot = red + (tt * G / W) * 64 + e;
-    float sum = slot[0];
-    for (int h = 1; h < groups; ++h) sum += slot[h * 64];
-    // j = r * n_k + nki, o = mki * r' + rni  ->  G[r, mki, nki, rni]
-    const int r = j / nk;
-    const int nki = j - r * nk;
-    const int mki = o / rn;
-    const int rni = o - mki * rn;
-    out[((r * mk + mki) * nk + nki) * rn + rni] = sum;
-  }
-  __syncthreads();
+  if constexpr (S > 1) butterfly_round<NV, (N >= 2 ? N / 2 : 1), S / 2>(v, lane);
 }
 
-// grid (row tiles): block i takes rows [i*rows, (i+1)*rows) of x and dy,
-// writes their dx (need_dx) and its dG partials to partials + i *
-// partial_floats.  Shared memory: the cores as loaded, gp, gpT, red, the
-// forward buffers, the backward buffers.
+// Sums NV values over a warp's 32 lanes, each lane ending with NV/32 sums
+// (or one, for NV < 32): round s = 16, 8, ..., 1 halves the values a lane
+// holds, the lane with bit s set keeping the upper half and adding its
+// partner's; once a lane holds one value the rounds add it to its
+// partner's.  Every value passes through 5 additions.  Afterwards lane l
+// holds, as v[i], the sum of value (l >> (5 - R)) * (NV >> R) + i, R =
+// min(5, log2 NV); lanes with a nonzero (l mod 2^(5 - R)) hold copies.
+template <int NV>
+__device__ __forceinline__ void butterfly(float (&v)[NV], int lane) {
+  butterfly_round<NV, NV, 16>(v, lane);
+}
+
+// After butterfly<NV>, lane `lane` of warp `slot` writes its sums to
+// red[slot * NV + index].
+template <int NV>
+__device__ __forceinline__ void stage_sums(const float (&v)[NV], float* red,
+                                           int slot, int lane) {
+  // rounds of halving in butterfly<NV> (NV 16 or 64): log2 NV, at most 5
+  constexpr int R = NV >= 32 ? 5 : NV >= 16 ? 4 : NV >= 8 ? 3 : 2;
+  constexpr int kHeld = NV >> R;
+  if ((lane & ((1 << (5 - R)) - 1)) != 0) return;
+  float* dst = red + slot * NV + (lane >> (5 - R)) * kHeld;
+#pragma unroll
+  for (int i = 0; i < kHeld; ++i) dst[i] = v[i];
+}
+
+// Position of dG_k[j][o] (j = r*n_k + nki, o = mki*r' + rni) in G_k[r, mki,
+// nki, rni].
+__device__ __forceinline__ int core_index(const TTChain& chain,
+                                          const GradChain& gc, int k, int j,
+                                          int o) {
+  const int nk = chain.in_modes[k];
+  const int rn = chain.ranks[k + 1];
+  const int r = fast_div(j, gc.magic_nk[k]);
+  const int mki = fast_div(o, gc.magic_rn[k]);
+  return ((r * chain.out_modes[k] + mki) * nk + (j - r * nk)) * rn +
+         (o - mki * rn);
+}
+
+// Writes or adds (after the first tile of a block) one sum of dG_k to the
+// block's partial.  The same thread takes the same element in every tile.
+__device__ __forceinline__ void add_partial(float* part, int e, float sum,
+                                            bool first) {
+  part[e] = first ? sum : part[e] + sum;
+}
+
+// This thread's C x C tile of dG_k over its fibers of step k, acc[j][o] +=
+// a_f[j] * d_f[o], walking the fibers as the forward body walks them
+// (fiber q = tid % fpr, + kFiberThreads, ...; rows tid / fpr, + groups,
+// ...), so that the back step after it touches only fibers this thread has
+// read.  Fibers of exactly C inputs and outputs load as float4 where
+// contiguous; narrower ones pad with 0.
+template <int C>
+__device__ __forceinline__ void reduce_fibers(const float* a, const float* d,
+                                              const FiberStep& st, int nrows,
+                                              int stride, int tid,
+                                              float (&acc)[C * C]) {
+  const int rg = fast_div(tid, st.magic_fpr);
+  if (rg >= st.groups) return;
+  const int n_s = st.n_s;
+  const int fi = st.f_in;
+  const int fo = st.f_out;
+  const bool vec = fi == C && fo == C && n_s == 1;
+  int q = tid - rg * st.fpr;
+  int mp = fast_div(q, st.magic_ns);
+  int ns = q - mp * n_s;
+#pragma unroll 1
+  for (; q < st.fpr; q += kFiberThreads) {
+    const int a0 = mp * fi * n_s + ns;      // A_k input j at a0 + j * n_s
+    const int d0 = mp * fo * n_s + ns;      // dA_{k+1} output o at d0 + o * n_s
+#pragma unroll 1
+    for (int row = rg; row < nrows; row += st.groups) {
+      const float* ar = a + row * stride;
+      const float* dr = d + row * stride;
+      float av[C], dv[C];
+      if (vec) {
+#pragma unroll
+        for (int c = 0; c < C / 4; ++c) {
+          const float4 u = *reinterpret_cast<const float4*>(ar + swz(a0 + 4 * c));
+          const float4 w = *reinterpret_cast<const float4*>(dr + swz(d0 + 4 * c));
+          av[4 * c] = u.x; av[4 * c + 1] = u.y;
+          av[4 * c + 2] = u.z; av[4 * c + 3] = u.w;
+          dv[4 * c] = w.x; dv[4 * c + 1] = w.y;
+          dv[4 * c + 2] = w.z; dv[4 * c + 3] = w.w;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          av[j] = j < fi ? ar[swz(a0 + j * n_s)] : 0.0f;
+          dv[j] = j < fo ? dr[swz(d0 + j * n_s)] : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+#pragma unroll
+        for (int o = 0; o < C; ++o)
+          acc[j * C + o] = fmaf(av[j], dv[o], acc[j * C + o]);
+      }
+    }
+    ns += st.step_ns;                       // q += kFiberThreads
+    mp += st.step_mp;
+    if (ns >= n_s) {
+      ns -= n_s;
+      ++mp;
+    }
+  }
+}
+
+// Reverse step k for fibers up to 8 wide (cap C = 4 or 8): dG_k over this
+// thread's fibers, summed by butterfly into red (one slot a warp); then
+// dA_{k+1} -> dA_k over A_k by the forward body on the transposed core
+// (same fibers, same threads: no barrier between); then the four warps'
+// sums added in warp order into the block's partial.
+template <int C>
+__device__ __forceinline__ void reverse_small(const TTChain& chain,
+                                              const GradChain& gc, int k,
+                                              float* a, const float* d,
+                                              const float* gpT, bool da,
+                                              float* red, float* part,
+                                              bool first, int nrows,
+                                              int tid) {
+  constexpr int NV = C * C;
+  const FiberStep& st = gc.fwd.step[k];
+  {
+    float acc[NV];
+#pragma unroll
+    for (int e = 0; e < NV; ++e) acc[e] = 0.0f;
+    reduce_fibers<C>(a, d, st, nrows, gc.fwd.stride, tid, acc);
+    butterfly<NV>(acc, tid & 31);
+    stage_sums<NV>(acc, red, tid >> 5, tid & 31);
+  }
+  if (da) fiber_step<C>(d, a, gpT, gc.back[k], nrows, gc.fwd.stride, tid);
+  __syncthreads();
+  if (tid < NV) {
+    const int j = tid / C;
+    const int o = tid - j * C;
+    if (j < st.f_in && o < st.f_out) {
+      float sum = red[tid];
+#pragma unroll
+      for (int w = 1; w < kGradWarps; ++w) sum += red[w * NV + tid];
+      add_partial(part, chain.core_off[k] + core_index(chain, gc, k, j, o),
+                  sum, first);
+    }
+  }
+}
+
+// Reverse step k for fibers 16 or 32 wide: dG_k in 8 x 8 tiles (T of them).
+// With T' = T rounded up to a power of 2, each tile takes wpt = 4 /
+// min(4, T') warps and each warp the tiles warp / wpt, + 4 / wpt, ...; the
+// wpt * 32 lanes of a tile split each row's fibers (lane l: fibers l, +
+// wpt * 32, ...), rows in order.  Each warp's tile is summed by butterfly
+// into red, the wpt warps' sums added in order into the partial.  Then the
+// forward body steps dA_{k+1} back over A_k on the transposed core.
+template <int C>
+__device__ __forceinline__ void reverse_tiles(const TTChain& chain,
+                                              const GradChain& gc, int k,
+                                              float* a, const float* d,
+                                              const float* gpT, bool da,
+                                              float* red, float* part,
+                                              bool first, int nrows,
+                                              int tid) {
+  const FiberStep& st = gc.fwd.step[k];
+  const int stride = gc.fwd.stride;
+  const int fi = st.f_in;
+  const int fo = st.f_out;
+  const int n_s = st.n_s;
+  const int to_n = (fo + 7) / 8;
+  const int tiles = ((fi + 7) / 8) * to_n;
+  int tiles_p2 = 1;
+  while (tiles_p2 < tiles) tiles_p2 *= 2;
+  const int wpt = kGradWarps / min(kGradWarps, tiles_p2);
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int sub = warp % wpt;
+  const int span = wpt * 32;                // lanes a tile
+  const int l0 = sub * 32 + lane;
+  const int span_mp = span / n_s;           // once per call, not per fiber
+  const int span_ns = span - span_mp * n_s;
+  const int mp0 = l0 / n_s;
+  const int ns0 = l0 - mp0 * n_s;
+#pragma unroll 1
+  for (int t = warp / wpt; t < tiles; t += kGradWarps / wpt) {
+    const int tj = t / to_n;
+    const int j0 = tj * 8;
+    const int o0 = (t - tj * to_n) * 8;
+    float acc[64];
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
+#pragma unroll 1
+    for (int row = 0; row < nrows; ++row) {
+      const float* ar = a + row * stride;
+      const float* dr = d + row * stride;
+      int mp = mp0;
+      int ns = ns0;
+#pragma unroll 1
+      for (int q = l0; q < st.fpr; q += span) {
+        const int a0 = mp * fi * n_s + ns;
+        const int d0 = mp * fo * n_s + ns;
+        float av[8], dv[8];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          av[c] = j0 + c < fi ? ar[swz(a0 + (j0 + c) * n_s)] : 0.0f;
+          dv[c] = o0 + c < fo ? dr[swz(d0 + (o0 + c) * n_s)] : 0.0f;
+        }
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+          for (int oo = 0; oo < 8; ++oo)
+            acc[jj * 8 + oo] = fmaf(av[jj], dv[oo], acc[jj * 8 + oo]);
+        }
+        ns += span_ns;
+        mp += span_mp;
+        if (ns >= n_s) {
+          ns -= n_s;
+          ++mp;
+        }
+      }
+    }
+    butterfly<64>(acc, lane);
+    stage_sums<64>(acc, red, t * wpt + sub, lane);
+  }
+  __syncthreads();
+  for (int idx = tid; idx < tiles * 64; idx += kFiberThreads) {
+    const int t = idx >> 6;
+    const int e = idx & 63;
+    const int tj = t / to_n;
+    const int j = tj * 8 + (e >> 3);
+    const int o = (t - tj * to_n) * 8 + (e & 7);
+    if (j >= fi || o >= fo) continue;
+    const float* slot = red + t * wpt * 64 + e;
+    float sum = slot[0];
+    for (int h = 1; h < wpt; ++h) sum += slot[h * 64];
+    add_partial(part, chain.core_off[k] + core_index(chain, gc, k, j, o), sum,
+                first);
+  }
+  if (da) {                                 // dA_{k+1} -> dA_k over A_k
+    __syncthreads();
+    const FiberStep& bst = gc.back[k];
+    fiber_step_padded<C>(d, a, gpT, bst, nrows, stride, tid);
+  }
+}
+
+// Reverse step k at the template width of its cap, up to kCap.
+template <int kCap>
+__device__ __forceinline__ void reverse_step(const TTChain& chain,
+                                             const GradChain& gc, int k,
+                                             float* a, const float* d,
+                                             const float* gpT_all, bool da,
+                                             float* red, float* part,
+                                             bool first, int nrows, int tid) {
+  const FiberStep& st = gc.fwd.step[k];
+  const float* gpT = gpT_all + st.gp_off;
+  if (st.cap == 4) {
+    reverse_small<4>(chain, gc, k, a, d, gpT, da, red, part, first, nrows,
+                     tid);
+  } else if (kCap == 8 || st.cap == 8) {
+    reverse_small<8>(chain, gc, k, a, d, gpT, da, red, part, first, nrows,
+                     tid);
+  } else if constexpr (kCap >= 16) {
+    if (kCap == 16 || st.cap == 16)
+      reverse_tiles<16>(chain, gc, k, a, d, gpT, da, red, part, first, nrows,
+                        tid);
+    else if constexpr (kCap == 32)
+      reverse_tiles<32>(chain, gc, k, a, d, gpT, da, red, part, first, nrows,
+                        tid);
+  }
+}
+
+// A forward step at the template width of its cap, up to kCap.
+template <int kCap>
+__device__ __forceinline__ void forward_step(const float* a, float* o,
+                                             const float* gp,
+                                             const FiberStep& st, int nrows,
+                                             int stride, int tid) {
+  if (st.cap == 4) {
+    fiber_step<4>(a, o, gp, st, nrows, stride, tid);
+  } else if (kCap == 8 || st.cap == 8) {
+    fiber_step<8>(a, o, gp, st, nrows, stride, tid);
+  } else if constexpr (kCap >= 16) {
+    if (kCap == 16 || st.cap == 16)
+      fiber_step<16>(a, o, gp, st, nrows, stride, tid);
+    else if constexpr (kCap == 32)
+      fiber_step<32>(a, o, gp, st, nrows, stride, tid);
+  }
+}
+
+// v[0] = the pairwise sum of v[0..kSumChunk), level W and up (W
+// compile-time: static indices, registers).
+template <int V, int W>
+__device__ __forceinline__ void pairwise(float (&v)[kSumChunk][V]) {
+#pragma unroll
+  for (int i = 0; i < kSumChunk; i += 2 * W) {
+#pragma unroll
+    for (int c = 0; c < V; ++c) v[i][c] += v[i + W][c];
+  }
+  if constexpr (2 * W < kSumChunk) pairwise<V, 2 * W>(v);
+}
+
+// dst[e] = the sum over b < n of src[b * floats + e] for e < floats, read
+// through L2 (other blocks wrote src).  V floats side by side a thread
+// (float4 when floats % 4 == 0): cols = floats / V columns, split into
+// parts = min(kFiberThreads / cols, n) ranges of blocks (1 when cols >=
+// kFiberThreads), part p taking blocks [p*n/parts, (p+1)*n/parts).  A part
+// adds kSumChunk blocks at a time pairwise, the chunks in order; the parts'
+// sums are added in part order through `scratch` (parts * floats floats).
+template <int V>
+__device__ __forceinline__ void sum_partials(const float* src, int n,
+                                             int floats, float* dst,
+                                             float* scratch, int tid) {
+  const int cols = floats / V;
+  const int parts = cols >= kFiberThreads
+                        ? 1
+                        : min(kFiberThreads / cols, n);
+  const int p = tid / cols;
+  if (p < parts) {
+    const int b_lo = p * n / parts;
+    const int b_hi = (p + 1) * n / parts;
+    float* out = parts == 1 ? dst : scratch + p * floats;
+    for (int col = tid - p * cols; col < cols; col += kFiberThreads) {
+      float sum[V];
+#pragma unroll 1
+      for (int b0 = b_lo; b0 < b_hi; b0 += kSumChunk) {
+        float v[kSumChunk][V];
+#pragma unroll
+        for (int i = 0; i < kSumChunk; ++i) {
+          if (b0 + i < b_hi) {
+            const float* at = src + (size_t)(b0 + i) * floats + col * V;
+            if constexpr (V == 4) {
+              const float4 u = __ldcg(reinterpret_cast<const float4*>(at));
+              v[i][0] = u.x;
+              v[i][1] = u.y;
+              v[i][2] = u.z;
+              v[i][3] = u.w;
+            } else {
+              v[i][0] = __ldcg(at);
+            }
+          } else {
+#pragma unroll
+            for (int c = 0; c < V; ++c) v[i][c] = 0.0f;
+          }
+        }
+        pairwise<V, 1>(v);
+#pragma unroll
+        for (int c = 0; c < V; ++c)
+          sum[c] = b0 == b_lo ? v[0][c] : sum[c] + v[0][c];
+      }
+#pragma unroll
+      for (int c = 0; c < V; ++c) out[col * V + c] = sum[c];
+    }
+  }
+  if (parts == 1) return;
+  __syncthreads();
+  for (int e = tid; e < floats; e += kFiberThreads) {
+    float sum = scratch[e];
+    for (int q = 1; q < parts; ++q) sum += scratch[q * floats + e];
+    dst[e] = sum;
+  }
+}
+
+__device__ __forceinline__ void sum_partials_any(const float* src, int n,
+                                                 int floats, float* dst,
+                                                 float* scratch, int tid) {
+  if (floats % 4 == 0)
+    sum_partials<4>(src, n, floats, dst, scratch, tid);
+  else
+    sum_partials<1>(src, n, floats, dst, scratch, tid);
+}
+
+// A grid of gc.blocks blocks (at most one wave of block slots): block i
+// takes the row tiles i, i + blocks, ... in turn (gc.fwd.rows rows each of
+// x and dy), runs the schedule on each (writing its dx when dx is given),
+// and adds each tile's sum of every dG_k to its partial at partials + i *
+// partial_floats in tile order; then the two-level sum.  Shared memory:
+// the cores as loaded, gp, gpT, red, saved + 1 row buffers.
+// kCap: the widest step's template width, 8 (every step 4 or 8 wide), 16
+// or 32; the narrower instantiations carry no code of the wider steps.
+template <int kCap>
 __global__ void __launch_bounds__(kFiberThreads, 3)
 tt_contract_grad_kernel(const float* __restrict__ x,
                         const float* __restrict__ dy, float* __restrict__ dx,
-                        float* __restrict__ partials, int batch,
-                        const __grid_constant__ TTChain chain,
+                        float* __restrict__ partials,
+                        float* __restrict__ grad, int* __restrict__ tickets,
+                        int batch, const __grid_constant__ TTChain chain,
                         const __grid_constant__ GradChain gc) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const FiberChain& fc = gc.fwd;
   const int core_floats = (chain.core_off[chain.L] + 3) & ~3;
-  const int buf = fc.rows * fc.stride;
   float* g_all = smem;
   float* gp_all = g_all + core_floats;
   float* gpT_all = gp_all + fc.gp_floats;
   float* red = gpT_all + fc.gp_floats;
-  float* f0 = red + kRedSlots * 64;
-  float* f1 = f0 + (gc.fwd_buffers - 1) * buf;
-  float* d = f1 + buf;
-  float* d_other = d + (gc.back_buffers - 1) * buf;
+  float* bufs = red + kRedFloats;
+  const int buf = fc.rows * fc.stride;
   const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * fc.rows;
-  const int nrows = min(fc.rows, batch - row0);
-  const float* xs = x + (size_t)row0 * chain.in_dim;
-  float* out = partials + (size_t)blockIdx.x * gc.partial_floats;
+  const int floats = gc.partial_floats;
+  float* part = partials + (size_t)blockIdx.x * floats;
 
   CopyCores{0}(chain, g_all, tid);
-  move_tile<true>(dy + (size_t)row0 * chain.out_dim, d, nrows,
-                  chain.out_dim, gc.dy, fc.stride, tid);
   __syncthreads();
   repack_cores(chain, fc, g_all, gp_all, tid);
   __syncthreads();
   transpose_cores(chain, fc, gp_all, gpT_all, tid);
-
-  for (int k = chain.L - 1; k >= 0; --k) {
-    move_tile<true>(xs, f0, nrows, chain.in_dim, fc.x, fc.stride, tid);
-    __syncthreads();
-    float* a = f0;
-    float* o = f1;
-    for (int s = 0; s < k; ++s) {               // A_k from x
-      const FiberStep& st = fc.step[s];
-      float* next = st.in_place ? a : o;
-      run_fiber_step(a, next, gp_all + st.gp_off, st, nrows, fc.stride, tid);
-      __syncthreads();
-      if (!st.in_place) {
-        o = a;
-        a = next;
+  // the first op's barrier (after dy's load) orders gpT before its use
+#pragma unroll 1
+  for (int tile = blockIdx.x; tile < gc.tiles; tile += gc.blocks) {
+    const int row0 = tile * fc.rows;
+    const int nrows = min(fc.rows, batch - row0);
+    const bool first = tile == blockIdx.x;
+#pragma unroll 1
+    for (int i = 0; i < gc.ops; ++i) {
+      const GradOp& op = gc.op[i];
+      float* a = bufs + op.a * buf;
+      float* b = bufs + op.b * buf;
+      switch (op.code) {
+        case kOpLoadX:
+          move_tile<true>(x + (size_t)row0 * chain.in_dim, a, nrows,
+                          chain.in_dim, fc.x, fc.stride, tid);
+          break;
+        case kOpLoadDy:
+          move_tile<true>(dy + (size_t)row0 * chain.out_dim, a, nrows,
+                          chain.out_dim, gc.dy, fc.stride, tid);
+          break;
+        case kOpForward:
+          forward_step<kCap>(a, b, gp_all + fc.step[op.k].gp_off,
+                             fc.step[op.k], nrows, fc.stride, tid);
+          break;
+        case kOpReverse:
+          reverse_step<kCap>(chain, gc, op.k, a, b, gpT_all,
+                             op.k > 0 || dx, red, part, first, nrows, tid);
+          break;
+        default:
+          move_tile<false>(a, dx + (size_t)row0 * chain.in_dim, nrows,
+                           chain.in_dim, gc.dx, fc.stride, tid);
+          break;
       }
-    }
-    reduce_core_grad(chain, k, fc.step[k], a, d, red,
-                     out + chain.core_off[k], nrows, fc.stride, tid);
-    if (k > 0 || gc.need_dx) {                  // dA_{k+1} -> dA_k
-      const FiberStep& st = gc.back[k];
-      float* next = st.in_place ? d : d_other;
-      run_fiber_step(d, next, gpT_all + st.gp_off, st, nrows, fc.stride,
-                     tid);
-      __syncthreads();
-      if (!st.in_place) {
-        d_other = d;
-        d = next;
-      }
+      if (op.sync) __syncthreads();
     }
   }
-  if (gc.need_dx)
-    move_tile<false>(d, dx + (size_t)row0 * chain.in_dim, nrows,
-                     chain.in_dim, gc.dx, fc.stride, tid);
-}
 
-// dG[e] = the sum of the blocks' partials[b][e] over b, one warp an
-// element: lane l adds blocks l, l + 32, ... in order, then a fixed
-// shuffle tree over the lanes.
-__global__ void __launch_bounds__(kGradSumThreads)
-tt_contract_grad_sum_kernel(const float* __restrict__ partials, int blocks,
-                            int floats, float* __restrict__ grad) {
-  const int e = blockIdx.x * (kGradSumThreads / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  float sum = 0.0f;
-  if (e < floats)
-    for (int b = lane; b < blocks; b += 32)
-      sum += partials[(size_t)b * floats + e];
-  for (int off = 16; off > 0; off /= 2)
-    sum += __shfl_down_sync(0xffffffffu, sum, off);
-  if (e < floats && lane == 0) grad[e] = sum;
+  // The two-level sum.  The block's partials are ordered before its
+  // group's ticket by the barrier and one thread's fence (as a grid
+  // barrier orders a block's writes); the last block of a group sums the
+  // group's blocks in block order (into grad when there is one group), the
+  // last group's last block the group sums in group order.  red holds the
+  // two flags, then the sums' scratch.
+  int* last = reinterpret_cast<int*>(red);
+  float* scratch = red + 4;
+  const int group = blockIdx.x / gc.group;
+  const int first = group * gc.group;
+  const int members = min(gc.group, gc.blocks - first);
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    last[0] = atomicAdd(tickets + group, 1) == members - 1;
+    if (last[0]) __threadfence();
+  }
+  __syncthreads();
+  if (!last[0]) return;
+  float* level = gc.groups == 1
+                     ? grad
+                     : partials + (size_t)(gc.blocks + group) * floats;
+  sum_partials_any(partials + (size_t)first * floats, members, floats, level,
+                   scratch, tid);
+  if (gc.groups == 1) {
+    if (tid == 0) tickets[group] = 0;
+    return;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    tickets[group] = 0;
+    __threadfence();
+    last[1] = atomicAdd(tickets + gc.groups, 1) == gc.groups - 1;
+    if (last[1]) __threadfence();
+  }
+  __syncthreads();
+  if (!last[1]) return;
+  sum_partials_any(partials + (size_t)gc.blocks * floats, gc.groups, floats,
+                   grad, scratch, tid);
+  if (tid == 0) tickets[gc.groups] = 0;
 }
 
 // Fill `chain` from the descriptor; false for a descriptor the kernels
@@ -938,32 +1313,107 @@ size_t parse_batched(const void* desc, const void* x, const void* y,
   return parse_fibers(*chain, fc, rows, x, y);
 }
 
-// The backward's tiling at `rows` rows per block (kernels/tt_contract.py::
-// grad_tile computes the same layout); the dynamic shared memory it needs,
-// or 0 for a chain it cannot take.
-size_t parse_grad(const TTChain& chain, GradChain* gc, int rows,
-                  const void* x, const void* dy, const void* dx,
-                  int need_dx) {
-  if (parse_fibers(chain, &gc->fwd, rows, x, nullptr) == 0) return 0;
-  gc->fwd_buffers = 1;
-  for (int k = 0; k < chain.L; ++k) {
+// The backward's layout at `rows` rows a block and `saved` forward states
+// (kernels/tt_contract.py::grad_tile computes the same), its schedule and
+// the two-level sum of its `batch` rows' partials; the dynamic shared
+// memory it needs, or 0 for arguments it cannot take.  The schedule cuts
+// the chain into segments of `saved` states from its end.  For each: x
+// loaded and stepped to the segment's first state (in place, or between two
+// buffers), the segment's states made out of place into buffers of their
+// own, dy loaded with the first x, then the reverse steps from the
+// segment's end, dA_k taking A_k's buffer.  Buffers are taken lowest first.
+size_t parse_grad(const TTChain& chain, GradChain* gc, int batch, int rows,
+                  int saved, int blocks, const void* x, const void* dy,
+                  const void* dx) {
+  if (batch < 1 || parse_fibers(chain, &gc->fwd, rows, x, nullptr) == 0)
+    return 0;
+  gc->tiles = (batch + rows - 1) / rows;
+  if (blocks < 1 || blocks > gc->tiles) return 0;
+  gc->blocks = blocks;
+  const int L = chain.L;
+  bool steps_in_place = true;               // steps 0..L-2: the forward's
+  for (int k = 0; k < L; ++k) {
     FiberStep& st = gc->back[k];
     st = gc->fwd.step[k];
     st.f_in = gc->fwd.step[k].f_out;
     st.f_out = gc->fwd.step[k].f_in;
-    if (!st.in_place) gc->fwd_buffers = 2;
+    gc->magic_nk[k] = reciprocal(chain.in_modes[k]);
+    gc->magic_rn[k] = reciprocal(chain.ranks[k + 1]);
+    if (k < L - 1 && !gc->fwd.step[k].in_place) steps_in_place = false;
   }
-  gc->back_buffers = gc->fwd_buffers;
+  if (saved < (L > 1 && !steps_in_place ? 2 : 1) || saved > L) return 0;
+  gc->saved = saved;
+  const bool need_dx = dx != nullptr;
+  unsigned free_bufs = (1u << (saved + 1)) - 1;
+  int n = 0;
+  bool ok = true;
+  auto take = [&]() {
+    if (free_bufs == 0) {
+      ok = false;
+      return 0;
+    }
+    const int b = __builtin_ctz(free_bufs);
+    free_bufs &= free_bufs - 1;
+    return b;
+  };
+  auto give = [&](int b) { free_bufs |= 1u << b; };
+  auto emit = [&](int code, int k, int a, int b) {
+    if (n == kMaxGradOps) {
+      ok = false;
+      return;
+    }
+    gc->op[n++] = GradOp{code, k, a, b, 1};
+  };
+  int d = -1;
+  int state[kMaxCores];
+  for (int end = L; end > 0;) {
+    const int start = end > saved ? end - saved : 0;
+    int cur = take();
+    emit(kOpLoadX, 0, cur, 0);
+    if (d < 0) {                            // dy beside the first x
+      gc->op[n - 1].sync = 0;
+      d = take();
+      emit(kOpLoadDy, 0, d, 0);
+    }
+    for (int s = 0; s < start; ++s) {
+      if (gc->fwd.step[s].in_place) {
+        emit(kOpForward, s, cur, cur);
+      } else {
+        const int next = take();
+        emit(kOpForward, s, cur, next);
+        give(cur);
+        cur = next;
+      }
+    }
+    state[start] = cur;
+    for (int k = start; k < end - 1; ++k) {
+      state[k + 1] = take();
+      emit(kOpForward, k, state[k], state[k + 1]);
+    }
+    for (int k = end - 1; k >= start; --k) {
+      emit(kOpReverse, k, state[k], d);
+      give(d);
+      d = state[k];
+    }
+    end = start;
+  }
+  if (need_dx) emit(kOpStoreDx, 0, d, 0);
+  if (!ok) return 0;
+  gc->ops = n;
   gc->dy = tile_io(chain.out_dim, dy);
   gc->dx = tile_io(chain.in_dim, dx);
-  gc->need_dx = need_dx;
-  gc->partial_floats = chain.core_off[chain.L];
-  const size_t core_floats = (chain.core_off[chain.L] + 3) & ~3;
+  gc->partial_floats = chain.core_off[L];
+  gc->group = 1;                            // ceil(sqrt(blocks)), and at
+  while (static_cast<int64_t>(gc->group) * gc->group < gc->blocks)
+    ++gc->group;                            // least kSumGroup (one level
+  gc->group = max(gc->group, min(gc->blocks, kSumGroup));   // up to it)
+  gc->groups = (gc->blocks + gc->group - 1) / gc->group;
+  const size_t core_floats = (chain.core_off[L] + 3) & ~3;
   const size_t smem =
       (core_floats + 2 * static_cast<size_t>(gc->fwd.gp_floats) +
-       kRedSlots * 64 +
-       static_cast<size_t>(gc->fwd_buffers + gc->back_buffers) * rows *
-           gc->fwd.stride) * sizeof(float);
+       kRedFloats +
+       static_cast<size_t>(saved + 1) * rows * gc->fwd.stride) *
+      sizeof(float);
   return smem > kMaxSmem ? 0 : smem;
 }
 
@@ -1042,36 +1492,38 @@ extern "C" int tt_contract_batched_quant_launch(
 }
 
 // The gradients of y = x @ W(cores)^T against dy: x (B, N), dy (B, M), dx
-// (B, N) when need_dx (else unused), partials (ceil(B / rows), sum |G_k|)
+// (B, N) or null (dx not needed), partials (blocks + groups, sum |G_k|)
 // scratch, grad (sum |G_k|): the cores' gradients one after another, each
-// laid out as its core.  Two kernels on `stream`: the blocks' pass and the
-// fixed-order sum of their partials.
+// laid out as its core; tickets (groups + 1) int32, zero, and zero again
+// when the kernel ends.  `rows` rows a tile, `saved` forward states,
+// `blocks` blocks (1 to ceil(B / rows)), groups = ceil(blocks /
+// ceil(sqrt(blocks))).  One kernel on `stream`.
 extern "C" int tt_contract_grad_launch(const void* x, const void* dy,
                                        void* dx, void* partials, void* grad,
-                                       const void* desc_ptr, int batch,
-                                       int rows, int need_dx, void* stream) {
+                                       void* tickets, const void* desc_ptr,
+                                       int batch, int rows, int saved,
+                                       int blocks, void* stream) {
   TTChain chain;
   GradChain gc;
-  if (!parse_chain(static_cast<const int64_t*>(desc_ptr), &chain) ||
-      batch < 1)
+  if (!parse_chain(static_cast<const int64_t*>(desc_ptr), &chain))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = parse_grad(chain, &gc, rows, x, dy, dx, need_dx);
+  const size_t smem =
+      parse_grad(chain, &gc, batch, rows, saved, blocks, x, dy, dx);
   if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_fiber_smem(tt_contract_grad_kernel, smem);
+  int cap = 4;
+  for (int k = 0; k < chain.L; ++k) cap = max(cap, gc.fwd.step[k].cap);
+  using GradKernel = void (*)(const float*, const float*, float*, float*,
+                              float*, int*, int, TTChain, GradChain);
+  const GradKernel kernel = cap <= 8    ? &tt_contract_grad_kernel<8>
+                            : cap <= 16 ? &tt_contract_grad_kernel<16>
+                                        : &tt_contract_grad_kernel<32>;
+  cudaError_t err = allow_fiber_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (batch + rows - 1) / rows;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  tt_contract_grad_kernel<<<blocks, kFiberThreads, smem, s>>>(
+  kernel<<<gc.blocks, kFiberThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(dy),
-      static_cast<float*>(dx), static_cast<float*>(partials), batch, chain,
+      static_cast<float*>(dx), static_cast<float*>(partials),
+      static_cast<float*>(grad), static_cast<int*>(tickets), batch, chain,
       gc);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int floats = gc.partial_floats;
-  const int per_block = kGradSumThreads / 32;
-  tt_contract_grad_sum_kernel<<<(floats + per_block - 1) / per_block,
-                                kGradSumThreads, 0, s>>>(
-      static_cast<const float*>(partials), blocks, floats,
-      static_cast<float*>(grad));
   return static_cast<int>(cudaGetLastError());
 }

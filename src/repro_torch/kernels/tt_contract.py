@@ -20,11 +20,13 @@ same sum in the same order, so they agree bit for bit.
 
 ``tt_contract_grad`` is the backward of ``tt_contract`` for the off-chip
 BP baselines (the JAX package has no backward kernel: it differentiates
-its plain chain).  It recomputes each block's forward states from x on
-chip, steps dA back through the same fiber body on the transposed cores,
-and reduces each core's gradient per block, then sums the blocks' partials
-in a second, fixed-order pass: no float atomics, so two calls on the same
-inputs give the same bits.  ``TTContractFn`` is the autograd Function
+its plain chain).  A block runs the forward steps once, keeping the
+states the reverse sweep needs in shared memory (``grad_tile``: all of
+them at the paper's spec, fewer for wider rows), then steps dA back while
+it adds each core's gradient in registers, a fiber at a time; the blocks'
+partials are summed in the same launch, in a fixed order, by the last
+block to finish: no float atomics, so two calls on the same inputs give
+the same bits.  ``TTContractFn`` is the autograd Function
 around the forward launch and this backward; ``tt_contract`` runs its
 launch inside it whenever an input requires grad, so a gradient can never
 silently stop at the kernel.
@@ -55,7 +57,8 @@ from repro_torch.kernels import ref as _ref
 
 __all__ = ["tt_contract", "tt_contract_batched", "tt_contract_batched_quant",
            "tt_contract_grad", "TTContractFn", "chain_widest", "fiber_tile",
-           "grad_tile", "grad_bound", "FiberTile"]
+           "grad_tile", "grad_grid", "grad_smem_bytes", "grad_bound",
+           "FiberTile", "GradTile"]
 
 MAX_CORES = 8                      # kMaxCores in the source
 SMEM_MAX_BYTES = 232_448           # Hopper's per-block opt-in maximum
@@ -134,49 +137,158 @@ def fiber_tile(spec: tt_lib.TTSpec,
     return FiberTile(rows, stride, buffers, caps, fixed + rows * per_row)
 
 
-RED_FLOATS = 16 * 64               # kRedSlots 8x8 tiles in the source
+RED_FLOATS = 16 * 64               # kRedFloats in the source
+SUM_CHUNK = 16                     # kSumChunk: partials added 16 at a time
+SUM_GROUP = 32                     # kSumGroup: the fewest blocks a group
+# the backward's blocks an SM (__launch_bounds__(128, 3)), as many as its
+# shared memory lets, from 3 down
+GRAD_BLOCKS_PER_SM = 3
 
 
-def grad_tile(spec: tt_lib.TTSpec, rows_total: int | None = None) -> FiberTile:
-    """Tiling of ``tt_contract_grad``'s block pass, as ``parse_grad`` in the
-    source lays it out: the forward's fibers and steps, shared memory for
-    the cores, their repacked and transposed forms, the reduction's slots
-    and the forward and backward row buffers (one each when every step is
-    in place, else two), and rows a block chosen by ``fiber_tile``'s rule.
-    Raises where ``fiber_tile`` does."""
+@dataclasses.dataclass(frozen=True)
+class GradTile:
+    """A launch of ``tt_contract_grad``: ``rows`` a tile (each block walks
+    its tiles, ``grad_grid``), ``saved`` forward states kept on chip
+    (``buffers`` = saved + 1 row buffers of ``stride`` floats, dA in one
+    of them), ``blocks_per_sm`` blocks an SM that its shared memory
+    allows, the forward's template widths and the dynamic shared memory,
+    as ``parse_grad`` in the source lays them out."""
+    rows: int
+    stride: int
+    saved: int
+    buffers: int
+    blocks_per_sm: int
+    caps: tuple
+    smem_bytes: int
+
+
+def min_saved(spec: tt_lib.TTSpec) -> int:
+    """The fewest forward states the backward can keep: 1 when every
+    forward step but the last is in place (``r·n_k == m_k·r'``), else 2 (x
+    is stepped forward between two buffers)."""
+    in_place = all(r * n == m * rn for r, m, n, rn in spec.core_shapes[:-1])
+    return 1 if in_place else 2
+
+
+def grad_smem_bytes(spec: tt_lib.TTSpec, rows: int, saved: int) -> int:
+    """The backward's dynamic shared memory at ``rows`` a block and
+    ``saved`` states, as ``parse_grad`` sizes it: the cores as loaded,
+    their repacked and transposed forms, the combine's staging and saved +
+    1 row buffers."""
     fwd = fiber_tile(spec)
-    stride, buffers = fwd.stride, 2 * fwd.buffers
-    fixed = 4 * (_core_floats(spec) + 2 * sum(c * c for c in fwd.caps)
-                 + RED_FLOATS)
-    per_row = 4 * buffers * stride
-    rows = min(MAX_FIBER_ROWS, (SMEM_BLOCK_BUDGET - fixed) // per_row)
-    if rows >= 8:
-        rows -= rows % 8
-    elif rows < 1:
-        if fixed + per_row > SMEM_MAX_BYTES:
-            raise ValueError(f"the backward of {spec} needs {fixed + per_row}"
-                             f" B of shared memory per row; the card has "
-                             f"{SMEM_MAX_BYTES} B per block")
-        rows = 1
-    if rows_total is not None:
-        fill = -(-rows_total // (BLOCKS_PER_SM * H100_SMS))
-        rows = max(1, min(rows, fill))
-    return FiberTile(rows, stride, buffers, fwd.caps, fixed + rows * per_row)
+    return 4 * (_core_floats(spec) + 2 * sum(c * c for c in fwd.caps)
+                + RED_FLOATS + rows * fwd.stride * (saved + 1))
 
 
-def _grad_depth(spec: tt_lib.TTSpec, k: int, rows: int, blocks: int) -> int:
+@functools.lru_cache(maxsize=256)
+def grad_tile(spec: tt_lib.TTSpec, rows_total: int | None = None
+              ) -> GradTile:
+    """Layout of ``tt_contract_grad`` for ``spec`` at ``rows_total`` rows
+    (cached per pair: every call asks for it).
+
+    Blocks an SM: ``GRAD_BLOCKS_PER_SM`` if a row of the fewest states the
+    kernel takes fits, else 2, else one.  States: L or L - 1 (L: x read
+    once and every forward step run once; L - 1: the same steps, x read
+    again for the last reverse step), whichever fits more rows a tile, L on
+    a tie; where neither fits (rows too wide), the most that fit, the
+    others recomputed from x.  Rows a tile: at most what fits (and 32),
+    then the count that fills the block slots' rounds of tiles best,
+    rounds × (rows + 1) the least (the 1 stands for a tile's fixed cost:
+    the combine, the barriers), the larger count on a tie.  Raises for
+    fibers wider than ``MAX_FIBER`` and for a row that does not fit one
+    block."""
+    fwd = fiber_tile(spec)
+    fixed = grad_smem_bytes(spec, 0, 0)
+    lo = min_saved(spec)
+    for per_sm in range(GRAD_BLOCKS_PER_SM, 0, -1):
+        budget = (228 * 1024 // per_sm - 1024 if per_sm > 1
+                  else SMEM_MAX_BYTES)
+        fit = [s for s in range(lo, spec.L + 1)
+               if grad_smem_bytes(spec, 1, s) <= budget]
+        if fit:
+            break
+    else:
+        raise ValueError(f"the backward of {spec} needs "
+                         f"{grad_smem_bytes(spec, 1, lo)} B of shared "
+                         f"memory per row; the card has {SMEM_MAX_BYTES} B "
+                         f"per block")
+    slots = per_sm * H100_SMS
+
+    def plans(saved):
+        """(cost, -saved, -rows) for each rows a tile that fits ``saved``
+        states: the least is taken."""
+        most = min(MAX_FIBER_ROWS,
+                   (budget - fixed) // (4 * fwd.stride * (saved + 1)))
+        if rows_total is None:
+            return [(0, -saved, -most)]
+        return [(-(-(-(-rows_total // r)) // slots) * (r + 1), -saved, -r)
+                for r in range(1, most + 1)]
+
+    choices = [s for s in fit if s >= spec.L - 1] or fit[-1:]
+    _, neg_saved, neg_rows = min(p for s in choices for p in plans(s))
+    saved, rows = -neg_saved, -neg_rows
+    return GradTile(rows, fwd.stride, saved, saved + 1, per_sm, fwd.caps,
+                    grad_smem_bytes(spec, rows, saved))
+
+
+def grad_grid(tile: GradTile, rows_total: int) -> tuple:
+    """``(tiles, blocks)`` of a ``tt_contract_grad`` launch: the row tiles
+    of ``tile.rows`` rows, and the blocks that walk them (one wave of the
+    card's block slots at most; block i takes tiles i, i + blocks, ...)."""
+    tiles = -(-rows_total // tile.rows)
+    return tiles, min(tiles, tile.blocks_per_sm * H100_SMS)
+
+
+def grad_groups(blocks: int) -> tuple:
+    """``(group, groups)`` of the backward's two-level sum: blocks a group
+    ``ceil(sqrt(blocks))`` but at least ``SUM_GROUP`` (so up to that many
+    blocks sum in one level), and the groups."""
+    group = math.isqrt(blocks - 1) + 1 if blocks > 1 else 1
+    group = max(group, min(blocks, SUM_GROUP))
+    return group, -(-blocks // group)
+
+
+def _sum_depth(n: int, floats: int) -> int:
+    """Most additions a value passes through when ``n`` partials of
+    ``floats`` each are summed as ``sum_partials`` does: ``floats / V``
+    columns (V = 4 where ``floats % 4 == 0``, else 1) over the 128
+    threads, the blocks split into ``parts = min(128 / columns, n)``
+    ranges (1 for 128 columns or more); a range added ``SUM_CHUNK`` at a
+    time pairwise, the chunks in order (the zeros that pad the last chunk
+    round nothing), then the parts in order."""
+    cols = floats // 4 if floats % 4 == 0 else floats
+    parts = 1 if cols >= FIBER_THREADS else min(FIBER_THREADS // cols, n)
+    length = -(-n // parts)
+    return ((min(length, SUM_CHUNK) - 1).bit_length()
+            + -(-length // SUM_CHUNK) - 1 + parts - 1)
+
+
+def _grad_depth(spec: tt_lib.TTSpec, k: int, rows: int, tiles: int,
+                blocks: int) -> int:
     """The most additions a product of dG_k passes through in
-    ``tt_contract_grad``: the fibers a thread takes in turn (a tile of
-    ``8 x 8`` entries on G threads, ``reduce_core_grad``), its lane tree,
-    the G / W lane groups in turn, then a lane's blocks in turn and the
-    32-lane tree of the sum kernel."""
+    ``tt_contract_grad``, in its order: a thread's fibers in turn (fibers
+    up to 8 wide: ``fpr / 128`` of a row times its rows; wider: a row's
+    fibers over the 32·wpt lanes of an 8 x 8 tile, rows in turn), the 5
+    rounds of the warp's butterfly, the tile's warps in turn (4, or wpt),
+    a block's ``ceil(tiles / blocks)`` tiles in turn, then the blocks of a
+    group and the groups, each ``_sum_depth`` of the cores'
+    ``num_params`` floats."""
     r, m, n, rn = spec.core_shapes[k]
-    tiles = -(-r * n // 8) * -(-m * rn // 8)
-    G = FIBER_THREADS // (1 << (tiles - 1).bit_length())
-    W = min(G, 32)
+    f_in, f_out = r * n, m * rn
     mp, ns = _ref.fiber_shapes(spec, k)
-    return (-(-rows * mp * ns // G) + W.bit_length() - 1 + G // W
-            + -(-blocks // 32) + 5)
+    fpr = mp * ns
+    warps = FIBER_THREADS // 32
+    if max(f_in, f_out) <= 8:
+        fibers = -(-fpr // FIBER_THREADS) * -(-rows // max(
+            1, FIBER_THREADS // fpr))
+    else:
+        tiles_dg = -(-f_in // 8) * -(-f_out // 8)
+        warps //= min(warps, 1 << (tiles_dg - 1).bit_length())
+        fibers = rows * -(-fpr // (32 * warps))
+    group, groups = grad_groups(blocks)
+    return (fibers + 5 + warps - 1 + -(-tiles // blocks) - 1
+            + _sum_depth(group, spec.num_params)
+            + _sum_depth(groups, spec.num_params))
 
 
 def grad_bound(x: torch.Tensor, cores: Sequence[torch.Tensor],
@@ -187,18 +299,33 @@ def grad_bound(x: torch.Tensor, cores: Sequence[torch.Tensor],
     |G| and |dy| in float64 (the magnitudes of every product it adds, and
     of the chain products behind them); ``h_k`` the kernel's summation
     depth at this launch's tiling (``_grad_depth``: it grows with the
-    reduction length B·M_<k·N_>k over the rows a block and the blocks);
-    ``c = 2·Σ_k max(r·n_k, m_k·r')`` covers the rounding of the states A_k
-    and dA_{k+1} it multiplies.  The 1.01 covers the second-order terms."""
+    fibers a thread adds and with the blocks); ``c = 2·Σ_k max(r·n_k,
+    m_k·r')`` covers the rounding of the states A_k and dA_{k+1} it
+    multiplies.  The 1.01 covers the second-order terms."""
     B = math.prod(x.shape[:-1])
-    rows = grad_tile(spec, B).rows
-    blocks = -(-B // rows)
+    tile = grad_tile(spec, B)
+    tiles, blocks = grad_grid(tile, B)
     _, sums = _ref.tt_contract_grad_ref(
         x.double().abs(), [c.double().abs() for c in cores], spec,
         dy.double().abs(), need_dx=False)
     c = 2 * sum(max(r * n, m * rn) for r, m, n, rn in spec.core_shapes)
-    return [1.01 * (_grad_depth(spec, k, rows, blocks) + c) * 2.0 ** -24 * s
-            for k, s in enumerate(sums)]
+    return [1.01 * (_grad_depth(spec, k, tile.rows, tiles, blocks) + c)
+            * 2.0 ** -24 * s for k, s in enumerate(sums)]
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(device: torch.device, count: int) -> torch.Tensor:
+    """The backward's int32 tickets on ``device``, at least ``count`` of
+    them, zero: each launch leaves them zero again, so one zeroed buffer a
+    device serves every call (a larger one replaces it when a call needs
+    more)."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < count:
+        t = torch.zeros(max(count, 64), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
 
 
 @functools.cache
@@ -217,8 +344,8 @@ def _launchers():
                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p]
     grad = lib.tt_contract_grad_launch
-    grad.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
-                                             ctypes.c_int, ctypes.c_void_p]
+    grad.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
     for fn in (single, batched, quant, grad):
         fn.restype = ctypes.c_int
     return single, batched, quant, grad
@@ -252,9 +379,19 @@ def _check_cores(cores: Sequence[torch.Tensor], spec: tt_lib.TTSpec,
                 f"{device}, got {c.dtype} {tuple(c.shape)} on {c.device}")
 
 
+@functools.lru_cache(maxsize=256)
+def _core_sizes(spec: tt_lib.TTSpec) -> tuple:
+    return tuple(math.prod(s) for s in spec.core_shapes)
+
+
+@functools.lru_cache(maxsize=256)
+def _descriptor_head(spec: tt_lib.TTSpec) -> tuple:
+    return (spec.L, chain_widest(spec), *spec.out_modes, *spec.in_modes,
+            *spec.ranks)
+
+
 def _descriptor(cores: Sequence[torch.Tensor], spec: tt_lib.TTSpec):
-    return np.asarray([spec.L, chain_widest(spec), *spec.out_modes,
-                       *spec.in_modes, *spec.ranks,
+    return np.asarray([*_descriptor_head(spec),
                        *(c.data_ptr() for c in cores)], dtype=np.int64)
 
 
@@ -304,8 +441,10 @@ def tt_contract_grad(x: torch.Tensor, cores: Sequence[torch.Tensor],
     """The gradients of ``y = tt_contract(x, cores, spec)`` against ``dy``
     (shaped like y) on the card: ``(dx or None, [dG_k])``, each dG_k shaped
     like its core (views into one buffer).  Without ``need_dx`` the last
-    backward step is skipped.  One call launches the block pass and the
-    fixed-order sum of its partials."""
+    backward step is skipped.  One launch a call: the blocks' partials are
+    summed in the kernel, in a fixed order, by the last block to finish.
+    Calls on one device share its tickets (``_tickets``), so they must not
+    overlap on two streams; the port runs BP on one stream."""
     _check_x("tt_contract_grad", x, spec)
     _check_cores(cores, spec, x.device)
     batch_shape = x.shape[:-1]
@@ -319,8 +458,7 @@ def tt_contract_grad(x: torch.Tensor, cores: Sequence[torch.Tensor],
     B = math.prod(batch_shape)
     grad = torch.empty(spec.num_params, dtype=torch.float32, device=x.device)
     grads = [g.view(shape) for g, shape in zip(
-        grad.split([math.prod(s) for s in spec.core_shapes]),
-        spec.core_shapes)]
+        grad.split(_core_sizes(spec)), spec.core_shapes)]
     dx = torch.empty_like(x) if need_dx else None
     if B == 0:
         grad.zero_()
@@ -328,17 +466,19 @@ def tt_contract_grad(x: torch.Tensor, cores: Sequence[torch.Tensor],
     if B >= 2**31:
         raise ValueError(f"batch of {B} rows exceeds the kernel's int32 range")
     tile = grad_tile(spec, B)
-    blocks = -(-B // tile.rows)
-    partials = torch.empty(blocks * spec.num_params, dtype=torch.float32,
-                           device=x.device)
+    _, blocks = grad_grid(tile, B)
+    groups = grad_groups(blocks)[1]
+    partials = torch.empty((blocks + groups) * spec.num_params,
+                           dtype=torch.float32, device=x.device)
     desc = _descriptor(cores, spec)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _launchers()[3](x.data_ptr(), dy.data_ptr(),
                               dx.data_ptr() if need_dx else None,
                               partials.data_ptr(), grad.data_ptr(),
-                              desc.ctypes.data, B, tile.rows, int(need_dx),
-                              stream)
+                              _tickets(x.device, groups + 1).data_ptr(),
+                              desc.ctypes.data, B, tile.rows, tile.saved,
+                              blocks, stream)
     if err != 0:
         raise RuntimeError(f"tt_contract_grad launch failed: CUDA error {err}")
     tt_contract_grad.launches += 1

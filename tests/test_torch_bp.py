@@ -178,13 +178,16 @@ def test_raw_kernel_refuses_inputs_that_require_grad(monkeypatch):
 
 @pytest.mark.parametrize("rows", [21, 100, 4300])
 def test_grad_tile_fits_a_block(rows):
-    """The backward's tiling at the BP launches of the paper's spec: three
-    blocks an SM, every block inside Hopper's shared memory, and enough
-    blocks to fill the card."""
+    """The backward's layout at the BP launches of the paper's spec: the
+    forward states kept on chip (all four, or all but x where that fits
+    more rows; a row buffer more for dA), three blocks an SM, every block
+    inside its third of the SM's shared memory, and enough blocks to fill
+    the card."""
     tile = ttc.grad_tile(tt.PAPER_TONN_SPEC, rows)
     assert tile.smem_bytes <= ttc.SMEM_BLOCK_BUDGET
-    assert tile.stride == 1024 and tile.buffers == 2
-    assert -(-rows // tile.rows) >= min(rows, ttc.H100_SMS)
+    assert tile.stride == 1024 and tile.saved in (3, 4)
+    assert tile.buffers == tile.saved + 1 and tile.blocks_per_sm == 3
+    assert ttc.grad_grid(tile, rows)[1] >= min(rows, ttc.H100_SMS)
     with pytest.raises(ValueError, match="fibers"):
         ttc.grad_tile(tt.auto_factorize(512, 512, L=2, max_rank=4))
 

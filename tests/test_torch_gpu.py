@@ -1046,13 +1046,15 @@ def test_reduced_lm_on_the_card_matches_the_cpu(cuda):
 # label -> (spec, rows, need_dx): the three BP launches of the paper's
 # config at batch 100 (layer 0 on the rows and on the 21 identity columns,
 # the hidden layer on the stencil's 4300 rows), the reduced spec off the
-# tile, the rank-4 non-square spec
+# tile, the rank-4 non-square spec, a 4096-wide spec
 GRAD_CASES = {
     "layer0-rows": (tt.PAPER_TONN_SPEC, 100, False),
     "layer0-columns": (tt.PAPER_TONN_SPEC, 21, False),
     "hidden-stencil": (tt.PAPER_TONN_SPEC, 4300, True),
     "reduced-1000": (tt.auto_factorize(64, 64, L=3, max_rank=2), 1000, True),
     "rank4-777": (RANK4, 777, True),
+    # rows of 8192 floats, steps not in place: 2 of the 4 states saved
+    "wide-777": (tt.auto_factorize(4096, 4096, L=4, max_rank=2), 777, True),
 }
 
 

@@ -56,7 +56,7 @@ def sweep(device, chip_smoke) -> dict:
     from repro_torch.kernels import tt_contract as ttc
 
     spec = tt.PAPER_TONN_SPEC
-    single, batched, quant_launch = ttc._launchers()
+    single, batched, quant_launch, _ = ttc._launchers()
     stream = torch.cuda.current_stream(device).cuda_stream
     out = {}
     gen = torch.Generator().manual_seed(7)
