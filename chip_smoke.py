@@ -244,7 +244,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 atol = 1e-6) and the CPU (1e-5), 1 resident and 3 wide
                 meshes (the routes of a 2048-row pool) a program run; times
                 a full-pool program.
- 18. report   — one ``{"kernels": [...]}`` line, the card's name and power
+ 18. table2   — paper Table 2 and the §4.2 training cost from the port's
+                cost model (``benchmarks/torch_table2_cost.py``, host
+                arithmetic): 2,095,104 ONN MZIs, TONN-1's 1,008 (2,078.5×
+                fewer), TONN-2's 28, 42,000 inferences an epoch, 1.354 J and
+                1.151 s over 5,000 epochs, each within 1% of the paper where
+                the paper agrees.
+ 19. table1   — the paper's five Table 1 rows (tt off-chip ideal, tt
+                off-chip mapped onto the noisy chip, tonn on-chip with
+                noise, dense off-chip, onn on-chip with noise) through
+                ``benchmarks/torch_table1_hjb.run_row`` at hidden 1024,
+                ``tt_L`` 4, batch 100, N = 10 for 20 epochs each: finite val
+                MSEs, each row's kernel launches exactly its path's
+                (``_table1_want``: 2 ``tt_contract`` + 2 ``tt_contract_grad``
+                a BP step, 1 grouped densification + 2
+                ``tt_contract_batched`` a tonn ZO step, 1 resident + 3 wide
+                meshes an onn ZO step, none for dense; and the validation
+                forwards') and none of the other counted kernels; ms a step
+                on CUDA events.
+ 20. report   — one ``{"kernels": [...]}`` line, the card's name and power
                 limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device, or run outside a checkout of the repository, it exits
@@ -2362,6 +2380,106 @@ def phase_serve_onn(device) -> dict:
     return out
 
 
+def phase_table2() -> dict:
+    """Paper Table 2 and the §4.2 training cost from the port's cost model
+    (host arithmetic): the numbers the paper's MZI, energy and latency
+    claims rest on."""
+    from benchmarks import torch_table2_cost
+    rows = {r["name"]: r for r in torch_table2_cost.run()}
+    onn, tonn1 = rows["table2/ONN"], rows["table2/TONN-1"]
+    tr = rows["table2/training-efficiency(TONN-1)"]
+    want = {"onn_mzis": 2_095_104, "tonn1_mzis": 1_008, "tonn2_mzis": 28,
+            "inferences_per_epoch": 42_000, "total_energy_j": 1.354,
+            "total_latency_s": 1.151, "mzi_reduction_vs_onn": 2078.5}
+    got = {"onn_mzis": onn["mzis"], "tonn1_mzis": tonn1["mzis"],
+           "tonn2_mzis": rows["table2/TONN-2"]["mzis"],
+           **{k: tr[k] for k in ("inferences_per_epoch", "total_energy_j",
+                                 "total_latency_s", "mzi_reduction_vs_onn")}}
+    if got != want:
+        raise AssertionError(f"table2: {got}; expected {want}")
+    for key, paper in (("total_energy_j", 1.36), ("total_latency_s", 1.15),
+                       ("inferences_per_epoch", 4.2e4)):
+        if abs(got[key] / paper - 1) > 0.01:
+            raise AssertionError(f"table2: {key} {got[key]} is not within "
+                                 f"1% of the paper's {paper}")
+    if abs(onn["mzis"] / onn["mzis_paper"] - 1) > 0.01:
+        raise AssertionError(f"table2: ONN MZIs {onn['mzis']} against the "
+                             f"paper's {onn['mzis_paper']}")
+    print(f"[table2] {json.dumps(got)}", flush=True)
+    return {"rows": list(rows.values()), **got}
+
+
+# the paper's Table 1 rows at its width (hidden 1024, tt_rank 2, tt_L 4,
+# batch 100, N = 10), each for a short budget
+TABLE1_EPOCHS = 20
+TABLE1_VAL_FORWARDS = 2          # the ideal and the mapped validation MSE
+
+
+def _table1_want(mode: str, on_chip: bool, epochs: int) -> dict:
+    """Launches of one Table 1 row (``mode`` after the noise remap) over
+    ``epochs`` (``deriv="fd"``: the stencil's 43 x 100 rows go through one
+    forward) and its two validation forwards of 1000 points.  tt and tonn
+    off-chip: 2 ``tt_contract`` forward and 2 ``tt_contract_grad``
+    launches a step (tonn's meshes densify on the plain path), 2
+    ``tt_contract`` a validation forward (tonn: 1 grouped densification
+    more); tonn on-chip: 1 grouped densification and 2
+    ``tt_contract_batched`` a step; onn on-chip: layer 0's 21-port V mesh
+    (resident) and 3 wide 1024-port meshes on 4300 rows per entry a step,
+    1 + 3 on 1000 rows a validation forward; dense: none."""
+    from benchmarks import torch_table1_hjb as table1
+    from repro_torch.core import photonic
+    from repro_torch.kernels import mesh_apply as mesh
+    want = dict.fromkeys(table1.COUNTED + mesh.DESIGNS, 0)
+    vf = TABLE1_VAL_FORWARDS
+    if mode in ("tt", "tonn") and not on_chip:
+        want["tt_contract"] = 2 * epochs + 2 * vf
+        want["tt_contract_grad"] = 2 * epochs
+        want["mesh_densify_stacked"] = vf if mode == "tonn" else 0
+    elif mode == "tonn":
+        want["mesh_densify_stacked"] = epochs + vf
+        want["tt_contract_batched"] = 2 * epochs
+        want["tt_contract"] = 2 * vf
+    elif mode == "onn":
+        wide = photonic.rectangular_layout(1024)
+        want["resident"] = epochs + vf
+        want[mesh.wide_route(wide, 11, 4300)] += 3 * epochs
+        want[mesh.wide_route(wide, 1, table1.VAL_POINTS)] += 3 * vf
+        want["mesh_apply_stacked"] = sum(want[d] for d in mesh.DESIGNS)
+    return want
+
+
+def phase_table1(device) -> dict:
+    """The paper's five Table 1 rows through ``benchmarks/
+    torch_table1_hjb.run_row`` at its width for ``TABLE1_EPOCHS`` epochs
+    each (seed 0): every val MSE finite, each row's launches exactly its
+    path's (``_table1_want``) and none of the other counted kernels, ms a
+    step on CUDA events."""
+    import numpy as np
+    from benchmarks import torch_table1_hjb as table1
+    out = {}
+    for key in table1.PAPER_ROWS:
+        name = table1.row_name(*key)
+        table1.kernel_launches(reset=True)                # main path starts
+        r = table1.run_row(*key, hidden=1024, tt_L=4, epochs=TABLE1_EPOCHS,
+                           device=device)
+        launches = table1.kernel_launches()                # ends
+        want = _table1_want(r["mode"], r["on_chip"], TABLE1_EPOCHS)
+        if launches != want:
+            raise AssertionError(f"{name}: {launches} over {TABLE1_EPOCHS} "
+                                 f"epochs; expected {want}")
+        if not (np.isfinite(r["val_mse_mapped"])
+                and np.isfinite(r["val_mse_ideal"])
+                and np.isfinite(r["final_loss"])):
+            raise AssertionError(f"{name}: non-finite result {r}")
+        r["launches"] = {k: v for k, v in launches.items() if v}
+        val_only = _table1_want(r["mode"], r["on_chip"], 0)
+        r["launches_per_step"] = {k: (v - val_only[k]) / TABLE1_EPOCHS
+                                  for k, v in launches.items() if v}
+        out[name] = r
+    print(f"[table1] {json.dumps(out)}", flush=True)
+    return out
+
+
 def phase_lm_serve(device) -> dict:
     import dataclasses
 
@@ -2555,6 +2673,8 @@ def main() -> int:
     trained_seq = phase_train_seq(device)
     trained_onn = phase_train_onn(device)
     served_onn = phase_serve_onn(device)
+    phase_table2()
+    phase_table1(device)
 
     main_case = kernel["cases"][0]                       # paper spec, B=2048
     entry = {"name": "tt_contract", "route": "cuda",

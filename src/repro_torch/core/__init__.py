@@ -1,2 +1,3 @@
 """TT algebra, the MZI-mesh simulator, the tensor PINN and its losses, FD
-derivative estimates and the ZO optimizer (port of ``repro.core``)."""
+derivative estimates, the ZO optimizer and the photonic cost model (port of
+``repro.core``)."""

@@ -233,18 +233,21 @@ def zo_signsgd_step(params: PyTree, state: ZOState, lr: float,
                     batched_loss_fn: Callable[[PyTree], torch.Tensor] | None
                     = None,
                     trainable_mask: PyTree | None = None,
-                    loss_fn: Callable[[PyTree], torch.Tensor] | None = None
-                    ) -> tuple:
+                    loss_fn: Callable[[PyTree], torch.Tensor] | None = None,
+                    xis: PyTree | None = None) -> tuple:
     """One Eq. (6) update Φ ← Φ − α · sign(∇̂L), with ξ drawn on the
-    params' device from ``counter_generator(state.seed, state.step)``:
-    fused through ``batched_loss_fn``, or sequential through ``loss_fn``
-    when that is None.  Buffer leaves (mask False) have zero ξ, so zero gradient, and
+    params' device from ``counter_generator(state.seed, state.step)``, or
+    the stacked ``xis`` handed over in its place: fused through
+    ``batched_loss_fn``, or sequential through ``loss_fn`` when that is
+    None.  Buffer leaves (mask False) have zero ξ, so zero gradient, and
     leave the update bit-identical.  Returns ``(params, state,
     base_loss)``."""
-    device = tree_leaves(params)[0].device
-    gen = counter_generator(state.seed, state.step, device=device)
+    gen = None
+    if xis is None:
+        device = tree_leaves(params)[0].device
+        gen = counter_generator(state.seed, state.step, device=device)
     grad, base = spsa_gradient(params, gen, cfg, batched_loss_fn,
-                               trainable_mask, loss_fn=loss_fn)
+                               trainable_mask, loss_fn=loss_fn, xis=xis)
     return (apply_update(params, grad, lr),
             ZOState(step=state.step + 1, seed=state.seed), base)
 

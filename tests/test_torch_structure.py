@@ -26,11 +26,11 @@ from repro_torch.serving import PdeServingEngine, SolverRegistry
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 # files that run where no JAX is installed: the package, the chip scripts
-# and the tests that need the card
-JAX_FREE = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "tools" / "zo_step.py",
-                                          ROOT / "tools" / "tt_fiber_rows.py",
-                                          ROOT / "tests" / "test_torch_gpu.py"]
+# (every tool and every port benchmark) and the tests that need the card
+JAX_FREE = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "tools").glob("*.py"))
+            + sorted((ROOT / "benchmarks").glob("torch_*.py"))
+            + [ROOT / "tests" / "test_torch_gpu.py"])
 FORBIDDEN_ROOTS = {"jax", "jaxlib", "repro"}
 
 
@@ -125,6 +125,22 @@ def test_fiber_rows_script_refuses_without_a_gpu():
                           timeout=300)
     assert proc.returncode != 0
     assert "[fiber-rows]" not in proc.stdout and "ms" not in proc.stdout
+
+
+def test_table1_script_refuses_without_a_gpu(tmp_path):
+    """So does the Table 1 script at its default device: no row runs and
+    nothing is written."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    env["PYTHONPATH"] = str(ROOT / "src")
+    out = tmp_path / "table1.json"
+    proc = subprocess.run([sys.executable,
+                           str(ROOT / "benchmarks" / "torch_table1_hjb.py"),
+                           "--out", str(out)], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert "table1/" not in proc.stdout and not out.exists()
 
 
 @pytest.fixture
