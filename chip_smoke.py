@@ -37,13 +37,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   5. batched  — ``tt_contract_batched`` at the three launches of a training
                 step on the paper's spec (P = 11: layer 0 on the 100 rows and
                 on the 21 identity columns, shared; the hidden layer on
-                4300 rows per entry) and a rank-4 non-square spec at P = 3,
+                4300 rows per entry), at black-scholes-100d's (layer 0 on
+                its 101 identity columns, the hidden layer on 20,300 rows
+                per entry) and a rank-4 non-square spec at P = 3,
                 B = 777, against ``tt_contract_batched_ref`` at the bound of
                 phase 3; every entry p bit for bit against
                 ``tt_contract(x[p], cores[p])``.  Each row names its design
                 (the fiber body) and tile and the launch's device time alone
                 in a ``torch.profiler`` trace (``kernel_device_ms``).  Times
-                the hidden-layer launch, its plain version and
+                both hidden-layer launches, their plain version and
                 ``torch.bmm(x, Wᵀ)`` against the densified per-entry
                 weights.
   6. mesh     — ``mesh_apply_stacked`` on the 16- and 4-port layouts of the
@@ -262,8 +264,39 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 meshes an onn ZO step, none for dense; and the validation
                 forwards') and none of the other counted kernels; ms a step
                 on CUDA events.
- 20. report   — one ``{"kernels": [...]}`` line, the card's name and power
-                limit, then ``{"ok": true, "device": {...}}`` as the last line.
+ 21. train-pde — ``launch.train.main`` trains heat-20d and
+                black-scholes-100d (101-wide input, 203-row FD stencil) at
+                the paper's config (tonn, hidden 1024, ``PAPER_TONN_SPEC``,
+                noise on, ``fd_fast``, fused), N = 10, batch 100, 20 steps
+                each with a checkpoint.  Checks: finite losses and val MSE,
+                the ±1 buffers bit-unchanged, exactly 1 grouped
+                densification and 3 ``tt_contract_batched`` a step plus 1
+                densification and 2 ``tt_contract`` per validation forward
+                and no other counted kernel, the median of the last 5
+                losses below the first; one step's stacked stencil u
+                card vs CPU on the first 3 entries of the stack (1e-4 of
+                max|u|) and its losses (rtol 1e-1, the FD floor); the
+                checkpoint served without ``hw_noise=`` equal to ``model.u``
+                (1e-6).  Times a ZO step (CUDA events, a traced window of
+                5: the hidden launch in ``match_each_ms``).  Then the
+                stacked Stein loss (``residual_losses_stacked`` with
+                ``deriv="stein"``) at heat-20d on the trained model, P 11,
+                B 100, S 32, z drawn on the card from a seeded generator:
+                1 grouped densification and 2 per-entry
+                ``tt_contract_batched`` launches and nothing else counted;
+                the per-entry layer-0 launch (11 × 6,500 rows of the
+                1024-wide padded input) against
+                ``ref.tt_contract_batched_ref`` at phase 3's bound, timed
+                (CUDA events, alone in a trace, its plain version,
+                ``torch.bmm`` against the densified weights); the stencil u
+                of the first 3 entries card vs CPU with the same z (1e-4 of
+                max|u|); identical params in all 11 entries give 11
+                distinct losses.  Times one call.
+ 22. report   — one ``{"kernels": [...], "profile_retries": {...}}`` line
+                (the profiler windows each phase took again because they
+                held no device event; each phase also prints its count
+                after it runs), the card's name and power limit, then
+                ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device, or run outside a checkout of the repository, it exits
 non-zero before printing any result.  ``tools/zo_step.py`` measures the ZO
@@ -379,6 +412,41 @@ def _check_close(name: str, label: str, got, plain) -> tuple:
                              f"{label}: max|diff| {err:.3e}, max|plain| "
                              f"{scale:.3e}")
     return err, scale
+
+
+def _u_close(label: str, u_card, u_cpu) -> tuple:
+    """(max|card − CPU|, max|CPU|) of stencil u-values; raises past
+    1e-4·max|u| (the same f32 chain on two devices, sin of two
+    libraries)."""
+    err = (u_card - u_cpu).abs().max().item()
+    scale = u_cpu.abs().max().item()
+    if not err <= 1e-4 * scale:
+        raise AssertionError(f"{label}: stencil u card vs CPU max|diff| "
+                             f"{err:.3e}, max|u| {scale:.3e}")
+    return err, scale
+
+
+def _serves_checkpoint(name: str, ckpt: str, model, params, noise,
+                       device) -> float:
+    """A trainer's checkpoint, which carries the chip's noise, loaded into
+    ``SolverRegistry`` without ``hw_noise=`` and served through an engine:
+    700 points equal to the trainer's own ``model.u`` (1e-6).  Returns
+    max|served − direct|."""
+    import numpy as np
+    import torch
+    from repro_torch.device import counter_generator
+    from repro_torch.serving import (PdeServingEngine, PointRequest,
+                                     SolverRegistry)
+    reg = SolverRegistry(device=device)
+    reg.load_checkpoint(name, ckpt, device=device)
+    engine = PdeServingEngine(reg, slots=4, slot_points=256, device=device)
+    pts = model.problem.sample_collocation(counter_generator(11), 700)
+    req = engine.submit(PointRequest(name, pts.numpy()))
+    engine.run()
+    with torch.no_grad():
+        direct = model.u(params, pts.to(device), noise).cpu().numpy()
+    np.testing.assert_allclose(req.out, direct, rtol=1e-6, atol=1e-6)
+    return float(np.abs(req.out - direct).max())
 
 
 def phase_kernel(device) -> dict:
@@ -559,9 +627,13 @@ def phase_batched(device) -> dict:
     paper = tt.PAPER_TONN_SPEC
     rank4 = tt.auto_factorize(256, 512, L=3, max_rank=4)
     # label -> (spec, P, rows, shared x); "hidden-stencil" is the main one
+    # (hjb-20d's ZO step), the bs100 ones black-scholes-100d's (101 inputs:
+    # 203 stencil rows a point, 101 identity columns)
     cases = {"layer0-rows": (paper, 11, 100, True),
              "layer0-columns": (paper, 11, 21, True),
              "hidden-stencil": (paper, 11, 4300, False),
+             "bs100-layer0-columns": (paper, 11, 101, True),
+             "bs100-hidden-stencil": (paper, 11, 20300, False),
              "rank4-777": (rank4, 3, 777, False)}
     results = {}
     for i, (label, (spec, P, B, shared)) in enumerate(cases.items()):
@@ -589,7 +661,7 @@ def phase_batched(device) -> dict:
                "kernel_device_ms": _profile(
                    lambda: ttc.tt_contract_batched(x, cores, spec),
                    match="tt_contract_batched_kernel")["match_ms"]}
-        if label == "hidden-stencil":
+        if label in ("hidden-stencil", "bs100-hidden-stencil"):
             w = torch.stack([tt.tt_to_full([c[p] for c in cores], spec)
                              for p in range(P)])                # (P, M, N)
             wt = w.transpose(1, 2)
@@ -602,6 +674,7 @@ def phase_batched(device) -> dict:
                                                               shared)
         results[label] = row
         print(f"[batched] {json.dumps(row)}", flush=True)
+        del x, y, plain
     return results
 
 
@@ -1223,8 +1296,6 @@ def phase_train(device, quant: tuple = ()) -> dict:
     from repro_torch.data import pde_collocation_iterator
     from repro_torch.device import counter_generator, to_device
     from repro_torch.launch import train
-    from repro_torch.serving import (PdeServingEngine, PointRequest,
-                                     SolverRegistry)
 
     tag = "train-quant" if quant else "train"
     steps, batch, n = 50, 100, 10
@@ -1282,11 +1353,7 @@ def phase_train(device, quant: tuple = ()) -> dict:
     flips = _code_flips(model, prep_card, prep_cpu)
     if flips:
         u_cpu, l_cpu, _ = one_step(cpu, to_device(prep_card, cpu))
-    u_err = (u_card - u_cpu).abs().max().item()
-    u_scale = u_cpu.abs().max().item()
-    if not u_err <= 1e-4 * u_scale:
-        raise AssertionError(f"stencil u on the card vs the CPU: max|diff| "
-                             f"{u_err:.3e}, max|u| {u_scale:.3e}")
+    u_err, u_scale = _u_close("train", u_card, u_cpu)
     np.testing.assert_allclose(l_card.numpy(), l_cpu.numpy(), rtol=1e-1)
 
     # ms per ZO step, back to back on CUDA events, and a traced window;
@@ -1304,16 +1371,7 @@ def phase_train(device, quant: tuple = ()) -> dict:
         raise AssertionError(f"checkpoint meta {meta['pinn']} is not the "
                              f"run's config {model.cfg}")
     # the checkpoint carries the chip's noise: it loads without hw_noise=
-    reg = SolverRegistry(device=device)
-    reg.load_checkpoint("hjb", ckpt, device=device)
-    engine = PdeServingEngine(reg, slots=4, slot_points=256, device=device)
-    pts = model.problem.sample_collocation(counter_generator(11), 700)
-    req = engine.submit(PointRequest("hjb", pts.numpy()))
-    engine.run()
-    with torch.no_grad():
-        direct = model.u(params, pts.to(device), noise).cpu().numpy()
-    np.testing.assert_allclose(req.out, direct, rtol=1e-6, atol=1e-6)
-
+    served = _serves_checkpoint("hjb", ckpt, model, params, noise, device)
     shutil.rmtree(ckpt)
     out = {"steps": steps, "batch": batch, "zo_samples": n,
            "quant": model.cfg.quant.tag(),
@@ -1329,7 +1387,7 @@ def phase_train(device, quant: tuple = ()) -> dict:
            "stencil_u_max_abs_card_vs_cpu": u_err, "stencil_u_max": u_scale,
            "weight_code_flips_card_vs_cpu": flips,
            "losses_card": l_card.tolist(), "losses_cpu": l_cpu.tolist(),
-           "served_vs_direct_max_abs": float(np.abs(req.out - direct).max())}
+           "served_vs_direct_max_abs": served}
     print(f"[{tag}] {json.dumps(out)}", flush=True)
     return out
 
@@ -1579,6 +1637,10 @@ def phase_flash_kernel(device) -> dict:
     return results
 
 
+PROFILE_TRIES = 3
+PROFILE_RETRIES = {"windows": 0}     # windows taken again, over the run
+
+
 def _profile(fn, calls: int = 1, match: str | None = None,
              lead=None) -> dict:
     """``calls`` back-to-back calls of ``fn``, a steady window after one
@@ -1590,23 +1652,34 @@ def _profile(fn, calls: int = 1, match: str | None = None,
     time and count of the kernels whose name contains it, the longest one
     of them, and each one's time in launch order over one call's share
     (``match_ms``, ``match_kernels``, ``match_max_ms``, ``match_each_ms``).
-    Without device events in the trace the device numbers are None (not
-    measured).  ``lead``, if given, runs inside the window before the
+    A window whose trace holds no device event at all (the profiler lost
+    the window: every caller launches kernels in it) is taken again, up
+    to ``PROFILE_TRIES`` windows, each retake counted in
+    ``PROFILE_RETRIES`` and in the result's ``retries``; after that the
+    device numbers are None (not measured).  ``lead``, if given, runs inside the window before the
     calls and before the clock starts (its kernels are counted)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()                                                   # warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        if lead is not None:
-            lead()
+    for tries in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            if lead is not None:
+                lead()
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
             torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        if any(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.events()):
+            break
+        if tries + 1 < PROFILE_TRIES:
+            PROFILE_RETRIES["windows"] += 1
+            print("[profile] a window held no device event; taken again",
+                  flush=True)
     by_name: dict = {}
     matched = []                                      # (start, ms)
     for e in prof.events():
@@ -1619,7 +1692,8 @@ def _profile(fn, calls: int = 1, match: str | None = None,
     device_ms = sum(ms for ms, _ in by_name.values()) if by_name else None
     kernels = sum(n for _, n in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
-    out = {"calls": calls, "wall_ms": wall_ms, "device_ms": device_ms,
+    out = {"calls": calls, "retries": tries, "wall_ms": wall_ms,
+           "device_ms": device_ms,
            "busy_share": None if device_ms is None else device_ms / wall_ms,
            "kernels": kernels, "kernels_per_call": kernels / calls,
            "top": [[name[:80], ms, n] for name, (ms, n) in top]}
@@ -2099,11 +2173,7 @@ def phase_train_seq(device) -> dict:
 
     l_card, b_card, u_card = one_step(device)
     l_cpu, b_cpu, u_cpu = one_step(torch.device("cpu"))
-    u_err = (u_card - u_cpu).abs().max().item()
-    u_scale = u_cpu.abs().max().item()
-    if not u_err <= 1e-4 * u_scale:
-        raise AssertionError(f"sequential u card vs CPU: {u_err:.3e}, "
-                             f"max|u| {u_scale:.3e}")
+    u_err, u_scale = _u_close("sequential", u_card, u_cpu)
     np.testing.assert_allclose(l_card.numpy(), l_cpu.numpy(), rtol=1e-1)
     np.testing.assert_allclose(b_card.numpy(), b_cpu.numpy(), rtol=1e-1)
     p_dev, x_dev = params, xt.to(device)
@@ -2186,8 +2256,6 @@ def phase_train_onn(device) -> dict:
     from repro_torch.data import pde_collocation_iterator
     from repro_torch.device import counter_generator, to_device
     from repro_torch.launch import train
-    from repro_torch.serving import (PdeServingEngine, PointRequest,
-                                     SolverRegistry)
 
     steps, batch, n, log_every = 10, 100, 10, 5
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_onn_")
@@ -2239,11 +2307,7 @@ def phase_train_onn(device) -> dict:
     t_cpu = time.perf_counter()
     u_cpu, l_cpu = one_step(torch.device("cpu"))
     t_cpu = time.perf_counter() - t_cpu
-    u_err = (u_card - u_cpu).abs().max().item()
-    u_scale = u_cpu.abs().max().item()
-    if not u_err <= 1e-4 * u_scale:
-        raise AssertionError(f"onn stencil u card vs CPU: {u_err:.3e}, "
-                             f"max|u| {u_scale:.3e}")
+    u_err, u_scale = _u_close("onn", u_card, u_cpu)
     np.testing.assert_allclose(l_card.numpy(), l_cpu.numpy(), rtol=1e-1)
 
     # ms per ZO step on CUDA events and a traced window
@@ -2252,15 +2316,7 @@ def phase_train_onn(device) -> dict:
                             match="mesh_")
 
     # the checkpoint carries the chip's noise and serves without hw_noise=
-    reg = SolverRegistry(device=device)
-    reg.load_checkpoint("onn", ckpt, device=device)
-    engine = PdeServingEngine(reg, slots=4, slot_points=256, device=device)
-    pts = model.problem.sample_collocation(counter_generator(11), 700)
-    req = engine.submit(PointRequest("onn", pts.numpy()))
-    engine.run()
-    with torch.no_grad():
-        direct = model.u(params, pts.to(device), noise).cpu().numpy()
-    np.testing.assert_allclose(req.out, direct, rtol=1e-6, atol=1e-6)
+    served = _serves_checkpoint("onn", ckpt, model, params, noise, device)
     shutil.rmtree(ckpt)
 
     # --sequential: 11 loss evaluations a step, one plain FD stencil each
@@ -2297,7 +2353,7 @@ def phase_train_onn(device) -> dict:
            "stencil_u_max_abs_card_vs_cpu": u_err, "stencil_u_max": u_scale,
            "card_vs_cpu_stack": 3, "cpu_step_s": t_cpu,
            "losses_card": l_card.tolist(), "losses_cpu": l_cpu.tolist(),
-           "served_vs_direct_max_abs": float(np.abs(req.out - direct).max()),
+           "served_vs_direct_max_abs": served,
            "sequential": {
                "steps": seq_steps, "launches": seq_launches,
                "launches_per_step": _onn_want(0, {43 * batch: n + 1}),
@@ -2480,6 +2536,215 @@ def phase_table1(device) -> dict:
     return out
 
 
+PDE_TRAIN = {"heat-20d": 20, "black-scholes-100d": 20}   # pde -> steps
+STEIN_P, STEIN_B, STEIN_S = 11, 100, 32
+
+
+def _train_pde(device, pde: str, steps: int) -> dict:
+    """``launch.train.main`` on ``pde`` at the paper's config (tonn, noise
+    on, ``fd_fast``, fused), N = 10, batch 100, with a checkpoint; its
+    launches, card vs CPU on one step's first 3 entries, the checkpoint
+    served, a ZO step timed.  Returns the row and the trained result."""
+    import numpy as np
+    import torch
+    from repro_torch.core import pinn, zoo
+    from repro_torch.data import pde_collocation_iterator
+    from repro_torch.device import counter_generator, to_device
+    from repro_torch.launch import train
+
+    batch, n, log_every = 100, 10, 10
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_pde_")
+    res, launches, wall = _run_counted(
+        ["--arch", "tensor-pinn", "--pde", pde, "--pinn-noise", "--steps",
+         str(steps), "--batch", str(batch), "--zo-samples", str(n),
+         "--ckpt-dir", ckpt, "--ckpt-every", str(steps), "--log-every",
+         str(log_every), "--seed", "0"])
+    model, params, noise = res.model, res.params, res.hw_noise
+    vals = _val_evals(steps, log_every)
+    want = dict.fromkeys(BP_COUNTED, 0)
+    want["tt_contract_batched"] = 3 * steps
+    want["mesh_densify_stacked"] = steps + vals
+    want["tt_contract"] = 2 * vals
+    if launches != want:
+        raise AssertionError(f"{pde}: {launches} over {steps} steps; "
+                             f"expected {want}")
+    losses = np.asarray(res.losses)
+    if not (np.isfinite(losses).all() and np.isfinite(res.val_mse)):
+        raise AssertionError(f"{pde}: non-finite losses {losses} or val "
+                             f"MSE {res.val_mse}")
+    if not np.median(losses[-5:]) < losses[0]:
+        raise AssertionError(f"{pde}: loss did not fall: first "
+                             f"{losses[0]:.4e}, median of the last 5 "
+                             f"{np.median(losses[-5:]):.4e}")
+    init, _ = train.init_solver(model, 0)
+    mask = model.trainable_mask(init)
+    for new, old, trainable in zip(zoo.tree_leaves(params),
+                                   zoo.tree_leaves(init),
+                                   zoo.tree_leaves(mask)):
+        if not trainable and not torch.equal(new.cpu(), old):
+            raise AssertionError(f"{pde}: a ±1 diag buffer moved")
+
+    # one step's stacked stencil u and losses, card against the CPU's
+    # plain path on the first 3 entries of the stack
+    scfg = zoo.SPSAConfig(num_samples=n)
+    xis = zoo.sample_perturbations(counter_generator(7, device=device),
+                                   params, n, mask)
+    stacked = zoo.perturbed_stack(params, xis, scfg)
+    head = zoo.tree_map(lambda t: t[:3].contiguous(), stacked)
+    xt = next(pde_collocation_iterator(batch, seed=0, start_step=steps,
+                                       problem=model.problem))
+
+    def one_step(dev):
+        sp, nz, x = to_device(head, dev), to_device(noise, dev), xt.to(dev)
+        prepared = model.prepare_params_stacked(sp, nz)
+        u = model.fd_u_stencil_stacked(prepared, x, model.fd_step)
+        return u.cpu(), pinn._loss_from_u_stencil(
+            model.problem, u, model.fd_step, x).cpu()
+
+    u_card, l_card = one_step(device)
+    u_cpu, l_cpu = one_step(torch.device("cpu"))
+    u_err, u_scale = _u_close(pde, u_card, u_cpu)
+    np.testing.assert_allclose(l_card.numpy(), l_cpu.numpy(), rtol=1e-1)
+
+    # the checkpoint carries the chip's noise and serves without hw_noise=
+    served = _serves_checkpoint(pde, ckpt, model, params, noise, device)
+    shutil.rmtree(ckpt)
+
+    timed = measure_zo_step(model, params, noise, mask, xt.to(device),
+                            zoo.ZOState(step=steps, seed=1), n)
+    A = model.in_dim
+    out = {"pde": pde, "in_dim": A, "hidden": model.cfg.hidden,
+           "mode": model.cfg.mode, "deriv": model.cfg.deriv,
+           "noise": model.cfg.noise.enabled,
+           "specs": [[list(s.out_modes), list(s.in_modes), list(s.ranks)]
+                     for s in model.specs],
+           "steps": steps, "batch": batch,
+           "zo_samples": n, "hidden_rows_per_entry": (2 * A + 1) * batch,
+           "launches": launches, "validation_forwards": vals,
+           "losses": [float(v) for v in losses], "val_mse": res.val_mse,
+           "zo_step_ms": timed["zo_step_ms"][0],
+           "zo_step_trace": timed["trace"],
+           "host_step_ms_median": 1e3 * float(np.median(res.step_seconds)),
+           "train_wall_s": wall,
+           "stencil_u_max_abs_card_vs_cpu": u_err, "stencil_u_max": u_scale,
+           "card_vs_cpu_stack": 3, "losses_card": l_card.tolist(),
+           "losses_cpu": l_cpu.tolist(),
+           "served_vs_direct_max_abs": served}
+    spec = model.specs[1]
+    out["hidden_bound_ms"], out["hidden_bound_by"] = _batched_bound(
+        spec, n + 1, (2 * A + 1) * batch, False)
+    return out, res
+
+
+def _stein_pde(device, res) -> dict:
+    """``residual_losses_stacked`` with Stein derivatives at heat-20d on
+    the trained tonn model: P = 11, B = 100, S = 32, z drawn on the card
+    from a seeded generator."""
+    import torch
+    from repro_torch.core import pinn, stein, tt, zoo
+    from repro_torch.data import pde_collocation_iterator
+    from repro_torch.device import counter_generator, to_device
+    from repro_torch.kernels import ref, tt_contract as ttc
+
+    model = pinn.TensorPinn(dataclasses.replace(
+        res.model.cfg, deriv="stein", stein_samples=STEIN_S))
+    params, noise = res.params, res.hw_noise
+    P, B, S = STEIN_P, STEIN_B, STEIN_S
+    mask = model.trainable_mask(params)
+    xis = zoo.sample_perturbations(counter_generator(8, device=device),
+                                   params, P - 1, mask)
+    stacked = zoo.perturbed_stack(params, xis,
+                                  zoo.SPSAConfig(num_samples=P - 1))
+    xt = next(pde_collocation_iterator(B, seed=0, start_step=99,
+                                       problem=model.problem)).to(device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    z = stein.stein_directions(xt, gen, S, model.in_dim, lead=(P,))
+
+    def stein_losses(sp=stacked):
+        return pinn.residual_losses_stacked(model, sp, xt, noise, z=z)
+
+    counted = _counted()
+    for fn in counted.values():                           # main path starts
+        fn.launches = 0
+    losses = stein_losses()
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counted.items()}  # ends
+    want = dict.fromkeys(BP_COUNTED, 0)
+    want["tt_contract_batched"] = 2
+    want["mesh_densify_stacked"] = 1
+    if launches != want:
+        raise AssertionError(f"stein: {launches}; expected {want}")
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"stein: non-finite losses {losses}")
+
+    # the per-entry layer-0 launch against its plain version
+    prepared = model.prepare_params_stacked(stacked, noise)
+    rows = stein.stein_stencil_points(xt, z, model.cfg.stein_sigma)
+    x0 = model._embed(rows.reshape(P, (2 * S + 1) * B, -1)).contiguous()
+    spec, cores = model.specs[0], prepared["cores0"]
+    y = ttc.tt_contract_batched(x0, cores, spec)
+    err, scale = _check_close("tt_contract_batched", "stein-layer0", y,
+                              ref.tt_contract_batched_ref(x0, cores, spec))
+    R = (2 * S + 1) * B
+    wt = torch.stack([tt.tt_to_full([c[p] for c in cores], spec)
+                      for p in range(P)]).transpose(1, 2)   # (P, N, M)
+    layer0 = {"case": "stein-layer0-per-entry", "P": P, "rows": R,
+              "shared_x": False, "design": "fibers",
+              "tile": dataclasses.asdict(ttc.fiber_tile(spec, P * R)),
+              "max_abs_err": err, "max_abs_plain": scale,
+              "ms": _time_ms(lambda: ttc.tt_contract_batched(x0, cores,
+                                                             spec), 20),
+              "kernel_device_ms": _profile(
+                  lambda: ttc.tt_contract_batched(x0, cores, spec),
+                  match="tt_contract_batched_kernel")["match_ms"],
+              "plain_ms": _time_ms(lambda: ref.tt_contract_batched_ref(
+                  x0, cores, spec), 3, warmup=1),
+              "library_ms": _time_ms(lambda: torch.bmm(x0, wt), 20)}
+    layer0["bound_ms"], layer0["bound_by"] = _batched_bound(spec, P, R, False)
+    print(f"[batched] {json.dumps(layer0)}", flush=True)
+
+    # the stencil u of the first 3 entries, card against the CPU, same z
+    head = zoo.tree_map(lambda t: t[:3].contiguous(), stacked)
+
+    def stencil(dev):
+        prep = model.prepare_params_stacked(to_device(head, dev),
+                                            to_device(noise, dev))
+        return model.stein_u_stacked(prep, xt.to(dev), z[:3].to(dev),
+                                     model.cfg.stein_sigma).cpu()
+
+    u_card, u_cpu = stencil(device), stencil(torch.device("cpu"))
+    u_err, u_scale = _u_close("stein", u_card, u_cpu)
+    # identical params in every entry: each entry's own directions
+    same = zoo.tree_map(lambda t: t[None].expand(P, *t.shape).contiguous(),
+                        params)
+    distinct = stein_losses(same).cpu()
+    if len(set(distinct.tolist())) != P:
+        raise AssertionError(f"stein: identical entries gave {distinct}")
+    out = {"pde": model.problem.name, "P": P, "batch": B, "samples": S,
+           "sigma": model.cfg.stein_sigma, "launches": launches,
+           "losses": losses.cpu().tolist(),
+           "identical_params_losses": distinct.tolist(),
+           "stencil_u_max_abs_card_vs_cpu": u_err, "stencil_u_max": u_scale,
+           "call_ms": _time_ms(stein_losses, 10, warmup=2),
+           "call_trace": _profile(stein_losses, 1, match="tt_contract"),
+           "layer0": layer0}
+    return out
+
+
+def phase_train_pde(device) -> dict:
+    """heat-20d and black-scholes-100d through the trainer at the paper's
+    config, then the stacked Stein loss at heat-20d."""
+    out = {}
+    for pde, steps in PDE_TRAIN.items():
+        out[pde], res = _train_pde(device, pde, steps)
+        if pde == "heat-20d":
+            heat = res
+        print(f"[train-pde] {json.dumps(out[pde])}", flush=True)
+    out["stein"] = _stein_pde(device, heat)
+    print(f"[train-pde] {json.dumps({'stein': out['stein']})}", flush=True)
+    return out
+
+
 def phase_lm_serve(device) -> dict:
     import dataclasses
 
@@ -2657,24 +2922,36 @@ def main() -> int:
     name, count, card = phase_device()
     phase_build()
     device = repro_torch.resolve_device("cuda")
-    kernel = phase_kernel(device)
-    serve = phase_serve(device)
-    batched = phase_batched(device)
-    meshes = phase_mesh(device)
-    wide = phase_mesh_wide(device)
-    trained = phase_train(device)
-    quant_kernel = phase_quant_kernel(device)
-    trained_q = phase_train_quant(device, trained["val_mse"])
-    served_q = phase_serve_quant(device)
-    flash = phase_flash_kernel(device)
-    lm = phase_lm_serve(device)
-    bp_kernel = phase_bp_kernel(device)
-    trained_bp = phase_train_bp(device)
-    trained_seq = phase_train_seq(device)
-    trained_onn = phase_train_onn(device)
-    served_onn = phase_serve_onn(device)
-    phase_table2()
-    phase_table1(device)
+    retaken: dict = {}              # phase -> profiler windows taken again
+
+    def run(phase, *args):
+        before = PROFILE_RETRIES["windows"]
+        out = phase(*args)
+        retaken[phase.__name__] = PROFILE_RETRIES["windows"] - before
+        line = {"phase": phase.__name__,
+                "profile_retries": retaken[phase.__name__]}
+        print(f"[profile] {json.dumps(line)}", flush=True)
+        return out
+
+    kernel = run(phase_kernel, device)
+    serve = run(phase_serve, device)
+    batched = run(phase_batched, device)
+    meshes = run(phase_mesh, device)
+    wide = run(phase_mesh_wide, device)
+    trained = run(phase_train, device)
+    quant_kernel = run(phase_quant_kernel, device)
+    trained_q = run(phase_train_quant, device, trained["val_mse"])
+    served_q = run(phase_serve_quant, device)
+    flash = run(phase_flash_kernel, device)
+    lm = run(phase_lm_serve, device)
+    bp_kernel = run(phase_bp_kernel, device)
+    trained_bp = run(phase_train_bp, device)
+    trained_seq = run(phase_train_seq, device)
+    trained_onn = run(phase_train_onn, device)
+    served_onn = run(phase_serve_onn, device)
+    run(phase_table2)
+    run(phase_table1, device)
+    pdes = run(phase_train_pde, device)
 
     main_case = kernel["cases"][0]                       # paper spec, B=2048
     entry = {"name": "tt_contract", "route": "cuda",
@@ -2703,7 +2980,10 @@ def main() -> int:
                "kernel_device_ms": main_b["kernel_device_ms"],
                "shape": "x (11, 4300, 1024) f32 per entry, PAPER_TONN_SPEC "
                         "cores (11, r, m, n, r')",
-               "cases": list(batched.values())}
+               "launches_train_pde": {
+                   name: pdes[name]["launches"]["tt_contract_batched"]
+                   for name in (*PDE_TRAIN, "stein")},
+               "cases": [*batched.values(), pdes["stein"]["layer0"]]}
     # B3 has two entries in one source: the grouped densification, which
     # the training path runs, and the standalone mesh, which it no longer
     # runs (0 launches there; held to its plain version in phase 6)
@@ -2713,6 +2993,9 @@ def main() -> int:
                "source": "src/repro_torch/kernels/csrc/mesh_apply.cu",
                "replaces": "src/repro/kernels/mesh_apply.py:93",
                "launches": trained["launches"]["mesh_densify_stacked"],
+               "launches_train_pde": {
+                   name: pdes[name]["launches"]["mesh_densify_stacked"]
+                   for name in (*PDE_TRAIN, "stein")},
                "entry_launches": {
                    name: trained["launches"][name]
                    for name in ("mesh_densify_stacked",
@@ -2880,9 +3163,29 @@ def main() -> int:
           f"(bound {main_a['bound_ms']:.4f} ms), torch.bmm "
           f"{main_d['library_ms']:.4f} ms; served program "
           f"{served_onn['program_ms']:.3f} ms on {card}", flush=True)
+    for pde in PDE_TRAIN:
+        row = pdes[pde]
+        print(f"[train-pde] {pde}: {row['zo_step_ms']:.3f} ms per ZO step "
+              f"(CUDA events; hidden launch on "
+              f"{row['hidden_rows_per_entry']} rows an entry, bound "
+              f"{row['hidden_bound_ms']:.4f} ms); loss "
+              f"{row['losses'][0]:.4e} -> {row['losses'][-1]:.4e} over "
+              f"{row['steps']} steps, val MSE {row['val_mse']:.4e} on {card}",
+              flush=True)
+    bs = batched["bs100-hidden-stencil"]
+    print(f"[train-pde] black-scholes-100d's hidden launch alone "
+          f"(P {bs['P']}, {bs['rows']} rows an entry): {bs['ms']:.4f} ms "
+          f"(bound {bs['bound_ms']:.4f} ms, torch.bmm "
+          f"{bs['library_ms']:.4f} ms) on {card}", flush=True)
+    st = pdes["stein"]
+    print(f"[train-pde] stein {st['pde']} P {st['P']} B {st['batch']} S "
+          f"{st['samples']}: {st['call_ms']:.3f} ms a stacked loss; "
+          f"per-entry layer 0 {st['layer0']['ms']:.4f} ms (bound "
+          f"{st['layer0']['bound_ms']:.4f} ms, torch.bmm "
+          f"{st['layer0']['library_ms']:.4f} ms) on {card}", flush=True)
     print(json.dumps({"kernels": [entry, entry_b, entry_m, entry_q,
-                                  entry_f, entry_g, entry_a, entry_d]}),
-          flush=True)
+                                  entry_f, entry_g, entry_a, entry_d],
+                      "profile_retries": retaken}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -44,8 +44,14 @@ before the noise model.  ZO training is gradient-free, so fake-quant in the
 loss is the whole of QAT.  With ``cfg.quant`` disabled every path is the
 unquantized one, bit for bit.
 
-Port of ``repro.core.pinn``.  The Stein and spectral estimators are not
-ported yet.  Two paths of the JAX
+Derivatives come from the FD stencil (``fd``, ``fd_fast``) or the
+Gaussian-smoothing Stein estimator (``stein``: 2S+1 stacked inferences at
+random directions, from an explicit ``generator`` or handed in as ``z``);
+the stacked Stein path gives every entry of the stack its own directions,
+so its layer-0 launch reads per-entry rows.
+
+Port of ``repro.core.pinn``.  The spectral estimator is not ported yet
+(ROADMAP item 9a).  Two paths of the JAX
 package are CPU-XLA workarounds with no counterpart here: the polynomial
 ``fast_sin`` (the port takes ``torch.sin``) and the Kronecker head of
 ``_f_head_stacked`` (the port takes the TT chain, as the JAX package does
@@ -419,10 +425,25 @@ class TensorPinn:
         f = self._f_head_stacked(stacked, a, noise).reshape(P, 2 * A + 1, B)
         return self.problem.ansatz(f, pde_lib.fd_stencil_points(xt, h, A))
 
+    def stein_u_stacked(self, stacked: dict, xt: torch.Tensor,
+                        z: torch.Tensor, sigma: float,
+                        noise: dict | None = None) -> torch.Tensor:
+        """u at every entry's own Stein stencil for P stacked (prepared)
+        parameter sets: rows xt (B, net_in) and directions z (P, S, B,
+        net_in) → (P, 2S+1, B).  One stacked forward over per-entry rows
+        (``tt`` / ``tonn``: two ``tt_linear_batched`` launches, both per
+        entry).  ``noise`` as in ``_layer_matvec_stacked``."""
+        P, S, B = z.shape[:3]
+        pts = stein.stein_stencil_points(xt, z, sigma)
+        u = self.u_stacked(stacked, pts.reshape(P, (2 * S + 1) * B, -1),
+                           noise)
+        return u.reshape(P, 2 * S + 1, B)
+
     def f_stacked(self, stacked: dict, xt: torch.Tensor,
                   noise: dict | None = None) -> torch.Tensor:
         """Base network of P stacked (prepared) parameter sets over a
-        shared batch: (B, net_in) → (P, B)."""
+        shared batch (B, net_in) → (P, B), or over per-entry rows
+        (P, B, net_in) → (P, B)."""
         a = torch.sin(self._layer_matvec_stacked(stacked, 0, self._embed(xt),
                                                  noise)
                       + stacked["b0"][:, None])
@@ -430,7 +451,8 @@ class TensorPinn:
 
     def u_stacked(self, stacked: dict, xt: torch.Tensor,
                   noise: dict | None = None) -> torch.Tensor:
-        """Ansatz u of P stacked parameter sets: (B, net_in) → (P, B)."""
+        """Ansatz u of P stacked parameter sets: (B, net_in) shared or
+        (P, B, net_in) per entry → (P, B)."""
         return self.problem.ansatz(self.f_stacked(stacked, xt, noise), xt)
 
 
@@ -475,13 +497,12 @@ def _resolve_deriv(cfg: PINNConfig, problem: pde_lib.PDEProblem) -> str:
     """``cfg.deriv``, "auto" deferring to the problem's ``estimator``;
     raises for an estimator the port does not have yet."""
     deriv = problem.estimator if cfg.deriv == "auto" else cfg.deriv
-    if deriv in ("fd", "fd_fast"):
+    if deriv in ("fd", "fd_fast", "stein"):
         return deriv
-    item = {"stein": 8, "spectral": 9}.get(deriv)
-    if item is None:
-        raise ValueError(f"unknown derivative estimator {deriv!r}")
-    raise NotImplementedError(f"the {deriv} estimator is not ported yet "
-                              f"(ROADMAP queue A, item {item})")
+    if deriv == "spectral":
+        raise NotImplementedError("the spectral estimator is not ported yet "
+                                  "(ROADMAP queue A, item 9a)")
+    raise ValueError(f"unknown derivative estimator {deriv!r}")
 
 
 def _add_terms(loss: torch.Tensor, problem: pde_lib.PDEProblem,
@@ -498,10 +519,14 @@ def _add_terms(loss: torch.Tensor, problem: pde_lib.PDEProblem,
 
 def residual_loss(model: TensorPinn, params: dict, xt: torch.Tensor,
                   noise: dict | None = None,
-                  term_batches: dict | None = None) -> torch.Tensor:
+                  term_batches: dict | None = None,
+                  generator: torch.Generator | None = None,
+                  z: torch.Tensor | None = None) -> torch.Tensor:
     """BP-free composite PDE loss of one parameter set: the collocation
     residual over ``xt`` from FD derivatives (``fd_fast``: layer 1 once)
-    plus ``weight · MSE(u(x), target)`` per supplied boundary/data term."""
+    or Stein's (``cfg.stein_samples`` directions drawn from ``generator``,
+    or ``z`` (S, B, D) as given) plus ``weight · MSE(u(x), target)`` per
+    supplied boundary/data term."""
     problem = model.problem
     deriv = _resolve_deriv(model.cfg, problem)
     params, noise = model.prepare_params(params, noise)
@@ -509,6 +534,14 @@ def residual_loss(model: TensorPinn, params: dict, xt: torch.Tensor,
     if deriv == "fd_fast":
         vals = model.fd_u_stencil(params, xt, h, noise)
         loss = _loss_from_u_stencil(problem, vals, h, xt)
+    elif deriv == "stein":
+        cfg = model.cfg
+        est = stein.stein_estimate(lambda pts: model.u(params, pts, noise),
+                                   xt, generator, sigma=cfg.stein_sigma,
+                                   num_samples=cfg.stein_samples,
+                                   n_active=model.in_dim, z=z)
+        r = problem.residual(problem.scale_estimate(est), xt)
+        loss = torch.mean(r * r)
     else:
         est = stein.fd_estimate(lambda pts: model.u(params, pts, noise), xt,
                                 h=h, n_active=model.in_dim)
@@ -520,8 +553,9 @@ def residual_loss(model: TensorPinn, params: dict, xt: torch.Tensor,
 
 def residual_losses_stacked(model: TensorPinn, stacked_params: dict,
                             xt: torch.Tensor, noise: dict | None = None,
-                            term_batches: dict | None = None
-                            ) -> torch.Tensor:
+                            term_batches: dict | None = None,
+                            generator: torch.Generator | None = None,
+                            z: torch.Tensor | None = None) -> torch.Tensor:
     """The ZO hot path: composite losses of P stacked parameter sets
     (leading axis on every leaf) over one shared collocation batch → (P,).
 
@@ -530,33 +564,54 @@ def residual_losses_stacked(model: TensorPinn, stacked_params: dict,
     perturbed model in one program — with ``fd_fast``, three
     ``tt_linear_batched`` launches (layer 1 on the rows and on the
     identity columns, the hidden layer on the stencil's activations), or
-    in ``onn`` mode six stacked meshes, which apply the chip's noise."""
+    in ``onn`` mode six stacked meshes, which apply the chip's noise.
+
+    With ``stein`` every entry draws its own directions, ``z`` (P, S, B,
+    D) as given or drawn from ``generator``: entry i equals
+    ``residual_loss(model, params_i, xt, noise, z=z[i])``, so identical
+    stacked params still see distinct noise (the reference splits its key
+    per entry).  It stays one stacked program: each entry's (2S+1)·B rows
+    go through its own model, two per-entry ``tt_linear_batched``
+    launches."""
     problem = model.problem
     deriv = _resolve_deriv(model.cfg, problem)
     prepared = model.prepare_params_stacked(stacked_params, noise)
     eff_noise = noise if model.cfg.mode == "onn" else None
     h = model.fd_step
-    if deriv == "fd_fast":
+    if deriv == "stein":
+        P = prepared["b0"].shape[0]
+        z = stein.stein_directions(xt, generator, model.cfg.stein_samples,
+                                   model.in_dim, z, lead=(P,))
+        sigma = model.cfg.stein_sigma
+        vals = model.stein_u_stacked(prepared, xt, z, sigma, eff_noise)
+        est = stein.estimate_from_stein_vals(vals, z, sigma, model.in_dim)
+        r = problem.residual(problem.scale_estimate(est), xt)
+        losses = torch.mean(r * r, dim=-1)
+    elif deriv == "fd_fast":
         vals = model.fd_u_stencil_stacked(prepared, xt, h, eff_noise)
+        losses = _loss_from_u_stencil(problem, vals, h, xt)
     else:
         (B, D), A = xt.shape, model.in_dim
         pts = pde_lib.fd_stencil_points(xt, h, A)
         vals = model.u_stacked(prepared, pts.reshape(-1, D), eff_noise)
         vals = vals.reshape(vals.shape[0], 2 * A + 1, B)
-    losses = _loss_from_u_stencil(problem, vals, h, xt)
+        losses = _loss_from_u_stencil(problem, vals, h, xt)
     return _add_terms(losses, problem, term_batches,
                       lambda xb: model.u_stacked(prepared, xb, eff_noise))
 
 
 def per_term_losses(model: TensorPinn, params: dict, xt: torch.Tensor,
                     noise: dict | None = None,
-                    term_batches: dict | None = None) -> dict:
+                    term_batches: dict | None = None,
+                    generator: torch.Generator | None = None,
+                    z: torch.Tensor | None = None) -> dict:
     """Unweighted per-term losses keyed by term name (terms whose batch is
-    absent are omitted)."""
+    absent are omitted); ``generator`` / ``z`` as in ``residual_loss``."""
     out = {}
     for t in model.problem.loss_terms():
         if t.kind == "collocation":
-            out[t.name] = residual_loss(model, params, xt, noise)
+            out[t.name] = residual_loss(model, params, xt, noise,
+                                        generator=generator, z=z)
         elif (term_batches or {}).get(t.name) is not None:
             xb, ub = term_batches[t.name]
             out[t.name] = _boundary_mse(model.u(params, xb, noise), ub)

@@ -4,7 +4,8 @@ A weight matrix ``W ∈ R^{M×N}`` with ``M = Π m_k``, ``N = Π n_k`` is held a
 TT-cores ``G_k ∈ R^{r_{k-1} × m_k × n_k × r_k}`` (``r_0 = r_L = 1``).  A TT
 "linear layer" computes ``y = x W^T`` with ``x: (..., N)`` → ``y: (..., M)``.
 
-Port of ``repro.core.tt`` (``tt_svd`` is not ported yet).
+``tt_svd`` decomposes a dense matrix into cores (TT-SVD, in float64 on the
+host, as the reference does).  Port of ``repro.core.tt``.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ import numpy as np
 import torch
 
 __all__ = ["TTSpec", "auto_factorize", "hjb_layer_spec", "PAPER_TONN_SPEC",
-           "tt_init", "tt_matvec", "tt_matvec_stacked", "tt_to_full"]
+           "tt_init", "tt_matvec", "tt_matvec_stacked", "tt_to_full",
+           "tt_svd", "tt_num_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,3 +206,44 @@ def tt_to_full(cores: Sequence[torch.Tensor], spec: TTSpec) -> torch.Tensor:
                    for d in (spec.out_modes[k], spec.in_modes[k])])
     perm = list(range(0, 2 * spec.L, 2)) + list(range(1, 2 * spec.L, 2))
     return t.permute(perm).reshape(spec.out_dim, spec.in_dim)
+
+
+def tt_svd(w, spec: TTSpec, device=None) -> list:
+    """TT-SVD (Oseledets 2011): decompose a dense (M, N) matrix (array or
+    tensor) into TT-cores with the ranks given by ``spec``, a truncated SVD
+    at each unfolding, in numpy float64 as the reference does; ranks the
+    data lacks are zero-padded up to the spec.  Returns float32 cores on
+    the CPU, or on ``device``."""
+    w = (w.detach().cpu().numpy() if isinstance(w, torch.Tensor)
+         else np.asarray(w))
+    M, N = w.shape
+    if M != spec.out_dim or N != spec.in_dim:
+        raise ValueError(f"shape mismatch: {w.shape} vs spec "
+                         f"{spec.out_dim}x{spec.in_dim}")
+    L = spec.L
+    # (m1, ..., mL, n1, ..., nL) interleaved to (m1, n1, m2, n2, ...)
+    t = w.astype(np.float64).reshape(tuple(spec.out_modes)
+                                     + tuple(spec.in_modes))
+    t = np.transpose(t, [d for k in range(L) for d in (k, L + k)])
+    cores = []
+    r_prev = 1
+    for k in range(L - 1):
+        m_k, n_k = spec.out_modes[k], spec.in_modes[k]
+        t = t.reshape(r_prev * m_k * n_k, -1)
+        u, s, vt = np.linalg.svd(t, full_matrices=False)
+        r_k = min(spec.ranks[k + 1], s.shape[0])
+        u, s, vt = u[:, :r_k], s[:r_k], vt[:r_k]
+        cores.append(u.reshape(r_prev, m_k, n_k, r_k))
+        t = s[:, None] * vt
+        r_prev = r_k
+    cores.append(t.reshape(r_prev, spec.out_modes[-1], spec.in_modes[-1], 1))
+    out = []
+    for c, shape in zip(cores, spec.core_shapes):
+        c = np.pad(c, [(0, want - have) for want, have in zip(shape, c.shape)])
+        out.append(torch.tensor(c, dtype=torch.float32, device=device))
+    return out
+
+
+def tt_num_params(spec: TTSpec) -> int:
+    """Parameters of the spec's cores."""
+    return spec.num_params

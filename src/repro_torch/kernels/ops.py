@@ -7,11 +7,12 @@ There is no switch that sends CUDA tensors to the plain version.
 Autograd: on the card ``tt_contract`` itself carries its hand-written
 backward (``tt_contract_grad``) whenever an input requires grad; the plain
 versions on the CPU are differentiated by autograd natively.  The batched
-TT kernels and the mesh kernels have no backward.  The mesh entries raise
-on a CUDA input that requires grad while grad is enabled; the BP baselines
-densify tonn's meshes through the plain path by name
-(``TensorPinn.prepare_params_plain``), and BP of ``onn`` waits for a mesh
-backward kernel (ROADMAP).
+TT kernels, the mesh kernels and the attention kernel have no backward, so
+their entries raise on a CUDA input that requires grad while grad is
+enabled, before the launch (``_no_backward``): the ZO steps run without
+grad and the BP baselines go through ``tt_linear``; they densify tonn's
+meshes through the plain path by name (``TensorPinn.prepare_params_plain``),
+and BP of ``onn`` waits for a mesh backward kernel (ROADMAP).
 
 ``quant`` (a ``kernels.quant.QuantConfig``, or None) follows the JAX
 package's ``repro.kernels.ops``: with weight quantization on, the TT layers
@@ -44,14 +45,23 @@ def _weight_quant(quant) -> bool:
     return quant is not None and quant.weights
 
 
-def _no_backward(name: str, tensors) -> None:
-    """Raise if autograd would need a backward through a mesh kernel."""
+_NO_BACKWARD_WHY = {
+    "mesh": "the BP baselines densify through the plain path "
+            "(TensorPinn.prepare_params_plain); a mesh backward kernel is "
+            "ROADMAP queue A, item 6c",
+    "tt_batched": "the ZO steps run it without grad, and the BP baselines "
+                  "go through tt_linear (tt_contract and its backward)",
+    "attention": "an attention backward is ROADMAP queue A, item 14a",
+}
+
+
+def _no_backward(name: str, tensors, kind: str = "mesh") -> None:
+    """Raise if autograd would need a backward through a kernel that has
+    none (``kind`` names why, and what to use instead)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise ValueError(
             f"{name} on the card has no backward, and an input requires "
-            "grad: the BP baselines densify through the plain path "
-            "(TensorPinn.prepare_params_plain); a mesh backward kernel is "
-            "ROADMAP queue A, item 6c")
+            f"grad: {_NO_BACKWARD_WHY[kind]}")
 
 
 def tt_linear(x: torch.Tensor, cores: Sequence[torch.Tensor],
@@ -79,9 +89,11 @@ def tt_linear_batched(x: torch.Tensor, cores: Sequence[torch.Tensor],
         if x.device.type == "cpu":
             return _ref.tt_contract_batched_quant_ref(x, cores, spec, quant,
                                                       shared_x)
+        _no_backward("tt_contract_batched_quant", (x, *cores), "tt_batched")
         return _ttc.tt_contract_batched_quant(x, cores, spec, quant, shared_x)
     if x.device.type == "cpu":
         return _ref.tt_contract_batched_ref(x, cores, spec, shared_x)
+    _no_backward("tt_contract_batched", (x, *cores), "tt_batched")
     return _ttc.tt_contract_batched(x, cores, spec, shared_x)
 
 
@@ -143,4 +155,5 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     that is not a multiple of 8, a dtype other than f32 / bf16)."""
     if q.device.type == "cpu":
         return _ref.attention_ref(q, k, v, causal, window, scale)
+    _no_backward("flash_attention", (q, k, v), "attention")
     return _fa.flash_attention(q, k, v, causal, window, scale)

@@ -48,7 +48,8 @@ Port of the ``train_pinn`` branch of ``repro.launch.train``.  Every flag
 of that launcher this port does not have yet exits with the ROADMAP item
 that ports it; so do ``--quant`` / ``--phase-bits`` with a BP optimizer
 (the backward is f32 only) or with ``onn``, and a BP optimizer with
-``onn`` (the mesh kernels have no backward).
+``onn`` (the mesh kernels have no backward).  ``--estimator stein`` exits
+too, naming the reference trainer's own fault (``STEIN_REFUSAL``).
 """
 
 from __future__ import annotations
@@ -70,6 +71,18 @@ from repro_torch.optim import get_optimizer
 __all__ = ["PINN_ARCHS", "TrainResult", "init_solver", "train_pinn", "main"]
 
 PINN_ARCHS = ("hjb-pinn", "tensor-pinn")
+
+# The reference trainer builds its losses with no PRNG key, and its Stein
+# branch asserts one (repro.launch.train's loss closures →
+# repro.core.pinn.residual_loss), so it cannot train with Stein; the port
+# adds no training path the reference lacks.  The Stein API takes an
+# explicit generator or directions (pinn.residual_loss[es_stacked]).
+STEIN_REFUSAL = (
+    "--estimator stein: the reference trainer passes no PRNG key to its "
+    "Stein loss (src/repro/launch/train.py:281-290 -> "
+    "src/repro/core/pinn.py:775 'stein estimator needs a PRNG key'), so "
+    "neither trainer takes it (ROADMAP queue C, 'Stein CLI'); call "
+    "pinn.residual_loss / residual_losses_stacked with a generator or z")
 
 
 @dataclasses.dataclass
@@ -146,11 +159,10 @@ def _unported(args) -> list:
         (args.pinn_mode == "onn" and bp,
          f"BP training of --pinn-mode onn (--optimizer {args.optimizer}; "
          "it needs a mesh backward kernel)", "6c"),
-        (args.estimator == "stein", "--estimator stein", 8),
-        (args.term_weight, "--term-weight", 8),
-        (args.bc_weight is not None, "--bc-weight", 8),
-        (args.estimator == "spectral", "--estimator spectral", 9),
-        (args.spectral_points is not None, "--spectral-points", 9),
+        (args.term_weight, "--term-weight", "8b"),
+        (args.bc_weight is not None, "--bc-weight", "8b"),
+        (args.estimator == "spectral", "--estimator spectral", "9a"),
+        (args.spectral_points is not None, "--spectral-points", "9a"),
         (args.coeff_range is not None, "--coeff-range", 10),
         (args.coeff_dist is not None, "--coeff-dist", 10),
         (args.coeffs_per_step is not None, "--coeffs-per-step", 10),
@@ -365,6 +377,8 @@ def main(argv=None) -> TrainResult:
         raise SystemExit(f"--arch {args.arch}: the LM archs are not ported "
                          "yet (ROADMAP queue A, item 14); the port trains "
                          f"{PINN_ARCHS}")
+    if args.estimator == "stein":
+        raise SystemExit(STEIN_REFUSAL)
     unported = _unported(args)
     if unported:
         raise SystemExit("; ".join(

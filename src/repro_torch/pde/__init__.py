@@ -1,14 +1,19 @@
-"""PDE problem registry: ``hjb-20d`` / ``hjb-10d`` (the paper's HJB
-benchmark, trainable: its residual is ported) and ``heat-10d`` /
-``heat-20d`` (Gaussian exact solution, served).  ``get_problem(name)``
-resolves a name to a fresh problem."""
+"""PDE problem registry, every problem trainable: ``hjb-20d`` / ``hjb-10d``
+(the paper's HJB benchmark), ``heat-10d`` / ``heat-20d`` (Gaussian exact
+solution) and ``black-scholes-100d`` (the 100-asset Black–Scholes–Barenblatt
+benchmark).  ``get_problem(name)`` resolves a name to a fresh problem;
+``estimate_for_problem`` estimates u's derivatives the way a problem is
+trained."""
 
 from repro_torch.pde.base import (LossTerm, PDEProblem, available,
+                                  estimate_for_problem,
                                   estimate_from_u_stencil, fd_stencil_points,
                                   get_problem, register, uniform_box)
-from repro_torch.pde.heat import HeatProblem    # importing registers
+from repro_torch.pde.black_scholes import BlackScholesProblem  # registers
+from repro_torch.pde.heat import HeatProblem
 from repro_torch.pde.hjb import HJBProblem
 
 __all__ = ["LossTerm", "PDEProblem", "register", "get_problem", "available",
            "uniform_box", "fd_stencil_points", "estimate_from_u_stencil",
-           "HJBProblem", "HeatProblem"]
+           "estimate_for_problem", "HJBProblem", "HeatProblem",
+           "BlackScholesProblem"]

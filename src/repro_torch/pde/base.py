@@ -26,7 +26,8 @@ import torch
 from repro_torch.core import stein
 
 __all__ = ["LossTerm", "PDEProblem", "register", "get_problem", "available",
-           "uniform_box", "fd_stencil_points", "estimate_from_u_stencil"]
+           "uniform_box", "fd_stencil_points", "estimate_from_u_stencil",
+           "estimate_for_problem"]
 
 _TERM_KINDS = ("collocation", "boundary", "data")
 
@@ -101,8 +102,7 @@ class PDEProblem:
                  xt: torch.Tensor) -> torch.Tensor:
         """Pointwise PDE residual (..., B) from a derivative estimate of u."""
         raise NotImplementedError(
-            f"the residual of {self.name or type(self).__name__} is not "
-            "ported yet (ROADMAP queue A, item 8)")
+            f"{self.name or type(self).__name__} defines no residual")
 
     def boundary_batch(self, generator: torch.Generator, n: int):
         """(xb, ub) boundary rows and targets, or None (no boundary term)."""
@@ -165,7 +165,7 @@ class PDEProblem:
         if self.domain is not None:
             raise NotImplementedError(
                 "domain normalization is not ported yet (ROADMAP queue A, "
-                "item 9)")
+                "item 9a)")
         return est
 
 
@@ -199,6 +199,32 @@ def estimate_from_u_stencil(vals: torch.Tensor, h: float
         grad=((up - um) / (2.0 * h)).transpose(-1, -2),
         hess_diag=((up - 2.0 * u0[..., None, :] + um)
                    / (h * h)).transpose(-1, -2))
+
+
+def estimate_for_problem(problem: PDEProblem, f: Callable,
+                         xt: torch.Tensor,
+                         generator: torch.Generator | None = None,
+                         estimator: str | None = None,
+                         z: torch.Tensor | None = None
+                         ) -> stein.DerivativeEstimate:
+    """Derivative estimate of a callable u at rows ``xt`` under the
+    problem's declared estimator (or ``estimator``), with the domain
+    Jacobian folded in: "evaluate the residual the way this problem is
+    trained" as one call.  ``generator`` and ``z`` (the Stein directions,
+    (S, B, D)) are read by the stein estimator only."""
+    deriv = problem.estimator if estimator is None else estimator
+    if deriv in ("fd", "fd_fast"):
+        est = stein.fd_estimate(f, xt, h=problem.fd_step,
+                                n_active=problem.in_dim)
+    elif deriv == "stein":
+        est = stein.stein_estimate(f, xt, generator, n_active=problem.in_dim,
+                                   z=z)
+    elif deriv == "spectral":
+        raise NotImplementedError("the spectral estimator is not ported yet "
+                                  "(ROADMAP queue A, item 9a)")
+    else:
+        raise ValueError(f"unknown estimator {deriv!r}")
+    return problem.scale_estimate(est)
 
 
 _REGISTRY: dict[str, Callable[[], PDEProblem]] = {}

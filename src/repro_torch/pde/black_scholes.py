@@ -1,0 +1,83 @@
+"""100-dim Black–Scholes–Barenblatt terminal-value PDE.
+
+The standard high-dimensional BSDE benchmark in PINN form:
+
+    ∂_t u + ½σ² Σ_i x_i² ∂²_i u − r (u − Σ_i x_i ∂_i u) = 0,
+    u(x, 1) = ‖x‖² / D,   x ∈ [0.5, 1.5]^D, t ∈ [0,1],
+
+with closed-form solution  u(x, t) = exp((r + σ²)(1 − t)) · ‖x‖² / D.
+The 1/D normalization of the terminal payoff keeps u O(1) at D = 100
+instead of O(D), which float32 FD second differences need.
+
+Ansatz: u = (1−t)·f + ‖x‖²/D — terminal condition exact, residual-only loss.
+Default σ = 0.4, r = 0.05 (the literature's configuration).  The (r, σ)
+conditioned family (the ``-rs`` registrations) is ROADMAP item 10.
+
+Port of ``repro.pde.black_scholes``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import stein
+from repro_torch.pde import base
+
+
+class BlackScholesProblem(base.PDEProblem):
+    """Black–Scholes–Barenblatt equation in ``space_dim`` assets."""
+
+    time_dependent = True
+    has_boundary_loss = False
+    # u ~ O(1) after the 1/D payoff normalization; the Laplacian term's D
+    # independent ±ε/h² FD rounding contributions (weighted by ½σ²x_i²)
+    # accumulate like √D · ½σ²·x̄²·1e-3 ≈ 2e-3 at D=100 → mean-squared
+    # exact-solution residual ≲ 1e-4; truncation is O(h²) and smaller.
+    residual_tol = 1e-2
+
+    def __init__(self, space_dim: int = 100, sigma: float = 0.4,
+                 r: float = 0.05, margin: float = 0.02):
+        self.space_dim = space_dim
+        self.name = f"black-scholes-{space_dim}d"
+        self.sigma = float(sigma)
+        self.r = float(r)
+        self.margin = margin
+
+    def sample_collocation(self, generator: torch.Generator,
+                           n: int) -> torch.Tensor:
+        """x ∈ [0.5+m, 1.5−m]^D, t ∈ [m, 1−m] (the margin keeps FD
+        stencils inside the domain)."""
+        pts = base.uniform_box(generator, n, self.in_dim, self.margin,
+                               1.0 - self.margin)
+        return torch.cat([pts[:, :-1] + 0.5, pts[:, -1:]], dim=-1)
+
+    def _terminal(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.sum(x * x, dim=-1) / self.space_dim
+
+    def ansatz(self, f: torch.Tensor, xt: torch.Tensor) -> torch.Tensor:
+        """u = (1−t)·f + ‖x‖²/D."""
+        D = self.space_dim
+        x, t = xt[..., :D], xt[..., D]
+        return (1.0 - t) * f + self._terminal(x)
+
+    def residual(self, est: stein.DerivativeEstimate,
+                 xt: torch.Tensor) -> torch.Tensor:
+        """u_t + ½σ² Σ x_i²∂²_i u − r(u − Σ x_i ∂_i u)."""
+        D = self.space_dim
+        x = xt[..., :D]
+        u_t = est.grad[..., D]
+        diff = 0.5 * self.sigma ** 2 * torch.sum(
+            x * x * est.hess_diag[..., :D], dim=-1)
+        drift = self.r * (est.u - torch.sum(x * est.grad[..., :D], dim=-1))
+        return u_t + diff - drift
+
+    def exact_solution(self, xt: torch.Tensor) -> torch.Tensor:
+        D = self.space_dim
+        x, t = xt[..., :D], xt[..., D]
+        return (torch.exp((self.r + self.sigma ** 2) * (1.0 - t))
+                * self._terminal(x))
+
+
+@base.register("black-scholes-100d")
+def _bs_100d() -> BlackScholesProblem:
+    return BlackScholesProblem(space_dim=100)

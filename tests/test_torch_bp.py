@@ -176,6 +176,54 @@ def test_raw_kernel_refuses_inputs_that_require_grad(monkeypatch):
     assert seen == [False, False, True]
 
 
+def test_kernels_without_a_backward_refuse_grad_before_launching(
+        monkeypatch):
+    """``ops.tt_linear_batched`` (f32 and quantized) and ``ops.attention``
+    on a tensor off the CPU that requires grad raise before their launch;
+    under ``no_grad`` the same calls reach it.  The launches are stubbed
+    and the tensors are on torch's ``meta`` device, which takes the card's
+    branch of the dispatch here."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant as quant_lib
+    launched = []
+
+    def stub(name):
+        def launch(x, *args, **kwargs):
+            launched.append(name)
+            return x
+        return launch
+
+    for mod, name in ((ttc, "tt_contract_batched"),
+                      (ttc, "tt_contract_batched_quant"),
+                      (fa, "flash_attention")):
+        monkeypatch.setattr(mod, name, stub(name))
+    spec = SPECS["reduced"]
+    cores = [torch.zeros((3, *s), device="meta") for s in spec.core_shapes]
+    x = torch.zeros((5, spec.in_dim), device="meta", requires_grad=True)
+    int8 = quant_lib.QuantConfig(enabled=True, dtype="int8")
+    q = torch.zeros((1, 2, 4, 8), device="meta", requires_grad=True)
+    kv = torch.zeros((1, 1, 4, 8), device="meta")
+    calls = {"tt_contract_batched": lambda: ops.tt_linear_batched(
+                 x, cores, spec),
+             "tt_contract_batched_quant": lambda: ops.tt_linear_batched(
+                 x, cores, spec, quant=int8),
+             "flash_attention": lambda: ops.attention(q, kv, kv)}
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match=f"{name} on the card has no "
+                                             "backward"):
+            call()
+        assert launched == []
+    with pytest.raises(ValueError, match="tt_linear"):
+        calls["tt_contract_batched"]()
+    with pytest.raises(ValueError, match="item 14a"):
+        calls["flash_attention"]()
+    with torch.no_grad():
+        for call in calls.values():
+            call()
+    assert launched == list(calls)
+
+
 @pytest.mark.parametrize("rows", [21, 100, 4300])
 def test_grad_tile_fits_a_block(rows):
     """The backward's layout at the BP launches of the paper's spec: the

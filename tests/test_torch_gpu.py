@@ -549,6 +549,46 @@ def test_mesh_entries_refuse_grad_on_the_card(cuda):
                                               diag[0], x))
 
 
+def test_batched_tt_and_attention_refuse_grad_on_the_card(cuda):
+    """``ops.tt_linear_batched`` (f32 and int8) and ``ops.attention`` have
+    no backward on the card: a CUDA input that requires grad raises while
+    grad is enabled, and the same calls under ``no_grad`` launch, equal to
+    their plain versions (phase 3's bound)."""
+    spec = tt.PAPER_TONN_SPEC
+    gen = torch.Generator().manual_seed(5)
+    cores = [c[None].to(cuda) for c in tt.tt_init(gen, spec)]
+    x = torch.randn((7, spec.in_dim), generator=gen).to(cuda)
+    x.requires_grad_()
+    int8 = quant_lib.QuantConfig(enabled=True, dtype="int8")
+    q = torch.randn((1, 2, 16, 32), generator=gen).to(cuda)
+    kv = torch.randn((1, 1, 16, 32), generator=gen).to(cuda)
+    q.requires_grad_()
+    calls = {
+        "tt_contract_batched": (
+            lambda: ops.tt_linear_batched(x, cores, spec),
+            lambda: ref.tt_contract_batched_ref(x.detach(), cores, spec)),
+        "tt_contract_batched_quant": (
+            lambda: ops.tt_linear_batched(x, cores, spec, quant=int8),
+            lambda: ref.tt_contract_batched_quant_ref(x.detach(), cores,
+                                                      spec, int8)),
+        "flash_attention": (
+            lambda: ops.attention(q, kv, kv),
+            lambda: ref.attention_ref(q.detach(), kv, kv))}
+    for name, (call, plain) in calls.items():
+        counter = ttc if name.startswith("tt") else fa
+        before = getattr(counter, name).launches
+        with pytest.raises(ValueError, match="no backward"):
+            call()
+        assert getattr(counter, name).launches == before
+        with torch.no_grad():
+            y = call()
+        assert getattr(counter, name).launches == before + 1
+        want = plain()
+        assert y.grad_fn is None
+        assert (y - want).abs().max().item() <= \
+            1e-5 * want.abs().max().item() + 1e-6, name
+
+
 def test_prepare_params_is_one_grouped_launch_as_plain(cuda):
     """tonn's ``prepare_params`` (serving's load, the sequential ZO path)
     is one ``mesh_densify_stacked`` launch on the card, bit-equal to the

@@ -190,17 +190,18 @@ def test_loss_terms_and_weights_match_jax():
     assert tpde.get_problem("hjb-20d").term_weights() == {"residual": 1.0}
     with pytest.raises(ValueError, match="unknown loss term"):
         tp.set_term_weights({"boundary": 1.0})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tpde.get_problem("heat-10d").residual(None, None)
+    with pytest.raises(NotImplementedError, match="defines no residual"):
+        tpde.PDEProblem().residual(None, None)
 
 
 def test_unported_estimators_raise():
-    for deriv, item in (("stein", "item 8"), ("spectral", "item 9")):
-        tm = tpinn.TensorPinn(tpinn.PINNConfig(hidden=16, mode="tt", tt_L=3,
-                                               deriv=deriv))
-        p = tm.init(torch.Generator().manual_seed(0))
-        with pytest.raises(NotImplementedError, match=item):
-            tpinn.residual_loss(tm, p, torch.zeros(2, 21))
+    """Only the spectral estimator is still to port (Stein is held to the
+    reference in ``tests/test_torch_pde.py``)."""
+    tm = tpinn.TensorPinn(tpinn.PINNConfig(hidden=16, mode="tt", tt_L=3,
+                                           deriv="spectral"))
+    p = tm.init(torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="item 9a"):
+        tpinn.residual_loss(tm, p, torch.zeros(2, 21))
 
 
 def test_validation_mse_matches_jax():

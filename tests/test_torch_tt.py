@@ -269,12 +269,15 @@ def test_batched_split_and_refusals():
 def _config_specs():
     """Every TTSpec the port's PINN configs build: the paper's table rows,
     ``pinn_config`` (hidden 1024) and ``pinn_reduced`` (hidden 64, L 3) of
-    each registered PDE."""
+    each registered PDE (black-scholes-100d's 101-wide input pads to 1024
+    and to 104)."""
     from repro_torch import pde
     from repro_torch.configs import hjb_pinn
     from repro_torch.core import pinn
     cfgs = [hjb_pinn.TONN_OFFCHIP, hjb_pinn.TONN_ONCHIP,
             hjb_pinn.TONN_ONCHIP_FUSED, hjb_pinn.REDUCED]
+    assert {"hjb-20d", "heat-20d", "black-scholes-100d"} <= set(
+        pde.available())
     for name in pde.available():
         cfgs += [hjb_pinn.pinn_config(name, "tt"),
                  hjb_pinn.pinn_reduced(name, "tt")]
@@ -349,3 +352,46 @@ def test_fiber_tile_refuses_a_row_past_shared_memory():
     assert 4 * tttc.chain_widest(spec) > tttc.SMEM_MAX_BYTES
     with pytest.raises(ValueError, match="shared memory"):
         tttc.fiber_tile(spec)
+
+
+# ------------------------------------------------------------------- TT-SVD
+
+def test_tt_svd_full_rank_roundtrip():
+    """``test_core``'s case: a rank the unfolding cannot reach clamps, and
+    the cores rebuild the matrix."""
+    spec = ttt.TTSpec((3, 4), (5, 2), (1, 12, 1))
+    w = np.random.RandomState(0).randn(12, 10)
+    cores = ttt.tt_svd(w, spec)
+    assert [tuple(c.shape) for c in cores] == list(spec.core_shapes)
+    assert all(c.dtype == torch.float32 for c in cores)
+    np.testing.assert_allclose(ttt.tt_to_full(cores, spec).numpy(), w,
+                               atol=1e-5)
+    assert ttt.tt_num_params(spec) == jtt.tt_num_params(spec) == 276
+
+
+def test_tt_svd_truncation_is_best_effort():
+    """``test_core``'s case: a rank-4 matrix at TT-rank 4 rebuilds within
+    the discarded singular values (relative error below 0.9)."""
+    rs = np.random.RandomState(1)
+    w = rs.randn(16, 4) @ rs.randn(4, 16)
+    spec = ttt.TTSpec((4, 4), (4, 4), (1, 4, 1))
+    w2 = ttt.tt_to_full(ttt.tt_svd(torch.tensor(w), spec), spec).numpy()
+    assert np.linalg.norm(w2 - w) / np.linalg.norm(w) < 0.9
+
+
+@pytest.mark.parametrize("label", ["reduced-64", "rank4-256x512",
+                                   "nonsquare-96x128"])
+def test_tt_svd_cores_match_jax(label):
+    """The same float64 SVDs as the reference: the cores equal JAX's within
+    1e-6 (both round the same float64 values to f32; only the two LAPACK
+    calls could differ); ``device=`` puts them where asked."""
+    spec = CHAIN_CASES[label][0]
+    w = np.random.RandomState(len(label)).randn(spec.out_dim, spec.in_dim)
+    want = jtt.tt_svd(w, spec)
+    got = ttt.tt_svd(w, spec, device="cpu")
+    assert len(got) == spec.L
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                   atol=1e-6)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        ttt.tt_svd(w[:, 1:], spec)
