@@ -33,7 +33,10 @@ backward kernel is ROADMAP queue A, item 6c.  Quantization-aware rows
 Random draws come from ``device.counter_generator``, not JAX's threefry:
 the params and chip from ``(seed)`` and ``(seed, 99)`` (the trainer's
 ``init_solver``), epoch i's batch from ``(seed, i, 0)`` (the trainer's
-collocation iterator), ξ from ``(seed + 1, i)`` (``zoo.ZOState``) and the
+collocation iterator) and, for a problem with a boundary loss
+(helmholtz-2d), its ``max(batch // 4, 8)`` boundary rows from the
+trainer's term iterator (``(seed, i, 1, term)``), passed to both arms as
+``term_batches``, ξ from ``(seed + 1, i)`` (``zoo.ZOState``) and the
 seed-independent validation points from ``(1234)``.  ``run_row`` also
 takes the arrays a JAX row drew (``params0``, ``hw_noise``, ``batches``,
 ``val`` and the on-chip row's ``xis``; numpy, as ``load_arrays`` reads the
@@ -67,6 +70,7 @@ import torch
 from repro_torch import interop
 from repro_torch.core import pinn, zoo
 from repro_torch.core.photonic import NoiseModel
+from repro_torch.data import pde_term_batch_iterator
 from repro_torch.device import counter_generator, resolve_device, to_device
 from repro_torch.kernels import mesh_apply, tt_contract
 
@@ -125,14 +129,15 @@ def load_arrays(path: str) -> dict:
 
 
 def _bp_step(model, params: dict, mask: dict, xt: torch.Tensor,
-             lr_t: float) -> tuple:
+             tb: dict, lr_t: float) -> tuple:
     """One off-chip step on the ideal model: ``p − lr_t·g`` with the fixed
-    buffers' gradients zeroed (they are not asked for)."""
+    buffers' gradients zeroed (they are not asked for); ``tb`` the
+    boundary/data term batches."""
     p = zoo.tree_map(lambda t, train: t.detach().requires_grad_(train),
                      params, mask)
     # tonn: the plain densification, which autograd differentiates
     prepared, _ = model.prepare_params_plain(p, None)
-    loss = pinn.residual_loss(model, prepared, xt, None)
+    loss = pinn.residual_loss(model, prepared, xt, None, term_batches=tb)
     wanted = [t for t in zoo.tree_leaves(p) if t.requires_grad]
     found = dict(zip(map(id, wanted), torch.autograd.grad(
         loss, wanted, materialize_grads=True)))
@@ -172,10 +177,6 @@ def run_row(mode: str, on_chip: bool, noise: bool, hidden: int = 64,
                           tt_L=tt_L, noise=NoiseModel(enabled=noise), pde=pde)
     model = pinn.TensorPinn(cfg)
     problem = model.problem
-    if problem.has_boundary_loss:
-        raise NotImplementedError(f"{pde}: boundary terms in Table 1 rows "
-                                  "are not ported yet (ROADMAP queue A, "
-                                  "item 8)")
     params = (interop.params_from_numpy(params0, dev) if params0 is not None
               else to_device(model.init(counter_generator(seed)), dev))
     chip = None
@@ -195,6 +196,13 @@ def run_row(mode: str, on_chip: bool, noise: bool, hidden: int = 64,
               problem.sample_collocation(counter_generator(seed, i, 0), batch))
         return xt.to(dev)
 
+    def terms_at(i):
+        # the trainer's term stream: a problem with a boundary loss draws
+        # max(batch // 4, 8) boundary rows an epoch; others draw nothing
+        return to_device(next(pde_term_batch_iterator(
+            max(batch // 4, 8), seed=seed, start_step=i, problem=problem)),
+            dev)
+
     cuda = dev.type == "cuda"
     if cuda:
         start = torch.cuda.Event(enable_timing=True)
@@ -212,14 +220,16 @@ def run_row(mode: str, on_chip: bool, noise: bool, hidden: int = 64,
         xi_steps = (None if xis is None else
                     interop.params_from_numpy(xis, dev))
         for i in range(epochs):
-            xt = batch_at(i)
+            xt, tb = batch_at(i), terms_at(i)
             lr_t = lr * (0.5 ** (i / max(epochs // 3, 1)))
             params, state, loss = zoo.zo_signsgd_step(
                 params, state, lr_t, scfg,
                 batched_loss_fn=None if sequential else
-                (lambda sp: pinn.residual_losses_stacked(model, sp, xt, chip)),
+                (lambda sp: pinn.residual_losses_stacked(
+                    model, sp, xt, chip, term_batches=tb)),
                 trainable_mask=mask,
-                loss_fn=lambda p: pinn.residual_loss(model, p, xt, chip),
+                loss_fn=lambda p: pinn.residual_loss(model, p, xt, chip,
+                                                     term_batches=tb),
                 xis=None if xi_steps is None else
                 zoo.tree_map(lambda z: z[i], xi_steps))
     else:
@@ -228,7 +238,8 @@ def run_row(mode: str, on_chip: bool, noise: bool, hidden: int = 64,
         # noise it never saw
         for i in range(epochs):
             lr_t = 10 * lr * (0.5 ** (i / max(epochs // 3, 1)))
-            params, loss = _bp_step(model, params, mask, batch_at(i), lr_t)
+            params, loss = _bp_step(model, params, mask, batch_at(i),
+                                    terms_at(i), lr_t)
     ms_per_step = None
     if cuda:
         end.record()

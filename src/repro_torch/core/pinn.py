@@ -606,7 +606,9 @@ def per_term_losses(model: TensorPinn, params: dict, xt: torch.Tensor,
                     generator: torch.Generator | None = None,
                     z: torch.Tensor | None = None) -> dict:
     """Unweighted per-term losses keyed by term name (terms whose batch is
-    absent are omitted); ``generator`` / ``z`` as in ``residual_loss``."""
+    absent are omitted); ``generator`` / ``z`` as in ``residual_loss``.
+    tonn densifies its meshes once for all the terms."""
+    params, noise = model.prepare_params(params, noise)
     out = {}
     for t in model.problem.loss_terms():
         if t.kind == "collocation":

@@ -26,7 +26,13 @@ path (``TensorPinn.prepare_params_plain``).
 
 runs the paper's ``TONN_ONCHIP_FUSED`` configuration on the card (the
 default device; ``--device cpu`` runs the plain versions on the CPU,
-``--reduced`` the hidden-64 CI size).  ``--quant int8|fp8_e4m3`` (with
+``--reduced`` the hidden-64 CI size).  A problem with a boundary loss term
+(``--pde helmholtz-2d``) draws a boundary batch a step and adds
+``λ·MSE(u(xb), 0)`` to every loss of the stack (two more
+``tt_contract_batched`` launches a step); ``--bc-weight`` sets λ and
+``--term-weight NAME=W`` any term's weight, both recorded in the
+checkpoint's ``term_weights``, and a problem with more than one term logs
+each term's loss.  ``--quant int8|fp8_e4m3`` (with
 ``--quant-block``, default 32) and ``--phase-bits`` train it
 quantization-aware: block-scaled TT cores (the
 ``tt_contract_batched_quant`` kernel in place of ``tt_contract_batched``)
@@ -151,6 +157,48 @@ def _bp_step_fn(model, opt, mask: dict, hw_noise: dict | None):
     return step
 
 
+def _parse_term_weights(entries) -> dict:
+    """Repeated ``--term-weight NAME=W[,NAME=W]`` → {name: float}."""
+    out = {}
+    for text in entries:
+        for part in text.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            try:
+                name, w = part.split("=")
+                out[name.strip()] = float(w)
+            except ValueError:
+                raise SystemExit(
+                    f"--term-weight: malformed entry {part!r} "
+                    "(expected NAME=W[,NAME=W])")
+    if not out:
+        raise SystemExit("--term-weight: no weights given")
+    return out
+
+
+def _apply_term_weights(args, problem) -> dict:
+    """``--term-weight`` / ``--bc-weight`` as ``set_term_weights``
+    overrides on ``problem``.  ``--bc-weight`` sets every boundary-kind
+    term (helmholtz-2d's λ); an explicit ``--term-weight`` for the same
+    name wins.  Returns the applied overrides."""
+    tw = _parse_term_weights(args.term_weight) if args.term_weight else {}
+    if args.bc_weight is not None:
+        b_names = [t.name for t in problem.loss_terms()
+                   if t.kind == "boundary"]
+        if not b_names:
+            raise SystemExit(f"--bc-weight: PDE {problem.name!r} has no "
+                             "boundary-kind loss term")
+        for name in b_names:
+            tw.setdefault(name, args.bc_weight)
+    if tw:
+        try:
+            problem.set_term_weights(tw)
+        except ValueError as e:
+            raise SystemExit(f"--term-weight: {e}")
+    return tw
+
+
 def _unported(args) -> list:
     """(flag, ROADMAP queue A item) of every flag set that this port does
     not have yet."""
@@ -159,8 +207,6 @@ def _unported(args) -> list:
         (args.pinn_mode == "onn" and bp,
          f"BP training of --pinn-mode onn (--optimizer {args.optimizer}; "
          "it needs a mesh backward kernel)", "6c"),
-        (args.term_weight, "--term-weight", "8b"),
-        (args.bc_weight is not None, "--bc-weight", "8b"),
         (args.estimator == "spectral", "--estimator spectral", "9a"),
         (args.spectral_points is not None, "--spectral-points", "9a"),
         (args.coeff_range is not None, "--coeff-range", 10),
@@ -198,6 +244,10 @@ def train_pinn(args) -> TrainResult:
     device = resolve_device(args.device)
     model = pinn.TensorPinn(cfg)
     problem = model.problem
+    if _apply_term_weights(args, problem):
+        print("[pinn] term weights: "
+              + " ".join(f"{k}={v:g}"
+                         for k, v in problem.term_weights().items()))
     print(f"[pinn] pde={problem.name} in_dim={problem.in_dim} "
           f"mode={cfg.mode} hidden={cfg.hidden} deriv={cfg.deriv} "
           f"fused={cfg.use_fused_kernel} device={device}"
@@ -274,6 +324,7 @@ def train_pinn(args) -> TrainResult:
                                       start_step=start_step, problem=problem)
     terms = pde_term_batch_iterator(max(args.batch // 4, 8), seed=args.seed,
                                     start_step=start_step, problem=problem)
+    multi_term = len(problem.loss_terms()) > 1
     losses, seconds = [], []
     for step in range(start_step, args.steps):
         xt = next(colloc).to(device)
@@ -284,10 +335,15 @@ def train_pinn(args) -> TrainResult:
         seconds.append(time.perf_counter() - t0)
         if step % args.log_every == 0:
             msg = f"step {step} loss {losses[-1]:.4e} ({seconds[-1]:.2f}s)"
-            if val is not None:
-                with torch.no_grad():
+            with torch.no_grad():
+                if multi_term:
+                    pt = pinn.per_term_losses(model, params, xt, hw_noise,
+                                              term_batches=tb)
+                    msg += " [" + " ".join(f"{k}={float(v):.3e}"
+                                           for k, v in pt.items()) + "]"
+                if val is not None:
                     mse = pinn.validation_mse(model, params, val, hw_noise)
-                msg += f" val MSE {float(mse):.4e}"
+                    msg += f" val MSE {float(mse):.4e}"
             print(msg, flush=True)
         if mgr and mgr.should_save(step + 1):
             mgr.save(step + 1, _checkpoint_tree(params, aux_name,
@@ -356,6 +412,12 @@ def main(argv=None) -> TrainResult:
     ap.add_argument("--sequential", action="store_true",
                     help="photonic-realism order: one perturbed model at a "
                          "time instead of the fused stacked program")
+    ap.add_argument("--term-weight", action="append", default=None,
+                    help="NAME=W[,NAME=W]: override loss-term weights "
+                         "(repeatable; names from the problem's loss_terms)")
+    ap.add_argument("--bc-weight", type=float, default=None,
+                    help="weight of the boundary-kind loss term(s), λ in "
+                         "L = L_r + λ·L_b; --term-weight wins for a name")
     # flags of repro.launch.train that exit here (see _unported)
     ap.add_argument("--shard", default=None,
                     choices=["perturbation", "batch", "both"])
@@ -366,8 +428,6 @@ def main(argv=None) -> TrainResult:
     ap.add_argument("--coeff-dist", default=None,
                     choices=[None, "uniform", "loguniform"])
     ap.add_argument("--coeffs-per-step", type=int, default=None)
-    ap.add_argument("--term-weight", action="append", default=None)
-    ap.add_argument("--bc-weight", type=float, default=None)
     ap.add_argument("--seq", type=int, default=None)
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--zo-vectorized", action="store_true")

@@ -22,7 +22,8 @@ port cannot rebuild it refuses, never ignores:
 
 A quantized checkpoint (``quant.enabled`` in its config) loads with the
 model built from that config, so it serves the quantized solver it was
-trained as.
+trained as.  The loss-term weights a checkpoint records (``term_weights``)
+are set on the loaded solver's problem.
 
 Port of ``repro.serving.registry``.
 """
@@ -35,6 +36,7 @@ import os
 import torch
 
 from repro_torch import interop
+from repro_torch import pde as pde_lib
 from repro_torch.checkpoint import read_checkpoint_meta, restore_checkpoint
 from repro_torch.core import pinn
 from repro_torch.device import resolve_device, to_device
@@ -146,8 +148,18 @@ class SolverRegistry:
             raise NotImplementedError(
                 f"checkpoint {directory} is a coefficient-conditioned solver; "
                 "conditioned serving is not ported yet")
-        # meta "term_weights" weigh training losses only; u does not read them
-        model = pinn.TensorPinn(cfg)
+        problem = None
+        if "term_weights" in meta:
+            # the trained loss composition (--term-weight/--bc-weight)
+            # travels in the checkpoint: restored, a validation pass through
+            # the loaded solver reproduces the trained loss; names the
+            # problem does not know are dropped
+            problem = pde_lib.get_problem(cfg.pde)
+            known = {t.name for t in problem.loss_terms()}
+            problem.set_term_weights({k: v for k, v
+                                      in meta["term_weights"].items()
+                                      if k in known})
+        model = pinn.TensorPinn(cfg, problem=problem)
         gen = torch.Generator().manual_seed(0)
         like = {"params": model.init(gen)}
         if model.uses_noise and hw_noise is None:
