@@ -14,21 +14,24 @@ kernels run on the card:
   * ``tt`` off-chip (and ``tonn`` off-chip, mapped onto the noisy chip):
     autograd of ``residual_loss`` through ``ops.tt_linear`` — the
     ``tt_contract`` kernel forward, ``tt_contract_grad`` backward; tonn's
-    meshes densify through the plain, differentiable path
-    (``TensorPinn.prepare_params_plain``: no mesh backward kernel yet);
+    meshes densify in one grouped ``mesh_densify_stacked`` launch a step,
+    and its backward ``mesh_densify_grad`` is one launch too;
   * ``tonn`` on-chip: ``residual_losses_stacked`` — one grouped
     ``mesh_densify_stacked`` and two ``tt_contract_batched`` launches a
     step;
   * ``onn`` on-chip: ``mesh_apply_stacked`` (its resident design and wide
     routes);
   * ``dense`` off-chip: ``torch.matmul`` and its autograd, no kernel of
-    the port (the JAX package has none there either).
+    the port (the JAX package has none there either); ``dense`` mapped
+    onto noise trains ``onn`` off-chip by BP through its meshes: the
+    resident design forward and ``mesh_apply_stacked_grad`` backward.
 
 The validation MSEs are taken with ``validation_mse`` (``tt_contract``,
 and one grouped densification per tonn evaluation).  Off-chip ``onn``
-(``dense`` mapped onto noise) is BP through the meshes and exits: a mesh
-backward kernel is ROADMAP queue A, item 6c.  Quantization-aware rows
-(the JAX row's ``quant=``) are item 11's.
+at a width whose meshes take the wide routes (hidden 1024) exits: their
+backward is ROADMAP queue A, item 6c-2; the JAX benchmark's own default,
+hidden 64, runs.  Quantization-aware rows (the JAX row's ``quant=``) are
+item 11's.
 
 Random draws come from ``device.counter_generator``, not JAX's threefry:
 the params and chip from ``(seed)`` and ``(seed, 99)`` (the trainer's
@@ -88,7 +91,8 @@ PROPOSED = ("tonn", True, True)
 
 COUNTED = ("tt_contract", "tt_contract_grad", "tt_contract_batched",
            "tt_contract_batched_quant", "mesh_densify_stacked",
-           "mesh_apply_stacked")
+           "mesh_densify_grad", "mesh_apply_stacked",
+           "mesh_apply_stacked_grad")
 
 
 def row_name(mode: str, on_chip: bool, noise: bool) -> str:
@@ -106,12 +110,17 @@ def _remap(mode: str, noise: bool) -> str:
     return mode
 
 
-def unported(mode: str, on_chip: bool, noise: bool) -> str | None:
-    """Why the port cannot run this row yet, or None."""
+def unported(mode: str, on_chip: bool, noise: bool, hidden: int = 1024,
+             pde: str = "hjb-20d") -> str | None:
+    """Why the port cannot run this row at ``hidden`` yet, or None."""
     if _remap(mode, noise) == "onn" and not on_chip:
-        return (f"{row_name(mode, on_chip, noise)} trains onn off-chip by BP "
-                "through its meshes, which needs a mesh backward kernel "
-                "(ROADMAP queue A, item 6c)")
+        wide = pinn.onn_wide_ports(pinn.PINNConfig(hidden=hidden, mode="onn",
+                                                   pde=pde))
+        if wide:
+            return (f"{row_name(mode, on_chip, noise)} trains onn off-chip "
+                    f"by BP through its meshes; at hidden {hidden} the "
+                    f"{wide}-port meshes take the wide routes, whose "
+                    "backward is ROADMAP queue A, item 6c-2")
     return None
 
 
@@ -135,8 +144,8 @@ def _bp_step(model, params: dict, mask: dict, xt: torch.Tensor,
     boundary/data term batches."""
     p = zoo.tree_map(lambda t, train: t.detach().requires_grad_(train),
                      params, mask)
-    # tonn: the plain densification, which autograd differentiates
-    prepared, _ = model.prepare_params_plain(p, None)
+    # tonn: one grouped densification, its backward one launch too
+    prepared, _ = model.prepare_params(p, None)
     loss = pinn.residual_loss(model, prepared, xt, None, term_batches=tb)
     wanted = [t for t in zoo.tree_leaves(p) if t.requires_grad]
     found = dict(zip(map(id, wanted), torch.autograd.grad(
@@ -166,7 +175,7 @@ def run_row(mode: str, on_chip: bool, noise: bool, hidden: int = 64,
     ((epochs, batch, in_dim)), ``val`` and, on-chip, ``xis`` (a params
     tree of (epochs, N, *leaf) stacks) (numpy) replace the row's own
     draws."""
-    reason = unported(mode, on_chip, noise)
+    reason = unported(mode, on_chip, noise, hidden, pde)
     if reason:
         raise NotImplementedError(reason)
     if xis is not None and not on_chip:
@@ -300,6 +309,7 @@ def _counted_row(key: tuple, **kw) -> dict:
     kernel_launches(reset=True)
     r = run_row(*key, **kw)
     r["name"] = row_name(*key)
+    r["hidden"] = kw["hidden"]
     r["launches"] = kernel_launches()
     print(json.dumps(r), flush=True)
     return r
@@ -360,7 +370,8 @@ def main(argv=None) -> dict:
     wanted = [keys[name] for name in args.rows.split(",")]
     if args.bar:
         wanted = [PROPOSED]
-    blocked = [r for r in (unported(*k) for k in wanted) if r]
+    blocked = [r for r in (unported(*k, args.hidden, args.pde)
+                           for k in wanted) if r]
     if blocked:
         raise SystemExit("; ".join(blocked))
     device = resolve_device(args.device)

@@ -88,6 +88,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 fill: ``kernel_device_ms``), the plain version and
                 ``torch.bmm`` against the 11 unitaries made dense (TF32
                 off); layer 0's route A launches alone.
+  6c. mesh-grad — the two mesh backwards against their plain versions
+                within ``MESH_GRAD_BOUND``·max|plain| (1e-4) per output:
+                ``mesh_densify_grad`` (the grouped backward) on the paper's
+                8 core matrices at S = 1 and 11, noise on and off, and on
+                tt_L 2's 64-port matrices, whose states it recovers,
+                against ``ref.mesh_densify_grad_ref``; ``mesh_apply_stacked_grad``
+                (the resident backward) on 16- and 64-port meshes on 4300
+                rows and onn's 21-port layer-0 V mesh on 100 shared rows,
+                transposed and not, against ``ref.mesh_apply_grad_ref``;
+                each call one launch, two calls bit for bit.  Times the
+                grouped one at S = 1 and 11 and the resident one at 64
+                ports and 21 ports (CUDA events; one call alone in a trace,
+                with its kernels a call), the plain versions and, for scale
+                (no one PyTorch call gives dφ), ``torch.autograd.grad``
+                through the plain forwards.
   7. train    — the port's trainer (``repro_torch.launch.train.main``) on
                 the card: the paper's TONN_ONCHIP_FUSED (hjb-20d, tonn,
                 hidden 1024, noise on), N = 10, batch 100, 50 steps and a
@@ -218,9 +233,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 and in tt and dense each f32 loss gradient's distance to the
                 CPU's float64 one, recorded); the checkpoint's ``params`` and
                 ``opt`` round-trip, ``--resume`` continues the run bit for
-                bit, and a second 5-step run gives the same losses bit for
-                bit.  Times a BP step (CUDA events, a
-                traced window of 5).
+                bit.  tonn's and onn's BP go through the mesh backwards:
+                tonn a grouped densification and its backward a step, onn
+                (noise on, hidden 64, 10 steps) 6 resident meshes and 6
+                resident backwards a step (4 meshes a validation forward),
+                and no run reaches ``prepare_params_plain``; their
+                card-vs-CPU gradients run through the kernels (tonn with
+                the noise model on and off).  A second 5-step run gives the
+                same losses and params bit for bit in tt, tonn and onn.
+                Times a BP step of tt, tonn and onn (CUDA events, a traced
+                window of 5).
  15. train-seq — ``--pinn-mode tonn --pinn-noise --sequential`` at hidden
                 1024 for 5 steps (N = 10, batch 100): 1 grouped
                 densification and 2 ``tt_contract`` launches per loss
@@ -259,10 +281,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 off-chip mapped onto the noisy chip, tonn on-chip with
                 noise, dense off-chip, onn on-chip with noise) through
                 ``benchmarks/torch_table1_hjb.run_row`` at hidden 1024,
-                ``tt_L`` 4, batch 100, N = 10 for 20 epochs each: finite val
-                MSEs, each row's kernel launches exactly its path's
-                (``_table1_want``: 2 ``tt_contract`` + 2 ``tt_contract_grad``
-                a BP step, 1 grouped densification + 2
+                ``tt_L`` 4, batch 100, N = 10, and the off-chip ONN row
+                (dense mapped onto noise: onn by BP) at hidden 64, for 20
+                epochs each: finite val MSEs, each row's kernel launches
+                exactly its path's (``_table1_want``: 2 ``tt_contract`` + 2
+                ``tt_contract_grad`` a BP step, tonn's 1 grouped
+                densification and its backward more, onn's 4 resident
+                meshes and 4 backwards; 1 grouped densification + 2
                 ``tt_contract_batched`` a tonn ZO step, 1 resident + 3 wide
                 meshes an onn ZO step, none for dense; and the validation
                 forwards') and none of the other counted kernels; ms a step
@@ -1050,13 +1075,20 @@ def _dense_meshes(pms, ps, device) -> list:
 
 
 def _densify_bound(pms, ps, nzs, dac: bool) -> tuple:
-    """(bound_ms, bound_by) of one grouped call: its inputs (phases,
-    sigma, diag buffers, chip noise, the plan's slot / sign / perm) read
-    once and its cores written once, against its f32 operations, each
-    rounded on its own and so one issue slot (DAC snap 3 and noise model 5
-    per phase; sin, cos and the sign product per wire and level, each
-    counted as one; 3 per element per level; the diag and sigma
-    scaling)."""
+    """(bound_ms, bound_by) of one grouped call (``_densify_counts``)."""
+    words, ops = _densify_counts(pms, ps, nzs, dac)
+    t_bytes = 4 * words / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_ISSUE * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _densify_counts(pms, ps, nzs, dac: bool) -> tuple:
+    """(words, operations) of one grouped call: its inputs (phases, sigma,
+    diag buffers, chip noise, the plan's slot / sign / perm) read once and
+    its cores written once, and its f32 operations, each rounded on its
+    own and so one issue slot (DAC snap 3 and noise model 5 per phase;
+    sin, cos and the sign product per wire and level, each counted as
+    one; 3 per element per level; the diag and sigma scaling)."""
     words = ops = 0
     for pm, p, nz in zip(pms, ps, nzs):
         S = p["sigma"].shape[0]
@@ -1068,9 +1100,7 @@ def _densify_bound(pms, ps, nzs, dac: bool) -> tuple:
                         + 3 * lay.levels * lay.ports
                         + 3 * rows * lay.ports * lay.levels)
         ops += 3 * S * pm.in_dim * pm.out_dim
-    t_bytes = 4 * words / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_ISSUE * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return words, ops
 
 
 # label -> (hidden, tt_L, S, noise, phase bits); "paper-noise" is the main
@@ -1142,6 +1172,229 @@ def _densify_cases(device) -> dict:
                 pms, ps, nzs, quant is not None)
         results[f"densify-{label}"] = row
         print(f"[mesh] {json.dumps(row)}", flush=True)
+    return results
+
+
+MESH_GRAD_BOUND = 1e-4       # of max|plain|, per output
+
+
+def _grad_share(name: str, label: str, got, plain) -> tuple:
+    """(max|got − plain|, max|plain|); raises past MESH_GRAD_BOUND ·
+    max|plain| (the same f32 products, the phase sums in another order;
+    the resident backward's states recovered level by level)."""
+    import torch
+    torch.cuda.synchronize()
+    err = (got - plain).abs().max().item()
+    scale = plain.abs().max().item()
+    if not (torch.isfinite(got).all().item()
+            and err <= MESH_GRAD_BOUND * scale + 1e-12):
+        raise AssertionError(f"{name} disagrees with its plain version at "
+                             f"{label}: max|diff| {err:.3e}, max|plain| "
+                             f"{scale:.3e}")
+    return err, scale
+
+
+def _densify_grad_bound(pms, ps, nzs, saves) -> tuple:
+    """(bound_ms, bound_by) of one grouped backward: the forward's inputs
+    read once (``_densify_counts``; dW, the cores' gradients, in place of
+    the cores written) and dphases and dsigma written once, against its f32
+    operations, each an issue slot: the forward again, then per element and
+    level of each mesh 3 for the gradient and 3 more to recover the state
+    where it is not kept, 11 per MZI and row for its phase's sum, the
+    noise model's transpose (5 per phase) and σ's (5 per element of
+    k)."""
+    words, ops = _densify_counts(pms, ps, nzs, False)
+    for pm, p, nz, keep in zip(pms, ps, nzs, saves):
+        S = p["sigma"].shape[0]
+        words += S * pm.k
+        for lay in (pm.layout_u, pm.layout_v):
+            words += S * lay.levels * lay.slots
+            ops += S * (pm.in_dim * lay.ports * lay.levels * (
+                3 + (0 if keep else 3)) + 11 * pm.in_dim * lay.num_mzis
+                + (5 * lay.levels * lay.slots if nz else 0))
+        ops += 5 * S * pm.in_dim * pm.k
+    t_bytes = 4 * words / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_ISSUE * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _apply_grad_bound(layout, S: int, B: int) -> tuple:
+    """(bound_ms, bound_by) of one resident backward: y and dy read, dx
+    written, the phases, diag and plan tables read and dphases written
+    once, against per element and level 3 operations to recover the state
+    and 3 for the gradient, and 11 per MZI and row for its phase's sum,
+    each an issue slot."""
+    P, L = layout.ports, layout.levels
+    words = 3 * S * B * P + 2 * S * L * layout.slots + S * P + 3 * L * P
+    ops = S * B * (6 * P * L + 11 * layout.num_mzis + P)
+    t_bytes = 4 * words / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_ISSUE * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# label -> (hidden, tt_L, S, noise): the grouped backward on the paper's 8
+# core matrices; "s1-noise" is the main one (a tonn BP step with
+# --pinn-noise: a stack of one), "s11-noise" the forward's timed shape;
+# "tt2-s1-noise" the 4 matrices of tt_L 2 (32 x 64 and 64 x 32), whose
+# states do not fit a block: the kernel recovers them
+DENSIFY_GRAD_CASES = {"s1-noise": (1024, 4, 1, True),
+                      "s1": (1024, 4, 1, False),
+                      "s11-noise": (1024, 4, 11, True),
+                      "s11": (1024, 4, 11, False),
+                      "tt2-s1-noise": (1024, 2, 1, True)}
+DENSIFY_GRAD_TIMED = ("s1-noise", "s11-noise")
+# label -> (ports, S, rows, shared x, transpose): the resident backward at
+# onn's BP launches at hidden 64 (4300 stencil rows; layer 0's 21-port V
+# mesh on the 100 rows) and a 16-port mesh; "p64-4300" (the hidden
+# layer's U mesh) is the main one
+MESH_GRAD_CASES = {
+    "p16-4300": (16, 1, 4300, False, False),
+    "p16-4300-tr": (16, 1, 4300, False, True),
+    "p64-4300": (64, 1, 4300, False, False),
+    "p64-4300-tr": (64, 1, 4300, False, True),
+    "v21-100-tr": (21, 1, 100, True, True),
+    "v21-100": (21, 1, 100, True, False),
+}
+MESH_GRAD_TIMED = ("p64-4300", "p64-4300-tr", "v21-100-tr")
+
+
+def phase_mesh_grad(device) -> dict:
+    """The two mesh backwards against their plain versions
+    (``ref.mesh_densify_grad_ref``, ``ref.mesh_apply_grad_ref``) within
+    ``MESH_GRAD_BOUND``·max|plain| per output, each call one launch, two
+    calls bit for bit; timed (CUDA events, one launch alone in a trace)
+    beside the plain version and, for scale (no one PyTorch call gives
+    dφ), ``torch.autograd.grad`` through the plain forward: the path the
+    BP baselines took before."""
+    import torch
+    from repro_torch.core import photonic
+    from repro_torch.kernels import mesh_apply as mesh
+    from repro_torch.kernels import ref
+
+    results = {}
+    fill = torch.empty(1, device=device)
+    for label, (hidden, tt_L, S, noisy) in DENSIFY_GRAD_CASES.items():
+        pms, ps, nzs, model, _ = densify_inputs(hidden, tt_L, S, noisy,
+                                                None, device, 3300 + S)
+        gen = torch.Generator().manual_seed(3400 + S)
+        dW = [torch.randn((S, pm.out_dim, pm.in_dim), generator=gen).to(
+            device) for pm in pms]
+        saves = [mesh.densify_grad_saves(pm) for pm in pms]
+        before = mesh.mesh_densify_grad.launches
+        got = mesh.mesh_densify_grad(pms, ps, nzs, model, dW)
+        if mesh.mesh_densify_grad.launches != before + 1:
+            raise AssertionError("mesh_densify_grad: not one launch a call")
+        plain = ref.mesh_densify_grad_ref(pms, ps, nzs, model, dW, saves)
+        errs = [_grad_share("mesh_densify_grad", label, a, b)
+                for trio, ptrio in zip(got, plain)
+                for a, b in zip(trio, ptrio)]
+        again = mesh.mesh_densify_grad(pms, ps, nzs, model, dW)
+        if not all(torch.equal(a, b) for t, u in zip(got, again)
+                   for a, b in zip(t, u)):
+            raise AssertionError(f"mesh_densify_grad at {label}: two calls "
+                                 "differ")
+        row = {"case": label, "matrices": len(pms), "tt_L": tt_L, "S": S,
+               "noise": noisy, "saved_states": saves,
+               "max_abs_err": max(e for e, _ in errs),
+               "max_err_over_bound": max(e / (MESH_GRAD_BOUND * m)
+                                         for e, m in errs if m),
+               "repeat_bitwise_equal": True}
+        if label in DENSIFY_GRAD_TIMED:
+            row["ms"] = _time_ms(lambda: mesh.mesh_densify_grad(
+                pms, ps, nzs, model, dW), 200)
+            # the profiler may drop a window's first kernel: a fill leads
+            prof = _profile(
+                lambda: mesh.mesh_densify_grad(pms, ps, nzs, model, dW),
+                match="mesh_densify_grad_kernel",
+                lead=lambda: fill.fill_(0.0))
+            row["kernel_device_ms"] = prof["match_ms"]
+            row["kernels_per_call"] = prof["match_kernels"]
+            row["plain_ms"] = _time_ms(lambda: ref.mesh_densify_grad_ref(
+                pms, ps, nzs, model, dW, saves), 20)
+            leaves = [p[k] for p in ps for k in ("phases_u", "phases_v",
+                                                 "sigma")]
+
+            def autograd_plain():
+                for t in leaves:
+                    t.requires_grad_()
+                cores = photonic.mesh_densify_stacked(pms, ps, nzs, model)
+                out = torch.autograd.grad(cores, leaves, dW)
+                for t in leaves:
+                    t.requires_grad_(False)
+                return out
+            row["autograd_plain_ms"] = _time_ms(autograd_plain, 20)
+            row["library_ms"] = None
+            row["bound_ms"], row["bound_by"] = _densify_grad_bound(
+                pms, ps, nzs, saves)
+        results[f"densify-{label}"] = row
+        print(f"[mesh-grad] {json.dumps(row)}", flush=True)
+
+    for i, (label, (ports, S, B, shared, transpose)) in enumerate(
+            MESH_GRAD_CASES.items()):
+        layout = photonic.rectangular_layout(ports)
+        gen = torch.Generator().manual_seed(3500 + i)
+        phases = torch.randn((S, *layout.phase_shape()), generator=gen).to(
+            device)
+        diag = torch.where(torch.rand((S, ports), generator=gen) < 0.5,
+                           -1.0, 1.0).to(device)
+        x = torch.randn((B, ports) if shared else (S, B, ports),
+                        generator=gen).to(device)
+        y = mesh.mesh_apply_stacked(layout, phases, diag, x, transpose)
+        dy = torch.randn(y.shape, generator=gen).to(device)
+        before = mesh.mesh_apply_stacked_grad.launches
+        dx, dph = mesh.mesh_apply_stacked_grad(layout, phases, diag, y, dy,
+                                               transpose)
+        if mesh.mesh_apply_stacked_grad.launches != before + 1:
+            raise AssertionError("mesh_apply_stacked_grad: not one launch a "
+                                 "call")
+        pdx, pdph = ref.mesh_apply_grad_ref(layout, phases, diag, x, y, dy,
+                                            transpose)
+        errs = [_grad_share("mesh_apply_stacked_grad", label,
+                            dx.sum(0) if shared else dx, pdx),
+                _grad_share("mesh_apply_stacked_grad", label, dph, pdph)]
+        again = mesh.mesh_apply_stacked_grad(layout, phases, diag, y, dy,
+                                             transpose)
+        if not (torch.equal(dx, again[0]) and torch.equal(dph, again[1])):
+            raise AssertionError(f"mesh_apply_stacked_grad at {label}: two "
+                                 "calls differ")
+        rows = mesh.grad_rows_per_block(layout)
+        row = {"case": label, "ports": ports, "levels": layout.levels,
+               "S": S, "rows": B, "shared_x": shared, "transpose": transpose,
+               "rows_per_block": rows,
+               "block_columns": mesh.grad_columns(
+                   S, -(-B // rows), torch.cuda.get_device_properties(
+                       device).multi_processor_count),
+               "max_abs_err": max(e for e, _ in errs),
+               "max_err_over_bound": max(e / (MESH_GRAD_BOUND * m)
+                                         for e, m in errs if m),
+               "dx_bitwise_equal_plain": bool(torch.equal(
+                   dx.sum(0) if shared else dx, pdx)),
+               "repeat_bitwise_equal": True}
+        if label in MESH_GRAD_TIMED:
+            row["ms"] = _time_ms(lambda: mesh.mesh_apply_stacked_grad(
+                layout, phases, diag, y, dy, transpose), 200)
+            # the backward kernel and, over several block columns, the
+            # small kernel that sums their phase gradients; a fill leads
+            prof = _profile(
+                lambda: mesh.mesh_apply_stacked_grad(layout, phases, diag, y,
+                                                     dy, transpose),
+                match="mesh_", lead=lambda: fill.fill_(0.0))
+            row["kernel_device_ms"] = prof["match_ms"]
+            row["kernels_per_call"] = prof["match_kernels"]
+            row["plain_ms"] = _time_ms(lambda: ref.mesh_apply_grad_ref(
+                layout, phases, diag, x, y, dy, transpose), 20)
+
+            def autograd_plain():
+                p = phases.clone().requires_grad_()
+                xx = x.clone().requires_grad_()
+                return torch.autograd.grad(photonic.mesh_apply_stacked(
+                    layout, p, diag, xx, transpose), (p, xx), dy)
+            row["autograd_plain_ms"] = _time_ms(autograd_plain, 20)
+            row["library_ms"] = None
+            row["bound_ms"], row["bound_by"] = _apply_grad_bound(layout, S,
+                                                                 B)
+        results[label] = row
+        print(f"[mesh-grad] {json.dumps(row)}", flush=True)
     return results
 
 
@@ -1907,7 +2160,12 @@ def phase_bp_kernel(device) -> dict:
 
 BP_COUNTED = ("tt_contract", "tt_contract_grad", "tt_contract_batched",
               "tt_contract_batched_quant", "mesh_densify_stacked",
-              "mesh_apply_stacked")
+              "mesh_densify_grad", "mesh_apply_stacked",
+              "mesh_apply_stacked_grad")
+ONN_BP_MESHES = 6        # onn's fd_fast stencil: layer 0 on the rows and on
+                         # the identity columns, the hidden layer: 2 meshes
+                         # each, forward and backward
+ONN_VAL_MESHES = 4       # a validation forward: 2 layers of 2 meshes
 
 
 def _counted():
@@ -1919,17 +2177,28 @@ def _counted():
 
 def _run_counted(argv: list) -> tuple:
     """``launch.train.main(argv)`` on the card with every kernel count set
-    to 0 just before and read just after.  Returns (result, launches, wall
-    seconds)."""
+    to 0 just before and read just after, and the plain densification
+    ``TensorPinn.prepare_params_plain`` refused while it runs (the main path
+    never calls it).  Returns (result, launches, wall seconds)."""
     import torch
+    from repro_torch.core import pinn
     from repro_torch.launch import train
+
+    def refused(*args, **kwargs):
+        raise AssertionError("the trainer reached prepare_params_plain")
+
     counted = _counted()
-    for fn in counted.values():                           # main path starts
-        fn.launches = 0
-    t0 = time.perf_counter()
-    res = train.main(argv)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    plain = pinn.TensorPinn.prepare_params_plain
+    pinn.TensorPinn.prepare_params_plain = refused
+    try:
+        for fn in counted.values():                       # main path starts
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = train.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        pinn.TensorPinn.prepare_params_plain = plain
     return res, {name: fn.launches for name, fn in counted.items()}, wall
 
 
@@ -1941,13 +2210,16 @@ def _val_evals(steps: int, log_every: int) -> int:
 
 def _card_vs_cpu_grads(model, params, init_params, noise, xt,
                        device) -> dict:
-    """One BP step's gradients on the card against the CPU's plain path on
-    the same batch and noise.  Strict, within 1e-4·max|grad| per leaf: of
-    ``Σ u·w`` (w fixed, random) at the run's final params, and of
-    ``Σ w_s·fd_u_stencil`` (w_s fixed, random over the stencil's (2A+1)×B
-    values) at the initial and the final params: the fd_fast stencil runs
-    the BP step's 3 forward and 3 backward TT launches (counted here), but
-    without the residual's 1/h².  Of the residual loss at the run's initial
+    """One BP step's gradients on the card (through the kernels'
+    backwards: ``prepare_params`` as the BP step densifies) against the
+    CPU's plain path on the same batch and noise.  Strict, within
+    1e-4·max|grad| per leaf: of ``Σ u·w`` (w fixed, random) at the run's
+    final params, and of ``Σ w_s·fd_u_stencil`` (w_s fixed, random over the
+    stencil's (2A+1)×B values) at the initial and the final params: the
+    fd_fast stencil runs the BP step's launches (counted here: 3 forward
+    and 3 backward TT launches and tonn's grouped densification and its
+    backward, or onn's 6 resident meshes and their backwards), but without
+    the residual's 1/h².  Of the residual loss at the run's initial
     params (loss ~1) at the FD noise floor, relative L2 within 2.5e-1 and
     the loss within rtol 2.5e-1 (the residual's second differences amplify
     f32 rounding by 1/h² = 1e4: the port's f32 sits 6–7% from float64
@@ -1970,7 +2242,7 @@ def _card_vs_cpu_grads(model, params, init_params, noise, xt,
                          .requires_grad_(m), at, mask)
         nz = None if noise is None else to_device(noise, dev)
         # tonn: the densification BP differentiates, as the BP step's
-        prepared, nz = model.prepare_params_plain(p, nz)
+        prepared, nz = model.prepare_params(p, nz)
         out = fn(prepared, xt.to(dev, dtype or xt.dtype), nz)
         return out.item(), [g.cpu() for g in torch.autograd.grad(
             out, [t for t in zoo.tree_leaves(p) if t.requires_grad])]
@@ -2017,9 +2289,15 @@ def _card_vs_cpu_grads(model, params, init_params, noise, xt,
     launches = {}
     out["stencil_grad_max_err_over_tol_final"] = strict(
         "Σw·fd_u_stencil", stencil_fn, params, launches)
-    chains = 0 if model.cfg.mode == "dense" else 3
+    mode = model.cfg.mode
+    chains = 3 if mode in ("tt", "tonn") else 0
     want = dict.fromkeys(BP_COUNTED, 0)
     want["tt_contract"] = want["tt_contract_grad"] = chains
+    if mode == "tonn":
+        want["mesh_densify_stacked"] = want["mesh_densify_grad"] = 1
+    if mode == "onn":
+        want["mesh_apply_stacked"] = ONN_BP_MESHES
+        want["mesh_apply_stacked_grad"] = ONN_BP_MESHES
     if launches != want:
         raise AssertionError(f"the stencil's gradient on the card launched "
                              f"{launches}, expected {want}")
@@ -2041,7 +2319,7 @@ def _card_vs_cpu_grads(model, params, init_params, noise, xt,
                 "loss_grad_rel_l2_card_vs_cpu_final":
                     rel_l2(glt_card, glt_cpu),
                 "loss_card_final": lt_card, "loss_cpu_final": lt_cpu})
-    if model.cfg.mode != "tonn":      # tonn's densification runs in f32
+    if mode in ("tt", "dense"):       # the meshes run in f32
         for when, at, card, plain in (("init", init_params, gl_card, gl_cpu),
                                       ("final", params, glt_card, glt_cpu)):
             l64, g64 = grads(cpu, loss_fn, at, torch.float64)
@@ -2051,9 +2329,11 @@ def _card_vs_cpu_grads(model, params, init_params, noise, xt,
     return out
 
 
-def measure_bp_step(model, opt, params, noise, xt, iters: int = 20) -> dict:
+def measure_bp_step(model, opt, params, noise, xt, iters: int = 20,
+                    match: str = "tt_contract") -> dict:
     """ms per BP step (``launch.train._bp_step_fn``) back to back on CUDA
-    events, and one traced window of 5 steps."""
+    events, and one traced window of 5 steps (``match``: the kernels whose
+    device time it sums)."""
     from repro_torch.launch import train
     step = train._bp_step_fn(model, opt, model.trainable_mask(params), noise)
     state = opt.init(params)
@@ -2062,14 +2342,15 @@ def measure_bp_step(model, opt, params, noise, xt, iters: int = 20) -> dict:
         return step(params, state, xt, {})
 
     return {"bp_step_ms": _time_ms(one, iters, warmup=3),
-            "trace": _profile(one, ZO_TRACE_STEPS, match="tt_contract")}
+            "trace": _profile(one, ZO_TRACE_STEPS, match=match)}
 
 
 def phase_train_bp(device) -> dict:
     """The off-chip BP baselines through ``launch.train.main`` at the
     paper's width (hidden 1024, ``PAPER_TONN_SPEC``, batch 100): tt with
     AdamW for 50 steps and a checkpoint, tonn (noise on) with AdamW and
-    dense with SGD for 10 steps each."""
+    dense with SGD for 10 steps each; and onn (noise on) with AdamW at
+    hidden 64, whose meshes the resident backward holds, for 10."""
     import numpy as np
     import torch
     from repro_torch.checkpoint import read_checkpoint_meta, \
@@ -2089,18 +2370,26 @@ def phase_train_bp(device) -> dict:
             ("tonn-noise-adamw", ["--pinn-mode", "tonn", "--pinn-noise",
                                   "--optimizer", "adamw"], 10),
             ("dense-sgd", ["--pinn-mode", "dense", "--optimizer", "sgd"],
-             10)):
+             10),
+            ("onn-adamw", ["--pinn-mode", "onn", "--pinn-noise", "--hidden",
+                           "64", "--optimizer", "adamw"], 10)):
         ckpt = tempfile.mkdtemp(prefix="chip_smoke_bp_")
         argv = base + flags + ["--steps", str(steps), "--ckpt-dir", ckpt,
                                "--ckpt-every", str(steps // 2)]
         res, launches, wall = _run_counted(argv)
-        chains = 0 if "dense" in label else 3 * steps
+        evals = _val_evals(steps, log_every)
+        chains = 3 * steps if label.startswith("t") else 0
         want = dict.fromkeys(BP_COUNTED, 0)
         want["tt_contract_grad"] = chains
-        want["tt_contract"] = chains + (
-            0 if "dense" in label else 2 * _val_evals(steps, log_every))
-        if "tonn" in label:   # the validation forwards, outside autograd
-            want["mesh_densify_stacked"] = _val_evals(steps, log_every)
+        want["tt_contract"] = chains + (2 * evals if chains else 0)
+        if "tonn" in label:   # a step's one grouped forward and backward,
+            # and the validation forwards' (outside autograd)
+            want["mesh_densify_stacked"] = steps + evals
+            want["mesh_densify_grad"] = steps
+        if "onn" in label and "tonn" not in label:
+            want["mesh_apply_stacked"] = (ONN_BP_MESHES * steps
+                                          + ONN_VAL_MESHES * evals)
+            want["mesh_apply_stacked_grad"] = ONN_BP_MESHES * steps
         if launches != want:
             raise AssertionError(f"{label}: {launches} over {steps} steps; "
                                  f"expected {want}")
@@ -2119,7 +2408,27 @@ def phase_train_bp(device) -> dict:
         init, _ = train.init_solver(model, 0)
         row["card_vs_cpu"] = _card_vs_cpu_grads(
             model, params, to_device(init, device), noise, xt, device)
+        if "tonn" in label:   # the grouped backward without the noise model
+            row["card_vs_cpu_noise_off"] = _card_vs_cpu_grads(
+                model, params, to_device(init, device), None, xt, device)
         opt = get_optimizer(flags[-1])
+        if label != "dense-sgd":
+            # a second run of 5 steps gives the same bits
+            first5, _, _ = _run_counted(base + flags + ["--steps", "5"])
+            again5, _, _ = _run_counted(base + flags + ["--steps", "5"])
+            if first5.losses != again5.losses or not all(
+                    torch.equal(a, b) for a, b in zip(
+                        zoo.tree_leaves(first5.params),
+                        zoo.tree_leaves(again5.params))):
+                raise AssertionError(f"{label}: two BP runs differ: "
+                                     f"{first5.losses} vs {again5.losses}")
+            row["repeat_losses_bitwise_equal"] = True
+        if label != "dense-sgd":
+            timed = measure_bp_step(
+                model, opt, params, noise, xt.to(device),
+                match="mesh_" if label == "onn-adamw" else "tt_contract")
+            row["bp_step_ms"] = timed["bp_step_ms"]
+            row["bp_step_trace"] = timed["trace"]
         if label == "tt-adamw":
             if not np.median(losses[-10:]) < losses[0]:
                 raise AssertionError(
@@ -2144,18 +2453,7 @@ def phase_train_bp(device) -> dict:
                                      f"for bit: {resumed.losses[:3]} vs "
                                      f"{res.losses[steps // 2:][:3]}")
             row["resume_losses_bitwise_equal"] = True
-            # a second run of 5 steps gives the same bits
-            first5, _, _ = _run_counted(base + flags + ["--steps", "5"])
-            again5, _, _ = _run_counted(base + flags + ["--steps", "5"])
-            if first5.losses != again5.losses:
-                raise AssertionError(f"two BP runs differ: {first5.losses} "
-                                     f"vs {again5.losses}")
-            row["repeat_losses_bitwise_equal"] = True
             row["checkpoint_keys"] = len(meta["keys"])
-            timed = measure_bp_step(model, opt, params, noise,
-                                    xt.to(device))
-            row["bp_step_ms"] = timed["bp_step_ms"]
-            row["bp_step_trace"] = timed["trace"]
         shutil.rmtree(ckpt)
         out[label] = row
         print(f"[train-bp] {label} {json.dumps(row)}", flush=True)
@@ -2517,12 +2815,14 @@ def _table1_want(mode: str, on_chip: bool, epochs: int) -> dict:
     ``epochs`` (``deriv="fd"``: the stencil's 43 x 100 rows go through one
     forward) and its two validation forwards of 1000 points.  tt and tonn
     off-chip: 2 ``tt_contract`` forward and 2 ``tt_contract_grad``
-    launches a step (tonn's meshes densify on the plain path), 2
-    ``tt_contract`` a validation forward (tonn: 1 grouped densification
-    more); tonn on-chip: 1 grouped densification and 2
+    launches a step (tonn: 1 grouped densification and 1 grouped backward
+    more), 2 ``tt_contract`` a validation forward (tonn: 1 grouped
+    densification more); tonn on-chip: 1 grouped densification and 2
     ``tt_contract_batched`` a step; onn on-chip: layer 0's 21-port V mesh
     (resident) and 3 wide 1024-port meshes on 4300 rows per entry a step,
-    1 + 3 on 1000 rows a validation forward; dense: none."""
+    1 + 3 on 1000 rows a validation forward; onn off-chip (hidden 64, all
+    resident): 4 meshes and 4 resident backwards a step, 4 meshes a
+    validation forward; dense: none."""
     from benchmarks import torch_table1_hjb as table1
     from repro_torch.core import photonic
     from repro_torch.kernels import mesh_apply as mesh
@@ -2531,7 +2831,12 @@ def _table1_want(mode: str, on_chip: bool, epochs: int) -> dict:
     if mode in ("tt", "tonn") and not on_chip:
         want["tt_contract"] = 2 * epochs + 2 * vf
         want["tt_contract_grad"] = 2 * epochs
-        want["mesh_densify_stacked"] = vf if mode == "tonn" else 0
+        if mode == "tonn":
+            want["mesh_densify_stacked"] = epochs + vf
+            want["mesh_densify_grad"] = epochs
+    elif mode == "onn" and not on_chip:
+        want["mesh_apply_stacked"] = want["resident"] = 4 * (epochs + vf)
+        want["mesh_apply_stacked_grad"] = 4 * epochs
     elif mode == "tonn":
         want["mesh_densify_stacked"] = epochs + vf
         want["tt_contract_batched"] = 2 * epochs
@@ -2545,20 +2850,26 @@ def _table1_want(mode: str, on_chip: bool, epochs: int) -> dict:
     return want
 
 
+# the off-chip ONN row (dense mapped onto noise: onn by BP) at the JAX
+# benchmark's own width, whose meshes the resident backward holds
+TABLE1_ONN_BP = (("dense", False, True), 64)
+
+
 def phase_table1(device) -> dict:
     """The paper's five Table 1 rows through ``benchmarks/
-    torch_table1_hjb.run_row`` at its width for ``TABLE1_EPOCHS`` epochs
-    each (seed 0): every val MSE finite, each row's launches exactly its
-    path's (``_table1_want``) and none of the other counted kernels, ms a
-    step on CUDA events."""
+    torch_table1_hjb.run_row`` at its width, and the off-chip ONN row at
+    hidden 64, for ``TABLE1_EPOCHS`` epochs each (seed 0): every val MSE
+    finite, each row's launches exactly its path's (``_table1_want``) and
+    none of the other counted kernels, ms a step on CUDA events."""
     import numpy as np
     from benchmarks import torch_table1_hjb as table1
     out = {}
-    for key in table1.PAPER_ROWS:
+    for key, hidden in ([(k, 1024) for k in table1.PAPER_ROWS]
+                        + [TABLE1_ONN_BP]):
         name = table1.row_name(*key)
         table1.kernel_launches(reset=True)                # main path starts
-        r = table1.run_row(*key, hidden=1024, tt_L=4, epochs=TABLE1_EPOCHS,
-                           device=device)
+        r = table1.run_row(*key, hidden=hidden, tt_L=4,
+                           epochs=TABLE1_EPOCHS, device=device)
         launches = table1.kernel_launches()                # ends
         want = _table1_want(r["mode"], r["on_chip"], TABLE1_EPOCHS)
         if launches != want:
@@ -3055,6 +3366,7 @@ def main() -> int:
     batched = run(phase_batched, device)
     meshes = run(phase_mesh, device)
     wide = run(phase_mesh_wide, device)
+    mesh_grad = run(phase_mesh_grad, device)
     trained = run(phase_train, device)
     quant_kernel = run(phase_quant_kernel, device)
     trained_q = run(phase_train_quant, device, trained["val_mse"])
@@ -3303,8 +3615,68 @@ def main() -> int:
           f"per-entry layer 0 {st['layer0']['ms']:.4f} ms (bound "
           f"{st['layer0']['bound_ms']:.4f} ms, torch.bmm "
           f"{st['layer0']['library_ms']:.4f} ms) on {card}", flush=True)
+    # the two mesh backwards (port-only: the TPU kernel has none): the
+    # grouped one on tonn's BP path, the resident one on onn's at hidden 64
+    grad_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "kernel_device_ms", "kernels_per_call", "autograd_plain_ms")
+    main_dg = mesh_grad["densify-s1-noise"]
+    entry_dg = {"name": "mesh_densify_grad", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/mesh_apply.cu",
+                "replaces": "src/repro/kernels/mesh_apply.py:93 (the "
+                            "backward of B3's densification; the TPU kernel "
+                            "has none, JAX differentiates its jnp scan)",
+                "launches": trained_bp["tonn-noise-adamw"]["launches"][
+                    "mesh_densify_grad"],
+                "max_abs_err": max(r["max_abs_err"] for k, r in
+                                   mesh_grad.items()
+                                   if k.startswith("densify")),
+                "max_err_over_bound": max(r["max_err_over_bound"]
+                                          for k, r in mesh_grad.items()
+                                          if k.startswith("densify")),
+                **{k: main_dg[k] for k in grad_keys},
+                "s11": {k: mesh_grad["densify-s11-noise"][k]
+                        for k in grad_keys},
+                "shape": "the 8 core matrices of PAPER_TONN_SPEC (4 x 16 and "
+                         "16 x 4), S = 1, noise on: a tonn BP step's "
+                         "densification (library: none; autograd_plain_ms "
+                         "is torch.autograd.grad through the plain "
+                         "densification, for scale)",
+                "cases": [r for k, r in mesh_grad.items()
+                          if k.startswith("densify")]}
+    main_ag = mesh_grad["p64-4300"]
+    entry_ag = {"name": "mesh_apply_grad", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/mesh_apply.cu",
+                "replaces": "src/repro/kernels/mesh_apply.py:93 (the "
+                            "backward of B3's resident design; the TPU "
+                            "kernel has none, JAX differentiates its jnp "
+                            "scan)",
+                "launches": trained_bp["onn-adamw"]["launches"][
+                    "mesh_apply_stacked_grad"],
+                "max_abs_err": max(r["max_abs_err"] for k, r in
+                                   mesh_grad.items()
+                                   if not k.startswith("densify")),
+                "max_err_over_bound": max(r["max_err_over_bound"]
+                                          for k, r in mesh_grad.items()
+                                          if not k.startswith("densify")),
+                **{k: main_ag[k] for k in grad_keys},
+                "shape": "64-port rectangular mesh (64 levels), S = 1, y and "
+                         "dy (1, 4300, 64): the hidden layer's U mesh of an "
+                         "onn BP step at hidden 64 (library: none; "
+                         "autograd_plain_ms is torch.autograd.grad through "
+                         "the plain gather form, for scale)",
+                "cases": [r for k, r in mesh_grad.items()
+                          if not k.startswith("densify")]}
+    tonn_bp, onn_bp = trained_bp["tonn-noise-adamw"], trained_bp["onn-adamw"]
+    print(f"[train-bp] tonn AdamW (noise): {tonn_bp['bp_step_ms']:.3f} ms "
+          f"per BP step; onn AdamW at hidden 64: {onn_bp['bp_step_ms']:.3f} "
+          f"ms; mesh_densify_grad {main_dg['ms']:.4f} ms per call "
+          f"({main_dg['kernel_device_ms']} ms alone, bound "
+          f"{main_dg['bound_ms']:.6f} ms), mesh_apply_grad "
+          f"{main_ag['ms']:.4f} ms ({main_ag['kernel_device_ms']} ms alone, "
+          f"bound {main_ag['bound_ms']:.6f} ms) on {card}", flush=True)
     print(json.dumps({"kernels": [entry, entry_b, entry_m, entry_q,
-                                  entry_f, entry_g, entry_a, entry_d],
+                                  entry_f, entry_g, entry_a, entry_d,
+                                  entry_dg, entry_ag],
                       "profile_retries": retaken}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

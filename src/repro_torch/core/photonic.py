@@ -10,8 +10,9 @@ grouped CUDA kernel on the card, ``mesh_densify_stacked``'s plain loop
 here on the CPU).  ``PhotonicMatrix.apply`` and ``apply_stacked`` — the
 ``onn`` mode's layers, whose meshes are as wide as the hidden layer — run
 through ``kernels.ops.mesh_apply`` and ``mesh_apply_stacked`` the same
-way.  ``to_dense`` is the plain, differentiable densification (autograd
-through ``mesh_apply``), which the BP baselines call by name.  A ``quant``
+way, and on the card so do their backwards where autograd needs them.
+``to_dense`` is the plain, differentiable densification (autograd through
+``mesh_apply``), the oracle of the grouped kernels.  A ``quant``
 with ``phase_bits`` snaps the commanded phases to the DAC grid before the
 noise model acts.
 
@@ -494,9 +495,9 @@ class PhotonicMatrix:
     def to_dense(self, params: dict, noise_model: NoiseModel | None = None,
                  noise: dict | None = None, quant=None) -> torch.Tensor:
         """W ``(out, in)`` through the plain gather form (``mesh_apply``)
-        on any device: the densification autograd differentiates, which
-        the BP baselines call by name (the mesh kernels have no
-        backward)."""
+        on any device, which autograd differentiates: the plain
+        densification ``TensorPinn.prepare_params_plain`` holds the
+        grouped kernels and their backward against."""
         eye = torch.eye(self.in_dim, dtype=torch.float32,
                         device=params["sigma"].device)
         return self._apply(params, eye, noise_model, noise, quant,

@@ -19,13 +19,16 @@ parametrizations:
                evaluation (training) or once at load (serving), in one
                grouped launch (``kernels.ops.mesh_densify_stacked``);
                ``prepare_params_plain`` is the differentiable plain
-               densification the BP baselines call.
+               densification the tests hold it against.
 
 Serving runs the single forward, whose TT layers go through
 ``kernels.ops.tt_linear``, and so does sequential ZO training, one model
 at a time; the off-chip BP baselines differentiate that forward with
 autograd (on the card, ``tt_linear`` runs the TT kernel and its
-hand-written backward).  ``dense`` layers are ``torch.matmul`` /
+hand-written backward, tonn's grouped densification its grouped backward,
+and onn's meshes at widths the resident design holds its backward; onn
+BP at hidden 1024 waits for the wide routes' backward, ``onn_wide_ports``,
+ROADMAP item 6c-2).  ``dense`` layers are ``torch.matmul`` /
 ``einsum``, as the JAX package leaves them to XLA.  Fused ZO training runs
 the stacked path: the N+1 SPSA-perturbed parameter sets of every core
 mesh densify in one program (``prepare_params_stacked`` →
@@ -69,12 +72,13 @@ import torch
 
 from repro_torch import pde as pde_lib
 from repro_torch.core import photonic, stein, tt
+from repro_torch.kernels import mesh_apply as mesh_kernels
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant as quant_lib
 
 __all__ = ["PINNConfig", "TensorPinn", "config_to_meta", "config_from_meta",
            "residual_loss", "residual_losses_stacked", "per_term_losses",
-           "validation_mse"]
+           "validation_mse", "onn_wide_ports"]
 
 PORTED_MODES = ("dense", "onn", "tt", "tonn")
 
@@ -123,6 +127,19 @@ def config_from_meta(meta: dict) -> PINNConfig:
             sub = {f.name for f in dataclasses.fields(cls)}
             kw[key] = cls(**{k: v for k, v in kw[key].items() if k in sub})
     return PINNConfig(**kw)
+
+
+def onn_wide_ports(cfg: PINNConfig) -> list:
+    """The widths of ``cfg``'s ``onn`` meshes (rectangular layouts) whose
+    backward the resident design does not hold
+    (``kernels.mesh_apply.grad_fits``): BP through them needs the wide
+    routes' backward, ROADMAP item 6c-2.  The same on every device; empty
+    for the other modes."""
+    if cfg.mode != "onn":
+        return []
+    net = pde_lib.get_problem(cfg.pde).net_dim
+    return sorted({p for p in (cfg.hidden, net) if not mesh_kernels.grad_fits(
+        photonic.rectangular_layout(p))})
 
 
 class TensorPinn:
@@ -256,9 +273,12 @@ class TensorPinn:
 
     def prepare_params(self, params: dict, noise: dict | None) -> tuple:
         """Densify TONN meshes into plain TT-cores once, noise baked in:
-        ``prepare_params_stacked`` over a stack of one, one grouped call
-        (on the card one ``mesh_densify_stacked`` launch, which has no
-        backward: the BP baselines call ``prepare_params_plain``).
+        ``prepare_params_stacked`` over a stack of one, one grouped call.
+        On the card that is one ``mesh_densify_stacked`` launch and, where
+        autograd differentiates it (the BP baselines' step), one launch of
+        its backward ``mesh_densify_grad`` (``mesh_apply.MeshDensifyFn``);
+        on the CPU the plain grouped densification, which autograd
+        differentiates natively.
 
         Returns ``(effective_params, effective_noise)``; a no-op for the
         other modes and for already-prepared dicts."""
@@ -276,9 +296,11 @@ class TensorPinn:
     def prepare_params_plain(self, params: dict, noise: dict | None) -> tuple:
         """``prepare_params`` through the plain gather form on any device
         (``PhotonicMatrix.to_dense`` per core matrix), which autograd
-        differentiates: the densification of the off-chip BP baselines.
-        DAC phase quantization acts on the commanded phases, before the
-        noise model."""
+        differentiates: the plain oracle that the tests and
+        ``chip_smoke.py`` hold the grouped kernels and their backward
+        against.  Nothing on the main path calls it.  DAC phase
+        quantization acts on the commanded phases, before the noise
+        model."""
         if self.cfg.mode != "tonn" or "cores0" in params:
             return params, noise
         eff = {k: v for k, v in params.items() if not k.startswith("pcores")}

@@ -34,6 +34,16 @@
 //                        identity feed made in the kernel, scales by sigma,
 //                        zero-pads to out_dim, runs U, and stores W[o, j].
 //                        core.photonic.mesh_densify_stacked.
+//   mesh_densify_grad_launch  its backward, the BP baselines' (port-only:
+//                        the TPU kernel has none; JAX differentiates its
+//                        jnp scan): the same grid, one block re-runs its
+//                        forward keeping the states and walks both meshes
+//                        back to dphases_u, dphases_v and dsigma.
+//   mesh_apply_grad_launch  the backward of mesh_apply_launch (port-only
+//                        too): dx and dphases from the saved output, grid
+//                        (row-tile columns, S), the tables resident.
+//                        Both backwards are below ("backwards"); the wide
+//                        routes have none (ROADMAP item 6c-2).
 //
 // Every product, sum and quotient is rounded on its own (__fmul_rn,
 // __fadd_rn, __fdiv_rn: no FMA contraction) in the plain version's order,
@@ -137,9 +147,10 @@ struct MeshSide {
 struct MatrixDesc {
   MeshSide u, v;
   const float* sigma;     // (S, k)
-  float* out;             // (S, out_dim, in_dim), the TT core's memory
+  float* out;             // (S, out_dim, in_dim), the TT core's memory; the
+                          // backward reads the core's gradient dW there
   int k;
-  int pad;
+  int save_states;        // backward: keep each level's input (else recover)
 };
 
 struct MeshGroup {
@@ -171,10 +182,13 @@ __device__ void build_trig(const float* ph, const int* __restrict__ slot,
 
 // The levels of one mesh on the n = rows * ports elements of buffer a
 // (o is the other buffer of the pair); the caller has synchronized a.
-// Returns the buffer that holds the result.
+// With states, level c's input goes to states[c * n ...] (application
+// order) on the way: the backward's saved states.  Returns the buffer that
+// holds the result.
 __device__ float* run_levels(float* a, float* o, int n, int ports, int levels,
                              const float* cs, const float* sn,
-                             const int* perm, bool transpose) {
+                             const int* perm, bool transpose,
+                             float* states = nullptr) {
   for (int c = 0; c < levels; ++c) {
     const int cl = transpose ? levels - 1 - c : c;
     const float* cc = cs + cl * ports;
@@ -184,6 +198,7 @@ __device__ float* run_levels(float* a, float* o, int n, int ports, int levels,
       const int w = i % ports;
       const float* row = a + (i - w);
       const float s = transpose ? -sc[w] : sc[w];
+      if (states) states[static_cast<size_t>(c) * n + i] = a[i];
       o[i] = __fadd_rn(__fmul_rn(cc[w], row[w]), __fmul_rn(s, row[pc[w]]));
     }
     __syncthreads();
@@ -325,6 +340,317 @@ mesh_densify_kernel(const __grid_constant__ MeshGroup grp) {
   float* dst = d.out + static_cast<size_t>(s) * out * in;
   for (int i = tid; i < out * in; i += blockDim.x)
     dst[i] = r[(i % in) * out + i / in];
+}
+
+// ------------------------------------------------------------- backwards
+//
+// Both backwards walk one mesh's levels in reverse over rows held in shared
+// memory (reverse_levels, below), each level orthogonal and in the gather
+// form y[w] = C[w]*x[w] + S[w]*x[perm w]:
+//   its input x   x[w] = C[w]*y[w] - S[w]*y[perm w]   (the inverse rotation),
+//                 or read back from the states the forward kept;
+//   dphi_slot  += sum over the rows and the slot's two wires of
+//                 g[w] * (-sin phi * x[w] + t * sign[w] * cos phi * x[perm w])
+//                 (g the gradient at the level's output; t = -1 for a
+//                 transposed mesh, whose sines are negated, else 1);
+//   g         <- M^T g:  g[w] = C[w]*g[w] - S[w]*g[perm w].
+// The slot's sum runs over the rows in order, one thread per slot (the
+// thread of the slot's first wire, sign -1), and each block writes its own
+// sums: no atomics, so the result is the same bits on every run.
+//
+// Where a level's input comes from:
+//   mesh_densify_grad_kernel (the grouped backward) keeps the states: it
+//     re-runs the forward of its (stack entry, matrix) on the identity feed
+//     and writes each level's input to shared memory on the way
+//     (save_states; at the paper's cores V's 16 rows x 16 ports x 16
+//     levels and U's 16 x 4 x 4, 17 KB), so its states are the forward's
+//     bits.  A matrix whose states do not fit
+//     (kernels/mesh_apply.py::densify_grad_saves) recovers them instead.
+//   mesh_apply_grad_kernel (the resident backward) recovers them from the
+//     saved output y: a row tile's states (rows x ports x levels) outgrow
+//     shared memory at a few dozen ports.  Each recovered level adds a few
+//     ulps; at 137 levels (a 137-port rectangular mesh, the widest the
+//     resident design holds; random phases, 64 rows) the worst state sat
+//     1.2e-6 of max|x| from the forward's, measured on the CPU with the
+//     plain version (kernels/ref.py::mesh_reverse).
+//
+// Bound: like the forwards, a launch latency at the BP path's shapes (a
+// few hundred KB moved); the grouped backward is one launch for every
+// core matrix, the resident one a launch and, when it takes more than one
+// block column, a second small kernel that sums the blocks' phase
+// gradients in a fixed order (mesh_grad_sum_kernel).
+
+// Reverse walk of one mesh over `rows` rows of `ports` floats.  y / ty:
+// the levels' output and a scratch buffer (recovering mode; unused with
+// states); g / tg: the gradient at the output and a scratch buffer.  On
+// return g holds the gradient at the levels' input (and y the input).
+// states: each level's input in application order, or null; dph: this
+// block's phase gradients (levels, slots), which the walk adds to (the
+// caller zeroes them first: a padded slot has no wire), or null; slot,
+// sign: the layout's plan (levels, ports).
+__device__ void reverse_levels(float*& y, float*& ty, float*& g, float*& tg,
+                               int rows, int ports, int levels, int slots,
+                               const float* cs, const float* sn,
+                               const int* perm, const int* __restrict__ slot,
+                               const float* __restrict__ sign, bool transpose,
+                               const float* states, float* dph) {
+  const int n = rows * ports;
+  for (int c = levels - 1; c >= 0; --c) {
+    const int cl = transpose ? levels - 1 - c : c;
+    const float* cc = cs + cl * ports;
+    const float* sc = sn + cl * ports;
+    const int* pc = perm + cl * ports;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const int w = i % ports;
+      const int p = i - w + pc[w];
+      const float s = transpose ? -sc[w] : sc[w];
+      if (!states)
+        ty[i] = __fsub_rn(__fmul_rn(cc[w], y[i]), __fmul_rn(s, y[p]));
+      tg[i] = __fsub_rn(__fmul_rn(cc[w], g[i]), __fmul_rn(s, g[p]));
+    }
+    __syncthreads();
+    if (dph) {
+      const float* x = states ? states + static_cast<size_t>(c) * n : ty;
+      for (int a = threadIdx.x; a < ports; a += blockDim.x) {
+        if (!(sign[cl * ports + a] < 0.0f)) continue;   // a slot's first wire
+        const int b = pc[a];
+        // sn = sign * sin(phi) = -sin(phi) on wire a; cs = cos(phi)
+        const float ms = sc[a];
+        const float cb = transpose ? cc[a] : -cc[a];
+        float acc = 0.0f;
+        for (int r = 0; r < rows; ++r) {
+          const float* xr = x + r * ports;
+          const float* gr = g + r * ports;
+          const float dya = __fadd_rn(__fmul_rn(ms, xr[a]),
+                                      __fmul_rn(cb, xr[b]));
+          const float dyb = __fsub_rn(__fmul_rn(ms, xr[b]),
+                                      __fmul_rn(cb, xr[a]));
+          acc = __fadd_rn(acc, __fadd_rn(__fmul_rn(gr[a], dya),
+                                         __fmul_rn(gr[b], dyb)));
+        }
+        float* dst = dph + cl * slots + slot[cl * ports + a];
+        *dst = __fadd_rn(*dst, acc);
+      }
+      __syncthreads();
+    }
+    if (!states) {
+      float* t = y;
+      y = ty;
+      ty = t;
+    }
+    float* t = g;
+    g = tg;
+    tg = t;
+  }
+}
+
+// The commanded phases' gradient of one mesh from its effective phases'
+// (dph, levels * slots) into dst: the transpose of stage_mesh's noise
+// model, Omega symmetric:  dst = gamma * (d + kappa * (d[k-1] + d[k+1])).
+__device__ void noise_transpose(const MeshSide& m, const MeshGroup& grp,
+                                const float* dph, float* dst) {
+  const int n = m.levels * m.slots;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    float v = dph[i];
+    if (m.gamma != nullptr) {
+      if (m.crosstalk) {
+        const int k = i % m.slots;
+        const float left = k + 1 < m.slots ? dph[i + 1] : 0.0f;
+        const float right = k > 0 ? dph[i - 1] : 0.0f;
+        v = __fadd_rn(v, __fmul_rn(grp.kappa, __fadd_rn(left, right)));
+      }
+      v = __fmul_rn(m.gamma[i], v);
+    }
+    dst[i] = v;
+  }
+}
+
+// The grouped backward: grid (S, G), one block per (stack entry, matrix),
+// as the forward.  d.out holds the core's gradient dW (S, out, in); grads
+// the flat output, per matrix in group order [dphases_u (S, Lu, Ku),
+// dphases_v (S, Lv, Kv), dsigma (S, k)].
+__global__ void __launch_bounds__(kThreads)
+mesh_densify_grad_kernel(const __grid_constant__ MeshGroup grp,
+                         float* __restrict__ grads) {
+  extern __shared__ float smem[];
+  const MatrixDesc& d = grp.m[blockIdx.y];
+  const int s = blockIdx.x, S = grp.stack;
+  const int in = d.v.ports, out = d.u.ports, k = d.k;
+  const int width = max(in, out);
+  const int nu = d.u.levels * d.u.slots, nv = d.v.levels * d.v.slots;
+  const int phase_n = max(nu, nv);
+  const bool save = d.save_states != 0;
+  float* buf_a = smem;
+  float* buf_b = buf_a + in * width;
+  float* g_a = buf_b + in * width;
+  float* g_b = g_a + in * width;
+  float* vout = g_b + in * width;                  // V's output rows
+  float* ph = vout + in * in;
+  float* tmp = ph + phase_n;
+  float* dph = tmp + phase_n;
+  float* cs = dph + phase_n;
+  float* sn = cs + max(d.u.levels * d.u.ports, d.v.levels * d.v.ports);
+  float* sv = sn + max(d.u.levels * d.u.ports, d.v.levels * d.v.ports);
+  float* su = sv + (save ? d.v.levels * in * in : 0);
+  const int tid = threadIdx.x;
+
+  size_t off = 0;                                  // this matrix's grads
+  for (int g = 0; g < static_cast<int>(blockIdx.y); ++g)
+    off += static_cast<size_t>(S) *
+           (grp.m[g].u.levels * grp.m[g].u.slots +
+            grp.m[g].v.levels * grp.m[g].v.slots + grp.m[g].k);
+  float* dphu = grads + off + static_cast<size_t>(s) * nu;
+  float* dphv = grads + off + static_cast<size_t>(S) * nu +
+                static_cast<size_t>(s) * nv;
+  float* dsig = grads + off + static_cast<size_t>(S) * (nu + nv) +
+                static_cast<size_t>(s) * k;
+
+  // the forward of mesh_densify_kernel, keeping V's output (and the states)
+  stage_mesh(d.v, s, grp, ph, tmp, cs, sn);
+  for (int i = tid; i < in * in; i += blockDim.x)
+    buf_a[i] = i / in == i % in ? 1.0f : 0.0f;
+  __syncthreads();
+  const float* a = run_levels(buf_a, buf_b, in * in, in, d.v.levels, cs, sn,
+                              d.v.perm, true, save ? sv : nullptr);
+  float* z = a == buf_a ? buf_b : buf_a;
+  const float* dv = d.v.diag + s * d.v.diag_stride_s;
+  const float* du = d.u.diag + s * d.u.diag_stride_s;
+  const float* sig = d.sigma + static_cast<size_t>(s) * k;
+  for (int i = tid; i < in * in; i += blockDim.x) vout[i] = a[i];
+  for (int i = tid; i < in * out; i += blockDim.x) {
+    const int j = i / out, w = i % out;
+    const float zv = w < k
+        ? __fmul_rn(__fmul_rn(a[j * in + w], dv[w]), sig[w]) : 0.0f;
+    z[i] = __fmul_rn(zv, du[w]);
+  }
+  __syncthreads();
+  stage_mesh(d.u, s, grp, ph, tmp, cs, sn);
+  float* r = run_levels(z, z == buf_a ? buf_b : buf_a, in * out, out,
+                        d.u.levels, cs, sn, d.u.perm, false,
+                        save ? su : nullptr);
+  // the gradient at U's output rows: g[j, o] = dW[o, j]
+  const float* dw = d.out + static_cast<size_t>(s) * out * in;
+  for (int i = tid; i < in * out; i += blockDim.x)
+    g_a[i] = dw[(i % out) * in + i / out];
+  for (int i = tid; i < nu; i += blockDim.x) dph[i] = 0.0f;
+  __syncthreads();
+  float* y = r;
+  float* ty = r == buf_a ? buf_b : buf_a;
+  float* g = g_a;
+  float* tg = g_b;
+  reverse_levels(y, ty, g, tg, in, out, d.u.levels, d.u.slots, cs, sn,
+                 d.u.perm, d.u.slot, d.u.sign, false, save ? su : nullptr,
+                 dph);
+  // g: the gradient at U's input rows (D_u applied); sigma's, and V's
+  // output's through sigma and D_v
+  float* da = tg;
+  for (int w = tid; w < k; w += blockDim.x) {
+    float acc = 0.0f;
+    for (int j = 0; j < in; ++j)
+      acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(vout[j * in + w], dv[w]),
+                                     __fmul_rn(g[j * out + w], du[w])));
+    dsig[w] = acc;
+  }
+  for (int i = tid; i < in * in; i += blockDim.x) {
+    const int j = i / in, w = i % in;
+    da[i] = w < k ? __fmul_rn(__fmul_rn(__fmul_rn(g[j * out + w], du[w]),
+                                        sig[w]), dv[w])
+                  : 0.0f;
+  }
+  noise_transpose(d.u, grp, dph, dphu);
+  __syncthreads();
+  for (int i = tid; i < nv; i += blockDim.x) dph[i] = 0.0f;
+  stage_mesh(d.v, s, grp, ph, tmp, cs, sn);       // ends on a barrier
+  y = vout;
+  ty = buf_a;
+  g = da;
+  tg = da == g_a ? g_b : g_a;
+  reverse_levels(y, ty, g, tg, in, in, d.v.levels, d.v.slots, cs, sn,
+                 d.v.perm, d.v.slot, d.v.sign, true, save ? sv : nullptr,
+                 dph);
+  noise_transpose(d.v, grp, dph, dphv);
+}
+
+// The resident backward: grid (row-tile columns, S); block x takes the row
+// tiles x, x + gridDim.x, ... of entry s with the layout's tables resident
+// as in mesh_apply_kernel, zeroes its own slice of dph, (gridDim.x, S,
+// levels, slots) (or, with one column, dphases itself), and adds its phase
+// gradients over its tiles into it.  y, dy, dx: (S, batch, ports); dx and dph may be
+// null (not asked for).
+__global__ void __launch_bounds__(kThreads)
+mesh_apply_grad_kernel(const float* __restrict__ y,
+                       const float* __restrict__ dy,
+                       const float* __restrict__ phases,
+                       const int* __restrict__ slot,
+                       const float* __restrict__ sign,
+                       const int* __restrict__ perm,
+                       const float* __restrict__ diag, float* __restrict__ dx,
+                       float* __restrict__ dph, int batch, int ports,
+                       int levels, int slots, int rows_per_block,
+                       int64_t diag_stride_s, int transpose) {
+  extern __shared__ float smem[];
+  const int table = levels * ports;
+  float* cs = smem;
+  float* sn = cs + table;
+  int* pm = reinterpret_cast<int*>(sn + table);
+  float* dg = reinterpret_cast<float*>(pm + table);
+  float* b0 = dg + ports;
+  float* b1 = b0 + rows_per_block * ports;
+  float* b2 = b1 + rows_per_block * ports;
+  float* b3 = b2 + rows_per_block * ports;
+  const size_t s = blockIdx.y;
+  const int tid = threadIdx.x;
+  const bool tr = transpose != 0;
+
+  build_trig(phases + s * levels * slots, slot, sign, table, ports, slots,
+             cs, sn);
+  for (int i = tid; i < table; i += blockDim.x) pm[i] = perm[i];
+  const float* dg_g = diag + s * diag_stride_s;
+  for (int i = tid; i < ports; i += blockDim.x) dg[i] = dg_g[i];
+  float* part = dph ? dph + (static_cast<size_t>(blockIdx.x) * gridDim.y + s)
+                                * levels * slots
+                    : nullptr;
+  if (part)
+    for (int i = tid; i < levels * slots; i += blockDim.x) part[i] = 0.0f;
+  __syncthreads();
+
+  for (int row0 = blockIdx.x * rows_per_block; row0 < batch;
+       row0 += gridDim.x * rows_per_block) {
+    const int rows = min(rows_per_block, batch - row0);
+    const int n = rows * ports;
+    const size_t base = (s * batch + row0) * static_cast<size_t>(ports);
+    float* yb = b0;
+    float* ty = b1;
+    float* gb = b2;
+    float* tg = b3;
+    // transposed, D comes last in the forward: the levels' output is y / D
+    // (exact for the +-1 buffers) and their gradient dy * D
+    for (int i = tid; i < n; i += blockDim.x) {
+      const float d = dg[i % ports];
+      yb[i] = tr ? __fdiv_rn(y[base + i], d) : y[base + i];
+      gb[i] = tr ? __fmul_rn(dy[base + i], d) : dy[base + i];
+    }
+    __syncthreads();
+    reverse_levels(yb, ty, gb, tg, rows, ports, levels, slots, cs, sn, pm,
+                   slot, sign, tr, nullptr, part);
+    if (dx)
+      for (int i = tid; i < n; i += blockDim.x)
+        dx[base + i] = tr ? gb[i] : __fmul_rn(gb[i], dg[i % ports]);
+    __syncthreads();
+  }
+}
+
+// out[i] = the blocks' partial sums part[b * count + i], b in order.
+__global__ void mesh_grad_sum_kernel(const float* __restrict__ part,
+                                     float* __restrict__ out, int blocks,
+                                     int64_t count) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       i < count; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    float acc = part[i];
+    for (int b = 1; b < blocks; ++b) acc = __fadd_rn(acc, part[b * count + i]);
+    out[i] = acc;
+  }
 }
 
 // ------------------------------------------------------------- owner walk
@@ -957,6 +1283,20 @@ size_t densify_smem(const MatrixDesc& d) {
          sizeof(float);
 }
 
+size_t densify_grad_smem(const MatrixDesc& d) {
+  const size_t in = d.v.ports, out = d.u.ports;
+  const size_t phase_n = std::max(d.u.levels * d.u.slots,
+                                  d.v.levels * d.v.slots);
+  const size_t table = std::max(d.u.levels * d.u.ports,
+                                d.v.levels * d.v.ports);
+  const size_t states = d.save_states
+      ? static_cast<size_t>(d.v.levels) * in * in +
+            static_cast<size_t>(d.u.levels) * in * out
+      : 0;
+  return (4 * in * std::max(in, out) + in * in + 3 * phase_n + 2 * table +
+          states) * sizeof(float);
+}
+
 }  // namespace
 
 // Plain C entry points, bound with ctypes.  Each launches on `stream`
@@ -1119,5 +1459,89 @@ extern "C" int mesh_densify_launch(const MeshGroup* group, void* stream) {
   const dim3 grid(group->stack, group->count);
   mesh_densify_kernel<<<grid, kThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(*group);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The grouped backward: group as for mesh_densify_launch, each matrix's
+// `out` pointing at its core's gradient dW (S, out, in) and `save_states`
+// set where its states fit; grads: the flat output (see
+// mesh_densify_grad_kernel).  DAC phase snapping has no gradient here.
+extern "C" int mesh_densify_grad_launch(const MeshGroup* group, void* grads,
+                                        void* stream) {
+  if (group->count < 1 || group->count > kMaxGroup || group->stack < 1 ||
+      group->dac || grads == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  size_t smem = 0;
+  for (int g = 0; g < group->count; ++g) {
+    const MatrixDesc& d = group->m[g];
+    if (d.u.ports < 1 || d.v.ports < 1 || d.u.levels < 1 ||
+        d.v.levels < 1 || d.u.slots < 1 || d.v.slots < 1 || d.k < 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+    smem = std::max(smem, densify_grad_smem(d));
+  }
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        mesh_densify_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(group->stack, group->count);
+  mesh_densify_grad_kernel<<<grid, kThreads, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      *group, static_cast<float*>(grads));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The resident backward: y, dy (S, batch, ports), the output and its
+// gradient of mesh_apply_launch; phases, slot, sign, perm, diag and
+// transpose as there; dx (S, batch, ports) or null; dphases (S, levels,
+// slots) or null; partials (blocks_x, S, levels, slots) scratch, used when
+// blocks_x > 1 (then mesh_grad_sum_kernel sums it into dphases).  Grid
+// (blocks_x, S), blocks_x at most the row tiles.
+extern "C" int mesh_apply_grad_launch(const void* y, const void* dy,
+                                      const void* phases, const void* slot,
+                                      const void* sign, const void* perm,
+                                      const void* diag, void* dx,
+                                      void* dphases, void* partials,
+                                      int batch, int ports, int levels,
+                                      int slots, int stack,
+                                      int rows_per_block, int blocks_x,
+                                      int64_t diag_stride_s, int transpose,
+                                      void* stream) {
+  const int tiles =
+      (batch + rows_per_block - 1) / std::max(rows_per_block, 1);
+  if (batch < 1 || ports < 1 || levels < 1 || slots < 1 || stack < 1 ||
+      stack > 65535 || rows_per_block < 1 || blocks_x < 1 ||
+      blocks_x > tiles || diag_stride_s < 0 ||
+      (dx == nullptr && dphases == nullptr) ||
+      (dphases != nullptr && blocks_x > 1 && partials == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = (3 * static_cast<size_t>(levels) * ports + ports +
+                       4 * static_cast<size_t>(rows_per_block) * ports) *
+                      sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        mesh_apply_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* target = dphases == nullptr ? nullptr
+                  : static_cast<float*>(blocks_x > 1 ? partials : dphases);
+  mesh_apply_grad_kernel<<<dim3(blocks_x, stack), kThreads, smem, st>>>(
+      static_cast<const float*>(y), static_cast<const float*>(dy),
+      static_cast<const float*>(phases), static_cast<const int*>(slot),
+      static_cast<const float*>(sign), static_cast<const int*>(perm),
+      static_cast<const float*>(diag), static_cast<float*>(dx), target,
+      batch, ports, levels, slots, rows_per_block, diag_stride_s, transpose);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || dphases == nullptr || blocks_x == 1)
+    return static_cast<int>(err);
+  const int64_t count = static_cast<int64_t>(stack) * levels * slots;
+  const int blocks = static_cast<int>(
+      std::min<int64_t>((count + kThreads - 1) / kThreads, 1024));
+  mesh_grad_sum_kernel<<<blocks, kThreads, 0, st>>>(
+      static_cast<const float*>(partials), static_cast<float*>(dphases),
+      blocks_x, count);
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,6 +36,22 @@ route A's ``rows_plan``).  Two entries:
     kernel by value (``MeshGroup``, a ctypes mirror of the C struct), so
     the launch copies nothing from the host.
 
+Two backwards, port-only (the TPU kernel has none; the JAX package
+differentiates its jnp scan), for the off-chip BP baselines:
+
+  * ``mesh_densify_grad`` — the grouped densification's, one launch for
+    every matrix: dphases_u, dphases_v (of the commanded phases, through
+    the noise model) and dsigma from the cores' gradients.  Each block
+    keeps its forward's states in shared memory where they fit
+    (``densify_grad_saves``).  ``MeshDensifyFn`` puts it under autograd.
+  * ``mesh_apply_stacked_grad`` — the resident design's: dx and dphases
+    from the saved output, the states recovered level by level
+    (``MeshApplyFn``).  The wide routes have none (ROADMAP item 6c-2).
+
+Both are held to their plain versions ``kernels.ref.mesh_densify_grad_ref``
+and ``mesh_apply_grad_ref``, and sum in a fixed order: two calls give the
+same bits.
+
 The TPU's one-hot permutation matmul (``mesh_perm_onehot``) has no
 counterpart: the kernels read a wire's partner from shared memory or a
 neighbouring lane.  The TPU's size limits assumed VMEM; here a block holds
@@ -69,7 +85,12 @@ __all__ = ["mesh_apply_stacked", "launch_resident", "launch_warp_rows",
            "level_modes", "rows_plan", "rows_config", "trig_records",
            "DENSE_MIN_ROWS_PER_PORT", "mesh_densify_stacked", "smem_bytes",
            "rows_per_block", "stream_smem_bytes", "stream_rows",
-           "densify_smem_bytes", "MeshGroup", "pack_group", "MAX_GROUP"]
+           "densify_smem_bytes", "MeshGroup", "pack_group", "MAX_GROUP",
+           "mesh_densify_grad", "mesh_apply_stacked_grad", "grad_smem_bytes",
+           "grad_fits", "grad_rows_per_block", "grad_columns",
+           "densify_grad_smem_bytes", "densify_grad_saves", "MeshApplyFn",
+           "MeshDensifyFn", "apply_autograd", "densify_autograd",
+           "PARAM_KEYS"]
 
 MAX_ROW_ELEMENTS = 1024            # rows per block × ports, at most
 MAX_STACK = 65_535                 # the standalone grid's y extent
@@ -321,6 +342,70 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def grad_smem_bytes(ports: int, levels: int, rows: int) -> int:
+    """Shared memory of one resident backward block: the forward's tables
+    and diag row, and four row buffers (the recovered states, the
+    gradients, a scratch of each)."""
+    return 4 * (3 * levels * ports + ports + 4 * rows * ports)
+
+
+def grad_fits(layout: ph_lib.MeshLayout) -> bool:
+    """Whether the resident backward holds the layout: its tables and one
+    row of each buffer fit a block (a rectangular mesh of up to ~138
+    ports, as the forward's resident design).  Wider layouts take the
+    wide routes, which have no backward (ROADMAP item 6c-2)."""
+    return grad_smem_bytes(layout.ports, layout.levels, 1) <= SMEM_MAX_BYTES
+
+
+def grad_rows_per_block(layout: ph_lib.MeshLayout) -> int:
+    """Rows one resident backward block takes at a time: about 1024
+    elements, within the shared memory left after the tables.  Raises,
+    naming item 6c-2, where ``grad_fits`` does not hold."""
+    P, L = layout.ports, layout.levels
+    if not grad_fits(layout):
+        raise ValueError(
+            f"a {P}-port, {L}-level mesh has no backward kernel: its "
+            f"resident backward needs {grad_smem_bytes(P, L, 1)} B of "
+            f"shared memory per block (the card has {SMEM_MAX_BYTES} B), "
+            "and the wide routes' backward is ROADMAP queue A, item 6c-2")
+    fit = (SMEM_MAX_BYTES - grad_smem_bytes(P, L, 0)) // (16 * P)
+    return max(1, min(MAX_ROW_ELEMENTS // P, fit))
+
+
+GRAD_BLOCKS_PER_SM = 4             # the resident backward's blocks an SM
+
+
+def grad_columns(S: int, tiles: int, sms: int) -> int:
+    """Block columns of the resident backward's grid ``(columns, S)``:
+    about ``GRAD_BLOCKS_PER_SM`` blocks an SM, at most one a row tile.
+    Each column walks every ``columns``-th tile and keeps its own phase
+    gradients, which a second small kernel sums in column order: the
+    scratch is ``columns × S × levels × slots`` floats, however many rows
+    there are."""
+    return max(1, min(tiles, -(-GRAD_BLOCKS_PER_SM * sms // S)))
+
+
+def densify_grad_smem_bytes(pm: ph_lib.PhotonicMatrix, save: bool) -> int:
+    """Shared memory of one grouped backward block for matrix ``pm``: four
+    row buffers ``(in_dim, max(in_dim, out_dim))``, V's output rows, three
+    phase tables and the cos and sin tables of the larger mesh, and with
+    ``save`` each level's input of both meshes."""
+    lu, lv = pm.layout_u, pm.layout_v
+    phases = max(lu.levels * lu.slots, lv.levels * lv.slots)
+    table = max(lu.levels * lu.ports, lv.levels * lv.ports)
+    states = (lv.levels * pm.in_dim * pm.in_dim
+              + lu.levels * pm.in_dim * pm.out_dim) if save else 0
+    return 4 * (4 * pm.in_dim * max(pm.in_dim, pm.out_dim)
+                + pm.in_dim * pm.in_dim + 3 * phases + 2 * table + states)
+
+
+def densify_grad_saves(pm: ph_lib.PhotonicMatrix) -> bool:
+    """Whether the grouped backward keeps matrix ``pm``'s forward states
+    (exact; every core matrix of ``PAPER_TONN_SPEC``: 17 KB at most) or
+    recovers them level by level (``ref.mesh_reverse``)."""
+    return densify_grad_smem_bytes(pm, True) <= SMEM_MAX_BYTES
+
+
 def densify_smem_bytes(pm: ph_lib.PhotonicMatrix) -> int:
     """Shared memory of one grouped block for matrix ``pm``: two row
     buffers ``(in_dim, max(in_dim, out_dim))``, and for the larger of its
@@ -349,7 +434,7 @@ class _MeshSide(ctypes.Structure):
 class _MatrixDesc(ctypes.Structure):
     _fields_ = [("u", _MeshSide), ("v", _MeshSide),
                 ("sigma", ctypes.c_void_p), ("out", ctypes.c_void_p),
-                ("k", ctypes.c_int), ("pad", ctypes.c_int)]
+                ("k", ctypes.c_int), ("save_states", ctypes.c_int)]
 
 
 class MeshGroup(ctypes.Structure):
@@ -468,6 +553,12 @@ def _library():
     lib.mesh_densify_launch.argtypes = [ctypes.POINTER(MeshGroup),
                                         ctypes.c_void_p]
     lib.mesh_densify_launch.restype = ctypes.c_int
+    lib.mesh_densify_grad_launch.argtypes = [ctypes.POINTER(MeshGroup),
+                                             ctypes.c_void_p, ctypes.c_void_p]
+    lib.mesh_densify_grad_launch.restype = ctypes.c_int
+    lib.mesh_apply_grad_launch.argtypes = [ctypes.c_void_p] * 10 + [
+        ctypes.c_int] * 7 + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    lib.mesh_apply_grad_launch.restype = ctypes.c_int
     return lib
 
 
@@ -687,3 +778,215 @@ def mesh_densify_stacked(matrices, params, noises, noise_model=None,
 
 
 mesh_densify_stacked.launches = 0
+
+
+# ---------------------------------------------------------------- backwards
+
+PARAM_KEYS = ("phases_u", "phases_v", "sigma", "diag_u", "diag_v")
+
+
+def _densify_grad_splits(matrices, S: int) -> list:
+    """Sizes of each matrix's gradients in the grouped backward's flat
+    output, in the kernel's order: dphases_u, dphases_v, dsigma."""
+    return [S * n for pm in matrices
+            for n in (pm.layout_u.levels * pm.layout_u.slots,
+                      pm.layout_v.levels * pm.layout_v.slots, pm.k)]
+
+
+def mesh_densify_grad(matrices, params, noises, noise_model,
+                      dW: list) -> list:
+    """The grouped backward: the gradients of ``mesh_densify_stacked(
+    matrices, params, noises, noise_model)`` (no DAC snap) against the
+    cores' gradients ``dW[g]`` ``(S, out_dim, in_dim)``, contiguous, in
+    one launch.  Returns ``[(dphases_u, dphases_v, dsigma)]`` per matrix,
+    of the commanded phases (the noise model's transpose applied in the
+    launch), views of one allocation.  Raises for a matrix no block holds
+    (ROADMAP item 6c-2)."""
+    if not matrices:
+        raise ValueError("mesh_densify_grad: no matrices")
+    device = params[0]["sigma"].device
+    if device.type != "cuda":
+        raise ValueError(f"mesh_densify_grad runs on CUDA tensors, got "
+                         f"{device}")
+    saves = [densify_grad_saves(pm) for pm in matrices]
+    for pm, save in zip(matrices, saves):
+        need = densify_grad_smem_bytes(pm, save)
+        if need > SMEM_MAX_BYTES:
+            raise ValueError(
+                f"a {pm.out_dim} x {pm.in_dim} photonic matrix's backward "
+                f"needs {need} B of shared memory per block; the card has "
+                f"{SMEM_MAX_BYTES} B (ROADMAP queue A, item 6c-2)")
+    S = params[0]["sigma"].shape[0]
+    sizes = _densify_grad_splits(matrices, S)
+    flat = torch.empty(sum(sizes), dtype=torch.float32, device=device)
+    grp = pack_group(matrices, params, noises, noise_model, None, dW)
+    for g, save in enumerate(saves):
+        grp.m[g].save_states = int(save)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _library().mesh_densify_grad_launch(
+            ctypes.byref(grp), flat.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"mesh_densify_grad launch failed: CUDA error "
+                           f"{err}")
+    mesh_densify_grad.launches += 1
+    parts = iter(flat.split(sizes))
+    return [(next(parts).view(S, *pm.layout_u.phase_shape()),
+             next(parts).view(S, *pm.layout_v.phase_shape()),
+             next(parts).view(S, pm.k)) for pm in matrices]
+
+
+mesh_densify_grad.launches = 0
+
+
+def mesh_apply_stacked_grad(layout: ph_lib.MeshLayout, phases: torch.Tensor,
+                            diag: torch.Tensor, y: torch.Tensor,
+                            dy: torch.Tensor, transpose: bool = False,
+                            need_dx: bool = True,
+                            need_dphases: bool = True) -> tuple:
+    """The resident backward of ``mesh_apply_stacked``: from its output y
+    and the gradient dy there, both ``(S, B, P)`` contiguous, the gradient
+    at x as ``(S, B, P)`` (a shared x's is their sum over S, which the
+    caller takes) and at the phases, ``(S, levels, slots)``; either may be
+    skipped (None).  Raises, naming item 6c-2, for a layout
+    ``grad_fits`` refuses (the wide routes)."""
+    S, B = _check_stacked(layout, phases, diag, y)
+    P, L, K = layout.ports, layout.levels, layout.slots
+    if y.ndim != 3 or tuple(dy.shape) != tuple(y.shape) or \
+            dy.dtype != torch.float32 or dy.device != y.device or \
+            not dy.is_contiguous():
+        raise ValueError(f"y and dy: need contiguous float32 ({S}, B, {P}) "
+                         f"on one card, got {tuple(y.shape)} and "
+                         f"{dy.dtype} {tuple(dy.shape)} on {dy.device}")
+    if not (need_dx or need_dphases):
+        raise ValueError("mesh_apply_stacked_grad: neither dx nor dphases "
+                         "asked for")
+    rows = grad_rows_per_block(layout)        # raises before any allocation
+    dx = torch.empty_like(y) if need_dx else None
+    dph = (torch.zeros((S, L, K), dtype=torch.float32, device=y.device)
+           if need_dphases else None)
+    if B == 0:
+        return dx, dph
+    tiles = -(-B // rows)
+    cols = grad_columns(S, tiles, _sm_count(y.device))
+    part = (torch.empty((cols, S, L, K), dtype=torch.float32, device=y.device)
+            if need_dphases and cols > 1 else None)
+    plan = ph_lib.mesh_plan_tensors(layout, y.device)
+    with torch.cuda.device(y.device):
+        err = _library().mesh_apply_grad_launch(
+            y.data_ptr(), dy.data_ptr(), phases.data_ptr(),
+            plan["slot_i32"].data_ptr(), plan["sign"].data_ptr(),
+            plan["perm"].data_ptr(), diag.data_ptr(),
+            None if dx is None else dx.data_ptr(),
+            None if dph is None else dph.data_ptr(),
+            None if part is None else part.data_ptr(), B, P, L, K, S, rows,
+            cols, P if diag.ndim == 2 else 0, int(transpose), _stream(y))
+    _raise_on(err, "resident backward")
+    mesh_apply_stacked_grad.launches += 1
+    return dx, dph
+
+
+mesh_apply_stacked_grad.launches = 0
+
+
+class MeshApplyFn(torch.autograd.Function):
+    """``mesh_apply_stacked`` (the resident design) under autograd: the
+    forward launch, and ``mesh_apply_stacked_grad`` for what
+    ``ctx.needs_input_grad`` asks (x, the phases).  Saves the output, not
+    x: the backward recovers each level's input from it."""
+
+    @staticmethod
+    def forward(ctx, layout, transpose, phases, diag, x):
+        phases, diag, x = (t.contiguous() for t in (phases, diag, x))
+        y = mesh_apply_stacked(layout, phases, diag, x, transpose)
+        ctx.layout, ctx.transpose, ctx.x_shared = layout, transpose, \
+            x.ndim == 2
+        ctx.save_for_backward(phases, diag, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        phases, diag, y = ctx.saved_tensors
+        need_ph, need_diag, need_x = ctx.needs_input_grad[2:]
+        if need_diag:
+            raise ValueError("the mesh kernels take no gradient of the ±1 "
+                             "diag buffers")
+        if not (need_ph or need_x):
+            return (None,) * 5
+        dx, dph = mesh_apply_stacked_grad(
+            ctx.layout, phases, diag, y, dy.contiguous(), ctx.transpose,
+            need_x, need_ph)
+        if dx is not None and ctx.x_shared:
+            dx = dx[0] if dx.shape[0] == 1 else dx.sum(0)
+        return None, None, dph, None, dx
+
+
+def apply_autograd(layout: ph_lib.MeshLayout, phases: torch.Tensor,
+                   diag: torch.Tensor, x: torch.Tensor,
+                   transpose: bool = False) -> torch.Tensor:
+    """``mesh_apply_stacked`` where autograd needs its backward, for a
+    layout ``grad_fits`` holds: through ``MeshApplyFn``.  Raises before any
+    launch where the diag buffer requires grad."""
+    if diag.requires_grad:
+        raise ValueError("the mesh kernels take no gradient of the ±1 diag "
+                         "buffers (TensorPinn.trainable_mask leaves them "
+                         "out)")
+    return MeshApplyFn.apply(layout, transpose, phases, diag, x)
+
+
+class MeshDensifyFn(torch.autograd.Function):
+    """``mesh_densify_stacked`` under autograd: the grouped forward launch
+    and the grouped backward (``mesh_densify_grad``) for the phases and
+    sigma ``ctx.needs_input_grad`` asks for.  The tensors come flat, five
+    a matrix in ``PARAM_KEYS`` order; the noise rides along untracked."""
+
+    @staticmethod
+    def forward(ctx, matrices, noises, noise_model, *flat):
+        flat = [t.contiguous() for t in flat]
+        params = [dict(zip(PARAM_KEYS, flat[i:i + 5]))
+                  for i in range(0, len(flat), 5)]
+        ctx.matrices, ctx.noises, ctx.noise_model = matrices, noises, \
+            noise_model
+        ctx.save_for_backward(*flat)
+        return tuple(mesh_densify_stacked(matrices, params, noises,
+                                          noise_model))
+
+    @staticmethod
+    def backward(ctx, *dW):
+        flat = ctx.saved_tensors
+        need = ctx.needs_input_grad[3:]
+        out = [None] * len(flat)
+        if any(need):
+            params = [dict(zip(PARAM_KEYS, flat[i:i + 5]))
+                      for i in range(0, len(flat), 5)]
+            grads = mesh_densify_grad(ctx.matrices, params, ctx.noises,
+                                      ctx.noise_model,
+                                      [d.contiguous() for d in dW])
+            for g, trio in enumerate(grads):
+                for j, t in enumerate(trio):
+                    if need[5 * g + j]:
+                        out[5 * g + j] = t
+        return (None, None, None, *out)
+
+
+def densify_autograd(matrices, params, noises, noise_model=None,
+                     quant=None) -> list:
+    """``mesh_densify_stacked`` where autograd needs its backward: through
+    ``MeshDensifyFn``.  Raises before any launch for what the backward
+    does not take: DAC phase snapping (quantization-aware BP is ROADMAP
+    item 11), a diag buffer or noise tensor that requires grad."""
+    if quant is not None and quant.phases:
+        raise ValueError("the grouped densification has no gradient through "
+                         "DAC-snapped phases: quantization-aware BP is "
+                         "ROADMAP queue A, item 11")
+    for g, (p, nz) in enumerate(zip(params, noises, strict=True)):
+        fixed = [p[k] for k in ph_lib.PHOTONIC_BUFFER_KEYS]
+        fixed += [] if nz is None else [t for side in nz.values()
+                                        for t in side.values()]
+        if any(t.requires_grad for t in fixed):
+            raise ValueError(f"matrix {g}: a diag buffer or a noise tensor "
+                             "requires grad; the grouped backward gives the "
+                             "phases and sigma only")
+    flat = [p[k] for p in params for k in PARAM_KEYS]
+    return list(MeshDensifyFn.apply(list(matrices), list(noises),
+                                    noise_model, *flat))

@@ -5,14 +5,18 @@ launches the hand-written kernel, which raises on anything it cannot take.
 There is no switch that sends CUDA tensors to the plain version.
 
 Autograd: on the card ``tt_contract`` itself carries its hand-written
-backward (``tt_contract_grad``) whenever an input requires grad; the plain
-versions on the CPU are differentiated by autograd natively.  The batched
-TT kernels, the mesh kernels and the attention kernel have no backward, so
-their entries raise on a CUDA input that requires grad while grad is
-enabled, before the launch (``_no_backward``): the ZO steps run without
-grad and the BP baselines go through ``tt_linear``; they densify tonn's
-meshes through the plain path by name (``TensorPinn.prepare_params_plain``),
-and BP of ``onn`` waits for a mesh backward kernel (ROADMAP).
+backward (``tt_contract_grad``) whenever an input requires grad, and so do
+the mesh entries where autograd needs one: ``mesh_densify_stacked`` goes
+through ``mesh_apply.MeshDensifyFn`` (the grouped backward,
+``mesh_densify_grad``: the tonn BP baselines' densification) and
+``mesh_apply`` / ``mesh_apply_stacked`` through ``mesh_apply.MeshApplyFn``
+(the resident backward, ``mesh_apply_stacked_grad``: onn's BP at widths
+the resident design holds).  The plain versions on the CPU are
+differentiated by autograd natively.  The batched TT kernels, the wide
+mesh routes (item 6c-2) and the attention kernel have no backward, so their
+entries raise on a CUDA input that requires grad while grad is enabled,
+before the launch (``_no_backward``): the ZO steps run without grad and the
+BP baselines go through ``tt_linear``.
 
 ``quant`` (a ``kernels.quant.QuantConfig``, or None) follows the JAX
 package's ``repro.kernels.ops``: with weight quantization on, the TT layers
@@ -46,22 +50,39 @@ def _weight_quant(quant) -> bool:
 
 
 _NO_BACKWARD_WHY = {
-    "mesh": "the BP baselines densify through the plain path "
-            "(TensorPinn.prepare_params_plain); a mesh backward kernel is "
-            "ROADMAP queue A, item 6c",
+    "mesh": "the layout takes the wide routes (warp rows, dense, owner "
+            "walk), whose backward is ROADMAP queue A, item 6c-2; the "
+            "resident design's backward holds up to ~138 ports",
     "tt_batched": "the ZO steps run it without grad, and the BP baselines "
                   "go through tt_linear (tt_contract and its backward)",
     "attention": "an attention backward is ROADMAP queue A, item 14a",
 }
 
 
+def _needs_grad(tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def _no_backward(name: str, tensors, kind: str = "mesh") -> None:
     """Raise if autograd would need a backward through a kernel that has
     none (``kind`` names why, and what to use instead)."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    if _needs_grad(tensors):
         raise ValueError(
             f"{name} on the card has no backward, and an input requires "
             f"grad: {_NO_BACKWARD_WHY[kind]}")
+
+
+def _mesh_stacked(name: str, layout: _ph.MeshLayout, phases: torch.Tensor,
+                  diag: torch.Tensor, x: torch.Tensor,
+                  transpose: bool) -> torch.Tensor:
+    """The card's standalone mesh: under grad through ``MeshApplyFn``
+    where the resident backward holds the layout, raising before any
+    launch where it does not; else the forward launch alone."""
+    if _needs_grad((phases, diag, x)):
+        if not _mesh.grad_fits(layout):
+            _no_backward(name, (phases, diag, x))
+        return _mesh.apply_autograd(layout, phases, diag, x, transpose)
+    return _mesh.mesh_apply_stacked(layout, phases, diag, x, transpose)
 
 
 def tt_linear(x: torch.Tensor, cores: Sequence[torch.Tensor],
@@ -105,10 +126,9 @@ def mesh_apply(layout: _ph.MeshLayout, phases: torch.Tensor,
     ``mesh_apply_stacked``, one launch."""
     if x.device.type == "cpu":
         return _ph.mesh_apply(layout, phases, diag, x, transpose)
-    _no_backward("mesh_apply", (phases, diag, x))
     rows = x.reshape(-1, layout.ports).contiguous()
-    y = _mesh.mesh_apply_stacked(layout, phases[None], diag, rows,
-                                 transpose)
+    y = _mesh_stacked("mesh_apply", layout, phases[None], diag, rows,
+                      transpose)
     return y.reshape(x.shape)
 
 
@@ -120,11 +140,12 @@ def mesh_apply_stacked(layout: _ph.MeshLayout, phases: torch.Tensor,
     shared or ``(S, B, P)`` → ``(S, B, P)``.  On the card the layout picks
     the kernel's design (``mesh_apply.mesh_design``) and, for a wide one,
     the layout, S and B its route (``mesh_apply.wide_route``); a layout
-    none holds raises."""
+    none holds raises.  Under grad the resident design's backward follows
+    (``mesh_apply.MeshApplyFn``); a wide layout raises (item 6c-2)."""
     if x.device.type == "cpu":
         return _ph.mesh_apply_stacked(layout, phases, diag, x, transpose)
-    _no_backward("mesh_apply_stacked", (phases, diag, x))
-    return _mesh.mesh_apply_stacked(layout, phases, diag, x, transpose)
+    return _mesh_stacked("mesh_apply_stacked", layout, phases, diag, x,
+                         transpose)
 
 
 def mesh_densify_stacked(matrices: Sequence[_ph.PhotonicMatrix],
@@ -135,12 +156,14 @@ def mesh_densify_stacked(matrices: Sequence[_ph.PhotonicMatrix],
     step's whole densification: ``(S, out_dim, in_dim)`` per matrix,
     contiguous (its TT core's memory).  On the card one launch of the
     grouped kernel, which raises for a matrix whose meshes do not fit a
-    block."""
+    block; under grad its backward is one launch of the grouped backward
+    (``mesh_apply.MeshDensifyFn``), which takes no DAC snap (item 11)."""
     if params[0]["sigma"].device.type == "cpu":
         return _ph.mesh_densify_stacked(matrices, params, noises,
                                         noise_model, quant)
-    _no_backward("mesh_densify_stacked",
-                 [t for p in params for t in p.values()])
+    if _needs_grad([t for p in params for t in p.values()]):
+        return _mesh.densify_autograd(matrices, params, noises, noise_model,
+                                      quant)
     return _mesh.mesh_densify_stacked(matrices, params, noises, noise_model,
                                       quant)
 

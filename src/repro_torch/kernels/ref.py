@@ -3,9 +3,11 @@
 They run wherever PyTorch runs: the CPU path of ``kernels.ops`` takes them,
 and on the card they are the oracle the CUDA kernels are held against.
 ``attention_bound`` states how closely the attention kernel is held.  (The
-plain versions of the mesh kernels are ``core.photonic.mesh_apply_stacked``
-and ``core.photonic.mesh_densify_stacked``, beside the mesh simulator, as
-in the JAX package.)
+plain versions of the mesh kernels' forwards are
+``core.photonic.mesh_apply_stacked`` and
+``core.photonic.mesh_densify_stacked``, beside the mesh simulator, as in
+the JAX package; the plain versions of their backwards,
+``mesh_apply_grad_ref`` and ``mesh_densify_grad_ref``, are here.)
 """
 
 from __future__ import annotations
@@ -15,13 +17,15 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.core import photonic as ph_lib
 from repro_torch.core import tt as tt_lib
 from repro_torch.kernels import quant as quant_lib
 
 __all__ = ["tt_contract_ref", "tt_contract_grad_ref", "split_batch_axes",
            "tt_contract_batched_ref",
            "tt_contract_batched_quant_ref", "attention_ref",
-           "attention_bound"]
+           "attention_bound", "mesh_levels", "mesh_reverse",
+           "mesh_apply_grad_ref", "mesh_densify_grad_ref"]
 
 
 def tt_contract_ref(x: torch.Tensor, cores: Sequence[torch.Tensor],
@@ -178,3 +182,159 @@ def attention_bound(plain: torch.Tensor) -> torch.Tensor:
     if plain.dtype == torch.bfloat16:
         bound += torch.exp2(torch.floor(torch.log2(a)) - 7)
     return bound
+
+
+# ------------------------------------------------------------ mesh backwards
+
+def mesh_levels(layout: ph_lib.MeshLayout, phases: torch.Tensor,
+                x: torch.Tensor, transpose: bool = False,
+                states: list | None = None) -> torch.Tensor:
+    """The levels of ``core.photonic.mesh_apply`` without its diag, in its
+    arithmetic: phases ``(..., levels, slots)``, rows x ``(..., B, P)``.
+    With ``states`` (a list), each level's input is appended to it in
+    application order: the forward states a backward may keep."""
+    cos, sin = ph_lib.mesh_gather_tables(layout, phases, transpose)
+    perm = ph_lib.mesh_plan_tensors(layout, x.device)[
+        "perm_t" if transpose else "perm"]
+    cos, sin = cos[..., None, :], sin[..., None, :]
+    for c in range(layout.levels):
+        if states is not None:
+            states.append(x)
+        x = cos[..., c, :, :] * x + sin[..., c, :, :] * x[..., perm[c]]
+    return x
+
+
+def mesh_reverse(layout: ph_lib.MeshLayout, phases: torch.Tensor,
+                 y: torch.Tensor, g: torch.Tensor, transpose: bool = False,
+                 states: list | None = None) -> tuple:
+    """The reverse walk of ``mesh_levels``, the algorithm of the mesh
+    backward kernels (``csrc/mesh_apply.cu::reverse_levels``).
+
+    ``y`` is the levels' output and ``g`` the gradient there, rows
+    ``(..., B, P)``.  Level by level, last first, it takes the level's
+    input — ``states[c]`` where the forward kept them, else recovered from
+    its output by the inverse rotation, ``x[w] = C[w]·y[w] − S[w]·y[perm
+    w]`` (each level is orthogonal; the recovered states differ from the
+    forward's by rounding, a few ulps a level) — adds each slot's
+    ``Σ_rows Σ_{its two wires} g[w]·∂y[w]/∂φ`` to its phase gradient,
+    with ``∂y[w]/∂φ = −sin φ·x[w] + σ·sign[w]·cos φ·x[perm w]`` (σ = −1
+    when transposed, whose sines are negated), and carries the gradient
+    through, ``g ← Mᵀg``: ``g[w] ← C[w]·g[w] − S[w]·g[perm w]``.  Returns
+    ``(g at the levels' input, dphases (..., levels, slots))``."""
+    P, L, K = layout.ports, layout.levels, layout.slots
+    plan = ph_lib.mesh_plan_tensors(layout, y.device)
+    cos_t, sin_t = ph_lib.mesh_gather_tables(layout, phases, transpose)
+    perm = plan["perm_t" if transpose else "perm"]
+    sign, slot = plan["sign"], plan["slot"]
+    ph = torch.gather(phases, -1, slot.expand(*phases.shape[:-1], P))
+    cs, sn = torch.cos(ph), torch.sin(ph)                   # stored order
+    coef = -sign if transpose else sign
+    paired = (sign != 0.0).to(y.dtype)
+    dph = torch.zeros((*phases.shape[:-1], K), dtype=y.dtype,
+                      device=y.device)
+    for c in reversed(range(L)):
+        cl = L - 1 - c if transpose else c
+        C = cos_t[..., c, None, :]
+        S = sin_t[..., c, None, :]
+        pc = perm[c]
+        x = states[c] if states is not None else C * y - S * y[..., pc]
+        term = g * (-sn[..., cl, None, :] * x
+                    + coef[cl] * cs[..., cl, None, :] * x[..., pc])
+        per_wire = (term * paired[cl]).sum(-2)                     # (..., P)
+        dph[..., cl, :] = torch.zeros_like(dph[..., cl, :]).scatter_add_(
+            -1, slot[cl].expand_as(per_wire), per_wire)
+        g = C * g - S * g[..., pc]
+        y = x
+    return g, dph
+
+
+def mesh_apply_grad_ref(layout: ph_lib.MeshLayout, phases: torch.Tensor,
+                        diag: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                        dy: torch.Tensor, transpose: bool = False) -> tuple:
+    """Plain version of ``mesh_apply.mesh_apply_stacked_grad``: the
+    gradients of ``y = photonic.mesh_apply_stacked(layout, phases, diag, x,
+    transpose)`` against ``dy``, by ``mesh_reverse`` from y (no forward
+    state kept).  phases ``(S, levels, slots)``, diag ``(P,)`` or ``(S,
+    P)``, x ``(B, P)`` shared or ``(S, B, P)`` (its shape only: a shared
+    x's gradient sums over the stack), y and dy ``(S, B, P)``.  The diag
+    comes first in the forward, so the walk ends with it; transposed it
+    comes last, so the walk starts from ``y / diag`` and ``dy·diag`` (exact
+    for the ±1 buffers).  Returns ``(dx shaped like x, dphases)``."""
+    d = diag[..., None, :] if diag.ndim == 2 else diag
+    if transpose:
+        g, dph = mesh_reverse(layout, phases, y / d, dy * d, True)
+        dx = g
+    else:
+        g, dph = mesh_reverse(layout, phases, y, dy, False)
+        dx = g * d
+    return (dx.sum(0) if x.ndim == 2 else dx), dph
+
+
+def _noise_transpose(noise_model: ph_lib.NoiseModel, noise: dict,
+                     d: torch.Tensor) -> torch.Tensor:
+    """The gradient of ``NoiseModel.effective_phases`` carried to the
+    commanded phases: Ω is symmetric (tridiagonal over a level's slots,
+    weight κ), so ``Γ ⊙ (d + κ·(d[k−1] + d[k+1]))``."""
+    if noise_model.crosstalk > 0.0 and d.shape[-1] > 1:
+        left = torch.nn.functional.pad(d[..., 1:], (0, 1))
+        right = torch.nn.functional.pad(d[..., :-1], (1, 0))
+        d = d + noise_model.crosstalk * (left + right)
+    return noise["gamma"] * d
+
+
+def mesh_densify_grad_ref(matrices: Sequence[ph_lib.PhotonicMatrix],
+                          params: Sequence[dict], noises: Sequence,
+                          noise_model: ph_lib.NoiseModel | None,
+                          dW: Sequence[torch.Tensor],
+                          saved: Sequence[bool] | bool = True) -> list:
+    """Plain version of ``mesh_apply.mesh_densify_grad``: the gradients of
+    ``photonic.mesh_densify_stacked(matrices, params, noises,
+    noise_model)`` (no DAC snap) against the upstream ``dW[g]`` ``(S,
+    out_dim, in_dim)``, with respect to the COMMANDED phases and sigma.
+
+    Per matrix, as the kernel's block: V transposed on the identity, then
+    σ, the zero pad and U, keeping each level's input where ``saved[g]``
+    (else ``mesh_reverse`` recovers them from the output); the reverse
+    walk of U from ``g = dWᵀ`` gives dφ_U and the gradient at U's input
+    rows, whose first k wires give ``dσ = Σ_rows (a·D_v)·(g·D_u)`` and V's
+    output gradient ``((g·D_u)·σ)·D_v``; the reverse walk of V gives dφ_V.
+    With the noise model on, both are carried to the commanded phases
+    (``_noise_transpose``).  Returns ``[(dphases_u, dphases_v, dsigma)]``
+    per matrix."""
+    if isinstance(saved, bool):
+        saved = [saved] * len(matrices)
+    out = []
+    for pm, p, nz, dw, keep in zip(matrices, params, noises, dW, saved,
+                                   strict=True):
+        noisy = (noise_model is not None and noise_model.enabled
+                 and nz is not None)
+        pu, pv = p["phases_u"], p["phases_v"]
+        if noisy:
+            pu = noise_model.effective_phases(pu, nz["u"])
+            pv = noise_model.effective_phases(pv, nz["v"])
+        S, k = p["sigma"].shape[0], pm.k
+        eye = torch.eye(pm.in_dim, dtype=torch.float32,
+                        device=pu.device).expand(S, -1, -1)
+        dv = p["diag_v"][..., None, :] if p["diag_v"].ndim == 2 \
+            else p["diag_v"]
+        du = p["diag_u"][..., None, :] if p["diag_u"].ndim == 2 \
+            else p["diag_u"]
+        sig = p["sigma"][:, None, :]
+        sv = [] if keep else None
+        a = mesh_levels(pm.layout_v, pv, eye, True, sv)        # (S, in, in)
+        av = a[..., :k] * dv[..., :k]
+        z = torch.nn.functional.pad(av * sig, (0, pm.out_dim - k)) * du
+        su = [] if keep else None
+        r = mesh_levels(pm.layout_u, pu, z, False, su)         # (S, in, out)
+        g, dph_u = mesh_reverse(pm.layout_u, pu, r, dw.transpose(-1, -2),
+                                False, su)
+        gz = g[..., :k] * du[..., :k]
+        dsig = (av * gz).sum(-2)
+        da = torch.nn.functional.pad((gz * sig) * dv[..., :k],
+                                     (0, pm.in_dim - k))
+        _, dph_v = mesh_reverse(pm.layout_v, pv, a, da, True, sv)
+        if noisy:
+            dph_u = _noise_transpose(noise_model, nz["u"], dph_u)
+            dph_v = _noise_transpose(noise_model, nz["v"], dph_v)
+        out.append((dph_u, dph_v, dsig))
+    return out

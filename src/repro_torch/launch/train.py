@@ -16,10 +16,13 @@ through six stacked meshes (``mesh_apply_stacked``; the hidden-width
 meshes take its streamed design), ``--sequential`` four meshes per loss
 evaluation.  ``--optimizer adamw|adafactor|sgd`` trains the paper's
 off-chip BP baselines (``--pinn-mode dense``, ``tt``, or ``tonn`` mapped
-onto the noisy hardware) with autograd through ``residual_loss``: on the
-card each TT layer runs the ``tt_contract`` kernel forward and
-``tt_contract_grad`` backward, and tonn's meshes densify through the plain
-path (``TensorPinn.prepare_params_plain``).
+onto the noisy hardware, or ``onn`` at widths whose meshes the resident
+design holds, up to ~138 ports) with autograd through ``residual_loss``: on
+the card each TT layer runs the ``tt_contract`` kernel forward and
+``tt_contract_grad`` backward, tonn's meshes densify in one grouped launch
+forward and one backward (``mesh_densify_stacked``,
+``mesh_densify_grad``), and onn's meshes run the resident design forward
+and its backward (``mesh_apply_stacked_grad``).
 
     python -m repro_torch.launch.train --arch tensor-pinn --pde hjb-20d \\
         --pinn-noise --steps 50 --batch 100 --ckpt-dir ckpts/hjb-20d
@@ -54,7 +57,8 @@ Port of the ``train_pinn`` branch of ``repro.launch.train``.  Every flag
 of that launcher this port does not have yet exits with the ROADMAP item
 that ports it; so do ``--quant`` / ``--phase-bits`` with a BP optimizer
 (the backward is f32 only) or with ``onn``, and a BP optimizer with
-``onn`` (the mesh kernels have no backward).  ``--estimator stein`` exits
+``onn`` where a mesh takes the wide routes (their backward is item 6c-2:
+hidden 1024).  ``--estimator stein`` exits
 too, naming the reference trainer's own fault (``STEIN_REFUSAL``).
 """
 
@@ -141,8 +145,8 @@ def _bp_step_fn(model, opt, mask: dict, hw_noise: dict | None):
     def step(params, opt_state, xt, tb):
         p = zoo.tree_map(lambda t, train: t.detach().requires_grad_(train),
                          params, mask)
-        # tonn: the plain densification, which autograd differentiates
-        prepared, noise = model.prepare_params_plain(p, hw_noise)
+        # tonn: one grouped densification, its backward one launch too
+        prepared, noise = model.prepare_params(p, hw_noise)
         loss = pinn.residual_loss(model, prepared, xt, noise,
                                   term_batches=tb)
         wanted = [t for t in zoo.tree_leaves(p) if t.requires_grad]
@@ -199,14 +203,31 @@ def _apply_term_weights(args, problem) -> dict:
     return tw
 
 
+def _pinn_config(args) -> pinn.PINNConfig:
+    """The run's ``PINNConfig`` from its flags."""
+    build = pinn_reduced if args.reduced else pinn_config
+    overrides = {"hidden": args.hidden} if args.hidden else {}
+    if args.estimator:
+        overrides["deriv"] = args.estimator
+    if args.quant or args.phase_bits:
+        # quantization-aware ZO training: fake-quant inside the loss
+        overrides["quant"] = QuantConfig(
+            enabled=True, dtype=args.quant, block=args.quant_block,
+            phase_bits=args.phase_bits)
+    return build(pde=args.pde, mode=args.pinn_mode, fused=not args.sequential,
+                 noise=args.pinn_noise, **overrides)
+
+
 def _unported(args) -> list:
     """(flag, ROADMAP queue A item) of every flag set that this port does
     not have yet."""
     bp = args.optimizer not in (None, "zo-signsgd")
+    wide = pinn.onn_wide_ports(_pinn_config(args)) if bp else []
     checks = [
-        (args.pinn_mode == "onn" and bp,
-         f"BP training of --pinn-mode onn (--optimizer {args.optimizer}; "
-         "it needs a mesh backward kernel)", "6c"),
+        (bool(wide),
+         f"BP training of --pinn-mode onn at widths {wide} (--optimizer "
+         f"{args.optimizer}; those meshes take the wide routes, which have "
+         "no backward kernel)", "6c-2"),
         (args.estimator == "spectral", "--estimator spectral", "9a"),
         (args.spectral_points is not None, "--spectral-points", "9a"),
         (args.coeff_range is not None, "--coeff-range", 10),
@@ -230,17 +251,7 @@ def _unported(args) -> list:
 def train_pinn(args) -> TrainResult:
     """Training of ``args.pde`` on ``args.device``: ZO-signSGD (fused, or
     ``--sequential``) by default, the BP baselines with ``--optimizer``."""
-    build = pinn_reduced if args.reduced else pinn_config
-    overrides = {"hidden": args.hidden} if args.hidden else {}
-    if args.estimator:
-        overrides["deriv"] = args.estimator
-    if args.quant or args.phase_bits:
-        # quantization-aware ZO training: fake-quant inside the loss
-        overrides["quant"] = QuantConfig(
-            enabled=True, dtype=args.quant, block=args.quant_block,
-            phase_bits=args.phase_bits)
-    cfg = build(pde=args.pde, mode=args.pinn_mode, fused=not args.sequential,
-                noise=args.pinn_noise, **overrides)
+    cfg = _pinn_config(args)
     device = resolve_device(args.device)
     model = pinn.TensorPinn(cfg)
     problem = model.problem

@@ -178,12 +178,17 @@ def test_raw_kernel_refuses_inputs_that_require_grad(monkeypatch):
 
 def test_kernels_without_a_backward_refuse_grad_before_launching(
         monkeypatch):
-    """``ops.tt_linear_batched`` (f32 and quantized) and ``ops.attention``
-    on a tensor off the CPU that requires grad raise before their launch;
-    under ``no_grad`` the same calls reach it.  The launches are stubbed
-    and the tensors are on torch's ``meta`` device, which takes the card's
-    branch of the dispatch here."""
+    """``ops.tt_linear_batched`` (f32 and quantized), ``ops.attention`` and
+    the mesh entries on a layout of the wide routes (140 ports) on a tensor
+    off the CPU that requires grad raise before their launch, the meshes
+    naming item 6c-2; under ``no_grad`` the same calls reach it.  Under
+    grad a resident layout and the grouped densification reach their
+    autograd Functions instead.  The launches are stubbed and the tensors
+    are on torch's ``meta`` device, which takes the card's branch of the
+    dispatch here."""
+    from repro_torch.core import photonic
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mesh_apply as mesh
     from repro_torch.kernels import ops
     from repro_torch.kernels import quant as quant_lib
     launched = []
@@ -194,10 +199,27 @@ def test_kernels_without_a_backward_refuse_grad_before_launching(
             return x
         return launch
 
+    def mesh_stub(layout, phases, diag, x, transpose=False):
+        launched.append("mesh_apply_stacked")
+        return torch.empty((phases.shape[0], x.shape[-2], layout.ports),
+                           device=x.device)
+
+    def densify_stub(matrices, params, *args, **kwargs):
+        launched.append("mesh_densify_stacked")
+        return [torch.empty((1, pm.out_dim, pm.in_dim), device="meta")
+                for pm in matrices]
+
     for mod, name in ((ttc, "tt_contract_batched"),
                       (ttc, "tt_contract_batched_quant"),
                       (fa, "flash_attention")):
         monkeypatch.setattr(mod, name, stub(name))
+    monkeypatch.setattr(mesh, "mesh_apply_stacked", mesh_stub)
+    monkeypatch.setattr(mesh, "mesh_densify_stacked", densify_stub)
+    wide, narrow = (photonic.rectangular_layout(p) for p in (140, 16))
+    assert mesh.mesh_design(wide) == "wide" and not mesh.grad_fits(wide)
+    phases = torch.zeros((1, *wide.phase_shape()), device="meta",
+                         requires_grad=True)
+    rows = torch.zeros((3, 140), device="meta")
     spec = SPECS["reduced"]
     cores = [torch.zeros((3, *s), device="meta") for s in spec.core_shapes]
     x = torch.zeros((5, spec.in_dim), device="meta", requires_grad=True)
@@ -208,7 +230,11 @@ def test_kernels_without_a_backward_refuse_grad_before_launching(
                  x, cores, spec),
              "tt_contract_batched_quant": lambda: ops.tt_linear_batched(
                  x, cores, spec, quant=int8),
-             "flash_attention": lambda: ops.attention(q, kv, kv)}
+             "flash_attention": lambda: ops.attention(q, kv, kv),
+             "mesh_apply_stacked": lambda: ops.mesh_apply_stacked(
+                 wide, phases, torch.ones(140, device="meta"), rows),
+             "mesh_apply": lambda: ops.mesh_apply(
+                 wide, phases[0], torch.ones(140, device="meta"), rows)}
     for name, call in calls.items():
         with pytest.raises(ValueError, match=f"{name} on the card has no "
                                              "backward"):
@@ -218,10 +244,35 @@ def test_kernels_without_a_backward_refuse_grad_before_launching(
         calls["tt_contract_batched"]()
     with pytest.raises(ValueError, match="item 14a"):
         calls["flash_attention"]()
+    with pytest.raises(ValueError, match="item 6c-2"):
+        calls["mesh_apply"]()
     with torch.no_grad():
         for call in calls.values():
             call()
-    assert launched == list(calls)
+    assert launched == ["tt_contract_batched", "tt_contract_batched_quant",
+                        "flash_attention", "mesh_apply_stacked",
+                        "mesh_apply_stacked"]
+    # under grad: the resident design and the grouped densification
+    # launch their forwards through their autograd Functions
+    launched.clear()
+    y = ops.mesh_apply(narrow, torch.zeros(narrow.phase_shape(),
+                                           device="meta", requires_grad=True),
+                       torch.ones(16, device="meta"),
+                       torch.zeros((3, 16), device="meta"))
+    assert type(y.grad_fn).__name__ == "ViewBackward0"
+    assert type(y.grad_fn.next_functions[0][0]).__name__ == \
+        "MeshApplyFnBackward"
+    pm = photonic.PhotonicMatrix(4, 16)
+    p = {"phases_u": torch.zeros((1, *pm.layout_u.phase_shape()),
+                                 device="meta", requires_grad=True),
+         "phases_v": torch.zeros((1, *pm.layout_v.phase_shape()),
+                                 device="meta"),
+         "sigma": torch.ones((1, 4), device="meta"),
+         "diag_u": torch.ones(4, device="meta"),
+         "diag_v": torch.ones(16, device="meta")}
+    w, = ops.mesh_densify_stacked([pm], [p], [None])
+    assert type(w.grad_fn).__name__ == "MeshDensifyFnBackward"
+    assert launched == ["mesh_apply_stacked", "mesh_densify_stacked"]
 
 
 @pytest.mark.parametrize("rows", [21, 100, 4300])
@@ -299,7 +350,7 @@ def _grad_setup(mode):
     cfg = jpinn.PINNConfig(hidden=64, mode=mode, tt_rank=2, tt_L=3,
                            pde="hjb-20d", deriv="fd_fast",
                            use_fused_kernel=True,
-                           noise=JNoise(enabled=mode == "tonn"))
+                           noise=JNoise(enabled=mode in ("tonn", "onn")))
     jm = jpinn.TensorPinn(cfg)
     key = jax.random.PRNGKey(3)
     params = jm.init(key)
@@ -317,7 +368,7 @@ def _port_grads(tm, params, hw, fn):
     return out, torch.autograd.grad(out, zoo.tree_leaves(tp))
 
 
-@pytest.mark.parametrize("mode", ["dense", "tt", "tonn"])
+@pytest.mark.parametrize("mode", ["dense", "tt", "tonn", "onn"])
 def test_bp_gradients_match_jax(mode):
     """Autograd of the port's forward against ``jax.grad`` of JAX's: the
     u-level functional strictly, the residual loss at the FD floor."""
@@ -326,8 +377,9 @@ def test_bp_gradients_match_jax(mode):
     ju = jpinn.TensorPinn(jpinn.PINNConfig(**{
         **jpinn.config_to_meta(cfg), "use_fused_kernel": False,
         "noise": cfg.noise, "quant": cfg.quant}))
-    want_u = jax.grad(lambda p: jnp.sum(ju.u(p, jnp.asarray(xt), hw) * w))(
-        params)
+    # jitted whole: the meshes' and chains' scans op by op take ~10x longer
+    want_u = jax.jit(jax.grad(
+        lambda p: jnp.sum(ju.u(p, jnp.asarray(xt), hw) * w)))(params)
     tm = _port_model(cfg)
     _, got_u = _port_grads(tm, params, hw, lambda m, p, nz: torch.sum(
         m.u(p, torch.tensor(xt), nz) * torch.tensor(w)))
@@ -335,8 +387,8 @@ def test_bp_gradients_match_jax(mode):
         np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                    atol=1e-5 * np.abs(want).max() + 1e-9)
 
-    loss_j, want_l = jax.value_and_grad(
-        lambda p: jpinn.residual_loss(jm, p, jnp.asarray(xt), hw))(params)
+    loss_j, want_l = jax.jit(jax.value_and_grad(
+        lambda p: jpinn.residual_loss(jm, p, jnp.asarray(xt), hw)))(params)
     loss, got_l = _port_grads(tm, params, hw, lambda m, p, nz:
                               tpinn.residual_loss(m, p, torch.tensor(xt), nz))
     np.testing.assert_allclose(float(loss.detach()), float(loss_j),
@@ -346,6 +398,35 @@ def test_bp_gradients_match_jax(mode):
         _np_tree(want_l))])
     assert np.isfinite(g).all()
     assert np.linalg.norm(g - gj) <= 2.5e-1 * np.linalg.norm(gj)
+
+
+@pytest.mark.parametrize("mode", ["tonn", "onn"])
+def test_bp_steps_never_call_prepare_params_plain(monkeypatch, mode):
+    """The trainer's BP step and Table 1's densify tonn through
+    ``prepare_params`` (on the card one grouped launch forward and one
+    backward), never the plain oracle ``prepare_params_plain``; onn BP at
+    hidden 64 steps too.  Both steps move every trainable leaf."""
+    from benchmarks import torch_table1_hjb as ttable
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the BP step called prepare_params_plain")
+
+    monkeypatch.setattr(tpinn.TensorPinn, "prepare_params_plain", refuse)
+    cfg, jm, params, hw, xt, _ = _grad_setup(mode)
+    tm = _port_model(cfg)
+    tparams = interop.params_from_numpy(_np_tree(params), "cpu")
+    noise = interop.noise_from_numpy(_np_tree(hw), "cpu")
+    mask = tm.trainable_mask(tparams)
+    opt = get_optimizer("adamw", lr=1e-2)
+    step = train._bp_step_fn(tm, opt, mask, noise)
+    new, _, loss = step(tparams, opt.init(tparams), torch.tensor(xt), {})
+    table, tloss = ttable._bp_step(tm, tparams, mask, torch.tensor(xt), {},
+                                   1e-2)
+    assert torch.isfinite(loss) and torch.isfinite(tloss)
+    for moved in (new, table):
+        for a, b, m in zip(zoo.tree_leaves(moved), zoo.tree_leaves(tparams),
+                           zoo.tree_leaves(mask)):
+            assert not m or not torch.equal(a, b)
 
 
 def test_adamw_moves_the_fixed_diags_as_jax_does():

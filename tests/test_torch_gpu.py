@@ -2,7 +2,8 @@
 backward ``tt_contract_grad``, ``tt_contract_batched``,
 ``tt_contract_batched_quant``,
 ``mesh_apply_stacked`` in its resident design and its three wide routes,
-``mesh_densify_stacked``, ``flash_attention``)
+``mesh_densify_stacked``, the mesh backwards ``mesh_densify_grad`` and
+``mesh_apply_stacked_grad``, ``flash_attention``)
 against their plain PyTorch versions, onn's ZO step, served values (f32 and quantized) against a direct forward,
 quantization codes made on the card against the CPU's, one ZO training
 step (f32 and quantization-aware) on the card against the same step
@@ -43,8 +44,11 @@ differ in the last bits); a row that sees no key must be exact zeros.  A reduced
 logits and caches within 1e-5 of their max magnitude.  ``tt_contract_grad``:
 dx at the forward's bound against the plain reverse chain, each dG_k within
 ``tt_contract.grad_bound`` of the plain chain in float64 (its summation
-depth times the magnitudes it adds), and two calls bit for bit.  A BP
-step's gradients of a u-level functional card vs CPU within
+depth times the magnitudes it adds), and two calls bit for bit.  The
+mesh backwards against ``ref.mesh_densify_grad_ref`` /
+``mesh_apply_grad_ref`` within ``1e-4·max|plain|`` per output (the
+resident one recovers its states level by level), two calls bit for bit.
+A BP step's gradients of a u-level functional card vs CPU within
 ``1e-4·max|grad|`` per leaf.
 """
 
@@ -537,11 +541,12 @@ def test_streamed_entry_equals_the_resident_bitwise(cuda, label):
 
 
 def test_mesh_entries_refuse_grad_on_the_card(cuda):
-    """The mesh kernels have no backward: a CUDA input that requires grad
-    raises while grad is enabled, and passes under ``no_grad``."""
+    """The wide mesh routes have no backward (item 6c-2): a CUDA input that
+    requires grad raises while grad is enabled, and passes under
+    ``no_grad``."""
     layout, phases, diag, x = _mesh_inputs(1024, 1, 2, True, 0, cuda)
     phases.requires_grad_()
-    with pytest.raises(ValueError, match="no backward"):
+    with pytest.raises(ValueError, match="no backward.*item 6c-2"):
         ops.mesh_apply(layout, phases[0], diag[0], x)
     with torch.no_grad():
         y = ops.mesh_apply(layout, phases[0], diag[0], x)
@@ -1162,16 +1167,20 @@ def test_tt_linear_under_autograd_runs_the_backward_kernel(cuda):
     assert direct.grad_fn is not None and torch.equal(direct, y)
 
 
-@pytest.mark.parametrize("mode", ["tt", "tonn", "dense"])
-def test_bp_step_on_the_card_matches_the_cpu(cuda, mode):
-    """One BP step of the trainer's config (fd_fast) at hidden 1024: 3
-    forward and 3 backward TT launches (none in dense), nonzero core
-    gradients, and the gradients of a u-level functional card vs CPU."""
+@pytest.mark.parametrize("mode,hidden", [("tt", 1024), ("tonn", 1024),
+                                         ("dense", 1024), ("onn", 64)])
+def test_bp_step_on_the_card_matches_the_cpu(cuda, mode, hidden):
+    """One BP step of the trainer's config (fd_fast): 3 forward and 3
+    backward TT launches (none in dense and onn), tonn's one grouped
+    densification and one grouped backward, onn's (hidden 64) 6 resident
+    meshes and 6 resident backwards, nonzero core gradients, and the
+    gradients of a u-level functional card (through the kernels'
+    backwards) vs CPU; the step never reaches ``prepare_params_plain``."""
     from repro_torch.launch import train
     from repro_torch.optim import get_optimizer
-    cfg = pinn.PINNConfig(hidden=1024, mode=mode, tt_L=4, deriv="fd_fast",
+    cfg = pinn.PINNConfig(hidden=hidden, mode=mode, tt_L=4, deriv="fd_fast",
                           use_fused_kernel=True,
-                          noise=NoiseModel(enabled=mode == "tonn"))
+                          noise=NoiseModel(enabled=mode in ("tonn", "onn")))
     model = pinn.TensorPinn(cfg)
     params = model.init(counter_generator(0))
     noise = model.sample_noise(counter_generator(0, 99))
@@ -1184,22 +1193,31 @@ def test_bp_step_on_the_card_matches_the_cpu(cuda, mode):
                          params, model.trainable_mask(params))
         nz = None if noise is None else to_device(noise, device)
         # tonn: the densification BP differentiates, as the BP step's
-        prepared, nz = model.prepare_params_plain(p, nz)
+        prepared, nz = model.prepare_params(p, nz)
         out = fn(prepared, xt.to(device), nz)
         return [g.cpu() for g in torch.autograd.grad(
             out, [t for t in zoo.tree_leaves(p) if t.requires_grad])]
 
-    before = (ttc.tt_contract.launches, ttc.tt_contract_grad.launches)
+    counters = (ttc.tt_contract, ttc.tt_contract_grad,
+                mesh.mesh_densify_stacked, mesh.mesh_densify_grad,
+                mesh.mesh_apply_stacked, mesh.mesh_apply_stacked_grad)
+    before = [fn.launches for fn in counters]
     step = train._bp_step_fn(model, opt, model.trainable_mask(params),
                              None if noise is None
                              else to_device(noise, cuda))
     p_card = to_device(params, cuda)
-    new, _, loss = step(p_card, opt.init(p_card), xt.to(cuda), {})
+    plain = model.prepare_params_plain
+    model.prepare_params_plain = None          # the step must not reach it
+    try:
+        new, _, loss = step(p_card, opt.init(p_card), xt.to(cuda), {})
+    finally:
+        model.prepare_params_plain = plain
     torch.cuda.synchronize()
-    tt_launches = 0 if mode == "dense" else 3
-    assert (ttc.tt_contract.launches - before[0],
-            ttc.tt_contract_grad.launches - before[1]) == \
-        (tt_launches, tt_launches)
+    chains = 3 if mode in ("tt", "tonn") else 0
+    grouped = 1 if mode == "tonn" else 0
+    meshes = 6 if mode == "onn" else 0
+    assert [fn.launches - b for fn, b in zip(counters, before)] == \
+        [chains, chains, grouped, grouped, meshes, meshes]
     assert torch.isfinite(loss)
 
     def u_fn(p, x, nz):
@@ -1234,3 +1252,172 @@ def test_sequential_zo_step_launches_one_chain_per_layer(cuda):
     assert [fn.launches - b for fn, b in zip(counters, before)] == \
         [2 * 4, 0, 4, 0]
     assert torch.isfinite(loss)
+
+
+# ------------------------------------------------------- the mesh backwards
+
+MESH_GRAD_BOUND = chip_smoke.MESH_GRAD_BOUND     # of max|plain|, per output
+
+
+def _grad_close(got, plain):
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - plain).abs().max() <= \
+        MESH_GRAD_BOUND * plain.abs().max() + 1e-12
+
+
+@pytest.mark.parametrize("noisy", [False, True])
+@pytest.mark.parametrize("tt_L,S", [(4, 1), (4, 11), (2, 3)])
+def test_densify_grad_kernel_matches_plain(cuda, tt_L, S, noisy):
+    """The grouped backward on the paper's 8 core matrices (their states
+    kept) and on tt_L 2's 32 x 64 and 64 x 32 ones (their states
+    recovered) against ``ref.mesh_densify_grad_ref`` making the same
+    choice, one launch, and two calls bit for bit."""
+    pms, ps, nzs, model, _ = chip_smoke.densify_inputs(1024, tt_L, S, noisy,
+                                                       None, cuda, 40 + S)
+    gen = torch.Generator().manual_seed(S)
+    dW = [torch.randn((S, pm.out_dim, pm.in_dim), generator=gen).to(cuda)
+          for pm in pms]
+    before = mesh.mesh_densify_grad.launches
+    got = mesh.mesh_densify_grad(pms, ps, nzs, model, dW)
+    assert mesh.mesh_densify_grad.launches == before + 1
+    want = ref.mesh_densify_grad_ref(pms, ps, nzs, model, dW,
+                                     [mesh.densify_grad_saves(pm)
+                                      for pm in pms])
+    for trio, wtrio in zip(got, want):
+        for a, b in zip(trio, wtrio):
+            assert a.shape == b.shape
+            _grad_close(a, b)
+    again = mesh.mesh_densify_grad(pms, ps, nzs, model, dW)
+    assert all(torch.equal(a, b) for t, u in zip(got, again)
+               for a, b in zip(t, u))
+
+
+# label -> (ports, S, rows, shared x, transpose): the resident backward at
+# onn's BP launches (hidden 64: 4300 stencil rows; layer 0's 21-port V mesh
+# on the 100 rows) and the paper's 16-port meshes
+MESH_GRAD_CASES = {
+    "p16-4300": (16, 1, 4300, False, False),
+    "p16-4300-tr": (16, 1, 4300, False, True),
+    "p64-4300": (64, 1, 4300, False, False),
+    "p64-4300-tr": (64, 1, 4300, False, True),
+    "v21-100-tr": (21, 1, 100, True, True),
+    "v21-100": (21, 1, 100, True, False),
+    "p16-s11": (16, 11, 37, False, True),
+}
+
+
+@pytest.mark.parametrize("label", sorted(MESH_GRAD_CASES))
+def test_mesh_grad_kernel_matches_plain(cuda, label):
+    """The resident backward against ``ref.mesh_apply_grad_ref``: dx and
+    dphases, one launch; two calls bit for bit."""
+    ports, S, B, shared, transpose = MESH_GRAD_CASES[label]
+    layout, phases, diag, x = _mesh_inputs(ports, S, B, shared, len(label),
+                                           cuda)
+    y = mesh.mesh_apply_stacked(layout, phases, diag, x, transpose)
+    dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(
+        ports)).to(cuda)
+    before = mesh.mesh_apply_stacked_grad.launches
+    dx, dph = mesh.mesh_apply_stacked_grad(layout, phases, diag, y, dy,
+                                           transpose)
+    assert mesh.mesh_apply_stacked_grad.launches == before + 1
+    pdx, pdph = ref.mesh_apply_grad_ref(layout, phases, diag, x, y, dy,
+                                        transpose)
+    _grad_close(dx.sum(0) if shared else dx, pdx)
+    _grad_close(dph, pdph)
+    dx2, dph2 = mesh.mesh_apply_stacked_grad(layout, phases, diag, y, dy,
+                                             transpose)
+    assert torch.equal(dx, dx2) and torch.equal(dph, dph2)
+    only, none = mesh.mesh_apply_stacked_grad(layout, phases, diag, y, dy,
+                                              transpose, need_dphases=False)
+    assert none is None and torch.equal(only, dx)
+
+
+def test_mesh_autograd_on_the_card_matches_plain_autograd(cuda):
+    """``ops.mesh_apply_stacked`` and ``ops.mesh_densify_stacked`` under
+    autograd on the card (the kernels' Functions) against autograd of the
+    plain versions on the same card."""
+    layout, phases, diag, x = _mesh_inputs(64, 2, 300, False, 7, cuda)
+    p1, x1 = phases.clone().requires_grad_(), x.clone().requires_grad_()
+    y = ops.mesh_apply_stacked(layout, p1, diag, x1, True)
+    w = torch.randn(y.shape, generator=torch.Generator().manual_seed(1)).to(
+        cuda)
+    got = torch.autograd.grad((y * w).sum(), (p1, x1))
+    p2, x2 = phases.clone().requires_grad_(), x.clone().requires_grad_()
+    want = torch.autograd.grad((photonic.mesh_apply_stacked(
+        layout, p2, diag, x2, True) * w).sum(), (p2, x2))
+    for a, b in zip(got, want):
+        _grad_close(a, b)
+    pms, ps, nzs, model, _ = chip_smoke.densify_inputs(1024, 4, 1, True,
+                                                       None, cuda, 9)
+    for p in ps:
+        for k in ("phases_u", "phases_v", "sigma"):
+            p[k].requires_grad_()
+    leaves = [p[k] for p in ps for k in ("phases_u", "phases_v", "sigma")]
+    # a random weighting of the cores (Σ W² alone does not move with the
+    # phases: the meshes are orthogonal)
+    gen = torch.Generator().manual_seed(2)
+    r = [torch.randn((1, pm.out_dim, pm.in_dim), generator=gen).to(cuda)
+         for pm in pms]
+    got = torch.autograd.grad(sum((c * w).sum() for c, w in zip(
+        ops.mesh_densify_stacked(pms, ps, nzs, model), r)), leaves)
+    want = torch.autograd.grad(sum((c * w).sum() for c, w in zip(
+        photonic.mesh_densify_stacked(pms, ps, nzs, model), r)), leaves)
+    for a, b in zip(got, want):
+        _grad_close(a, b)
+
+
+@pytest.mark.parametrize("noisy", [False, True])
+def test_prepare_params_backward_is_one_grouped_launch(cuda, noisy):
+    """tonn's ``prepare_params`` under autograd on the card: one grouped
+    forward and one grouped backward launch, its gradients against those
+    of ``prepare_params_plain`` on the card; two backwards give the same
+    bits."""
+    cfg = pinn.PINNConfig(hidden=1024, mode="tonn", tt_L=4,
+                          noise=NoiseModel(enabled=noisy))
+    model = pinn.TensorPinn(cfg)
+    params = to_device(model.init(counter_generator(0)), cuda)
+    noise = model.sample_noise(counter_generator(0, 99))
+    noise = None if noise is None else to_device(noise, cuda)
+    mask = model.trainable_mask(params)
+    gen = torch.Generator().manual_seed(3)
+
+    def grads(prepare):
+        p = zoo.tree_map(lambda t, m: t.detach().requires_grad_(m), params,
+                         mask)
+        prepared, _ = prepare(p, noise)
+        cores = [c for i in (0, 1) for c in prepared[f"cores{i}"]]
+        gen.manual_seed(3)
+        out = sum((c * torch.randn(c.shape, generator=gen).to(cuda)).sum()
+                  for c in cores)
+        # the core meshes' phases and sigmas (the other leaves make no core)
+        return torch.autograd.grad(out, [
+            t for i in (0, 1) for t in zoo.tree_leaves(p[f"pcores{i}"])
+            if t.requires_grad])
+
+    before = (mesh.mesh_densify_stacked.launches,
+              mesh.mesh_densify_grad.launches)
+    got = grads(model.prepare_params)
+    assert (mesh.mesh_densify_stacked.launches - before[0],
+            mesh.mesh_densify_grad.launches - before[1]) == (1, 1)
+    want = grads(model.prepare_params_plain)
+    for a, b in zip(got, want):
+        _grad_close(a, b)
+    again = grads(model.prepare_params)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("mode", ["tonn", "onn"])
+def test_bp_runs_repeat_bit_for_bit(cuda, mode):
+    """Two 5-step BP runs of the trainer (tonn at hidden 1024, onn at 64,
+    noise on) give the same losses and params, bit for bit: the mesh
+    backwards sum in a fixed order."""
+    from repro_torch.launch import train
+    argv = ["--arch", "tensor-pinn", "--pde", "hjb-20d", "--pinn-mode", mode,
+            "--pinn-noise", "--optimizer", "adamw", "--steps", "5",
+            "--batch", "100", "--log-every", "10", "--hidden",
+            "1024" if mode == "tonn" else "64"]
+    a, b = train.main(argv), train.main(argv)
+    assert a.losses == b.losses
+    assert all(torch.equal(p, q) for p, q in zip(zoo.tree_leaves(a.params),
+                                                 zoo.tree_leaves(b.params)))

@@ -389,8 +389,9 @@ def test_onn_quantized_request_matches_jax():
 
 
 def test_onn_bp_and_qat_exit_with_their_roadmap_items():
-    with pytest.raises(SystemExit, match=r"onn.*item 6c"):
-        train.main(ONN_ARGS + ["--steps", "1", "--optimizer", "adamw"])
+    with pytest.raises(SystemExit, match=r"onn.*item 6c-2"):
+        train.main(ONN_ARGS + ["--steps", "1", "--optimizer", "adamw",
+                               "--hidden", "1024"])
     with pytest.raises(SystemExit, match=r"onn.*item 11"):
         train.main(ONN_ARGS + ["--steps", "1", "--quant", "int8"])
 

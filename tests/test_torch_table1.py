@@ -170,12 +170,32 @@ def test_run_gives_the_jax_rows(monkeypatch):
 
 
 def test_offchip_onn_row_names_item_6c():
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        ttable.run_row("dense", False, True, **SMALL, device="cpu")
-    with pytest.raises(SystemExit, match="item 6c"):
+    """At hidden 1024 the off-chip ONN row's meshes take the wide routes,
+    whose backward is item 6c-2: it refuses before any work, on every
+    device."""
+    with pytest.raises(NotImplementedError, match="item 6c-2"):
+        ttable.run_row("dense", False, True, **{**SMALL, "hidden": 1024},
+                       device="cpu")
+    with pytest.raises(SystemExit, match="item 6c-2"):
         ttable.main(["--rows", "dense-offchip-noisy", "--device", "cpu",
                      "--out", "unused.json"])
     assert ttable.unported("onn", True, True) is None
+    assert ttable.unported("dense", False, True, hidden=64) is None
+
+
+def test_offchip_onn_row_runs_at_hidden_16(tmp_path):
+    """The off-chip ONN row (``dense`` mapped onto noise) trains onn by BP
+    at a width the resident backward holds: finite val MSEs, its hidden
+    width recorded, no kernel launched on the CPU."""
+    out = tmp_path / "t1.json"
+    res = ttable.main(["--hidden", "16", "--epochs", "3", "--rows",
+                       "dense-offchip-noisy", "--device", "cpu", "--out",
+                       str(out)])
+    row, = res["rows"]
+    assert row["name"] == "table1/dense-offchip-noisy" and row["mode"] == "onn"
+    assert row["hidden"] == 16 and np.isfinite(row["val_mse_mapped"])
+    assert np.isfinite(row["val_mse_ideal"])
+    assert not any(row["launches"].values())
 
 
 def test_cli_rows_on_the_cpu(tmp_path):

@@ -13,6 +13,7 @@ JAX package restores its params bit for bit.  Its meta records the seed as
 checkpoint instead.
 """
 
+import dataclasses
 import shutil
 
 import jax
@@ -24,6 +25,7 @@ from repro.checkpoint import restore_checkpoint as jax_restore
 from repro.core import pinn as jpinn
 from repro.serving import SolverRegistry as JRegistry
 from repro_torch.checkpoint import CheckpointManager, read_checkpoint_meta
+from repro_torch.core import pinn as tpinn
 from repro_torch.core import zoo
 from repro_torch.data import pde_collocation_iterator, pde_term_batch_iterator
 from repro_torch.launch import train
@@ -156,7 +158,8 @@ def test_resume_redraws_the_same_perturbations(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--pinn-mode", "onn", "--optimizer", "adamw"], "item 6c"),
+    (["--pinn-mode", "onn", "--optimizer", "adamw", "--hidden", "1024"],
+     "item 6c-2"),
     (["--estimator", "stein"], "reference trainer passes no PRNG key"),
     (["--estimator", "spectral"], "item 9a"),
     (["--spectral-points", "8"], "item 9a"),
@@ -178,6 +181,21 @@ def test_unported_flags_exit_with_their_roadmap_item(flags, item):
     PRNG key), which neither trainer takes."""
     with pytest.raises(SystemExit, match=item):
         train.main(REDUCED + flags)
+
+
+def test_onn_bp_trains_where_the_resident_backward_holds_its_meshes():
+    """onn BP at hidden 64 (its 64- and 21-port meshes take the resident
+    design's backward on the card) trains on the CPU: finite losses and
+    val MSE, and it refuses only from the width whose meshes take the wide
+    routes (``pinn.onn_wide_ports``)."""
+    res = train.main(REDUCED + ["--pinn-mode", "onn", "--pinn-noise",
+                                "--optimizer", "adamw", "--steps", "2"])
+    assert len(res.losses) == 2 and np.isfinite(res.losses).all()
+    assert np.isfinite(res.val_mse)
+    cfg = res.model.cfg
+    assert tpinn.onn_wide_ports(cfg) == []
+    assert tpinn.onn_wide_ports(dataclasses.replace(cfg, hidden=138)) == []
+    assert tpinn.onn_wide_ports(dataclasses.replace(cfg, hidden=140)) == [140]
 
 
 def test_lm_archs_and_unported_pdes_are_refused():
