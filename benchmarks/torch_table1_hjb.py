@@ -23,15 +23,16 @@ kernels run on the card:
     routes);
   * ``dense`` off-chip: ``torch.matmul`` and its autograd, no kernel of
     the port (the JAX package has none there either); ``dense`` mapped
-    onto noise trains ``onn`` off-chip by BP through its meshes: the
-    resident design forward and ``mesh_apply_stacked_grad`` backward.
+    onto noise trains ``onn`` off-chip by BP through its meshes: the mesh
+    kernel forward (the resident design; at hidden 1024 also the wide
+    routes A and B) and ``mesh_apply_stacked_grad`` backward (the resident
+    backward, and the warp-rows one for the wide meshes).
 
 The validation MSEs are taken with ``validation_mse`` (``tt_contract``,
 and one grouped densification per tonn evaluation).  Off-chip ``onn``
-at a width whose meshes take the wide routes (hidden 1024) exits: their
-backward is ROADMAP queue A, item 6c-2; the JAX benchmark's own default,
-hidden 64, runs.  Quantization-aware rows (the JAX row's ``quant=``) are
-item 11's.
+at a width whose meshes no backward kernel holds (past 1024 ports: the
+owner walk's) exits, naming ROADMAP queue A, item 6c-3.
+Quantization-aware rows (the JAX row's ``quant=``) are item 11's.
 
 Random draws come from ``device.counter_generator``, not JAX's threefry:
 the params and chip from ``(seed)`` and ``(seed, 99)`` (the trainer's
@@ -114,13 +115,13 @@ def unported(mode: str, on_chip: bool, noise: bool, hidden: int = 1024,
              pde: str = "hjb-20d") -> str | None:
     """Why the port cannot run this row at ``hidden`` yet, or None."""
     if _remap(mode, noise) == "onn" and not on_chip:
-        wide = pinn.onn_wide_ports(pinn.PINNConfig(hidden=hidden, mode="onn",
-                                                   pde=pde))
-        if wide:
+        held = pinn.onn_no_backward_ports(pinn.PINNConfig(
+            hidden=hidden, mode="onn", pde=pde))
+        if held:
             return (f"{row_name(mode, on_chip, noise)} trains onn off-chip "
                     f"by BP through its meshes; at hidden {hidden} the "
-                    f"{wide}-port meshes take the wide routes, whose "
-                    "backward is ROADMAP queue A, item 6c-2")
+                    f"{held}-port meshes take the owner walk, whose "
+                    "backward is ROADMAP queue A, item 6c-3")
     return None
 
 
@@ -282,18 +283,25 @@ def run(hidden: int = 64, epochs: int = 400,
     return rows
 
 
+GRAD_KEYS = tuple(f"grad_{d}" for d in mesh_apply.GRAD_DESIGNS)
+
+
 def kernel_launches(reset: bool = False) -> dict:
-    """The port's kernel launch counts (each wrapper's, and the mesh
-    kernel's per design and route); ``reset`` sets them to 0 first."""
+    """The port's kernel launch counts (each wrapper's, the mesh kernel's
+    per design and route, and its backward's per design as
+    ``grad_<design>``); ``reset`` sets them to 0 first."""
     wrappers = {name: getattr(tt_contract if name.startswith("tt")
                               else mesh_apply, name) for name in COUNTED}
+    fwd, bwd = mesh_apply.mesh_apply_stacked, \
+        mesh_apply.mesh_apply_stacked_grad
     if reset:
         for fn in wrappers.values():
             fn.launches = 0
-        mesh_apply.mesh_apply_stacked.design_launches = dict.fromkeys(
-            mesh_apply.DESIGNS, 0)
+        fwd.design_launches = dict.fromkeys(mesh_apply.DESIGNS, 0)
+        bwd.design_launches = dict.fromkeys(mesh_apply.GRAD_DESIGNS, 0)
     counts = {name: fn.launches for name, fn in wrappers.items()}
-    counts.update(mesh_apply.mesh_apply_stacked.design_launches)
+    counts.update(fwd.design_launches)
+    counts.update({f"grad_{k}": v for k, v in bwd.design_launches.items()})
     return counts
 
 

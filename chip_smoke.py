@@ -94,15 +94,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 8 core matrices at S = 1 and 11, noise on and off, and on
                 tt_L 2's 64-port matrices, whose states it recovers,
                 against ``ref.mesh_densify_grad_ref``; ``mesh_apply_stacked_grad``
-                (the resident backward) on 16- and 64-port meshes on 4300
+                — the resident backward on 16- and 64-port meshes on 4300
                 rows and onn's 21-port layer-0 V mesh on 100 shared rows,
-                transposed and not, against ``ref.mesh_apply_grad_ref``;
-                each call one launch, two calls bit for bit.  Times the
+                the warp-rows backward (``mesh_rows_grad_kernel``) on onn's
+                hidden-layer V^T mesh at hidden 1024 (1024 ports on 4300
+                rows from route B's forward; the U mesh there and layer
+                0's on 100 and 21 shared rows in phase 21b), a 256-port
+                Reck layout (509 levels) and 160 ports at S = 3, B = 777
+                — transposed and
+                not, against ``ref.mesh_apply_grad_ref``; each call one
+                launch of its design, two calls bit for bit.  Times the
                 grouped one at S = 1 and 11 and the resident one at 64
-                ports and 21 ports (CUDA events; one call alone in a trace,
-                with its kernels a call), the plain versions and, for scale
-                (no one PyTorch call gives dφ), ``torch.autograd.grad``
-                through the plain forwards.
+                ports and 21 ports (CUDA events; one call alone in a trace
+                that starts on a fill, with its kernels a call and each
+                one's time), the plain versions and, for scale (no one
+                PyTorch call gives dφ), ``torch.autograd.grad`` through
+                the plain forwards; the warp-rows one likewise at 1024
+                ports on 4300, 100 and 21 rows in phase 21b.
   7. train    — the port's trainer (``repro_torch.launch.train.main``) on
                 the card: the paper's TONN_ONCHIP_FUSED (hjb-20d, tonn,
                 hidden 1024, noise on), N = 10, batch 100, 50 steps and a
@@ -235,14 +243,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 ``opt`` round-trip, ``--resume`` continues the run bit for
                 bit.  tonn's and onn's BP go through the mesh backwards:
                 tonn a grouped densification and its backward a step, onn
-                (noise on, hidden 64, 10 steps) 6 resident meshes and 6
-                resident backwards a step (4 meshes a validation forward),
-                and no run reaches ``prepare_params_plain``; their
-                card-vs-CPU gradients run through the kernels (tonn with
-                the noise model on and off).  A second 5-step run gives the
-                same losses and params bit for bit in tt, tonn and onn.
-                Times a BP step of tt, tonn and onn (CUDA events, a traced
-                window of 5).
+                (noise on, 10 steps) 6 meshes and 6 backwards a step (4
+                meshes a validation forward): at hidden 64 all resident,
+                at hidden 1024 2 resident + 2 route A + 2 route B forward
+                and 2 resident + 4 warp-rows backwards, checked by design
+                (``_onn_bp_designs``); no run reaches
+                ``prepare_params_plain``; their card-vs-CPU gradients run
+                through the kernels (tonn with the noise model on and off;
+                onn at hidden 1024 on 4 points, held to the CPU's float64
+                gradients within max(1e-4·max|grad|, ``F32_FLOOR_FACTOR``
+                times the CPU f32 path's own distance) per leaf, its loss
+                gradient at the FD floor too).  A second 5-step run gives the same losses and
+                params bit for bit in tt, tonn and both onn rows.  Times a
+                BP step of tt, tonn and onn (CUDA events, a traced window
+                of 5).
  15. train-seq — ``--pinn-mode tonn --pinn-noise --sequential`` at hidden
                 1024 for 5 steps (N = 10, batch 100): 1 grouped
                 densification and 2 ``tt_contract`` launches per loss
@@ -282,12 +296,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 noise, dense off-chip, onn on-chip with noise) through
                 ``benchmarks/torch_table1_hjb.run_row`` at hidden 1024,
                 ``tt_L`` 4, batch 100, N = 10, and the off-chip ONN row
-                (dense mapped onto noise: onn by BP) at hidden 64, for 20
+                (dense mapped onto noise: onn by BP) there too, for 20
                 epochs each: finite val MSEs, each row's kernel launches
                 exactly its path's (``_table1_want``: 2 ``tt_contract`` + 2
                 ``tt_contract_grad`` a BP step, tonn's 1 grouped
-                densification and its backward more, onn's 4 resident
-                meshes and 4 backwards; 1 grouped densification + 2
+                densification and its backward more, onn's 4 meshes (1
+                resident, 3 route B) and 4 backwards (1 resident, 3 warp
+                rows); 1 grouped densification + 2
                 ``tt_contract_batched`` a tonn ZO step, 1 resident + 3 wide
                 meshes an onn ZO step, none for dense; and the validation
                 forwards') and none of the other counted kernels; ms a step
@@ -329,6 +344,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 of the first 3 entries card vs CPU with the same z (1e-4 of
                 max|u|); identical params in all 11 entries give 11
                 distinct losses.  Times one call.
+ 21b. mesh-grad-wide — phase 6c's three cases of the warp-rows backward
+                at onn's hidden 1024 (``MESH_GRAD_WIDE``: the hidden
+                layer's U mesh on 4300 rows, layer 0's on 100 and 21),
+                checked and timed as 6c times the others, in a Python
+                process of their own: in this one, ``torch.profiler``
+                loses their windows late in the run, and timed in 6c they
+                make phase 8's window get lost.
  22. report   — one ``{"kernels": [...], "profile_retries": {...}}`` line
                 (the profiler windows each phase took again because they
                 held no device event; each phase also prints its count
@@ -1218,15 +1240,23 @@ def _densify_grad_bound(pms, ps, nzs, saves) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _apply_grad_bound(layout, S: int, B: int) -> tuple:
-    """(bound_ms, bound_by) of one resident backward: y and dy read, dx
-    written, the phases, diag and plan tables read and dphases written
-    once, against per element and level 3 operations to recover the state
-    and 3 for the gradient, and 11 per MZI and row for its phase's sum,
-    each an issue slot."""
+# operations per MZI and row for its phase's sum, by backward design: the
+# resident one's 11; the warp-rows one's 4, g_lo·y_hi − g_hi·y_lo (two
+# products and a difference) and the add over the rows (its sign q is
+# applied once a slot, after the rows' sum)
+GRAD_PAIR_OPS = {"resident": 11, "warp_rows": 4}
+
+
+def _apply_grad_bound(layout, S: int, B: int, design: str) -> tuple:
+    """(bound_ms, bound_by) of one ``mesh_apply_stacked_grad`` by
+    ``design``: y and dy read, dx written, the phases, diag and plan
+    tables read and dphases written once, against per element and level 3
+    operations to recover the state and 3 for the gradient, and
+    ``GRAD_PAIR_OPS[design]`` per MZI and row for its phase's sum, each an
+    issue slot."""
     P, L = layout.ports, layout.levels
     words = 3 * S * B * P + 2 * S * L * layout.slots + S * P + 3 * L * P
-    ops = S * B * (6 * P * L + 11 * layout.num_mzis + P)
+    ops = S * B * (6 * P * L + GRAD_PAIR_OPS[design] * layout.num_mzis + P)
     t_bytes = 4 * words / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_ISSUE * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1245,8 +1275,13 @@ DENSIFY_GRAD_CASES = {"s1-noise": (1024, 4, 1, True),
 DENSIFY_GRAD_TIMED = ("s1-noise", "s11-noise")
 # label -> (ports, S, rows, shared x, transpose): the resident backward at
 # onn's BP launches at hidden 64 (4300 stencil rows; layer 0's 21-port V
-# mesh on the 100 rows) and a 16-port mesh; "p64-4300" (the hidden
-# layer's U mesh) is the main one
+# mesh on the 100 rows) and a 16-port mesh, "p64-4300" (the hidden
+# layer's U mesh) its main one; the warp-rows backward at onn's BP
+# launches at hidden 1024 (the hidden layer's V^T and U meshes on 4300
+# stencil rows, whose forward takes route B; layer 0's U mesh on the 100
+# rows and on the 21 identity columns, route A), a Reck layout of 256
+# ports (decompose_orthogonal: 509 levels; ports is "reck256") and 160
+# ports at S = 3, B = 777, "p1024-4300" its main one
 MESH_GRAD_CASES = {
     "p16-4300": (16, 1, 4300, False, False),
     "p16-4300-tr": (16, 1, 4300, False, True),
@@ -1254,8 +1289,132 @@ MESH_GRAD_CASES = {
     "p64-4300-tr": (64, 1, 4300, False, True),
     "v21-100-tr": (21, 1, 100, True, True),
     "v21-100": (21, 1, 100, True, False),
+    "p1024-4300": (1024, 1, 4300, False, False),
+    "p1024-4300-tr": (1024, 1, 4300, False, True),
+    "u1024-100": (1024, 1, 100, True, False),
+    "u1024-21": (1024, 1, 21, True, False),
+    "reck256-300-tr": ("reck256", 2, 300, False, True),
+    "p160-777-s3": (160, 3, 777, False, False),
 }
 MESH_GRAD_TIMED = ("p64-4300", "p64-4300-tr", "v21-100-tr")
+# the warp-rows backward's cases checked and timed in a process of their
+# own at the end of the run (phase_mesh_grad_wide), not in phase_mesh_grad
+MESH_GRAD_WIDE = ("p1024-4300", "u1024-100", "u1024-21")
+
+
+def _grad_layout(ports):
+    """The rectangular layout of ``ports``, or for ``"reck<P>"`` the
+    ``decompose_orthogonal`` layout of a random orthogonal P x P (seed
+    P)."""
+    import numpy as np
+    from repro_torch.core import photonic
+    if isinstance(ports, int):
+        return photonic.rectangular_layout(ports)
+    P = int(ports[4:])
+    q, _ = np.linalg.qr(np.random.RandomState(P).standard_normal((P, P)))
+    return photonic.decompose_orthogonal(q)[0]
+
+
+def _mesh_grad_case(device, label: str, timed: bool) -> dict:
+    """One ``MESH_GRAD_CASES`` case of ``mesh_apply_stacked_grad`` against
+    ``ref.mesh_apply_grad_ref`` (one launch of its design, two calls bit
+    for bit) and, ``timed``, its times beside its bound, the plain version
+    and autograd of the plain forward."""
+    import torch
+    from repro_torch.core import photonic
+    from repro_torch.kernels import mesh_apply as mesh
+    from repro_torch.kernels import ref
+    fill = torch.empty(1, device=device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    i = list(MESH_GRAD_CASES).index(label)
+    kind, S, B, shared, transpose = MESH_GRAD_CASES[label]
+    layout = _grad_layout(kind)
+    ports = layout.ports
+    design = mesh.grad_design(layout)
+    gen = torch.Generator().manual_seed(3500 + i)
+    phases = torch.randn((S, *layout.phase_shape()), generator=gen).to(
+        device)
+    diag = torch.where(torch.rand((S, ports), generator=gen) < 0.5,
+                       -1.0, 1.0).to(device)
+    x = torch.randn((B, ports) if shared else (S, B, ports),
+                    generator=gen).to(device)
+    y = mesh.mesh_apply_stacked(layout, phases, diag, x, transpose)
+    dy = torch.randn(y.shape, generator=gen).to(device)
+    before = mesh.mesh_apply_stacked_grad.launches
+    by_design = mesh.mesh_apply_stacked_grad.design_launches[design]
+    dx, dph = mesh.mesh_apply_stacked_grad(layout, phases, diag, y, dy,
+                                           transpose)
+    if not (mesh.mesh_apply_stacked_grad.launches == before + 1 and
+            mesh.mesh_apply_stacked_grad.design_launches[design]
+            == by_design + 1):
+        raise AssertionError("mesh_apply_stacked_grad: not one launch a "
+                             f"call through the {design} design")
+    pdx, pdph = ref.mesh_apply_grad_ref(layout, phases, diag, x, y, dy,
+                                        transpose)
+    errs = [_grad_share("mesh_apply_stacked_grad", label,
+                        dx.sum(0) if shared else dx, pdx),
+            _grad_share("mesh_apply_stacked_grad", label, dph, pdph)]
+    again = mesh.mesh_apply_stacked_grad(layout, phases, diag, y, dy,
+                                         transpose)
+    if not (torch.equal(dx, again[0]) and torch.equal(dph, again[1])):
+        raise AssertionError(f"mesh_apply_stacked_grad at {label}: two "
+                             "calls differ")
+    row = {"case": label, "design": design, "ports": ports,
+           "levels": layout.levels, "S": S, "rows": B,
+           "shared_x": shared, "transpose": transpose,
+           "forward_route": (mesh.wide_route(layout, S, B)
+                             if mesh.mesh_design(layout) == "wide"
+                             else "resident")}
+    if design == "resident":
+        rows = mesh.grad_rows_per_block(layout)
+        row.update(rows_per_block=rows, block_columns=mesh.grad_columns(
+            S, -(-B // rows), sms))
+    else:
+        W, R, warps, cols = mesh.grad_rows_config(layout, S, B, sms)
+        row.update(lane_width=W, rows_per_warp=R, warps=warps,
+                   block_columns=cols,
+                   scratch_bytes=mesh.grad_scratch_bytes(layout, S, B,
+                                                         sms))
+    row.update({
+        "max_abs_err": max(e for e, _ in errs),
+        "max_err_over_bound": max(e / (MESH_GRAD_BOUND * m)
+                                  for e, m in errs if m),
+        "dx_bitwise_equal_plain": bool(torch.equal(
+            dx.sum(0) if shared else dx, pdx)),
+        "repeat_bitwise_equal": True})
+    if timed:
+        wide = design == "warp_rows"
+
+        def call():
+            return mesh.mesh_apply_stacked_grad(layout, phases, diag, y, dy,
+                                                transpose)
+        row["ms"] = _time_ms(call, 20 if wide else 200)
+        # the backward kernel (with the trig prologue, in warp rows) and,
+        # over several block columns, the small kernel that sums their
+        # phase gradients; a fill leads
+        prof = _profile(call, match="mesh_", lead=lambda: fill.fill_(0.0))
+        row["kernel_device_ms"] = prof["match_ms"]
+        row["kernels_per_call"] = prof["match_kernels"]
+        row["kernel_each_ms"] = prof.get("match_each_ms")
+        row["plain_ms"] = _time_ms(lambda: ref.mesh_apply_grad_ref(
+            layout, phases, diag, x, y, dy, transpose), 3 if wide else 20,
+            warmup=1 if wide else 5)
+
+        def autograd_plain():
+            p = phases.clone().requires_grad_()
+            xx = x.clone().requires_grad_()
+            return torch.autograd.grad(photonic.mesh_apply_stacked(
+                layout, p, diag, xx, transpose), (p, xx), dy)
+        # at 1024 ports on 4300 rows autograd keeps two (4300, 1024)
+        # tensors a level: ~36 GB, handed back to the card after
+        row["autograd_plain_ms"] = _time_ms(
+            autograd_plain, 3 if wide else 20, warmup=1 if wide else 5)
+        torch.cuda.empty_cache()
+        row["library_ms"] = None
+        row["bound_ms"], row["bound_by"] = _apply_grad_bound(layout, S, B,
+                                                             design)
+    print(f"[mesh-grad] {json.dumps(row)}", flush=True)
+    return row
 
 
 def phase_mesh_grad(device) -> dict:
@@ -1329,73 +1488,42 @@ def phase_mesh_grad(device) -> dict:
         results[f"densify-{label}"] = row
         print(f"[mesh-grad] {json.dumps(row)}", flush=True)
 
-    for i, (label, (ports, S, B, shared, transpose)) in enumerate(
-            MESH_GRAD_CASES.items()):
-        layout = photonic.rectangular_layout(ports)
-        gen = torch.Generator().manual_seed(3500 + i)
-        phases = torch.randn((S, *layout.phase_shape()), generator=gen).to(
-            device)
-        diag = torch.where(torch.rand((S, ports), generator=gen) < 0.5,
-                           -1.0, 1.0).to(device)
-        x = torch.randn((B, ports) if shared else (S, B, ports),
-                        generator=gen).to(device)
-        y = mesh.mesh_apply_stacked(layout, phases, diag, x, transpose)
-        dy = torch.randn(y.shape, generator=gen).to(device)
-        before = mesh.mesh_apply_stacked_grad.launches
-        dx, dph = mesh.mesh_apply_stacked_grad(layout, phases, diag, y, dy,
-                                               transpose)
-        if mesh.mesh_apply_stacked_grad.launches != before + 1:
-            raise AssertionError("mesh_apply_stacked_grad: not one launch a "
-                                 "call")
-        pdx, pdph = ref.mesh_apply_grad_ref(layout, phases, diag, x, y, dy,
-                                            transpose)
-        errs = [_grad_share("mesh_apply_stacked_grad", label,
-                            dx.sum(0) if shared else dx, pdx),
-                _grad_share("mesh_apply_stacked_grad", label, dph, pdph)]
-        again = mesh.mesh_apply_stacked_grad(layout, phases, diag, y, dy,
-                                             transpose)
-        if not (torch.equal(dx, again[0]) and torch.equal(dph, again[1])):
-            raise AssertionError(f"mesh_apply_stacked_grad at {label}: two "
-                                 "calls differ")
-        rows = mesh.grad_rows_per_block(layout)
-        row = {"case": label, "ports": ports, "levels": layout.levels,
-               "S": S, "rows": B, "shared_x": shared, "transpose": transpose,
-               "rows_per_block": rows,
-               "block_columns": mesh.grad_columns(
-                   S, -(-B // rows), torch.cuda.get_device_properties(
-                       device).multi_processor_count),
-               "max_abs_err": max(e for e, _ in errs),
-               "max_err_over_bound": max(e / (MESH_GRAD_BOUND * m)
-                                         for e, m in errs if m),
-               "dx_bitwise_equal_plain": bool(torch.equal(
-                   dx.sum(0) if shared else dx, pdx)),
-               "repeat_bitwise_equal": True}
-        if label in MESH_GRAD_TIMED:
-            row["ms"] = _time_ms(lambda: mesh.mesh_apply_stacked_grad(
-                layout, phases, diag, y, dy, transpose), 200)
-            # the backward kernel and, over several block columns, the
-            # small kernel that sums their phase gradients; a fill leads
-            prof = _profile(
-                lambda: mesh.mesh_apply_stacked_grad(layout, phases, diag, y,
-                                                     dy, transpose),
-                match="mesh_", lead=lambda: fill.fill_(0.0))
-            row["kernel_device_ms"] = prof["match_ms"]
-            row["kernels_per_call"] = prof["match_kernels"]
-            row["plain_ms"] = _time_ms(lambda: ref.mesh_apply_grad_ref(
-                layout, phases, diag, x, y, dy, transpose), 20)
-
-            def autograd_plain():
-                p = phases.clone().requires_grad_()
-                xx = x.clone().requires_grad_()
-                return torch.autograd.grad(photonic.mesh_apply_stacked(
-                    layout, p, diag, xx, transpose), (p, xx), dy)
-            row["autograd_plain_ms"] = _time_ms(autograd_plain, 20)
-            row["library_ms"] = None
-            row["bound_ms"], row["bound_by"] = _apply_grad_bound(layout, S,
-                                                                 B)
-        results[label] = row
-        print(f"[mesh-grad] {json.dumps(row)}", flush=True)
+    for label in MESH_GRAD_CASES:
+        if label not in MESH_GRAD_WIDE:
+            results[label] = _mesh_grad_case(device, label,
+                                             label in MESH_GRAD_TIMED)
     return results
+
+
+def mesh_grad_wide_cases(device) -> dict:
+    """``MESH_GRAD_WIDE``'s cases, checked and timed (``_mesh_grad_case``),
+    then the card's cached memory handed back: autograd of the plain
+    1024-level mesh on 4300 rows takes ~36 GB."""
+    import torch
+    out = {label: _mesh_grad_case(device, label, True)
+           for label in MESH_GRAD_WIDE}
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_grad_wide() -> dict:
+    """``mesh_grad_wide_cases`` in a Python process of its own, last: in
+    this process, after the other phases, ``torch.profiler`` loses the
+    windows of these cases, and timed before ``quant-kernel`` they make
+    that phase's window get lost (PERF.md §7).  This process hands its
+    cached memory back first; the child uses the kernels this run built.
+    Raises if the child fails."""
+    import torch
+    torch.cuda.empty_cache()
+    code = ("import json, sys; sys.path.insert(0, 'src'); import chip_smoke, "
+            "repro_torch; out = chip_smoke.mesh_grad_wide_cases("
+            "repro_torch.resolve_device('cuda')); "
+            "open(sys.argv[1], 'w').write(json.dumps(out))")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "wide.json"
+        subprocess.run([sys.executable, "-c", code, str(out)], cwd=ROOT,
+                       check=True, timeout=900)
+        return json.loads(out.read_text())
 
 
 def phase_quant_kernel(device) -> dict:
@@ -1929,8 +2057,14 @@ def phase_flash_kernel(device) -> dict:
     return results
 
 
-PROFILE_TRIES = 3
+# windows a lost trace is taken again, each after a longer pause (0.5,
+# 1, 2, ... s): runs lose one or two in a row now and then;
+# `quant-kernel`'s hidden-stencil window has lost up to five in a row
+# (once a window and then only its kernel, the lead fill kept), and
+# caught the kernel on the fifth try once
+PROFILE_TRIES = 7
 PROFILE_RETRIES = {"windows": 0}     # windows taken again, over the run
+PROFILE_LAGS: list = []              # each window's device_lag_ms
 
 
 def _profile(fn, calls: int = 1, match: str | None = None,
@@ -1944,12 +2078,19 @@ def _profile(fn, calls: int = 1, match: str | None = None,
     time and count of the kernels whose name contains it, the longest one
     of them, and each one's time in launch order over one call's share
     (``match_ms``, ``match_kernels``, ``match_max_ms``, ``match_each_ms``).
-    A window whose trace holds no device event at all (the profiler lost
-    the window: every caller launches kernels in it) is taken again, up
-    to ``PROFILE_TRIES`` windows, each retake counted in
-    ``PROFILE_RETRIES`` and in the result's ``retries``; after that the
-    device numbers are None (not measured).  ``lead``, if given, runs inside the window before the
-    calls and before the clock starts (its kernels are counted)."""
+    A window whose trace holds no device event at all, or with ``match``
+    none whose name holds it (the profiler lost the window, or the
+    kernel: every caller launches kernels in it, and a kernel ``match``
+    names), is taken again, up to ``PROFILE_TRIES`` windows, each retake
+    counted in ``PROFILE_RETRIES`` and in the result's ``retries``, each
+    after a pause twice the last (from 0.5 s); after that the device
+    numbers are the last window's (None where it held no device event:
+    not measured).  ``lead``, if given, runs inside the window before the
+    calls and before the clock starts (its kernels are counted).
+    ``device_lag_ms``: the window's first device event's start less its
+    first kernel launch's on the host, on the trace's clock (also in
+    ``PROFILE_LAGS``); a lost window's message counts the launches the
+    host made in it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()                                                   # warm
@@ -1965,13 +2106,24 @@ def _profile(fn, calls: int = 1, match: str | None = None,
                 fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        if any(e.device_type == torch.autograd.DeviceType.CUDA
-               for e in prof.events()):
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        launches = [e.time_range.start for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CPU
+                    and "LaunchKernel" in e.name]
+        names = [e.name for e in device]
+        if names and (match is None or any(match in n for n in names)):
             break
         if tries + 1 < PROFILE_TRIES:
             PROFILE_RETRIES["windows"] += 1
-            print("[profile] a window held no device event; taken again",
-                  flush=True)
+            print("[profile] a window held no device event"
+                  + (f" named {match!r}" if names else "")
+                  + f" ({len(launches)} kernel launches on the host); "
+                    "taken again", flush=True)
+            time.sleep(0.5 * 2 ** tries)
+    lag = (None if not (device and launches) else
+           (min(e.time_range.start for e in device) - min(launches)) / 1e3)
+    PROFILE_LAGS.append(lag)
     by_name: dict = {}
     matched = []                                      # (start, ms)
     for e in prof.events():
@@ -1985,6 +2137,7 @@ def _profile(fn, calls: int = 1, match: str | None = None,
     kernels = sum(n for _, n in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
     out = {"calls": calls, "retries": tries, "wall_ms": wall_ms,
+           "device_lag_ms": lag,
            "device_ms": device_ms,
            "busy_share": None if device_ms is None else device_ms / wall_ms,
            "kernels": kernels, "kernels_per_call": kernels / calls,
@@ -2166,6 +2319,68 @@ ONN_BP_MESHES = 6        # onn's fd_fast stencil: layer 0 on the rows and on
                          # the identity columns, the hidden layer: 2 meshes
                          # each, forward and backward
 ONN_VAL_MESHES = 4       # a validation forward: 2 layers of 2 meshes
+ONN_CHECK_BATCH = 4      # onn at hidden 1024: card vs CPU on 4 points
+F32_FLOOR_FACTOR = 4.0   # the card's f32 error to float64 against the
+                         # CPU f32 path's: two f32 paths, each rounding
+                         # 1,024 levels (and the card recovering states)
+
+
+# onn at hidden 1024 (batch 100, 1000 validation points), by design and
+# route, written out rather than asked of the dispatch under test: a BP
+# step's 6 meshes forward (layer 0's 21-port V mesh resident and its
+# 1024-port U mesh route A, each on the rows and on the identity columns;
+# the hidden layer's V^T and U route B on the 4300 stencil rows) and
+# backward (2 resident, 4 warp rows); a validation forward's 4 (1
+# resident, 3 route A)
+ONN_1024_STEP = ({"resident": 2, "warp_rows": 2, "dense": 2},
+                 {"resident": 2, "warp_rows": 4})
+ONN_1024_VAL = {"resident": 1, "warp_rows": 3}
+
+
+def _onn_bp_designs(model, batch: int, steps: int, evals: int,
+                    val_points: int = 1000) -> tuple:
+    """The mesh launches by design of ``steps`` onn BP steps (fd_fast:
+    layer 0 on the ``batch`` rows and on the in_dim identity columns, the
+    hidden layer's two meshes on the (2·in_dim + 1)·batch stencil rows)
+    and ``evals`` validation forwards of ``val_points`` rows: (forward
+    designs and routes, backward designs).  At hidden 1024 the fixed
+    counts ``ONN_1024_STEP`` and ``ONN_1024_VAL``; else each mesh's from
+    its layout and rows as the kernels pick them."""
+    from repro_torch.kernels import mesh_apply as mesh
+    fwd = dict.fromkeys(mesh.DESIGNS, 0)
+    bwd = dict.fromkeys(mesh.GRAD_DESIGNS, 0)
+    if model.cfg.hidden == 1024:
+        assert (batch, val_points) == (100, 1000)
+        for d, n in ONN_1024_STEP[0].items():
+            fwd[d] += n * steps
+        for d, n in ONN_1024_VAL.items():
+            fwd[d] += n * evals
+        for d, n in ONN_1024_STEP[1].items():
+            bwd[d] += n * steps
+        return fwd, bwd
+    n = model.in_dim
+    pm0, pm1 = model.photonic
+    route = _mesh_route
+    for layout, rows in ((pm0.layout_v, batch), (pm0.layout_v, n),
+                         (pm0.layout_u, batch), (pm0.layout_u, n),
+                         (pm1.layout_v, (2 * n + 1) * batch),
+                         (pm1.layout_u, (2 * n + 1) * batch)):
+        fwd[route(layout, rows)] += steps
+        bwd[mesh.grad_design(layout)] += steps
+    for layout in (pm0.layout_v, pm0.layout_u, pm1.layout_v, pm1.layout_u):
+        fwd[route(layout, val_points)] += evals
+    return fwd, bwd
+
+
+def _mesh_route(layout, rows: int, S: int = 1) -> str:
+    """The design or wide route ``mesh_apply_stacked`` takes for S
+    meshes of ``layout`` on ``rows`` rows per entry."""
+    from repro_torch.kernels import mesh_apply as mesh
+    if mesh.mesh_design(layout) == "resident":
+        return "resident"
+    return mesh.wide_route(layout, S, rows)
+
+
 
 
 def _counted():
@@ -2182,6 +2397,7 @@ def _run_counted(argv: list) -> tuple:
     never calls it).  Returns (result, launches, wall seconds)."""
     import torch
     from repro_torch.core import pinn
+    from repro_torch.kernels import mesh_apply as mesh
     from repro_torch.launch import train
 
     def refused(*args, **kwargs):
@@ -2191,6 +2407,10 @@ def _run_counted(argv: list) -> tuple:
     plain = pinn.TensorPinn.prepare_params_plain
     pinn.TensorPinn.prepare_params_plain = refused
     try:
+        mesh.mesh_apply_stacked.design_launches = dict.fromkeys(
+            mesh.DESIGNS, 0)
+        mesh.mesh_apply_stacked_grad.design_launches = dict.fromkeys(
+            mesh.GRAD_DESIGNS, 0)
         for fn in counted.values():                       # main path starts
             fn.launches = 0
         t0 = time.perf_counter()
@@ -2208,54 +2428,92 @@ def _val_evals(steps: int, log_every: int) -> int:
     return len(range(0, steps, log_every)) + 1
 
 
+def _bp_grads(model, noise, dev, fn, at, xt, dtype=None) -> tuple:
+    """``fn(prepared params, xt, noise)`` at ``at`` on ``dev`` (in
+    ``dtype``, or each leaf's own) and its gradients, on the CPU, of the
+    trainable leaves: through ``prepare_params``, as the BP step
+    densifies (on the card tonn's grouped backward)."""
+    import torch
+    from repro_torch.core import zoo
+    from repro_torch.device import to_device
+    mask = model.trainable_mask(at)
+    p = zoo.tree_map(lambda t, m: t.detach().to(dev, dtype or t.dtype)
+                     .requires_grad_(m), at, mask)
+    nz = None if noise is None else to_device(noise, dev)
+    prepared, nz = model.prepare_params(p, nz)
+    out = fn(prepared, xt.to(dev, dtype or xt.dtype), nz)
+    return out.item(), [g.cpu() for g in torch.autograd.grad(
+        out, [t for t in zoo.tree_leaves(p) if t.requires_grad])]
+
+
+def _bp_grad_fns(model, batch: int) -> dict:
+    """The scalar functions whose BP gradients are compared card vs CPU:
+    ``Σ u·w`` (w fixed, random), ``Σ w_s·fd_u_stencil`` (w_s fixed, random
+    over the stencil's (2A+1)×B values: the BP step's launches without the
+    residual's 1/h²) and the residual loss."""
+    import torch
+    from repro_torch.core import pinn
+    w = torch.randn(batch, generator=torch.Generator().manual_seed(3))
+    ws = torch.randn(2 * model.in_dim + 1, batch,
+                     generator=torch.Generator().manual_seed(4))
+    return {
+        "Σu·w": lambda p, x, nz: torch.sum(model.u(p, x, nz)
+                                           * w.to(x.device)),
+        "Σw·fd_u_stencil": lambda p, x, nz: torch.sum(
+            model.fd_u_stencil(p, x, model.fd_step, nz) * ws.to(x.device)),
+        "loss": lambda p, x, nz: pinn.residual_loss(model, p, x, nz)}
+
+
+def _f64_floor_leaves(card, plain, exact) -> list:
+    """Per leaf, the float64 rule of ``_card_vs_cpu_grads``: (the card's
+    distance to the CPU's float64 gradient, its tolerance max(1e-4·max|
+    grad|, ``F32_FLOOR_FACTOR`` times the CPU f32 path's own distance to
+    it), and where that own distance sets the tolerance the card's over
+    it, else None); max-abs distances."""
+    out = []
+    for a, b, e in zip(card, plain, exact):
+        err = (a.double() - e).abs().max().item()
+        own = (b.double() - e).abs().max().item()
+        bar = 1e-4 * e.abs().max().item()
+        floor = F32_FLOOR_FACTOR * own
+        out.append((err, max(bar, floor) + 1e-12,
+                    err / own if floor > bar else None))
+    return out
+
+
 def _card_vs_cpu_grads(model, params, init_params, noise, xt,
-                       device) -> dict:
+                       device, loss: bool = True,
+                       f64_floor: bool = False) -> dict:
     """One BP step's gradients on the card (through the kernels'
-    backwards: ``prepare_params`` as the BP step densifies) against the
-    CPU's plain path on the same batch and noise.  Strict, within
-    1e-4·max|grad| per leaf: of ``Σ u·w`` (w fixed, random) at the run's
-    final params, and of ``Σ w_s·fd_u_stencil`` (w_s fixed, random over the
-    stencil's (2A+1)×B values) at the initial and the final params: the
-    fd_fast stencil runs the BP step's launches (counted here: 3 forward
-    and 3 backward TT launches and tonn's grouped densification and its
-    backward, or onn's 6 resident meshes and their backwards), but without
-    the residual's 1/h².  Of the residual loss at the run's initial
-    params (loss ~1) at the FD noise floor, relative L2 within 2.5e-1 and
-    the loss within rtol 2.5e-1 (the residual's second differences amplify
-    f32 rounding by 1/h² = 1e4: the port's f32 sits 6–7% from float64
-    there, measured on the CPU at hidden 1024), all nonzero.  At the final
-    params, where the loss is small and the gradient mostly FD noise, the
-    loss gradients' relative L2 is recorded and not checked; beside it, in
-    tt and dense (which the port also runs in float64), each f32
-    gradient's relative L2 to the CPU's float64 one, at both points."""
+    backwards: ``_bp_grads``) against the CPU's plain path on the same
+    batch and noise (``_bp_grad_fns``).  Strict, within 1e-4·max|grad| per
+    leaf: of ``Σ u·w`` at the run's final params, and of ``Σ
+    w·fd_u_stencil`` at the initial and the final params: the fd_fast
+    stencil runs the BP step's launches (counted here: 3 forward and 3
+    backward TT launches and tonn's grouped densification and its
+    backward, or onn's 6 meshes and their backwards).  Of the residual
+    loss at the run's initial params (loss ~1) at the FD noise floor,
+    relative L2 within 2.5e-1 and the loss within rtol 2.5e-1 (the
+    residual's second differences amplify f32 rounding by 1/h² = 1e4: the
+    port's f32 sits 6–7% from float64 there, measured on the CPU at hidden
+    1024), all nonzero.  At the final params, where the loss is small and
+    the gradient mostly FD noise, the loss gradients' relative L2 is
+    recorded and not checked; beside it, in tt and dense (which the port
+    also runs in float64), each f32 gradient's relative L2 to the CPU's
+    float64 one, at both points.  ``loss`` False leaves the loss out.
+    ``f64_floor`` (onn at hidden 1024, whose 1,024-level meshes put f32's
+    own rounding above 1e-4·max|grad|: on the CPU the f32 gradient of
+    Σu·w sits 6.0 times that bar from the float64 one at layer 0's bias,
+    0.055 times at hidden 64) holds the card's gradients, the loss's at
+    the initial params too, to the CPU's float64 ones instead, per leaf
+    by ``_f64_floor_leaves``; the card-vs-CPU f32 shares against
+    1e-4·max|grad| (``card_vs_cpu_shares``) and the card's distance to
+    float64 over the CPU f32 path's (``card_over_cpu_f64_distance``, the
+    worst leaf whose tolerance that distance sets: what
+    ``F32_FLOOR_FACTOR`` bounds) are recorded."""
     import numpy as np
     import torch
-    from repro_torch.core import pinn, zoo
-    from repro_torch.device import to_device
-    mask = model.trainable_mask(params)
-    w = torch.randn(xt.shape[0], generator=torch.Generator().manual_seed(3))
-    ws = torch.randn(2 * model.in_dim + 1, xt.shape[0],
-                     generator=torch.Generator().manual_seed(4))
-
-    def grads(dev, fn, at, dtype=None):
-        p = zoo.tree_map(lambda t, m: t.detach().to(dev, dtype or t.dtype)
-                         .requires_grad_(m), at, mask)
-        nz = None if noise is None else to_device(noise, dev)
-        # tonn: the densification BP differentiates, as the BP step's
-        prepared, nz = model.prepare_params(p, nz)
-        out = fn(prepared, xt.to(dev, dtype or xt.dtype), nz)
-        return out.item(), [g.cpu() for g in torch.autograd.grad(
-            out, [t for t in zoo.tree_leaves(p) if t.requires_grad])]
-
-    def u_fn(p, x, nz):
-        return torch.sum(model.u(p, x, nz) * w.to(x.device))
-
-    def stencil_fn(p, x, nz):
-        return torch.sum(model.fd_u_stencil(p, x, model.fd_step, nz)
-                         * ws.to(x.device))
-
-    def loss_fn(p, x, nz):
-        return pinn.residual_loss(model, p, x, nz)
+    fns = _bp_grad_fns(model, xt.shape[0])
 
     def rel_l2(a, b):
         a = torch.cat([g.flatten() for g in a]).double()
@@ -2263,32 +2521,46 @@ def _card_vs_cpu_grads(model, params, init_params, noise, xt,
         return ((a - b).norm() / b.norm()).item()
 
     cpu = torch.device("cpu")
+    raw_shares, over_own = {}, {}
 
-    def strict(name, fn, at, launches=None):
+    def strict(name, at, launches=None, tag=""):
+        fn = fns[name]
         counted = _counted()
         before = {k: f.launches for k, f in counted.items()}
-        _, card = grads(device, fn, at)
+        _, card = _bp_grads(model, noise, device, fn, at, xt)
         if launches is not None:
             launches.update({k: f.launches - before[k]
                              for k, f in counted.items()})
-        _, plain = grads(cpu, fn, at)
-        share = 0.0
-        for a, b in zip(card, plain):
-            err = (a - b).abs().max().item()
-            tol = 1e-4 * b.abs().max().item() + 1e-12
+        _, plain = _bp_grads(model, noise, cpu, fn, at, xt)
+        raw = max((a - b).abs().max().item()
+                  / (1e-4 * b.abs().max().item() + 1e-12)
+                  for a, b in zip(card, plain))
+        if f64_floor:
+            exact = _bp_grads(model, noise, cpu, fn, at, xt,
+                              torch.float64)[1]
+            rule = _f64_floor_leaves(card, plain, exact)
+            over_own[name + tag] = max(
+                (r for _, _, r in rule if r is not None), default=None)
+        else:
+            rule = [((a - b).abs().max().item(),
+                     1e-4 * b.abs().max().item() + 1e-12, None)
+                    for a, b in zip(card, plain)]
+        for a, (err, tol, _) in zip(card, rule):
             if not (torch.isfinite(a).all().item() and err <= tol
                     and a.abs().max().item() > 0):
-                raise AssertionError(f"BP gradient of {name} card vs CPU: "
-                                     f"{err:.3e} > {tol:.3e}, or all zeros")
-            share = max(share, err / tol)
-        return share
+                raise AssertionError(
+                    f"BP gradient of {name} card vs CPU"
+                    + (" float64" if f64_floor else "")
+                    + f": {err:.3e} > {tol:.3e}, or all zeros")
+        raw_shares[name + tag] = raw
+        return max(err / tol for err, tol, _ in rule)
 
-    out = {"u_grad_max_err_over_tol": strict("Σu·w", u_fn, params),
+    out = {"u_grad_max_err_over_tol": strict("Σu·w", params),
            "stencil_grad_max_err_over_tol_init":
-               strict("Σw·fd_u_stencil", stencil_fn, init_params)}
+               strict("Σw·fd_u_stencil", init_params, tag=" init")}
     launches = {}
     out["stencil_grad_max_err_over_tol_final"] = strict(
-        "Σw·fd_u_stencil", stencil_fn, params, launches)
+        "Σw·fd_u_stencil", params, launches, " final")
     mode = model.cfg.mode
     chains = 3 if mode in ("tt", "tonn") else 0
     want = dict.fromkeys(BP_COUNTED, 0)
@@ -2302,8 +2574,17 @@ def _card_vs_cpu_grads(model, params, init_params, noise, xt,
         raise AssertionError(f"the stencil's gradient on the card launched "
                              f"{launches}, expected {want}")
     out["stencil_launches"] = launches
-    l_card, gl_card = grads(device, loss_fn, init_params)
-    l_cpu, gl_cpu = grads(cpu, loss_fn, init_params)
+    if f64_floor:
+        out["loss_grad_max_err_over_tol_init"] = strict("loss", init_params,
+                                                        tag=" init")
+        out["card_vs_cpu_shares"] = raw_shares
+        out["card_over_cpu_f64_distance"] = over_own
+    if not loss:
+        return out
+    loss_fn = fns["loss"]
+    l_card, gl_card = _bp_grads(model, noise, device, loss_fn, init_params,
+                                xt)
+    l_cpu, gl_cpu = _bp_grads(model, noise, cpu, loss_fn, init_params, xt)
     rel = rel_l2(gl_card, gl_cpu)
     if not (all(torch.isfinite(g).all().item() for g in gl_card)
             and rel <= 2.5e-1):
@@ -2312,8 +2593,8 @@ def _card_vs_cpu_grads(model, params, init_params, noise, xt,
     np.testing.assert_allclose(l_card, l_cpu, rtol=2.5e-1)
     if not all(g.abs().max().item() > 0 for g in gl_card):
         raise AssertionError("a BP gradient on the card is all zeros")
-    lt_card, glt_card = grads(device, loss_fn, params)
-    lt_cpu, glt_cpu = grads(cpu, loss_fn, params)
+    lt_card, glt_card = _bp_grads(model, noise, device, loss_fn, params, xt)
+    lt_cpu, glt_cpu = _bp_grads(model, noise, cpu, loss_fn, params, xt)
     out.update({"loss_grad_rel_l2_card_vs_cpu_init": rel,
                 "loss_card_init": l_card, "loss_cpu_init": l_cpu,
                 "loss_grad_rel_l2_card_vs_cpu_final":
@@ -2322,7 +2603,8 @@ def _card_vs_cpu_grads(model, params, init_params, noise, xt,
     if mode in ("tt", "dense"):       # the meshes run in f32
         for when, at, card, plain in (("init", init_params, gl_card, gl_cpu),
                                       ("final", params, glt_card, glt_cpu)):
-            l64, g64 = grads(cpu, loss_fn, at, torch.float64)
+            l64, g64 = _bp_grads(model, noise, cpu, loss_fn, at, xt,
+                                 torch.float64)
             out[f"loss_f64_{when}"] = l64
             out[f"loss_grad_rel_l2_card_vs_f64_{when}"] = rel_l2(card, g64)
             out[f"loss_grad_rel_l2_cpu_vs_f64_{when}"] = rel_l2(plain, g64)
@@ -2350,7 +2632,11 @@ def phase_train_bp(device) -> dict:
     paper's width (hidden 1024, ``PAPER_TONN_SPEC``, batch 100): tt with
     AdamW for 50 steps and a checkpoint, tonn (noise on) with AdamW and
     dense with SGD for 10 steps each; and onn (noise on) with AdamW at
-    hidden 64, whose meshes the resident backward holds, for 10."""
+    hidden 64, whose meshes the resident backward holds, and at hidden
+    1024, whose hidden meshes take routes A and B forward and the
+    warp-rows backward, for 10 each: the mesh launches by design and
+    route exactly ``_onn_bp_designs``'s, card vs CPU at hidden 1024 on
+    ``ONN_CHECK_BATCH`` points."""
     import numpy as np
     import torch
     from repro_torch.checkpoint import read_checkpoint_meta, \
@@ -2358,6 +2644,7 @@ def phase_train_bp(device) -> dict:
     from repro_torch.core import zoo
     from repro_torch.data import pde_collocation_iterator
     from repro_torch.device import to_device
+    from repro_torch.kernels import mesh_apply as mesh
     from repro_torch.launch import train
     from repro_torch.optim import get_optimizer
 
@@ -2372,11 +2659,15 @@ def phase_train_bp(device) -> dict:
             ("dense-sgd", ["--pinn-mode", "dense", "--optimizer", "sgd"],
              10),
             ("onn-adamw", ["--pinn-mode", "onn", "--pinn-noise", "--hidden",
-                           "64", "--optimizer", "adamw"], 10)):
+                           "64", "--optimizer", "adamw"], 10),
+            ("onn-1024-adamw", ["--pinn-mode", "onn", "--pinn-noise",
+                                "--optimizer", "adamw"], 10)):
         ckpt = tempfile.mkdtemp(prefix="chip_smoke_bp_")
         argv = base + flags + ["--steps", str(steps), "--ckpt-dir", ckpt,
                                "--ckpt-every", str(steps // 2)]
         res, launches, wall = _run_counted(argv)
+        designs = (dict(mesh.mesh_apply_stacked.design_launches),
+                   dict(mesh.mesh_apply_stacked_grad.design_launches))
         evals = _val_evals(steps, log_every)
         chains = 3 * steps if label.startswith("t") else 0
         want = dict.fromkeys(BP_COUNTED, 0)
@@ -2393,6 +2684,12 @@ def phase_train_bp(device) -> dict:
         if launches != want:
             raise AssertionError(f"{label}: {launches} over {steps} steps; "
                                  f"expected {want}")
+        onn = "onn" in label and "tonn" not in label
+        expected = (_onn_bp_designs(res.model, batch, steps, evals) if onn
+                    else designs)
+        if designs != expected:
+            raise AssertionError(f"{label}: mesh launches by design "
+                                 f"{designs}, expected {expected}")
         losses = np.asarray(res.losses)
         if not (np.isfinite(losses).all() and np.isfinite(res.val_mse)):
             raise AssertionError(f"{label}: non-finite losses or val MSE")
@@ -2405,9 +2702,19 @@ def phase_train_bp(device) -> dict:
         model, params, noise = res.model, res.params, res.hw_noise
         xt = next(pde_collocation_iterator(batch, seed=0, start_step=steps,
                                            problem=model.problem))
+        if onn:
+            row["mesh_designs"] = {"forward": designs[0],
+                                   "backward": designs[1]}
+            row["mesh_designs_per_step"] = {
+                k: {d: n for d, n in v.items() if n} for k, v in zip(
+                    ("forward", "backward"),
+                    _onn_bp_designs(res.model, batch, 1, 0))}
         init, _ = train.init_solver(model, 0)
+        wide = label == "onn-1024-adamw"
         row["card_vs_cpu"] = _card_vs_cpu_grads(
-            model, params, to_device(init, device), noise, xt, device)
+            model, params, to_device(init, device), noise,
+            xt[:ONN_CHECK_BATCH] if wide else xt, device, loss=not wide,
+            f64_floor=wide)
         if "tonn" in label:   # the grouped backward without the noise model
             row["card_vs_cpu_noise_off"] = _card_vs_cpu_grads(
                 model, params, to_device(init, device), None, xt, device)
@@ -2426,7 +2733,7 @@ def phase_train_bp(device) -> dict:
         if label != "dense-sgd":
             timed = measure_bp_step(
                 model, opt, params, noise, xt.to(device),
-                match="mesh_" if label == "onn-adamw" else "tt_contract")
+                match="mesh_" if onn else "tt_contract")
             row["bp_step_ms"] = timed["bp_step_ms"]
             row["bp_step_trace"] = timed["trace"]
         if label == "tt-adamw":
@@ -2810,7 +3117,18 @@ TABLE1_EPOCHS = 20
 TABLE1_VAL_FORWARDS = 2          # the ideal and the mapped validation MSE
 
 
-def _table1_want(mode: str, on_chip: bool, epochs: int) -> dict:
+# the off-chip ONN row at hidden 1024, by design and route, written out
+# rather than asked of the dispatch under test: an epoch's 4 meshes on the
+# stencil's 4300 rows (layer 0's 21-port V mesh resident, the 3 1024-port
+# meshes route B) and their backwards (1 resident, 3 warp rows); a
+# validation forward's 4 on 1000 points (1 resident, 3 route A)
+TABLE1_ONN_1024_EPOCH = {"resident": 1, "dense": 3, "grad_resident": 1,
+                         "grad_warp_rows": 3}
+TABLE1_ONN_1024_VAL = {"resident": 1, "warp_rows": 3}
+
+
+def _table1_want(mode: str, on_chip: bool, epochs: int,
+                 hidden: int = 1024) -> dict:
     """Launches of one Table 1 row (``mode`` after the noise remap) over
     ``epochs`` (``deriv="fd"``: the stencil's 43 x 100 rows go through one
     forward) and its two validation forwards of 1000 points.  tt and tonn
@@ -2820,13 +3138,20 @@ def _table1_want(mode: str, on_chip: bool, epochs: int) -> dict:
     densification more); tonn on-chip: 1 grouped densification and 2
     ``tt_contract_batched`` a step; onn on-chip: layer 0's 21-port V mesh
     (resident) and 3 wide 1024-port meshes on 4300 rows per entry a step,
-    1 + 3 on 1000 rows a validation forward; onn off-chip (hidden 64, all
-    resident): 4 meshes and 4 resident backwards a step, 4 meshes a
-    validation forward; dense: none."""
+    1 + 3 on 1000 rows a validation forward; onn off-chip: 4 meshes and
+    their 4 backwards on the stencil's rows a step, 4 meshes on 1000 rows
+    a validation forward, each by the design or route its layout and rows
+    take (at hidden 1024 the fixed ``TABLE1_ONN_1024_EPOCH`` and
+    ``TABLE1_ONN_1024_VAL``: a step's layer-0 V mesh resident forward and
+    backward, the 3 wide meshes route B forward and the warp-rows
+    backward; a validation forward's 3 wide meshes route A); dense:
+    none."""
     from benchmarks import torch_table1_hjb as table1
+    from repro_torch import pde as pde_lib
     from repro_torch.core import photonic
     from repro_torch.kernels import mesh_apply as mesh
-    want = dict.fromkeys(table1.COUNTED + mesh.DESIGNS, 0)
+    want = dict.fromkeys(table1.COUNTED + mesh.DESIGNS + table1.GRAD_KEYS,
+                         0)
     vf = TABLE1_VAL_FORWARDS
     if mode in ("tt", "tonn") and not on_chip:
         want["tt_contract"] = 2 * epochs + 2 * vf
@@ -2834,8 +3159,22 @@ def _table1_want(mode: str, on_chip: bool, epochs: int) -> dict:
         if mode == "tonn":
             want["mesh_densify_stacked"] = epochs + vf
             want["mesh_densify_grad"] = epochs
+    elif mode == "onn" and not on_chip and hidden == 1024:
+        for counts, n in ((TABLE1_ONN_1024_EPOCH, epochs),
+                          (TABLE1_ONN_1024_VAL, vf)):
+            for k, v in counts.items():
+                want[k] += v * n
+        want["mesh_apply_stacked"] = 4 * (epochs + vf)
+        want["mesh_apply_stacked_grad"] = 4 * epochs
     elif mode == "onn" and not on_chip:
-        want["mesh_apply_stacked"] = want["resident"] = 4 * (epochs + vf)
+        problem = pde_lib.get_problem("hjb-20d")
+        stencil = (2 * problem.in_dim + 1) * 100
+        for ports in (problem.net_dim, hidden, hidden, hidden):
+            layout = photonic.rectangular_layout(ports)
+            want[_mesh_route(layout, stencil)] += epochs
+            want[_mesh_route(layout, table1.VAL_POINTS)] += vf
+            want[f"grad_{mesh.grad_design(layout)}"] += epochs
+        want["mesh_apply_stacked"] = 4 * (epochs + vf)
         want["mesh_apply_stacked_grad"] = 4 * epochs
     elif mode == "tonn":
         want["mesh_densify_stacked"] = epochs + vf
@@ -2850,17 +3189,19 @@ def _table1_want(mode: str, on_chip: bool, epochs: int) -> dict:
     return want
 
 
-# the off-chip ONN row (dense mapped onto noise: onn by BP) at the JAX
-# benchmark's own width, whose meshes the resident backward holds
-TABLE1_ONN_BP = (("dense", False, True), 64)
+# the off-chip ONN row (dense mapped onto noise: onn by BP) at the paper's
+# width: its hidden meshes take route B forward on the stencil's 4300 rows
+# and the warp-rows backward
+TABLE1_ONN_BP = (("dense", False, True), 1024)
 
 
 def phase_table1(device) -> dict:
     """The paper's five Table 1 rows through ``benchmarks/
-    torch_table1_hjb.run_row`` at its width, and the off-chip ONN row at
-    hidden 64, for ``TABLE1_EPOCHS`` epochs each (seed 0): every val MSE
-    finite, each row's launches exactly its path's (``_table1_want``) and
-    none of the other counted kernels, ms a step on CUDA events."""
+    torch_table1_hjb.run_row`` at its width, and the off-chip ONN row
+    there too, for ``TABLE1_EPOCHS`` epochs each (seed 0): every val MSE
+    finite, each row's launches exactly its path's (``_table1_want``: by
+    kernel, and the meshes' by design and route, forward and backward)
+    and none of the other counted kernels, ms a step on CUDA events."""
     import numpy as np
     from benchmarks import torch_table1_hjb as table1
     out = {}
@@ -2871,7 +3212,7 @@ def phase_table1(device) -> dict:
         r = table1.run_row(*key, hidden=hidden, tt_L=4,
                            epochs=TABLE1_EPOCHS, device=device)
         launches = table1.kernel_launches()                # ends
-        want = _table1_want(r["mode"], r["on_chip"], TABLE1_EPOCHS)
+        want = _table1_want(r["mode"], r["on_chip"], TABLE1_EPOCHS, hidden)
         if launches != want:
             raise AssertionError(f"{name}: {launches} over {TABLE1_EPOCHS} "
                                  f"epochs; expected {want}")
@@ -2880,7 +3221,7 @@ def phase_table1(device) -> dict:
                 and np.isfinite(r["final_loss"])):
             raise AssertionError(f"{name}: non-finite result {r}")
         r["launches"] = {k: v for k, v in launches.items() if v}
-        val_only = _table1_want(r["mode"], r["on_chip"], 0)
+        val_only = _table1_want(r["mode"], r["on_chip"], 0, hidden)
         r["launches_per_step"] = {k: (v - val_only[k]) / TABLE1_EPOCHS
                                   for k, v in launches.items() if v}
         out[name] = r
@@ -3353,11 +3694,13 @@ def main() -> int:
     retaken: dict = {}              # phase -> profiler windows taken again
 
     def run(phase, *args):
-        before = PROFILE_RETRIES["windows"]
+        before, windows = PROFILE_RETRIES["windows"], len(PROFILE_LAGS)
         out = phase(*args)
         retaken[phase.__name__] = PROFILE_RETRIES["windows"] - before
+        lags = [x for x in PROFILE_LAGS[windows:] if x is not None]
         line = {"phase": phase.__name__,
-                "profile_retries": retaken[phase.__name__]}
+                "profile_retries": retaken[phase.__name__],
+                "device_lag_ms": [min(lags), max(lags)] if lags else None}
         print(f"[profile] {json.dumps(line)}", flush=True)
         return out
 
@@ -3381,6 +3724,7 @@ def main() -> int:
     run(phase_table2)
     run(phase_table1, device)
     pdes = run(phase_train_pde, device)
+    mesh_grad.update(run(phase_mesh_grad_wide))
 
     main_case = kernel["cases"][0]                       # paper spec, B=2048
     entry = {"name": "tt_contract", "route": "cuda",
@@ -3644,6 +3988,10 @@ def main() -> int:
                 "cases": [r for k, r in mesh_grad.items()
                           if k.startswith("densify")]}
     main_ag = mesh_grad["p64-4300"]
+    resident = [r for k, r in mesh_grad.items()
+                if not k.startswith("densify") and r["design"] == "resident"]
+    warp_rows = [r for r in mesh_grad.values()
+                 if r.get("design") == "warp_rows"]
     entry_ag = {"name": "mesh_apply_grad", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/mesh_apply.cu",
                 "replaces": "src/repro/kernels/mesh_apply.py:93 (the "
@@ -3652,20 +4000,43 @@ def main() -> int:
                             "scan)",
                 "launches": trained_bp["onn-adamw"]["launches"][
                     "mesh_apply_stacked_grad"],
-                "max_abs_err": max(r["max_abs_err"] for k, r in
-                                   mesh_grad.items()
-                                   if not k.startswith("densify")),
+                "max_abs_err": max(r["max_abs_err"] for r in resident),
                 "max_err_over_bound": max(r["max_err_over_bound"]
-                                          for k, r in mesh_grad.items()
-                                          if not k.startswith("densify")),
+                                          for r in resident),
                 **{k: main_ag[k] for k in grad_keys},
                 "shape": "64-port rectangular mesh (64 levels), S = 1, y and "
                          "dy (1, 4300, 64): the hidden layer's U mesh of an "
                          "onn BP step at hidden 64 (library: none; "
                          "autograd_plain_ms is torch.autograd.grad through "
                          "the plain gather form, for scale)",
-                "cases": [r for k, r in mesh_grad.items()
-                          if not k.startswith("densify")]}
+                "cases": resident}
+    main_rg = mesh_grad["p1024-4300"]
+    onn_wide = trained_bp["onn-1024-adamw"]
+    entry_rg = {"name": "mesh_rows_grad", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/mesh_apply.cu",
+                "replaces": "src/repro/kernels/mesh_apply.py:93 (the "
+                            "backward of B3's wide routes A and B; the TPU "
+                            "kernel has none, JAX differentiates its jnp "
+                            "gather scan, src/repro/kernels/ops.py:139)",
+                "launches": onn_wide["mesh_designs"]["backward"][
+                    "warp_rows"],
+                "max_abs_err": max(r["max_abs_err"] for r in warp_rows),
+                "max_err_over_bound": max(r["max_err_over_bound"]
+                                          for r in warp_rows),
+                **{k: main_rg[k] for k in grad_keys},
+                "kernel_each_ms": main_rg["kernel_each_ms"],
+                "scratch_bytes": main_rg["scratch_bytes"],
+                "layer0": {label: {k: mesh_grad[label][k] for k in grad_keys}
+                           for label in ("u1024-100", "u1024-21")},
+                "shape": "1024-port rectangular mesh (1024 levels), S = 1, y "
+                         "and dy (1, 4300, 1024) from route B's forward: the "
+                         "hidden layer's U mesh of an onn BP step at hidden "
+                         "1024 (library: none; autograd_plain_ms is "
+                         "torch.autograd.grad through the plain gather "
+                         "form, for scale; kernel_device_ms sums the trig "
+                         "prologue, the walk and the columns' sum, "
+                         "kernel_each_ms each)",
+                "cases": warp_rows}
     tonn_bp, onn_bp = trained_bp["tonn-noise-adamw"], trained_bp["onn-adamw"]
     print(f"[train-bp] tonn AdamW (noise): {tonn_bp['bp_step_ms']:.3f} ms "
           f"per BP step; onn AdamW at hidden 64: {onn_bp['bp_step_ms']:.3f} "
@@ -3674,9 +4045,14 @@ def main() -> int:
           f"{main_dg['bound_ms']:.6f} ms), mesh_apply_grad "
           f"{main_ag['ms']:.4f} ms ({main_ag['kernel_device_ms']} ms alone, "
           f"bound {main_ag['bound_ms']:.6f} ms) on {card}", flush=True)
+    print(f"[train-bp] onn AdamW at hidden 1024: "
+          f"{onn_wide['bp_step_ms']:.3f} ms per BP step; mesh_rows_grad "
+          f"{main_rg['ms']:.4f} ms per call ({main_rg['kernel_device_ms']} "
+          f"ms alone, bound {main_rg['bound_ms']:.6f} ms) on {card}",
+          flush=True)
     print(json.dumps({"kernels": [entry, entry_b, entry_m, entry_q,
                                   entry_f, entry_g, entry_a, entry_d,
-                                  entry_dg, entry_ag],
+                                  entry_dg, entry_ag, entry_rg],
                       "profile_retries": retaken}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -26,17 +26,18 @@ Serving runs the single forward, whose TT layers go through
 at a time; the off-chip BP baselines differentiate that forward with
 autograd (on the card, ``tt_linear`` runs the TT kernel and its
 hand-written backward, tonn's grouped densification its grouped backward,
-and onn's meshes at widths the resident design holds its backward; onn
-BP at hidden 1024 waits for the wide routes' backward, ``onn_wide_ports``,
-ROADMAP item 6c-2).  ``dense`` layers are ``torch.matmul`` /
-``einsum``, as the JAX package leaves them to XLA.  Fused ZO training runs
-the stacked path: the N+1 SPSA-perturbed parameter sets of every core
-mesh densify in one program (``prepare_params_stacked`` →
-``kernels.ops.mesh_densify_stacked``, one launch) and the FD stencil goes
-through every perturbed model at once (``fd_u_stencil_stacked`` →
-``kernels.ops.tt_linear_batched``, three launches).  On the card those
-are the CUDA kernels; on the CPU their plain versions.  Forwards are
-plain functions of a params dict of tensors.
+and onn's meshes the resident backward or, at hidden 1024, the warp-rows
+backward of the wide routes; a width whose meshes no backward holds,
+``onn_no_backward_ports``, is ROADMAP item 6c-3).  ``dense`` layers are
+``torch.matmul`` / ``einsum``, as the JAX package leaves them to XLA.
+Fused ZO training runs the stacked path: the N+1 SPSA-perturbed
+parameter sets of every core mesh densify in one program
+(``prepare_params_stacked`` → ``kernels.ops.mesh_densify_stacked``, one
+launch) and the FD stencil goes through every perturbed model at once
+(``fd_u_stencil_stacked`` → ``kernels.ops.tt_linear_batched``, three
+launches).  On the card those are the CUDA kernels; on the CPU their
+plain versions.  Forwards are plain functions of a params dict of
+tensors.
 
 Quantization-aware training and serving (``cfg.quant``): with weight
 quantization on, every TT layer sees block-scaled int8 / fp8 cores (the
@@ -78,7 +79,7 @@ from repro_torch.kernels import quant as quant_lib
 
 __all__ = ["PINNConfig", "TensorPinn", "config_to_meta", "config_from_meta",
            "residual_loss", "residual_losses_stacked", "per_term_losses",
-           "validation_mse", "onn_wide_ports"]
+           "validation_mse", "onn_no_backward_ports"]
 
 PORTED_MODES = ("dense", "onn", "tt", "tonn")
 
@@ -129,17 +130,17 @@ def config_from_meta(meta: dict) -> PINNConfig:
     return PINNConfig(**kw)
 
 
-def onn_wide_ports(cfg: PINNConfig) -> list:
-    """The widths of ``cfg``'s ``onn`` meshes (rectangular layouts) whose
-    backward the resident design does not hold
-    (``kernels.mesh_apply.grad_fits``): BP through them needs the wide
-    routes' backward, ROADMAP item 6c-2.  The same on every device; empty
-    for the other modes."""
+def onn_no_backward_ports(cfg: PINNConfig) -> list:
+    """The widths of ``cfg``'s ``onn`` meshes (rectangular layouts) that no
+    backward kernel holds (``kernels.mesh_apply.grad_design``: past 1024
+    ports, the owner walk's): BP through them is ROADMAP item 6c-3.  The
+    same on every device; empty for the other modes."""
     if cfg.mode != "onn":
         return []
     net = pde_lib.get_problem(cfg.pde).net_dim
-    return sorted({p for p in (cfg.hidden, net) if not mesh_kernels.grad_fits(
-        photonic.rectangular_layout(p))})
+    return sorted({p for p in (cfg.hidden, net)
+                   if mesh_kernels.grad_design(
+                       photonic.rectangular_layout(p)) is None})
 
 
 class TensorPinn:

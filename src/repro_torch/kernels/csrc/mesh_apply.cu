@@ -42,8 +42,12 @@
 //   mesh_apply_grad_launch  the backward of mesh_apply_launch (port-only
 //                        too): dx and dphases from the saved output, grid
 //                        (row-tile columns, S), the tables resident.
-//                        Both backwards are below ("backwards"); the wide
-//                        routes have none (ROADMAP item 6c-2).
+//                        Both backwards are below ("backwards").
+//   mesh_rows_grad_launch  the backward of the wide routes A and B (port-
+//                        only too), in route A's warp-row layout: dx and
+//                        dphases from the saved output of either route
+//                        ("warp rows backward", below).  The owner walk's
+//                        layouts have no backward (ROADMAP item 6c-3).
 //
 // Every product, sum and quotient is rounded on its own (__fmul_rn,
 // __fadd_rn, __fdiv_rn: no FMA contraction) in the plain version's order,
@@ -1128,6 +1132,303 @@ int rows_launch(const float* x, const float* phases, const int* plan,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------ warp rows backward
+//
+// The backward of routes A and B (port-only, as the resident backward;
+// the JAX package differentiates its jnp gather scan): from the forward's
+// output y and the gradient dy there, (S, batch, ports), dx (S, batch,
+// ports) and dphases (S, levels, slots).  The arithmetic of
+// reverse_levels in route A's register layout: a warp holds R rows of y
+// and of the gradient g, lane t wires [t*W, (t+1)*W).
+//   A level is orthogonal, so its inverse is its transpose, and both the
+//   state recovery (x from y) and the gradient carry (g <- M^T g) are the
+//   forward's level with the opposite transpose: route A's level function
+//   (rows_level) on the records mesh_trig_kernel writes with !transpose,
+//   walked in the order a forward with !transpose walks.  So y and g are
+//   the plain version's bits level by level (c*y - s*q and c*y + (-s)*q
+//   round alike).
+//   The phase term of a pair (lo, hi) is taken before the level is undone,
+//   from its output: with the forward's record (c, s), s = t*sign_lo*sin
+//   phi (t = -1 transposed), d y_lo / d phi = q*y_hi and d y_hi / d phi =
+//   -q*y_lo, q = t*sign_lo.  So the pair adds q*(g_lo*y_hi - g_hi*y_lo),
+//   summed over the warp's R rows in registers (each pair of a level is
+//   owned by one lane: at parity 1 the pair across a lane's right edge by
+//   that lane, through one shuffle of y and one of g), then over the
+//   block's warps in warp order through shared memory: each warp writes
+//   its terms by entry (a double buffer, one barrier a level), and thread
+//   k of the block reads slot k's entry and sign from the layout's slot
+//   map (kernels/mesh_apply.py::grad_slot_map; staged beside the records,
+//   one bulk copy each a chunk) and writes the block's sum, or 0 for a
+//   slot no pair holds, to its column's partials.  No float atomics:
+//   mesh_grad_sum_kernel adds the columns in order, so two calls give the
+//   same bits.
+// The diag as in mesh_apply_grad_kernel: transposed (D last), the walk
+// starts from y / D and dy * D; otherwise dx = g * D at the end.
+//
+// Grid (columns, S): block x takes rows [x*warps*R, (x+1)*warps*R) of
+// entry s, so each column writes its partials (levels x slots floats of
+// every entry) once, not once a row tile.  Registers bound the block: y
+// and g of R rows take 2*R*W of them a thread, 64 at W = 32 and R = 1,
+// which leaves 512 threads (16 warps) a block; R = 2 at W = 32 takes 256.
+// Bound: per element and level 3 operations to recover the state and 3
+// for the gradient, 4 a pair and row for the phase term (two products, a
+// difference and the add over the rows; q is applied once a slot), at the
+// issue rate; the partials (columns x S x levels x slots floats) are written
+// once and read once by the sum.
+
+constexpr int kMapNeg = 1 << 16;   // slot map: the pair's lower wire has
+                                   // sign -1 (bits 0-15: its entry i*32+t)
+
+template <int W, int R>
+struct RowsGradShape {
+  static constexpr int kMaxThreads = W * R > 32 ? 256 : 512;
+  static constexpr int kTerms = RowsShape<W>::kEntries * 32;  // a warp's
+};
+
+template <int W, int R>
+__device__ __forceinline__ float pair_term(const float (&y)[R][W],
+                                           const float (&g)[R][W], int lo,
+                                           int hi) {
+  float acc = __fsub_rn(__fmul_rn(g[0][lo], y[0][hi]),
+                        __fmul_rn(g[0][hi], y[0][lo]));
+#pragma unroll
+  for (int r = 1; r < R; ++r)
+    acc = __fadd_rn(acc, __fsub_rn(__fmul_rn(g[r][lo], y[r][hi]),
+                                   __fmul_rn(g[r][hi], y[r][lo])));
+  return acc;
+}
+
+// The unsigned phase terms g_lo*y_hi - g_hi*y_lo of the pairs a lane owns
+// at one level, summed over the warp's R rows, into out[i*32 + lane]: at
+// parity 0 entries 0..W/2-1 (pairs (2i, 2i+1)), at parity 1 entries
+// 1..W/2 (pairs (2i-1, 2i), and entry W/2 the pair (W-1, the right lane's
+// wire 0)).  Entries that are no pair get a term nothing reads.
+template <int W, int R>
+__device__ __forceinline__ void rows_terms(const float (&y)[R][W],
+                                           const float (&g)[R][W],
+                                           int parity, int lane,
+                                           float* __restrict__ out) {
+  constexpr int H = W / 2;
+  if (parity == 0) {
+#pragma unroll
+    for (int i = 0; i < H; ++i)
+      out[i * 32 + lane] = pair_term<W, R>(y, g, 2 * i, 2 * i + 1);
+    return;
+  }
+#pragma unroll
+  for (int i = 1; i < H; ++i)
+    out[i * 32 + lane] = pair_term<W, R>(y, g, 2 * i - 1, 2 * i);
+  float acc = 0.0f;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float yh = __shfl_down_sync(kFullMask, y[r][0], 1);
+    const float gh = __shfl_down_sync(kFullMask, g[r][0], 1);
+    const float t = __fsub_rn(__fmul_rn(g[r][W - 1], yh),
+                              __fmul_rn(gh, y[r][W - 1]));
+    acc = r == 0 ? t : __fadd_rn(acc, t);
+  }
+  out[H * 32 + lane] = acc;
+}
+
+// table: the records of mesh_trig_kernel with !transpose (S, levels,
+// kRecord); smap: the slot map (levels, map_stride) int32; part: this
+// call's partials (gridDim.x, S, levels, slots), or dphases itself with
+// one column, or null (no dphases asked for); dx: (S, batch, ports) or
+// null.
+template <int W, int R>
+__global__ void __launch_bounds__(RowsGradShape<W, R>::kMaxThreads)
+mesh_rows_grad_kernel(const float* __restrict__ y,
+                      const float* __restrict__ dy,
+                      const float* __restrict__ table,
+                      const int* __restrict__ smap,
+                      const float* __restrict__ diag, float* __restrict__ dx,
+                      float* __restrict__ part, int batch, int ports,
+                      int levels, int slots, int map_stride,
+                      int64_t diag_stride_s, int transpose) {
+  using Shape = RowsShape<W>;
+  constexpr int kTerms = RowsGradShape<W, R>::kTerms;
+  // the record ring, the slot-map ring, the terms' double buffer, then the
+  // ring's barriers
+  extern __shared__ float4 grad_rows_smem[];
+  float* smem = reinterpret_cast<float*>(grad_rows_smem);
+  const bool phase = part != nullptr;
+  const int warps = blockDim.x >> 5;
+  const int map_chunk = Shape::kStage * map_stride;
+  int* mring = reinterpret_cast<int*>(smem + Shape::kRingFloats);
+  float* terms = reinterpret_cast<float*>(
+      mring + (phase ? Shape::kRing * map_chunk : 0));
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      terms + (phase ? 2 * warps * kTerms : 0));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t s = blockIdx.y;
+  const bool tr = transpose != 0;
+  const bool rev = !tr;              // the walk's order: a !tr forward's
+  const int row0 = (blockIdx.x * warps + warp) * R;
+  const float* dg = diag + s * diag_stride_s;
+  const float* tab = table + s * levels * Shape::kRecord;
+  const int chunks = (levels + Shape::kStage - 1) / Shape::kStage;
+
+  auto chunk_cl0 = [&](int k, int n) {
+    const int first = k * Shape::kStage;
+    return rev ? levels - first - n : first;
+  };
+  auto stage = [&](int k) {
+    if (k >= chunks) return;
+    const int n = min(Shape::kStage, levels - k * Shape::kStage);
+    const int cl0 = chunk_cl0(k, n);
+    const unsigned bar = smem_u32(full + k % Shape::kRing);
+    const unsigned rbytes = n * Shape::kRecord * sizeof(float);
+    const unsigned mbytes = phase ? n * map_stride * sizeof(int) : 0;
+    mbar_expect_tx(bar, rbytes + mbytes);
+    bulk_copy(smem_u32(smem + (k % Shape::kRing) * Shape::kStage *
+                                  Shape::kRecord),
+              tab + static_cast<size_t>(cl0) * Shape::kRecord, rbytes, bar);
+    if (phase)
+      bulk_copy(smem_u32(mring + (k % Shape::kRing) * map_chunk),
+                smap + static_cast<size_t>(cl0) * map_stride, mbytes, bar);
+  };
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < Shape::kRing; ++j) mbar_init(smem_u32(full + j), 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int k = 0; k < Shape::kRing - 1; ++k) stage(k);
+
+  // the levels' output and its gradient: y, dy; transposed y / D, dy * D
+  float v[R][W], gv[R][W];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + r;
+    const size_t base = (s * batch + row) * static_cast<size_t>(ports);
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      const int w = lane * W + j;
+      float a = 0.0f, b = 0.0f;
+      if (row < batch && w < ports) {
+        a = y[base + w];
+        b = dy[base + w];
+        if (tr) {
+          a = __fdiv_rn(a, dg[w]);
+          b = __fmul_rn(b, dg[w]);
+        }
+      }
+      v[r][j] = a;
+      gv[r][j] = b;
+    }
+  }
+
+  const bool first = lane == 0;
+  const bool last = ports % W == 0 && lane == ports / W - 1;
+  float* dst = phase ? part + (static_cast<size_t>(blockIdx.x) * gridDim.y +
+                               s) * levels * slots
+                     : nullptr;
+  int buf = 0;
+#pragma unroll 1
+  for (int k = 0; k < chunks; ++k) {
+    __syncthreads();           // chunk k - 1 done: its ring slot is free
+    if (threadIdx.x == 0) stage(k + Shape::kRing - 1);
+    mbar_wait(smem_u32(full + k % Shape::kRing), (k / Shape::kRing) & 1);
+    const float* cur =
+        smem + (k % Shape::kRing) * Shape::kStage * Shape::kRecord;
+    const int* cmap = mring + (k % Shape::kRing) * map_chunk;
+    const int n = min(Shape::kStage, levels - k * Shape::kStage);
+    const int cl0 = chunk_cl0(k, n);
+#pragma unroll 1
+    for (int lv = 0; lv < n; ++lv) {
+      const int idx = rev ? n - 1 - lv : lv;
+      const float* rec = cur + idx * Shape::kRecord;
+      const float2* ent = reinterpret_cast<const float2*>(rec);
+      const unsigned absent =
+          reinterpret_cast<const unsigned*>(rec + Shape::kEntries * 64)[lane];
+      const int mode = reinterpret_cast<const int*>(rec + Shape::kMode)[0];
+      float* tb = terms + buf * warps * kTerms;
+      if (phase) rows_terms<W, R>(v, gv, mode & 1, lane, tb + warp * kTerms);
+      rows_level<W, R>(v, ent, absent, mode, lane, first, last);
+      rows_level<W, R>(gv, ent, absent, mode, lane, first, last);
+      if (phase) {
+        __syncthreads();
+        const int* mp = cmap + idx * map_stride;
+        float* out = dst + static_cast<size_t>(cl0 + idx) * slots;
+        for (int q = threadIdx.x; q < slots; q += blockDim.x) {
+          const int m = mp[q];
+          float acc = 0.0f;
+          if (m >= 0) {
+            const int e = m & (kMapNeg - 1);
+            acc = tb[e];
+            for (int w = 1; w < warps; ++w)
+              acc = __fadd_rn(acc, tb[w * kTerms + e]);
+            if (((m & kMapNeg) != 0) != tr) acc = -acc;
+          }
+          out[q] = acc;
+        }
+        buf ^= 1;
+      }
+    }
+  }
+
+  if (dx == nullptr) return;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + r;
+    if (row >= batch) continue;
+    float* dr = dx + (s * batch + row) * static_cast<size_t>(ports);
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      const int w = lane * W + j;
+      if (w < ports) dr[w] = tr ? gv[r][j] : __fmul_rn(gv[r][j], dg[w]);
+    }
+  }
+}
+
+template <int W, int R>
+size_t rows_grad_smem(int warps, int map_stride, bool phase) {
+  using Shape = RowsShape<W>;
+  return Shape::kRingFloats * sizeof(float) +
+         (phase ? (static_cast<size_t>(Shape::kRing) * Shape::kStage *
+                       map_stride +
+                   2 * static_cast<size_t>(warps) *
+                       RowsGradShape<W, R>::kTerms) * sizeof(float)
+                : 0) +
+         Shape::kRing * sizeof(uint64_t);
+}
+
+template <int W, int R>
+int rows_grad_launch(const float* y, const float* dy, const float* phases,
+                     const int* plan, const int* smap, int map_stride,
+                     const float* diag, float* dx, float* dph, float* part,
+                     float* table, int batch, int ports, int levels,
+                     int slots, int stack, int warps, int blocks_x,
+                     int64_t diag_stride_s, int transpose,
+                     cudaStream_t stream) {
+  if (32 * warps > RowsGradShape<W, R>::kMaxThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool phase = dph != nullptr;
+  mesh_trig_kernel<W><<<dim3((levels + 7) / 8, stack), 256, 0, stream>>>(
+      phases, plan, table, levels, slots, !transpose);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = rows_grad_smem<W, R>(warps, map_stride, phase);
+  err = cudaFuncSetAttribute(mesh_rows_grad_kernel<W, R>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float* target = !phase ? nullptr : (blocks_x > 1 ? part : dph);
+  mesh_rows_grad_kernel<W, R>
+      <<<dim3(blocks_x, stack), 32 * warps, smem, stream>>>(
+          y, dy, table, smap, diag, dx, target, batch, ports, levels, slots,
+          map_stride, diag_stride_s, transpose);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !phase || blocks_x == 1)
+    return static_cast<int>(err);
+  const int64_t count = static_cast<int64_t>(stack) * levels * slots;
+  const int blocks = static_cast<int>(
+      std::min<int64_t>((count + kThreads - 1) / kThreads, 1024));
+  mesh_grad_sum_kernel<<<blocks, kThreads, 0, stream>>>(part, dph, blocks_x,
+                                                        count);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ------------------------------------------------------------------ dense
 
 // y_s = x_s * M_s: block tile 128 x 128 of y, k tiles of 32, 8 warps of
@@ -1544,4 +1845,54 @@ extern "C" int mesh_apply_grad_launch(const void* y, const void* dy,
       static_cast<const float*>(partials), static_cast<float*>(dphases),
       blocks_x, count);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The warp-rows backward (routes A and B): y, dy (S, batch, ports), the
+// forward's output and its gradient; phases, diag, transpose as for
+// mesh_rows_launch; plan: the layout's record plan; smap: its slot map
+// (levels, map_stride) int32, map_stride a multiple of 4 of at least
+// slots; dx (S, batch, ports) or null; dphases (S, levels, slots) or null;
+// partials (blocks_x, S, levels, slots) scratch, used when blocks_x > 1;
+// table: (S, levels, kRecord) f32 scratch.  blocks_x must be the row
+// tiles of warps * R rows.
+extern "C" int mesh_rows_grad_launch(const void* y, const void* dy,
+                                     const void* phases, const void* plan,
+                                     const void* smap, const void* diag,
+                                     void* dx, void* dphases, void* partials,
+                                     void* table, int batch, int ports,
+                                     int levels, int slots, int map_stride,
+                                     int stack, int lane_width,
+                                     int rows_per_warp, int warps,
+                                     int blocks_x, int64_t diag_stride_s,
+                                     int transpose, void* stream) {
+  const int tile = std::max(warps * rows_per_warp, 1);
+  if (batch < 1 || ports < 2 || ports > 32 * lane_width || levels < 1 ||
+      slots < 1 || map_stride < slots || map_stride % 4 != 0 || stack < 1 ||
+      stack > 65535 || warps < 1 || diag_stride_s < 0 || table == nullptr ||
+      blocks_x != (batch + tile - 1) / tile ||
+      (dx == nullptr && dphases == nullptr) ||
+      (dphases != nullptr && blocks_x > 1 && partials == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* yf = static_cast<const float*>(y);
+  const float* df = static_cast<const float*>(dy);
+  const float* pf = static_cast<const float*>(phases);
+  const int* pl = static_cast<const int*>(plan);
+  const int* sm = static_cast<const int*>(smap);
+  const float* dg = static_cast<const float*>(diag);
+  float* dxf = static_cast<float*>(dx);
+  float* dpf = static_cast<float*>(dphases);
+  float* pt = static_cast<float*>(partials);
+  float* tb = static_cast<float*>(table);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MESH_ROWS_GRAD_CASE(W, R)                                            \
+  if (lane_width == W && rows_per_warp == R)                                \
+    return rows_grad_launch<W, R>(yf, df, pf, pl, sm, map_stride, dg, dxf,  \
+                                  dpf, pt, tb, batch, ports, levels, slots, \
+                                  stack, warps, blocks_x, diag_stride_s,    \
+                                  transpose, st);
+  MESH_ROWS_GRAD_CASE(8, 1) MESH_ROWS_GRAD_CASE(8, 2)
+  MESH_ROWS_GRAD_CASE(16, 1) MESH_ROWS_GRAD_CASE(16, 2)
+  MESH_ROWS_GRAD_CASE(32, 1) MESH_ROWS_GRAD_CASE(32, 2)
+#undef MESH_ROWS_GRAD_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

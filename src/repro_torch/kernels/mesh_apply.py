@@ -36,7 +36,7 @@ route A's ``rows_plan``).  Two entries:
     kernel by value (``MeshGroup``, a ctypes mirror of the C struct), so
     the launch copies nothing from the host.
 
-Two backwards, port-only (the TPU kernel has none; the JAX package
+Backwards, port-only (the TPU kernel has none; the JAX package
 differentiates its jnp scan), for the off-chip BP baselines:
 
   * ``mesh_densify_grad`` — the grouped densification's, one launch for
@@ -44,26 +44,33 @@ differentiates its jnp scan), for the off-chip BP baselines:
     the noise model) and dsigma from the cores' gradients.  Each block
     keeps its forward's states in shared memory where they fit
     (``densify_grad_saves``).  ``MeshDensifyFn`` puts it under autograd.
-  * ``mesh_apply_stacked_grad`` — the resident design's: dx and dphases
+  * ``mesh_apply_stacked_grad`` — the standalone mesh's: dx and dphases
     from the saved output, the states recovered level by level
-    (``MeshApplyFn``).  The wide routes have none (ROADMAP item 6c-2).
+    (``MeshApplyFn``), through the design ``grad_design`` picks from the
+    layout alone: ``resident`` where the resident backward's tables fit a
+    block (``grad_fits``), else ``warp_rows``, route A's register layout
+    walked in reverse (``grad_rows_config``, ``grad_slot_map``), the
+    backward of routes A and B both.  The owner walk's layouts (pairs of
+    wires that are not adjacent, or more than 1024 ports) have no backward
+    (ROADMAP item 6c-3).
 
-Both are held to their plain versions ``kernels.ref.mesh_densify_grad_ref``
-and ``mesh_apply_grad_ref``, and sum in a fixed order: two calls give the
-same bits.
+Each is held to its plain version (``kernels.ref.mesh_densify_grad_ref``,
+``mesh_apply_grad_ref``), and sums in a fixed order, no float atomics: two
+calls give the same bits.
 
 The TPU's one-hot permutation matmul (``mesh_perm_onehot``) has no
 counterpart: the kernels read a wire's partner from shared memory or a
 neighbouring lane.  The TPU's size limits assumed VMEM; here a block holds
 its tables and buffers in at most Hopper's 232,448 bytes of shared memory
-(``smem_bytes``, ``stream_smem_bytes``, ``densify_smem_bytes``), and what
-no design holds raises — there is no plain fallback on the card.
+(``smem_bytes``, ``stream_smem_bytes``, ``densify_smem_bytes``,
+``grad_rows_smem_bytes``), and what no design holds raises — there is no
+plain fallback on the card.
 
 Each wrapper checks what its kernel takes and raises on anything else,
 allocates the output and its scratch, launches on the current stream
 without synchronizing, and counts its launches (``<wrapper>.launches``;
-per design and route ``mesh_apply_stacked.design_launches``, one count a
-call).
+per design and route ``mesh_apply_stacked.design_launches`` and
+``mesh_apply_stacked_grad.design_launches``, one count a call).
 """
 
 from __future__ import annotations
@@ -90,13 +97,16 @@ __all__ = ["mesh_apply_stacked", "launch_resident", "launch_warp_rows",
            "grad_fits", "grad_rows_per_block", "grad_columns",
            "densify_grad_smem_bytes", "densify_grad_saves", "MeshApplyFn",
            "MeshDensifyFn", "apply_autograd", "densify_autograd",
-           "PARAM_KEYS"]
+           "PARAM_KEYS", "route_a_takes", "grad_design",
+           "GRAD_DESIGNS", "grad_slot_map", "grad_rows_config",
+           "grad_rows_smem_bytes", "grad_scratch_bytes"]
 
 MAX_ROW_ELEMENTS = 1024            # rows per block × ports, at most
 MAX_STACK = 65_535                 # the standalone grid's y extent
 MAX_GROUP = 20                     # kMaxGroup: matrices per grouped launch
 DESIGNS = ("resident", "warp_rows", "dense", "owner_walk")
 WIDE_ROUTES = DESIGNS[1:]
+GRAD_DESIGNS = ("resident", "warp_rows")
 ROT_BYTES = 24                     # sizeof(Rot): an owner walk's entry
 LANE_WIDTHS = (8, 16, 32)          # route A's wires a lane (W), compiled
 ROWS_PER_WARP = (4, 2, 1)          # route A's rows a warp (R), compiled
@@ -160,6 +170,12 @@ def adjacent_pairs(layout: ph_lib.MeshLayout) -> bool:
     rectangular and the Reck layouts the repo builds hold; a layout
     ``schedule_ops`` makes of any other pairs may not."""
     return _level_parities(layout) is not None
+
+
+def route_a_takes(layout: ph_lib.MeshLayout) -> bool:
+    """Whether routes A and B (and the warp-rows backward) take the layout:
+    at most 1024 ports, and ``adjacent_pairs``."""
+    return lane_width(layout.ports) is not None and adjacent_pairs(layout)
 
 
 def lane_width(ports: int) -> int | None:
@@ -303,7 +319,7 @@ def wide_route(layout: ph_lib.MeshLayout, S: int, rows: int) -> str:
     ``"warp_rows"``.  The crossover measured the same at S = 1 and 11, so
     S does not move it."""
     P = layout.ports
-    if lane_width(P) is None or not adjacent_pairs(layout):
+    if not route_a_takes(layout):
         return "owner_walk"
     if P % 4 == 0 and rows >= DENSE_MIN_ROWS_PER_PORT * P:
         return "dense"
@@ -353,21 +369,49 @@ def grad_fits(layout: ph_lib.MeshLayout) -> bool:
     """Whether the resident backward holds the layout: its tables and one
     row of each buffer fit a block (a rectangular mesh of up to ~138
     ports, as the forward's resident design).  Wider layouts take the
-    wide routes, which have no backward (ROADMAP item 6c-2)."""
+    warp-rows backward where route A takes them (``grad_design``)."""
     return grad_smem_bytes(layout.ports, layout.levels, 1) <= SMEM_MAX_BYTES
+
+
+def grad_design(layout: ph_lib.MeshLayout) -> str | None:
+    """The backward's design, from the layout alone: ``"resident"`` where
+    ``grad_fits`` holds, ``"warp_rows"`` where route A takes the layout
+    (whichever of routes A and B ran the forward); None for the owner
+    walk's layouts, which no backward holds (item 6c-3)."""
+    if grad_fits(layout):
+        return "resident"
+    if route_a_takes(layout):
+        return "warp_rows"
+    return None
+
+
+def _grad_design_or_raise(layout: ph_lib.MeshLayout) -> str:
+    """``grad_design``, raising for a layout no backward holds, naming
+    item 6c-3."""
+    design = grad_design(layout)
+    if design is not None:
+        return design
+    raise ValueError(
+        f"a {layout.ports}-port, {layout.levels}-level mesh has no backward "
+        "kernel: the resident backward's tables do not fit a block, and the "
+        "warp-rows backward takes layouts of at most 1024 ports whose "
+        "levels pair adjacent wires of one parity; the owner walk's "
+        "backward is ROADMAP queue A, item 6c-3")
 
 
 def grad_rows_per_block(layout: ph_lib.MeshLayout) -> int:
     """Rows one resident backward block takes at a time: about 1024
-    elements, within the shared memory left after the tables.  Raises,
-    naming item 6c-2, where ``grad_fits`` does not hold."""
+    elements, within the shared memory left after the tables.  Raises
+    where ``grad_fits`` does not hold (``grad_design`` names the design
+    that takes such a layout, or item 6c-3)."""
     P, L = layout.ports, layout.levels
     if not grad_fits(layout):
         raise ValueError(
-            f"a {P}-port, {L}-level mesh has no backward kernel: its "
-            f"resident backward needs {grad_smem_bytes(P, L, 1)} B of "
-            f"shared memory per block (the card has {SMEM_MAX_BYTES} B), "
-            "and the wide routes' backward is ROADMAP queue A, item 6c-2")
+            f"the resident backward does not hold a {P}-port, {L}-level "
+            f"mesh: it needs {grad_smem_bytes(P, L, 1)} B of shared memory "
+            f"per block (the card has {SMEM_MAX_BYTES} B); route A's "
+            "layouts take the warp-rows backward, and the owner walk's "
+            "backward is ROADMAP queue A, item 6c-3")
     fit = (SMEM_MAX_BYTES - grad_smem_bytes(P, L, 0)) // (16 * P)
     return max(1, min(MAX_ROW_ELEMENTS // P, fit))
 
@@ -383,6 +427,98 @@ def grad_columns(S: int, tiles: int, sms: int) -> int:
     scratch is ``columns × S × levels × slots`` floats, however many rows
     there are."""
     return max(1, min(tiles, -(-GRAD_BLOCKS_PER_SM * sms // S)))
+
+
+GRAD_ROWS_MIN_WARPS = 4            # the warp-rows backward's block, at least
+MAP_NEG = 1 << 16                  # kMapNeg: a slot's lower wire has sign -1
+
+
+def grad_slot_map(layout: ph_lib.MeshLayout) -> np.ndarray:
+    """The warp-rows backward's slot map, host-built once per layout:
+    ``(levels, map_stride)`` int32, ``map_stride`` the slots rounded up to
+    4 (a level's row is a whole number of 16-byte words, as the bulk copy
+    wants).  For stored level cl and slot k, the entry ``i·32 + t`` of
+    ``rows_plan`` whose lane t owns the slot's pair — at parity 0 its
+    pairs (2i, 2i+1), i < W/2; at parity 1 its pairs (2i−1, 2i), 1 ≤ i <
+    W/2, and i = W/2, the pair across its right edge — with ``MAP_NEG``
+    set where the pair's lower wire has sign −1; −1 for a slot no pair
+    holds.  Memoized on the layout."""
+    memo = layout.__dict__.get("_grad_slot_map")
+    if memo is not None:
+        return memo
+    P, L, K = layout.ports, layout.levels, layout.slots
+    W = lane_width(P)
+    E, H = W // 2 + 1, W // 2
+    plan = rows_plan(layout).view(np.uint32).astype(np.int64)
+    code = plan[:, :E * 32].reshape(L, E, 32)
+    absent = plan[:, E * 32:E * 32 + 32]                       # (L, 32)
+    parity = plan[:, -1] & 1
+    i = np.arange(E)[None, :, None]
+    own = np.where(parity[:, None, None] == 0, i < H, (i >= 1) & (i <= H))
+    pair = ((absent[:, None, :] >> i) & 1) == 0
+    cl, ei, t = np.nonzero(own & pair)
+    c = code[cl, ei, t]
+    stride = -(-K // 4) * 4
+    out = np.full((L, stride), -1, dtype=np.int64)
+    slot = c & ((1 << SLOT_BITS) - 1)
+    if (np.bincount(cl * stride + slot, minlength=L * stride) > 1).any():
+        raise AssertionError("two pairs of a level share a slot")
+    neg = ((c >> SIGN_SHIFT) & 3) == 2
+    out[cl, slot] = ei * 32 + t + np.where(neg, MAP_NEG, 0)
+    out = out.astype(np.int32)
+    object.__setattr__(layout, "_grad_slot_map", out)
+    return out
+
+
+def _map_tensor(layout: ph_lib.MeshLayout,
+                device: torch.device) -> torch.Tensor:
+    memo = layout.__dict__.setdefault("_grad_slot_map_tensors", {})
+    if device not in memo:
+        memo[device] = torch.as_tensor(grad_slot_map(layout), device=device)
+    return memo[device]
+
+
+def grad_rows_config(layout: ph_lib.MeshLayout, S: int, rows: int,
+                     sms: int) -> tuple:
+    """The warp-rows backward's launch: (W, rows per warp R, warps per
+    block, block columns).  A warp holds y and g of R rows, 2·R·W
+    registers a thread: R = 2 where the grid keeps ``ROWS_FILL_WARPS``
+    warps a multiprocessor, else 1 (at onn's hidden layer, 4300 rows of
+    1024 ports, R = 2 in blocks of 8 warps took 7.1 ms and R = 1 in 16
+    warps 10.3 ms, the same 269 columns; tools/mesh_rows_grad.py).  A
+    block takes one row tile of warps·R rows and writes its column's
+    partials once, so more warps a block mean fewer columns and less
+    scratch: as many as give every multiprocessor a block, from
+    ``GRAD_ROWS_MIN_WARPS`` (a small batch is latency-bound: 4 warps a
+    block took 1.44 ms on layer 0's 100 rows, 1 warp 2.34 ms and 8 warps
+    1.96 ms) up to the 512 threads (256 at W·R = 64) the registers
+    allow."""
+    W = lane_width(layout.ports)
+    R = 2 if S * -(-rows // 2) >= ROWS_FILL_WARPS * sms else 1
+    most = (256 if W * R > 32 else 512) // 32
+    warps = min(most, max(GRAD_ROWS_MIN_WARPS, -(-S * rows // (R * sms))))
+    return W, R, warps, -(-rows // (warps * R))
+
+
+def grad_rows_smem_bytes(W: int, warps: int, map_stride: int) -> int:
+    """Shared memory of one warp-rows backward block asked for dphases:
+    route A's record ring, the slot map's ring beside it, the terms'
+    double buffer (each warp's ``(W/2 + 1)·32`` a level) and the ring's
+    barriers (``csrc/mesh_apply.cu::rows_grad_smem``)."""
+    ring, stage = 4, 128 // W
+    return 4 * (ring * stage * (record_floats(W) + map_stride)
+                + 2 * warps * (W // 2 + 1) * 32) + 8 * ring
+
+
+def grad_scratch_bytes(layout: ph_lib.MeshLayout, S: int, rows: int,
+                       sms: int) -> int:
+    """Bytes of the warp-rows backward's scratch with dphases asked for:
+    the block columns' partials ``(columns, S, levels, slots)`` where
+    there is more than one column, and the prologue's records ``(S,
+    levels, record_floats(W))``."""
+    W, _, _, cols = grad_rows_config(layout, S, rows, sms)
+    part = cols * S * layout.levels * layout.slots if cols > 1 else 0
+    return 4 * (part + S * layout.levels * record_floats(W))
 
 
 def densify_grad_smem_bytes(pm: ph_lib.PhotonicMatrix, save: bool) -> int:
@@ -559,6 +695,9 @@ def _library():
     lib.mesh_apply_grad_launch.argtypes = [ctypes.c_void_p] * 10 + [
         ctypes.c_int] * 7 + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
     lib.mesh_apply_grad_launch.restype = ctypes.c_int
+    lib.mesh_rows_grad_launch.argtypes = [ctypes.c_void_p] * 10 + [
+        ctypes.c_int] * 10 + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    lib.mesh_rows_grad_launch.restype = ctypes.c_int
     return lib
 
 
@@ -633,7 +772,7 @@ def _rows(layout, phases, diag, x, y, S, B, transpose, identity) -> None:
 def _route_checks(layout: ph_lib.MeshLayout, route: str) -> None:
     if route not in ("warp_rows", "dense"):
         return
-    if lane_width(layout.ports) is None or not adjacent_pairs(layout):
+    if not route_a_takes(layout):
         raise ValueError(f"the {route} route takes layouts of at most 1024 "
                          "ports whose levels pair adjacent wires of one "
                          "parity")
@@ -801,7 +940,7 @@ def mesh_densify_grad(matrices, params, noises, noise_model,
     one launch.  Returns ``[(dphases_u, dphases_v, dsigma)]`` per matrix,
     of the commanded phases (the noise model's transpose applied in the
     launch), views of one allocation.  Raises for a matrix no block holds
-    (ROADMAP item 6c-2)."""
+    (ROADMAP item 6c-3)."""
     if not matrices:
         raise ValueError("mesh_densify_grad: no matrices")
     device = params[0]["sigma"].device
@@ -815,7 +954,7 @@ def mesh_densify_grad(matrices, params, noises, noise_model,
             raise ValueError(
                 f"a {pm.out_dim} x {pm.in_dim} photonic matrix's backward "
                 f"needs {need} B of shared memory per block; the card has "
-                f"{SMEM_MAX_BYTES} B (ROADMAP queue A, item 6c-2)")
+                f"{SMEM_MAX_BYTES} B (ROADMAP queue A, item 6c-3)")
     S = params[0]["sigma"].shape[0]
     sizes = _densify_grad_splits(matrices, S)
     flat = torch.empty(sum(sizes), dtype=torch.float32, device=device)
@@ -844,12 +983,15 @@ def mesh_apply_stacked_grad(layout: ph_lib.MeshLayout, phases: torch.Tensor,
                             dy: torch.Tensor, transpose: bool = False,
                             need_dx: bool = True,
                             need_dphases: bool = True) -> tuple:
-    """The resident backward of ``mesh_apply_stacked``: from its output y
-    and the gradient dy there, both ``(S, B, P)`` contiguous, the gradient
-    at x as ``(S, B, P)`` (a shared x's is their sum over S, which the
-    caller takes) and at the phases, ``(S, levels, slots)``; either may be
-    skipped (None).  Raises, naming item 6c-2, for a layout
-    ``grad_fits`` refuses (the wide routes)."""
+    """The backward of ``mesh_apply_stacked``: from its output y and the
+    gradient dy there, both ``(S, B, P)`` contiguous, the gradient at x as
+    ``(S, B, P)`` (a shared x's is their sum over S, which the caller
+    takes) and at the phases, ``(S, levels, slots)``; either may be
+    skipped (None).  The design is ``grad_design``'s, from the layout
+    alone: the resident backward, or the warp-rows backward for the
+    layouts of routes A and B (a trig prologue, the walk, and over several
+    block columns the sum of their partials).  Raises, naming item 6c-3,
+    for the owner walk's layouts, before any allocation."""
     S, B = _check_stacked(layout, phases, diag, y)
     P, L, K = layout.ports, layout.levels, layout.slots
     if y.ndim != 3 or tuple(dy.shape) != tuple(y.shape) or \
@@ -861,39 +1003,69 @@ def mesh_apply_stacked_grad(layout: ph_lib.MeshLayout, phases: torch.Tensor,
     if not (need_dx or need_dphases):
         raise ValueError("mesh_apply_stacked_grad: neither dx nor dphases "
                          "asked for")
-    rows = grad_rows_per_block(layout)        # raises before any allocation
+    design = _grad_design_or_raise(layout)    # before any allocation
+    sms = _sm_count(y.device)
+    if design == "resident":
+        rows = grad_rows_per_block(layout)
+    else:
+        W, R, warps, cols = grad_rows_config(layout, S, max(B, 1), sms)
     dx = torch.empty_like(y) if need_dx else None
-    dph = (torch.zeros((S, L, K), dtype=torch.float32, device=y.device)
-           if need_dphases else None)
+    dph = None
+    if need_dphases:
+        # the resident kernel adds into dphases; the warp-rows one writes
+        # every slot
+        dph = (torch.zeros if design == "resident" or B == 0
+               else torch.empty)((S, L, K), dtype=torch.float32,
+                                 device=y.device)
     if B == 0:
         return dx, dph
-    tiles = -(-B // rows)
-    cols = grad_columns(S, tiles, _sm_count(y.device))
-    part = (torch.empty((cols, S, L, K), dtype=torch.float32, device=y.device)
-            if need_dphases and cols > 1 else None)
-    plan = ph_lib.mesh_plan_tensors(layout, y.device)
     with torch.cuda.device(y.device):
-        err = _library().mesh_apply_grad_launch(
-            y.data_ptr(), dy.data_ptr(), phases.data_ptr(),
-            plan["slot_i32"].data_ptr(), plan["sign"].data_ptr(),
-            plan["perm"].data_ptr(), diag.data_ptr(),
-            None if dx is None else dx.data_ptr(),
-            None if dph is None else dph.data_ptr(),
-            None if part is None else part.data_ptr(), B, P, L, K, S, rows,
-            cols, P if diag.ndim == 2 else 0, int(transpose), _stream(y))
-    _raise_on(err, "resident backward")
+        if design == "resident":
+            cols = grad_columns(S, -(-B // rows), sms)
+            part = (torch.empty((cols, S, L, K), dtype=torch.float32,
+                                device=y.device)
+                    if need_dphases and cols > 1 else None)
+            plan = ph_lib.mesh_plan_tensors(layout, y.device)
+            err = _library().mesh_apply_grad_launch(
+                y.data_ptr(), dy.data_ptr(), phases.data_ptr(),
+                plan["slot_i32"].data_ptr(), plan["sign"].data_ptr(),
+                plan["perm"].data_ptr(), diag.data_ptr(),
+                None if dx is None else dx.data_ptr(),
+                None if dph is None else dph.data_ptr(),
+                None if part is None else part.data_ptr(), B, P, L, K, S,
+                rows, cols, P if diag.ndim == 2 else 0, int(transpose),
+                _stream(y))
+        else:
+            smap = _map_tensor(layout, y.device)
+            part = (torch.empty((cols, S, L, K), dtype=torch.float32,
+                                device=y.device)
+                    if need_dphases and cols > 1 else None)
+            table = torch.empty((S, L, record_floats(W)),
+                                dtype=torch.float32, device=y.device)
+            err = _library().mesh_rows_grad_launch(
+                y.data_ptr(), dy.data_ptr(), phases.data_ptr(),
+                _plan_tensor(layout, y.device).data_ptr(), smap.data_ptr(),
+                diag.data_ptr(), None if dx is None else dx.data_ptr(),
+                None if dph is None else dph.data_ptr(),
+                None if part is None else part.data_ptr(), table.data_ptr(),
+                B, P, L, K, smap.shape[1], S, W, R, warps, cols,
+                P if diag.ndim == 2 else 0, int(transpose), _stream(y))
+    _raise_on(err, f"{design} backward")
     mesh_apply_stacked_grad.launches += 1
+    mesh_apply_stacked_grad.design_launches[design] += 1
     return dx, dph
 
 
 mesh_apply_stacked_grad.launches = 0
+mesh_apply_stacked_grad.design_launches = dict.fromkeys(GRAD_DESIGNS, 0)
 
 
 class MeshApplyFn(torch.autograd.Function):
-    """``mesh_apply_stacked`` (the resident design) under autograd: the
-    forward launch, and ``mesh_apply_stacked_grad`` for what
-    ``ctx.needs_input_grad`` asks (x, the phases).  Saves the output, not
-    x: the backward recovers each level's input from it."""
+    """``mesh_apply_stacked`` under autograd: the forward launch (any
+    design or route), and ``mesh_apply_stacked_grad`` (the design
+    ``grad_design`` picks) for what ``ctx.needs_input_grad`` asks (x, the
+    phases).  Saves the output, not x: the backward recovers each level's
+    input from it."""
 
     @staticmethod
     def forward(ctx, layout, transpose, phases, diag, x):
@@ -924,9 +1096,10 @@ class MeshApplyFn(torch.autograd.Function):
 def apply_autograd(layout: ph_lib.MeshLayout, phases: torch.Tensor,
                    diag: torch.Tensor, x: torch.Tensor,
                    transpose: bool = False) -> torch.Tensor:
-    """``mesh_apply_stacked`` where autograd needs its backward, for a
-    layout ``grad_fits`` holds: through ``MeshApplyFn``.  Raises before any
-    launch where the diag buffer requires grad."""
+    """``mesh_apply_stacked`` where autograd needs its backward: through
+    ``MeshApplyFn``.  Raises before any launch where the diag buffer
+    requires grad, or where no backward holds the layout (item 6c-3)."""
+    _grad_design_or_raise(layout)
     if diag.requires_grad:
         raise ValueError("the mesh kernels take no gradient of the ±1 diag "
                          "buffers (TensorPinn.trainable_mask leaves them "

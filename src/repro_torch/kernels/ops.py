@@ -10,13 +10,14 @@ the mesh entries where autograd needs one: ``mesh_densify_stacked`` goes
 through ``mesh_apply.MeshDensifyFn`` (the grouped backward,
 ``mesh_densify_grad``: the tonn BP baselines' densification) and
 ``mesh_apply`` / ``mesh_apply_stacked`` through ``mesh_apply.MeshApplyFn``
-(the resident backward, ``mesh_apply_stacked_grad``: onn's BP at widths
-the resident design holds).  The plain versions on the CPU are
-differentiated by autograd natively.  The batched TT kernels, the wide
-mesh routes (item 6c-2) and the attention kernel have no backward, so their
-entries raise on a CUDA input that requires grad while grad is enabled,
-before the launch (``_no_backward``): the ZO steps run without grad and the
-BP baselines go through ``tt_linear``.
+(``mesh_apply_stacked_grad``: onn's BP; the resident backward up to ~138
+ports, the warp-rows backward for the layouts of the wide routes A and B,
+up to 1024 ports).  The plain versions on the CPU are differentiated by
+autograd natively.  The batched TT kernels, the owner walk's mesh layouts
+(item 6c-3) and the attention kernel have no backward, so their entries
+raise on a CUDA input that requires grad while grad is enabled, before the
+launch (``_no_backward``): the ZO steps run without grad and the BP
+baselines go through ``tt_linear``.
 
 ``quant`` (a ``kernels.quant.QuantConfig``, or None) follows the JAX
 package's ``repro.kernels.ops``: with weight quantization on, the TT layers
@@ -50,9 +51,10 @@ def _weight_quant(quant) -> bool:
 
 
 _NO_BACKWARD_WHY = {
-    "mesh": "the layout takes the wide routes (warp rows, dense, owner "
-            "walk), whose backward is ROADMAP queue A, item 6c-2; the "
-            "resident design's backward holds up to ~138 ports",
+    "mesh": "the layout takes the owner walk (pairs of wires that are not "
+            "adjacent, or more than 1024 ports), whose backward is ROADMAP "
+            "queue A, item 6c-3; the resident backward holds up to ~138 "
+            "ports and the warp-rows backward route A's layouts",
     "tt_batched": "the ZO steps run it without grad, and the BP baselines "
                   "go through tt_linear (tt_contract and its backward)",
     "attention": "an attention backward is ROADMAP queue A, item 14a",
@@ -76,10 +78,11 @@ def _mesh_stacked(name: str, layout: _ph.MeshLayout, phases: torch.Tensor,
                   diag: torch.Tensor, x: torch.Tensor,
                   transpose: bool) -> torch.Tensor:
     """The card's standalone mesh: under grad through ``MeshApplyFn``
-    where the resident backward holds the layout, raising before any
-    launch where it does not; else the forward launch alone."""
+    where a backward holds the layout (``mesh_apply.grad_design``),
+    raising before any launch where none does (the owner walk's layouts,
+    item 6c-3); else the forward launch alone."""
     if _needs_grad((phases, diag, x)):
-        if not _mesh.grad_fits(layout):
+        if _mesh.grad_design(layout) is None:
             _no_backward(name, (phases, diag, x))
         return _mesh.apply_autograd(layout, phases, diag, x, transpose)
     return _mesh.mesh_apply_stacked(layout, phases, diag, x, transpose)
@@ -140,8 +143,9 @@ def mesh_apply_stacked(layout: _ph.MeshLayout, phases: torch.Tensor,
     shared or ``(S, B, P)`` → ``(S, B, P)``.  On the card the layout picks
     the kernel's design (``mesh_apply.mesh_design``) and, for a wide one,
     the layout, S and B its route (``mesh_apply.wide_route``); a layout
-    none holds raises.  Under grad the resident design's backward follows
-    (``mesh_apply.MeshApplyFn``); a wide layout raises (item 6c-2)."""
+    none holds raises.  Under grad the backward ``mesh_apply.grad_design``
+    picks follows (``mesh_apply.MeshApplyFn``); the owner walk's layouts,
+    for which it picks none, raise (item 6c-3)."""
     if x.device.type == "cpu":
         return _ph.mesh_apply_stacked(layout, phases, diag, x, transpose)
     return _mesh_stacked("mesh_apply_stacked", layout, phases, diag, x,

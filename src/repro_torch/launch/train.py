@@ -16,13 +16,14 @@ through six stacked meshes (``mesh_apply_stacked``; the hidden-width
 meshes take its streamed design), ``--sequential`` four meshes per loss
 evaluation.  ``--optimizer adamw|adafactor|sgd`` trains the paper's
 off-chip BP baselines (``--pinn-mode dense``, ``tt``, or ``tonn`` mapped
-onto the noisy hardware, or ``onn`` at widths whose meshes the resident
-design holds, up to ~138 ports) with autograd through ``residual_loss``: on
-the card each TT layer runs the ``tt_contract`` kernel forward and
-``tt_contract_grad`` backward, tonn's meshes densify in one grouped launch
-forward and one backward (``mesh_densify_stacked``,
-``mesh_densify_grad``), and onn's meshes run the resident design forward
-and its backward (``mesh_apply_stacked_grad``).
+onto the noisy hardware, or ``onn``) with autograd through
+``residual_loss``: on the card each TT layer runs the ``tt_contract``
+kernel forward and ``tt_contract_grad`` backward, tonn's meshes densify in
+one grouped launch forward and one backward (``mesh_densify_stacked``,
+``mesh_densify_grad``), and onn's meshes run the mesh kernel forward (the
+resident design, or at hidden 1024 the wide routes A and B) and its
+backward (``mesh_apply_stacked_grad``: the resident backward, or the
+warp-rows one).
 
     python -m repro_torch.launch.train --arch tensor-pinn --pde hjb-20d \\
         --pinn-noise --steps 50 --batch 100 --ckpt-dir ckpts/hjb-20d
@@ -57,8 +58,8 @@ Port of the ``train_pinn`` branch of ``repro.launch.train``.  Every flag
 of that launcher this port does not have yet exits with the ROADMAP item
 that ports it; so do ``--quant`` / ``--phase-bits`` with a BP optimizer
 (the backward is f32 only) or with ``onn``, and a BP optimizer with
-``onn`` where a mesh takes the wide routes (their backward is item 6c-2:
-hidden 1024).  ``--estimator stein`` exits
+``onn`` where a mesh takes the owner walk, which has no backward (item
+6c-3: hidden past 1024).  ``--estimator stein`` exits
 too, naming the reference trainer's own fault (``STEIN_REFUSAL``).
 """
 
@@ -222,12 +223,12 @@ def _unported(args) -> list:
     """(flag, ROADMAP queue A item) of every flag set that this port does
     not have yet."""
     bp = args.optimizer not in (None, "zo-signsgd")
-    wide = pinn.onn_wide_ports(_pinn_config(args)) if bp else []
+    held = pinn.onn_no_backward_ports(_pinn_config(args)) if bp else []
     checks = [
-        (bool(wide),
-         f"BP training of --pinn-mode onn at widths {wide} (--optimizer "
-         f"{args.optimizer}; those meshes take the wide routes, which have "
-         "no backward kernel)", "6c-2"),
+        (bool(held),
+         f"BP training of --pinn-mode onn at widths {held} (--optimizer "
+         f"{args.optimizer}; those meshes take the owner walk, which has no "
+         "backward kernel)", "6c-3"),
         (args.estimator == "spectral", "--estimator spectral", "9a"),
         (args.spectral_points is not None, "--spectral-points", "9a"),
         (args.coeff_range is not None, "--coeff-range", 10),

@@ -179,13 +179,15 @@ def test_raw_kernel_refuses_inputs_that_require_grad(monkeypatch):
 def test_kernels_without_a_backward_refuse_grad_before_launching(
         monkeypatch):
     """``ops.tt_linear_batched`` (f32 and quantized), ``ops.attention`` and
-    the mesh entries on a layout of the wide routes (140 ports) on a tensor
-    off the CPU that requires grad raise before their launch, the meshes
-    naming item 6c-2; under ``no_grad`` the same calls reach it.  Under
-    grad a resident layout and the grouped densification reach their
-    autograd Functions instead.  The launches are stubbed and the tensors
-    are on torch's ``meta`` device, which takes the card's branch of the
-    dispatch here."""
+    the mesh entries on a layout of the owner walk (160 ports paired (a,
+    a+2)) on a tensor off the CPU that requires grad raise before their
+    launch, the meshes naming item 6c-3; under ``no_grad`` the same calls
+    reach it.  Under grad a resident layout, a layout of route A (140
+    ports: the warp-rows backward) and the grouped densification reach
+    their autograd Functions instead.  The launches are stubbed and the
+    tensors are on torch's ``meta`` device, which takes the card's branch
+    of the dispatch here."""
+    import chip_smoke
     from repro_torch.core import photonic
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mesh_apply as mesh
@@ -216,10 +218,12 @@ def test_kernels_without_a_backward_refuse_grad_before_launching(
     monkeypatch.setattr(mesh, "mesh_apply_stacked", mesh_stub)
     monkeypatch.setattr(mesh, "mesh_densify_stacked", densify_stub)
     wide, narrow = (photonic.rectangular_layout(p) for p in (140, 16))
-    assert mesh.mesh_design(wide) == "wide" and not mesh.grad_fits(wide)
-    phases = torch.zeros((1, *wide.phase_shape()), device="meta",
+    skew = chip_smoke.skew_layout(160)
+    assert mesh.mesh_design(skew) == "wide" and mesh.grad_design(skew) is None
+    assert mesh.grad_design(wide) == "warp_rows"
+    phases = torch.zeros((1, *skew.phase_shape()), device="meta",
                          requires_grad=True)
-    rows = torch.zeros((3, 140), device="meta")
+    rows = torch.zeros((3, 160), device="meta")
     spec = SPECS["reduced"]
     cores = [torch.zeros((3, *s), device="meta") for s in spec.core_shapes]
     x = torch.zeros((5, spec.in_dim), device="meta", requires_grad=True)
@@ -232,9 +236,9 @@ def test_kernels_without_a_backward_refuse_grad_before_launching(
                  x, cores, spec, quant=int8),
              "flash_attention": lambda: ops.attention(q, kv, kv),
              "mesh_apply_stacked": lambda: ops.mesh_apply_stacked(
-                 wide, phases, torch.ones(140, device="meta"), rows),
+                 skew, phases, torch.ones(160, device="meta"), rows),
              "mesh_apply": lambda: ops.mesh_apply(
-                 wide, phases[0], torch.ones(140, device="meta"), rows)}
+                 skew, phases[0], torch.ones(160, device="meta"), rows)}
     for name, call in calls.items():
         with pytest.raises(ValueError, match=f"{name} on the card has no "
                                              "backward"):
@@ -244,7 +248,7 @@ def test_kernels_without_a_backward_refuse_grad_before_launching(
         calls["tt_contract_batched"]()
     with pytest.raises(ValueError, match="item 14a"):
         calls["flash_attention"]()
-    with pytest.raises(ValueError, match="item 6c-2"):
+    with pytest.raises(ValueError, match="item 6c-3"):
         calls["mesh_apply"]()
     with torch.no_grad():
         for call in calls.values():
@@ -252,16 +256,17 @@ def test_kernels_without_a_backward_refuse_grad_before_launching(
     assert launched == ["tt_contract_batched", "tt_contract_batched_quant",
                         "flash_attention", "mesh_apply_stacked",
                         "mesh_apply_stacked"]
-    # under grad: the resident design and the grouped densification
-    # launch their forwards through their autograd Functions
+    # under grad: the resident design, route A's layouts and the grouped
+    # densification launch their forwards through their autograd Functions
     launched.clear()
-    y = ops.mesh_apply(narrow, torch.zeros(narrow.phase_shape(),
-                                           device="meta", requires_grad=True),
-                       torch.ones(16, device="meta"),
-                       torch.zeros((3, 16), device="meta"))
-    assert type(y.grad_fn).__name__ == "ViewBackward0"
-    assert type(y.grad_fn.next_functions[0][0]).__name__ == \
-        "MeshApplyFnBackward"
+    for lay in (narrow, wide):
+        y = ops.mesh_apply(lay, torch.zeros(lay.phase_shape(), device="meta",
+                                            requires_grad=True),
+                           torch.ones(lay.ports, device="meta"),
+                           torch.zeros((3, lay.ports), device="meta"))
+        assert type(y.grad_fn).__name__ == "ViewBackward0"
+        assert type(y.grad_fn.next_functions[0][0]).__name__ == \
+            "MeshApplyFnBackward"
     pm = photonic.PhotonicMatrix(4, 16)
     p = {"phases_u": torch.zeros((1, *pm.layout_u.phase_shape()),
                                  device="meta", requires_grad=True),
@@ -272,7 +277,8 @@ def test_kernels_without_a_backward_refuse_grad_before_launching(
          "diag_v": torch.ones(16, device="meta")}
     w, = ops.mesh_densify_stacked([pm], [p], [None])
     assert type(w.grad_fn).__name__ == "MeshDensifyFnBackward"
-    assert launched == ["mesh_apply_stacked", "mesh_densify_stacked"]
+    assert launched == ["mesh_apply_stacked", "mesh_apply_stacked",
+                        "mesh_densify_stacked"]
 
 
 @pytest.mark.parametrize("rows", [21, 100, 4300])
@@ -344,10 +350,10 @@ def test_dense_model_matches_jax():
 
 # -------------------------------------------------------------- BP gradients
 
-def _grad_setup(mode):
+def _grad_setup(mode, hidden=64):
     """A JAX solver (fused config, the BP trainer's), its params and noise,
     96 collocation points and a fixed weighting of u over them."""
-    cfg = jpinn.PINNConfig(hidden=64, mode=mode, tt_rank=2, tt_L=3,
+    cfg = jpinn.PINNConfig(hidden=hidden, mode=mode, tt_rank=2, tt_L=3,
                            pde="hjb-20d", deriv="fd_fast",
                            use_fused_kernel=True,
                            noise=JNoise(enabled=mode in ("tonn", "onn")))
@@ -368,11 +374,15 @@ def _port_grads(tm, params, hw, fn):
     return out, torch.autograd.grad(out, zoo.tree_leaves(tp))
 
 
-@pytest.mark.parametrize("mode", ["dense", "tt", "tonn", "onn"])
-def test_bp_gradients_match_jax(mode):
+@pytest.mark.parametrize("mode,hidden", [("dense", 64), ("tt", 64),
+                                         ("tonn", 64), ("onn", 64),
+                                         ("onn", 144)])
+def test_bp_gradients_match_jax(mode, hidden):
     """Autograd of the port's forward against ``jax.grad`` of JAX's: the
-    u-level functional strictly, the residual loss at the FD floor."""
-    cfg, jm, params, hw, xt, w = _grad_setup(mode)
+    u-level functional strictly, the residual loss at the FD floor; onn
+    also at hidden 144, whose hidden meshes take the warp-rows backward
+    on the card."""
+    cfg, jm, params, hw, xt, w = _grad_setup(mode, hidden)
     # the u functional through JAX's unfused model (libm sin, the chain)
     ju = jpinn.TensorPinn(jpinn.PINNConfig(**{
         **jpinn.config_to_meta(cfg), "use_fused_kernel": False,

@@ -541,12 +541,17 @@ def test_streamed_entry_equals_the_resident_bitwise(cuda, label):
 
 
 def test_mesh_entries_refuse_grad_on_the_card(cuda):
-    """The wide mesh routes have no backward (item 6c-2): a CUDA input that
-    requires grad raises while grad is enabled, and passes under
-    ``no_grad``."""
-    layout, phases, diag, x = _mesh_inputs(1024, 1, 2, True, 0, cuda)
+    """The owner walk has no backward (item 6c-3): on its layouts (here
+    160 ports paired (a, a+2)) a CUDA input that requires grad raises
+    while grad is enabled, and passes under ``no_grad``."""
+    layout = chip_smoke.skew_layout(160)
+    gen = torch.Generator().manual_seed(0)
+    phases = torch.randn((1, *layout.phase_shape()), generator=gen).to(cuda)
+    diag = torch.where(torch.rand((1, 160), generator=gen) < 0.5, -1.0,
+                       1.0).to(cuda)
+    x = torch.randn((2, 160), generator=gen).to(cuda)
     phases.requires_grad_()
-    with pytest.raises(ValueError, match="no backward.*item 6c-2"):
+    with pytest.raises(ValueError, match="no backward.*item 6c-3"):
         ops.mesh_apply(layout, phases[0], diag[0], x)
     with torch.no_grad():
         y = ops.mesh_apply(layout, phases[0], diag[0], x)
@@ -1295,7 +1300,10 @@ def test_densify_grad_kernel_matches_plain(cuda, tt_L, S, noisy):
 
 # label -> (ports, S, rows, shared x, transpose): the resident backward at
 # onn's BP launches (hidden 64: 4300 stencil rows; layer 0's 21-port V mesh
-# on the 100 rows) and the paper's 16-port meshes
+# on the 100 rows) and the paper's 16-port meshes; the warp-rows backward
+# at 1024 ports on rows whose forward takes route A (300, 21 shared) and
+# route B (1600), at 160 ports (W = 8) and S = 3, and at 144 ports on one
+# block column
 MESH_GRAD_CASES = {
     "p16-4300": (16, 1, 4300, False, False),
     "p16-4300-tr": (16, 1, 4300, False, True),
@@ -1304,23 +1312,34 @@ MESH_GRAD_CASES = {
     "v21-100-tr": (21, 1, 100, True, True),
     "v21-100": (21, 1, 100, True, False),
     "p16-s11": (16, 11, 37, False, True),
+    "p1024-300": (1024, 1, 300, False, False),
+    "p1024-21-shared-tr": (1024, 1, 21, True, True),
+    "p1024-1600-tr": (1024, 1, 1600, False, True),
+    "p160-777-s3": (160, 3, 777, False, False),
+    "p144-3-shared": (144, 2, 3, True, False),
 }
 
 
 @pytest.mark.parametrize("label", sorted(MESH_GRAD_CASES))
 def test_mesh_grad_kernel_matches_plain(cuda, label):
-    """The resident backward against ``ref.mesh_apply_grad_ref``: dx and
-    dphases, one launch; two calls bit for bit."""
+    """The mesh backward of the layout's design (resident up to 138 ports,
+    warp rows past them) against ``ref.mesh_apply_grad_ref``: dx and
+    dphases, one launch of that design; two calls bit for bit."""
     ports, S, B, shared, transpose = MESH_GRAD_CASES[label]
     layout, phases, diag, x = _mesh_inputs(ports, S, B, shared, len(label),
                                            cuda)
     y = mesh.mesh_apply_stacked(layout, phases, diag, x, transpose)
     dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(
         ports)).to(cuda)
+    design = mesh.grad_design(layout)
+    assert design == ("resident" if ports <= 138 else "warp_rows")
     before = mesh.mesh_apply_stacked_grad.launches
+    by_design = mesh.mesh_apply_stacked_grad.design_launches[design]
     dx, dph = mesh.mesh_apply_stacked_grad(layout, phases, diag, y, dy,
                                            transpose)
     assert mesh.mesh_apply_stacked_grad.launches == before + 1
+    assert mesh.mesh_apply_stacked_grad.design_launches[design] == \
+        by_design + 1
     pdx, pdph = ref.mesh_apply_grad_ref(layout, phases, diag, x, y, dy,
                                         transpose)
     _grad_close(dx.sum(0) if shared else dx, pdx)
@@ -1331,6 +1350,28 @@ def test_mesh_grad_kernel_matches_plain(cuda, label):
     only, none = mesh.mesh_apply_stacked_grad(layout, phases, diag, y, dy,
                                               transpose, need_dphases=False)
     assert none is None and torch.equal(only, dx)
+
+
+@pytest.mark.parametrize("B,transpose", [(300, False), (1600, True)])
+def test_wide_mesh_autograd_on_the_card_matches_plain_autograd(cuda, B,
+                                                               transpose):
+    """``ops.mesh_apply_stacked`` under autograd at onn's 1024 ports (the
+    forward through route A at 300 rows, route B at 1600; the warp-rows
+    backward) against autograd of the plain version on the same card."""
+    layout, phases, diag, x = _mesh_inputs(1024, 1, B, False, B, cuda)
+    p1, x1 = phases.clone().requires_grad_(), x.clone().requires_grad_()
+    before = dict(mesh.mesh_apply_stacked_grad.design_launches)
+    y = ops.mesh_apply_stacked(layout, p1, diag, x1, transpose)
+    w = torch.randn(y.shape, generator=torch.Generator().manual_seed(1)).to(
+        cuda)
+    got = torch.autograd.grad((y * w).sum(), (p1, x1))
+    assert mesh.mesh_apply_stacked_grad.design_launches["warp_rows"] == \
+        before["warp_rows"] + 1
+    p2, x2 = phases.clone().requires_grad_(), x.clone().requires_grad_()
+    want = torch.autograd.grad((photonic.mesh_apply_stacked(
+        layout, p2, diag, x2, transpose) * w).sum(), (p2, x2))
+    for a, b in zip(got, want):
+        _grad_close(a, b)
 
 
 def test_mesh_autograd_on_the_card_matches_plain_autograd(cuda):

@@ -40,6 +40,16 @@ def _jit_vjp(f, *primals, cotangent):
         *map(jnp.asarray, primals), jnp.asarray(cotangent))
 
 
+@pytest.fixture
+def one_thread():
+    """torch on one CPU thread while the test runs (see
+    ``test_recovered_states_at_1024_levels``)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _apply_inputs(ports, S, B, shared, seed):
     rng = np.random.RandomState(seed)
     layout = ph.rectangular_layout(ports)
@@ -53,13 +63,15 @@ def _apply_inputs(ports, S, B, shared, seed):
 
 
 @pytest.mark.parametrize("transpose", [False, True])
-@pytest.mark.parametrize("ports,shared", [(4, False), (16, True), (64, False)])
+@pytest.mark.parametrize("ports,shared", [(4, False), (16, True), (64, False),
+                                          (144, False), (144, True)])
 def test_mesh_apply_grad_ref_matches_autograd_and_jax(ports, shared,
                                                       transpose):
-    """dx and dphases of the resident backward's plain version (recovering
+    """dx and dphases of the mesh backwards' plain version (recovering
     every level's input from y) against autograd of the gather form and
-    ``jax.vjp`` of the JAX package's; a shared x's gradient sums over the
-    stack."""
+    ``jax.vjp`` of the JAX package's, at the resident backward's widths
+    and at 144 ports, the warp-rows backward's; a shared x's gradient sums
+    over the stack."""
     layout, phases, diag, x, dy = _apply_inputs(ports, 3, 7, shared,
                                                 ports + transpose)
     tp = torch.tensor(phases, requires_grad=True)
@@ -199,6 +211,38 @@ def test_recovered_states_at_137_levels():
         _close(a, b)
 
 
+def test_recovered_states_at_1024_levels(one_thread):
+    """The warp-rows backward recovers each level's input from its output
+    too; on onn's 1024-port rectangular mesh (1024 levels) every state
+    recovered from the output of 3 rows stays within 2e-5 of max|x| of
+    the forward's (measured 3.7e-6, 3.7 times the 137-level mesh's), and
+    ``mesh_reverse``'s gradients from recovered states agree with those
+    from the kept ones within the f32 bound.  One CPU thread: the trig
+    tables of a 1024-port mesh (a million elements) are computed in
+    parallel chunks, and where the thread count moves a chunk's edge an
+    element's sin or cos comes from torch's vector or scalar path, one
+    ulp apart; the recovery then undoes a slightly other rotation than
+    the forward applied (1.8e-3 of max|x| measured so)."""
+    layout = ph.rectangular_layout(1024)
+    gen = torch.Generator().manual_seed(1024)
+    phases = 3 * torch.randn((1, *layout.phase_shape()), generator=gen)
+    x = torch.randn((1, 3, 1024), generator=gen)
+    states = []
+    out = ref.mesh_levels(layout, phases, x, False, states)
+    cos, sin = ph.mesh_gather_tables(layout, phases)
+    perm = ph.mesh_plan_tensors(layout, x.device)["perm"]
+    y, worst = out, 0.0
+    for c in reversed(range(layout.levels)):
+        y = cos[..., c, None, :] * y - sin[..., c, None, :] * y[..., perm[c]]
+        worst = max(worst, ((y - states[c]).abs().max()
+                            / states[c].abs().max()).item())
+    assert 0.0 < worst <= 2e-5
+    dy = torch.randn(out.shape, generator=gen)
+    for a, b in zip(ref.mesh_reverse(layout, phases, out, dy),
+                    ref.mesh_reverse(layout, phases, out, dy, False, states)):
+        _close(a, b)
+
+
 def test_grad_layouts_and_shared_memory():
     """The resident backward holds what the forward's resident design
     holds up to 138 ports (four row buffers instead of two), at least one
@@ -215,8 +259,9 @@ def test_grad_layouts_and_shared_memory():
     assert mesh.grad_rows_per_block(ph.rectangular_layout(16)) == 64
     assert mesh.grad_columns(11, 68, 132) == 48
     assert mesh.grad_columns(1, 3, 132) == 3
-    with pytest.raises(ValueError, match="item 6c-2"):
-        mesh.grad_rows_per_block(ph.rectangular_layout(140))
+    for ports in (140, 1040):       # the warp-rows backward's; none's
+        with pytest.raises(ValueError, match="item 6c-3"):
+            mesh.grad_rows_per_block(ph.rectangular_layout(ports))
     for r, m, n, rn in tt.PAPER_TONN_SPEC.core_shapes:
         pm = ph.PhotonicMatrix(r * m, n * rn)
         assert mesh.densify_grad_saves(pm)
@@ -241,7 +286,9 @@ def stub_launches(monkeypatch):
 
     def apply_grad(layout, phases, diag, y, dy, transpose=False,
                    need_dx=True, need_dphases=True):
-        calls.append(("mesh_apply_stacked_grad", need_dx, need_dphases))
+        calls.append(("mesh_apply_stacked_grad", need_dx, need_dphases)
+                     + (() if mesh.grad_fits(layout)
+                        else (mesh.grad_design(layout),)))
         return (torch.empty_like(y) if need_dx else None,
                 torch.empty_like(phases) if need_dphases else None)
 
@@ -263,6 +310,32 @@ def stub_launches(monkeypatch):
     monkeypatch.setattr(mesh, "mesh_densify_stacked", densify)
     monkeypatch.setattr(mesh, "mesh_densify_grad", densify_grad)
     return calls
+
+
+def test_mesh_apply_fn_reaches_the_warp_rows_backward(stub_launches):
+    """Under grad onn's 1024-port mesh goes through ``MeshApplyFn`` too:
+    the forward launch (route A or B by the rows) and one backward launch,
+    whose design from the layout is ``warp_rows``; a layout no backward
+    holds raises before any launch, naming item 6c-3."""
+    layout = ph.rectangular_layout(1024)
+    phases = torch.zeros((1, *layout.phase_shape()), device="meta",
+                         requires_grad=True)
+    diag = torch.ones(1024, device="meta")
+    x = torch.zeros((1, 100, 1024), device="meta", requires_grad=True)
+    y = ops.mesh_apply_stacked(layout, phases, diag, x, True)
+    assert type(y.grad_fn).__name__ == "MeshApplyFnBackward"
+    gp, gx = torch.autograd.grad(y, [phases, x], torch.ones_like(y))
+    assert gp.shape == phases.shape and gx.shape == x.shape
+    assert stub_launches == ["mesh_apply_stacked",
+                             ("mesh_apply_stacked_grad", True, True,
+                              "warp_rows")]
+    wide = ph.rectangular_layout(1040)
+    with pytest.raises(ValueError, match="item 6c-3"):
+        ops.mesh_apply_stacked(wide, torch.zeros(
+            (1, *wide.phase_shape()), device="meta", requires_grad=True),
+            torch.ones(1040, device="meta"), torch.zeros((3, 1040),
+                                                         device="meta"))
+    assert len(stub_launches) == 2
 
 
 @pytest.mark.parametrize("shared", [False, True])

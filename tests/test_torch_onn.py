@@ -389,9 +389,9 @@ def test_onn_quantized_request_matches_jax():
 
 
 def test_onn_bp_and_qat_exit_with_their_roadmap_items():
-    with pytest.raises(SystemExit, match=r"onn.*item 6c-2"):
+    with pytest.raises(SystemExit, match=r"onn.*item 6c-3"):
         train.main(ONN_ARGS + ["--steps", "1", "--optimizer", "adamw",
-                               "--hidden", "1024"])
+                               "--hidden", "1040"])
     with pytest.raises(SystemExit, match=r"onn.*item 11"):
         train.main(ONN_ARGS + ["--steps", "1", "--quant", "int8"])
 

@@ -127,6 +127,18 @@ def test_fiber_rows_script_refuses_without_a_gpu():
     assert "[fiber-rows]" not in proc.stdout and "ms" not in proc.stdout
 
 
+def test_mesh_rows_grad_script_refuses_without_a_gpu():
+    """So does the warp-rows backward's check and configuration sweep."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run([sys.executable,
+                           str(ROOT / "tools" / "mesh_rows_grad.py")],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert "[mesh-rows-grad]" not in proc.stdout and "ms" not in proc.stdout
+
+
 def test_table1_script_refuses_without_a_gpu(tmp_path):
     """So does the Table 1 script at its default device: no row runs and
     nothing is written."""

@@ -170,17 +170,19 @@ def test_run_gives_the_jax_rows(monkeypatch):
 
 
 def test_offchip_onn_row_names_item_6c():
-    """At hidden 1024 the off-chip ONN row's meshes take the wide routes,
-    whose backward is item 6c-2: it refuses before any work, on every
-    device."""
-    with pytest.raises(NotImplementedError, match="item 6c-2"):
-        ttable.run_row("dense", False, True, **{**SMALL, "hidden": 1024},
+    """Past 1024 ports (hidden 1040) the off-chip ONN row's meshes take
+    the owner walk, whose backward is item 6c-3: it refuses before any
+    work, on every device.  At the paper's hidden 1024 the warp-rows
+    backward holds its meshes, and the row runs."""
+    with pytest.raises(NotImplementedError, match="item 6c-3"):
+        ttable.run_row("dense", False, True, **{**SMALL, "hidden": 1040},
                        device="cpu")
-    with pytest.raises(SystemExit, match="item 6c-2"):
+    with pytest.raises(SystemExit, match="item 6c-3"):
         ttable.main(["--rows", "dense-offchip-noisy", "--device", "cpu",
-                     "--out", "unused.json"])
+                     "--hidden", "1040", "--out", "unused.json"])
     assert ttable.unported("onn", True, True) is None
     assert ttable.unported("dense", False, True, hidden=64) is None
+    assert ttable.unported("dense", False, True, hidden=1024) is None
 
 
 def test_offchip_onn_row_runs_at_hidden_16(tmp_path):

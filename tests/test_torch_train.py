@@ -158,8 +158,8 @@ def test_resume_redraws_the_same_perturbations(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--pinn-mode", "onn", "--optimizer", "adamw", "--hidden", "1024"],
-     "item 6c-2"),
+    (["--pinn-mode", "onn", "--optimizer", "adamw", "--hidden", "1040"],
+     "item 6c-3"),
     (["--estimator", "stein"], "reference trainer passes no PRNG key"),
     (["--estimator", "spectral"], "item 9a"),
     (["--spectral-points", "8"], "item 9a"),
@@ -186,16 +186,38 @@ def test_unported_flags_exit_with_their_roadmap_item(flags, item):
 def test_onn_bp_trains_where_the_resident_backward_holds_its_meshes():
     """onn BP at hidden 64 (its 64- and 21-port meshes take the resident
     design's backward on the card) trains on the CPU: finite losses and
-    val MSE, and it refuses only from the width whose meshes take the wide
-    routes (``pinn.onn_wide_ports``)."""
+    val MSE, and it refuses only past 1024 ports, whose meshes take the
+    owner walk (``pinn.onn_no_backward_ports``): the resident backward
+    holds up to 138 ports, the warp-rows backward the rest."""
     res = train.main(REDUCED + ["--pinn-mode", "onn", "--pinn-noise",
                                 "--optimizer", "adamw", "--steps", "2"])
     assert len(res.losses) == 2 and np.isfinite(res.losses).all()
     assert np.isfinite(res.val_mse)
     cfg = res.model.cfg
-    assert tpinn.onn_wide_ports(cfg) == []
-    assert tpinn.onn_wide_ports(dataclasses.replace(cfg, hidden=138)) == []
-    assert tpinn.onn_wide_ports(dataclasses.replace(cfg, hidden=140)) == [140]
+    assert tpinn.onn_no_backward_ports(cfg) == []
+    for hidden in (138, 140, 1024):
+        assert tpinn.onn_no_backward_ports(dataclasses.replace(
+            cfg, hidden=hidden)) == []
+    assert tpinn.onn_no_backward_ports(dataclasses.replace(
+        cfg, hidden=1040)) == [1040]
+
+
+def test_onn_bp_trains_at_a_width_of_the_warp_rows_backward():
+    """onn BP at hidden 144, whose hidden meshes the resident backward
+    does not hold (on the card they take route A forward and the
+    warp-rows backward), trains on the CPU: finite losses and val MSE,
+    every trainable leaf moved."""
+    res = train.main(REDUCED + ["--pinn-mode", "onn", "--pinn-noise",
+                                "--optimizer", "adamw", "--hidden", "144",
+                                "--steps", "2", "--batch", "16"])
+    assert res.model.cfg.hidden == 144
+    assert len(res.losses) == 2 and np.isfinite(res.losses).all()
+    assert np.isfinite(res.val_mse)
+    init, _ = train.init_solver(res.model, 0)
+    mask = res.model.trainable_mask(res.params)
+    for a, b, m in zip(zoo.tree_leaves(res.params), zoo.tree_leaves(init),
+                       zoo.tree_leaves(mask)):
+        assert not m or not torch.equal(a, b)
 
 
 def test_lm_archs_and_unported_pdes_are_refused():

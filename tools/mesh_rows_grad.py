@@ -1,0 +1,136 @@
+#!/usr/bin/env python3
+"""The warp-rows backward (``mesh_apply.mesh_apply_stacked_grad`` on the
+layouts of the wide routes A and B) on one GPU: its ptxas lines, its check
+against the plain version, and its launch configurations.
+
+    python3 tools/mesh_rows_grad.py [--quick]
+
+  * ptxas: registers, shared memory and spills of every instance of
+    ``mesh_rows_grad_kernel`` in ``csrc/mesh_apply.cu``, from the build
+    log.
+  * checks: ``chip_smoke.phase_mesh_grad`` and ``mesh_grad_wide_cases``
+    (every mesh backward against ``ref.mesh_apply_grad_ref`` /
+    ``mesh_densify_grad_ref`` within 1e-4 of max|plain|, two calls bit for
+    bit, the timed cases on CUDA events and alone in a trace, beside the
+    bound, the plain version and autograd of the plain forward).
+  * configs (skipped with ``--quick``): the C entry
+    ``mesh_rows_grad_launch`` at onn's BP launches at hidden 1024 (the
+    hidden layer's U mesh on 4300 rows, layer 0's on 100 and 21) at rows
+    per warp and warps per block around ``mesh_apply.grad_rows_config``'s
+    choice: each against the wrapper's bits (dx and dphases), timed on
+    CUDA events, with its block columns and scratch.
+
+Prints one ``[mesh-rows-grad]`` JSON line and the card's name and power
+limit.  Exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+# label -> (S, rows, shared x, (rows per warp, warps) to try)
+CONFIGS = {
+    "p1024-4300": (1, 4300, False, ((1, 4), (1, 8), (1, 16), (2, 8))),
+    "u1024-100": (1, 100, True, ((1, 1), (1, 2), (1, 4), (1, 8))),
+    "u1024-21": (1, 21, True, ((1, 1), (1, 2), (1, 4))),
+}
+
+
+def ptxas_lines() -> list:
+    from repro_torch.kernels import _build
+    log = Path(f"{_build.build('mesh_apply')}.log").read_text().splitlines()
+    out, keep = [], False
+    for line in log:
+        if "Compiling entry function" in line:
+            keep = "mesh_rows_grad_kernel" in line
+        if keep:
+            out.append(line.strip())
+    return out
+
+
+def configs(device) -> list:
+    import chip_smoke
+    import torch
+    from repro_torch.core import photonic
+    from repro_torch.kernels import mesh_apply as mesh
+    layout = photonic.rectangular_layout(1024)
+    P, L, K = layout.ports, layout.levels, layout.slots
+    W = mesh.lane_width(P)
+    smap = mesh._map_tensor(layout, device)
+    plan = mesh._plan_tensor(layout, device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    out = []
+    for label, (S, B, shared, tries) in CONFIGS.items():
+        gen = torch.Generator().manual_seed(len(label))
+        phases = torch.randn((S, L, K), generator=gen).to(device)
+        diag = torch.where(torch.rand((S, P), generator=gen) < 0.5, -1.0,
+                           1.0).to(device)
+        x = torch.randn((B, P) if shared else (S, B, P),
+                        generator=gen).to(device)
+        y = mesh.mesh_apply_stacked(layout, phases, diag, x)
+        dy = torch.randn(y.shape, generator=gen).to(device)
+        want = mesh.mesh_apply_stacked_grad(layout, phases, diag, y, dy)
+        chosen = mesh.grad_rows_config(layout, S, B, sms)
+        for R, warps in tries:
+            cols = -(-B // (warps * R))
+            dx = torch.empty_like(y)
+            dph = torch.empty((S, L, K), device=device)
+            part = torch.empty((cols, S, L, K), device=device)
+            table = torch.empty((S, L, mesh.record_floats(W)), device=device)
+
+            def launch():
+                err = mesh._library().mesh_rows_grad_launch(
+                    y.data_ptr(), dy.data_ptr(), phases.data_ptr(),
+                    plan.data_ptr(), smap.data_ptr(), diag.data_ptr(),
+                    dx.data_ptr(), dph.data_ptr(), part.data_ptr(),
+                    table.data_ptr(), B, P, L, K, smap.shape[1], S, W, R,
+                    warps, cols, P, 0, mesh._stream(y))
+                if err:
+                    raise RuntimeError(f"{label} R {R} warps {warps}: CUDA "
+                                       f"error {err}")
+            launch()
+            torch.cuda.synchronize()
+            # the phase sums run over other row groupings: within the f32
+            # bound of the wrapper's, dx bit for bit
+            err = (dph - want[1]).abs().max().item()
+            scale = want[1].abs().max().item()
+            if not (torch.equal(dx, want[0]) and err <= 1e-5 * scale):
+                raise AssertionError(f"{label} R {R} warps {warps}: dx equal "
+                                     f"{torch.equal(dx, want[0])}, dphases "
+                                     f"{err:.3e} of {scale:.3e}")
+            out.append({"case": label, "rows_per_warp": R, "warps": warps,
+                        "block_columns": cols,
+                        "scratch_mib": 4 * cols * S * L * K / 2**20,
+                        "chosen": (R, warps) == chosen[1:3],
+                        "ms": chip_smoke._time_ms(launch, 10, warmup=2)})
+            print(f"[mesh-rows-grad] {json.dumps(out[-1])}", flush=True)
+    return out
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("mesh_rows_grad: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+    import chip_smoke
+    import repro_torch
+    device = repro_torch.resolve_device("cuda")
+    _, _, card = chip_smoke.phase_device()
+    chip_smoke.phase_build()
+    for line in ptxas_lines():
+        print(f"[ptxas] {line}", flush=True)
+    result = {"checks": {**chip_smoke.phase_mesh_grad(device),
+                         **chip_smoke.mesh_grad_wide_cases(device)}}
+    if "--quick" not in sys.argv:
+        result["configs"] = configs(device)
+    print(f"[mesh-rows-grad] {json.dumps(result)}", flush=True)
+    print(card, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
