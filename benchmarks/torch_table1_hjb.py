@@ -26,7 +26,9 @@ kernels run on the card:
     onto noise trains ``onn`` off-chip by BP through its meshes: the mesh
     kernel forward (the resident design; at hidden 1024 also the wide
     routes A and B) and ``mesh_apply_stacked_grad`` backward (the resident
-    backward, and the warp-rows one for the wide meshes).
+    backward; for the wide meshes the backward of their forward's route:
+    the dense one after route B on the stencil's rows, the warp-rows one
+    after route A).
 
 The validation MSEs are taken with ``validation_mse`` (``tt_contract``,
 and one grouped densification per tonn evaluation).  Off-chip ``onn``

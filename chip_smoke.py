@@ -96,12 +96,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 against ``ref.mesh_densify_grad_ref``; ``mesh_apply_stacked_grad``
                 — the resident backward on 16- and 64-port meshes on 4300
                 rows and onn's 21-port layer-0 V mesh on 100 shared rows,
-                the warp-rows backward (``mesh_rows_grad_kernel``) on onn's
-                hidden-layer V^T mesh at hidden 1024 (1024 ports on 4300
-                rows from route B's forward; the U mesh there and layer
-                0's on 100 and 21 shared rows in phase 21b), a 256-port
-                Reck layout (509 levels) and 160 ports at S = 3, B = 777
-                — transposed and
+                the warp-rows backward (``mesh_rows_grad_kernel``) handed
+                y and dy at 1024 ports on 4300 rows (route B's output;
+                the U mesh there and layer 0's on 100 and 21 shared rows
+                in phase 21b), a 256-port Reck layout (509 levels) and
+                160 ports at S = 3, B = 777 — transposed and
                 not, against ``ref.mesh_apply_grad_ref``; each call one
                 launch of its design, two calls bit for bit.  Times the
                 grouped one at S = 1 and 11 and the resident one at 64
@@ -110,7 +109,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 one's time), the plain versions and, for scale (no one
                 PyTorch call gives dφ), ``torch.autograd.grad`` through
                 the plain forwards; the warp-rows one likewise at 1024
-                ports on 4300, 100 and 21 rows in phase 21b.
+                ports on 4300, 100 and 21 rows, and the dense one, in
+                phase 21b.
   7. train    — the port's trainer (``repro_torch.launch.train.main``) on
                 the card: the paper's TONN_ONCHIP_FUSED (hjb-20d, tonn,
                 hidden 1024, noise on), N = 10, batch 100, 50 steps and a
@@ -246,8 +246,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 (noise on, 10 steps) 6 meshes and 6 backwards a step (4
                 meshes a validation forward): at hidden 64 all resident,
                 at hidden 1024 2 resident + 2 route A + 2 route B forward
-                and 2 resident + 4 warp-rows backwards, checked by design
-                (``_onn_bp_designs``); no run reaches
+                and 2 resident + 2 warp-rows + 2 dense backwards (the
+                backward follows the forward's route; 1
+                ``mesh_product_grad`` launch a dense backward), checked
+                by design (``_onn_bp_designs``); no run reaches
                 ``prepare_params_plain``; their card-vs-CPU gradients run
                 through the kernels (tonn with the noise model on and off;
                 onn at hidden 1024 on 4 points, held to the CPU's float64
@@ -301,8 +303,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 exactly its path's (``_table1_want``: 2 ``tt_contract`` + 2
                 ``tt_contract_grad`` a BP step, tonn's 1 grouped
                 densification and its backward more, onn's 4 meshes (1
-                resident, 3 route B) and 4 backwards (1 resident, 3 warp
-                rows); 1 grouped densification + 2
+                resident, 3 route B) and 4 backwards (1 resident, 3
+                dense); 1 grouped densification + 2
                 ``tt_contract_batched`` a tonn ZO step, 1 resident + 3 wide
                 meshes an onn ZO step, none for dense; and the validation
                 forwards') and none of the other counted kernels; ms a step
@@ -345,12 +347,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 max|u|); identical params in all 11 entries give 11
                 distinct losses.  Times one call.
  21b. mesh-grad-wide — phase 6c's three cases of the warp-rows backward
-                at onn's hidden 1024 (``MESH_GRAD_WIDE``: the hidden
-                layer's U mesh on 4300 rows, layer 0's on 100 and 21),
-                checked and timed as 6c times the others, in a Python
-                process of their own: in this one, ``torch.profiler``
-                loses their windows late in the run, and timed in 6c they
-                make phase 8's window get lost.
+                at onn's hidden 1024 (``MESH_GRAD_WIDE``: handed the hidden
+                layer's U mesh's y and dy on 4300 rows, layer 0's on 100
+                and 21), checked and timed as 6c times the others, and
+                the dense backward (``MESH_GRAD_DENSE``: x and M from
+                route B's forward at 1024 ports on 4300 rows, transposed,
+                on a shared x at S = 2, and 160 ports at S = 3 on 777),
+                against ``ref.mesh_apply_dense_grad_ref`` and the rows'
+                ``ref.mesh_apply_grad_ref`` within ``MESH_GRAD_BOUND``, a
+                launch of design ``dense`` and one ``mesh_product_grad``
+                a call, two calls bit for bit, timed in turns with the
+                warp-rows backward on the same forward's y and dy, each
+                product beside ``torch.matmul``; in a Python process of
+                their own: in this one, ``torch.profiler`` loses their
+                windows late in the run, and timed in 6c they make phase
+                8's window get lost.
  22. report   — one ``{"kernels": [...], "profile_retries": {...}}`` line
                 (the profiler windows each phase took again because they
                 held no device event; each phase also prints its count
@@ -1243,22 +1254,33 @@ def _densify_grad_bound(pms, ps, nzs, saves) -> tuple:
 # operations per MZI and row for its phase's sum, by backward design: the
 # resident one's 11; the warp-rows one's 4, g_lo·y_hi − g_hi·y_lo (two
 # products and a difference) and the add over the rows (its sign q is
-# applied once a slot, after the rows' sum)
-GRAD_PAIR_OPS = {"resident": 11, "warp_rows": 4}
+# applied once a slot, after the rows' sum); the dense one walks M's
+# identity rows by the warp-rows walk
+GRAD_PAIR_OPS = {"resident": 11, "warp_rows": 4, "dense": 4}
 
 
-def _apply_grad_bound(layout, S: int, B: int, design: str) -> tuple:
+def _apply_grad_bound(layout, S: int, B: int, design: str,
+                      shared: bool = False) -> tuple:
     """(bound_ms, bound_by) of one ``mesh_apply_stacked_grad`` by
-    ``design``: y and dy read, dx written, the phases, diag and plan
-    tables read and dphases written once, against per element and level 3
-    operations to recover the state and 3 for the gradient, and
-    ``GRAD_PAIR_OPS[design]`` per MZI and row for its phase's sum, each an
-    issue slot."""
+    ``design``: its inputs read and dx and dphases written once (y and
+    dy, or for ``"dense"`` x, dy and M; the phases, diag and plan tables),
+    against per element and level 3 operations to recover the state and
+    3 for the gradient, and ``GRAD_PAIR_OPS[design]`` per MZI and row for
+    its phase's sum, each an issue slot, on the B rows (``"dense"``: M's
+    P identity rows, plus the two products dx = dy·Mᵀ and dM = xᵀ·dy, 3 ×
+    2·S·B·P² TF32 FLOPs each at the tensor cores' rate)."""
     P, L = layout.ports, layout.levels
     words = 3 * S * B * P + 2 * S * L * layout.slots + S * P + 3 * L * P
-    ops = S * B * (6 * P * L + GRAD_PAIR_OPS[design] * layout.num_mzis + P)
+    rows = B
+    t_tf32 = 0.0
+    if design == "dense":
+        words += S * P * P - (S - 1) * B * P * shared
+        rows = P
+        t_tf32 = 2 * 3 * 2 * S * B * P * P / PEAK_TF32_FLOPS * 1e3
+    ops = S * rows * (6 * P * L + GRAD_PAIR_OPS[design] * layout.num_mzis
+                      + P)
     t_bytes = 4 * words / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_ISSUE * 1e3
+    t_ops = ops / PEAK_F32_ISSUE * 1e3 + t_tf32
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1276,12 +1298,13 @@ DENSIFY_GRAD_TIMED = ("s1-noise", "s11-noise")
 # label -> (ports, S, rows, shared x, transpose): the resident backward at
 # onn's BP launches at hidden 64 (4300 stencil rows; layer 0's 21-port V
 # mesh on the 100 rows) and a 16-port mesh, "p64-4300" (the hidden
-# layer's U mesh) its main one; the warp-rows backward at onn's BP
-# launches at hidden 1024 (the hidden layer's V^T and U meshes on 4300
-# stencil rows, whose forward takes route B; layer 0's U mesh on the 100
-# rows and on the 21 identity columns, route A), a Reck layout of 256
-# ports (decompose_orthogonal: 509 levels; ports is "reck256") and 160
-# ports at S = 3, B = 777, "p1024-4300" its main one
+# layer's U mesh) its main one; the warp-rows backward handed y and dy
+# at onn's BP shapes at hidden 1024 (the hidden layer's V^T and U meshes
+# on 4300 stencil rows, whose forward takes route B and whose backward on
+# the main path is the dense one, MESH_GRAD_DENSE; layer 0's U mesh on
+# the 100 rows and on the 21 identity columns, route A), a Reck layout of
+# 256 ports (decompose_orthogonal: 509 levels; ports is "reck256") and
+# 160 ports at S = 3, B = 777
 MESH_GRAD_CASES = {
     "p16-4300": (16, 1, 4300, False, False),
     "p16-4300-tr": (16, 1, 4300, False, True),
@@ -1300,6 +1323,17 @@ MESH_GRAD_TIMED = ("p64-4300", "p64-4300-tr", "v21-100-tr")
 # the warp-rows backward's cases checked and timed in a process of their
 # own at the end of the run (phase_mesh_grad_wide), not in phase_mesh_grad
 MESH_GRAD_WIDE = ("p1024-4300", "u1024-100", "u1024-21")
+# label -> (ports, S, rows, shared x, transpose): the dense backward, from
+# route B's forward (launch_dense_keep), in that process too, all timed:
+# the hidden layer's U mesh of an onn BP step at hidden 1024 ("dense-
+# p1024-4300", its main case), transposed (the V^T mesh), on a shared x,
+# and 160 ports at S = 3
+MESH_GRAD_DENSE = {
+    "dense-p1024-4300": (1024, 1, 4300, False, False),
+    "dense-p1024-4300-tr": (1024, 1, 4300, False, True),
+    "dense-p1024-4300-shared": (1024, 2, 4300, True, False),
+    "dense-p160-777-s3": (160, 3, 777, False, False),
+}
 
 
 def _grad_layout(ports):
@@ -1495,13 +1529,170 @@ def phase_mesh_grad(device) -> dict:
     return results
 
 
+def _mesh_grad_dense_case(device, label: str) -> dict:
+    """One ``MESH_GRAD_DENSE`` case: the dense backward (x and M from
+    ``launch_dense_keep``) against its plain version
+    (``ref.mesh_apply_dense_grad_ref`` on the same M) and against the
+    plain backward of the rows (``ref.mesh_apply_grad_ref``), each within
+    ``MESH_GRAD_BOUND``; one launch of design ``"dense"`` and one of
+    ``mesh_product_grad`` a call; two calls bit for bit.  Timed: per call
+    (CUDA events) and its kernels alone in a trace, beside the warp-rows
+    backward on the same forward's y and dy (the parent's design; the two
+    in turns, dense, rows, rows, dense), the bound, the plain version;
+    the products' launch (``products_ms``: both, and each alone) beside
+    ``torch.matmul`` of each product (``library_products_ms``), and the
+    walk (the warp-rows design handed y := M and dy := dM, no dx) on CUDA
+    events (``walk_ms``); at the main case, autograd of the plain
+    forward."""
+    import torch
+    from repro_torch.core import photonic
+    from repro_torch.kernels import mesh_apply as mesh
+    from repro_torch.kernels import ref
+    fill = torch.empty(1, device=device)
+    i = list(MESH_GRAD_DENSE).index(label)
+    ports, S, B, shared, transpose = MESH_GRAD_DENSE[label]
+    layout = photonic.rectangular_layout(ports)
+    P = layout.ports
+    if mesh.grad_design(layout, S, B) != "dense":
+        raise AssertionError(f"{label}: the forward does not take route B")
+    gen = torch.Generator().manual_seed(3600 + i)
+    phases = torch.randn((S, *layout.phase_shape()), generator=gen).to(
+        device)
+    diag = torch.where(torch.rand((S, P), generator=gen) < 0.5, -1.0,
+                       1.0).to(device)
+    x = torch.randn((B, P) if shared else (S, B, P), generator=gen).to(
+        device)
+    y, dense = mesh.launch_dense_keep(layout, phases, diag, x, transpose)
+    dy = torch.randn(y.shape, generator=gen).to(device)
+    grad = mesh.mesh_apply_stacked_grad
+    before = (grad.launches, grad.design_launches["dense"],
+              mesh.mesh_product_grad.launches)
+
+    def call():
+        return grad(layout, phases, diag, None, dy, transpose, x=x,
+                    dense=dense)
+    dx, dph = call()
+    if (grad.launches, grad.design_launches["dense"],
+            mesh.mesh_product_grad.launches) != (
+                before[0] + 1, before[1] + 1,
+                before[2] + DENSE_GRAD_PRODUCTS):
+        raise AssertionError(f"{label}: not one dense backward and one "
+                             "product launch a call")
+    dxs = dx.sum(0) if shared else dx
+    pdx, pdph = ref.mesh_apply_dense_grad_ref(layout, phases, diag, x,
+                                              dense, dy, transpose)
+    errs = [_grad_share("the dense backward", label, dxs, pdx),
+            _grad_share("the dense backward", label, dph, pdph)]
+    rdx, rdph = ref.mesh_apply_grad_ref(layout, phases, diag, x, y, dy,
+                                        transpose)
+    rows_errs = [_grad_share("the dense backward (rows' plain version)",
+                             label, dxs, rdx),
+                 _grad_share("the dense backward (rows' plain version)",
+                             label, dph, rdph)]
+    again = call()
+    if not (torch.equal(dx, again[0]) and torch.equal(dph, again[1])):
+        raise AssertionError(f"the dense backward at {label}: two calls "
+                             "differ")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    W, R, warps, cols = mesh.grad_rows_config(layout, S, P, sms)
+    row = {"case": label, "design": "dense", "ports": P,
+           "levels": layout.levels, "S": S, "rows": B, "shared_x": shared,
+           "transpose": transpose, "forward_route": "dense",
+           "splits": list(mesh.dense_grad_splits(S, P, B, sms)),
+           "walk": {"lane_width": W, "rows_per_warp": R, "warps": warps,
+                    "block_columns": cols},
+           "max_abs_err": max(e for e, _ in errs),
+           "max_err_over_bound": max(e / (MESH_GRAD_BOUND * m)
+                                     for e, m in errs if m),
+           "rows_plain_max_err_over_bound": max(
+               e / (MESH_GRAD_BOUND * m) for e, m in rows_errs if m),
+           "dx_bitwise_equal_plain": bool(torch.equal(dxs, pdx)),
+           "repeat_bitwise_equal": True}
+
+    def rows_call():
+        return grad(layout, phases, diag, y, dy, transpose)
+    turns = [_time_ms(fn, 10) for fn in (call, rows_call, rows_call, call)]
+    row["ms"] = min(turns[0], turns[3])
+    row["turns_ms"] = {"dense": [turns[0], turns[3]],
+                       "warp_rows": [turns[1], turns[2]]}
+    row["warp_rows_ms"] = min(turns[1], turns[2])
+    # the products' launch, the splits' sum, the trig prologue, the walk
+    # and the block columns' sum; a fill leads.  The trace may drop the
+    # first of them: then the call's device time is not measured
+    splits, per = mesh.dense_grad_splits(S, P, B, sms)
+    kernels = 3 + (splits > 1) + (cols > 1)
+    prof = _profile(call, match="mesh_", lead=lambda: fill.fill_(0.0))
+    row["kernels_per_call"] = kernels
+    row["kernels_traced"] = prof["match_kernels"]
+    row["kernel_device_ms"] = (prof["match_ms"]
+                               if prof["match_kernels"] == kernels else None)
+    row["kernel_each_ms"] = prof.get("match_each_ms")
+    dxp = torch.empty((S, B, P), device=device)
+    dmp = torch.empty_like(dense)
+    xs = x.expand(S, -1, -1) if shared else x
+    row["products_ms"] = {
+        "both": _time_ms(lambda: mesh.mesh_product_grad(
+            dy, dense, x, dxp, dmp, splits, per), 20),
+        "dx": _time_ms(lambda: mesh.mesh_product_grad(
+            dy, dense, None, dxp, None), 20),
+        "dM": _time_ms(lambda: mesh.mesh_product_grad(
+            dy, dense, x, None, dmp, splits, per), 20)}
+    walk_dm = torch.matmul(xs.transpose(-1, -2), dy)
+    row["walk_ms"] = _time_ms(lambda: grad(
+        layout, phases, diag, dense, walk_dm, transpose, False), 10)
+    row["library_products_ms"] = {
+        "dx": _time_ms(lambda: torch.matmul(dy, dense.transpose(-1, -2)),
+                       20),
+        "dM": _time_ms(lambda: torch.matmul(xs.transpose(-1, -2), dy), 20)}
+    # each product's output (the last timed launch's) against the f32
+    # torch.matmul of the same product
+    row["products_max_abs_err"] = {
+        "dx": _grad_share("mesh_product_grad (dx)", label, dxp,
+                          torch.matmul(dy, dense.transpose(-1, -2)))[0],
+        "dM": _grad_share("mesh_product_grad (dM)", label, dmp,
+                          torch.matmul(xs.transpose(-1, -2), dy))[0]}
+    row["products_bound_ms"], row["products_bound_by"] = _products_bound(
+        S, B, P, shared)
+    row["library_ms"] = None
+    row["plain_ms"] = _time_ms(lambda: ref.mesh_apply_dense_grad_ref(
+        layout, phases, diag, x, dense, dy, transpose), 3, warmup=1)
+    row["rows_plain_ms"] = _time_ms(lambda: ref.mesh_apply_grad_ref(
+        layout, phases, diag, x, y, dy, transpose), 3, warmup=1)
+    if label == "dense-p1024-4300":
+        def autograd_plain():
+            p = phases.clone().requires_grad_()
+            xx = x.clone().requires_grad_()
+            return torch.autograd.grad(photonic.mesh_apply_stacked(
+                layout, p, diag, xx, transpose), (p, xx), dy)
+        row["autograd_plain_ms"] = _time_ms(autograd_plain, 3, warmup=1)
+        torch.cuda.empty_cache()
+    row["bound_ms"], row["bound_by"] = _apply_grad_bound(
+        layout, S, B, "dense", shared)
+    print(f"[mesh-grad] {json.dumps(row)}", flush=True)
+    return row
+
+
+def _products_bound(S: int, B: int, P: int, shared: bool) -> tuple:
+    """(bound_ms, bound_by) of the dense backward's two products: dy and
+    M read, dx written; x and dy read, dM written (the splits' partials
+    not counted), against 3 × 2·S·B·P² TF32 FLOPs each."""
+    words = (2 * S * B * P + S * P * P
+             + (1 if shared else S) * B * P + S * B * P + S * P * P)
+    t_bytes = 4 * words / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2 * 3 * 2 * S * B * P * P / PEAK_TF32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def mesh_grad_wide_cases(device) -> dict:
-    """``MESH_GRAD_WIDE``'s cases, checked and timed (``_mesh_grad_case``),
+    """``MESH_GRAD_WIDE``'s cases (``_mesh_grad_case``) and
+    ``MESH_GRAD_DENSE``'s (``_mesh_grad_dense_case``), checked and timed,
     then the card's cached memory handed back: autograd of the plain
     1024-level mesh on 4300 rows takes ~36 GB."""
     import torch
     out = {label: _mesh_grad_case(device, label, True)
            for label in MESH_GRAD_WIDE}
+    for label in MESH_GRAD_DENSE:
+        out[label] = _mesh_grad_dense_case(device, label)
     torch.cuda.empty_cache()
     return out
 
@@ -2314,7 +2505,9 @@ def phase_bp_kernel(device) -> dict:
 BP_COUNTED = ("tt_contract", "tt_contract_grad", "tt_contract_batched",
               "tt_contract_batched_quant", "mesh_densify_stacked",
               "mesh_densify_grad", "mesh_apply_stacked",
-              "mesh_apply_stacked_grad")
+              "mesh_apply_stacked_grad", "mesh_product_grad")
+DENSE_GRAD_PRODUCTS = 1  # a dense backward's product launches (dx and dM
+                         # in one)
 ONN_BP_MESHES = 6        # onn's fd_fast stencil: layer 0 on the rows and on
                          # the identity columns, the hidden layer: 2 meshes
                          # each, forward and backward
@@ -2330,10 +2523,10 @@ F32_FLOOR_FACTOR = 4.0   # the card's f32 error to float64 against the
 # step's 6 meshes forward (layer 0's 21-port V mesh resident and its
 # 1024-port U mesh route A, each on the rows and on the identity columns;
 # the hidden layer's V^T and U route B on the 4300 stencil rows) and
-# backward (2 resident, 4 warp rows); a validation forward's 4 (1
-# resident, 3 route A)
+# backward, whose design follows the forward's route (2 resident, 2 warp
+# rows, 2 dense); a validation forward's 4 (1 resident, 3 route A)
 ONN_1024_STEP = ({"resident": 2, "warp_rows": 2, "dense": 2},
-                 {"resident": 2, "warp_rows": 4})
+                 {"resident": 2, "warp_rows": 2, "dense": 2})
 ONN_1024_VAL = {"resident": 1, "warp_rows": 3}
 
 
@@ -2366,7 +2559,7 @@ def _onn_bp_designs(model, batch: int, steps: int, evals: int,
                          (pm1.layout_v, (2 * n + 1) * batch),
                          (pm1.layout_u, (2 * n + 1) * batch)):
         fwd[route(layout, rows)] += steps
-        bwd[mesh.grad_design(layout)] += steps
+        bwd[mesh.grad_design(layout, 1, rows)] += steps
     for layout in (pm0.layout_v, pm0.layout_u, pm1.layout_v, pm1.layout_u):
         fwd[route(layout, val_points)] += evals
     return fwd, bwd
@@ -2633,8 +2826,8 @@ def phase_train_bp(device) -> dict:
     AdamW for 50 steps and a checkpoint, tonn (noise on) with AdamW and
     dense with SGD for 10 steps each; and onn (noise on) with AdamW at
     hidden 64, whose meshes the resident backward holds, and at hidden
-    1024, whose hidden meshes take routes A and B forward and the
-    warp-rows backward, for 10 each: the mesh launches by design and
+    1024, whose 1024-port meshes take routes A and B forward and the
+    warp-rows and dense backwards, for 10 each: the mesh launches by design and
     route exactly ``_onn_bp_designs``'s, card vs CPU at hidden 1024 on
     ``ONN_CHECK_BATCH`` points."""
     import numpy as np
@@ -2681,6 +2874,8 @@ def phase_train_bp(device) -> dict:
             want["mesh_apply_stacked"] = (ONN_BP_MESHES * steps
                                           + ONN_VAL_MESHES * evals)
             want["mesh_apply_stacked_grad"] = ONN_BP_MESHES * steps
+            want["mesh_product_grad"] = DENSE_GRAD_PRODUCTS * _onn_bp_designs(
+                res.model, batch, steps, evals)[1]["dense"]
         if launches != want:
             raise AssertionError(f"{label}: {launches} over {steps} steps; "
                                  f"expected {want}")
@@ -3120,10 +3315,10 @@ TABLE1_VAL_FORWARDS = 2          # the ideal and the mapped validation MSE
 # the off-chip ONN row at hidden 1024, by design and route, written out
 # rather than asked of the dispatch under test: an epoch's 4 meshes on the
 # stencil's 4300 rows (layer 0's 21-port V mesh resident, the 3 1024-port
-# meshes route B) and their backwards (1 resident, 3 warp rows); a
-# validation forward's 4 on 1000 points (1 resident, 3 route A)
+# meshes route B) and their backwards (1 resident, 3 dense); a validation
+# forward's 4 on 1000 points (1 resident, 3 route A)
 TABLE1_ONN_1024_EPOCH = {"resident": 1, "dense": 3, "grad_resident": 1,
-                         "grad_warp_rows": 3}
+                         "grad_dense": 3}
 TABLE1_ONN_1024_VAL = {"resident": 1, "warp_rows": 3}
 
 
@@ -3143,8 +3338,8 @@ def _table1_want(mode: str, on_chip: bool, epochs: int,
     a validation forward, each by the design or route its layout and rows
     take (at hidden 1024 the fixed ``TABLE1_ONN_1024_EPOCH`` and
     ``TABLE1_ONN_1024_VAL``: a step's layer-0 V mesh resident forward and
-    backward, the 3 wide meshes route B forward and the warp-rows
-    backward; a validation forward's 3 wide meshes route A); dense:
+    backward, the 3 wide meshes route B forward and the dense backward;
+    a validation forward's 3 wide meshes route A); dense:
     none."""
     from benchmarks import torch_table1_hjb as table1
     from repro_torch import pde as pde_lib
@@ -3173,7 +3368,7 @@ def _table1_want(mode: str, on_chip: bool, epochs: int,
             layout = photonic.rectangular_layout(ports)
             want[_mesh_route(layout, stencil)] += epochs
             want[_mesh_route(layout, table1.VAL_POINTS)] += vf
-            want[f"grad_{mesh.grad_design(layout)}"] += epochs
+            want[f"grad_{mesh.grad_design(layout, 1, stencil)}"] += epochs
         want["mesh_apply_stacked"] = 4 * (epochs + vf)
         want["mesh_apply_stacked_grad"] = 4 * epochs
     elif mode == "tonn":
@@ -3191,7 +3386,7 @@ def _table1_want(mode: str, on_chip: bool, epochs: int,
 
 # the off-chip ONN row (dense mapped onto noise: onn by BP) at the paper's
 # width: its hidden meshes take route B forward on the stencil's 4300 rows
-# and the warp-rows backward
+# and the dense backward
 TABLE1_ONN_BP = (("dense", False, True), 1024)
 
 
@@ -4010,14 +4205,15 @@ def main() -> int:
                          "autograd_plain_ms is torch.autograd.grad through "
                          "the plain gather form, for scale)",
                 "cases": resident}
-    main_rg = mesh_grad["p1024-4300"]
+    main_rg = mesh_grad["u1024-100"]
     onn_wide = trained_bp["onn-1024-adamw"]
     entry_rg = {"name": "mesh_rows_grad", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/mesh_apply.cu",
                 "replaces": "src/repro/kernels/mesh_apply.py:93 (the "
-                            "backward of B3's wide routes A and B; the TPU "
-                            "kernel has none, JAX differentiates its jnp "
-                            "gather scan, src/repro/kernels/ops.py:139)",
+                            "backward of B3's route A, and the dense "
+                            "backward's walk; the TPU kernel has none, JAX "
+                            "differentiates its jnp gather scan, "
+                            "src/repro/kernels/ops.py:139)",
                 "launches": onn_wide["mesh_designs"]["backward"][
                     "warp_rows"],
                 "max_abs_err": max(r["max_abs_err"] for r in warp_rows),
@@ -4026,17 +4222,71 @@ def main() -> int:
                 **{k: main_rg[k] for k in grad_keys},
                 "kernel_each_ms": main_rg["kernel_each_ms"],
                 "scratch_bytes": main_rg["scratch_bytes"],
-                "layer0": {label: {k: mesh_grad[label][k] for k in grad_keys}
-                           for label in ("u1024-100", "u1024-21")},
+                "u1024-21": {k: mesh_grad["u1024-21"][k] for k in grad_keys},
+                "hidden_4300_rows": {k: mesh_grad["p1024-4300"][k]
+                                     for k in grad_keys},
                 "shape": "1024-port rectangular mesh (1024 levels), S = 1, y "
-                         "and dy (1, 4300, 1024) from route B's forward: the "
-                         "hidden layer's U mesh of an onn BP step at hidden "
-                         "1024 (library: none; autograd_plain_ms is "
+                         "and dy (1, 100, 1024), x shared: layer 0's U mesh "
+                         "of an onn BP step at hidden 1024, its main-path "
+                         "launch (u1024-21: on the 21 identity columns; "
+                         "hidden_4300_rows: the hidden layer's U mesh "
+                         "handed route B's y and dy, as before the dense "
+                         "backward) (library: none; autograd_plain_ms is "
                          "torch.autograd.grad through the plain gather "
                          "form, for scale; kernel_device_ms sums the trig "
                          "prologue, the walk and the columns' sum, "
                          "kernel_each_ms each)",
                 "cases": warp_rows}
+    main_dd = mesh_grad["dense-p1024-4300"]
+    dense = [r for r in mesh_grad.values() if r.get("design") == "dense"]
+    entry_dd = {"name": "mesh_dense_grad", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/mesh_apply.cu",
+                "replaces": "src/repro/kernels/mesh_apply.py:93 (the "
+                            "backward of B3's route B; the TPU kernel has "
+                            "none, JAX differentiates its jnp gather scan, "
+                            "src/repro/kernels/ops.py:139)",
+                "launches": onn_wide["mesh_designs"]["backward"]["dense"],
+                "max_abs_err": max(r["max_abs_err"] for r in dense),
+                "max_err_over_bound": max(r["max_err_over_bound"]
+                                          for r in dense),
+                **{k: main_dd[k] for k in grad_keys},
+                "kernel_each_ms": main_dd["kernel_each_ms"],
+                "warp_rows_same_inputs_ms": main_dd["warp_rows_ms"],
+                "turns_ms": main_dd["turns_ms"],
+                "layer0": {label: {k: mesh_grad[label][k] for k in grad_keys}
+                           for label in ("u1024-100", "u1024-21")},
+                "shape": "1024-port rectangular mesh (1024 levels), S = 1, x "
+                         "and dy (1, 4300, 1024), M (1, 1024, 1024) from "
+                         "route B's forward: the hidden layer's U mesh of "
+                         "an onn BP step at hidden 1024 (library: none, no "
+                         "one call gives dφ; autograd_plain_ms is "
+                         "torch.autograd.grad through the plain gather "
+                         "form, for scale; warp_rows_same_inputs_ms the "
+                         "warp-rows backward on the forward's y and dy, "
+                         "timed in turns; layer0: the warp-rows backward "
+                         "on layer 0's U mesh, its main-path launches)",
+                "cases": dense}
+    entry_pg = {"name": "mesh_product_grad", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/mesh_apply.cu",
+                "replaces": "src/repro/kernels/mesh_apply.py:93 (the dense "
+                            "backward's products dx = dy·Mᵀ and dM = "
+                            "xᵀ·dy; the TPU kernel has none)",
+                "launches": onn_wide["launches"]["mesh_product_grad"],
+                "max_abs_err": max(max(r["products_max_abs_err"].values())
+                                   for r in dense),
+                "ms": main_dd["products_ms"]["both"],
+                "plain_ms": sum(main_dd["library_products_ms"].values()),
+                "bound_ms": main_dd["products_bound_ms"],
+                "bound_by": main_dd["products_bound_by"],
+                "library_ms": sum(main_dd["library_products_ms"].values()),
+                "each_ms": main_dd["products_ms"],
+                "library_each_ms": main_dd["library_products_ms"],
+                "shape": "the two products of the dense backward at the "
+                         "hidden layer's U mesh (x, dy (1, 4300, 1024), M "
+                         "(1, 1024, 1024)), both in one launch (each_ms: "
+                         "both and each alone); library and plain: "
+                         "torch.matmul of each, f32 (TF32 off), the two "
+                         "calls' times summed"}
     tonn_bp, onn_bp = trained_bp["tonn-noise-adamw"], trained_bp["onn-adamw"]
     print(f"[train-bp] tonn AdamW (noise): {tonn_bp['bp_step_ms']:.3f} ms "
           f"per BP step; onn AdamW at hidden 64: {onn_bp['bp_step_ms']:.3f} "
@@ -4046,13 +4296,16 @@ def main() -> int:
           f"{main_ag['ms']:.4f} ms ({main_ag['kernel_device_ms']} ms alone, "
           f"bound {main_ag['bound_ms']:.6f} ms) on {card}", flush=True)
     print(f"[train-bp] onn AdamW at hidden 1024: "
-          f"{onn_wide['bp_step_ms']:.3f} ms per BP step; mesh_rows_grad "
-          f"{main_rg['ms']:.4f} ms per call ({main_rg['kernel_device_ms']} "
-          f"ms alone, bound {main_rg['bound_ms']:.6f} ms) on {card}",
-          flush=True)
+          f"{onn_wide['bp_step_ms']:.3f} ms per BP step; the dense backward "
+          f"{main_dd['ms']:.4f} ms per call ({main_dd['kernel_device_ms']} "
+          f"ms alone, bound {main_dd['bound_ms']:.6f} ms; the warp-rows one "
+          f"on the same forward {main_dd['warp_rows_ms']:.4f} ms); "
+          f"mesh_rows_grad on layer 0's 100 rows "
+          f"{mesh_grad['u1024-100']['ms']:.4f} ms on {card}", flush=True)
     print(json.dumps({"kernels": [entry, entry_b, entry_m, entry_q,
                                   entry_f, entry_g, entry_a, entry_d,
-                                  entry_dg, entry_ag, entry_rg],
+                                  entry_dg, entry_ag, entry_rg, entry_dd,
+                                  entry_pg],
                       "profile_retries": retaken}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -26,9 +26,13 @@ Serving runs the single forward, whose TT layers go through
 at a time; the off-chip BP baselines differentiate that forward with
 autograd (on the card, ``tt_linear`` runs the TT kernel and its
 hand-written backward, tonn's grouped densification its grouped backward,
-and onn's meshes the resident backward or, at hidden 1024, the warp-rows
-backward of the wide routes; a width whose meshes no backward holds,
-``onn_no_backward_ports``, is ROADMAP item 6c-3).  ``dense`` layers are
+and onn's meshes the backward of their forward's route: the resident
+backward up to ~138 ports; at hidden 1024 the warp-rows backward where
+route A ran (layer 0's U mesh on the batch and the identity columns) and
+the dense backward where route B did (the hidden layer's meshes on the
+stencil's rows: two tensor-core products and a walk on the mesh's own
+rows); a width whose meshes no backward holds, ``onn_no_backward_ports``,
+is ROADMAP item 6c-3).  ``dense`` layers are
 ``torch.matmul`` / ``einsum``, as the JAX package leaves them to XLA.
 Fused ZO training runs the stacked path: the N+1 SPSA-perturbed
 parameter sets of every core mesh densify in one program

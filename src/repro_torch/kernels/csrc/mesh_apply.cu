@@ -43,11 +43,20 @@
 //                        too): dx and dphases from the saved output, grid
 //                        (row-tile columns, S), the tables resident.
 //                        Both backwards are below ("backwards").
-//   mesh_rows_grad_launch  the backward of the wide routes A and B (port-
-//                        only too), in route A's warp-row layout: dx and
-//                        dphases from the saved output of either route
-//                        ("warp rows backward", below).  The owner walk's
-//                        layouts have no backward (ROADMAP item 6c-3).
+//   mesh_rows_grad_launch  the backward of the wide routes (port-only
+//                        too), in route A's warp-row layout: dx and
+//                        dphases from the saved output ("warp rows
+//                        backward", below): the backward of route A's
+//                        forwards.
+//   mesh_product_grad_launch  with mesh_rows_grad_launch, the "dense"
+//                        backward of route B's forwards (port-only too),
+//                        from the forward's x and its dense scratch M
+//                        (y = x*M): dx = dy*M^T and dM = x^T*dy on the
+//                        tensor cores ("dense", below), then dphases by
+//                        the warp-rows backward on M's P identity rows
+//                        (y := M, dy := dM) instead of the batch's rows.
+//                        The owner walk's layouts have no backward
+//                        (ROADMAP item 6c-3).
 //
 // Every product, sum and quotient is rounded on its own (__fmul_rn,
 // __fadd_rn, __fdiv_rn: no FMA contraction) in the plain version's order,
@@ -1134,8 +1143,9 @@ int rows_launch(const float* x, const float* phases, const int* plan,
 
 // ------------------------------------------------------ warp rows backward
 //
-// The backward of routes A and B (port-only, as the resident backward;
-// the JAX package differentiates its jnp gather scan): from the forward's
+// The backward of route A (port-only, as the resident backward; the JAX
+// package differentiates its jnp gather scan), and the dense backward's
+// walk on M's identity rows (y := M, dy := dM, no dx): from the forward's
 // output y and the gradient dy there, (S, batch, ports), dx (S, batch,
 // ports) and dphases (S, levels, slots).  The arithmetic of
 // reverse_levels in route A's register layout: a warp holds R rows of y
@@ -1155,21 +1165,29 @@ int rows_launch(const float* x, const float* phases, const int* plan,
 //   owned by one lane: at parity 1 the pair across a lane's right edge by
 //   that lane, through one shuffle of y and one of g), then over the
 //   block's warps in warp order through shared memory: each warp writes
-//   its terms by entry (a double buffer, one barrier a level), and thread
-//   k of the block reads slot k's entry and sign from the layout's slot
-//   map (kernels/mesh_apply.py::grad_slot_map; staged beside the records,
-//   one bulk copy each a chunk) and writes the block's sum, or 0 for a
-//   slot no pair holds, to its column's partials.  No float atomics:
+//   its terms for every level of a chunk of the record ring (kStage
+//   levels), to one of two buffers; while the warps walk chunk k, thread
+//   q of the block sums slot q of chunk k - 1 at its kStage levels at once
+//   (their loads in flight together), reading the word of the slot's term
+//   and its sign from the layout's slot map (kernels/mesh_apply.py::
+//   grad_slot_map; staged beside the records, one bulk copy each a
+//   chunk), and writes the block's sum, or 0 for a slot no pair holds, to
+//   its column's partials.  So the warps meet once a chunk, at the ring's
+//   barrier, not once a level.  A warp's term of entry (i, lane) lies at
+//   word i*32 + (lane ^ ((64/W)*i mod 32)) (term_word), so that the 32
+//   slots a warp of the sum reads (a lane's W/2 pairs, then the next
+//   lanes') fall in 32 banks, not W/2 to a bank.  No float atomics:
 //   mesh_grad_sum_kernel adds the columns in order, so two calls give the
 //   same bits.
 // The diag as in mesh_apply_grad_kernel: transposed (D last), the walk
 // starts from y / D and dy * D; otherwise dx = g * D at the end.
 //
-// Grid (columns, S): block x takes rows [x*warps*R, (x+1)*warps*R) of
-// entry s, so each column writes its partials (levels x slots floats of
-// every entry) once, not once a row tile.  Registers bound the block: y
-// and g of R rows take 2*R*W of them a thread, 64 at W = 32 and R = 1,
-// which leaves 512 threads (16 warps) a block; R = 2 at W = 32 takes 256.
+// A warp holds y and g of its R rows as one array of 2R rows, so that one
+// call of route A's level function undoes a level on both.  Grid
+// (columns, S): block x takes rows [x*warps*R, (x+1)*warps*R) of entry
+// s, so each column writes its partials (levels x slots floats of every
+// entry) once, not once a row tile.  Registers and shared memory bound
+// the block (RowsGradShape).
 // Bound: per element and level 3 operations to recover the state and 3
 // for the gradient, 4 a pair and row for the phase term (two products, a
 // difference and the add over the rows; q is applied once a slot), at the
@@ -1177,57 +1195,76 @@ int rows_launch(const float* x, const float* phases, const int* plan,
 // once and read once by the sum.
 
 constexpr int kMapNeg = 1 << 16;   // slot map: the pair's lower wire has
-                                   // sign -1 (bits 0-15: its entry i*32+t)
+                                   // sign -1 (bits 0-15: its term's word)
 
+// Registers bound the block (y and g of R rows, 2*R*W a thread): 256
+// threads from W*R = 32 (255 registers each), else 512; shared memory
+// holds the terms of 8 warps at W = 32 and 16 (kernels/mesh_apply.py::
+// grad_rows_config).  The ring holds kRing chunks of records and slot
+// map: chunk k is walked while k + 1 lands and chunk k - 1's terms are
+// summed.
 template <int W, int R>
 struct RowsGradShape {
-  static constexpr int kMaxThreads = W * R > 32 ? 256 : 512;
+  static constexpr int kMaxThreads = W * R >= 32 ? 256 : 512;
   static constexpr int kTerms = RowsShape<W>::kEntries * 32;  // a warp's
+  static constexpr int kRing = 3;
+  static constexpr int kRingFloats =
+      kRing * RowsShape<W>::kStage * RowsShape<W>::kRecord;
 };
 
+// Where a warp's term of entry (i, lane) lies in its level's row of kTerms
+// words: i*32 + (lane ^ ((64/W)*i mod 32)), so that the 32 slots a warp of
+// the sum reads (a lane's W/2 pairs, then the next lanes') fall in 32
+// banks.  The slot map names this word (kernels/mesh_apply.py::
+// grad_slot_map).
+template <int W>
+__device__ __forceinline__ int term_word(int i, int lane) {
+  return i * 32 + (lane ^ (((64 / W) * i) & 31));
+}
+
+// st: the walk's rows, y in rows 0..R-1 and g in rows R..2R-1
 template <int W, int R>
-__device__ __forceinline__ float pair_term(const float (&y)[R][W],
-                                           const float (&g)[R][W], int lo,
-                                           int hi) {
-  float acc = __fsub_rn(__fmul_rn(g[0][lo], y[0][hi]),
-                        __fmul_rn(g[0][hi], y[0][lo]));
+__device__ __forceinline__ float pair_term(const float (&st)[2 * R][W],
+                                           int lo, int hi) {
+  float acc = __fsub_rn(__fmul_rn(st[R][lo], st[0][hi]),
+                        __fmul_rn(st[R][hi], st[0][lo]));
 #pragma unroll
   for (int r = 1; r < R; ++r)
-    acc = __fadd_rn(acc, __fsub_rn(__fmul_rn(g[r][lo], y[r][hi]),
-                                   __fmul_rn(g[r][hi], y[r][lo])));
+    acc = __fadd_rn(acc, __fsub_rn(__fmul_rn(st[R + r][lo], st[r][hi]),
+                                   __fmul_rn(st[R + r][hi], st[r][lo])));
   return acc;
 }
 
 // The unsigned phase terms g_lo*y_hi - g_hi*y_lo of the pairs a lane owns
-// at one level, summed over the warp's R rows, into out[i*32 + lane]: at
+// at one level, summed over the warp's R rows, into entry (i, lane) of out
+// (at term_word): at
 // parity 0 entries 0..W/2-1 (pairs (2i, 2i+1)), at parity 1 entries
 // 1..W/2 (pairs (2i-1, 2i), and entry W/2 the pair (W-1, the right lane's
 // wire 0)).  Entries that are no pair get a term nothing reads.
 template <int W, int R>
-__device__ __forceinline__ void rows_terms(const float (&y)[R][W],
-                                           const float (&g)[R][W],
+__device__ __forceinline__ void rows_terms(const float (&st)[2 * R][W],
                                            int parity, int lane,
                                            float* __restrict__ out) {
   constexpr int H = W / 2;
   if (parity == 0) {
 #pragma unroll
     for (int i = 0; i < H; ++i)
-      out[i * 32 + lane] = pair_term<W, R>(y, g, 2 * i, 2 * i + 1);
+      out[term_word<W>(i, lane)] = pair_term<W, R>(st, 2 * i, 2 * i + 1);
     return;
   }
 #pragma unroll
   for (int i = 1; i < H; ++i)
-    out[i * 32 + lane] = pair_term<W, R>(y, g, 2 * i - 1, 2 * i);
+    out[term_word<W>(i, lane)] = pair_term<W, R>(st, 2 * i - 1, 2 * i);
   float acc = 0.0f;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const float yh = __shfl_down_sync(kFullMask, y[r][0], 1);
-    const float gh = __shfl_down_sync(kFullMask, g[r][0], 1);
-    const float t = __fsub_rn(__fmul_rn(g[r][W - 1], yh),
-                              __fmul_rn(gh, y[r][W - 1]));
+    const float yh = __shfl_down_sync(kFullMask, st[r][0], 1);
+    const float gh = __shfl_down_sync(kFullMask, st[R + r][0], 1);
+    const float t = __fsub_rn(__fmul_rn(st[R + r][W - 1], yh),
+                              __fmul_rn(gh, st[r][W - 1]));
     acc = r == 0 ? t : __fadd_rn(acc, t);
   }
-  out[H * 32 + lane] = acc;
+  out[term_word<W>(H, lane)] = acc;
 }
 
 // table: the records of mesh_trig_kernel with !transpose (S, levels,
@@ -1246,19 +1283,21 @@ mesh_rows_grad_kernel(const float* __restrict__ y,
                       int levels, int slots, int map_stride,
                       int64_t diag_stride_s, int transpose) {
   using Shape = RowsShape<W>;
-  constexpr int kTerms = RowsGradShape<W, R>::kTerms;
-  // the record ring, the slot-map ring, the terms' double buffer, then the
-  // ring's barriers
+  using GShape = RowsGradShape<W, R>;
+  constexpr int kTerms = GShape::kTerms, kRing = GShape::kRing;
+  // the record ring, the slot-map ring, two buffers of a chunk's terms
+  // ([kStage levels][warps][kTerms] each), then the ring's barriers
   extern __shared__ float4 grad_rows_smem[];
   float* smem = reinterpret_cast<float*>(grad_rows_smem);
   const bool phase = part != nullptr;
   const int warps = blockDim.x >> 5;
   const int map_chunk = Shape::kStage * map_stride;
-  int* mring = reinterpret_cast<int*>(smem + Shape::kRingFloats);
+  const int chunk_terms = Shape::kStage * warps * kTerms;
+  int* mring = reinterpret_cast<int*>(smem + GShape::kRingFloats);
   float* terms = reinterpret_cast<float*>(
-      mring + (phase ? Shape::kRing * map_chunk : 0));
+      mring + (phase ? kRing * map_chunk : 0));
   uint64_t* full = reinterpret_cast<uint64_t*>(
-      terms + (phase ? 2 * warps * kTerms : 0));
+      terms + (phase ? 2 * chunk_terms : 0));
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t s = blockIdx.y;
   const bool tr = transpose != 0;
@@ -1267,36 +1306,42 @@ mesh_rows_grad_kernel(const float* __restrict__ y,
   const float* dg = diag + s * diag_stride_s;
   const float* tab = table + s * levels * Shape::kRecord;
   const int chunks = (levels + Shape::kStage - 1) / Shape::kStage;
+  // chunks staged ahead of the one walked: with dphases, chunk k - 1's
+  // map slot is still read while chunk k is walked
+  const int ahead = phase ? kRing - 2 : kRing - 1;
 
-  auto chunk_cl0 = [&](int k, int n) {
-    const int first = k * Shape::kStage;
-    return rev ? levels - first - n : first;
+  auto chunk_n = [&](int k) {
+    return min(Shape::kStage, levels - k * Shape::kStage);
+  };
+  auto chunk_cl0 = [&](int k) {
+    return rev ? levels - k * Shape::kStage - chunk_n(k) : k * Shape::kStage;
   };
   auto stage = [&](int k) {
     if (k >= chunks) return;
-    const int n = min(Shape::kStage, levels - k * Shape::kStage);
-    const int cl0 = chunk_cl0(k, n);
-    const unsigned bar = smem_u32(full + k % Shape::kRing);
+    const int n = chunk_n(k);
+    const int cl0 = chunk_cl0(k);
+    const unsigned bar = smem_u32(full + k % kRing);
     const unsigned rbytes = n * Shape::kRecord * sizeof(float);
     const unsigned mbytes = phase ? n * map_stride * sizeof(int) : 0;
     mbar_expect_tx(bar, rbytes + mbytes);
-    bulk_copy(smem_u32(smem + (k % Shape::kRing) * Shape::kStage *
-                                  Shape::kRecord),
+    bulk_copy(smem_u32(smem + (k % kRing) * Shape::kStage * Shape::kRecord),
               tab + static_cast<size_t>(cl0) * Shape::kRecord, rbytes, bar);
     if (phase)
-      bulk_copy(smem_u32(mring + (k % Shape::kRing) * map_chunk),
+      bulk_copy(smem_u32(mring + (k % kRing) * map_chunk),
                 smap + static_cast<size_t>(cl0) * map_stride, mbytes, bar);
   };
   if (threadIdx.x == 0) {
-    for (int j = 0; j < Shape::kRing; ++j) mbar_init(smem_u32(full + j), 1);
+    for (int j = 0; j < kRing; ++j) mbar_init(smem_u32(full + j), 1);
     mbar_init_fence();
   }
   __syncthreads();
   if (threadIdx.x == 0)
-    for (int k = 0; k < Shape::kRing - 1; ++k) stage(k);
+    for (int k = 0; k < ahead; ++k) stage(k);
 
-  // the levels' output and its gradient: y, dy; transposed y / D, dy * D
-  float v[R][W], gv[R][W];
+  // the levels' output and its gradient, one array so that one level
+  // function takes both (y in rows 0..R-1, g in R..2R-1): y, dy;
+  // transposed y / D, dy * D
+  float v[2 * R][W];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int row = row0 + r;
@@ -1314,7 +1359,7 @@ mesh_rows_grad_kernel(const float* __restrict__ y,
         }
       }
       v[r][j] = a;
-      gv[r][j] = b;
+      v[R + r][j] = b;
     }
   }
 
@@ -1323,17 +1368,54 @@ mesh_rows_grad_kernel(const float* __restrict__ y,
   float* dst = phase ? part + (static_cast<size_t>(blockIdx.x) * gridDim.y +
                                s) * levels * slots
                      : nullptr;
-  int buf = 0;
+  // chunk k's sums: thread q takes slots q and q + blockDim.x (kQ of
+  // them, kQ * kStage sums in all) at each of the chunk's levels at once
+  // (their loads in flight together), each summed over the warps in warp
+  // order, from the terms buffer k % 2; a slot no pair holds reads word 0
+  // and writes 0
+  constexpr int kQ = Shape::kStage <= 4 ? 2 : 1, kN = kQ * Shape::kStage;
+  auto sum_chunk = [&](int k) {
+    const int n = chunk_n(k);
+    const int* cmap = mring + (k % kRing) * map_chunk;
+    const float* tb = terms + (k & 1) * chunk_terms;
+    float* out = dst + static_cast<size_t>(chunk_cl0(k)) * slots;
+    for (int q0 = threadIdx.x; q0 < slots; q0 += kQ * blockDim.x) {
+      int m[kN], word[kN];
+      float acc[kN];
+#pragma unroll
+      for (int i = 0; i < kN; ++i) {
+        const int j = i % Shape::kStage;
+        const int q = q0 + (i / Shape::kStage) * blockDim.x;
+        m[i] = j < n && q < slots ? cmap[j * map_stride + q] : -1;
+        word[i] = j * warps * kTerms + (m[i] < 0 ? 0 : m[i] & (kMapNeg - 1));
+        acc[i] = tb[word[i]];
+      }
+      for (int w = 1; w < warps; ++w) {
+#pragma unroll
+        for (int i = 0; i < kN; ++i)
+          acc[i] = __fadd_rn(acc[i], tb[word[i] + w * kTerms]);
+      }
+#pragma unroll
+      for (int i = 0; i < kN; ++i) {
+        const int j = i % Shape::kStage;
+        const int q = q0 + (i / Shape::kStage) * blockDim.x;
+        if (j < n && q < slots)
+          out[static_cast<size_t>(j) * slots + q] =
+              m[i] < 0 ? 0.0f
+                       : (((m[i] & kMapNeg) != 0) != tr ? -acc[i] : acc[i]);
+      }
+    }
+  };
 #pragma unroll 1
   for (int k = 0; k < chunks; ++k) {
-    __syncthreads();           // chunk k - 1 done: its ring slot is free
-    if (threadIdx.x == 0) stage(k + Shape::kRing - 1);
-    mbar_wait(smem_u32(full + k % Shape::kRing), (k / Shape::kRing) & 1);
-    const float* cur =
-        smem + (k % Shape::kRing) * Shape::kStage * Shape::kRecord;
-    const int* cmap = mring + (k % Shape::kRing) * map_chunk;
-    const int n = min(Shape::kStage, levels - k * Shape::kStage);
-    const int cl0 = chunk_cl0(k, n);
+    // every warp has walked chunk k - 1 (its terms are in) and summed
+    // chunk k - 2 (its terms buffer and ring slot are free)
+    __syncthreads();
+    if (threadIdx.x == 0) stage(k + ahead);
+    mbar_wait(smem_u32(full + k % kRing), (k / kRing) & 1);
+    const float* cur = smem + (k % kRing) * Shape::kStage * Shape::kRecord;
+    const int n = chunk_n(k);
+    float* tb = terms + (k & 1) * chunk_terms;
 #pragma unroll 1
     for (int lv = 0; lv < n; ++lv) {
       const int idx = rev ? n - 1 - lv : lv;
@@ -1342,29 +1424,16 @@ mesh_rows_grad_kernel(const float* __restrict__ y,
       const unsigned absent =
           reinterpret_cast<const unsigned*>(rec + Shape::kEntries * 64)[lane];
       const int mode = reinterpret_cast<const int*>(rec + Shape::kMode)[0];
-      float* tb = terms + buf * warps * kTerms;
-      if (phase) rows_terms<W, R>(v, gv, mode & 1, lane, tb + warp * kTerms);
-      rows_level<W, R>(v, ent, absent, mode, lane, first, last);
-      rows_level<W, R>(gv, ent, absent, mode, lane, first, last);
-      if (phase) {
-        __syncthreads();
-        const int* mp = cmap + idx * map_stride;
-        float* out = dst + static_cast<size_t>(cl0 + idx) * slots;
-        for (int q = threadIdx.x; q < slots; q += blockDim.x) {
-          const int m = mp[q];
-          float acc = 0.0f;
-          if (m >= 0) {
-            const int e = m & (kMapNeg - 1);
-            acc = tb[e];
-            for (int w = 1; w < warps; ++w)
-              acc = __fadd_rn(acc, tb[w * kTerms + e]);
-            if (((m & kMapNeg) != 0) != tr) acc = -acc;
-          }
-          out[q] = acc;
-        }
-        buf ^= 1;
-      }
+      if (phase)
+        rows_terms<W, R>(v, mode & 1, lane,
+                         tb + (idx * warps + warp) * kTerms);
+      rows_level<W, 2 * R>(v, ent, absent, mode, lane, first, last);
     }
+    if (phase && k > 0) sum_chunk(k - 1);
+  }
+  if (phase) {
+    __syncthreads();
+    sum_chunk(chunks - 1);
   }
 
   if (dx == nullptr) return;
@@ -1376,7 +1445,8 @@ mesh_rows_grad_kernel(const float* __restrict__ y,
 #pragma unroll
     for (int j = 0; j < W; ++j) {
       const int w = lane * W + j;
-      if (w < ports) dr[w] = tr ? gv[r][j] : __fmul_rn(gv[r][j], dg[w]);
+      if (w < ports)
+        dr[w] = tr ? v[R + r][j] : __fmul_rn(v[R + r][j], dg[w]);
     }
   }
 }
@@ -1384,13 +1454,14 @@ mesh_rows_grad_kernel(const float* __restrict__ y,
 template <int W, int R>
 size_t rows_grad_smem(int warps, int map_stride, bool phase) {
   using Shape = RowsShape<W>;
-  return Shape::kRingFloats * sizeof(float) +
-         (phase ? (static_cast<size_t>(Shape::kRing) * Shape::kStage *
-                       map_stride +
-                   2 * static_cast<size_t>(warps) *
-                       RowsGradShape<W, R>::kTerms) * sizeof(float)
+  using GShape = RowsGradShape<W, R>;
+  return GShape::kRingFloats * sizeof(float) +
+         (phase ? static_cast<size_t>(Shape::kStage) *
+                      (GShape::kRing * map_stride +
+                       2 * static_cast<size_t>(warps) * GShape::kTerms) *
+                      sizeof(float)
                 : 0) +
-         Shape::kRing * sizeof(uint64_t);
+         GShape::kRing * sizeof(uint64_t);
 }
 
 template <int W, int R>
@@ -1430,17 +1501,43 @@ int rows_grad_launch(const float* y, const float* dy, const float* phases,
 }
 
 // ------------------------------------------------------------------ dense
-
-// y_s = x_s * M_s: block tile 128 x 128 of y, k tiles of 32, 8 warps of
-// 64 x 32 each (4 x 4 mma tiles of 16 x 8), two cp.async stages.  Row
-// strides padded (36 and 136 floats) so the fragment loads of a warp hit
-// 32 distinct banks.
+//
+// C_s = op(A_s) * op(B_s), (m x k) * (k x n), in 3xTF32 on the tensor
+// cores: block tile 128 x 128 of C, k tiles of 32, 8 warps of 64 x 32 each
+// (4 x 4 mma tiles of 16 x 8), two cp.async stages.  A is stored (m, k)
+// row-major, or with kTA (k, m); B (k, n), or with kTB (n, k).  Route B's
+// forward is the plain case, y_s = x_s * M_s; the dense backward's two
+// products read one operand transposed: dx_s = dy_s * M_s^T (kTB) and
+// dM_s = x_s^T * dy_s (kTA).  Each operand's tile is staged in the layout
+// it has in memory, so every copy is 16 contiguous bytes: a row-major
+// (rows, k) tile with rows of 36 floats, a (k, cols) tile with rows of
+// 136; both strides make the fragment loads of a warp hit 32 distinct
+// banks.  The k tiles may be split (`splits` ranges of `per_split` tiles
+// each): split z writes its own (S, m, n) partial, which
+// mesh_grad_sum_kernel adds in split order (no float atomics: two calls
+// give the same bits), so a product with few output tiles and a long k
+// still fills the card.  The dense backward launches its two products as
+// one grid (mesh_product_grad_kernel): at 1024 ports on 4300 rows, dx's
+// 272 tiles and dM's 64 tiles split 4 ways fill 4 waves of 132 blocks
+// (one block an SM), not 3 and 2.
+// Bound of the dense backward: the two products' 3 x 2*S*B*P^2 TF32 FLOPs
+// each at 495 TFLOP/s, plus the warp-rows walk's operations on M's P
+// rows at the issue rate (chip_smoke._apply_grad_bound): 0.37 ms at 1024
+// ports on 4300 rows, against the row walk's 1.08.
 constexpr int kDenseBM = 128, kDenseBN = 128, kDenseBK = 32;
 constexpr int kDenseThreads = 256;
 constexpr int kDenseAStride = kDenseBK + 4;
 constexpr int kDenseBStride = kDenseBN + 8;
-constexpr int kDenseStage = kDenseBM * kDenseAStride + kDenseBK * kDenseBStride;
-constexpr size_t kDenseSmem = 2 * kDenseStage * sizeof(float);
+
+template <bool kTA, bool kTB>
+struct ProductShape {
+  static constexpr int kA = kTA ? kDenseBK * kDenseBStride
+                                : kDenseBM * kDenseAStride;
+  static constexpr int kB = kTB ? kDenseBN * kDenseAStride
+                                : kDenseBK * kDenseBStride;
+  static constexpr int kStage = kA + kB;
+  static constexpr size_t kSmem = 2 * kStage * sizeof(float);
+};
 
 __device__ __forceinline__ unsigned to_tf32(float f) {
   unsigned r;
@@ -1465,43 +1562,65 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// grid (column tiles, row tiles, S).  x: (batch, ports) rows of entry s at
-// x + s*x_stride_s; m: (S, ports, ports); y: (S, batch, ports).  ports % 4
-// == 0, so a 16-byte copy is wholly inside a row or wholly past it.
-__global__ void __launch_bounds__(kDenseThreads)
-mesh_product_kernel(const float* __restrict__ x, const float* __restrict__ m,
-                     float* __restrict__ y, int batch, int ports,
-                     int64_t x_stride_s) {
-  extern __shared__ float4 dense_smem[];          // 2 stages of A and B
-  float* smem = reinterpret_cast<float*>(dense_smem);
-  const size_t s = blockIdx.z;
-  const int row0 = blockIdx.y * kDenseBM, col0 = blockIdx.x * kDenseBN;
-  const float* xs = x + s * x_stride_s;
-  const float* ms = m + s * ports * ports;
+// One product c = op(a) * op(b), (m x k) * (k x n), of S stacked entries,
+// its k tiles split `splits` ways: entry s reads A at a + s*a_stride_s, B
+// at b + s*b_stride_s and writes split z's C at c + z*split_stride +
+// s*c_stride_s; split z takes k tiles [z * per_split, +per_split).  Each
+// operand's contiguous dimension is a multiple of 4, so a 16-byte copy is
+// wholly inside a row or wholly past it (zero-filled), and n is even
+// (float2 stores).
+struct Product {
+  const float* a;
+  const float* b;
+  float* c;
+  int m, n, k, splits, per_split;
+  int64_t a_stride_s, b_stride_s, c_stride_s, split_stride;
+};
+
+// One block's tile of product p: column tile bx, row tile by, bz = entry *
+// splits + split; smem holds 2 stages of ProductShape<kTA, kTB>.
+template <bool kTA, bool kTB>
+__device__ __forceinline__ void product_tile(const Product& p, int bx, int by,
+                                             int bz, float* smem) {
+  using Shape = ProductShape<kTA, kTB>;
+  const int m_dim = p.m, n_dim = p.n, k_dim = p.k, per_split = p.per_split;
+  const size_t s = bz / p.splits;
+  const int split = bz % p.splits;
+  const int row0 = by * kDenseBM, col0 = bx * kDenseBN;
+  const float* __restrict__ as_g = p.a + s * p.a_stride_s;
+  const float* __restrict__ bs_g = p.b + s * p.b_stride_s;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3;
   const int g = lane >> 2, t = lane & 3;
 
+  // one tile of `rows` x `cols` floats of a row-major (rows_dim,
+  // cols_dim) operand from (r0, c0) into dst rows of `stride` floats
+  auto tile = [&](float* dst, const float* src, int rows, int cols,
+                  int stride, int r0, int c0, int rows_dim, int cols_dim) {
+    for (int q = tid; q < rows * cols / 4; q += kDenseThreads) {
+      const int r = q / (cols / 4), cc = 4 * (q % (cols / 4));
+      const int row = r0 + r, col = c0 + cc;
+      const bool ok = row < rows_dim && col < cols_dim;
+      cp_async16_zfill(dst + r * stride + cc,
+                       ok ? src + static_cast<size_t>(row) * cols_dim + col
+                          : src,
+                       ok);
+    }
+  };
   auto load = [&](int kt, float* buf) {
-    float* as = buf;
-    float* bs = buf + kDenseBM * kDenseAStride;
     const int k0 = kt * kDenseBK;
-    for (int q = tid; q < kDenseBM * kDenseBK / 4; q += kDenseThreads) {
-      const int r = q / (kDenseBK / 4), c = 4 * (q % (kDenseBK / 4));
-      const int row = row0 + r, k = k0 + c;
-      const bool ok = row < batch && k < ports;
-      cp_async16_zfill(as + r * kDenseAStride + c,
-                       ok ? xs + static_cast<size_t>(row) * ports + k : xs,
-                       ok);
-    }
-    for (int q = tid; q < kDenseBK * kDenseBN / 4; q += kDenseThreads) {
-      const int r = q / (kDenseBN / 4), c = 4 * (q % (kDenseBN / 4));
-      const int k = k0 + r, col = col0 + c;
-      const bool ok = k < ports && col < ports;
-      cp_async16_zfill(bs + r * kDenseBStride + c,
-                       ok ? ms + static_cast<size_t>(k) * ports + col : ms,
-                       ok);
-    }
+    if (kTA)
+      tile(buf, as_g, kDenseBK, kDenseBM, kDenseBStride, k0, row0, k_dim,
+           m_dim);
+    else
+      tile(buf, as_g, kDenseBM, kDenseBK, kDenseAStride, row0, k0, m_dim,
+           k_dim);
+    if (kTB)
+      tile(buf + Shape::kA, bs_g, kDenseBN, kDenseBK, kDenseAStride, col0,
+           k0, n_dim, k_dim);
+    else
+      tile(buf + Shape::kA, bs_g, kDenseBK, kDenseBN, kDenseBStride, k0,
+           col0, k_dim, n_dim);
     cp_async_commit();
   };
 
@@ -1513,32 +1632,51 @@ mesh_product_kernel(const float* __restrict__ x, const float* __restrict__ m,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
 
-  const int ktiles = (ports + kDenseBK - 1) / kDenseBK;
-  load(0, smem);
+  const int ktiles = (k_dim + kDenseBK - 1) / kDenseBK;
+  const int kt0 = split * per_split;
+  const int kt1 = min(ktiles, kt0 + per_split);
+  if (kt0 < kt1) load(kt0, smem);
 #pragma unroll 1
-  for (int kt = 0; kt < ktiles; ++kt) {
+  for (int kt = kt0; kt < kt1; ++kt) {
     cp_async_wait_all();
     __syncthreads();                 // tile kt in; tile kt - 1 consumed
-    if (kt + 1 < ktiles) load(kt + 1, smem + ((kt + 1) & 1) * kDenseStage);
-    const float* as = smem + (kt & 1) * kDenseStage;
-    const float* bs = as + kDenseBM * kDenseAStride;
+    const int st = (kt - kt0) & 1;
+    if (kt + 1 < kt1) load(kt + 1, smem + (st ^ 1) * Shape::kStage);
+    const float* as = smem + st * Shape::kStage;
+    const float* bs = as + Shape::kA;
 #pragma unroll
     for (int k8 = 0; k8 < kDenseBK; k8 += 8) {
       unsigned bh[4][2], bl[4][2];
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
-        const float* b = bs + (k8 + t) * kDenseBStride + wn * 32 + nt * 8 + g;
-        split_tf32(b[0], bh[nt][0], bl[nt][0]);                 // (t, g)
-        split_tf32(b[4 * kDenseBStride], bh[nt][1], bl[nt][1]); // (t+4, g)
+        const int n = wn * 32 + nt * 8 + g;
+        if (kTB) {
+          const float* bp = bs + n * kDenseAStride + k8 + t;
+          split_tf32(bp[0], bh[nt][0], bl[nt][0]);                // (t, g)
+          split_tf32(bp[4], bh[nt][1], bl[nt][1]);                // (t+4, g)
+        } else {
+          const float* bp = bs + (k8 + t) * kDenseBStride + n;
+          split_tf32(bp[0], bh[nt][0], bl[nt][0]);                // (t, g)
+          split_tf32(bp[4 * kDenseBStride], bh[nt][1], bl[nt][1]); // (t+4, g)
+        }
       }
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt) {
-        const float* a = as + (wm * 64 + mt * 16 + g) * kDenseAStride + k8 + t;
+        const int m = wm * 64 + mt * 16 + g;
         unsigned ah[4], al[4];
-        split_tf32(a[0], ah[0], al[0]);                          // (g, t)
-        split_tf32(a[8 * kDenseAStride], ah[1], al[1]);          // (g+8, t)
-        split_tf32(a[4], ah[2], al[2]);                          // (g, t+4)
-        split_tf32(a[8 * kDenseAStride + 4], ah[3], al[3]);      // (g+8, t+4)
+        if (kTA) {
+          const float* ap = as + (k8 + t) * kDenseBStride + m;
+          split_tf32(ap[0], ah[0], al[0]);                         // (g, t)
+          split_tf32(ap[8], ah[1], al[1]);                         // (g+8, t)
+          split_tf32(ap[4 * kDenseBStride], ah[2], al[2]);         // (g, t+4)
+          split_tf32(ap[4 * kDenseBStride + 8], ah[3], al[3]);     // (g+8, t+4)
+        } else {
+          const float* ap = as + m * kDenseAStride + k8 + t;
+          split_tf32(ap[0], ah[0], al[0]);                         // (g, t)
+          split_tf32(ap[8 * kDenseAStride], ah[1], al[1]);         // (g+8, t)
+          split_tf32(ap[4], ah[2], al[2]);                         // (g, t+4)
+          split_tf32(ap[8 * kDenseAStride + 4], ah[3], al[3]);     // (g+8, t+4)
+        }
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
           mma_tf32(acc[mt][nt], al, bh[nt]);
@@ -1549,25 +1687,56 @@ mesh_product_kernel(const float* __restrict__ x, const float* __restrict__ m,
     }
   }
 
-  float* ys = y + s * batch * ports;
+  float* cs = p.c + split * p.split_stride + s * p.c_stride_s;
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt) {
     const int row = row0 + wm * 64 + mt * 16 + g;
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
       const int col = col0 + wn * 32 + nt * 8 + 2 * t;
-      if (col >= ports) continue;
-      if (row < batch)
-        *reinterpret_cast<float2*>(ys + static_cast<size_t>(row) * ports +
+      if (col >= n_dim) continue;
+      if (row < m_dim)
+        *reinterpret_cast<float2*>(cs + static_cast<size_t>(row) * n_dim +
                                    col) =
             make_float2(acc[mt][nt][0], acc[mt][nt][1]);
-      if (row + 8 < batch)
-        *reinterpret_cast<float2*>(ys + static_cast<size_t>(row + 8) * ports +
+      if (row + 8 < m_dim)
+        *reinterpret_cast<float2*>(cs + static_cast<size_t>(row + 8) * n_dim +
                                    col) =
             make_float2(acc[mt][nt][2], acc[mt][nt][3]);
     }
   }
 }
+
+// Route B's product: grid (column tiles, row tiles, S).
+__global__ void __launch_bounds__(kDenseThreads)
+mesh_product_kernel(const Product p) {
+  extern __shared__ float4 dense_smem[];          // 2 stages of A and B
+  product_tile<false, false>(p, blockIdx.x, blockIdx.y, blockIdx.z,
+                             reinterpret_cast<float*>(dense_smem));
+}
+
+// The dense backward's two products in one launch, so that their blocks
+// share the card's waves: blocks [0, dx_blocks) take the tiles of dx =
+// dy * M^T (B reads M transposed), the rest those of dM = x^T * dy (A
+// reads x transposed), each in column-tile, row-tile, entry-split order.
+__global__ void __launch_bounds__(kDenseThreads)
+mesh_product_grad_kernel(const Product dx, const Product dm, int dx_blocks) {
+  extern __shared__ float4 dense_smem[];
+  float* smem = reinterpret_cast<float*>(dense_smem);
+  int b = blockIdx.x;
+  const bool first = b < dx_blocks;
+  const Product& p = first ? dx : dm;
+  b -= first ? 0 : dx_blocks;
+  const int nx = (p.n + kDenseBN - 1) / kDenseBN;
+  const int ny = (p.m + kDenseBM - 1) / kDenseBM;
+  if (first)
+    product_tile<false, true>(dx, b % nx, (b / nx) % ny, b / (nx * ny), smem);
+  else
+    product_tile<true, false>(dm, b % nx, (b / nx) % ny, b / (nx * ny), smem);
+}
+
+constexpr size_t kProductSmem =
+    std::max(ProductShape<false, true>::kSmem, ProductShape<true, false>::kSmem);
 
 size_t stream_smem(int ports, int items, int rows_per_block) {
   return 2 * static_cast<size_t>(items) * sizeof(Rot) +
@@ -1720,16 +1889,78 @@ extern "C" int mesh_product_launch(const void* x, const void* m, void* y,
   if (batch < 1 || ports < 4 || ports % 4 != 0 || stack < 1 ||
       stack > 65535 || x_stride_s < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const Product p{static_cast<const float*>(x), static_cast<const float*>(m),
+                  static_cast<float*>(y), batch, ports, ports, 1,
+                  (ports + kDenseBK - 1) / kDenseBK, x_stride_s,
+                  static_cast<int64_t>(ports) * ports,
+                  static_cast<int64_t>(batch) * ports, 0};
+  constexpr size_t smem = ProductShape<false, false>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
       mesh_product_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kDenseSmem));
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((ports + kDenseBN - 1) / kDenseBN,
                   (batch + kDenseBM - 1) / kDenseBM, stack);
-  mesh_product_kernel<<<grid, kDenseThreads, kDenseSmem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(m),
-      static_cast<float*>(y), batch, ports, x_stride_s);
+  mesh_product_kernel<<<grid, kDenseThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The dense backward's products (kernels/mesh_apply.py::mesh_product_grad),
+// one launch: dx (S, batch, ports) = dy * M^T per entry, and dM (S, ports,
+// ports) = x^T * dy, either skipped (null); dy (S, batch, ports), m (S,
+// ports, ports), x (batch, ports) shared (x_stride_s = 0) or (S, batch,
+// ports).  dM's k tiles (of the batch's rows) are split in `splits` ranges
+// of per_split tiles, each split writing its (S, ports, ports) partial
+// into `partials` (splits, S, ports, ports) where splits > 1, then summed
+// into dM in split order.  ports % 4 == 0.
+extern "C" int mesh_product_grad_launch(const void* dy, const void* m,
+                                        const void* x, void* dx, void* dm,
+                                        void* partials, int batch, int ports,
+                                        int stack, int64_t x_stride_s,
+                                        int splits, int per_split,
+                                        void* stream) {
+  const int ktiles = (batch + kDenseBK - 1) / kDenseBK;
+  if (batch < 1 || ports < 4 || ports % 4 != 0 || stack < 1 ||
+      x_stride_s < 0 || (dx == nullptr && dm == nullptr) ||
+      (dm != nullptr &&
+       (splits < 1 || per_split < 1 || (splits - 1) * per_split >= ktiles ||
+        splits * per_split < ktiles || (splits > 1 && partials == nullptr))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* dyf = static_cast<const float*>(dy);
+  const int64_t bp = static_cast<int64_t>(batch) * ports;
+  const int64_t pp = static_cast<int64_t>(ports) * ports;
+  const int64_t count = stack * pp;
+  const Product pdx{dyf, static_cast<const float*>(m),
+                    static_cast<float*>(dx), batch, ports, ports, 1,
+                    (ports + kDenseBK - 1) / kDenseBK, bp, pp, bp, 0};
+  const Product pdm{static_cast<const float*>(x), dyf,
+                    static_cast<float*>(splits > 1 ? partials : dm), ports,
+                    ports, batch, splits, per_split, x_stride_s, bp, pp,
+                    count};
+  const int64_t tiles_n = (ports + kDenseBN - 1) / kDenseBN;
+  const int64_t dx_blocks =
+      dx == nullptr ? 0 : tiles_n * ((batch + kDenseBM - 1) / kDenseBM) * stack;
+  const int64_t dm_blocks =
+      dm == nullptr ? 0 : tiles_n * tiles_n * stack * splits;
+  if (dx_blocks + dm_blocks > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      mesh_product_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kProductSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mesh_product_grad_kernel<<<static_cast<unsigned>(dx_blocks + dm_blocks),
+                             kDenseThreads, kProductSmem, st>>>(
+      pdx, pdm, static_cast<int>(dx_blocks));
+  err = cudaGetLastError();
+  if (err != cudaSuccess || dm == nullptr || splits == 1)
+    return static_cast<int>(err);
+  const int blocks = static_cast<int>(
+      std::min<int64_t>((count + kThreads - 1) / kThreads, 4096));
+  mesh_grad_sum_kernel<<<blocks, kThreads, 0, st>>>(
+      static_cast<const float*>(partials), static_cast<float*>(dm), splits,
+      count);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -44,19 +44,23 @@ differentiates its jnp scan), for the off-chip BP baselines:
     the noise model) and dsigma from the cores' gradients.  Each block
     keeps its forward's states in shared memory where they fit
     (``densify_grad_saves``).  ``MeshDensifyFn`` puts it under autograd.
-  * ``mesh_apply_stacked_grad`` — the standalone mesh's: dx and dphases
-    from the saved output, the states recovered level by level
-    (``MeshApplyFn``), through the design ``grad_design`` picks from the
-    layout alone: ``resident`` where the resident backward's tables fit a
-    block (``grad_fits``), else ``warp_rows``, route A's register layout
-    walked in reverse (``grad_rows_config``, ``grad_slot_map``), the
-    backward of routes A and B both.  The owner walk's layouts (pairs of
-    wires that are not adjacent, or more than 1024 ports) have no backward
-    (ROADMAP item 6c-3).
+  * ``mesh_apply_stacked_grad`` — the standalone mesh's, through the
+    design ``grad_design`` picks, which follows the forward's route
+    (``MeshApplyFn``): ``resident`` where the resident backward's tables
+    fit a block (``grad_fits``); ``dense`` where the forward took route
+    B, which keeps x and its dense scratch M (y = x·M): dx = dy·Mᵀ and
+    dM = xᵀ·dy on the tensor cores in one launch (``mesh_product_grad``,
+    3xTF32, dM's k split over the card, ``dense_grad_splits``), then
+    dphases by the warp-rows backward on M's P identity rows; else
+    ``warp_rows``, dx and dphases from the saved output, the states
+    recovered level by level in route A's register layout walked in
+    reverse (``grad_rows_config``, ``grad_slot_map``).  The owner walk's
+    layouts (pairs of wires that are not adjacent, or more than 1024
+    ports) have no backward (ROADMAP item 6c-3).
 
 Each is held to its plain version (``kernels.ref.mesh_densify_grad_ref``,
-``mesh_apply_grad_ref``), and sums in a fixed order, no float atomics: two
-calls give the same bits.
+``mesh_apply_grad_ref``, ``mesh_apply_dense_grad_ref``), and sums in a
+fixed order, no float atomics: two calls give the same bits.
 
 The TPU's one-hot permutation matmul (``mesh_perm_onehot``) has no
 counterpart: the kernels read a wire's partner from shared memory or a
@@ -99,14 +103,15 @@ __all__ = ["mesh_apply_stacked", "launch_resident", "launch_warp_rows",
            "MeshDensifyFn", "apply_autograd", "densify_autograd",
            "PARAM_KEYS", "route_a_takes", "grad_design",
            "GRAD_DESIGNS", "grad_slot_map", "grad_rows_config",
-           "grad_rows_smem_bytes", "grad_scratch_bytes"]
+           "grad_rows_smem_bytes", "grad_scratch_bytes", "launch_dense_keep",
+           "term_word", "mesh_product_grad", "dense_grad_splits"]
 
 MAX_ROW_ELEMENTS = 1024            # rows per block × ports, at most
 MAX_STACK = 65_535                 # the standalone grid's y extent
 MAX_GROUP = 20                     # kMaxGroup: matrices per grouped launch
 DESIGNS = ("resident", "warp_rows", "dense", "owner_walk")
 WIDE_ROUTES = DESIGNS[1:]
-GRAD_DESIGNS = ("resident", "warp_rows")
+GRAD_DESIGNS = ("resident", "warp_rows", "dense")
 ROT_BYTES = 24                     # sizeof(Rot): an owner walk's entry
 LANE_WIDTHS = (8, 16, 32)          # route A's wires a lane (W), compiled
 ROWS_PER_WARP = (4, 2, 1)          # route A's rows a warp (R), compiled
@@ -369,20 +374,28 @@ def grad_fits(layout: ph_lib.MeshLayout) -> bool:
     """Whether the resident backward holds the layout: its tables and one
     row of each buffer fit a block (a rectangular mesh of up to ~138
     ports, as the forward's resident design).  Wider layouts take the
-    warp-rows backward where route A takes them (``grad_design``)."""
+    dense or the warp-rows backward where route A takes them
+    (``grad_design``)."""
     return grad_smem_bytes(layout.ports, layout.levels, 1) <= SMEM_MAX_BYTES
 
 
-def grad_design(layout: ph_lib.MeshLayout) -> str | None:
-    """The backward's design, from the layout alone: ``"resident"`` where
-    ``grad_fits`` holds, ``"warp_rows"`` where route A takes the layout
-    (whichever of routes A and B ran the forward); None for the owner
+def grad_design(layout: ph_lib.MeshLayout, S: int = 1,
+                rows: int | None = None) -> str | None:
+    """The backward's design, which follows the forward's route:
+    ``"resident"`` where ``grad_fits`` holds; for the layouts route A
+    takes, ``"dense"`` where the forward of S meshes on ``rows`` rows per
+    entry took route B (``wide_route``), whose x and dense scratch M it
+    keeps, else ``"warp_rows"`` (route A's forwards, and a backward
+    handed the forward's output y: ``rows`` None); None for the owner
     walk's layouts, which no backward holds (item 6c-3)."""
     if grad_fits(layout):
         return "resident"
-    if route_a_takes(layout):
-        return "warp_rows"
-    return None
+    if not route_a_takes(layout):
+        return None
+    if rows is not None and mesh_design(layout) == "wide" and \
+            wide_route(layout, S, rows) == "dense":
+        return "dense"
+    return "warp_rows"
 
 
 def _grad_design_or_raise(layout: ph_lib.MeshLayout) -> str:
@@ -433,16 +446,25 @@ GRAD_ROWS_MIN_WARPS = 4            # the warp-rows backward's block, at least
 MAP_NEG = 1 << 16                  # kMapNeg: a slot's lower wire has sign -1
 
 
+def term_word(W: int, i, t):
+    """The word of a warp's row of phase terms (``(W/2 + 1)·32`` a level)
+    that holds entry (i, t): ``i·32 + (t ^ ((64/W)·i mod 32))``, so that
+    the 32 consecutive slots one warp of the sum reads fall in 32 banks
+    (``csrc/mesh_apply.cu::term_word``)."""
+    return i * 32 + (t ^ (64 // W) * i % 32)
+
+
 def grad_slot_map(layout: ph_lib.MeshLayout) -> np.ndarray:
     """The warp-rows backward's slot map, host-built once per layout:
     ``(levels, map_stride)`` int32, ``map_stride`` the slots rounded up to
     4 (a level's row is a whole number of 16-byte words, as the bulk copy
-    wants).  For stored level cl and slot k, the entry ``i·32 + t`` of
-    ``rows_plan`` whose lane t owns the slot's pair — at parity 0 its
-    pairs (2i, 2i+1), i < W/2; at parity 1 its pairs (2i−1, 2i), 1 ≤ i <
-    W/2, and i = W/2, the pair across its right edge — with ``MAP_NEG``
-    set where the pair's lower wire has sign −1; −1 for a slot no pair
-    holds.  Memoized on the layout."""
+    wants).  For stored level cl and slot k, the word of a warp's terms
+    where the kernel keeps the term of entry (i, t) of ``rows_plan``
+    whose lane t owns the slot's pair — at parity 0 its pairs (2i, 2i+1),
+    i < W/2; at parity 1 its pairs (2i−1, 2i), 1 ≤ i < W/2, and i = W/2,
+    the pair across its right edge: ``term_word(W, i, t)`` — with
+    ``MAP_NEG`` set where the pair's lower wire has sign −1; −1 for a
+    slot no pair holds.  Memoized on the layout."""
     memo = layout.__dict__.get("_grad_slot_map")
     if memo is not None:
         return memo
@@ -458,13 +480,13 @@ def grad_slot_map(layout: ph_lib.MeshLayout) -> np.ndarray:
     pair = ((absent[:, None, :] >> i) & 1) == 0
     cl, ei, t = np.nonzero(own & pair)
     c = code[cl, ei, t]
-    stride = -(-K // 4) * 4
+    stride = _map_stride(layout)
     out = np.full((L, stride), -1, dtype=np.int64)
     slot = c & ((1 << SLOT_BITS) - 1)
     if (np.bincount(cl * stride + slot, minlength=L * stride) > 1).any():
         raise AssertionError("two pairs of a level share a slot")
     neg = ((c >> SIGN_SHIFT) & 3) == 2
-    out[cl, slot] = ei * 32 + t + np.where(neg, MAP_NEG, 0)
+    out[cl, slot] = term_word(W, ei, t) + np.where(neg, MAP_NEG, 0)
     out = out.astype(np.int32)
     object.__setattr__(layout, "_grad_slot_map", out)
     return out
@@ -484,30 +506,43 @@ def grad_rows_config(layout: ph_lib.MeshLayout, S: int, rows: int,
     block, block columns).  A warp holds y and g of R rows, 2·R·W
     registers a thread: R = 2 where the grid keeps ``ROWS_FILL_WARPS``
     warps a multiprocessor, else 1 (at onn's hidden layer, 4300 rows of
-    1024 ports, R = 2 in blocks of 8 warps took 7.1 ms and R = 1 in 16
-    warps 10.3 ms, the same 269 columns; tools/mesh_rows_grad.py).  A
-    block takes one row tile of warps·R rows and writes its column's
-    partials once, so more warps a block mean fewer columns and less
-    scratch: as many as give every multiprocessor a block, from
-    ``GRAD_ROWS_MIN_WARPS`` (a small batch is latency-bound: 4 warps a
-    block took 1.44 ms on layer 0's 100 rows, 1 warp 2.34 ms and 8 warps
-    1.96 ms) up to the 512 threads (256 at W·R = 64) the registers
-    allow."""
+    1024 ports, R = 2 in blocks of 8 warps beat R = 1 in 4 or 8 and R = 2
+    in 4; tools/mesh_rows_grad.py).  A block takes one row tile of
+    warps·R rows and writes its column's partials once, so more warps a
+    block mean fewer columns and less scratch: as many as give every
+    multiprocessor a block, from ``GRAD_ROWS_MIN_WARPS`` (a small batch
+    is latency-bound: on layer 0's 100 rows 4 warps a block beat 1, 2 and
+    8) up to the 512 threads (256 from W·R = 32) the registers allow and
+    the warps whose terms fit shared memory beside the rings
+    (``grad_rows_smem_bytes``: 8 at 1024 ports)."""
     W = lane_width(layout.ports)
     R = 2 if S * -(-rows // 2) >= ROWS_FILL_WARPS * sms else 1
-    most = (256 if W * R > 32 else 512) // 32
+    stride = _map_stride(layout)
+    fit = ((SMEM_MAX_BYTES - grad_rows_smem_bytes(W, 0, stride))
+           // (grad_rows_smem_bytes(W, 1, stride)
+               - grad_rows_smem_bytes(W, 0, stride)))
+    most = min((256 if W * R >= 32 else 512) // 32, fit)
     warps = min(most, max(GRAD_ROWS_MIN_WARPS, -(-S * rows // (R * sms))))
     return W, R, warps, -(-rows // (warps * R))
 
 
+def _map_stride(layout: ph_lib.MeshLayout) -> int:
+    """The slot map's row: the slots rounded up to 4."""
+    return -(-layout.slots // 4) * 4
+
+
+GRAD_ROWS_RING = 3                 # the walk's ring: chunks of 128/W levels
+
+
 def grad_rows_smem_bytes(W: int, warps: int, map_stride: int) -> int:
-    """Shared memory of one warp-rows backward block asked for dphases:
-    route A's record ring, the slot map's ring beside it, the terms'
-    double buffer (each warp's ``(W/2 + 1)·32`` a level) and the ring's
-    barriers (``csrc/mesh_apply.cu::rows_grad_smem``)."""
-    ring, stage = 4, 128 // W
-    return 4 * (ring * stage * (record_floats(W) + map_stride)
-                + 2 * warps * (W // 2 + 1) * 32) + 8 * ring
+    """Shared memory of one warp-rows backward block asked for dphases: a
+    ring of ``GRAD_ROWS_RING`` chunks of route A's records and the slot
+    map, every warp's terms of a chunk (``128/W`` levels of ``(W/2 +
+    1)·32`` each) twice (one chunk's summed while the next is walked),
+    and the ring's barriers (``csrc/mesh_apply.cu::rows_grad_smem``)."""
+    ring, stage = GRAD_ROWS_RING, 128 // W
+    return 4 * stage * (ring * (record_floats(W) + map_stride)
+                        + 2 * warps * (W // 2 + 1) * 32) + 8 * ring
 
 
 def grad_scratch_bytes(layout: ph_lib.MeshLayout, S: int, rows: int,
@@ -681,6 +716,10 @@ def _library():
     lib.mesh_product_launch.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_int] * 3 + [ctypes.c_int64, ctypes.c_void_p]
     lib.mesh_product_launch.restype = ctypes.c_int
+    lib.mesh_product_grad_launch.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_int] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_void_p]
+    lib.mesh_product_grad_launch.restype = ctypes.c_int
     lib.mesh_densify_group_bytes.restype = ctypes.c_int
     if lib.mesh_densify_group_bytes() != ctypes.sizeof(MeshGroup):
         raise RuntimeError(
@@ -782,8 +821,10 @@ def _route_checks(layout: ph_lib.MeshLayout, route: str) -> None:
 
 
 def _launch(design: str, layout: ph_lib.MeshLayout, phases: torch.Tensor,
-            diag: torch.Tensor, x: torch.Tensor,
-            transpose: bool) -> torch.Tensor:
+            diag: torch.Tensor, x: torch.Tensor, transpose: bool,
+            keep: bool = False):
+    """The forward by ``design``; with ``keep`` (route B) also its dense
+    scratch M: (y, M)."""
     S, B = _check_stacked(layout, phases, diag, x)
     P = layout.ports
     _route_checks(layout, design)
@@ -828,7 +869,7 @@ def _launch(design: str, layout: ph_lib.MeshLayout, phases: torch.Tensor,
                 x_stride, _stream(x))
     _raise_on(err, design)
     _count(design)
-    return y
+    return (y, dense) if keep else y
 
 
 def launch_resident(layout: ph_lib.MeshLayout, phases: torch.Tensor,
@@ -856,6 +897,15 @@ def launch_dense(layout: ph_lib.MeshLayout, phases: torch.Tensor,
     kernel multiplies (within the f32 bound of the plain version); raises
     where route A does or for ports not a multiple of 4."""
     return _launch("dense", layout, phases, diag, x, transpose)
+
+
+def launch_dense_keep(layout: ph_lib.MeshLayout, phases: torch.Tensor,
+                      diag: torch.Tensor, x: torch.Tensor,
+                      transpose: bool = False) -> tuple:
+    """``launch_dense``, returning y and its dense scratch M ``(S, P, P)``
+    (y_s = x_s·M_s; row i of M_s is the mesh on e_i): what the dense
+    backward reads (``MeshApplyFn``).  The same launches and bits."""
+    return _launch("dense", layout, phases, diag, x, transpose, keep=True)
 
 
 def launch_owner_walk(layout: ph_lib.MeshLayout, phases: torch.Tensor,
@@ -978,20 +1028,134 @@ def mesh_densify_grad(matrices, params, noises, noise_model,
 mesh_densify_grad.launches = 0
 
 
+DENSE_GRAD_SPLIT_BLOCKS = 2      # the split dM product's blocks an SM
+
+
+def dense_grad_splits(S: int, P: int, B: int, sms: int) -> tuple:
+    """(splits, k tiles a split) of the dense backward's dM = xᵀ·dy: its
+    ``S·⌈P/128⌉²`` output tiles (64 at 1024 ports) reduce over the B rows
+    in k tiles of 32, so the k tiles are split until the grid holds about
+    ``DENSE_GRAD_SPLIT_BLOCKS`` blocks an SM, every split at least one
+    tile (at 1024 ports on 4300 rows: 4 splits of 34 tiles, 256
+    blocks)."""
+    tiles = S * (-(-P // 128)) ** 2
+    ktiles = max(1, -(-B // 32))
+    want = max(1, min(ktiles, DENSE_GRAD_SPLIT_BLOCKS * sms // tiles,
+                      MAX_STACK // S))
+    per = -(-ktiles // want)
+    return -(-ktiles // per), per
+
+
+def mesh_product_grad(dy: torch.Tensor, dense: torch.Tensor,
+                      x: torch.Tensor | None, dx: torch.Tensor | None,
+                      dM: torch.Tensor | None, splits: int = 1,
+                      per_split: int | None = None) -> None:
+    """The dense backward's products on the tensor cores, in one launch of
+    ``mesh_product_grad_kernel`` (3xTF32): ``dx_s = dy_s·M_sᵀ`` into dx
+    ``(S, B, P)`` and ``dM_s = x_sᵀ·dy_s`` into dM ``(S, P, P)``, either
+    skipped (None; x too when dM is), from dy ``(S, B, P)``, M ``(S, P,
+    P)`` and x ``(B, P)`` shared or ``(S, B, P)``.  dM's k tiles (of 32
+    rows) split ``splits`` ways, ``per_split`` tiles each, the splits'
+    partials summed in order.  Counts one launch a call
+    (``mesh_product_grad.launches``)."""
+    S, B, P = dy.shape
+    per = -(-B // 32) if per_split is None else per_split
+    part = (torch.empty((splits, S, P, P), dtype=torch.float32,
+                        device=dy.device)
+            if dM is not None and splits > 1 else None)
+    err = _library().mesh_product_grad_launch(
+        dy.data_ptr(), dense.data_ptr(),
+        None if x is None else x.data_ptr(),
+        None if dx is None else dx.data_ptr(),
+        None if dM is None else dM.data_ptr(),
+        None if part is None else part.data_ptr(), B, P, S,
+        B * P if x is not None and x.ndim == 3 else 0, splits, per,
+        _stream(dy))
+    _raise_on(err, "dense backward products")
+    mesh_product_grad.launches += 1
+
+
+mesh_product_grad.launches = 0
+
+
+def _rows_grad(layout, phases, diag, y, dy, dx, dph, transpose, S,
+               B) -> int:
+    """The warp-rows backward's launches (trig prologue, walk, the block
+    columns' sum) from y and dy ``(S, B, P)`` into dx and dphases (either
+    None); returns the CUDA error."""
+    P, L, K = layout.ports, layout.levels, layout.slots
+    W, R, warps, cols = grad_rows_config(layout, S, B, _sm_count(y.device))
+    smap = _map_tensor(layout, y.device)
+    part = (torch.empty((cols, S, L, K), dtype=torch.float32,
+                        device=y.device)
+            if dph is not None and cols > 1 else None)
+    table = torch.empty((S, L, record_floats(W)), dtype=torch.float32,
+                        device=y.device)
+    return _library().mesh_rows_grad_launch(
+        y.data_ptr(), dy.data_ptr(), phases.data_ptr(),
+        _plan_tensor(layout, y.device).data_ptr(), smap.data_ptr(),
+        diag.data_ptr(), None if dx is None else dx.data_ptr(),
+        None if dph is None else dph.data_ptr(),
+        None if part is None else part.data_ptr(), table.data_ptr(),
+        B, P, L, K, smap.shape[1], S, W, R, warps, cols,
+        P if diag.ndim == 2 else 0, int(transpose), _stream(y))
+
+
+def _dense_grad(layout, phases, diag, x, dense, dy, transpose, need_dx,
+                need_dphases) -> tuple:
+    """The dense backward (``mesh_apply_stacked_grad`` given x and M)."""
+    S, B = _check_stacked(layout, phases, diag, x)
+    P, L, K = layout.ports, layout.levels, layout.slots
+    _route_checks(layout, "dense")
+    _need("the dense scratch M", dense, (S, P, P), x.device)
+    _need("dy", dy, (S, B, P), x.device)
+    if not (need_dx or need_dphases):
+        raise ValueError("mesh_apply_stacked_grad: neither dx nor dphases "
+                         "asked for")
+    sms = _sm_count(x.device)
+    splits, per = dense_grad_splits(S, P, B, sms)
+    dx = torch.empty((S, B, P), dtype=torch.float32, device=x.device) \
+        if need_dx else None
+    dph = torch.empty((S, L, K), dtype=torch.float32, device=x.device) \
+        if need_dphases else None
+    # dx_s = dy_s·M_sᵀ and dM_s = x_sᵀ·dy_s in one launch, then M's rows
+    # walked back from dM for dphases
+    dM = torch.empty_like(dense) if need_dphases else None
+    with torch.cuda.device(x.device):
+        mesh_product_grad(dy, dense, x, dx, dM, splits, per)
+        if need_dphases:
+            _raise_on(_rows_grad(layout, phases, diag, dense, dM, None, dph,
+                                 transpose, S, P), "dense backward walk")
+    mesh_apply_stacked_grad.launches += 1
+    mesh_apply_stacked_grad.design_launches["dense"] += 1
+    return dx, dph
+
+
 def mesh_apply_stacked_grad(layout: ph_lib.MeshLayout, phases: torch.Tensor,
-                            diag: torch.Tensor, y: torch.Tensor,
+                            diag: torch.Tensor, y: torch.Tensor | None,
                             dy: torch.Tensor, transpose: bool = False,
-                            need_dx: bool = True,
-                            need_dphases: bool = True) -> tuple:
-    """The backward of ``mesh_apply_stacked``: from its output y and the
-    gradient dy there, both ``(S, B, P)`` contiguous, the gradient at x as
+                            need_dx: bool = True, need_dphases: bool = True,
+                            *, x: torch.Tensor | None = None,
+                            dense: torch.Tensor | None = None) -> tuple:
+    """The backward of ``mesh_apply_stacked``: the gradient at x as
     ``(S, B, P)`` (a shared x's is their sum over S, which the caller
-    takes) and at the phases, ``(S, levels, slots)``; either may be
-    skipped (None).  The design is ``grad_design``'s, from the layout
-    alone: the resident backward, or the warp-rows backward for the
-    layouts of routes A and B (a trig prologue, the walk, and over several
-    block columns the sum of their partials).  Raises, naming item 6c-3,
-    for the owner walk's layouts, before any allocation."""
+    takes) and at the phases, ``(S, levels, slots)``, against the
+    gradient dy ``(S, B, P)`` at its output; either may be skipped
+    (None).  Handed route B's x and dense scratch M ``(S, P, P)``
+    (``launch_dense_keep``; y unused), the ``"dense"`` design: dx =
+    dy·Mᵀ and dM = xᵀ·dy on the tensor cores in one launch
+    (``mesh_product_grad``; within the f32 bound of the plain version,
+    not bit-equal), then the
+    warp-rows backward on M's P identity rows (y := M, dy := dM) for
+    dphases.  Handed y, the design ``grad_design`` picks from the layout
+    alone: the resident backward, or the warp-rows backward for route A's
+    layouts (a trig prologue, the walk, and over several block columns
+    the sum of their partials).  All contiguous float32 on one card.
+    Raises, naming item 6c-3, for the owner walk's layouts, before any
+    allocation."""
+    if dense is not None:
+        return _dense_grad(layout, phases, diag, x, dense, dy, transpose,
+                           need_dx, need_dphases)
     S, B = _check_stacked(layout, phases, diag, y)
     P, L, K = layout.ports, layout.levels, layout.slots
     if y.ndim != 3 or tuple(dy.shape) != tuple(y.shape) or \
@@ -1007,8 +1171,6 @@ def mesh_apply_stacked_grad(layout: ph_lib.MeshLayout, phases: torch.Tensor,
     sms = _sm_count(y.device)
     if design == "resident":
         rows = grad_rows_per_block(layout)
-    else:
-        W, R, warps, cols = grad_rows_config(layout, S, max(B, 1), sms)
     dx = torch.empty_like(y) if need_dx else None
     dph = None
     if need_dphases:
@@ -1036,20 +1198,8 @@ def mesh_apply_stacked_grad(layout: ph_lib.MeshLayout, phases: torch.Tensor,
                 rows, cols, P if diag.ndim == 2 else 0, int(transpose),
                 _stream(y))
         else:
-            smap = _map_tensor(layout, y.device)
-            part = (torch.empty((cols, S, L, K), dtype=torch.float32,
-                                device=y.device)
-                    if need_dphases and cols > 1 else None)
-            table = torch.empty((S, L, record_floats(W)),
-                                dtype=torch.float32, device=y.device)
-            err = _library().mesh_rows_grad_launch(
-                y.data_ptr(), dy.data_ptr(), phases.data_ptr(),
-                _plan_tensor(layout, y.device).data_ptr(), smap.data_ptr(),
-                diag.data_ptr(), None if dx is None else dx.data_ptr(),
-                None if dph is None else dph.data_ptr(),
-                None if part is None else part.data_ptr(), table.data_ptr(),
-                B, P, L, K, smap.shape[1], S, W, R, warps, cols,
-                P if diag.ndim == 2 else 0, int(transpose), _stream(y))
+            err = _rows_grad(layout, phases, diag, y, dy, dx, dph,
+                             transpose, S, B)
     _raise_on(err, f"{design} backward")
     mesh_apply_stacked_grad.launches += 1
     mesh_apply_stacked_grad.design_launches[design] += 1
@@ -1062,32 +1212,45 @@ mesh_apply_stacked_grad.design_launches = dict.fromkeys(GRAD_DESIGNS, 0)
 
 class MeshApplyFn(torch.autograd.Function):
     """``mesh_apply_stacked`` under autograd: the forward launch (any
-    design or route), and ``mesh_apply_stacked_grad`` (the design
-    ``grad_design`` picks) for what ``ctx.needs_input_grad`` asks (x, the
-    phases).  Saves the output, not x: the backward recovers each level's
-    input from it."""
+    design or route), and ``mesh_apply_stacked_grad`` for what
+    ``ctx.needs_input_grad`` asks (x, the phases), by the design
+    ``grad_design`` picks for the forward's route.  A route-B forward
+    saves x and its dense scratch M (``launch_dense_keep``), and its
+    backward is the dense one; any other saves the output, not x, and
+    its backward recovers each level's input from it."""
 
     @staticmethod
     def forward(ctx, layout, transpose, phases, diag, x):
         phases, diag, x = (t.contiguous() for t in (phases, diag, x))
-        y = mesh_apply_stacked(layout, phases, diag, x, transpose)
         ctx.layout, ctx.transpose, ctx.x_shared = layout, transpose, \
             x.ndim == 2
-        ctx.save_for_backward(phases, diag, y)
+        ctx.dense = grad_design(layout, phases.shape[0],
+                                x.shape[-2]) == "dense"
+        if ctx.dense:
+            y, dense = launch_dense_keep(layout, phases, diag, x, transpose)
+            ctx.save_for_backward(phases, diag, x, dense)
+        else:
+            y = mesh_apply_stacked(layout, phases, diag, x, transpose)
+            ctx.save_for_backward(phases, diag, y)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        phases, diag, y = ctx.saved_tensors
+        phases, diag, *kept = ctx.saved_tensors
         need_ph, need_diag, need_x = ctx.needs_input_grad[2:]
         if need_diag:
             raise ValueError("the mesh kernels take no gradient of the ±1 "
                              "diag buffers")
         if not (need_ph or need_x):
             return (None,) * 5
-        dx, dph = mesh_apply_stacked_grad(
-            ctx.layout, phases, diag, y, dy.contiguous(), ctx.transpose,
-            need_x, need_ph)
+        if ctx.dense:
+            dx, dph = mesh_apply_stacked_grad(
+                ctx.layout, phases, diag, None, dy.contiguous(),
+                ctx.transpose, need_x, need_ph, x=kept[0], dense=kept[1])
+        else:
+            dx, dph = mesh_apply_stacked_grad(
+                ctx.layout, phases, diag, kept[0], dy.contiguous(),
+                ctx.transpose, need_x, need_ph)
         if dx is not None and ctx.x_shared:
             dx = dx[0] if dx.shape[0] == 1 else dx.sum(0)
         return None, None, dph, None, dx

@@ -11,8 +11,8 @@ through ``mesh_apply.MeshDensifyFn`` (the grouped backward,
 ``mesh_densify_grad``: the tonn BP baselines' densification) and
 ``mesh_apply`` / ``mesh_apply_stacked`` through ``mesh_apply.MeshApplyFn``
 (``mesh_apply_stacked_grad``: onn's BP; the resident backward up to ~138
-ports, the warp-rows backward for the layouts of the wide routes A and B,
-up to 1024 ports).  The plain versions on the CPU are differentiated by
+ports, and up to 1024 ports the backward of the forward's wide route: the
+dense one after route B, the warp-rows one after route A).  The plain versions on the CPU are differentiated by
 autograd natively.  The batched TT kernels, the owner walk's mesh layouts
 (item 6c-3) and the attention kernel have no backward, so their entries
 raise on a CUDA input that requires grad while grad is enabled, before the

@@ -7,7 +7,8 @@ plain versions of the mesh kernels' forwards are
 ``core.photonic.mesh_apply_stacked`` and
 ``core.photonic.mesh_densify_stacked``, beside the mesh simulator, as in
 the JAX package; the plain versions of their backwards,
-``mesh_apply_grad_ref`` and ``mesh_densify_grad_ref``, are here.)
+``mesh_apply_grad_ref``, ``mesh_apply_dense_grad_ref`` and
+``mesh_densify_grad_ref``, are here.)
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ __all__ = ["tt_contract_ref", "tt_contract_grad_ref", "split_batch_axes",
            "tt_contract_batched_ref",
            "tt_contract_batched_quant_ref", "attention_ref",
            "attention_bound", "mesh_levels", "mesh_reverse",
-           "mesh_apply_grad_ref", "mesh_densify_grad_ref"]
+           "mesh_apply_grad_ref", "mesh_apply_dense_grad_ref",
+           "mesh_densify_grad_ref"]
 
 
 def tt_contract_ref(x: torch.Tensor, cores: Sequence[torch.Tensor],
@@ -267,6 +269,26 @@ def mesh_apply_grad_ref(layout: ph_lib.MeshLayout, phases: torch.Tensor,
     else:
         g, dph = mesh_reverse(layout, phases, y, dy, False)
         dx = g * d
+    return (dx.sum(0) if x.ndim == 2 else dx), dph
+
+
+def mesh_apply_dense_grad_ref(layout: ph_lib.MeshLayout,
+                              phases: torch.Tensor, diag: torch.Tensor,
+                              x: torch.Tensor, dense: torch.Tensor,
+                              dy: torch.Tensor,
+                              transpose: bool = False) -> tuple:
+    """Plain version of ``mesh_apply_stacked_grad``'s dense design, the
+    backward of route B's forward y_s = x_s·M_s from x and M ``(S, P,
+    P)`` (row i of M_s the mesh on e_i, as ``mesh_apply.launch_dense_keep``
+    keeps it): ``dx_s = dy_s·M_sᵀ`` (summed over S for a shared x) and
+    ``dM_s = x_sᵀ·dy_s``, then dphases by ``mesh_apply_grad_ref`` on M's
+    P identity rows (y := M, dy := dM).  Returns ``(dx shaped like x,
+    dphases)``."""
+    dx = dy @ dense.transpose(-1, -2)
+    dM = x.transpose(-1, -2) @ dy
+    eye = torch.eye(layout.ports, dtype=torch.float32, device=x.device)
+    _, dph = mesh_apply_grad_ref(layout, phases, diag, eye.expand(
+        dense.shape[0], -1, -1), dense, dM, transpose)
     return (dx.sum(0) if x.ndim == 2 else dx), dph
 
 

@@ -23,7 +23,7 @@ one grouped launch forward and one backward (``mesh_densify_stacked``,
 ``mesh_densify_grad``), and onn's meshes run the mesh kernel forward (the
 resident design, or at hidden 1024 the wide routes A and B) and its
 backward (``mesh_apply_stacked_grad``: the resident backward, or the
-warp-rows one).
+warp-rows one after route A and the dense one after route B).
 
     python -m repro_torch.launch.train --arch tensor-pinn --pde hjb-20d \\
         --pinn-noise --steps 50 --batch 100 --ckpt-dir ckpts/hjb-20d

@@ -3,7 +3,7 @@ backward ``tt_contract_grad``, ``tt_contract_batched``,
 ``tt_contract_batched_quant``,
 ``mesh_apply_stacked`` in its resident design and its three wide routes,
 ``mesh_densify_stacked``, the mesh backwards ``mesh_densify_grad`` and
-``mesh_apply_stacked_grad``, ``flash_attention``)
+``mesh_apply_stacked_grad`` in its three designs, ``flash_attention``)
 against their plain PyTorch versions, onn's ZO step, served values (f32 and quantized) against a direct forward,
 quantization codes made on the card against the CPU's, one ZO training
 step (f32 and quantization-aware) on the card against the same step
@@ -1356,8 +1356,9 @@ def test_mesh_grad_kernel_matches_plain(cuda, label):
 def test_wide_mesh_autograd_on_the_card_matches_plain_autograd(cuda, B,
                                                                transpose):
     """``ops.mesh_apply_stacked`` under autograd at onn's 1024 ports (the
-    forward through route A at 300 rows, route B at 1600; the warp-rows
-    backward) against autograd of the plain version on the same card."""
+    forward through route A at 300 rows and the warp-rows backward; route
+    B at 1600 and the dense backward: the backward follows the forward's
+    route) against autograd of the plain version on the same card."""
     layout, phases, diag, x = _mesh_inputs(1024, 1, B, False, B, cuda)
     p1, x1 = phases.clone().requires_grad_(), x.clone().requires_grad_()
     before = dict(mesh.mesh_apply_stacked_grad.design_launches)
@@ -1365,11 +1366,90 @@ def test_wide_mesh_autograd_on_the_card_matches_plain_autograd(cuda, B,
     w = torch.randn(y.shape, generator=torch.Generator().manual_seed(1)).to(
         cuda)
     got = torch.autograd.grad((y * w).sum(), (p1, x1))
-    assert mesh.mesh_apply_stacked_grad.design_launches["warp_rows"] == \
-        before["warp_rows"] + 1
+    design = "warp_rows" if B == 300 else "dense"
+    assert mesh.grad_design(layout, 1, B) == design
+    assert {k: v - before[k] for k, v in
+            mesh.mesh_apply_stacked_grad.design_launches.items()} == {
+        d: int(d == design) for d in mesh.GRAD_DESIGNS}
     p2, x2 = phases.clone().requires_grad_(), x.clone().requires_grad_()
     want = torch.autograd.grad((photonic.mesh_apply_stacked(
         layout, p2, diag, x2, transpose) * w).sum(), (p2, x2))
+    for a, b in zip(got, want):
+        _grad_close(a, b)
+
+
+# label -> (ports, S, rows, shared x, transpose): the dense backward at the
+# hidden layer's meshes of an onn BP step at hidden 1024 (1024 ports on
+# 4300 stencil rows, the V^T mesh transposed), on a shared x at S = 2, and
+# 160 ports at S = 3
+MESH_DENSE_GRAD_CASES = {
+    "p1024-4300": (1024, 1, 4300, False, False),
+    "p1024-4300-tr": (1024, 1, 4300, False, True),
+    "p1024-4300-shared": (1024, 2, 4300, True, False),
+    "p160-777-s3": (160, 3, 777, False, False),
+}
+
+
+@pytest.mark.parametrize("label", sorted(MESH_DENSE_GRAD_CASES))
+def test_dense_grad_kernel_matches_plain(cuda, label):
+    """The dense backward (x and M from route B's forward) against
+    ``ref.mesh_apply_dense_grad_ref`` on the same M and against the rows'
+    ``ref.mesh_apply_grad_ref``, within ``MESH_GRAD_BOUND``·max|plain|:
+    one launch of design ``dense`` and one ``mesh_product_grad`` (both
+    products) a call, two calls bit for bit, dx alone equal to the full
+    call's."""
+    ports, S, B, shared, transpose = MESH_DENSE_GRAD_CASES[label]
+    layout, phases, diag, x = _mesh_inputs(ports, S, B, shared, len(label),
+                                           cuda)
+    assert mesh.grad_design(layout, S, B) == "dense"
+    y, dense = mesh.launch_dense_keep(layout, phases, diag, x, transpose)
+    assert torch.equal(y, mesh.launch_dense(layout, phases, diag, x,
+                                            transpose))
+    dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(
+        ports)).to(cuda)
+    grad = mesh.mesh_apply_stacked_grad
+    before = (grad.launches, grad.design_launches["dense"],
+              mesh.mesh_product_grad.launches)
+    dx, dph = grad(layout, phases, diag, None, dy, transpose, x=x,
+                   dense=dense)
+    assert (grad.launches, grad.design_launches["dense"],
+            mesh.mesh_product_grad.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    dxs = dx.sum(0) if shared else dx
+    pdx, pdph = ref.mesh_apply_dense_grad_ref(layout, phases, diag, x,
+                                              dense, dy, transpose)
+    _grad_close(dxs, pdx)
+    _grad_close(dph, pdph)
+    rdx, rdph = ref.mesh_apply_grad_ref(layout, phases, diag, x, y, dy,
+                                        transpose)
+    _grad_close(dxs, rdx)
+    _grad_close(dph, rdph)
+    dx2, dph2 = grad(layout, phases, diag, None, dy, transpose, x=x,
+                     dense=dense)
+    assert torch.equal(dx, dx2) and torch.equal(dph, dph2)
+    only, none = grad(layout, phases, diag, None, dy, transpose, True,
+                      False, x=x, dense=dense)
+    assert none is None and torch.equal(only, dx)
+
+
+def test_dense_backward_autograd_on_a_shared_x(cuda):
+    """``ops.mesh_apply_stacked`` under autograd at 1024 ports on 1536
+    shared rows, S = 2 (route B forward, the dense backward, dx summed
+    over the stack) against autograd of the plain version (~38 GB of
+    saved levels, handed back after)."""
+    layout, phases, diag, x = _mesh_inputs(1024, 2, 1536, True, 11, cuda)
+    p1, x1 = phases.clone().requires_grad_(), x.clone().requires_grad_()
+    before = mesh.mesh_apply_stacked_grad.design_launches["dense"]
+    y = ops.mesh_apply_stacked(layout, p1, diag, x1)
+    w = torch.randn(y.shape, generator=torch.Generator().manual_seed(2)).to(
+        cuda)
+    got = torch.autograd.grad((y * w).sum(), (p1, x1))
+    assert mesh.mesh_apply_stacked_grad.design_launches["dense"] == \
+        before + 1
+    p2, x2 = phases.clone().requires_grad_(), x.clone().requires_grad_()
+    want = torch.autograd.grad((photonic.mesh_apply_stacked(
+        layout, p2, diag, x2) * w).sum(), (p2, x2))
+    torch.cuda.empty_cache()
     for a, b in zip(got, want):
         _grad_close(a, b)
 

@@ -11,7 +11,8 @@ card only (``tests/test_torch_gpu.py``, ``chip_smoke.py``'s ``mesh-grad``).
 level on the records of the trig prologue with the opposite transpose,
 walked in the opposite order, undoes a level on y and on the gradient g;
 before that each owned pair's phase term ``g_lo·y_hi − g_hi·y_lo`` is
-summed over the rows and written, signed, to the slot the map names.  dx
+summed over the rows, kept at its word (``term_word``), and written,
+signed, to the slot whose map names that word.  dx
 is the plain version's bits (the same products and sums, ``c·y − s·q`` and
 ``c·y + (−s)·q`` round alike); dphases within ``1e-5·max|plain| + 1e-6``
 (the phase term taken from the level's output instead of its recovered
@@ -167,6 +168,10 @@ def _route_a_grad_model(layout, phases, diag, y, dy, transpose, tile):
     W = tmesh.lane_width(P)
     ent, absent, modes = _records(layout, phases, not transpose)
     smap = torch.as_tensor(tmesh.grad_slot_map(layout)[:, :K].astype(np.int64))
+    # the terms in the kernel's word order (word term_word(i, t) holds
+    # entry i·32 + t)
+    i, t = np.divmod(np.arange((W // 2 + 1) * 32), 32)
+    order = torch.as_tensor(np.argsort(tmesh.term_word(W, i, t)))
     d = diag.expand(S, P) if diag.ndim == 1 else diag
     v = torch.zeros((S, B, 32 * W))
     g = torch.zeros((S, B, 32 * W))
@@ -179,7 +184,7 @@ def _route_a_grad_model(layout, phases, diag, y, dy, transpose, tile):
     dph = torch.zeros((S, L, K))
     for cl in (range(L) if transpose else reversed(range(L))):
         mode = int(modes[0, cl])
-        t = _terms(v, g, mode & 1).reshape(S, B, -1)         # (S, B, E*32)
+        t = _terms(v, g, mode & 1).reshape(S, B, -1)[..., order]
         m = smap[cl]
         sign = torch.where(((m & tmesh.MAP_NEG) != 0) != transpose, -1.0, 1.0)
         e = torch.where(m >= 0, m & (tmesh.MAP_NEG - 1), 0)

@@ -1,24 +1,35 @@
 #!/usr/bin/env python3
-"""The warp-rows backward (``mesh_apply.mesh_apply_stacked_grad`` on the
-layouts of the wide routes A and B) on one GPU: its ptxas lines, its check
-against the plain version, and its launch configurations.
+"""The wide meshes' backwards (``mesh_apply.mesh_apply_stacked_grad``:
+the warp-rows and the dense designs) on one GPU: their ptxas lines, their
+checks against the plain versions, the walk's launch configurations, and
+the walk of any checkout of the port.
 
     python3 tools/mesh_rows_grad.py [--quick]
+    python3 tools/mesh_rows_grad.py --walk SRC
 
   * ptxas: registers, shared memory and spills of every instance of
-    ``mesh_rows_grad_kernel`` in ``csrc/mesh_apply.cu``, from the build
-    log.
+    ``mesh_rows_grad_kernel`` and of the product kernels
+    (``mesh_product_kernel``, ``mesh_product_grad_kernel``) in
+    ``csrc/mesh_apply.cu``, from the build log.
   * checks: ``chip_smoke.phase_mesh_grad`` and ``mesh_grad_wide_cases``
-    (every mesh backward against ``ref.mesh_apply_grad_ref`` /
-    ``mesh_densify_grad_ref`` within 1e-4 of max|plain|, two calls bit for
-    bit, the timed cases on CUDA events and alone in a trace, beside the
-    bound, the plain version and autograd of the plain forward).
+    (every mesh backward against its plain version within 1e-4 of
+    max|plain|, two calls bit for bit, the timed cases on CUDA events and
+    alone in a trace, beside the bound, the plain version and autograd of
+    the plain forward; the dense backward in turns with the warp-rows one
+    on the same forward).
   * configs (skipped with ``--quick``): the C entry
     ``mesh_rows_grad_launch`` at onn's BP launches at hidden 1024 (the
-    hidden layer's U mesh on 4300 rows, layer 0's on 100 and 21) at rows
-    per warp and warps per block around ``mesh_apply.grad_rows_config``'s
-    choice: each against the wrapper's bits (dx and dphases), timed on
-    CUDA events, with its block columns and scratch.
+    hidden layer's U mesh on 4300 rows, the dense backward's walk on M's
+    1024 identity rows, layer 0's on 100 and 21) at rows per warp and
+    warps per block around ``mesh_apply.grad_rows_config``'s choice: each
+    against the wrapper's bits (dx and dphases), timed on CUDA events,
+    with its block columns and scratch.
+  * ``--walk SRC``: the warp-rows backward of the ``repro_torch`` under
+    SRC (a ``git archive`` of another commit, or this checkout's ``src``)
+    handed y and dy at those four shapes, with dphases and dx alone (the
+    walk without its phase terms: the floor of its two level
+    applications), on CUDA events, the same inputs from seeds in every
+    checkout.  Run parent, change, change, parent, each a process.
 
 Prints one ``[mesh-rows-grad]`` JSON line and the card's name and power
 limit.  Exits non-zero without a CUDA device.
@@ -33,7 +44,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 # label -> (S, rows, shared x, (rows per warp, warps) to try)
 CONFIGS = {
-    "p1024-4300": (1, 4300, False, ((1, 4), (1, 8), (1, 16), (2, 8))),
+    "p1024-4300": (1, 4300, False, ((1, 4), (1, 8), (2, 4), (2, 8))),
+    "p1024-1024": (1, 1024, False, ((1, 4), (1, 8), (2, 4), (2, 8))),
     "u1024-100": (1, 100, True, ((1, 1), (1, 2), (1, 4), (1, 8))),
     "u1024-21": (1, 21, True, ((1, 1), (1, 2), (1, 4))),
 }
@@ -45,7 +57,7 @@ def ptxas_lines() -> list:
     out, keep = [], False
     for line in log:
         if "Compiling entry function" in line:
-            keep = "mesh_rows_grad_kernel" in line
+            keep = "mesh_rows_grad_kernel" in line or "mesh_product" in line
         if keep:
             out.append(line.strip())
     return out
@@ -110,11 +122,50 @@ def configs(device) -> list:
     return out
 
 
+def walk(device, chip_smoke) -> list:
+    """The warp-rows backward of the imported port handed y and dy at
+    ``CONFIGS``' shapes: per call on CUDA events, with dphases and with
+    dx alone."""
+    import torch
+    from repro_torch.core import photonic
+    from repro_torch.kernels import mesh_apply as mesh
+    layout = photonic.rectangular_layout(1024)
+    P, L, K = layout.ports, layout.levels, layout.slots
+    out = []
+    for label, (S, B, shared, _) in CONFIGS.items():
+        gen = torch.Generator().manual_seed(len(label))
+        phases = torch.randn((S, L, K), generator=gen).to(device)
+        diag = torch.where(torch.rand((S, P), generator=gen) < 0.5, -1.0,
+                           1.0).to(device)
+        y = torch.randn((S, B, P), generator=gen).to(device)
+        dy = torch.randn((S, B, P), generator=gen).to(device)
+        row = {"case": label, "rows": B}
+        for key, need_ph in (("ms", True), ("dx_only_ms", False)):
+            row[key] = chip_smoke._time_ms(
+                lambda: mesh.mesh_apply_stacked_grad(
+                    layout, phases, diag, y, dy, False, True, need_ph),
+                10, warmup=2)
+        out.append(row)
+        print(f"[mesh-rows-grad] walk {json.dumps(row)}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("mesh_rows_grad: no CUDA device", file=sys.stderr)
         return 2
+    if "--walk" in sys.argv:
+        src = Path(sys.argv[sys.argv.index("--walk") + 1]).resolve()
+        sys.path[:0] = [str(src), str(ROOT)]
+        import chip_smoke
+        import repro_torch
+        _, _, card = chip_smoke.phase_device()
+        out = walk(repro_torch.resolve_device("cuda"), chip_smoke)
+        print(f"[mesh-rows-grad] {json.dumps({'src': str(src), 'walk': out})}",
+              flush=True)
+        print(card, flush=True)
+        return 0
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import chip_smoke
     import repro_torch

@@ -22,7 +22,15 @@ every slot, of the 1024-port layout's slot map
 memo, so the warp-rows backward gives those phases' gradients the wrong
 sign; the card's gradients of ``Σ u·w`` are then held to the same float64
 references, and each leaf's share of its tolerance printed (a share above
-1 is a fault the check catches).  The memo is restored after.
+1 is a fault the check catches).  The memo is restored after.  On 4
+points every 1024-port mesh takes route A and the warp-rows backward;
+the dense backward (route B's, from 1.5 × 1024 rows) walks the same slot
+map, and the CPU's plain autograd cannot hold a model at that many rows
+(~40 GB of saved levels), so the same rule and fault are read on the
+mesh itself (``dense``): the hidden layer's U mesh of the trained model
+on 4300 random rows, the dense backward's dx and dphases against the
+plain backward's in float64 on the card, with the plain f32 one as the
+own distance.
 
 Prints one ``[onn-grad-floor]`` JSON line and the card's name and power
 limit.  Exits non-zero without a CUDA device.
@@ -31,6 +39,7 @@ limit.  Exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 from pathlib import Path
@@ -81,16 +90,14 @@ def readings(model, params, init, noise, xt, device) -> tuple:
     return out, u_refs
 
 
-def planted(model, params, noise, xt, device, u_refs, rows: str) -> dict:
-    """Σu·w's card gradients with the 1024-port slot map's sign bit
-    cleared in one slot (``rows="one"``: the first signed slot of the
-    middle level) or in every slot (``"all"``), read by the float64 rule
-    against the unfaulted CPU references (a share above 1 is caught)."""
+@contextlib.contextmanager
+def faulted_map(layout, rows: str):
+    """The layout's slot map with its sign bit cleared in one slot
+    (``rows="one"``: the first signed slot of the middle level) or in
+    every slot (``"all"``), in this process's memo while the block runs;
+    yields the number of slots changed."""
     import numpy as np
-    import chip_smoke
-    from repro_torch.core import photonic
     from repro_torch.kernels import mesh_apply as mesh
-    layout = photonic.rectangular_layout(1024)      # cached: the model's
     good = mesh.grad_slot_map(layout)
     bad = good.copy()
     signed = (bad >= 0) & ((bad & mesh.MAP_NEG) != 0)
@@ -99,16 +106,67 @@ def planted(model, params, noise, xt, device, u_refs, rows: str) -> dict:
         bad[mid, int(np.flatnonzero(signed[mid])[0])] &= ~mesh.MAP_NEG
     else:
         bad[signed] &= ~mesh.MAP_NEG
-    fn = chip_smoke._bp_grad_fns(model, xt.shape[0])["Σu·w"]
     try:
         object.__setattr__(layout, "_grad_slot_map", bad)
         layout.__dict__.pop("_grad_slot_map_tensors", None)
-        _, card = chip_smoke._bp_grads(model, noise, device, fn, params, xt)
+        yield int((bad != good).sum())
     finally:
         object.__setattr__(layout, "_grad_slot_map", good)
         layout.__dict__.pop("_grad_slot_map_tensors", None)
-    return {"slots_cleared": int((bad != good).sum()),
-            **reading(card, *u_refs)}
+
+
+def planted(model, params, noise, xt, device, u_refs, rows: str) -> dict:
+    """Σu·w's card gradients with the 1024-port slot map faulted
+    (``faulted_map``), read by the float64 rule against the unfaulted CPU
+    references (a share above 1 is caught)."""
+    import chip_smoke
+    from repro_torch.core import photonic
+    layout = photonic.rectangular_layout(1024)      # cached: the model's
+    fn = chip_smoke._bp_grad_fns(model, xt.shape[0])["Σu·w"]
+    with faulted_map(layout, rows) as cleared:
+        _, card = chip_smoke._bp_grads(model, noise, device, fn, params, xt)
+    return {"slots_cleared": cleared, **reading(card, *u_refs)}
+
+
+def planted_dense(model, params, device) -> dict:
+    """The float64 rule on the dense backward (x and M from route B's
+    forward) of the model's hidden-layer U mesh on 4300 random rows: its
+    dx and dphases against ``ref.mesh_apply_grad_ref`` in float64 (the
+    forward in float64 too), with the plain f32 backward's distance as
+    the own one; clean, then with the slot map faulted in one slot and in
+    every slot (``faulted_map``)."""
+    import torch
+    import chip_smoke
+    from repro_torch.core import photonic
+    from repro_torch.kernels import mesh_apply as mesh
+    from repro_torch.kernels import ref
+    layout = model.photonic[1].layout_u
+    P = layout.ports
+    phases = params["p1"]["phases_u"].detach().to(
+        device, torch.float32)[None].contiguous()
+    diag = params["p1"]["diag_u"].detach().to(device,
+                                              torch.float32).contiguous()
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn((1, 4300, P), generator=gen).to(device)
+    dy = torch.randn((1, 4300, P), generator=gen).to(device)
+    y, dense = mesh.launch_dense_keep(layout, phases, diag, x)
+    d64 = [t.double() for t in (phases, diag, x)]
+    y64 = photonic.mesh_apply_stacked(layout, *d64)
+    exact = ref.mesh_apply_grad_ref(layout, *d64, y64, dy.double())
+    plain = ref.mesh_apply_grad_ref(layout, phases, diag, x, y, dy)
+
+    def read(tag):
+        card = mesh.mesh_apply_stacked_grad(layout, phases, diag, None, dy,
+                                            x=x, dense=dense)
+        rule = chip_smoke._f64_floor_leaves(card, plain, exact)
+        shares = [err / tol for err, tol, _ in rule]
+        return {"case": tag, "leaf_shares": shares,
+                "max_share": max(shares)}
+    out = {"clean": read("clean")}
+    for rows in ("one", "all"):
+        with faulted_map(layout, rows) as cleared:
+            out[rows] = {"slots_cleared": cleared, **read(rows)}
+    return out
 
 
 def main() -> int:
@@ -147,6 +205,8 @@ def main() -> int:
             row["planted"] = {rows: planted(model, res.params, res.hw_noise,
                                             xt, device, u_refs, rows)
                               for rows in ("one", "all")}
+            row["planted"]["dense"] = planted_dense(model, res.params,
+                                                    device)
         out["seeds"][seed] = row
         print(f"[onn-grad-floor] seed {seed} {json.dumps(row)}", flush=True)
     print(f"[onn-grad-floor] {json.dumps(out)}", flush=True)
