@@ -91,9 +91,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   6c. mesh-grad — the two mesh backwards against their plain versions
                 within ``MESH_GRAD_BOUND``·max|plain| (1e-4) per output:
                 ``mesh_densify_grad`` (the grouped backward) on the paper's
-                8 core matrices at S = 1 and 11, noise on and off, and on
-                tt_L 2's 64-port matrices, whose states it recovers,
-                against ``ref.mesh_densify_grad_ref``; ``mesh_apply_stacked_grad``
+                8 core matrices at S = 1 and 11, noise on and off (its warp
+                design), and on tt_L 2's 64-port matrices (its block
+                design, which recovers their states), against
+                ``ref.mesh_densify_grad_ref``; ``mesh_apply_stacked_grad``
                 — the resident backward on 16- and 64-port meshes on 4300
                 rows and onn's 21-port layer-0 V mesh on 100 shared rows,
                 the warp-rows backward (``mesh_rows_grad_kernel``) handed
@@ -103,7 +104,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 160 ports at S = 3, B = 777 — transposed and
                 not, against ``ref.mesh_apply_grad_ref``; each call one
                 launch of its design, two calls bit for bit.  Times the
-                grouped one at S = 1 and 11 and the resident one at 64
+                grouped one at S = 1 and 11 (also a call's host time,
+                ``host_ms``, and beside it an empty kernel's launch,
+                ``empty_launch_ms`` and ``empty_kernel_device_ms``: the
+                floor) and the resident one at 64
                 ports and 21 ports (CUDA events; one call alone in a trace
                 that starts on a fill, with its kernels a call and each
                 one's time), the plain versions and, for scale (no one
@@ -1186,6 +1190,8 @@ def _densify_cases(device) -> dict:
         if label == "paper-noise":
             row["ms"] = _time_ms(lambda: mesh.mesh_densify_stacked(
                 pms, ps, nzs, model, quant), 200)
+            row["host_ms"] = _host_ms(lambda: mesh.mesh_densify_stacked(
+                pms, ps, nzs, model, quant), 200)
             # back-to-back calls are bound by the host; the kernel alone
             row["kernel_device_ms"] = _profile(
                 lambda: mesh.mesh_densify_stacked(pms, ps, nzs, model,
@@ -1209,6 +1215,38 @@ def _densify_cases(device) -> dict:
 
 
 MESH_GRAD_BOUND = 1e-4       # of max|plain|, per output
+
+
+def _host_ms(fn, iters: int, warmup: int = 5) -> float:
+    """Host time of one call over ``iters`` back-to-back calls, on the
+    host's clock, without waiting for the card (whose work a call
+    enqueues): a call's host half."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return ms
+
+
+def _empty_launch(fill) -> dict:
+    """The launch floor beside a small kernel's time: an empty kernel
+    (``torch.cuda._sleep(0)``, a spin of 0 cycles) per launch back to back
+    on CUDA events (``empty_launch_ms``) and alone in a trace, a fill
+    leading (``empty_kernel_device_ms``: the window's device time less the
+    fill's)."""
+    import torch
+
+    def empty():
+        torch.cuda._sleep(0)
+    prof = _profile(empty, lead=lambda: fill.fill_(0.0))
+    rest = [ms for name, ms, _ in prof["top"] if "fill" not in name.lower()]
+    return {"empty_launch_ms": _time_ms(empty, 200),
+            "empty_kernel_device_ms": sum(rest) if rest else None}
 
 
 def _grad_share(name: str, label: str, got, plain) -> tuple:
@@ -1473,11 +1511,19 @@ def phase_mesh_grad(device) -> dict:
         dW = [torch.randn((S, pm.out_dim, pm.in_dim), generator=gen).to(
             device) for pm in pms]
         saves = [mesh.densify_grad_saves(pm) for pm in pms]
+        design = mesh.densify_grad_design(pms)
         before = mesh.mesh_densify_grad.launches
+        by_design = mesh.mesh_densify_grad.design_launches[design]
         got = mesh.mesh_densify_grad(pms, ps, nzs, model, dW)
-        if mesh.mesh_densify_grad.launches != before + 1:
-            raise AssertionError("mesh_densify_grad: not one launch a call")
-        plain = ref.mesh_densify_grad_ref(pms, ps, nzs, model, dW, saves)
+        if not (mesh.mesh_densify_grad.launches == before + 1 and
+                mesh.mesh_densify_grad.design_launches[design]
+                == by_design + 1):
+            raise AssertionError("mesh_densify_grad: not one launch a call "
+                                 f"through the {design} design")
+        # the warp design keeps every state; the block design where
+        # densify_grad_saves holds
+        plain = ref.mesh_densify_grad_ref(pms, ps, nzs, model, dW,
+                                          design == "warp" or saves)
         errs = [_grad_share("mesh_densify_grad", label, a, b)
                 for trio, ptrio in zip(got, plain)
                 for a, b in zip(trio, ptrio)]
@@ -1486,22 +1532,24 @@ def phase_mesh_grad(device) -> dict:
                    for a, b in zip(t, u)):
             raise AssertionError(f"mesh_densify_grad at {label}: two calls "
                                  "differ")
-        row = {"case": label, "matrices": len(pms), "tt_L": tt_L, "S": S,
-               "noise": noisy, "saved_states": saves,
+        row = {"case": label, "design": design, "matrices": len(pms),
+               "tt_L": tt_L, "S": S, "noise": noisy,
+               "saved_states": design == "warp" or saves,
                "max_abs_err": max(e for e, _ in errs),
                "max_err_over_bound": max(e / (MESH_GRAD_BOUND * m)
                                          for e, m in errs if m),
                "repeat_bitwise_equal": True}
         if label in DENSIFY_GRAD_TIMED:
-            row["ms"] = _time_ms(lambda: mesh.mesh_densify_grad(
-                pms, ps, nzs, model, dW), 200)
+            def call():
+                return mesh.mesh_densify_grad(pms, ps, nzs, model, dW)
+            row["ms"] = _time_ms(call, 200)
+            row["host_ms"] = _host_ms(call, 200)
             # the profiler may drop a window's first kernel: a fill leads
-            prof = _profile(
-                lambda: mesh.mesh_densify_grad(pms, ps, nzs, model, dW),
-                match="mesh_densify_grad_kernel",
-                lead=lambda: fill.fill_(0.0))
+            prof = _profile(call, match="mesh_densify_grad",
+                            lead=lambda: fill.fill_(0.0))
             row["kernel_device_ms"] = prof["match_ms"]
             row["kernels_per_call"] = prof["match_kernels"]
+            row.update(_empty_launch(fill))
             row["plain_ms"] = _time_ms(lambda: ref.mesh_densify_grad_ref(
                 pms, ps, nzs, model, dW, saves), 20)
             leaves = [p[k] for p in ps for k in ("phases_u", "phases_v",
@@ -2604,6 +2652,8 @@ def _run_counted(argv: list) -> tuple:
             mesh.DESIGNS, 0)
         mesh.mesh_apply_stacked_grad.design_launches = dict.fromkeys(
             mesh.GRAD_DESIGNS, 0)
+        mesh.mesh_densify_grad.design_launches = dict.fromkeys(
+            mesh.GRAD_GROUP_DESIGNS, 0)
         for fn in counted.values():                       # main path starts
             fn.launches = 0
         t0 = time.perf_counter()
@@ -2861,6 +2911,7 @@ def phase_train_bp(device) -> dict:
         res, launches, wall = _run_counted(argv)
         designs = (dict(mesh.mesh_apply_stacked.design_launches),
                    dict(mesh.mesh_apply_stacked_grad.design_launches))
+        group_designs = dict(mesh.mesh_densify_grad.design_launches)
         evals = _val_evals(steps, log_every)
         chains = 3 * steps if label.startswith("t") else 0
         want = dict.fromkeys(BP_COUNTED, 0)
@@ -2885,10 +2936,18 @@ def phase_train_bp(device) -> dict:
         if designs != expected:
             raise AssertionError(f"{label}: mesh launches by design "
                                  f"{designs}, expected {expected}")
+        # the paper's core matrices take the grouped backward's warp design
+        want_group = dict.fromkeys(mesh.GRAD_GROUP_DESIGNS, 0)
+        want_group["warp"] = want["mesh_densify_grad"]
+        if group_designs != want_group:
+            raise AssertionError(f"{label}: grouped backward launches by "
+                                 f"design {group_designs}, expected "
+                                 f"{want_group}")
         losses = np.asarray(res.losses)
         if not (np.isfinite(losses).all() and np.isfinite(res.val_mse)):
             raise AssertionError(f"{label}: non-finite losses or val MSE")
         row = {"steps": steps, "batch": batch, "launches": launches,
+               "densify_grad_designs": group_designs,
                "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
                "losses": losses.tolist(), "val_mse": res.val_mse,
                "host_step_ms_median":
@@ -4158,6 +4217,8 @@ def main() -> int:
     # grouped one on tonn's BP path, the resident one on onn's at hidden 64
     grad_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                  "kernel_device_ms", "kernels_per_call", "autograd_plain_ms")
+    group_keys = ("design", "host_ms", "empty_launch_ms",
+                  "empty_kernel_device_ms")
     main_dg = mesh_grad["densify-s1-noise"]
     entry_dg = {"name": "mesh_densify_grad", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/mesh_apply.cu",
@@ -4172,9 +4233,9 @@ def main() -> int:
                 "max_err_over_bound": max(r["max_err_over_bound"]
                                           for k, r in mesh_grad.items()
                                           if k.startswith("densify")),
-                **{k: main_dg[k] for k in grad_keys},
+                **{k: main_dg[k] for k in grad_keys + group_keys},
                 "s11": {k: mesh_grad["densify-s11-noise"][k]
-                        for k in grad_keys},
+                        for k in grad_keys + group_keys},
                 "shape": "the 8 core matrices of PAPER_TONN_SPEC (4 x 16 and "
                          "16 x 4), S = 1, noise on: a tonn BP step's "
                          "densification (library: none; autograd_plain_ms "
@@ -4290,9 +4351,11 @@ def main() -> int:
     tonn_bp, onn_bp = trained_bp["tonn-noise-adamw"], trained_bp["onn-adamw"]
     print(f"[train-bp] tonn AdamW (noise): {tonn_bp['bp_step_ms']:.3f} ms "
           f"per BP step; onn AdamW at hidden 64: {onn_bp['bp_step_ms']:.3f} "
-          f"ms; mesh_densify_grad {main_dg['ms']:.4f} ms per call "
-          f"({main_dg['kernel_device_ms']} ms alone, bound "
-          f"{main_dg['bound_ms']:.6f} ms), mesh_apply_grad "
+          f"ms; mesh_densify_grad ({main_dg['design']}) "
+          f"{main_dg['ms']:.4f} ms per call, {main_dg['host_ms']:.4f} ms "
+          f"of it on the host ({main_dg['kernel_device_ms']} ms alone, "
+          f"bound {main_dg['bound_ms']:.6f} ms, an empty kernel "
+          f"{main_dg['empty_kernel_device_ms']} ms), mesh_apply_grad "
           f"{main_ag['ms']:.4f} ms ({main_ag['kernel_device_ms']} ms alone, "
           f"bound {main_ag['bound_ms']:.6f} ms) on {card}", flush=True)
     print(f"[train-bp] onn AdamW at hidden 1024: "

@@ -106,13 +106,22 @@ def schedule_ops(ports: int, ops: Sequence[tuple]) -> MeshLayout:
 def rectangular_layout(ports: int) -> MeshLayout:
     """Clements-style rectangular arrangement: ``ports`` columns alternating
     even/odd pair offsets; exactly P(P-1)/2 MZIs.  One object per width,
-    so every matrix of that width shares the plan memoized on it (a
-    1024-port plan takes about a second to build)."""
-    ops = []
-    for c in range(ports):
-        for a in range(c % 2, ports - 1, 2):
-            ops.append((a, a + 1))
-    layout = schedule_ops(ports, ops)
+    so every matrix of that width shares the plan memoized on it.  Built
+    in closed form: the layout ``schedule_ops`` makes of the columns'
+    pairs in order."""
+    # what schedule_ops makes of column c's pairs (a, a+1), a ≡ c mod 2,
+    # in order: level c (an empty column, at 2 ports, adds none), slot k
+    # the k-th pair, padded slots on the scratch wire
+    if ports < 2:
+        return schedule_ops(ports, [])
+    levels = ports if ports > 2 else 1
+    slots = ports // 2
+    c, k = np.meshgrid(np.arange(levels), np.arange(slots), indexing="ij")
+    a = c % 2 + 2 * k
+    mask = a + 1 < ports
+    idx_a = np.where(mask, a, ports).astype(np.int32)
+    idx_b = np.where(mask, a + 1, ports).astype(np.int32)
+    layout = MeshLayout(ports=ports, idx_a=idx_a, idx_b=idx_b, mask=mask)
     if layout.num_mzis != ports * (ports - 1) // 2:
         raise AssertionError(f"rectangular layout has {layout.num_mzis} MZIs")
     return layout
@@ -173,18 +182,16 @@ def mesh_gather_plan(layout: MeshLayout) -> tuple:
     if plan is not None:
         return plan
     P = layout.ports
-    L, S = layout.idx_a.shape
+    L = layout.levels
     perm = np.tile(np.arange(P, dtype=np.int32), (L, 1))
     slot = np.zeros((L, P), dtype=np.int32)
     sign = np.zeros((L, P), dtype=np.float32)
-    for c in range(L):
-        for k in range(S):
-            if not layout.mask[c, k]:
-                continue
-            a, b = int(layout.idx_a[c, k]), int(layout.idx_b[c, k])
-            perm[c, a], perm[c, b] = b, a
-            slot[c, a] = slot[c, b] = k
-            sign[c, a], sign[c, b] = -1.0, 1.0
+    # the pairs of a level are disjoint: one scatter sets every wire
+    c, k = np.nonzero(layout.mask)
+    a, b = layout.idx_a[c, k], layout.idx_b[c, k]
+    perm[c, a], perm[c, b] = b, a
+    slot[c, a] = slot[c, b] = k
+    sign[c, a], sign[c, b] = -1.0, 1.0
     plan = (perm, slot, sign)
     object.__setattr__(layout, "_gather_plan", plan)
     return plan

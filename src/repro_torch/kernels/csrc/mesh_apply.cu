@@ -34,11 +34,16 @@
 //                        identity feed made in the kernel, scales by sigma,
 //                        zero-pads to out_dim, runs U, and stores W[o, j].
 //                        core.photonic.mesh_densify_stacked.
-//   mesh_densify_grad_launch  its backward, the BP baselines' (port-only:
-//                        the TPU kernel has none; JAX differentiates its
-//                        jnp scan): the same grid, one block re-runs its
-//                        forward keeping the states and walks both meshes
-//                        back to dphases_u, dphases_v and dsigma.
+//   mesh_densify_grad_warp_launch, mesh_densify_grad_launch  its backward,
+//                        the BP baselines' (port-only: the TPU kernel has
+//                        none; JAX differentiates its jnp scan): the same
+//                        grid, one block re-runs its forward keeping the
+//                        states and walks both meshes back to dphases_u,
+//                        dphases_v and dsigma.  Two designs: "warp" (rows
+//                        in a warp's lanes, levels by shuffles, no block
+//                        barrier a level) for meshes of at most 32 ports,
+//                        "block" (an element a thread, a barrier a level)
+//                        for the rest.
 //   mesh_apply_grad_launch  the backward of mesh_apply_launch (port-only
 //                        too): dx and dphases from the saved output, grid
 //                        (row-tile columns, S), the tables resident.
@@ -176,9 +181,19 @@ struct MeshGroup {
 };
 static_assert(sizeof(MeshGroup) <= 4096, "a kernel takes 4 KB of parameters");
 
+// Where each matrix's gradients start in the grouped backward's output, in
+// floats (the host's layout; the warp design reads it, the block design
+// sums the sizes of the matrices before its own).
+struct GroupOffsets {
+  int64_t grads[kMaxGroup];
+};
+static_assert(sizeof(MeshGroup) + sizeof(GroupOffsets) + sizeof(void*) <=
+                  4096, "a kernel takes 4 KB of parameters");
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr unsigned kFullMask = 0xffffffffu;
 
 // Per-wire trig tables of one mesh in stored level order, from its
 // effective phases ph (levels, slots); n = levels * ports.
@@ -372,13 +387,17 @@ mesh_densify_kernel(const __grid_constant__ MeshGroup grp) {
 // sums: no atomics, so the result is the same bits on every run.
 //
 // Where a level's input comes from:
-//   mesh_densify_grad_kernel (the grouped backward) keeps the states: it
+//   mesh_densify_grad_kernel (the grouped backward's block design) keeps
+//     the states: it
 //     re-runs the forward of its (stack entry, matrix) on the identity feed
 //     and writes each level's input to shared memory on the way
 //     (save_states; at the paper's cores V's 16 rows x 16 ports x 16
 //     levels and U's 16 x 4 x 4, 17 KB), so its states are the forward's
 //     bits.  A matrix whose states do not fit
 //     (kernels/mesh_apply.py::densify_grad_saves) recovers them instead.
+//   mesh_densify_grad_warp_kernel (its warp design, below the block one)
+//     keeps each thread's input at every level in the thread's own column
+//     of shared memory: the forward's bits too.
 //   mesh_apply_grad_kernel (the resident backward) recovers them from the
 //     saved output y: a row tile's states (rows x ports x levels) outgrow
 //     shared memory at a few dozen ports.  Each recovered level adds a few
@@ -584,6 +603,403 @@ mesh_densify_grad_kernel(const __grid_constant__ MeshGroup grp,
   noise_transpose(d.v, grp, dph, dphv);
 }
 
+// The grouped backward's "warp" design (kernels/mesh_apply.py::
+// densify_grad_design picks it for groups whose meshes are at most 32
+// ports wide and whose states fit: every core matrix of PAPER_TONN_SPEC;
+// the block design above takes the rest).  The same grid and arithmetic,
+// one block per (stack entry, matrix), but a mesh row of P ports lives in
+// P lanes of a warp, R = 32 / P rows a warp (lane r*P + w holds row r's
+// wire w), so a level is y[w] = C[w]*y[w] + S[w]*y[perm w] with the
+// partner's value from __shfl_sync and no walk, forward or reverse, takes
+// a block barrier a level.  Each thread keeps its own value's input at
+// every level in its own column of shared memory (states[level][thread],
+// read back by the same thread), so the reverse walks read the forward's
+// bits.  A slot's term over one row is formed by the lane of its first
+// wire (sign -1), which holds both wires' x and g after the level's two
+// shuffles; a warp's R rows sum by a shuffle tree (rows r and r + d, d =
+// 1, 2, 4, ...), and each warp writes its sums to shared memory
+// (part[warp][level][slot]), which the block sums in warp order after the
+// walks: a fixed order, no atomics.  (A version that split each reverse
+// walk into the gradient's chain and a second pass over the levels'
+// independent terms measured slower on an H100, with the stamps of
+// tools/densify_grad_phases.py: 5.2k against 4.1k SM cycles for V's 16
+// levels.)
+//
+// The block's global reads are issued first, independent of each other:
+// each lane's dW, diag and sigma values, the gamma of the output it
+// writes (where its gradients start comes from the host, GroupOffsets),
+// and for both meshes the plan (partner, slot and sign a wire)
+// and each slot's phase, gamma and bias, of which it forms the effective
+// phase (stage_mesh's arithmetic: DAC-free, gamma, crosstalk with the
+// neighbours' gamma*phi recomputed, bias).  Then one barrier, the trig of
+// both meshes once (cosf, sinf: the forward's tables), a barrier, V's
+// forward (its output rows feed U's rows in another lane layout), a
+// barrier, U's walks (the gradient at U's input feeds V's reverse walk), a
+// barrier, V's reverse walk, a barrier, and the outputs.
+constexpr int kWarpGradMaxThreads = 1024;
+
+// A wire's plan word in shared memory: its slot << 2 | its sign (0: none,
+// 1: +1, 2: -1, the slot's first wire, which forms the slot's term).
+__device__ __forceinline__ int plan_word(int slot, float sign) {
+  return slot << 2 | (sign > 0.0f ? 1 : (sign < 0.0f ? 2 : 0));
+}
+
+// The warp design's smem view of one mesh: per wire (levels, ports) cos,
+// signed sin, partner and plan word; per slot (levels, slots) the
+// effective phase.
+struct WarpMesh {
+  float* cs;
+  float* sn;
+  int* pm;
+  int* plan;
+  float* eff;
+  int ports, levels, slots;
+};
+
+__device__ WarpMesh warp_mesh(const MeshSide& m, float*& at) {
+  WarpMesh w;
+  const int n = m.levels * m.ports;
+  w.cs = at;
+  w.sn = w.cs + n;
+  w.pm = reinterpret_cast<int*>(w.sn + n);
+  w.plan = w.pm + n;
+  w.eff = reinterpret_cast<float*>(w.plan + n);
+  at = w.eff + m.levels * m.slots;
+  w.ports = m.ports;
+  w.levels = m.levels;
+  w.slots = m.slots;
+  return w;
+}
+
+// Entry i of a mesh's staging — a wire's plan (past its wires: a slot's
+// effective phase) — in two halves, so that a thread issues the global
+// reads of all its entries before it waits on any: stage_read takes a
+// wire's partner, slot and sign, or a slot's phase, gamma and bias and its
+// neighbours' gamma and phase; stage_write forms the plan word or the
+// effective phase (stage_mesh's arithmetic) and stores it.
+struct StageRead {
+  float v[7];
+};
+
+__device__ __forceinline__ StageRead stage_read(const MeshSide& m, int s,
+                                                int i) {
+  StageRead r = {};
+  const int wires = m.levels * m.ports;
+  if (i < wires) {
+    r.v[0] = __int_as_float(m.perm[i]);
+    r.v[1] = __int_as_float(m.slot[i]);
+    r.v[2] = m.sign[i];
+    return r;
+  }
+  const int j = i - wires, k = j % m.slots;
+  const float* src = m.phases + static_cast<size_t>(s) * m.levels * m.slots;
+  r.v[0] = src[j];
+  if (m.gamma != nullptr) {
+    r.v[1] = m.gamma[j];
+    r.v[2] = m.bias[j];
+    if (m.crosstalk && k + 1 < m.slots) {
+      r.v[3] = m.gamma[j + 1];
+      r.v[4] = src[j + 1];
+    }
+    if (m.crosstalk && k > 0) {
+      r.v[5] = m.gamma[j - 1];
+      r.v[6] = src[j - 1];
+    }
+  }
+  return r;
+}
+
+__device__ __forceinline__ void stage_write(const MeshSide& m,
+                                            const MeshGroup& grp,
+                                            const WarpMesh& w, int i,
+                                            const StageRead& r) {
+  const int wires = m.levels * m.ports;
+  if (i < wires) {
+    w.pm[i] = __float_as_int(r.v[0]);
+    w.plan[i] = plan_word(__float_as_int(r.v[1]), r.v[2]);
+    return;
+  }
+  const int j = i - wires, k = j % m.slots;
+  float v = r.v[0];
+  if (m.gamma != nullptr) {
+    float p = __fmul_rn(r.v[1], v);
+    if (m.crosstalk) {
+      const float left = k + 1 < m.slots ? __fmul_rn(r.v[3], r.v[4]) : 0.0f;
+      const float right = k > 0 ? __fmul_rn(r.v[5], r.v[6]) : 0.0f;
+      p = __fadd_rn(p, __fmul_rn(grp.kappa, __fadd_rn(left, right)));
+    }
+    v = __fadd_rn(p, r.v[2]);
+  }
+  w.eff[j] = v;
+}
+
+// A wire's trig from its slot's effective phase: build_trig's arithmetic.
+__device__ __forceinline__ void stage_trig(const WarpMesh& w, int i) {
+  const int q = w.plan[i];
+  const float sg = (q & 3) == 0 ? 0.0f : ((q & 3) == 1 ? 1.0f : -1.0f);
+  const float v = w.eff[(i / w.ports) * w.slots + (q >> 2)];
+  w.cs[i] = sg != 0.0f ? cosf(v) : 1.0f;
+  w.sn[i] = __fmul_rn(sg, sinf(v));
+}
+
+// A thread's place in the warp-row layout of a P-port mesh on `rows` rows:
+// its wire w, the lane of its row's wire 0, its row, and whether it holds
+// one (a dead lane reads itself and carries zeros).
+struct WarpLane {
+  int w, base, row;
+  bool live;
+};
+
+__device__ WarpLane warp_lane(int ports, int rows) {
+  const int lane = threadIdx.x & 31;
+  const int r = lane / ports;
+  WarpLane l;
+  l.row = (threadIdx.x >> 5) * (32 / ports) + r;
+  l.live = r < 32 / ports && l.row < rows;
+  l.w = l.live ? lane - r * ports : 0;
+  l.base = r * ports;
+  return l;
+}
+
+// The levels of one mesh on a warp's rows, as run_levels: x this lane's
+// value; its level-c input goes to states[c * blockDim.x + threadIdx.x].
+__device__ float warp_levels(float x, const WarpLane& l, const WarpMesh& m,
+                             bool transpose, float* states) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll 4
+  for (int c = 0; c < m.levels; ++c) {
+    const int i = (transpose ? m.levels - 1 - c : c) * m.ports + l.w;
+    const int src = l.live ? l.base + m.pm[i] : lane;
+    const float s = transpose ? -m.sn[i] : m.sn[i];
+    states[c * blockDim.x + threadIdx.x] = x;
+    const float xp = __shfl_sync(kFullMask, x, src);
+    x = __fadd_rn(__fmul_rn(m.cs[i], x), __fmul_rn(s, xp));
+  }
+  return x;
+}
+
+// The reverse walk of warp_levels, as reverse_levels with the states kept:
+// g the gradient at the levels' output, returned at their input; part this
+// warp's phase gradients (levels, slots), each written once by row 0's
+// lane of the slot's first wire with the sum of its rows.
+__device__ float warp_reverse(float g, const WarpLane& l, const WarpMesh& m,
+                              bool transpose, const float* states,
+                              float* part) {
+  const int lane = threadIdx.x & 31;
+  const int R = 32 / m.ports, r = lane / m.ports;
+#pragma unroll 2
+  for (int c = m.levels - 1; c >= 0; --c) {
+    const int cl = transpose ? m.levels - 1 - c : c;
+    const int i = cl * m.ports + l.w;
+    const int src = l.live ? l.base + m.pm[i] : lane;
+    const float x = states[c * blockDim.x + threadIdx.x];
+    const float cc = m.cs[i], sc = m.sn[i];
+    const int q = m.plan[i];
+    const float xp = __shfl_sync(kFullMask, x, src);
+    const float gp = __shfl_sync(kFullMask, g, src);
+    // sn = sign * sin(phi) = -sin(phi) on the slot's first wire, the only
+    // lane whose term is kept; the rows of a warp at one wire share it
+    const bool first = l.live && (q & 3) == 2;
+    const float cb = transpose ? cc : -cc;
+    const float dya = __fadd_rn(__fmul_rn(sc, x), __fmul_rn(cb, xp));
+    const float dyb = __fsub_rn(__fmul_rn(sc, xp), __fmul_rn(cb, x));
+    const float t = __fadd_rn(__fmul_rn(g, dya), __fmul_rn(gp, dyb));
+    float term = first ? t : 0.0f;
+    g = __fsub_rn(__fmul_rn(cc, g),
+                  __fmul_rn(transpose ? -sc : sc, gp));
+#pragma unroll
+    for (int d = 1; d < 32; d *= 2) {
+      if (d >= R) break;                               // warp-uniform
+      const float o = __shfl_down_sync(kFullMask, term, d * m.ports);
+      if ((r & (2 * d - 1)) == 0 && r + d < R) term = __fadd_rn(term, o);
+    }
+    if (r == 0 && first) part[cl * m.slots + (q >> 2)] = term;
+  }
+  return g;
+}
+
+// Element i of the warps' phase gradients part (warps, n), summed in warp
+// order.
+__device__ float warp_sum(const float* part, int n, int warps, int i) {
+  float v = part[i];
+  for (int w = 1; w < warps; ++w) v = __fadd_rn(v, part[w * n + i]);
+  return v;
+}
+
+// noise_transpose's element i from the warps' sums; gamma: m.gamma[i].
+__device__ float warp_noise_transpose(const MeshSide& m, const MeshGroup& grp,
+                                      const float* part, int warps, int i,
+                                      float gamma) {
+  const int n = m.levels * m.slots;
+  float v = warp_sum(part, n, warps, i);
+  if (m.gamma != nullptr) {
+    if (m.crosstalk) {
+      const int k = i % m.slots;
+      const float left = k + 1 < m.slots ? warp_sum(part, n, warps, i + 1)
+                                         : 0.0f;
+      const float right = k > 0 ? warp_sum(part, n, warps, i - 1) : 0.0f;
+      v = __fadd_rn(v, __fmul_rn(grp.kappa, __fadd_rn(left, right)));
+    }
+    v = __fmul_rn(gamma, v);
+  }
+  return v;
+}
+
+// Warps a P-port mesh's warp rows take over `rows` rows.
+__host__ __device__ inline int warp_row_warps(int ports, int rows) {
+  const int per = 32 / ports;
+  return (rows + per - 1) / per;
+}
+
+// grid (S, G), blockDim.x = 32 * warps, warps enough for both meshes of
+// every matrix (warp_row_warps); grads as for mesh_densify_grad_kernel.
+__global__ void __launch_bounds__(kWarpGradMaxThreads)
+mesh_densify_grad_warp_kernel(const __grid_constant__ MeshGroup grp,
+                              const __grid_constant__ GroupOffsets offs,
+                              float* __restrict__ grads) {
+  extern __shared__ float smem[];
+  const MatrixDesc& d = grp.m[blockIdx.y];
+  const int s = blockIdx.x, S = grp.stack;
+  const int in = d.v.ports, out = d.u.ports, k = d.k;
+  const int nu = d.u.levels * d.u.slots, nv = d.v.levels * d.v.slots;
+  const int T = blockDim.x, warp = threadIdx.x >> 5, tid = threadIdx.x;
+  float* at = smem;
+  const WarpMesh mv = warp_mesh(d.v, at);
+  const WarpMesh mu = warp_mesh(d.u, at);
+  float* vout = at;                      // V's output rows (in, in)
+  float* gu = vout + in * in;            // the gradient at U's input rows
+  float* st_v = gu + in * out;           // V's states (Lv, T)
+  float* st_u = st_v + d.v.levels * T;   // U's states (Lu, T)
+  float* part_u = st_u + d.u.levels * T; // (warps, Lu, Ku)
+  float* part_v = part_u + (T >> 5) * nu;  // (warps, Lv, Kv)
+
+  const int64_t off = offs.grads[blockIdx.y];     // this matrix's grads
+  float* dphu = grads + off + static_cast<size_t>(s) * nu;
+  float* dphv = grads + off + static_cast<size_t>(S) * nu +
+                static_cast<size_t>(s) * nv;
+  float* dsig = grads + off + static_cast<size_t>(S) * (nu + nv) +
+                static_cast<size_t>(s) * k;
+
+  // every global read a lane needs later, issued first
+  const float* dv = d.v.diag + s * d.v.diag_stride_s;
+  const float* du = d.u.diag + s * d.u.diag_stride_s;
+  const float* sig = d.sigma + static_cast<size_t>(s) * k;
+  const WarpLane lv = warp_lane(in, in), lu = warp_lane(out, in);
+  const bool walk_v = warp < warp_row_warps(in, in);
+  const bool walk_u = warp < warp_row_warps(out, in);
+  float g_out = 0.0f, z_scale = 0.0f, du_o = 0.0f;   // U's lane
+  if (lu.live) {
+    const int o = lu.w;
+    g_out = d.out[static_cast<size_t>(s) * out * in + o * in + lu.row];
+    du_o = du[o];
+    if (o < k) z_scale = dv[o];
+  }
+  const float sig_o = lu.live && lu.w < k ? sig[lu.w] : 0.0f;
+  float du_w = 0.0f, sig_w = 0.0f, dv_w = 0.0f;       // V's lane
+  if (lv.live && lv.w < k) {
+    du_w = du[lv.w];
+    sig_w = sig[lv.w];
+    dv_w = dv[lv.w];
+  }
+  float gam = 0.0f, dsig_dv = 0.0f, dsig_du = 0.0f;   // output tid
+  if (tid < nu) {
+    if (d.u.gamma != nullptr) gam = d.u.gamma[tid];
+  } else if (tid < nu + nv) {
+    if (d.v.gamma != nullptr) gam = d.v.gamma[tid - nu];
+  } else if (tid < nu + nv + k) {
+    dsig_dv = dv[tid - nu - nv];
+    dsig_du = du[tid - nu - nv];
+  }
+
+  // both meshes' plans and effective phases, two entries a thread a
+  // round (every read of a round issued first), then their trig
+  const int pv = d.v.levels * (in + d.v.slots);
+  const int n = pv + d.u.levels * (out + d.u.slots);
+  for (int i = tid; i < n; i += 2 * T) {
+    const int i2 = i + T;
+    const StageRead a = i < pv ? stage_read(d.v, s, i)
+                               : stage_read(d.u, s, i - pv);
+    StageRead b = {};
+    if (i2 < n)
+      b = i2 < pv ? stage_read(d.v, s, i2) : stage_read(d.u, s, i2 - pv);
+    if (i < pv)
+      stage_write(d.v, grp, mv, i, a);
+    else
+      stage_write(d.u, grp, mu, i - pv, a);
+    if (i2 < pv)
+      stage_write(d.v, grp, mv, i2, b);
+    else if (i2 < n)
+      stage_write(d.u, grp, mu, i2 - pv, b);
+  }
+  for (int i = tid; i < (T >> 5) * (nu + nv); i += T) part_u[i] = 0.0f;
+  __syncthreads();
+  const int tv = d.v.levels * in, tu = d.u.levels * out;
+  for (int i = tid; i < tv + tu; i += T) {
+    if (i < tv)
+      stage_trig(mv, i);
+    else
+      stage_trig(mu, i - tv);
+  }
+  __syncthreads();
+
+  // V, transposed, on the identity: row j = e_j, D_v later
+  if (walk_v) {
+    const float a = warp_levels(lv.live && lv.w == lv.row ? 1.0f : 0.0f, lv,
+                                mv, true, st_v);
+    if (lv.live) vout[lv.row * in + lv.w] = a;
+  }
+  __syncthreads();
+  // U on D_v, sigma on the first k wires, zeros up to out_dim, D_u; then
+  // its reverse walk from dW^T
+  if (walk_u) {
+    float z = 0.0f;
+    if (lu.live) {
+      const float zv = lu.w < k
+          ? __fmul_rn(__fmul_rn(vout[lu.row * in + lu.w], z_scale), sig_o)
+          : 0.0f;
+      z = __fmul_rn(zv, du_o);
+    }
+    warp_levels(z, lu, mu, false, st_u);
+    const float g = warp_reverse(g_out, lu, mu, false, st_u,
+                                 part_u + warp * nu);
+    if (lu.live) gu[lu.row * out + lu.w] = g;
+  }
+  __syncthreads();
+  // V's output gradient through D_u, sigma and D_v; V's reverse walk
+  if (walk_v) {
+    const float g = lv.live && lv.w < k
+        ? __fmul_rn(__fmul_rn(__fmul_rn(gu[lv.row * out + lv.w], du_w),
+                              sig_w), dv_w)
+        : 0.0f;
+    warp_reverse(g, lv, mv, true, st_v, part_v + warp * nv);
+  }
+  __syncthreads();
+  // dphases through the noise model's transpose, and dsigma over the rows
+  // in order, as the block design
+  const int wu = warp_row_warps(out, in), wv = warp_row_warps(in, in);
+  for (int i = tid; i < nu + nv + k; i += T) {
+    if (i < nu) {
+      dphu[i] = warp_noise_transpose(
+          d.u, grp, part_u, wu, i,
+          i == tid ? gam : (d.u.gamma != nullptr ? d.u.gamma[i] : 0.0f));
+    } else if (i < nu + nv) {
+      const int iv = i - nu;
+      dphv[iv] = warp_noise_transpose(
+          d.v, grp, part_v, wv, iv,
+          i == tid ? gam : (d.v.gamma != nullptr ? d.v.gamma[iv] : 0.0f));
+    } else {
+      const int w = i - nu - nv;
+      const float dvw = i == tid ? dsig_dv : dv[w];
+      const float duw = i == tid ? dsig_du : du[w];
+      float acc = 0.0f;
+      for (int j = 0; j < in; ++j)
+        acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(vout[j * in + w], dvw),
+                                       __fmul_rn(gu[j * out + w], duw)));
+      dsig[w] = acc;
+    }
+  }
+}
+
 // The resident backward: grid (row-tile columns, S); block x takes the row
 // tiles x, x + gridDim.x, ... of entry s with the layout's tables resident
 // as in mesh_apply_kernel, zeroes its own slice of dph, (gridDim.x, S,
@@ -783,7 +1199,6 @@ mesh_stream_kernel(const float* __restrict__ x,
 
 // ------------------------------------------------------------- warp rows
 
-constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kRowsMaxThreads = 256;
 
 // One level's record for a warp of lane width W: brick entries (cos, s_lo)
@@ -1767,6 +2182,22 @@ size_t densify_grad_smem(const MatrixDesc& d) {
           states) * sizeof(float);
 }
 
+// The warp design's shared memory at `threads` a block: both meshes'
+// tables (cos, sin, partner, plan word a wire; the effective phase a
+// slot), V's output rows, the gradient at U's input rows, every thread's
+// states and every warp's phase gradients.
+size_t densify_grad_warp_smem(const MatrixDesc& d, int threads) {
+  const size_t in = d.v.ports, out = d.u.ports;
+  const size_t phases = d.u.levels * d.u.slots + d.v.levels * d.v.slots;
+  const size_t tables = 4 * (static_cast<size_t>(d.v.levels) * in +
+                             static_cast<size_t>(d.u.levels) * out) +
+                        phases;
+  const size_t states =
+      static_cast<size_t>(d.v.levels + d.u.levels) * threads;
+  const size_t parts = static_cast<size_t>(threads / 32) * phases;
+  return (tables + in * in + in * out + states + parts) * sizeof(float);
+}
+
 }  // namespace
 
 // Plain C entry points, bound with ctypes.  Each launches on `stream`
@@ -2021,6 +2452,43 @@ extern "C" int mesh_densify_grad_launch(const MeshGroup* group, void* grads,
   mesh_densify_grad_kernel<<<grid, kThreads, smem,
                              static_cast<cudaStream_t>(stream)>>>(
       *group, static_cast<float*>(grads));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The grouped backward's warp design (mesh_densify_grad_warp_kernel):
+// group and grads as for mesh_densify_grad_launch (save_states unused: it
+// keeps every state), offsets the float offset of each matrix's gradients
+// in grads (in the block design's order: the sizes of the matrices before
+// it), blocks of 32 * warps threads, warps enough for both meshes' rows of
+// every matrix (every mesh at most 32 ports wide).
+extern "C" int mesh_densify_grad_warp_launch(const MeshGroup* group,
+                                             const GroupOffsets* offsets,
+                                             void* grads, int warps,
+                                             void* stream) {
+  if (group->count < 1 || group->count > kMaxGroup || group->stack < 1 ||
+      group->dac || offsets == nullptr || grads == nullptr || warps < 1 ||
+      32 * warps > kWarpGradMaxThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  size_t smem = 0;
+  for (int g = 0; g < group->count; ++g) {
+    const MatrixDesc& d = group->m[g];
+    const int in = d.v.ports, out = d.u.ports;
+    if (in < 1 || out < 1 || in > 32 || out > 32 || d.u.levels < 1 ||
+        d.v.levels < 1 || d.u.slots < 1 || d.v.slots < 1 || d.k < 1 ||
+        warp_row_warps(in, in) > warps || warp_row_warps(out, in) > warps)
+      return static_cast<int>(cudaErrorInvalidValue);
+    smem = std::max(smem, densify_grad_warp_smem(d, 32 * warps));
+  }
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        mesh_densify_grad_warp_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(group->stack, group->count);
+  mesh_densify_grad_warp_kernel<<<grid, 32 * warps, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      *group, *offsets, static_cast<float*>(grads));
   return static_cast<int>(cudaGetLastError());
 }
 

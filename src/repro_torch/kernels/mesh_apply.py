@@ -34,16 +34,25 @@ route A's ``rows_plan``).  Two entries:
     written as its TT core: the ZO step's whole densification
     (``TensorPinn.prepare_params_stacked``).  Its G descriptors go to the
     kernel by value (``MeshGroup``, a ctypes mirror of the C struct), so
-    the launch copies nothing from the host.
+    the launch copies nothing from the host.  Their static half is packed
+    once a model (``GroupTemplate``, kept on the group's first matrix by
+    ``group_template``); a call checks its tensors and writes their
+    pointers.
 
 Backwards, port-only (the TPU kernel has none; the JAX package
 differentiates its jnp scan), for the off-chip BP baselines:
 
   * ``mesh_densify_grad`` — the grouped densification's, one launch for
     every matrix: dphases_u, dphases_v (of the commanded phases, through
-    the noise model) and dsigma from the cores' gradients.  Each block
-    keeps its forward's states in shared memory where they fit
-    (``densify_grad_saves``).  ``MeshDensifyFn`` puts it under autograd.
+    the noise model) and dsigma from the cores' gradients, through the
+    design ``densify_grad_design`` picks for the group (counted in
+    ``mesh_densify_grad.design_launches``): ``warp`` where every mesh is
+    at most 32 ports wide (a mesh row in a warp's lanes, levels by
+    shuffles, every level's input kept, no block barrier a level), else
+    ``block`` (one element a thread, a barrier a level; the forward's
+    states kept in shared memory where they fit, ``densify_grad_saves``,
+    else recovered).  The same group template as the forward's.
+    ``MeshDensifyFn`` puts it under autograd.
   * ``mesh_apply_stacked_grad`` — the standalone mesh's, through the
     design ``grad_design`` picks, which follows the forward's route
     (``MeshApplyFn``): ``resident`` where the resident backward's tables
@@ -97,6 +106,9 @@ __all__ = ["mesh_apply_stacked", "launch_resident", "launch_warp_rows",
            "DENSE_MIN_ROWS_PER_PORT", "mesh_densify_stacked", "smem_bytes",
            "rows_per_block", "stream_smem_bytes", "stream_rows",
            "densify_smem_bytes", "MeshGroup", "pack_group", "MAX_GROUP",
+           "GroupTemplate", "group_template", "TEMPLATES_KEPT",
+           "GRAD_GROUP_DESIGNS", "densify_grad_design", "densify_grad_warps",
+           "densify_grad_warp_smem_bytes",
            "mesh_densify_grad", "mesh_apply_stacked_grad", "grad_smem_bytes",
            "grad_fits", "grad_rows_per_block", "grad_columns",
            "densify_grad_smem_bytes", "densify_grad_saves", "MeshApplyFn",
@@ -557,10 +569,11 @@ def grad_scratch_bytes(layout: ph_lib.MeshLayout, S: int, rows: int,
 
 
 def densify_grad_smem_bytes(pm: ph_lib.PhotonicMatrix, save: bool) -> int:
-    """Shared memory of one grouped backward block for matrix ``pm``: four
-    row buffers ``(in_dim, max(in_dim, out_dim))``, V's output rows, three
-    phase tables and the cos and sin tables of the larger mesh, and with
-    ``save`` each level's input of both meshes."""
+    """Shared memory of one block of the grouped backward's block design
+    for matrix ``pm``: four row buffers ``(in_dim, max(in_dim,
+    out_dim))``, V's output rows, three phase tables and the cos and sin
+    tables of the larger mesh, and with ``save`` each level's input of
+    both meshes."""
     lu, lv = pm.layout_u, pm.layout_v
     phases = max(lu.levels * lu.slots, lv.levels * lv.slots)
     table = max(lu.levels * lu.ports, lv.levels * lv.ports)
@@ -571,10 +584,62 @@ def densify_grad_smem_bytes(pm: ph_lib.PhotonicMatrix, save: bool) -> int:
 
 
 def densify_grad_saves(pm: ph_lib.PhotonicMatrix) -> bool:
-    """Whether the grouped backward keeps matrix ``pm``'s forward states
-    (exact; every core matrix of ``PAPER_TONN_SPEC``: 17 KB at most) or
-    recovers them level by level (``ref.mesh_reverse``)."""
+    """Whether the grouped backward's block design keeps matrix ``pm``'s
+    forward states (exact; every core matrix of ``PAPER_TONN_SPEC``: 17 KB
+    at most) or recovers them level by level (``ref.mesh_reverse``).  The
+    warp design keeps them all."""
     return densify_grad_smem_bytes(pm, True) <= SMEM_MAX_BYTES
+
+
+GRAD_GROUP_DESIGNS = ("warp", "block")   # the grouped backward's designs
+
+
+def _warp_row_warps(ports: int, rows: int) -> int:
+    """Warps that hold ``rows`` rows of a mesh of at most 32 ports, ``32 //
+    ports`` rows a warp (``csrc/mesh_apply.cu::warp_row_warps``)."""
+    return -(-rows // (32 // ports))
+
+
+def densify_grad_warps(matrices) -> int:
+    """Warps a block of the grouped backward's warp design: enough for the
+    rows of both meshes of every matrix (V's and U's ``in_dim`` rows, in
+    lanes of V's and U's width): 8 at the paper's 16 x 4 and 4 x 16."""
+    return max(max(_warp_row_warps(pm.in_dim, pm.in_dim),
+                   _warp_row_warps(pm.out_dim, pm.in_dim))
+               for pm in matrices)
+
+
+def densify_grad_warp_smem_bytes(pm: ph_lib.PhotonicMatrix,
+                                 threads: int) -> int:
+    """Shared memory of one warp-design block for matrix ``pm`` at
+    ``threads`` a block: both meshes' tables (cos, sin, partner and plan
+    word ``(levels, ports)``, the effective phases ``(levels, slots)``),
+    V's output rows, the gradient at U's input rows, each thread's input
+    at every level of both meshes and each warp's phase gradients
+    (``csrc/mesh_apply.cu::densify_grad_warp_smem``)."""
+    lu, lv = pm.layout_u, pm.layout_v
+    phases = lu.levels * lu.slots + lv.levels * lv.slots
+    tables = 4 * (lv.levels * lv.ports + lu.levels * lu.ports) + phases
+    return 4 * (tables + pm.in_dim * (pm.in_dim + pm.out_dim)
+                + (lv.levels + lu.levels) * threads
+                + threads // 32 * phases)
+
+
+def densify_grad_design(matrices) -> str:
+    """The grouped backward's design for a group: ``"warp"`` (rows in a
+    warp's lanes, levels by shuffles; ``mesh_densify_grad_warp_kernel``)
+    where every mesh is at most 32 ports wide and every matrix's block
+    fits shared memory at ``densify_grad_warps`` warps — every core matrix
+    the repo's configs build — else ``"block"``, the first design (one
+    element a thread, a block barrier a level; ``mesh_densify_grad_
+    kernel``), which also takes the matrices whose states do not fit a
+    block (``densify_grad_saves``)."""
+    if any(max(pm.in_dim, pm.out_dim) > 32 for pm in matrices):
+        return "block"
+    threads = 32 * densify_grad_warps(matrices)
+    fits = all(densify_grad_warp_smem_bytes(pm, threads) <= SMEM_MAX_BYTES
+               for pm in matrices)
+    return "warp" if fits else "block"
 
 
 def densify_smem_bytes(pm: ph_lib.PhotonicMatrix) -> int:
@@ -606,6 +671,12 @@ class _MatrixDesc(ctypes.Structure):
     _fields_ = [("u", _MeshSide), ("v", _MeshSide),
                 ("sigma", ctypes.c_void_p), ("out", ctypes.c_void_p),
                 ("k", ctypes.c_int), ("save_states", ctypes.c_int)]
+
+
+class _GroupOffsets(ctypes.Structure):
+    """Where each matrix's gradients start in the grouped backward's
+    output, in floats (``GroupOffsets``; the warp design reads it)."""
+    _fields_ = [("grads", ctypes.c_int64 * MAX_GROUP)]
 
 
 class MeshGroup(ctypes.Structure):
@@ -698,6 +769,182 @@ def pack_group(matrices, params, noises, noise_model, quant,
     return grp
 
 
+PARAM_KEYS = ("phases_u", "phases_v", "sigma", "diag_u", "diag_v")
+TEMPLATES_KEPT = 8           # group templates kept on a group's first matrix
+
+
+def _call_words() -> np.ndarray:
+    """``(MAX_GROUP, 6)``: the 8-byte word of ``MeshGroup`` that holds
+    matrix g's pointer to each per-call tensor, in ``PARAM_KEYS`` order and
+    then ``out``."""
+    u, v = _MatrixDesc.u.offset, _MatrixDesc.v.offset
+    field = {"phases_u": u + _MeshSide.phases.offset,
+             "phases_v": v + _MeshSide.phases.offset,
+             "sigma": _MatrixDesc.sigma.offset,
+             "diag_u": u + _MeshSide.diag.offset,
+             "diag_v": v + _MeshSide.diag.offset}
+    cols = np.array([field[k] for k in PARAM_KEYS] + [_MatrixDesc.out.offset])
+    rows = MeshGroup.m.offset + ctypes.sizeof(_MatrixDesc) * np.arange(
+        MAX_GROUP)
+    return (rows[:, None] + cols[None, :]) // 8
+
+
+_CALL_WORDS = _call_words()
+_F32 = torch.float32
+
+
+class GroupTemplate:
+    """The descriptors of one grouped launch (``pack_group``) with their
+    static half packed once: every mesh's plan pointers, ports, levels,
+    slots, crosstalk flag, gamma and bias, each matrix's k, and for the
+    backward its design, warps, saved states and its gradients' layout.
+    ``fits`` checks a call's tensors and ``bind`` writes only their
+    pointers: the five of ``PARAM_KEYS`` a matrix and its out (the
+    forward's, from the base of its one output allocation) or dW (the
+    backward's).
+
+    ``kind`` is ``"forward"`` (``mesh_densify_stacked``) or
+    ``"backward"`` (``mesh_densify_grad``).  It keeps the matrices, their
+    layouts and the noise tensors it packed, so the identities that key it
+    (``group_template``) stay theirs while it lives."""
+
+    def __init__(self, kind: str, matrices, params, noises, noise_model,
+                 quant, dW=None):
+        G = len(matrices)
+        sigma = params[0]["sigma"]
+        S = sigma.shape[0] if sigma.ndim == 2 else 0
+        self.device = sigma.device
+        # Tensor.get_device(): the card's index, -1 on the CPU
+        self.device_index = -1 if sigma.device.type == "cpu" else \
+            sigma.get_device()
+        # (S, out_dim, in_dim) a matrix for the forward; for the backward
+        # [dphases_u, dphases_v, dsigma] a matrix, in the kernel's order
+        shapes = ([(S, pm.out_dim, pm.in_dim) for pm in matrices]
+                  if kind == "forward" else
+                  [s for pm in matrices for s in (
+                      (S, *pm.layout_u.phase_shape()),
+                      (S, *pm.layout_v.phase_shape()), (S, pm.k))])
+        sizes = [math.prod(s) for s in shapes]
+        offsets = np.cumsum([0] + sizes[:-1])
+        self.size = int(sum(sizes))
+        self.views = [(s, torch.empty(s, device="meta").stride(), int(o))
+                      for s, o in zip(shapes, offsets)]
+        if kind == "forward":
+            out = [torch.empty(s, device=self.device) for s in shapes]
+            self.out_bytes = (4 * offsets).astype(np.uint64)
+        else:
+            out = dW
+        self.grp = pack_group(matrices, params, noises, noise_model, quant,
+                              out)
+        self.kind = kind
+        self.design = self.warps = None
+        if kind == "backward":
+            self.design = densify_grad_design(matrices)
+            if self.design == "warp":
+                self.warps = densify_grad_warps(matrices)
+            self.offsets = _GroupOffsets()
+            self.offsets.grads[:G] = [o for _, _, o in self.views[::3]]
+            for g, pm in enumerate(matrices):
+                save = densify_grad_saves(pm)
+                self.grp.m[g].save_states = int(save)
+                need = densify_grad_smem_bytes(pm, save)
+                if need > SMEM_MAX_BYTES:
+                    raise ValueError(
+                        f"a {pm.out_dim} x {pm.in_dim} photonic matrix's "
+                        f"backward needs {need} B of shared memory per "
+                        f"block; the card has {SMEM_MAX_BYTES} B (ROADMAP "
+                        "queue A, item 6c-3)")
+        words = _CALL_WORDS[:G]
+        self.shapes = [params[g][k].shape for g in range(G)
+                       for k in PARAM_KEYS]
+        if kind == "forward":
+            self.index = words[:, :5].ravel()
+            self.out_index = words[:, 5]
+        else:
+            self.shapes += [w.shape for w in dW]
+            self.index = np.concatenate([words[:, :5].ravel(), words[:, 5]])
+        self.words = np.frombuffer(self.grp, dtype=np.uint64)
+        self.keep = (list(matrices), [(pm.layout_u, pm.layout_v)
+                                      for pm in matrices],
+                     [t for nz in noises for t in _noise_tensors(nz)])
+
+    def fits(self, tensors: list) -> bool:
+        """Whether a call's tensors — each matrix's five of ``PARAM_KEYS``
+        in order, then (backward) every dW — fit the template: their
+        number, and each one's device, dtype, shape and contiguity."""
+        if [t.shape for t in tensors] != self.shapes:
+            return False
+        index = self.device_index
+        for t in tensors:
+            if (t.dtype is not _F32 or t.get_device() != index
+                    or not t.is_contiguous()):
+                return False
+        return True
+
+    def bind(self, tensors: list, base: int = 0) -> MeshGroup:
+        """The descriptors with the pointers of a call's tensors, which
+        ``fits`` has checked, and the forward's outputs at ``base`` (the
+        address of its one output allocation)."""
+        self.words[self.index] = [t.data_ptr() for t in tensors]
+        if self.kind == "forward":
+            self.words[self.out_index] = base + self.out_bytes
+        return self.grp
+
+    def outputs(self, flat: torch.Tensor) -> list:
+        """The call's outputs as views of its one allocation ``flat``
+        (``size`` floats)."""
+        return [flat.as_strided(s, st, o) for s, st, o in self.views]
+
+
+def _noise_tensors(nz) -> tuple:
+    """A matrix's noise tensors in a fixed order (one None without
+    noise)."""
+    return (None,) if nz is None else (nz["u"]["gamma"], nz["u"]["bias"],
+                                       nz["v"]["gamma"], nz["v"]["bias"])
+
+
+def group_template(kind: str, matrices, params, noises, noise_model, quant,
+                   tensors: list, dW=None) -> GroupTemplate:
+    """The template of a grouped call (``GroupTemplate``), kept for
+    (kind, matrices and their layouts, noise tensors, noise model, quant,
+    stack shape, device), that ``tensors`` fit (``GroupTemplate.fits``).
+    Templates live on the group's first matrix (at most
+    ``TEMPLATES_KEPT``, the oldest dropped first), keyed by the
+    identities of the objects they keep, so a key never outlives its
+    objects.  A call repacks — a new template through ``pack_group``,
+    which raises on whatever the kernel cannot take — when the key is new
+    or a tensor does not fit: a new matrix, layout or noise tensor,
+    another stack size, device, noise setting or diag shape.  Param
+    tensors swapped for others of the same shape need no repack: a call
+    writes its pointers (``GroupTemplate.bind``)."""
+    noisy = noise_model is not None and noise_model.enabled
+    sigma = params[0]["sigma"]
+    key = [kind, sigma.shape, sigma.device,
+           noise_model.crosstalk if noisy else None,
+           quant.phase_bits if quant is not None and quant.phases else None,
+           len(noises)]
+    key += [id(o) for pm in matrices
+            for o in (pm, pm.layout_u, pm.layout_v)]
+    if noisy:
+        key += [None if nz is None else id(t) for nz in noises
+                for t in _noise_tensors(nz)]
+    key = tuple(key)
+    cache = matrices[0].__dict__.setdefault("_group_templates", {})
+    tpl = cache.get(key)
+    if tpl is not None and tpl.fits(tensors):
+        return tpl
+    tpl = GroupTemplate(kind, matrices, params, noises, noise_model, quant,
+                        dW)
+    if not tpl.fits(tensors):
+        raise ValueError("the grouped call's tensors do not match its "
+                         "matrices and params")
+    cache.pop(key, None)
+    while len(cache) >= TEMPLATES_KEPT:
+        cache.pop(next(iter(cache)))
+    cache[key] = tpl
+    return tpl
+
+
 @functools.cache
 def _library():
     lib = _build.load_library("mesh_apply")
@@ -731,6 +978,10 @@ def _library():
     lib.mesh_densify_grad_launch.argtypes = [ctypes.POINTER(MeshGroup),
                                              ctypes.c_void_p, ctypes.c_void_p]
     lib.mesh_densify_grad_launch.restype = ctypes.c_int
+    lib.mesh_densify_grad_warp_launch.argtypes = [
+        ctypes.POINTER(MeshGroup), ctypes.POINTER(_GroupOffsets),
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.mesh_densify_grad_warp_launch.restype = ctypes.c_int
     lib.mesh_apply_grad_launch.argtypes = [ctypes.c_void_p] * 10 + [
         ctypes.c_int] * 7 + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
     lib.mesh_apply_grad_launch.restype = ctypes.c_int
@@ -943,19 +1194,20 @@ def mesh_densify_stacked(matrices, params, noises, noise_model=None,
     (or None), shared across the stack, applied when ``noise_model`` is
     enabled; ``quant`` with ``phase_bits`` snaps the commanded phases to
     the DAC grid first.  Returns ``(S, out_dim, in_dim)`` per matrix, each
-    contiguous, views of one allocation."""
+    contiguous, views of one allocation.  The descriptors come from the
+    group's template (``group_template``): a call writes only its
+    tensors' pointers."""
     if not matrices:
         raise ValueError("mesh_densify_stacked: no matrices")
     device = params[0]["sigma"].device
     if device.type != "cuda":
         raise ValueError(f"mesh_densify_stacked runs on CUDA tensors, got "
                          f"{device}")
-    S = params[0]["sigma"].shape[0]
-    sizes = [S * pm.out_dim * pm.in_dim for pm in matrices]
-    flat = torch.empty(sum(sizes), dtype=torch.float32, device=device)
-    out = [w.view(S, pm.out_dim, pm.in_dim)
-           for w, pm in zip(flat.split(sizes), matrices)]
-    grp = pack_group(matrices, params, noises, noise_model, quant, out)
+    tensors = [p[k] for p in params for k in PARAM_KEYS]
+    tpl = group_template("forward", matrices, params, noises, noise_model,
+                         quant, tensors)
+    flat = torch.empty(tpl.size, dtype=torch.float32, device=device)
+    grp = tpl.bind(tensors, flat.data_ptr())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = _library().mesh_densify_launch(ctypes.byref(grp), stream)
@@ -963,7 +1215,7 @@ def mesh_densify_stacked(matrices, params, noises, noise_model=None,
         raise RuntimeError(f"mesh_densify_stacked launch failed: CUDA error "
                            f"{err}")
     mesh_densify_stacked.launches += 1
-    return out
+    return tpl.outputs(flat)
 
 
 mesh_densify_stacked.launches = 0
@@ -971,60 +1223,53 @@ mesh_densify_stacked.launches = 0
 
 # ---------------------------------------------------------------- backwards
 
-PARAM_KEYS = ("phases_u", "phases_v", "sigma", "diag_u", "diag_v")
-
-
-def _densify_grad_splits(matrices, S: int) -> list:
-    """Sizes of each matrix's gradients in the grouped backward's flat
-    output, in the kernel's order: dphases_u, dphases_v, dsigma."""
-    return [S * n for pm in matrices
-            for n in (pm.layout_u.levels * pm.layout_u.slots,
-                      pm.layout_v.levels * pm.layout_v.slots, pm.k)]
-
-
-def mesh_densify_grad(matrices, params, noises, noise_model,
-                      dW: list) -> list:
+def mesh_densify_grad(matrices, params, noises, noise_model, dW: list,
+                      design: str | None = None) -> list:
     """The grouped backward: the gradients of ``mesh_densify_stacked(
     matrices, params, noises, noise_model)`` (no DAC snap) against the
     cores' gradients ``dW[g]`` ``(S, out_dim, in_dim)``, contiguous, in
-    one launch.  Returns ``[(dphases_u, dphases_v, dsigma)]`` per matrix,
-    of the commanded phases (the noise model's transpose applied in the
-    launch), views of one allocation.  Raises for a matrix no block holds
-    (ROADMAP item 6c-3)."""
+    one launch through the design ``densify_grad_design`` picks for the
+    group (``design`` forces one of ``GRAD_GROUP_DESIGNS``; ``"warp"``
+    raises for a group it does not hold).  Returns ``[(dphases_u,
+    dphases_v, dsigma)]`` per matrix, of the commanded phases (the noise
+    model's transpose applied in the launch), views of one allocation.
+    The descriptors come from the group's template (``group_template``).
+    Raises for a matrix no block holds (ROADMAP item 6c-3)."""
     if not matrices:
         raise ValueError("mesh_densify_grad: no matrices")
     device = params[0]["sigma"].device
     if device.type != "cuda":
         raise ValueError(f"mesh_densify_grad runs on CUDA tensors, got "
                          f"{device}")
-    saves = [densify_grad_saves(pm) for pm in matrices]
-    for pm, save in zip(matrices, saves):
-        need = densify_grad_smem_bytes(pm, save)
-        if need > SMEM_MAX_BYTES:
-            raise ValueError(
-                f"a {pm.out_dim} x {pm.in_dim} photonic matrix's backward "
-                f"needs {need} B of shared memory per block; the card has "
-                f"{SMEM_MAX_BYTES} B (ROADMAP queue A, item 6c-3)")
-    S = params[0]["sigma"].shape[0]
-    sizes = _densify_grad_splits(matrices, S)
-    flat = torch.empty(sum(sizes), dtype=torch.float32, device=device)
-    grp = pack_group(matrices, params, noises, noise_model, None, dW)
-    for g, save in enumerate(saves):
-        grp.m[g].save_states = int(save)
+    tensors = [p[k] for p in params for k in PARAM_KEYS] + list(dW)
+    tpl = group_template("backward", matrices, params, noises, noise_model,
+                         None, tensors, dW)
+    design = tpl.design if design is None else design
+    if design not in GRAD_GROUP_DESIGNS or (design == "warp" and
+                                            tpl.design != "warp"):
+        raise ValueError(f"the grouped backward has no {design!r} design "
+                         f"for this group (its design: {tpl.design!r})")
+    flat = torch.empty(tpl.size, dtype=torch.float32, device=device)
+    grp = tpl.bind(tensors)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _library().mesh_densify_grad_launch(
-            ctypes.byref(grp), flat.data_ptr(), stream)
+        if design == "warp":
+            err = _library().mesh_densify_grad_warp_launch(
+                ctypes.byref(grp), ctypes.byref(tpl.offsets),
+                flat.data_ptr(), tpl.warps, stream)
+        else:
+            err = _library().mesh_densify_grad_launch(
+                ctypes.byref(grp), flat.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"mesh_densify_grad launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"mesh_densify_grad ({design}) launch failed: "
+                           f"CUDA error {err}")
     mesh_densify_grad.launches += 1
-    parts = iter(flat.split(sizes))
-    return [(next(parts).view(S, *pm.layout_u.phase_shape()),
-             next(parts).view(S, *pm.layout_v.phase_shape()),
-             next(parts).view(S, pm.k)) for pm in matrices]
+    mesh_densify_grad.design_launches[design] += 1
+    out = tpl.outputs(flat)
+    return [tuple(out[i:i + 3]) for i in range(0, len(out), 3)]
 
 
+mesh_densify_grad.design_launches = dict.fromkeys(GRAD_GROUP_DESIGNS, 0)
 mesh_densify_grad.launches = 0
 
 

@@ -41,7 +41,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import tt_contract as ttc
 from repro_torch.launch import train
 from repro_torch.optim import get_optimizer
-from test_torch_pinn import _np_tree, _points, _port_model
+from test_torch_pinn import _np_tree, _points, _port_model, share_cores
 
 LOSS_BATCH = 96
 

@@ -1274,28 +1274,43 @@ def _grad_close(got, plain):
 @pytest.mark.parametrize("noisy", [False, True])
 @pytest.mark.parametrize("tt_L,S", [(4, 1), (4, 11), (2, 3)])
 def test_densify_grad_kernel_matches_plain(cuda, tt_L, S, noisy):
-    """The grouped backward on the paper's 8 core matrices (their states
-    kept) and on tt_L 2's 32 x 64 and 64 x 32 ones (their states
-    recovered) against ``ref.mesh_densify_grad_ref`` making the same
-    choice, one launch, and two calls bit for bit."""
+    """The grouped backward on the paper's 8 core matrices (the warp
+    design, every state kept) and on tt_L 2's 32 x 64 and 64 x 32 ones
+    (the block design, their states recovered) against
+    ``ref.mesh_densify_grad_ref`` making the same choice: one launch a
+    call through the design ``densify_grad_design`` picks, and two calls
+    bit for bit.  The paper's matrices through the block design forced
+    too."""
     pms, ps, nzs, model, _ = chip_smoke.densify_inputs(1024, tt_L, S, noisy,
                                                        None, cuda, 40 + S)
     gen = torch.Generator().manual_seed(S)
     dW = [torch.randn((S, pm.out_dim, pm.in_dim), generator=gen).to(cuda)
           for pm in pms]
-    before = mesh.mesh_densify_grad.launches
-    got = mesh.mesh_densify_grad(pms, ps, nzs, model, dW)
-    assert mesh.mesh_densify_grad.launches == before + 1
-    want = ref.mesh_densify_grad_ref(pms, ps, nzs, model, dW,
-                                     [mesh.densify_grad_saves(pm)
-                                      for pm in pms])
-    for trio, wtrio in zip(got, want):
-        for a, b in zip(trio, wtrio):
-            assert a.shape == b.shape
-            _grad_close(a, b)
-    again = mesh.mesh_densify_grad(pms, ps, nzs, model, dW)
-    assert all(torch.equal(a, b) for t, u in zip(got, again)
-               for a, b in zip(t, u))
+    design = mesh.densify_grad_design(pms)
+    assert design == ("warp" if tt_L == 4 else "block")
+    forced = [None] + (["block"] if design == "warp" else [])
+    for force in forced:
+        used = force or design
+        before = mesh.mesh_densify_grad.launches
+        by_design = dict(mesh.mesh_densify_grad.design_launches)
+        got = mesh.mesh_densify_grad(pms, ps, nzs, model, dW, design=force)
+        assert mesh.mesh_densify_grad.launches == before + 1
+        by_design[used] += 1
+        assert mesh.mesh_densify_grad.design_launches == by_design
+        want = ref.mesh_densify_grad_ref(
+            pms, ps, nzs, model, dW, True if used == "warp" else
+            [mesh.densify_grad_saves(pm) for pm in pms])
+        for trio, wtrio in zip(got, want):
+            for a, b in zip(trio, wtrio):
+                assert a.shape == b.shape
+                _grad_close(a, b)
+        again = mesh.mesh_densify_grad(pms, ps, nzs, model, dW,
+                                       design=force)
+        assert all(torch.equal(a, b) for t, u in zip(got, again)
+                   for a, b in zip(t, u))
+    if design == "block":
+        with pytest.raises(ValueError, match="no 'warp' design"):
+            mesh.mesh_densify_grad(pms, ps, nzs, model, dW, design="warp")
 
 
 # label -> (ports, S, rows, shared x, transpose): the resident backward at

@@ -31,6 +31,7 @@ from repro_torch.core import zoo
 from repro_torch.device import counter_generator
 from repro_torch.launch import serve
 from repro_torch.models import api, layers, transformer
+from test_torch_pinn import share_cores  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 DENSE = [a for a in configs.ARCH_NAMES

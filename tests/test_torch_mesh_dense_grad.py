@@ -28,6 +28,7 @@ from repro_torch.core import photonic as ph
 from repro_torch.kernels import mesh_apply as mesh
 from repro_torch.kernels import ops, ref
 from test_torch_mesh_grad import _close, _jit_vjp
+from test_torch_pinn import share_cores  # noqa: F401 (autouse)
 
 
 def _inputs(ports, S, B, shared, seed):

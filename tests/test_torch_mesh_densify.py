@@ -28,6 +28,7 @@ from repro_torch.device import counter_generator
 from repro_torch.kernels import mesh_apply as tmesh
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import quant as tquant
+from test_torch_pinn import share_cores  # noqa: F401 (autouse)
 
 RTOL = ATOL = 1e-6
 

@@ -15,16 +15,20 @@ cos are XLA's); the recovered states within ``4e-6·max|x|`` of the
 forward's at 137 levels (measured 1.2e-6).
 """
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from repro.core import photonic as jph
 from repro_torch.core import photonic as ph
 from repro_torch.kernels import mesh_apply as mesh
 from repro_torch.kernels import ops, ref
+from test_torch_pinn import share_cores  # noqa: F401 (autouse)
 
 
 def _close(got, want):
@@ -176,6 +180,237 @@ def test_mesh_densify_grad_ref_matches_autograd_and_jax(noisy, saved):
                 _jax_densify(pm, p, jnz, jmodel), p["phases_u"],
                 p["phases_v"], p["sigma"], cotangent=dw)):
             _close(a, b)
+
+
+def _warp_tree(t, ports):
+    """The warp design's sum over the rows of ``t`` ``(S, rows, n)``: row
+    r of warp q is row q·R + r, R = 32 // ports rows a warp; a warp's rows
+    combine by its shuffle tree (rows r and r + d, d = 1, 2, 4, ...), then
+    the warps' sums add in warp order (``warp_sum``)."""
+    S, rows, n = t.shape
+    R = 32 // ports
+    warps = -(-rows // R)
+    t = torch.nn.functional.pad(t, (0, 0, 0, warps * R - rows)).reshape(
+        S, warps, R, n).clone()
+    d = 1
+    while d < R:
+        for r in range(0, R - d, 2 * d):
+            t[:, :, r] = t[:, :, r] + t[:, :, r + d]
+        d *= 2
+    acc = t[:, 0, 0]
+    for q in range(1, warps):
+        acc = acc + t[:, q, 0]
+    return acc
+
+
+def _warp_walk(layout, phases, x, transpose, g=None, states=None):
+    """One mesh of the warp design, rows ``(S, rows, P)`` in lanes: the
+    forward levels (each level's input appended to ``states``), or with
+    ``g`` the reverse walk from the kept ``states``: a slot's term over a
+    row formed at its first wire (sign −1) from both wires' x and g, the
+    rows summed by ``_warp_tree``.  Returns the output, or (g at the
+    input, dphases)."""
+    P, L, K = layout.ports, layout.levels, layout.slots
+    plan = ph.mesh_plan_tensors(layout, phases.device)
+    perm, sign, slot = plan["perm"], plan["sign"], plan["slot"]
+    ph_w = torch.gather(phases, -1, slot.expand(*phases.shape[:-1], P))
+    C = torch.where(sign != 0.0, torch.cos(ph_w), torch.ones_like(ph_w))
+    Sn = sign * torch.sin(ph_w)                      # stored level order
+    if g is None:
+        for c in range(L):
+            cl = L - 1 - c if transpose else c
+            s = -Sn[:, cl, None] if transpose else Sn[:, cl, None]
+            states.append(x)
+            x = C[:, cl, None] * x + s * x[..., perm[cl]]
+        return x
+    dph = torch.zeros((phases.shape[0], L, K))
+    for c in reversed(range(L)):
+        cl = L - 1 - c if transpose else c
+        x = states[c]
+        xp, gp = x[..., perm[cl]], g[..., perm[cl]]
+        cc, sc = C[:, cl, None], Sn[:, cl, None]
+        cb = cc if transpose else -cc
+        first = torch.nonzero(sign[cl] < 0.0)[:, 0]
+        term = (g * (sc * x + cb * xp) + gp * (sc * xp - cb * x))[..., first]
+        dph[:, cl, slot[cl, first]] = _warp_tree(term, P)
+        g = cc * g - (-sc if transpose else sc) * gp
+    return g, dph
+
+
+def _warp_grad_model(pms, params, noises, model, dW):
+    """The grouped backward's warp design (``csrc/mesh_apply.cu::
+    mesh_densify_grad_warp_kernel``) in its summation order on the host:
+    the walks of ``ref.mesh_densify_grad_ref`` with every state kept, each
+    slot's phase gradient summed over a warp's rows by its shuffle tree
+    and over the warps in order, dσ over the rows in order.  Returns
+    ``[(dphases_u, dphases_v, dsigma)]`` per matrix."""
+    out = []
+    for pm, p, nz, dw in zip(pms, params, noises, dW):
+        noisy = model.enabled and nz is not None
+        pu, pv = p["phases_u"], p["phases_v"]
+        if noisy:
+            pu = model.effective_phases(pu, nz["u"])
+            pv = model.effective_phases(pv, nz["v"])
+        S, k, n = pu.shape[0], pm.k, pm.in_dim
+        dv = p["diag_v"][..., None, :k] if p["diag_v"].ndim == 2 \
+            else p["diag_v"][:k]
+        du = p["diag_u"][..., None, :] if p["diag_u"].ndim == 2 \
+            else p["diag_u"]
+        sig = p["sigma"][:, None, :]
+        sv, su = [], []
+        a = _warp_walk(pm.layout_v, pv, torch.eye(n).expand(S, -1, -1),
+                       True, states=sv)
+        z = torch.nn.functional.pad(a[..., :k] * dv * sig,
+                                    (0, pm.out_dim - k)) * du
+        _warp_walk(pm.layout_u, pu, z, False, states=su)
+        g, dph_u = _warp_walk(pm.layout_u, pu, None, False,
+                              dw.transpose(-1, -2), su)
+        gz = g[..., :k] * du[..., :k]
+        dsig = torch.zeros((S, k))
+        for j in range(n):
+            dsig = dsig + (a[:, j, :k] * dv[..., 0, :] if dv.ndim == 3
+                           else a[:, j, :k] * dv) * gz[:, j]
+        da = torch.nn.functional.pad(gz * sig * dv, (0, n - k))
+        _, dph_v = _warp_walk(pm.layout_v, pv, None, True, da, sv)
+        if noisy:
+            dph_u = ref._noise_transpose(model, nz["u"], dph_u)
+            dph_v = ref._noise_transpose(model, nz["v"], dph_v)
+        out.append((dph_u, dph_v, dsig))
+    return out
+
+
+@pytest.mark.parametrize("noisy", [False, True])
+def test_warp_design_summation_order_matches_plain_and_jax(noisy):
+    """The grouped backward's warp design, in its own summation order
+    (``_warp_grad_model``: lanes of a warp's rows, its shuffle tree, the
+    warps in order), against ``ref.mesh_densify_grad_ref`` with the
+    states kept and ``jax.vjp`` of the JAX package's densification, noise
+    on and off, on the paper's two core shapes and an 8 x 12 (12-port
+    rows in 6 warps of 2, 8-port ones in warps of 4)."""
+    pms, ps, nzs, dws = _densify_inputs(noisy, seed=5 + int(noisy))
+    assert mesh.densify_grad_design(pms) == "warp"
+    model = ph.NoiseModel(enabled=noisy)
+    tp = [{k: torch.tensor(v) for k, v in p.items()} for p in ps]
+    tnz = [None if nz is None else {s: {k: torch.tensor(v)
+                                        for k, v in d.items()}
+                                    for s, d in nz.items()} for nz in nzs]
+    tdw = [torch.tensor(d) for d in dws]
+    got = _warp_grad_model(pms, tp, tnz, model, tdw)
+    want = ref.mesh_densify_grad_ref(pms, tp, tnz, model, tdw, True)
+    jmodel = jph.NoiseModel(enabled=noisy)
+    for g, (pm, p, nz, dw) in enumerate(zip(pms, ps, nzs, dws)):
+        jnz = None if nz is None else jax.tree.map(jnp.asarray, nz)
+        jax_grads = _jit_vjp(_jax_densify(pm, p, jnz, jmodel),
+                             p["phases_u"], p["phases_v"], p["sigma"],
+                             cotangent=dw)
+        for a, b, c in zip(got[g], want[g], jax_grads):
+            assert a.shape == b.shape
+            _close(a, b)
+            _close(a, c)
+
+
+def _bytes(grp) -> bytes:
+    return ctypes.string_at(ctypes.addressof(grp), ctypes.sizeof(grp))
+
+
+def _fresh(kind, pms, ps, nzs, model, out):
+    """``pack_group``'s descriptors, with the backward's saved-state flags
+    set as its template sets them."""
+    grp = mesh.pack_group(pms, ps, nzs, model, None, out)
+    if kind == "backward":
+        for g, pm in enumerate(pms):
+            grp.m[g].save_states = int(mesh.densify_grad_saves(pm))
+    return grp
+
+
+def _bound(kind, pms, ps, nzs, model, dW):
+    """(template, descriptors, outputs) of one call of ``kind``."""
+    tensors = [p[k] for p in ps for k in mesh.PARAM_KEYS]
+    if kind == "backward":
+        tensors += dW
+    tpl = mesh.group_template(kind, pms, ps, nzs, model, None, tensors, dW)
+    flat = torch.empty(tpl.size)
+    grp = tpl.bind(tensors, flat.data_ptr())
+    return tpl, grp, (tpl.outputs(flat) if kind == "forward" else dW)
+
+
+@pytest.mark.parametrize("kind", ["forward", "backward"])
+def test_group_template_packs_what_pack_group_packs(kind):
+    """The template of the paper's 8 core matrices, bound to a call's
+    tensors, holds the same bytes as a fresh ``pack_group`` of them; with
+    every param tensor (and dW) swapped for a new one the same template
+    serves the next call, whose bytes are a fresh pack of the new tensors
+    (no stale pointer); new noise tensors or another stack size make a new
+    template; at most ``TEMPLATES_KEPT`` stay on the first matrix."""
+    cpu = torch.device("cpu")
+    pms, ps, nzs, model, _ = chip_smoke.densify_inputs(1024, 4, 1, True,
+                                                       None, cpu, 7)
+    dW = [torch.randn((1, pm.out_dim, pm.in_dim)) for pm in pms]
+    tpl, grp, out = _bound(kind, pms, ps, nzs, model, dW)
+    first = _bytes(grp)
+    assert first == _bytes(_fresh(kind, pms, ps, nzs, model, out))
+    if kind == "backward":
+        assert (tpl.design, tpl.warps) == ("warp", 8)
+        # each matrix's gradients start after the sizes of those before
+        sizes = [pm.layout_u.levels * pm.layout_u.slots
+                 + pm.layout_v.levels * pm.layout_v.slots + pm.k
+                 for pm in pms]
+        assert list(tpl.offsets.grads[:8]) == np.cumsum([0] + sizes[:-1]
+                                                        ).tolist()
+    ps2 = [{k: v.clone() for k, v in p.items()} for p in ps]
+    dW2 = [d.clone() for d in dW]
+    tpl2, grp2, out2 = _bound(kind, pms, ps2, nzs, model, dW2)
+    assert tpl2 is tpl and _bytes(grp2) != first
+    assert _bytes(grp2) == _bytes(_fresh(kind, pms, ps2, nzs, model, out2))
+    nzs2 = [{s: {k: t.clone() for k, t in d.items()} for s, d in nz.items()}
+            for nz in nzs]
+    tpl3, grp3, out3 = _bound(kind, pms, ps2, nzs2, model, dW2)
+    assert tpl3 is not tpl
+    assert _bytes(grp3) == _bytes(_fresh(kind, pms, ps2, nzs2, model, out3))
+    ps3 = [{k: torch.cat([v, v]) for k, v in p.items()} for p in ps2]
+    dW3 = [torch.cat([d, d]) for d in dW2]
+    tpl4, grp4, out4 = _bound(kind, pms, ps3, nzs2, model, dW3)
+    assert tpl4 is not tpl3 and tpl4.grp.stack == 2
+    assert _bytes(grp4) == _bytes(_fresh(kind, pms, ps3, nzs2, model, out4))
+    for _ in range(mesh.TEMPLATES_KEPT + 2):
+        fresh_nz = [{s: {k: t.clone() for k, t in d.items()}
+                     for s, d in nz.items()} for nz in nzs]
+        _bound(kind, pms, ps, fresh_nz, model, dW)
+    assert len(pms[0].__dict__["_group_templates"]) == mesh.TEMPLATES_KEPT
+
+
+def test_group_template_refuses_what_does_not_fit():
+    """A call whose tensor no longer fits its template — another shape, a
+    float64, a strided one — repacks, and the pack raises naming the
+    tensor; the call after it with the right tensors binds as before.  The
+    design the backward picks: warp for the paper's matrices, block for
+    tt_L 2's 32 x 64 and 64 x 32."""
+    cpu = torch.device("cpu")
+    pms, ps, nzs, model, _ = chip_smoke.densify_inputs(1024, 4, 1, True,
+                                                       None, cpu, 8)
+    dW = [torch.randn((1, pm.out_dim, pm.in_dim)) for pm in pms]
+    tpl, _, _ = _bound("backward", pms, ps, nzs, model, dW)
+    bad = [dict(ps[0], phases_v=ps[0]["phases_v"][:, :-1].contiguous()),
+           dict(ps[0], sigma=ps[0]["sigma"].double()),
+           dict(ps[0], phases_u=ps[0]["phases_u"].transpose(1, 2)
+                .contiguous().transpose(1, 2))]
+    for b, match in zip(bad, ("matrix 0 v phases", "matrix 0 sigma",
+                              "contiguous")):
+        assert not tpl.fits([b[k] for k in mesh.PARAM_KEYS]
+                            + [p[k] for p in ps[1:] for k in mesh.PARAM_KEYS]
+                            + dW)
+        with pytest.raises(ValueError, match=match):
+            _bound("backward", pms, [b, *ps[1:]], nzs, model, dW)
+    with pytest.raises(ValueError, match="out"):
+        _bound("backward", pms, ps, nzs, model, [dW[0].double(), *dW[1:]])
+    assert _bound("backward", pms, ps, nzs, model, dW)[0] is not None
+    assert mesh.densify_grad_design(pms) == "warp"
+    assert mesh.densify_grad_warps(pms) == 8
+    wide, *_ = chip_smoke.densify_inputs(1024, 2, 1, False, None, cpu, 9)
+    assert {(pm.out_dim, pm.in_dim) for pm in wide} == {(32, 64), (64, 32)}
+    assert mesh.densify_grad_design(wide) == "block"
+    with pytest.raises(ValueError, match="CUDA"):
+        mesh.mesh_densify_grad(pms, ps, nzs, model, dW)
 
 
 def test_recovered_states_at_137_levels():

@@ -48,7 +48,8 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels.quant import QuantConfig as TQuant
 from repro_torch.launch import train
 from repro_torch.serving import PdeServingEngine, PointRequest, SolverRegistry
-from test_torch_pinn import RTOL, ATOL, _np_tree, _points, _port_model
+from test_torch_pinn import RTOL, ATOL, _np_tree, _points, _port_model, \
+    share_cores
 
 WIDE_RTOL = 1e-5
 LOSS_BATCH = 96

@@ -46,7 +46,7 @@ from repro_torch import pde as tpde
 from repro_torch.core import pinn as tpinn
 from repro_torch.core import stein as tstein
 from repro_torch.launch import train
-from test_torch_pinn import _np_tree, _port_model
+from test_torch_pinn import _np_tree, _port_model, share_cores
 
 PDES = ("hjb-10d", "hjb-20d", "heat-10d", "heat-20d", "black-scholes-100d",
         "helmholtz-2d")

@@ -35,6 +35,29 @@ def test_rectangular_layout_and_gather_plan_equal(ports):
         np.testing.assert_array_equal(a, b)
 
 
+def test_rectangular_layout_is_schedule_ops_of_its_columns():
+    """The closed-form rectangular layout is the one ``schedule_ops`` makes
+    of its columns' pairs (a, a+1), a ≡ c mod 2, in order — field for
+    field, dtypes included — at every width up to 64 and at 137 and 1024
+    ports (against the JAX package's too), and its gather plan is the
+    JAX package's."""
+    for ports in [*range(1, 65), 137, 1024]:
+        ops = [(a, a + 1) for c in range(ports)
+               for a in range(c % 2, ports - 1, 2)]
+        want = tph.schedule_ops(ports, ops) if ports <= 137 else \
+            jph.rectangular_layout(ports)
+        got = tph.rectangular_layout(ports)
+        assert got.ports == want.ports
+        for field in ("idx_a", "idx_b", "mask"):
+            a, b = getattr(got, field), np.asarray(getattr(want, field))
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+    for ports in (137, 1024):
+        jl = jph.rectangular_layout(ports)
+        for a, b in zip(tph.mesh_gather_plan(tph.rectangular_layout(ports)),
+                        jph.mesh_gather_plan(jl)):
+            np.testing.assert_array_equal(a, b)
+
+
 def test_schedule_ops_equal_on_an_irregular_rotation_list():
     ops = [(0, 1), (2, 3), (1, 2), (0, 1), (3, 4), (2, 3), (1, 2)]
     jl, tl = jph.schedule_ops(5, ops), tph.schedule_ops(5, ops)

@@ -8,6 +8,7 @@ reassociate the f32 sums of 4 chain steps and take sin from two libraries.
 """
 
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +24,20 @@ from repro_torch import pde as tpde
 from repro_torch.core import pinn as tpinn
 
 RTOL = ATOL = 1e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def share_cores():
+    """torch's CPU threads cut to this process's share of the cores while
+    a module's tests run (all of them outside pytest-xdist): six workers
+    each at torch's default of a thread a core wait on each other more
+    than they compute.  The heavy port modules import it too."""
+    threads = torch.get_num_threads()
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // workers))
+    yield
+    torch.set_num_threads(threads)
+
 
 PORTED_PDES = ("heat-10d", "heat-20d", "hjb-10d", "hjb-20d")
 

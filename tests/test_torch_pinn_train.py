@@ -27,7 +27,7 @@ from repro_torch.core import pinn as tpinn
 from repro_torch.core import stein as tstein
 from repro_torch.core import zoo as tzoo
 from test_torch_pinn import RTOL, ATOL, _jax_solver, _np_tree, _points, \
-    _port_model
+    _port_model, share_cores
 
 # label -> (mode, noise, hidden, tt_L, P, B): reduced widths at P 4, B 8,
 # and the paper's spec at P 3, B 4

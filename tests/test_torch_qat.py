@@ -33,6 +33,7 @@ from repro_torch.kernels import quant as tq
 from repro_torch.kernels import ref as tref
 from repro_torch.launch import train
 from test_torch_quant import RTOL, CPU, _np_tree, _points, _port_model
+from test_torch_pinn import share_cores  # noqa: F401 (autouse)
 
 def _jax_qat(mode, qkw, noise, hidden=64, tt_L=3, fused=False, seed=0):
     cfg = jpinn.PINNConfig(hidden=hidden, mode=mode, tt_rank=2, tt_L=tt_L,

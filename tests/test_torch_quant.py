@@ -43,6 +43,7 @@ from repro_torch.kernels import quant as tq
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import tt_contract as tttc
 from repro_torch.serving import PdeServingEngine, PointRequest, SolverRegistry
+from test_torch_pinn import share_cores  # noqa: F401 (autouse)
 
 RTOL = ATOL = 1e-5
 DTYPES = ("int8", "fp8_e4m3")

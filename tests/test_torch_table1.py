@@ -39,6 +39,7 @@ from benchmarks.table1_bar_reference import loss_floor, row_arrays
 from repro.core import pinn as jpinn
 from repro_torch.core import pinn as tpinn
 from repro_torch.core import zoo
+from test_torch_pinn import share_cores  # noqa: F401 (autouse)
 
 SMALL = dict(hidden=16, tt_L=2, epochs=20)
 

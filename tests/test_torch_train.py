@@ -30,6 +30,7 @@ from repro_torch.core import zoo
 from repro_torch.data import pde_collocation_iterator, pde_term_batch_iterator
 from repro_torch.launch import train
 from repro_torch.serving import PdeServingEngine, PointRequest, SolverRegistry
+from test_torch_pinn import share_cores  # noqa: F401 (autouse)
 
 REDUCED = ["--arch", "tensor-pinn", "--pde", "hjb-20d", "--reduced",
            "--device", "cpu", "--log-every", "100"]

@@ -32,6 +32,7 @@ from repro_torch import interop
 from repro_torch.core import pinn as tpinn
 from repro_torch.core import zoo as tzoo
 from repro_torch.device import counter_generator
+from test_torch_pinn import share_cores  # noqa: F401 (autouse)
 
 
 def _np(tree):
