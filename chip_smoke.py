@@ -1335,14 +1335,19 @@ DENSIFY_GRAD_CASES = {"s1-noise": (1024, 4, 1, True),
 DENSIFY_GRAD_TIMED = ("s1-noise", "s11-noise")
 # label -> (ports, S, rows, shared x, transpose): the resident backward at
 # onn's BP launches at hidden 64 (4300 stencil rows; layer 0's 21-port V
-# mesh on the 100 rows) and a 16-port mesh, "p64-4300" (the hidden
-# layer's U mesh) its main one; the warp-rows backward handed y and dy
+# mesh on the 100 rows) and a 16-port mesh, and at Table 1's off-chip ONN
+# row at hidden 1024 ("v21-4300-tr", its main one: layer 0's 21-port V
+# mesh, transposed, on the stencil's 4300 rows of a shared x, S = 1, as
+# PhotonicMatrix.apply lays it out); the warp-rows backward handed y and dy
 # at onn's BP shapes at hidden 1024 (the hidden layer's V^T and U meshes
 # on 4300 stencil rows, whose forward takes route B and whose backward on
 # the main path is the dense one, MESH_GRAD_DENSE; layer 0's U mesh on
 # the 100 rows and on the 21 identity columns, route A), a Reck layout of
 # 256 ports (decompose_orthogonal: 509 levels; ports is "reck256") and
-# 160 ports at S = 3, B = 777
+# 160 ports at S = 3, B = 777; and an 80-port mesh on 4300 rows, which the
+# dispatch sends to the resident backward's block design (every other
+# resident case takes the warp design and is run through the block design
+# forced as well)
 MESH_GRAD_CASES = {
     "p16-4300": (16, 1, 4300, False, False),
     "p16-4300-tr": (16, 1, 4300, False, True),
@@ -1350,14 +1355,16 @@ MESH_GRAD_CASES = {
     "p64-4300-tr": (64, 1, 4300, False, True),
     "v21-100-tr": (21, 1, 100, True, True),
     "v21-100": (21, 1, 100, True, False),
+    "v21-4300-tr": (21, 1, 4300, True, True),
     "p1024-4300": (1024, 1, 4300, False, False),
     "p1024-4300-tr": (1024, 1, 4300, False, True),
     "u1024-100": (1024, 1, 100, True, False),
     "u1024-21": (1024, 1, 21, True, False),
     "reck256-300-tr": ("reck256", 2, 300, False, True),
     "p160-777-s3": (160, 3, 777, False, False),
+    "p80-4300": (80, 1, 4300, False, False),
 }
-MESH_GRAD_TIMED = ("p64-4300", "p64-4300-tr", "v21-100-tr")
+MESH_GRAD_TIMED = ("p64-4300", "p64-4300-tr", "v21-100-tr", "v21-4300-tr")
 # the warp-rows backward's cases checked and timed in a process of their
 # own at the end of the run (phase_mesh_grad_wide), not in phase_mesh_grad
 MESH_GRAD_WIDE = ("p1024-4300", "u1024-100", "u1024-21")
@@ -1387,11 +1394,41 @@ def _grad_layout(ports):
     return photonic.decompose_orthogonal(q)[0]
 
 
+def _forced_block(mesh, layout, phases, diag, y, dy, transpose, shared,
+                  pdx, pdph, label) -> dict:
+    """A warp-design case through the resident backward's block design
+    forced (``mesh._forced_resident``): one launch of it a call, dphases
+    within MESH_GRAD_BOUND · max|plain| of the plain version's, dx its
+    bits, two calls bit for bit."""
+    import torch
+    grad = mesh.mesh_apply_stacked_grad
+    with mesh._forced_resident("block"):
+        before = dict(grad.resident_launches)
+        dx, dph = grad(layout, phases, diag, y, dy, transpose)
+        by_res = {d: n - before[d] for d, n in grad.resident_launches.items()}
+        again = grad(layout, phases, diag, y, dy, transpose)
+    if by_res != {"warp": 0, "block": 1}:
+        raise AssertionError(f"mesh_apply_stacked_grad at {label}, block "
+                             f"design forced: launches {by_res}")
+    err, scale = _grad_share("mesh_apply_stacked_grad",
+                             f"{label} (block design)", dph, pdph)
+    dxs = dx.sum(0) if shared else dx
+    if not (torch.equal(dxs, pdx) and torch.equal(dx, again[0])
+            and torch.equal(dph, again[1])):
+        raise AssertionError(f"mesh_apply_stacked_grad at {label}, block "
+                             "design forced: dx not the plain version's "
+                             "bits, or two calls differ")
+    return {"max_abs_err": err, "max_err_over_bound":
+            err / (MESH_GRAD_BOUND * scale), "dx_bitwise_equal_plain": True,
+            "repeat_bitwise_equal": True, "launches": 1}
+
+
 def _mesh_grad_case(device, label: str, timed: bool) -> dict:
     """One ``MESH_GRAD_CASES`` case of ``mesh_apply_stacked_grad`` against
     ``ref.mesh_apply_grad_ref`` (one launch of its design, two calls bit
-    for bit) and, ``timed``, its times beside its bound, the plain version
-    and autograd of the plain forward."""
+    for bit; a warp-design case through the block design forced, too) and,
+    ``timed``, its times beside its bound, the plain version and autograd
+    of the plain forward."""
     import torch
     from repro_torch.core import photonic
     from repro_torch.kernels import mesh_apply as mesh
@@ -1403,6 +1440,7 @@ def _mesh_grad_case(device, label: str, timed: bool) -> dict:
     layout = _grad_layout(kind)
     ports = layout.ports
     design = mesh.grad_design(layout)
+    res = mesh.resident_grad_design(layout) if design == "resident" else None
     gen = torch.Generator().manual_seed(3500 + i)
     phases = torch.randn((S, *layout.phase_shape()), generator=gen).to(
         device)
@@ -1412,15 +1450,17 @@ def _mesh_grad_case(device, label: str, timed: bool) -> dict:
                     generator=gen).to(device)
     y = mesh.mesh_apply_stacked(layout, phases, diag, x, transpose)
     dy = torch.randn(y.shape, generator=gen).to(device)
-    before = mesh.mesh_apply_stacked_grad.launches
-    by_design = mesh.mesh_apply_stacked_grad.design_launches[design]
-    dx, dph = mesh.mesh_apply_stacked_grad(layout, phases, diag, y, dy,
-                                           transpose)
-    if not (mesh.mesh_apply_stacked_grad.launches == before + 1 and
-            mesh.mesh_apply_stacked_grad.design_launches[design]
-            == by_design + 1):
+    grad = mesh.mesh_apply_stacked_grad
+    before = (grad.launches, grad.design_launches[design],
+              dict(grad.resident_launches))
+    dx, dph = grad(layout, phases, diag, y, dy, transpose)
+    by_res = {d: n - before[2][d] for d, n in grad.resident_launches.items()}
+    if not (grad.launches == before[0] + 1 and
+            grad.design_launches[design] == before[1] + 1 and
+            by_res == {d: int(d == res) for d in by_res}):
         raise AssertionError("mesh_apply_stacked_grad: not one launch a "
-                             f"call through the {design} design")
+                             f"call through the {design} design "
+                             f"({res or 'no resident'} design: {by_res})")
     pdx, pdph = ref.mesh_apply_grad_ref(layout, phases, diag, x, y, dy,
                                         transpose)
     errs = [_grad_share("mesh_apply_stacked_grad", label,
@@ -1437,10 +1477,19 @@ def _mesh_grad_case(device, label: str, timed: bool) -> dict:
            "forward_route": (mesh.wide_route(layout, S, B)
                              if mesh.mesh_design(layout) == "wide"
                              else "resident")}
-    if design == "resident":
+    if res == "warp":
+        pairs, R, warps, cols, per, chunk, fold = \
+            mesh.resident_grad_warp_config(layout, S, B, sms)
+        row.update(resident_design=res, lanes="pairs" if pairs else "lanes",
+                   rows_per_warp=R, warps=warps, block_columns=cols,
+                   groups_per_column=per, chunk=chunk, fold=fold,
+                   kernels_per_call_by_design=1 + (cols > 1 and not fold))
+    elif res == "block":
         rows = mesh.grad_rows_per_block(layout)
-        row.update(rows_per_block=rows, block_columns=mesh.grad_columns(
-            S, -(-B // rows), sms))
+        cols = mesh.grad_columns(S, -(-B // rows), sms)
+        row.update(resident_design=res, rows_per_block=rows,
+                   block_columns=cols,
+                   kernels_per_call_by_design=1 + (cols > 1))
     else:
         W, R, warps, cols = mesh.grad_rows_config(layout, S, B, sms)
         row.update(lane_width=W, rows_per_warp=R, warps=warps,
@@ -1454,6 +1503,17 @@ def _mesh_grad_case(device, label: str, timed: bool) -> dict:
         "dx_bitwise_equal_plain": bool(torch.equal(
             dx.sum(0) if shared else dx, pdx)),
         "repeat_bitwise_equal": True})
+    if res is not None and not row["dx_bitwise_equal_plain"]:
+        raise AssertionError(f"mesh_apply_stacked_grad at {label}: the "
+                             f"{res} design's dx is not the plain version's "
+                             "bits")
+    if res == "warp":
+        row["forced_block"] = _forced_block(mesh, layout, phases, diag, y,
+                                            dy, transpose, shared, pdx, pdph,
+                                            label)
+    if res is not None:
+        row["host_ms"] = _host_ms(lambda: mesh.mesh_apply_stacked_grad(
+            layout, phases, diag, y, dy, transpose), 200)
     if timed:
         wide = design == "warp_rows"
 
@@ -1463,7 +1523,8 @@ def _mesh_grad_case(device, label: str, timed: bool) -> dict:
         row["ms"] = _time_ms(call, 20 if wide else 200)
         # the backward kernel (with the trig prologue, in warp rows) and,
         # over several block columns, the small kernel that sums their
-        # phase gradients; a fill leads
+        # phase gradients (the warp design folds a few columns in its own
+        # launch); a fill leads
         prof = _profile(call, match="mesh_", lead=lambda: fill.fill_(0.0))
         row["kernel_device_ms"] = prof["match_ms"]
         row["kernels_per_call"] = prof["match_kernels"]
@@ -2652,6 +2713,8 @@ def _run_counted(argv: list) -> tuple:
             mesh.DESIGNS, 0)
         mesh.mesh_apply_stacked_grad.design_launches = dict.fromkeys(
             mesh.GRAD_DESIGNS, 0)
+        mesh.mesh_apply_stacked_grad.resident_launches = dict.fromkeys(
+            mesh.RESIDENT_GRAD_DESIGNS, 0)
         mesh.mesh_densify_grad.design_launches = dict.fromkeys(
             mesh.GRAD_GROUP_DESIGNS, 0)
         for fn in counted.values():                       # main path starts
@@ -2911,6 +2974,7 @@ def phase_train_bp(device) -> dict:
         res, launches, wall = _run_counted(argv)
         designs = (dict(mesh.mesh_apply_stacked.design_launches),
                    dict(mesh.mesh_apply_stacked_grad.design_launches))
+        resident = dict(mesh.mesh_apply_stacked_grad.resident_launches)
         group_designs = dict(mesh.mesh_densify_grad.design_launches)
         evals = _val_evals(steps, log_every)
         chains = 3 * steps if label.startswith("t") else 0
@@ -2936,6 +3000,12 @@ def phase_train_bp(device) -> dict:
         if designs != expected:
             raise AssertionError(f"{label}: mesh launches by design "
                                  f"{designs}, expected {expected}")
+        # onn's resident backwards (its 21- and 64-port meshes) all take
+        # the warp design
+        want_res = {"warp": expected[1]["resident"], "block": 0}
+        if resident != want_res:
+            raise AssertionError(f"{label}: resident backward launches by "
+                                 f"design {resident}, expected {want_res}")
         # the paper's core matrices take the grouped backward's warp design
         want_group = dict.fromkeys(mesh.GRAD_GROUP_DESIGNS, 0)
         want_group["warp"] = want["mesh_densify_grad"]
@@ -2958,7 +3028,8 @@ def phase_train_bp(device) -> dict:
                                            problem=model.problem))
         if onn:
             row["mesh_designs"] = {"forward": designs[0],
-                                   "backward": designs[1]}
+                                   "backward": designs[1],
+                                   "resident_backward": resident}
             row["mesh_designs_per_step"] = {
                 k: {d: n for d, n in v.items() if n} for k, v in zip(
                     ("forward", "backward"),
@@ -3458,18 +3529,28 @@ def phase_table1(device) -> dict:
     and none of the other counted kernels, ms a step on CUDA events."""
     import numpy as np
     from benchmarks import torch_table1_hjb as table1
+    from repro_torch.kernels import mesh_apply as mesh
     out = {}
     for key, hidden in ([(k, 1024) for k in table1.PAPER_ROWS]
                         + [TABLE1_ONN_BP]):
         name = table1.row_name(*key)
         table1.kernel_launches(reset=True)                # main path starts
+        mesh.mesh_apply_stacked_grad.resident_launches = dict.fromkeys(
+            mesh.RESIDENT_GRAD_DESIGNS, 0)
         r = table1.run_row(*key, hidden=hidden, tt_L=4,
                            epochs=TABLE1_EPOCHS, device=device)
         launches = table1.kernel_launches()                # ends
+        resident = dict(mesh.mesh_apply_stacked_grad.resident_launches)
         want = _table1_want(r["mode"], r["on_chip"], TABLE1_EPOCHS, hidden)
         if launches != want:
             raise AssertionError(f"{name}: {launches} over {TABLE1_EPOCHS} "
                                  f"epochs; expected {want}")
+        # the off-chip ONN row's resident backward (layer 0's 21-port V
+        # mesh on the stencil's rows) takes the warp design
+        if resident != {"warp": want["grad_resident"], "block": 0}:
+            raise AssertionError(f"{name}: resident backward launches by "
+                                 f"design {resident}")
+        r["resident_backward"] = resident
         if not (np.isfinite(r["val_mse_mapped"])
                 and np.isfinite(r["val_mse_ideal"])
                 and np.isfinite(r["final_loss"])):
@@ -3976,7 +4057,7 @@ def main() -> int:
     trained_onn = run(phase_train_onn, device)
     served_onn = run(phase_serve_onn, device)
     run(phase_table2)
-    run(phase_table1, device)
+    table1 = run(phase_table1, device)
     pdes = run(phase_train_pde, device)
     mesh_grad.update(run(phase_mesh_grad_wide))
 
@@ -4243,9 +4324,11 @@ def main() -> int:
                          "densification, for scale)",
                 "cases": [r for k, r in mesh_grad.items()
                           if k.startswith("densify")]}
-    main_ag = mesh_grad["p64-4300"]
+    main_ag = mesh_grad["v21-4300-tr"]
     resident = [r for k, r in mesh_grad.items()
                 if not k.startswith("densify") and r["design"] == "resident"]
+    onn_t1 = next(r for r in table1.values() if r["mode"] == "onn"
+                  and not r["on_chip"])
     warp_rows = [r for r in mesh_grad.values()
                  if r.get("design") == "warp_rows"]
     entry_ag = {"name": "mesh_apply_grad", "route": "cuda",
@@ -4254,17 +4337,28 @@ def main() -> int:
                             "backward of B3's resident design; the TPU "
                             "kernel has none, JAX differentiates its jnp "
                             "scan)",
-                "launches": trained_bp["onn-adamw"]["launches"][
-                    "mesh_apply_stacked_grad"],
+                "launches": onn_t1["resident_backward"]["warp"],
+                "launches_train_bp": {
+                    label: trained_bp[label]["mesh_designs"][
+                        "resident_backward"]
+                    for label in ("onn-adamw", "onn-1024-adamw")},
                 "max_abs_err": max(r["max_abs_err"] for r in resident),
                 "max_err_over_bound": max(r["max_err_over_bound"]
                                           for r in resident),
                 **{k: main_ag[k] for k in grad_keys},
-                "shape": "64-port rectangular mesh (64 levels), S = 1, y and "
-                         "dy (1, 4300, 64): the hidden layer's U mesh of an "
-                         "onn BP step at hidden 64 (library: none; "
-                         "autograd_plain_ms is torch.autograd.grad through "
-                         "the plain gather form, for scale)",
+                "resident_design": main_ag["resident_design"],
+                "host_ms": main_ag["host_ms"],
+                "p64-4300": {k: mesh_grad["p64-4300"][k]
+                             for k in grad_keys + ("resident_design",
+                                                   "host_ms")},
+                "shape": "21-port rectangular mesh (21 levels), S = 1, "
+                         "transposed, y and dy (1, 4300, 21) of a shared x: "
+                         "layer 0's V mesh in Table 1's off-chip ONN row at "
+                         "hidden 1024, one launch an epoch (p64-4300: the "
+                         "hidden layer's U mesh of an onn BP step at hidden "
+                         "64) (library: none; autograd_plain_ms is "
+                         "torch.autograd.grad through the plain gather "
+                         "form, for scale)",
                 "cases": resident}
     main_rg = mesh_grad["u1024-100"]
     onn_wide = trained_bp["onn-1024-adamw"]
@@ -4356,8 +4450,11 @@ def main() -> int:
           f"of it on the host ({main_dg['kernel_device_ms']} ms alone, "
           f"bound {main_dg['bound_ms']:.6f} ms, an empty kernel "
           f"{main_dg['empty_kernel_device_ms']} ms), mesh_apply_grad "
-          f"{main_ag['ms']:.4f} ms ({main_ag['kernel_device_ms']} ms alone, "
-          f"bound {main_ag['bound_ms']:.6f} ms) on {card}", flush=True)
+          f"({main_ag['resident_design']}) {main_ag['ms']:.4f} ms "
+          f"({main_ag['kernel_device_ms']} ms alone, bound "
+          f"{main_ag['bound_ms']:.6f} ms; p64-4300 "
+          f"{mesh_grad['p64-4300']['kernel_device_ms']} ms alone) on {card}",
+          flush=True)
     print(f"[train-bp] onn AdamW at hidden 1024: "
           f"{onn_wide['bp_step_ms']:.3f} ms per BP step; the dense backward "
           f"{main_dd['ms']:.4f} ms per call ({main_dd['kernel_device_ms']} "

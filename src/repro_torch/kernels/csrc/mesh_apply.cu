@@ -44,10 +44,16 @@
 //                        barrier a level) for meshes of at most 32 ports,
 //                        "block" (an element a thread, a barrier a level)
 //                        for the rest.
-//   mesh_apply_grad_launch  the backward of mesh_apply_launch (port-only
-//                        too): dx and dphases from the saved output, grid
-//                        (row-tile columns, S), the tables resident.
-//                        Both backwards are below ("backwards").
+//   mesh_apply_grad_warp_launch, mesh_apply_grad_launch  the backward of
+//                        mesh_apply_launch (port-only too): dx and dphases
+//                        from the saved output, grid (block columns, S),
+//                        the tables resident.  Two designs: "warp" (a mesh
+//                        row in a warp's lanes, the states recovered by
+//                        shuffles, no block barrier a level) for meshes of
+//                        at most 32 ports and brick layouts of at most 64,
+//                        "block" (an element a thread, a barrier a level)
+//                        for the rest.  Both backwards are below
+//                        ("backwards").
 //   mesh_rows_grad_launch  the backward of the wide routes (port-only
 //                        too), in route A's warp-row layout: dx and
 //                        dphases from the saved output ("warp rows
@@ -398,9 +404,10 @@ mesh_densify_kernel(const __grid_constant__ MeshGroup grp) {
 //   mesh_densify_grad_warp_kernel (its warp design, below the block one)
 //     keeps each thread's input at every level in the thread's own column
 //     of shared memory: the forward's bits too.
-//   mesh_apply_grad_kernel (the resident backward) recovers them from the
-//     saved output y: a row tile's states (rows x ports x levels) outgrow
-//     shared memory at a few dozen ports.  Each recovered level adds a few
+//   mesh_apply_grad_kernel (the resident backward's block design) and
+//     mesh_apply_grad_warp_kernel (its warp design, below) recover them
+//     from the saved output y: a row tile's states (rows x ports x levels)
+//     outgrow shared memory at a few dozen ports.  Each recovered level adds a few
 //     ulps; at 137 levels (a 137-port rectangular mesh, the widest the
 //     resident design holds; random phases, 64 rows) the worst state sat
 //     1.2e-6 of max|x| from the forward's, measured on the CPU with the
@@ -409,8 +416,13 @@ mesh_densify_kernel(const __grid_constant__ MeshGroup grp) {
 // Bound: like the forwards, a launch latency at the BP path's shapes (a
 // few hundred KB moved); the grouped backward is one launch for every
 // core matrix, the resident one a launch and, when it takes more than one
-// block column, a second small kernel that sums the blocks' phase
-// gradients in a fixed order (mesh_grad_sum_kernel).
+// block column (and, in the warp design, more than the launch folds
+// itself), a second small kernel that sums the blocks' phase gradients in
+// a fixed order (mesh_grad_sum_kernel).  At onn's 64-port meshes on 4300
+// rows the warp design is bound by its issue rate: per row and level ~30
+// unfused operations and shuffles (3 + 3 for the state and the gradient
+// of each of a lane's two wires, 14 for its slot's term), against the
+// bound's 6 per element and 11 per MZI (PERF.md row 9).
 
 // Reverse walk of one mesh over `rows` rows of `ports` floats.  y / ty:
 // the levels' output and a scratch buffer (recovering mode; unused with
@@ -1077,9 +1089,464 @@ __global__ void mesh_grad_sum_kernel(const float* __restrict__ part,
                    threadIdx.x;
        i < count; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
     float acc = part[i];
-    for (int b = 1; b < blocks; ++b) acc = __fadd_rn(acc, part[b * count + i]);
+    int b = 1;
+    for (; b + 32 <= blocks; b += 32) {     // 32 loads in flight, then
+      float v[32];                          // added in order
+#pragma unroll
+      for (int u = 0; u < 32; ++u) v[u] = part[(b + u) * count + i];
+#pragma unroll
+      for (int u = 0; u < 32; ++u) acc = __fadd_rn(acc, v[u]);
+    }
+    for (; b < blocks; ++b) acc = __fadd_rn(acc, part[b * count + i]);
     out[i] = acc;
   }
+}
+
+// The resident backward's "warp" design (kernels/mesh_apply.py::
+// resident_grad_design picks it for meshes of at most 32 ports, and for
+// brick layouts of 33 to 64 ports: every rectangular mesh the repo's
+// configs build; mesh_apply_grad_kernel above stays as the "block" design
+// for the rest).  The function of mesh_apply_grad_kernel with a mesh row
+// in a warp's lanes, so that no level takes a block barrier.  Two lane
+// layouts:
+//   lanes (P <= 32, any layout): one wire a lane, R = 32 / P rows a warp
+//     (warp_lane: lane r*P + w holds row r's wire w); a wire's partner by
+//     __shfl_sync from the lane of perm[w];
+//   pairs (33 <= P <= 64, brick levels: mesh_apply.py::adjacent_pairs):
+//     wires 2l and 2l + 1 in lane l, one row a warp; a level of parity 0
+//     pairs a lane's two wires (no shuffle), one of parity 1 pairs lane
+//     l's upper wire with lane l + 1's lower (one __shfl_up_sync and one
+//     __shfl_down_sync a value).
+// Each level, last first, as reverse_levels without states: the input
+// recovered from the output, x = C*y - S*y[perm], the gradient carried,
+// g <- C*g - S*g[perm] (the same rounded operations, so dx is the plain
+// version's bits), and each slot's term over the row formed by one lane
+// from both wires' x and g: the lane of the slot's first wire (lanes;
+// the partner's x recovered in the lane, C*y[b] + S*y[a], the bits the
+// partner's lane forms), the lane of its lower wire (pairs; the term with
+// the pair's wires swapped is exactly the negated term, so the lane forms
+// it from its lower wire and negates it where the upper wire comes
+// first).  A lane owns at most one slot a level.  A warp's R rows sum by
+// warp_reverse's shuffle tree, and the row groups a warp walks add, in
+// order, into the warp's own words part[warp][level][slot]: no barrier,
+// no atomics.  After the walk one barrier, then the warps' words summed in
+// warp order (warp_sum), every slot written (0 where a level has no MZI).
+// Over several block columns each column writes its sums to partials
+// (columns, S, levels, slots), summed in column order by the entry's last
+// block to finish (an atomic ticket a stack entry, reset by that block;
+// no block waits on another) where the columns are few ("fold"), else by
+// mesh_grad_sum_kernel.
+//
+// Staging: one round of global reads (kStageBatch entries a thread issued
+// before any is used: a wire's partner, slot and sign, a slot's phase),
+// each slot's cosf and sinf once (a wire's table entry is then build_trig's
+// cos-if-paired-else-1 and sign * sin: the same bits), a barrier, each
+// lane's records of every level, a barrier.
+constexpr int kResWarpMaxThreads = 1024;
+constexpr int kStageBatch = 4;
+// pairs: a lane's word a level, its pair's slot << 3 | the flags
+constexpr int kParity = 1;      // the level pairs (2i - 1, 2i)
+constexpr int kLowFirst = 2;    // the pair's lower wire has sign -1
+constexpr int kOwns = 4;        // the lane forms a slot's term
+
+// Shared memory of one warp-design block (``pairs`` or lanes, ``warps``
+// warps): the records (levels, 32 or P) of 16 bytes, pairs' words, and a
+// region that holds the staging's plan and slot trig, then the warps'
+// phase gradients.
+__host__ __device__ inline size_t res_warp_smem(int ports, int levels,
+                                                int slots, int warps,
+                                                bool pairs) {
+  const size_t L = levels, P = ports, K = slots;
+  const size_t stage = 2 * L * P + 2 * L * K;
+  const size_t part = static_cast<size_t>(warps) * L * K;
+  return 16 * L * (pairs ? 32 : P) + (pairs ? 4 * L * 32 : 0) +
+         4 * (stage > part ? stage : part);
+}
+
+// A wire's cos and signed sin from its plan word and its level's slot
+// trig (build_trig's arithmetic).
+__device__ __forceinline__ void wire_trig(int q, const float* tc,
+                                          const float* ts, float& c,
+                                          float& s) {
+  const float sg = (q & 3) == 0 ? 0.0f : ((q & 3) == 1 ? 1.0f : -1.0f);
+  c = sg != 0.0f ? tc[q >> 2] : 1.0f;
+  s = __fmul_rn(sg, ts[q >> 2]);
+}
+
+// One level of the pairs layout's walk for a chunk of rows, parity kPar
+// (a compile-time choice, so a parity-0 level takes no shuffle and no
+// select): each wire's input recovered, the lane's slot term of each row
+// added to acc in row order (own: the lane holds a pair), the gradient
+// carried.  r: the lane's record (cos, sin of its lower and upper wire).
+template <bool kTr, bool kPh, int kChunk, bool kPar>
+__device__ __forceinline__ void pair_level(const float4& r, bool own,
+                                           bool low_first, float& acc,
+                                           float (&yl)[kChunk],
+                                           float (&yh)[kChunk],
+                                           float (&gl)[kChunk],
+                                           float (&gh)[kChunk]) {
+  const float sl = kTr ? -r.y : r.y, sh = kTr ? -r.w : r.w;
+  float ylp[kChunk], yhp[kChunk], glp[kChunk], ghp[kChunk];
+#pragma unroll
+  for (int m = 0; m < kChunk; ++m) {          // each wire's partner's
+    if (kPar) {
+      ylp[m] = __shfl_up_sync(kFullMask, yh[m], 1);
+      yhp[m] = __shfl_down_sync(kFullMask, yl[m], 1);
+      glp[m] = __shfl_up_sync(kFullMask, gh[m], 1);
+      ghp[m] = __shfl_down_sync(kFullMask, gl[m], 1);
+    } else {
+      ylp[m] = yh[m];
+      yhp[m] = yl[m];
+      glp[m] = gh[m];
+      ghp[m] = gl[m];
+    }
+  }
+  float xl[kChunk], xh[kChunk];
+#pragma unroll
+  for (int m = 0; m < kChunk; ++m) {
+    xl[m] = __fsub_rn(__fmul_rn(r.x, yl[m]), __fmul_rn(sl, ylp[m]));
+    xh[m] = __fsub_rn(__fmul_rn(r.z, yh[m]), __fmul_rn(sh, yhp[m]));
+  }
+  if (kPh && own) {
+    // the lane's pair (a, b): (lo, hi) at parity 0, (hi, hi + 1) at
+    // parity 1, whose x[b] = C*y[b] + S*y[a] is formed here
+    const float ms = kPar ? r.w : r.y, cc = kPar ? r.z : r.x;
+    const float cb = kTr ? cc : -cc;
+#pragma unroll
+    for (int m = 0; m < kChunk; ++m) {
+      const float xa = kPar ? xh[m] : xl[m];
+      const float xb = kPar ? __fadd_rn(__fmul_rn(r.z, yhp[m]),
+                                        __fmul_rn(sh, yh[m]))
+                            : xh[m];
+      const float ga = kPar ? gh[m] : gl[m];
+      const float gb = kPar ? ghp[m] : gh[m];
+      const float dya = __fadd_rn(__fmul_rn(ms, xa), __fmul_rn(cb, xb));
+      const float dyb = __fsub_rn(__fmul_rn(ms, xb), __fmul_rn(cb, xa));
+      const float t = __fadd_rn(__fmul_rn(ga, dya), __fmul_rn(gb, dyb));
+      acc = __fadd_rn(acc, low_first ? t : -t);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kChunk; ++m) {
+    gl[m] = __fsub_rn(__fmul_rn(r.x, gl[m]), __fmul_rn(sl, glp[m]));
+    gh[m] = __fsub_rn(__fmul_rn(r.z, gh[m]), __fmul_rn(sh, ghp[m]));
+    yl[m] = xl[m];
+    yh[m] = xh[m];
+  }
+}
+
+// grid (columns, S), blockDim.x = 32 * warps; column x walks the row
+// groups [x * per_column, (x + 1) * per_column) of entry s, warp q the
+// groups q, q + warps, ... of them.  y, dy, dx: (S, batch, ports); dph:
+// (S, levels, slots); dx may be null, and without kPh dph is.
+template <bool kPairs, bool kTr, bool kPh, int kChunk>
+__global__ void __launch_bounds__(kResWarpMaxThreads)
+mesh_apply_grad_warp_kernel(const float* __restrict__ y,
+                            const float* __restrict__ dy,
+                            const float* __restrict__ phases,
+                            const int* __restrict__ slot,
+                            const float* __restrict__ sign,
+                            const int* __restrict__ perm,
+                            const float* __restrict__ diag,
+                            float* __restrict__ dx, float* __restrict__ dph,
+                            float* __restrict__ partials,
+                            int* __restrict__ tickets, int batch, int ports,
+                            int levels, int slots, int per_column,
+                            int64_t diag_stride_s) {
+  extern __shared__ float4 smem4[];
+  __shared__ int last;
+  const int L = levels, P = ports, K = slots;
+  const int nw = L * P, nk = L * K;
+  float4* rec = smem4;
+  int* word = reinterpret_cast<int*>(rec + L * (kPairs ? 32 : P));
+  float* region = reinterpret_cast<float*>(word + (kPairs ? L * 32 : 0));
+  int* pm = reinterpret_cast<int*>(region);
+  int* plan = pm + nw;
+  float* tc = reinterpret_cast<float*>(plan + nw);
+  float* ts = tc + nk;
+  float* part = region;                 // after the staging: (warps, L, K)
+  const int T = blockDim.x, W = T >> 5, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int s = blockIdx.y;
+
+  // one round of global reads: the wires' plan, the slots' phases
+  const float* ph = phases + static_cast<size_t>(s) * nk;
+  for (int i0 = tid; i0 < nw + nk; i0 += kStageBatch * T) {
+    int a[kStageBatch], b[kStageBatch];
+    float v[kStageBatch];
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int i = i0 + u * T;
+      a[u] = 0;
+      b[u] = 0;
+      v[u] = 0.0f;
+      if (i < nw) {
+        a[u] = perm[i];
+        b[u] = slot[i];
+        v[u] = sign[i];
+      } else if (i < nw + nk) {
+        v[u] = ph[i - nw];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int i = i0 + u * T;
+      if (i < nw) {
+        pm[i] = a[u];
+        plan[i] = plan_word(b[u], v[u]);
+      } else if (i < nw + nk) {
+        tc[i - nw] = cosf(v[u]);
+        ts[i - nw] = sinf(v[u]);
+      }
+    }
+  }
+  __syncthreads();
+  // each lane's record of every level
+  if constexpr (kPairs) {
+    for (int cl = warp; cl < L; cl += W) {
+      const int lo = 2 * lane, hi = lo + 1;
+      float4 r = make_float4(1.0f, 0.0f, 1.0f, 0.0f);
+      int ql = 0, qh = 0;
+      bool own0 = false, own1 = false;
+      if (lo < P) {
+        ql = plan[cl * P + lo];
+        wire_trig(ql, tc + cl * K, ts + cl * K, r.x, r.y);
+        own0 = pm[cl * P + lo] == hi;
+      }
+      if (hi < P) {
+        qh = plan[cl * P + hi];
+        wire_trig(qh, tc + cl * K, ts + cl * K, r.z, r.w);
+        own1 = pm[cl * P + hi] == hi + 1;
+      }
+      // a brick level pairs wires of one parity: any lane's pair across
+      // lanes makes it a parity-1 level
+      const bool par = __any_sync(kFullMask, own1);
+      int w = par ? kParity : 0;
+      if (par ? own1 : own0) {
+        const int q = par ? qh : ql;          // the pair's lower wire
+        w |= kOwns | ((q & 3) == 2 ? kLowFirst : 0) | (q >> 2) << 3;
+      }
+      rec[cl * 32 + lane] = r;
+      word[cl * 32 + lane] = w;
+    }
+  } else {
+    for (int i = tid; i < nw; i += T) {
+      const int q = plan[i];
+      const int base = (i / P) * K;
+      float4 r;
+      wire_trig(q, tc + base, ts + base, r.x, r.y);
+      r.z = __int_as_float(pm[i]);
+      r.w = __int_as_float(q);
+      rec[i] = r;
+    }
+  }
+  __syncthreads();
+
+  float* mine = part + static_cast<size_t>(warp) * nk;
+  if (kPh) {
+    for (int i = lane; i < nk; i += 32) mine[i] = 0.0f;
+    __syncwarp();
+  }
+  const int R = kPairs ? 1 : 32 / P;
+  const int groups = (batch + R - 1) / R;
+  const int g_end = min(groups, static_cast<int>(blockIdx.x + 1) * per_column);
+  const float* dg = diag + s * diag_stride_s;
+  const size_t entry = static_cast<size_t>(s) * batch;
+  // a warp walks its groups kChunk at a time, level by level together:
+  // kChunk independent chains a lane in straight-line code (a chunk's
+  // missing group walks zeros), one record load a level for all of them,
+  // and a slot's terms of the chunk added to the warp's word in group
+  // order (the word read only from a warp's second chunk on)
+  const int step = kChunk * W;
+  const int first_group = blockIdx.x * per_column + warp;
+
+  if constexpr (kPairs) {
+    const int lo = 2 * lane, hi = lo + 1;
+    const float d_lo = lo < P ? dg[lo] : 1.0f;
+    const float d_hi = hi < P ? dg[hi] : 1.0f;
+    for (int g0 = first_group; g0 < g_end; g0 += step) {
+      const bool fresh = g0 == first_group;
+      float yl[kChunk], yh[kChunk], gl[kChunk], gh[kChunk];
+      // the chunk's y and dy at the levels' output (transposed: y / D and
+      // dy * D), zeros on a dead wire or a missing group
+#pragma unroll
+      for (int m = 0; m < kChunk; ++m) {
+        const int gi = g0 + m * W;
+        float y_l = 0.0f, y_h = 0.0f, g_l = 0.0f, g_h = 0.0f;
+        if (gi < g_end) {
+          const size_t at = (entry + gi) * P;
+          if (lo < P) {
+            y_l = y[at + lo];
+            g_l = dy[at + lo];
+          }
+          if (hi < P) {
+            y_h = y[at + hi];
+            g_h = dy[at + hi];
+          }
+        }
+        yl[m] = kTr ? __fdiv_rn(y_l, d_lo) : y_l;
+        yh[m] = kTr ? __fdiv_rn(y_h, d_hi) : y_h;
+        gl[m] = kTr ? __fmul_rn(g_l, d_lo) : g_l;
+        gh[m] = kTr ? __fmul_rn(g_h, d_hi) : g_h;
+      }
+      int cl = kTr ? 0 : L - 1;
+      float4 r = rec[cl * 32 + lane];
+      int q = word[cl * 32 + lane];
+      for (int c = L - 1; c >= 0; --c) {
+        // the next level's record, and this level's word of the warp's
+        // sums, loaded before any store of this level
+        const int cn = kTr ? cl + 1 : cl - 1;
+        const int at_n = (c > 0 ? cn : cl) * 32 + lane;
+        const float4 rn = rec[at_n];
+        const int qn = word[at_n];
+        float* dst = mine + cl * K + (q >> 3);
+        const bool own = kPh && (q & kOwns);
+        float acc = own && !fresh ? *dst : 0.0f;
+        if (q & kParity)                              // warp-uniform
+          pair_level<kTr, kPh, kChunk, true>(r, own, q & kLowFirst, acc, yl,
+                                             yh, gl, gh);
+        else
+          pair_level<kTr, kPh, kChunk, false>(r, own, q & kLowFirst, acc, yl,
+                                              yh, gl, gh);
+        if (own) *dst = acc;
+        r = rn;
+        q = qn;
+        cl = cn;
+      }
+      if (dx != nullptr) {
+#pragma unroll
+        for (int m = 0; m < kChunk; ++m) {
+          if (g0 + m * W >= g_end) break;
+          const size_t at = (entry + g0 + m * W) * P;
+          if (lo < P) dx[at + lo] = kTr ? gl[m] : __fmul_rn(gl[m], d_lo);
+          if (hi < P) dx[at + hi] = kTr ? gh[m] : __fmul_rn(gh[m], d_hi);
+        }
+      }
+    }
+  } else {
+    const int r = lane / P;
+    const bool lane_live = r < R;
+    const int w = lane_live ? lane - r * P : 0;
+    const int base = r * P;
+    const float d = dg[w];
+    for (int g0 = first_group; g0 < g_end; g0 += step) {
+      const bool fresh = g0 == first_group;
+      bool row_live[kChunk];
+      float yv[kChunk], gv[kChunk];
+#pragma unroll
+      for (int m = 0; m < kChunk; ++m) {
+        const int gi = g0 + m * W;
+        const int row = gi * R + r;
+        float y0 = 0.0f, g0v = 0.0f;
+        row_live[m] = gi < g_end && lane_live && row < batch;
+        if (row_live[m]) {
+          const size_t at = (entry + row) * P + w;
+          y0 = y[at];
+          g0v = dy[at];
+        }
+        yv[m] = kTr ? __fdiv_rn(y0, d) : y0;
+        gv[m] = kTr ? __fmul_rn(g0v, d) : g0v;
+      }
+      int cl = kTr ? 0 : L - 1;
+      float4 rr = rec[cl * P + w];
+      for (int c = L - 1; c >= 0; --c) {
+        const int cn = kTr ? cl + 1 : cl - 1;
+        const float4 rn = rec[(c > 0 ? cn : cl) * P + w];
+        const int q = __float_as_int(rr.w);
+        // the slot's first wire a (sign -1) forms the term, row 0 of the
+        // group keeps the tree's sum; its partner b's x = C*y[b] + S*y[a]
+        const bool first = (q & 3) == 2;
+        const bool keep = kPh && lane_live && r == 0 && first;
+        float* dst = mine + cl * K + (q >> 2);
+        const float prev = keep && !fresh ? *dst : 0.0f;
+        const float cc = rr.x, sc = rr.y;
+        const float sv = kTr ? -sc : sc;
+        const int pw = base + __float_as_int(rr.z);
+        float yp[kChunk], gp[kChunk], x[kChunk];
+#pragma unroll
+        for (int m = 0; m < kChunk; ++m) {
+          const int src = row_live[m] ? pw : lane;
+          yp[m] = __shfl_sync(kFullMask, yv[m], src);
+          gp[m] = __shfl_sync(kFullMask, gv[m], src);
+        }
+#pragma unroll
+        for (int m = 0; m < kChunk; ++m)
+          x[m] = __fsub_rn(__fmul_rn(cc, yv[m]), __fmul_rn(sv, yp[m]));
+        if (kPh) {
+          const float cb = kTr ? cc : -cc;
+          float term[kChunk];
+#pragma unroll
+          for (int m = 0; m < kChunk; ++m) {
+            const float xb = __fadd_rn(__fmul_rn(cc, yp[m]),
+                                       __fmul_rn(sv, yv[m]));
+            const float dya = __fadd_rn(__fmul_rn(sc, x[m]),
+                                        __fmul_rn(cb, xb));
+            const float dyb = __fsub_rn(__fmul_rn(sc, xb),
+                                        __fmul_rn(cb, x[m]));
+            const float t = __fadd_rn(__fmul_rn(gv[m], dya),
+                                      __fmul_rn(gp[m], dyb));
+            term[m] = row_live[m] && first ? t : 0.0f;
+          }
+          for (int dd = 1; dd < R; dd *= 2) {             // warp-uniform
+#pragma unroll
+            for (int m = 0; m < kChunk; ++m) {
+              const float o = __shfl_down_sync(kFullMask, term[m], dd * P);
+              if ((r & (2 * dd - 1)) == 0 && r + dd < R)
+                term[m] = __fadd_rn(term[m], o);
+            }
+          }
+          if (keep) {
+            float acc = prev;
+#pragma unroll
+            for (int m = 0; m < kChunk; ++m) acc = __fadd_rn(acc, term[m]);
+            *dst = acc;
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < kChunk; ++m) {
+          gv[m] = __fsub_rn(__fmul_rn(cc, gv[m]), __fmul_rn(sv, gp[m]));
+          yv[m] = x[m];
+        }
+        rr = rn;
+        cl = cn;
+      }
+      if (dx != nullptr) {
+#pragma unroll
+        for (int m = 0; m < kChunk; ++m)
+          if (row_live[m])
+            dx[(entry + (g0 + m * W) * R + r) * P + w] =
+                kTr ? gv[m] : __fmul_rn(gv[m], d);
+      }
+    }
+  }
+
+  if (!kPh) return;
+
+  __syncthreads();
+  const bool one = gridDim.x == 1;
+  float* out = one ? dph + static_cast<size_t>(s) * nk
+                   : partials + (static_cast<size_t>(blockIdx.x) * gridDim.y +
+                                 s) * nk;
+  for (int i = tid; i < nk; i += T) out[i] = warp_sum(part, nk, W, i);
+  if (one || tickets == nullptr) return;
+  // the fold: the entry's last column to finish sums the columns' sums in
+  // column order (mesh_grad_sum_kernel's order) and resets the ticket
+  __threadfence();
+  __syncthreads();
+  if (tid == 0)
+    last = atomicAdd(tickets + s, 1) == static_cast<int>(gridDim.x) - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const size_t stride = static_cast<size_t>(gridDim.y) * nk;
+  for (int i = tid; i < nk; i += T) {
+    const float* p = partials + static_cast<size_t>(s) * nk + i;
+    float v = __ldcg(p);
+    for (int c = 1; c < static_cast<int>(gridDim.x); ++c)
+      v = __fadd_rn(v, __ldcg(p + c * stride));
+    dph[static_cast<size_t>(s) * nk + i] = v;
+  }
+  if (tid == 0) tickets[s] = 0;
 }
 
 // ------------------------------------------------------------- owner walk
@@ -2543,6 +3010,99 @@ extern "C" int mesh_apply_grad_launch(const void* y, const void* dy,
   mesh_grad_sum_kernel<<<blocks, kThreads, 0, st>>>(
       static_cast<const float*>(partials), static_cast<float*>(dphases),
       blocks_x, count);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+template <bool kPairs, bool kTr, bool kPh, int kChunk>
+int res_warp_launch(const float* y, const float* dy, const float* phases,
+                    const int* slot, const float* sign, const int* perm,
+                    const float* diag, float* dx, float* dph, float* part,
+                    int* tickets, int batch, int ports, int levels,
+                    int slots, int stack, int warps, int columns,
+                    int per_column, int64_t diag_stride_s,
+                    cudaStream_t st) {
+  const size_t smem = res_warp_smem(ports, levels, slots, warps, kPairs);
+  auto* kernel = mesh_apply_grad_warp_kernel<kPairs, kTr, kPh, kChunk>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<dim3(columns, stack), 32 * warps, smem, st>>>(
+      y, dy, phases, slot, sign, perm, diag, dx, dph, part, tickets, batch,
+      ports, levels, slots, per_column, diag_stride_s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The resident backward's warp design (mesh_apply_grad_warp_kernel): y,
+// dy, phases, slot, sign, perm, diag, dx, dphases and transpose as for
+// mesh_apply_grad_launch; pairs: the pairs lane layout (33 to 64 ports,
+// brick levels; the host checks the layout) rather than lanes (at most 32
+// ports); blocks of 32 * warps threads; grid (columns, S), column x taking
+// the row groups [x * per_column, (x + 1) * per_column) (R = 32 / ports
+// rows a group in lanes, 1 in pairs), every column some, each warp
+// walking `chunk` (1 or 2) of its groups at once; partials
+// (columns, S, levels, slots) scratch when columns > 1 and dphases is
+// asked for; tickets: S int32 zeros (left zero) to fold the columns in the
+// launch, or null to sum them in mesh_grad_sum_kernel after it.
+extern "C" int mesh_apply_grad_warp_launch(
+    const void* y, const void* dy, const void* phases, const void* slot,
+    const void* sign, const void* perm, const void* diag, void* dx,
+    void* dphases, void* partials, void* tickets, int batch, int ports,
+    int levels, int slots, int stack, int warps, int columns,
+    int per_column, int chunk, int pairs, int64_t diag_stride_s,
+    int transpose, void* stream) {
+  const int rows = pairs ? 1 : 32 / std::max(ports, 1);
+  const int groups = (batch + rows - 1) / std::max(rows, 1);
+  if (batch < 1 || ports < 2 || (pairs ? ports < 33 || ports > 64
+                                       : ports > 32) ||
+      levels < 1 || slots < 1 || stack < 1 || stack > 65535 || warps < 1 ||
+      32 * warps > kResWarpMaxThreads || columns < 1 || per_column < 1 ||
+      static_cast<int64_t>(columns - 1) * per_column >= groups ||
+      static_cast<int64_t>(columns) * per_column < groups ||
+      (chunk != 1 && chunk != 2) || diag_stride_s < 0 ||
+      (dx == nullptr && dphases == nullptr) ||
+      (dphases != nullptr && columns > 1 && partials == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* yf = static_cast<const float*>(y);
+  const float* df = static_cast<const float*>(dy);
+  const float* pf = static_cast<const float*>(phases);
+  const int* sl = static_cast<const int*>(slot);
+  const float* sg = static_cast<const float*>(sign);
+  const int* pm = static_cast<const int*>(perm);
+  const float* dg = static_cast<const float*>(diag);
+  float* dxf = static_cast<float*>(dx);
+  float* dpf = static_cast<float*>(dphases);
+  float* pt = static_cast<float*>(partials);
+  int* tk = columns > 1 ? static_cast<int*>(tickets) : nullptr;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err = static_cast<int>(cudaErrorInvalidValue);
+#define RES_WARP_CASE(PA, TR, PH, CH)                                       \
+  if ((pairs != 0) == PA && (transpose != 0) == TR &&                      \
+      (dphases != nullptr) == PH && chunk == CH)                           \
+    err = res_warp_launch<PA, TR, PH, CH>(                                 \
+        yf, df, pf, sl, sg, pm, dg, dxf, dpf, pt, tk, batch, ports, levels, \
+        slots, stack, warps, columns, per_column, diag_stride_s, st);
+#define RES_WARP_CHUNKS(PA, TR, PH)                                         \
+  RES_WARP_CASE(PA, TR, PH, 1) RES_WARP_CASE(PA, TR, PH, 2)
+  RES_WARP_CHUNKS(false, false, false) RES_WARP_CHUNKS(false, false, true)
+  RES_WARP_CHUNKS(false, true, false) RES_WARP_CHUNKS(false, true, true)
+  RES_WARP_CHUNKS(true, false, false) RES_WARP_CHUNKS(true, false, true)
+  RES_WARP_CHUNKS(true, true, false) RES_WARP_CHUNKS(true, true, true)
+#undef RES_WARP_CHUNKS
+#undef RES_WARP_CASE
+  if (err != cudaSuccess || dphases == nullptr || columns == 1 ||
+      tk != nullptr)
+    return err;
+  const int64_t count = static_cast<int64_t>(stack) * levels * slots;
+  const int blocks = static_cast<int>(
+      std::min<int64_t>((count + kThreads - 1) / kThreads, 1024));
+  mesh_grad_sum_kernel<<<blocks, kThreads, 0, st>>>(pt, dpf, columns, count);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -56,7 +56,14 @@ differentiates its jnp scan), for the off-chip BP baselines:
   * ``mesh_apply_stacked_grad`` — the standalone mesh's, through the
     design ``grad_design`` picks, which follows the forward's route
     (``MeshApplyFn``): ``resident`` where the resident backward's tables
-    fit a block (``grad_fits``); ``dense`` where the forward took route
+    fit a block (``grad_fits``), by the design ``resident_grad_design``
+    picks (counted in ``mesh_apply_stacked_grad.resident_launches``):
+    ``warp`` for meshes of at most 32 ports and brick layouts of at most
+    64 (a mesh row in a warp's lanes, the states recovered level by level
+    by shuffles, no block barrier a level; one launch, or with many block
+    columns a second that sums them, ``resident_grad_warp_config``), else
+    ``block`` (an element a thread, a barrier a level); ``dense`` where
+    the forward took route
     B, which keeps x and its dense scratch M (y = x·M): dx = dy·Mᵀ and
     dM = xᵀ·dy on the tensor cores in one launch (``mesh_product_grad``,
     3xTF32, dM's k split over the card, ``dense_grad_splits``), then
@@ -83,11 +90,13 @@ Each wrapper checks what its kernel takes and raises on anything else,
 allocates the output and its scratch, launches on the current stream
 without synchronizing, and counts its launches (``<wrapper>.launches``;
 per design and route ``mesh_apply_stacked.design_launches`` and
-``mesh_apply_stacked_grad.design_launches``, one count a call).
+``mesh_apply_stacked_grad.design_launches``, and per resident design
+``mesh_apply_stacked_grad.resident_launches``, one count a call).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
@@ -111,6 +120,8 @@ __all__ = ["mesh_apply_stacked", "launch_resident", "launch_warp_rows",
            "densify_grad_warp_smem_bytes",
            "mesh_densify_grad", "mesh_apply_stacked_grad", "grad_smem_bytes",
            "grad_fits", "grad_rows_per_block", "grad_columns",
+           "RESIDENT_GRAD_DESIGNS", "resident_grad_design",
+           "resident_grad_warp_config", "resident_grad_warp_smem_bytes",
            "densify_grad_smem_bytes", "densify_grad_saves", "MeshApplyFn",
            "MeshDensifyFn", "apply_autograd", "densify_autograd",
            "PARAM_KEYS", "route_a_takes", "grad_design",
@@ -452,6 +463,107 @@ def grad_columns(S: int, tiles: int, sms: int) -> int:
     scratch is ``columns × S × levels × slots`` floats, however many rows
     there are."""
     return max(1, min(tiles, -(-GRAD_BLOCKS_PER_SM * sms // S)))
+
+
+RESIDENT_GRAD_DESIGNS = ("warp", "block")
+RES_WARP_WARPS = 24                # the warp design's warps a block, about
+RES_WARP_BLOCKS_PER_SM = 1         # ... its blocks an SM, at most
+RES_WARP_MIN_GROUPS = 8            # ... a column's row groups, at least
+# columns folded in the launch, at most: up to 16 the fold and the sum
+# kernel take the same device time on an H100, and the fold saves a launch;
+# past 16 the fold's one block is the slower (tools/mesh_apply_grad.py
+# --variants)
+RES_WARP_FOLD_COLUMNS = 16
+RES_WARP_MAX_PORTS = 64            # the pairs lane layout's widest mesh
+
+
+def _res_warp_pairs(layout: ph_lib.MeshLayout) -> bool | None:
+    """The warp design's lane layout: False (lanes: a wire a lane) for
+    meshes of 2 to 32 ports, True (pairs: two adjacent wires a lane) for
+    brick layouts of 33 to 64 ports, None for any other layout."""
+    P = layout.ports
+    if 2 <= P <= 32:
+        return False
+    if P <= RES_WARP_MAX_PORTS and adjacent_pairs(layout):
+        return True
+    return None
+
+
+def resident_grad_warp_smem_bytes(layout: ph_lib.MeshLayout,
+                                  warps: int) -> int:
+    """Shared memory of one warp-design block of ``warps`` warps: a
+    16-byte record per level and lane (pairs: 32 lanes, and a word each;
+    lanes: one per wire), and a region that holds the staging's plan and
+    slot trig, then each warp's phase gradients (``csrc/mesh_apply.cu::
+    res_warp_smem``)."""
+    P, L, K = layout.ports, layout.levels, layout.slots
+    return _res_warp_tables(layout) + 4 * max(2 * L * P + 2 * L * K,
+                                              warps * L * K)
+
+
+def _res_warp_tables(layout: ph_lib.MeshLayout) -> int:
+    """The warp design's records (and pairs' words), in bytes."""
+    L = layout.levels
+    if _res_warp_pairs(layout):
+        return 16 * L * 32 + 4 * L * 32
+    return 16 * L * layout.ports
+
+
+def resident_grad_design(layout: ph_lib.MeshLayout,
+                         design: str | None = None) -> str:
+    """The resident backward's design for a layout ``grad_fits`` holds:
+    ``"warp"`` (``mesh_apply_grad_warp_kernel``: a mesh row in a warp's
+    lanes, the states recovered by shuffles, no block barrier a level)
+    for meshes of at most 32 ports and for brick layouts
+    (``adjacent_pairs``) of 33 to 64 ports — every rectangular mesh the
+    repo's configs build — else ``"block"`` (``mesh_apply_grad_kernel``,
+    an element a thread, a barrier a level).  ``design`` forces one of
+    ``RESIDENT_GRAD_DESIGNS``; ``"warp"`` raises for a layout it does not
+    take."""
+    takes = (_res_warp_pairs(layout) is not None and
+             resident_grad_warp_smem_bytes(layout, 1) <= SMEM_MAX_BYTES)
+    if design is None:
+        return "warp" if takes else "block"
+    if design not in RESIDENT_GRAD_DESIGNS or (design == "warp" and
+                                               not takes):
+        raise ValueError(
+            f"the resident backward has no {design!r} design for a "
+            f"{layout.ports}-port, {layout.levels}-level mesh (the warp "
+            "design takes meshes of at most 32 ports, and brick layouts of "
+            "at most 64)")
+    return design
+
+
+def resident_grad_warp_config(layout: ph_lib.MeshLayout, S: int, B: int,
+                              sms: int) -> tuple:
+    """The warp design's launch: ``(pairs, R, warps, columns, per_column,
+    chunk, fold)``.  A warp walks row groups of R rows (lanes: ``32 //
+    ports``; pairs: 1), ``chunk`` (1 or 2) at once; each of the
+    ``columns`` blocks of an entry takes ``per_column`` consecutive
+    groups, its warp q the groups q, q + warps, ... of them.  The columns
+    spread an entry's groups over about ``RES_WARP_BLOCKS_PER_SM`` blocks
+    an SM, at least ``RES_WARP_MIN_GROUPS`` groups a column; ``chunk`` is
+    1 where every warp gets one group with at most ``RES_WARP_WARPS``
+    warps (fewer where shared memory holds fewer warps' sums), else 2,
+    and a warp walks its chunks in turn (on an H100 a chunk of 2 at half
+    the warps is no faster where every warp has one group, and 1.4x
+    slower on 100 rows of a 21-port mesh).  ``fold``: the launch sums the
+    columns itself (``RES_WARP_FOLD_COLUMNS`` at most), else
+    ``mesh_grad_sum_kernel`` does."""
+    pairs = bool(_res_warp_pairs(layout))
+    R = 1 if pairs else 32 // layout.ports
+    groups = -(-B // R)
+    columns = max(1, min(-(-groups // RES_WARP_MIN_GROUPS),
+                         RES_WARP_BLOCKS_PER_SM * sms // S))
+    per = -(-groups // columns)
+    columns = -(-groups // per)
+    fit = (SMEM_MAX_BYTES - _res_warp_tables(layout)) // (
+        4 * layout.levels * layout.slots)
+    most = max(1, min(RES_WARP_WARPS, fit))
+    chunk = 1 if per <= most else 2
+    warps = min(-(-per // chunk), most)
+    return (pairs, R, warps, columns, per, chunk,
+            columns <= RES_WARP_FOLD_COLUMNS)
 
 
 GRAD_ROWS_MIN_WARPS = 4            # the warp-rows backward's block, at least
@@ -985,6 +1097,9 @@ def _library():
     lib.mesh_apply_grad_launch.argtypes = [ctypes.c_void_p] * 10 + [
         ctypes.c_int] * 7 + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
     lib.mesh_apply_grad_launch.restype = ctypes.c_int
+    lib.mesh_apply_grad_warp_launch.argtypes = [ctypes.c_void_p] * 11 + [
+        ctypes.c_int] * 10 + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    lib.mesh_apply_grad_warp_launch.restype = ctypes.c_int
     lib.mesh_rows_grad_launch.argtypes = [ctypes.c_void_p] * 10 + [
         ctypes.c_int] * 10 + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
     lib.mesh_rows_grad_launch.restype = ctypes.c_int
@@ -1393,9 +1508,14 @@ def mesh_apply_stacked_grad(layout: ph_lib.MeshLayout, phases: torch.Tensor,
     not bit-equal), then the
     warp-rows backward on M's P identity rows (y := M, dy := dM) for
     dphases.  Handed y, the design ``grad_design`` picks from the layout
-    alone: the resident backward, or the warp-rows backward for route A's
-    layouts (a trig prologue, the walk, and over several block columns
-    the sum of their partials).  All contiguous float32 on one card.
+    alone: the resident backward, by the design ``resident_grad_design``
+    picks (``"warp"``, one launch, or with many block columns a second
+    that sums them; ``"block"``, a launch and, over several block columns,
+    the sum's; ``_forced_resident`` forces one for measurements and card
+    tests), or the warp-rows backward for
+    route A's layouts (a trig prologue, the walk, and over several block
+    columns the sum of their partials).  All contiguous float32 on one
+    card.
     Raises, naming item 6c-3, for the owner walk's layouts, before any
     allocation."""
     if dense is not None:
@@ -1413,46 +1533,114 @@ def mesh_apply_stacked_grad(layout: ph_lib.MeshLayout, phases: torch.Tensor,
         raise ValueError("mesh_apply_stacked_grad: neither dx nor dphases "
                          "asked for")
     design = _grad_design_or_raise(layout)    # before any allocation
+    if _RESIDENT_FORCED is not None and design != "resident":
+        raise ValueError(f"a {P}-port mesh takes the {design} backward, "
+                         "not the resident one")
+    res = (resident_grad_design(layout, _RESIDENT_FORCED)
+           if design == "resident" else None)
     sms = _sm_count(y.device)
-    if design == "resident":
-        rows = grad_rows_per_block(layout)
     dx = torch.empty_like(y) if need_dx else None
     dph = None
     if need_dphases:
-        # the resident kernel adds into dphases; the warp-rows one writes
-        # every slot
-        dph = (torch.zeros if design == "resident" or B == 0
+        # the block design adds into dphases; the others write every slot
+        dph = (torch.zeros if res == "block" or B == 0
                else torch.empty)((S, L, K), dtype=torch.float32,
                                  device=y.device)
     if B == 0:
         return dx, dph
     with torch.cuda.device(y.device):
-        if design == "resident":
-            cols = grad_columns(S, -(-B // rows), sms)
-            part = (torch.empty((cols, S, L, K), dtype=torch.float32,
-                                device=y.device)
-                    if need_dphases and cols > 1 else None)
-            plan = ph_lib.mesh_plan_tensors(layout, y.device)
-            err = _library().mesh_apply_grad_launch(
-                y.data_ptr(), dy.data_ptr(), phases.data_ptr(),
-                plan["slot_i32"].data_ptr(), plan["sign"].data_ptr(),
-                plan["perm"].data_ptr(), diag.data_ptr(),
-                None if dx is None else dx.data_ptr(),
-                None if dph is None else dph.data_ptr(),
-                None if part is None else part.data_ptr(), B, P, L, K, S,
-                rows, cols, P if diag.ndim == 2 else 0, int(transpose),
-                _stream(y))
+        if res is not None:
+            err = _resident_grad(layout, res, phases, diag, y, dy, dx, dph,
+                                 transpose, S, B, sms)
         else:
             err = _rows_grad(layout, phases, diag, y, dy, dx, dph,
                              transpose, S, B)
-    _raise_on(err, f"{design} backward")
+    _raise_on(err, f"{design} backward ({res})" if res else
+              f"{design} backward")
     mesh_apply_stacked_grad.launches += 1
     mesh_apply_stacked_grad.design_launches[design] += 1
+    if res is not None:
+        mesh_apply_stacked_grad.resident_launches[res] += 1
     return dx, dph
 
 
 mesh_apply_stacked_grad.launches = 0
 mesh_apply_stacked_grad.design_launches = dict.fromkeys(GRAD_DESIGNS, 0)
+mesh_apply_stacked_grad.resident_launches = dict.fromkeys(
+    RESIDENT_GRAD_DESIGNS, 0)
+
+
+_RESIDENT_FORCED = None     # a resident design forced (_forced_resident)
+
+
+@contextlib.contextmanager
+def _forced_resident(design: str):
+    """Within the block, ``mesh_apply_stacked_grad`` takes the resident
+    ``design`` (one of ``RESIDENT_GRAD_DESIGNS``) for every layout whose
+    backward is the resident one, and raises for any other layout, or
+    where ``resident_grad_design`` refuses the design.  For measuring the
+    designs in turns and for the card tests; no path of the port sets
+    it."""
+    global _RESIDENT_FORCED
+    if design not in RESIDENT_GRAD_DESIGNS:
+        raise ValueError(f"no resident design {design!r}")
+    keep, _RESIDENT_FORCED = _RESIDENT_FORCED, design
+    try:
+        yield
+    finally:
+        _RESIDENT_FORCED = keep
+
+
+def _tickets(device: torch.device, stream: int, S: int) -> torch.Tensor:
+    """The warp design's fold tickets for launches on ``stream`` (its
+    handle) of ``device``, one int32 an entry, zero between launches (the
+    last block of an entry resets its own), at least S of them: allocated
+    once a stream, and anew only for a larger stack.  Keyed by the stream,
+    so each stream's launches, which it runs in turn, are the only ones to
+    share a buffer."""
+    key = (device, stream)
+    have = _TICKETS.get(key)
+    if have is None or have.numel() < S:
+        have = torch.zeros(max(S, 64), dtype=torch.int32, device=device)
+        _TICKETS[key] = have
+    return have
+
+
+_TICKETS: dict = {}
+
+
+def _resident_grad(layout, res, phases, diag, y, dy, dx, dph, transpose, S,
+                   B, sms) -> int:
+    """The resident backward's launch by design ``res`` from y and dy
+    ``(S, B, P)`` into dx and dphases (either None); returns the CUDA
+    error."""
+    P, L, K = layout.ports, layout.levels, layout.slots
+    plan = ph_lib.mesh_plan_tensors(layout, y.device)
+    if res == "warp":
+        pairs, _, warps, cols, per, chunk, fold = resident_grad_warp_config(
+            layout, S, B, sms)
+    else:
+        rows = grad_rows_per_block(layout)
+        cols = grad_columns(S, -(-B // rows), sms)
+    part = (torch.empty((cols, S, L, K), dtype=torch.float32,
+                        device=y.device)
+            if dph is not None and cols > 1 else None)
+    ptrs = (y.data_ptr(), dy.data_ptr(), phases.data_ptr(),
+            plan["slot_i32"].data_ptr(), plan["sign"].data_ptr(),
+            plan["perm"].data_ptr(), diag.data_ptr(),
+            None if dx is None else dx.data_ptr(),
+            None if dph is None else dph.data_ptr(),
+            None if part is None else part.data_ptr())
+    stride = P if diag.ndim == 2 else 0
+    if res == "warp":
+        tickets = (_tickets(y.device, _stream(y), S).data_ptr()
+                   if fold and part is not None else None)
+        return _library().mesh_apply_grad_warp_launch(
+            *ptrs, tickets, B, P, L, K, S, warps, cols, per, chunk,
+            int(pairs), stride, int(transpose), _stream(y))
+    return _library().mesh_apply_grad_launch(
+        *ptrs, B, P, L, K, S, rows, cols, stride, int(transpose),
+        _stream(y))
 
 
 class MeshApplyFn(torch.autograd.Function):

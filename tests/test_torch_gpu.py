@@ -52,6 +52,7 @@ A BP step's gradients of a u-level functional card vs CPU within
 ``1e-4·max|grad|`` per leaf.
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -1315,7 +1316,8 @@ def test_densify_grad_kernel_matches_plain(cuda, tt_L, S, noisy):
 
 # label -> (ports, S, rows, shared x, transpose): the resident backward at
 # onn's BP launches (hidden 64: 4300 stencil rows; layer 0's 21-port V mesh
-# on the 100 rows) and the paper's 16-port meshes; the warp-rows backward
+# on the 100 rows) and the paper's 16-port meshes, and an 80-port mesh the
+# dispatch sends to the block design; the warp-rows backward
 # at 1024 ports on rows whose forward takes route A (300, 21 shared) and
 # route B (1600), at 160 ports (W = 8) and S = 3, and at 144 ports on one
 # block column
@@ -1324,6 +1326,7 @@ MESH_GRAD_CASES = {
     "p16-4300-tr": (16, 1, 4300, False, True),
     "p64-4300": (64, 1, 4300, False, False),
     "p64-4300-tr": (64, 1, 4300, False, True),
+    "p80-4300": (80, 1, 4300, False, False),
     "v21-100-tr": (21, 1, 100, True, True),
     "v21-100": (21, 1, 100, True, False),
     "p16-s11": (16, 11, 37, False, True),
@@ -1348,23 +1351,71 @@ def test_mesh_grad_kernel_matches_plain(cuda, label):
         ports)).to(cuda)
     design = mesh.grad_design(layout)
     assert design == ("resident" if ports <= 138 else "warp_rows")
-    before = mesh.mesh_apply_stacked_grad.launches
-    by_design = mesh.mesh_apply_stacked_grad.design_launches[design]
-    dx, dph = mesh.mesh_apply_stacked_grad(layout, phases, diag, y, dy,
-                                           transpose)
-    assert mesh.mesh_apply_stacked_grad.launches == before + 1
-    assert mesh.mesh_apply_stacked_grad.design_launches[design] == \
-        by_design + 1
+    resident = (mesh.resident_grad_design(layout) if design == "resident"
+                else None)
+    if resident is not None:    # the warp design up to 64 ports
+        assert resident == ("warp" if ports <= 64 else "block")
     pdx, pdph = ref.mesh_apply_grad_ref(layout, phases, diag, x, y, dy,
                                         transpose)
-    _grad_close(dx.sum(0) if shared else dx, pdx)
-    _grad_close(dph, pdph)
-    dx2, dph2 = mesh.mesh_apply_stacked_grad(layout, phases, diag, y, dy,
-                                             transpose)
-    assert torch.equal(dx, dx2) and torch.equal(dph, dph2)
-    only, none = mesh.mesh_apply_stacked_grad(layout, phases, diag, y, dy,
-                                              transpose, need_dphases=False)
-    assert none is None and torch.equal(only, dx)
+    grad = mesh.mesh_apply_stacked_grad
+    # the design the layout picks and, for a resident layout, the block
+    # design forced
+    for force in ((None, "block") if resident == "warp" else (None,)):
+        res = force or resident
+        with (mesh._forced_resident(force) if force
+              else contextlib.nullcontext()):
+            before = (grad.launches, grad.design_launches[design],
+                      grad.resident_launches.get(res))
+            dx, dph = grad(layout, phases, diag, y, dy, transpose)
+            assert (grad.launches, grad.design_launches[design],
+                    grad.resident_launches.get(res)) == (
+                before[0] + 1, before[1] + 1,
+                None if res is None else before[2] + 1)
+            _grad_close(dx.sum(0) if shared else dx, pdx)
+            _grad_close(dph, pdph)
+            dx2, dph2 = grad(layout, phases, diag, y, dy, transpose)
+            assert torch.equal(dx, dx2) and torch.equal(dph, dph2)
+            only, none = grad(layout, phases, diag, y, dy, transpose,
+                              need_dphases=False)
+            assert none is None and torch.equal(only, dx)
+            if resident is not None:
+                # dx is the plain version's bits; dphases alone its own
+                assert torch.equal(dx.sum(0) if shared else dx, pdx)
+                none, only = grad(layout, phases, diag, y, dy, transpose,
+                                  need_dx=False)
+                assert none is None and torch.equal(only, dph)
+    if resident is not None and resident != "warp":
+        with pytest.raises(ValueError, match="no 'warp' design"), \
+                mesh._forced_resident("warp"):
+            grad(layout, phases, diag, y, dy, transpose)
+
+
+def test_resident_warp_design_refuses_what_it_does_not_take(cuda):
+    """Forced onto a layout it does not take (a 33-port mesh whose pairs
+    are not adjacent, a 65-port rectangular one), the warp design raises
+    before any launch; so does any resident design forced onto a layout
+    the resident backward does not hold."""
+    grad = mesh.mesh_apply_stacked_grad
+    wide = photonic.rectangular_layout(65)
+    odd = photonic.schedule_ops(33, [(a, (a + 5) % 33) for a in range(0, 33,
+                                                                      2)])
+    for layout in (wide, odd):
+        assert mesh.resident_grad_design(layout) == "block"
+        S, B = 1, 9
+        phases = torch.zeros((S, *layout.phase_shape()), device=cuda)
+        diag = torch.ones(layout.ports, device=cuda)
+        y = torch.randn((S, B, layout.ports), device=cuda)
+        before = grad.launches
+        with pytest.raises(ValueError, match="no 'warp' design"), \
+                mesh._forced_resident("warp"):
+            grad(layout, phases, diag, y, y)
+        assert grad.launches == before
+    lay = photonic.rectangular_layout(160)
+    y = torch.randn((1, 3, 160), device=cuda)
+    with pytest.raises(ValueError, match="not the resident one"), \
+            mesh._forced_resident("block"):
+        grad(lay, torch.zeros((1, *lay.phase_shape()), device=cuda),
+             torch.ones(160, device=cuda), y, y)
 
 
 @pytest.mark.parametrize("B,transpose", [(300, False), (1600, True)])

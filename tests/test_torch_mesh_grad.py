@@ -309,6 +309,184 @@ def test_warp_design_summation_order_matches_plain_and_jax(noisy):
             _close(a, c)
 
 
+def _res_warp_model(layout, phases, diag, y, dy, transpose, config,
+                    drop=None):
+    """The resident backward's warp design (``csrc/mesh_apply.cu::
+    mesh_apply_grad_warp_kernel``) in its summation order on the host: the
+    levels walked back from y as ``ref.mesh_reverse`` walks them (each
+    slot's term over a row formed at its first wire), the terms of a row
+    group's R rows summed by the warp's shuffle tree, the groups a warp
+    walks added in order, the warps of a column in order, the columns in
+    order; ``config`` is ``mesh_apply.resident_grad_warp_config``'s.
+    ``drop``: a row group left out (a mutant).  Returns (dx, dphases)."""
+    _, R, warps, cols, per, _, _ = config
+    P, L, K = layout.ports, layout.levels, layout.slots
+    S, B = y.shape[:2]
+    d = diag[:, None, :] if diag.ndim == 2 else diag
+    y, g = (y / d, dy * d) if transpose else (y, dy)
+    plan = ph.mesh_plan_tensors(layout, y.device)
+    perm, sign, slot = plan["perm"], plan["sign"], plan["slot"]
+    ph_w = torch.gather(phases, -1, slot.expand(S, L, P))
+    C = torch.where(sign != 0.0, torch.cos(ph_w), torch.ones_like(ph_w))
+    Sn = sign * torch.sin(ph_w)                      # stored level order
+    groups = -(-B // R)
+    terms = torch.zeros((S, groups, L, K))
+    for c in reversed(range(L)):
+        cl = L - 1 - c if transpose else c
+        cc, sc = C[:, cl, None], Sn[:, cl, None]
+        s = -sc if transpose else sc
+        yp, gp = y[..., perm[cl]], g[..., perm[cl]]
+        x = cc * y - s * yp
+        first = torch.nonzero(sign[cl] < 0.0)[:, 0]
+        cb = cc if transpose else -cc
+        xp = x[..., perm[cl]]
+        t = (g * (sc * x + cb * xp) + gp * (sc * xp - cb * x))[..., first]
+        rows = torch.nn.functional.pad(t, (0, 0, 0, groups * R - B))
+        rows = rows.reshape(S, groups, R, -1).clone()
+        step = 1
+        while step < R:                               # the shuffle tree
+            for r in range(0, R - step, 2 * step):
+                rows[:, :, r] = rows[:, :, r] + rows[:, :, r + step]
+            step *= 2
+        terms[:, :, cl, slot[cl, first]] = rows[:, :, 0]
+        g = cc * g - s * gp
+        y = x
+    dph = None
+    for col in range(cols):
+        block = None
+        for q in range(warps):
+            acc = torch.zeros((S, L, K))
+            for gi in range(col * per + q, min(groups, (col + 1) * per),
+                            warps):
+                if gi != drop:
+                    acc = acc + terms[:, gi]
+            block = acc if block is None else block + acc
+        dph = block if dph is None else dph + block
+    return (g if transpose else g * d), dph
+
+
+@pytest.mark.parametrize("ports,S,shared,transpose,sms", [
+    (16, 1, False, False, 4), (16, 2, False, True, 2),
+    (21, 1, True, True, 1), (21, 2, True, True, 8),
+    (64, 1, False, False, 2), (64, 2, False, True, 1)])
+def test_resident_warp_design_summation_order_matches_plain_and_jax(
+        ports, S, shared, transpose, sms):
+    """The resident backward's warp design in its own summation order
+    (``_res_warp_model``: a warp's rows by its shuffle tree, its row
+    groups, the warps and the block columns in order; 16 and 21 ports a
+    wire a lane, 64 two), with the launch ``resident_grad_warp_config``
+    gives a card of ``sms`` SMs (one column to several, folded or
+    summed), against ``ref.mesh_apply_grad_ref`` and ``jax.vjp`` of the
+    JAX package's mesh: dx bit for bit with the plain version, dphases
+    within the tolerance; the model with a row group dropped fails it."""
+    B = {16: 75, 21: 41, 64: 19}[ports]
+    layout, phases, diag, x, dy = _apply_inputs(ports, S, B, shared,
+                                                ports + S + 7 * transpose)
+    assert mesh.resident_grad_design(layout) == "warp"
+    config = mesh.resident_grad_warp_config(layout, S, B, sms)
+    assert config[0] == (ports > 32) and config[1] == (1 if ports > 32
+                                                       else 32 // ports)
+    tp, td, tdy = map(torch.tensor, (phases, diag, dy))
+    y = ph.mesh_apply_stacked(layout, tp, td, torch.tensor(x), transpose)
+    dx, dph = _res_warp_model(layout, tp, td, y, tdy, transpose, config)
+    want_x, want_p = ref.mesh_apply_grad_ref(layout, tp, td, torch.tensor(x),
+                                             y, tdy, transpose)
+    assert torch.equal(dx.sum(0) if shared else dx, want_x)
+    _close(dph, want_p)
+    jp, jx = _jit_vjp(lambda p, xx: jph.mesh_apply_stacked(
+        jph.rectangular_layout(ports), p, jnp.asarray(diag), xx, transpose),
+        phases, x, cotangent=dy)
+    _close(dx.sum(0) if shared else dx, jx)
+    _close(dph, jp)
+    groups = -(-B // config[1])
+    _, mutant = _res_warp_model(layout, tp, td, y, tdy, transpose, config,
+                                drop=groups // 2)
+    with pytest.raises(AssertionError):
+        _close(mutant, want_p)
+
+
+def test_resident_grad_design_and_launch_config():
+    """The resident backward's design from the layout: rectangular meshes
+    of 4 to 64 ports take ``"warp"`` (a wire a lane up to 32, two past
+    it), a 65- and a 137-port one ``"block"``; a layout of at most 32
+    ports whose pairs are not adjacent ``"warp"``, one of 33 to 64
+    ``"block"``; a forced ``"warp"`` raises where it does not take the
+    layout.  The launch at onn's shapes on an H100's 132 SMs: layer 0's V
+    mesh on 100 rows in one launch that folds its columns; the hidden
+    layer's 64-port mesh on 4300 rows spread over one block an SM."""
+    for ports in (4, 5, 16, 21, 32, 33, 48, 63, 64):
+        assert mesh.resident_grad_design(ph.rectangular_layout(ports)) == \
+            "warp"
+    for ports in (65, 137):
+        layout = ph.rectangular_layout(ports)
+        assert mesh.grad_fits(layout)
+        assert mesh.resident_grad_design(layout) == "block"
+        assert mesh.resident_grad_design(layout, "block") == "block"
+        with pytest.raises(ValueError, match="no 'warp' design"):
+            mesh.resident_grad_design(layout, "warp")
+    far = [(a, (a + 5) % 24) for a in range(0, 24, 2)]
+    assert not mesh.adjacent_pairs(ph.schedule_ops(24, far))
+    assert mesh.resident_grad_design(ph.schedule_ops(24, far)) == "warp"
+    far = [(a, (a + 5) % 40) for a in range(0, 40, 2)]
+    assert not mesh.adjacent_pairs(ph.schedule_ops(40, far))
+    assert mesh.resident_grad_design(ph.schedule_ops(40, far)) == "block"
+    with pytest.raises(ValueError, match="no 'fast' design"):
+        mesh.resident_grad_design(ph.rectangular_layout(16), "fast")
+    assert mesh.resident_grad_warp_config(ph.rectangular_layout(21), 1, 100,
+                                          132) == (False, 1, 8, 13, 8, 1,
+                                                   True)
+    pairs, R, warps, cols, per, chunk, fold = mesh.resident_grad_warp_config(
+        ph.rectangular_layout(64), 1, 4300, 132)
+    assert (pairs, R, fold) == (True, 1, False)
+    assert chunk * warps >= per and chunk == 2
+    assert cols <= mesh.RES_WARP_BLOCKS_PER_SM * 132
+    assert (cols - 1) * per < 4300 <= cols * per
+    for ports, B in ((16, 4300), (21, 100), (21, 4300), (64, 4300)):
+        layout = ph.rectangular_layout(ports)
+        warps = mesh.resident_grad_warp_config(layout, 1, B, 132)[2]
+        assert mesh.resident_grad_warp_smem_bytes(
+            layout, warps) <= mesh.SMEM_MAX_BYTES
+
+
+def test_forced_resident_design_is_scoped_and_checked():
+    """``_forced_resident`` forces a resident design only inside its
+    block, restores the one before it (nested too), and refuses a design
+    the resident backward does not have."""
+    assert mesh._RESIDENT_FORCED is None
+    with mesh._forced_resident("block"):
+        assert mesh._RESIDENT_FORCED == "block"
+        with mesh._forced_resident("warp"):
+            assert mesh._RESIDENT_FORCED == "warp"
+        assert mesh._RESIDENT_FORCED == "block"
+    assert mesh._RESIDENT_FORCED is None
+    with pytest.raises(ValueError, match="no resident design 'fast'"):
+        with mesh._forced_resident("fast"):
+            pass
+    with pytest.raises(KeyError), mesh._forced_resident("warp"):
+        raise KeyError
+    assert mesh._RESIDENT_FORCED is None
+
+
+def test_fold_tickets_are_per_stream_zero_and_grow():
+    """The warp design's fold tickets: zero, at least S, cached for a
+    (device, stream) and anew for a larger stack; two streams of one
+    device never share a buffer, so a fold's reset is ordered by its own
+    stream."""
+    dev = torch.device("cpu")
+    for key in [(dev, 11), (dev, 12)]:
+        mesh._TICKETS.pop(key, None)
+    a = mesh._tickets(dev, 11, 3)
+    assert a.dtype == torch.int32 and a.numel() >= 3 and not a.any()
+    assert mesh._tickets(dev, 11, 2) is a
+    b = mesh._tickets(dev, 12, 3)
+    assert b is not a and b.data_ptr() != a.data_ptr()
+    c = mesh._tickets(dev, 11, a.numel() + 1)
+    assert c is not a and c.numel() > a.numel() and not c.any()
+    assert mesh._tickets(dev, 11, 1) is c and mesh._tickets(dev, 12, 1) is b
+    for key in [(dev, 11), (dev, 12)]:
+        mesh._TICKETS.pop(key, None)
+
+
 def _bytes(grp) -> bytes:
     return ctypes.string_at(ctypes.addressof(grp), ctypes.sizeof(grp))
 

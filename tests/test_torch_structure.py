@@ -139,6 +139,21 @@ def test_mesh_rows_grad_script_refuses_without_a_gpu():
     assert "[mesh-rows-grad]" not in proc.stdout and "ms" not in proc.stdout
 
 
+@pytest.mark.parametrize("tool,args,tag", [
+    ("mesh_apply_grad.py", ["build/parent/src"], "[mesh-apply-grad]"),
+    ("mesh_apply_grad_phases.py", [], "[phases]")])
+def test_resident_grad_scripts_refuse_without_a_gpu(tool, args, tag):
+    """So do the resident backward's parent-in-turns timing and its phase
+    stamps: no number, and nothing built, without the card."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run([sys.executable, str(ROOT / "tools" / tool),
+                           *args], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode != 0
+    assert tag not in proc.stdout and "ms" not in proc.stdout
+
+
 def test_table1_script_refuses_without_a_gpu(tmp_path):
     """So does the Table 1 script at its default device: no row runs and
     nothing is written."""
