@@ -42,7 +42,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 per entry), at helmholtz-2d's (layer 0 on its 2 identity
                 columns and on the 25 boundary rows, shared; the hidden
                 layer on 500 stencil rows and on 25 boundary rows per
-                entry) and a rank-4 non-square spec at P = 3,
+                entry), the spectral steps' hidden launches (hjb-20d at M
+                16: 31,600 line rows per entry; ns-2d: 4,600) and a
+                rank-4 non-square spec at P = 3,
                 B = 777, against ``tt_contract_batched_ref`` at the bound of
                 phase 3; every entry p bit for bit against
                 ``tt_contract(x[p], cores[p])``.  Each row names its design
@@ -350,6 +352,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 of the first 3 entries card vs CPU with the same z (1e-4 of
                 max|u|); identical params in all 11 entries give 11
                 distinct losses.  Times one call.
+ 21a. train-spectral — ``_train_pde`` again on hjb-20d with ``--estimator
+                spectral`` (M 16: 31,600 line rows an entry) and on ns-2d
+                with ``--estimator auto`` (its own spectral estimator, a
+                ``Domain``, a Fourier feature map, ``ic`` and ``data`` terms
+                on 25 rows each), 20 steps each.  Checks as phase 21's,
+                with the spectral launches (a step: 1 grouped densification
+                and 2 ``tt_contract_batched``, 2 more for each of ns-2d's
+                terms; no identity-columns launch): card vs CPU on one
+                step's first 3 entries for the u over the line rows and the
+                terms' rows (1e-4 of max|u|) and the losses (rtol 1e-1: the
+                spectral ∂² amplifies u's differences by k_max² ≤ (16π)² <
+                1/h²), and the derivatives from the card's line values
+                (cuFFT) held to ``spectral_derivs_ref`` in float64 within
+                twice the CPU FFT's distance; hjb-20d's loss falls, ns-2d
+                (``STILL_LOSS``: the JAX package's own ns-2d ZO run misses
+                its bar) moves every trainable leaf; both checkpoints
+                serve with their term weights.
  21b. mesh-grad-wide — phase 6c's three cases of the warp-rows backward
                 at onn's hidden 1024 (``MESH_GRAD_WIDE``: handed the hidden
                 layer's U mesh's y and dy on 4300 rows, layer 0's on 100
@@ -707,7 +726,7 @@ def phase_serve(device) -> dict:
 
 
 TIMED_BATCHED = ("hidden-stencil", "bs100-hidden-stencil",
-                 "helm-hidden-stencil")
+                 "helm-hidden-stencil", "hidden-spectral", "ns-2d-hidden")
 
 
 def phase_batched(device) -> dict:
@@ -722,7 +741,9 @@ def phase_batched(device) -> dict:
     # 203 stencil rows a point, 101 identity columns), the helm ones
     # helmholtz-2d's (2 inputs: 5 stencil rows a point, 2 identity columns;
     # its boundary term's 25 rows, layer 0 shared and the hidden layer per
-    # entry, fewer rows than a tile)
+    # entry, fewer rows than a tile); "hidden-spectral" hjb-20d's spectral
+    # step (M 16: 100·(21·15+1) line rows an entry), "ns-2d-hidden" ns-2d's
+    # (100·(3·15+1))
     cases = {"layer0-rows": (paper, 11, 100, True),
              "layer0-columns": (paper, 11, 21, True),
              "hidden-stencil": (paper, 11, 4300, False),
@@ -732,7 +753,9 @@ def phase_batched(device) -> dict:
              "helm-hidden-stencil": (paper, 11, 500, False),
              "helm-boundary-layer0": (paper, 11, 25, True),
              "helm-boundary-hidden": (paper, 11, 25, False),
-             "rank4-777": (rank4, 3, 777, False)}
+             "rank4-777": (rank4, 3, 777, False),
+             "hidden-spectral": (paper, 11, 31600, False),
+             "ns-2d-hidden": (paper, 11, 4600, False)}
     results = {}
     for i, (label, (spec, P, B, shared)) in enumerate(cases.items()):
         gen = torch.Generator().manual_seed(2000 + i)
@@ -3571,38 +3594,47 @@ PDE_TRAIN = {"heat-20d": (20, ()), "black-scholes-100d": (20, ()),
 # the card helmholtz-2d's loss on held batches moves by ~1e-5 relative
 # over 20–1000 steps and its val MSE by ~1e-4, while its step loss swings
 # ±15% with the batch; the JAX package's CLI at hidden 64 does the same
-# (val MSE 0.2425 → 0.2541 over 300 steps).  Their check is that every
-# trainable leaf moved; their losses are recorded
-STILL_LOSS = ("helmholtz-2d",)
+# (val MSE 0.2425 → 0.2541 over 300 steps).  ns-2d likewise: the JAX
+# package's own ZO run of it misses its bar (tests/test_ns.py, 1.888 →
+# 1.844 over 40 steps against < 0.8×; ROADMAP queue C), and the port's at
+# hidden 64 on the CPU moves its held batch by +0.6% over 20 steps.  Their
+# check is that every trainable leaf moved; their losses are recorded
+STILL_LOSS = ("helmholtz-2d", "ns-2d")
 STEIN_P, STEIN_B, STEIN_S = 11, 100, 32
 
 
-def _pde_want(problem, steps: int, log_every: int) -> dict:
-    """The counted launches of a fused tonn run of ``problem``: a step is
-    1 grouped densification and 3 ``tt_contract_batched`` (layer 0 on the
-    rows and on the identity columns, the hidden layer on the stencil),
-    2 more for each boundary or data term (layer 0 on its shared rows, the
-    hidden layer per entry); a validation forward 1 densification and 2
-    ``tt_contract``; a logged step of a problem with more than one term
-    also 1 densification and 3 + 2 per extra term ``tt_contract`` for
-    ``per_term_losses``."""
+def _pde_want(problem, steps: int, log_every: int, deriv: str) -> dict:
+    """The counted launches of a fused tonn run of ``problem`` with the
+    resolved estimator ``deriv``: a step is 1 grouped densification and 3
+    ``tt_contract_batched`` with ``fd_fast`` (layer 0 on the rows and on
+    the identity columns, the hidden layer on the stencil) or 2 with
+    ``spectral`` and ``fd`` (layer 0 on the shared line or stencil rows,
+    the hidden layer per entry), 2 more for each boundary or data term
+    (layer 0 on its shared rows, the hidden layer per entry); a validation
+    forward 1 densification and 2 ``tt_contract``; a logged step of a
+    problem with more than one term also 1 densification and as many
+    ``tt_contract`` as the step has chains for ``per_term_losses``."""
     extra = len(problem.loss_terms()) - 1
+    chains = (3 if deriv == "fd_fast" else 2) + 2 * extra
     vals = _val_evals(steps, log_every)
     logged = len(range(0, steps, log_every)) if extra else 0
     want = dict.fromkeys(BP_COUNTED, 0)
-    want["tt_contract_batched"] = (3 + 2 * extra) * steps
+    want["tt_contract_batched"] = chains * steps
     want["mesh_densify_stacked"] = steps + vals + logged
-    want["tt_contract"] = 2 * vals + (3 + 2 * extra) * logged
+    want["tt_contract"] = 2 * vals + chains * logged
     return want
 
 
 def _train_pde(device, pde: str, steps: int, flags: tuple = ()) -> dict:
     """``launch.train.main`` on ``pde`` at the paper's config (tonn, noise
-    on, ``fd_fast``, fused), N = 10, batch 100, with a checkpoint and
-    ``flags``; its launches, card vs CPU on one step's first 3 entries
-    (the stencil u, a boundary term's u, the losses), the checkpoint
-    served with its term weights, a ZO step timed.  Returns the row and
-    the trained result."""
+    on, ``fd_fast`` unless ``flags`` pick another estimator, fused), N =
+    10, batch 100, with a checkpoint and ``flags``; its launches, card vs
+    CPU on one step's first 3 entries (the stencil's or the line rows' u,
+    a boundary or data term's u, the losses; with ``spectral`` also the
+    derivatives from the card's line values, cuFFT against the CPU's FFT,
+    both held to the float64 oracle: ``_spectral_derivs_check``), the
+    checkpoint served with its term weights, a ZO step timed.  Returns the
+    row and the trained result."""
     import numpy as np
     import torch
     from repro_torch.core import pinn, zoo
@@ -3620,8 +3652,9 @@ def _train_pde(device, pde: str, steps: int, flags: tuple = ()) -> dict:
          str(log_every), "--seed", "0", *flags])
     model, params, noise = res.model, res.params, res.hw_noise
     problem = model.problem
+    deriv = pinn._resolve_deriv(model.cfg, problem)
     vals = _val_evals(steps, log_every)
-    want = _pde_want(problem, steps, log_every)
+    want = _pde_want(problem, steps, log_every, deriv)
     if launches != want:
         raise AssertionError(f"{pde}: {launches} over {steps} steps; "
                              f"expected {want}")
@@ -3657,16 +3690,24 @@ def _train_pde(device, pde: str, steps: int, flags: tuple = ()) -> dict:
         sp, nz, x = to_device(head, dev), to_device(noise, dev), xt.to(dev)
         terms = to_device(tb, dev)
         prepared = model.prepare_params_stacked(sp, nz)
-        u = model.fd_u_stencil_stacked(prepared, x, model.fd_step)
+        if deriv == "spectral":
+            rows = pinn._spectral_rows(model, x)
+            u = model.u_stacked(prepared, rows)
+            base = pinn._spectral_loss(model, u, rows, x)
+        else:
+            u = model.fd_u_stencil_stacked(prepared, x, model.fd_step)
+            base = pinn._loss_from_u_stencil(problem, u, model.fd_step, x)
         u_terms = {k: model.u_stacked(prepared, xb).cpu()
                    for k, (xb, _) in terms.items()}
-        losses = pinn._add_terms(
-            pinn._loss_from_u_stencil(problem, u, model.fd_step, x),
-            problem, terms, lambda xb: model.u_stacked(prepared, xb))
-        return u.cpu(), u_terms, losses.cpu()
+        losses = pinn._add_terms(base, problem, terms,
+                                 lambda xb: model.u_stacked(prepared, xb))
+        return u, u_terms, losses.cpu()
 
     u_card, ut_card, l_card = one_step(device)
     u_cpu, ut_cpu, l_cpu = one_step(torch.device("cpu"))
+    derivs = (_spectral_derivs_check(model, u_card, xt.to(device))
+              if deriv == "spectral" else None)
+    u_card = u_card.cpu()
     u_err, u_scale = _u_close(pde, u_card, u_cpu)
     term_u = {k: _u_close(f"{pde} {k}", ut_card[k], ut_cpu[k])
               for k in ut_cpu}
@@ -3707,13 +3748,15 @@ def _train_pde(device, pde: str, steps: int, flags: tuple = ()) -> dict:
                             zoo.ZOState(step=steps, seed=1), n,
                             term_batches=to_device(tb, device) or None)
     A = model.in_dim
+    rows_per_entry = (u_cpu.shape[-1] if deriv == "spectral"
+                      else (2 * A + 1) * batch)
     out = {"pde": pde, "in_dim": A, "hidden": model.cfg.hidden,
            "mode": model.cfg.mode, "deriv": model.cfg.deriv,
-           "noise": model.cfg.noise.enabled,
+           "resolved_deriv": deriv, "noise": model.cfg.noise.enabled,
            "specs": [[list(s.out_modes), list(s.in_modes), list(s.ranks)]
                      for s in model.specs],
            "steps": steps, "batch": batch,
-           "zo_samples": n, "hidden_rows_per_entry": (2 * A + 1) * batch,
+           "zo_samples": n, "hidden_rows_per_entry": rows_per_entry,
            "launches": launches, "validation_forwards": vals,
            "losses": [float(v) for v in losses], "val_mse": res.val_mse,
            "zo_step_ms": timed["zo_step_ms"][0],
@@ -3721,6 +3764,7 @@ def _train_pde(device, pde: str, steps: int, flags: tuple = ()) -> dict:
            "host_step_ms_median": 1e3 * float(np.median(res.step_seconds)),
            "train_wall_s": wall,
            "stencil_u_max_abs_card_vs_cpu": u_err, "stencil_u_max": u_scale,
+           "spectral_derivs": derivs,
            "term_u_max_abs_card_vs_cpu": {k: e for k, (e, _) in
                                           term_u.items()},
            "term_u_max": {k: m for k, (_, m) in term_u.items()},
@@ -3736,8 +3780,45 @@ def _train_pde(device, pde: str, steps: int, flags: tuple = ()) -> dict:
            "served_vs_direct_max_abs": served}
     spec = model.specs[1]
     out["hidden_bound_ms"], out["hidden_bound_by"] = _batched_bound(
-        spec, n + 1, (2 * A + 1) * batch, False)
+        spec, n + 1, rows_per_entry, False)
     return out, res
+
+
+def _spectral_derivs_check(model, u_card, xt) -> dict:
+    """The derivatives of one step's spectral loss from the card's u over
+    the line rows (the first 3 entries): on the card (cuFFT) and from the
+    same values on the CPU, each against ``spectral_derivs_ref`` in
+    float64; raises where the card's distance passes twice the CPU's, or
+    twice the f32 floor ε·max|v|·k_max^p (p = 1 for ∂, 2 for ∂²) where the
+    CPU sits below it.  Returns both distances and the bounds."""
+    import numpy as np
+    from repro_torch.core import spectral
+    from repro_torch.core.pinn import _spectral_grid
+    problem = model.problem
+    M, extent, periodization = _spectral_grid(model)
+    rows = spectral.spectral_line_rows(xt, model.in_dim, M, extent)
+    carrier = problem.spectral_carrier(rows, xt)
+    vals = u_card if carrier is None else u_card - carrier[0]
+    lines = spectral.line_vals_from_rows_vals(vals, xt.shape[0],
+                                              model.in_dim, M)
+    card = spectral.spectral_derivs(lines, extent, periodization)
+    cpu = spectral.spectral_derivs(lines.cpu(), extent, periodization)
+    oracle = spectral.spectral_derivs_ref(lines.cpu().numpy(), extent,
+                                          periodization)
+    out = {"lines": list(lines.shape), "points": M}
+    for p, (c, h, r) in enumerate(zip(card, cpu, oracle), start=1):
+        c_err = float(np.abs(c.cpu().numpy() - r).max())
+        h_err = float(np.abs(h.numpy() - r).max())
+        floor = (float(np.finfo(np.float32).eps) * lines.abs().max().item()
+                 * (np.pi * M / extent) ** p)
+        bound = 2 * max(h_err, floor)
+        if not c_err <= bound:
+            raise AssertionError(f"spectral d{p}: card {c_err:.3e} from the "
+                                 f"float64 oracle, CPU {h_err:.3e}; bound "
+                                 f"{bound:.3e}")
+        out[f"d{p}"] = {"card_err": c_err, "cpu_err": h_err,
+                        "bound": bound}
+    return out
 
 
 def _stein_pde(device, res) -> dict:
@@ -3832,6 +3913,23 @@ def _stein_pde(device, res) -> dict:
            "call_ms": _time_ms(stein_losses, 10, warmup=2),
            "call_trace": _profile(stein_losses, 1, match="tt_contract"),
            "layer0": layer0}
+    return out
+
+
+# pde -> (steps, trainer flags): hjb-20d by the spectral estimator (M 16:
+# 11 × 31,600 hidden rows a step), ns-2d by its own (auto → spectral, M
+# 16: 11 × 4,600, and its ic and data terms on 25 rows each)
+SPECTRAL_TRAIN = {"hjb-20d": (20, ("--estimator", "spectral")),
+                  "ns-2d": (20, ("--estimator", "auto"))}
+
+
+def phase_train_spectral(device) -> dict:
+    """hjb-20d with ``--estimator spectral`` and ns-2d by ``auto`` through
+    the trainer at the paper's config (``_train_pde``)."""
+    out = {}
+    for pde, (steps, flags) in SPECTRAL_TRAIN.items():
+        out[pde], _ = _train_pde(device, pde, steps, flags)
+        print(f"[train-spectral] {json.dumps(out[pde])}", flush=True)
     return out
 
 
@@ -4059,6 +4157,7 @@ def main() -> int:
     run(phase_table2)
     table1 = run(phase_table1, device)
     pdes = run(phase_train_pde, device)
+    spectral = run(phase_train_spectral, device)
     mesh_grad.update(run(phase_mesh_grad_wide))
 
     main_case = kernel["cases"][0]                       # paper spec, B=2048
@@ -4091,6 +4190,9 @@ def main() -> int:
                "launches_train_pde": {
                    name: pdes[name]["launches"]["tt_contract_batched"]
                    for name in (*PDE_TRAIN, "stein")},
+               "launches_train_spectral": {
+                   name: spectral[name]["launches"]["tt_contract_batched"]
+                   for name in SPECTRAL_TRAIN},
                "cases": [*batched.values(), pdes["stein"]["layer0"]]}
     # B3 has two entries in one source: the grouped densification, which
     # the training path runs, and the standalone mesh, which it no longer
@@ -4104,6 +4206,9 @@ def main() -> int:
                "launches_train_pde": {
                    name: pdes[name]["launches"]["mesh_densify_stacked"]
                    for name in (*PDE_TRAIN, "stein")},
+               "launches_train_spectral": {
+                   name: spectral[name]["launches"]["mesh_densify_stacked"]
+                   for name in SPECTRAL_TRAIN},
                "entry_launches": {
                    name: trained["launches"][name]
                    for name in ("mesh_densify_stacked",
@@ -4288,6 +4393,19 @@ def main() -> int:
               f"(P {bs['P']}, {bs['rows']} rows an entry): {bs['ms']:.4f} "
               f"ms (bound {bs['bound_ms']:.4f} ms, torch.bmm "
               f"{bs['library_ms']:.4f} ms) on {card}", flush=True)
+    for pde, label in (("hjb-20d", "hidden-spectral"),
+                       ("ns-2d", "ns-2d-hidden")):
+        row, bs = spectral[pde], batched[label]
+        trace = row["zo_step_trace"]
+        print(f"[train-spectral] {pde} ({row['resolved_deriv']}): "
+              f"{row['zo_step_ms']:.3f} ms per ZO step (CUDA events; "
+              f"traced: {trace['kernels_per_call']:.0f} kernels a step, "
+              f"busy share {trace['busy_share']}); hidden launch on "
+              f"{row['hidden_rows_per_entry']} rows an entry {bs['ms']:.4f} "
+              f"ms a call, {bs['kernel_device_ms']} ms alone (bound "
+              f"{bs['bound_ms']:.4f} ms, torch.bmm {bs['library_ms']:.4f} "
+              f"ms); loss {row['losses'][0]:.4e} -> {row['losses'][-1]:.4e}"
+              f", val MSE {row['val_mse']:.4e} on {card}", flush=True)
     st = pdes["stein"]
     print(f"[train-pde] stein {st['pde']} P {st['P']} B {st['batch']} S "
           f"{st['samples']}: {st['call_ms']:.3f} ms a stacked loss; "

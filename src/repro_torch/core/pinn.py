@@ -52,14 +52,20 @@ before the noise model.  ZO training is gradient-free, so fake-quant in the
 loss is the whole of QAT.  With ``cfg.quant`` disabled every path is the
 unquantized one, bit for bit.
 
-Derivatives come from the FD stencil (``fd``, ``fd_fast``) or the
+Derivatives come from the FD stencil (``fd``, ``fd_fast``), the
 Gaussian-smoothing Stein estimator (``stein``: 2S+1 stacked inferences at
-random directions, from an explicit ``generator`` or handed in as ``z``);
+random directions, from an explicit ``generator`` or handed in as ``z``;
 the stacked Stein path gives every entry of the stack its own directions,
-so its layer-0 launch reads per-entry rows.
+so its layer-0 launch reads per-entry rows) or the spectral one
+(``spectral``: u on per-axis line grids through each anchor,
+differentiated by FFT, ``core.spectral``; the stacked path puts the shared
+line rows through every perturbed model at once, two
+``tt_linear_batched`` launches, then FFTs each entry's lines).  ``auto``
+takes the problem's own estimator.  A problem with an input feature map
+(ns-2d's Fourier features) replaces the row with its features before the
+padding, and takes plain ``fd`` where ``fd_fast`` is asked for.
 
-Port of ``repro.core.pinn``.  The spectral estimator is not ported yet
-(ROADMAP item 9a).  Two paths of the JAX
+Port of ``repro.core.pinn``.  Two paths of the JAX
 package are CPU-XLA workarounds with no counterpart here: the polynomial
 ``fast_sin`` (the port takes ``torch.sin``) and the Kronecker head of
 ``_f_head_stacked`` (the port takes the TT chain, as the JAX package does
@@ -76,7 +82,7 @@ import math
 import torch
 
 from repro_torch import pde as pde_lib
-from repro_torch.core import photonic, stein, tt
+from repro_torch.core import photonic, spectral, stein, tt
 from repro_torch.kernels import mesh_apply as mesh_kernels
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant as quant_lib
@@ -92,7 +98,9 @@ PORTED_MODES = ("dense", "onn", "tt", "tonn")
 class PINNConfig:
     """Every field of ``repro.core.pinn.PINNConfig``, so checkpoint meta
     round-trips.  The port reads ``hidden``, ``mode``, ``tt_rank``,
-    ``tt_L``, ``pde``, ``noise``, ``quant``, ``fd_step`` and ``deriv``.
+    ``tt_L``, ``pde``, ``noise``, ``quant``, ``fd_step``, ``deriv``,
+    ``stein_sigma``, ``stein_samples`` and ``spectral_points`` (None: the
+    problem's).
     ``use_fused_kernel`` picks nothing here: the TT layers always go
     through ``kernels.ops``."""
 
@@ -141,7 +149,7 @@ def onn_no_backward_ports(cfg: PINNConfig) -> list:
     same on every device; empty for the other modes."""
     if cfg.mode != "onn":
         return []
-    net = pde_lib.get_problem(cfg.pde).net_dim
+    net = pde_lib.get_problem(cfg.pde).feature_dim
     return sorted({p for p in (cfg.hidden, net)
                    if mesh_kernels.grad_design(
                        photonic.rectangular_layout(p)) is None})
@@ -162,6 +170,9 @@ class TensorPinn:
         self.space_dim = self.problem.space_dim
         self.in_dim = self.problem.in_dim
         self.net_in = self.problem.net_dim
+        # the width the network takes: a feature map (``embed_features``)
+        # replaces the row, and its output is what gets padded
+        self.feat_in = self.problem.feature_dim
         # an explicit config value wins; None takes the problem's step
         self.fd_step = (cfg.fd_step if cfg.fd_step is not None
                         else self.problem.fd_step)
@@ -169,11 +180,12 @@ class TensorPinn:
         # consumer keeps its unquantized path
         self._quant = cfg.quant if cfg.quant.enabled else None
         h = cfg.hidden
-        self.in_pad, self.specs = self.net_in, []
+        self.in_pad, self.specs = self.feat_in, []
         if cfg.mode in ("tt", "tonn"):
             # pad the input up to a TT-factorizable width (the paper folds
             # 21 → 1024 so layer 1 is a 1024×1024 TT matrix)
-            self.in_pad = h if h >= self.net_in else -(-self.net_in // 8) * 8
+            self.in_pad = (h if h >= self.feat_in
+                           else -(-self.feat_in // 8) * 8)
             self.specs = [
                 tt.hjb_layer_spec(h, self.in_pad, L=cfg.tt_L,
                                   max_rank=cfg.tt_rank),
@@ -181,7 +193,7 @@ class TensorPinn:
             ]
         self.dims = [(h, self.in_pad), (h, h), (1, h)]
         if cfg.mode == "onn":
-            # the input is not padded: layer 0 is a (hidden × net_in) SVD
+            # the input is not padded: layer 0 is a (hidden × feat_in) SVD
             # pair of meshes
             self.photonic = [photonic.PhotonicMatrix(m, n)
                              for (m, n) in self.dims[:2]]
@@ -333,8 +345,11 @@ class TensorPinn:
                              quant=self._quant)
 
     def _embed(self, xt: torch.Tensor) -> torch.Tensor:
-        """Raw rows (..., net_in) → network inputs (..., in_pad), zero-padded."""
-        return torch.nn.functional.pad(xt, (0, self.in_pad - self.net_in))
+        """Rows (..., net_in) → network inputs (..., in_pad): the problem's
+        feature map where it has one, then zero-padded."""
+        if self.problem.has_feature_map:
+            xt = self.problem.embed_features(xt)
+        return torch.nn.functional.pad(xt, (0, self.in_pad - self.feat_in))
 
     def f(self, params: dict, xt: torch.Tensor,
           noise: dict | None = None) -> torch.Tensor:
@@ -521,15 +536,43 @@ def _term_plan(problem: pde_lib.PDEProblem,
 
 
 def _resolve_deriv(cfg: PINNConfig, problem: pde_lib.PDEProblem) -> str:
-    """``cfg.deriv``, "auto" deferring to the problem's ``estimator``;
-    raises for an estimator the port does not have yet."""
+    """``cfg.deriv``, "auto" deferring to the problem's ``estimator``.
+    ``fd_fast``'s rank-1 stencil needs an affine embedding, which a feature
+    map breaks: such a problem takes plain ``fd`` (the same estimate, more
+    layer-1 rows)."""
     deriv = problem.estimator if cfg.deriv == "auto" else cfg.deriv
-    if deriv in ("fd", "fd_fast", "stein"):
+    if deriv == "fd_fast" and problem.has_feature_map:
+        return "fd"
+    if deriv in ("fd", "fd_fast", "stein", "spectral"):
         return deriv
-    if deriv == "spectral":
-        raise NotImplementedError("the spectral estimator is not ported yet "
-                                  "(ROADMAP queue A, item 9a)")
     raise ValueError(f"unknown derivative estimator {deriv!r}")
+
+
+def _spectral_grid(model: TensorPinn) -> tuple:
+    """(M, extent, periodization) of the model's problem: M from the
+    config when set, the domain's facts always from the problem."""
+    problem = model.problem
+    M = model.cfg.spectral_points or problem.spectral_points
+    return M, problem.spectral_extent, problem.spectral_periodization
+
+
+def _spectral_rows(model: TensorPinn, xt: torch.Tensor) -> torch.Tensor:
+    """The deduped line rows through the anchors ``xt``."""
+    M, extent, _ = _spectral_grid(model)
+    return spectral.spectral_line_rows(xt, model.in_dim, M, extent)
+
+
+def _spectral_loss(model: TensorPinn, vals: torch.Tensor,
+                   rows: torch.Tensor, xt: torch.Tensor) -> torch.Tensor:
+    """Residual loss from u over the line rows: vals (..., R) → the mean
+    squared residual over the anchors, (...,) (leading axes: the stack)."""
+    problem = model.problem
+    M, extent, periodization = _spectral_grid(model)
+    est = spectral.estimate_from_line_vals(
+        vals, xt, model.in_dim, M, extent, periodization,
+        carrier=problem.spectral_carrier(rows, xt))
+    r = problem.residual(problem.scale_estimate(est), xt)
+    return torch.mean(r * r, dim=-1)
 
 
 def _add_terms(loss: torch.Tensor, problem: pde_lib.PDEProblem,
@@ -550,15 +593,19 @@ def residual_loss(model: TensorPinn, params: dict, xt: torch.Tensor,
                   generator: torch.Generator | None = None,
                   z: torch.Tensor | None = None) -> torch.Tensor:
     """BP-free composite PDE loss of one parameter set: the collocation
-    residual over ``xt`` from FD derivatives (``fd_fast``: layer 1 once)
-    or Stein's (``cfg.stein_samples`` directions drawn from ``generator``,
-    or ``z`` (S, B, D) as given) plus ``weight · MSE(u(x), target)`` per
-    supplied boundary/data term."""
+    residual over ``xt`` from FD derivatives (``fd_fast``: layer 1 once),
+    Stein's (``cfg.stein_samples`` directions drawn from ``generator``, or
+    ``z`` (S, B, D) as given) or spectral ones (u on the line rows through
+    the anchors ``xt``, one forward) plus ``weight · MSE(u(x), target)``
+    per supplied boundary/data term."""
     problem = model.problem
     deriv = _resolve_deriv(model.cfg, problem)
     params, noise = model.prepare_params(params, noise)
     h = model.fd_step
-    if deriv == "fd_fast":
+    if deriv == "spectral":
+        rows = _spectral_rows(model, xt)
+        loss = _spectral_loss(model, model.u(params, rows, noise), rows, xt)
+    elif deriv == "fd_fast":
         vals = model.fd_u_stencil(params, xt, h, noise)
         loss = _loss_from_u_stencil(problem, vals, h, xt)
     elif deriv == "stein":
@@ -599,13 +646,22 @@ def residual_losses_stacked(model: TensorPinn, stacked_params: dict,
     stacked params still see distinct noise (the reference splits its key
     per entry).  It stays one stacked program: each entry's (2S+1)·B rows
     go through its own model, two per-entry ``tt_linear_batched``
-    launches."""
+    launches.
+
+    With ``spectral`` the B·(A·(M−1)+1) line rows are shared by the stack:
+    one stacked forward (two ``tt_linear_batched`` launches, layer 0 on
+    the shared rows), then each entry's lines go through the FFT."""
     problem = model.problem
     deriv = _resolve_deriv(model.cfg, problem)
     prepared = model.prepare_params_stacked(stacked_params, noise)
     eff_noise = noise if model.cfg.mode == "onn" else None
     h = model.fd_step
-    if deriv == "stein":
+    if deriv == "spectral":
+        rows = _spectral_rows(model, xt)
+        losses = _spectral_loss(model,
+                                model.u_stacked(prepared, rows, eff_noise),
+                                rows, xt)
+    elif deriv == "stein":
         P = prepared["b0"].shape[0]
         z = stein.stein_directions(xt, generator, model.cfg.stein_samples,
                                    model.in_dim, z, lead=(P,))

@@ -12,8 +12,8 @@ These are not the JAX package's streams: its keys are threefry
 numpy's ``SeedSequence``, so the two packages draw different points from
 the same seed.  Parity tests hand both packages the same arrays.
 
-Port of the PINN part of ``repro.data.pipeline``; the LM token streams,
-grouped coefficient draws and the spectral line grids are not ported yet.
+Port of the PINN part of ``repro.data.pipeline``; the LM token streams
+and grouped coefficient draws are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,9 +23,11 @@ from typing import Iterator
 import torch
 
 from repro_torch import pde as pde_lib
+from repro_torch.core import spectral
 from repro_torch.device import counter_generator
 
-__all__ = ["pde_collocation_iterator", "pde_term_batch_iterator"]
+__all__ = ["pde_collocation_iterator", "pde_term_batch_iterator",
+           "pde_line_grid_iterator"]
 
 
 def pde_collocation_iterator(n: int, seed: int = 0, start_step: int = 0,
@@ -65,4 +67,27 @@ def pde_term_batch_iterator(n: int, seed: int = 0, start_step: int = 0,
             if batch is not None:
                 out[t.name] = batch
         yield out
+        step += 1
+
+
+def pde_line_grid_iterator(n_anchors: int, seed: int = 0,
+                           start_step: int = 0, pde: str | None = None,
+                           problem: pde_lib.PDEProblem | None = None,
+                           points: int | None = None) -> Iterator[tuple]:
+    """The spectral estimator's collocation stream: ``(anchors, rows)`` a
+    step, ``anchors`` (B, net_dim) from the problem's sampler with the
+    collocation stream's keys (at batch B the anchors are that stream's
+    points), ``rows`` the deduped line grids through them
+    (``spectral_line_rows``, M = ``points`` or the problem's).  The loss
+    paths rebuild the rows from the anchors, so trainers feed only the
+    anchors; the rows are for whoever meters the inference bill."""
+    if problem is None:
+        problem = pde_lib.get_problem(pde)
+    M = problem.spectral_points if points is None else points
+    step = start_step
+    while True:
+        anchors = problem.sample_collocation(
+            counter_generator(seed, step, 0), n_anchors)
+        yield anchors, spectral.spectral_line_rows(
+            anchors, problem.in_dim, M, problem.spectral_extent)
         step += 1

@@ -36,7 +36,14 @@ default device; ``--device cpu`` runs the plain versions on the CPU,
 ``tt_contract_batched`` launches a step); ``--bc-weight`` sets λ and
 ``--term-weight NAME=W`` any term's weight, both recorded in the
 checkpoint's ``term_weights``, and a problem with more than one term logs
-each term's loss.  ``--quant int8|fp8_e4m3`` (with
+each term's loss.  ``--estimator spectral`` (``--spectral-points M``)
+takes derivatives by FFT over per-axis line grids through the batch's
+anchors instead of the FD stencil: the stacked step puts the shared line
+rows through every perturbed model in two ``tt_contract_batched``
+launches.  ``--estimator auto`` takes the problem's own estimator: ns-2d
+(``--pde ns-2d``, on a ``Domain`` with a Fourier feature map) trains by
+the spectral one with its ``ic`` and ``data`` terms, two launches more
+each.  ``--quant int8|fp8_e4m3`` (with
 ``--quant-block``, default 32) and ``--phase-bits`` train it
 quantization-aware: block-scaled TT cores (the
 ``tt_contract_batched_quant`` kernel in place of ``tt_contract_batched``)
@@ -209,7 +216,11 @@ def _pinn_config(args) -> pinn.PINNConfig:
     build = pinn_reduced if args.reduced else pinn_config
     overrides = {"hidden": args.hidden} if args.hidden else {}
     if args.estimator:
+        # the estimator travels in the config, and so into the checkpoint's
+        # meta for serving and resume
         overrides["deriv"] = args.estimator
+    if args.spectral_points:
+        overrides["spectral_points"] = args.spectral_points
     if args.quant or args.phase_bits:
         # quantization-aware ZO training: fake-quant inside the loss
         overrides["quant"] = QuantConfig(
@@ -229,8 +240,6 @@ def _unported(args) -> list:
          f"BP training of --pinn-mode onn at widths {held} (--optimizer "
          f"{args.optimizer}; those meshes take the owner walk, which has no "
          "backward kernel)", "6c-3"),
-        (args.estimator == "spectral", "--estimator spectral", "9a"),
-        (args.spectral_points is not None, "--spectral-points", "9a"),
         (args.coeff_range is not None, "--coeff-range", 10),
         (args.coeff_dist is not None, "--coeff-dist", 10),
         (args.coeffs_per_step is not None, "--coeffs-per-step", 10),
@@ -408,7 +417,13 @@ def main(argv=None) -> TrainResult:
                     help="enable the fabrication-noise model")
     ap.add_argument("--estimator", default=None,
                     choices=[None, "fd", "fd_fast", "stein", "spectral",
-                             "auto"])
+                             "auto"],
+                    help="derivative estimator: central FD (fd, fd_fast), "
+                         "spectral line grids, or auto (the problem's own); "
+                         "default the config's (fd_fast when fused)")
+    ap.add_argument("--spectral-points", type=int, default=None,
+                    help="line-grid size M a differentiated axis for the "
+                         "spectral estimator (default: the problem's)")
     ap.add_argument("--quant", default=None, choices=[None, "int8", "fp8_e4m3"],
                     help="quantization-aware training: block-scaled TT-core "
                          "quantization")
@@ -435,7 +450,6 @@ def main(argv=None) -> TrainResult:
                     choices=["perturbation", "batch", "both"])
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--async-ckpt", action="store_true")
-    ap.add_argument("--spectral-points", type=int, default=None)
     ap.add_argument("--coeff-range", default=None)
     ap.add_argument("--coeff-dist", default=None,
                     choices=[None, "uniform", "loguniform"])

@@ -1,12 +1,14 @@
 """PDE problem registry, every problem trainable: ``hjb-20d`` / ``hjb-10d``
 (the paper's HJB benchmark), ``heat-10d`` / ``heat-20d`` (Gaussian exact
 solution), ``black-scholes-100d`` (the 100-asset Black–Scholes–Barenblatt
-benchmark) and ``helmholtz-2d`` (steady Helmholtz with a Dirichlet
-boundary loss, paper Eq. 4's L_b).  ``get_problem(name)`` resolves a name
+benchmark), ``helmholtz-2d`` (steady Helmholtz with a Dirichlet boundary
+loss, paper Eq. 4's L_b) and ``ns-2d`` (2-D Navier–Stokes in vorticity form
+on a periodic box: a ``Domain``, a Fourier feature map, three loss terms,
+trained by the spectral estimator).  ``get_problem(name)`` resolves a name
 to a fresh problem; ``estimate_for_problem`` estimates u's derivatives the
 way a problem is trained."""
 
-from repro_torch.pde.base import (LossTerm, PDEProblem, available,
+from repro_torch.pde.base import (Domain, LossTerm, PDEProblem, available,
                                   estimate_for_problem,
                                   estimate_from_u_stencil, fd_stencil_points,
                                   get_problem, register, uniform_box)
@@ -14,8 +16,10 @@ from repro_torch.pde.black_scholes import BlackScholesProblem  # registers
 from repro_torch.pde.heat import HeatProblem
 from repro_torch.pde.helmholtz import HelmholtzProblem
 from repro_torch.pde.hjb import HJBProblem
+from repro_torch.pde.navier_stokes import NavierStokes2D
 
-__all__ = ["LossTerm", "PDEProblem", "register", "get_problem", "available",
-           "uniform_box", "fd_stencil_points", "estimate_from_u_stencil",
-           "estimate_for_problem", "HJBProblem", "HeatProblem",
-           "BlackScholesProblem", "HelmholtzProblem"]
+__all__ = ["Domain", "LossTerm", "PDEProblem", "register", "get_problem",
+           "available", "uniform_box", "fd_stencil_points",
+           "estimate_from_u_stencil", "estimate_for_problem", "HJBProblem",
+           "HeatProblem", "BlackScholesProblem", "HelmholtzProblem",
+           "NavierStokes2D"]

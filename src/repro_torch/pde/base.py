@@ -11,9 +11,16 @@ closed-form exact solution.
 values and the estimate leaves: the stacked ZO path feeds them ``(P, ...)``
 values for all P SPSA perturbations at once.
 
-Port of ``repro.pde.base``.  Domains and coefficient families are not
-ported yet, so every problem here is unconditioned (``coeff_spec`` None),
-on its raw box (``domain`` None) and has no input feature map.
+A problem on a non-unit box declares a ``Domain``: its samplers emit
+unit-box rows, the network, the FD stencils and the spectral line grids
+work on them, and ``scale_estimate`` folds the Jacobian into every
+derivative estimate before the residual, which is stated in raw
+coordinates, sees it.  An input feature map (``embed_features``) replaces
+the row inside the network's embedding (ns-2d's Fourier features).
+
+Port of ``repro.pde.base``.  Coefficient families are not ported yet
+(ROADMAP item 10), so every problem here is unconditioned (``coeff_spec``
+None).
 """
 
 from __future__ import annotations
@@ -21,13 +28,73 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 
-from repro_torch.core import stein
+from repro_torch.core import spectral, stein
 
-__all__ = ["LossTerm", "PDEProblem", "register", "get_problem", "available",
-           "uniform_box", "fd_stencil_points", "estimate_from_u_stencil",
-           "estimate_for_problem"]
+__all__ = ["Domain", "LossTerm", "PDEProblem", "register", "get_problem",
+           "available", "uniform_box", "fd_stencil_points",
+           "estimate_from_u_stencil", "estimate_for_problem"]
+
+@dataclasses.dataclass(frozen=True)
+class Domain:
+    """Axis-aligned box [lo, hi]^D mapped to the unit box.
+
+    A problem that declares a ``Domain`` samples its rows in unit-box
+    coordinates z = (x − lo) / (hi − lo); the PDE residual is stated in
+    raw coordinates x.  The chain rule is a diagonal rescale, ∂_x = ∂_z / s
+    and ∂²_x = ∂²_z / s² with s = hi − lo per axis, which
+    ``PDEProblem.scale_estimate`` folds into every estimate."""
+
+    lo: tuple
+    hi: tuple
+
+    def __post_init__(self):
+        object.__setattr__(self, "lo", tuple(float(v) for v in self.lo))
+        object.__setattr__(self, "hi", tuple(float(v) for v in self.hi))
+        if len(self.lo) != len(self.hi):
+            raise ValueError("Domain lo/hi length mismatch")
+        if not self.lo:
+            raise ValueError("Domain needs at least one axis")
+        for a, b in zip(self.lo, self.hi):
+            if not a < b:
+                raise ValueError(f"Domain axis needs lo < hi, got [{a}, {b}]")
+
+    @property
+    def dim(self) -> int:
+        return len(self.lo)
+
+    @property
+    def scales(self) -> np.ndarray:
+        """(D,) per-axis Jacobian factors s = hi − lo of x = lo + s·z."""
+        return np.asarray(self.hi, dtype=np.float32) \
+            - np.asarray(self.lo, dtype=np.float32)
+
+    @property
+    def is_unit(self) -> bool:
+        return all(a == 0.0 and b == 1.0 for a, b in zip(self.lo, self.hi))
+
+    def _lo_scales(self, like: torch.Tensor) -> tuple:
+        return (torch.tensor(self.lo, dtype=like.dtype, device=like.device),
+                torch.tensor(self.scales, dtype=like.dtype,
+                             device=like.device))
+
+    def from_unit(self, z: torch.Tensor) -> torch.Tensor:
+        """Unit-box rows (..., ≥D) → raw coordinates on the first D columns
+        (trailing coefficient slots pass through untouched)."""
+        lo, s = self._lo_scales(z)
+        head = lo + s * z[..., :self.dim]
+        return torch.cat([head, z[..., self.dim:]], dim=-1) \
+            if z.shape[-1] > self.dim else head
+
+    def to_unit(self, x: torch.Tensor) -> torch.Tensor:
+        """Inverse of ``from_unit``: raw rows → unit-box coordinates."""
+        lo, s = self._lo_scales(x)
+        head = (x[..., :self.dim] - lo) / s
+        return torch.cat([head, x[..., self.dim:]], dim=-1) \
+            if x.shape[-1] > self.dim else head
+
 
 _TERM_KINDS = ("collocation", "boundary", "data")
 
@@ -67,9 +134,18 @@ class PDEProblem:
     residual_tol: float = 5e-2    # MSQ residual of the exact solution under
     #                               the f32 FD estimator at ``fd_step``
     coeff_spec = None             # coefficient families are not ported yet
-    domain = None                 # domain normalization is not ported yet
-    estimator: str = "fd"         # what PINNConfig.deriv == "auto" picks
+    domain: Domain | None = None  # set: the samplers emit unit-box rows and
+    #                               scale_estimate folds in the Jacobian
     _term_weights: dict = {}      # per-instance overrides, set_term_weights
+    # the estimator PINNConfig.deriv == "auto" picks, and the spectral
+    # estimator's line grids: ``spectral_points`` points a line spanning
+    # ``spectral_extent`` in each active coordinate, made FFT-ready by
+    # ``spectral_periodization`` ("window", "periodic" or a per-axis tuple;
+    # repro_torch.core.spectral)
+    estimator: str = "fd"         # "fd" | "stein" | "spectral"
+    spectral_points: int = 16
+    spectral_extent: float = 1.0
+    spectral_periodization: str | tuple = "window"
 
     @property
     def in_dim(self) -> int:
@@ -85,9 +161,35 @@ class PDEProblem:
         """Row width the network consumes (in_dim + n_coeffs)."""
         return self.in_dim + self.n_coeffs
 
+    def embed_features(self, xt: torch.Tensor):
+        """Optional input feature map (..., net_dim) → (..., feature_dim),
+        applied inside the network's embedding before the padding (e.g.
+        Fourier features that make the network exactly periodic).  A
+        problem with one cannot take ``fd_fast`` (its rank-1 layer-1 trick
+        needs an affine embedding): ``core.pinn`` runs plain ``fd``.  None
+        (the default) keeps the zero-padded row."""
+        return None
+
+    @property
+    def feature_dim(self) -> int:
+        """Network input width after ``embed_features`` (net_dim without a
+        feature map)."""
+        return self.net_dim
+
     @property
     def has_feature_map(self) -> bool:
-        return False
+        return type(self).embed_features is not PDEProblem.embed_features
+
+    def spectral_carrier(self, rows: torch.Tensor, anchors: torch.Tensor):
+        """Closed-form additive ansatz part β with its exact derivatives,
+        or None.  Line segments of the spectral estimator can cross kinks of
+        the ansatz (HJB's ‖x‖₁ at x_i = 0), which leave O(1) Gibbs error in
+        the FFT Hessian.  A problem whose ansatz is u = s + β returns
+        ``(β(rows), ∇β(anchors), diag∇²β(anchors))``, shapes ``(R,)``,
+        ``(B, A)``, ``(B, A)`` for ``rows`` (R, net_dim) and ``anchors``
+        (B, net_dim), A = in_dim: the FFT then sees only u − β.  None (the
+        default) differentiates u itself."""
+        return None
 
     def sample_collocation(self, generator: torch.Generator, n: int) -> torch.Tensor:
         """(n, in_dim) interior points (float32, on the CPU)."""
@@ -160,13 +262,16 @@ class PDEProblem:
 
     def scale_estimate(self, est: stein.DerivativeEstimate
                        ) -> stein.DerivativeEstimate:
-        """Fold the domain's Jacobian into a unit-box estimate: the
-        identity (the same object) while ``domain`` is None."""
-        if self.domain is not None:
-            raise NotImplementedError(
-                "domain normalization is not ported yet (ROADMAP queue A, "
-                "item 9a)")
-        return est
+        """Fold the ``Domain`` Jacobian into a unit-box estimate: ∂_x =
+        ∂_z / s, ∂²_x = ∂²_z / s² per active axis.  With no domain, or the
+        unit box, the estimate comes back unchanged: the same object."""
+        if self.domain is None or self.domain.is_unit:
+            return est
+        g = est.grad
+        s = torch.tensor(self.domain.scales[:g.shape[-1]], dtype=g.dtype,
+                         device=g.device)
+        return stein.DerivativeEstimate(u=est.u, grad=g / s,
+                                        hess_diag=est.hess_diag / (s * s))
 
 
 def uniform_box(generator: torch.Generator, n: int, dim: int, lo: float,
@@ -210,18 +315,22 @@ def estimate_for_problem(problem: PDEProblem, f: Callable,
     """Derivative estimate of a callable u at rows ``xt`` under the
     problem's declared estimator (or ``estimator``), with the domain
     Jacobian folded in: "evaluate the residual the way this problem is
-    trained" as one call.  ``generator`` and ``z`` (the Stein directions,
-    (S, B, D)) are read by the stein estimator only."""
+    trained" as one call.  ``f(rows)`` takes any number of rows (the
+    spectral estimator feeds it line rows).  ``generator`` and ``z`` (the
+    Stein directions, (S, B, D)) are read by the stein estimator only."""
     deriv = problem.estimator if estimator is None else estimator
-    if deriv in ("fd", "fd_fast"):
+    if deriv == "spectral":
+        est = spectral.spectral_estimate(
+            f, xt, points=problem.spectral_points,
+            extent=problem.spectral_extent,
+            periodization=problem.spectral_periodization,
+            n_active=problem.in_dim, carrier=problem.spectral_carrier)
+    elif deriv in ("fd", "fd_fast"):
         est = stein.fd_estimate(f, xt, h=problem.fd_step,
                                 n_active=problem.in_dim)
     elif deriv == "stein":
         est = stein.stein_estimate(f, xt, generator, n_active=problem.in_dim,
                                    z=z)
-    elif deriv == "spectral":
-        raise NotImplementedError("the spectral estimator is not ported yet "
-                                  "(ROADMAP queue A, item 9a)")
     else:
         raise ValueError(f"unknown estimator {deriv!r}")
     return problem.scale_estimate(est)

@@ -60,6 +60,17 @@ class BlackScholesProblem(base.PDEProblem):
         x, t = xt[..., :D], xt[..., D]
         return (1.0 - t) * f + self._terminal(x)
 
+    def spectral_carrier(self, rows: torch.Tensor, anchors: torch.Tensor):
+        """β = ‖x‖²/D, the ansatz's closed-form payoff, differentiated
+        analytically: ∂_i β = 2x_i/D, diag ∇²β = 2/D, ∂_t β = 0."""
+        D = self.space_dim
+        beta = self._terminal(rows[..., :D])
+        grad_x = 2.0 * anchors[..., :D] / D
+        zeros_t = torch.zeros_like(anchors[..., D:D + 1])
+        hess_x = torch.full_like(grad_x, 2.0 / D)
+        return (beta, torch.cat([grad_x, zeros_t], dim=-1),
+                torch.cat([hess_x, zeros_t], dim=-1))
+
     def residual(self, est: stein.DerivativeEstimate,
                  xt: torch.Tensor) -> torch.Tensor:
         """u_t + ½σ² Σ x_i²∂²_i u − r(u − Σ x_i ∂_i u)."""

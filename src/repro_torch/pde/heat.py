@@ -7,7 +7,7 @@
 The ansatz u = (1−t)·f + g(x), g the terminal Gaussian, makes the terminal
 condition exact, so the training loss is the residual alone.  The port has
 the κ = 1 problem; the diffusivity pin, the κ family and its boundary faces
-are ROADMAP items 10 and 9a.
+are ROADMAP item 10.
 """
 
 from __future__ import annotations
@@ -58,6 +58,21 @@ class HeatProblem(base.PDEProblem):
         u_t = est.grad[..., D]
         lap = torch.sum(est.hess_diag[..., :D], dim=-1)
         return u_t + lap
+
+    def spectral_carrier(self, rows: torch.Tensor, anchors: torch.Tensor):
+        """β = g(x), the terminal Gaussian of the ansatz u = (1−t)·f + g,
+        differentiated analytically: ∂_i g = −(x_i−c)/(2s)·g, ∂²_i g =
+        (−1/(2s) + (x_i−c)²/(4s²))·g, ∂_t g = 0."""
+        D = self.space_dim
+        beta = self._terminal(rows[..., :D])
+        xa = anchors[..., :D] - self.center
+        ga = self._terminal(anchors[..., :D])[..., None]
+        grad_x = -xa / (2.0 * self.s) * ga
+        hess_x = (-1.0 / (2.0 * self.s)
+                  + xa * xa / (4.0 * self.s * self.s)) * ga
+        zeros_t = torch.zeros_like(anchors[..., D:D + 1])
+        return (beta, torch.cat([grad_x, zeros_t], dim=-1),
+                torch.cat([hess_x, zeros_t], dim=-1))
 
     def exact_solution(self, xt: torch.Tensor) -> torch.Tensor:
         D = self.space_dim

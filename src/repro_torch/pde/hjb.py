@@ -53,6 +53,17 @@ class HJBProblem(base.PDEProblem):
         lap = torch.sum(est.hess_diag[..., :D], dim=-1)
         return u_t + lap - self.lam * torch.sum(grad_x * grad_x, dim=-1) + 2.0
 
+    def spectral_carrier(self, rows: torch.Tensor, anchors: torch.Tensor):
+        """β = ‖x‖₁, the ansatz's closed-form part, whose kink at x_i = 0
+        spectral line segments near the domain's edge cross.  Taking it out
+        leaves the smooth (1−t)·f; ∂_i β = sign(x_i), ∂_t β = 0, diag ∇²β
+        = 0."""
+        D = self.space_dim
+        beta = torch.sum(torch.abs(rows[..., :D]), dim=-1)
+        grad = torch.cat([torch.sign(anchors[..., :D]),
+                          torch.zeros_like(anchors[..., D:D + 1])], dim=-1)
+        return beta, grad, torch.zeros_like(grad)
+
     def exact_solution(self, xt: torch.Tensor) -> torch.Tensor:
         """u(x,t) = ‖x‖₁ + 1 − t."""
         D = self.space_dim

@@ -1608,3 +1608,89 @@ def test_bp_runs_repeat_bit_for_bit(cuda, mode):
     assert a.losses == b.losses
     assert all(torch.equal(p, q) for p, q in zip(zoo.tree_leaves(a.params),
                                                  zoo.tree_leaves(b.params)))
+
+
+def _spectral_stack(pde, P=3, hidden=1024, tt_L=4):
+    """A tonn model (noise on) of ``pde`` with its own estimator or
+    spectral, a perturbation stack of P entries and its chip noise."""
+    cfg = pinn.PINNConfig(hidden=hidden, mode="tonn", tt_L=tt_L, pde=pde,
+                          deriv="spectral", use_fused_kernel=True,
+                          noise=NoiseModel(enabled=True))
+    model = pinn.TensorPinn(cfg)
+    params = model.init(counter_generator(0))
+    noise = model.sample_noise(counter_generator(0, 99))
+    xis = zoo.sample_perturbations(counter_generator(2), params, P - 1,
+                                   model.trainable_mask(params))
+    stacked = zoo.perturbed_stack(params, xis,
+                                  zoo.SPSAConfig(num_samples=P - 1))
+    return model, stacked, noise
+
+
+@pytest.mark.parametrize("pde", ["hjb-20d", "ns-2d"])
+def test_spectral_stacked_loss_on_the_card_matches_the_cpu(cuda, pde):
+    """The stacked spectral loss at the paper's width on the card against
+    the CPU's plain path: u over the shared line rows within 1e-4 of
+    max|u|, the losses at ``rtol 1e-1`` (the FD floor's: the spectral ∂²
+    amplifies u's differences by k_max² ≤ (16π)² < 1/h²); 2
+    ``tt_contract_batched`` launches and 1 grouped densification a loss,
+    no layer-0 identity-columns launch."""
+    model, stacked, noise = _spectral_stack(pde)
+    xt = model.problem.sample_collocation(counter_generator(1), 16)
+
+    def losses(device):
+        return pinn.residual_losses_stacked(
+            model, to_device(stacked, device), xt.to(device),
+            to_device(noise, device)).cpu()
+
+    counters = (ttc.tt_contract_batched, mesh.mesh_densify_stacked)
+    before = [fn.launches for fn in counters]
+    l_card = losses(cuda)
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [2, 1]
+    l_cpu = losses(torch.device("cpu"))
+    rows = pinn._spectral_rows(model, xt)
+    u = [model.u_stacked(model.prepare_params_stacked(
+        to_device(stacked, d), to_device(noise, d)), rows.to(d)).cpu()
+        for d in (cuda, torch.device("cpu"))]
+    assert torch.isfinite(u[0]).all() and torch.isfinite(l_card).all()
+    assert (u[0] - u[1]).abs().max() <= 1e-4 * u[1].abs().max()
+    np.testing.assert_allclose(l_card.numpy(), l_cpu.numpy(), rtol=1e-1)
+
+
+@pytest.mark.parametrize("M,per,axes", [(16, "window", 21),
+                                        (17, "periodic", 21),
+                                        (16, ("periodic", "periodic",
+                                              "window"), 3)])
+def test_spectral_derivs_on_the_card_match_the_oracle(cuda, M, per, axes):
+    """``spectral_derivs`` on CUDA tensors (cuFFT) held to the float64
+    oracle as the CPU's is: within twice the CPU's distance from it, or
+    twice the f32 floor ε·max|v|·k_max^p."""
+    from repro_torch.core import spectral
+    v = 1.7 * torch.randn((11, 100, axes, M), generator=counter_generator(3))
+    oracle = spectral.spectral_derivs_ref(v.numpy(), 1.0, per)
+    card = spectral.spectral_derivs(v.to(cuda), 1.0, per)
+    cpu = spectral.spectral_derivs(v, 1.0, per)
+    for p, (c, h, r) in enumerate(zip(card, cpu, oracle), start=1):
+        assert c.device == v.to(cuda).device and c.dtype == torch.float32
+        floor = (np.finfo(np.float32).eps * float(v.abs().max())
+                 * (np.pi * M) ** p)
+        bound = 2 * max(float(np.abs(h.numpy() - r).max()), floor)
+        assert float(np.abs(c.cpu().numpy() - r).max()) <= bound, p
+
+
+def test_ns2d_u_stacked_on_the_card_matches_the_cpu(cuda):
+    """ns-2d's feature-mapped forward at the paper's width over its line
+    rows and its ic rows: card against CPU within 1e-4 of max|u|."""
+    model, stacked, noise = _spectral_stack("ns-2d")
+    assert model.feat_in == 5 and model.in_pad == 1024
+    xt = model.problem.sample_collocation(counter_generator(1), 100)
+    zb, _ = model.problem.initial_batch(counter_generator(4), 25)
+    out = []
+    for d in (cuda, torch.device("cpu")):
+        prep = model.prepare_params_stacked(to_device(stacked, d),
+                                            to_device(noise, d))
+        out.append([model.u_stacked(prep, x.to(d)).cpu()
+                    for x in (pinn._spectral_rows(model, xt), zb)])
+    for card, cpu in zip(*out):
+        assert torch.isfinite(card).all()
+        assert (card - cpu).abs().max() <= 1e-4 * cpu.abs().max()

@@ -190,9 +190,11 @@ def test_exact_solution_floors_through_estimate_for_problem(name):
 def test_estimate_for_problem_dispatch():
     tp = tpde.get_problem("heat-10d")
     xt = torch.tensor(_rows("heat-10d", 8))
-    with pytest.raises(NotImplementedError, match="item 9a"):
-        tpde.estimate_for_problem(tp, tp.exact_solution, xt,
-                                  estimator="spectral")
+    # spectral is ported (held to JAX in tests/test_torch_spectral.py)
+    est = tpde.estimate_for_problem(tp, tp.exact_solution, xt,
+                                    estimator="spectral")
+    assert tuple(est.grad.shape) == tuple(est.hess_diag.shape) == (8, 11)
+    assert torch.equal(est.u, tp.exact_solution(xt))
     with pytest.raises(ValueError, match="unknown estimator"):
         tpde.estimate_for_problem(tp, tp.exact_solution, xt, estimator="x")
     with pytest.raises(ValueError, match="generator"):

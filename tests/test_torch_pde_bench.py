@@ -1,9 +1,11 @@
 """The port's PDE benchmarks on the CPU at toy widths:
 ``benchmarks/torch_pde_suite.py`` (the stacked-against-sequential parity
-contract, ``run_problem``'s rows, ``--ci``'s budgets), and
-``benchmarks/torch_zo_step.py`` (``bench_mode``'s rows), each against the
-keys of the reference benchmark's committed JSON; and
-``benchmarks/torch_table1_hjb.run_row`` on a problem with a boundary term.
+contract, ``run_problem``'s rows, ``--ci``'s budgets),
+``benchmarks/torch_zo_step.py`` (``bench_mode``'s rows) and
+``benchmarks/torch_residual_perf.py`` (its rows, off-path checks and
+gates), each against the keys of the reference benchmark's committed JSON;
+and ``benchmarks/torch_table1_hjb.run_row`` on a problem with a boundary
+term.
 """
 
 import json
@@ -13,6 +15,7 @@ from pathlib import Path
 import pytest
 
 from benchmarks import torch_pde_suite as suite
+from benchmarks import torch_residual_perf as rperf
 from benchmarks import torch_table1_hjb as ttable
 from benchmarks import torch_zo_step as zo
 
@@ -72,7 +75,7 @@ def test_failures_name_a_divergence_and_a_nonfinite_loss():
     assert len(bad) == 2 and "[tt]" in bad[0] and "non-finite" in bad[1]
 
 
-@pytest.mark.parametrize("main", [suite.main, zo.main])
+@pytest.mark.parametrize("main", [suite.main, zo.main, rperf.main])
 def test_out_is_required(main, capsys):
     with pytest.raises(SystemExit):
         main(["--device", "cpu"])
@@ -121,3 +124,30 @@ def test_table1_row_passes_the_boundary_batch_to_its_arm(monkeypatch,
     ttable.run_row("tt", on_chip, False, hidden=16, tt_L=2, epochs=1,
                    batch=8, pde="hjb-10d", device="cpu")
     assert seen and all(not tb for tb in seen)
+
+
+def test_residual_perf_row_has_the_reference_keys_and_gates(tmp_path):
+    """The spectral-against-FD benchmark at toy width: the reference's row
+    keys (with each arm's launches a step), its 3.28× bill, the off-path
+    checks all bit-identical, and every gate reported with its
+    reference bound."""
+    ref = _reference("BENCH_residual_perf.json")
+    out = tmp_path / "rp.json"
+    rperf.main(["--hidden", "16", "--tt-L", "2", "--epochs", "2",
+                "--repeats", "1", "--iters", "1", "--pdes", "hjb-10d",
+                "--device", "cpu", "--out", str(out)])
+    run = json.loads(out.read_text())["runs"][0]
+    row = run["rows"][0]
+    assert set(row) == set(ref["rows"][0]) | {"fd_launches_per_step",
+                                              "spectral_launches_per_step"}
+    assert (row["fd_inferences_per_loss"],
+            row["spectral_inferences_per_loss"]) == (2300, 702)
+    assert run["off_path"] == ref["off_path"]
+    assert all(run["off_path"].values())
+    assert set(run["gates"]) == {f"hjb-10d/{g}" for g in (
+        "inference_ratio", "mse_ratio", "step_speedup")} | {"off_path"}
+    assert run["gates"]["hjb-10d/mse_ratio"]["bound"] == \
+        ref["config"]["mse_ratio_gate"]
+    assert run["gates"]["hjb-10d/inference_ratio"]["passed"] is True
+    assert run["config"]["arms"] == ref["config"]["arms"]
+    assert run["config"]["device"]["type"] == "cpu"

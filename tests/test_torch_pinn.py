@@ -108,8 +108,8 @@ def test_registry_names_and_errors():
     assert set(PORTED_PDES) <= set(tpde.available())
     assert set(tpde.available()) <= set(jpde.available())
     assert tpde.get_problem("hjb-20d") is not tpde.get_problem("hjb-20d")
-    with pytest.raises(KeyError):
-        tpde.get_problem("ns-2d")
+    with pytest.raises(KeyError):       # coefficient families: item 10
+        tpde.get_problem("heat-10d-kappa")
     with pytest.raises(ValueError):
         tpde.register("hjb-20d")(lambda: None)
     box = tpde.uniform_box(torch.Generator().manual_seed(0), 4, 3, -1.0, 2.0)

@@ -195,13 +195,18 @@ def test_loss_terms_and_weights_match_jax():
 
 
 def test_unported_estimators_raise():
-    """Only the spectral estimator is still to port (Stein is held to the
-    reference in ``tests/test_torch_pde.py``)."""
-    tm = tpinn.TensorPinn(tpinn.PINNConfig(hidden=16, mode="tt", tt_L=3,
-                                           deriv="spectral"))
-    p = tm.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 9a"):
-        tpinn.residual_loss(tm, p, torch.zeros(2, 21))
+    """Every estimator of the reference is ported (Stein is held to it in
+    ``tests/test_torch_pde.py``, spectral in ``tests/test_torch_spectral.py``):
+    a name neither package has raises, and spectral gives a finite loss."""
+    def loss(deriv):
+        tm = tpinn.TensorPinn(tpinn.PINNConfig(hidden=16, mode="tt", tt_L=3,
+                                               deriv=deriv))
+        p = tm.init(torch.Generator().manual_seed(0))
+        return tpinn.residual_loss(tm, p, torch.full((2, 21), 0.5))
+
+    with pytest.raises(ValueError, match="unknown derivative estimator"):
+        loss("adjoint")
+    assert torch.isfinite(loss("spectral"))
 
 
 def test_validation_mse_matches_jax():

@@ -1,0 +1,653 @@
+"""The port's spectral estimator (``repro_torch.core.spectral``), the
+problems' carriers, ``Domain`` and the spectral paths of the loss engine,
+trainer config and data stream, against the JAX package: the counterpart of
+``tests/test_spectral.py`` and of the spectral and ``Domain`` part of
+``tests/test_properties.py``.
+
+Both packages get the same numpy arrays (line values, anchors, params, ξ).
+Tolerances:
+
+* line rows, the round trip and the window: bit for bit (the same f32
+  additions); u over the line rows ``max|Δ| ≤ U_RTOL·max|u|`` (1e-6: the
+  same chain summed in another order, sin from two libraries);
+* derivatives from identical line values: both FFTs are f32, so neither
+  package is exact; each is held to the float64 oracle
+  ``spectral_derivs_ref``, the port within ``ORACLE_FACTOR`` (2) times
+  JAX's own distance from it, or 2 times the f32 floor ε·max|v|·k_max^p
+  (p = 1 for ∂, 2 for ∂²) where JAX's distance is below that floor;
+* losses and BP gradients from the stacked forward: the u difference above
+  reaches ∂² amplified by k_max² = (π·M/extent)², summed over A axes and
+  squared in r², so ``rtol = 2·A·k_max²·U_RTOL`` (``_loss_rtol``); a BP
+  gradient within that of the largest gradient element (a leaf such as the
+  head bias of an identity-ansatz problem has a gradient of ~0);
+* property tests (``hypothesis``): the bounds come from the reference's
+  own counterexamples, each pinned as an ``@example`` (see each test).
+"""
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis import example, given, settings, strategies as st
+
+from repro import pde as jpde
+from repro.core import pinn as jpinn
+from repro.core import spectral as jspec
+from repro.core.photonic import NoiseModel as JNoise
+from repro_torch import interop
+from repro_torch import pde as tpde
+from repro_torch.core import pinn as tpinn
+from repro_torch.core import spectral as tspec
+from repro_torch.core import stein as tstein
+from repro_torch.core import zoo as tzoo
+from repro_torch.data import (pde_collocation_iterator,
+                              pde_line_grid_iterator)
+from test_torch_pinn import _np_tree, _port_model, share_cores  # noqa: F401
+
+EPS32 = float(np.finfo(np.float32).eps)
+U_RTOL = 1e-6
+ORACLE_FACTOR = 2.0
+# label -> (M, periodization); line values (3, 9, 21, M), max|v| ≈ 5
+DERIV_CASES = {f"{M}-{p}": (M, p) for M in (8, 16, 17)
+               for p in ("window", "periodic")}
+MIXED = ("periodic", "periodic", "window")
+
+
+def _kmax(M, extent=1.0):
+    return np.pi * M / extent
+
+
+def _oracle_bound(jax_err, v, M, order, extent=1.0):
+    """``ORACLE_FACTOR`` times JAX's distance from the oracle, or times
+    the f32 floor ε·max|v|·k_max^order where JAX sits below it."""
+    floor = EPS32 * float(np.abs(v).max()) * _kmax(M, extent) ** order
+    return ORACLE_FACTOR * max(float(jax_err), floor)
+
+
+def _loss_rtol(A, M, extent=1.0):
+    return 2.0 * A * _kmax(M, extent) ** 2 * U_RTOL
+
+
+def _lines(shape, seed):
+    return (1.7 * np.random.RandomState(seed).standard_normal(shape)
+            ).astype(np.float32)
+
+
+def _mixed_lines(B=4, M=16, seed=0):
+    """(B, 3, M) lines: two band-limited periodic axes and one smooth
+    non-periodic one, ns-2d's layout (the reference test's)."""
+    rs = np.random.RandomState(seed)
+    theta = np.arange(M) / M
+    phase = rs.rand(B, 1) * 2 * np.pi
+    ax0 = np.cos(2 * np.pi * theta[None] + phase)
+    ax1 = np.sin(4 * np.pi * theta[None] + phase)
+    ax2 = np.exp(-0.5 * (theta[None] - 0.3) ** 2) + rs.rand(B, 1)
+    return np.stack([ax0, ax1, ax2], axis=1).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def jax_derivs():
+    """JAX's derivatives and the float64 oracle's, once per module: label
+    -> (lines, (d1, d2) JAX, (d1, d2) oracle)."""
+    out = {}
+    for i, (label, (M, per)) in enumerate(DERIV_CASES.items()):
+        v = _lines((3, 9, 21, M), seed=i)
+        j = jspec.spectral_derivs(jnp.asarray(v), 1.0, per)
+        out[label] = (v, tuple(map(np.asarray, j)),
+                      jspec.spectral_derivs_ref(v, 1.0, per))
+    v = _mixed_lines()
+    out["mixed"] = (v, tuple(map(np.asarray, jspec.spectral_derivs(
+        jnp.asarray(v), 1.0, MIXED))), jspec.spectral_derivs_ref(v, 1.0,
+                                                                  MIXED))
+    return out
+
+
+def _held_to_oracle(got, want_jax, oracle, v, M):
+    for order, (g, j, r) in enumerate(zip(got, want_jax, oracle), start=1):
+        g = g.numpy()
+        assert g.shape == j.shape == r.shape
+        bound = _oracle_bound(np.abs(j - r).max(), v, M, order)
+        err = float(np.abs(g - r).max())
+        assert err <= bound, (order, err, bound)
+
+
+# ----------------------------------------------------------- line geometry
+
+def test_line_rows_layout_and_count():
+    B, D, A, M, W = 3, 5, 4, 8, 1.0
+    x = np.random.RandomState(0).uniform(0, 1, (B, D)).astype(np.float32)
+    rows = tspec.spectral_line_rows(torch.tensor(x), A, M, W)
+    assert tuple(rows.shape) == (tspec.num_spectral_inferences(B, A, M), D)
+    np.testing.assert_array_equal(
+        rows.numpy(),
+        np.asarray(jspec.spectral_line_rows(jnp.asarray(x), A, M, W)))
+    np.testing.assert_array_equal(rows[:B].numpy(), x)
+    # inactive (coefficient) columns are never shifted
+    np.testing.assert_array_equal(rows[B:, A:].numpy(),
+                                  np.repeat(x[:, A:], A * (M - 1), axis=0))
+    rest = rows[B:].numpy().reshape(B, A, M - 1, D)
+    off = tspec.line_offsets(M, W).numpy()
+    np.testing.assert_array_equal(off, np.asarray(jspec.line_offsets(M, W)))
+    off_rest = np.concatenate([off[:M // 2], off[M // 2 + 1:]])
+    for b in range(B):
+        for a in range(A):
+            delta = rest[b, a] - x[b]
+            np.testing.assert_allclose(delta[:, a], off_rest, atol=1e-7)
+            delta[:, a] = 0.0
+            np.testing.assert_array_equal(delta, 0.0)
+    assert tspec.num_spectral_inferences(100, 21, 16) == 31_600
+    assert tspec.num_spectral_inferences(9, 11, 8) == 702
+
+
+def test_line_vals_roundtrip_reinserts_anchor():
+    B, A, M = 3, 4, 8
+    R = tspec.num_spectral_inferences(B, A, M)
+    vals = np.arange(2 * R, dtype=np.float32).reshape(2, R)   # leading P=2
+    lines = tspec.line_vals_from_rows_vals(torch.tensor(vals), B, A, M)
+    assert tuple(lines.shape) == (2, B, A, M)
+    np.testing.assert_array_equal(
+        lines.numpy(), np.asarray(jspec.line_vals_from_rows_vals(
+            jnp.asarray(vals), B, A, M)))
+    np.testing.assert_array_equal(
+        lines[..., M // 2].numpy(),
+        np.broadcast_to(vals[:, :B, None], (2, B, A)))
+
+
+@pytest.mark.parametrize("M", [8, 16, 17, 32])
+def test_window_matches_the_reference(M):
+    w = tspec.spectral_window(M).numpy()
+    np.testing.assert_array_equal(w, np.asarray(jspec.spectral_window(M)))
+    assert w[M // 2] == 1.0 and (w[0] == 0.0 or M % 2)  # odd M: no end
+    assert (w >= 0.0).all() and (w <= 1.0).all()
+
+
+# ---------------------------------------------------- derivatives vs oracle
+
+@pytest.mark.parametrize("label", sorted(DERIV_CASES))
+def test_spectral_derivs_held_to_the_oracle_as_jax_is(jax_derivs, label):
+    M, per = DERIV_CASES[label]
+    v, want, oracle = jax_derivs[label]
+    got = tspec.spectral_derivs(torch.tensor(v), 1.0, per)
+    _held_to_oracle(got, want, oracle, v, M)
+    # the port's copy of the oracle is the reference's
+    for a, b in zip(tspec.spectral_derivs_ref(v, 1.0, per), oracle):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_per_axis_periodization_held_to_the_oracle(jax_derivs):
+    v, want, oracle = jax_derivs["mixed"]
+    lines = torch.tensor(v)
+    got = tspec.spectral_derivs(lines, 1.0, MIXED)
+    assert tuple(got[0].shape) == tuple(got[1].shape) == (4, 3)
+    _held_to_oracle(got, want, oracle, v, 16)
+    for a, p in enumerate(MIXED):        # each column is its axis's call
+        s1, s2 = tspec.spectral_derivs(lines[:, a, :], 1.0, p)
+        assert torch.equal(got[0][:, a], s1) and torch.equal(got[1][:, a], s2)
+
+
+def test_uniform_periodization_tuple_collapses_to_scalar():
+    """A uniform tuple is the scalar mode bit for bit, and needs no
+    (..., A, M) layout."""
+    lines = torch.tensor(_mixed_lines()[:, 0, :])
+    for p in ("window", "periodic"):
+        t1, t2 = tspec.spectral_derivs(lines, 1.0, (p, p, p))
+        s1, s2 = tspec.spectral_derivs(lines, 1.0, p)
+        assert torch.equal(t1, s1) and torch.equal(t2, s2)
+
+
+def test_periodization_errors_match_the_reference():
+    lines = _mixed_lines()
+    cases = [((), "empty periodization"),
+             (("periodic", "window"), "per-axis periodization"),
+             ("mirror", "unknown periodization")]
+    for per, msg in cases:
+        for fn, arr in ((tspec.spectral_derivs, torch.tensor(lines)),
+                        (jspec.spectral_derivs, jnp.asarray(lines))):
+            with pytest.raises(ValueError, match=msg):
+                fn(arr, 1.0, per)
+    with pytest.raises(ValueError, match="per-axis periodization"):
+        tspec.spectral_derivs(torch.tensor(lines[:, 0, :]), 1.0, MIXED)
+    with pytest.raises(ValueError, match="per-axis periodization"):
+        tspec.spectral_derivs_ref(lines, 1.0, ("periodic", "window"))
+    with pytest.raises(ValueError):
+        tspec.spectral_derivs_ref(np.zeros((2, 8)), 1.0, "mirror")
+
+
+# --------------------------------------------------------- carrier contract
+
+CARRIER_PDES = ("hjb-10d", "heat-10d", "black-scholes-100d")
+
+
+def _anchors(name, n=8, seed=0):
+    return np.asarray(jpde.get_problem(name).sample_collocation(
+        jax.random.PRNGKey(seed), n))
+
+
+@pytest.mark.parametrize("name", CARRIER_PDES)
+def test_carriers_match_jax(name):
+    jp, tp = jpde.get_problem(name), tpde.get_problem(name)
+    x = _anchors(name)
+    rows = np.asarray(jspec.spectral_line_rows(jnp.asarray(x), jp.in_dim, 8,
+                                               jp.spectral_extent))
+    got = tp.spectral_carrier(torch.tensor(rows), torch.tensor(x))
+    want = jp.spectral_carrier(jnp.asarray(rows), jnp.asarray(x))
+    for g, w, shape in zip(got, want, [(rows.shape[0],), x.shape, x.shape]):
+        assert tuple(g.shape) == shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
+                                   atol=1e-6 * float(np.abs(w).max()))
+    for attr in ("estimator", "spectral_points", "spectral_extent",
+                 "spectral_periodization"):
+        assert getattr(tp, attr) == getattr(jp, attr), attr
+
+
+@pytest.mark.parametrize("name", CARRIER_PDES)
+def test_carrier_drives_exact_solution_residual_below_fd_floor(name):
+    """On the exact solution the carrier-assisted spectral residual sits
+    well under the problem's FD floor (hjb's ‖x‖₁ kink included)."""
+    tp = tpde.get_problem(name)
+    xt = torch.tensor(_anchors(name, 9))
+    est = tspec.spectral_estimate(
+        tp.exact_solution, xt, points=16, extent=tp.spectral_extent,
+        periodization=tp.spectral_periodization, n_active=tp.in_dim,
+        carrier=tp.spectral_carrier)
+    assert tuple(est.grad.shape) == (9, tp.in_dim)
+    r = tp.residual(est, xt)
+    assert float(torch.mean(r * r)) < 0.01 * tp.residual_tol
+
+
+def test_hjb_without_carrier_is_poisoned_by_the_kink():
+    """Negative control: lines crossing the ‖x‖₁ kink leave O(1) error
+    without the carrier."""
+    tp = tpde.get_problem("hjb-10d")
+    xt = torch.tensor(_anchors("hjb-10d", 9))
+    kw = dict(points=16, extent=tp.spectral_extent, n_active=tp.in_dim)
+    with_c = tspec.spectral_estimate(tp.exact_solution, xt,
+                                     carrier=tp.spectral_carrier, **kw)
+    without = tspec.spectral_estimate(tp.exact_solution, xt, **kw)
+    err_with = float(torch.mean(tp.residual(with_c, xt) ** 2))
+    err_without = float(torch.mean(tp.residual(without, xt) ** 2))
+    assert err_with < 1e-4
+    assert err_without > 100 * err_with
+
+
+def test_default_spectral_carrier_is_none():
+    assert tpde.get_problem("helmholtz-2d").spectral_carrier(
+        torch.zeros(4, 2), torch.zeros(2, 2)) is None
+
+
+def _heat64(xt, D=10, s=2.5):
+    tau = s + 1.0 - xt[..., D]
+    q = np.sum((xt[..., :D] - 0.5) ** 2, axis=-1)
+    return (s / tau) ** (D / 2.0) * np.exp(-q / (4.0 * tau))
+
+
+def _ns64(z, nu=0.1):
+    return (2.0 * np.cos(2 * np.pi * z[..., 0]) * np.cos(2 * np.pi * z[..., 1])
+            * np.exp(-2.0 * nu * z[..., 2]))
+
+
+EXACT64 = {"heat-10d": _heat64, "ns-2d": _ns64}   # the exact solutions
+
+
+@pytest.mark.parametrize("name,M", [("heat-10d", 16), ("ns-2d", 16)])
+def test_estimate_for_problem_spectral_matches_jax(name, M):
+    """``estimate_for_problem(estimator="spectral")``: a float64 numpy u
+    (the JAX side's exact solution in float64), so both packages FFT the
+    same line values; every leaf held to the oracle as above, with the
+    domain's Jacobian folded in (ns-2d)."""
+    jp, tp = jpde.get_problem(name), tpde.get_problem(name)
+    assert tp.spectral_points == M
+    xt = _anchors(name, 6, seed=3)
+
+    def f64(r):
+        return EXACT64[name](np.asarray(r, dtype=np.float64)
+                             ).astype(np.float32)
+
+    jest = jpde.estimate_for_problem(jp, lambda r: jnp.asarray(f64(r)),
+                                     jnp.asarray(xt), estimator="spectral")
+    test = tpde.estimate_for_problem(tp, lambda r: torch.tensor(f64(r)),
+                                     torch.tensor(xt), estimator="spectral")
+    np.testing.assert_array_equal(test.u.numpy(), np.asarray(jest.u))
+    s = (np.ones(tp.in_dim) if tp.domain is None
+         else tp.domain.scales.astype(np.float64))
+    rows = np.asarray(jspec.spectral_line_rows(jnp.asarray(xt), jp.in_dim,
+                                               M, jp.spectral_extent))
+    vals = f64(rows)
+    beta = jp.spectral_carrier(jnp.asarray(rows), jnp.asarray(xt))
+    if beta is not None:
+        vals = vals - np.asarray(beta[0])
+    lines = np.asarray(jspec.line_vals_from_rows_vals(
+        jnp.asarray(vals), xt.shape[0], jp.in_dim, M))
+    oracle = jspec.spectral_derivs_ref(lines, jp.spectral_extent,
+                                       jp.spectral_periodization)
+    for order, (g, j, r) in enumerate(
+            zip((test.grad, test.hess_diag), (jest.grad, jest.hess_diag),
+                oracle), start=1):
+        add = 0.0 if beta is None else np.asarray(beta[order])
+        r = (r + add) / s ** order
+        bound = _oracle_bound(np.abs(np.asarray(j) - r).max(), lines, M,
+                              order) / min(s) ** order
+        assert float(np.abs(g.numpy() - r).max()) <= bound, order
+
+
+# ------------------------------------------------------------ pinn dispatch
+
+def _np_stack(params, mask, P, seed):
+    """The JAX params as numpy, stacked P times: entry 0 the params, the
+    others moved by 0.01·ξ on the trainable leaves, ξ standard normals
+    made with numpy from ``seed``."""
+    rs = np.random.RandomState(seed)
+
+    def stack(p, trainable):
+        p = np.asarray(p)
+        return np.stack([p] + [
+            p + (0.01 * rs.standard_normal(p.shape).astype(np.float32)
+                 if trainable else 0) for _ in range(P - 1)])
+
+    return jax.tree.map(stack, params, mask)
+
+
+def _pair(pde="heat-10d", mode="tt", hidden=16, tt_L=3, M=8, noise=False,
+          seed=0):
+    """A JAX spectral model, its params and chip noise as numpy, and the
+    port's model of the same config."""
+    cfg = jpinn.PINNConfig(hidden=hidden, mode=mode, tt_rank=2, tt_L=tt_L,
+                           pde=pde, deriv="spectral", spectral_points=M,
+                           noise=JNoise(enabled=noise))
+    jm = jpinn.TensorPinn(cfg)
+    key = jax.random.PRNGKey(seed)
+    params = jm.init(key)
+    hw = jm.sample_noise(jax.random.fold_in(key, 99))
+    return cfg, jm, params, hw, _port_model(cfg)
+
+
+@pytest.mark.parametrize("mode", ["dense", "onn", "tt", "tonn"])
+def test_residual_loss_equals_stacked_entries(mode):
+    """Every entry of the stacked spectral losses equals the one-model
+    loss of its params, in all four modes: u over the line rows within
+    ``U_RTOL`` (the stacked and the single chain sum in other orders), the
+    losses within ``_loss_rtol``."""
+    cfg, jm, params, hw, tm = _pair(mode=mode, noise=mode in ("onn",
+                                                                "tonn"))
+    p = interop.params_from_numpy(_np_tree(params), "cpu")
+    nz = interop.noise_from_numpy(_np_tree(hw), "cpu")
+    p2 = tzoo.tree_map(lambda t: t * 1.01, p)
+    stacked = tzoo.tree_map(lambda a, b: torch.stack([a, b]), p, p2)
+    xt = torch.tensor(_anchors("heat-10d", 4, seed=1))
+    with torch.no_grad():
+        st_ = tpinn.residual_losses_stacked(tm, stacked, xt, nz)
+        seq = [tpinn.residual_loss(tm, q, xt, nz) for q in (p, p2)]
+        rows = tspec.spectral_line_rows(xt, tm.in_dim, 8, 1.0)
+        eff = nz if mode == "onn" else None
+        u_st = tm.u_stacked(tm.prepare_params_stacked(stacked, nz), rows, eff)
+        u_seq = torch.stack([tm.u(q, rows, nz) for q in (p, p2)])
+    assert tuple(st_.shape) == (2,)
+    assert float((u_st - u_seq).abs().max()) <= U_RTOL * float(
+        u_seq.abs().max())
+    np.testing.assert_allclose(st_.numpy(), [float(s) for s in seq],
+                               rtol=_loss_rtol(tm.in_dim, 8))
+
+
+@pytest.mark.parametrize("pde,mode,noise,hidden,tt_L", [
+    ("hjb-20d", "tonn", True, 32, 2), ("heat-10d", "tt", False, 64, 3)])
+def test_stacked_spectral_losses_match_jax(pde, mode, noise, hidden, tt_L):
+    """The same params, ξ stack and anchors through both packages' stacked
+    spectral paths (JAX's jitted): u over the shared line rows first
+    (``U_RTOL``), then the losses (``_loss_rtol``)."""
+    M, B, P = 8, 4, 3
+    cfg, jm, params, hw, tm = _pair(pde, mode, hidden, tt_L, M, noise,
+                                    seed=3)
+    stacked = _np_stack(params, jm.trainable_mask(params), P, seed=5)
+    xt = _anchors(pde, B, seed=7)
+    rows = jspec.spectral_line_rows(jnp.asarray(xt), jm.in_dim, M, 1.0)
+
+    @jax.jit
+    def jax_side(sp, hw):
+        return (jm.u_stacked(jm.prepare_params_stacked(sp, hw), rows),
+                jpinn.residual_losses_stacked(jm, sp, jnp.asarray(xt), hw))
+
+    ju, jl = map(np.asarray, jax_side(stacked, hw))
+    sp = interop.params_from_numpy(stacked, "cpu")
+    nz = interop.noise_from_numpy(_np_tree(hw), "cpu")
+    with torch.no_grad():
+        trows = tspec.spectral_line_rows(torch.tensor(xt), tm.in_dim, M, 1.0)
+        tu = tm.u_stacked(tm.prepare_params_stacked(sp, nz), trows).numpy()
+        tl = tpinn.residual_losses_stacked(tm, sp, torch.tensor(xt),
+                                           nz).numpy()
+    assert tu.shape == (P, tspec.num_spectral_inferences(B, jm.in_dim, M))
+    assert np.abs(tu - ju).max() <= U_RTOL * np.abs(ju).max()
+    np.testing.assert_allclose(tl, jl, rtol=_loss_rtol(jm.in_dim, M))
+
+
+def test_auto_deriv_resolves_to_problem_estimator_bit_identically():
+    """deriv="auto" on a problem whose estimator is "fd" gives the fd loss
+    bit for bit, and follows a problem that opts into spectral."""
+    def model(deriv, problem=None):
+        return tpinn.TensorPinn(tpinn.PINNConfig(
+            hidden=16, mode="tt", tt_L=3, pde="heat-10d", deriv=deriv),
+            problem=problem)
+
+    params = model("fd").init(torch.Generator().manual_seed(0))
+    xt = torch.tensor(_anchors("heat-10d", 9, seed=1))
+    l_fd = tpinn.residual_loss(model("fd"), params, xt)
+    assert torch.equal(l_fd, tpinn.residual_loss(model("auto"), params, xt))
+    prob = tpde.get_problem("heat-10d")
+    prob.estimator = "spectral"
+    l_sp = tpinn.residual_loss(model("auto", prob), params, xt)
+    assert torch.equal(l_sp, tpinn.residual_loss(model("spectral"), params,
+                                                 xt))
+    assert not torch.equal(l_sp, l_fd)
+    with pytest.raises(ValueError, match="unknown derivative estimator"):
+        tpinn.residual_loss(model("x"), params, xt)
+
+
+def test_config_meta_roundtrips_spectral_fields():
+    cfg = tpinn.PINNConfig(deriv="spectral", spectral_points=24)
+    meta = json.loads(json.dumps(tpinn.config_to_meta(cfg)))
+    assert meta["deriv"] == "spectral" and meta["spectral_points"] == 24
+    assert tpinn.config_from_meta(meta) == cfg
+    jcfg = jpinn.config_from_meta(meta)
+    assert (jcfg.deriv, jcfg.spectral_points) == ("spectral", 24)
+    assert tpinn.config_to_meta(tpinn.config_from_meta(
+        jpinn.config_to_meta(jcfg))) == meta
+    old = {k: v for k, v in meta.items() if k != "spectral_points"}
+    assert tpinn.config_from_meta(old).spectral_points is None
+
+
+def test_line_grid_iterator_matches_collocation_stream():
+    it = pde_line_grid_iterator(8, seed=3, pde="heat-10d", points=8)
+    anchors, rows = next(it)
+    colloc = next(pde_collocation_iterator(8, seed=3, pde="heat-10d"))
+    assert torch.equal(anchors, colloc)
+    prob = tpde.get_problem("heat-10d")
+    assert torch.equal(rows, tspec.spectral_line_rows(
+        anchors, prob.in_dim, 8, prob.spectral_extent))
+    a2, _ = next(it)
+    assert not torch.equal(anchors, a2)
+    it2 = pde_line_grid_iterator(8, seed=3, pde="heat-10d", points=8,
+                                 start_step=1)
+    assert torch.equal(next(it2)[0], a2)
+    # the problem's own M by default
+    _, r16 = next(pde_line_grid_iterator(2, pde="ns-2d"))
+    assert tuple(r16.shape) == (tspec.num_spectral_inferences(2, 3, 16), 3)
+
+
+@pytest.mark.parametrize("pde,hidden,M", [("heat-10d", 16, 8),
+                                          ("ns-2d", 16, 16)])
+def test_spectral_bp_gradient_matches_jax(pde, hidden, M):
+    """Autograd through ``torch.fft`` (the BP baselines' spectral loss, tt
+    mode) against ``jax.grad`` on the same params and anchors."""
+    cfg, jm, params, _, tm = _pair(pde, "tt", hidden, 2, M, seed=1)
+    xt = _anchors(pde, 4, seed=2)
+    jl, jg = jax.jit(jax.value_and_grad(
+        lambda p: jpinn.residual_loss(jm, p, jnp.asarray(xt))))(params)
+    p = tzoo.tree_map(lambda t: t.requires_grad_(True),
+                      interop.params_from_numpy(_np_tree(params), "cpu"))
+    tl = tpinn.residual_loss(tm, p, torch.tensor(xt))
+    leaves = tzoo.tree_leaves(p)
+    grads = torch.autograd.grad(tl, leaves)
+    jleaves = tzoo.tree_leaves(interop.params_from_numpy(_np_tree(jg),
+                                                         "cpu"))
+    rtol = _loss_rtol(jm.in_dim, M)
+    assert float(tl.detach()) == pytest.approx(float(jl), rel=rtol)
+    scale = max(float(g.abs().max()) for g in jleaves)
+    for g, want in zip(grads, jleaves):
+        assert g.shape == want.shape
+        assert float((g - want).abs().max()) <= rtol * scale
+
+
+# ---------------------------------------------------------------- properties
+
+@settings(deadline=None, max_examples=10)
+@given(M=st.sampled_from([8, 12, 16, 32]), n_freq=st.integers(1, 3),
+       dim=st.integers(1, 4), batch=st.integers(1, 8),
+       seed=st.integers(0, 1000))
+def test_spectral_periodic_exact_on_band_limited_property(M, n_freq, dim,
+                                                          batch, seed):
+    """Periodic mode is exact (to f32 roundoff scaled by the k²-amplified
+    Hessian magnitude) on trig polynomials of maximum frequency < M/2: the
+    reference's bound, which it meets."""
+    rs = np.random.RandomState(seed)
+    n_freq = min(n_freq, (M - 1) // 2)
+    coef = rs.randn(n_freq, 2)
+    x = torch.tensor(rs.uniform(0, 1, (batch, dim)), dtype=torch.float32)
+
+    def parts(x, d):
+        out = 0.0
+        for m in range(1, n_freq + 1):
+            w = 2 * np.pi * m
+            c, s = coef[m - 1]
+            cos, sin = torch.cos(w * x), torch.sin(w * x)
+            out = out + [c * cos + s * sin, w * (s * cos - c * sin),
+                         -w * w * (c * cos + s * sin)][d]
+        return out
+
+    est = tspec.spectral_estimate(lambda r: torch.sum(parts(r, 0), dim=-1),
+                                  x, points=M, extent=1.0,
+                                  periodization="periodic")
+    scale = float(np.sum(np.abs(coef)) * (2 * np.pi * n_freq) ** 2)
+    np.testing.assert_allclose(est.grad.numpy(), parts(x, 1).numpy(),
+                               atol=max(1e-4, 2e-5 * scale))
+    np.testing.assert_allclose(est.hess_diag.numpy(), parts(x, 2).numpy(),
+                               atol=max(1e-3, 2e-4 * scale))
+
+
+# κ_8: the windowed error at M = 8 per unit of max|f'''| along the lines.
+# The reference's counterexample (M 8, a 0, b 1: f''' = 6 − ½cos x, max
+# 5.97 on [−½, 3/2]) measured 0.082, κ 0.0138; the port's sweep over a, b
+# ∈ [−1, 1] reached 0.0152; the bound takes 0.02.  From M = 16 on the
+# reference's WINDOWED_FLOOR holds.
+KAPPA_8 = 0.02
+
+
+@settings(deadline=None, max_examples=10)
+@given(M=st.sampled_from([8, 16, 32]), batch=st.integers(1, 8),
+       dim=st.integers(1, 4), a=st.floats(-1.0, 1.0), b=st.floats(-1.0, 1.0),
+       seed=st.integers(0, 1000))
+@example(M=8, batch=1, dim=1, a=0.0, b=1.0, seed=0)
+def test_spectral_windowed_agrees_with_fd_property(M, batch, dim, a, b,
+                                                   seed):
+    """Windowed spectral derivatives of a smooth non-periodic function
+    against ``fd_estimate``: within the spectral floor (κ_8·max|f'''| at
+    M = 8, ``WINDOWED_FLOOR`` from 16) plus FD's (4ε·max|f|/h² rounding and
+    h²·max|f⁗|/12 truncation on ∂²; the reference's 1e-3 on ∂)."""
+    def f(x):
+        return torch.sum(torch.exp(a * x) + b * x ** 3 + 0.5 * torch.sin(x),
+                         dim=-1)
+
+    x = torch.tensor(np.random.RandomState(seed).uniform(0, 1, (batch, dim)),
+                     dtype=torch.float32)
+    sp = tspec.spectral_estimate(f, x, points=M, extent=1.0)
+    h = 1e-2
+    fd = tstein.fd_estimate(f, x, h=h)
+    t = np.linspace(-0.5, 1.5, 401)
+    f3 = np.abs(a ** 3 * np.exp(a * t) + 6 * b - 0.5 * np.cos(t)).max()
+    f4 = np.abs(a ** 4 * np.exp(a * t) + 0.5 * np.sin(t)).max()
+    fmax = float(f(x).abs().max())
+    spectral_floor = KAPPA_8 * f3 if M == 8 else tspec.WINDOWED_FLOOR
+    fd_floor = 4 * EPS32 * fmax / h ** 2 + h ** 2 * f4 / 12
+    np.testing.assert_allclose(sp.grad.numpy(), fd.grad.numpy(),
+                               atol=tspec.WINDOWED_FLOOR + 1e-3)
+    np.testing.assert_allclose(sp.hess_diag.numpy(), fd.hess_diag.numpy(),
+                               atol=spectral_floor + fd_floor)
+
+
+@settings(deadline=None, max_examples=15)
+@given(dim=st.integers(1, 4), tail=st.integers(0, 3),
+       batch=st.integers(1, 16), lo=st.floats(-5.0, 5.0),
+       width=st.floats(0.1, 10.0), seed=st.integers(0, 1000))
+@example(dim=1, tail=0, batch=1, lo=3.0, width=0.125, seed=0)
+def test_domain_roundtrip_property(dim, tail, batch, lo, width, seed):
+    """``to_unit ∘ from_unit`` is the identity up to f32 rounding, trailing
+    columns pass through bit for bit, and ``scales`` is hi − lo within one
+    f32 rounding of each end, ε·(|lo| + |hi|) (the reference's 1e-6
+    relative failed at 1.34e-6 on its pinned example: two f32 ends close
+    together), and the port's Domain maps rows as the reference's does."""
+    rs = np.random.RandomState(seed)
+    lo_v = lo + rs.rand(dim) * 2.0
+    hi_v = lo_v + width * (1.0 + rs.rand(dim))
+    dom = tpde.Domain(tuple(lo_v), tuple(hi_v))
+    assert dom.dim == dim and not dom.is_unit
+    z = torch.tensor(rs.uniform(0, 1, (batch, dim + tail)),
+                     dtype=torch.float32)
+    x = dom.from_unit(z)
+    z_back = dom.to_unit(x)
+    ends = EPS32 * (np.abs(lo_v) + np.abs(hi_v))
+    # z = (x − lo)/s: x carries ε·|x| and lo ε·|lo|, divided by s
+    np.testing.assert_allclose(z_back[:, :dim].numpy(), z[:, :dim].numpy(),
+                               atol=float(np.max(4 * ends / (hi_v - lo_v))))
+    assert torch.equal(x[:, dim:], z[:, dim:])
+    assert torch.equal(z_back[:, dim:], z[:, dim:])
+    assert np.all(np.abs(dom.scales - (hi_v - lo_v)) <= ends)
+    jdom = jpde.Domain(tuple(lo_v), tuple(hi_v))
+    np.testing.assert_array_equal(dom.scales, jdom.scales)
+    np.testing.assert_allclose(
+        x.numpy(), np.asarray(jdom.from_unit(jnp.asarray(z.numpy()))),
+        rtol=0, atol=float(np.max(2 * ends)))
+
+
+@settings(deadline=None, max_examples=10)
+@given(dim=st.integers(1, 3), a=st.floats(0.5, 2.0), width=st.floats(0.5, 3.0),
+       batch=st.integers(1, 16), seed=st.integers(0, 1000))
+@example(dim=1, a=1.5, width=0.5, batch=1, seed=0)
+def test_domain_scaled_fd_matches_analytic_property(dim, a, width, batch,
+                                                    seed):
+    """Unit-box FD derivatives of f ∘ from_unit, scaled by
+    ``scale_estimate``, against the analytic raw-coordinate ones.  On ∂²,
+    in unit coordinates and then divided by s²: each of the second
+    difference's four f values off by ε·(|f| + 2a(|x| + s)) (f's own
+    rounding, and x = lo + s·z rounded before sin(a·x)), over h², plus the
+    truncation h²·a⁴s⁴/12 (0.075 at the reference's pinned example, which
+    measured 0.018 against its 0.01)."""
+    rs = np.random.RandomState(seed)
+    lo = tuple(rs.randn(dim))
+    dom = tpde.Domain(lo, tuple(v + width for v in lo))
+
+    class _Box(tpde.PDEProblem):
+        domain = dom
+
+    prob = _Box()
+
+    def f_raw(x):
+        return torch.sum(torch.sin(a * x), dim=-1)
+
+    z = torch.tensor(rs.uniform(0.1, 0.9, (batch, dim)), dtype=torch.float32)
+    h = 1e-2
+    est = tstein.fd_estimate(lambda q: f_raw(dom.from_unit(q)), z, h=h)
+    scaled = prob.scale_estimate(est)
+    assert scaled is not est            # a non-unit box: a new estimate
+    raw = dom.from_unit(z)
+    s = width
+    np.testing.assert_allclose(scaled.u.numpy(), f_raw(raw).numpy(),
+                               atol=1e-5)
+    np.testing.assert_allclose(scaled.grad.numpy(),
+                               (a * torch.cos(a * raw)).numpy(), atol=2e-3)
+    xmax = float(raw.abs().max())
+    bound = (4 * EPS32 * (dim + 2 * a * (xmax + s)) / h ** 2
+             + h ** 2 * a ** 4 * s ** 4 / 12) / s ** 2
+    np.testing.assert_allclose(scaled.hess_diag.numpy(),
+                               (-a * a * torch.sin(a * raw)).numpy(),
+                               atol=bound)

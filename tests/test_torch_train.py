@@ -162,8 +162,6 @@ def test_resume_redraws_the_same_perturbations(tmp_path):
     (["--pinn-mode", "onn", "--optimizer", "adamw", "--hidden", "1040"],
      "item 6c-3"),
     (["--estimator", "stein"], "reference trainer passes no PRNG key"),
-    (["--estimator", "spectral"], "item 9a"),
-    (["--spectral-points", "8"], "item 9a"),
     (["--coeff-range", "lam=0.05:0.1"], "item 10"),
     (["--coeff-dist", "uniform"], "item 10"),
     (["--coeffs-per-step", "2"], "item 10"),
@@ -224,8 +222,8 @@ def test_onn_bp_trains_at_a_width_of_the_warp_rows_backward():
 def test_lm_archs_and_unported_pdes_are_refused():
     with pytest.raises(SystemExit, match="item 14"):
         train.main(["--arch", "qwen2.5-3b", "--device", "cpu"])
-    with pytest.raises(KeyError, match="unknown PDE 'ns-2d'"):
-        _run("--pde", "ns-2d", "--steps", 1)
+    with pytest.raises(KeyError, match="unknown PDE 'heat-10d-kappa'"):
+        _run("--pde", "heat-10d-kappa", "--steps", 1)    # item 10
 
 
 def test_streams_are_counter_based():
