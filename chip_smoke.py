@@ -369,6 +369,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 (``STILL_LOSS``: the JAX package's own ns-2d ZO run misses
                 its bar) moves every trainable leaf; both checkpoints
                 serve with their term weights.
+ 21c. train-coeff — the coefficient-conditioned families: ``_train_pde`` on
+                black-scholes-100d-rs with ``--coeffs-per-step 4`` (101
+                physical columns and (r, σ): 103 of the 1024-wide padded
+                input; the hidden launch on 11 × 20,300 rows) and on
+                heat-10d-kappa with ``--coeff-range kappa=0.7:1.5
+                --coeff-dist loguniform`` (its Dirichlet term: 2 launches
+                more a step), 20 steps each, checked as phase 21's (a step
+                1 grouped densification and 3 ``tt_contract_batched``, 5
+                with the term; the loss falls; one step's u card vs CPU on
+                3 entries).  Each checkpoint is served (``_serves_family``)
+                at ``COEFF_SERVED`` coefficient instances from the trained
+                ranges by one ``c{K}`` program, built at warm-up, with no
+                rebuild after it; each request equal to ``model.u`` on its
+                augmented rows (1e-6); an out-of-range request refused
+                before it queues; the loaded problem's term weights the
+                trained ones (no latency is read: the request sizes
+                exercise the packer, they are not a traffic mix).  Then
+                hjb-10d-lam by
+                BP (``--optimizer adamw``, tt, hidden 48, batch 128, 400
+                steps: the reference's budget; 3 ``tt_contract`` and 3
+                ``tt_contract_grad`` a step) held to its family tolerance,
+                val MSE < 1e-2 at each of 5 coefficient draws, and the
+                range's ends giving different fields.
  21b. mesh-grad-wide — phase 6c's three cases of the warp-rows backward
                 at onn's hidden 1024 (``MESH_GRAD_WIDE``: handed the hidden
                 layer's U mesh's y and dy on 4300 rows, layer 0's on 100
@@ -526,6 +549,21 @@ def _u_close(label: str, u_card, u_cpu) -> tuple:
     return err, scale
 
 
+def _load_served(name: str, ckpt: str, device, term_weights: dict | None):
+    """A trainer's checkpoint loaded into a new ``SolverRegistry``; with
+    ``term_weights``, the loaded problem's ``term_weights()`` equal to
+    them.  Returns the registry."""
+    from repro_torch.serving import SolverRegistry
+    reg = SolverRegistry(device=device)
+    solver = reg.load_checkpoint(name, ckpt, device=device)
+    if (term_weights is not None
+            and solver.model.problem.term_weights() != term_weights):
+        raise AssertionError(f"{name}: served term weights "
+                             f"{solver.model.problem.term_weights()}, "
+                             f"trained {term_weights}")
+    return reg
+
+
 def _serves_checkpoint(name: str, ckpt: str, model, params, noise,
                        device, term_weights: dict | None = None) -> float:
     """A trainer's checkpoint, which carries the chip's noise, loaded into
@@ -536,15 +574,8 @@ def _serves_checkpoint(name: str, ckpt: str, model, params, noise,
     import numpy as np
     import torch
     from repro_torch.device import counter_generator
-    from repro_torch.serving import (PdeServingEngine, PointRequest,
-                                     SolverRegistry)
-    reg = SolverRegistry(device=device)
-    solver = reg.load_checkpoint(name, ckpt, device=device)
-    if (term_weights is not None
-            and solver.model.problem.term_weights() != term_weights):
-        raise AssertionError(f"{name}: served term weights "
-                             f"{solver.model.problem.term_weights()}, "
-                             f"trained {term_weights}")
+    from repro_torch.serving import PdeServingEngine, PointRequest
+    reg = _load_served(name, ckpt, device, term_weights)
     engine = PdeServingEngine(reg, slots=4, slot_points=256, device=device)
     pts = model.problem.sample_collocation(counter_generator(11), 700)
     req = engine.submit(PointRequest(name, pts.numpy()))
@@ -3739,9 +3770,14 @@ def _train_pde(device, pde: str, steps: int, flags: tuple = ()) -> dict:
                                  "move")
 
     # the checkpoint carries the chip's noise and its term weights, and
-    # serves without hw_noise=
-    served = _serves_checkpoint(pde, ckpt, model, params, noise, device,
+    # serves without hw_noise=; a conditioned one at several coefficient
+    # instances from one program
+    if problem.coeff_spec is not None:
+        served = _serves_family(pde, ckpt, model, params, noise, device,
                                 term_weights=problem.term_weights())
+    else:
+        served = _serves_checkpoint(pde, ckpt, model, params, noise, device,
+                                    term_weights=problem.term_weights())
     shutil.rmtree(ckpt)
 
     timed = measure_zo_step(model, params, noise, mask, xt.to(device),
@@ -3778,6 +3814,11 @@ def _train_pde(device, pde: str, steps: int, flags: tuple = ()) -> dict:
            "median_last5_below_first": bool(np.median(losses[-5:])
                                             < losses[0]),
            "served_vs_direct_max_abs": served}
+    if problem.coeff_spec is not None:
+        out["coeff_spec"] = problem.coeff_spec.to_meta()
+        out["net_dim"] = problem.net_dim
+        out["served"] = served
+        out["served_vs_direct_max_abs"] = served["served_vs_direct_max_abs"]
     spec = model.specs[1]
     out["hidden_bound_ms"], out["hidden_bound_by"] = _batched_bound(
         spec, n + 1, rows_per_entry, False)
@@ -3930,6 +3971,148 @@ def phase_train_spectral(device) -> dict:
     for pde, (steps, flags) in SPECTRAL_TRAIN.items():
         out[pde], _ = _train_pde(device, pde, steps, flags)
         print(f"[train-spectral] {json.dumps(out[pde])}", flush=True)
+    return out
+
+
+# pde -> (steps, trainer flags): black-scholes-100d-rs with C = 4 scenarios
+# a step tiled over the batch; heat-10d-kappa on ranges other than the
+# registry's, log-uniform, with its Dirichlet term
+COEFF_TRAIN = {"black-scholes-100d-rs": (20, ("--coeffs-per-step", "4")),
+               "heat-10d-kappa": (20, ("--coeff-range", "kappa=0.7:1.5",
+                                       "--coeff-dist", "loguniform"))}
+COEFF_SERVED = 4        # coefficient instances served from one checkpoint
+# the reference's family test: hjb-10d-lam by BP AdamW at hidden 48, batch
+# 128, 400 steps, held to 1e-2 per coefficient (tests/test_coeff_families)
+COEFF_BP = {"pde": "hjb-10d-lam", "steps": 400, "hidden": 48, "batch": 128,
+            "lr": 3e-3, "tol": 1e-2, "draws": 5}
+# points a request, for the packer's edges (a single point, a full slot,
+# one across three slots, sizes that straddle slots): a correctness
+# exercise, not a traffic mix, so no latency is read from it
+COEFF_REQUESTS = (1, 256, 97, 700, 40, 511, 3, 300)
+
+
+def _serves_family(name: str, ckpt: str, model, params, noise, device,
+                   term_weights: dict) -> dict:
+    """A conditioned checkpoint loaded into ``SolverRegistry`` (its trained
+    ranges and ``term_weights`` from meta) and served at ``COEFF_SERVED``
+    coefficient instances drawn in those ranges, ``COEFF_REQUESTS``
+    requests an instance, from one program: built at warm-up and never
+    again, its key tagged ``c{K}``.  Each request equals the trainer's
+    ``model.u`` on its augmented rows (1e-6); a request outside the ranges
+    is refused before it queues.  Returns the check's numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.device import counter_generator
+    from repro_torch.serving import PdeServingEngine, PointRequest
+    reg = _load_served(name, ckpt, device, term_weights)
+    spec = reg.get(name).coeff_spec
+    if spec != model.problem.coeff_spec:
+        raise AssertionError(f"{name}: served ranges {spec}, trained "
+                             f"{model.problem.coeff_spec}")
+    engine = PdeServingEngine(reg, slots=8, slot_points=256,
+                              enable_cache=False, device=device)
+    engine.warmup(name)
+    compiles = engine.stats["compiles"]
+    key = f"{name}|float32|c{spec.n}|8|256"
+    coeffs = spec.sample(counter_generator(13), COEFF_SERVED).numpy()
+    pts = model.problem.sample_collocation(
+        counter_generator(11), max(COEFF_REQUESTS))[:, :model.in_dim]
+    bad = np.asarray(spec.hi) * 1.5
+    try:
+        engine.submit(PointRequest(name, pts[:4].numpy(), coeffs=bad))
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"{name}: coefficients {bad} outside the "
+                             "trained ranges were served")
+    reqs = []
+    for n in COEFF_REQUESTS:
+        for c in coeffs:
+            reqs.append((c, engine.submit(PointRequest(
+                name, pts[:n].numpy(), coeffs=c))))
+    engine.run()
+    err = 0.0
+    for c, r in reqs:
+        if not r.done:
+            raise AssertionError(f"{name}: a request was not served")
+        rows = model.problem.attach_coeffs(pts[:len(r.out)], c)
+        with torch.no_grad():
+            direct = model.u(params, rows.to(device), noise).cpu().numpy()
+        np.testing.assert_allclose(r.out, direct, rtol=1e-6, atol=1e-6)
+        err = max(err, float(np.abs(r.out - direct).max()))
+    stats = engine.serving_stats()
+    if stats["programs"] != [key] or engine.stats["compiles"] != compiles:
+        raise AssertionError(f"{name}: programs {stats['programs']}, "
+                             f"{engine.stats['compiles'] - compiles} "
+                             f"rebuilds after warm-up; expected [{key!r}], 0")
+    return {"coeffs": coeffs.tolist(), "requests": len(reqs),
+            "points": sum(len(r.out) for _, r in reqs),
+            "programs": stats["programs"], "compiles": compiles,
+            "rebuilds_after_warmup": engine.stats["compiles"] - compiles,
+            "program_runs": stats["program_runs"],
+            "served_vs_direct_max_abs": err, "refused": refused}
+
+
+def _coeff_bp(device) -> dict:
+    """hjb-10d-lam trained through ``launch.train.main`` by BP at the
+    reference's budget (``COEFF_BP``): 3 ``tt_contract`` + 3
+    ``tt_contract_grad`` a step and 2 ``tt_contract`` a validation
+    forward; then val MSE at ``draws`` coefficient vectors, each below the
+    family's tolerance, and the range's ends giving different fields."""
+    import numpy as np
+    import torch
+    from repro_torch.device import counter_generator
+    from repro_torch.core import pinn
+
+    cfg, log_every = COEFF_BP, 100
+    steps = cfg["steps"]
+    res, launches, wall = _run_counted(
+        ["--arch", "tensor-pinn", "--pde", cfg["pde"], "--pinn-mode", "tt",
+         "--optimizer", "adamw", "--lr", str(cfg["lr"]), "--hidden",
+         str(cfg["hidden"]), "--steps", str(steps), "--batch",
+         str(cfg["batch"]), "--log-every", str(log_every), "--seed", "0"])
+    want = dict.fromkeys(BP_COUNTED, 0)
+    want["tt_contract_grad"] = 3 * steps
+    want["tt_contract"] = 3 * steps + 2 * _val_evals(steps, log_every)
+    if launches != want:
+        raise AssertionError(f"{cfg['pde']} BP: {launches} over {steps} "
+                             f"steps; expected {want}")
+    model, params = res.model, res.params
+    prob = model.problem
+    draws = prob.coeff_spec.sample(counter_generator(42), cfg["draws"])
+    pts = prob.sample_collocation(counter_generator(7),
+                                  400)[:, :prob.in_dim].to(device)
+    with torch.no_grad():
+        mses = [float(pinn.validation_mse(
+            model, params, prob.attach_coeffs(pts, c))) for c in draws]
+        u_lo, u_hi = (model.u(params, prob.attach_coeffs(pts, c))
+                      for c in (prob.coeff_spec.lo, prob.coeff_spec.hi))
+    if not max(mses) < cfg["tol"]:
+        raise AssertionError(f"{cfg['pde']} BP: val MSE {mses} at "
+                             f"{draws.tolist()}; tolerance {cfg['tol']}")
+    if torch.allclose(u_lo, u_hi):
+        raise AssertionError(f"{cfg['pde']} BP: the range's ends give the "
+                             "same field")
+    losses = np.asarray(res.losses)
+    return {**cfg, "launches": launches, "coeffs": draws.tolist(),
+            "val_mse_per_coeff": mses, "val_mse": res.val_mse,
+            "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+            "ends_max_abs_diff": float((u_lo - u_hi).abs().max()),
+            "host_step_ms_median": 1e3 * float(np.median(res.step_seconds)),
+            "train_wall_s": wall}
+
+
+def phase_train_coeff(device) -> dict:
+    """The conditioned families: black-scholes-100d-rs and heat-10d-kappa
+    through the trainer at the paper's config (``_train_pde``, their
+    checkpoints served by ``_serves_family``), then hjb-10d-lam by BP
+    (``_coeff_bp``)."""
+    out = {}
+    for pde, (steps, flags) in COEFF_TRAIN.items():
+        out[pde], _ = _train_pde(device, pde, steps, flags)
+        print(f"[train-coeff] {json.dumps(out[pde])}", flush=True)
+    out["bp"] = _coeff_bp(device)
+    print(f"[train-coeff] {json.dumps({'bp': out['bp']})}", flush=True)
     return out
 
 
@@ -4158,6 +4341,7 @@ def main() -> int:
     table1 = run(phase_table1, device)
     pdes = run(phase_train_pde, device)
     spectral = run(phase_train_spectral, device)
+    coeff = run(phase_train_coeff, device)
     mesh_grad.update(run(phase_mesh_grad_wide))
 
     main_case = kernel["cases"][0]                       # paper spec, B=2048
@@ -4193,6 +4377,9 @@ def main() -> int:
                "launches_train_spectral": {
                    name: spectral[name]["launches"]["tt_contract_batched"]
                    for name in SPECTRAL_TRAIN},
+               "launches_train_coeff": {
+                   name: coeff[name]["launches"]["tt_contract_batched"]
+                   for name in COEFF_TRAIN},
                "cases": [*batched.values(), pdes["stein"]["layer0"]]}
     # B3 has two entries in one source: the grouped densification, which
     # the training path runs, and the standalone mesh, which it no longer
@@ -4209,6 +4396,9 @@ def main() -> int:
                "launches_train_spectral": {
                    name: spectral[name]["launches"]["mesh_densify_stacked"]
                    for name in SPECTRAL_TRAIN},
+               "launches_train_coeff": {
+                   name: coeff[name]["launches"]["mesh_densify_stacked"]
+                   for name in COEFF_TRAIN},
                "entry_launches": {
                    name: trained["launches"][name]
                    for name in ("mesh_densify_stacked",
@@ -4271,6 +4461,8 @@ def main() -> int:
                            "backward of B2; the TPU kernel has none, JAX "
                            "differentiates its plain chain)",
                "launches": trained_bp["tt-adamw"]["launches"][
+                   "tt_contract_grad"],
+               "launches_train_coeff_bp": coeff["bp"]["launches"][
                    "tt_contract_grad"],
                "max_abs_err": max(r["max_abs_err"]
                                   for r in bp_kernel.values()),
@@ -4406,6 +4598,25 @@ def main() -> int:
               f"{bs['bound_ms']:.4f} ms, torch.bmm {bs['library_ms']:.4f} "
               f"ms); loss {row['losses'][0]:.4e} -> {row['losses'][-1]:.4e}"
               f", val MSE {row['val_mse']:.4e} on {card}", flush=True)
+    for pde in COEFF_TRAIN:
+        row = coeff[pde]
+        trace, srv = row["zo_step_trace"], row["served"]
+        print(f"[train-coeff] {pde} (net_dim {row['net_dim']}, "
+              f"{' '.join(row['coeff_spec']['names'])}): "
+              f"{row['zo_step_ms']:.3f} ms per ZO step (CUDA events; "
+              f"traced: {trace['kernels_per_call']:.0f} kernels a step, "
+              f"busy share {trace['busy_share']}); loss "
+              f"{row['losses'][0]:.4e} -> {row['losses'][-1]:.4e}, val MSE "
+              f"{row['val_mse']:.4e}; served {srv['requests']} requests at "
+              f"{len(srv['coeffs'])} instances by {srv['programs']}, "
+              f"{srv['rebuilds_after_warmup']} rebuilds, max|served - "
+              f"direct| {srv['served_vs_direct_max_abs']:.3e} on {card}",
+              flush=True)
+    bp = coeff["bp"]
+    print(f"[train-coeff] {bp['pde']} BP (tt, hidden {bp['hidden']}, "
+          f"{bp['steps']} steps): val MSE per coefficient "
+          f"{max(bp['val_mse_per_coeff']):.3e} at most (tolerance "
+          f"{bp['tol']:g}) on {card}", flush=True)
     st = pdes["stein"]
     print(f"[train-pde] stein {st['pde']} P {st['P']} B {st['batch']} S "
           f"{st['samples']}: {st['call_ms']:.3f} ms a stacked loss; "

@@ -63,7 +63,11 @@ line rows through every perturbed model at once, two
 ``tt_linear_batched`` launches, then FFTs each entry's lines).  ``auto``
 takes the problem's own estimator.  A problem with an input feature map
 (ns-2d's Fourier features) replaces the row with its features before the
-padding, and takes plain ``fd`` where ``fd_fast`` is asked for.
+padding, and takes plain ``fd`` where ``fd_fast`` is asked for.  A
+coefficient-conditioned problem's rows carry its coefficients after the
+point: ``_embed`` normalizes them, no estimator shifts them, and
+``u_coeff_grid[_stacked]`` evaluates one batch of points under C
+coefficient vectors in one forward.
 
 Port of ``repro.core.pinn``.  Two paths of the JAX
 package are CPU-XLA workarounds with no counterpart here: the polynomial
@@ -346,9 +350,17 @@ class TensorPinn:
 
     def _embed(self, xt: torch.Tensor) -> torch.Tensor:
         """Rows (..., net_in) → network inputs (..., in_pad): the problem's
-        feature map where it has one, then zero-padded."""
+        feature map where it has one; else the coefficient slots of a
+        conditioned problem normalized to [0, 1] by its ``CoeffSpec``
+        (the physical coordinates pass as they are, so the embedding stays
+        affine per slot and ``fd_fast``'s rank-1 columns hold); then
+        zero-padded."""
         if self.problem.has_feature_map:
             xt = self.problem.embed_features(xt)
+        elif self.problem.coeff_spec is not None:
+            xt = torch.cat([xt[..., :self.in_dim],
+                            self.problem.coeff_spec.normalize(
+                                xt[..., self.in_dim:self.net_in])], dim=-1)
         return torch.nn.functional.pad(xt, (0, self.in_pad - self.feat_in))
 
     def f(self, params: dict, xt: torch.Tensor,
@@ -496,6 +508,37 @@ class TensorPinn:
         """Ansatz u of P stacked parameter sets: (B, net_in) shared or
         (P, B, net_in) per entry → (P, B)."""
         return self.problem.ansatz(self.f_stacked(stacked, xt, noise), xt)
+
+    # ------------------------------------------- coefficient-family queries
+    def _coeff_rows(self, pts: torch.Tensor, coeffs) -> torch.Tensor:
+        """(B, in_dim) physical points × (C, K) raw coefficient vectors →
+        (C·B, net_in) augmented rows, C-major."""
+        if self.problem.coeff_spec is None:
+            raise ValueError(
+                f"PDE {self.problem.name!r} is not coefficient-conditioned")
+        coeffs = torch.as_tensor(coeffs, dtype=pts.dtype, device=pts.device)
+        (C, K), B = coeffs.shape, pts.shape[0]
+        rows = torch.cat([pts[None].expand(C, B, self.in_dim),
+                          coeffs[:, None, :].expand(C, B, K)], dim=-1)
+        return rows.reshape(C * B, self.net_in)
+
+    def u_coeff_grid(self, params: dict, pts: torch.Tensor, coeffs,
+                     noise: dict | None = None) -> torch.Tensor:
+        """u over the coefficient × point grid, (C, B): one physical batch
+        under C scenarios through one forward over the flattened rows."""
+        C, B = len(coeffs), pts.shape[0]
+        return self.u(params, self._coeff_rows(pts, coeffs),
+                      noise).reshape(C, B)
+
+    def u_coeff_grid_stacked(self, stacked: dict, pts: torch.Tensor, coeffs,
+                             noise: dict | None = None) -> torch.Tensor:
+        """``u_coeff_grid`` for P stacked (prepared) parameter sets, (P, C,
+        B): the perturbations × coefficients double batch, flattened
+        through the stacked forward (``noise`` as in
+        ``_layer_matvec_stacked``)."""
+        C, B = len(coeffs), pts.shape[0]
+        vals = self.u_stacked(stacked, self._coeff_rows(pts, coeffs), noise)
+        return vals.reshape(vals.shape[0], C, B)
 
 
 # ---------------------------------------------------------------------- loss

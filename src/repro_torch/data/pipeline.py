@@ -12,8 +12,12 @@ These are not the JAX package's streams: its keys are threefry
 numpy's ``SeedSequence``, so the two packages draw different points from
 the same seed.  Parity tests hand both packages the same arrays.
 
+A coefficient-conditioned problem's collocation rows carry a coefficient
+draw a row, or, with ``coeffs_per_step`` C, C draws a step tiled over the
+batch (``tile_coeff_draws``).
+
 Port of the PINN part of ``repro.data.pipeline``; the LM token streams
-and grouped coefficient draws are not ported yet.
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,21 +31,50 @@ from repro_torch.core import spectral
 from repro_torch.device import counter_generator
 
 __all__ = ["pde_collocation_iterator", "pde_term_batch_iterator",
-           "pde_line_grid_iterator"]
+           "pde_line_grid_iterator", "tile_coeff_draws"]
+
+
+def tile_coeff_draws(draws: torch.Tensor, n: int) -> torch.Tensor:
+    """(C, K) coefficient draws → (n, K) rows: ceil(n / C) consecutive rows
+    share each draw, the last group cut at n."""
+    return torch.repeat_interleave(draws, -(-n // draws.shape[0]),
+                                   dim=0)[:n]
 
 
 def pde_collocation_iterator(n: int, seed: int = 0, start_step: int = 0,
                              pde: str | None = None,
-                             problem: pde_lib.PDEProblem | None = None
+                             problem: pde_lib.PDEProblem | None = None,
+                             coeffs_per_step: int | None = None
                              ) -> Iterator[torch.Tensor]:
     """Collocation batches ``(n, net_dim)`` from the problem's own sampler
     (``problem``, else the registered ``pde``), one per step from
-    ``start_step`` on."""
+    ``start_step`` on.
+
+    ``coeffs_per_step`` C (conditioned problems only) replaces the
+    sampler's draw a row by C draws a step, tiled over the batch: whole
+    groups of points share a scenario, which steadies early conditioned
+    training.  The points are the sampler's own; the C draws come from the
+    counters ``(seed, step, 0, 1)``."""
     if problem is None:
         problem = pde_lib.get_problem(pde)
+    if coeffs_per_step is not None:
+        spec = problem.coeff_spec
+        if spec is None:
+            raise ValueError(
+                f"coeffs_per_step set but PDE {problem.name!r} is not "
+                "coefficient-conditioned")
+        if not 1 <= coeffs_per_step <= n:
+            raise ValueError(f"coeffs_per_step must be in [1, {n}], "
+                             f"got {coeffs_per_step}")
     step = start_step
     while True:
-        yield problem.sample_collocation(counter_generator(seed, step, 0), n)
+        xt = problem.sample_collocation(counter_generator(seed, step, 0), n)
+        if coeffs_per_step is not None:
+            draws = spec.sample(counter_generator(seed, step, 0, 1),
+                                coeffs_per_step)
+            xt = torch.cat([xt[:, :problem.in_dim],
+                            tile_coeff_draws(draws, n)], dim=-1)
+        yield xt
         step += 1
 
 

@@ -8,7 +8,8 @@ by the JAX package with the noise model on also needs ``--hw-noise
 NAME=FILE.npz``: its chip noise as ``/``-joined path keys
 (``pcores0/1/u/gamma``, the ``arrays.npz`` format), because torch cannot
 regenerate JAX's threefry draws from the seed.  ``--synthetic N`` then
-serves N mixed variable-size requests.
+serves N mixed variable-size requests; a coefficient-conditioned solver's
+each carry one coefficient vector drawn in its trained ranges.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_pde \\
         --ckpt heat=ckpts/heat-10d --ckpt hjb=ckpts/hjb-20d \\
@@ -87,10 +88,14 @@ def main(argv=None):
         name = names[i % len(names)]
         n = int(rng.randint(1, args.max_request_points + 1))
         gen = torch.Generator().manual_seed(args.seed * 10_000 + i)
-        traffic.append((name, reg.get(name).problem.sample_collocation(
-            gen, n).numpy()))
+        problem = reg.get(name).problem
+        rows = problem.sample_collocation(gen, n).numpy()
+        coeffs = (None if problem.coeff_spec is None
+                  else rows[0, problem.in_dim:])      # one scenario a request
+        traffic.append((name, rows[:, :problem.in_dim], coeffs))
     t0 = time.perf_counter()
-    reqs = [engine.submit(PointRequest(name, pts)) for name, pts in traffic]
+    reqs = [engine.submit(PointRequest(name, pts, coeffs=c))
+            for name, pts, c in traffic]
     engine.run()
     wall = time.perf_counter() - t0
 

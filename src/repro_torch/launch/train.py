@@ -43,7 +43,15 @@ rows through every perturbed model in two ``tt_contract_batched``
 launches.  ``--estimator auto`` takes the problem's own estimator: ns-2d
 (``--pde ns-2d``, on a ``Domain`` with a Fourier feature map) trains by
 the spectral one with its ``ic`` and ``data`` terms, two launches more
-each.  ``--quant int8|fp8_e4m3`` (with
+each.  A coefficient-conditioned problem (``--pde
+black-scholes-100d-rs``, ``heat-10d-kappa``, ``hjb-10d-lam``) trains one
+model over its coefficient range: its rows carry the coefficients after
+the point (103 columns for black-scholes-100d-rs, inside the same padded
+input), ``--coeff-range NAME=LO:HI[,...]`` and ``--coeff-dist
+uniform|loguniform`` rebind the trained ranges, ``--coeffs-per-step C``
+draws C scenarios a step tiled over the batch, and the trained ranges go
+into the checkpoint's meta (``coeff_spec``) for serving.
+``--quant int8|fp8_e4m3`` (with
 ``--quant-block``, default 32) and ``--phase-bits`` train it
 quantization-aware: block-scaled TT cores (the
 ``tt_contract_batched_quant`` kernel in place of ``tt_contract_batched``)
@@ -78,6 +86,7 @@ import time
 
 import torch
 
+from repro_torch import pde as pde_lib
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.hjb_pinn import pinn_config, pinn_reduced
 from repro_torch.core import pinn, zoo
@@ -139,10 +148,15 @@ def _checkpoint_meta(cfg, problem, seed: int, noise_saved: bool) -> dict:
     """Self-describing meta: the serving registry rebuilds the solver from
     it alone.  With the chip's noise saved the seed goes under
     ``train_seed``: the JAX registry redraws a noise-on chip from a
-    ``seed`` key (another chip than the port's), and raises without one."""
-    return {"pinn": pinn.config_to_meta(cfg), "pde": problem.name,
-            "train_seed" if noise_saved else "seed": seed,
-            "term_weights": problem.term_weights()}
+    ``seed`` key (another chip than the port's), and raises without one.
+    A conditioned problem's trained ranges go under ``coeff_spec``:
+    serving normalizes with them and refuses coefficients outside them."""
+    meta = {"pinn": pinn.config_to_meta(cfg), "pde": problem.name,
+            "train_seed" if noise_saved else "seed": seed}
+    if problem.coeff_spec is not None:
+        meta["coeff_spec"] = problem.coeff_spec.to_meta()
+    meta["term_weights"] = problem.term_weights()
+    return meta
 
 
 def _bp_step_fn(model, opt, mask: dict, hw_noise: dict | None):
@@ -167,6 +181,50 @@ def _bp_step_fn(model, opt, mask: dict, hw_noise: dict | None):
         return new_params, new_state, loss.detach()
 
     return step
+
+
+def _parse_coeff_ranges(text: str) -> dict:
+    """``name=lo:hi[,name=lo:hi]`` → {name: (lo, hi)} for --coeff-range."""
+    out = {}
+    for part in text.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        try:
+            name, rng = part.split("=")
+            lo, hi = (float(v) for v in rng.split(":"))
+        except ValueError:
+            raise SystemExit(
+                f"--coeff-range: malformed entry {part!r} "
+                "(expected name=lo:hi[,name=lo:hi])")
+        out[name.strip()] = (lo, hi)
+    if not out:
+        raise SystemExit("--coeff-range: no ranges given")
+    return out
+
+
+def _conditioned_problem(args):
+    """``--pde`` with its ``--coeff-range`` / ``--coeff-dist`` overrides as
+    a problem instance, or None without overrides (the model then resolves
+    the name).  The overrides rebind ``coeff_spec`` on a fresh instance:
+    the ranges drive sampling, normalization and validation, never the
+    residual, which reads the raw coefficients off the rows."""
+    if not (args.coeff_range or args.coeff_dist):
+        return None
+    problem = pde_lib.get_problem(args.pde)
+    if problem.coeff_spec is None:
+        families = [n for n in pde_lib.available()
+                    if pde_lib.get_problem(n).coeff_spec is not None]
+        raise SystemExit(
+            f"--coeff-range/--coeff-dist need a coefficient-conditioned "
+            f"PDE; {args.pde!r} is not (try one of {families})")
+    ranges = _parse_coeff_ranges(args.coeff_range) if args.coeff_range else {}
+    try:
+        problem.coeff_spec = problem.coeff_spec.with_ranges(
+            ranges, dist=args.coeff_dist)
+    except ValueError as e:
+        raise SystemExit(f"--coeff-range: {e}")
+    return problem
 
 
 def _parse_term_weights(entries) -> dict:
@@ -240,9 +298,6 @@ def _unported(args) -> list:
          f"BP training of --pinn-mode onn at widths {held} (--optimizer "
          f"{args.optimizer}; those meshes take the owner walk, which has no "
          "backward kernel)", "6c-3"),
-        (args.coeff_range is not None, "--coeff-range", 10),
-        (args.coeff_dist is not None, "--coeff-dist", 10),
-        (args.coeffs_per_step is not None, "--coeffs-per-step", 10),
         (args.pinn_mode == "onn" and (args.quant or args.phase_bits),
          "quantization-aware training of --pinn-mode onn", 11),
         (bp and (args.quant or args.phase_bits),
@@ -263,8 +318,11 @@ def train_pinn(args) -> TrainResult:
     ``--sequential``) by default, the BP baselines with ``--optimizer``."""
     cfg = _pinn_config(args)
     device = resolve_device(args.device)
-    model = pinn.TensorPinn(cfg)
+    model = pinn.TensorPinn(cfg, problem=_conditioned_problem(args))
     problem = model.problem
+    if args.coeffs_per_step is not None and problem.coeff_spec is None:
+        raise SystemExit(f"--coeffs-per-step needs a coefficient-"
+                         f"conditioned PDE; {problem.name!r} is not")
     if _apply_term_weights(args, problem):
         print("[pinn] term weights: "
               + " ".join(f"{k}={v:g}"
@@ -273,6 +331,12 @@ def train_pinn(args) -> TrainResult:
           f"mode={cfg.mode} hidden={cfg.hidden} deriv={cfg.deriv} "
           f"fused={cfg.use_fused_kernel} device={device}"
           + (f" quant={cfg.quant.tag()}" if cfg.quant.enabled else ""))
+    if problem.coeff_spec is not None:
+        spec = problem.coeff_spec
+        print("[pinn] conditioned on "
+              + ", ".join(f"{n}∈[{lo:g}, {hi:g}]" for n, lo, hi
+                          in zip(spec.names, spec.lo, spec.hi))
+              + f" ({spec.dist}); net_in={problem.net_dim}")
 
     params, hw_noise = init_solver(model, args.seed)
     params = to_device(params, device)
@@ -342,7 +406,8 @@ def train_pinn(args) -> TrainResult:
             print(f"[resume] step {start_step}")
 
     colloc = pde_collocation_iterator(args.batch, seed=args.seed,
-                                      start_step=start_step, problem=problem)
+                                      start_step=start_step, problem=problem,
+                                      coeffs_per_step=args.coeffs_per_step)
     terms = pde_term_batch_iterator(max(args.batch // 4, 8), seed=args.seed,
                                     start_step=start_step, problem=problem)
     multi_term = len(problem.loss_terms()) > 1
@@ -445,15 +510,22 @@ def main(argv=None) -> TrainResult:
     ap.add_argument("--bc-weight", type=float, default=None,
                     help="weight of the boundary-kind loss term(s), λ in "
                          "L = L_r + λ·L_b; --term-weight wins for a name")
+    ap.add_argument("--coeff-range", default=None,
+                    help="override the trained coefficient ranges of a "
+                         "conditioned PDE: name=lo:hi[,name=lo:hi] "
+                         "(e.g. kappa=0.5:2.0)")
+    ap.add_argument("--coeff-dist", default=None,
+                    choices=[None, "uniform", "loguniform"],
+                    help="coefficient sampling distribution override")
+    ap.add_argument("--coeffs-per-step", type=int, default=None,
+                    help="grouped scenario sampling: C coefficient draws "
+                         "a step tiled over the batch instead of a draw "
+                         "a point")
     # flags of repro.launch.train that exit here (see _unported)
     ap.add_argument("--shard", default=None,
                     choices=["perturbation", "batch", "both"])
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--async-ckpt", action="store_true")
-    ap.add_argument("--coeff-range", default=None)
-    ap.add_argument("--coeff-dist", default=None,
-                    choices=[None, "uniform", "loguniform"])
-    ap.add_argument("--coeffs-per-step", type=int, default=None)
     ap.add_argument("--seq", type=int, default=None)
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--zo-vectorized", action="store_true")

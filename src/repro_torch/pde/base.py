@@ -18,9 +18,14 @@ derivative estimate before the residual, which is stated in raw
 coordinates, sees it.  An input feature map (``embed_features``) replaces
 the row inside the network's embedding (ns-2d's Fourier features).
 
-Port of ``repro.pde.base``.  Coefficient families are not ported yet
-(ROADMAP item 10), so every problem here is unconditioned (``coeff_spec``
-None).
+A coefficient-conditioned problem (``coeff_spec`` a ``CoeffSpec``) works
+on augmented rows of width ``net_dim = in_dim + K``: the physical point,
+then its K coefficient values in raw units.  Its samplers append a draw
+per row, so the stacked evaluator, the stencils, the serving pool and the
+stencil cache see coefficients as ordinary input columns that the
+estimators never shift.
+
+Port of ``repro.pde.base``.
 """
 
 from __future__ import annotations
@@ -33,8 +38,8 @@ import torch
 
 from repro_torch.core import spectral, stein
 
-__all__ = ["Domain", "LossTerm", "PDEProblem", "register", "get_problem",
-           "available", "uniform_box", "fd_stencil_points",
+__all__ = ["CoeffSpec", "Domain", "LossTerm", "PDEProblem", "register",
+           "get_problem", "available", "uniform_box", "fd_stencil_points",
            "estimate_from_u_stencil", "estimate_for_problem"]
 
 @dataclasses.dataclass(frozen=True)
@@ -120,6 +125,114 @@ class LossTerm:
         object.__setattr__(self, "weight", float(self.weight))
 
 
+@dataclasses.dataclass(frozen=True)
+class CoeffSpec:
+    """Named PDE-coefficient vector with its sampling ranges.
+
+    Rows of a conditioned problem carry the coefficient values in
+    ``names`` order after the physical point, in raw units; the network
+    sees them through ``normalize`` in [0, 1].  ``dist`` is ``"uniform"``
+    or ``"loguniform"`` (which needs strictly positive ranges)."""
+
+    names: tuple
+    lo: tuple
+    hi: tuple
+    dist: str = "uniform"
+
+    def __post_init__(self):
+        object.__setattr__(self, "names", tuple(self.names))
+        object.__setattr__(self, "lo", tuple(float(v) for v in self.lo))
+        object.__setattr__(self, "hi", tuple(float(v) for v in self.hi))
+        if not (len(self.names) == len(self.lo) == len(self.hi)):
+            raise ValueError("names/lo/hi length mismatch")
+        if not self.names:
+            raise ValueError("CoeffSpec needs at least one coefficient")
+        if self.dist not in ("uniform", "loguniform"):
+            raise ValueError(f"unknown coefficient dist {self.dist!r}")
+        for nm, a, b in zip(self.names, self.lo, self.hi):
+            if not a < b:
+                raise ValueError(f"coefficient {nm!r}: need lo < hi, "
+                                 f"got [{a}, {b}]")
+            if self.dist == "loguniform" and a <= 0.0:
+                raise ValueError(f"coefficient {nm!r}: loguniform needs "
+                                 f"lo > 0, got {a}")
+
+    @property
+    def n(self) -> int:
+        return len(self.names)
+
+    def _bounds(self, like: torch.Tensor) -> tuple:
+        return (torch.tensor(self.lo, dtype=like.dtype, device=like.device),
+                torch.tensor(self.hi, dtype=like.dtype, device=like.device))
+
+    def sample(self, generator: torch.Generator, n: int) -> torch.Tensor:
+        """(n, K) float32 draws in raw units, on the generator's device."""
+        u = torch.rand((n, self.n), generator=generator,
+                       device=generator.device)
+        lo, hi = self._bounds(u)
+        if self.dist == "loguniform":
+            return torch.exp(torch.log(lo) + u * (torch.log(hi)
+                                                  - torch.log(lo)))
+        return lo + u * (hi - lo)
+
+    def normalize(self, c: torch.Tensor) -> torch.Tensor:
+        """Raw units → [0, 1] network input slots (in log space for
+        loguniform, so the network sees the sampling measure uniformly)."""
+        lo, hi = self._bounds(c)
+        if self.dist == "loguniform":
+            return ((torch.log(c) - torch.log(lo))
+                    / (torch.log(hi) - torch.log(lo)))
+        return (c - lo) / (hi - lo)
+
+    def defaults(self) -> np.ndarray:
+        """(K,) mid-range coefficients (the geometric mid for
+        loguniform)."""
+        lo, hi = np.asarray(self.lo), np.asarray(self.hi)
+        if self.dist == "loguniform":
+            return np.sqrt(lo * hi)
+        return 0.5 * (lo + hi)
+
+    def check_in_range(self, c, rtol: float = 1e-6) -> None:
+        """Raise ValueError on a wrong-arity or out-of-range coefficient
+        vector (numpy; the serving boundary, where extrapolating outside
+        the trained range must be an error, not a quietly wrong answer)."""
+        c = np.asarray(c, dtype=np.float64).reshape(-1)
+        if c.shape[0] != self.n:
+            raise ValueError(
+                f"expected {self.n} coefficient(s) ({', '.join(self.names)}),"
+                f" got {c.shape[0]}")
+        lo, hi = np.asarray(self.lo), np.asarray(self.hi)
+        slack = rtol * (hi - lo)
+        bad = (c < lo - slack) | (c > hi + slack)
+        if bad.any():
+            raise ValueError("; ".join(
+                f"{nm}={v:g} outside trained range [{a:g}, {b:g}]"
+                for nm, v, a, b, m in zip(self.names, c, lo, hi, bad) if m))
+
+    def with_ranges(self, overrides: dict, dist: str | None = None
+                    ) -> "CoeffSpec":
+        """A new spec with ``{name: (lo, hi)}`` overrides (and ``dist``)."""
+        unknown = set(overrides) - set(self.names)
+        if unknown:
+            raise ValueError(f"unknown coefficient(s) {sorted(unknown)}; "
+                             f"this family has {list(self.names)}")
+        lo, hi = list(self.lo), list(self.hi)
+        for nm, (a, b) in overrides.items():
+            i = self.names.index(nm)
+            lo[i], hi[i] = float(a), float(b)
+        return CoeffSpec(self.names, tuple(lo), tuple(hi),
+                         self.dist if dist is None else dist)
+
+    def to_meta(self) -> dict:
+        return {"names": list(self.names), "lo": list(self.lo),
+                "hi": list(self.hi), "dist": self.dist}
+
+    @staticmethod
+    def from_meta(meta: dict) -> "CoeffSpec":
+        return CoeffSpec(tuple(meta["names"]), tuple(meta["lo"]),
+                         tuple(meta["hi"]), meta.get("dist", "uniform"))
+
+
 class PDEProblem:
     """Base class: one PDE workload of the tensor PINN stack."""
 
@@ -133,7 +246,7 @@ class PDEProblem:
     fd_step: float = 1e-2         # recommended FD step for this problem
     residual_tol: float = 5e-2    # MSQ residual of the exact solution under
     #                               the f32 FD estimator at ``fd_step``
-    coeff_spec = None             # coefficient families are not ported yet
+    coeff_spec: CoeffSpec | None = None  # set: coefficient-conditioned
     domain: Domain | None = None  # set: the samplers emit unit-box rows and
     #                               scale_estimate folds in the Jacobian
     _term_weights: dict = {}      # per-instance overrides, set_term_weights
@@ -154,12 +267,41 @@ class PDEProblem:
 
     @property
     def n_coeffs(self) -> int:
-        return 0
+        return 0 if self.coeff_spec is None else self.coeff_spec.n
 
     @property
     def net_dim(self) -> int:
-        """Row width the network consumes (in_dim + n_coeffs)."""
+        """Row width the network consumes (in_dim + n_coeffs): every
+        point-shaped array (collocation batches, stencils, serving slots,
+        cache keys) has rows this wide."""
         return self.in_dim + self.n_coeffs
+
+    def split_coeffs(self, xt: torch.Tensor) -> tuple:
+        """(..., net_dim) rows → ((..., in_dim) points, (..., K) coeffs)."""
+        return xt[..., :self.in_dim], xt[..., self.in_dim:self.net_dim]
+
+    def attach_coeffs(self, pts: torch.Tensor, coeffs) -> torch.Tensor:
+        """(n, in_dim) points and one (K,) coefficient vector → (n,
+        net_dim) augmented rows (the serving path: one scenario a
+        request); unconditioned problems return ``pts``."""
+        if self.coeff_spec is None:
+            return pts
+        c = torch.as_tensor(coeffs, dtype=pts.dtype,
+                            device=pts.device).reshape(-1)
+        return torch.cat([pts, c.expand(pts.shape[0], self.n_coeffs)],
+                         dim=-1)
+
+    def _sample_with_coeffs(self, generator: torch.Generator, n: int,
+                            point_sampler) -> torch.Tensor:
+        """The samplers' shared plumbing: ``point_sampler(generator)``'s
+        points, then, for a conditioned problem, a coefficient draw a row
+        from the same generator (unconditioned problems draw the points
+        alone, as before)."""
+        pts = point_sampler(generator)
+        if self.coeff_spec is None:
+            return pts
+        return torch.cat([pts, self.coeff_spec.sample(generator, n)
+                          .to(pts.dtype)], dim=-1)
 
     def embed_features(self, xt: torch.Tensor):
         """Optional input feature map (..., net_dim) → (..., feature_dim),
@@ -192,7 +334,7 @@ class PDEProblem:
         return None
 
     def sample_collocation(self, generator: torch.Generator, n: int) -> torch.Tensor:
-        """(n, in_dim) interior points (float32, on the CPU)."""
+        """(n, net_dim) interior rows (float32, on the CPU)."""
         raise NotImplementedError
 
     def ansatz(self, f: torch.Tensor, xt: torch.Tensor) -> torch.Tensor:

@@ -5,11 +5,14 @@ engine serves mixed traffic through a fixed pool of ``slots`` slots of
 ``slot_points`` points each.  The invariants:
 
   * **one program per key, shape-stable** — exactly one program per
-    ``(solver, dtype[, quant tag], slot-shape)``, built the first time the
-    key sees traffic and counted in ``stats["compiles"]``.  A program is a closure
-    over the solver's prepared on-device params; its input is always the
-    FULL pool ``(slots·slot_points, net_dim)`` and any other shape raises,
-    as the JAX package's AOT executable does.
+    ``(solver, dtype[, quant tag][, c{K}], slot-shape)``, built the first
+    time the key sees traffic and counted in ``stats["compiles"]``.  A
+    program is a closure over the solver's prepared on-device params; its
+    input is always the FULL pool ``(slots·slot_points, net_dim)`` and any
+    other shape raises, as the JAX package's AOT executable does.  A
+    conditioned solver's rows carry the request's coefficients after the
+    point (augmented at submit), so one ``c{K}``-tagged program serves
+    every coefficient instance of its family with no rebuild.
   * **pad-to-slot** — a chunk shorter than a slot pads with an in-domain
     fill point, idle slots evaluate pure fill; every row's arithmetic is
     independent of the other rows (the TT kernel's summation order per
@@ -22,8 +25,9 @@ Repeated queries short-circuit through the ``StencilCache`` at submit time:
 hits never occupy a slot.  A request's ``quant`` (a ``QuantConfig``) selects
 a quantized program of its own, and its cache entries live under the
 config's tag, so quantized and f32 values never answer each other's
-queries.  Only float32 requests are served in this port so far; other
-dtypes and ``coeffs=`` raise at submit.
+queries; a conditioned request's keys are its augmented rows, so two
+coefficient instances never share an entry.  Only float32 requests are
+served in this port so far; other dtypes raise at submit.
 
 Port of ``repro.serving.engine``.
 """
@@ -61,15 +65,18 @@ class PointRequest:
     ``out`` is filled in place (same order as ``points``); ``done`` flips
     when every point is served; ``latency_s`` covers submit → completion,
     queue wait included.  ``quant`` (a ``QuantConfig``, None for f32)
-    requests quantized serving.  ``dtype`` and ``coeffs`` mirror the JAX
-    request; anything but float32 / None raises at submit.
+    requests quantized serving.  ``coeffs`` (one ``(K,)`` vector of raw
+    coefficient values, e.g. ``[r, sigma]``) selects the instance of a
+    conditioned solver's family, and must lie in its trained ranges.
+    ``dtype`` mirrors the JAX request; anything but float32 raises at
+    submit.
     """
 
     solver: str
     points: np.ndarray                    # (n, in_dim) physical points
     dtype: Any = np.float32
     quant: Any = None                     # QuantConfig | None (None = f32)
-    coeffs: Any = None
+    coeffs: Any = None                    # (K,) raw coefficients | None
     out: np.ndarray | None = None         # (n,) served u-values
     done: bool = False
     t_submit: float = 0.0
@@ -115,7 +122,7 @@ class PdeServingEngine:
             StencilCache() if enable_cache else None)
         self.queue: collections.deque[PointRequest] = collections.deque()
         self.active: list[_Slot | None] = [None] * slots
-        self._programs: dict = {}  # (solver, dtype[, quant], S, C) -> program
+        self._programs: dict = {}  # (solver, dtype[, quant][, cK], S, C)
         self._fill: dict = {}          # solver -> in-domain fill point
         self.stats = {"compiles": 0, "steps": 0, "program_runs": 0,
                       "points_served": 0, "points_padded": 0,
@@ -151,12 +158,13 @@ class PdeServingEngine:
         fake-quantized once here and the program runs the f32 chain over
         them.  ``fake_quant`` is idempotent, so the values are the quantized
         model's, and a run pays nothing for the quantization."""
+        solver = self.registry.get(solver_name)
         tag = _quant_tag(quant)
-        key = (solver_name, "float32", *((tag,) if tag else ()), self.slots,
-               self.slot_points)
+        ctag = f"c{solver.n_coeffs}" if solver.coeff_spec is not None else ""
+        key = (solver_name, "float32", *((tag,) if tag else ()),
+               *((ctag,) if ctag else ()), self.slots, self.slot_points)
         program = self._programs.get(key)
         if program is None:
-            solver = self.registry.get(solver_name)
             model, params, noise = solver.model, solver.params, solver.noise
             if tag:
                 model = pinn.TensorPinn(
@@ -208,8 +216,9 @@ class PdeServingEngine:
             torch.cuda.synchronize(self.device)
 
     def _fill_point(self, solver_name: str) -> np.ndarray:
-        """A fixed in-domain point for pad rows and idle slots (its outputs
-        are discarded; it only must not produce NaN/inf)."""
+        """A fixed in-domain row for pad rows and idle slots (its outputs
+        are discarded; it only must not produce NaN/inf): a conditioned
+        solver's carries in-range sampled coefficients."""
         p = self._fill.get(solver_name)
         if p is None:
             problem = self.registry.get(solver_name).problem
@@ -235,10 +244,30 @@ class PdeServingEngine:
         if pts.shape[1] != solver.in_dim:
             raise ValueError(f"solver {req.solver!r} takes in_dim="
                              f"{solver.in_dim} points, got {pts.shape}")
-        if req.coeffs is not None:
-            raise ValueError(
-                f"solver {req.solver!r} is not coefficient-conditioned "
-                "but the request carries coeffs; drop them")
+        # a conditioned/unconditioned mismatch is the client's error,
+        # caught before any state changes, both ways
+        spec = solver.coeff_spec
+        if spec is None:
+            if req.coeffs is not None:
+                raise ValueError(
+                    f"solver {req.solver!r} is not coefficient-conditioned "
+                    "but the request carries coeffs; drop them or query a "
+                    "conditioned solver")
+        else:
+            if req.coeffs is None:
+                raise ValueError(
+                    f"solver {req.solver!r} is coefficient-conditioned on "
+                    f"({', '.join(spec.names)}); pass PointRequest(coeffs="
+                    f"[{', '.join(spec.names)}]) with values in the "
+                    "trained ranges")
+            coeffs = np.asarray(req.coeffs, np.float64).reshape(-1)
+            spec.check_in_range(coeffs)   # arity and trained range
+            req.coeffs = coeffs
+            # augmented once here: the cache keys, the slot packing and the
+            # net_dim-wide pool see plain rows
+            pts = np.concatenate(
+                [pts, np.broadcast_to(coeffs, (pts.shape[0], spec.n))],
+                axis=1)
         req.points = pts
         req.t_submit = time.perf_counter()
         req.out = np.empty(pts.shape[0], np.float64)

@@ -16,9 +16,12 @@ port cannot rebuild it refuses, never ignores:
     its noise was sampled from the training seed with JAX's threefry
     generator, which torch does not reproduce — pass the noise itself as
     ``hw_noise=`` (a numpy tree from the JAX side).  The port's trainer
-    saves the noise beside the params, so its checkpoints need nothing;
-  * conditioned solvers (``coeff_spec`` in meta) are not ported yet and
-    raise ``NotImplementedError``.
+    saves the noise beside the params, so its checkpoints need nothing.
+
+A conditioned checkpoint (``coeff_spec`` in meta) loads with its trained
+coefficient ranges rebound onto a fresh problem, so serving normalizes
+and validates with the ranges the solver was trained on, not the
+registry's defaults; such meta on an unconditioned PDE raises.
 
 A quantized checkpoint (``quant.enabled`` in its config) loads with the
 model built from that config, so it serves the quantized solver it was
@@ -63,6 +66,16 @@ class LoadedSolver:
     @property
     def in_dim(self) -> int:
         return self.model.in_dim
+
+    @property
+    def coeff_spec(self):
+        """The trained coefficient ranges (None: unconditioned), which the
+        engine packs net_dim-wide rows and validates requests by."""
+        return self.model.problem.coeff_spec
+
+    @property
+    def n_coeffs(self) -> int:
+        return self.model.problem.n_coeffs
 
     @property
     def net_dim(self) -> int:
@@ -144,17 +157,24 @@ class SolverRegistry:
                     f"checkpoint {directory} predates solver metadata "
                     "(no 'pinn' key in meta.json); pass cfg= explicitly")
             cfg = pinn.config_from_meta(meta["pinn"])
-        if "coeff_spec" in meta:
-            raise NotImplementedError(
-                f"checkpoint {directory} is a coefficient-conditioned solver; "
-                "conditioned serving is not ported yet")
         problem = None
+        if "coeff_spec" in meta:
+            # the trained (possibly --coeff-range overridden) ranges, not
+            # the registry's defaults, normalize and validate serving
+            problem = pde_lib.get_problem(cfg.pde)
+            if problem.coeff_spec is None:
+                raise ValueError(
+                    f"checkpoint meta has coeff_spec but PDE {cfg.pde!r} "
+                    "is not coefficient-conditioned")
+            problem.coeff_spec = pde_lib.CoeffSpec.from_meta(
+                meta["coeff_spec"])
         if "term_weights" in meta:
             # the trained loss composition (--term-weight/--bc-weight)
             # travels in the checkpoint: restored, a validation pass through
             # the loaded solver reproduces the trained loss; names the
             # problem does not know are dropped
-            problem = pde_lib.get_problem(cfg.pde)
+            if problem is None:
+                problem = pde_lib.get_problem(cfg.pde)
             known = {t.name for t in problem.loss_terms()}
             problem.set_term_weights({k: v for k, v
                                       in meta["term_weights"].items()

@@ -8,8 +8,9 @@ against their plain PyTorch versions, onn's ZO step, served values (f32 and quan
 quantization codes made on the card against the CPU's, one ZO training
 step (f32 and quantization-aware) on the card against the same step
 through the plain path on the CPU, and a reduced LM's prefill and decode
-on the card against the CPU, and the BP and sequential ZO training steps
-on the card against the CPU.
+on the card against the CPU, the BP and sequential ZO training steps
+on the card against the CPU, and a conditioned family's coefficient grid
+and served pool on the card.
 
 Run on a machine with an NVIDIA GPU (Hopper, ``sm_90a``) and ``nvcc``:
 
@@ -1694,3 +1695,72 @@ def test_ns2d_u_stacked_on_the_card_matches_the_cpu(cuda):
     for card, cpu in zip(*out):
         assert torch.isfinite(card).all()
         assert (card - cpu).abs().max() <= 1e-4 * cpu.abs().max()
+
+
+def _coeff_model():
+    """black-scholes-100d-rs at the paper's width (tonn, noise on): 103
+    columns inside the 1024-wide padded input."""
+    from repro_torch.configs.hjb_pinn import pinn_config
+    model = pinn.TensorPinn(pinn_config(pde="black-scholes-100d-rs",
+                                        mode="tonn", noise=True))
+    assert model.net_in == 103 and model.in_pad == 1024
+    return model
+
+
+def test_u_coeff_grid_stacked_on_the_card_matches_the_cpu(cuda):
+    """(P, C, B) u over 4 coefficient vectors × 50 points for 3 stacked
+    parameter sets through one stacked forward: 2 ``tt_contract_batched``
+    launches and 1 grouped densification on the card, within 1e-4 of
+    max|u| of the CPU's plain path."""
+    model = _coeff_model()
+    params = model.init(counter_generator(0))
+    noise = model.sample_noise(counter_generator(0, 99))
+    xis = zoo.sample_perturbations(counter_generator(2), params, 2,
+                                   model.trainable_mask(params))
+    stacked = zoo.perturbed_stack(params, xis, zoo.SPSAConfig(num_samples=2))
+    pts = model.problem.sample_collocation(counter_generator(1),
+                                           50)[:, :model.in_dim]
+    coeffs = model.problem.coeff_spec.sample(counter_generator(3), 4)
+    counters = (ttc.tt_contract_batched, mesh.mesh_densify_stacked)
+    out = []
+    for d in (cuda, torch.device("cpu")):
+        before = [fn.launches for fn in counters]
+        prep = model.prepare_params_stacked(to_device(stacked, d),
+                                            to_device(noise, d))
+        out.append(model.u_coeff_grid_stacked(prep, pts.to(d),
+                                              coeffs.to(d)).cpu())
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            assert [fn.launches - b for fn, b in zip(counters, before)] \
+                == [2, 1]
+    card, cpu = out
+    assert tuple(card.shape) == (3, 4, 50) and torch.isfinite(card).all()
+    assert (card - cpu).abs().max() <= 1e-4 * cpu.abs().max()
+
+
+def test_conditioned_pool_served_on_the_card(cuda):
+    """A conditioned solver served on the card at 4 coefficient instances
+    by one ``c2`` program, built once: each request's u equals the
+    solver's ``model.u`` on its augmented rows (``rtol = atol = 1e-6``)
+    and the CPU's plain path (1e-5)."""
+    reg = SolverRegistry(device=cuda)
+    s = reg.register_fresh("bs", _coeff_model().cfg, seed=0, device=cuda)
+    eng = PdeServingEngine(reg, slots=4, slot_points=256, device=cuda)
+    eng.warmup()
+    pts = s.problem.sample_collocation(counter_generator(5),
+                                       300)[:, :s.in_dim].numpy()
+    reqs = [eng.submit(PointRequest("bs", pts, coeffs=c)) for c in
+            ([0.02, 0.25], [0.05, 0.4], [0.09, 0.55], [0.03, 0.59])]
+    eng.run()
+    assert eng.stats["compiles"] == 1
+    assert eng.serving_stats()["programs"] == ["bs|float32|c2|4|256"]
+    for r in reqs:
+        assert r.done and np.isfinite(r.out).all()
+        rows = torch.tensor(r.points, dtype=torch.float32)
+        with torch.no_grad():
+            direct = s.model.u(s.params, rows.to(cuda)).cpu().numpy()
+            plain = s.model.u(to_device(s.params, torch.device("cpu")),
+                              rows).numpy()
+        np.testing.assert_allclose(r.out, direct, rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(r.out, plain, rtol=1e-5, atol=1e-5)
+    assert not np.allclose(reqs[0].out, reqs[2].out)

@@ -1,8 +1,8 @@
 """The port's PDE problems (heat, Black–Scholes, HJB, Helmholtz with its
-boundary term), its Stein estimator, ``estimate_for_problem``, the Stein
-and boundary paths of the loss engine and the trainer's term weights,
-against the JAX package: the counterpart of ``tests/test_pde.py`` for these
-problems.
+boundary term, the four coefficient-conditioned families), its Stein
+estimator, ``estimate_for_problem``, the Stein and boundary paths of the
+loss engine and the trainer's term weights, against the JAX package: the
+counterpart of ``tests/test_pde.py`` for these problems.
 
 Inputs are the JAX side's arrays (collocation rows, Gaussian directions,
 params) handed over as numpy.  Tolerances:
@@ -49,7 +49,8 @@ from repro_torch.launch import train
 from test_torch_pinn import _np_tree, _port_model, share_cores
 
 PDES = ("hjb-10d", "hjb-20d", "heat-10d", "heat-20d", "black-scholes-100d",
-        "helmholtz-2d")
+        "helmholtz-2d", "heat-10d-kappa", "hjb-10d-lam",
+        "black-scholes-8d-rs", "black-scholes-100d-rs")
 STEIN_LEAF_WORST = 5e-5          # measured: 4.5e-5 (heat-20d hess_diag)
 LOSS_BATCH = 96
 
@@ -72,6 +73,10 @@ def test_registry_surface_matches_jax(name):
     jp, tp = jpde.get_problem(name), tpde.get_problem(name)
     assert name in tpde.available() and tp.name == name
     assert tp.in_dim == tp.space_dim + int(tp.time_dependent) == jp.in_dim
+    assert tp.net_dim == jp.net_dim and tp.n_coeffs == jp.n_coeffs
+    assert (tp.coeff_spec is None) == (jp.coeff_spec is None)
+    if tp.coeff_spec is not None:
+        assert tp.coeff_spec.to_meta() == jp.coeff_spec.to_meta()
     for attr in ("space_dim", "time_dependent", "has_boundary_loss",
                  "bc_weight", "fd_step", "residual_tol", "estimator",
                  "margin", "has_exact_solution"):
@@ -97,7 +102,12 @@ def test_heat_floor_is_the_references():
 def test_collocation_shapes_and_bounds(name):
     tp = tpde.get_problem(name)
     pts = tp.sample_collocation(torch.Generator().manual_seed(3), 257)
-    assert tuple(pts.shape) == (257, tp.in_dim) and pts.dtype == torch.float32
+    assert tuple(pts.shape) == (257, tp.net_dim) and pts.dtype == torch.float32
+    if tp.coeff_spec is not None:       # a draw a row, inside the ranges
+        c = pts[:, tp.in_dim:].numpy()
+        assert (c >= np.float32(tp.coeff_spec.lo)).all()
+        assert (c <= np.float32(tp.coeff_spec.hi)).all()
+        assert len(np.unique(c[:, 0])) == 257
     m = tp.margin
     D = tp.space_dim
     x = pts[:, :D]
@@ -117,7 +127,7 @@ def test_ansatz_residual_and_exact_solution_match_jax(name):
     a given estimate and ``exact_solution``."""
     jp, tp = jpde.get_problem(name), tpde.get_problem(name)
     xt = _rows(name)
-    B, A = xt.shape
+    B, A = xt.shape[0], tp.in_dim
     rs = np.random.RandomState(len(name))
     f = rs.standard_normal(B).astype(np.float32)
     u, grad, hess = (rs.standard_normal(s).astype(np.float32)
@@ -146,19 +156,24 @@ def _exact_f64(jp):
 
     def f(rows):
         r = np.asarray(rows, dtype=np.float64)
-        x, t = r[..., :D], r[..., -1]
+        x, t = r[..., :D], r[..., min(D, r.shape[-1] - 1)]
+        c = r[..., jp.in_dim:]           # a conditioned row's coefficients
         if jp.name.startswith("helmholtz"):
             a1, a2 = jp.a
             u = np.sin(a1 * np.pi * x[..., 0]) * np.sin(a2 * np.pi * x[..., 1])
         elif jp.name.startswith("heat"):
-            tau = jp.s + 1.0 - t
+            kappa = c[..., 0] if jp.n_coeffs else 1.0
+            tau = jp.s + kappa * (1.0 - t)
             q = np.sum((x - jp.center) ** 2, axis=-1)
             u = (jp.s / tau) ** (D / 2.0) * np.exp(-q / (4.0 * tau))
         elif jp.name.startswith("black-scholes"):
-            u = np.exp((jp.r + jp.sigma ** 2) * (1.0 - t)) \
+            rate, sigma = ((c[..., 0], c[..., 1]) if jp.n_coeffs
+                           else (jp.r, jp.sigma))
+            u = np.exp((rate + sigma ** 2) * (1.0 - t)) \
                 * np.sum(x * x, axis=-1) / D
         else:
-            u = np.sum(np.abs(x), axis=-1) + 1.0 - t
+            slope = 2.0 - c[..., 0] * D if jp.n_coeffs else 1.0
+            u = np.sum(np.abs(x), axis=-1) + slope * (1.0 - t)
         return u.astype(np.float32)
     return f
 
@@ -216,7 +231,7 @@ def test_terminal_condition_at_t1():
         if not tp.time_dependent:
             continue
         xt = tp.sample_collocation(torch.Generator().manual_seed(0), 9)
-        xt[:, -1] = 1.0
+        xt[:, tp.space_dim] = 1.0
         f = torch.randn(9, generator=torch.Generator().manual_seed(1))
         np.testing.assert_allclose(tp.ansatz(f, xt).numpy(),
                                    tp.exact_solution(xt).numpy(),
@@ -371,7 +386,9 @@ FD_CASES = {"heat20-tt": ("heat-20d", "tt", False),
             "bs100-tt": ("black-scholes-100d", "tt", False),
             "bs100-tonn-noise": ("black-scholes-100d", "tonn", True),
             "helm-tt": ("helmholtz-2d", "tt", False),
-            "helm-tonn-noise": ("helmholtz-2d", "tonn", True)}
+            "helm-tonn-noise": ("helmholtz-2d", "tonn", True),
+            "bs100rs-tonn-noise": ("black-scholes-100d-rs", "tonn", True),
+            "heat10kappa-tt": ("heat-10d-kappa", "tt", False)}
 BOUNDARY_ROWS = 24      # the trainer's max(LOSS_BATCH // 4, 8)
 
 

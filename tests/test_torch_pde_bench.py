@@ -3,9 +3,10 @@
 contract, ``run_problem``'s rows, ``--ci``'s budgets),
 ``benchmarks/torch_zo_step.py`` (``bench_mode``'s rows) and
 ``benchmarks/torch_residual_perf.py`` (its rows, off-path checks and
-gates), each against the keys of the reference benchmark's committed JSON;
-and ``benchmarks/torch_table1_hjb.run_row`` on a problem with a boundary
-term.
+gates), ``benchmarks/torch_ns_data.py`` and
+``benchmarks/torch_coeff_family.py`` (their records and gates), each
+against the keys of the reference benchmark's committed JSON; and
+``benchmarks/torch_table1_hjb.run_row`` on a problem with a boundary term.
 """
 
 import json
@@ -13,11 +14,15 @@ import math
 from pathlib import Path
 
 import pytest
+import torch
 
+from benchmarks import torch_coeff_family as cfam
+from benchmarks import torch_ns_data as nsdata
 from benchmarks import torch_pde_suite as suite
 from benchmarks import torch_residual_perf as rperf
 from benchmarks import torch_table1_hjb as ttable
 from benchmarks import torch_zo_step as zo
+from test_torch_pinn import share_cores  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -75,7 +80,8 @@ def test_failures_name_a_divergence_and_a_nonfinite_loss():
     assert len(bad) == 2 and "[tt]" in bad[0] and "non-finite" in bad[1]
 
 
-@pytest.mark.parametrize("main", [suite.main, zo.main, rperf.main])
+@pytest.mark.parametrize("main", [suite.main, zo.main, rperf.main,
+                                  nsdata.main, cfam.main])
 def test_out_is_required(main, capsys):
     with pytest.raises(SystemExit):
         main(["--device", "cpu"])
@@ -151,3 +157,58 @@ def test_residual_perf_row_has_the_reference_keys_and_gates(tmp_path):
     assert run["gates"]["hjb-10d/inference_ratio"]["passed"] is True
     assert run["config"]["arms"] == ref["config"]["arms"]
     assert run["config"]["device"]["type"] == "cpu"
+
+
+def test_ns_data_record_has_the_reference_keys_and_gates(tmp_path):
+    """The ns-2d benchmark at toy width and budget: the reference's arms,
+    spectral-path and legacy-parity keys (every registered problem), the
+    spectral path bit for bit, every problem's parity, the four gates
+    with the reference's bounds, and the reference's own numbers beside."""
+    ref = _reference("BENCH_ns_data.json")
+    out = tmp_path / "ns.json"
+    nsdata.main(["--hidden", "8", "--epochs", "2", "--batch", "4",
+                 "--num-samples", "2", "--device", "cpu", "--out", str(out)])
+    run = json.loads(out.read_text())["runs"][0]
+    assert set(run["arms"]) == set(ref["arms"])
+    for arm in run["arms"].values():
+        assert set(ref["arms"]["full"]) <= set(arm)
+        assert arm["resolved_deriv"] == "spectral"
+    assert set(run["spectral_path"]) == set(ref["spectral_path"])
+    assert run["spectral_path"]["loss_bit_identical_to_line_assembly"]
+    assert run["spectral_path"]["inferences_per_loss"] == \
+        ref["spectral_path"]["inferences_per_loss"]
+    assert set(run["legacy_parity"]) == set(ref["legacy_parity"])
+    assert all(run["legacy_parity"].values())
+    assert set(run["gates"]) == {"val_mse_floor", "data_ablation",
+                                 "periodic_spectral_path",
+                                 "legacy_loss_parity"}
+    assert run["gates"]["val_mse_floor"]["bound"] == \
+        ref["config"]["val_mse_gate"]
+    assert run["gates"]["data_ablation"]["bound"] == \
+        ref["config"]["ablation_gate"]
+    assert run["gates"]["periodic_spectral_path"]["passed"]
+    assert run["reference"]["val_mse"] == {
+        k: v["val_mse"] for k, v in ref["arms"].items()}
+
+
+def test_coeff_family_record_has_the_reference_keys_and_gates():
+    """The coefficient-family benchmark at toy width and budget on one
+    family: the reference's family and row keys, the off-path checks all
+    bit-identical, one ``c1`` program serving within an ulp, and every gate
+    reported; its ``--zo`` arm at batch 8."""
+    ref = _reference("BENCH_coeff_family.json")
+    run = json.loads(json.dumps(cfam.run(families=("hjb",), hidden=8,
+                                         steps=2, device="cpu")))
+    fam, want = run["families"]["hjb"], ref["families"]["hjb"]
+    assert set(want) <= set(fam) and fam["coeff_spec"] == want["coeff_spec"]
+    assert [r["coeffs"] for r in fam["held_out"]] == \
+        [r["coeffs"] for r in want["held_out"]]
+    assert set(fam["held_out"][0]) == set(want["held_out"][0])
+    assert run["f32_off_path"] == ref["f32_off_path"]
+    assert all(run["f32_off_path"].values())
+    assert run["gates"]["serving"]["passed"]
+    assert len(run["gates"]) == 3 + 2 + 2
+    zo_run = cfam.run_zo(torch.device("cpu"), steps=2, batch=8, hidden=16)
+    assert zo_run["pde"] == "black-scholes-100d-rs" and zo_run["hidden"] == 16
+    assert len(zo_run["held_out"]) == 3 and zo_run["coeffs_per_step"] == 4
+    assert all(math.isfinite(r["val_mse"]) for r in zo_run["held_out"])

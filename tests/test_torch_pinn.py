@@ -108,8 +108,11 @@ def test_registry_names_and_errors():
     assert set(PORTED_PDES) <= set(tpde.available())
     assert set(tpde.available()) <= set(jpde.available())
     assert tpde.get_problem("hjb-20d") is not tpde.get_problem("hjb-20d")
-    with pytest.raises(KeyError):       # coefficient families: item 10
-        tpde.get_problem("heat-10d-kappa")
+    for name in ("heat-10d-kappa", "hjb-10d-lam", "black-scholes-8d-rs",
+                 "black-scholes-100d-rs"):      # the conditioned families
+        assert tpde.get_problem(name).coeff_spec is not None
+    with pytest.raises(KeyError):
+        tpde.get_problem("heat-30d")
     with pytest.raises(ValueError):
         tpde.register("hjb-20d")(lambda: None)
     box = tpde.uniform_box(torch.Generator().manual_seed(0), 4, 3, -1.0, 2.0)

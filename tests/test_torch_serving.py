@@ -203,11 +203,11 @@ def test_checkpoints_the_port_cannot_rebuild_raise(tmp_path):
     reg = SolverRegistry(device=CPU)
     with pytest.raises(ValueError, match="hw_noise"):
         reg.load_checkpoint("noisy", tmp_path / "noisy", device=CPU)
-    # coefficient-conditioned solver
+    # coefficient ranges in meta for a PDE that is not conditioned
     spec = jpde.get_problem("heat-10d-kappa").coeff_spec
-    _save_jax_ckpt(tmp_path / "fam", _cfg("heat-10d-kappa", "tt", False), 0,
+    _save_jax_ckpt(tmp_path / "fam", _cfg("heat-10d", "tt", False), 0,
                    extra={"coeff_spec": spec.to_meta()})
-    with pytest.raises(NotImplementedError, match="conditioned"):
+    with pytest.raises(ValueError, match="not coefficient-conditioned"):
         reg.load_checkpoint("fam", tmp_path / "fam", device=CPU)
     # a pre-metadata checkpoint needs cfg=
     cfg = _cfg("hjb-10d", "tt", False)

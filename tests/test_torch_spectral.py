@@ -278,6 +278,37 @@ def test_default_spectral_carrier_is_none():
         torch.zeros(4, 2), torch.zeros(2, 2)) is None
 
 
+def test_estimator_width_contract_on_conditioned_problem():
+    """The counterpart of the reference's width contract
+    (``tests/test_spectral.py``): fd, Stein and spectral return (B, A)
+    leaves on conditioned rows (A = in_dim < net_dim) and agree on the
+    derivatives of the closed form; on JAX's rows, the spectral leaves
+    within the windowed floor of JAX's."""
+    tp, jp = tpde.get_problem("heat-10d-kappa"), jpde.get_problem(
+        "heat-10d-kappa")
+    A, D = tp.in_dim, tp.net_dim
+    assert A < D
+    xt = np.asarray(jp.sample_collocation(jax.random.PRNGKey(0), 4))
+    x = torch.tensor(xt)
+    f = tp.exact_solution
+    fd = tstein.fd_estimate(f, x, h=1e-2, n_active=A)
+    sn = tstein.stein_estimate(f, x, torch.Generator().manual_seed(1),
+                               sigma=5e-2, num_samples=4096, n_active=A)
+    sp = tspec.spectral_estimate(f, x, points=16, n_active=A,
+                                 carrier=tp.spectral_carrier)
+    for est in (fd, sn, sp):
+        assert tuple(est.grad.shape) == (4, A)
+        assert tuple(est.hess_diag.shape) == (4, A)
+    np.testing.assert_allclose(sp.grad.numpy(), fd.grad.numpy(),
+                               atol=tspec.WINDOWED_FLOOR + 1e-3)
+    np.testing.assert_allclose(sn.grad.numpy(), fd.grad.numpy(), atol=0.2)
+    jsp = jspec.spectral_estimate(jp.exact_solution, jnp.asarray(xt),
+                                      points=16, n_active=A,
+                                      carrier=jp.spectral_carrier)
+    np.testing.assert_allclose(sp.grad.numpy(), np.asarray(jsp.grad),
+                               atol=tspec.WINDOWED_FLOOR)
+
+
 def _heat64(xt, D=10, s=2.5):
     tau = s + 1.0 - xt[..., D]
     q = np.sum((xt[..., :D] - 0.5) ** 2, axis=-1)

@@ -162,9 +162,9 @@ def test_resume_redraws_the_same_perturbations(tmp_path):
     (["--pinn-mode", "onn", "--optimizer", "adamw", "--hidden", "1040"],
      "item 6c-3"),
     (["--estimator", "stein"], "reference trainer passes no PRNG key"),
-    (["--coeff-range", "lam=0.05:0.1"], "item 10"),
-    (["--coeff-dist", "uniform"], "item 10"),
-    (["--coeffs-per-step", "2"], "item 10"),
+    (["--coeff-range", "lam=0.05:0.1"], "need a coefficient-conditioned"),
+    (["--coeff-dist", "uniform"], "need a coefficient-conditioned"),
+    (["--coeffs-per-step", "2"], "needs a coefficient-conditioned"),
     (["--quant", "int8", "--pinn-mode", "onn"], "item 11"),
     (["--quant", "fp8_e4m3", "--quant-block", "16", "--pinn-mode", "onn"],
      "item 11"),
@@ -177,7 +177,8 @@ def test_resume_redraws_the_same_perturbations(tmp_path):
 def test_unported_flags_exit_with_their_roadmap_item(flags, item):
     """Each refusal names its ROADMAP item; ``--estimator stein`` names the
     reference trainer's own fault instead (it passes its Stein loss no
-    PRNG key), which neither trainer takes."""
+    PRNG key), which neither trainer takes.  The ``--coeff-*`` flags are
+    ported: on hjb-20d, which is not conditioned, they exit saying so."""
     with pytest.raises(SystemExit, match=item):
         train.main(REDUCED + flags)
 
@@ -222,8 +223,8 @@ def test_onn_bp_trains_at_a_width_of_the_warp_rows_backward():
 def test_lm_archs_and_unported_pdes_are_refused():
     with pytest.raises(SystemExit, match="item 14"):
         train.main(["--arch", "qwen2.5-3b", "--device", "cpu"])
-    with pytest.raises(KeyError, match="unknown PDE 'heat-10d-kappa'"):
-        _run("--pde", "heat-10d-kappa", "--steps", 1)    # item 10
+    with pytest.raises(KeyError, match="unknown PDE 'heat-30d'"):
+        _run("--pde", "heat-30d", "--steps", 1)
 
 
 def test_streams_are_counter_based():

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro.core import tt as jtt
 from repro.kernels import ops as jops
@@ -262,6 +263,37 @@ def test_batched_split_and_refusals():
     with pytest.raises(ValueError, match="CUDA"):
         tops.tt_linear_batched(torch.zeros(4, 1024, device="meta"),
                                [c.to("meta") for c in cores], spec)
+
+
+@settings(deadline=None, max_examples=8)
+@given(P=st.integers(1, 4), C=st.integers(1, 5), batch=st.integers(1, 12),
+       shared_x=st.booleans())
+def test_tt_linear_batched_multi_axis_property(P, C, batch, shared_x):
+    """The port's counterpart of the reference's multi-axis property
+    (``tests/test_properties.py``): extra batch axes (perturbations ×
+    coefficients × points) flatten through the stacked chain and come
+    back, equal to the flattened call bit for bit, for shared and
+    per-entry inputs, the C == P case included (``shared_x`` decides it),
+    and within ``RTOL`` of JAX's plain chain on the same arrays."""
+    spec = jtt.auto_factorize(16, 32, L=2, max_rank=2)
+    rng = np.random.RandomState(P * 100 + C * 10 + batch)
+    cores = [rng.standard_normal((P, *s)).astype(np.float32)
+             for s in spec.core_shapes]
+    x = rng.standard_normal((C, batch, 32) if shared_x
+                            else (P, C, batch, 32)).astype(np.float32)
+    tcores = [torch.tensor(c) for c in cores]
+    y = tops.tt_linear_batched(torch.tensor(x), tcores, _port_spec(spec),
+                               shared_x=shared_x)
+    assert tuple(y.shape) == (P, C, batch, 16)
+    flat = x.reshape(-1, 32) if shared_x else x.reshape(P, -1, 32)
+    y_flat = tops.tt_linear_batched(torch.tensor(flat), tcores,
+                                    _port_spec(spec), shared_x=shared_x)
+    assert torch.equal(y, y_flat.reshape(y.shape))
+    want = jops.tt_linear_batched(jnp.asarray(x), tuple(map(jnp.asarray,
+                                                            cores)),
+                                  spec, mode="ref", shared_x=shared_x)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
 
 
 # ------------------------------------------------------- fiber body tiling
