@@ -392,6 +392,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 ``tt_contract_grad`` a step) held to its family tolerance,
                 val MSE < 1e-2 at each of 5 coefficient draws, and the
                 range's ends giving different fields.
+ 21d. train-dist — distributed ZO (``repro_torch.parallel.zo_shard``) at
+                the paper's config (hjb-20d, ``TONN_ONCHIP_FUSED``, hidden
+                1024, N = 10, batch 100) in a 2-rank ``gloo`` world on the
+                card (``zo_shard.run_ranks``; both ranks on one H100, the
+                O(N) loss vector crossing the host): on ``2x1`` (6 of 12
+                padded entries a rank) and ``1x2`` (50 points a rank) the
+                gradient and base loss against the single-rank fused
+                ``zoo.spsa_gradient`` of the same generator (atol
+                1e-4·max|g|, rtol 1e-3; base rtol 1e-4; printed with
+                whether it is bit-equal; every rank the same bits), the
+                bytes one step puts on the wire (every collective counted,
+                ``measure_collective_bytes``) within ``wire_bound_bytes``
+                and below the params', 3 ``tt_contract_batched`` + 1
+                grouped densification a rank a step over 5 counted steps
+                and in a traced window, ms a step (CUDA events, host
+                median) of each layout and of the single-rank fused step.
+                Then ``launch.train --shard perturbation --mesh 2x1
+                --async-ckpt`` for 20 steps (each rank's wrapper counts: 3
+                B1 + 1 B3 a step, rank 0's validation forwards besides;
+                the loss falls) and ``--resume`` to 30 (10 steps, the
+                checkpoint's and the ZO state's step 30); the watchdog's
+                straggles printed.
  21b. mesh-grad-wide — phase 6c's three cases of the warp-rows backward
                 at onn's hidden 1024 (``MESH_GRAD_WIDE``: handed the hidden
                 layer's U mesh's y and dy on 4300 rows, layer 0's on 100
@@ -2422,7 +2444,7 @@ PROFILE_LAGS: list = []              # each window's device_lag_ms
 
 
 def _profile(fn, calls: int = 1, match: str | None = None,
-             lead=None) -> dict:
+             lead=None, count: tuple = ()) -> dict:
     """``calls`` back-to-back calls of ``fn``, a steady window after one
     warm call, under ``torch.profiler`` (CPU + CUDA): the window's wall
     time (host clock, ending in a synchronize), the summed time of the
@@ -2444,7 +2466,8 @@ def _profile(fn, calls: int = 1, match: str | None = None,
     ``device_lag_ms``: the window's first device event's start less its
     first kernel launch's on the host, on the trace's clock (also in
     ``PROFILE_LAGS``); a lost window's message counts the launches the
-    host made in it."""
+    host made in it.  ``count``: names whose device kernels the window
+    counts, per call (``counts``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()                                                   # warm
@@ -2503,6 +2526,9 @@ def _profile(fn, calls: int = 1, match: str | None = None,
         out["match_max_ms"] = max((ms for _, ms in matched), default=None)
         out["match_each_ms"] = [ms for _, ms in
                                 sorted(matched)[:len(matched) // calls]]
+    if count:
+        out["counts"] = {c: sum(n for name, (_, n) in by_name.items()
+                                if c in name) / calls for c in count}
     return out
 
 
@@ -4116,6 +4142,274 @@ def phase_train_coeff(device) -> dict:
     return out
 
 
+DIST_LAYOUTS = (("2x1", "perturbation"), ("1x2", "batch"))
+DIST_GEN = (11, 0)      # the counters of the ξ generator every rank seeds
+DIST_STEPS = 5          # counted distributed steps a layout
+DIST_CLI = {"steps": 20, "resume_to": 30, "log_every": 10}
+DIST_KERNELS = ("tt_contract_batched_kernel", "mesh_densify_kernel")
+
+
+def _dist_setup(device, batch: int):
+    """TONN_ONCHIP_FUSED at hidden 1024 (hjb-20d, noise on) on ``device``:
+    the model, params, chip noise, trainable mask and the first batch of
+    seed 0, as the trainer draws them."""
+    from repro_torch.configs.hjb_pinn import pinn_config
+    from repro_torch.core import pinn
+    from repro_torch.data import pde_collocation_iterator
+    from repro_torch.device import to_device
+    from repro_torch.launch import train
+    model = pinn.TensorPinn(pinn_config(pde="hjb-20d", mode="tonn",
+                                        fused=True, noise=True))
+    params, noise = train.init_solver(model, 0)
+    params, noise = to_device(params, device), to_device(noise, device)
+    xt = next(pde_collocation_iterator(batch, seed=0,
+                                       problem=model.problem)).to(device)
+    return model, params, noise, model.trainable_mask(params), xt
+
+
+def _dist_rank(rank: int, world: int, kw: dict) -> dict:
+    """One rank of ``train-dist``'s world (``zo_shard.run_ranks``, on the
+    card): for each layout its distributed gradient and base loss, the
+    bytes one step puts on the wire, its kernel launches over
+    ``DIST_STEPS`` counted steps (every count 0 just before, read just
+    after), its ms a step on CUDA events and on the host, and a traced
+    window's kernels a step."""
+    import numpy as np
+    import torch
+    from repro_torch.core import pinn, zoo
+    from repro_torch.device import counter_generator
+    from repro_torch.kernels import mesh_apply as mesh
+    from repro_torch.kernels import tt_contract as ttc
+    from repro_torch.parallel import zo_shard
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if kw["device"] == "cuda" else torch.device(kw["device"]))
+    model, params, noise, mask, xt = _dist_setup(dev, kw["batch"])
+    cfg = zoo.SPSAConfig(num_samples=kw["n"])
+
+    def blf(sp, x, tb=None):
+        return pinn.residual_losses_stacked(model, sp, x, noise)
+
+    counted = {"tt_contract_batched": ttc.tt_contract_batched,
+               "tt_contract_batched_quant": ttc.tt_contract_batched_quant,
+               "tt_contract": ttc.tt_contract,
+               "mesh_densify_stacked": mesh.mesh_densify_stacked,
+               "mesh_apply_stacked": mesh.mesh_apply_stacked}
+    out = {"rank": rank, "device": str(dev)}
+    fill = torch.zeros(1, device=dev)
+    for spec, shard in DIST_LAYOUTS:
+        layout = zo_shard.make_zo_mesh(spec, shard)
+        g, base = zo_shard.make_distributed_spsa_gradient(
+            layout, blf, cfg, trainable_mask=mask)(
+            params, counter_generator(*DIST_GEN, device=dev), xt)
+        step = zo_shard.make_distributed_zo_step(layout, blf, cfg,
+                                                 trainable_mask=mask)
+        state = zoo.ZOState(step=0, seed=1)
+
+        def one():
+            return step(params, state, xt, None, 1e-3)
+
+        wire = zo_shard.measure_collective_bytes(one)
+        for fn in counted.values():                       # main path starts
+            fn.launches = 0
+        p, s = params, state
+        for _ in range(DIST_STEPS):
+            p, s, loss = step(p, s, xt, None, 1e-3)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counted.items()}
+        host = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            float(one()[2])
+            host.append((time.perf_counter() - t0) * 1e3)
+        out[spec] = {
+            "pert_index": layout.pert_index,
+            "batch_index": layout.batch_index,
+            "grad": [t.cpu().numpy() for t in zoo.tree_leaves(g)],
+            "base": float(base), "devices": sorted(
+                {t.device.type for t in [*zoo.tree_leaves(g), base]}),
+            "wire_bytes": wire["bytes"],
+            "wire_ops": [(op, shapes) for op, shapes, _ in wire["ops"]],
+            "launches": launches,
+            "ms": _time_ms(one, iters=10, warmup=2),
+            "host_ms_median": float(np.median(host)),
+            # the window opens on a fill: the profiler may drop a window's
+            # first kernel, and the fill is not counted by name
+            "trace": _profile(one, 3, match=DIST_KERNELS[0],
+                              lead=lambda: fill.fill_(0.0),
+                              count=DIST_KERNELS)}
+    return out
+
+
+def _dist_cli(device) -> dict:
+    """``launch.train --shard perturbation --mesh 2x1 --async-ckpt`` for
+    ``DIST_CLI['steps']`` steps, then ``--resume`` to ``resume_to``: each
+    run spawns its 2 ranks; every rank's kernel launches are its
+    wrappers' counts over the run (a fresh process: 0 at its start)."""
+    import numpy as np
+    from repro_torch.checkpoint import read_checkpoint_meta
+    from repro_torch.launch import train
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    steps, resume_to, log_every = (DIST_CLI["steps"], DIST_CLI["resume_to"],
+                                   DIST_CLI["log_every"])
+    argv = ["--arch", "tensor-pinn", "--pde", "hjb-20d", "--pinn-noise",
+            "--batch", "100", "--zo-samples", "10", "--ckpt-dir", ckpt,
+            "--ckpt-every", "10", "--log-every", str(log_every), "--seed",
+            "0", "--shard", "perturbation", "--mesh", "2x1", "--async-ckpt"]
+    out = {}
+    for label, extra, first, last in (
+            ("run", ["--steps", str(steps)], 0, steps),
+            ("resume", ["--steps", str(resume_to), "--resume"], steps,
+             resume_to)):
+        t0 = time.perf_counter()
+        res = train.main(argv + extra)
+        wall = time.perf_counter() - t0
+        n = last - first
+        losses = np.asarray(res.losses)
+        if len(losses) != n or not np.isfinite(losses).all():
+            raise AssertionError(f"{label}: losses {res.losses}")
+        meta = read_checkpoint_meta(ckpt)
+        if meta["step"] != last or int(res.opt_state["step"]) != last:
+            raise AssertionError(f"{label}: checkpoint step {meta['step']}, "
+                                 f"ZO state {res.opt_state['step']}, "
+                                 f"expected {last}")
+        evals = len(range(first, last, log_every)) + 1
+        for r in res.ranks:
+            lead = r["rank"] == 0
+            want = dict.fromkeys(r["launches"], 0)
+            want.update(tt_contract_batched=3 * n,
+                        mesh_densify_stacked=n + (evals if lead else 0),
+                        tt_contract=2 * evals if lead else 0)
+            if r["launches"] != want:
+                raise AssertionError(f"{label}: rank {r['rank']} launched "
+                                     f"{r['launches']}; expected {want}")
+            if r["losses"] != res.losses:
+                raise AssertionError(f"{label}: rank {r['rank']}'s losses "
+                                     "are not rank 0's")
+        out[label] = {"steps": n, "wall_s": wall,
+                      "loss_first": float(losses[0]),
+                      "loss_last": float(losses[-1]),
+                      "loss_median_last5": float(np.median(losses[-5:])),
+                      "val_mse": res.val_mse, "straggles": res.straggles,
+                      "host_step_ms_median":
+                          1e3 * float(np.median(res.step_seconds)),
+                      "launches": {r["rank"]: r["launches"]
+                                   for r in res.ranks}}
+    run = out["run"]
+    if not run["loss_median_last5"] < run["loss_first"]:
+        raise AssertionError(f"--shard: the loss did not fall: {run}")
+    shutil.rmtree(ckpt)
+    print(f"[train-dist] watchdog straggles: {run['straggles']} of "
+          f"{steps} steps, {out['resume']['straggles']} of "
+          f"{resume_to - steps} resumed", flush=True)
+    return out
+
+
+def _dist_launches(dist: dict, name: str) -> dict:
+    """``name``'s launches in ``train-dist``: each layout's counted steps
+    and the CLI's runs, rank by rank."""
+    out = {spec: [r[name] for r in row["launches"]]
+           for spec, row in dist["layouts"].items()}
+    out.update({f"cli-{label}": [r[name] for r in run["launches"].values()]
+                for label, run in dist["cli"].items()})
+    return out
+
+
+def phase_train_dist(device) -> dict:
+    """Distributed ZO at the paper's width on one card, two ranks in a
+    ``gloo`` world: the gradient and base loss of each layout against the
+    single-rank fused ``zoo.spsa_gradient`` of the same generator (atol
+    1e-4·max|g|, rtol 1e-3; base rtol 1e-4; bit-equality noted), the wire
+    of a step within ``wire_bound_bytes`` and below the params' bytes, 3
+    ``tt_contract_batched`` + 1 grouped densification a rank a step
+    (counted, and in a traced window), ms a step of each layout and of the
+    single-rank fused step; then the trainer's ``--shard`` CLI and its
+    resume (``_dist_cli``)."""
+    import numpy as np
+    from repro_torch.core import pinn, zoo
+    from repro_torch.device import counter_generator
+    from repro_torch.parallel import zo_shard
+    kw = {"batch": 100, "n": 10, "device": device.type}
+    ranks = zo_shard.run_ranks(_dist_rank, 2, kw, device=device)
+    model, params, noise, mask, xt = _dist_setup(device, kw["batch"])
+    cfg = zoo.SPSAConfig(num_samples=kw["n"])
+
+    def blf(sp):
+        return pinn.residual_losses_stacked(model, sp, xt, noise)
+
+    g_ref, base_ref = zoo.spsa_gradient(
+        params, counter_generator(*DIST_GEN, device=device), cfg, blf, mask)
+    g_ref = [t.cpu().numpy() for t in zoo.tree_leaves(g_ref)]
+    base_ref = float(base_ref)
+    scale = max(float(np.abs(t).max()) for t in g_ref)
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in zoo.tree_leaves(params))
+    single = measure_zo_step(model, params, noise, mask, xt,
+                             zoo.ZOState(step=0, seed=1), kw["n"])
+    layouts = {}
+    for spec, _ in DIST_LAYOUTS:
+        p = int(spec.split("x")[0])
+        bound = zo_shard.wire_bound_bytes(kw["n"], p)
+        rows = [r[spec] for r in ranks]
+        for r, row in zip(ranks, rows):
+            if not (row["devices"] == [device.type]
+                    and r["device"].startswith(device.type)):
+                raise AssertionError(f"{spec}: rank {r['rank']} ran on "
+                                     f"{r['device']}, its gradient on "
+                                     f"{row['devices']}")
+            for a, b in zip(row["grad"], g_ref):
+                np.testing.assert_allclose(a, b, atol=1e-4 * scale,
+                                           rtol=1e-3, err_msg=spec)
+            np.testing.assert_allclose(row["base"], base_ref, rtol=1e-4,
+                                       err_msg=spec)
+            for a, b in zip(row["grad"], rows[0]["grad"]):
+                np.testing.assert_array_equal(a, b, err_msg=spec)
+            if not 0 < row["wire_bytes"] <= bound < param_bytes:
+                raise AssertionError(f"{spec}: {row['wire_bytes']} bytes on "
+                                     f"the wire, bound {bound}, params "
+                                     f"{param_bytes}")
+            want = dict.fromkeys(row["launches"], 0)
+            want.update(tt_contract_batched=3 * DIST_STEPS,
+                        mesh_densify_stacked=DIST_STEPS)
+            if row["launches"] != want:
+                raise AssertionError(f"{spec}: rank {r['rank']} launched "
+                                     f"{row['launches']} over {DIST_STEPS} "
+                                     f"steps; expected {want}")
+            counts = row["trace"]["counts"]
+            if counts != {DIST_KERNELS[0]: 3, DIST_KERNELS[1]: 1}:
+                raise AssertionError(f"{spec}: rank {r['rank']}'s traced "
+                                     f"step holds {counts}")
+        bit = all(np.array_equal(a, b) for a, b in zip(rows[0]["grad"],
+                                                       g_ref))
+        layouts[spec] = {
+            "positions": [(row["pert_index"], row["batch_index"])
+                          for row in rows],
+            "grad_max_abs_err": max(float(np.abs(a - b).max())
+                                    for a, b in zip(rows[0]["grad"], g_ref)),
+            "grad_scale": scale, "grad_bit_equal": bit,
+            "base": rows[0]["base"], "base_single": base_ref,
+            "base_bit_equal": rows[0]["base"] == base_ref,
+            "wire_bytes": [row["wire_bytes"] for row in rows],
+            "wire_ops": rows[0]["wire_ops"],
+            "wire_bound_bytes": bound, "param_bytes": param_bytes,
+            "launches": [row["launches"] for row in rows],
+            "ms": [row["ms"] for row in rows],
+            "host_ms_median": [row["host_ms_median"] for row in rows],
+            "trace": [{k: row["trace"][k] for k in (
+                "wall_ms", "device_ms", "busy_share", "kernels_per_call",
+                "counts", "match_each_ms", "retries")} for row in rows]}
+        print(f"[train-dist] {spec}: grad max|Δ| "
+              f"{layouts[spec]['grad_max_abs_err']:.3e} of scale "
+              f"{scale:.3e} ({'bit-equal' if bit else 'not bit-equal'} to "
+              f"the single-rank fused gradient), base {rows[0]['base']!r} "
+              f"against {base_ref!r}", flush=True)
+    out = {"world": 2, "layouts": layouts,
+           "single_rank_fused": {"zo_step_ms": single["zo_step_ms"][0],
+                                 "trace": single["trace"]},
+           "cli": _dist_cli(device)}
+    print(f"[train-dist] {json.dumps(out)}", flush=True)
+    return out
+
+
 def phase_train_pde(device) -> dict:
     """heat-20d and black-scholes-100d through the trainer at the paper's
     config, then the stacked Stein loss at heat-20d."""
@@ -4342,6 +4636,7 @@ def main() -> int:
     pdes = run(phase_train_pde, device)
     spectral = run(phase_train_spectral, device)
     coeff = run(phase_train_coeff, device)
+    dist = run(phase_train_dist, device)
     mesh_grad.update(run(phase_mesh_grad_wide))
 
     main_case = kernel["cases"][0]                       # paper spec, B=2048
@@ -4380,6 +4675,7 @@ def main() -> int:
                "launches_train_coeff": {
                    name: coeff[name]["launches"]["tt_contract_batched"]
                    for name in COEFF_TRAIN},
+               "launches_train_dist": _dist_launches(dist, "tt_contract_batched"),
                "cases": [*batched.values(), pdes["stein"]["layer0"]]}
     # B3 has two entries in one source: the grouped densification, which
     # the training path runs, and the standalone mesh, which it no longer
@@ -4399,6 +4695,7 @@ def main() -> int:
                "launches_train_coeff": {
                    name: coeff[name]["launches"]["mesh_densify_stacked"]
                    for name in COEFF_TRAIN},
+               "launches_train_dist": _dist_launches(dist, "mesh_densify_stacked"),
                "entry_launches": {
                    name: trained["launches"][name]
                    for name in ("mesh_densify_stacked",

@@ -7,8 +7,12 @@ renamed into place, so a crash never leaves a half checkpoint behind.  No
 framework owns the format, so a solver trained by the JAX package loads
 into the port and the other way round.
 
-Port of the single-process part of ``repro.checkpoint.manager``, with a
-synchronous ``CheckpointManager`` (the async save is not ported yet).
+``CheckpointManager(async_save=True)`` copies the tree to the host at
+``save`` and writes it on a thread while training goes on; ``wait()``
+joins the write (and raises what it raised) before a restore, before the
+next save and at the end of training.
+
+Port of the single-process part of ``repro.checkpoint.manager``.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -123,28 +128,70 @@ def latest_step(directory: str | os.PathLike) -> int | None:
 
 class CheckpointManager:
     """Keep-k checkpoint policy around ``save_checkpoint`` /
-    ``restore_checkpoint``; saves are synchronous."""
+    ``restore_checkpoint``, optionally writing on a thread."""
 
     def __init__(self, directory: str | os.PathLike, keep: int = 3,
-                 save_every: int = 100):
+                 save_every: int = 100, async_save: bool = False):
         self.directory = Path(directory)
         self.keep = keep
         self.save_every = save_every
+        self.async_save = async_save
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
 
     def should_save(self, step: int) -> bool:
         return step > 0 and step % self.save_every == 0
 
     def save(self, step: int, tree, extra_meta: dict | None = None) -> Path:
-        """Write step ``step`` and drop all but the newest ``keep``."""
-        path = save_checkpoint(self.directory, step, tree, extra_meta)
+        """Write step ``step`` and drop all but the newest ``keep``.  With
+        ``async_save`` the tree is copied to the host now (the caller may
+        go on updating its tensors) and written on a thread; the path
+        returned is where it lands."""
+        path = self.directory / f"step_{step:012d}"
+        if not self.async_save:
+            self._save_and_gc(step, tree, extra_meta)
+            return path
+        snapshot = _snapshot(tree)
+        self.wait()
+        self._thread = threading.Thread(
+            target=self._write, args=(step, snapshot, extra_meta),
+            name=f"checkpoint-{step}")
+        self._thread.start()
+        return path
+
+    def _write(self, step, tree, extra_meta):
+        try:
+            self._save_and_gc(step, tree, extra_meta)
+        except BaseException as e:      # handed to wait(), which raises it
+            self._error = e
+
+    def _save_and_gc(self, step, tree, extra_meta):
+        save_checkpoint(self.directory, step, tree, extra_meta)
         if self.keep:
             for s in _complete_steps(self.directory)[:-self.keep]:
                 shutil.rmtree(self.directory / f"step_{s:012d}",
                               ignore_errors=True)
-        return path
 
     def wait(self) -> None:
-        """Saves are synchronous: nothing is ever pending."""
+        """Join the pending write, if any; raise its error."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError("asynchronous checkpoint write failed") \
+                from err
 
     def restore_latest(self, tree_like) -> tuple:
+        self.wait()
         return restore_checkpoint(self.directory, tree_like)
+
+
+def _snapshot(tree):
+    """A host copy of every tensor of ``tree`` (a CPU tensor is copied
+    too: the caller keeps updating its own)."""
+    if isinstance(tree, dict):
+        return {k: _snapshot(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_snapshot(v) for v in tree]
+    return tree.detach().to("cpu", copy=True)

@@ -454,11 +454,18 @@ class TensorPinn:
     def _f_head_stacked(self, stacked: dict, a: torch.Tensor,
                         noise: dict | None = None) -> torch.Tensor:
         """``f = sin(W1·a + b1) @ w2ᵀ + b2`` for P stacked parameter sets:
-        (P, B', hidden) activations → (P, B') f-values."""
+        (P, B', hidden) activations → (P, B') f-values.
+
+        The head's dot products are a plain reduction over each row's
+        products: a row's f keeps its bits whatever P and B' are, which a
+        batched GEMV does not promise (on the card cuBLAS picks its kernel
+        by shape, and the FD residual turns that last bit into per-cent
+        losses).  So a rank of distributed ZO, which evaluates a slice of
+        the stack on a shard of the batch, computes each loss's rows as the
+        whole stack does."""
         z = self._layer_matvec_stacked(stacked, 1, a, noise) \
             + stacked["b1"][:, None]
-        f = torch.einsum("pbh,poh->pbo", torch.sin(z), stacked["w2"])
-        return (f + stacked["b2"][:, None])[..., 0]
+        return (torch.sin(z) * stacked["w2"]).sum(-1) + stacked["b2"]
 
     def fd_u_stencil_stacked(self, stacked: dict, xt: torch.Tensor, h: float,
                              noise: dict | None = None) -> torch.Tensor:

@@ -34,9 +34,18 @@ device; ``zo_signsgd_step`` re-seeds it per step from ``(seed, step)``
 Torch's generators do not give JAX's threefry bits: the parity tests feed
 both packages the same ξ arrays (``xis=``).
 
+Distributed ZO: every worker regenerates the same ξ from the shared
+generator seed, evaluates its slice ``index_shard=(lo, hi)`` of the N
+losses (``spsa_losses``), and one ``all_reduce`` over a process ``group``
+(where the JAX package takes an ``axis_name``) merges the zero-scattered
+N-vector, so every worker rebuilds the same gradient from O(N) scalars
+(``spsa_gradient``).  The two-axis version, with collocation-batch
+sharding and the padded [base, ξ_1..ξ_N] stack, is
+``repro_torch.parallel.zo_shard``.
+
 Port of ``repro.core.zoo``; the vmapped generic evaluator
-(``vectorized``), the plain ĝ step (``sign_update=False``) and the
-index-shard and axis-name hooks of distributed ZO are not ported yet.
+(``vectorized``) and the plain ĝ step (``sign_update=False``) are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -45,13 +54,14 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import counter_generator
 
 __all__ = ["SPSAConfig", "tree_leaves", "tree_map", "sample_perturbation",
            "sample_perturbations", "perturbed_stack", "spsa_losses",
            "spsa_gradient_from_losses", "spsa_gradient", "ZOState",
-           "zo_signsgd_step", "apply_update"]
+           "zo_signsgd_step", "apply_update", "all_reduce_sum"]
 
 PyTree = Any
 
@@ -157,26 +167,66 @@ def spsa_gradient_from_losses(perturbed_losses: torch.Tensor,
                     xis)
 
 
-def spsa_losses(loss_fn: Callable[[PyTree], torch.Tensor], params: PyTree,
-                generator: torch.Generator, cfg: SPSAConfig,
-                xis: PyTree | None = None,
-                trainable_mask: PyTree | None = None) -> torch.Tensor:
-    """The N perturbed losses L(Φ + μ ξ_i), one ``loss_fn`` call each, in
-    order — ``(L(Φ + μ ξ_i) − L(Φ − μ ξ_i)) / 2`` when antithetic.  ``xis``
-    is the stacked ξ (``sample_perturbations``); without it the stack is
-    drawn from ``generator``.  Returns the (N,) f32 losses."""
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t`` summed over the ranks of ``group`` (a new tensor on ``t``'s
+    device).  ``gloo`` reduces host tensors: a CUDA tensor crosses to the
+    host for the collective and back, which for the O(N) loss scalars of
+    distributed ZO is a few dozen bytes."""
+    host = dist.get_backend(group) == "gloo" and t.device.type != "cpu"
+    buf = t.detach().to("cpu", copy=True) if host else t.detach().clone()
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    return buf.to(t.device) if host else buf
+
+
+def spsa_losses(loss_fn: Callable[[PyTree], torch.Tensor] | None,
+                params: PyTree, generator: torch.Generator | None,
+                cfg: SPSAConfig, xis: PyTree | None = None,
+                trainable_mask: PyTree | None = None,
+                index_shard: tuple | None = None,
+                batched_loss_fn: Callable[[PyTree], torch.Tensor] | None
+                = None) -> torch.Tensor:
+    """The N perturbed losses L(Φ + μ ξ_i) — ``(L(Φ + μ ξ_i) − L(Φ − μ
+    ξ_i)) / 2`` when antithetic — as an (N,) f32 vector.  ``xis`` is the
+    stacked ξ (``sample_perturbations``); without it the stack is drawn
+    from ``generator``.
+
+    Sequential by default: one ``loss_fn`` call each, in order.  With
+    ``batched_loss_fn`` the slice goes through it as one stack.
+    ``index_shard=(lo, hi)`` evaluates only i ∈ [lo, hi), a worker's
+    slice, and leaves zeros elsewhere: the vector is ready for a sum over
+    the workers, each of which used the same generator seed."""
     n = cfg.num_samples
+    lo, hi = index_shard if index_shard is not None else (0, n)
     if xis is None:
         xis = sample_perturbations(generator, params, n, trainable_mask)
-    losses = []
-    for i in range(n):
-        xi = tree_map(lambda z: z[i], xis)
-        lp = loss_fn(tree_map(lambda p, z: p + cfg.mu * z, params, xi))
+    if hi <= lo:
+        return torch.zeros(n, dtype=torch.float32,
+                           device=tree_leaves(params)[0].device)
+    if batched_loss_fn is not None:
+        local = tree_map(lambda z: z[lo:hi], xis)
+        vals = batched_loss_fn(tree_map(lambda p, z: p + cfg.mu * z,
+                                        params, local))
         if cfg.antithetic:
-            lm = loss_fn(tree_map(lambda p, z: p + (-cfg.mu) * z, params, xi))
-            lp = 0.5 * (lp - lm)
-        losses.append(lp.to(torch.float32))
-    return torch.stack(losses)
+            lm = batched_loss_fn(tree_map(lambda p, z: p + (-cfg.mu) * z,
+                                          params, local))
+            vals = 0.5 * (vals - lm)
+        vals = vals.to(torch.float32)
+    else:
+        losses = []
+        for i in range(lo, hi):
+            xi = tree_map(lambda z: z[i], xis)
+            lp = loss_fn(tree_map(lambda p, z: p + cfg.mu * z, params, xi))
+            if cfg.antithetic:
+                lm = loss_fn(tree_map(lambda p, z: p + (-cfg.mu) * z,
+                                      params, xi))
+                lp = 0.5 * (lp - lm)
+            losses.append(lp.to(torch.float32))
+        vals = torch.stack(losses)
+    if (lo, hi) == (0, n):
+        return vals
+    out = vals.new_zeros(n)
+    out[lo:hi] = vals
+    return out
 
 
 def spsa_gradient(params: PyTree, generator: torch.Generator,
@@ -185,28 +235,41 @@ def spsa_gradient(params: PyTree, generator: torch.Generator,
                   = None,
                   trainable_mask: PyTree | None = None,
                   loss_fn: Callable[[PyTree], torch.Tensor] | None = None,
-                  xis: PyTree | None = None) -> tuple:
+                  xis: PyTree | None = None,
+                  index_shard: tuple | None = None,
+                  group=None) -> tuple:
     """Eq. (5): returns ``(grad, base_loss)``.
 
     With ``batched_loss_fn`` the base model rides along as a zero
     perturbation, so it sees all N+1 (2N+1 antithetic) parameter sets at
     once.  Without it the path is sequential: ``loss_fn`` of the base
     params, then ``spsa_losses``.  Both draw the stacked ξ from
-    ``generator`` first, unless ``xis`` hands it over."""
+    ``generator`` first, unless ``xis`` hands it over.
+
+    ``index_shard=(lo, hi)`` runs a worker's part of distributed ZO: the
+    base loss (``loss_fn``, or the batched evaluator on the params alone)
+    and the losses of slice [lo, hi) only.  With a process ``group`` the
+    N-vector is summed over its ranks before the reconstruction, so every
+    worker holds the same gradient."""
     n = cfg.num_samples
     if batched_loss_fn is None and loss_fn is None:
         raise ValueError("spsa_gradient needs loss_fn (sequential) or "
                          "batched_loss_fn (fused)")
     if xis is None:
         xis = sample_perturbations(generator, params, n, trainable_mask)
-    if batched_loss_fn is None:
-        base = loss_fn(params)
-        losses = spsa_losses(loss_fn, params, generator, cfg, xis=xis)
-    else:
+    if batched_loss_fn is not None and index_shard is None:
         all_l = batched_loss_fn(perturbed_stack(params, xis, cfg))
         base = all_l[0]
         losses = (0.5 * (all_l[1:n + 1] - all_l[n + 1:]) if cfg.antithetic
                   else all_l[1:]).to(torch.float32)
+    else:
+        base = (loss_fn(params) if loss_fn is not None else
+                batched_loss_fn(tree_map(lambda p: p[None], params))[0])
+        losses = spsa_losses(loss_fn, params, generator, cfg, xis=xis,
+                             index_shard=index_shard,
+                             batched_loss_fn=batched_loss_fn)
+    if group is not None:
+        losses = all_reduce_sum(losses, group)
     return spsa_gradient_from_losses(losses, base, cfg, xis), base
 
 

@@ -69,6 +69,18 @@ not ``seed``: the JAX package's registry would redraw the chip from a
 ``seed`` with its own generator and serve another chip, and without one it
 asks for the noise instead.
 
+``--shard perturbation|batch|both`` with ``--mesh PxB`` trains by
+distributed ZO (``repro_torch.parallel.zo_shard``): the launcher spawns
+P·B ranks in a ``gloo`` world (on ``cuda`` rank r takes ``cuda:{r %
+device_count()}``, the kernels built before the spawn), each evaluates its
+slice of the N+1 stacked losses on its shard of the batch, and a step's
+only traffic is O(N) f32 scalars; the params stay replicated, so the run's
+losses, params and checkpoints are the unsharded run's up to f32
+reassociation.  Rank 0 alone prints and checkpoints; a rank that fails
+fails the run.  ``--async-ckpt`` writes checkpoints on a thread (the
+tensors copied to the host first).  A ``StragglerWatchdog`` times every
+step and prints a straggle as the JAX trainer does.
+
 Port of the ``train_pinn`` branch of ``repro.launch.train``.  Every flag
 of that launcher this port does not have yet exits with the ROADMAP item
 that ports it; so do ``--quant`` / ``--phase-bits`` with a BP optimizer
@@ -82,7 +94,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import time
+import math
 
 import torch
 
@@ -94,6 +106,8 @@ from repro_torch.data import pde_collocation_iterator, pde_term_batch_iterator
 from repro_torch.device import counter_generator, resolve_device, to_device
 from repro_torch.kernels.quant import QuantConfig
 from repro_torch.optim import get_optimizer
+from repro_torch.parallel import zo_shard
+from repro_torch.runtime import StragglerWatchdog
 
 __all__ = ["PINN_ARCHS", "TrainResult", "init_solver", "train_pinn", "main"]
 
@@ -124,6 +138,8 @@ class TrainResult:
     step_seconds: list      # host wall time of every step run
     val_mse: float | None   # after the last step (None: no exact solution)
     opt_state: dict | None = None  # the optimizer's final state, as saved
+    straggles: int = 0      # steps the watchdog flagged (rank 0's)
+    ranks: list | None = None  # distributed: each rank's losses, launches
 
 
 def init_solver(model: pinn.TensorPinn, seed: int) -> tuple:
@@ -303,9 +319,6 @@ def _unported(args) -> list:
         (bp and (args.quant or args.phase_bits),
          f"quantization-aware BP training (--optimizer {args.optimizer})",
          11),
-        (args.shard is not None, "--shard", 13),
-        (args.mesh is not None, "--mesh", 13),
-        (args.async_ckpt, "--async-ckpt", 13),
         (args.seq is not None, "--seq", 14),
         (args.compress_grads, "--compress-grads", 14),
         (args.zo_vectorized, "--zo-vectorized", 14),
@@ -313,30 +326,55 @@ def _unported(args) -> list:
     return [(flag, item) for on, flag, item in checks if on]
 
 
-def train_pinn(args) -> TrainResult:
-    """Training of ``args.pde`` on ``args.device``: ZO-signSGD (fused, or
-    ``--sequential``) by default, the BP baselines with ``--optimizer``."""
-    cfg = _pinn_config(args)
-    device = resolve_device(args.device)
-    model = pinn.TensorPinn(cfg, problem=_conditioned_problem(args))
+def _build_model(args, say=print) -> pinn.TensorPinn:
+    """The run's model with its term weights applied."""
+    model = pinn.TensorPinn(_pinn_config(args),
+                            problem=_conditioned_problem(args))
     problem = model.problem
     if args.coeffs_per_step is not None and problem.coeff_spec is None:
         raise SystemExit(f"--coeffs-per-step needs a coefficient-"
                          f"conditioned PDE; {problem.name!r} is not")
     if _apply_term_weights(args, problem):
-        print("[pinn] term weights: "
-              + " ".join(f"{k}={v:g}"
-                         for k, v in problem.term_weights().items()))
-    print(f"[pinn] pde={problem.name} in_dim={problem.in_dim} "
-          f"mode={cfg.mode} hidden={cfg.hidden} deriv={cfg.deriv} "
-          f"fused={cfg.use_fused_kernel} device={device}"
-          + (f" quant={cfg.quant.tag()}" if cfg.quant.enabled else ""))
+        say("[pinn] term weights: "
+            + " ".join(f"{k}={v:g}"
+                       for k, v in problem.term_weights().items()))
+    return model
+
+
+def _kernel_launches() -> dict:
+    """Every counted kernel wrapper's launches in this process."""
+    from repro_torch.kernels import mesh_apply, tt_contract
+    return {name: getattr(mod, name).launches for mod, names in (
+        (tt_contract, ("tt_contract", "tt_contract_batched",
+                       "tt_contract_batched_quant", "tt_contract_grad")),
+        (mesh_apply, ("mesh_densify_stacked", "mesh_apply_stacked",
+                      "mesh_densify_grad", "mesh_apply_stacked_grad",
+                      "mesh_product_grad"))) for name in names}
+
+
+def train_pinn(args, mesh: zo_shard.ZOMesh | None = None) -> TrainResult:
+    """Training of ``args.pde`` on ``args.device``: ZO-signSGD (fused, or
+    ``--sequential``) by default, the BP baselines with ``--optimizer``.
+    With ``mesh`` (``--shard``) this process is one rank of the
+    distributed ZO step; rank 0 alone prints, validates and checkpoints."""
+    lead = mesh is None or mesh.rank in (None, mesh.ranks[0])
+    say = print if lead else (lambda *a, **k: None)
+    model = _build_model(args, say)
+    cfg, problem = model.cfg, model.problem
+    device = resolve_device(args.device)
+    say(f"[pinn] pde={problem.name} in_dim={problem.in_dim} "
+        f"mode={cfg.mode} hidden={cfg.hidden} deriv={cfg.deriv} "
+        f"fused={cfg.use_fused_kernel} device={device}"
+        + (f" quant={cfg.quant.tag()}" if cfg.quant.enabled else ""))
     if problem.coeff_spec is not None:
         spec = problem.coeff_spec
-        print("[pinn] conditioned on "
-              + ", ".join(f"{n}∈[{lo:g}, {hi:g}]" for n, lo, hi
-                          in zip(spec.names, spec.lo, spec.hi))
-              + f" ({spec.dist}); net_in={problem.net_dim}")
+        say("[pinn] conditioned on "
+            + ", ".join(f"{n}∈[{lo:g}, {hi:g}]" for n, lo, hi
+                        in zip(spec.names, spec.lo, spec.hi))
+            + f" ({spec.dist}); net_in={problem.net_dim}")
+    if mesh is not None:
+        say(f"[pinn] distributed ZO mesh pert={mesh.shape['pert']} "
+            f"batch={mesh.shape['batch']} (shard={args.shard})")
 
     params, hw_noise = init_solver(model, args.seed)
     params = to_device(params, device)
@@ -347,16 +385,22 @@ def train_pinn(args) -> TrainResult:
     mask = model.trainable_mask(params)
     sizes = [(leaf.numel(), t) for leaf, t in
              zip(zoo.tree_leaves(params), zoo.tree_leaves(mask))]
-    print(f"[pinn] trainable params: {sum(n for n, t in sizes if t)} "
-          f"(+ {sum(n for n, t in sizes if not t)} fixed buffers)")
+    say(f"[pinn] trainable params: {sum(n for n, t in sizes if t)} "
+        f"(+ {sum(n for n, t in sizes if not t)} fixed buffers)")
     val = (problem.sample_collocation(counter_generator(args.seed, 1234),
                                       1000).to(device)
-           if problem.has_exact_solution else None)
+           if problem.has_exact_solution and lead else None)
 
     ckpt_meta = _checkpoint_meta(cfg, problem, args.seed,
                                  noise_saved=hw_noise is not None)
-    mgr = (CheckpointManager(args.ckpt_dir, keep=3, save_every=args.ckpt_every)
+    # every rank restores from the directory; rank 0 alone writes to it
+    mgr = (CheckpointManager(args.ckpt_dir, keep=3, save_every=args.ckpt_every,
+                             async_save=args.async_ckpt)
            if args.ckpt_dir else None)
+    watchdog = StragglerWatchdog(
+        on_straggle=lambda s: say(f"[watchdog] straggler at step {s.step}: "
+                                  f"{s.duration_s:.3f}s vs median "
+                                  f"{s.median_s:.3f}s", flush=True))
 
     opt_name = args.optimizer or "zo-signsgd"
     if opt_name == "zo-signsgd":
@@ -365,6 +409,18 @@ def train_pinn(args) -> TrainResult:
         lr0 = args.lr or 2e-3
         half_life = max(args.steps // 3, 1)
 
+    if mesh is not None:
+        # this rank's slice of the stacked losses on its batch shard; the
+        # term batches are replicated whole
+        dist_step = zo_shard.make_distributed_zo_step(
+            mesh, lambda sp, x, tb: pinn.residual_losses_stacked(
+                model, sp, x, hw_noise, term_batches=tb),
+            scfg, trainable_mask=mask)
+
+        def step_fn(params, state, xt, tb, step):
+            return dist_step(params, state, xt, tb,
+                             lr0 * 0.5 ** (step / half_life))
+    elif opt_name == "zo-signsgd":
         def step_fn(params, state, xt, tb, step):
             def loss_fn(p):
                 return pinn.residual_loss(model, p, xt, hw_noise,
@@ -403,7 +459,7 @@ def train_pinn(args) -> TrainResult:
             aux = (zoo.ZOState.from_tree(restored["zo"]) if aux_name == "zo"
                    else restored["opt"])
             start_step = meta["step"]
-            print(f"[resume] step {start_step}")
+            say(f"[resume] step {start_step}")
 
     colloc = pde_collocation_iterator(args.batch, seed=args.seed,
                                       start_step=start_step, problem=problem,
@@ -415,11 +471,11 @@ def train_pinn(args) -> TrainResult:
     for step in range(start_step, args.steps):
         xt = next(colloc).to(device)
         tb = to_device(next(terms), device)
-        t0 = time.perf_counter()
+        watchdog.start_step()
         params, aux, loss = step_fn(params, aux, xt, tb, step)
         losses.append(float(loss))                  # waits for the step
-        seconds.append(time.perf_counter() - t0)
-        if step % args.log_every == 0:
+        seconds.append(watchdog.end_step(step).duration_s)
+        if step % args.log_every == 0 and lead:
             msg = f"step {step} loss {losses[-1]:.4e} ({seconds[-1]:.2f}s)"
             with torch.no_grad():
                 if multi_term:
@@ -431,23 +487,99 @@ def train_pinn(args) -> TrainResult:
                     mse = pinn.validation_mse(model, params, val, hw_noise)
                     msg += f" val MSE {float(mse):.4e}"
             print(msg, flush=True)
-        if mgr and mgr.should_save(step + 1):
+        if mgr and lead and mgr.should_save(step + 1):
             mgr.save(step + 1, _checkpoint_tree(params, aux_name,
                                                 aux_tree(aux), hw_noise),
                      {"step": step + 1, **ckpt_meta})
 
-    if mgr:
+    if mgr and lead:
         mgr.save(args.steps, _checkpoint_tree(params, aux_name, aux_tree(aux),
                                               hw_noise),
                  {"step": args.steps, **ckpt_meta})
+        mgr.wait()
     val_mse = None
     if val is not None:
         with torch.no_grad():
             val_mse = float(pinn.validation_mse(model, params, val, hw_noise))
-        print(f"[pinn] final val MSE {val_mse:.4e}")
-    print("[train] done")
+        say(f"[pinn] final val MSE {val_mse:.4e}")
+    say(f"[watchdog] {watchdog.straggles} straggling steps of "
+        f"{len(watchdog.history)}")
+    say("[train] done")
     return TrainResult(model, params, hw_noise, losses, seconds, val_mse,
-                       aux_tree(aux))
+                       aux_tree(aux), watchdog.straggles)
+
+
+def _distributed_layout(args) -> tuple:
+    """(P, B) of ``--shard`` / ``--mesh``, with the JAX trainer's exits.
+    Without ``--mesh`` the layout spans the visible cards (one rank on
+    the CPU)."""
+    opt_name = args.optimizer or "zo-signsgd"
+    if opt_name != "zo-signsgd":
+        raise SystemExit(f"--shard is distributed ZO only "
+                         f"(got --optimizer {opt_name}); the BP baselines "
+                         "do not shard")
+    if args.sequential:
+        raise SystemExit("--shard needs the stacked evaluator; "
+                         "drop --sequential")
+    spec = args.mesh
+    if spec:
+        n = math.prod(int(v) for v in spec.split("x"))
+    else:
+        n = (torch.cuda.device_count()
+             if resolve_device(args.device).type == "cuda" else 1)
+    try:
+        p, b = zo_shard.mesh_shape(spec, args.shard, n)
+    except ValueError as e:
+        raise SystemExit(f"--mesh: {e}")
+    if args.batch % b:
+        raise SystemExit(f"--batch {args.batch} not divisible by the "
+                         f"{b}-way batch axis")
+    return p, b
+
+
+def _train_rank(rank: int, world: int, args) -> dict:
+    """One rank of a ``--shard`` run (``zo_shard.run_ranks``): its card,
+    its part of the training, and what the parent needs back — rank 0's
+    final state, every rank's losses and kernel launches."""
+    if resolve_device(args.device).type == "cuda":
+        card = f"cuda:{torch.cuda.current_device()}"   # set by run_ranks
+        args = argparse.Namespace(**{**vars(args), "device": card})
+    res = train_pinn(args, zo_shard.make_zo_mesh(args.mesh, args.shard))
+    out = {"rank": rank, "losses": res.losses, "launches": _kernel_launches()}
+    if rank == 0:
+        out.update(params=to_device(res.params, torch.device("cpu")),
+                   hw_noise=(None if res.hw_noise is None else
+                             to_device(res.hw_noise, torch.device("cpu"))),
+                   step_seconds=res.step_seconds, val_mse=res.val_mse,
+                   opt_state=res.opt_state, straggles=res.straggles)
+    return out
+
+
+def train_distributed(args) -> TrainResult:
+    """``--shard``: P·B ranks spawned for the distributed ZO step, or this
+    process alone for a 1×1 layout.  Returns rank 0's result, its tensors
+    on ``args.device``."""
+    p, b = _distributed_layout(args)
+    if p * b == 1:
+        return train_pinn(args, zo_shard.make_zo_mesh("1x1", args.shard))
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        # one nvcc a kernel here, not one a rank
+        from repro_torch.kernels import _build
+        for name in ("tt_contract", "mesh_apply"):
+            _build.build(name)
+    args = argparse.Namespace(**{**vars(args), "mesh": f"{p}x{b}"})
+    outs = zo_shard.run_ranks(_train_rank, p * b, args, device=device)
+    lead = outs[0]
+    noise = lead["hw_noise"]
+    return TrainResult(
+        _build_model(args, lambda *a, **k: None),
+        to_device(lead["params"], device),
+        None if noise is None else to_device(noise, device),
+        lead["losses"], lead["step_seconds"], lead["val_mse"],
+        lead["opt_state"], lead["straggles"],
+        [{"rank": o["rank"], "losses": o["losses"],
+          "launches": o["launches"]} for o in outs])
 
 
 def main(argv=None) -> TrainResult:
@@ -521,11 +653,18 @@ def main(argv=None) -> TrainResult:
                     help="grouped scenario sampling: C coefficient draws "
                          "a step tiled over the batch instead of a draw "
                          "a point")
-    # flags of repro.launch.train that exit here (see _unported)
     ap.add_argument("--shard", default=None,
-                    choices=["perturbation", "batch", "both"])
-    ap.add_argument("--mesh", default=None)
-    ap.add_argument("--async-ckpt", action="store_true")
+                    choices=["perturbation", "batch", "both"],
+                    help="distributed ZO over a ('pert', 'batch') layout "
+                         "of spawned ranks: shard the SPSA sweep, the "
+                         "collocation batch, or both (O(N) scalars on the "
+                         "wire a step)")
+    ap.add_argument("--mesh", default=None,
+                    help="with --shard: PERTxBATCH ranks (e.g. 2x1); "
+                         "default: one rank a visible card")
+    ap.add_argument("--async-ckpt", action="store_true",
+                    help="write checkpoints on a thread")
+    # flags of repro.launch.train that exit here (see _unported)
     ap.add_argument("--seq", type=int, default=None)
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--zo-vectorized", action="store_true")
@@ -542,6 +681,8 @@ def main(argv=None) -> TrainResult:
         raise SystemExit("; ".join(
             f"{flag} is not ported yet (ROADMAP queue A, item {item})"
             for flag, item in unported))
+    if args.shard:
+        return train_distributed(args)
     return train_pinn(args)
 
 

@@ -4,8 +4,9 @@ contract, ``run_problem``'s rows, ``--ci``'s budgets),
 ``benchmarks/torch_zo_step.py`` (``bench_mode``'s rows) and
 ``benchmarks/torch_residual_perf.py`` (its rows, off-path checks and
 gates), ``benchmarks/torch_ns_data.py`` and
-``benchmarks/torch_coeff_family.py`` (their records and gates), each
-against the keys of the reference benchmark's committed JSON; and
+``benchmarks/torch_coeff_family.py`` (their records and gates),
+``benchmarks/torch_distributed_zo.py --ci`` (8 CPU ranks), each against
+the keys of the reference benchmark's committed JSON; and
 ``benchmarks/torch_table1_hjb.run_row`` on a problem with a boundary term.
 """
 
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from benchmarks import torch_coeff_family as cfam
+from benchmarks import torch_distributed_zo as dzo
 from benchmarks import torch_ns_data as nsdata
 from benchmarks import torch_pde_suite as suite
 from benchmarks import torch_residual_perf as rperf
@@ -81,7 +83,7 @@ def test_failures_name_a_divergence_and_a_nonfinite_loss():
 
 
 @pytest.mark.parametrize("main", [suite.main, zo.main, rperf.main,
-                                  nsdata.main, cfam.main])
+                                  nsdata.main, cfam.main, dzo.main])
 def test_out_is_required(main, capsys):
     with pytest.raises(SystemExit):
         main(["--device", "cpu"])
@@ -212,3 +214,28 @@ def test_coeff_family_record_has_the_reference_keys_and_gates():
     assert zo_run["pde"] == "black-scholes-100d-rs" and zo_run["hidden"] == 16
     assert len(zo_run["held_out"]) == 3 and zo_run["coeffs_per_step"] == 4
     assert all(math.isfinite(r["val_mse"]) for r in zo_run["held_out"])
+
+
+def test_distributed_zo_ci_record_has_the_reference_keys(tmp_path):
+    """``--ci``: 8 CPU ranks, the reference's layouts and row keys, every
+    layout's wire within its O(N) bound and below the params' bytes, and
+    the gradient identity on every registered PDE (the reference's own
+    ``BENCH_distributed_zo.json`` covers the six it had)."""
+    ref = _reference("BENCH_distributed_zo.json")
+    out = tmp_path / "dz.json"
+    res = dzo.main(["--ci", "--out", str(out)])
+    assert json.loads(out.read_text()) == json.loads(json.dumps(res))
+    assert res["config"]["world"] == 8 and res["config"]["device"] == "cpu"
+    assert [r["layout"] for r in res["layouts"]] == [
+        r["layout"] for r in ref["layouts"]]
+    for r in res["layouts"]:
+        assert set(ref["layouts"][0]) <= set(r)
+        assert r["wire_bytes_per_step"] <= r["wire_bound_bytes"] \
+            < r["param_bytes"]
+        assert (r["wire_bytes_per_step"] > 0) == (r["devices"] > 1)
+        assert len(r["step_ms_ranks"]) == r["devices"]
+    from repro_torch import pde as tpde
+    assert [r["pde"] for r in res["identity"]] == list(tpde.available())
+    assert {r["pde"] for r in ref["identity"]} <= set(tpde.available())
+    for r in res["identity"]:
+        assert set(ref["identity"][0]) <= set(r) and r["identity"], r

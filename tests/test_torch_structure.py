@@ -30,7 +30,8 @@ PORT = ROOT / "src" / "repro_torch"
 JAX_FREE = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
             + sorted((ROOT / "tools").glob("*.py"))
             + sorted((ROOT / "benchmarks").glob("torch_*.py"))
-            + [ROOT / "tests" / "test_torch_gpu.py"])
+            + [ROOT / "tests" / "test_torch_gpu.py",
+               ROOT / "tests" / "torch_dist_ranks.py"])
 FORBIDDEN_ROOTS = {"jax", "jaxlib", "repro"}
 
 
@@ -53,7 +54,9 @@ def test_no_jax_or_reference_imports(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serving, repro_torch.launch.serve_pde, "
             "repro_torch.launch.train, repro_torch.launch.serve, "
-            "repro_torch.models.api, repro_torch.configs; "
+            "repro_torch.models.api, repro_torch.configs, "
+            "repro_torch.parallel.zo_shard, repro_torch.optim.zo, "
+            "repro_torch.runtime.watchdog, repro_torch.runtime.elastic; "
             "[repro_torch.configs.get_config(a) "
             "for a in repro_torch.configs.ARCH_NAMES]; "
             "bad = [m for m in sys.modules "
@@ -63,6 +66,23 @@ def test_importing_the_port_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+DISTRIBUTED_MODULES = ("parallel/__init__.py", "parallel/zo_shard.py",
+                       "optim/zo.py", "runtime/__init__.py",
+                       "runtime/watchdog.py", "runtime/elastic.py")
+
+
+@pytest.mark.parametrize("rel", DISTRIBUTED_MODULES)
+def test_distributed_zo_modules_exist_and_are_jax_free(rel):
+    """The distributed-ZO slice mirrors its reference module for module;
+    each file is in ``JAX_FREE`` and imports neither JAX nor the JAX
+    package (the reference's ``parallel`` is a namespace package)."""
+    path, ref = PORT / rel, ROOT / "src" / "repro" / rel
+    assert path.is_file()
+    assert ref.is_file() or (rel.endswith("__init__.py") and ref.parent.is_dir())
+    assert path in JAX_FREE
+    assert not _imported_roots(path) & FORBIDDEN_ROOTS
 
 
 def test_the_tt_chain_has_one_body():
@@ -125,6 +145,18 @@ def test_fiber_rows_script_refuses_without_a_gpu():
                           timeout=300)
     assert proc.returncode != 0
     assert "[fiber-rows]" not in proc.stdout and "ms" not in proc.stdout
+
+
+def test_dist_identity_script_refuses_without_a_gpu():
+    """The distributed-identity diagnosis defaults to the card too."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run([sys.executable,
+                           str(ROOT / "tools" / "dist_identity.py")],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert "[dist-identity]" not in proc.stdout and "ms" not in proc.stdout
 
 
 def test_mesh_rows_grad_script_refuses_without_a_gpu():

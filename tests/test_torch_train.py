@@ -171,8 +171,7 @@ def test_resume_redraws_the_same_perturbations(tmp_path):
     (["--phase-bits", "8", "--pinn-mode", "onn"], "item 11"),
     (["--quant", "int8", "--optimizer", "adamw"], "item 11"),
     (["--phase-bits", "8", "--pinn-noise", "--optimizer", "sgd"], "item 11"),
-    (["--shard", "perturbation"], "item 13"), (["--mesh", "2x1"], "item 13"),
-    (["--async-ckpt"], "item 13"), (["--seq", "16"], "item 14"),
+    (["--seq", "16"], "item 14"),
     (["--compress-grads"], "item 14"), (["--zo-vectorized"], "item 14")])
 def test_unported_flags_exit_with_their_roadmap_item(flags, item):
     """Each refusal names its ROADMAP item; ``--estimator stein`` names the
@@ -181,6 +180,25 @@ def test_unported_flags_exit_with_their_roadmap_item(flags, item):
     ported: on hjb-20d, which is not conditioned, they exit saying so."""
     with pytest.raises(SystemExit, match=item):
         train.main(REDUCED + flags)
+
+
+@pytest.mark.parametrize("flags", [["--shard", "perturbation"],
+                                   ["--mesh", "2x1"], ["--async-ckpt"]])
+def test_item_13_flags_train_in_one_process(flags, tmp_path, capsys):
+    """The flags item 13 ported, where they need no spawned ranks: on the
+    CPU ``--shard`` alone lays out one rank (the distributed step without
+    collectives), ``--mesh`` without ``--shard`` is ignored as in the JAX
+    trainer, ``--async-ckpt`` writes on a thread.  Each trains bit for bit
+    as the plain run."""
+    common = ["--steps", "3", "--batch", "8", "--pinn-noise"]
+    plain = _run(*common)
+    res = _run(*common, *flags, "--ckpt-dir", tmp_path)
+    assert res.losses == plain.losses
+    for a, b in zip(zoo.tree_leaves(res.params), zoo.tree_leaves(plain.params)):
+        assert torch.equal(a, b)
+    assert (tmp_path / "step_000000000003" / "COMMITTED").exists()
+    layout = "[pinn] distributed ZO mesh pert=1 batch=1 (shard=perturbation)"
+    assert (layout in capsys.readouterr().out) == ("--shard" in flags)
 
 
 def test_onn_bp_trains_where_the_resident_backward_holds_its_meshes():
